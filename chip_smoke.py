@@ -3,26 +3,40 @@
 
     python3 chip_smoke.py [--trace] [--out FILE]
 
-Drives the port's main path, NDS q3 through the eager plan engine
-(`spark_rapids_tpu_torch.plan.PlanExecutor`), on the card at the repo's q3
-bench scale (10,000,000 store_sales rows, seed 0), in phases that each raise
-on failure:
+Drives the port's paths on the card at the repo's bench scales (seed 0),
+in phases that each raise on failure:
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles every CUDA source of the port with nvcc (sm_90a);
-3. kernels: each hash-join kernel (build, probe count, probe emit) against
-   its plain PyTorch version on the card, for exact equality, at q3's own
-   shapes and on a small dtype/null/multi-key matrix; then each is timed
-   at q3's shapes: its device time from torch.profiler's kernel records,
-   one wrapper call's time between CUDA events, its plain version's time,
-   and its bound (the larger of the bytes this run's data needs over
-   3.35 TB/s and its hash operations over 67 T/s);
-4. q3: the launch counters are zeroed, q3 runs once through
-   `PlanExecutor()` on the card, the counters are read; the result must
-   equal an independent numpy q3 and the port's own run on the CPU, both
-   joins must be stamped `cuda:hash_join` and each kernel launched twice;
-5. prints one `{"kernels": [...]}` line, then as the last line
+2. build: compiles every CUDA source of the port with nvcc (sm_90a), one
+   nvcc per source, all started together;
+3. hash-join kernels: each (build, probe count, probe emit) against its
+   plain PyTorch version on the card, for exact equality, at q3's shapes
+   and on a small dtype/null/multi-key matrix; then timed at q3's shapes;
+4. q3: NDS q3 at 10,000,000 store_sales rows through `PlanExecutor()`,
+   launch counters zeroed before and read after; the result must equal an
+   independent numpy q3 and the port's own run on the CPU;
+5. row hash: `bench.py`'s workload (10,000,000 rows x 2 INT64 columns)
+   through `ops.murmur_hash3_32` + `ops.xxhash64` (two launches),
+   `ops.fused_row_hash` (one) and `api.Hash`, counters zeroed before and
+   read after; the kernel equals its plain version on the card, bit for
+   bit, at that size and on a dtype/null/NaN/length matrix, and equals a
+   numpy evaluation written here; then timed, with the headline
+   `spark_row_hash_throughput` line;
+6. partition: `benchmarks/bench_partition.py`'s ids (10,000,000 for P = 8
+   and 64) and P = 200, Spark's default `spark.sql.shuffle.partitions`,
+   through `parallel.partition_histogram`, and the shuffle chain
+   murmur3 (seed 42) -> `partition_ids` -> histogram, `build_partition_map`
+   and `build_partition_map_scan`; the kernel equals its plain version and
+   `np.bincount`, the three counts agree and the two maps are identical,
+   also on small cases for P from 1 to 13,000 (Spark's default 200 among
+   them); then timed beside `torch.bincount`;
+7. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
+
+Each kernel is timed by its device time from torch.profiler's kernel
+records, one wrapper call's time between CUDA events (the L2 flushed
+before each call in both), its plain version's time, and its bound: the
+larger of the bytes this run's data needs over 3.35 TB/s and its integer operations over the card's integer rate.
 
 It imports nothing of JAX or of `spark_rapids_tpu`. Without a CUDA device,
 or outside the repo checkout, it exits non-zero and prints no result.
@@ -37,21 +51,41 @@ import time
 import numpy as np
 
 N_SALES = 10_000_000               # the repo's q3 bench at scale 1
+N_ROWS = 10_000_000                # bench.py and bench_partition.py
+# bench_partition.py's bucket counts and Spark's default shuffle partitions
+PARTITIONS = (8, 64, 200)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-# The data sheet gives no rate for 32-bit integer work outside the tensor
-# cores; its float32 rate there (67 T/s) is at least that, so time counted at
-# it stays a lower bound.
-PEAK_OPS_PER_S = 67e12
+# 32-bit integer instructions: 64 per clock per SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0) x 132
+# SMs x 1.98 GHz boost (H100 SXM data sheet). The float32 rate outside the
+# tensor cores (67 T/s) counts 128 lanes and a fused multiply-add as two.
+PEAK_INT_OPS_PER_S = 64 * 132 * 1.98e9
 # murmur3 integer operations per key column: mm_round is 11, the column's
 # closing xor and fmix 9, and a wide key a second round plus a shift
 HASH_OPS = {False: 20, True: 32}
+# row-hash instructions, counted from csrc/row_hash.cu (its header): per
+# 8-byte column murmur3 21, xxhash64 32, load/encode/null test 8 and the
+# column loop 3; per row the index, seeds and stores, 9 (12 for both hashes)
+RH_COL_OPS = {"murmur": 21 + 11, "xxhash": 32 + 11, "fused": 21 + 32 + 11}
+RH_ROW_OPS = {"murmur": 9, "xxhash": 9, "fused": 12}
+RH_OUT_BYTES = {"murmur": 4, "xxhash": 8, "fused": 12}
+# histogram: per id a range compare and a shared-memory add
+HIST_OPS = 2
 KERNEL_NAMES = {"build": "build_kernel", "count": "probe_kernel<false>",
-                "emit": "probe_kernel<true>"}
+                "emit": "probe_kernel<true>",
+                "murmur": "row_hash_kernel<true,false>",
+                "xxhash": "row_hash_kernel<false,true>",
+                "fused": "row_hash_kernel<true,true>",
+                "histogram": "hist_kernel"}
 SOURCE = "spark_rapids_tpu_torch/ops/csrc/hash_join.cu"
+RH_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_hash.cu"
+HIST_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
 REPLACES = {
     "build": "spark_rapids_tpu/ops/join_pallas.py:122",
     "count": "spark_rapids_tpu/ops/join_pallas.py:209",
     "emit": "spark_rapids_tpu/ops/join_pallas.py:244",
+    "row_hash": "spark_rapids_tpu/ops/hash_pallas.py:248",
+    "histogram": "spark_rapids_tpu/parallel/partition_pallas.py:33",
 }
 
 
@@ -98,7 +132,8 @@ def build_phase():
 
 class Checks:
     def __init__(self):
-        self.max_err = {"build": 0, "count": 0, "emit": 0}
+        self.max_err = {"build": 0, "count": 0, "emit": 0, "row_hash": 0,
+                        "histogram": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -106,12 +141,15 @@ class Checks:
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{what}: shape/dtype {tuple(a.shape)} "
                                  f"{a.dtype} vs {tuple(b.shape)} {b.dtype}")
-        err = (int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-               if a.numel() else 0)
-        self.max_err[kernel] = max(self.max_err[kernel], err)
-        if err:
+        if not torch.equal(a, b):
+            # the difference is a diagnostic only: in int64 it may wrap to
+            # read 0 or less, so a mismatch records at least 1
+            bad = int((a != b).sum())
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            self.max_err[kernel] = max(self.max_err[kernel], diff, 1)
             raise AssertionError(f"{what}: kernel differs from its plain "
-                                 f"version (max abs err {err})")
+                                 f"version in {bad} values (max abs err "
+                                 f"{diff})")
         self.n += 1
 
 
@@ -196,15 +234,31 @@ def time_cuda(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+_FLUSH = {}
+
+
+def flush_l2(torch):
+    """Overwrite 256 MB of device memory, five times the card's 50 MB L2, so
+    that the next kernel reads its inputs from device memory, as the bound
+    assumes."""
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(64 << 20, dtype=torch.int32,
+                                    device="cuda")
+    _FLUSH["buf"].fill_(1)
+
+
 def call_ms(torch, fn, iters):
     """Median time of one call of `fn` between its own pair of CUDA events,
-    the card idle before each: the kernel plus the host's launch of it."""
+    the card idle and its L2 flushed before each: the kernel plus the
+    host's launch of it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        flush_l2(torch)
+        torch.cuda.synchronize()
         start.record()
         fn()
         end.record()
@@ -213,24 +267,33 @@ def call_ms(torch, fn, iters):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, kernel, iters):
+def device_ms(torch, fn, kernel, iters, attempts=3):
     """Mean device time of the kernel named `kernel` over `iters` calls of
-    `fn`, from torch.profiler's records of the kernels the card ran."""
+    `fn`, the L2 flushed before each, from torch.profiler's records of the
+    kernels the card ran. A profile that comes back without every run's
+    record (CUPTI sometimes drops a session's records) is taken again, at
+    most `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # demangled: "void probe_kernel<false>(Keys, ...)", "build_kernel(...)"
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if str(e.device_type).endswith("CUDA")
-          and e.name.split("(")[0].removeprefix("void ") == kernel]
-    require(len(us) == iters, f"the profiler recorded {len(us)} runs of "
-            f"{kernel} for {iters} calls")
-    return sum(us) / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush_l2(torch)
+                fn()
+            torch.cuda.synchronize()
+        # demangled: "void probe_kernel<false>(Keys, ...)", "build_kernel(...)"
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if str(e.device_type).endswith("CUDA")
+              and e.name.split("(")[0].removeprefix("void ").replace(" ", "")
+              == kernel]
+        if len(us) == iters:
+            return sum(us) / iters / 1e3
+        log(f"  (the profiler recorded {len(us)} runs of {kernel} for "
+            f"{iters} calls; profiling again)")
+    raise AssertionError(f"the profiler recorded {len(us)} runs of {kernel} "
+                         f"for {iters} calls, {attempts} times")
 
 
 def kernel_bounds(torch, jc, pcols, bcols, C, counts):
@@ -337,7 +400,7 @@ def kernel_phase(torch, q3_tables):
             pms = time_cuda(torch, plain, 5)
             nbytes, ops = bounds[k]
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / PEAK_OPS_PER_S * 1e3
+            ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
             t = timing[k]
             t["ms"] += ms
             t["call_ms"] += cms
@@ -462,6 +525,326 @@ def q3_phase(torch, inputs_cpu, gen, trace):
     return res, launches, warm, traced
 
 
+# ---- phase 5 -----------------------------------------------------------------
+
+_M32 = np.uint32(0xFFFFFFFF)
+_XX = [np.uint64(c) for c in (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F,
+                              0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+                              0x27D4EB2F165667C5)]
+
+
+def np_murmur3(cols, seed):
+    """Spark murmur3_32 of rows of int64 columns, in numpy uint32: two
+    rounds per column (low word, high word), then fmix(h ^ 8)."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+    h = np.full(cols[0].shape[0], seed, np.uint32)
+    for c in cols:
+        u = c.view(np.uint64)
+        for w in ((u & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                  (u >> np.uint64(32)).astype(np.uint32)):
+            k = rotl(w * np.uint32(0xCC9E2D51), 15) * np.uint32(0x1B873593)
+            h = rotl(h ^ k, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+        h = h ^ np.uint32(8)
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        h *= np.uint32(0xC2B2AE35)
+        h ^= h >> np.uint32(16)
+    return h.view(np.int32)
+
+
+def np_xxhash64(cols, seed):
+    """Spark xxhash64 of rows of int64 columns, in numpy uint64: per column
+    the 8-byte xxhash64 of the value, seeded with the running hash."""
+    p1, p2, p3, p4, p5 = _XX
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+    h = np.full(cols[0].shape[0], seed, np.uint64)
+    for c in cols:
+        k = rotl(c.view(np.uint64) * p2, 31) * p1
+        h = h + p5 + np.uint64(8)
+        h = rotl(h ^ k, 27) * p1 + p4
+        h ^= h >> np.uint64(33)
+        h *= p2
+        h ^= h >> np.uint64(29)
+        h *= p3
+        h ^= h >> np.uint64(32)
+    return h.view(np.int64)
+
+
+def hash_matrix(torch, dt, Column):
+    """(what, columns) on the card: every kind the kernel takes, with and
+    without nulls, NaN/+-0.0/+-inf, lengths 0, 1 and off the block."""
+    rng = np.random.default_rng(2)
+    specs = [("bool", None, dt.BOOL), ("int8", np.int8, dt.INT8),
+             ("int16", np.int16, dt.INT16), ("int32", np.int32, dt.INT32),
+             ("date32", np.int32, dt.DATE32), ("int64", np.int64, dt.INT64),
+             ("timestamp_us", np.int64, dt.TIMESTAMP_US),
+             ("decimal32", np.int32, dt.decimal(9, 2)),
+             ("decimal64", np.int64, dt.decimal(18, 2)),
+             ("float32", np.float32, dt.FLOAT32),
+             ("float64", np.float64, dt.FLOAT64)]
+    for n in (0, 1, 1000, 1_000_003):
+        for null_p in (0.0, 0.2):
+            cols = []
+            for name, npt, dtype in specs:
+                if npt is None:
+                    a = rng.integers(0, 2, n).astype(bool)
+                elif np.issubdtype(npt, np.floating):
+                    a = rng.standard_normal(n).astype(npt)
+                    a[:min(n, 6)] = np.array(
+                        [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf],
+                        npt)[:min(n, 6)]
+                else:
+                    ii = np.iinfo(npt)
+                    a = rng.integers(ii.min, ii.max, n, dtype=npt,
+                                     endpoint=True)
+                v = (rng.random(n) > null_p) if null_p else None
+                cols.append((name, Column.from_numpy(a, dtype, v,
+                                                     device="cuda")))
+            for name, c in cols:
+                yield f"{name} n={n} nulls={null_p}", [c]
+            ints = [c for name, c in cols if not name.startswith("float")]
+            yield f"all integer kinds n={n} nulls={null_p}", ints
+            yield (f"44 columns (two launches) n={n} nulls={null_p}",
+                   [c for _, c in cols] * 4)
+
+
+def row_hash_bounds(form, n, ncols):
+    """(bytes, operations) of one row-hash call over n rows of ncols INT64
+    columns: every value read once, every hash written once."""
+    nbytes = n * (8 * ncols + RH_OUT_BYTES[form])
+    return nbytes, n * (ncols * RH_COL_OPS[form] + RH_ROW_OPS[form])
+
+
+def row_hash_phase(torch, chk, smi):
+    from spark_rapids_tpu_torch import api, ops
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import hash as plain
+    from spark_rapids_tpu_torch.ops import hash_cuda as hc
+
+    # bench.py's workload (bench.py:86-89)
+    rng = np.random.default_rng(0)
+    keys_np = rng.integers(-(2**62), 2**62, size=N_ROWS, dtype=np.int64)
+    vals_np = rng.integers(-(2**31), 2**31, size=N_ROWS, dtype=np.int64)
+    t = Table([Column.from_numpy(keys_np, dt.INT64, device="cuda"),
+               Column.from_numpy(vals_np, dt.INT64, device="cuda")],
+              ["keys", "vals"])
+    torch.cuda.synchronize()
+
+    # the main path, counters zeroed just before and read just after
+    hc.reset_counters()
+    h32 = ops.murmur_hash3_32(t, seed=42)
+    h64 = ops.xxhash64(t)
+    fm, fx = ops.fused_row_hash(t, mm_seed=42)
+    am = api.Hash.murmurHash32(t.columns, 42)
+    ax = api.Hash.xxhash64(t.columns)
+    torch.cuda.synchronize()
+    launches = dict(hc.LAUNCHES)
+    plain_calls = dict(hc.PLAIN_CALLS)
+    log(f"row hash at {N_ROWS} rows x 2 INT64: launches {launches}, "
+        f"plain runs {plain_calls}")
+    require(launches == {"murmur": 2, "xxhash": 2, "fused": 1},
+            f"row-hash launches on the path {launches}")
+    require(plain_calls == {"murmur": 0, "xxhash": 0, "fused": 0},
+            f"plain row hashes ran on the card path {plain_calls}")
+
+    t0 = time.perf_counter()
+    want_mm = plain.murmur_hash3_32(t, 42).data
+    want_xx = plain.xxhash64(t).data
+    for what, got, want in (("murmur", h32.data, want_mm),
+                            ("xxhash", h64.data, want_xx),
+                            ("fused murmur", fm.data, want_mm),
+                            ("fused xxhash", fx.data, want_xx),
+                            ("api murmur", am.data, want_mm),
+                            ("api xxhash", ax.data, want_xx)):
+        chk.equal("row_hash", got, want, f"10M {what}")
+    np_mm = np_murmur3([keys_np, vals_np], 42)
+    np_xx = np_xxhash64([keys_np, vals_np], 42)
+    require(np.array_equal(h32.data.cpu().numpy(), np_mm),
+            "murmur3 at 10M rows differs from the numpy evaluation")
+    require(np.array_equal(h64.data.cpu().numpy(), np_xx),
+            "xxhash64 at 10M rows differs from the numpy evaluation")
+    log(f"  10M rows: kernels == plain versions == numpy evaluation "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_cases = 0
+    for what, cols in hash_matrix(torch, dt, Column):
+        for seed in (0, 42):
+            chk.equal("row_hash", hc.murmur_hash3_32_cuda(cols, seed).data,
+                      plain.murmur_hash3_32(cols, seed).data,
+                      f"{what} murmur seed {seed}")
+            chk.equal("row_hash", hc.xxhash64_cuda(cols, seed).data,
+                      plain.xxhash64(cols, seed).data,
+                      f"{what} xxhash seed {seed}")
+        if not any(c.dtype.is_floating for c in cols):
+            m, x = hc.fused_row_hash_cuda(cols, mm_seed=42)
+            chk.equal("row_hash", m.data, plain.murmur_hash3_32(cols, 42).data,
+                      f"{what} fused murmur")
+            chk.equal("row_hash", x.data, plain.xxhash64(cols).data,
+                      f"{what} fused xxhash")
+        n_cases += 1
+    torch.cuda.synchronize()
+    log(f"  dtype matrix: {n_cases} tables, kernel == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # timing at bench.py's shape
+    calls = {"murmur": (lambda: hc.murmur_hash3_32_cuda(t, 42),
+                        lambda: plain.murmur_hash3_32(t, 42)),
+             "xxhash": (lambda: hc.xxhash64_cuda(t),
+                        lambda: plain.xxhash64(t)),
+             "fused": (lambda: hc.fused_row_hash_cuda(t, 42),
+                       lambda: (plain.murmur_hash3_32(t, 42),
+                                plain.xxhash64(t)))}
+    timing = {}
+    for form, (kern, pl) in calls.items():
+        ms = device_ms(torch, kern, KERNEL_NAMES[form], 50)
+        cms = call_ms(torch, kern, 50)
+        pms = time_cuda(torch, pl, 5)
+        nbytes, ops_ = row_hash_bounds(form, N_ROWS, 2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+        timing[form] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                        "bytes": nbytes, "ops": ops_, "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+        log(f"  {form}: device {ms!r} ms, one call {cms!r} ms, plain "
+            f"{pms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B "
+            f"-> {bytes_ms!r} ms, {ops_} ops -> {ops_ms!r} ms)")
+
+    # the headline, named as bench.py names it: a step of both hashes
+    two = time_cuda(torch, lambda: (ops.murmur_hash3_32(t, seed=42),
+                                    ops.xxhash64(t)), 20)
+    one = time_cuda(torch, lambda: ops.fused_row_hash(t, mm_seed=42), 20)
+    head = {"metric": "spark_row_hash_throughput",
+            "value": N_ROWS / two / 1e3,
+            "unit": "Mrows/s (murmur3_32+xxhash64, 2xint64, 10M rows)",
+            "fused_value": N_ROWS / one / 1e3, "step_ms": two,
+            "fused_step_ms": one, "backend": "cuda",
+            "device": torch.cuda.get_device_name(0), "card": smi,
+            "kernels": "cuda:row_hash"}
+    log(json.dumps(head))
+    return launches, timing, head
+
+
+# ---- phase 6 -----------------------------------------------------------------
+
+def partition_phase(torch, chk):
+    from spark_rapids_tpu_torch import ops, parallel
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import hash_cuda as hc
+    from spark_rapids_tpu_torch.parallel import partition_cuda as pc
+
+    # benchmarks/bench_partition.py's ids, and bench.py's keys for the chain
+    rng = np.random.default_rng(0)
+    ids = {P: rng.integers(0, P, N_ROWS).astype(np.int32)
+           for P in PARTITIONS}
+    keys_np = np.random.default_rng(0).integers(-(2**62), 2**62,
+                                                size=N_ROWS, dtype=np.int64)
+    parts = {P: torch.from_numpy(a).cuda() for P, a in ids.items()}
+    keys = Table([Column.from_numpy(keys_np, dt.INT64, device="cuda")])
+    torch.cuda.synchronize()
+
+    # the main path, counters zeroed just before and read just after
+    hc.reset_counters()
+    pc.reset_counters()
+    counts = {P: parallel.partition_histogram(parts[P], P) for P in parts}
+    chain = {}
+    for P in PARTITIONS:
+        cap = (N_ROWS // P) * 2
+        h = ops.murmur_hash3_32(keys, seed=42)
+        part = parallel.partition_ids(h.data, P)
+        chain[P] = (part, parallel.partition_histogram(part, P),
+                    parallel.build_partition_map(part, P, cap),
+                    parallel.build_partition_map_scan(part, P, cap))
+    torch.cuda.synchronize()
+    launches = {"histogram": pc.LAUNCHES["histogram"],
+                "murmur": hc.LAUNCHES["murmur"]}
+    log(f"partition at {N_ROWS} ids, P = {PARTITIONS}: launches {launches}, "
+        f"plain runs {pc.PLAIN_CALLS}")
+    require(launches == {"histogram": 2 * len(PARTITIONS),
+                         "murmur": len(PARTITIONS)},
+            f"partition launches on the path {launches}")
+    require(pc.PLAIN_CALLS == {"histogram": 0},
+            f"the histogram ran plain on the card path {pc.PLAIN_CALLS}")
+
+    t0 = time.perf_counter()
+    for P, a in ids.items():
+        want = np.bincount(a, minlength=P).astype(np.int32)
+        chk.equal("histogram", counts[P], pc.histogram_plain(parts[P], P),
+                  f"P={P} counts vs plain")
+        require(np.array_equal(counts[P].cpu().numpy(), want),
+                f"P={P} counts differ from np.bincount")
+    np_h = np_murmur3([keys_np], 42).astype(np.int64)
+    for P, (part, cnt, smap, scan) in chain.items():
+        np_part = np.where(np.fmod(np_h, P) < 0, np.fmod(np_h, P) + P,
+                           np.fmod(np_h, P))
+        require(np.array_equal(part.cpu().numpy(), np_part),
+                f"P={P} partition ids differ from numpy pmod of murmur3")
+        want = np.bincount(np_part, minlength=P).astype(np.int32)
+        require(np.array_equal(cnt.cpu().numpy(), want),
+                f"P={P} chain counts differ from np.bincount")
+        chk.equal("histogram", cnt, smap[2], f"P={P} histogram vs sort map")
+        chk.equal("histogram", cnt, scan[2], f"P={P} histogram vs scan map")
+        require(torch.equal(smap[1], scan[1]) and
+                torch.equal(torch.where(smap[1], smap[0], 0), scan[0]),
+                f"P={P} the sort map and the scan map differ")
+    small = np.random.default_rng(3)
+    n_cases = 0
+    # 200 is Spark's default shuffle partition count; from 300 on a block
+    # keeps fewer sub-histograms, and at 13000 none (global atomics)
+    for P in (1, 8, 64, 128, 200, 300, 2000, 13000):
+        for n in (0, 1, 1000, 1_000_003):
+            a = small.integers(-2, P + 2, n).astype(np.int32)
+            tp = torch.from_numpy(a).cuda()
+            got = pc.histogram_cuda(tp, P)
+            chk.equal("histogram", got, pc.histogram_plain(tp, P),
+                      f"P={P} n={n} with ids outside [0, P)")
+            inside = a[(a >= 0) & (a < P)]
+            require(np.array_equal(got.cpu().numpy(),
+                                   np.bincount(inside, minlength=P)),
+                    f"P={P} n={n} differs from np.bincount")
+            n_cases += 1
+    torch.cuda.synchronize()
+    log(f"  counts == plain == np.bincount, maps identical, {n_cases} small "
+        f"cases ({time.perf_counter() - t0:.1f} s)")
+
+    timing = {}
+    for P, part in parts.items():
+        kern = lambda: pc.histogram_cuda(part, P)            # noqa: E731
+        ms = device_ms(torch, kern, KERNEL_NAMES["histogram"], 50)
+        cms = call_ms(torch, kern, 50)
+        pms = time_cuda(torch, lambda: pc.histogram_plain(part, P), 5)
+        lib = call_ms(torch, lambda: torch.bincount(part, minlength=P), 50)
+        nbytes, ops_ = 4 * N_ROWS + 4 * P, HIST_OPS * N_ROWS
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+        timing[P] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                     "library_ms": lib, "bytes": nbytes, "ops": ops_,
+                     "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                     "bound_ms": max(bytes_ms, ops_ms)}
+        log(f"  P={P}: device {ms!r} ms, one call {cms!r} ms, plain {pms!r} "
+            f"ms, torch.bincount one call {lib!r} ms; bound "
+            f"{max(bytes_ms, ops_ms)!r} ms ({nbytes} B -> {bytes_ms!r} ms)")
+    return launches, timing
+
+
+def summed(timing, forms, **extra):
+    """One kernels-line entry: the sums over the path's calls, each form's
+    own numbers under `by_form`."""
+    keys = ("ms", "call_ms", "plain_ms", "bytes", "ops", "bytes_ms",
+            "ops_ms", "bound_ms")
+    out = {k: sum(timing[f][k] for f in forms) for k in keys}
+    out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
+                       else "operations")
+    out.update(extra)
+    out["by_form"] = {str(f): timing[f] for f in forms}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -485,6 +868,9 @@ def main(argv=None):
     del q3_tables
     res, launches, warm, traced = q3_phase(torch, inputs_cpu, gen,
                                            args.trace)
+    del inputs_cpu, gen
+    rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
+    pt_launches, pt_timing = partition_phase(torch, chk)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -498,6 +884,26 @@ def main(argv=None):
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
             "bytes": t["bytes"], "ops": t["ops"], "library_ms": None})
+    # the row hash: the sums over its three forms, one call each, at
+    # bench.py's shape; launches over the row-hash and partition paths
+    kernels.append({
+        "name": "row_hash", "route": "cuda", "source": RH_SOURCE,
+        "replaces": REPLACES["row_hash"],
+        "launches": sum(rh_launches.values()) + pt_launches["murmur"],
+        "launches_by_path": {"row_hash": rh_launches,
+                             "partition": {"murmur": pt_launches["murmur"]}},
+        "exact": chk.max_err["row_hash"] == 0,
+        "max_abs_err": chk.max_err["row_hash"],
+        **summed(rh_timing, ("murmur", "xxhash", "fused"), library_ms=None)})
+    # the histogram: the sums over P = 8, 64 and 200, one call each
+    kernels.append({
+        "name": "histogram", "route": "cuda", "source": HIST_SOURCE,
+        "replaces": REPLACES["histogram"],
+        "launches": pt_launches["histogram"],
+        "exact": chk.max_err["histogram"] == 0,
+        "max_abs_err": chk.max_err["histogram"],
+        **summed(pt_timing, PARTITIONS, library_ms=sum(
+            pt_timing[P]["library_ms"] for P in PARTITIONS))})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -507,7 +913,8 @@ def main(argv=None):
                        "q3_repeat_wall_ms": [r.wall_ms for r in warm],
                        "profile": res.profile(),
                        "repeat_profile": warm[-1].profile(),
-                       "trace": traced}, f, indent=1)
+                       "trace": traced, "row_hash_headline": headline},
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,13 @@ imports torch and numpy, never jax and nothing of `spark_rapids_tpu`.
 
 Entry points take an explicit device and default to the CUDA card
 (`device.resolve`); tensors are moved to it once, where a plan's inputs are
-bound. This slice runs NDS q3 (`nds_q3`) through the eager plan engine:
+bound. The port runs NDS q3 (`nds_q3`) through the eager plan engine:
 fixed-width columns, filter, gather, inner/semi/anti join, group-by, sort,
-and the hash-join build/probe kernels in CUDA.
+and the hash-join build/probe kernels in CUDA. It hashes rows as Spark does
+(`ops.murmur_hash3_32`, `ops.xxhash64`, `api.Hash`) with a fused row-hash
+kernel, and counts a shuffle's partitions (`parallel.partition_ids`,
+`parallel.partition_histogram`, the partition maps) with a histogram
+kernel; all CUDA sources are under `ops/csrc/`.
 """
 from . import dtypes
 from .columnar import Column, Table

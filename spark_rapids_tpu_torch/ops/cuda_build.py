@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-SOURCES = ("hash_join",)
+SOURCES = ("hash_join", "row_hash", "partition_hist")
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"

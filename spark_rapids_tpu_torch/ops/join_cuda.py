@@ -15,8 +15,8 @@ Each wrapper runs the plain version only for CPU tensors. For CUDA tensors
 it launches its kernel or raises; it never falls back. `LAUNCHES` counts
 kernel launches and `PLAIN_CALLS` the plain version's runs, per wrapper.
 
-The plain versions do unsigned 32-bit math in int64 with a mask after every
-step: torch on the CPU lacks add, shift and compare for uint32.
+The plain versions hash with the row hash's own murmur3 (`hash.py`, unsigned
+32-bit math in int64 with a mask after every step).
 
 `inner_join_hash` is the counterpart of `inner_join_pallas`: int32 gather
 maps, pair for pair those of `ops.join.inner_join`. It is registered as
@@ -35,6 +35,7 @@ import torch
 from .. import dtypes
 from ..columnar import Column
 from ..dtypes import Kind
+from .hash import as_i32_bits, mm_column
 from .join import _cols, _side_valid
 
 MAX_BUILD = 512     # the reference's VMEM-sized limit, kept for parity
@@ -77,54 +78,19 @@ class HashTable:
         return int(self.slot_row.shape[0])
 
 
-# ---- murmur3_32 in int64 (plain versions) ----------------------------------
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2^32 for a in [0, 2^32): 16-bit halves of c keep every
-    partial product below 2^48."""
-    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def _mm_round(h: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
-    k1 = _mul32(k1, 0xCC9E2D51)
-    k1 = _rotl32(k1, 15)
-    k1 = _mul32(k1, 0x1B873593)
-    h = _rotl32(h ^ k1, 13)
-    return (_mul32(h, 5) + 0xE6546B64) & _M32
-
-
-def _mm_fmix(h: torch.Tensor) -> torch.Tensor:
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
 def _wide(cols: Sequence[Column]) -> List[bool]:
     return [c.dtype.kind in _WIDE_KINDS for c in cols]
 
 
 def row_hash(cols: Sequence[Column]) -> torch.Tensor:
     """(n,) int64 in [0, 2^32): the bucket hash of every row, seed 42
-    chained over the key columns (the reference's `_mm_hash`)."""
+    chained over the key columns (the reference's `_mm_hash`): Spark
+    murmur3_32 as the row hash computes it, validity ignored."""
     n = cols[0].length
     h = torch.full((n,), _SEED, dtype=torch.int64, device=cols[0].device)
-    for c, wide in zip(cols, _wide(cols)):
-        v = c.data.to(torch.int64)
-        nh = _mm_round(h, v & _M32)
-        if wide:
-            nh = _mm_round(nh, (v >> 32) & _M32)
-        h = _mm_fmix(nh ^ (8 if wide else 4))
+    for c in cols:
+        h = mm_column(h, c)
     return h
-
-
-def _as_i32_bits(u: torch.Tensor) -> torch.Tensor:
-    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
 
 
 def _keys_equal(pcols, i, bcols, r) -> torch.Tensor:
@@ -156,7 +122,7 @@ def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
         slot_hash[slot[won]] = h[won]
         placed = placed | won
         d = d + (~placed).to(torch.int64)
-    return HashTable(slot_row.to(torch.int32), _as_i32_bits(slot_hash))
+    return HashTable(slot_row.to(torch.int32), as_i32_bits(slot_hash))
 
 
 def _walk(pcols, rows, h, table: HashTable, bcols):

@@ -188,9 +188,17 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "from spark_rapids_tpu_torch import nds_q3\n"
         "from spark_rapids_tpu_torch.plan import PlanExecutor\n"
-        "res = PlanExecutor(device='cpu').execute(\n"
-        "    nds_q3.q3_plan(), nds_q3.q3_inputs(8192, device='cpu'))\n"
+        "from spark_rapids_tpu_torch import api, parallel\n"
+        "from spark_rapids_tpu_torch.ops import hash, hash_cuda\n"
+        "from spark_rapids_tpu_torch.parallel import (partition,\n"
+        "    partition_cuda, shuffle)\n"
+        "inputs = nds_q3.q3_inputs(8192, device='cpu')\n"
+        "res = PlanExecutor(device='cpu').execute(nds_q3.q3_plan(), inputs)\n"
         "assert res.table.num_rows > 0\n"
+        "h = api.Hash.murmurHash32([inputs['sales']['item_sk']], 42)\n"
+        "p = parallel.partition_ids(h.data, 8)\n"
+        "assert int(parallel.partition_histogram(p, 8).sum()) == 8192\n"
+        "assert api.Hash.xxhash64([inputs['sales']['item_sk']]).length\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.split('.')[0] == 'spark_rapids_tpu')\n"
