@@ -12,9 +12,28 @@ in phases that each raise on failure:
 3. hash-join kernels: each (build, probe count, probe emit) against its
    plain PyTorch version on the card, for exact equality, at q3's shapes
    and on a small dtype/null/multi-key matrix; then timed at q3's shapes;
-4. q3: NDS q3 at 10,000,000 store_sales rows through `PlanExecutor()`,
+4. q3: NDS q3 at 10,000,000 store_sales rows through
+   `PlanExecutor(optimize=False)` (the authored plan, as in earlier runs),
    launch counters zeroed before and read after; the result must equal an
    independent numpy q3 and the port's own run on the CPU;
+4b. TPC-DS q3: q3 as TPC-DS writes it (INT32 keys, LIMIT 100) at the same
+   scale through `PlanExecutor()`, optimizer on: two FusedSelects, two
+   HashJoins and a TopK on their kernels, counters zeroed before and read
+   after; equal to numpy q3's first 100 rows and the CPU run; the two
+   FusedSelects of the executed plan, on its dates and items tables,
+   against their plain version; and every group of the plan without its
+   LIMIT against numpy q3;
+4c. FusedSelect: the kernel against its plain version on every port dtype,
+   with and without nulls, nineteen predicates (the four shapes, INT8/INT32
+   wrap-around, 64-bit integer columns, float32/float64 arithmetic and
+   promotion, a literal-only predicate, a right-nested chain) at 0, 1,
+   1,000 and 1,000,003 rows; then timed on benchmarks/kernel_bench.py's
+   table (10M rows) with INT32 and with INT64 predicate columns;
+4d. TopK: the kernel against its plain version on seven key kinds with and
+   without nulls at k = 1, 17, 100, 128, 129, 513, 1,000 and 4,099 (above
+   512 the sorted runs merge), multi-key, k > rows and 0 rows; then timed
+   on kernel_bench.py's table (10M rows, keys [k DESC, v ASC]) at k = 50,
+   100 and 1,000;
 5. row hash: `bench.py`'s workload (10,000,000 rows x 2 INT64 columns)
    through `ops.murmur_hash3_32` + `ops.xxhash64` (two launches),
    `ops.fused_row_hash` (one) and `api.Hash`, counters zeroed before and
@@ -36,7 +55,9 @@ in phases that each raise on failure:
 Each kernel is timed by its device time from torch.profiler's kernel
 records, one wrapper call's time between CUDA events (the L2 flushed
 before each call in both), its plain version's time, and its bound: the
-larger of the bytes this run's data needs over 3.35 TB/s and its integer operations over the card's integer rate.
+larger of the bytes this run's data needs over 3.35 TB/s and its integer
+operations over the card's integer rate. FusedSelect and TopK are also
+timed beside the nearest PyTorch calls (`library_ms`).
 
 It imports nothing of JAX or of `spark_rapids_tpu`. Without a CUDA device,
 or outside the repo checkout, it exits non-zero and prints no result.
@@ -76,17 +97,26 @@ KERNEL_NAMES = {"build": "build_kernel", "count": "probe_kernel<false>",
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
                 "fused": "row_hash_kernel<true,true>",
-                "histogram": "hist_kernel"}
+                "histogram": "hist_kernel",
+                "fused_select": ("fs_count_kernel", "fs_compact_kernel"),
+                "topk": ("tk_select_kernel", "tk_merge_kernel")}
 SOURCE = "spark_rapids_tpu_torch/ops/csrc/hash_join.cu"
 RH_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_hash.cu"
 HIST_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
+FS_SOURCE = "spark_rapids_tpu_torch/ops/csrc/fused_select.cu"
+TK_SOURCE = "spark_rapids_tpu_torch/ops/csrc/topk.cu"
 REPLACES = {
     "build": "spark_rapids_tpu/ops/join_pallas.py:122",
     "count": "spark_rapids_tpu/ops/join_pallas.py:209",
     "emit": "spark_rapids_tpu/ops/join_pallas.py:244",
     "row_hash": "spark_rapids_tpu/ops/hash_pallas.py:248",
     "histogram": "spark_rapids_tpu/parallel/partition_pallas.py:33",
+    "fused_select": "spark_rapids_tpu/ops/select_pallas.py:179",
+    "topk": "spark_rapids_tpu/ops/topk_pallas.py:88",
 }
+TPCDS_LIMIT = 100                  # TPC-DS q3's `limit 100`
+TOPK_LIMITS = (50, 100)            # kernel_bench.py's 50 and TPC-DS's 100
+TOPK_MERGE_LIMIT = 1000            # a limit past half a tile: runs merge
 
 
 def log(msg=""):
@@ -133,7 +163,7 @@ def build_phase():
 class Checks:
     def __init__(self):
         self.max_err = {"build": 0, "count": 0, "emit": 0, "row_hash": 0,
-                        "histogram": 0}
+                        "histogram": 0, "fused_select": 0, "topk": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -151,6 +181,30 @@ class Checks:
                                  f"version in {bad} values (max abs err "
                                  f"{diff})")
         self.n += 1
+
+    def tables(self, kernel, got, want, what):
+        """Two tables equal: names, rows, every column's data (floats as
+        their bits, so NaN rows compare) and validity."""
+        import torch
+        if got.names != want.names or got.num_rows != want.num_rows:
+            self.max_err[kernel] = max(self.max_err[kernel], 1)
+            raise AssertionError(f"{what}: {got.names} x {got.num_rows} vs "
+                                 f"{want.names} x {want.num_rows}")
+        for name, a, b in zip(got.names, got.columns, want.columns):
+            if a.dtype.is_floating:
+                bits = torch.int32 if a.data.dtype == torch.float32 \
+                    else torch.int64
+                self.equal(kernel, a.data.view(bits), b.data.view(bits),
+                           f"{what} {name}")
+            else:
+                self.equal(kernel, a.data, b.data, f"{what} {name}")
+            if (a.validity is None) != (b.validity is None):
+                self.max_err[kernel] = max(self.max_err[kernel], 1)
+                raise AssertionError(f"{what} {name}: validity present on "
+                                     "one side only")
+            if a.validity is not None:
+                self.equal(kernel, a.validity, b.validity,
+                           f"{what} {name} validity")
 
 
 def check_case(chk, jc, join, pcols, bcols, what):
@@ -267,12 +321,14 @@ def call_ms(torch, fn, iters):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, kernel, iters, attempts=3):
-    """Mean device time of the kernel named `kernel` over `iters` calls of
-    `fn`, the L2 flushed before each, from torch.profiler's records of the
-    kernels the card ran. A profile that comes back without every run's
-    record (CUPTI sometimes drops a session's records) is taken again, at
-    most `attempts` times."""
+def device_ms(torch, fn, kernel, iters, attempts=3, per_call=1):
+    """Mean device time per call of the kernel named `kernel` (or of the
+    kernels of a tuple of names, summed) over `iters` calls of `fn`, the L2
+    flushed before each, from torch.profiler's records of the kernels the
+    card ran; a call launches `per_call` of them. A profile that comes back
+    without every run's record (CUPTI sometimes drops a session's records)
+    is taken again, at most `attempts` times."""
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -287,13 +343,13 @@ def device_ms(torch, fn, kernel, iters, attempts=3):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if str(e.device_type).endswith("CUDA")
               and e.name.split("(")[0].removeprefix("void ").replace(" ", "")
-              == kernel]
-        if len(us) == iters:
+              in names]
+        if len(us) == iters * per_call:
             return sum(us) / iters / 1e3
         log(f"  (the profiler recorded {len(us)} runs of {kernel} for "
             f"{iters} calls; profiling again)")
     raise AssertionError(f"the profiler recorded {len(us)} runs of {kernel} "
-                         f"for {iters} calls, {attempts} times")
+                         f"for {iters} calls of {per_call}, {attempts} times")
 
 
 def kernel_bounds(torch, jc, pcols, bcols, C, counts):
@@ -479,7 +535,8 @@ def q3_phase(torch, inputs_cpu, gen, trace):
     from spark_rapids_tpu_torch.plan import PlanExecutor
 
     plan = nds_q3.q3_plan()
-    ex = PlanExecutor()                               # the card
+    # the authored plan, as PRs 1 and 2 ran it, so its times compare
+    ex = PlanExecutor(optimize=False)                 # the card
     inputs = {k: t.to("cuda") for k, t in inputs_cpu.items()}
     torch.cuda.synchronize()
     jc.reset_counters()
@@ -516,13 +573,368 @@ def q3_phase(torch, inputs_cpu, gen, trace):
         if have.shape != want.shape or not np.array_equal(have, want):
             raise AssertionError(f"q3 {name} differs from the numpy q3")
     t0 = time.perf_counter()
-    cpu = PlanExecutor(device="cpu").execute(plan, inputs_cpu)
+    cpu = PlanExecutor(device="cpu", optimize=False).execute(plan, inputs_cpu)
     log(f"q3 on the CPU for comparison: {(time.perf_counter() - t0):.1f} s")
     for a, b in zip(got.columns, cpu.table.columns):
         if not torch.equal(a.data, b.data):
             raise AssertionError("q3 on the card differs from q3 on the CPU")
     log(f"q3: {got.num_rows} groups, equal to numpy q3 and to the CPU run")
     return res, launches, warm, traced
+
+
+# ---- phase 4b ---------------------------------------------------------------
+
+def tpcds_q3_phase(torch, chk, gen, trace):
+    """TPC-DS q3 through `PlanExecutor()`: the main path of FusedSelect and
+    TopK, with the hash join, counters zeroed just before and read just
+    after."""
+    from spark_rapids_tpu_torch import nds_q3
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    from spark_rapids_tpu_torch.ops import select
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    from spark_rapids_tpu_torch.plan.nodes import FusedSelect, Scan
+
+    plan = nds_q3.q3_tpcds_plan()
+    inputs_cpu = nds_q3.q3_tpcds_inputs(N_SALES, seed=0, device="cpu")
+    fact_bytes = inputs_cpu["sales"].nbytes()
+    inputs = {k: t.to("cuda") for k, t in inputs_cpu.items()}
+    ex = PlanExecutor()                               # the card, optimized
+    torch.cuda.synchronize()
+    for m in (jc, sc, tc):
+        m.reset_counters()
+    res = ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    launches = {"hash_join": dict(jc.LAUNCHES),
+                "fused_select": dict(sc.LAUNCHES), "topk": dict(tc.LAUNCHES)}
+    plain = {"hash_join": dict(jc.PLAIN_CALLS),
+             "fused_select": dict(sc.PLAIN_CALLS),
+             "topk": dict(tc.PLAIN_CALLS)}
+    log(f"TPC-DS q3 at {N_SALES} sales rows ({fact_bytes} B of fact "
+        f"columns) on {res.device}: {res.wall_ms:.3f} ms, launches "
+        f"{launches}, plain runs {plain}")
+    log(res.profile_text())
+    log("optimizer: " + json.dumps(res.optimizer))
+    stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
+    require(stamps == ["cuda:fused_select"] * 2 + ["cuda:hash_join"] * 2
+            + ["cuda:topk"], f"TPC-DS q3 stamps {stamps}")
+    require(launches["hash_join"]["build"] == 2
+            and launches["fused_select"]["count"] == 2
+            and launches["topk"]["select"] >= 1,
+            f"kernel launches on TPC-DS q3 {launches}")
+    require(all(v == 0 for d in plain.values() for v in d.values()),
+            f"plain versions ran on the card path {plain}")
+
+    # the FusedSelect kernel at the main path's shapes: each FusedSelect of
+    # the executed plan on its own scan's table, against the plain version
+    fused = [n for n in res.plan.nodes if isinstance(n, FusedSelect)]
+    require(len(fused) == 2, f"executed plan has {len(fused)} FusedSelects")
+    for node in fused:
+        (scan,) = node.children
+        require(isinstance(scan, Scan), f"{node.label} reads {scan.label}")
+        t = inputs[scan.source]
+        if scan.projection is not None:
+            t = t.select(list(scan.projection))
+        needed = select.needed_columns(t, node.exprs)
+        got = sc.fused_select_cuda(t, node.predicate, needed)
+        chk.tables("fused_select", got,
+                   select.fused_select_plain(t, node.predicate, needed),
+                   f"TPC-DS q3 {node.label} on {scan.source}")
+        log(f"  {node.label} ({node.predicate!r} -> {needed}) on "
+            f"{scan.source}, {t.num_rows} rows: {got.num_rows} kept, "
+            f"kernel == plain")
+    # every group before the LIMIT, against numpy q3: the first 100 rows
+    # cover only the first year's groups
+    ref = numpy_q3(gen)
+    every = PlanExecutor().execute(nds_q3.q3_tpcds_plan(limit=None),
+                                   inputs).table.to("cpu")
+    for name, want in zip(every.names, ref):
+        have = every[name].data.numpy()
+        if have.shape != want.shape or not np.array_equal(have, want):
+            raise AssertionError(f"TPC-DS q3 without LIMIT: {name} differs "
+                                 f"from numpy q3")
+    log(f"TPC-DS q3 without LIMIT: all {every.num_rows} groups equal numpy "
+        f"q3")
+
+    warm = [ex.execute(plan, inputs) for _ in range(3)]
+    walls = [r.wall_ms for r in warm]
+    log("TPC-DS q3 repeat wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
+    log("last repeat:")
+    log(warm[-1].profile_text())
+    traced = (trace_q3(torch, ex, plan, inputs, walls[-1]) if trace
+              else None)
+
+    got = res.table.to("cpu")
+    require(got.names == ("d_year", "i_brand", "revenue")
+            and got.num_rows == TPCDS_LIMIT,
+            f"TPC-DS q3 gave {got.names} x {got.num_rows}")
+    for name, want in zip(got.names, ref):
+        have = got[name].data.numpy()
+        if not np.array_equal(have, want[:TPCDS_LIMIT]):
+            raise AssertionError(f"TPC-DS q3 {name} differs from numpy q3")
+    t0 = time.perf_counter()
+    cpu = PlanExecutor(device="cpu").execute(plan, inputs_cpu)
+    log(f"TPC-DS q3 on the CPU for comparison: "
+        f"{(time.perf_counter() - t0):.1f} s")
+    for a, b in zip(got.columns, cpu.table.columns):
+        if a.dtype != b.dtype or not torch.equal(a.data, b.data):
+            raise AssertionError("TPC-DS q3 on the card differs from the "
+                                 "CPU run")
+    log(f"TPC-DS q3: {got.num_rows} rows, equal to numpy q3's first "
+        f"{TPCDS_LIMIT} and to the CPU run")
+    return res, launches, warm, traced
+
+
+# ---- phase 4c ---------------------------------------------------------------
+
+def fs_matrix(dt, Column, Table, col, lit):
+    """(what, table, predicate, needed) on the card: every port dtype with
+    and without nulls, eight predicates, 0/1/1,000/1,000,003 rows."""
+    rng = np.random.default_rng(4)
+    specs = [("bool", None, dt.BOOL), ("int8", np.int8, dt.INT8),
+             ("int16", np.int16, dt.INT16), ("int32", np.int32, dt.INT32),
+             ("date32", np.int32, dt.DATE32), ("int64", np.int64, dt.INT64),
+             ("timestamp_us", np.int64, dt.TIMESTAMP_US),
+             ("decimal32", np.int32, dt.decimal(9, 2)),
+             ("decimal64", np.int64, dt.decimal(18, 2)),
+             ("float32", np.float32, dt.FLOAT32),
+             ("float64", np.float64, dt.FLOAT64)]
+    preds = [("or", (col("sel") < 25) | (col("sel") > 48)),
+             ("eq", col("sel") == 7),
+             ("arith", (col("sel") + 3) * 2 > 40),
+             ("not_and_or", ~(col("sel") >= 10) & (col("bool") |
+                                                   (col("sel") != 3))),
+             ("sub_lit", col("sel") - 60 < lit(-30)),
+             ("int8 wrap", (col("int8") + 100) > 50),
+             ("int32 wrap", col("int32") * 3 < col("int32")),
+             ("64-bit", (col("int64") > 0) & (col("decimal64") < 0)
+              | (col("timestamp_us") == col("int64"))),
+             ("float32 arith", (col("float32") + col("int32")) * 0.1
+              > col("float32")),
+             ("int64 x float32", col("float32") * col("int64")
+              < lit(-1.5e18)),
+             ("int to float64", (col("int32") * 1.0) > lit(16777216.5)),
+             ("bool to float64", (col("bool") + 0.25) * col("int8")
+              >= col("float64")),
+             ("float64 to float32", (col("int16") + 0.1) * col("float32")
+              != col("float32")),
+             ("subnormal", col("float32") * 1e-39 != lit(0.0)),
+             ("nan", (col("float32") == col("float32")) | (col("sel") < 3)),
+             ("float64 neg", -col("float64") * col("float32")
+              <= col("decimal32")),
+             ("float64 sub", col("float64") - col("float32") > lit(-0.25)),
+             ("literal only", lit(2) + lit(3) > lit(4)),
+             ("right-nested", col("sel") < (col("int8") + (col("int16") - (
+                 col("int32") * (col("sel") + (col("int64") - 1))))))]
+    for n in (0, 1, 1000, 1_000_003):
+        for null_p in (0.0, 0.15):
+            cols, names = [], []
+            for name, npt, dtype in specs:
+                if npt is None:
+                    a = rng.integers(0, 2, n).astype(bool)
+                elif np.issubdtype(npt, np.floating):
+                    a = rng.standard_normal(n).astype(npt)
+                    a[rng.random(n) < 0.05] = np.nan
+                    a[:min(n, 2)] = [0.0, -0.0][:min(n, 2)]
+                else:
+                    ii = np.iinfo(npt)
+                    a = rng.integers(ii.min, ii.max, n, dtype=npt,
+                                     endpoint=True)
+                v = (rng.random(n) > null_p) if null_p else None
+                cols.append(Column.from_numpy(a, dtype, v, device="cuda"))
+                names.append(name)
+            cols.append(Column.from_numpy(
+                rng.integers(0, 50, n).astype(np.int32), dt.INT32,
+                device="cuda"))
+            names.append("sel")
+            t = Table(cols, names)
+            for what, pred in preds:
+                yield (f"{what} n={n} nulls={null_p}", t, pred,
+                       names[:-1])
+
+
+def fused_select_phase(torch, chk):
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import select
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.plan import col, lit
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for what, t, pred, needed in fs_matrix(dt, Column, Table, col, lit):
+        chk.tables("fused_select", sc.fused_select_cuda(t, pred, needed),
+                   select.fused_select_plain(t, pred, needed), what)
+        n_cases += 1
+    torch.cuda.synchronize()
+    log(f"fused_select: {n_cases} tables x predicates, kernel == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # kernel_bench.py's table (its lines 43-51), with INT32 and with INT64
+    # predicate columns
+    rng = np.random.default_rng(7)
+    a_np = rng.integers(0, 100, N_ROWS).astype(np.int32)
+    b_np = rng.integers(-5, 5, N_ROWS).astype(np.int32)
+    v_np = rng.integers(-2**40, 2**40, N_ROWS).astype(np.int64)
+    v_valid = rng.random(N_ROWS) > 0.1
+    pred = (col("a") < 10) & (col("b") > 0)
+    needed = ["a", "v"]
+    # the count kernel interprets the predicate: its time per program node
+    by_nodes = {3: col("a") < 10, 7: pred,
+                15: pred | ((col("a") + col("b")) * 3 == 7)}
+    timing = {}
+    for form, kind, npt in (("int32", dt.INT32, np.int32),
+                            ("int64", dt.INT64, np.int64)):
+        t = Table([Column.from_numpy(a_np.astype(npt), kind, device="cuda"),
+                   Column.from_numpy(b_np.astype(npt), kind, device="cuda"),
+                   Column.from_numpy(v_np, dt.INT64, v_valid,
+                                     device="cuda")], ["a", "b", "v"])
+        got = sc.fused_select_cuda(t, pred, needed)
+        chk.tables("fused_select", got,
+                   select.fused_select_plain(t, pred, needed),
+                   f"10M rows {form}")
+        sel = got.num_rows
+        w = np.dtype(npt).itemsize
+        a, b, v, valid = t["a"].data, t["b"].data, t["v"].data, \
+            t["v"].validity
+
+        def library():
+            m = (a < 10) & (b > 0)
+            return a[m], v[m], valid[m]
+        kern = lambda: sc.fused_select_cuda(t, pred, needed)   # noqa: E731
+        ms = device_ms(torch, kern, KERNEL_NAMES["fused_select"], 50,
+                       per_call=2)
+        count_ms, compact_ms = (device_ms(torch, kern, name, 50)
+                                for name in KERNEL_NAMES["fused_select"])
+        node_ms = {nodes: device_ms(
+            torch, lambda: sc.fused_select_cuda(t, p, needed),
+            "fs_count_kernel", 20) for nodes, p in by_nodes.items()}
+        cms = call_ms(torch, kern, 50)
+        pms = time_cuda(torch, lambda: select.fused_select_plain(
+            t, pred, needed), 5)
+        lib = call_ms(torch, library, 50)
+        # the predicate columns read once, the selected rows' v and its
+        # validity read, the selected a, v and validity written
+        nbytes = N_ROWS * 2 * w + sel * (8 + 1) + sel * (w + 8 + 1)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        timing[form] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                        "library_ms": lib, "bytes": nbytes, "ops": 0,
+                        "bytes_ms": bytes_ms, "ops_ms": 0.0,
+                        "bound_ms": bytes_ms, "selected": sel,
+                        "count_ms": count_ms, "compact_ms": compact_ms,
+                        "count_ms_by_nodes": node_ms}
+        log(f"  {form} predicate columns, {sel} of {N_ROWS} rows: device "
+            f"{ms!r} ms (count {count_ms!r}, compact {compact_ms!r}; count "
+            f"by program nodes {node_ms}), one "
+            f"call {cms!r} ms, plain {pms!r} ms, torch mask "
+            f"+ t[mask] {lib!r} ms; bound {bytes_ms!r} ms ({nbytes} B)")
+    return timing
+
+
+# ---- phase 4d ---------------------------------------------------------------
+
+TK_CASES = [(np.int64, True), (np.int64, False), (np.int32, True),
+            (np.int16, False), (np.float32, True), (np.float64, False),
+            (np.bool_, True)]
+
+
+def topk_phase(torch, chk):
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import topk
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+
+    kinds = {np.int64: dt.INT64, np.int32: dt.INT32, np.int16: dt.INT16,
+             np.float32: dt.FLOAT32, np.float64: dt.FLOAT64,
+             np.bool_: dt.BOOL}
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    n_cases = 0
+    n = 100_003
+    for npt, asc in TK_CASES:
+        for null_p in (0.0, 0.2):
+            if npt is np.bool_:
+                a = rng.integers(0, 2, n).astype(bool)
+            elif np.issubdtype(npt, np.floating):
+                a = rng.standard_normal(n).astype(npt)
+                a[rng.random(n) < 0.05] = np.nan
+                a[:2] = [0.0, -0.0]
+            else:
+                a = rng.integers(np.iinfo(npt).min, np.iinfo(npt).max, n,
+                                 dtype=npt, endpoint=True)
+            v = (rng.random(n) > null_p) if null_p else None
+            t = Table([Column.from_numpy(a, kinds[npt], v, device="cuda"),
+                       Column.from_numpy(rng.integers(0, 9, n)
+                                         .astype(np.int32), dt.INT32,
+                                         device="cuda")], ["k", "pay"])
+            what = f"{np.dtype(npt).name} asc={asc} nulls={null_p}"
+            for k in (1, 17, 100, 128, 129, 513, 1000, 4099):
+                chk.tables("topk", tc.topk_table_cuda(t, ["k"], [asc], k),
+                           topk.topk_plain(t, ["k"], [asc], k),
+                           f"{what} k={k}")
+                n_cases += 1
+            keys, ascs = ["pay", "k"], [not asc, asc]
+            chk.tables("topk", tc.topk_table_cuda(t, keys, ascs, 100),
+                       topk.topk_plain(t, keys, ascs, 100),
+                       f"{what} multi-key")
+            small = topk.topk_plain(t, ["pay"], [True], 40)
+            chk.tables("topk", tc.topk_table_cuda(small, ["k"], [asc], 100),
+                       topk.topk_plain(small, ["k"], [asc], 100),
+                       f"{what} k > rows")
+            n_cases += 2
+    empty = Table([Column.from_numpy(np.zeros(0, np.int64), dt.INT64,
+                                     device="cuda")], ["k"])
+    before = dict(tc.LAUNCHES)
+    require(tc.topk_table_cuda(empty, ["k"], [True], 5).num_rows == 0
+            and tc.LAUNCHES == before,
+            "an empty table launched the topk kernel or gave rows")
+    torch.cuda.synchronize()
+    log(f"topk: {n_cases} cases, kernel == plain, 0 rows launch nothing "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # kernel_bench.py's table (its lines 77-82): keys [k DESC, v ASC]
+    rng = np.random.default_rng(8)
+    t = Table([Column.from_numpy(rng.integers(-10**6, 10**6, N_ROWS)
+                                 .astype(np.int64), dt.INT64,
+                                 rng.random(N_ROWS) > 0.05, device="cuda"),
+               Column.from_numpy(rng.standard_normal(N_ROWS)
+                                 .astype(np.float32), dt.FLOAT32,
+                                 device="cuda")], ["k", "v"])
+    keys, asc = ["k", "v"], [False, True]
+    n_words = topk.n_words(topk.make_signature(t, keys, asc, 1, "eager"))
+    timing = {}
+    for k in TOPK_LIMITS + (TOPK_MERGE_LIMIT,):
+        chk.tables("topk", tc.topk_table_cuda(t, keys, asc, k),
+                   topk.topk_plain(t, keys, asc, k), f"10M rows k={k}")
+        before = dict(tc.LAUNCHES)
+        tc.topk_table_cuda(t, keys, asc, k)
+        per_call = {n: tc.LAUNCHES[n] - before[n] for n in before}
+        kern = lambda: tc.topk_table_cuda(t, keys, asc, k)   # noqa: E731
+        ms = device_ms(torch, kern, KERNEL_NAMES["topk"], 20,
+                       per_call=sum(per_call.values()))
+        cms = call_ms(torch, kern, 20)
+        pms = time_cuda(torch, lambda: topk.topk_plain(t, keys, asc, k), 3)
+        kd = t["k"].data
+        lib = call_ms(torch, lambda: torch.topk(kd, k, largest=True,
+                                                sorted=True), 20)
+        # the function: the key columns and validity read once, k rows of
+        # every column written; the kernel alone reads every tuple word
+        nbytes = N_ROWS * (8 + 1 + 4) + k * (8 + 1 + 4)
+        kernel_bytes = N_ROWS * n_words * 8
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        timing[k] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                     "library_ms": lib, "bytes": nbytes, "ops": 0,
+                     "bytes_ms": bytes_ms, "ops_ms": 0.0,
+                     "bound_ms": bytes_ms, "kernel_bytes": kernel_bytes,
+                     "kernel_bytes_ms":
+                         kernel_bytes / HBM_BYTES_PER_S * 1e3,
+                     "launches_per_call": per_call}
+        log(f"  k={k}: device {ms!r} ms over launches {per_call}, one call "
+            f"{cms!r} ms, plain {pms!r} ms, torch.topk of k's values "
+            f"(no tie order, no nulls) {lib!r} ms; bound {bytes_ms!r} ms "
+            f"({nbytes} B), the kernel's own reads {kernel_bytes} B")
+    return timing
 
 
 # ---- phase 5 -----------------------------------------------------------------
@@ -868,7 +1280,12 @@ def main(argv=None):
     del q3_tables
     res, launches, warm, traced = q3_phase(torch, inputs_cpu, gen,
                                            args.trace)
-    del inputs_cpu, gen
+    del inputs_cpu
+    tres, t_launches, twarm, ttraced = tpcds_q3_phase(torch, chk, gen,
+                                                      args.trace)
+    del gen
+    fs_timing = fused_select_phase(torch, chk)
+    tk_timing = topk_phase(torch, chk)
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
     pt_launches, pt_timing = partition_phase(torch, chk)
 
@@ -904,6 +1321,33 @@ def main(argv=None):
         "max_abs_err": chk.max_err["histogram"],
         **summed(pt_timing, PARTITIONS, library_ms=sum(
             pt_timing[P]["library_ms"] for P in PARTITIONS))})
+    # FusedSelect: the sums over the INT32 and INT64 tables, one call each;
+    # launches (count + compact) on the TPC-DS q3 path
+    kernels.append({
+        "name": "fused_select", "route": "cuda", "source": FS_SOURCE,
+        "replaces": REPLACES["fused_select"],
+        "launches": sum(t_launches["fused_select"].values()),
+        "launches_by_kernel": t_launches["fused_select"],
+        "exact": chk.max_err["fused_select"] == 0,
+        "max_abs_err": chk.max_err["fused_select"],
+        "library": "no single PyTorch call; (a < 10) & (b > 0) by torch "
+                   "ops, then t[mask] per needed column",
+        **summed(fs_timing, ("int32", "int64"), library_ms=sum(
+            fs_timing[f]["library_ms"] for f in ("int32", "int64")))})
+    # TopK: the sums over k = 50 and 100, one call each (k = 1,000, which
+    # merges, beside them); launches on the TPC-DS q3 path
+    kernels.append({
+        "name": "topk", "route": "cuda", "source": TK_SOURCE,
+        "replaces": REPLACES["topk"],
+        "launches": sum(t_launches["topk"].values()),
+        "launches_by_kernel": t_launches["topk"],
+        "merge_path": tk_timing[TOPK_MERGE_LIMIT],
+        "exact": chk.max_err["topk"] == 0,
+        "max_abs_err": chk.max_err["topk"],
+        "library": "torch.topk(sorted=True) over the first key's values: "
+                   "no tie order, no nulls, one key",
+        **summed(tk_timing, TOPK_LIMITS, library_ms=sum(
+            tk_timing[k]["library_ms"] for k in TOPK_LIMITS))})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -913,7 +1357,15 @@ def main(argv=None):
                        "q3_repeat_wall_ms": [r.wall_ms for r in warm],
                        "profile": res.profile(),
                        "repeat_profile": warm[-1].profile(),
-                       "trace": traced, "row_hash_headline": headline},
+                       "trace": traced, "row_hash_headline": headline,
+                       "tpcds_q3_wall_ms": tres.wall_ms,
+                       "tpcds_q3_repeat_wall_ms": [r.wall_ms
+                                                   for r in twarm],
+                       "tpcds_q3_profile": tres.profile(),
+                       "tpcds_q3_repeat_profile": twarm[-1].profile(),
+                       "tpcds_q3_optimizer": tres.optimizer,
+                       "tpcds_q3_launches": t_launches,
+                       "tpcds_q3_trace": ttraced},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

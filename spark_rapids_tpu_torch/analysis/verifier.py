@@ -70,7 +70,13 @@ def _propagate_schemas(nodes, bound, strict
                     f"does not match declared {list(node.schema)}"))
                 broken.add(id(node))
                 continue
-            out[id(node)] = schema
+            try:
+                # the cross-check above ran on the full schema; a pruned
+                # projection narrows the output
+                out[id(node)] = node.apply_projection(schema)
+            except PlanValidationError as e:
+                vs.append(Violation("schema", node.label, str(e)))
+                broken.add(id(node))
             continue
         child_schemas = []
         ok = True

@@ -3,6 +3,7 @@
 | Variable                    | Default | Meaning |
 |-----------------------------|---------|---------|
 | SPARK_RAPIDS_TORCH_KERNELS  | —       | kernel-registry overrides, `op=name` pairs (e.g. `hash_join=cuda`; ops/registry.py) |
+| SPARK_RAPIDS_TORCH_OPTIMIZER | on     | rule-based plan optimizer (plan/optimizer.py): on/off |
 """
 from __future__ import annotations
 
@@ -26,3 +27,14 @@ def kernel_overrides() -> dict:
                 "(expected op=kernel, e.g. hash_join=cuda)")
         out[op] = name
     return out
+
+
+def optimizer_enabled() -> bool:
+    """Rule-based plan optimizer (plan/optimizer.py), run inside
+    `PlanExecutor.execute()`: "on" (default) or "off". Anything else
+    raises, so a typo cannot silently change which plan shape runs."""
+    v = os.environ.get("SPARK_RAPIDS_TORCH_OPTIMIZER", "on")
+    if v not in ("on", "off"):
+        raise ValueError(
+            f"SPARK_RAPIDS_TORCH_OPTIMIZER={v!r}: expected on or off")
+    return v == "on"

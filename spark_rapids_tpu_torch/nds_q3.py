@@ -8,6 +8,11 @@
   the port's own builder: store_sales joined to date_dim (d_moy = 11) and
   item (i_manufact = 42), grouped by (d_year, i_brand) summing the price in
   cents, ordered by year ascending and revenue descending.
+- `q3_tpcds_plan` and `q3_tpcds_inputs` are q3 as TPC-DS writes it: the
+  same DAG ending in `order by d_year, sum_agg desc, brand_id limit 100`,
+  over the same arrays with the key and dimension columns typed `int`, as
+  Spark's TPC-DS schema (databricks/spark-sql-perf `TPCDSTables`) types
+  them, and the price kept INT64 (the unscaled decimal(7,2)).
 """
 from __future__ import annotations
 
@@ -40,9 +45,27 @@ def datagen(n_sales: int, seed: int = 0):
     return (date_sk, d_year, d_moy, item_sk, i_brand, i_manufact, ss)
 
 
-def _table(names, arrays, device) -> Table:
-    return Table([Column.from_numpy(a, dtypes.INT64, device=device)
-                  for a in arrays], names)
+def _table(names, arrays, device, dtypes_) -> Table:
+    # torch.tensor converts each array to the column's storage dtype
+    return Table([Column.from_numpy(a, dt, device=device)
+                  for a, dt in zip(arrays, dtypes_)], names)
+
+
+def _inputs(n_sales, seed, device, key) -> Dict[str, Table]:
+    """The three tables from `datagen`, prices INT64 and every other
+    column of dtype `key`."""
+    (date_sk, d_year, d_moy, item_sk, i_brand, i_manufact, ss) = \
+        datagen(n_sales, seed)
+    return {
+        "sales": _table(["sold_date_sk", "item_sk", "price_cents"],
+                        [ss["sold_date_sk"], ss["item_sk"],
+                         ss["price_cents"]], device,
+                        [key, key, dtypes.INT64]),
+        "dates": _table(["d_date_sk", "d_year", "d_moy"],
+                        [date_sk, d_year, d_moy], device, [key] * 3),
+        "items": _table(["i_item_sk", "i_brand", "i_manufact"],
+                        [item_sk, i_brand, i_manufact], device, [key] * 3),
+    }
 
 
 def q3_inputs(n_sales: int, seed: int = 0,
@@ -50,17 +73,15 @@ def q3_inputs(n_sales: int, seed: int = 0,
               ) -> Dict[str, Table]:
     """{"sales", "dates", "items"} tables from `datagen`, all INT64.
     `device=None` means the CUDA card, as for every entry point."""
-    (date_sk, d_year, d_moy, item_sk, i_brand, i_manufact, ss) = \
-        datagen(n_sales, seed)
-    return {
-        "sales": _table(["sold_date_sk", "item_sk", "price_cents"],
-                        [ss["sold_date_sk"], ss["item_sk"],
-                         ss["price_cents"]], device),
-        "dates": _table(["d_date_sk", "d_year", "d_moy"],
-                        [date_sk, d_year, d_moy], device),
-        "items": _table(["i_item_sk", "i_brand", "i_manufact"],
-                        [item_sk, i_brand, i_manufact], device),
-    }
+    return _inputs(n_sales, seed, device, dtypes.INT64)
+
+
+def q3_tpcds_inputs(n_sales: int, seed: int = 0,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Dict[str, Table]:
+    """The same arrays as `q3_inputs`, with the keys and the dimension
+    attributes INT32 and `price_cents` INT64: 16 bytes per sales row."""
+    return _inputs(n_sales, seed, device, dtypes.INT32)
 
 
 def q3_plan() -> Plan:
@@ -76,3 +97,24 @@ def q3_plan() -> Plan:
                         [("price_cents", "sum", "revenue")])
              .sort(["d_year", "revenue"], ascending=[True, False])
              .build())
+
+
+def q3_tpcds_plan(limit: Optional[int] = 100) -> Plan:
+    """TPC-DS q3: `q3_plan`'s DAG ordered by d_year, revenue descending and
+    i_brand, limited to `limit` rows (100, as TPC-DS writes it; None keeps
+    every group). The item filter stays i_manufact = 42, not TPC-DS's 128:
+    `datagen` draws i_manufact uniformly from [0, 100), so 128 would
+    select nothing."""
+    b = PlanBuilder()
+    sales = b.scan("sales", schema=["sold_date_sk", "item_sk", "price_cents"])
+    dates = (b.scan("dates", schema=["d_date_sk", "d_year", "d_moy"])
+             .filter(col("d_moy") == 11))
+    items = (b.scan("items", schema=["i_item_sk", "i_brand", "i_manufact"])
+             .filter(col("i_manufact") == 42))
+    j = (sales.join(dates, left_on="sold_date_sk", right_on="d_date_sk")
+              .join(items, left_on="item_sk", right_on="i_item_sk"))
+    ordered = (j.aggregate(["d_year", "i_brand"],
+                           [("price_cents", "sum", "revenue")])
+                .sort(["d_year", "revenue", "i_brand"],
+                      ascending=[True, False, True]))
+    return (ordered if limit is None else ordered.limit(limit)).build()

@@ -57,6 +57,11 @@ class Signature:
         return tuple(k for k, _ in self.columns)
 
 
+class KernelDeclinedError(RuntimeError):
+    """No kernel takes a call on the card, where the plain versions do not
+    run."""
+
+
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     op: str
@@ -86,6 +91,8 @@ class KernelChoice:
 # op -> module whose import registers that op's kernels (imported lazily)
 _PROVIDERS = {
     "hash_join": "spark_rapids_tpu_torch.ops.join_cuda",
+    "fused_select": "spark_rapids_tpu_torch.ops.select_cuda",
+    "topk": "spark_rapids_tpu_torch.ops.topk_cuda",
 }
 
 

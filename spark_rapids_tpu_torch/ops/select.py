@@ -1,0 +1,245 @@
+"""FusedSelect: a predicate and the stable compaction of the columns a
+projection needs, in one operator. The plain PyTorch version, the
+predicate's program for the kernel, and the registry's signature.
+
+Counterpart of the wiring half of `spark_rapids_tpu/ops/select_pallas.py`
+(`needed_columns`, `make_signature`, `_supports`); the CUDA kernel is in
+`select_cuda.py`. `fused_select_plain` is what the eager tier's
+FusedSelect computes without the kernel:
+`apply_boolean_mask(table.select(needed), predicate.evaluate(table))`.
+`PLAIN_CALLS` counts its runs.
+
+`compile_predicate` alone decides which predicates the kernel takes: it
+flattens the expression tree into the kernel's postfix program
+(`csrc/fused_select.cu`) and raises for what the program cannot express.
+Every instruction carries the dtype that `plan.expr.promote` gives its
+operands, and each operand the conversion to that dtype, so the kernel
+computes each value at the width and in the floating-point format
+`Expr.evaluate` computes it in, and raises where it raises. The kernel
+takes every bool, integer and float predicate over fixed-width columns,
+64-bit integers and literal-only predicates included (the reference's
+Pallas kernel declined all three: Mosaic has no 64-bit vectors, and its
+tiles came from a column). Its limits are the program's struct: MAX_PROG
+instructions over MAX_PRED_COLS distinct columns. Operands are ordered so
+that the deeper subtree runs first, which keeps any program of MAX_PROG
+instructions within the MAX_STACK registers of the kernel's stack.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+
+from ..columnar import Table
+from ..dtypes import Kind
+from .gather import apply_boolean_mask
+
+MAX_PROG, MAX_PRED_COLS, MAX_STACK = 128, 32, 8
+
+# compacted (projection-referenced) columns: every fixed-width kind the
+# reference's kernel round-trips
+DATA_KINDS = frozenset(k.value for k in (
+    Kind.BOOL, Kind.INT8, Kind.INT16, Kind.INT32, Kind.DATE32, Kind.FLOAT32,
+    Kind.DECIMAL32, Kind.INT64, Kind.TIMESTAMP_US, Kind.TIMESTAMP_S,
+    Kind.TIMESTAMP_MS, Kind.DECIMAL64, Kind.FLOAT64))
+
+PLAIN_CALLS = {"fused_select": 0}
+
+OPCODES = {"load": 0, "lit": 1, "==": 2, "!=": 3, "<": 4, "<=": 5, ">": 6,
+           ">=": 7, "&": 8, "|": 9, "+": 10, "-": 11, "*": 12, "~": 13,
+           "neg": 14}
+TYPES = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
+         torch.int64: 4, torch.float32: 5, torch.float64: 6}
+COMPARES = frozenset(OPCODES[o] for o in ("==", "!=", "<", "<=", ">", ">="))
+# an operand's conversion to its instruction's dtype (flags bits 0-1 for
+# the left operand, 2-3 for the right): wrap an integer at a narrower
+# width, an integer or bool to a float, a float64 rounded to float32
+CV_NONE, CV_WRAP, CV_TO_FLOAT, CV_TO_F32 = 0, 1, 2, 3
+FLAG_SWAP = 16     # the right operand was computed first: it lies below
+
+
+def fused_select_plain(table: Table, predicate, needed) -> Table:
+    """The compacted `needed` columns of the rows where `predicate` holds,
+    in row order, validity included."""
+    PLAIN_CALLS["fused_select"] += 1
+    return apply_boolean_mask(table.select(list(needed)),
+                              predicate.evaluate(table))
+
+
+@dataclasses.dataclass
+class Program:
+    """Postfix predicate: instructions (opcode, type code, column index,
+    literal word, flags) over `columns`, needing a stack of `depth`
+    values. A literal word is an integer's value or a float's float64
+    bits."""
+    columns: List[str]
+    code: List[List[int]]
+    depth: int
+
+
+def _type_code(dt: torch.dtype) -> int:
+    try:
+        return TYPES[dt]
+    except KeyError:
+        raise TypeError(f"the fused_select kernel evaluates bool, integer "
+                        f"and float predicates, not {dt}") from None
+
+
+def _conversion(d: torch.dtype, dt: torch.dtype) -> int:
+    if d == dt:
+        return CV_NONE
+    if dt.is_floating_point:
+        if not d.is_floating_point:
+            return CV_TO_FLOAT
+        return CV_TO_F32 if dt == torch.float32 else CV_NONE
+    # an integer or bool operand of an integer instruction: a narrower one
+    # is already exact at its width
+    wide = d != torch.bool and torch.iinfo(d).bits > torch.iinfo(dt).bits
+    return CV_WRAP if wide else CV_NONE
+
+
+def _literal_word(value, dt: torch.dtype) -> int:
+    """The kernel's word for a literal converted to `dt` as Expr.evaluate
+    converts it (`torch.full` in the literal's own dtype, then `.to`)."""
+    from ..plan import expr as pexpr
+    try:
+        v = torch.full((1,), value, dtype=pexpr._literal_dtype(value))
+    except RuntimeError as e:                 # out of int64's range
+        raise ValueError(f"literal {value!r}: {e}") from None
+    v = v.to(dt)
+    if dt.is_floating_point:
+        return int(v.to(torch.float64).view(torch.int64)[0])
+    return int(v.to(torch.int64)[0])
+
+
+def compile_predicate(predicate, table: Table) -> Program:
+    """The kernel's program for `predicate` over `table`'s columns. Raises
+    TypeError where `Expr.evaluate` does and for expressions the program
+    has no instruction for; raises ValueError for a non-bool result, an
+    int literal outside int64 or a program over the kernel's limits."""
+    from ..plan import expr as pexpr
+    columns: List[str] = []
+    code: List[List[int]] = []
+    need: Dict[int, int] = {}
+    depth = [0, 0]                       # current, most
+
+    def registers(e) -> int:
+        """Stack slots e's code needs when the deeper operand runs first
+        (Sethi-Ullman)."""
+        if isinstance(e, pexpr.BinOp):
+            a, b = registers(e.left), registers(e.right)
+            r = max(a, b) if a != b else a + 1
+        elif isinstance(e, pexpr.UnaryOp):
+            r = registers(e.child)
+        else:
+            r = 1
+        need[id(e)] = r
+        return r
+
+    def push():
+        depth[0] += 1
+        depth[1] = max(depth[1], depth[0])
+
+    def go(e) -> Tuple[torch.dtype, bool]:
+        """Appends e's code; returns its (dtype, weak). Every value on the
+        stack is exact at its own dtype."""
+        if isinstance(e, pexpr.ColumnRef):
+            if e.name not in columns:
+                columns.append(e.name)
+            dt = table[e.name].data.dtype
+            code.append([OPCODES["load"], _type_code(dt),
+                         columns.index(e.name), 0, 0])
+            push()
+            return dt, False
+        if isinstance(e, pexpr.Literal):
+            dt = pexpr._literal_dtype(e.value)          # raises TypeError
+            code.append([OPCODES["lit"], _type_code(dt), 0,
+                         _literal_word(e.value, dt), 0])
+            push()
+            return dt, dt != torch.bool
+        if isinstance(e, pexpr.BinOp):
+            swap = need[id(e.right)] > need[id(e.left)]
+            if swap:
+                rd, rw = go(e.right)
+                ri = len(code) - 1
+            ld, lw = go(e.left)
+            li = len(code) - 1
+            if not swap:
+                rd, rw = go(e.right)
+                ri = len(code) - 1
+            dt, weak = pexpr.promote(e.op, ld, lw, rd, rw)
+            ty = _type_code(dt)
+            flags = FLAG_SWAP if swap else 0
+            for child, d, i, shift in ((e.left, ld, li, 0),
+                                       (e.right, rd, ri, 2)):
+                cv = _conversion(d, dt)
+                if cv and isinstance(child, pexpr.Literal):
+                    # converted here, as Expr.evaluate converts it
+                    code[i][1] = ty
+                    code[i][3] = _literal_word(child.value, dt)
+                else:
+                    flags |= cv << shift      # the kernel converts it
+            code.append([OPCODES[e.op], ty, 0, 0, flags])
+            depth[0] -= 1
+            if OPCODES[e.op] in COMPARES:
+                return torch.bool, False
+            return dt, weak
+        if isinstance(e, pexpr.UnaryOp):
+            dt, weak = go(e.child)
+            pexpr.unary_check(e.op, dt)
+            code.append([OPCODES["~" if e.op == "~" else "neg"],
+                         _type_code(dt), 0, 0, 0])
+            return dt, weak
+        raise TypeError(f"the fused_select kernel does not evaluate {e!r}")
+
+    registers(predicate)
+    out, _ = go(predicate)
+    if out != torch.bool:
+        raise ValueError(f"a predicate must be bool, got {out}")
+    # MAX_PROG instructions hold at most 64 operands, which the deeper-
+    # first order evaluates in 7 slots, so the stack check cannot fire
+    # before the length check
+    if (len(code) > MAX_PROG or depth[1] > MAX_STACK
+            or len(columns) > MAX_PRED_COLS):
+        raise ValueError(f"predicate program of {len(code)} instructions, "
+                         f"stack {depth[1]}, {len(columns)} columns exceeds "
+                         f"the kernel's {MAX_PROG}/{MAX_STACK}/"
+                         f"{MAX_PRED_COLS}")
+    return Program(columns, code, depth[1])
+
+
+def needed_columns(table: Table, exprs) -> List[str]:
+    """The columns a FusedSelect compacts: the union of projection
+    references, or, for an all-literal projection, the first input column
+    as the row-count carrier. One definition for the executor's dispatch
+    and `make_signature`, so the signature describes exactly what the
+    kernel is handed."""
+    needed = sorted(set().union(*(e.references() for _, e in exprs))
+                    if exprs else set())
+    if not needed and table.names:
+        needed = [table.names[0]]
+    return needed
+
+
+def make_signature(table: Table, predicate, exprs, tier: str):
+    """Signature of a FusedSelect dispatch: the needed columns, with
+    whether `compile_predicate` takes the predicate folded in as an extra
+    (the tree itself is not hashable)."""
+    from .registry import Signature
+    needed = needed_columns(table, exprs)
+    cols = [table[c] for c in needed if c in table.names]
+    data_ok = all(c.dtype.kind.value in DATA_KINDS for c in cols)
+    try:
+        compile_predicate(predicate, table)
+        pred_ok = True
+    except (TypeError, ValueError):
+        pred_ok = False
+    return Signature.of(cols, tier=tier, predicate_ok=pred_ok,
+                        data_ok=data_ok)
+
+
+def supports(sig) -> bool:
+    return (sig.extra("tier") == "eager"
+            and bool(sig.extra("predicate_ok"))
+            and bool(sig.extra("data_ok")))

@@ -1,0 +1,193 @@
+"""FusedSelect on the card: the CUDA kernels of `csrc/fused_select.cu` and
+the wrapper.
+
+Counterpart of `fused_select_compact` in
+`spark_rapids_tpu/ops/select_pallas.py`. `fused_select(table, predicate,
+needed)` gives the compacted `needed` columns of the rows where
+`predicate` holds, in row order, validity included, equal to
+`select.fused_select_plain`:
+
+- `select.compile_predicate` flattens the expression tree into the
+  kernel's postfix program, which the wrapper copies into the kernel's
+  argument struct;
+- `fs_count` evaluates the predicate into a bitmask and per-block counts;
+  the host scans the counts and reads the total (the one sync);
+  `fs_compact` writes each needed column at its width, with validity.
+
+The wrapper runs the plain version only for CPU tensors; for CUDA tensors
+it launches the kernels or raises, it never falls back. `LAUNCHES` counts
+kernel launches and `PLAIN_CALLS` (`select.PLAIN_CALLS`) the plain
+version's runs, wherever it is called from. Registered as
+`fused_select`/"cuda" for backend "cuda", beside the plain fallback
+"torch".
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from ..columnar import Column, Table
+from .gather import take
+from .select import (MAX_PRED_COLS, MAX_PROG, PLAIN_CALLS, compile_predicate,
+                     fused_select_plain, make_signature, needed_columns,
+                     supports)
+
+__all__ = ["fused_select", "fused_select_cuda", "make_signature",
+           "needed_columns", "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
+
+LAUNCHES = {"count": 0, "compact": 0}
+
+TILE = 2048        # rows per block (csrc/fused_select.cu FS_TILE)
+MAX_OUT = 32       # columns one compact launch writes (FS_MAX_OUT)
+
+
+def reset_counters() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def _column_kind(dt: torch.dtype) -> int:
+    """csrc/fused_select.cu COL_*: integer, bool or float storage."""
+    return 1 if dt == torch.bool else 2 if dt.is_floating_point else 0
+
+
+# ---- the CUDA kernels -------------------------------------------------------
+
+class _Pred(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p * MAX_PRED_COLS),
+                ("width", ctypes.c_int * MAX_PRED_COLS),
+                ("kind", ctypes.c_int * MAX_PRED_COLS),
+                ("lit", ctypes.c_longlong * MAX_PROG),
+                ("arg", ctypes.c_short * MAX_PROG),
+                ("op", ctypes.c_ubyte * MAX_PROG),
+                ("ty", ctypes.c_ubyte * MAX_PROG),
+                ("flags", ctypes.c_ubyte * MAX_PROG),
+                ("len", ctypes.c_int)]
+
+
+class _Out(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p * MAX_OUT),
+                ("src_valid", ctypes.c_void_p * MAX_OUT),
+                ("dst", ctypes.c_void_p * MAX_OUT),
+                ("dst_valid", ctypes.c_void_p * MAX_OUT),
+                ("width", ctypes.c_int * MAX_OUT),
+                ("ncols", ctypes.c_int)]
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from .cuda_build import load
+        lib = load("fused_select")
+        lib.fs_count.argtypes = [ctypes.POINTER(_Pred), ctypes.c_longlong,
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+        lib.fs_compact.argtypes = [ctypes.POINTER(_Out), ctypes.c_longlong,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+        lib.fs_count.restype = lib.fs_compact.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(c: Column, dev: torch.device, what: str) -> None:
+    if c.device != dev or not c.data.is_contiguous() or (
+            c.validity is not None and not c.validity.is_contiguous()):
+        raise ValueError(f"fused_select: {what} column must be contiguous "
+                         f"and on {dev}")
+
+
+def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
+                      ) -> Table:
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused_select kernels run on CUDA tensors, "
+                         f"got {dev}")
+    needed = list(needed)
+    cols = [table[c] for c in needed]
+    for c in cols:
+        c.dtype.storage_dtype()          # raises for columns not ported
+        _check(c, dev, "needed")
+    prog = compile_predicate(predicate, table)
+    n = table.num_rows
+
+    def empty() -> Table:
+        e = torch.zeros(0, dtype=torch.int64, device=dev)
+        return Table([take(c, e, _has_negative=False) for c in cols],
+                     names=needed)
+
+    if n == 0:
+        return empty()
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = _Pred()
+    for i, name in enumerate(prog.columns):
+        c = table[name]
+        _check(c, dev, "predicate")
+        p.data[i] = c.data.data_ptr()
+        p.width[i] = c.data.element_size()
+        p.kind[i] = _column_kind(c.data.dtype)
+    for k, (op, ty, arg, lit, flags) in enumerate(prog.code):
+        p.op[k], p.ty[k], p.arg[k], p.lit[k] = op, ty, arg, lit
+        p.flags[k] = flags
+    p.len = len(prog.code)
+    blocks = (n + TILE - 1) // TILE
+    mask = torch.empty(blocks * TILE // 32, dtype=torch.int32, device=dev)
+    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    rc = lib.fs_count(ctypes.byref(p), n, mask.data_ptr(),
+                      counts.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_select count kernel: CUDA error {rc}")
+    LAUNCHES["count"] += 1
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(ends[-1])                     # the one host sync
+    if total == 0:
+        return empty()
+    starts = ends - counts
+    out_cols = []
+    for c in cols:
+        v = (None if c.validity is None else
+             torch.empty(total, dtype=torch.bool, device=dev))
+        out_cols.append(Column(c.dtype, total,
+                               torch.empty(total, dtype=c.data.dtype,
+                                           device=dev), v))
+    for lo in range(0, len(cols), MAX_OUT):
+        o = _Out()
+        chunk = list(zip(cols, out_cols))[lo:lo + MAX_OUT]
+        for i, (c, oc) in enumerate(chunk):
+            o.src[i] = c.data.data_ptr()
+            o.src_valid[i] = (None if c.validity is None
+                              else c.validity.data_ptr())
+            o.dst[i] = oc.data.data_ptr()
+            o.dst_valid[i] = (None if oc.validity is None
+                              else oc.validity.data_ptr())
+            o.width[i] = c.data.element_size()
+        o.ncols = len(chunk)
+        rc = lib.fs_compact(ctypes.byref(o), n, mask.data_ptr(),
+                            starts.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_select compact kernel: CUDA error "
+                               f"{rc}")
+        LAUNCHES["compact"] += 1
+    return Table(out_cols, names=needed)
+
+
+def fused_select(table: Table, predicate, needed: Sequence[str]) -> Table:
+    """The compacted `needed` columns of the rows where `predicate` holds:
+    the kernels on a CUDA table, the plain version on a CPU one."""
+    if table.device.type == "cpu":
+        return fused_select_plain(table, predicate, needed)
+    return fused_select_cuda(table, predicate, needed)
+
+
+from .registry import REGISTRY as _REGISTRY  # noqa: E402
+
+_REGISTRY.register("fused_select", "torch", fallback=True)
+_REGISTRY.register("fused_select", "cuda", fn=fused_select,
+                   backends=("cuda",), supports=supports)

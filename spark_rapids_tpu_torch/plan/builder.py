@@ -59,6 +59,45 @@ class Plan:
     def input_names(self) -> List[str]:
         return [s.source for s in self.scans]
 
+    @property
+    def fingerprint(self) -> str:
+        """Canonical structural hash (node kinds, parameters, exprs,
+        declared schemas, DAG shape): two independently built plans with
+        the same structure share it (`optimizer.plan_fingerprint`)."""
+        fp = self.__dict__.get("_fingerprint")
+        if fp is None:
+            from .optimizer import plan_fingerprint
+            fp = self.__dict__["_fingerprint"] = plan_fingerprint(self)
+        return fp
+
+    def explain(self) -> str:
+        """Pre-run plan tree (Spark's `EXPLAIN` analogue). DAG-shared nodes
+        print once and are referenced by label afterwards."""
+        lines: List[str] = []
+        printed = set()
+
+        def walk(node: PlanNode, prefix: str, tail: bool, root: bool):
+            if root:
+                head, child_prefix = "", ""
+            else:
+                head = prefix + ("└─ " if tail else "├─ ")
+                child_prefix = prefix + ("   " if tail else "│  ")
+            desc = node.describe()
+            schema = self.schemas.get(id(node))
+            cols = f" -> [{', '.join(schema)}]" if schema is not None else ""
+            if id(node) in printed:
+                lines.append(f"{head}[ref {node.label}]")
+                return
+            printed.add(id(node))
+            lines.append(f"{head}{node.label}"
+                         f"{' ' + desc if desc else ''}{cols}")
+            kids = node.children
+            for i, c in enumerate(kids):
+                walk(c, child_prefix, i == len(kids) - 1, False)
+
+        walk(self.root, "", True, True)
+        return "\n".join(lines)
+
     def __repr__(self):
         return f"Plan({self.root.label}, {len(self.nodes)} nodes)"
 
@@ -119,8 +158,12 @@ class PlanBuilder:
     """Entry point: `scan()` leaves, then chain on the returned Rel."""
 
     def scan(self, source: str,
-             schema: Optional[Sequence[str]] = None) -> Rel:
-        return Rel(Scan(source, None if schema is None else tuple(schema)))
+             schema: Optional[Sequence[str]] = None,
+             est_rows: Optional[int] = None) -> Rel:
+        """`est_rows` is a cardinality hint for the optimizer's build-side
+        rule; a bound table's row count takes precedence at execute()."""
+        return Rel(Scan(source, None if schema is None else tuple(schema),
+                        est_rows=est_rows))
 
     @staticmethod
     def union(rels: Sequence[Rel]) -> Rel:

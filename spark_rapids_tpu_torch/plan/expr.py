@@ -1,19 +1,28 @@
 """Expression mini-language for plan predicates and projections.
 
 Counterpart of `spark_rapids_tpu/plan/expr.py` for column references,
-literals and the `_BIN_FNS` operators. `evaluate(table)` returns an (n,)
-tensor on the table's device. Literals follow the reference's x64
-promotion: a Python int is int64, a float float64, a bool bool.
+literals, the `_BIN_FNS` operators and the optimizer's helpers (`fold`,
+`substitute`, `has_scalar_agg`). `evaluate(table)` returns an (n,) tensor
+on the table's device.
+
+Literals are weakly typed, as the reference's `jnp.full` literals are under
+x64 (`promote`): against a column the column's dtype wins, and the
+literal's value wraps at that width (INT8 `b * 3` of 100 is 44). An int
+literal against a bool column gives int64, a float literal against an
+integer or bool column float64. A literal alone, or a literal-only
+subtree, stays weak int64/float64 (bool literals are strong bool). The
+reference's type errors are kept: `-` of two bools, `&`/`|` of floats and
+unary `-` of a bool raise TypeError.
 
 Null semantics are the reference's: expressions read the data buffer only;
 rows whose inputs are null must be dropped by validity-aware operators.
-Scalar aggregates and the optimizer's folding helpers wait for the port of
-the optimizer.
+Scalar aggregates (`ScalarAgg`) wait for q23's slice, so `has_scalar_agg`
+is always False here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, FrozenSet
+from typing import Any, FrozenSet, Tuple
 
 import torch
 
@@ -25,6 +34,11 @@ class Expr:
         raise NotImplementedError
 
     def evaluate(self, table) -> torch.Tensor:
+        return self._eval(table)[0]
+
+    def _eval(self, table) -> Tuple[torch.Tensor, bool]:
+        """(values, weak): `weak` marks a result whose dtype yields to a
+        strongly typed operand, as a weak-typed JAX array does."""
         raise NotImplementedError
 
     def _bin(self, op: str, other) -> "BinOp":
@@ -92,8 +106,8 @@ class ColumnRef(Expr):
     def references(self):
         return frozenset((self.name,))
 
-    def evaluate(self, table):
-        return table[self.name].data
+    def _eval(self, table):
+        return table[self.name].data, False
 
     def __repr__(self):
         return self.name
@@ -116,13 +130,52 @@ class Literal(Expr):
     def references(self):
         return frozenset()
 
-    def evaluate(self, table):
-        return torch.full((table.num_rows,), self.value,
-                          dtype=_literal_dtype(self.value),
-                          device=table.device)
+    def _eval(self, table):
+        dt = _literal_dtype(self.value)
+        return (torch.full((table.num_rows,), self.value, dtype=dt,
+                           device=table.device), dt != torch.bool)
 
     def __repr__(self):
         return repr(self.value)
+
+
+_COMPARE = ("==", "!=", "<", "<=", ">", ">=")
+_INTS = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _rank(dt: torch.dtype) -> int:
+    """0 bool, 1 integer, 2 floating: the categories weak typing orders."""
+    return 0 if dt == torch.bool else 1 if dt in _INTS else 2
+
+
+def promote(op: str, a: torch.dtype, a_weak: bool, b: torch.dtype,
+            b_weak: bool) -> Tuple[torch.dtype, bool]:
+    """The dtype both operands of `op` convert to, and whether the result
+    is weak, by the reference's x64 rules. A weak operand takes a strong
+    operand's dtype unless its category is higher (an int over a bool
+    gives int64, a float over an integer or bool float64, both still
+    weak); two strong or two weak operands promote as torch and JAX both
+    do for these dtypes. Raises TypeError where the reference raises."""
+    if a_weak == b_weak:
+        dt, weak = torch.promote_types(a, b), a_weak
+    else:
+        (s, w) = (b, a) if a_weak else (a, b)
+        if _rank(w) > _rank(s):
+            dt, weak = (torch.int64 if _rank(w) == 1 else torch.float64), True
+        else:
+            dt, weak = s, False
+    if op in ("&", "|") and dt.is_floating_point:
+        raise TypeError(f"{op!r} does not accept {dt}")
+    if op == "-" and dt == torch.bool:
+        raise TypeError("'-' does not accept two bool operands")
+    return dt, weak and op not in _COMPARE
+
+
+def unary_check(op: str, dt: torch.dtype) -> None:
+    if op == "-" and dt == torch.bool:
+        raise TypeError("unary '-' does not accept bool")
+    if op == "~" and dt.is_floating_point:
+        raise TypeError(f"'~' does not accept {dt}")
 
 
 _BIN_FNS = {
@@ -144,9 +197,11 @@ class BinOp(Expr):
     def references(self):
         return self.left.references() | self.right.references()
 
-    def evaluate(self, table):
-        return _BIN_FNS[self.op](self.left.evaluate(table),
-                                 self.right.evaluate(table))
+    def _eval(self, table):
+        a, aw = self.left._eval(table)
+        b, bw = self.right._eval(table)
+        dt, weak = promote(self.op, a.dtype, aw, b.dtype, bw)
+        return _BIN_FNS[self.op](a.to(dt), b.to(dt)), weak
 
     def __repr__(self):
         return f"({self.left!r} {self.op} {self.right!r})"
@@ -160,12 +215,74 @@ class UnaryOp(Expr):
     def references(self):
         return self.child.references()
 
-    def evaluate(self, table):
-        v = self.child.evaluate(table)
-        return ~v if self.op == "~" else -v
+    def _eval(self, table):
+        v, weak = self.child._eval(table)
+        unary_check(self.op, v.dtype)
+        return (~v if self.op == "~" else -v), weak
 
     def __repr__(self):
         return f"{self.op}{self.child!r}"
+
+
+# ---- structural helpers (the optimizer's expression toolkit) ----------------
+
+def _foldable(v) -> bool:
+    """Folded Python arithmetic matches int64 evaluation only while the
+    value fits int64; an int outside it stays unfolded, where evaluation
+    wraps."""
+    if isinstance(v, bool) or not isinstance(v, int):
+        return True
+    return -(2 ** 63) <= v < 2 ** 63
+
+
+def fold(e: Expr) -> Expr:
+    """Constant-fold literal-only subtrees bottom-up: `BinOp(lit, lit)` and
+    `UnaryOp(lit)` become a `Literal` of the Python value, comparisons
+    included, so a literal predicate reduces to `Literal(True/False)`.
+    Returns `e` itself when nothing folded (callers detect a rewrite by
+    identity)."""
+    if isinstance(e, BinOp):
+        l, r = fold(e.left), fold(e.right)
+        if isinstance(l, Literal) and isinstance(r, Literal):
+            v = _BIN_FNS[e.op](l.value, r.value)
+            if _foldable(v):
+                return Literal(v)
+        if l is e.left and r is e.right:
+            return e
+        return BinOp(e.op, l, r)
+    if isinstance(e, UnaryOp):
+        c = fold(e.child)
+        if isinstance(c, Literal):
+            if e.op == "~":
+                # Python's ~True is -2; `~` of a bool tensor is logical not
+                v = (not c.value) if isinstance(c.value, bool) else ~c.value
+            else:
+                v = -c.value
+            if _foldable(v):
+                return Literal(v)
+        return e if c is e.child else UnaryOp(e.op, c)
+    return e
+
+
+def substitute(e: Expr, mapping) -> Expr:
+    """Replace every `ColumnRef(name)` with `mapping[name]`: a predicate
+    rewritten through a Project during pushdown. Unmapped names raise
+    KeyError (callers guard with references())."""
+    if isinstance(e, ColumnRef):
+        return mapping[e.name]
+    if isinstance(e, BinOp):
+        return BinOp(e.op, substitute(e.left, mapping),
+                     substitute(e.right, mapping))
+    if isinstance(e, UnaryOp):
+        return UnaryOp(e.op, substitute(e.child, mapping))
+    return e
+
+
+def has_scalar_agg(e: Expr) -> bool:
+    """Whether `e` holds a whole-relation scalar aggregate. The port has
+    none yet (`ScalarAgg` comes with q23), so no expression does; the
+    optimizer's guards call this as the reference's do."""
+    return False
 
 
 def col(name: str) -> ColumnRef:

@@ -2,8 +2,10 @@
 
 Counterpart of `spark_rapids_tpu/plan/metrics.py` for the fields the eager
 tier of this port records: rows in and out, output bytes, wall time and the
-kernel-registry stamp ("cuda:hash_join", "torch:hash_join"). The retry,
-IO, distributed and placement counters wait for their tiers.
+kernel-registry stamp: "cuda:hash_join", "cuda:fused_select" and
+"cuda:topk" for the hand-written kernels, "torch:<op>" for their plain
+fallbacks. The profile text carries the optimizer's line. The retry, IO,
+distributed and placement counters wait for their tiers.
 """
 from __future__ import annotations
 
@@ -28,12 +30,21 @@ class OperatorMetrics:
 
 def render_profile(rows: List[OperatorMetrics],
                    plan_wall_ms: Optional[float] = None,
-                   device: str = "") -> str:
+                   device: str = "",
+                   optimizer: Optional[Dict] = None) -> str:
     """Human-readable profile table (the `profile()` text form)."""
     out = []
     if plan_wall_ms is not None:
         on = f" on {device}" if device else ""
         out.append(f"plan: {plan_wall_ms:.3f} ms{on}")
+    if optimizer is not None:
+        fired = optimizer.get("rules_fired") or {}
+        pruned = optimizer.get("pruned_columns", 0)
+        out.append(f"optimizer: rules_fired={fired or 'none'}"
+                   + (f", pruned {pruned} column(s) "
+                      f"(~{optimizer.get('pruned_bytes_est', 0)} B est)"
+                      if pruned else "")
+                   + f", fingerprint={optimizer.get('fingerprint', '')}")
     hdr = (f"{'operator':<28} {'rows_in':>10} {'rows_out':>10} "
            f"{'bytes_out':>12} {'wall_ms':>9}")
     out.append(hdr)

@@ -5,11 +5,12 @@ dataclass over child nodes, together a DAG (a shared subtree executes once
 per run). `output_names(child_schemas)` is the single place each operator's
 schema contract lives, with the reference's messages.
 
-All node kinds are here so plans build as in the reference; the eager
-executor of this port runs Scan, Filter, Project, HashJoin, HashAggregate
-and Sort, and names the ROADMAP item that ports each other kind. Scans bind
-materialized tables only: parquet sources, pruning predicates and the
-optimizer's projections wait for their slices.
+All node kinds are here so plans build as in the reference, with the
+reference's fields, so that `Plan.fingerprint` hashes them alike. The eager
+executor of this port runs every kind but Union and Exchange, and names the
+ROADMAP item that ports those. Scans bind materialized tables only: parquet
+sources and pruning predicates wait for their slices. `row_cap`/`key_cap`
+are the capped tier's (queue A item 7); the eager tier ignores them.
 """
 from __future__ import annotations
 
@@ -66,23 +67,45 @@ class PlanNode:
 class Scan(PlanNode):
     """Leaf: one named input relation, bound at execute() to a Table
     (`inputs={name: table}`). A declared `schema` validates at build time
-    and is checked against the binding."""
+    and is checked against the binding. `projection` (set by the
+    optimizer's column pruning) narrows the output to a subset of the bound
+    columns. `est_rows` is a cardinality hint for the optimizer when no
+    table is bound. `predicate` is the scan-pruning rule's (queue A item
+    9) and stays None in the port."""
     source: str
     schema: Optional[Tuple[str, ...]] = None
+    projection: Optional[Tuple[str, ...]] = None
+    est_rows: Optional[int] = None
+    predicate: Optional[Expr] = None
 
     def __post_init__(self):
         super().__post_init__()
         if self.schema is not None:
             object.__setattr__(self, "schema", tuple(self.schema))
+        if self.projection is not None:
+            object.__setattr__(self, "projection", tuple(self.projection))
 
     def output_names(self, child_schemas):
         _require(self.schema is not None,
                  f"{self.label}: schema for input {self.source!r} is unknown "
                  "(declare it at scan() or bind inputs)")
-        return self.schema
+        return self.apply_projection(self.schema)
+
+    def apply_projection(self, schema) -> Tuple[str, ...]:
+        """Narrowed output over a (declared or bound) full schema."""
+        if self.projection is None:
+            return tuple(schema)
+        missing = set(self.projection) - set(schema)
+        _require(not missing,
+                 f"{self.label}: projected column(s) {sorted(missing)} not "
+                 f"in {list(schema)}")
+        return self.projection
 
     def describe(self):
-        return self.source
+        out = self.source
+        if self.projection is not None:
+            out += f" [{', '.join(self.projection)}]"
+        return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -179,6 +202,7 @@ class HashJoin(PlanNode):
     left_keys: Tuple[str, ...]
     right_keys: Tuple[str, ...]
     how: str = "inner"
+    row_cap: Optional[int] = None
 
     def __post_init__(self):
         super().__post_init__()
@@ -223,6 +247,7 @@ class HashAggregate(PlanNode):
     child: PlanNode
     keys: Tuple[str, ...]
     aggs: Tuple[Tuple[str, str, str], ...]
+    key_cap: Optional[int] = None
 
     def __post_init__(self):
         super().__post_init__()

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (hash join,
-row hash, shuffle histogram) against their plain PyTorch versions, and q3
-through `PlanExecutor()` on the card.
+row hash, shuffle histogram, FusedSelect, TopK) against their plain
+PyTorch versions, and q3 and TPC-DS q3 through `PlanExecutor()` on the
+card.
 
 They import neither JAX nor the JAX package, so they also run where only
 the port's dependencies are installed, e.g. on the GPU machine:
@@ -20,9 +21,11 @@ from spark_rapids_tpu_torch.columnar import Column
 from spark_rapids_tpu_torch import parallel
 from spark_rapids_tpu_torch.columnar import Table
 from spark_rapids_tpu_torch.ops import hash as thash
-from spark_rapids_tpu_torch.ops import hash_cuda, join, join_cuda
+from spark_rapids_tpu_torch.ops import (hash_cuda, join, join_cuda,
+                                        select, select_cuda, topk,
+                                        topk_cuda)
 from spark_rapids_tpu_torch.parallel import partition_cuda
-from spark_rapids_tpu_torch.plan import PlanExecutor
+from spark_rapids_tpu_torch.plan import PlanExecutor, col, lit
 
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +132,179 @@ def test_histogram_kernel_equals_plain_version(P):
         .astype(np.int32)))
     assert partition_cuda.LAUNCHES == {"histogram": 1}
     assert partition_cuda.PLAIN_CALLS == {"histogram": 0}
+
+
+def _bits(t):
+    """Floats as their bits, so that NaN rows compare equal."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _same_table(a, b):
+    assert a.names == b.names and a.num_rows == b.num_rows
+    for x, y in zip(a.columns, b.columns):
+        assert x.dtype == y.dtype
+        assert torch.equal(_bits(x.data), _bits(y.data))
+        assert (x.validity is None) == (y.validity is None)
+        if x.validity is not None:
+            assert torch.equal(x.validity, y.validity)
+
+
+_FS_SPECS = [("bool", None, tdt.BOOL), ("int8", np.int8, tdt.INT8),
+             ("int16", np.int16, tdt.INT16), ("int32", np.int32, tdt.INT32),
+             ("date32", np.int32, tdt.DATE32), ("int64", np.int64, tdt.INT64),
+             ("decimal32", np.int32, tdt.decimal(9, 2)),
+             ("decimal64", np.int64, tdt.decimal(18, 2)),
+             ("float32", np.float32, tdt.FLOAT32),
+             ("float64", np.float64, tdt.FLOAT64)]
+
+
+def _fs_table(n, null_p, seed=0):
+    rng = np.random.default_rng(seed)
+    cols, names = [], []
+    for name, npt, dtype in _FS_SPECS:
+        if npt is None:
+            a = rng.integers(0, 2, n).astype(bool)
+        elif np.issubdtype(npt, np.floating):
+            a = rng.standard_normal(n).astype(npt)
+            a[rng.random(n) < 0.05] = np.nan
+            a[:min(n, 2)] = [0.0, -0.0][:min(n, 2)]
+        else:
+            ii = np.iinfo(npt)
+            a = rng.integers(ii.min, ii.max, n, dtype=npt, endpoint=True)
+        v = (rng.random(n) > null_p) if null_p else None
+        cols.append(Column.from_numpy(a, dtype, v, device="cuda"))
+        names.append(name)
+    cols.append(Column.from_numpy(rng.integers(0, 50, n).astype(np.int32),
+                                  tdt.INT32, device="cuda"))
+    names.append("sel")
+    return Table(cols, names)
+
+
+_FS_PREDS = [(col("sel") < 25) | (col("sel") > 48),
+             col("sel") == 7,
+             (col("sel") + 3) * 2 > 40,
+             ~(col("sel") >= 10) & (col("bool") | (col("sel") != 3)),
+             col("sel") - 60 < lit(-30),
+             (col("int8") + 100) > 50,
+             col("int32") * 3 < col("int32"),
+             (col("int64") > 0) & (col("sel") < 10),
+             # float predicates: float32 arithmetic, integer operands
+             # rounded, float64 promotion, subnormals, NaN
+             (col("float32") + col("int32")) * 0.1 > col("float32"),
+             col("float32") * col("int64") < lit(-1.5e18),
+             (col("int32") * 1.0) > lit(16777216.5),
+             (col("bool") + 0.25) * col("int8") >= col("float64"),
+             (col("int16") + 0.1) * col("float32") != col("float32"),
+             col("float32") * 1e-39 != lit(0.0),
+             (col("float32") == col("float32")) | (col("sel") < 3),
+             -col("float64") * col("float32") <= col("decimal32"),
+             # a literal-only predicate, and a right-nested chain
+             lit(2) + lit(3) > lit(4),
+             col("sel") < (col("int8") + (col("int16") - (col("int32") *
+                                                          (col("sel") + 1))))]
+
+
+@pytest.mark.parametrize("null_p", [0.0, 0.15])
+@pytest.mark.parametrize("n", [0, 1, 1000, 100_003])
+def test_fused_select_kernel_equals_plain_version(n, null_p):
+    _need_card()
+    t = _fs_table(n, null_p)
+    needed = [c for c in t.names if c != "sel"]
+    select_cuda.reset_counters()
+    for pred in _FS_PREDS:
+        got = select_cuda.fused_select_cuda(t, pred, needed)
+        _same_table(got, select.fused_select_plain(t, pred, needed))
+    torch.cuda.synchronize()
+    assert select_cuda.LAUNCHES["count"] == (len(_FS_PREDS) if n else 0)
+    # the plain version ran only where the test called it
+    assert select_cuda.PLAIN_CALLS == {"fused_select": len(_FS_PREDS)}
+
+
+_TK_CASES = [(np.int64, True), (np.int64, False), (np.int32, True),
+             (np.int16, False), (np.float32, True), (np.float64, False),
+             (np.bool_, True)]
+
+
+@pytest.mark.parametrize("dt,asc", _TK_CASES)
+@pytest.mark.parametrize("null_p", [0.0, 0.2])
+def test_topk_kernel_equals_plain_version(dt, asc, null_p):
+    _need_card()
+    rng = np.random.default_rng(3)
+    n = 5000
+    if dt is np.bool_:
+        a, kind = rng.integers(0, 2, n).astype(bool), tdt.BOOL
+    elif np.issubdtype(dt, np.floating):
+        a = rng.standard_normal(n).astype(dt)
+        a[rng.random(n) < 0.05] = np.nan
+        kind = tdt.FLOAT32 if dt is np.float32 else tdt.FLOAT64
+    else:
+        a = rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, n, dtype=dt,
+                         endpoint=True)
+        kind = {np.int64: tdt.INT64, np.int32: tdt.INT32,
+                np.int16: tdt.INT16}[dt]
+    v = (rng.random(n) > null_p) if null_p else None
+    t = Table([Column.from_numpy(a, kind, v, device="cuda"),
+               Column.from_numpy(rng.integers(0, 9, n).astype(np.int32),
+                                 tdt.INT32, device="cuda")], ["k", "pay"])
+    # above 512 (half a tile) the runs merge
+    for k in (1, 17, 100, 128, 129, 513, 1000, 4099):
+        _same_table(topk_cuda.topk_table_cuda(t, ["k"], [asc], k),
+                    topk.topk_plain(t, ["k"], [asc], k))
+    keys, ascs = ["k", "pay"], [asc, not asc]
+    for k in (50, 700):
+        _same_table(topk_cuda.topk_table_cuda(t, keys, ascs, k),
+                    topk.topk_plain(t, keys, ascs, k))
+    small = Table([c for c in t.columns], t.names)
+    small = topk.topk_plain(small, ["pay"], [True], 40)     # k > n
+    _same_table(topk_cuda.topk_table_cuda(small, ["k"], [asc], 100),
+                topk.topk_plain(small, ["k"], [asc], 100))
+    torch.cuda.synchronize()
+
+
+def test_tpcds_q3_on_the_card_uses_the_kernels():
+    _need_card()
+    inputs = nds_q3.q3_tpcds_inputs(300_000)
+    for m in (join_cuda, select_cuda, topk_cuda):
+        m.reset_counters()
+    res = PlanExecutor().execute(nds_q3.q3_tpcds_plan(), inputs)
+    torch.cuda.synchronize()
+    assert join_cuda.LAUNCHES["build"] == 2
+    assert select_cuda.LAUNCHES["count"] == 2
+    assert topk_cuda.LAUNCHES["select"] >= 1
+    assert select_cuda.PLAIN_CALLS == {"fused_select": 0}
+    assert topk_cuda.PLAIN_CALLS == {"topk": 0}
+    kinds = {m.kind: m.kernel for m in res.metrics.values() if m.kernel}
+    assert kinds == {"FusedSelect": "cuda:fused_select",
+                     "HashJoin": "cuda:hash_join", "TopK": "cuda:topk"}
+    cpu = PlanExecutor(device="cpu").execute(
+        nds_q3.q3_tpcds_plan(), {k: t.to("cpu") for k, t in inputs.items()})
+    _same_table(res.table.to("cpu"), cpu.table)
+
+
+def test_a_declined_call_raises_on_the_card(monkeypatch):
+    _need_card()
+    from spark_rapids_tpu_torch.ops.registry import KernelDeclinedError
+    from spark_rapids_tpu_torch.plan import PlanBuilder
+    t = _fs_table(1000, 0.0)
+    big = col("sel")
+    for _ in range(70):
+        big = big - col("int8")
+    inputs = {"t": t}
+    for pred, force, declined in (
+            (col("sel") < 9, None, False), (big > 0, None, True),
+            (col("sel") < 9, "fused_select=torch", True)):
+        plan = (PlanBuilder().scan("t", schema=list(t.names)).filter(pred)
+                .project({"v": col("int16")}).build())
+        if force:
+            monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", force)
+        select.PLAIN_CALLS["fused_select"] = 0
+        if declined:
+            with pytest.raises(KernelDeclinedError, match="fused_select"):
+                PlanExecutor().execute(plan, inputs)
+        else:
+            res = PlanExecutor().execute(plan, inputs)
+            assert [m.kernel for m in res.metrics.values() if m.kernel] == [
+                "cuda:fused_select"]
+        assert select.PLAIN_CALLS == {"fused_select": 0}

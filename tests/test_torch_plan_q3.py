@@ -1,8 +1,10 @@
 """NDS q3 through the port's eager plan engine against the JAX package's
 `PlanExecutor(mode="eager", optimize=False)` on the same tables, bit for
-bit; plus the port's datagen and plan DAG against the reference bench's,
-and the eager node kinds q3 does not reach."""
+bit; TPC-DS q3 (INT32 keys, LIMIT 100) through both optimizers and eager
+executors; plus the port's datagen and plan DAG against the reference
+bench's, and the eager node kinds q3 does not reach."""
 import os
+import re
 import subprocess
 import sys
 
@@ -66,7 +68,7 @@ def test_q3_matches_jax_eager(monkeypatch, force):
     if force:
         monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", "hash_join=cuda")
     join_cuda.reset_counters()
-    res = PlanExecutor(device="cpu").execute(
+    res = PlanExecutor(device="cpu", optimize=False).execute(
         nds_q3.q3_plan(), {k: _port(t) for k, t in jinputs.items()})
     _assert_same(ref, res.table)
     assert ref.num_rows > 0
@@ -161,8 +163,9 @@ def test_unported_nodes_and_errors_name_their_roadmap_item():
     plan = b.scan("t", schema=["a"]).sort(["a"]).limit(3).build()
     t = table_from_numpy(["a"], [np.arange(5, dtype=np.int64)], [None],
                          ["int64"], device="cpu")
+    union = b.scan("t", schema=["a"]).union(b.scan("u", schema=["a"])).build()
     with pytest.raises(PlanValidationError, match="queue A item 3"):
-        PlanExecutor(device="cpu").execute(plan, {"t": t})
+        PlanExecutor(device="cpu").execute(union, {"t": t, "u": t})
     with pytest.raises(PlanValidationError, match="unbound"):
         PlanExecutor(device="cpu").execute(plan, {})
     with pytest.raises(PlanValidationError, match="does not match declared"):
@@ -192,6 +195,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "from spark_rapids_tpu_torch.ops import hash, hash_cuda\n"
         "from spark_rapids_tpu_torch.parallel import (partition,\n"
         "    partition_cuda, shuffle)\n"
+        "from spark_rapids_tpu_torch.ops import (copying, select,\n"
+        "    select_cuda, topk, topk_cuda)\n"
+        "from spark_rapids_tpu_torch.plan import optimizer\n"
+        "t = nds_q3.q3_tpcds_inputs(4096, device='cpu')\n"
+        "r = PlanExecutor(device='cpu').execute(nds_q3.q3_tpcds_plan(), t)\n"
+        "assert r.optimizer['rules_fired'] and r.table.num_rows > 0\n"
         "inputs = nds_q3.q3_inputs(8192, device='cpu')\n"
         "res = PlanExecutor(device='cpu').execute(nds_q3.q3_plan(), inputs)\n"
         "assert res.table.num_rows > 0\n"
@@ -211,3 +220,65 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
+
+
+def _tpcds_reference(n_sales, limit=100):
+    """TPC-DS q3 in the JAX package, optimizer on, eager, over the port's
+    own INT32 inputs (`limit=None`: every group, sorted)."""
+    inputs = nds_q3.q3_tpcds_inputs(n_sales, seed=0, device="cpu")
+    jinputs = {}
+    for name, t in inputs.items():
+        jinputs[name] = JTable([JColumn.from_numpy(c.data.numpy())
+                                for c in t.columns], names=list(t.names))
+    b = JPlanBuilder()
+    sales = b.scan("sales", schema=["sold_date_sk", "item_sk", "price_cents"])
+    dates = (b.scan("dates", schema=["d_date_sk", "d_year", "d_moy"])
+             .filter(jcol("d_moy") == 11))
+    items = (b.scan("items", schema=["i_item_sk", "i_brand", "i_manufact"])
+             .filter(jcol("i_manufact") == 42))
+    j = (sales.join(dates, left_on="sold_date_sk", right_on="d_date_sk")
+              .join(items, left_on="item_sk", right_on="i_item_sk"))
+    plan = (j.aggregate(["d_year", "i_brand"],
+                        [("price_cents", "sum", "revenue")])
+             .sort(["d_year", "revenue", "i_brand"],
+                   ascending=[True, False, True]))
+    plan = (plan if limit is None else plan.limit(limit)).build()
+    from spark_rapids_tpu.plan import stats
+    with stats.scoped_store(None):
+        res = JPlanExecutor(mode="eager", optimize=True).execute(plan,
+                                                                 jinputs)
+    return res, inputs
+
+
+def test_tpcds_q3_matches_jax_optimized_eager():
+    ref, inputs = _tpcds_reference(20_000)
+    assert [c.dtype.kind.value for c in inputs["sales"].columns] == \
+        ["int32", "int32", "int64"]
+    res = PlanExecutor(device="cpu").execute(nds_q3.q3_tpcds_plan(), inputs)
+    _assert_same(ref.table, res.table)
+    assert 0 < res.table.num_rows <= 100
+    assert res.optimizer["rules_fired"] == ref.optimizer["rules_fired"] == {
+        "limit_pushdown": 1, "column_pruning": 4, "select_fusion": 2}
+    assert res.optimizer["fingerprint"] == ref.optimizer["fingerprint"]
+    strip = lambda s: re.sub(r"#\d+", "", s)            # noqa: E731
+    assert strip(res.plan.explain()) == strip(ref.plan.explain())
+    stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
+    assert stamps == ["torch:fused_select"] * 2 + ["torch:hash_join"] * 2 + \
+        ["torch:topk"]
+    # the authored plan, unoptimized, gives the same rows
+    off = PlanExecutor(device="cpu", optimize=False).execute(
+        nds_q3.q3_tpcds_plan(), inputs)
+    _assert_same(ref.table, off.table)
+
+
+def test_tpcds_q3_every_group_matches_jax():
+    # without its LIMIT the plan keeps a Sort, and every group of every
+    # year comes out: what chip_smoke.py holds against numpy on the card
+    ref, inputs = _tpcds_reference(20_000, limit=None)
+    res = PlanExecutor(device="cpu").execute(
+        nds_q3.q3_tpcds_plan(limit=None), inputs)
+    _assert_same(ref.table, res.table)
+    assert len(set(res.table["d_year"].data.tolist())) > 1
+    assert res.optimizer["rules_fired"] == ref.optimizer["rules_fired"]
+    assert res.optimizer["fingerprint"] == ref.optimizer["fingerprint"]
+    assert [m.kind for m in res.metrics.values()].count("FusedSelect") == 2
