@@ -27,13 +27,20 @@ in phases that each raise on failure:
    with and without nulls, nineteen predicates (the four shapes, INT8/INT32
    wrap-around, 64-bit integer columns, float32/float64 arithmetic and
    promotion, a literal-only predicate, a right-nested chain) at 0, 1,
-   1,000 and 1,000,003 rows; then timed on benchmarks/kernel_bench.py's
-   table (10M rows) with INT32 and with INT64 predicate columns;
+   1,000 and 1,000,003 rows, at row counts off the kernel's 4 rows a
+   thread and 1,024 a step, and with every column a view one element into
+   its buffers; then timed on benchmarks/kernel_bench.py's table (10M
+   rows) with INT32 and with INT64 predicate columns, the count kernel by
+   program nodes and the compaction alone by rows kept;
 4d. TopK: the kernel against its plain version on seven key kinds with and
-   without nulls at k = 1, 17, 100, 128, 129, 513, 1,000 and 4,099 (above
-   512 the sorted runs merge), multi-key, k > rows and 0 rows; then timed
-   on kernel_bench.py's table (10M rows, keys [k DESC, v ASC]) at k = 50,
-   100 and 1,000;
+   without nulls at k = 1, 17, 100, 128, 129, 513, 1,000 and 4,099 (over
+   a nullable key the tile sort takes 4,099), multi-key, k > rows and 0
+   rows; then on kernel_bench.py's table (10M rows, keys [k DESC, v ASC]) at k = 50, 100
+   and 1,000 and on each side of the route rule's boundary, and at 10M
+   rows on keys in descending order (every row beats the threshold), all
+   equal and all null, each against its plain version, the route checked
+   by the launch counters and timed beside the tile route on the same
+   call;
 5. row hash: `bench.py`'s workload (10,000,000 rows x 2 INT64 columns)
    through `ops.murmur_hash3_32` + `ops.xxhash64` (two launches),
    `ops.fused_row_hash` (one) and `api.Hash`, counters zeroed before and
@@ -92,14 +99,19 @@ RH_ROW_OPS = {"murmur": 9, "xxhash": 9, "fused": 12}
 RH_OUT_BYTES = {"murmur": 4, "xxhash": 8, "fused": 12}
 # histogram: per id a range compare and a shared-memory add
 HIST_OPS = 2
+# the count kernel's two forms: 32-bit values, 64-bit values
+FS_COUNT = ("fs_count_kernel<int>", "fs_count_kernel<longlong>")
 KERNEL_NAMES = {"build": "build_kernel", "count": "probe_kernel<false>",
                 "emit": "probe_kernel<true>",
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
                 "fused": "row_hash_kernel<true,true>",
                 "histogram": "hist_kernel",
-                "fused_select": ("fs_count_kernel", "fs_compact_kernel"),
-                "topk": ("tk_select_kernel", "tk_merge_kernel")}
+                "fused_select": ("fs_count_kernel<int>",
+                                 "fs_count_kernel<longlong>",
+                                 "fs_compact_kernel"),
+                "topk": ("tk_threshold_kernel", "tk_select_kernel",
+                         "tk_merge_kernel")}
 SOURCE = "spark_rapids_tpu_torch/ops/csrc/hash_join.cu"
 RH_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_hash.cu"
 HIST_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
@@ -116,7 +128,7 @@ REPLACES = {
 }
 TPCDS_LIMIT = 100                  # TPC-DS q3's `limit 100`
 TOPK_LIMITS = (50, 100)            # kernel_bench.py's 50 and TPC-DS's 100
-TOPK_MERGE_LIMIT = 1000            # a limit past half a tile: runs merge
+TOPK_LARGE_LIMIT = 1000            # a limit past half of a sort tile
 
 
 def log(msg=""):
@@ -619,9 +631,11 @@ def tpcds_q3_phase(torch, chk, gen, trace):
     stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
     require(stamps == ["cuda:fused_select"] * 2 + ["cuda:hash_join"] * 2
             + ["cuda:topk"], f"TPC-DS q3 stamps {stamps}")
+    # the TopK of the groups is one threshold launch and the gather
     require(launches["hash_join"]["build"] == 2
             and launches["fused_select"]["count"] == 2
-            and launches["topk"]["select"] >= 1,
+            and launches["topk"] == {"threshold": 1, "select": 0,
+                                     "merge": 0},
             f"kernel launches on TPC-DS q3 {launches}")
     require(all(v == 0 for d in plain.values() for v in d.values()),
             f"plain versions ran on the card path {plain}")
@@ -688,9 +702,16 @@ def tpcds_q3_phase(torch, chk, gen, trace):
 
 # ---- phase 4c ---------------------------------------------------------------
 
-def fs_matrix(dt, Column, Table, col, lit):
+FS_SIZES = (0, 1, 1000, 1_000_003)
+# the count kernel takes 4 rows a thread and 1,024 a step: sizes off those
+# multiples, also with every column a view one element into its buffer
+FS_EDGE_SIZES = (3, 1023, 1025, 2047, 2049, 4097, 1_000_001)
+
+
+def fs_matrix(dt, Column, Table, col, lit, sizes=FS_SIZES, offset=0):
     """(what, table, predicate, needed) on the card: every port dtype with
-    and without nulls, eight predicates, 0/1/1,000/1,000,003 rows."""
+    and without nulls, nineteen predicates, at `sizes` rows; with `offset`,
+    every column a view that many elements into its buffers."""
     rng = np.random.default_rng(4)
     specs = [("bool", None, dt.BOOL), ("int8", np.int8, dt.INT8),
              ("int16", np.int16, dt.INT16), ("int32", np.int32, dt.INT32),
@@ -727,31 +748,39 @@ def fs_matrix(dt, Column, Table, col, lit):
              ("literal only", lit(2) + lit(3) > lit(4)),
              ("right-nested", col("sel") < (col("int8") + (col("int16") - (
                  col("int32") * (col("sel") + (col("int64") - 1))))))]
-    for n in (0, 1, 1000, 1_000_003):
+    def view(c):
+        if not offset:
+            return c
+        v = None if c.validity is None else c.validity[offset:]
+        return Column(c.dtype, c.length - offset, c.data[offset:], v)
+
+    for n in sizes:
+        n_buf = n + offset
         for null_p in (0.0, 0.15):
             cols, names = [], []
             for name, npt, dtype in specs:
                 if npt is None:
-                    a = rng.integers(0, 2, n).astype(bool)
+                    a = rng.integers(0, 2, n_buf).astype(bool)
                 elif np.issubdtype(npt, np.floating):
-                    a = rng.standard_normal(n).astype(npt)
-                    a[rng.random(n) < 0.05] = np.nan
-                    a[:min(n, 2)] = [0.0, -0.0][:min(n, 2)]
+                    a = rng.standard_normal(n_buf).astype(npt)
+                    a[rng.random(n_buf) < 0.05] = np.nan
+                    a[:min(n_buf, 2)] = [0.0, -0.0][:min(n_buf, 2)]
                 else:
                     ii = np.iinfo(npt)
-                    a = rng.integers(ii.min, ii.max, n, dtype=npt,
+                    a = rng.integers(ii.min, ii.max, n_buf, dtype=npt,
                                      endpoint=True)
-                v = (rng.random(n) > null_p) if null_p else None
-                cols.append(Column.from_numpy(a, dtype, v, device="cuda"))
+                v = (rng.random(n_buf) > null_p) if null_p else None
+                cols.append(view(Column.from_numpy(a, dtype, v,
+                                                   device="cuda")))
                 names.append(name)
-            cols.append(Column.from_numpy(
-                rng.integers(0, 50, n).astype(np.int32), dt.INT32,
-                device="cuda"))
+            cols.append(view(Column.from_numpy(
+                rng.integers(0, 50, n_buf).astype(np.int32), dt.INT32,
+                device="cuda")))
             names.append("sel")
             t = Table(cols, names)
             for what, pred in preds:
-                yield (f"{what} n={n} nulls={null_p}", t, pred,
-                       names[:-1])
+                yield (f"{what} n={n} offset={offset} nulls={null_p}", t,
+                       pred, names[:-1])
 
 
 def fused_select_phase(torch, chk):
@@ -763,12 +792,16 @@ def fused_select_phase(torch, chk):
 
     t0 = time.perf_counter()
     n_cases = 0
-    for what, t, pred, needed in fs_matrix(dt, Column, Table, col, lit):
-        chk.tables("fused_select", sc.fused_select_cuda(t, pred, needed),
-                   select.fused_select_plain(t, pred, needed), what)
-        n_cases += 1
+    for sizes, offset in ((FS_SIZES, 0), (FS_EDGE_SIZES, 0),
+                          (FS_EDGE_SIZES, 1)):
+        for what, t, pred, needed in fs_matrix(dt, Column, Table, col, lit,
+                                               sizes, offset):
+            chk.tables("fused_select", sc.fused_select_cuda(t, pred, needed),
+                       select.fused_select_plain(t, pred, needed), what)
+            n_cases += 1
     torch.cuda.synchronize()
-    log(f"fused_select: {n_cases} tables x predicates, kernel == plain "
+    log(f"fused_select: {n_cases} tables x predicates, kernel == plain, "
+        f"also at {FS_EDGE_SIZES} rows and one element into every buffer "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # kernel_bench.py's table (its lines 43-51), with INT32 and with INT64
@@ -806,10 +839,10 @@ def fused_select_phase(torch, chk):
         ms = device_ms(torch, kern, KERNEL_NAMES["fused_select"], 50,
                        per_call=2)
         count_ms, compact_ms = (device_ms(torch, kern, name, 50)
-                                for name in KERNEL_NAMES["fused_select"])
+                                for name in (FS_COUNT, "fs_compact_kernel"))
         node_ms = {nodes: device_ms(
             torch, lambda: sc.fused_select_cuda(t, p, needed),
-            "fs_count_kernel", 20) for nodes, p in by_nodes.items()}
+            FS_COUNT, 20) for nodes, p in by_nodes.items()}
         cms = call_ms(torch, kern, 50)
         pms = time_cuda(torch, lambda: select.fused_select_plain(
             t, pred, needed), 5)
@@ -829,7 +862,28 @@ def fused_select_phase(torch, chk):
             f"by program nodes {node_ms}), one "
             f"call {cms!r} ms, plain {pms!r} ms, torch mask "
             f"+ t[mask] {lib!r} ms; bound {bytes_ms!r} ms ({nbytes} B)")
+        if form == "int32":
+            timing[form]["compact_by_kept"] = compact_experiment(
+                torch, sc, t, col)
     return timing
+
+
+def compact_experiment(torch, sc, t, col):
+    """fs_compact's device time alone by the share of rows kept and the
+    columns it writes, on kernel_bench.py's table: what grows with what
+    says which of its costs bounds it (PERF.md)."""
+    out = {}
+    for share, p in (("0.1%", (col("a") < 1) & (col("b") > 3)),
+                     ("4%", (col("a") < 10) & (col("b") > 0)),
+                     ("50%", col("a") < 50), ("100%", col("a") >= 0)):
+        for cols in (["a"], ["a", "v"]):
+            kept = sc.fused_select_cuda(t, p, cols).num_rows
+            ms = device_ms(torch, lambda: sc.fused_select_cuda(t, p, cols),
+                           "fs_compact_kernel", 20)
+            out[f"{share} {'+'.join(cols)}"] = {"kept": kept, "ms": ms}
+    log("  compaction alone: " + ", ".join(
+        f"{k} ({v['kept']} rows) {v['ms']!r} ms" for k, v in out.items()))
+    return out
 
 
 # ---- phase 4d ---------------------------------------------------------------
@@ -844,6 +898,7 @@ def topk_phase(torch, chk):
     from spark_rapids_tpu_torch.columnar import Column, Table
     from spark_rapids_tpu_torch.ops import topk
     from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.ops.gather import take_table
 
     kinds = {np.int64: dt.INT64, np.int32: dt.INT32, np.int16: dt.INT16,
              np.float32: dt.FLOAT32, np.float64: dt.FLOAT64,
@@ -903,37 +958,101 @@ def topk_phase(torch, chk):
                                  device="cuda")], ["k", "v"])
     keys, asc = ["k", "v"], [False, True]
     n_words = topk.n_words(topk.make_signature(t, keys, asc, 1, "eager"))
-    timing = {}
-    for k in TOPK_LIMITS + (TOPK_MERGE_LIMIT,):
-        chk.tables("topk", tc.topk_table_cuda(t, keys, asc, k),
-                   topk.topk_plain(t, keys, asc, k), f"10M rows k={k}")
+    sms, smem_optin = tc.device_limits(torch.device("cuda"))
+    edge = 1
+    while topk.threshold_route(edge + 1, n_words, smem_optin):
+        edge += 1
+    log(f"  route rule: at {n_words} words k <= {edge} takes the threshold "
+        f"kernel ({smem_optin} B of opt-in shared memory a block, {sms} "
+        f"SMs)")
+    for kk, ww in ((1, 2), (edge, n_words), (edge + 1, n_words), (100, 96)):
+        require(tc._lib().tk_threshold_smem(kk, ww)
+                == topk.threshold_smem(kk, ww),
+                f"the kernel's shared-memory layout for k={kk}, W={ww} "
+                f"differs from topk.threshold_smem")
+
+    def tile_route(tbl, ks, asc_, k):
+        """The tile-sort route on the same call: the sort of every tile
+        (the words built from the keys) and the merges of its runs."""
+        dev = tbl.device
+        desc = tc._descriptor(tbl, ks, asc_)
+        idx = tc._tile_sort(desc, tbl.num_rows, k, dev,
+                            torch.cuda.current_stream(dev).cuda_stream)
+        return take_table(tbl, idx[-1, :k], _has_negative=False)
+
+    def counted(fn):
         before = dict(tc.LAUNCHES)
-        tc.topk_table_cuda(t, keys, asc, k)
-        per_call = {n: tc.LAUNCHES[n] - before[n] for n in before}
-        kern = lambda: tc.topk_table_cuda(t, keys, asc, k)   # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        return {n: tc.LAUNCHES[n] - before[n] for n in before}
+
+    def case(what, tbl, ks, asc_, k, route, full=False):
+        """The kernel against topk_plain on one 10M-row call, the route
+        the counters show, its times and its bound; with `full` the plain
+        version's and torch.topk's times too. The tile route's device time
+        on the same call is timed beside it."""
+        want = topk.topk_plain(tbl, ks, asc_, k)
+        kern = lambda: tc.topk_table_cuda(tbl, ks, asc_, k)   # noqa: E731
+        chk.tables("topk", kern(), want, f"10M rows {what} k={k}")
+        per_call = counted(kern)
+        got_route = "threshold" if per_call["threshold"] else "tile"
+        require(got_route == route and sum(per_call.values()) >= 1,
+                f"{what} k={k}: launches {per_call}, expected the {route} "
+                f"route")
         ms = device_ms(torch, kern, KERNEL_NAMES["topk"], 20,
                        per_call=sum(per_call.values()))
         cms = call_ms(torch, kern, 20)
-        pms = time_cuda(torch, lambda: topk.topk_plain(t, keys, asc, k), 3)
-        kd = t["k"].data
-        lib = call_ms(torch, lambda: torch.topk(kd, k, largest=True,
-                                                sorted=True), 20)
+        tile = lambda: tile_route(tbl, ks, asc_, k)           # noqa: E731
+        chk.tables("topk", tile(), want, f"10M rows {what} k={k} tile")
+        tile_ms = device_ms(torch, tile, KERNEL_NAMES["topk"], 5,
+                            per_call=sum(counted(tile).values()))
         # the function: the key columns and validity read once, k rows of
-        # every column written; the kernel alone reads every tuple word
-        nbytes = N_ROWS * (8 + 1 + 4) + k * (8 + 1 + 4)
-        kernel_bytes = N_ROWS * n_words * 8
+        # every column written
+        nbytes = (sum(tbl[c].nbytes() for c in ks) + k * sum(
+            c.data.element_size() + (c.validity is not None)
+            for c in tbl.columns))
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        timing[k] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
-                     "library_ms": lib, "bytes": nbytes, "ops": 0,
-                     "bytes_ms": bytes_ms, "ops_ms": 0.0,
-                     "bound_ms": bytes_ms, "kernel_bytes": kernel_bytes,
-                     "kernel_bytes_ms":
-                         kernel_bytes / HBM_BYTES_PER_S * 1e3,
-                     "launches_per_call": per_call}
-        log(f"  k={k}: device {ms!r} ms over launches {per_call}, one call "
-            f"{cms!r} ms, plain {pms!r} ms, torch.topk of k's values "
-            f"(no tie order, no nulls) {lib!r} ms; bound {bytes_ms!r} ms "
-            f"({nbytes} B), the kernel's own reads {kernel_bytes} B")
+        out = {"ms": ms, "call_ms": cms, "bytes": nbytes, "ops": 0,
+               "bytes_ms": bytes_ms, "ops_ms": 0.0, "bound_ms": bytes_ms,
+               "route": route, "launches_per_call": per_call,
+               "tile_route_ms": tile_ms}
+        extra = ""
+        if full:
+            out["plain_ms"] = time_cuda(
+                torch, lambda: topk.topk_plain(tbl, ks, asc_, k), 3)
+            kd = tbl[ks[0]].data
+            out["library_ms"] = call_ms(torch, lambda: torch.topk(
+                kd, k, largest=not asc_[0], sorted=True), 20)
+            extra = (f", plain {out['plain_ms']!r} ms, torch.topk of "
+                     f"{ks[0]}'s values (no tie order, no nulls) "
+                     f"{out['library_ms']!r} ms")
+        log(f"  {what} k={k}: {route} route, device {ms!r} ms over "
+            f"launches {per_call}, one call {cms!r} ms{extra}; the tile "
+            f"route {tile_ms!r} ms; bound {bytes_ms!r} ms ({nbytes} B)")
+        return out
+
+    timing = {}
+    for k in TOPK_LIMITS + (TOPK_LARGE_LIMIT,):
+        timing[k] = case("random", t, keys, asc, k, "threshold", full=True)
+    cases = timing["cases"] = {}
+    cases["edge"] = case("random", t, keys, asc, edge, "threshold")
+    cases["past edge"] = case("random", t, keys, asc, edge + 1, "tile")
+    # the worst order: every row is below every block's threshold
+    desc_rows = Table([Column.from_numpy(np.arange(N_ROWS, 0, -1,
+                                                   dtype=np.int64),
+                                         dt.INT64, device="cuda"), t["v"]],
+                      ["k", "v"])
+    cases["descending"] = case("descending", desc_rows, ["k"], [True],
+                               TOPK_LIMITS[1], "threshold")
+    equal = Table([Column.from_numpy(np.zeros(N_ROWS, np.int64), dt.INT64,
+                                     device="cuda"), t["v"]], ["k", "v"])
+    cases["all equal"] = case("all-equal", equal, ["k"], [True],
+                              TOPK_LIMITS[1], "threshold")
+    nulls = Table([Column.from_numpy(np.zeros(N_ROWS, np.int64), dt.INT64,
+                                     np.zeros(N_ROWS, bool),
+                                     device="cuda"), t["v"]], ["k", "v"])
+    cases["all null"] = case("all-null", nulls, ["k"], [False],
+                             TOPK_LIMITS[1], "threshold")
     return timing
 
 
@@ -1341,7 +1460,8 @@ def main(argv=None):
         "replaces": REPLACES["topk"],
         "launches": sum(t_launches["topk"].values()),
         "launches_by_kernel": t_launches["topk"],
-        "merge_path": tk_timing[TOPK_MERGE_LIMIT],
+        "k_1000": tk_timing[TOPK_LARGE_LIMIT],
+        "cases": tk_timing["cases"],
         "exact": chk.max_err["topk"] == 0,
         "max_abs_err": chk.max_err["topk"],
         "library": "torch.topk(sorted=True) over the first key's values: "

@@ -23,9 +23,19 @@ tiles came from a column). Its limits are the program's struct: MAX_PROG
 instructions over MAX_PRED_COLS distinct columns. Operands are ordered so
 that the deeper subtree runs first, which keeps any program of MAX_PROG
 instructions within the MAX_STACK registers of the kernel's stack.
+
+A `Program` also carries what the kernel's launch needs of it: its
+argument struct (`PredArgs`) filled but for the columns' pointers, and
+whether it runs on 32-bit values. `cached_program` keeps compiled
+programs, keyed by `program_key`: the predicate's structure with every
+literal's type and exact value, and the dtypes of the columns it reads.
+The dispatch (`make_signature`) and the kernel's wrapper compile a
+predicate once; a program compiled for other dtypes or literals is never
+returned.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Dict, List, Tuple
 
@@ -67,15 +77,57 @@ def fused_select_plain(table: Table, predicate, needed) -> Table:
                               predicate.evaluate(table))
 
 
+class PredArgs(ctypes.Structure):
+    """The count kernel's argument struct (csrc/fused_select.cu Pred)."""
+    _fields_ = [("data", ctypes.c_void_p * MAX_PRED_COLS),
+                ("width", ctypes.c_int * MAX_PRED_COLS),
+                ("kind", ctypes.c_int * MAX_PRED_COLS),
+                ("lit", ctypes.c_longlong * MAX_PROG),
+                ("arg", ctypes.c_short * MAX_PROG),
+                ("op", ctypes.c_ubyte * MAX_PROG),
+                ("ty", ctypes.c_ubyte * MAX_PROG),
+                ("flags", ctypes.c_ubyte * MAX_PROG),
+                ("len", ctypes.c_int),
+                ("ncols", ctypes.c_int),
+                ("narrow", ctypes.c_int)]
+
+
 @dataclasses.dataclass
 class Program:
     """Postfix predicate: instructions (opcode, type code, column index,
     literal word, flags) over `columns`, needing a stack of `depth`
     values. A literal word is an integer's value or a float's float64
-    bits."""
+    bits. `narrow`: the kernel may evaluate it on 32-bit values; `args`:
+    the bytes of its `PredArgs`, every field filled but `data`."""
     columns: List[str]
     code: List[List[int]]
     depth: int
+    narrow: bool
+    args: bytes
+
+
+def _narrow(code: List[List[int]], dtypes: List[torch.dtype]) -> bool:
+    """Every instruction's type at most 32 bits and every column an
+    integer or bool of at most 4 bytes. Wraps and compares at those widths
+    depend on the low 32 bits only, so the values are those of the 64-bit
+    evaluation."""
+    return (all(ty <= TYPES[torch.int32] for _, ty, _, _, _ in code)
+            and all(not d.is_floating_point and d.itemsize <= 4
+                    for d in dtypes))
+
+
+def _args(code: List[List[int]], dtypes: List[torch.dtype],
+          narrow: bool) -> bytes:
+    p = PredArgs()
+    for i, d in enumerate(dtypes):
+        p.width[i] = d.itemsize
+        # csrc/fused_select.cu COL_*: integer, bool or float storage
+        p.kind[i] = 1 if d == torch.bool else 2 if d.is_floating_point else 0
+    for k, (op, ty, arg, lit, flags) in enumerate(code):
+        p.op[k], p.ty[k], p.arg[k], p.lit[k] = op, ty, arg, lit
+        p.flags[k] = flags
+    p.len, p.ncols, p.narrow = len(code), len(dtypes), int(narrow)
+    return bytes(p)
 
 
 def _type_code(dt: torch.dtype) -> int:
@@ -206,7 +258,59 @@ def compile_predicate(predicate, table: Table) -> Program:
                          f"stack {depth[1]}, {len(columns)} columns exceeds "
                          f"the kernel's {MAX_PROG}/{MAX_STACK}/"
                          f"{MAX_PRED_COLS}")
-    return Program(columns, code, depth[1])
+    dtypes = [table[c].data.dtype for c in columns]
+    narrow = _narrow(code, dtypes)
+    return Program(columns, code, depth[1], narrow,
+                   _args(code, dtypes, narrow))
+
+
+class _Uncached(Exception):
+    """An expression the key does not describe: compile without the
+    cache (compile_predicate raises for it)."""
+
+
+def _structure(e) -> tuple:
+    from ..plan import expr as pexpr
+    if isinstance(e, pexpr.ColumnRef):
+        return ("col", e.name)
+    if isinstance(e, pexpr.Literal):
+        v = e.value
+        # a float by its bits' text, so -0.0, 0.0 and NaN stay apart
+        return ("lit", type(v).__name__,
+                v.hex() if isinstance(v, float) else v)
+    if isinstance(e, pexpr.BinOp):
+        return ("bin", e.op, _structure(e.left), _structure(e.right))
+    if isinstance(e, pexpr.UnaryOp):
+        return ("un", e.op, _structure(e.child))
+    raise _Uncached
+
+
+def program_key(predicate, table: Table) -> tuple:
+    """What `compile_predicate`'s program depends on: the tree, each
+    literal's type and value, each read column's dtype."""
+    refs = sorted(predicate.references())
+    return (_structure(predicate),
+            tuple((name, table[name].data.dtype) for name in refs))
+
+
+_PROGRAMS: Dict[tuple, Program] = {}
+_MAX_CACHED = 1024
+
+
+def cached_program(predicate, table: Table) -> Program:
+    """`compile_predicate(predicate, table)`, compiled once per
+    `program_key`; errors are raised, not kept."""
+    try:
+        key = program_key(predicate, table)
+    except _Uncached:
+        return compile_predicate(predicate, table)
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = compile_predicate(predicate, table)
+        if len(_PROGRAMS) >= _MAX_CACHED:
+            _PROGRAMS.clear()
+        _PROGRAMS[key] = prog
+    return prog
 
 
 def needed_columns(table: Table, exprs) -> List[str]:
@@ -231,7 +335,7 @@ def make_signature(table: Table, predicate, exprs, tier: str):
     cols = [table[c] for c in needed if c in table.names]
     data_ok = all(c.dtype.kind.value in DATA_KINDS for c in cols)
     try:
-        compile_predicate(predicate, table)
+        cached_program(predicate, table)
         pred_ok = True
     except (TypeError, ValueError):
         pred_ok = False

@@ -7,12 +7,14 @@ needed)` gives the compacted `needed` columns of the rows where
 `predicate` holds, in row order, validity included, equal to
 `select.fused_select_plain`:
 
-- `select.compile_predicate` flattens the expression tree into the
-  kernel's postfix program, which the wrapper copies into the kernel's
-  argument struct;
-- `fs_count` evaluates the predicate into a bitmask and per-block counts;
-  the host scans the counts and reads the total (the one sync);
-  `fs_compact` writes each needed column at its width, with validity.
+- `select.cached_program` gives the kernel's postfix program with its
+  argument struct (compiled once per predicate structure, literals and
+  column dtypes), so a call writes only the columns' pointers;
+- `fs_count` evaluates the predicate into a bitmask and per-block counts,
+  and its last block scans the counts into block offsets and the total;
+  the host reads the total (the one sync) and launches nothing else
+  before `fs_compact`, which writes each needed column at its width, with
+  validity.
 
 The wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernels or raises, it never falls back. `LAUNCHES` counts
@@ -30,7 +32,7 @@ import torch
 
 from ..columnar import Column, Table
 from .gather import take
-from .select import (MAX_PRED_COLS, MAX_PROG, PLAIN_CALLS, compile_predicate,
+from .select import (PLAIN_CALLS, PredArgs, Program, cached_program,
                      fused_select_plain, make_signature, needed_columns,
                      supports)
 
@@ -49,24 +51,7 @@ def reset_counters() -> None:
             d[k] = 0
 
 
-def _column_kind(dt: torch.dtype) -> int:
-    """csrc/fused_select.cu COL_*: integer, bool or float storage."""
-    return 1 if dt == torch.bool else 2 if dt.is_floating_point else 0
-
-
 # ---- the CUDA kernels -------------------------------------------------------
-
-class _Pred(ctypes.Structure):
-    _fields_ = [("data", ctypes.c_void_p * MAX_PRED_COLS),
-                ("width", ctypes.c_int * MAX_PRED_COLS),
-                ("kind", ctypes.c_int * MAX_PRED_COLS),
-                ("lit", ctypes.c_longlong * MAX_PROG),
-                ("arg", ctypes.c_short * MAX_PROG),
-                ("op", ctypes.c_ubyte * MAX_PROG),
-                ("ty", ctypes.c_ubyte * MAX_PROG),
-                ("flags", ctypes.c_ubyte * MAX_PROG),
-                ("len", ctypes.c_int)]
-
 
 class _Out(ctypes.Structure):
     _fields_ = [("src", ctypes.c_void_p * MAX_OUT),
@@ -85,15 +70,27 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load
         lib = load("fused_select")
-        lib.fs_count.argtypes = [ctypes.POINTER(_Pred), ctypes.c_longlong,
+        lib.fs_count.argtypes = [ctypes.POINTER(PredArgs), ctypes.c_longlong,
                                  ctypes.c_void_p, ctypes.c_void_p,
-                                 ctypes.c_void_p]
+                                 ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_void_p]
         lib.fs_compact.argtypes = [ctypes.POINTER(_Out), ctypes.c_longlong,
                                    ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.c_void_p]
         lib.fs_count.restype = lib.fs_compact.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _pred_args(prog: Program, table: Table) -> PredArgs:
+    """A fresh copy of `prog`'s argument struct with this call's column
+    pointers."""
+    p = PredArgs.from_buffer_copy(prog.args)
+    for i, name in enumerate(prog.columns):
+        c = table[name]
+        _check(c, table.device, "predicate")
+        p.data[i] = c.data.data_ptr()
+    return p
 
 
 def _check(c: Column, dev: torch.device, what: str) -> None:
@@ -114,7 +111,7 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
     for c in cols:
         c.dtype.storage_dtype()          # raises for columns not ported
         _check(c, dev, "needed")
-    prog = compile_predicate(predicate, table)
+    prog = cached_program(predicate, table)
     n = table.num_rows
 
     def empty() -> Table:
@@ -126,30 +123,26 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
         return empty()
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    p = _Pred()
-    for i, name in enumerate(prog.columns):
-        c = table[name]
-        _check(c, dev, "predicate")
-        p.data[i] = c.data.data_ptr()
-        p.width[i] = c.data.element_size()
-        p.kind[i] = _column_kind(c.data.dtype)
-    for k, (op, ty, arg, lit, flags) in enumerate(prog.code):
-        p.op[k], p.ty[k], p.arg[k], p.lit[k] = op, ty, arg, lit
-        p.flags[k] = flags
-    p.len = len(prog.code)
+    p = _pred_args(prog, table)
     blocks = (n + TILE - 1) // TILE
-    mask = torch.empty(blocks * TILE // 32, dtype=torch.int32, device=dev)
-    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
-    rc = lib.fs_count(ctypes.byref(p), n, mask.data_ptr(),
-                      counts.data_ptr(), stream)
+    # one scratch buffer of int64: the total, the call's ticket (fs_count
+    # zeroes it), the block offsets, the block counts (int32) and the mask
+    # words (int32, TILE / 32 a block)
+    scratch = torch.empty(2 + blocks + (blocks + 1) // 2 + blocks * TILE // 64,
+                          dtype=torch.int64, device=dev)
+    total_p = scratch.data_ptr()
+    ticket_p = total_p + 8
+    starts_p = ticket_p + 8
+    counts_p = starts_p + 8 * blocks
+    mask_p = counts_p + 8 * ((blocks + 1) // 2)
+    rc = lib.fs_count(ctypes.byref(p), n, mask_p, counts_p, starts_p,
+                      total_p, ticket_p, stream)
     if rc != 0:
         raise RuntimeError(f"fused_select count kernel: CUDA error {rc}")
     LAUNCHES["count"] += 1
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(ends[-1])                     # the one host sync
+    total = int(scratch[0])                   # the one host sync
     if total == 0:
         return empty()
-    starts = ends - counts
     out_cols = []
     for c in cols:
         v = (None if c.validity is None else
@@ -169,8 +162,7 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
                               else oc.validity.data_ptr())
             o.width[i] = c.data.element_size()
         o.ncols = len(chunk)
-        rc = lib.fs_compact(ctypes.byref(o), n, mask.data_ptr(),
-                            starts.data_ptr(), stream)
+        rc = lib.fs_compact(ctypes.byref(o), n, mask_p, starts_p, stream)
         if rc != 0:
             raise RuntimeError(f"fused_select compact kernel: CUDA error "
                                f"{rc}")

@@ -1,38 +1,91 @@
 """TopK: the first n rows of a stable multi-key sort. The plain PyTorch
-version, the order words the kernel compares, and the registry's
-signature.
+version, the kernel's key descriptor and route rule, the CPU mirror of
+the kernel's encoding, and the registry's signature.
 
 Counterpart of the wiring half of `spark_rapids_tpu/ops/topk_pallas.py`
-(`_order_words`, `make_signature`, `_supports`); the CUDA kernel is in
+(`_order_words`, `make_signature`, `_supports`); the CUDA kernels are in
 `topk_cuda.py`. `topk_plain` is what the eager tier's TopK computes
 without the kernel: `sort_table` then `slice_table(0, min(n, rows))`;
 `PLAIN_CALLS` counts its runs.
 
-The kernel takes any limit n >= 0 (the reference's Pallas kernel took
-1..128, its lane width): up to half a tile it keeps n candidates per
-block, above that it sorts whole tiles and merges them (csrc/topk.cu). It
-declines another tier than eager or capped and key kinds that are neither
-fixed-width integers nor floats (none exist in the port yet). Its own
-limit is MAX_WORDS words per tuple: a block sorts a tile of tuples in
-shared memory, so the tuple's width bounds the tile.
+The kernels compare tuples of 64-bit words (`order_words`): a null rank
+per nullable key, one value word per key, the row index last. They build
+the words from the key columns themselves, from the descriptor
+`describe_keys` gives; `encode_words` is that encoding run with torch ops
+on the CPU (no path on the card uses it), held equal to `order_words` by
+the tests.
+
+Which kernel takes a call is one rule, `threshold_route`: the threshold
+kernel takes every limit k and tuple width W whose best set (twice k
+tuples) and candidate buffer (BUFFER tuples) fit in the card's opt-in
+shared memory per block (`threshold_smem`; with W = 4 up to k = 3,004 on
+an H100's 227 KB). Larger calls take the tile sort and merge, also
+kernels of csrc/topk.cu.
+
+The kernels take any limit n >= 0 (the reference's Pallas kernel took
+1..128, its lane width). They decline another tier than eager or capped
+and key kinds that are neither fixed-width integers nor floats (none
+exist in the port yet). Their own limit is MAX_WORDS words per tuple: the
+tile sort holds a tile of tuples in shared memory, so the tuple's width
+bounds the tile.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import List, Sequence
 
 import torch
 
-from ..columnar import Table
+from ..columnar import Column, Table
 from ..dtypes import Kind
 from .copying import slice_table
 from .sort import _key_operands, sort_table
 
 MAX_WORDS = 96    # 64-bit words per tuple (csrc/topk.cu TK_MAX_WORDS)
+TILE_ROWS = 2048  # rows a threshold block compares per step (TK_TILE)
+BUFFER = 2 * TILE_ROWS   # candidate ids a threshold block holds (TK_BUF)
+MIN_TILES_PER_BLOCK = 8
+# a threshold block's copy of the descriptor: a key entry (24 bytes) and a
+# rank flag a word (csrc/topk.cu sizeof(Words))
+_WORDS_SMEM = 24 * (MAX_WORDS - 1) + MAX_WORDS
+
+
+def threshold_smem(k: int, n_words: int) -> int:
+    """Shared bytes of one threshold block (csrc/topk.cu
+    tk_threshold_smem): the descriptor's copy; the ids of the best k and
+    of the buffer, and one word of each; the threshold; the best k's
+    tuples; the flush's reductions, histogram, scalars and element
+    states; the final sort's permutation."""
+    s = k + BUFFER
+    return (_WORDS_SMEM + 8 * (2 * s + n_words + n_words * k + 16)
+            + 4 * (256 + 8) + -(-s // 8) * 8 + 4 * k)
+
+
+def threshold_route(k: int, n_words: int, smem_optin: int) -> bool:
+    """The route rule: the threshold kernel takes the call when one block's
+    shared memory fits the card's opt-in limit per block; the tile sort and
+    merge take the rest."""
+    return threshold_smem(k, n_words) <= smem_optin
+
+
+def threshold_grid(rows: int, k: int, sms: int) -> int:
+    """Blocks of the threshold kernel: at least MIN_TILES_PER_BLOCK tiles
+    each, at most two per SM, and about sqrt(rows / k), which keeps the
+    last block's walk over the blocks' k-tuple runs near one block's share
+    of rows. An input of fewer than 32,768 rows runs in one block."""
+    g = min(rows // (MIN_TILES_PER_BLOCK * TILE_ROWS), 2 * sms,
+            math.isqrt(rows // max(k, 1)))
+    return max(1, g)
+
 
 _SUPPORTED_KINDS = frozenset(k.value for k in (
     Kind.BOOL, Kind.INT8, Kind.INT16, Kind.INT32, Kind.INT64, Kind.DATE32,
     Kind.TIMESTAMP_US, Kind.TIMESTAMP_S, Kind.TIMESTAMP_MS,
     Kind.DECIMAL32, Kind.DECIMAL64, Kind.FLOAT32, Kind.FLOAT64))
+
+# key kinds of the descriptor (csrc/topk.cu KIND_*)
+KIND_BOOL, KIND_INT, KIND_F32, KIND_F64 = 0, 1, 2, 3
 
 _SIGN = -(2 ** 63)
 
@@ -60,6 +113,98 @@ def order_words(table: Table, keys: Sequence[str],
         for op in _key_operands(table[name], bool(asc), None):
             words.append(op.to(torch.int64) ^ _SIGN)
     words.append(torch.arange(n, dtype=torch.int64, device=table.device))
+    return torch.stack(words)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyDesc:
+    """One key of the kernel's descriptor (csrc/topk.cu TkKey)."""
+    column: Column
+    kind: int            # KIND_*
+    width: int           # storage bytes
+    desc: bool           # descending: bitwise NOT of the value
+    nulls_first: bool    # the null rank's polarity (ascending: first)
+
+
+@dataclasses.dataclass(frozen=True)
+class Descriptor:
+    """The keys, and per tuple word (the row index's excepted) the key it
+    comes from and whether it is that key's null rank."""
+    keys: List[KeyDesc]
+    word_key: List[int]
+    word_rank: List[bool]
+
+    @property
+    def n_words(self) -> int:
+        return len(self.word_key) + 1
+
+
+def describe_keys(table: Table, keys: Sequence[str],
+                  ascending: Sequence[bool]) -> Descriptor:
+    """The kernel's descriptor of `keys`: the operands of `_key_operands`
+    with its default null order (NULLS_FIRST ascending, NULLS_LAST
+    descending)."""
+    out, word_key, word_rank = [], [], []
+    for i, (name, asc) in enumerate(zip(keys, ascending)):
+        col = table[name]
+        k = col.dtype.kind
+        kind = (KIND_BOOL if k == Kind.BOOL else
+                KIND_F32 if k == Kind.FLOAT32 else
+                KIND_F64 if k == Kind.FLOAT64 else KIND_INT)
+        out.append(KeyDesc(col, kind, col.data.element_size(),
+                           not asc, bool(asc)))
+        if col.validity is not None:
+            word_key.append(i)
+            word_rank.append(True)
+        word_key.append(i)
+        word_rank.append(False)
+    return Descriptor(out, word_key, word_rank)
+
+
+def _float_order(bits: torch.Tensor, mag_mask: int, inf: int,
+                 nan: int) -> torch.Tensor:
+    """`_float_total_order` on the bits, as the kernel computes it."""
+    mag = bits & mag_mask
+    bits = torch.where(mag == 0, torch.zeros_like(bits), bits)
+    bits = torch.where(mag > inf, torch.full_like(bits, nan), bits)
+    sign = torch.iinfo(bits.dtype).min
+    return torch.where(bits < 0, ~bits ^ sign, bits).to(torch.int64)
+
+
+def _key_word(key: KeyDesc, rank: bool) -> torch.Tensor:
+    col = key.column
+    valid = col.validity
+    if rank:
+        r = valid if key.nulls_first else ~valid
+        return r.to(torch.int64) ^ _SIGN
+    d = col.data
+    if key.kind == KIND_BOOL:
+        o = (d.view(torch.uint8) != 0).to(torch.int64)
+    elif key.kind == KIND_F32:
+        o = _float_order(d.view(torch.int32), 0x7FFFFFFF, 0x7F800000,
+                         0x7FC00000)
+    elif key.kind == KIND_F64:
+        o = _float_order(d.view(torch.int64), 0x7FFFFFFFFFFFFFFF,
+                         0x7FF0000000000000, 0x7FF8000000000000)
+    else:
+        o = d.to(torch.int64)
+    if key.desc:
+        o = ~o
+    if valid is not None:
+        o = torch.where(valid, o, torch.zeros_like(o))
+    return o ^ _SIGN
+
+
+def encode_words(table: Table, keys: Sequence[str],
+                 ascending: Sequence[bool]) -> torch.Tensor:
+    """(W, rows) int64: the tuple words as csrc/topk.cu builds them from
+    `describe_keys`' descriptor, word by word from the column bits. Equal
+    to `order_words` bit for bit; a CPU mirror for the tests."""
+    d = describe_keys(table, keys, ascending)
+    words = [_key_word(d.keys[i], r) for i, r in zip(d.word_key,
+                                                      d.word_rank)]
+    words.append(torch.arange(table.num_rows, dtype=torch.int64,
+                              device=table.device))
     return torch.stack(words)
 
 

@@ -1,16 +1,23 @@
-"""TopK on the card: the CUDA kernel of `csrc/topk.cu` and its wrapper.
+"""TopK on the card: the CUDA kernels of `csrc/topk.cu` and their wrapper.
 
 Counterpart of `topk_table` in `spark_rapids_tpu/ops/topk_pallas.py`.
 `topk_table(table, keys, ascending, n)` gives the first min(n, rows) rows
 of the stable sort, ties included, equal to `topk.topk_plain`. The wrapper
-builds the order words (`topk.order_words`) with torch ops, runs
-`tk_select` over them, then over its candidates until one block remains
-(k up to half a tile) or `tk_merge` over its sorted runs until one run
-remains (larger k), and gathers the rows at the row indices of the final
-k tuples.
+copies the keys' descriptor (`topk.describe_keys`: pointers, widths,
+kinds, directions, validity) into the kernel's argument struct; the
+kernels build the order words from the columns themselves. By
+`topk.threshold_route` it launches either
+
+- `tk_threshold` once: a persistent grid filtering rows against each
+  block's threshold, the last block merging the blocks' runs and writing
+  the row indices of the final k; or
+- `tk_select_keys` over the rows, a sorted run of each tile's smallest,
+  then `tk_merge` over the runs in pairs until one run remains;
+
+and gathers the rows at those row indices.
 
 The wrapper runs the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises, it never falls back. `LAUNCHES` counts
+it launches the kernels or raises, it never falls back. `LAUNCHES` counts
 kernel launches and `PLAIN_CALLS` (`topk.PLAIN_CALLS`) the plain
 version's runs, wherever it is called from. Registered as
 `topk`/"cuda" for backend "cuda", beside the plain fallback "torch".
@@ -18,19 +25,19 @@ version's runs, wherever it is called from. Registered as
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from ..columnar import Table
 from .gather import take_table
-from .topk import (MAX_WORDS, PLAIN_CALLS, make_signature, order_words,
-                   supports, topk_plain)
+from .topk import (MAX_WORDS, PLAIN_CALLS, describe_keys, make_signature,
+                   supports, threshold_grid, threshold_route, topk_plain)
 
 __all__ = ["topk_table", "topk_table_cuda", "make_signature", "LAUNCHES",
-           "PLAIN_CALLS", "reset_counters"]
+           "PLAIN_CALLS", "reset_counters", "device_limits"]
 
-LAUNCHES = {"select": 0, "merge": 0}
+LAUNCHES = {"threshold": 0, "select": 0, "merge": 0}
 
 
 def reset_counters() -> None:
@@ -39,7 +46,21 @@ def reset_counters() -> None:
             d[k] = 0
 
 
+class _Key(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("width", ctypes.c_ubyte), ("kind", ctypes.c_ubyte),
+                ("desc", ctypes.c_ubyte), ("nulls_first", ctypes.c_ubyte)]
+
+
+class _Desc(ctypes.Structure):
+    _fields_ = [("key", _Key * (MAX_WORDS - 1)),
+                ("word_key", ctypes.c_ubyte * MAX_WORDS),
+                ("word_rank", ctypes.c_ubyte * MAX_WORDS),
+                ("W", ctypes.c_int)]
+
+
 _LIB = None
+_LIMITS: Dict[int, Tuple[int, int]] = {}
 
 
 def _lib():
@@ -47,62 +68,85 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load
         lib = load("topk")
-        lib.tk_select.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                                  ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_void_p, ctypes.c_void_p]
-        lib.tk_select.restype = ctypes.c_int
-        lib.tk_merge.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                                 ctypes.c_int, ctypes.c_longlong,
-                                 ctypes.c_longlong, ctypes.c_void_p,
-                                 ctypes.c_void_p]
-        lib.tk_merge.restype = ctypes.c_int
-        lib.tk_tile_rows.argtypes = [ctypes.c_int]
-        lib.tk_tile_rows.restype = ctypes.c_int
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.tk_threshold.argtypes = [ctypes.POINTER(_Desc), ll, ci, ci, vp,
+                                     vp, vp, vp]
+        lib.tk_select_keys.argtypes = [ctypes.POINTER(_Desc), ll, ci, vp, vp]
+        lib.tk_merge.argtypes = [vp, ll, ci, ll, ll, vp, vp]
+        for f in (lib.tk_threshold, lib.tk_select_keys, lib.tk_merge):
+            f.restype = ci
+        lib.tk_tile_rows.argtypes = [ci]
+        lib.tk_tile_rows.restype = ci
+        lib.tk_threshold_smem.argtypes = [ci, ci]
+        lib.tk_threshold_smem.restype = ll
+        lib.tk_device_limits.argtypes = [ctypes.POINTER(ci)] * 2
+        lib.tk_device_limits.restype = ci
         _LIB = lib
     return _LIB
 
 
-def smallest_tuples(words: torch.Tensor, k: int) -> torch.Tensor:
-    """(W, L) int64 with L >= min(k, m): the min(k, m) smallest tuples of
-    the (W, m) word matrix first, in order, read as unsigned words, then
-    all-ones sentinels or further tuples. Launches `tk_select` until one block remains, or,
-    for k above half a tile, once and then `tk_merge` until one run
+def device_limits(dev: torch.device) -> Tuple[int, int]:
+    """(SMs, opt-in shared bytes per block) of the card, read once."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _LIMITS:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(i):
+            rc = _lib().tk_device_limits(ctypes.byref(sms),
+                                         ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"topk: cudaDeviceGetAttribute error {rc}")
+        _LIMITS[i] = (sms.value, smem.value)
+    return _LIMITS[i]
+
+
+def _descriptor(table: Table, keys: Sequence[str],
+                ascending: Sequence[bool]) -> _Desc:
+    spec = describe_keys(table, keys, ascending)
+    d = _Desc()
+    for i, kd in enumerate(spec.keys):
+        c = kd.column
+        if c.device != table.device or not c.data.is_contiguous() or (
+                c.validity is not None and not c.validity.is_contiguous()):
+            raise ValueError("topk: key columns must be contiguous and on "
+                             f"{table.device}")
+        e = d.key[i]
+        e.data = c.data.data_ptr()
+        e.valid = None if c.validity is None else c.validity.data_ptr()
+        e.width, e.kind = kd.width, kd.kind
+        e.desc, e.nulls_first = int(kd.desc), int(kd.nulls_first)
+    for w, (key, rank) in enumerate(zip(spec.word_key, spec.word_rank)):
+        d.word_key[w], d.word_rank[w] = key, int(rank)
+    d.W = spec.n_words
+    return d
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"topk {what} kernel: CUDA error {rc}")
+
+
+def _tile_sort(desc: _Desc, rows: int, k: int,
+               dev: torch.device, stream: int) -> torch.Tensor:
+    """(W, L) int64 with L >= k: the k smallest tuples first, in order,
+    read as unsigned words, then all-ones sentinels or further tuples.
+    Launches `tk_select_keys` over the rows, then `tk_merge` until one run
     remains."""
     lib = _lib()
-    W, m = int(words.shape[0]), int(words.shape[1])
+    W = desc.W
     T = lib.tk_tile_rows(W)
-    if T == 0 or k < 1 or m == 0:
-        raise ValueError(f"the topk kernels take k >= 1, 1..{MAX_WORDS} "
-                         f"words and rows > 0; got k={k}, {W} words, {m} "
-                         "rows")
-    dev = words.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     keep = min(k, T)
-
-    def select(cur: torch.Tensor, m: int) -> torch.Tensor:
-        blocks = (m + T - 1) // T
-        out = torch.empty((W, blocks * keep), dtype=torch.int64, device=dev)
-        rc = lib.tk_select(cur.data_ptr(), m, W, keep, out.data_ptr(),
-                           stream)
-        if rc != 0:
-            raise RuntimeError(f"topk select kernel: CUDA error {rc}")
-        LAUNCHES["select"] += 1
-        return out
-
-    out, blocks = select(words.contiguous(), m), (m + T - 1) // T
-    # up to half a tile, each pass shrinks the candidates at least twofold
-    while blocks > 1 and 2 * k <= T:
-        m = blocks * k
-        out, blocks = select(out, m), (m + T - 1) // T
+    blocks = (rows + T - 1) // T
+    out = torch.empty((W, blocks * keep), dtype=torch.int64, device=dev)
+    _check(lib.tk_select_keys(ctypes.byref(desc), rows, keep,
+                              out.data_ptr(), stream), "select")
+    LAUNCHES["select"] += 1
     runs, L = blocks, keep
     while runs > 1:
         L2 = min(2 * L, k)
         merged = torch.full((W, (runs + 1) // 2 * L2), -1, dtype=torch.int64,
                             device=dev)
-        rc = lib.tk_merge(out.data_ptr(), runs * L, W, L, L2,
-                          merged.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"topk merge kernel: CUDA error {rc}")
+        _check(lib.tk_merge(out.data_ptr(), runs * L, W, L, L2,
+                            merged.data_ptr(), stream), "merge")
         LAUNCHES["merge"] += 1
         out, runs, L = merged, (runs + 1) // 2, L2
     return out
@@ -114,17 +158,34 @@ def topk_table_cuda(table: Table, keys: Sequence[str],
     if dev.type != "cuda":
         raise ValueError(f"the topk kernel runs on CUDA tensors, got {dev}")
     rows = table.num_rows
-    m = min(n, rows)
-    if m == 0:
+    k = min(n, rows)
+    if k == 0:
         return take_table(table, torch.zeros(0, dtype=torch.int64,
                                              device=dev), _has_negative=False)
     if not supports(make_signature(table, keys, ascending, n, "eager")):
         raise ValueError(f"the topk kernel does not take this call: keys "
                          f"{list(keys)} (1..{MAX_WORDS} tuple words)")
-    best = smallest_tuples(order_words(table, keys, ascending), m)
-    # the row-index word: real rows precede the sentinels, so the first m
-    # tuples are rows
-    return take_table(table, best[-1, :m], _has_negative=False)
+    desc = _descriptor(table, keys, ascending)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms, smem_optin = device_limits(dev)
+    if threshold_route(k, desc.W, smem_optin):
+        G = threshold_grid(rows, k, sms)
+        idx = torch.empty(k, dtype=torch.int64, device=dev)
+        # the blocks' runs, then the call's ticket (tk_threshold zeroes it)
+        cand = (torch.empty(desc.W * G * k + 1, dtype=torch.int64,
+                            device=dev) if G > 1 else None)
+        cand_p = ticket_p = None
+        if cand is not None:
+            cand_p = cand.data_ptr()
+            ticket_p = cand_p + 8 * desc.W * G * k
+        _check(_lib().tk_threshold(ctypes.byref(desc), rows, k, G, cand_p,
+                                   ticket_p, idx.data_ptr(), stream),
+               "threshold")
+        LAUNCHES["threshold"] += 1
+    else:
+        # the row-index word: real rows precede the sentinels
+        idx = _tile_sort(desc, rows, k, dev, stream)[-1, :k]
+    return take_table(table, idx, _has_negative=False)
 
 
 def topk_table(table: Table, keys: Sequence[str],

@@ -248,10 +248,17 @@ def test_topk_kernel_equals_plain_version(dt, asc, null_p):
     t = Table([Column.from_numpy(a, kind, v, device="cuda"),
                Column.from_numpy(rng.integers(0, 9, n).astype(np.int32),
                                  tdt.INT32, device="cuda")], ["k", "pay"])
-    # above 512 (half a tile) the runs merge
+    # the route rule picks the kernel: on an H100 4,099 with nulls (three
+    # words) takes the tile sort and merge, every other limit the
+    # threshold kernel
+    W = 3 if null_p else 2
+    _, optin = topk_cuda.device_limits(torch.device("cuda"))
     for k in (1, 17, 100, 128, 129, 513, 1000, 4099):
+        before = dict(topk_cuda.LAUNCHES)
         _same_table(topk_cuda.topk_table_cuda(t, ["k"], [asc], k),
                     topk.topk_plain(t, ["k"], [asc], k))
+        threshold = topk_cuda.LAUNCHES["threshold"] - before["threshold"]
+        assert threshold == int(topk.threshold_route(k, W, optin)), k
     keys, ascs = ["k", "pay"], [asc, not asc]
     for k in (50, 700):
         _same_table(topk_cuda.topk_table_cuda(t, keys, ascs, k),
@@ -263,6 +270,41 @@ def test_topk_kernel_equals_plain_version(dt, asc, null_p):
     torch.cuda.synchronize()
 
 
+def test_kernels_on_two_streams_at_once():
+    """FusedSelect and TopK from two threads, each on its own stream:
+    the calls share no device state, so every result is the plain one."""
+    _need_card()
+    import threading
+    n = 1_000_000                      # many blocks: the tickets decide
+    t = _fs_table(n, 0.1, seed=4)
+    pred, needed = (col("sel") < 7) & (col("int32") > 0), ["int64", "sel"]
+    keys, asc = ["int64", "float32"], [False, True]
+    want_fs = select.fused_select_plain(t, pred, needed)
+    want_tk = topk.topk_plain(t, keys, asc, 100)
+    torch.cuda.synchronize()           # the inputs, before other streams
+    bad = []
+
+    def run():
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            for _ in range(20):
+                fs = select_cuda.fused_select_cuda(t, pred, needed)
+                tk = topk_cuda.topk_table_cuda(t, keys, asc, 100)
+                s.synchronize()
+                for got, want in ((fs, want_fs), (tk, want_tk)):
+                    try:
+                        _same_table(got, want)
+                    except AssertionError as e:
+                        bad.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad, bad[0]
+
+
 def test_tpcds_q3_on_the_card_uses_the_kernels():
     _need_card()
     inputs = nds_q3.q3_tpcds_inputs(300_000)
@@ -272,7 +314,8 @@ def test_tpcds_q3_on_the_card_uses_the_kernels():
     torch.cuda.synchronize()
     assert join_cuda.LAUNCHES["build"] == 2
     assert select_cuda.LAUNCHES["count"] == 2
-    assert topk_cuda.LAUNCHES["select"] >= 1
+    # the threshold kernel takes the groups in one launch
+    assert topk_cuda.LAUNCHES == {"threshold": 1, "select": 0, "merge": 0}
     assert select_cuda.PLAIN_CALLS == {"fused_select": 0}
     assert topk_cuda.PLAIN_CALLS == {"topk": 0}
     kinds = {m.kind: m.kernel for m in res.metrics.values() if m.kernel}

@@ -6,7 +6,8 @@ program (run here with torch ops, as the kernel runs it) against
 `Expr.evaluate`; the registry's declines against `select_pallas._supports`:
 the port's kernel takes every predicate the reference's takes, and also
 64-bit integer and float predicates, int literals outside int32 and
-literal-only predicates."""
+literal-only predicates; the program cache, keyed on the tree, its
+literals and the column dtypes."""
 import numpy as np
 import numpy.testing as npt
 import pytest
@@ -383,3 +384,63 @@ def test_plan_fused_select_forced_kernel_runs_plain_on_cpu(monkeypatch):
         for a, c in zip(want.table.columns, res.table.columns):
             assert torch.equal(a.data, c.data)
             assert (a.validity is None) == (c.validity is None)
+
+
+def test_program_cache_keys_on_structure_literals_and_dtypes():
+    rng = np.random.default_rng(13)
+    a = rng.integers(-5, 5, 50)
+    _, t32 = _tables({"a": (a.astype(np.int32), None),
+                      "b": (a.astype(np.int8), None)})
+    _, t64 = _tables({"a": (a.astype(np.int64), None),
+                      "b": (a.astype(np.int8), None)})
+    col, lit = texpr.col, texpr.lit
+
+    def tree(v):
+        return (col("a") * 3 + col("b")) < lit(v)
+    p32 = select.cached_program(tree(7), t32)
+    # the same tree built anew over the same dtypes: the same program
+    assert select.cached_program(tree(7), t32) is p32
+    assert p32.code == select.compile_predicate(tree(7), t32).code
+    # other column dtypes, another literal, or a literal of another type:
+    # another program, the one compile_predicate gives
+    for other, tbl in ((tree(7), t64), (tree(8), t32), (tree(7.0), t32),
+                       (tree(True), t32)):
+        q = select.cached_program(other, tbl)
+        assert q is not p32
+        fresh = select.compile_predicate(other, tbl)
+        assert (q.code, q.args) == (fresh.code, fresh.args)
+        _same_as_evaluate(other, tbl)
+    assert select.cached_program(tree(7), t64).code != p32.code
+    # the kernel's argument struct travels with the program: its column
+    # widths are those of the dtypes the program was compiled for
+    a32, a64 = (select.PredArgs.from_buffer_copy(
+        select.cached_program(tree(7), t).args) for t in (t32, t64))
+    assert (a32.width[0], a64.width[0]) == (4, 8)
+    assert (a32.narrow, a64.narrow) == (1, 0)
+    # 0.0 and -0.0 are equal as Python values but not as literals
+    z = select.cached_program(col("a") * lit(0.0) < lit(1.0), t32)
+    nz = select.cached_program(col("a") * lit(-0.0) < lit(1.0), t32)
+    assert z is not nz and z.code != nz.code
+    # the signature's check goes through the same cache
+    sig = select.make_signature(t32, tree(7), (("x", col("a")),), "eager")
+    assert select.supports(sig)
+    assert select.cached_program(tree(7), t32) is p32
+
+
+def test_narrow_programs_are_exactly_the_32_bit_ones():
+    arrays = _fs_arrays(n=200)
+    _, tt = _tables(arrays)
+    col, lit = texpr.col, texpr.lit
+    cases = [((col("c_int32") < 10) & (col("sel") > 0), True),
+             ((col("c_int8") + 100) > col("c_int16"), True),
+             (~(col("sel") >= 10) & col("c_bool"), True),
+             (col("c_int64") > 0, False),                  # an INT64 column
+             # the weak literal wraps to the column's INT32, as evaluate
+             (col("sel") < 2 ** 40, True),
+             ((lit(2 ** 40) + lit(1)) > col("sel"), False),   # an int64 sum
+             (col("sel") * 1.5 > 2.0, False),              # float64
+             (col("c_float32") > lit(0.0), False)]
+    for pred, narrow in cases:
+        prog = select.cached_program(pred, tt)
+        assert prog.narrow == narrow, pred
+        _same_as_evaluate(pred, tt)
