@@ -9,9 +9,21 @@ in phases that each raise on failure:
 1. device: CUDA must be present; prints the card's name and power limit;
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), one
    nvcc per source, all started together;
-3. hash-join kernels: each (build, probe count, probe emit) against its
-   plain PyTorch version on the card, for exact equality, at q3's shapes
-   and on a small dtype/null/multi-key matrix; then timed at q3's shapes;
+3. hash-join kernels: each (build; probe count with its tile sums and
+   offsets, segment lists and total; probe emit) against its plain
+   PyTorch version on the card, for exact equality, the offsets and total
+   also against `torch.cumsum` of the counts and the maps against the
+   sort-based join,
+   at q3's shapes and TPC-DS q3's INT32 ones, on a dtype/null/multi-key
+   matrix, on duplicate build keys (up to 512 equal ones, past the emit's
+   staging buffer), on probes with no row and with every row matched, at
+   probe sizes on and off the kernels' tiles and rows a thread, and on key
+   columns that are views one element into their buffers; two joins at
+   once on two streams; then timed at q3's and TPC-DS q3's shapes, each
+   kernel alone and the whole `inner_join_hash` call (every kernel, copy
+   and memset it runs). `--join-profile` runs only that last timing, the
+   one measurement that also runs against a tree with the earlier probe
+   interface;
 4. q3: NDS q3 at 10,000,000 store_sales rows through
    `PlanExecutor(optimize=False)` (the authored plan, as in earlier runs),
    launch counters zeroed before and read after; the result must equal an
@@ -101,8 +113,8 @@ RH_OUT_BYTES = {"murmur": 4, "xxhash": 8, "fused": 12}
 HIST_OPS = 2
 # the count kernel's two forms: 32-bit values, 64-bit values
 FS_COUNT = ("fs_count_kernel<int>", "fs_count_kernel<longlong>")
-KERNEL_NAMES = {"build": "build_kernel", "count": "probe_kernel<false>",
-                "emit": "probe_kernel<true>",
+KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel",
+                "emit": "emit_kernel",
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
                 "fused": "row_hash_kernel<true,true>",
@@ -220,22 +232,37 @@ class Checks:
 
 
 def check_case(chk, jc, join, pcols, bcols, what):
-    """Every kernel of one join against its plain version on the card, and
-    the maps against the sort-based fallback."""
+    """Every kernel of one join against its plain version on the card: the
+    table, the counts, tile sums and offsets, segment sums, matched rows
+    and lists, the total (the offsets and total also against torch.cumsum
+    of the counts) and both maps (also against the sort-based fallback)."""
     import torch
     C = jc._capacity(bcols[0].length)
     tk = jc.build_table_cuda(bcols, C)
     tp = jc.build_table_plain(bcols, C)
     chk.equal("build", tk.slot_row, tp.slot_row, f"{what} slot_row")
     chk.equal("build", tk.slot_hash, tp.slot_hash, f"{what} slot_hash")
-    ck = jc.probe_counts_cuda(pcols, tk, bcols)
-    cp = jc.probe_counts_plain(pcols, tp, bcols)
-    chk.equal("count", ck, cp, f"{what} counts")
-    c64 = ck.to(torch.int64)
-    starts = torch.cumsum(c64, 0) - c64
-    total = int(c64.sum())
-    lk, rk = jc.probe_emit_cuda(pcols, tk, bcols, ck, starts, total)
-    lp, rp = jc.probe_emit_plain(pcols, tp, bcols, cp, starts, total)
+    pk = jc.probe_counts_cuda(pcols, tk, bcols)
+    pp = jc.probe_counts_plain(pcols, tp, bcols)
+    for name in ("counts", "tile_sums", "tile_offsets", "seg_sums",
+                 "seg_matched", "total"):
+        chk.equal("count", getattr(pk, name), getattr(pp, name),
+                  f"{what} {name}")
+    # each segment's list of matched rows, as far as the segment has them
+    at = torch.arange(pk.counts.shape[0], device=pk.counts.device)
+    listed = (at % pk.seg) < pk.seg_matched.index_select(0, at // pk.seg)
+    chk.equal("count", pk.entries[listed], pp.entries[listed],
+              f"{what} entries")
+    c64 = pk.counts.to(torch.int64)
+    incl = torch.cumsum(c64, 0)
+    first = torch.arange(0, c64.shape[0], jc.TILE, device=c64.device)
+    chk.equal("count", pk.tile_offsets, (incl - c64).index_select(0, first),
+              f"{what} tile offsets vs cumsum")
+    chk.equal("count", pk.total.reshape(1), incl[-1:],
+              f"{what} total vs cumsum")
+    total = int(pk.total)
+    lk, rk = jc.probe_emit_cuda(pcols, tk, bcols, pk, total)
+    lp, rp = jc.probe_emit_plain(pcols, tp, bcols, pp, total)
     chk.equal("emit", lk, lp, f"{what} left map")
     chk.equal("emit", rk, rp, f"{what} right map")
     fl, fr = join.inner_join(pcols, bcols)
@@ -245,7 +272,7 @@ def check_case(chk, jc, join, pcols, bcols, what):
     return total
 
 
-def matrix_cases(torch, dt, Column):
+def matrix_cases(torch, dt, Column, tile):
     rng = np.random.default_rng(1)
     nl, nr = 200_003, 500
 
@@ -273,6 +300,18 @@ def matrix_cases(torch, dt, Column):
             col(rng.integers(0, 3, nl).astype(np.int32), dt.INT32, 0.05)],
            [col(rng.integers(0, 40, nr).astype(np.int64), dt.INT64),
             col(rng.integers(0, 3, nr).astype(np.int32), dt.INT32)])
+    # six key columns: four staged in shared memory, two read from the
+    # build columns
+    kinds = [(np.int64, dt.INT64), (np.int32, dt.INT32), (np.int16, dt.INT16),
+             (np.int8, dt.INT8), (np.int32, dt.DATE32), (np.int64, dt.INT64)]
+    build = [rng.integers(0, 2, 300).astype(npt) for npt, _ in kinds]
+    pick = rng.integers(0, 300, nl)
+    yield ("six keys",
+           [col(np.where(rng.random(nl) < 0.9, b[pick],
+                         rng.integers(0, 2, nl)).astype(npt), dtype,
+                0.02 if j == 5 else 0.0)
+            for j, (b, (npt, dtype)) in enumerate(zip(build, kinds))],
+           [col(b, dtype) for b, (_, dtype) in zip(build, kinds)])
     yield ("all-null probe",
            [col(rng.integers(0, 5, 3000).astype(np.int64), dt.INT64, 1.0)],
            [col(rng.integers(0, 5, 50).astype(np.int64), dt.INT64)])
@@ -283,6 +322,39 @@ def matrix_cases(torch, dt, Column):
     lk = np.where(rng.random(nl) < 0.5, rng.choice(rk, nl),
                   rng.integers(-2**40, 2**40, nl)).astype(np.int64)
     yield ("build 512 rows", [col(lk, dt.INT64)], [col(rk, dt.INT64)])
+    # duplicate build keys: 512 equal ones give 512 pairs a matched row, so
+    # every segment with a match overflows the emit's staging buffer; 64
+    # each of 8 keys overflow some segments
+    same = np.full(512, 7, np.int64)
+    yield ("512 equal build keys",
+           [col(np.where(rng.random(20_011) < 0.3, 7, 8).astype(np.int64),
+                dt.INT64, 0.05)], [col(same, dt.INT64)])
+    eight = np.repeat(np.arange(8, dtype=np.int32), 64)
+    yield ("64 each of 8 build keys",
+           [col(rng.integers(0, 60, nl).astype(np.int32), dt.INT32)],
+           [col(rng.permutation(eight), dt.INT32)])
+    uniq = rng.permutation(1000).astype(np.int64)[:400]
+    yield ("no row matched",
+           [col(rng.integers(1000, 5000, nl).astype(np.int64), dt.INT64)],
+           [col(uniq, dt.INT64)])
+    yield ("every row matched",
+           [col(rng.choice(uniq, nl), dt.INT64)], [col(uniq, dt.INT64)])
+    # probe sizes on and off the tiles and a thread's 8 rows
+    for n in (1, 7, 8, 9, tile - 1, tile, tile + 1, 3 * tile - 1, 3 * tile,
+              3 * tile + 1):
+        yield (f"{n} probe rows",
+               [col(rng.choice(uniq, n), dt.INT64, 0.1)],
+               [col(uniq, dt.INT64)])
+    # key columns (and validity) one element into their buffers: the
+    # kernels' vector loads must take the scalar path there
+    for npt, dtype in ((np.int64, dt.INT64), (np.int32, dt.INT32),
+                       (np.int16, dt.INT16), (np.int8, dt.INT8)):
+        for n in (nl, 3 * tile + 5):
+            pk = col(rng.integers(-30, 30, n + 1).astype(npt), dtype, 0.1)
+            bk = col(rng.integers(-30, 30, 101).astype(npt), dtype)
+            yield (f"{np.dtype(npt).name} views at offset 1, n={n}",
+                   [Column(dtype, n, pk.data[1:], pk.validity[1:])],
+                   [Column(dtype, 100, bk.data[1:], None)])
 
 
 def time_cuda(torch, fn, iters):
@@ -364,12 +436,103 @@ def device_ms(torch, fn, kernel, iters, attempts=3, per_call=1):
                          f"for {iters} calls of {per_call}, {attempts} times")
 
 
+def device_by_name(torch, fn, iters, attempts=3):
+    """Per call of `fn` (the L2 flushed before each): the mean device time
+    of everything it ran on the card, kernels, copies and memsets, and of
+    each kernel by name, from torch.profiler's records; the flush's own
+    kernel is left out. A profile that comes back without a record of every
+    call (CUPTI sometimes drops a session's records) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(body):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if str(e.device_type).endswith("CUDA")]
+
+    if "names" not in _FLUSH:
+        for _ in range(attempts):
+            _FLUSH["names"] = {name for name, _ in
+                               device_events(lambda: flush_l2(torch))}
+            if _FLUSH["names"]:
+                break
+        require(_FLUSH["names"], "the profiler recorded no flush kernel")
+    flush = _FLUSH["names"]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        def body():
+            for _ in range(iters):
+                flush_l2(torch)
+                fn()
+        events = [(name, us) for name, us in device_events(body)
+                  if name not in flush]
+        by_name = {}
+        for name, us in events:
+            short = name.split("(")[0].removeprefix("void ").replace(" ", "")
+            ms, k = by_name.get(short, (0.0, 0))
+            by_name[short] = (ms + us / 1e3 / iters, k + 1)
+        if all(k % iters == 0 for _, k in by_name.values()):
+            total = sum(ms for ms, _ in by_name.values())
+            return total, {name: ms for name, (ms, _) in by_name.items()}
+        log(f"  (the profiler recorded {sorted(by_name.items())} for {iters} "
+            f"calls; profiling again)")
+    raise AssertionError(f"the profiler recorded an uneven count of device "
+                         f"events for {iters} calls, {attempts} times")
+
+
+def join_shapes(torch, q3_tables):
+    """q3's two joins (INT64 keys) and TPC-DS q3's (the same keys as INT32,
+    as q3_tpcds_inputs types them): (what, probe keys, build keys)."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import gather, join_cuda as jc
+    sales, dates, items = (q3_tables[k] for k in ("sales", "dates", "items"))
+    dates_f = gather.apply_boolean_mask(dates, dates["d_moy"].data == 11)
+    items_f = gather.apply_boolean_mask(items,
+                                        items["i_manufact"].data == 42)
+    b1, b2 = [dates_f["d_date_sk"]], [items_f["i_item_sk"]]
+    p1 = [sales["sold_date_sk"]]
+    lmap, _ = jc.inner_join_hash(p1, b1)
+    p2 = [gather.take(sales["item_sk"], lmap.data, _has_negative=False)]
+
+    def int32(cols):
+        return [Column(dt.INT32, c.length, c.data.to(torch.int32))
+                for c in cols]
+    return [("q3 join 1", p1, b1), ("q3 join 2", p2, b2),
+            ("TPC-DS q3 join 1", int32(p1), int32(b1)),
+            ("TPC-DS q3 join 2", int32(p2), int32(b2))]
+
+
+def join_profile(torch, shapes, iters=30):
+    """The device time of one whole `inner_join_hash` call at each shape,
+    by kernel, and one call's time between CUDA events."""
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    out = {}
+    for what, pc, bc in shapes:
+        call = lambda: jc.inner_join_hash(pc, bc)     # noqa: E731
+        total, by_name = device_by_name(torch, call, iters)
+        cms = call_ms(torch, call, iters)
+        out[what] = {"device_ms": total, "call_ms": cms, "by_name": by_name}
+        log(f"  {what} inner_join_hash: device {total!r} ms "
+            f"({', '.join(f'{k} {v!r}' for k, v in by_name.items())}), one "
+            f"call {cms!r} ms")
+    return out
+
+
 def kernel_bounds(torch, jc, pcols, bcols, C, counts):
     """(bytes, operations) each kernel needs for this run's data: every
     input it reads once, every output written once. The count kernel reads
-    the keys of valid probe rows only; the emit reads every row's count, and
-    keys and start only of rows with matches. Operations are the murmur3
-    hashes of the rows each kernel hashes; the chain walk is not counted."""
+    the keys of valid probe rows only and writes every row's count and a
+    4-byte list entry for each matched row, 8 bytes a segment (its sum and
+    matched rows) and 16 a tile (its sum and offset); the emit reads the
+    entries, segments and offsets and writes the pairs; both read the table
+    and the build keys. Operations are the murmur3 hashes of the rows the
+    count hashes; the chain walk is not counted. "emit_with_starts" is the
+    bound of an emit that reads every row's count and the matched rows'
+    keys and 8-byte starts, as the emit before tile offsets did."""
     n, nb = pcols[0].length, bcols[0].length
     key_width = sum(c.data.element_size() for c in pcols)
     hash_ops = sum(HASH_OPS[w] for w in jc._wide(pcols))
@@ -383,40 +546,64 @@ def kernel_bounds(torch, jc, pcols, bcols, C, counts):
     validity_bytes = sum(n for c in pcols if c.validity is not None)
     build_in = sum(c.nbytes() for c in bcols)
     table = 8 * C                       # slot_row + slot_hash, int32 each
+    per_tile = 8 * -(-n // (jc.TILE // jc.SEGMENTS)) + 16 * -(-n // jc.TILE)
     return {
         "build": (build_in + table, nb * hash_ops),
         "count": (validity_bytes + n_valid * key_width + build_in + table
-                  + 4 * n, n_valid * hash_ops),
-        "emit": (4 * n + n_matched * (key_width + 8) + build_in + table
-                 + 8 * total, n_matched * hash_ops),
+                  + 4 * n + 4 * n_matched + per_tile, n_valid * hash_ops),
+        "emit": (4 * n_matched + per_tile + build_in + table + 8 * total, 0),
+        "emit_with_starts": (4 * n + n_matched * (key_width + 8) + build_in
+                             + table + 8 * total, n_matched * hash_ops),
     }
+
+
+def two_stream_joins(torch, jc, pc, bc, want, rounds=5):
+    """Two joins at once, from two threads, each on its own stream: the
+    calls share no device state, so every map equals `want`."""
+    import threading
+    bad = []
+
+    def run():
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            for _ in range(rounds):
+                lm, rm = jc.inner_join_hash(pc, bc)
+                s.synchronize()
+                if not (torch.equal(lm.data, want[0]) and
+                        torch.equal(rm.data, want[1])):
+                    bad.append("maps differ")
+
+    torch.cuda.synchronize()            # the inputs, before other streams
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    require(not bad, f"joins on two streams at once: {bad[0] if bad else ''}")
 
 
 def kernel_phase(torch, q3_tables):
     from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch.columnar import Column
-    from spark_rapids_tpu_torch.ops import gather, join, join_cuda as jc
+    from spark_rapids_tpu_torch.ops import join, join_cuda as jc
     from spark_rapids_tpu_torch.ops.registry import REGISTRY
 
     chk = Checks()
-    sales, dates, items = (q3_tables[k] for k in ("sales", "dates", "items"))
-    dates_f = gather.apply_boolean_mask(dates, dates["d_moy"].data == 11)
-    items_f = gather.apply_boolean_mask(items,
-                                        items["i_manufact"].data == 42)
-    b1, b2 = [dates_f["d_date_sk"]], [items_f["i_item_sk"]]
-    p1 = [sales["sold_date_sk"]]
-    lmap, _ = jc.inner_join_hash(p1, b1)
-    p2 = [gather.take(sales["item_sk"], lmap.data, _has_negative=False)]
-    q3_shapes = [("q3 join 1", p1, b1), ("q3 join 2", p2, b2)]
+    shapes = join_shapes(torch, q3_tables)
+    sales = q3_tables["sales"]
+    (_, p1, b1), (_, _, b2) = shapes[0], shapes[1]
     t0 = time.perf_counter()
-    for what, pc, bc in q3_shapes + [
+    for what, pc, bc in shapes + [
             ("10M item_sk vs 195 items", [sales["item_sk"]], b2)]:
         total = check_case(chk, jc, join, pc, bc, what)
         log(f"  {what}: probe {pc[0].length} x build {bc[0].length} -> "
             f"{total} pairs, kernels == plain")
-    for what, pc, bc in matrix_cases(torch, dt, Column):
+    for what, pc, bc in matrix_cases(torch, dt, Column, jc.TILE):
         total = check_case(chk, jc, join, pc, bc, what)
         log(f"  {what}: {total} pairs, kernels == plain")
+    fl, fr = join.inner_join(p1, b1)
+    two_stream_joins(torch, jc, p1, b1, (fl.data, fr.data))
+    log("  q3 join 1 on two streams at once, 2 x 5 calls: maps == plain")
     # empty sides launch nothing and give empty maps
     e = [Column.from_numpy(np.zeros(0, np.int64), dt.INT64, device="cuda")]
     before = dict(jc.LAUNCHES)
@@ -440,28 +627,29 @@ def kernel_phase(torch, q3_tables):
     log(f"kernels: {chk.n} exact comparisons on the card in "
         f"{time.perf_counter() - t0:.1f} s; 512-row build runs, 513 declines")
 
-    # timing at q3's shapes: the kernels against the plain versions
-    timing = {k: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
-                  "ops": 0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
-              for k in ("build", "count", "emit")}
-    for what, pc, bc in q3_shapes:
+    # timing at q3's shapes (summed into the kernels line) and TPC-DS q3's:
+    # the kernels against the plain versions
+    def zero():
+        return {k: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                    "ops": 0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                    "bound_ms": 0.0} for k in ("build", "count", "emit")}
+    timing, timing_int32 = zero(), zero()
+    old_emit_bound = 0.0
+    for what, pc, bc in shapes:
+        into = timing_int32 if what.startswith("TPC-DS") else timing
         C = jc._capacity(bc[0].length)
         tbl = jc.build_table_cuda(bc, C)
-        counts = jc.probe_counts_cuda(pc, tbl, bc)
-        c64 = counts.to(torch.int64)
-        starts = torch.cumsum(c64, 0) - c64
-        total = int(c64.sum())
+        probe = jc.probe_counts_cuda(pc, tbl, bc)
+        total = int(probe.total)
         calls = {
             "build": (lambda: jc.build_table_cuda(bc, C),
                       lambda: jc.build_table_plain(bc, C)),
             "count": (lambda: jc.probe_counts_cuda(pc, tbl, bc),
                       lambda: jc.probe_counts_plain(pc, tbl, bc)),
-            "emit": (lambda: jc.probe_emit_cuda(pc, tbl, bc, counts, starts,
-                                                total),
-                     lambda: jc.probe_emit_plain(pc, tbl, bc, counts, starts,
-                                                 total)),
+            "emit": (lambda: jc.probe_emit_cuda(pc, tbl, bc, probe, total),
+                     lambda: jc.probe_emit_plain(pc, tbl, bc, probe, total)),
         }
-        bounds = kernel_bounds(torch, jc, pc, bc, C, counts)
+        bounds = kernel_bounds(torch, jc, pc, bc, C, probe.counts)
         for k, (kern, plain) in calls.items():
             ms = device_ms(torch, kern, KERNEL_NAMES[k], 50)
             cms = call_ms(torch, kern, 50)
@@ -469,7 +657,7 @@ def kernel_phase(torch, q3_tables):
             nbytes, ops = bounds[k]
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
-            t = timing[k]
+            t = into[k]
             t["ms"] += ms
             t["call_ms"] += cms
             t["plain_ms"] += pms
@@ -481,6 +669,16 @@ def kernel_phase(torch, q3_tables):
             log(f"  {what} {k}: device {ms!r} ms, one call {cms!r} ms, plain "
                 f"{pms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B "
                 f"-> {bytes_ms!r} ms, {ops} ops -> {ops_ms!r} ms)")
+        old = bounds["emit_with_starts"][0] / HBM_BYTES_PER_S * 1e3
+        new = bounds["emit"][0] / HBM_BYTES_PER_S * 1e3
+        if what.startswith("q3"):
+            old_emit_bound += old
+        log(f"  {what} emit bound: {new!r} ms from the count's lists, "
+            f"{old!r} ms reading every count and the matched rows' keys "
+            f"and 8-byte starts")
+    timing["emit"]["bound_with_starts_ms"] = old_emit_bound
+    timing["int32"] = timing_int32
+    timing["join"] = join_profile(torch, shapes)
     return chk, timing
 
 
@@ -1382,12 +1580,20 @@ def main(argv=None):
                     help="also profile one warm q3 run with torch.profiler")
     ap.add_argument("--out", default="",
                     help="also write the measurements to this JSON file")
+    ap.add_argument("--join-profile", action="store_true",
+                    help="only time whole inner_join_hash calls at q3's and "
+                         "TPC-DS q3's join shapes, and print them")
     args = ap.parse_args(argv)
 
     import torch
     smi = device_phase(torch)
     from spark_rapids_tpu_torch import nds_q3
     build_phase()
+    if args.join_profile:
+        tables = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
+        print(json.dumps({"card": smi, "join_profile": join_profile(
+            torch, join_shapes(torch, tables))}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     gen = nds_q3.datagen(N_SALES, seed=0)
@@ -1419,7 +1625,10 @@ def main(argv=None):
             "bound_ms": t["bound_ms"],
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
-            "bytes": t["bytes"], "ops": t["ops"], "library_ms": None})
+            "bytes": t["bytes"], "ops": t["ops"], "library_ms": None,
+            "tpcds_int32": timing["int32"][k]})
+        if k == "emit":
+            kernels[-1]["bound_with_starts_ms"] = t["bound_with_starts_ms"]
     # the row hash: the sums over its three forms, one call each, at
     # bench.py's shape; launches over the row-hash and partition paths
     kernels.append({
@@ -1473,7 +1682,8 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "n_sales": N_SALES,
-                       "kernels": kernels, "q3_wall_ms": res.wall_ms,
+                       "kernels": kernels, "join_profile": timing["join"],
+                       "q3_wall_ms": res.wall_ms,
                        "q3_repeat_wall_ms": [r.wall_ms for r in warm],
                        "profile": res.profile(),
                        "repeat_profile": warm[-1].profile(),

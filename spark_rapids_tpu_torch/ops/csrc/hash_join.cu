@@ -18,27 +18,68 @@
 //   sort-based fallback pair for pair. Invalid rows are never inserted. The
 //   table is (slot_row, slot_hash): the winning row id (-1 = empty) and its
 //   32-bit hash; the key values stay in the build columns.
-// - Probe count: one thread per probe row, the table loaded into shared
-//   memory once per block (grid-stride loop). Walk from the bucket to the
-//   first empty slot; a slot matches when its hash equals the row's and
-//   every key value equals the build row's. Invalid rows count 0.
-// - Emit: the same walk, writing (probe row, build row) at starts[i] + k, so
-//   pairs come out probe row ascending, then chain order. The TPU kernel
-//   re-walked once per output slot; one walk per probe row gives the same
-//   maps.
+// - Probe count: per probe row, the build rows with equal keys, walking from
+//   the bucket to the first empty slot; invalid rows count 0. Per tile of
+//   PROBE_TILE = 2,048 rows the count also gives its sum, and the last
+//   block to finish scans the tile sums into int64 tile offsets and the
+//   total: the host reads the total (the one sync) and runs nothing over
+//   the probe rows before the emit.
+// - Emit: the (probe row, build row) pairs, probe row ascending, then chain
+//   order. A row's first pair goes to its tile's offset plus the pairs of
+//   the rows before it in its tile. The TPU kernel re-walked once per
+//   output slot from every row's start; one walk per matched row gives the
+//   same maps.
 //
 // Hopper has native 32- and 64-bit integers, so the TPU's u16-half and
 // one-hot MXU gathers are not carried over.
 //
-// What bounds it on this card: bytes. A probe over 10M int64 keys reads
-// 80 MB of keys and writes 40 MB of int32 counts (about 36 us at 3.35 TB/s);
-// the table is at most 8 KB and lives in shared memory, so the walk itself
-// touches no device memory. The emit reads every row's count, but keys and
-// its int64 start only for rows with matches, and writes 8 bytes per pair
-// (about 60 MB for q3's first join, 8.5% of whose rows match). The murmur3
-// hashes are about 30 integer operations per 8-byte key, a few microseconds
-// of the card's integer rate at 10M rows. The build moves a few KB and is
-// bound by its launch and its rounds of block-wide barriers.
+// What bounds the probes on this card, and what the design does about it.
+// The count over q3's first join (10M INT64 probe keys, 310 build rows, 8.5%
+// of rows matched) must read 80 MB of keys and write 40 MB of counts: 36 us
+// at 3.35 TB/s; its murmur3 hashes are about 20 us of the card's integer
+// rate. On an H100 80GB HBM3 at 700 W it takes about twice that (PERF.md):
+// its loads, hash and stores alone run near the byte bound; the rest is
+// each warp's chain of dependent steps per 256 rows (Bloom test,
+// compaction of candidates, walk, list) and their instructions, at the 24
+// warps an SM holds at 80 registers a thread.
+// - Count: a persistent grid (as many blocks as the card holds at once)
+//   walks the tiles. Warp w of a block takes segment w of each tile
+//   (PROBE_SEG = 256 rows), a lane 8 consecutive rows, and no warp waits for
+//   another. A lane issues every key and validity load of its rows before
+//   it hashes any: 16-byte vector loads where the column's address allows
+//   (the kernel checks), scalar loads otherwise and at the column's end, so
+//   a view at any element offset is exact. Counts are stored 16 bytes at a
+//   time.
+//   Each block stages in shared memory, once: the table as one word a slot
+//   (hash | row id), so a step of the walk is one shared load; for every
+//   occupied slot the build row's values of the first SMEM_KEY_COLS = 4 key
+//   columns (32 KB at C = 1,024; key columns past the fourth are compared
+//   against the build columns in global memory, since 32 columns x 8 B x
+//   1,024 slots = 256 KB would not fit); and a 65,536-bit Bloom filter of
+//   the build rows' hashes. A row the filter rejects counts 0 without a
+//   walk (91% of q3's rows). The warp's other rows are compacted (ballots)
+//   and walked 32 at a time, one a lane, so the walks run on full warps.
+//   Per segment the warp writes a list of its matched rows (entries: row in
+//   the tile, first matching slot, count), their number and its pairs; each
+//   block sums its tiles' segments, and the last block scans the tiles.
+//   Tile sums, offsets, total and the last block's ticket live in each
+//   call's own scratch, the ticket zeroed on the launch stream, so calls on
+//   two streams at once share nothing.
+// - Emit: a persistent grid over the same tiles, warp w on segment w. It
+//   reads the segment's list (4 bytes a matched row), never the counts or
+//   the probe keys: a warp scan of the entries' counts gives each its
+//   first pair, after the tile's offset and the tile's earlier segments.
+//   Each entry walks from its first matching slot, taking the slots whose
+//   hash and keys equal that slot's build row's. Re-hashing the matched
+//   rows instead would read every row's count (40 MB) and the sectors that
+//   hold a matched row's key (about a third of 80 MB); the list costs the
+//   count 4 bytes a matched row written. The pairs go to the warp's part of
+//   shared memory and out as one contiguous run per map; a segment of more
+//   than EMIT_STAGE pairs (512 equal build keys give 512 a row) writes them
+//   in place, in the same order. Its bound is the list, the pairs and the
+//   table: 10.6 MB at q3's first join.
+// The build moves a few KB and is bound by its launch and its rounds of
+// block-wide barriers.
 //
 // Plain C interface for ctypes. Every entry point returns
 // cudaGetLastError() after its launch (or cudaErrorInvalidValue for
@@ -53,6 +94,28 @@
 #define MAX_BUILD_ROWS 512
 #define BUILD_THREADS 1024
 #define PROBE_THREADS 256
+#define PROBE_WARPS (PROBE_THREADS / 32)
+#define PROBE_R 8                                // rows a thread
+#define PROBE_TILE (PROBE_THREADS * PROBE_R)     // rows a tile
+#define SMEM_KEY_COLS 4                          // key columns in shared
+#define PROBE_SEG (32 * PROBE_R)                 // rows a warp: a segment
+#define PROBE_SEGS (PROBE_TILE / PROBE_SEG)      // segments a tile
+#define EMIT_STAGE 256                           // pairs staged a segment
+#define BLOOM_WORDS 2048                         // 65,536 bits
+
+static_assert(PROBE_R == 8, "the vector loads and stores take 8 rows");
+static_assert(MAX_CAPACITY % PROBE_THREADS == 0, "a thread stages whole slots");
+
+// a matched row's entry in its tile's list: its row in the tile (11 bits),
+// its first matching slot (10 bits) and its count (11 bits)
+#define ENT_SLOT_SHIFT 11
+#define ENT_COUNT_SHIFT 21
+static_assert(PROBE_TILE <= (1 << ENT_SLOT_SHIFT) &&
+                  MAX_CAPACITY <= (1 << (ENT_COUNT_SHIFT - ENT_SLOT_SHIFT)) &&
+                  MAX_BUILD_ROWS < (1 << (32 - ENT_COUNT_SHIFT)),
+              "an entry's fields fit their bits");
+
+
 
 struct Keys {
   const void* data[MAX_KEYS];
@@ -93,6 +156,16 @@ __device__ __forceinline__ uint32_t mm_fmix(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// one key column's step of the bucket hash
+__device__ __forceinline__ uint32_t hash_col(uint32_t h, long long v,
+                                             int wide) {
+  uint32_t nh = mm_round(h, static_cast<uint32_t>(v));
+  if (wide)
+    nh = mm_round(nh, static_cast<uint32_t>(
+                          static_cast<unsigned long long>(v) >> 32));
+  return mm_fmix(nh ^ (wide ? 8u : 4u));
+}
+
 __device__ __forceinline__ bool row_valid(const Keys& k, long long i) {
   for (int j = 0; j < k.nk; ++j)
     if (k.valid[j] != nullptr && !k.valid[j][i]) return false;
@@ -101,22 +174,8 @@ __device__ __forceinline__ bool row_valid(const Keys& k, long long i) {
 
 __device__ __forceinline__ uint32_t row_hash(const Keys& k, long long i) {
   uint32_t h = 42u;
-  for (int j = 0; j < k.nk; ++j) {
-    const long long v = load_key(k, j, i);
-    uint32_t nh = mm_round(h, static_cast<uint32_t>(v));
-    if (k.wide[j])
-      nh = mm_round(nh, static_cast<uint32_t>(
-                            static_cast<unsigned long long>(v) >> 32));
-    h = mm_fmix(nh ^ (k.wide[j] ? 8u : 4u));
-  }
+  for (int j = 0; j < k.nk; ++j) h = hash_col(h, load_key(k, j, i), k.wide[j]);
   return h;
-}
-
-__device__ __forceinline__ bool keys_equal(const Keys& p, long long i,
-                                           const Keys& b, int r) {
-  for (int j = 0; j < p.nk; ++j)
-    if (load_key(p, j, i) != load_key(b, j, r)) return false;
-  return true;
 }
 
 __global__ void __launch_bounds__(BUILD_THREADS)
@@ -163,49 +222,473 @@ build_kernel(const __grid_constant__ Keys b, int n, int C, int* slot_row_out,
   }
 }
 
-template <bool EMIT>
+// ---- the probes ----------------------------------------------------------
+
+// The table in shared memory: for each slot one word, the build row's hash
+// in the high half and its row id in the low half (-1: empty), so a step of
+// the walk is one shared load; then for each slot the build row's values of
+// the first nks key columns (as load_key gives them).
+struct SmemTable {
+  unsigned long long* ent;               // [C]
+  long long* key;                        // [nks][C]
+};
+
+__device__ __forceinline__ int ent_row(unsigned long long e) {
+  return static_cast<int>(static_cast<uint32_t>(e));
+}
+
+__device__ __forceinline__ uint32_t ent_hash(unsigned long long e) {
+  return static_cast<uint32_t>(e >> 32);
+}
+
+static size_t table_bytes(int C, int nks) {
+  return static_cast<size_t>(C) * (8 * nks + 8);
+}
+
+// stage the table; the caller syncs before reading it. A thread's slots'
+// loads are issued together: two round trips to device memory in all.
+__device__ __forceinline__ SmemTable stage_table(unsigned char* smem,
+                                                 const Keys& b,
+                                                 const int* slot_row,
+                                                 const uint32_t* slot_hash,
+                                                 int C, int nks) {
+  constexpr int PER = MAX_CAPACITY / PROBE_THREADS;
+  SmemTable t;
+  t.ent = reinterpret_cast<unsigned long long*>(smem);
+  t.key = reinterpret_cast<long long*>(t.ent + C);
+  int r[PER];
+  uint32_t h[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int s = threadIdx.x + k * PROBE_THREADS;
+    r[k] = s < C ? slot_row[s] : -1;
+    h[k] = s < C ? slot_hash[s] : 0u;
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int s = threadIdx.x + k * PROBE_THREADS;
+    if (s < C)
+      t.ent[s] = (static_cast<unsigned long long>(h[k]) << 32) |
+                 static_cast<uint32_t>(r[k]);
+  }
+  for (int j = 0; j < nks; ++j) {
+    long long v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) v[k] = r[k] >= 0 ? load_key(b, j, r[k]) : 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int s = threadIdx.x + k * PROBE_THREADS;
+      if (s < C) t.key[j * C + s] = v[k];
+    }
+  }
+  return t;
+}
+
+// probe row i (first key value v0) against build row r, in slot s
+__device__ __forceinline__ bool keys_equal(const Keys& p, long long i,
+                                           long long v0, const Keys& b,
+                                           int r, const SmemTable& t, int s,
+                                           int C, int nks) {
+  if (t.key[s] != v0) return false;
+  for (int j = 1; j < p.nk; ++j) {
+    const long long bv = j < nks ? t.key[j * C + s] : load_key(b, j, r);
+    if (load_key(p, j, i) != bv) return false;
+  }
+  return true;
+}
+
+// build rows r (slot s) and r0 (slot s0) have equal keys
+__device__ __forceinline__ bool build_keys_equal(const Keys& b,
+                                                 const SmemTable& t, int s,
+                                                 int r, int s0, int r0,
+                                                 int C, int nks) {
+  for (int j = 0; j < b.nk; ++j) {
+    if (j < nks ? t.key[j * C + s] != t.key[j * C + s0]
+                : load_key(b, j, r) != load_key(b, j, r0))
+      return false;
+  }
+  return true;
+}
+
+// the matches of probe row i (hash h) along its chain; *first gets the slot
+// of the first
+__device__ __forceinline__ int count_row(const Keys& p, long long i,
+                                         long long v0, uint32_t h,
+                                         const Keys& b, const SmemTable& t,
+                                         int C, int nks, int* first) {
+  const uint32_t mask = static_cast<uint32_t>(C - 1);
+  int c = 0;
+  for (int d = 0; d <= C; ++d) {
+    const int s = static_cast<int>((h + static_cast<uint32_t>(d)) & mask);
+    const unsigned long long e = t.ent[s];
+    const int r = ent_row(e);
+    if (r < 0) break;                // linear probing: the chain ends here
+    if (ent_hash(e) == h && keys_equal(p, i, v0, b, r, t, s, C, nks)) {
+      if (c == 0) *first = s;
+      ++c;
+    }
+  }
+  return c;
+}
+
+__device__ __forceinline__ long long sext(unsigned int x, int bits) {
+  return static_cast<long long>(static_cast<int>(x << (32 - bits)) >>
+                                (32 - bits));
+}
+
+// key column j of rows row0 .. row0 + 7 (0 past n): vector loads where the
+// address allows, scalar ones otherwise
+__device__ __forceinline__ void load_rows(const Keys& k, int j,
+                                          long long row0, long long n,
+                                          long long v[PROBE_R]) {
+  const int w = k.width[j];
+  const char* a = static_cast<const char*>(k.data[j]) + row0 * w;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a);
+  const bool full = row0 + PROBE_R <= n;
+  if (full && w == 8 && (addr & 15) == 0) {
+    const longlong2* q = reinterpret_cast<const longlong2*>(a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const longlong2 x = __ldg(q + i);
+      v[2 * i] = x.x;
+      v[2 * i + 1] = x.y;
+    }
+  } else if (full && w == 4 && (addr & 15) == 0) {
+    const int4* q = reinterpret_cast<const int4*>(a);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int4 x = __ldg(q + i);
+      v[4 * i] = x.x;
+      v[4 * i + 1] = x.y;
+      v[4 * i + 2] = x.z;
+      v[4 * i + 3] = x.w;
+    }
+  } else if (full && w == 2 && (addr & 15) == 0) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(a));
+    const unsigned int words[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      v[r] = sext(words[r >> 1] >> (16 * (r & 1)), 16);
+  } else if (full && w == 1 && (addr & 7) == 0) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(a));
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      v[r] = sext((r < 4 ? x.x : x.y) >> (8 * (r & 3)), 8);
+  } else {
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      v[r] = row0 + r < n ? load_key(k, j, row0 + r) : 0;
+  }
+}
+
+// rows row0 .. row0 + 7 inside n with every key valid
+__device__ __forceinline__ void valid_rows(const Keys& k, long long row0,
+                                           long long n, bool ok[PROBE_R]) {
+#pragma unroll
+  for (int r = 0; r < PROBE_R; ++r) ok[r] = row0 + r < n;
+  for (int j = 0; j < k.nk; ++j) {
+    if (k.valid[j] == nullptr) continue;
+    const unsigned char* a = k.valid[j] + row0;
+    if (row0 + PROBE_R <= n && (reinterpret_cast<uintptr_t>(a) & 7) == 0) {
+      const uint2 x = __ldg(reinterpret_cast<const uint2*>(a));
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r)
+        ok[r] = ok[r] && (((r < 4 ? x.x : x.y) >> (8 * (r & 3))) & 0xffu);
+    } else {
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r)
+        if (row0 + r < n) ok[r] = ok[r] && a[r] != 0;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_counts(int* counts, long long row0,
+                                             long long n,
+                                             const int c[PROBE_R]) {
+  int* a = counts + row0;
+  if (row0 + PROBE_R <= n && (reinterpret_cast<uintptr_t>(a) & 15) == 0) {
+    reinterpret_cast<int4*>(a)[0] = make_int4(c[0], c[1], c[2], c[3]);
+    reinterpret_cast<int4*>(a)[1] = make_int4(c[4], c[5], c[6], c[7]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      if (row0 + r < n) a[r] = c[r];
+  }
+}
+
+// a candidate row on its way to the lane that walks it: its first key value,
+// hash and row in the tile; back: its count | its first slot << 16
+struct WalkSlot {
+  long long v0;
+  uint32_t h;
+  int x;
+};
+
+// warp-wide inclusive sum
+template <typename T>
+__device__ __forceinline__ T warp_incl(T x, int lane) {
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+// A persistent grid: block g counts tiles g, g + G, ...; warp w of a block
+// takes segment w of each tile (PROBE_SEG rows), a lane the 8 consecutive
+// rows at lane * 8 of it. Per segment the warp writes the counts, its list
+// of matched rows (entries, from the segment's first row on), their number
+// and the segment's pairs; no warp waits for another. At the end the block
+// sums its tiles' segments, and the last block to finish scans the tiles'
+// pairs into offsets and the total. The tile arrays, total and ticket are
+// the call's scratch (the ticket zeroed on the launch stream).
 __global__ void __launch_bounds__(PROBE_THREADS)
-probe_kernel(const __grid_constant__ Keys p, long long n,
-             const __grid_constant__ Keys b, const int* slot_row_g,
-             const uint32_t* slot_hash_g, int C, int* counts,
-             const long long* starts, int* out_l, int* out_r) {
-  __shared__ int srow[MAX_CAPACITY];
-  __shared__ uint32_t shash[MAX_CAPACITY];
+count_kernel(const __grid_constant__ Keys p, long long n,
+             const __grid_constant__ Keys b, const int* __restrict__ slot_row,
+             const uint32_t* __restrict__ slot_hash, int C, int nks,
+             int* __restrict__ counts, unsigned int* __restrict__ entries,
+             int* __restrict__ seg_sum, int* __restrict__ seg_matched,
+             long long* __restrict__ tile_sum, long long* __restrict__ tile_off,
+             long long* __restrict__ total, unsigned int* ticket) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long warp_sum[PROBE_WARPS];
+  __shared__ WalkSlot walk_q[PROBE_WARPS][32];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const SmemTable t = stage_table(smem, b, slot_row, slot_hash, C, nks);
+  // a Bloom filter of the build rows' hashes: bit h >> 16
+  unsigned int* bloom = reinterpret_cast<unsigned int*>(t.key + nks * C);
+  for (int w = threadIdx.x; w < BLOOM_WORDS; w += blockDim.x) bloom[w] = 0u;
+  __syncthreads();
   for (int s = threadIdx.x; s < C; s += blockDim.x) {
-    srow[s] = slot_row_g[s];
-    shash[s] = slot_hash_g[s];
+    const unsigned long long e = t.ent[s];
+    if (ent_row(e) >= 0)
+      atomicOr(&bloom[ent_hash(e) >> 21], 1u << ((ent_hash(e) >> 16) & 31));
   }
   __syncthreads();
-  const uint32_t mask = static_cast<uint32_t>(C - 1);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    long long o = 0;
-    if (EMIT) {
-      if (counts[i] == 0) continue;
-      o = starts[i];
-    } else if (!row_valid(p, i)) {
-      counts[i] = 0;
-      continue;
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  WalkSlot* q = walk_q[warp];
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long seg0 = tile * PROBE_TILE + warp * PROBE_SEG;
+    if (seg0 >= n) continue;
+    const long long row0 = seg0 + lane * PROBE_R;
+    // every load of the lane's rows before any hash
+    long long v0[PROBE_R];
+    load_rows(p, 0, row0, n, v0);
+    bool ok[PROBE_R];
+    valid_rows(p, row0, n, ok);
+    uint32_t h[PROBE_R];
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) h[r] = hash_col(42u, v0[r], p.wide[0]);
+    for (int j = 1; j < p.nk; ++j) {
+      long long v[PROBE_R];
+      load_rows(p, j, row0, n, v);
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) h[r] = hash_col(h[r], v[r], p.wide[j]);
     }
-    const uint32_t h = row_hash(p, i);
-    int c = 0;
-    for (int d = 0; d <= C; ++d) {
-      const int s = static_cast<int>((h + static_cast<uint32_t>(d)) & mask);
-      const int r = srow[s];
-      if (r < 0) break;            // linear probing: chain ends here
-      if (shash[s] == h && keys_equal(p, i, b, r)) {
-        if (EMIT) {
-          out_l[o] = static_cast<int>(i);
-          out_r[o] = r;
-          ++o;
-        } else {
-          ++c;
+    // rows whose hash no build row has count 0 without a walk; the warp's
+    // other rows (its candidates) walk 32 at a time, one a lane
+    unsigned int cand = 0;
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      if (ok[r] && (bloom[h[r] >> 21] >> ((h[r] >> 16) & 31) & 1u))
+        cand |= 1u << r;
+    // candidate (lane, r) goes to place base[r] + (lower lanes with r)
+    const unsigned int lower = (1u << lane) - 1u;
+    int base[PROBE_R], K = 0;
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) {
+      const unsigned int bal = __ballot_sync(0xffffffffu, (cand >> r) & 1u);
+      base[r] = K + __popc(bal & lower);
+      K += __popc(bal);
+    }
+    int cf[PROBE_R];                   // count | first matching slot << 16
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) cf[r] = 0;
+    for (int q0 = 0; q0 < K; q0 += 32) {
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) {
+        const int idx = base[r] - q0;
+        if ((cand & (1u << r)) && idx >= 0 && idx < 32)
+          q[idx] = WalkSlot{v0[r], h[r],
+                            static_cast<int>(row0 - tile * PROBE_TILE) + r};
+      }
+      __syncwarp();
+      if (q0 + lane < K) {
+        const WalkSlot w = q[lane];
+        int f = 0;
+        const int n_match = count_row(p, tile * PROBE_TILE + w.x, w.v0, w.h,
+                                      b, t, C, nks, &f);
+        q[lane].x = n_match | (f << 16);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) {
+        const int idx = base[r] - q0;
+        if ((cand & (1u << r)) && idx >= 0 && idx < 32) cf[r] = q[idx].x;
+      }
+      __syncwarp();
+    }
+    int c[PROBE_R];
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) c[r] = cf[r] & 0xffff;
+    store_counts(counts, row0, n, c);
+    // the segment's list, in row order: a lane's rows go after the matched
+    // rows of the lower lanes
+    int pairs = 0, k = 0, seg_rows = 0;
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) {
+      pairs += c[r];
+      const unsigned int bal = __ballot_sync(0xffffffffu, c[r] > 0);
+      k += __popc(bal & lower);
+      seg_rows += __popc(bal);
+    }
+    unsigned int* list = entries + seg0;
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) {
+      if (c[r] > 0)
+        list[k++] = static_cast<unsigned int>(row0 - tile * PROBE_TILE + r) |
+                    (static_cast<unsigned int>(cf[r] >> 16) << ENT_SLOT_SHIFT) |
+                    (static_cast<unsigned int>(c[r]) << ENT_COUNT_SHIFT);
+    }
+    pairs = __reduce_add_sync(0xffffffffu, pairs);
+    if (lane == 0) {
+      seg_sum[seg0 / PROBE_SEG] = pairs;
+      seg_matched[seg0 / PROBE_SEG] = seg_rows;
+    }
+  }
+  // the block's tiles: their segments' pairs summed (written by this
+  // block's warps, visible after the barrier)
+  __syncthreads();
+  const long long segs = (n + PROBE_SEG - 1) / PROBE_SEG;
+  const long long G = gridDim.x;
+  for (long long tile = blockIdx.x + threadIdx.x * G; tile < tiles;
+       tile += PROBE_THREADS * G) {
+    long long sum = 0;
+    for (long long sg = tile * PROBE_SEGS;
+         sg < (tile + 1) * PROBE_SEGS && sg < segs; ++sg)
+      sum += seg_sum[sg];
+    tile_sum[tile] = sum;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: exclusive tile offsets and the total
+  const int nt = static_cast<int>(tiles);
+  const int per = (nt + PROBE_THREADS - 1) / PROBE_THREADS;
+  const int lo = threadIdx.x * per;
+  const int hi = lo + per < nt ? lo + per : nt;
+  long long sum = 0;
+#pragma unroll 8
+  for (int i = lo; i < hi; ++i) sum += __ldcg(tile_sum + i);
+  long long run = warp_incl(sum, lane);
+  if (lane == 31) warp_sum[warp] = run;
+  __syncthreads();
+  run -= sum;
+  for (int w = 0; w < warp; ++w) run += warp_sum[w];
+  if (threadIdx.x == PROBE_THREADS - 1) *total = run + sum;
+#pragma unroll 8
+  for (int i = lo; i < hi; ++i) {
+    tile_off[i] = run;
+    run += __ldcg(tile_sum + i);
+  }
+}
+
+static size_t count_smem_bytes(int C, int nks) {
+  return table_bytes(C, nks) + sizeof(unsigned int) * BLOOM_WORDS;
+}
+
+static size_t emit_smem_bytes(int C, int nks) {
+  return table_bytes(C, nks) + 2 * sizeof(int) * PROBE_WARPS * EMIT_STAGE;
+}
+
+// A persistent grid over the count's tiles; warp w of a block takes segment
+// w of each. Its first pair goes to the tile's offset plus the pairs of the
+// tile's earlier segments; its list is taken 32 entries at a time, a warp
+// scan of their counts giving each entry its first pair, and each entry
+// walks from its first matching slot, taking the slots whose hash and keys
+// equal that slot's build row's, until its count is reached. The pairs go
+// to the warp's part of shared memory, then out as one run per map; a
+// segment with more than EMIT_STAGE pairs writes them in place.
+__global__ void __launch_bounds__(PROBE_THREADS)
+emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
+            const uint32_t* __restrict__ slot_hash, int C, int nks,
+            long long n, const unsigned int* __restrict__ entries,
+            const int* __restrict__ seg_sum,
+            const int* __restrict__ seg_matched,
+            const long long* __restrict__ tile_off, int* __restrict__ out_l,
+            int* __restrict__ out_r) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const SmemTable t = stage_table(smem, b, slot_row, slot_hash, C, nks);
+  int* stage_l = reinterpret_cast<int*>(t.key + nks * C) + warp * EMIT_STAGE;
+  int* stage_r = stage_l + PROBE_WARPS * EMIT_STAGE;
+  const int mask = C - 1;
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  const long long segs = (n + PROBE_SEG - 1) / PROBE_SEG;
+  __syncthreads();
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long sg = tile * PROBE_SEGS + warp;
+    if (sg >= segs) continue;
+    const int matched = seg_matched[sg];
+    if (matched == 0) continue;
+    // the pairs of the tile's earlier segments
+    int earlier = lane < warp ? seg_sum[tile * PROBE_SEGS + lane] : 0;
+    earlier = __reduce_add_sync(0xffffffffu, earlier);
+    const int pairs = seg_sum[sg];
+    int* dst_l = out_l + tile_off[tile] + earlier;
+    int* dst_r = out_r + tile_off[tile] + earlier;
+    const bool staged = pairs <= EMIT_STAGE;
+    int* to_l = staged ? stage_l : dst_l;
+    int* to_r = staged ? stage_r : dst_r;
+    const unsigned int* list = entries + sg * PROBE_SEG;
+    int run = 0;                       // pairs of the earlier entries
+    for (int e0 = 0; e0 < matched; e0 += 32) {
+      const int e = e0 + lane;
+      const unsigned int w = e < matched ? list[e] : 0u;
+      const int cnt = static_cast<int>(w >> ENT_COUNT_SHIFT);
+      const int incl = warp_incl(cnt, lane);
+      int o = run + incl - cnt;
+      run += __shfl_sync(0xffffffffu, incl, 31);
+      if (cnt > 0) {
+        const int row = static_cast<int>(tile * PROBE_TILE +
+                                         (w & (PROBE_TILE - 1)));
+        const int s0 = static_cast<int>((w >> ENT_SLOT_SHIFT) &
+                                        (MAX_CAPACITY - 1));
+        const unsigned long long f = t.ent[s0];
+        const int r0 = ent_row(f);
+        const uint32_t h0 = ent_hash(f);
+        const int end = o + cnt;
+        to_l[o] = row;
+        to_r[o] = r0;
+        ++o;
+        for (int d = 1; o < end && d < C; ++d) {
+          const int s = (s0 + d) & mask;
+          const unsigned long long en = t.ent[s];
+          const int r = ent_row(en);
+          if (r < 0) break;
+          if (ent_hash(en) == h0 &&
+              build_keys_equal(b, t, s, r, s0, r0, C, nks)) {
+            to_l[o] = row;
+            to_r[o] = r;
+            ++o;
+          }
         }
       }
     }
-    if (!EMIT) counts[i] = c;
+    if (staged) {
+      __syncwarp();
+      for (int o = lane; o < pairs; o += 32) {
+        dst_l[o] = stage_l[o];
+        dst_r[o] = stage_r[o];
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -231,17 +714,23 @@ static bool capacity_ok(int C) {
   return C >= 1 && C <= MAX_CAPACITY && (C & (C - 1)) == 0;
 }
 
-static int probe_blocks(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  const long long need = (n + PROBE_THREADS - 1) / PROBE_THREADS;
-  const long long cap = static_cast<long long>(sms) * 8;
-  return static_cast<int>(need < cap ? need : cap);
+// as many blocks of `kernel` as the card holds at once, at most one a tile
+template <typename K>
+static cudaError_t probe_grid(K kernel, size_t smem, long long n,
+                              unsigned int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        PROBE_THREADS, smem);
+  if (err != cudaSuccess) return err;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  *blocks = static_cast<unsigned int>(tiles < resident ? tiles : resident);
+  return cudaSuccess;
 }
 
 extern "C" {
@@ -258,38 +747,72 @@ int hj_build(const void* const* data, const void* const* valid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// counts: (n,) int32; entries: (n,) uint32, segment k's list of matched
+// rows from row k * PROBE_SEG on; seg: 2 * segs int32 (segs = ceil(n /
+// PROBE_SEG)), the segments' pairs, then their matched rows. scratch:
+// 2 + 2 * tiles int64 (tiles = ceil(n / PROBE_TILE)): [0] the total, [1]
+// the ticket (zeroed here on the launch stream), the tiles' pairs, then
+// their exclusive offsets.
 int hj_count(const void* const* pdata, const void* const* pvalid,
              const int* width, const int* wide, int nk, long long n,
              const void* const* bdata, const int* slot_row,
-             const uint32_t* slot_hash, int C, int* counts, void* stream) {
+             const uint32_t* slot_hash, int C, int* counts,
+             unsigned int* entries, int* seg, long long* scratch,
+             void* stream) {
   Keys p, b;
   const void* no_valid[MAX_KEYS] = {nullptr};
   if (!make_keys(&p, pdata, pvalid, width, wide, nk) ||
       !make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      !capacity_ok(C))
+      n > INT_MAX || !capacity_ok(C) || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  probe_kernel<false><<<probe_blocks(n), PROBE_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      p, n, b, slot_row, slot_hash, C, counts, nullptr, nullptr, nullptr);
+  const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
+  const size_t smem = count_smem_bytes(C, nks);
+  // above 48 KB a block's shared memory must be asked for
+  cudaError_t err = cudaFuncSetAttribute(
+      count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(count_smem_bytes(MAX_CAPACITY, SMEM_KEY_COLS)));
+  unsigned int blocks = 0;
+  if (err == cudaSuccess) err = probe_grid(count_kernel, smem, n, &blocks);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch + 1, 0, sizeof(unsigned int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  const long long segs = (n + PROBE_SEG - 1) / PROBE_SEG;
+  count_kernel<<<blocks, PROBE_THREADS, smem, s>>>(
+      p, n, b, slot_row, slot_hash, C, nks, counts, entries, seg, seg + segs,
+      scratch + 2, scratch + 2 + tiles, scratch,
+      reinterpret_cast<unsigned int*>(scratch + 1));
   return static_cast<int>(cudaGetLastError());
 }
 
-int hj_emit(const void* const* pdata, const void* const* pvalid,
-            const int* width, const int* wide, int nk, long long n,
-            const void* const* bdata, const int* slot_row,
-            const uint32_t* slot_hash, int C, const int* counts,
-            const long long* starts, int* out_l, int* out_r, void* stream) {
-  Keys p, b;
+// entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows;
+// out_l, out_r: (total,) int32 each
+int hj_emit(const void* const* bdata, const int* width, const int* wide,
+            int nk, long long n, const int* slot_row,
+            const uint32_t* slot_hash, int C, const unsigned int* entries,
+            const int* seg_sum, const int* seg_matched,
+            const long long* tile_off, int* out_l, int* out_r,
+            void* stream) {
+  Keys b;
   const void* no_valid[MAX_KEYS] = {nullptr};
-  if (!make_keys(&p, pdata, pvalid, width, wide, nk) ||
-      !make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      !capacity_ok(C))
+  if (!make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
+      n > INT_MAX || !capacity_ok(C))
     return static_cast<int>(cudaErrorInvalidValue);
-  probe_kernel<true><<<probe_blocks(n), PROBE_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, n, b, slot_row, slot_hash, C, const_cast<int*>(counts), starts,
-      out_l, out_r);
+  const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
+  const size_t smem = emit_smem_bytes(C, nks);
+  cudaError_t err = cudaFuncSetAttribute(
+      emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(emit_smem_bytes(MAX_CAPACITY, SMEM_KEY_COLS)));
+  unsigned int blocks = 0;
+  if (err == cudaSuccess) err = probe_grid(emit_kernel, smem, n, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit_kernel<<<blocks, PROBE_THREADS, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      b, slot_row, slot_hash, C, nks, n, entries, seg_sum, seg_matched,
+      tile_off, out_l, out_r);
   return static_cast<int>(cudaGetLastError());
 }
+
 
 }  // extern "C"

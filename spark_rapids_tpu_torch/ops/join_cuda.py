@@ -8,8 +8,12 @@ a plain PyTorch version of the same function:
 
 - `build_table`: the open-addressing table over the build keys, filled by
   min-row-id insertion rounds (equal keys in ascending-row chain order);
-- `probe_counts`: matches per probe row, walking to the first empty slot;
-- `probe_emit`: the (probe row, build row) pairs at each row's start.
+- `probe_counts`: matches per probe row, walking to the first empty slot,
+  with the sums of each tile of `TILE` rows, their exclusive offsets and
+  the total, and per segment (an eighth of a tile) its list of matched
+  rows, each with its first matching slot and its count (`ProbeCounts`);
+- `probe_emit`: the (probe row, build row) pairs from those lists, a row's
+  first at its tile's offset plus the counts before it in its tile.
 
 Each wrapper runs the plain version only for CPU tensors. For CUDA tensors
 it launches its kernel or raises; it never falls back. `LAUNCHES` counts
@@ -19,10 +23,11 @@ The plain versions hash with the row hash's own murmur3 (`hash.py`, unsigned
 32-bit math in int64 with a mask after every step).
 
 `inner_join_hash` is the counterpart of `inner_join_pallas`: int32 gather
-maps, pair for pair those of `ops.join.inner_join`. It is registered as
-`hash_join`/"cuda" for backend "cuda" and declines what the reference's
-`_supports` declines: non-inner joins, mismatched or unsupported key kinds
-and build sides over `MAX_BUILD` rows.
+maps, pair for pair those of `ops.join.inner_join`. Between count and emit
+it reads the total (the one host sync) and computes nothing over the probe
+rows. It is registered as `hash_join`/"cuda" for backend "cuda" and
+declines what the reference's `_supports` declines: non-inner joins,
+mismatched or unsupported key kinds and build sides over `MAX_BUILD` rows.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from .join import _cols, _side_valid
 
 MAX_BUILD = 512     # the reference's VMEM-sized limit, kept for parity
 _MAX_KEYS = 32      # key columns the kernels take (csrc/hash_join.cu)
+TILE = 2048         # probe rows a tile: csrc/hash_join.cu PROBE_TILE
 _SEED = 42
 _M32 = 0xFFFFFFFF
 
@@ -126,8 +132,8 @@ def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
 
 
 def _walk(pcols, rows, h, table: HashTable, bcols):
-    """Yield per chain step the (probe-row mask, build rows) of matches for
-    `rows` (probe row ids with hashes `h`), in chain order."""
+    """Yield per chain step the (probe-row mask, build rows, slots) of
+    matches for `rows` (probe row ids with hashes `h`), in chain order."""
     C = table.capacity
     srow = table.slot_row.to(torch.int64)
     shash = table.slot_hash.to(torch.int64) & _M32
@@ -141,34 +147,139 @@ def _walk(pcols, rows, h, table: HashTable, bcols):
         rr = r.clamp(min=0)
         match = active & (shash.index_select(0, s) == h) \
             & _keys_equal(pcols, rows, bcols, rr)
-        yield match, rr
+        yield match, rr, s
 
 
-def probe_counts_plain(pcols, table: HashTable, bcols) -> torch.Tensor:
+# a matched row's entry in its segment's list (csrc/hash_join.cu): its row
+# in the tile, its first matching slot and its count, in 11, 10 and 11 bits
+_SLOT_SHIFT = 11
+_COUNT_SHIFT = 21
+SEGMENTS = 8        # a tile's segments: one a warp of the kernels' blocks
+
+
+@dataclasses.dataclass
+class ProbeCounts:
+    """What the probe count gives the emit, all on the probe's device.
+
+    counts: (n,) int32 matches per probe row. Per tile of `tile` rows:
+    tile_sums (tiles,) int64, its counts summed; tile_offsets (tiles,)
+    int64, their exclusive prefix. A tile is SEGMENTS segments of `tile //
+    SEGMENTS` rows; per segment: seg_sums (segs,) int32, its counts summed;
+    seg_matched (segs,) int32, its rows with a match. entries: (n,) int32,
+    segment k's matched rows in ascending order from its first row on, each
+    as its row in the tile | its first matching slot << 11 | its count <<
+    21 (past a segment's matched rows the values are not defined). total:
+    () int64, every count summed; the caller reads it (the one host sync)
+    to size the emit."""
+    counts: torch.Tensor
+    tile_sums: torch.Tensor
+    tile_offsets: torch.Tensor
+    seg_sums: torch.Tensor
+    seg_matched: torch.Tensor
+    entries: torch.Tensor
+    total: torch.Tensor
+    tile: int
+
+    @property
+    def seg(self) -> int:
+        return self.tile // SEGMENTS
+
+
+def _tiles(n: int, tile: int) -> int:
+    return -(-n // tile)
+
+
+def _tiled(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """(tiles, tile) int64 copy of the (n,) values, zero past the last."""
+    n = x.shape[0]
+    padded = torch.zeros(_tiles(n, tile) * tile, dtype=torch.int64,
+                         device=x.device)
+    padded[:n] = x
+    return padded.view(-1, tile)
+
+
+def probe_counts_plain(pcols, table: HashTable, bcols,
+                       tile: int = TILE) -> ProbeCounts:
+    if tile % SEGMENTS or not 1 <= tile <= 1 << _SLOT_SHIFT:
+        raise ValueError(f"tiles of a multiple of {SEGMENTS} rows up to "
+                         f"{1 << _SLOT_SHIFT}, got {tile}")
     n = pcols[0].length
     dev = pcols[0].device
     rows = torch.nonzero(_side_valid(pcols, n, dev)).reshape(-1)
     h = row_hash(pcols).index_select(0, rows)
     c = torch.zeros(rows.shape[0], dtype=torch.int32, device=dev)
-    for match, _ in _walk(pcols, rows, h, table, bcols):
+    first = torch.zeros(rows.shape[0], dtype=torch.int64, device=dev)
+    for match, _, slot in _walk(pcols, rows, h, table, bcols):
+        first = torch.where(match & (c == 0), slot, first)
         c += match.to(torch.int32)
     counts = torch.zeros(n, dtype=torch.int32, device=dev)
     counts[rows] = c
-    return counts
+    slots = torch.zeros(n, dtype=torch.int64, device=dev)
+    slots[rows] = first
+    sums = _tiled(counts, tile).sum(1)
+    # segment k's list: its matched rows in order, from its first row on
+    seg = tile // SEGMENTS
+    cs = _tiled(counts, seg)
+    hit = cs > 0
+    in_tile = torch.arange(cs.numel(), dtype=torch.int64,
+                           device=dev).view_as(cs) % tile
+    words = in_tile | (_tiled(slots, seg) << _SLOT_SHIFT) \
+        | (cs << _COUNT_SHIFT)
+    dest = torch.arange(0, cs.numel(), seg, dtype=torch.int64,
+                        device=dev)[:, None] + torch.cumsum(hit, 1) - 1
+    entries = torch.zeros(cs.numel(), dtype=torch.int32, device=dev)
+    entries[dest[hit]] = words[hit].to(torch.int32)
+    return ProbeCounts(counts, sums, torch.cumsum(sums, 0) - sums,
+                       cs.sum(1).to(torch.int32),
+                       hit.sum(1).to(torch.int32), entries[:n], sums.sum(),
+                       tile)
 
 
-def probe_emit_plain(pcols, table: HashTable, bcols, counts: torch.Tensor,
-                     starts: torch.Tensor, total: int):
+def probe_emit_plain(pcols, table: HashTable, bcols, probe: ProbeCounts,
+                     total: int):
+    """The pairs from the count's lists: an entry's first pair goes to its
+    tile's offset, plus the counts of the entries before it in the tile
+    (the lists of its earlier segments, then its own); it walks from its
+    first matching slot, taking the slots whose hash and keys equal that
+    slot's build row's, until its count."""
     dev = pcols[0].device
-    rows = torch.nonzero(counts > 0).reshape(-1)
-    h = row_hash(pcols).index_select(0, rows)
-    pos = starts.index_select(0, rows).clone()
+    n, tile, seg, C = pcols[0].length, probe.tile, probe.seg, \
+        table.capacity
+    at = torch.arange(n, dtype=torch.int64, device=dev)
+    listed = (at % seg) < probe.seg_matched.index_select(0, at // seg)
+    w = probe.entries[listed].to(torch.int64)
+    tl = at[listed] // tile
+    rows = tl * tile + (w & ((1 << _SLOT_SHIFT) - 1))
+    s0 = (w >> _SLOT_SHIFT) & ((1 << (_COUNT_SHIFT - _SLOT_SHIFT)) - 1)
+    cnt = w >> _COUNT_SHIFT
+    # the counts of the entries before each, in its tile
+    before = torch.cumsum(cnt, 0) - cnt
+    tile_matched = _tiled(probe.seg_matched, SEGMENTS).sum(1)
+    tile_first = torch.cumsum(tile_matched, 0) - tile_matched
+    pos = probe.tile_offsets.index_select(0, tl) + before \
+        - before.index_select(0, tile_first.index_select(0, tl))
+    srow = table.slot_row.to(torch.int64)
+    shash = table.slot_hash.to(torch.int64) & _M32
+    r0 = srow.index_select(0, s0)
+    h0 = shash.index_select(0, s0)
     out_l = torch.empty(total, dtype=torch.int32, device=dev)
     out_r = torch.empty(total, dtype=torch.int32, device=dev)
-    for match, r in _walk(pcols, rows, h, table, bcols):
-        out_l[pos[match]] = rows[match].to(torch.int32)
-        out_r[pos[match]] = r[match].to(torch.int32)
-        pos += match.to(torch.int64)
+    done = torch.zeros_like(cnt)
+    active = torch.ones_like(cnt, dtype=torch.bool)
+    for d in range(C):
+        active = active & (done < cnt)
+        if not bool(active.any()):
+            break
+        s = (s0 + d) & (C - 1)
+        r = srow.index_select(0, s)
+        active = active & (r >= 0)
+        rr = r.clamp(min=0)
+        take = active & (shash.index_select(0, s) == h0) \
+            & _keys_equal(bcols, r0, bcols, rr)
+        out_l[pos[take]] = rows[take].to(torch.int32)
+        out_r[pos[take]] = rr[take].to(torch.int32)
+        pos += take.to(torch.int64)
+        done += take.to(torch.int64)
     return out_l, out_r
 
 
@@ -190,9 +301,10 @@ def _lib():
         lib = load("hash_join")
         lib.hj_build.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
         lib.hj_count.argtypes = _KEY_ARGS + [_PP, _P, _P, ctypes.c_int, _P,
-                                             _P]
-        lib.hj_emit.argtypes = _KEY_ARGS + [_PP, _P, _P, ctypes.c_int, _P, _P,
-                                            _P, _P, _P]
+                                             _P, _P, _P, _P]
+        lib.hj_emit.argtypes = [_PP, _PI, _PI, ctypes.c_int,
+                                ctypes.c_longlong, _P, _P, ctypes.c_int, _P,
+                                _P, _P, _P, _P, _P, _P]
         for fn in (lib.hj_build, lib.hj_count, lib.hj_emit):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -257,43 +369,60 @@ def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
     return HashTable(slot_row, slot_hash)
 
 
-def probe_counts_cuda(pcols, table: HashTable, bcols) -> torch.Tensor:
-    dev = pcols[0].device
-    _check_probe(pcols, bcols, dev)
-    counts = torch.empty(pcols[0].length, dtype=torch.int32, device=dev)
-    if pcols[0].length == 0:
-        return counts
-    bdata = _key_arrays(bcols)[0]
-    rc = _lib().hj_count(*_key_arrays(pcols), bdata, table.slot_row.data_ptr(),
-                         table.slot_hash.data_ptr(), table.capacity,
-                         counts.data_ptr(), _stream(dev))
-    _raise_on(rc, "hash-join probe-count kernel")
-    LAUNCHES["count"] += 1
-    return counts
-
-
-def probe_emit_cuda(pcols, table: HashTable, bcols, counts: torch.Tensor,
-                    starts: torch.Tensor, total: int):
+def probe_counts_cuda(pcols, table: HashTable, bcols) -> ProbeCounts:
     dev = pcols[0].device
     _check_probe(pcols, bcols, dev)
     n = pcols[0].length
-    if counts.dtype != torch.int32 or starts.dtype != torch.int64 or \
-            tuple(counts.shape) != (n,) or tuple(starts.shape) != (n,) or \
-            counts.device != dev or starts.device != dev or \
-            not (counts.is_contiguous() and starts.is_contiguous()):
-        raise TypeError("emit takes contiguous (n,) int32 counts and int64 "
-                        "starts on the probe's device")
-    # `total` must be counts.sum() (the caller's one host sync): the kernel
-    # writes each row's pairs at starts[i] .. starts[i] + counts[i] - 1
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    entries = torch.empty(n, dtype=torch.int32, device=dev)
+    tiles, segs = _tiles(n, TILE), _tiles(n, TILE // SEGMENTS)
+    seg = torch.empty(2 * segs, dtype=torch.int32, device=dev)
+    # one int64 buffer: the total, the last block's ticket (zeroed by the
+    # kernel's entry point on the stream), the tiles' sums and offsets
+    scratch = torch.empty(2 + 2 * tiles, dtype=torch.int64, device=dev)
+    probe = ProbeCounts(counts, scratch[2:2 + tiles], scratch[2 + tiles:],
+                        seg[:segs], seg[segs:], entries, scratch[0], TILE)
+    if n == 0:
+        scratch.zero_()
+        return probe
+    bdata = _key_arrays(bcols)[0]
+    rc = _lib().hj_count(*_key_arrays(pcols), bdata, table.slot_row.data_ptr(),
+                         table.slot_hash.data_ptr(), table.capacity,
+                         counts.data_ptr(), entries.data_ptr(),
+                         seg.data_ptr(), scratch.data_ptr(), _stream(dev))
+    _raise_on(rc, "hash-join probe-count kernel")
+    LAUNCHES["count"] += 1
+    return probe
+
+
+def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
+                    total: int):
+    dev = pcols[0].device
+    _check_probe(pcols, bcols, dev)
+    n = pcols[0].length
+    segs = _tiles(n, TILE // SEGMENTS)
+    shapes = ((probe.entries, torch.int32, n),
+              (probe.seg_sums, torch.int32, segs),
+              (probe.seg_matched, torch.int32, segs),
+              (probe.tile_offsets, torch.int64, _tiles(n, TILE)))
+    if probe.tile != TILE or any(
+            t.dtype != dtype or tuple(t.shape) != (size,) or t.device != dev
+            or not t.is_contiguous() for t, dtype, size in shapes):
+        raise TypeError(f"emit takes the count kernel's {TILE}-row tiles: "
+                        "contiguous (n,) int32 entries, (segs,) int32 "
+                        "sums and matched rows, (tiles,) int64 offsets, on "
+                        "the probe's device")
+    # `total` must be probe.total (the caller's one host sync): the kernel
+    # writes a tile's pairs at its offset .. offset + its sum - 1
     out_l = torch.empty(total, dtype=torch.int32, device=dev)
     out_r = torch.empty(total, dtype=torch.int32, device=dev)
     if total == 0:
         return out_l, out_r
-    bdata = _key_arrays(bcols)[0]
-    rc = _lib().hj_emit(*_key_arrays(pcols), bdata, table.slot_row.data_ptr(),
+    data, _, width, wide, nk, _ = _key_arrays(bcols)
+    rc = _lib().hj_emit(data, width, wide, nk, n, table.slot_row.data_ptr(),
                         table.slot_hash.data_ptr(), table.capacity,
-                        counts.data_ptr(), starts.data_ptr(), out_l.data_ptr(),
-                        out_r.data_ptr(), _stream(dev))
+                        *[t.data_ptr() for t, _, _ in shapes],
+                        out_l.data_ptr(), out_r.data_ptr(), _stream(dev))
     _raise_on(rc, "hash-join probe-emit kernel")
     LAUNCHES["emit"] += 1
     return out_l, out_r
@@ -308,18 +437,19 @@ def build_table(bcols: Sequence[Column], C: int) -> HashTable:
     return build_table_cuda(bcols, C)
 
 
-def probe_counts(pcols, table: HashTable, bcols) -> torch.Tensor:
+def probe_counts(pcols, table: HashTable, bcols) -> ProbeCounts:
     if pcols[0].device.type == "cpu":
         PLAIN_CALLS["count"] += 1
         return probe_counts_plain(pcols, table, bcols)
     return probe_counts_cuda(pcols, table, bcols)
 
 
-def probe_emit(pcols, table: HashTable, bcols, counts, starts, total: int):
+def probe_emit(pcols, table: HashTable, bcols, probe: ProbeCounts,
+               total: int):
     if pcols[0].device.type == "cpu":
         PLAIN_CALLS["emit"] += 1
-        return probe_emit_plain(pcols, table, bcols, counts, starts, total)
-    return probe_emit_cuda(pcols, table, bcols, counts, starts, total)
+        return probe_emit_plain(pcols, table, bcols, probe, total)
+    return probe_emit_cuda(pcols, table, bcols, probe, total)
 
 
 def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
@@ -342,13 +472,11 @@ def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
     if nl == 0 or nr == 0:
         return empty()
     table = build_table(rcols, _capacity(nr))
-    counts = probe_counts(lcols, table, rcols)
-    total = int(counts.sum())                  # the one host sync
+    probe = probe_counts(lcols, table, rcols)
+    total = int(probe.total)                   # the one host sync
     if total == 0:
         return empty()
-    c64 = counts.to(torch.int64)
-    starts = torch.cumsum(c64, 0) - c64
-    lmap, rmap = probe_emit(lcols, table, rcols, counts, starts, total)
+    lmap, rmap = probe_emit(lcols, table, rcols, probe, total)
     return (Column(dtypes.INT32, total, lmap),
             Column(dtypes.INT32, total, rmap))
 

@@ -35,32 +35,114 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
 
 
+def _same_probe(got, want):
+    """Two probe counts equal: every field, and each segment's list as far
+    as the segment has matched rows."""
+    for name in ("counts", "tile_sums", "tile_offsets", "seg_sums",
+                 "seg_matched", "total"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    at = torch.arange(got.counts.shape[0], device=got.counts.device)
+    listed = (at % got.seg) < got.seg_matched.index_select(0, at // got.seg)
+    assert torch.equal(got.entries[listed], want.entries[listed])
+    c64 = got.counts.to(torch.int64)
+    first = torch.arange(0, c64.shape[0], got.tile, device=c64.device)
+    assert torch.equal(got.tile_offsets,
+                       (torch.cumsum(c64, 0) - c64).index_select(0, first))
+
+
 @pytest.mark.parametrize("dtype,npt", [(tdt.INT64, np.int64),
                                        (tdt.INT16, np.int16),
                                        (tdt.decimal(9, 2), np.int32)])
 @pytest.mark.parametrize("null_p", [0.0, 0.1])
-def test_kernels_equal_plain_versions(dtype, npt, null_p):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernels_equal_plain_versions(dtype, npt, null_p, offset):
+    """Build, count and emit against their plain versions; with `offset`,
+    every key column is a view one element into its buffers."""
     _need_card()
     rng = np.random.default_rng(11)
-    nl, nr = 50_000, 400
+    nl, nr = 50_001, 400
 
     def col(n):
-        v = (rng.random(n) > null_p) if null_p else None
-        return [Column.from_numpy(rng.integers(-90, 90, n).astype(npt),
-                                  dtype, v, device="cuda")]
+        v = (rng.random(n + offset) > null_p) if null_p else None
+        c = Column.from_numpy(rng.integers(-90, 90, n + offset).astype(npt),
+                              dtype, v, device="cuda")
+        return [Column(dtype, n, c.data[offset:],
+                       None if v is None else c.validity[offset:])]
     lc, rc = col(nl), col(nr)
     C = join_cuda._capacity(nr)
     tk = join_cuda.build_table_cuda(rc, C)
     tp = join_cuda.build_table_plain(rc, C)
     assert torch.equal(tk.slot_row, tp.slot_row)
     assert torch.equal(tk.slot_hash, tp.slot_hash)
-    ck = join_cuda.probe_counts_cuda(lc, tk, rc)
-    assert torch.equal(ck, join_cuda.probe_counts_plain(lc, tp, rc))
+    pk = join_cuda.probe_counts_cuda(lc, tk, rc)
+    pp = join_cuda.probe_counts_plain(lc, tp, rc)
+    _same_probe(pk, pp)
+    total = int(pk.total)
+    lk, rk = join_cuda.probe_emit_cuda(lc, tk, rc, pk, total)
+    lp, rp = join_cuda.probe_emit_plain(lc, tp, rc, pp, total)
+    assert torch.equal(lk, lp) and torch.equal(rk, rp)
     got = join_cuda.inner_join_hash(lc, rc)
     ref = join.inner_join(lc, rc)
     torch.cuda.synchronize()
     assert torch.equal(got[0].data, ref[0].data)
     assert torch.equal(got[1].data, ref[1].data)
+
+
+@pytest.mark.parametrize("n", [1, 7, 9, 2047, 2048, 2049, 6143, 6145])
+def test_probe_sizes_off_the_tiles(n):
+    """Probe sizes on and off the kernels' 2,048-row tiles and a lane's 8
+    rows, with 512 equal build keys (512 pairs a matched row: past the
+    emit's staging)."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    lc = [Column.from_numpy(np.where(rng.random(n) < 0.3, 5, 6)
+                            .astype(np.int64), tdt.INT64,
+                            rng.random(n) > 0.1, device="cuda")]
+    rc = [Column.from_numpy(np.full(512, 5, np.int64), tdt.INT64,
+                            device="cuda")]
+    C = join_cuda._capacity(512)
+    tk = join_cuda.build_table_cuda(rc, C)
+    pk = join_cuda.probe_counts_cuda(lc, tk, rc)
+    _same_probe(pk, join_cuda.probe_counts_plain(lc, tk, rc))
+    got = join_cuda.inner_join_hash(lc, rc)
+    ref = join.inner_join(lc, rc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, ref[0].data)
+    assert torch.equal(got[1].data, ref[1].data)
+
+
+def test_joins_on_two_streams_at_once():
+    """Hash joins from two threads, each on its own stream: the count's
+    tile sums, offsets and ticket are each call's own, so every map is the
+    plain one."""
+    _need_card()
+    import threading
+    rng = np.random.default_rng(5)
+    n = 1_000_000                      # many blocks: the tickets decide
+    lc = [Column.from_numpy(rng.integers(0, 3650, n).astype(np.int64),
+                            tdt.INT64, device="cuda")]
+    rc = [Column.from_numpy(np.arange(0, 3650, 12, dtype=np.int64),
+                            tdt.INT64, device="cuda")]
+    want = join.inner_join(lc, rc)
+    torch.cuda.synchronize()           # the inputs, before other streams
+    bad = []
+
+    def run():
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            for _ in range(20):
+                got = join_cuda.inner_join_hash(lc, rc)
+                s.synchronize()
+                if not (torch.equal(got[0].data, want[0].data) and
+                        torch.equal(got[1].data, want[1].data)):
+                    bad.append("maps differ")
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad, bad[0]
 
 
 def test_q3_on_the_card_uses_the_kernels():
