@@ -24,6 +24,13 @@ in phases that each raise on failure:
    and memset it runs). `--join-profile` runs only that last timing, the
    one measurement that also runs against a tree with the earlier probe
    interface;
+3b. the hash join's large route (tables over 1,024 slots): the build
+   against its plain version at 513, 1,025 and 52,000 rows, on 600 equal
+   keys, with nulls, INT32 and INT64 keys, one and two key columns and
+   columns one element into their buffers, each case's count and emit
+   against theirs and the whole `inner_join_hash` against a numpy join,
+   with its rounds, device and one-call time, bound and one grid barrier
+   timed alone; then 2^22 rows (the ceiling) taken and one more declined;
 4. q3: NDS q3 at 10,000,000 store_sales rows through
    `PlanExecutor(optimize=False)` (the authored plan, as in earlier runs),
    launch counters zeroed before and read after; the result must equal an
@@ -35,6 +42,17 @@ in phases that each raise on failure:
    FusedSelects of the executed plan, on its dates and items tables,
    against their plain version; and every group of the plan without its
    LIMIT against numpy q3;
+4b'. q72: NDS q72 at 10,000,000 catalog_sales rows through
+   `PlanExecutor(optimize=False)` and `PlanExecutor()`, counters zeroed
+   before each and read after: five HashJoins, the inventory join (52,000
+   build rows) on the large route, FusedSelects where the optimizer fuses
+   the filters, no plain version run; equal to an independent numpy q72
+   and to the CPU run; warm walls; then the inventory join's build, count
+   and emit timed at its shape;
+4b''. C4: a FLOAT64 column of 10M rows summed and averaged over 3 and
+   1,000 groups through `PlanExecutor`, twice on the card, each run's
+   bits equal to the CPU run's (the segment-sum kernel), with
+   `index_add_` on the card beside it; the kernel timed at 3 groups;
 4c. FusedSelect: the kernel against its plain version on every port dtype,
    with and without nulls, nineteen predicates (the four shapes, INT8/INT32
    wrap-around, 64-bit integer columns, float32/float64 arithmetic and
@@ -100,6 +118,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 # SMs x 1.98 GHz boost (H100 SXM data sheet). The float32 rate outside the
 # tensor cores (67 T/s) counts 128 lanes and a fused multiply-add as two.
 PEAK_INT_OPS_PER_S = 64 * 132 * 1.98e9
+# float64 outside the tensor cores: 34 T/s (H100 SXM data sheet)
+PEAK_F64_OPS_PER_S = 34e12
 # murmur3 integer operations per key column: mm_round is 11, the column's
 # closing xor and fmix 9, and a wide key a second round plus a shift
 HASH_OPS = {False: 20, True: 32}
@@ -113,8 +133,12 @@ RH_OUT_BYTES = {"murmur": 4, "xxhash": 8, "fused": 12}
 HIST_OPS = 2
 # the count kernel's two forms: 32-bit values, 64-bit values
 FS_COUNT = ("fs_count_kernel<int>", "fs_count_kernel<longlong>")
-KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel",
-                "emit": "emit_kernel",
+KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel<false>",
+                "emit": "emit_kernel<false>",
+                "build_large": "build_large_kernel",
+                "count_large": "count_kernel<true>",
+                "emit_large": "emit_kernel<true>",
+                "segment_sum": "seg_sum_kernel",
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
                 "fused": "row_hash_kernel<true,true>",
@@ -129,6 +153,7 @@ RH_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_hash.cu"
 HIST_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
 FS_SOURCE = "spark_rapids_tpu_torch/ops/csrc/fused_select.cu"
 TK_SOURCE = "spark_rapids_tpu_torch/ops/csrc/topk.cu"
+SS_SOURCE = "spark_rapids_tpu_torch/ops/csrc/segment_sum.cu"
 REPLACES = {
     "build": "spark_rapids_tpu/ops/join_pallas.py:122",
     "count": "spark_rapids_tpu/ops/join_pallas.py:209",
@@ -187,7 +212,9 @@ def build_phase():
 class Checks:
     def __init__(self):
         self.max_err = {"build": 0, "count": 0, "emit": 0, "row_hash": 0,
-                        "histogram": 0, "fused_select": 0, "topk": 0}
+                        "histogram": 0, "fused_select": 0, "topk": 0,
+                        "build_large": 0, "count_large": 0,
+                        "emit_large": 0, "segment_sum": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -411,11 +438,16 @@ def device_ms(torch, fn, kernel, iters, attempts=3, per_call=1):
     flushed before each, from torch.profiler's records of the kernels the
     card ran; a call launches `per_call` of them. A profile that comes back
     without every run's record (CUPTI sometimes drops a session's records)
-    is taken again, at most `attempts` times."""
+    is taken again, at most `attempts` times; if none is whole, the time
+    is the mean of the most complete profile's records times `per_call`,
+    as long as it holds at least half of them, else one call's time
+    between CUDA events (the log says which)."""
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    want = iters * per_call
+    best = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -428,12 +460,19 @@ def device_ms(torch, fn, kernel, iters, attempts=3, per_call=1):
               if str(e.device_type).endswith("CUDA")
               and e.name.split("(")[0].removeprefix("void ").replace(" ", "")
               in names]
-        if len(us) == iters * per_call:
+        if len(us) == want:
             return sum(us) / iters / 1e3
         log(f"  (the profiler recorded {len(us)} runs of {kernel} for "
             f"{iters} calls; profiling again)")
-    raise AssertionError(f"the profiler recorded {len(us)} runs of {kernel} "
-                         f"for {iters} calls of {per_call}, {attempts} times")
+        if want >= len(us) > len(best):
+            best = us
+    if 2 * len(best) >= want:
+        log(f"  (the time of {kernel} is the mean of {len(best)} of {want} "
+            f"runs recorded)")
+        return sum(best) / len(best) * per_call / 1e3
+    log(f"  (the profiler kept too few runs of {kernel}: its time is one "
+        f"call's between CUDA events, launch included)")
+    return call_ms(torch, fn, iters)
 
 
 def device_by_name(torch, fn, iters, attempts=3):
@@ -441,7 +480,10 @@ def device_by_name(torch, fn, iters, attempts=3):
     of everything it ran on the card, kernels, copies and memsets, and of
     each kernel by name, from torch.profiler's records; the flush's own
     kernel is left out. A profile that comes back without a record of every
-    call (CUPTI sometimes drops a session's records) is taken again."""
+    call (CUPTI sometimes drops a session's records) is taken again; if
+    none is whole, each name's time is the mean of the most complete
+    profile's records of it times its runs a call, and with no record at
+    all one call's time between CUDA events (the log says which)."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_events(body):
@@ -462,6 +504,7 @@ def device_by_name(torch, fn, iters, attempts=3):
     flush = _FLUSH["names"]
     fn()
     torch.cuda.synchronize()
+    best = {}
     for _ in range(attempts):
         def body():
             for _ in range(iters):
@@ -473,14 +516,25 @@ def device_by_name(torch, fn, iters, attempts=3):
         for name, us in events:
             short = name.split("(")[0].removeprefix("void ").replace(" ", "")
             ms, k = by_name.get(short, (0.0, 0))
-            by_name[short] = (ms + us / 1e3 / iters, k + 1)
+            by_name[short] = (ms + us / 1e3, k + 1)
         if all(k % iters == 0 for _, k in by_name.values()):
-            total = sum(ms for ms, _ in by_name.values())
-            return total, {name: ms for name, (ms, _) in by_name.items()}
+            per_call = {name: ms / iters for name, (ms, _) in by_name.items()}
+            return sum(per_call.values()), per_call
         log(f"  (the profiler recorded {sorted(by_name.items())} for {iters} "
             f"calls; profiling again)")
-    raise AssertionError(f"the profiler recorded an uneven count of device "
-                         f"events for {iters} calls, {attempts} times")
+        if sum(k for _, k in by_name.values()) > \
+                sum(k for _, k in best.values()):
+            best = by_name
+    if best:
+        per_call = {name: ms / k * max(1, round(k / iters))
+                    for name, (ms, k) in best.items()}
+        log(f"  (each kernel's time is the mean of its recorded runs: "
+            f"{ {name: k for name, (_, k) in best.items()} } for {iters} "
+            f"calls)")
+        return sum(per_call.values()), per_call
+    log("  (the profiler recorded no device event: the time is one call's "
+        "between CUDA events, launch included)")
+    return call_ms(torch, fn, iters), {}
 
 
 def join_shapes(torch, q3_tables):
@@ -610,22 +664,18 @@ def kernel_phase(torch, q3_tables):
     el, er = jc.inner_join_hash(e, b1)
     require(el.length == er.length == 0 and jc.LAUNCHES == before,
             "an empty probe side launched a kernel or gave pairs")
-    # 513 build rows decline to the fallback and the kernel path refuses them
+    # 512 build rows are the small route's most; 513 take the large route
     big = [Column.from_numpy(np.arange(513, dtype=np.int64), dt.INT64,
                              device="cuda")]
     ch = REGISTRY.select("hash_join",
                          jc.make_signature(p1, big, "inner", "eager"),
                          backend="cuda")
-    require(ch.fallback and ("cuda", "unsupported signature") in ch.declined,
-            f"a 513-row build was not declined: {ch}")
-    try:
-        jc.build_table_cuda(big, jc._capacity(513))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("a 513-row build ran the kernel")
+    require(not ch.fallback and jc.is_large(jc._capacity(513))
+            and not jc.is_large(jc._capacity(512)),
+            f"a 513-row build was not taken on the large route: {ch}")
     log(f"kernels: {chk.n} exact comparisons on the card in "
-        f"{time.perf_counter() - t0:.1f} s; 512-row build runs, 513 declines")
+        f"{time.perf_counter() - t0:.1f} s; 512-row build on the small "
+        f"route, 513 on the large one")
 
     # timing at q3's shapes (summed into the kernels line) and TPC-DS q3's:
     # the kernels against the plain versions
@@ -1561,6 +1611,479 @@ def partition_phase(torch, chk):
     return launches, timing
 
 
+# ---- phase 3b: the hash join's large route ------------------------------------
+
+def np_join(pkeys, pvalid, bkeys, bvalid):
+    """Independent inner join of numpy key tuples: for each valid probe row
+    in order, the valid build rows with equal keys, ascending (the hash
+    join's chain order for equal keys)."""
+    both = np.concatenate([np.stack(pkeys, 1), np.stack(bkeys, 1)])
+    _, code = np.unique(both, axis=0, return_inverse=True)
+    code = code.reshape(-1)
+    pc, bc = code[:len(pkeys[0])], code[len(pkeys[0]):]
+    pc = np.where(pvalid, pc, -1)
+    brows = np.flatnonzero(bvalid)
+    order = brows[np.argsort(bc[brows], kind="stable")]
+    sk = bc[order]
+    lo = np.searchsorted(sk, pc, "left")
+    hi = np.searchsorted(sk, pc, "right")
+    cnt = np.where(pvalid, hi - lo, 0)
+    left = np.repeat(np.arange(len(pc)), cnt)
+    first = np.cumsum(cnt) - cnt
+    right = order[lo[left] + np.arange(len(left)) - first[left]]
+    return left.astype(np.int32), right.astype(np.int32)
+
+
+def large_cases(torch, dt, Column):
+    """(what, probe keys, build keys) on the card for the large route: 513,
+    1,025 and 52,000 build rows, 600 equal keys, nulls, INT32 and INT64,
+    one and two key columns, columns that are views one element into their
+    buffers; about a million probe rows each."""
+    rng = np.random.default_rng(7)
+    npb = 1_000_003
+
+    def col(a, dtype, null_p=0.0, offset=0):
+        v = (rng.random(a.shape[0] + offset) > null_p) if null_p else None
+        c = Column.from_numpy(np.concatenate([a[:offset], a]), dtype, v,
+                              device="cuda")
+        return Column(dtype, a.shape[0], c.data[offset:],
+                      None if v is None else c.validity[offset:])
+
+    def probe_of(bk, npt, hit=0.8):
+        pick = rng.integers(0, bk.shape[0], npb)
+        return np.where(rng.random(npb) < hit, bk[pick],
+                        bk[pick] + 1).astype(npt)
+
+    k = rng.integers(0, 400, 513).astype(np.int64)
+    yield ("513 INT64 rows with nulls", [col(probe_of(k, np.int64), dt.INT64,
+                                             0.05)], [col(k, dt.INT64, 0.1)])
+    k1 = rng.integers(0, 9, 1025).astype(np.int32)
+    k2 = rng.integers(0, 200, 1025).astype(np.int64)
+    pick = rng.integers(0, 1025, npb)
+    yield ("1,025 rows, INT32 + INT64 keys",
+           [col(k1[pick], dt.INT32), col(np.where(
+               rng.random(npb) < 0.7, k2[pick], k2[pick] + 500), dt.INT64)],
+           [col(k1, dt.INT32), col(k2, dt.INT64)])
+    k = rng.integers(-600, 600, 1025).astype(np.int32)
+    yield ("1,025 INT32 rows, views at offset 1",
+           [col(probe_of(k, np.int32), dt.INT32, 0.1, offset=1)],
+           [col(k, dt.INT32, 0.1, offset=1)])
+    yield ("600 equal INT64 keys",
+           [col(np.where(rng.random(npb) < 0.01, 7, 8).astype(np.int64),
+                dt.INT64)], [col(np.full(600, 7, np.int64), dt.INT64)])
+    items, weeks = np.meshgrid(np.arange(500), np.arange(104))
+    yield ("52,000 rows, q72's inventory (item, week)",
+           [col(rng.integers(0, 520, npb).astype(np.int64), dt.INT64, 0.02),
+            col(rng.integers(0, 104, npb).astype(np.int64), dt.INT64)],
+           [col(items.ravel().astype(np.int64), dt.INT64),
+            col(weeks.ravel().astype(np.int64), dt.INT64)])
+    k = rng.permutation(52_000).astype(np.int32)
+    yield ("52,000 INT32 rows with nulls, views at offset 1",
+           [col(probe_of(k, np.int32), dt.INT32, 0.02, offset=1)],
+           [col(k, dt.INT32, 0.05, offset=1)])
+
+
+def barrier_ms(torch, jc, rows, rounds=1000):
+    """One grid-wide barrier alone, on the large build's grid for `rows`
+    rows: (rounds barriers - none) / rounds, between CUDA events, the median
+    of five."""
+    def timed(r):
+        jc.barrier_cuda(rows, r)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = jc.barrier_cuda(rows, r)
+        end.record()
+        torch.cuda.synchronize()
+        require(int(out) == r, "the barrier kernel did not run")
+        return start.elapsed_time(end)
+    return float(np.median([(timed(rounds) - timed(0)) / rounds
+                            for _ in range(5)]))
+
+
+def large_bounds(torch, jc, pcols, bcols, C, counts):
+    """kernel_bounds for the large route: the table is one 8-byte word a
+    slot and a list entry 8 bytes; the build moves its keys and writes the
+    table (its rows' hashes and distances are scratch, not counted)."""
+    n, nb = pcols[0].length, bcols[0].length
+    b = kernel_bounds(torch, jc, pcols, bcols, C, counts)
+    n_matched = int((counts > 0).sum())
+    build_in = sum(c.nbytes() for c in bcols)
+    hash_ops = sum(HASH_OPS[w] for w in jc._wide(bcols))
+    return {"build": (build_in + 8 * C, nb * hash_ops),
+            "count": (b["count"][0] + 4 * n_matched, b["count"][1]),
+            "emit": (b["emit"][0] + 4 * n_matched, 0)}
+
+
+def large_route_phase(torch, chk):
+    """The large build against its plain version, then whole joins against
+    numpy; rounds, times and bounds per case."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import join, join_cuda as jc
+    from spark_rapids_tpu_torch.ops.registry import REGISTRY
+
+    t0 = time.perf_counter()
+    out = []
+    for what, pc, bc in large_cases(torch, dt, Column):
+        nb = bc[0].length
+        C = jc._capacity(nb)
+        require(jc.is_large(C), f"{what}: C = {C} is not the large route")
+        before = dict(jc.LARGE_LAUNCHES)
+        tk = jc.build_table_cuda(bc, C)
+        tp = jc.build_table_plain(bc, C)
+        chk.equal("build_large", tk.slot_row, tp.slot_row, f"{what} slot_row")
+        chk.equal("build_large", tk.slot_hash, tp.slot_hash,
+                  f"{what} slot_hash")
+        rounds = int(tk.rounds)
+        pk = jc.probe_counts_cuda(pc, tk, bc)
+        pp = jc.probe_counts_plain(pc, tp, bc)
+        for name in ("counts", "tile_sums", "tile_offsets", "seg_sums",
+                     "seg_matched", "total"):
+            chk.equal("count_large", getattr(pk, name), getattr(pp, name),
+                      f"{what} {name}")
+        at = torch.arange(pk.counts.shape[0], device=pk.counts.device)
+        listed = (at % pk.seg) < pk.seg_matched.index_select(0, at // pk.seg)
+        chk.equal("count_large", pk.entries[listed], pp.entries[listed],
+                  f"{what} entries")
+        total = int(pk.total)
+        lk, rk = jc.probe_emit_cuda(pc, tk, bc, pk, total)
+        lp, rp = jc.probe_emit_plain(pc, tp, bc, pp, total)
+        chk.equal("emit_large", lk, lp, f"{what} left map")
+        chk.equal("emit_large", rk, rp, f"{what} right map")
+        require(jc.LARGE_LAUNCHES == {k: v + 1 for k, v in before.items()},
+                f"{what}: large-route launches {jc.LARGE_LAUNCHES}")
+        # the whole join against an independent numpy join
+        lm, rm = jc.inner_join_hash(pc, bc)
+
+        def host(cols):
+            keys = [c.data.cpu().numpy().astype(np.int64) for c in cols]
+            valid = np.ones(cols[0].length, bool)
+            for c in cols:
+                if c.validity is not None:
+                    valid &= c.validity.cpu().numpy()
+            return keys, valid
+        nl, nr = np_join(*host(pc), *host(bc))
+        chk.equal("emit_large", lm.data.cpu(), torch.from_numpy(nl),
+                  f"{what} inner_join_hash left map vs numpy")
+        chk.equal("emit_large", rm.data.cpu(), torch.from_numpy(nr),
+                  f"{what} inner_join_hash right map vs numpy")
+        build = lambda: jc.build_table_cuda(bc, C)          # noqa: E731
+        ms = device_ms(torch, build, KERNEL_NAMES["build_large"], 20)
+        cms = call_ms(torch, build, 20)
+        nbytes, ops = large_bounds(torch, jc, pc, bc, C, pk.counts)["build"]
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_INT_OPS_PER_S) * 1e3
+        bar = barrier_ms(torch, jc, nb)
+        out.append({"what": what, "rows": nb, "capacity": C,
+                    "rounds": rounds, "device_ms": ms, "call_ms": cms,
+                    "bound_ms": bound, "barrier_ms": bar,
+                    "rounds_x_barrier_ms": rounds * bar, "pairs": total})
+        log(f"  {what}: C {C}, {rounds} rounds, {total} pairs; kernels == "
+            f"plain, maps == numpy; build device {ms!r} ms, one call "
+            f"{cms!r} ms, bound {bound!r} ms ({nbytes} B, {ops} ops); one "
+            f"grid barrier {bar!r} ms, x rounds {rounds * bar!r} ms")
+    # the new ceiling: MAX_BUILD rows are taken, one more declines
+    n = jc.MAX_BUILD
+    keys = Column.from_numpy(np.random.default_rng(3).permutation(n)
+                             .astype(np.int64), dt.INT64, device="cuda")
+    C = jc._capacity(n)
+    tk = jc.build_table_cuda([keys], C)
+    tp = jc.build_table_plain([keys], C)
+    chk.equal("build_large", tk.slot_row, tp.slot_row, "2^22 rows slot_row")
+    chk.equal("build_large", tk.slot_hash, tp.slot_hash,
+              "2^22 rows slot_hash")
+    rounds = int(tk.rounds)
+    ms = device_ms(torch, lambda: jc.build_table_cuda([keys], C),
+                   KERNEL_NAMES["build_large"], 5)
+    one = [Column.from_numpy(np.zeros(4, np.int64), dt.INT64, device="cuda")]
+    over = [Column.from_numpy(np.zeros(n + 1, np.int64), dt.INT64,
+                              device="cuda")]
+    ch = REGISTRY.select("hash_join",
+                         jc.make_signature(one, over, "inner", "eager"),
+                         backend="cuda")
+    require(ch.fallback and ("cuda", "unsupported signature") in ch.declined,
+            f"a build side over MAX_BUILD was not declined: {ch}")
+    try:
+        jc.build_table_cuda(over, jc.MAX_CAPACITY)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a build side over MAX_BUILD ran the kernel")
+    log(f"  {n} rows (the ceiling, C {C}): {rounds} rounds, device {ms!r} "
+        f"ms, table == plain; {n + 1} rows decline")
+    # large-route joins on two streams at once: each cooperative grid is
+    # resident alone and the calls share no device state
+    fl, fr = join.inner_join(pc, bc)
+    two_stream_joins(torch, jc, pc, bc, (fl.data, fr.data))
+    log(f"  {what} on two streams at once, 2 x 5 calls: maps == plain")
+    log(f"large route: {time.perf_counter() - t0:.1f} s")
+    return {"cases": out, "ceiling": {"rows": n, "capacity": C,
+                                      "rounds": rounds, "device_ms": ms}}
+
+
+# ---- phase 4d': NDS q72 -------------------------------------------------------
+
+def numpy_q72(gen):
+    """Independent q72 over the datagen arrays: the dimension filters, the
+    joins as lookups on each dimension's keys, the two residuals, the
+    composite (item, week) lookup into inventory, then counts by (item,
+    warehouse, week) ordered by count descending and the keys ascending."""
+    cs, inv, items, hd, wh, dates = gen
+    hd_ok = np.isin(cs["hd_sk"], hd["hd_demo_sk"][hd["hd_buy_potential"]
+                                                 == 3])
+    item_ok = np.isin(cs["item_sk"], items["i_item_sk"])
+    y1 = dates["d_year"] == 1
+    d_pos = np.searchsorted(dates["d_date_sk"], cs["sold_date_sk"])
+    d_pos = np.minimum(d_pos, len(dates["d_date_sk"]) - 1)
+    date_ok = (dates["d_date_sk"][d_pos] == cs["sold_date_sk"]) & y1[d_pos]
+    keep = hd_ok & item_ok & date_ok & (cs["ship_days"] > 5)
+    item, qty = cs["item_sk"][keep], cs["qty"][keep]
+    week = dates["d_week"][d_pos[keep]]
+    inv_key = inv["inv_item_sk"] * 1024 + inv["inv_week"]
+    order = np.argsort(inv_key, kind="stable")
+    want = item * 1024 + week
+    pos = np.minimum(np.searchsorted(inv_key[order], want), len(order) - 1)
+    hit = inv_key[order][pos] == want
+    row = order[pos]
+    ok = hit & (inv["inv_qty"][row] < qty)
+    wh_sk = inv["inv_wh_sk"][row]
+    ok &= np.isin(wh_sk, wh["w_warehouse_sk"])
+    groups, cnt = np.unique(np.stack([item[ok], wh_sk[ok], week[ok]], 1),
+                            axis=0, return_counts=True)
+    o = np.lexsort((groups[:, 2], groups[:, 1], groups[:, 0], -cnt))
+    return groups[o, 0], groups[o, 1], groups[o, 2], cnt[o]
+
+
+def q72_join_shape(torch, gen):
+    """The inventory join of the authored q72 at this scale: the probe keys
+    (i_item_sk, d_week) of the catalog_sales rows the earlier joins and
+    ship_days keep, in row order, and inventory's (item, week)."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    cs, inv, items, hd, wh, dates = gen
+    keep = (np.isin(cs["hd_sk"], hd["hd_demo_sk"][hd["hd_buy_potential"]
+                                                   == 3])
+            & (dates["d_year"][cs["sold_date_sk"]] == 1)
+            & (cs["ship_days"] > 5))
+    week = dates["d_week"][cs["sold_date_sk"][keep]]
+
+    def c(a):
+        return Column.from_numpy(np.ascontiguousarray(a), dt.INT64,
+                                 device="cuda")
+    return ([c(cs["item_sk"][keep]), c(week)],
+            [c(inv["inv_item_sk"]), c(inv["inv_week"])])
+
+
+def q72_phase(torch, chk):
+    """NDS q72 at 10M catalog_sales rows through `PlanExecutor`, authored
+    and optimized, counters zeroed just before each and read just after;
+    both equal to numpy q72 and to the CPU run, bit for bit; then the
+    inventory join's three kernels timed at its shape."""
+    from spark_rapids_tpu_torch import nds_q72
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda as ssc
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+
+    t0 = time.perf_counter()
+    gen = nds_q72.datagen(N_SALES, seed=0)
+    inputs_cpu = nds_q72.q72_inputs(N_SALES, seed=0, device="cpu")
+    log(f"q72 datagen: {N_SALES} catalog_sales rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    inputs = {k: t.to("cuda") for k, t in inputs_cpu.items()}
+    ref = numpy_q72(gen)
+    plan = nds_q72.q72_plan()
+    out = {}
+    for optimize in (False, True):
+        what = "q72 optimized" if optimize else "q72 authored"
+        ex = PlanExecutor(optimize=optimize)           # the card
+        torch.cuda.synchronize()
+        for m in (jc, sc, tc, ssc):
+            m.reset_counters()
+        res = ex.execute(plan, inputs)
+        torch.cuda.synchronize()
+        launches = {"hash_join": dict(jc.LAUNCHES),
+                    "hash_join_large": dict(jc.LARGE_LAUNCHES),
+                    "fused_select": dict(sc.LAUNCHES)}
+        plain = {"hash_join": dict(jc.PLAIN_CALLS),
+                 "fused_select": dict(sc.PLAIN_CALLS),
+                 "topk": dict(tc.PLAIN_CALLS),
+                 "segment_sum": dict(ssc.PLAIN_CALLS)}
+        log(f"{what} at {N_SALES} rows on {res.device}: {res.wall_ms:.3f} "
+            f"ms, launches {launches}, plain runs {plain}")
+        log(res.profile_text())
+        stamps = [m.kernel for m in res.metrics.values()
+                  if m.kind == "HashJoin"]
+        require(stamps == ["cuda:hash_join"] * 5, f"{what} stamps {stamps}")
+        require(launches["hash_join"] == {"build": 5, "count": 5, "emit": 5}
+                and launches["hash_join_large"] == {"build": 1, "count": 1,
+                                                    "emit": 1},
+                f"{what}: hash-join launches {launches}")
+        fused = [m.kernel for m in res.metrics.values()
+                 if m.kind == "FusedSelect"]
+        require(all(k == "cuda:fused_select" for k in fused)
+                and launches["fused_select"]["count"] == len(fused)
+                and (len(fused) > 0) == optimize,
+                f"{what}: FusedSelects {fused}, launches {launches}")
+        require(all(v == 0 for d in plain.values() for v in d.values()),
+                f"{what}: plain versions ran on the card path {plain}")
+        warm = [ex.execute(plan, inputs) for _ in range(3)]
+        walls = [r.wall_ms for r in warm]
+        log(f"{what} repeat wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
+        got = res.table.to("cpu")
+        require(got.names == ("i_item_sk", "w_warehouse_sk", "d_week", "cnt")
+                and got.num_rows > 0, f"{what} gave {got.names} x "
+                f"{got.num_rows}")
+        for name, want in zip(got.names, ref):
+            have = got[name].data.numpy()
+            if have.shape != want.shape or not np.array_equal(have, want):
+                raise AssertionError(f"{what} {name} differs from numpy q72")
+        t1 = time.perf_counter()
+        cpu = PlanExecutor(device="cpu", optimize=optimize).execute(
+            plan, inputs_cpu)
+        log(f"{what} on the CPU for comparison: "
+            f"{time.perf_counter() - t1:.1f} s")
+        chk.tables("emit_large", got, cpu.table, f"{what} card vs CPU")
+        log(f"{what}: {got.num_rows} groups, equal to numpy q72 and to the "
+            f"CPU run")
+        out[what] = {"res": res, "launches": launches, "plain": plain,
+                     "warm_wall_ms": walls,
+                     "optimizer": res.optimizer,
+                     "profile": warm[-1].profile()}
+    del inputs
+
+    # the inventory join's kernels at its shape in the authored plan
+    pc, bc = q72_join_shape(torch, gen)
+    C = jc._capacity(bc[0].length)
+    tbl = jc.build_table_cuda(bc, C)
+    probe = jc.probe_counts_cuda(pc, tbl, bc)
+    total = int(probe.total)
+    calls = {
+        "build": (lambda: jc.build_table_cuda(bc, C),
+                  lambda: jc.build_table_plain(bc, C)),
+        "count": (lambda: jc.probe_counts_cuda(pc, tbl, bc),
+                  lambda: jc.probe_counts_plain(pc, tbl, bc)),
+        "emit": (lambda: jc.probe_emit_cuda(pc, tbl, bc, probe, total),
+                 lambda: jc.probe_emit_plain(pc, tbl, bc, probe, total)),
+    }
+    bounds = large_bounds(torch, jc, pc, bc, C, probe.counts)
+    timing = {}
+    for k, (kern, plain_fn) in calls.items():
+        ms = device_ms(torch, kern, KERNEL_NAMES[k + "_large"], 30)
+        cms = call_ms(torch, kern, 30)
+        pms = time_cuda(torch, plain_fn, 3)
+        nbytes, ops = bounds[k]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
+        timing[k] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                     "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+                     "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+        log(f"  q72 inventory join {k} (large route): device {ms!r} ms, one "
+            f"call {cms!r} ms, plain {pms!r} ms; bound "
+            f"{max(bytes_ms, ops_ms)!r} ms ({nbytes} B, {ops} ops)")
+    rounds = int(tbl.rounds)
+    bar = barrier_ms(torch, jc, bc[0].length)
+    timing["build"].update(rounds=rounds, barrier_ms=bar,
+                           rounds_x_barrier_ms=rounds * bar)
+    join_ms, by_name = device_by_name(
+        torch, lambda: jc.inner_join_hash(pc, bc), 20)
+    log(f"  q72 inventory join: probe {pc[0].length} x build "
+        f"{bc[0].length} (C {C}) -> {total} pairs; {rounds} rounds, one "
+        f"grid barrier {bar!r} ms, x rounds {rounds * bar!r} ms; whole "
+        f"inner_join_hash device {join_ms!r} ms ({by_name})")
+    timing["join"] = {"device_ms": join_ms, "by_name": by_name,
+                      "probe_rows": pc[0].length, "pairs": total}
+    return out, timing
+
+
+# ---- phase 4e: keyed float sums on the card (ROADMAP queue C 4) ----------------
+
+C4_GROUPS = (3, 1000)
+
+
+def c4_phase(torch, chk):
+    """A FLOAT64 column of 10M rows summed and averaged over 3 and over 1,000
+    groups through `PlanExecutor`, twice on the card, each run's bits held
+    to the CPU run's; `index_add_` on the card beside it, as the fault it
+    repairs; then the segment-sum kernel timed at 3 groups."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda as ssc
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor
+
+    rng = np.random.default_rng(4)
+    vals = rng.standard_normal(N_ROWS) * 10.0 ** rng.integers(-8, 12, N_ROWS)
+    plan = (PlanBuilder().scan("t", schema=["g", "x"])
+            .aggregate(["g"], [("x", "sum", "s"), ("x", "mean", "m")])
+            .build())
+    out = {"launches": 0}
+    for groups in C4_GROUPS:
+        g = rng.integers(0, groups, N_ROWS).astype(np.int64)
+        t_cpu = Table([Column.from_numpy(g, dt.INT64, device="cpu"),
+                       Column.from_numpy(vals, dt.FLOAT64,
+                                         rng.random(N_ROWS) > 0.05,
+                                         device="cpu")], ["g", "x"])
+        t_gpu = {"t": t_cpu.to("cuda")}
+        cpu = PlanExecutor(device="cpu", optimize=False).execute(
+            plan, {"t": t_cpu}).table
+        for run in (1, 2):
+            ssc.reset_counters()
+            got = PlanExecutor(optimize=False).execute(plan, t_gpu).table
+            torch.cuda.synchronize()
+            require(ssc.LAUNCHES["segment_sum"] == 2
+                    and ssc.PLAIN_CALLS["segment_sum"] == 0,
+                    f"C4 {groups} groups: segment-sum launches "
+                    f"{ssc.LAUNCHES}, plain {ssc.PLAIN_CALLS}")
+            out["launches"] += ssc.LAUNCHES["segment_sum"]
+            chk.tables("segment_sum", got.to("cpu"), cpu,
+                       f"C4 {groups} groups run {run}")
+        # the fault: index_add_ on the card, against the CPU's row order
+        seg = torch.from_numpy(np.sort(g))
+        v = torch.from_numpy(vals)
+        want = torch.zeros(groups, dtype=torch.float64).index_add_(0, seg, v)
+        differ = []
+        for _ in range(2):
+            o = torch.zeros(groups, dtype=torch.float64,
+                            device="cuda").index_add_(0, seg.cuda(),
+                                                      v.cuda()).cpu()
+            differ.append(int((o.view(torch.int64)
+                               != want.view(torch.int64)).sum()))
+        out[groups] = {"index_add_groups_differing": differ}
+        log(f"C4, {groups} groups: sum and mean on the card equal the CPU "
+            f"run's bits, twice; index_add_ on the card differs from the "
+            f"CPU in {differ} of {groups} groups")
+    # the kernel alone at 3 groups: 10M key-sorted values
+    seg = torch.from_numpy(np.sort(rng.integers(0, 3, N_ROWS))).cuda()
+    v = torch.from_numpy(vals).cuda()
+    starts = torch.searchsorted(seg, torch.arange(3, device="cuda"))
+    kern = lambda: ssc.segment_sum_cuda(v, starts)        # noqa: E731
+    lib = lambda: torch.zeros(3, dtype=torch.float64,     # noqa: E731
+                              device="cuda").index_add_(0, seg, v)
+    want = ssc.segment_sum_plain(v.cpu(), seg.cpu(), 3)
+    chk.equal("segment_sum", kern().cpu().view(torch.int64),
+              want.view(torch.int64), "segment sum, 3 groups")
+    ms = device_ms(torch, kern, KERNEL_NAMES["segment_sum"], 5)
+    cms = call_ms(torch, kern, 5)
+    lms = call_ms(torch, lib, 5)
+    t0 = time.perf_counter()
+    ssc.segment_sum_plain(v.cpu(), seg.cpu(), 3)
+    pms = (time.perf_counter() - t0) * 1e3
+    nbytes = 8 * N_ROWS + 8 * 3 + 8 * 3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = N_ROWS / PEAK_F64_OPS_PER_S * 1e3
+    out["timing"] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                     "library_ms": lms, "bytes": nbytes, "ops": N_ROWS,
+                     "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                     "bound_ms": max(bytes_ms, ops_ms)}
+    log(f"  segment sum, 10M rows in 3 groups: device {ms!r} ms, one call "
+        f"{cms!r} ms; plain (index_add_ on the CPU, host clock) {pms!r} ms; "
+        f"index_add_ on the card {lms!r} ms; bound {max(bytes_ms, ops_ms)!r} "
+        f"ms ({nbytes} B)")
+    return out
+
+
 def summed(timing, forms, **extra):
     """One kernels-line entry: the sums over the path's calls, each form's
     own numbers under `by_form`."""
@@ -1609,6 +2132,9 @@ def main(argv=None):
     tres, t_launches, twarm, ttraced = tpcds_q3_phase(torch, chk, gen,
                                                       args.trace)
     del gen
+    large = large_route_phase(torch, chk)
+    q72, q72_timing = q72_phase(torch, chk)
+    c4 = c4_phase(torch, chk)
     fs_timing = fused_select_phase(torch, chk)
     tk_timing = topk_phase(torch, chk)
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
@@ -1629,6 +2155,45 @@ def main(argv=None):
             "tpcds_int32": timing["int32"][k]})
         if k == "emit":
             kernels[-1]["bound_with_starts_ms"] = t["bound_with_starts_ms"]
+    # the large route: timed at q72's inventory join (52,000 build rows, two
+    # INT64 key columns); launches over the authored and optimized q72
+    for k in ("build", "count", "emit"):
+        t = q72_timing[k]
+        by_path = {w: r["launches"]["hash_join_large"][k]
+                   for w, r in q72.items()}
+        entry = {
+            "name": f"hash_join_{k}_large", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES[k],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "exact": chk.max_err[k + "_large"] == 0,
+            "max_abs_err": chk.max_err[k + "_large"],
+            "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                         else "operations"),
+            "bytes": t["bytes"], "ops": t["ops"], "library_ms": None}
+        if k == "build":
+            entry.update(rounds=t["rounds"], barrier_ms=t["barrier_ms"],
+                         rounds_x_barrier_ms=t["rounds_x_barrier_ms"],
+                         cases=large["cases"], ceiling=large["ceiling"])
+        kernels.append(entry)
+    # the segment sum: the port's own kernel, on the C4 path (keyed float
+    # sum and mean through PlanExecutor), timed at 10M rows in 3 groups
+    t = c4["timing"]
+    kernels.append({
+        "name": "segment_sum", "route": "cuda", "source": SS_SOURCE,
+        "replaces": "none: the port's own kernel, keyed float sums in the "
+                    "reference's row order (ROADMAP queue C 4)",
+        "launches": c4["launches"], "exact": chk.max_err["segment_sum"] == 0,
+        "max_abs_err": chk.max_err["segment_sum"],
+        "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                     else "operations"),
+        "bytes": t["bytes"], "ops": t["ops"],
+        "library": "index_add_ into zeros on the card: the same sums in "
+                   "its atomics' order, not the reference's bits",
+        "library_ms": t["library_ms"]})
     # the row hash: the sums over its three forms, one call each, at
     # bench.py's shape; launches over the row-hash and partition paths
     kernels.append({
@@ -1695,7 +2260,14 @@ def main(argv=None):
                        "tpcds_q3_repeat_profile": twarm[-1].profile(),
                        "tpcds_q3_optimizer": tres.optimizer,
                        "tpcds_q3_launches": t_launches,
-                       "tpcds_q3_trace": ttraced},
+                       "tpcds_q3_trace": ttraced,
+                       "large_route": large,
+                       "q72": {w: {k: v for k, v in r.items() if k != "res"}
+                               for w, r in q72.items()},
+                       "q72_wall_ms": {w: r["res"].wall_ms
+                                       for w, r in q72.items()},
+                       "q72_inventory_join": q72_timing,
+                       "c4": c4},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ lexicographic sort of the key operands (`sort._key_operands`, so nulls
 group together and floats group by total order), run boundaries, a group
 id per sorted row, then one segment reduction (`index_add_` /
 `scatter_reduce_`) per aggregation. Groups come out in sorted-key order.
+Float sums and means fold each group in row order, as the reference does:
+`index_add_` on the CPU, the segment-sum kernel on the card
+(`segment_sum_cuda`), where `index_add_`'s atomics would add in another
+order.
 
 Spark semantics: sum/min/max/mean ignore nulls and an all-null group gives
 null; count counts non-nulls; size is count(*); mean is a float64 sum over
@@ -21,6 +25,7 @@ from .. import dtypes
 from ..columnar import Column, Table
 from ..dtypes import Kind
 from .gather import take
+from .segment_sum_cuda import segment_sum
 from .sort import _float_total_order, _key_operands, lex_order
 
 AGG_OPS = ("sum", "count", "min", "max", "mean", "size")
@@ -59,6 +64,56 @@ def _extreme(op: str, v: torch.Tensor, ok: torch.Tensor, seg: torch.Tensor,
     return out.to(v.dtype)
 
 
+# the reference's keyless float sum (`jnp.sum` on XLA CPU) folds blocks of
+# this many elements
+SUM_BLOCK = 32
+
+
+def blocked_sum(x: torch.Tensor) -> torch.Tensor:
+    """0-d sum of the (n,) float tensor `x` in the order XLA CPU gives
+    `jnp.sum`, so the bits equal the reference's: up to SUM_BLOCK values
+    are a left fold from +0.0. Longer vectors are padded with zeros to a
+    multiple of SUM_BLOCK, half the padding (rounded down) in front, each
+    block of SUM_BLOCK is a left fold from +0.0, and the block sums are
+    summed the same way. Elementwise IEEE adds give the same bits on the
+    CPU and on CUDA."""
+    x = x.reshape(-1)
+    while x.shape[0] > SUM_BLOCK:
+        pad = -x.shape[0] % SUM_BLOCK
+        zeros = torch.zeros(pad, dtype=x.dtype, device=x.device)
+        x = torch.cat([zeros[:pad // 2], x, zeros[pad // 2:]])
+        x = _fold_columns(x.view(-1, SUM_BLOCK))
+    return _fold_columns(x.view(1, -1))[0]
+
+
+def _fold_columns(m: torch.Tensor) -> torch.Tensor:
+    """(k,) left folds of the rows of `m`, each from +0.0."""
+    acc = torch.zeros(m.shape[0], dtype=m.dtype, device=m.device)
+    for j in range(m.shape[1]):
+        acc = acc + m[:, j]
+    return acc
+
+
+def float_extreme(op: str, x: torch.Tensor) -> torch.Tensor:
+    """0-d min or max of the non-empty (n,) float tensor `x` as the
+    reference's keyless `jnp.min`/`jnp.max` give it: -0.0 orders below
+    0.0, and a NaN anywhere gives the canonical quiet NaN."""
+    bits_t = torch.int32 if x.dtype == torch.float32 else torch.int64
+    # no NaN reaches the order words: the NaN case is chosen below
+    key = _float_total_order(torch.where(torch.isnan(x), torch.zeros_like(x),
+                                         x))
+    neg_zero = (x == 0) & (x.view(bits_t) < 0)
+    # _float_total_order folds -0.0 into 0.0; one step below 0.0 restores it
+    key = torch.where(neg_zero, key - 1, key)
+    k = key.min() if op == "min" else key.max()
+    info = torch.iinfo(bits_t)
+    bits = torch.where(k < 0, ~(k ^ info.min), k)
+    nan_bits = 0x7FC00000 if bits_t == torch.int32 else 0x7FF8000000000000
+    bits = torch.where(torch.isnan(x).any(), torch.full_like(bits, nan_bits),
+                       bits)
+    return bits.view(x.dtype)
+
+
 def groupby_aggregate(table: Table,
                       key_names: Sequence[Union[int, str]],
                       aggs: Sequence[Tuple[Union[int, str], str]]) -> Table:
@@ -85,6 +140,7 @@ def groupby_aggregate(table: Table,
     first_rows = order[boundary]
     out_cols = [take(c, first_rows, _has_negative=False) for c in keys]
     names = [table.names[k] if isinstance(k, int) else k for k in key_names]
+    starts = None                                     # groups' first rows
 
     for col_ref, op in aggs:
         if op not in AGG_OPS:
@@ -113,8 +169,9 @@ def groupby_aggregate(table: Table,
                 acc = torch.where(ok, v.to(torch.float64),
                                   torch.zeros((), dtype=torch.float64,
                                               device=dev))
-                s = torch.zeros(g, dtype=torch.float64,
-                                device=dev).index_add_(0, seg, acc)
+                if starts is None:
+                    starts = torch.nonzero(boundary).reshape(-1)
+                s = segment_sum(acc, seg, starts)
                 if op == "mean":
                     s = s / torch.where(cnt == 0, torch.ones_like(cnt),
                                         cnt).to(torch.float64)

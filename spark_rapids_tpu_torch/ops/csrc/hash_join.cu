@@ -10,14 +10,21 @@
 //   columns. 1/2/4-byte keys hash as one word (sign-extended through int32),
 //   8-byte keys (and DECIMAL32, which hashes as a long) as two words, lo then
 //   hi; each column ends with fmix(h ^ nbytes). Slot = (h + d) & (C - 1).
-// - Build (one block): an open-addressing table of C <= 1024 slots in shared
-//   memory, filled by the TPU kernel's parallel rounds: every unplaced valid
-//   row proposes slot (h + d) & (C-1), the lowest row id wins a free slot
-//   (shared-memory atomicMin), losers advance. Equal keys therefore land in
-//   ascending-row chain order, which is what makes emission match the
-//   sort-based fallback pair for pair. Invalid rows are never inserted. The
-//   table is (slot_row, slot_hash): the winning row id (-1 = empty) and its
-//   32-bit hash; the key values stay in the build columns.
+// - Build: an open-addressing table filled by the TPU kernel's parallel
+//   rounds: every unplaced valid row proposes slot (h + d) & (C-1), the
+//   lowest row id wins a free slot, losers advance. Equal keys therefore
+//   land in ascending-row chain order, which is what makes emission match
+//   the sort-based fallback pair for pair. Invalid rows are never inserted.
+//   Two routes by capacity. Small, C <= 1,024 (build sides up to 512 rows,
+//   the reference's limit): one block, the table in shared memory
+//   (shared-memory atomicMin), written out as (slot_row, slot_hash): the
+//   winning row id (-1 = empty) and its 32-bit hash. Large, C up to 2^23
+//   (2^22 build rows, a 64 MB table): a cooperative grid, the table in
+//   global memory as one 8-byte word a slot, the rounds' claims settled by
+//   atomicMin and one grid-wide barrier a round, stopping at the first
+//   round in which no row is left to propose (build_large_kernel); the
+//   table it leaves is hash << 32 | row, the word the probes read. The key
+//   values stay in the build columns.
 // - Probe count: per probe row, the build rows with equal keys, walking from
 //   the bucket to the first empty slot; invalid rows count 0. Per tile of
 //   PROBE_TILE = 2,048 rows the count also gives its sum, and the last
@@ -31,7 +38,10 @@
 //   same maps.
 //
 // Hopper has native 32- and 64-bit integers, so the TPU's u16-half and
-// one-hot MXU gathers are not carried over.
+// one-hot MXU gathers are not carried over. Nor is the reference's VMEM
+// limit of 512 build rows: past the small route's 1,024 slots the table
+// lives in global memory (1 MB at q72's 52,000-row inventory, resident in
+// L2), and the probes read it there.
 //
 // What bounds the probes on this card, and what the design does about it.
 // The count over q3's first join (10M INT64 probe keys, 310 build rows, 8.5%
@@ -78,8 +88,15 @@
 //   than EMIT_STAGE pairs (512 equal build keys give 512 a row) writes them
 //   in place, in the same order. Its bound is the list, the pairs and the
 //   table: 10.6 MB at q3's first join.
-// The build moves a few KB and is bound by its launch and its rounds of
-// block-wide barriers.
+// - The large route's probes are the same kernels (count_kernel<true>,
+//   emit_kernel<true>): they read the table and the build keys where they
+//   lie instead of staging them, skip the Bloom filter (see Route<true>),
+//   and write 64-bit list entries (row in the tile 11 bits, first slot 23,
+//   count 30), since a slot needs up to 23 bits and a count up to the
+//   ceiling.
+// The small build moves a few KB and is bound by its launch and its rounds
+// of block-wide barriers; the large build by its rounds of grid-wide
+// barriers (about a microsecond each on an H100), about 22 at 52,000 rows.
 //
 // Plain C interface for ctypes. Every entry point returns
 // cudaGetLastError() after its launch (or cudaErrorInvalidValue for
@@ -88,11 +105,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
+#include <cooperative_groups.h>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 #define MAX_KEYS 32
-#define MAX_CAPACITY 1024
-#define MAX_BUILD_ROWS 512
+#define SMALL_CAPACITY 1024                      // the small route's tables
+#define SMALL_BUILD_ROWS (SMALL_CAPACITY / 2)
+#define MAX_CAPACITY (1 << 23)                   // the large route's tables
+#define MAX_BUILD_ROWS (MAX_CAPACITY / 2)
 #define BUILD_THREADS 1024
+#define LARGE_BUILD_THREADS 512
 #define PROBE_THREADS 256
 #define PROBE_WARPS (PROBE_THREADS / 32)
 #define PROBE_R 8                                // rows a thread
@@ -104,16 +128,25 @@
 #define BLOOM_WORDS 2048                         // 65,536 bits
 
 static_assert(PROBE_R == 8, "the vector loads and stores take 8 rows");
-static_assert(MAX_CAPACITY % PROBE_THREADS == 0, "a thread stages whole slots");
+static_assert(SMALL_CAPACITY % PROBE_THREADS == 0,
+              "a thread stages whole slots");
 
 // a matched row's entry in its tile's list: its row in the tile (11 bits),
-// its first matching slot (10 bits) and its count (11 bits)
+// its first matching slot and its count. The small route packs them in 32
+// bits (slot 10 bits, count 11); the large route in 64 (slot 23, count 30).
 #define ENT_SLOT_SHIFT 11
 #define ENT_COUNT_SHIFT 21
+#define WIDE_ENT_COUNT_SHIFT 34
 static_assert(PROBE_TILE <= (1 << ENT_SLOT_SHIFT) &&
-                  MAX_CAPACITY <= (1 << (ENT_COUNT_SHIFT - ENT_SLOT_SHIFT)) &&
-                  MAX_BUILD_ROWS < (1 << (32 - ENT_COUNT_SHIFT)),
+                  SMALL_CAPACITY <= (1 << (ENT_COUNT_SHIFT - ENT_SLOT_SHIFT)) &&
+                  SMALL_BUILD_ROWS < (1 << (32 - ENT_COUNT_SHIFT)) &&
+                  MAX_CAPACITY <= (1LL << (WIDE_ENT_COUNT_SHIFT -
+                                          ENT_SLOT_SHIFT)) &&
+                  MAX_BUILD_ROWS < (1LL << (64 - WIDE_ENT_COUNT_SHIFT)),
               "an entry's fields fit their bits");
+// a segment's pairs fit an int: PROBE_SEG rows of at most MAX_BUILD_ROWS
+static_assert(static_cast<long long>(PROBE_SEG) * MAX_BUILD_ROWS <= INT_MAX,
+              "a segment's pairs fit 32 bits");
 
 
 
@@ -181,9 +214,9 @@ __device__ __forceinline__ uint32_t row_hash(const Keys& k, long long i) {
 __global__ void __launch_bounds__(BUILD_THREADS)
 build_kernel(const __grid_constant__ Keys b, int n, int C, int* slot_row_out,
              uint32_t* slot_hash_out) {
-  __shared__ int slot_row[MAX_CAPACITY];
-  __shared__ uint32_t slot_hash[MAX_CAPACITY];
-  __shared__ int proposal[MAX_CAPACITY];
+  __shared__ int slot_row[SMALL_CAPACITY];
+  __shared__ uint32_t slot_hash[SMALL_CAPACITY];
+  __shared__ int proposal[SMALL_CAPACITY];
   const int t = threadIdx.x;
   for (int s = t; s < C; s += blockDim.x) {
     slot_row[s] = -1;
@@ -222,6 +255,93 @@ build_kernel(const __grid_constant__ Keys b, int n, int C, int* slot_row_out,
   }
 }
 
+// ---- the large route's build ----------------------------------------------
+
+// A slot's word during the large build's rounds: empty (all ones), or the
+// claim of the row that proposed it: 1 << 62 | round << 32 | row. A claim
+// of round r is smaller than any claim of a later round, so atomicMin over
+// a round's claims leaves the lowest row's claim in a slot that was empty
+// when the round began, and no later claim displaces it: a slot taken in
+// round r is occupied for every later round, as in the reference.
+#define SLOT_EMPTY (~0ull)
+#define ROW_PLACED 0xffffffffu                   // a row's distance, placed
+
+__device__ __forceinline__ unsigned long long claim_word(int round, int row) {
+  return (1ull << 62) | (static_cast<unsigned long long>(round) << 32) |
+         static_cast<uint32_t>(row);
+}
+
+// The table of the large route, C > SMALL_CAPACITY: the same rounds as
+// build_kernel over a cooperative grid, one grid-wide barrier a round. In
+// round r a thread, for each of its unplaced rows, first settles the
+// proposal of round r - 1: the row is placed if its slot holds its claim,
+// else it advances; then it proposes round r's slot with an atomicMin of
+// its claim. The barrier makes round r's claims final before round r + 1
+// reads them. A round in which no row proposes ends the build. Then every
+// slot becomes (hash << 32 | row), or (0 << 32 | 0xffffffff) where empty:
+// the probes' word. Per row the state is its hash and distance (scratch);
+// counters[0..2] count the proposals of rounds r mod 3, counters[3] gets
+// the rounds.
+__global__ void __launch_bounds__(LARGE_BUILD_THREADS)
+build_large_kernel(const __grid_constant__ Keys b, int n, int C,
+                   unsigned long long* __restrict__ table,
+                   uint32_t* __restrict__ row_h, uint32_t* __restrict__ row_d,
+                   int* counters) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  for (int s = tid; s < C; s += stride) table[s] = SLOT_EMPTY;
+  for (int i = tid; i < n; i += stride) {
+    row_h[i] = row_hash(b, i);
+    row_d[i] = row_valid(b, i) ? 0u : ROW_PLACED;  // invalid rows never insert
+  }
+  if (tid < 3) counters[tid] = 0;
+  grid.sync();
+  const uint32_t mask = static_cast<uint32_t>(C - 1);
+  int round = 0;
+  for (; round < 2 * C + 2; ++round) {
+    // counters[(round + 1) % 3] was last read after round - 2's barrier
+    if (tid == 0) atomicExch(&counters[(round + 1) % 3], 0);
+    int proposed = 0;
+    for (int i = tid; i < n; i += stride) {
+      uint32_t d = row_d[i];
+      if (d == ROW_PLACED) continue;
+      const uint32_t h = row_h[i];
+      if (round > 0) {
+        const unsigned long long w = __ldcg(&table[(h + d) & mask]);
+        if (w == claim_word(round - 1, i)) {
+          row_d[i] = ROW_PLACED;
+          continue;
+        }
+        row_d[i] = ++d;
+      }
+      atomicMin(&table[(h + d) & mask], claim_word(round, i));
+      ++proposed;
+    }
+    proposed = __reduce_add_sync(0xffffffffu, proposed);
+    if (lane == 0 && proposed > 0) atomicAdd(&counters[round % 3], proposed);
+    grid.sync();
+    if (__ldcg(&counters[round % 3]) == 0) break;
+  }
+  for (int s = tid; s < C; s += stride) {
+    const unsigned long long w = __ldcg(&table[s]);
+    const uint32_t r = static_cast<uint32_t>(w);
+    table[s] = w == SLOT_EMPTY
+                   ? 0xffffffffull
+                   : (static_cast<unsigned long long>(row_h[r]) << 32) | r;
+  }
+  if (tid == 0) counters[3] = round;
+}
+
+// grid-wide barriers alone, at the large build's block size: its cost a round
+__global__ void __launch_bounds__(LARGE_BUILD_THREADS)
+barrier_kernel(int rounds, int* out) {
+  cg::grid_group grid = cg::this_grid();
+  for (int r = 0; r < rounds; ++r) grid.sync();
+  if (grid.thread_rank() == 0) *out = rounds;
+}
+
 // ---- the probes ----------------------------------------------------------
 
 // The table in shared memory: for each slot one word, the build row's hash
@@ -231,6 +351,37 @@ build_kernel(const __grid_constant__ Keys b, int n, int C, int* slot_row_out,
 struct SmemTable {
   unsigned long long* ent;               // [C]
   long long* key;                        // [nks][C]
+  int C, nks;
+  __device__ __forceinline__ unsigned long long at(int s) const {
+    return ent[s];
+  }
+  // key column j of build row r, in slot s (the first is always staged)
+  __device__ __forceinline__ long long key_of(const Keys& b, int j, int s,
+                                              int r) const {
+    return j < nks ? key[j * C + s] : load_key(b, j, r);
+  }
+  __device__ __forceinline__ long long first_key(const Keys&, int s,
+                                                 int) const {
+    return key[s];
+  }
+};
+
+// The large route's table, read where it lies in global memory (1 MB at
+// 52,000 build rows, resident in L2): the same word a slot; every key
+// value is read from the build columns.
+struct GlobalTable {
+  const unsigned long long* ent;         // [C]
+  __device__ __forceinline__ unsigned long long at(int s) const {
+    return __ldg(ent + s);
+  }
+  __device__ __forceinline__ long long key_of(const Keys& b, int j, int,
+                                              int r) const {
+    return load_key(b, j, r);
+  }
+  __device__ __forceinline__ long long first_key(const Keys& b, int,
+                                                 int r) const {
+    return load_key(b, 0, r);
+  }
 };
 
 __device__ __forceinline__ int ent_row(unsigned long long e) {
@@ -252,10 +403,12 @@ __device__ __forceinline__ SmemTable stage_table(unsigned char* smem,
                                                  const int* slot_row,
                                                  const uint32_t* slot_hash,
                                                  int C, int nks) {
-  constexpr int PER = MAX_CAPACITY / PROBE_THREADS;
+  constexpr int PER = SMALL_CAPACITY / PROBE_THREADS;
   SmemTable t;
   t.ent = reinterpret_cast<unsigned long long*>(smem);
   t.key = reinterpret_cast<long long*>(t.ent + C);
+  t.C = C;
+  t.nks = nks;
   int r[PER];
   uint32_t h[PER];
 #pragma unroll
@@ -285,45 +438,41 @@ __device__ __forceinline__ SmemTable stage_table(unsigned char* smem,
 }
 
 // probe row i (first key value v0) against build row r, in slot s
+template <typename T>
 __device__ __forceinline__ bool keys_equal(const Keys& p, long long i,
                                            long long v0, const Keys& b,
-                                           int r, const SmemTable& t, int s,
-                                           int C, int nks) {
-  if (t.key[s] != v0) return false;
-  for (int j = 1; j < p.nk; ++j) {
-    const long long bv = j < nks ? t.key[j * C + s] : load_key(b, j, r);
-    if (load_key(p, j, i) != bv) return false;
-  }
+                                           int r, const T& t, int s) {
+  if (t.first_key(b, s, r) != v0) return false;
+  for (int j = 1; j < p.nk; ++j)
+    if (load_key(p, j, i) != t.key_of(b, j, s, r)) return false;
   return true;
 }
 
 // build rows r (slot s) and r0 (slot s0) have equal keys
-__device__ __forceinline__ bool build_keys_equal(const Keys& b,
-                                                 const SmemTable& t, int s,
-                                                 int r, int s0, int r0,
-                                                 int C, int nks) {
-  for (int j = 0; j < b.nk; ++j) {
-    if (j < nks ? t.key[j * C + s] != t.key[j * C + s0]
-                : load_key(b, j, r) != load_key(b, j, r0))
-      return false;
-  }
+template <typename T>
+__device__ __forceinline__ bool build_keys_equal(const Keys& b, const T& t,
+                                                 int s, int r, int s0,
+                                                 int r0) {
+  for (int j = 0; j < b.nk; ++j)
+    if (t.key_of(b, j, s, r) != t.key_of(b, j, s0, r0)) return false;
   return true;
 }
 
 // the matches of probe row i (hash h) along its chain; *first gets the slot
 // of the first
+template <typename T>
 __device__ __forceinline__ int count_row(const Keys& p, long long i,
                                          long long v0, uint32_t h,
-                                         const Keys& b, const SmemTable& t,
-                                         int C, int nks, int* first) {
+                                         const Keys& b, const T& t, int C,
+                                         int* first) {
   const uint32_t mask = static_cast<uint32_t>(C - 1);
   int c = 0;
   for (int d = 0; d <= C; ++d) {
     const int s = static_cast<int>((h + static_cast<uint32_t>(d)) & mask);
-    const unsigned long long e = t.ent[s];
+    const unsigned long long e = t.at(s);
     const int r = ent_row(e);
     if (r < 0) break;                // linear probing: the chain ends here
-    if (ent_hash(e) == h && keys_equal(p, i, v0, b, r, t, s, C, nks)) {
+    if (ent_hash(e) == h && keys_equal(p, i, v0, b, r, t, s)) {
       if (c == 0) *first = s;
       ++c;
     }
@@ -416,12 +565,44 @@ __device__ __forceinline__ void store_counts(int* counts, long long row0,
   }
 }
 
+// What differs between the routes' probes: the table (staged in shared
+// memory, or read in global memory), a list entry's width, and a walk's
+// result, count | first slot << CF_SHIFT.
+template <bool LARGE>
+struct Route;
+
+template <>
+struct Route<false> {
+  using Table = SmemTable;
+  using Ent = unsigned int;
+  using CF = int;
+  static constexpr int CF_SHIFT = 16;
+  static constexpr int COUNT_SHIFT = ENT_COUNT_SHIFT;
+  static constexpr bool BLOOM = true;
+};
+
+template <>
+struct Route<true> {
+  using Table = GlobalTable;
+  using Ent = unsigned long long;
+  using CF = long long;
+  static constexpr int CF_SHIFT = 32;
+  static constexpr int COUNT_SHIFT = WIDE_ENT_COUNT_SHIFT;
+  // a filter that fits shared memory (64 KB, 2^19 bits) passes 9% of the
+  // non-matching rows at 52,000 keys and nearly all toward the ceiling;
+  // each block would load it from global memory, and at q72's inventory
+  // join nearly every probe row matches: the large route walks every
+  // valid row
+  static constexpr bool BLOOM = false;
+};
+
 // a candidate row on its way to the lane that walks it: its first key value,
-// hash and row in the tile; back: its count | its first slot << 16
+// hash and row in the tile; back: its count | its first slot << CF_SHIFT
+template <typename CF>
 struct WalkSlot {
   long long v0;
   uint32_t h;
-  int x;
+  CF x;
 };
 
 // warp-wide inclusive sum
@@ -442,32 +623,44 @@ __device__ __forceinline__ T warp_incl(T x, int lane) {
 // sums its tiles' segments, and the last block to finish scans the tiles'
 // pairs into offsets and the total. The tile arrays, total and ticket are
 // the call's scratch (the ticket zeroed on the launch stream).
+template <bool LARGE>
 __global__ void __launch_bounds__(PROBE_THREADS)
 count_kernel(const __grid_constant__ Keys p, long long n,
              const __grid_constant__ Keys b, const int* __restrict__ slot_row,
-             const uint32_t* __restrict__ slot_hash, int C, int nks,
-             int* __restrict__ counts, unsigned int* __restrict__ entries,
+             const uint32_t* __restrict__ slot_hash,
+             const unsigned long long* __restrict__ ent, int C, int nks,
+             int* __restrict__ counts,
+             typename Route<LARGE>::Ent* __restrict__ entries,
              int* __restrict__ seg_sum, int* __restrict__ seg_matched,
              long long* __restrict__ tile_sum, long long* __restrict__ tile_off,
              long long* __restrict__ total, unsigned int* ticket) {
+  using R = Route<LARGE>;
+  using CF = typename R::CF;
+  using Ent = typename R::Ent;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long warp_sum[PROBE_WARPS];
-  __shared__ WalkSlot walk_q[PROBE_WARPS][32];
+  __shared__ WalkSlot<CF> walk_q[PROBE_WARPS][32];
   __shared__ int last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const SmemTable t = stage_table(smem, b, slot_row, slot_hash, C, nks);
-  // a Bloom filter of the build rows' hashes: bit h >> 16
-  unsigned int* bloom = reinterpret_cast<unsigned int*>(t.key + nks * C);
-  for (int w = threadIdx.x; w < BLOOM_WORDS; w += blockDim.x) bloom[w] = 0u;
-  __syncthreads();
-  for (int s = threadIdx.x; s < C; s += blockDim.x) {
-    const unsigned long long e = t.ent[s];
-    if (ent_row(e) >= 0)
-      atomicOr(&bloom[ent_hash(e) >> 21], 1u << ((ent_hash(e) >> 16) & 31));
+  typename R::Table t;
+  unsigned int* bloom = nullptr;
+  if constexpr (LARGE) {
+    t.ent = ent;
+  } else {
+    t = stage_table(smem, b, slot_row, slot_hash, C, nks);
+    // a Bloom filter of the build rows' hashes: bit h >> 16
+    bloom = reinterpret_cast<unsigned int*>(t.key + nks * C);
+    for (int w = threadIdx.x; w < BLOOM_WORDS; w += blockDim.x) bloom[w] = 0u;
+    __syncthreads();
+    for (int s = threadIdx.x; s < C; s += blockDim.x) {
+      const unsigned long long e = t.ent[s];
+      if (ent_row(e) >= 0)
+        atomicOr(&bloom[ent_hash(e) >> 21], 1u << ((ent_hash(e) >> 16) & 31));
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
-  WalkSlot* q = walk_q[warp];
+  WalkSlot<CF>* q = walk_q[warp];
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long seg0 = tile * PROBE_TILE + warp * PROBE_SEG;
     if (seg0 >= n) continue;
@@ -491,7 +684,8 @@ count_kernel(const __grid_constant__ Keys p, long long n,
     unsigned int cand = 0;
 #pragma unroll
     for (int r = 0; r < PROBE_R; ++r)
-      if (ok[r] && (bloom[h[r] >> 21] >> ((h[r] >> 16) & 31) & 1u))
+      if (ok[r] && (!R::BLOOM ||
+                    (bloom[h[r] >> 21] >> ((h[r] >> 16) & 31) & 1u)))
         cand |= 1u << r;
     // candidate (lane, r) goes to place base[r] + (lower lanes with r)
     const unsigned int lower = (1u << lane) - 1u;
@@ -502,7 +696,7 @@ count_kernel(const __grid_constant__ Keys p, long long n,
       base[r] = K + __popc(bal & lower);
       K += __popc(bal);
     }
-    int cf[PROBE_R];                   // count | first matching slot << 16
+    CF cf[PROBE_R];                    // count | first matching slot << CF_SHIFT
 #pragma unroll
     for (int r = 0; r < PROBE_R; ++r) cf[r] = 0;
     for (int q0 = 0; q0 < K; q0 += 32) {
@@ -510,16 +704,17 @@ count_kernel(const __grid_constant__ Keys p, long long n,
       for (int r = 0; r < PROBE_R; ++r) {
         const int idx = base[r] - q0;
         if ((cand & (1u << r)) && idx >= 0 && idx < 32)
-          q[idx] = WalkSlot{v0[r], h[r],
-                            static_cast<int>(row0 - tile * PROBE_TILE) + r};
+          q[idx] = WalkSlot<CF>{v0[r], h[r],
+                                static_cast<CF>(row0 - tile * PROBE_TILE) + r};
       }
       __syncwarp();
       if (q0 + lane < K) {
-        const WalkSlot w = q[lane];
+        const WalkSlot<CF> w = q[lane];
         int f = 0;
         const int n_match = count_row(p, tile * PROBE_TILE + w.x, w.v0, w.h,
-                                      b, t, C, nks, &f);
-        q[lane].x = n_match | (f << 16);
+                                      b, t, C, &f);
+        q[lane].x = static_cast<CF>(n_match) |
+                    (static_cast<CF>(f) << R::CF_SHIFT);
       }
       __syncwarp();
 #pragma unroll
@@ -531,7 +726,8 @@ count_kernel(const __grid_constant__ Keys p, long long n,
     }
     int c[PROBE_R];
 #pragma unroll
-    for (int r = 0; r < PROBE_R; ++r) c[r] = cf[r] & 0xffff;
+    for (int r = 0; r < PROBE_R; ++r)
+      c[r] = static_cast<int>(cf[r] & ((CF(1) << R::CF_SHIFT) - 1));
     store_counts(counts, row0, n, c);
     // the segment's list, in row order: a lane's rows go after the matched
     // rows of the lower lanes
@@ -543,13 +739,13 @@ count_kernel(const __grid_constant__ Keys p, long long n,
       k += __popc(bal & lower);
       seg_rows += __popc(bal);
     }
-    unsigned int* list = entries + seg0;
+    Ent* list = entries + seg0;
 #pragma unroll
     for (int r = 0; r < PROBE_R; ++r) {
       if (c[r] > 0)
-        list[k++] = static_cast<unsigned int>(row0 - tile * PROBE_TILE + r) |
-                    (static_cast<unsigned int>(cf[r] >> 16) << ENT_SLOT_SHIFT) |
-                    (static_cast<unsigned int>(c[r]) << ENT_COUNT_SHIFT);
+        list[k++] = static_cast<Ent>(row0 - tile * PROBE_TILE + r) |
+                    (static_cast<Ent>(cf[r] >> R::CF_SHIFT) << ENT_SLOT_SHIFT) |
+                    (static_cast<Ent>(c[r]) << R::COUNT_SHIFT);
     }
     pairs = __reduce_add_sync(0xffffffffu, pairs);
     if (lane == 0) {
@@ -603,8 +799,12 @@ static size_t count_smem_bytes(int C, int nks) {
   return table_bytes(C, nks) + sizeof(unsigned int) * BLOOM_WORDS;
 }
 
+static size_t emit_stage_bytes() {
+  return 2 * sizeof(int) * PROBE_WARPS * EMIT_STAGE;
+}
+
 static size_t emit_smem_bytes(int C, int nks) {
-  return table_bytes(C, nks) + 2 * sizeof(int) * PROBE_WARPS * EMIT_STAGE;
+  return table_bytes(C, nks) + emit_stage_bytes();
 }
 
 // A persistent grid over the count's tiles; warp w of a block takes segment
@@ -615,18 +815,32 @@ static size_t emit_smem_bytes(int C, int nks) {
 // equal that slot's build row's, until its count is reached. The pairs go
 // to the warp's part of shared memory, then out as one run per map; a
 // segment with more than EMIT_STAGE pairs writes them in place.
+template <bool LARGE>
 __global__ void __launch_bounds__(PROBE_THREADS)
 emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
-            const uint32_t* __restrict__ slot_hash, int C, int nks,
-            long long n, const unsigned int* __restrict__ entries,
+            const uint32_t* __restrict__ slot_hash,
+            const unsigned long long* __restrict__ ent, int C, int nks,
+            long long n,
+            const typename Route<LARGE>::Ent* __restrict__ entries,
             const int* __restrict__ seg_sum,
             const int* __restrict__ seg_matched,
             const long long* __restrict__ tile_off, int* __restrict__ out_l,
             int* __restrict__ out_r) {
+  using R = Route<LARGE>;
+  using Ent = typename R::Ent;
+  // the pairs of a tile's earlier segments: up to 7 x 2^30 on the large route
+  using Sum = typename std::conditional<LARGE, long long, int>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const SmemTable t = stage_table(smem, b, slot_row, slot_hash, C, nks);
-  int* stage_l = reinterpret_cast<int*>(t.key + nks * C) + warp * EMIT_STAGE;
+  typename R::Table t;
+  int* stage_l;
+  if constexpr (LARGE) {
+    t.ent = ent;
+    stage_l = reinterpret_cast<int*>(smem) + warp * EMIT_STAGE;
+  } else {
+    t = stage_table(smem, b, slot_row, slot_hash, C, nks);
+    stage_l = reinterpret_cast<int*>(t.key + nks * C) + warp * EMIT_STAGE;
+  }
   int* stage_r = stage_l + PROBE_WARPS * EMIT_STAGE;
   const int mask = C - 1;
   const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
@@ -638,29 +852,34 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
     const int matched = seg_matched[sg];
     if (matched == 0) continue;
     // the pairs of the tile's earlier segments
-    int earlier = lane < warp ? seg_sum[tile * PROBE_SEGS + lane] : 0;
-    earlier = __reduce_add_sync(0xffffffffu, earlier);
+    Sum earlier = lane < warp ? seg_sum[tile * PROBE_SEGS + lane] : 0;
+    if constexpr (LARGE) {
+      earlier = __shfl_sync(0xffffffffu, warp_incl(earlier, lane), 31);
+    } else {
+      earlier = __reduce_add_sync(0xffffffffu, earlier);
+    }
     const int pairs = seg_sum[sg];
     int* dst_l = out_l + tile_off[tile] + earlier;
     int* dst_r = out_r + tile_off[tile] + earlier;
     const bool staged = pairs <= EMIT_STAGE;
     int* to_l = staged ? stage_l : dst_l;
     int* to_r = staged ? stage_r : dst_r;
-    const unsigned int* list = entries + sg * PROBE_SEG;
+    const Ent* list = entries + sg * PROBE_SEG;
     int run = 0;                       // pairs of the earlier entries
     for (int e0 = 0; e0 < matched; e0 += 32) {
       const int e = e0 + lane;
-      const unsigned int w = e < matched ? list[e] : 0u;
-      const int cnt = static_cast<int>(w >> ENT_COUNT_SHIFT);
+      const Ent w = e < matched ? list[e] : Ent(0);
+      const int cnt = static_cast<int>(w >> R::COUNT_SHIFT);
       const int incl = warp_incl(cnt, lane);
       int o = run + incl - cnt;
       run += __shfl_sync(0xffffffffu, incl, 31);
       if (cnt > 0) {
         const int row = static_cast<int>(tile * PROBE_TILE +
                                          (w & (PROBE_TILE - 1)));
-        const int s0 = static_cast<int>((w >> ENT_SLOT_SHIFT) &
-                                        (MAX_CAPACITY - 1));
-        const unsigned long long f = t.ent[s0];
+        const int s0 = static_cast<int>(
+            (w >> ENT_SLOT_SHIFT) &
+            ((Ent(1) << (R::COUNT_SHIFT - ENT_SLOT_SHIFT)) - 1));
+        const unsigned long long f = t.at(s0);
         const int r0 = ent_row(f);
         const uint32_t h0 = ent_hash(f);
         const int end = o + cnt;
@@ -669,11 +888,10 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
         ++o;
         for (int d = 1; o < end && d < C; ++d) {
           const int s = (s0 + d) & mask;
-          const unsigned long long en = t.ent[s];
+          const unsigned long long en = t.at(s);
           const int r = ent_row(en);
           if (r < 0) break;
-          if (ent_hash(en) == h0 &&
-              build_keys_equal(b, t, s, r, s0, r0, C, nks)) {
+          if (ent_hash(en) == h0 && build_keys_equal(b, t, s, r, s0, r0)) {
             to_l[o] = row;
             to_r[o] = r;
             ++o;
@@ -733,84 +951,185 @@ static cudaError_t probe_grid(K kernel, size_t smem, long long n,
   return cudaSuccess;
 }
 
+// the cooperative grid of the large build: one block per LARGE_BUILD_THREADS
+// rows, at most as many as the card holds at once (a grid barrier needs
+// every block resident)
+static cudaError_t large_build_grid(const void* kernel, long long rows,
+                                    unsigned int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, LARGE_BUILD_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  const long long want = (rows + LARGE_BUILD_THREADS - 1) / LARGE_BUILD_THREADS;
+  *blocks = static_cast<unsigned int>(
+      want < 1 ? 1 : (want < resident ? want : resident));
+  return cudaSuccess;
+}
+
 extern "C" {
 
+// the small route: C <= SMALL_CAPACITY, n <= C / 2
 int hj_build(const void* const* data, const void* const* valid,
              const int* width, const int* wide, int nk, long long n, int C,
              int* slot_row, uint32_t* slot_hash, void* stream) {
   Keys b;
   if (!make_keys(&b, data, valid, width, wide, nk) || n < 1 ||
-      n > MAX_BUILD_ROWS || !capacity_ok(C) || 2 * n > C)
+      n > SMALL_BUILD_ROWS || !capacity_ok(C) || C > SMALL_CAPACITY ||
+      2 * n > C)
     return static_cast<int>(cudaErrorInvalidValue);
   build_kernel<<<1, BUILD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       b, static_cast<int>(n), C, slot_row, slot_hash);
   return static_cast<int>(cudaGetLastError());
 }
 
-// counts: (n,) int32; entries: (n,) uint32, segment k's list of matched
-// rows from row k * PROBE_SEG on; seg: 2 * segs int32 (segs = ceil(n /
-// PROBE_SEG)), the segments' pairs, then their matched rows. scratch:
-// 2 + 2 * tiles int64 (tiles = ceil(n / PROBE_TILE)): [0] the total, [1]
-// the ticket (zeroed here on the launch stream), the tiles' pairs, then
-// their exclusive offsets.
+// the large route: SMALL_CAPACITY < C <= MAX_CAPACITY, n <= C / 2. table:
+// (C,) 8-byte words; scratch: 2 * n + 4 int32, the rows' hashes and
+// distances, then the round counters; scratch[2 * n + 3] gets the rounds.
+int hj_build_large(const void* const* data, const void* const* valid,
+                   const int* width, const int* wide, int nk, long long n,
+                   int C, unsigned long long* table, int* scratch,
+                   void* stream) {
+  Keys b;
+  if (!make_keys(&b, data, valid, width, wide, nk) || n < 1 ||
+      n > MAX_BUILD_ROWS || !capacity_ok(C) || C <= SMALL_CAPACITY ||
+      2 * n > C || table == nullptr || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned int blocks = 0;
+  cudaError_t err = large_build_grid(
+      reinterpret_cast<const void*>(build_large_kernel), n, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rows = static_cast<int>(n);
+  uint32_t* row_h = reinterpret_cast<uint32_t*>(scratch);
+  uint32_t* row_d = row_h + n;
+  int* counters = scratch + 2 * n;
+  void* args[] = {&b, &rows, &C, &table, &row_h, &row_d, &counters};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(build_large_kernel), dim3(blocks),
+      dim3(LARGE_BUILD_THREADS), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `rounds` grid barriers on the large build's grid for `rows` rows; out:
+// one int32. Times the barrier alone, for the large build's bound.
+int hj_barrier(long long rows, int rounds, int* out, void* stream) {
+  if (rows < 1 || rounds < 0 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned int blocks = 0;
+  cudaError_t err = large_build_grid(
+      reinterpret_cast<const void*>(barrier_kernel), rows, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&rounds, &out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(barrier_kernel), dim3(blocks),
+      dim3(LARGE_BUILD_THREADS), args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// counts: (n,) int32; entries: (n,) uint32 on the small route, uint64 on the
+// large one, segment k's list of matched rows from row k * PROBE_SEG on;
+// seg: 2 * segs int32 (segs = ceil(n / PROBE_SEG)), the segments' pairs,
+// then their matched rows. scratch: 2 + 2 * tiles int64 (tiles = ceil(n /
+// PROBE_TILE)): [0] the total, [1] the ticket (zeroed here on the launch
+// stream), the tiles' pairs, then their exclusive offsets. The table is
+// (slot_row, slot_hash) on the small route (C <= SMALL_CAPACITY) and the
+// large build's words `ent` on the large one.
 int hj_count(const void* const* pdata, const void* const* pvalid,
              const int* width, const int* wide, int nk, long long n,
              const void* const* bdata, const int* slot_row,
-             const uint32_t* slot_hash, int C, int* counts,
-             unsigned int* entries, int* seg, long long* scratch,
+             const uint32_t* slot_hash, const unsigned long long* ent, int C,
+             int* counts, void* entries, int* seg, long long* scratch,
              void* stream) {
   Keys p, b;
   const void* no_valid[MAX_KEYS] = {nullptr};
+  const bool large = C > SMALL_CAPACITY;
   if (!make_keys(&p, pdata, pvalid, width, wide, nk) ||
       !make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      n > INT_MAX || !capacity_ok(C) || scratch == nullptr)
+      n > INT_MAX || !capacity_ok(C) || scratch == nullptr ||
+      (large && ent == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
-  const size_t smem = count_smem_bytes(C, nks);
+  const size_t smem = large ? 0 : count_smem_bytes(C, nks);
   // above 48 KB a block's shared memory must be asked for
-  cudaError_t err = cudaFuncSetAttribute(
-      count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(count_smem_bytes(MAX_CAPACITY, SMEM_KEY_COLS)));
+  cudaError_t err = cudaSuccess;
   unsigned int blocks = 0;
-  if (err == cudaSuccess) err = probe_grid(count_kernel, smem, n, &blocks);
+  if (large) {
+    err = probe_grid(count_kernel<true>, smem, n, &blocks);
+  } else {
+    err = cudaFuncSetAttribute(
+        count_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(count_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
+    if (err == cudaSuccess)
+      err = probe_grid(count_kernel<false>, smem, n, &blocks);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(scratch + 1, 0, sizeof(unsigned int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
   const long long segs = (n + PROBE_SEG - 1) / PROBE_SEG;
-  count_kernel<<<blocks, PROBE_THREADS, smem, s>>>(
-      p, n, b, slot_row, slot_hash, C, nks, counts, entries, seg, seg + segs,
-      scratch + 2, scratch + 2 + tiles, scratch,
-      reinterpret_cast<unsigned int*>(scratch + 1));
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + 1);
+  if (large)
+    count_kernel<true><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, counts,
+        static_cast<unsigned long long*>(entries), seg, seg + segs,
+        scratch + 2, scratch + 2 + tiles, scratch, ticket);
+  else
+    count_kernel<false><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, counts,
+        static_cast<unsigned int*>(entries), seg, seg + segs, scratch + 2,
+        scratch + 2 + tiles, scratch, ticket);
   return static_cast<int>(cudaGetLastError());
 }
 
-// entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows;
-// out_l, out_r: (total,) int32 each
+// entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows,
+// with the same table; out_l, out_r: (total,) int32 each
 int hj_emit(const void* const* bdata, const int* width, const int* wide,
             int nk, long long n, const int* slot_row,
-            const uint32_t* slot_hash, int C, const unsigned int* entries,
-            const int* seg_sum, const int* seg_matched,
+            const uint32_t* slot_hash, const unsigned long long* ent, int C,
+            const void* entries, const int* seg_sum, const int* seg_matched,
             const long long* tile_off, int* out_l, int* out_r,
             void* stream) {
   Keys b;
   const void* no_valid[MAX_KEYS] = {nullptr};
+  const bool large = C > SMALL_CAPACITY;
   if (!make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      n > INT_MAX || !capacity_ok(C))
+      n > INT_MAX || !capacity_ok(C) || (large && ent == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
-  const size_t smem = emit_smem_bytes(C, nks);
-  cudaError_t err = cudaFuncSetAttribute(
-      emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(emit_smem_bytes(MAX_CAPACITY, SMEM_KEY_COLS)));
+  const size_t smem = large ? emit_stage_bytes() : emit_smem_bytes(C, nks);
+  cudaError_t err = cudaSuccess;
   unsigned int blocks = 0;
-  if (err == cudaSuccess) err = probe_grid(emit_kernel, smem, n, &blocks);
+  if (large) {
+    err = probe_grid(emit_kernel<true>, smem, n, &blocks);
+  } else {
+    err = cudaFuncSetAttribute(
+        emit_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(emit_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
+    if (err == cudaSuccess)
+      err = probe_grid(emit_kernel<false>, smem, n, &blocks);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  emit_kernel<<<blocks, PROBE_THREADS, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      b, slot_row, slot_hash, C, nks, n, entries, seg_sum, seg_matched,
-      tile_off, out_l, out_r);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (large)
+    emit_kernel<true><<<blocks, PROBE_THREADS, smem, s>>>(
+        b, slot_row, slot_hash, ent, C, nks, n,
+        static_cast<const unsigned long long*>(entries), seg_sum,
+        seg_matched, tile_off, out_l, out_r);
+  else
+    emit_kernel<false><<<blocks, PROBE_THREADS, smem, s>>>(
+        b, slot_row, slot_hash, ent, C, nks, n,
+        static_cast<const unsigned int*>(entries), seg_sum, seg_matched,
+        tile_off, out_l, out_r);
   return static_cast<int>(cudaGetLastError());
 }
 

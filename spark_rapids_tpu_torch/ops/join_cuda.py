@@ -7,11 +7,16 @@ on the card); this module binds them through ctypes and keeps, beside each,
 a plain PyTorch version of the same function:
 
 - `build_table`: the open-addressing table over the build keys, filled by
-  min-row-id insertion rounds (equal keys in ascending-row chain order);
+  min-row-id insertion rounds (equal keys in ascending-row chain order).
+  Two routes by capacity: up to SMALL_CAPACITY slots one block builds it
+  in shared memory; above, a cooperative grid builds it in global memory,
+  one grid-wide barrier a round, as one 8-byte word a slot (`HashTable.ent`,
+  hash << 32 | row) that the large route's probes read where it lies;
 - `probe_counts`: matches per probe row, walking to the first empty slot,
   with the sums of each tile of `TILE` rows, their exclusive offsets and
   the total, and per segment (an eighth of a tile) its list of matched
-  rows, each with its first matching slot and its count (`ProbeCounts`);
+  rows, each with its first matching slot and its count (`ProbeCounts`),
+  in 32 bits on the small route and 64 on the large one;
 - `probe_emit`: the (probe row, build row) pairs from those lists, a row's
   first at its tile's offset plus the counts before it in its tile.
 
@@ -26,14 +31,16 @@ The plain versions hash with the row hash's own murmur3 (`hash.py`, unsigned
 maps, pair for pair those of `ops.join.inner_join`. Between count and emit
 it reads the total (the one host sync) and computes nothing over the probe
 rows. It is registered as `hash_join`/"cuda" for backend "cuda" and
-declines what the reference's `_supports` declines: non-inner joins,
-mismatched or unsupported key kinds and build sides over `MAX_BUILD` rows.
+declines what the reference's `_supports` declines (non-inner joins,
+mismatched or unsupported key kinds) and build sides over `MAX_BUILD` rows.
+The reference declines above 512 build rows, the table its VMEM holds;
+the port's large route takes up to 2^22 (a 2^23-slot, 64 MB table).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,7 +50,9 @@ from ..dtypes import Kind
 from .hash import as_i32_bits, mm_column
 from .join import _cols, _side_valid
 
-MAX_BUILD = 512     # the reference's VMEM-sized limit, kept for parity
+SMALL_CAPACITY = 1024       # the small route's tables (csrc/hash_join.cu)
+MAX_CAPACITY = 1 << 23      # the large route's: 64 MB of 8-byte slots
+MAX_BUILD = MAX_CAPACITY // 2   # build rows the kernels take
 _MAX_KEYS = 32      # key columns the kernels take (csrc/hash_join.cu)
 TILE = 2048         # probe rows a tile: csrc/hash_join.cu PROBE_TILE
 _SEED = 42
@@ -56,11 +65,13 @@ _SUPPORTED_KINDS = frozenset(k.value for k in (
 _WIDE_KINDS = (Kind.INT64, Kind.TIMESTAMP_US, Kind.DECIMAL32, Kind.DECIMAL64)
 
 LAUNCHES = {"build": 0, "count": 0, "emit": 0}
+# the launches of LAUNCHES that took the large route (C > SMALL_CAPACITY)
+LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0}
 PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0}
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, LARGE_LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
 
@@ -72,16 +83,33 @@ def _capacity(n_build: int) -> int:
     return c
 
 
+def is_large(C: int) -> bool:
+    """Whether a table of C slots takes the large route."""
+    return C > SMALL_CAPACITY
+
+
 @dataclasses.dataclass
 class HashTable:
     """slot_row: (C,) int32 build row id, -1 where empty. slot_hash: (C,)
-    int32 holding the bits of that row's u32 bucket hash (0 where empty)."""
+    int32 holding the bits of that row's u32 bucket hash (0 where empty).
+    The large build writes `ent`, (C,) int64 words hash << 32 | row (the
+    row's low 32 bits), and slot_row and slot_hash are views of it; `rounds`
+    is its () int32 count of insertion rounds, on the device."""
     slot_row: torch.Tensor
     slot_hash: torch.Tensor
+    ent: Optional[torch.Tensor] = None
+    rounds: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return int(self.slot_row.shape[0])
+
+    def packed(self) -> torch.Tensor:
+        """(C,) int64 words hash << 32 | row, as the large probes read."""
+        if self.ent is not None:
+            return self.ent
+        return (self.slot_hash.to(torch.int64) << 32) \
+            | (self.slot_row.to(torch.int64) & _M32)
 
 
 def _wide(cols: Sequence[Column]) -> List[bool]:
@@ -152,8 +180,11 @@ def _walk(pcols, rows, h, table: HashTable, bcols):
 
 # a matched row's entry in its segment's list (csrc/hash_join.cu): its row
 # in the tile, its first matching slot and its count, in 11, 10 and 11 bits
+# of an int32 on the small route, in 11, 23 and 30 bits of an int64 on the
+# large one
 _SLOT_SHIFT = 11
 _COUNT_SHIFT = 21
+_WIDE_COUNT_SHIFT = 34
 SEGMENTS = 8        # a tile's segments: one a warp of the kernels' blocks
 
 
@@ -165,10 +196,11 @@ class ProbeCounts:
     tile_sums (tiles,) int64, its counts summed; tile_offsets (tiles,)
     int64, their exclusive prefix. A tile is SEGMENTS segments of `tile //
     SEGMENTS` rows; per segment: seg_sums (segs,) int32, its counts summed;
-    seg_matched (segs,) int32, its rows with a match. entries: (n,) int32,
+    seg_matched (segs,) int32, its rows with a match. entries: (n,),
     segment k's matched rows in ascending order from its first row on, each
     as its row in the tile | its first matching slot << 11 | its count <<
-    21 (past a segment's matched rows the values are not defined). total:
+    21 in an int32, or << 34 in an int64 on the large route (past a
+    segment's matched rows the values are not defined). total:
     () int64, every count summed; the caller reads it (the one host sync)
     to size the emit."""
     counts: torch.Tensor
@@ -183,6 +215,14 @@ class ProbeCounts:
     @property
     def seg(self) -> int:
         return self.tile // SEGMENTS
+
+
+def _count_shift(C: int) -> int:
+    return _WIDE_COUNT_SHIFT if is_large(C) else _COUNT_SHIFT
+
+
+def _entry_dtype(C: int) -> torch.dtype:
+    return torch.int64 if is_large(C) else torch.int32
 
 
 def _tiles(n: int, tile: int) -> int:
@@ -224,11 +264,12 @@ def probe_counts_plain(pcols, table: HashTable, bcols,
     in_tile = torch.arange(cs.numel(), dtype=torch.int64,
                            device=dev).view_as(cs) % tile
     words = in_tile | (_tiled(slots, seg) << _SLOT_SHIFT) \
-        | (cs << _COUNT_SHIFT)
+        | (cs << _count_shift(table.capacity))
     dest = torch.arange(0, cs.numel(), seg, dtype=torch.int64,
                         device=dev)[:, None] + torch.cumsum(hit, 1) - 1
-    entries = torch.zeros(cs.numel(), dtype=torch.int32, device=dev)
-    entries[dest[hit]] = words[hit].to(torch.int32)
+    edt = _entry_dtype(table.capacity)
+    entries = torch.zeros(cs.numel(), dtype=edt, device=dev)
+    entries[dest[hit]] = words[hit].to(edt)
     return ProbeCounts(counts, sums, torch.cumsum(sums, 0) - sums,
                        cs.sum(1).to(torch.int32),
                        hit.sum(1).to(torch.int32), entries[:n], sums.sum(),
@@ -250,8 +291,9 @@ def probe_emit_plain(pcols, table: HashTable, bcols, probe: ProbeCounts,
     w = probe.entries[listed].to(torch.int64)
     tl = at[listed] // tile
     rows = tl * tile + (w & ((1 << _SLOT_SHIFT) - 1))
-    s0 = (w >> _SLOT_SHIFT) & ((1 << (_COUNT_SHIFT - _SLOT_SHIFT)) - 1)
-    cnt = w >> _COUNT_SHIFT
+    shift = _count_shift(C)
+    s0 = (w >> _SLOT_SHIFT) & ((1 << (shift - _SLOT_SHIFT)) - 1)
+    cnt = w >> shift
     # the counts of the entries before each, in its tile
     before = torch.cumsum(cnt, 0) - cnt
     tile_matched = _tiled(probe.seg_matched, SEGMENTS).sum(1)
@@ -300,12 +342,15 @@ def _lib():
         from .cuda_build import load
         lib = load("hash_join")
         lib.hj_build.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
-        lib.hj_count.argtypes = _KEY_ARGS + [_PP, _P, _P, ctypes.c_int, _P,
-                                             _P, _P, _P, _P]
+        lib.hj_build_large.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
+        lib.hj_barrier.argtypes = [ctypes.c_longlong, ctypes.c_int, _P, _P]
+        lib.hj_count.argtypes = _KEY_ARGS + [_PP, _P, _P, _P, ctypes.c_int,
+                                             _P, _P, _P, _P, _P]
         lib.hj_emit.argtypes = [_PP, _PI, _PI, ctypes.c_int,
-                                ctypes.c_longlong, _P, _P, ctypes.c_int, _P,
-                                _P, _P, _P, _P, _P, _P]
-        for fn in (lib.hj_build, lib.hj_count, lib.hj_emit):
+                                ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
+                                _P, _P, _P, _P, _P, _P, _P]
+        for fn in (lib.hj_build, lib.hj_build_large, lib.hj_barrier,
+                   lib.hj_count, lib.hj_emit):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -353,28 +398,61 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+def _table_ptrs(table: HashTable):
+    """(slot_row, slot_hash, ent) pointers for the probes: the small route
+    reads the first two, the large one the packed words."""
+    if is_large(table.capacity):
+        return None, None, table.packed().data_ptr()
+    return table.slot_row.data_ptr(), table.slot_hash.data_ptr(), None
+
+
 def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
     dev = bcols[0].device
     _check_cuda(bcols, dev)
-    if bcols[0].length > MAX_BUILD:
-        raise ValueError(f"build side of {bcols[0].length} rows exceeds "
+    n = bcols[0].length
+    if n > MAX_BUILD:
+        raise ValueError(f"build side of {n} rows exceeds "
                          f"MAX_BUILD={MAX_BUILD}")
-    slot_row = torch.empty(C, dtype=torch.int32, device=dev)
-    slot_hash = torch.empty(C, dtype=torch.int32, device=dev)
     keys = _key_arrays(bcols)
-    rc = _lib().hj_build(*keys, C, slot_row.data_ptr(), slot_hash.data_ptr(),
-                         _stream(dev))
-    _raise_on(rc, "hash-join build kernel")
+    if not is_large(C):
+        slot_row = torch.empty(C, dtype=torch.int32, device=dev)
+        slot_hash = torch.empty(C, dtype=torch.int32, device=dev)
+        rc = _lib().hj_build(*keys, C, slot_row.data_ptr(),
+                             slot_hash.data_ptr(), _stream(dev))
+        _raise_on(rc, "hash-join build kernel")
+        LAUNCHES["build"] += 1
+        return HashTable(slot_row, slot_hash)
+    ent = torch.empty(C, dtype=torch.int64, device=dev)
+    # the rows' hashes and distances, then four counters: the proposals of
+    # rounds r mod 3 and the rounds
+    scratch = torch.empty(2 * n + 4, dtype=torch.int32, device=dev)
+    rc = _lib().hj_build_large(*keys, C, ent.data_ptr(), scratch.data_ptr(),
+                               _stream(dev))
+    _raise_on(rc, "hash-join large build kernel")
     LAUNCHES["build"] += 1
-    return HashTable(slot_row, slot_hash)
+    LARGE_LAUNCHES["build"] += 1
+    halves = ent.view(torch.int32).view(C, 2)      # little-endian: row, hash
+    return HashTable(halves[:, 0], halves[:, 1], ent, scratch[2 * n + 3])
+
+
+def barrier_cuda(rows: int, rounds: int) -> torch.Tensor:
+    """`rounds` grid-wide barriers alone, on the grid the large build takes
+    for `rows` rows (a measurement for the build's bound, not a step of the
+    join). Returns a () int32 tensor that holds `rounds` once it ran."""
+    out = torch.zeros((), dtype=torch.int32, device="cuda")
+    rc = _lib().hj_barrier(rows, rounds, out.data_ptr(),
+                           _stream(out.device))
+    _raise_on(rc, "grid barrier kernel")
+    return out
 
 
 def probe_counts_cuda(pcols, table: HashTable, bcols) -> ProbeCounts:
     dev = pcols[0].device
     _check_probe(pcols, bcols, dev)
     n = pcols[0].length
+    C = table.capacity
     counts = torch.empty(n, dtype=torch.int32, device=dev)
-    entries = torch.empty(n, dtype=torch.int32, device=dev)
+    entries = torch.empty(n, dtype=_entry_dtype(C), device=dev)
     tiles, segs = _tiles(n, TILE), _tiles(n, TILE // SEGMENTS)
     seg = torch.empty(2 * segs, dtype=torch.int32, device=dev)
     # one int64 buffer: the total, the last block's ticket (zeroed by the
@@ -386,12 +464,13 @@ def probe_counts_cuda(pcols, table: HashTable, bcols) -> ProbeCounts:
         scratch.zero_()
         return probe
     bdata = _key_arrays(bcols)[0]
-    rc = _lib().hj_count(*_key_arrays(pcols), bdata, table.slot_row.data_ptr(),
-                         table.slot_hash.data_ptr(), table.capacity,
+    rc = _lib().hj_count(*_key_arrays(pcols), bdata, *_table_ptrs(table), C,
                          counts.data_ptr(), entries.data_ptr(),
                          seg.data_ptr(), scratch.data_ptr(), _stream(dev))
     _raise_on(rc, "hash-join probe-count kernel")
     LAUNCHES["count"] += 1
+    if is_large(C):
+        LARGE_LAUNCHES["count"] += 1
     return probe
 
 
@@ -400,8 +479,9 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
     dev = pcols[0].device
     _check_probe(pcols, bcols, dev)
     n = pcols[0].length
+    C = table.capacity
     segs = _tiles(n, TILE // SEGMENTS)
-    shapes = ((probe.entries, torch.int32, n),
+    shapes = ((probe.entries, _entry_dtype(C), n),
               (probe.seg_sums, torch.int32, segs),
               (probe.seg_matched, torch.int32, segs),
               (probe.tile_offsets, torch.int64, _tiles(n, TILE)))
@@ -409,9 +489,9 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
             t.dtype != dtype or tuple(t.shape) != (size,) or t.device != dev
             or not t.is_contiguous() for t, dtype, size in shapes):
         raise TypeError(f"emit takes the count kernel's {TILE}-row tiles: "
-                        "contiguous (n,) int32 entries, (segs,) int32 "
-                        "sums and matched rows, (tiles,) int64 offsets, on "
-                        "the probe's device")
+                        "contiguous (n,) entries (int32, int64 on the large "
+                        "route), (segs,) int32 sums and matched rows, "
+                        "(tiles,) int64 offsets, on the probe's device")
     # `total` must be probe.total (the caller's one host sync): the kernel
     # writes a tile's pairs at its offset .. offset + its sum - 1
     out_l = torch.empty(total, dtype=torch.int32, device=dev)
@@ -419,12 +499,13 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
     if total == 0:
         return out_l, out_r
     data, _, width, wide, nk, _ = _key_arrays(bcols)
-    rc = _lib().hj_emit(data, width, wide, nk, n, table.slot_row.data_ptr(),
-                        table.slot_hash.data_ptr(), table.capacity,
+    rc = _lib().hj_emit(data, width, wide, nk, n, *_table_ptrs(table), C,
                         *[t.data_ptr() for t, _, _ in shapes],
                         out_l.data_ptr(), out_r.data_ptr(), _stream(dev))
     _raise_on(rc, "hash-join probe-emit kernel")
     LAUNCHES["emit"] += 1
+    if is_large(C):
+        LARGE_LAUNCHES["emit"] += 1
     return out_l, out_r
 
 

@@ -9,9 +9,10 @@ backend and stamps the choice on its metrics: on "cuda" an inner join runs
 `join_cuda.inner_join_hash`, a FusedSelect `select_cuda.fused_select` and a
 TopK `topk_cuda.topk_table`. The plain versions run only on the CPU: where
 the registry declines a call on the card (an inner join's build side over
-the kernel's 512 rows, a predicate over the FusedSelect program's limits,
-a TopK tuple over 96 words, or a forced plain kernel), the executor raises
-`KernelDeclinedError` and never gives way to the plain version there.
+the kernel's 2^22 rows, `join_cuda.MAX_BUILD`; a predicate over the
+FusedSelect program's limits, a TopK tuple over 96 words, or a forced plain
+kernel), the executor raises `KernelDeclinedError` and never gives way to
+the plain version there.
 
 `PlanExecutor(device=None)` runs on the CUDA card and raises when there is
 none; `device="cpu"` runs on the CPU. The scan inputs move to the device
@@ -285,7 +286,10 @@ class PlanExecutor:
 
     @staticmethod
     def _global_aggregate(t: Table, node: HashAggregate) -> Table:
-        """Keyless (one-row) aggregate: sum/min/max ignore nulls."""
+        """Keyless (one-row) aggregate: sum/min/max ignore nulls. Float
+        sums, mins and maxes give the reference's bits: its summation
+        order (`aggregate.blocked_sum`), -0.0 below 0.0 and the canonical
+        NaN (`aggregate.float_extreme`)."""
         dev = t.device
         cols, names = [], []
         for c, op, out_name in node.aggs:
@@ -307,13 +311,18 @@ class PlanExecutor:
                     if op == "sum":
                         if ok is not None:
                             acc = torch.where(ok, acc, torch.zeros_like(acc))
-                        val = acc.sum(dtype=dt.storage_dtype())
+                        val = (aggregate.blocked_sum(acc)
+                               if acc.is_floating_point() else
+                               acc.sum(dtype=dt.storage_dtype()))
                     else:
                         if ok is not None:
                             acc = torch.where(ok, acc, torch.full_like(
                                 acc, _reduce_identity(op, acc.dtype)))
                         # an empty relation raises, as in the reference
-                        val = acc.min() if op == "min" else acc.max()
+                        if acc.is_floating_point():
+                            val = aggregate.float_extreme(op, acc)
+                        else:
+                            val = acc.min() if op == "min" else acc.max()
             cols.append(Column(dt, 1,
                                val.reshape(1).to(dt.storage_dtype())))
             names.append(out_name)

@@ -433,3 +433,168 @@ def test_a_declined_call_raises_on_the_card(monkeypatch):
             assert [m.kernel for m in res.metrics.values() if m.kernel] == [
                 "cuda:fused_select"]
         assert select.PLAIN_CALLS == {"fused_select": 0}
+
+
+# ---- the hash join's large route, the segment sum, q72 ----------------------
+
+def _large_case(case, rng):
+    """(probe keys, build keys) on the card for one large-route case."""
+    def col(a, dtype, null_p=0.0):
+        v = (rng.random(a.shape[0]) > null_p) if null_p else None
+        return Column.from_numpy(a, dtype, v, device="cuda")
+    npb = 100_003
+    if case == "inventory":
+        items, weeks = np.meshgrid(np.arange(500), np.arange(104))
+        return ([col(rng.integers(0, 520, npb).astype(np.int64), tdt.INT64,
+                     0.02),
+                 col(rng.integers(0, 104, npb).astype(np.int64), tdt.INT64)],
+                [col(items.ravel().astype(np.int64), tdt.INT64),
+                 col(weeks.ravel().astype(np.int64), tdt.INT64)])
+    if case == "equal_600":
+        return ([col(np.where(rng.random(npb) < 0.02, 7, 8).astype(np.int64),
+                     tdt.INT64)], [col(np.full(600, 7, np.int64), tdt.INT64)])
+    if case == "all_null_build":
+        return ([col(rng.integers(0, 5, npb).astype(np.int64), tdt.INT64)],
+                [col(rng.integers(0, 5, 2000).astype(np.int64), tdt.INT64,
+                     1.0)])
+    if case == "six_keys":
+        # two key columns past the four the small route stages
+        kinds = [(np.int64, tdt.INT64), (np.int32, tdt.INT32),
+                 (np.int16, tdt.INT16), (np.int8, tdt.INT8),
+                 (np.int32, tdt.DATE32), (np.int64, tdt.INT64)]
+        build = [rng.integers(0, 3, 3000).astype(n) for n, _ in kinds]
+        pick = rng.integers(0, 3000, npb)
+        return ([col(np.where(rng.random(npb) < 0.9, b[pick],
+                              rng.integers(0, 3, npb)).astype(n), d,
+                     0.02 if j == 5 else 0.0)
+                 for j, (b, (n, d)) in enumerate(zip(build, kinds))],
+                [col(b, d) for b, (_, d) in zip(build, kinds)])
+    n = {"rows_513": 513, "rows_1025_int32": 1025}[case]
+    dtype, npt = ((tdt.INT32, np.int32) if case.endswith("int32")
+                  else (tdt.INT64, np.int64))
+    keys = rng.integers(0, n // 2, n).astype(npt)
+    return ([col(rng.integers(0, n // 2 + 40, npb).astype(npt), dtype, 0.1)],
+            [col(keys, dtype, 0.1)])
+
+
+@pytest.mark.parametrize("case", ["rows_513", "rows_1025_int32", "equal_600",
+                                  "inventory", "all_null_build", "six_keys"])
+def test_large_route_equals_plain_versions(case):
+    """The large build, count and emit against their plain versions, and
+    the maps against the sort-based join; the launches counted as large."""
+    _need_card()
+    lc, rc = _large_case(case, np.random.default_rng(21))
+    C = join_cuda._capacity(rc[0].length)
+    assert join_cuda.is_large(C)
+    join_cuda.reset_counters()
+    tk = join_cuda.build_table_cuda(rc, C)
+    tp = join_cuda.build_table_plain(rc, C)
+    assert torch.equal(tk.slot_row, tp.slot_row)
+    assert torch.equal(tk.slot_hash, tp.slot_hash)
+    assert (int(tk.rounds) == 0) == (case == "all_null_build")
+    pk = join_cuda.probe_counts_cuda(lc, tk, rc)
+    pp = join_cuda.probe_counts_plain(lc, tp, rc)
+    assert pk.entries.dtype == torch.int64
+    _same_probe(pk, pp)
+    total = int(pk.total)
+    lk, rk = join_cuda.probe_emit_cuda(lc, tk, rc, pk, total)
+    fl, fr = join.inner_join(lc, rc)
+    assert torch.equal(lk, fl.data) and torch.equal(rk, fr.data)
+    emits = int(total > 0)                 # no pairs, no emit launch
+    assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1,
+                                        "emit": emits}
+    with pytest.raises(ValueError, match="MAX_BUILD"):
+        join_cuda.build_table_cuda(
+            [Column.from_numpy(np.zeros(join_cuda.MAX_BUILD + 1, np.int64),
+                               tdt.INT64, device="cuda")],
+            join_cuda.MAX_CAPACITY)
+
+
+def test_large_route_joins_on_three_streams_at_once():
+    """Large-route joins (cooperative builds) from three threads, each on
+    its own stream: each grid is resident alone, the calls share no device
+    state, and every map equals the sort-based join's."""
+    _need_card()
+    import threading
+    lc, rc = _large_case("inventory", np.random.default_rng(22))
+    fl, fr = join.inner_join(lc, rc)
+    torch.cuda.synchronize()
+    bad = []
+
+    def run():
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            for _ in range(10):
+                lm, rm = join_cuda.inner_join_hash(lc, rc)
+                s.synchronize()
+                if not (torch.equal(lm.data, fl.data)
+                        and torch.equal(rm.data, fr.data)):
+                    bad.append("maps differ")
+
+    threads = [threading.Thread(target=run) for _ in range(3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not bad
+
+
+@pytest.mark.parametrize("groups", [1, 3, 1000])
+def test_segment_sum_kernel_equals_the_cpu_fold(groups):
+    """Keyed float sums on the card: the kernel's bits equal the plain
+    version's row-order fold on the CPU, run after run."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda as ss
+    rng = np.random.default_rng(groups)
+    n = 1_000_003
+    seg = torch.from_numpy(np.sort(rng.integers(0, groups, n)))
+    v = torch.from_numpy(rng.standard_normal(n) *
+                         10.0 ** rng.integers(-8, 12, n))
+    starts = torch.searchsorted(seg, torch.arange(groups))
+    want = ss.segment_sum_plain(v, seg, groups)
+    for _ in range(2):
+        got = ss.segment_sum_cuda(v.cuda(), starts.cuda()).cpu()
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def test_float_aggregates_on_the_card_equal_the_cpu():
+    """Keyed and keyless float sums, means, mins and maxes on the card give
+    the CPU run's bits."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import aggregate
+    rng = np.random.default_rng(5)
+    n = 200_003
+    vals = rng.standard_normal(n) * 10.0 ** rng.integers(-8, 12, n)
+    vals[::997] = -0.0
+    t = Table([Column.from_numpy(rng.integers(0, 7, n).astype(np.int64),
+                                 tdt.INT64, device="cpu"),
+               Column.from_numpy(vals, tdt.FLOAT64, rng.random(n) > 0.1,
+                                 device="cpu")], ["g", "x"])
+    aggs = [("x", "sum"), ("x", "mean"), ("x", "min"), ("x", "max")]
+    cpu = aggregate.groupby_aggregate(t, ["g"], aggs)
+    card = aggregate.groupby_aggregate(t.to("cuda"), ["g"], aggs)
+    _same_table(card.to("cpu"), cpu)
+    from spark_rapids_tpu_torch.plan import PlanBuilder
+    plan = (PlanBuilder().scan("t", schema=["g", "x"])
+            .aggregate([], [("x", "sum", "s"), ("x", "min", "lo"),
+                            ("x", "max", "hi")]).build())
+    want = PlanExecutor(device="cpu", optimize=False).execute(
+        plan, {"t": t}).table
+    got = PlanExecutor(optimize=False).execute(plan, {"t": t}).table
+    _same_table(got.to("cpu"), want)
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+def test_q72_on_the_card_uses_the_large_route(optimize):
+    _need_card()
+    from spark_rapids_tpu_torch import nds_q72
+    inputs = nds_q72.q72_inputs(300_000, device="cpu")
+    join_cuda.reset_counters()
+    res = PlanExecutor(optimize=optimize).execute(nds_q72.q72_plan(), inputs)
+    assert join_cuda.LAUNCHES == {"build": 5, "count": 5, "emit": 5}
+    assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1, "emit": 1}
+    assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+    cpu = PlanExecutor(device="cpu", optimize=optimize).execute(
+        nds_q72.q72_plan(), inputs)
+    _same_table(res.table.to("cpu"), cpu.table)
