@@ -53,6 +53,25 @@ in phases that each raise on failure:
    1,000 groups through `PlanExecutor`, twice on the card, each run's
    bits equal to the CPU run's (the segment-sum kernel), with
    `index_add_` on the card beside it; the kernel timed at 3 groups;
+4b'''. the capped tier: the capped hash join against its plain version
+   (`ops.join.inner_join_capped`), all four outputs bit for bit, at the
+   join shapes and alive masks of q3's two joins, q72's 20-row hd join
+   (the small route) and its inventory join (recorded from a cold capped
+   run of each plan), each at the plan's row_cap, the total, the total + 1
+   and half the total (overflowing), and on a 2^22-row build with half its
+   rows dead; the capped TopK against its plain version on
+   kernel_bench.py's 10M-row table at k = 50, 100 and 4,099 (both routes,
+   by the launch counters) with 60%, 0% and 100% of rows live; q3
+   (authored), TPC-DS q3 (optimized) and q72 (both) at 10M rows through
+   `PlanExecutor(mode="capped")`, counters zeroed before and read after
+   the counted run: one attempt, every inner join on the capped kernels,
+   the TopK on its kernels, no plain version run, `compact()` equal to the
+   eager run on the card and to numpy; on a warm run the sync-debug
+   warnings and the traced synchronize calls and device-to-host copies,
+   each at most attempts + 1; warm walls and idle shares of the capped
+   and eager TPC-DS q3 and q72; q3 at 100,000 rows from caps of 128 rows
+   and 16 keys escalating to equal the eager run; the capped join timed
+   at q72's inventory join and the capped TopK at k = 100;
 4c. FusedSelect: the kernel against its plain version on every port dtype,
    with and without nulls, nineteen predicates (the four shapes, INT8/INT32
    wrap-around, 64-bit integer columns, float32/float64 arithmetic and
@@ -214,7 +233,8 @@ class Checks:
         self.max_err = {"build": 0, "count": 0, "emit": 0, "row_hash": 0,
                         "histogram": 0, "fused_select": 0, "topk": 0,
                         "build_large": 0, "count_large": 0,
-                        "emit_large": 0, "segment_sum": 0}
+                        "emit_large": 0, "segment_sum": 0,
+                        "capped_join": 0, "capped_topk": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -2084,6 +2104,442 @@ def c4_phase(torch, chk):
     return out
 
 
+# ---- phase 4f: the capped tier -----------------------------------------------
+
+CAPPED_TOPK_LIMITS = (50, 100, 4099)   # both routes of the TopK kernels
+CAPPED_ALIVE = (0.6, 0.0, 1.0)         # shares of live rows
+ESCALATION_ROWS = 100_000
+ESCALATION_CAPS = {"row_cap": 128, "key_cap": 16}
+ESCALATION_ATTEMPTS = 14
+REPEATS = 3
+
+
+def device_intervals(prof):
+    """(start, end) in us of every kernel, copy and memset of a
+    torch.profiler run (not the device-side spans of record_function)."""
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.name != "traced_run")
+
+
+def busy_us(intervals):
+    """The union of the intervals' lengths: the card's busy time."""
+    total, end = 0, None
+    for s, e in intervals:
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def traced_run(torch, fn):
+    """One run of `fn` (returning a PlanResult) under torch.profiler: its
+    wall, the card's busy time and idle share over that wall, and the
+    synchronising records: host calls of cudaStreamSynchronize and
+    cudaDeviceSynchronize and device-to-host copies on the card."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("traced_run"):
+            res = fn()
+    (span,) = [e.time_range for e in prof.events() if e.name == "traced_run"
+               and not str(e.device_type).endswith("CUDA")]
+    # the records that start inside the run (the profiler's own end is
+    # outside it)
+    names = [e.name for e in prof.events()
+             if span.start <= e.time_range.start <= span.end]
+    syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+                for n in names)
+    dtoh = sum("DtoH" in n for n in names)
+    htod = sum("HtoD" in n for n in names)
+    busy = busy_us(device_intervals(prof)) / 1e3
+    by_name = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and e.name != "traced_run":
+            short = e.name.split("(")[0].removeprefix("void ")[:70]
+            ms, k = by_name.get(short, (0.0, 0))
+            by_name[short] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": res.wall_ms, "busy_ms": busy,
+            "idle_share": 1.0 - busy / res.wall_ms,
+            "n_device_events": len(device_intervals(prof)),
+            "sync_calls": syncs, "dtoh_copies": dtoh, "htod_copies": htod,
+            "attempts": res.attempts,
+            "top": [(k, ms, n) for k, (ms, n) in top]}
+
+
+def sync_warnings(torch, fn):
+    """(result, the Python lines that made a synchronising call) of `fn`
+    under torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def recording_joins(jc):
+    """Wrap `join_cuda.inner_join_capped_hash` (the executor looks it up at
+    each call) so that a run records every call's arguments; returns
+    (calls, restore)."""
+    calls = []
+    real = jc.inner_join_capped_hash
+
+    def rec(lkeys, rkeys, row_cap, *, lalive=None, ralive=None):
+        calls.append((list(lkeys), list(rkeys), row_cap, lalive, ralive))
+        return real(lkeys, rkeys, row_cap, lalive=lalive, ralive=ralive)
+
+    jc.inner_join_capped_hash = rec
+
+    def restore():
+        jc.inner_join_capped_hash = real
+    return calls, restore
+
+
+def capped_join_cases(torch, chk, jc, join, lkeys, rkeys, row_cap, lalive,
+                      ralive, what):
+    """The capped join kernel against its plain version, all four outputs
+    bit for bit, at `row_cap`, at the total and at half of it (overflowing)
+    and at the total + 1; returns the total."""
+    got = jc.inner_join_capped_hash(lkeys, rkeys, row_cap, lalive=lalive,
+                                    ralive=ralive)
+    total = int(got[2].sum())
+    require(not bool(got[3]) or total == row_cap, f"{what}: overflow flag")
+    caps = sorted({row_cap, total, total + 1, total // 2})
+    for cap in caps:
+        a = jc.inner_join_capped_hash(lkeys, rkeys, cap, lalive=lalive,
+                                      ralive=ralive)
+        b = join.inner_join_capped(lkeys, rkeys, cap, lalive=lalive,
+                                   ralive=ralive)
+        for part, x, y in zip(("lmap", "rmap", "valid", "overflow"), a, b):
+            chk.equal("capped_join", x, y, f"{what} row_cap={cap} {part}")
+    torch.cuda.synchronize()
+    log(f"  capped join {what}: probe {lkeys[0].length} x build "
+        f"{rkeys[0].length} -> {total} pairs; kernel == plain at row_cap "
+        f"{caps}")
+    return total
+
+
+def capped_join_bound(jc, lkeys, rkeys, row_cap, lalive, ralive):
+    """(bytes, operations) of the capped join for this run's data: the
+    alive masks, validity and the live rows' keys read once, the maps and
+    the valid mask written; murmur3 of every live row on both sides."""
+    def side(cols, alive):
+        n = cols[0].length
+        live = alive.clone()
+        for c in cols:
+            if c.validity is not None:
+                live &= c.validity
+        n_live = int(live.sum())
+        width = sum(c.data.element_size() for c in cols)
+        vbytes = n * (1 + sum(c.validity is not None for c in cols))
+        return vbytes + n_live * width, n_live * sum(
+            HASH_OPS[w] for w in jc._wide(cols))
+    lb, lo = side(lkeys, lalive)
+    rb, ro = side(rkeys, ralive)
+    return lb + rb + 9 * row_cap + 1, lo + ro
+
+
+def capped_topk_phase(torch, chk):
+    """The capped TopK kernel against its plain version on kernel_bench's
+    10M-row table at each limit and share of live rows, the route held
+    by the launch counters; timed at k = 100 with 60% of rows live."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import topk
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+
+    rng = np.random.default_rng(8)
+    t = Table([Column.from_numpy(rng.integers(-10**6, 10**6, N_ROWS)
+                                 .astype(np.int64), dt.INT64,
+                                 rng.random(N_ROWS) > 0.05, device="cuda"),
+               Column.from_numpy(rng.standard_normal(N_ROWS)
+                                 .astype(np.float32), dt.FLOAT32,
+                                 device="cuda")], ["k", "v"])
+    keys, asc = ["k", "v"], [False, True]
+    sms, smem_optin = tc.device_limits(torch.device("cuda"))
+    routes = set()
+    timing = None
+    for share in CAPPED_ALIVE:
+        alive = torch.from_numpy(rng.random(N_ROWS) < share).cuda()
+        words = topk.n_words(topk.make_signature(t, keys, asc, 1, "capped"))
+        for k in CAPPED_TOPK_LIMITS:
+            want = topk.topk_capped_plain(t, keys, asc, k, alive)
+            before = dict(tc.LAUNCHES)
+            got = tc.topk_capped_cuda(t, keys, asc, k, alive)
+            torch.cuda.synchronize()
+            per_call = {n: tc.LAUNCHES[n] - before[n] for n in before}
+            route = ("threshold" if topk.threshold_route(k, words,
+                                                         smem_optin)
+                     else "tile")
+            require((per_call["threshold"] == 1) == (route == "threshold")
+                    and sum(per_call.values()) >= 1,
+                    f"capped topk k={k}: launches {per_call}, expected the "
+                    f"{route} route")
+            routes.add(route)
+            what = f"capped topk 10M rows, {share:.0%} live, k={k}"
+            chk.tables("capped_topk", got[0], want[0], what)
+            chk.equal("capped_topk", got[1], want[1], what + " alive")
+            if share == CAPPED_ALIVE[0] and k == TPCDS_LIMIT:
+                kern = lambda: tc.topk_capped_cuda(            # noqa: E731
+                    t, keys, asc, k, alive)
+                ms, by_name = device_by_name(torch, kern, 20)
+                cms = call_ms(torch, kern, 20)
+                pms = time_cuda(torch, lambda: topk.topk_capped_plain(
+                    t, keys, asc, k, alive), 3)
+                # one torch call on the first key's word with the dead
+                # rows ranked last (no tie order, no nulls, one key)
+                word = torch.where(alive, t["k"].data,
+                                   torch.iinfo(torch.int64).min)
+                lms = call_ms(torch, lambda: torch.topk(word, k,
+                                                         sorted=True), 20)
+                nbytes = (sum(t[c].nbytes() for c in keys) + N_ROWS
+                          + k * (1 + sum(c.data.element_size()
+                                         + (c.validity is not None)
+                                         for c in t.columns)))
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                timing = {"ms": ms, "by_name": by_name, "call_ms": cms,
+                          "plain_ms": pms, "library_ms": lms,
+                          "bytes": nbytes, "ops": 0, "bytes_ms": bytes_ms,
+                          "ops_ms": 0.0, "bound_ms": bytes_ms,
+                          "route": route, "launches_per_call": per_call}
+                log(f"  {what}: {route} route, device {ms!r} ms "
+                    f"({by_name}), one call {cms!r} ms, plain {pms!r} ms, "
+                    f"torch.topk of the alive-ranked first key {lms!r} "
+                    f"ms; bound {bytes_ms!r} ms ({nbytes} B)")
+    require(routes == {"threshold", "tile"}, f"capped topk routes {routes}")
+    log(f"capped topk: {len(CAPPED_ALIVE) * len(CAPPED_TOPK_LIMITS)} cases "
+        f"at 10M rows, kernel == plain, routes {sorted(routes)}")
+    return timing
+
+
+def capped_phase(torch, chk):
+    """The capped tier on the card: the capped join kernel against its
+    plain version at the plans' own join shapes (recorded from a cold run
+    of each plan) and on a 2^22-row build half dead; the capped TopK's
+    cases; q3 (authored), TPC-DS q3 (optimized) and q72 (both) at 10M
+    rows through `PlanExecutor(mode="capped")`, counters zeroed just
+    before and read just after the counted run, each equal to the eager
+    run on the card and to numpy, with its syncs counted; escalation at
+    100,000 rows from tiny caps; warm walls and idle shares of the capped
+    and eager TPC-DS q3 and q72."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch import nds_q3, nds_q72
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import join
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda as ssc
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    from spark_rapids_tpu_torch.plan.nodes import HashJoin
+
+    out = {"plans": {}, "join_launches": {}, "topk_launches": {}}
+    t0 = time.perf_counter()
+    gen3 = nds_q3.datagen(N_SALES, seed=0)
+    ref3 = numpy_q3(gen3)
+    gen72 = nds_q72.datagen(N_SALES, seed=0)
+    ref72 = numpy_q72(gen72)
+    del gen3, gen72
+    paths = [
+        ("q3", nds_q3.q3_plan(), nds_q3.q3_inputs, False, ref3),
+        ("TPC-DS q3", nds_q3.q3_tpcds_plan(), nds_q3.q3_tpcds_inputs, True,
+         [r[:TPCDS_LIMIT] for r in ref3]),
+        ("q72 authored", nds_q72.q72_plan(), nds_q72.q72_inputs, False,
+         ref72),
+        ("q72 optimized", nds_q72.q72_plan(), nds_q72.q72_inputs, True,
+         ref72)]
+    log(f"capped: datagen and numpy references in "
+        f"{time.perf_counter() - t0:.1f} s")
+    recorded = {}
+    for what, plan, make_inputs, optimize, ref in paths:
+        inputs = make_inputs(N_SALES, seed=0, device="cuda")
+        ex = PlanExecutor(mode="capped", optimize=optimize)
+        eager = PlanExecutor(optimize=optimize)
+        calls, restore = recording_joins(jc)
+        try:
+            cold = ex.execute(plan, inputs)          # records the joins
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        recorded[what] = calls
+        for m in (jc, sc, tc, ssc):
+            m.reset_counters()
+        res = ex.execute(plan, inputs)               # the counted run
+        torch.cuda.synchronize()
+        joins = [n for n in res.plan.nodes
+                 if isinstance(n, HashJoin) and n.how == "inner"]
+        launches = {"hash_join": dict(jc.LAUNCHES),
+                    "hash_join_large": dict(jc.LARGE_LAUNCHES),
+                    "capped_join": dict(jc.CAPPED_CALLS),
+                    "topk": dict(tc.LAUNCHES)}
+        plain = {"hash_join": dict(jc.PLAIN_CALLS),
+                 "fused_select": dict(sc.PLAIN_CALLS),
+                 "topk": dict(tc.PLAIN_CALLS),
+                 "segment_sum": dict(ssc.PLAIN_CALLS)}
+        log(f"capped {what} at {N_SALES} rows: {res.wall_ms:.3f} ms, "
+            f"{res.attempts} attempt(s), caps {res.caps}, "
+            f"{res.jit_cache_hits} program cache hit(s); launches "
+            f"{launches}, plain runs {plain}")
+        log(res.profile_text())
+        require(cold.attempts == 1 and res.attempts == 1
+                and res.jit_cache_hits == 1,
+                f"capped {what}: attempts {cold.attempts}/{res.attempts}, "
+                f"cache hits {res.jit_cache_hits}")
+        n = len(joins)
+        require(launches["capped_join"]["join"] == n
+                and launches["hash_join"] == {"build": n, "count": n,
+                                              "emit": n},
+                f"capped {what}: {n} joins, launches {launches}")
+        stamps = {m.label: m.kernel for m in res.metrics.values()
+                  if m.kind in ("HashJoin", "TopK")}
+        require(all(k in ("cuda:hash_join", "cuda:topk")
+                    for k in stamps.values()), f"capped {what}: {stamps}")
+        has_topk = any(n.kind == "TopK" for n in res.plan.nodes)
+        require(sum(launches["topk"].values()) >= int(has_topk)
+                and (has_topk or sum(launches["topk"].values()) == 0),
+                f"capped {what}: topk launches {launches['topk']}")
+        require(all(v == 0 for d in plain.values() for v in d.values()),
+                f"capped {what}: plain versions ran on the card {plain}")
+        got = res.compact().to("cpu")
+        want = eager.execute(plan, inputs).table.to("cpu")
+        chk.tables("capped_join", got, want, f"capped {what} vs eager")
+        for name, r in zip(got.names, ref):
+            if not np.array_equal(got[name].data.numpy(), r):
+                raise AssertionError(f"capped {what} {name} differs from "
+                                     "numpy")
+        # the host's reads of one warm run: at most one an attempt and one
+        # for the counts
+        _, at = sync_warnings(torch, lambda: ex.execute(plan, inputs))
+        warned = len(at)
+        trace = traced_run(torch, lambda: ex.execute(plan, inputs))
+        limit = trace["attempts"] + 1
+        log(f"  syncs of a warm run: {warned} sync-debug warnings, at "
+            f"{at}; traced: "
+            f"{trace['sync_calls']} stream/device synchronize calls, "
+            f"{trace['dtoh_copies']} device-to-host copies (at most "
+            f"{limit} each); idle share {trace['idle_share']!r} of "
+            f"{trace['wall_ms']!r} ms")
+        require(warned <= limit and trace["sync_calls"] <= limit
+                and trace["dtoh_copies"] <= limit,
+                f"capped {what}: {warned} warnings, {trace}")
+        entry = {"wall_ms": res.wall_ms, "attempts": res.attempts,
+                 "caps": res.caps, "launches": launches,
+                 "sync_warnings": warned, "trace": trace,
+                 "profile": res.profile()}
+        if what != "q3":
+            capped_walls = [ex.execute(plan, inputs).wall_ms
+                            for _ in range(REPEATS)]
+            eager_walls = [eager.execute(plan, inputs).wall_ms
+                           for _ in range(REPEATS)]
+            etrace = traced_run(torch, lambda: eager.execute(plan, inputs))
+            log(f"  warm walls, capped: {capped_walls}; eager: "
+                f"{eager_walls}; eager idle share "
+                f"{etrace['idle_share']!r} of {etrace['wall_ms']!r} ms")
+            entry.update(capped_walls=capped_walls, eager_walls=eager_walls,
+                         eager_trace=etrace)
+        out["plans"][what] = entry
+        out["join_launches"][what] = launches["capped_join"]["join"]
+        out["topk_launches"][what] = sum(launches["topk"].values())
+        log(f"capped {what}: {got.num_rows} rows, equal to the eager run "
+            f"and to numpy")
+        del inputs, res, cold
+
+    # the kernel at the plans' join shapes, with the masks their filters give
+    t0 = time.perf_counter()
+    for what, i in (("q3", 0), ("q3", 1), ("q72 optimized", 0),
+                    ("q72 optimized", None)):
+        calls = recorded[what]
+        if i is None:                 # the inventory join: two key columns
+            (args,) = [c for c in calls if len(c[0]) == 2]
+            label = f"{what} inventory join"
+        else:
+            args = calls[i]
+            label = f"{what} join {i + 1}"
+        capped_join_cases(torch, chk, jc, join, *args, label)
+    inv = [c for c in recorded["q72 optimized"] if len(c[0]) == 2][0]
+    # a 2^22-row build, half its rows dead
+    rng = np.random.default_rng(11)
+    nb = jc.MAX_BUILD
+    bk = Column.from_numpy(rng.permutation(nb).astype(np.int64), dt.INT64,
+                           device="cuda")
+    pk = Column.from_numpy(rng.integers(0, 2 * nb, 4 * 10**6)
+                           .astype(np.int64), dt.INT64, device="cuda")
+    ralive = torch.from_numpy(rng.random(nb) < 0.5).cuda()
+    lalive = torch.ones(pk.length, dtype=torch.bool, device="cuda")
+    capped_join_cases(torch, chk, jc, join, [pk], [bk], pk.length, lalive,
+                      ralive, "2^22-row build, half dead")
+    del recorded
+    log(f"capped join: kernel == plain on every case "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # timed at q72's inventory join
+    lkeys, rkeys, row_cap, lalive, ralive = inv
+    kern = lambda: jc.inner_join_capped_hash(                 # noqa: E731
+        lkeys, rkeys, row_cap, lalive=lalive, ralive=ralive)
+    ms, by_name = device_by_name(torch, kern, 20)
+    cms = call_ms(torch, kern, 20)
+    pms = time_cuda(torch, lambda: join.inner_join_capped(
+        lkeys, rkeys, row_cap, lalive=lalive, ralive=ralive), 3)
+    nbytes, ops = capped_join_bound(jc, lkeys, rkeys, row_cap, lalive,
+                                    ralive)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
+    out["join_timing"] = {"ms": ms, "by_name": by_name, "call_ms": cms,
+                          "plain_ms": pms, "bytes": nbytes, "ops": ops,
+                          "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                          "bound_ms": max(bytes_ms, ops_ms),
+                          "probe_rows": lkeys[0].length,
+                          "build_rows": rkeys[0].length,
+                          "row_cap": row_cap}
+    log(f"  capped join at q72's inventory join (probe {lkeys[0].length}, "
+        f"build {rkeys[0].length}, row_cap {row_cap}): device {ms!r} ms "
+        f"({by_name}), one call {cms!r} ms, plain (sort-based) {pms!r} ms; "
+        f"bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B, {ops} ops)")
+    del inv, lkeys, rkeys, lalive, ralive, kern
+
+    out["topk_timing"] = capped_topk_phase(torch, chk)
+
+    # escalation: q3 from tiny caps
+    inputs = nds_q3.q3_inputs(ESCALATION_ROWS, seed=0, device="cuda")
+    plan = nds_q3.q3_plan()
+    ex = PlanExecutor(mode="capped", optimize=False, caps=ESCALATION_CAPS,
+                      max_cap_attempts=ESCALATION_ATTEMPTS)
+    jc.reset_counters()
+    res = ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    want = PlanExecutor(optimize=False).execute(plan, inputs).table
+    chk.tables("capped_join", res.compact().to("cpu"), want.to("cpu"),
+               "capped q3 escalation vs eager")
+    uses_cap = {m.label: m.escalations for m in res.metrics.values()
+                if m.kind in ("HashJoin", "HashAggregate")}
+    others = [m.escalations for m in res.metrics.values()
+              if m.kind not in ("HashJoin", "HashAggregate")]
+    require(res.attempts > 1 and res.caps["row_cap"] > 128
+            and res.caps["key_cap"] > 16
+            and set(uses_cap.values()) == {res.attempts - 1}
+            and not any(others)
+            and all(v == 0 for v in jc.PLAIN_CALLS.values()),
+            f"capped q3 escalation: attempts {res.attempts}, caps "
+            f"{res.caps}, escalations {uses_cap}, plain {jc.PLAIN_CALLS}")
+    out["escalation"] = {"rows": ESCALATION_ROWS, "start": ESCALATION_CAPS,
+                         "attempts": res.attempts, "caps": res.caps,
+                         "escalations": uses_cap, "wall_ms": res.wall_ms}
+    log(f"capped q3 escalation at {ESCALATION_ROWS} rows from "
+        f"{ESCALATION_CAPS}: {res.attempts} attempts to {res.caps}, "
+        f"escalations {uses_cap}, equal to the eager run")
+    return out
+
+
 def summed(timing, forms, **extra):
     """One kernels-line entry: the sums over the path's calls, each form's
     own numbers under `by_form`."""
@@ -2135,6 +2591,7 @@ def main(argv=None):
     large = large_route_phase(torch, chk)
     q72, q72_timing = q72_phase(torch, chk)
     c4 = c4_phase(torch, chk)
+    capped = capped_phase(torch, chk)
     fs_timing = fused_select_phase(torch, chk)
     tk_timing = topk_phase(torch, chk)
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
@@ -2242,6 +2699,38 @@ def main(argv=None):
                    "no tie order, no nulls, one key",
         **summed(tk_timing, TOPK_LIMITS, library_ms=sum(
             tk_timing[k]["library_ms"] for k in TOPK_LIMITS))})
+    # the capped tier's two kernels: the join timed at q72's inventory join,
+    # the TopK at k = 100 over 10M rows with 60% live; launches on the
+    # capped plans' counted runs
+    t = capped["join_timing"]
+    kernels.append({
+        "name": "hash_join_capped", "route": "cuda", "source": SOURCE,
+        "replaces": "spark_rapids_tpu/ops/join_pallas.py:400",
+        "launches": sum(capped["join_launches"].values()),
+        "launches_by_path": capped["join_launches"],
+        "exact": chk.max_err["capped_join"] == 0,
+        "max_abs_err": chk.max_err["capped_join"],
+        "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                     else "operations"),
+        "bytes": t["bytes"], "ops": t["ops"], "by_name": t["by_name"],
+        "library_ms": None})
+    t = capped["topk_timing"]
+    kernels.append({
+        "name": "topk_capped", "route": "cuda", "source": TK_SOURCE,
+        "replaces": "spark_rapids_tpu/ops/topk_pallas.py:179",
+        "launches": sum(capped["topk_launches"].values()),
+        "launches_by_path": capped["topk_launches"],
+        "exact": chk.max_err["capped_topk"] == 0,
+        "max_abs_err": chk.max_err["capped_topk"],
+        "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "bytes": t["bytes"], "ops": t["ops"], "by_name": t["by_name"],
+        "library": "torch.topk(sorted=True) over the first key's values "
+                   "with the dead rows ranked last: no tie order, no nulls, "
+                   "one key",
+        "library_ms": t["library_ms"]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2267,7 +2756,7 @@ def main(argv=None):
                        "q72_wall_ms": {w: r["res"].wall_ms
                                        for w, r in q72.items()},
                        "q72_inventory_join": q72_timing,
-                       "c4": c4},
+                       "c4": c4, "capped": capped},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

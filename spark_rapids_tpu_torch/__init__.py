@@ -7,7 +7,8 @@ imports torch and numpy, never jax and nothing of `spark_rapids_tpu`.
 
 Entry points take an explicit device and default to the CUDA card
 (`device.resolve`); tensors are moved to it once, where a plan's inputs are
-bound. The port runs NDS q3 (`nds_q3`) through the eager plan engine:
+bound. The port runs NDS q3 (`nds_q3`) and q72 (`nds_q72`) through the
+plan engine's eager and capped tiers:
 fixed-width columns, filter, gather, inner/semi/anti join, group-by, sort,
 and the hash-join build/probe kernels in CUDA. It hashes rows as Spark does
 (`ops.murmur_hash3_32`, `ops.xxhash64`, `api.Hash`) with a fused row-hash

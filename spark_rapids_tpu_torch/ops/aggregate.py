@@ -14,10 +14,22 @@ order.
 Spark semantics: sum/min/max/mean ignore nulls and an all-null group gives
 null; count counts non-nulls; size is count(*); mean is a float64 sum over
 the count; integer sums widen to INT64 and wrap like Java longs.
+
+`groupby_aggregate_capped` is the capped tier's form (the reference's
+`:556`): the output has `key_cap` rows, a `valid` mask and an overflow
+flag, and nothing reads a size from the device. An `alive` mask excludes
+rows entirely: its dead flag is the leading sort operand, so dead rows sort
+last as groups of their own, which the group count leaves out. Group ids
+below `key_cap` of live rows keep their slots; every other row (dead, or
+in a group past the cap) reduces into a slot of its own past them, which
+is dropped, so each reduction has key_cap + rows slots whatever the data
+and the padded rows, which share their (zeroed) keys, never pile onto one
+address; the float sums' group starts end the last kept group where the
+kept rows end.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -116,31 +128,66 @@ def float_extreme(op: str, x: torch.Tensor) -> torch.Tensor:
 
 def groupby_aggregate(table: Table,
                       key_names: Sequence[Union[int, str]],
-                      aggs: Sequence[Tuple[Union[int, str], str]]) -> Table:
+                      aggs: Sequence[Tuple[Union[int, str], str]],
+                      _cap: Optional[int] = None,
+                      _alive: Optional[torch.Tensor] = None):
     """Group by `key_names`, apply `aggs` [(column, op)] with op in
     sum|count|min|max|mean|size. Returns keys + one column per agg, named
-    "op(col)", groups in key sort order."""
+    "op(col)", groups in key sort order.
+
+    `_cap` and `_alive` are `groupby_aggregate_capped`'s: with `_cap` the
+    result is (table of `_cap` rows, valid, overflow)."""
     keys = [table[k] for k in key_names]
     if not keys:
         raise ValueError("groupby requires at least one key column")
     operands = []
     for c in keys:
         operands.extend(_key_operands(c, True, None))
+    if _alive is not None:
+        operands.insert(0, (~_alive).to(torch.int32))  # dead rows sort last
     n = table.num_rows
     dev = table.device
     order = lex_order(operands)
-    boundary = torch.zeros(n, dtype=torch.bool, device=dev)
-    if n:
-        boundary[0] = True
+    # the first row starts a group; built on the device (a Python scalar
+    # stored into a CUDA tensor is a synchronising host copy)
+    boundary = torch.arange(n, device=dev) == 0
     for o in operands:
         s = o.index_select(0, order)
         boundary[1:] |= s[1:] != s[:-1]
     seg = torch.cumsum(boundary, 0) - 1               # group id, sorted pos
-    g = int(seg[-1]) + 1 if n else 0                  # the one host sync
-    first_rows = order[boundary]
+    if _cap is None or n == 0:
+        g = int(seg[-1]) + 1 if n else 0              # the one host sync
+        kept_groups = g
+        first_rows = order[boundary]
+        starts = None                                 # groups' first rows
+        sum_seg = seg
+    else:
+        # key_cap slots for the kept groups (the live ones, up to the cap);
+        # every other row, dead or past the cap, reduces into a slot of its
+        # own past them, so the padded rows never pile onto one address.
+        # The kept rows are a prefix of the sort: live rows sort first.
+        pos = torch.arange(n, device=dev)
+        kept = seg < _cap
+        if _alive is not None:
+            kept &= _alive.index_select(0, order)
+        seg = torch.where(kept, seg, _cap + pos)
+        g, kept_groups = _cap + n, _cap
+        first = torch.where(boundary, seg, _cap + pos)  # one row a slot
+        first_rows = torch.full((g,), n - 1, dtype=torch.int64, device=dev
+                                ).scatter_(0, first, order)[:_cap]
+        # ascending: an empty slot starts where the kept rows end, and the
+        # spare group after the last one folds the rest, which is dropped
+        end = kept.sum()
+        starts = torch.cat([torch.minimum(
+            torch.full((g,), n, dtype=torch.int64, device=dev
+                       ).scatter_(0, first, pos)[:_cap], end),
+            end.reshape(1)])
+        sum_seg = seg.clamp(max=_cap)
     out_cols = [take(c, first_rows, _has_negative=False) for c in keys]
     names = [table.names[k] if isinstance(k, int) else k for k in key_names]
-    starts = None                                     # groups' first rows
+
+    def kept(x):
+        return x[:kept_groups]
 
     for col_ref, op in aggs:
         if op not in AGG_OPS:
@@ -149,15 +196,17 @@ def groupby_aggregate(table: Table,
             col_ref if isinstance(col_ref, str) else table.names[col_ref])
         names.append(f"{op}({cname})")
         if op == "size":
-            sizes = torch.bincount(seg, minlength=g)
-            out_cols.append(Column(dtypes.INT64, g, sizes))
+            sizes = (torch.bincount(seg, minlength=g) if _cap is None else
+                     torch.zeros(g, dtype=torch.int64, device=dev)
+                     .index_add_(0, seg, torch.ones_like(seg)))
+            out_cols.append(Column(dtypes.INT64, kept_groups, kept(sizes)))
             continue
         c = table[col_ref]
         ok = c.null_mask.index_select(0, order)
-        cnt = torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
-            0, seg, ok.to(torch.int64))
+        cnt = kept(torch.zeros(g, dtype=torch.int64, device=dev).index_add_(
+            0, seg, ok.to(torch.int64)))
         if op == "count":
-            out_cols.append(Column(dtypes.INT64, g, cnt))
+            out_cols.append(Column(dtypes.INT64, kept_groups, cnt))
             continue
         if not (c.dtype.is_integer or c.dtype.is_floating
                 or c.dtype.kind in _MINMAX_KINDS):
@@ -171,7 +220,7 @@ def groupby_aggregate(table: Table,
                                               device=dev))
                 if starts is None:
                     starts = torch.nonzero(boundary).reshape(-1)
-                s = segment_sum(acc, seg, starts)
+                s = kept(segment_sum(acc, sum_seg, starts))
                 if op == "mean":
                     s = s / torch.where(cnt == 0, torch.ones_like(cnt),
                                         cnt).to(torch.float64)
@@ -179,9 +228,52 @@ def groupby_aggregate(table: Table,
                 acc = torch.where(ok, v.to(torch.int64),
                                   torch.zeros((), dtype=torch.int64,
                                               device=dev))
-                s = torch.zeros(g, dtype=torch.int64,
-                                device=dev).index_add_(0, seg, acc)
-            out_cols.append(Column(dt, g, s.to(dt.storage_dtype()), cnt > 0))
+                s = kept(torch.zeros(g, dtype=torch.int64,
+                                     device=dev).index_add_(0, seg, acc))
+            out_cols.append(Column(dt, kept_groups, s.to(dt.storage_dtype()),
+                                   cnt > 0))
             continue
-        out_cols.append(Column(dt, g, _extreme(op, v, ok, seg, g), cnt > 0))
-    return Table(out_cols, names)
+        out_cols.append(Column(dt, kept_groups,
+                               kept(_extreme(op, v, ok, seg, g)), cnt > 0))
+    if _cap is None:
+        return Table(out_cols, names)
+    live = boundary if _alive is None else \
+        boundary & _alive.index_select(0, order)
+    num_groups = live.sum()
+    valid = torch.arange(_cap, device=dev) < num_groups
+    return (Table([_pad_column(c, _cap) for c in out_cols], names), valid,
+            num_groups > _cap)
+
+
+def _pad_column(col: Column, to: int) -> Column:
+    """`col` cut or padded to `to` rows; padded rows are zero and null
+    (the capped contract: rows past the group count are masked by the
+    caller's valid vector)."""
+    n = col.length
+    if n >= to:
+        return Column(col.dtype, to, col.data[:to],
+                      None if col.validity is None else col.validity[:to])
+    extra = to - n
+    data = torch.cat([col.data, torch.zeros(extra, dtype=col.data.dtype,
+                                            device=col.device)])
+    validity = None
+    if col.validity is not None:
+        validity = torch.cat([col.validity,
+                              torch.zeros(extra, dtype=torch.bool,
+                                          device=col.device)])
+    return Column(col.dtype, to, data, validity)
+
+
+def groupby_aggregate_capped(table: Table,
+                             key_names: Sequence[Union[int, str]],
+                             aggs: Sequence[Tuple[Union[int, str], str]],
+                             key_cap: int,
+                             alive: Optional[torch.Tensor] = None):
+    """`groupby_aggregate` with a static `key_cap` output size instead of
+    the group-count host read: (table of key_cap rows, valid (key_cap,)
+    bool, overflow () bool). Rows past the group count are not defined and
+    masked by `valid`; overflow means key_cap was too small. `alive`, an
+    (n,) bool, excludes rows entirely (not as nulls: the row is not
+    there)."""
+    return groupby_aggregate(table, key_names, aggs, _cap=key_cap,
+                             _alive=alive)

@@ -814,7 +814,10 @@ static size_t emit_smem_bytes(int C, int nks) {
 // walks from its first matching slot, taking the slots whose hash and keys
 // equal that slot's build row's, until its count is reached. The pairs go
 // to the warp's part of shared memory, then out as one run per map; a
-// segment with more than EMIT_STAGE pairs writes them in place.
+// segment with more than EMIT_STAGE pairs writes them in place. Only pairs
+// at positions below `limit` are written (the capped join's row_cap; the
+// eager join passes the total): a tile or segment that starts at or past it
+// is skipped, and a segment that crosses it writes its first pairs only.
 template <bool LARGE>
 __global__ void __launch_bounds__(PROBE_THREADS)
 emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
@@ -824,8 +827,8 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
             const typename Route<LARGE>::Ent* __restrict__ entries,
             const int* __restrict__ seg_sum,
             const int* __restrict__ seg_matched,
-            const long long* __restrict__ tile_off, int* __restrict__ out_l,
-            int* __restrict__ out_r) {
+            const long long* __restrict__ tile_off, long long limit,
+            int* __restrict__ out_l, int* __restrict__ out_r) {
   using R = Route<LARGE>;
   using Ent = typename R::Ent;
   // the pairs of a tile's earlier segments: up to 7 x 2^30 on the large route
@@ -850,7 +853,7 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
     const long long sg = tile * PROBE_SEGS + warp;
     if (sg >= segs) continue;
     const int matched = seg_matched[sg];
-    if (matched == 0) continue;
+    if (matched == 0 || tile_off[tile] >= limit) continue;
     // the pairs of the tile's earlier segments
     Sum earlier = lane < warp ? seg_sum[tile * PROBE_SEGS + lane] : 0;
     if constexpr (LARGE) {
@@ -859,6 +862,10 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
       earlier = __reduce_add_sync(0xffffffffu, earlier);
     }
     const int pairs = seg_sum[sg];
+    // the pairs this segment may write: those before the limit
+    const long long room = limit - tile_off[tile] - earlier;
+    if (room <= 0) continue;
+    const int keep = room < pairs ? static_cast<int>(room) : pairs;
     int* dst_l = out_l + tile_off[tile] + earlier;
     int* dst_r = out_r + tile_off[tile] + earlier;
     const bool staged = pairs <= EMIT_STAGE;
@@ -882,9 +889,12 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
         const unsigned long long f = t.at(s0);
         const int r0 = ent_row(f);
         const uint32_t h0 = ent_hash(f);
-        const int end = o + cnt;
-        to_l[o] = row;
-        to_r[o] = r0;
+        // staged pairs fit the stage; in place, none at or past `keep`
+        const int end = staged || o + cnt <= keep ? o + cnt : keep;
+        if (o < end) {
+          to_l[o] = row;
+          to_r[o] = r0;
+        }
         ++o;
         for (int d = 1; o < end && d < C; ++d) {
           const int s = (s0 + d) & mask;
@@ -901,7 +911,7 @@ emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
     }
     if (staged) {
       __syncwarp();
-      for (int o = lane; o < pairs; o += 32) {
+      for (int o = lane; o < keep; o += 32) {
         dst_l[o] = stage_l[o];
         dst_r[o] = stage_r[o];
       }
@@ -1092,18 +1102,21 @@ int hj_count(const void* const* pdata, const void* const* pvalid,
 }
 
 // entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows,
-// with the same table; out_l, out_r: (total,) int32 each
+// with the same table; out_l, out_r: (limit,) int32 each, written at the
+// pairs' positions below limit (the total or less: the eager join passes
+// the total, the capped join its row_cap)
 int hj_emit(const void* const* bdata, const int* width, const int* wide,
             int nk, long long n, const int* slot_row,
             const uint32_t* slot_hash, const unsigned long long* ent, int C,
             const void* entries, const int* seg_sum, const int* seg_matched,
-            const long long* tile_off, int* out_l, int* out_r,
-            void* stream) {
+            const long long* tile_off, long long limit, int* out_l,
+            int* out_r, void* stream) {
   Keys b;
   const void* no_valid[MAX_KEYS] = {nullptr};
   const bool large = C > SMALL_CAPACITY;
   if (!make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      n > INT_MAX || !capacity_ok(C) || (large && ent == nullptr))
+      n > INT_MAX || !capacity_ok(C) || (large && ent == nullptr) ||
+      limit < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
   const size_t smem = large ? emit_stage_bytes() : emit_smem_bytes(C, nks);
@@ -1124,12 +1137,12 @@ int hj_emit(const void* const* bdata, const int* width, const int* wide,
     emit_kernel<true><<<blocks, PROBE_THREADS, smem, s>>>(
         b, slot_row, slot_hash, ent, C, nks, n,
         static_cast<const unsigned long long*>(entries), seg_sum,
-        seg_matched, tile_off, out_l, out_r);
+        seg_matched, tile_off, limit, out_l, out_r);
   else
     emit_kernel<false><<<blocks, PROBE_THREADS, smem, s>>>(
         b, slot_row, slot_hash, ent, C, nks, n,
         static_cast<const unsigned int*>(entries), seg_sum, seg_matched,
-        tile_off, out_l, out_r);
+        tile_off, limit, out_l, out_r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,15 @@ The plain versions hash with the row hash's own murmur3 (`hash.py`, unsigned
 `inner_join_hash` is the counterpart of `inner_join_pallas`: int32 gather
 maps, pair for pair those of `ops.join.inner_join`. Between count and emit
 it reads the total (the one host sync) and computes nothing over the probe
-rows. It is registered as `hash_join`/"cuda" for backend "cuda" and
+rows. `inner_join_capped_hash` is the counterpart of
+`inner_join_capped_pallas`, the capped tier's join: the same kernels with
+no host read, the alive masks folded into the first key's validity (the
+build never inserts an invalid row, the count gives it 0), the emit
+writing only the pairs below `row_cap` into (row_cap,) maps, and `valid`
+and `overflow` computed on the device from the count's total; bit for bit
+the outputs of `ops.join.inner_join_capped`. `CAPPED_CALLS` counts its
+calls that launched the kernels. `inner_join_hash` is registered as
+`hash_join`/"cuda" for backend "cuda" and
 declines what the reference's `_supports` declines (non-inner joins,
 mismatched or unsupported key kinds) and build sides over `MAX_BUILD` rows.
 The reference declines above 512 build rows, the table its VMEM holds;
@@ -68,10 +76,12 @@ LAUNCHES = {"build": 0, "count": 0, "emit": 0}
 # the launches of LAUNCHES that took the large route (C > SMALL_CAPACITY)
 LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0}
 PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0}
+# calls of inner_join_capped_hash that launched the kernels
+CAPPED_CALLS = {"join": 0}
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, LARGE_LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, LARGE_LAUNCHES, PLAIN_CALLS, CAPPED_CALLS):
         for k in d:
             d[k] = 0
 
@@ -278,11 +288,14 @@ def probe_counts_plain(pcols, table: HashTable, bcols,
 
 def probe_emit_plain(pcols, table: HashTable, bcols, probe: ProbeCounts,
                      total: int):
-    """The pairs from the count's lists: an entry's first pair goes to its
-    tile's offset, plus the counts of the entries before it in the tile
-    (the lists of its earlier segments, then its own); it walks from its
-    first matching slot, taking the slots whose hash and keys equal that
-    slot's build row's, until its count."""
+    """The pairs from the count's lists into (total,) maps: an entry's
+    first pair goes to its tile's offset, plus the counts of the entries
+    before it in the tile (the lists of its earlier segments, then its
+    own); it walks from its first matching slot, taking the slots whose
+    hash and keys equal that slot's build row's, until its count. Only
+    pairs at positions below `total` are written: `probe.total` gives them
+    all, a smaller size (the capped join's row_cap) the first ones, and
+    past the pairs the maps are not defined."""
     dev = pcols[0].device
     n, tile, seg, C = pcols[0].length, probe.tile, probe.seg, \
         table.capacity
@@ -318,8 +331,9 @@ def probe_emit_plain(pcols, table: HashTable, bcols, probe: ProbeCounts,
         rr = r.clamp(min=0)
         take = active & (shash.index_select(0, s) == h0) \
             & _keys_equal(bcols, r0, bcols, rr)
-        out_l[pos[take]] = rows[take].to(torch.int32)
-        out_r[pos[take]] = rr[take].to(torch.int32)
+        put = take & (pos < total)
+        out_l[pos[put]] = rows[put].to(torch.int32)
+        out_r[pos[put]] = rr[put].to(torch.int32)
         pos += take.to(torch.int64)
         done += take.to(torch.int64)
     return out_l, out_r
@@ -348,7 +362,8 @@ def _lib():
                                              _P, _P, _P, _P, _P]
         lib.hj_emit.argtypes = [_PP, _PI, _PI, ctypes.c_int,
                                 ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
-                                _P, _P, _P, _P, _P, _P, _P]
+                                _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
+                                _P]
         for fn in (lib.hj_build, lib.hj_build_large, lib.hj_barrier,
                    lib.hj_count, lib.hj_emit):
             fn.restype = ctypes.c_int
@@ -492,15 +507,16 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
                         "contiguous (n,) entries (int32, int64 on the large "
                         "route), (segs,) int32 sums and matched rows, "
                         "(tiles,) int64 offsets, on the probe's device")
-    # `total` must be probe.total (the caller's one host sync): the kernel
-    # writes a tile's pairs at its offset .. offset + its sum - 1
+    # the kernel writes a tile's pairs at its offset .. offset + its sum -
+    # 1, those below `total` only: probe.total (the eager join's one host
+    # sync) writes every pair, a row_cap the first ones
     out_l = torch.empty(total, dtype=torch.int32, device=dev)
     out_r = torch.empty(total, dtype=torch.int32, device=dev)
     if total == 0:
         return out_l, out_r
     data, _, width, wide, nk, _ = _key_arrays(bcols)
     rc = _lib().hj_emit(data, width, wide, nk, n, *_table_ptrs(table), C,
-                        *[t.data_ptr() for t, _, _ in shapes],
+                        *[t.data_ptr() for t, _, _ in shapes], total,
                         out_l.data_ptr(), out_r.data_ptr(), _stream(dev))
     _raise_on(rc, "hash-join probe-emit kernel")
     LAUNCHES["emit"] += 1
@@ -533,9 +549,7 @@ def probe_emit(pcols, table: HashTable, bcols, probe: ProbeCounts,
     return probe_emit_cuda(pcols, table, bcols, probe, total)
 
 
-def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
-    """Inner equi-join via hash build/probe: gather maps (left_map,
-    right_map), pair for pair those of `ops.join.inner_join`."""
+def _join_keys(left_keys, right_keys):
     lcols, rcols = _cols(left_keys), _cols(right_keys)
     if len(lcols) != len(rcols) or not lcols:
         raise ValueError("join requires equal, nonzero key column counts")
@@ -543,6 +557,13 @@ def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
         if a.dtype.kind != b.dtype.kind:
             raise TypeError(f"join key kinds differ: {a.dtype!r} vs "
                             f"{b.dtype!r}")
+    return lcols, rcols
+
+
+def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
+    """Inner equi-join via hash build/probe: gather maps (left_map,
+    right_map), pair for pair those of `ops.join.inner_join`."""
+    lcols, rcols = _join_keys(left_keys, right_keys)
     nl, nr = lcols[0].length, rcols[0].length
     dev = lcols[0].device
 
@@ -560,6 +581,42 @@ def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
     lmap, rmap = probe_emit(lcols, table, rcols, probe, total)
     return (Column(dtypes.INT32, total, lmap),
             Column(dtypes.INT32, total, rmap))
+
+
+def _with_alive(cols: Sequence[Column], alive) -> List[Column]:
+    """The key columns with `alive` folded into the first one's validity:
+    a dead row is then a row with a null key, which never matches."""
+    if alive is None:
+        return list(cols)
+    c = cols[0]
+    v = alive if c.validity is None else c.validity & alive
+    return [Column(c.dtype, c.length, c.data, v)] + list(cols[1:])
+
+
+def inner_join_capped_hash(left_keys, right_keys, row_cap: int, *,
+                           lalive=None, ralive=None):
+    """The capped inner join via hash build/probe, with no host read:
+    (lmap, rmap, valid, overflow), bit for bit those of
+    `ops.join.inner_join_capped`: (row_cap,) int32 maps holding the first
+    row_cap pairs in probe-row then chain order and 0 past them, valid =
+    arange(row_cap) < total, overflow = total > row_cap (a () bool)."""
+    lcols, rcols = _join_keys(left_keys, right_keys)
+    nl, nr = lcols[0].length, rcols[0].length
+    dev = lcols[0].device
+    if nl == 0 or nr == 0:
+        z = torch.zeros(row_cap, dtype=torch.int32, device=dev)
+        return (z, z, torch.zeros(row_cap, dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    lcols, rcols = _with_alive(lcols, lalive), _with_alive(rcols, ralive)
+    table = build_table(rcols, _capacity(nr))
+    probe = probe_counts(lcols, table, rcols)
+    lmap, rmap = probe_emit(lcols, table, rcols, probe, row_cap)
+    if dev.type == "cuda":
+        CAPPED_CALLS["join"] += 1
+    valid = torch.arange(row_cap, device=dev) < probe.total
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return (torch.where(valid, lmap, zero), torch.where(valid, rmap, zero),
+            valid, probe.total > row_cap)
 
 
 # ---- registry wiring ---------------------------------------------------------

@@ -14,7 +14,10 @@ this kernel instead.
 - `segment_sum_cuda`: the kernel, on CUDA tensors only.
 
 `segment_sum` dispatches by the values' device. `LAUNCHES` counts kernel
-launches, `PLAIN_CALLS` the plain version's runs in `segment_sum`.
+launches, `PLAIN_CALLS` the plain version's runs in `segment_sum`. The
+capped groupby passes key_cap + 1 groups: the last starts where its kept
+groups end and folds the rows it drops (dead rows, groups past the cap),
+so the kept groups' sums never reach them.
 """
 from __future__ import annotations
 

@@ -13,11 +13,14 @@ groupby and join share):
 
 `sorted_order` is a stable lexicographic sort: one stable argsort per
 operand, least significant first, so equal rows keep their input order as
-the reference's stable multi-operand `lax.sort` does.
+the reference's stable multi-operand `lax.sort` does. Given an `alive`
+mask (the capped tier's), a leading operand sinks dead rows to the end
+whatever their keys; `sort_table_capped` returns the sorted alive mask
+with the rows.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -82,10 +85,11 @@ def lex_order(operands: Sequence[torch.Tensor]) -> torch.Tensor:
 def sorted_order(keys: Union[Table, Sequence[Column], Column],
                  ascending: Union[bool, Sequence[bool]] = True,
                  null_precedence: Union[None, str,
-                                        Sequence[Optional[str]]] = None
-                 ) -> Column:
+                                        Sequence[Optional[str]]] = None,
+                 alive: Optional[torch.Tensor] = None) -> Column:
     """INT32 gather map that stably sorts `keys` lexicographically
-    (cudf::stable_sorted_order)."""
+    (cudf::stable_sorted_order). `alive`, an (n,) bool, sinks the dead rows
+    to the end whatever their keys, so the live rows are a prefix."""
     if isinstance(keys, Column):
         cols = [keys]
     elif isinstance(keys, Table):
@@ -105,6 +109,8 @@ def sorted_order(keys: Union[Table, Sequence[Column], Column],
     operands = []
     for c, a, npred in zip(cols, asc, nulls):
         operands.extend(_key_operands(c, a, npred))
+    if alive is not None:
+        operands.insert(0, (~alive).to(torch.int32))
     n = cols[0].length
     order = lex_order(operands).to(torch.int32)
     return Column(dtypes.INT32, n, order)
@@ -121,3 +127,23 @@ def sort_table(table: Table,
             else [table[k] for k in key_names])
     order = sorted_order(keys, ascending, null_precedence)
     return take_table(table, order.data, _has_negative=False)
+
+
+def sort_table_capped(table: Table,
+                      key_names: Optional[Sequence[Union[int, str]]] = None,
+                      ascending: Union[bool, Sequence[bool]] = True,
+                      null_precedence: Union[None, str,
+                                             Sequence[Optional[str]]] = None,
+                      alive: Optional[torch.Tensor] = None
+                      ) -> Tuple[Table, torch.Tensor]:
+    """`sort_table` for the capped tier: dead rows sink to the end whatever
+    their keys. Returns (sorted table, sorted alive mask); the live rows
+    are a prefix."""
+    keys = (list(table.columns) if key_names is None
+            else [table[k] for k in key_names])
+    order = sorted_order(keys, ascending, null_precedence, alive).data
+    out = take_table(table, order, _has_negative=False)
+    if alive is None:
+        alive = torch.ones(table.num_rows, dtype=torch.bool,
+                           device=table.device)
+    return out, alive.index_select(0, order)

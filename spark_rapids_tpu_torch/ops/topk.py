@@ -6,7 +6,9 @@ Counterpart of the wiring half of `spark_rapids_tpu/ops/topk_pallas.py`
 (`_order_words`, `make_signature`, `_supports`); the CUDA kernels are in
 `topk_cuda.py`. `topk_plain` is what the eager tier's TopK computes
 without the kernel: `sort_table` then `slice_table(0, min(n, rows))`;
-`PLAIN_CALLS` counts its runs.
+`topk_capped_plain` the capped tier's (the reference's `topk_capped`):
+the top n live rows, as `sort_table_capped` orders them. `PLAIN_CALLS`
+counts the runs of both.
 
 The kernels compare tuples of 64-bit words (`order_words`): a null rank
 per nullable key, one value word per key, the row index last. They build
@@ -37,10 +39,12 @@ from typing import List, Sequence
 
 import torch
 
+from .. import dtypes
 from ..columnar import Column, Table
 from ..dtypes import Kind
 from .copying import slice_table
-from .sort import _key_operands, sort_table
+from .gather import take_table
+from .sort import _key_operands, sort_table, sorted_order
 
 MAX_WORDS = 96    # 64-bit words per tuple (csrc/topk.cu TK_MAX_WORDS)
 TILE_ROWS = 2048  # rows a threshold block compares per step (TK_TILE)
@@ -98,6 +102,56 @@ def topk_plain(table: Table, keys: Sequence[str],
     PLAIN_CALLS["topk"] += 1
     t = sort_table(table, key_names=list(keys), ascending=list(ascending))
     return slice_table(t, 0, min(n, t.num_rows))
+
+
+def capped_outputs(table: Table, idx: torch.Tensor, alive: torch.Tensor):
+    """The capped TopK's outputs from the row indices `idx` of the k
+    smallest tuples, live rows first: (take(table, idx'), out_alive) with
+    out_alive = arange(k) < min(k, live rows) and idx' = idx there, 0
+    elsewhere. Computed on the device, with no host read."""
+    k = idx.shape[0]
+    n_live = torch.clamp(alive.sum(), max=k)
+    out_alive = torch.arange(k, device=idx.device) < n_live
+    idx = torch.where(out_alive, idx, torch.zeros_like(idx))
+    return take_table(table, idx, _has_negative=False), out_alive
+
+
+def empty_capped(table: Table):
+    """The capped TopK of an empty table or of n = 0: no rows."""
+    idx = torch.zeros(0, dtype=torch.int64, device=table.device)
+    return (take_table(table, idx, _has_negative=False),
+            torch.zeros(0, dtype=torch.bool, device=table.device))
+
+
+def topk_capped_plain(table: Table, keys: Sequence[str],
+                      ascending: Sequence[bool], n: int,
+                      alive: torch.Tensor):
+    """The capped tier's TopK: (table of k = min(n, rows) rows, (k,) bool
+    alive), the top k rows of the stable sort by `keys` with the dead rows
+    sunk to the end (`sort_table_capped`'s order), the slots past the live
+    rows gathering row 0."""
+    PLAIN_CALLS["topk"] += 1
+    k = min(n, table.num_rows)
+    if k == 0:
+        return empty_capped(table)
+    order = sorted_order([table[c] for c in keys], list(ascending),
+                         alive=alive).data[:k].to(torch.int64)
+    return capped_outputs(table, order, alive)
+
+
+def alive_keyed(table: Table, keys: Sequence[str],
+                ascending: Sequence[bool], alive: torch.Tensor):
+    """(table, keys, ascending) with a leading descending BOOL key over
+    `alive`: its order word ranks the live rows first, as the capped sort's
+    leading operand does, so the kernels build it as they build the
+    others."""
+    name = "__alive"
+    while name in table.names:
+        name += "_"
+    t = Table(list(table.columns) + [Column(dtypes.BOOL, table.num_rows,
+                                            alive)],
+              list(table.names) + [name])
+    return t, [name] + list(keys), [False] + list(ascending)
 
 
 def order_words(table: Table, keys: Sequence[str],
@@ -216,8 +270,9 @@ def make_signature(table: Table, keys: Sequence[str],
 
 def n_words(sig) -> int:
     """Words per tuple: a null rank per nullable key, one value word per
-    key, and the row index."""
-    return sum(2 if valid else 1 for _, valid in sig.columns) + 1
+    key, and the row index; in the capped tier the alive word first."""
+    return (sum(2 if valid else 1 for _, valid in sig.columns) + 1
+            + (sig.extra("tier") == "capped"))
 
 
 def supports(sig) -> bool:

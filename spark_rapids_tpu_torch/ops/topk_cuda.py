@@ -16,6 +16,13 @@ kernels build the order words from the columns themselves. By
 
 and gathers the rows at those row indices.
 
+`topk_capped(table, keys, ascending, n, alive)` is the counterpart of the
+reference's `topk_capped` (`topk_pallas.py:179`), the capped tier's TopK:
+the same kernels over the keys with a leading descending BOOL key over
+`alive` (`topk.alive_keyed`), whose word ranks the live rows first as the
+reference's alive rank does; then `topk.capped_outputs` masks the slots
+past the live rows on the device. Equal to `topk.topk_capped_plain`.
+
 The wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernels or raises, it never falls back. `LAUNCHES` counts
 kernel launches and `PLAIN_CALLS` (`topk.PLAIN_CALLS`) the plain
@@ -31,11 +38,14 @@ import torch
 
 from ..columnar import Table
 from .gather import take_table
-from .topk import (MAX_WORDS, PLAIN_CALLS, describe_keys, make_signature,
-                   supports, threshold_grid, threshold_route, topk_plain)
+from .topk import (MAX_WORDS, PLAIN_CALLS, alive_keyed, capped_outputs,
+                   describe_keys, empty_capped, make_signature, supports,
+                   threshold_grid, threshold_route, topk_capped_plain,
+                   topk_plain)
 
-__all__ = ["topk_table", "topk_table_cuda", "make_signature", "LAUNCHES",
-           "PLAIN_CALLS", "reset_counters", "device_limits"]
+__all__ = ["topk_table", "topk_table_cuda", "topk_capped",
+           "topk_capped_cuda", "make_signature", "LAUNCHES", "PLAIN_CALLS",
+           "reset_counters", "device_limits"]
 
 LAUNCHES = {"threshold": 0, "select": 0, "merge": 0}
 
@@ -152,19 +162,16 @@ def _tile_sort(desc: _Desc, rows: int, k: int,
     return out
 
 
-def topk_table_cuda(table: Table, keys: Sequence[str],
-                    ascending: Sequence[bool], n: int) -> Table:
+def _topk_index(table: Table, keys: Sequence[str],
+                ascending: Sequence[bool], k: int) -> torch.Tensor:
+    """(k,) int64 row indices of the k smallest tuples, in order, k >= 1."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"the topk kernel runs on CUDA tensors, got {dev}")
-    rows = table.num_rows
-    k = min(n, rows)
-    if k == 0:
-        return take_table(table, torch.zeros(0, dtype=torch.int64,
-                                             device=dev), _has_negative=False)
-    if not supports(make_signature(table, keys, ascending, n, "eager")):
+    if not supports(make_signature(table, keys, ascending, k, "eager")):
         raise ValueError(f"the topk kernel does not take this call: keys "
                          f"{list(keys)} (1..{MAX_WORDS} tuple words)")
+    rows = table.num_rows
     desc = _descriptor(table, keys, ascending)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms, smem_optin = device_limits(dev)
@@ -185,7 +192,42 @@ def topk_table_cuda(table: Table, keys: Sequence[str],
     else:
         # the row-index word: real rows precede the sentinels
         idx = _tile_sort(desc, rows, k, dev, stream)[-1, :k]
-    return take_table(table, idx, _has_negative=False)
+    return idx
+
+
+def topk_table_cuda(table: Table, keys: Sequence[str],
+                    ascending: Sequence[bool], n: int) -> Table:
+    k = min(n, table.num_rows)
+    if k == 0:
+        if table.device.type != "cuda":
+            raise ValueError(f"the topk kernel runs on CUDA tensors, got "
+                             f"{table.device}")
+        return empty_capped(table)[0]
+    return take_table(table, _topk_index(table, keys, ascending, k),
+                      _has_negative=False)
+
+
+def topk_capped_cuda(table: Table, keys: Sequence[str],
+                     ascending: Sequence[bool], n: int, alive: torch.Tensor):
+    k = min(n, table.num_rows)
+    if table.device.type != "cuda" or alive.device != table.device:
+        raise ValueError(f"the topk kernel runs on CUDA tensors, got "
+                         f"{table.device} and {alive.device}")
+    if k == 0:
+        return empty_capped(table)
+    idx = _topk_index(*alive_keyed(table, keys, ascending,
+                                   alive.contiguous()), k)
+    return capped_outputs(table, idx, alive)
+
+
+def topk_capped(table: Table, keys: Sequence[str],
+                ascending: Sequence[bool], n: int, alive: torch.Tensor):
+    """The capped tier's TopK: (table of min(n, rows) rows, their alive
+    mask), the top rows of the stable sort with the dead rows sunk last;
+    the kernels on a CUDA table, the plain version on a CPU one."""
+    if table.device.type == "cpu":
+        return topk_capped_plain(table, keys, ascending, n, alive)
+    return topk_capped_cuda(table, keys, ascending, n, alive)
 
 
 def topk_table(table: Table, keys: Sequence[str],

@@ -1,7 +1,8 @@
 """The shuffle's single-device half: Spark's pmod partitioner, the
 partition map, and the bucket histogram with its CUDA kernel
 (`partition_cuda`). The exchange across devices waits for the distributed
-tier (ROADMAP queue A item 13).
+tier (ROADMAP queue A item 13). `autoretry` grows the capped tier's
+static capacities until an attempt does not overflow.
 """
 from .partition import (build_partition_map_scan, partition_histogram,
                         partition_ranks)

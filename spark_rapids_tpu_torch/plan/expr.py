@@ -17,7 +17,10 @@ unary `-` of a bool raise TypeError.
 Null semantics are the reference's: expressions read the data buffer only;
 rows whose inputs are null must be dropped by validity-aware operators.
 Scalar aggregates (`ScalarAgg`) wait for q23's slice, so `has_scalar_agg`
-is always False here.
+is always False here. `evaluate` takes the capped tier's `alive` mask as
+the reference's does; only a scalar aggregate reads it (it reduces over the
+live rows), so until q23 it changes nothing: a predicate or projection is
+computed on every row, dead ones included, and the caller masks.
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ class Expr:
     def references(self) -> FrozenSet[str]:
         raise NotImplementedError
 
-    def evaluate(self, table) -> torch.Tensor:
+    def evaluate(self, table, alive=None) -> torch.Tensor:
+        """(n,) tensor of the expression over `table`; `alive`, the capped
+        tier's live-row mask, binds scalar aggregates only (none yet)."""
         return self._eval(table)[0]
 
     def _eval(self, table) -> Tuple[torch.Tensor, bool]:

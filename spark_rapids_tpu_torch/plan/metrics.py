@@ -1,11 +1,16 @@
 """Per-operator execution metrics.
 
 Counterpart of `spark_rapids_tpu/plan/metrics.py` for the fields the eager
-tier of this port records: rows in and out, output bytes, wall time and the
-kernel-registry stamp: "cuda:hash_join", "cuda:fused_select" and
+and capped tiers of this port record: rows in and out, output bytes, wall
+time, the kernel-registry stamp ("cuda:hash_join", "cuda:fused_select" and
 "cuda:topk" for the hand-written kernels, "torch:<op>" for their plain
-fallbacks. The profile text carries the optimizer's line. The retry, IO,
-distributed and placement counters wait for their tiers.
+fallbacks) and, in the capped tier, `escalations`: the cap growths charged
+to an operator that has a capacity (an inner HashJoin, a keyed
+HashAggregate). In the capped tier rows are live rows, counted on the
+device and read once after the run, bytes those of the padded frames, and
+wall time is the plan's only. The profile text carries the optimizer's
+line and the capped tier's attempts and caps. The retry, IO, distributed
+and placement counters wait for their tiers.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ class OperatorMetrics:
     bytes_out: int = 0         # output buffer bytes (data + validity)
     wall_ms: Optional[float] = None   # per-op wall time
     kernel: str = ""           # registry choice, "" without a dispatch
+    escalations: int = 0       # cap growths charged to this node (capped)
 
     def to_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -31,12 +37,18 @@ class OperatorMetrics:
 def render_profile(rows: List[OperatorMetrics],
                    plan_wall_ms: Optional[float] = None,
                    device: str = "",
-                   optimizer: Optional[Dict] = None) -> str:
+                   optimizer: Optional[Dict] = None,
+                   attempts: int = 1,
+                   caps: Optional[Dict] = None,
+                   jit_cache_hits: int = 0) -> str:
     """Human-readable profile table (the `profile()` text form)."""
     out = []
     if plan_wall_ms is not None:
         on = f" on {device}" if device else ""
-        out.append(f"plan: {plan_wall_ms:.3f} ms{on}")
+        caps_s = f", {attempts} attempt(s) caps={caps}" if caps else ""
+        hits_s = (f", {jit_cache_hits} program cache hit(s)"
+                  if jit_cache_hits else "")
+        out.append(f"plan: {plan_wall_ms:.3f} ms{on}{caps_s}{hits_s}")
     if optimizer is not None:
         fired = optimizer.get("rules_fired") or {}
         pruned = optimizer.get("pruned_columns", 0)
@@ -55,4 +67,6 @@ def render_profile(rows: List[OperatorMetrics],
                    f"{m.bytes_out:>12} {wall:>9}")
         if m.kernel:
             out.append(f"  kernel: {m.kernel}")
+        if m.escalations:
+            out.append(f"  escalations: {m.escalations}")
     return "\n".join(out)

@@ -598,3 +598,80 @@ def test_q72_on_the_card_uses_the_large_route(optimize):
     cpu = PlanExecutor(device="cpu", optimize=optimize).execute(
         nds_q72.q72_plan(), inputs)
     _same_table(res.table.to("cpu"), cpu.table)
+
+
+@pytest.mark.parametrize("nr", [20, 700, 52_000])
+def test_capped_join_kernel_equals_plain_version(nr):
+    """The capped join's kernels (small route at 20 build rows, large at
+    700 and 52,000) against the sort-based capped join, all four outputs
+    bit for bit, with alive masks, at caps 0, 1, total - 1, total, total +
+    1 and roomy."""
+    _need_card()
+    rng = np.random.default_rng(nr)
+    nl = 300_001
+    lk = [Column.from_numpy(rng.integers(0, nr, nl).astype(np.int64),
+                            tdt.INT64, rng.random(nl) > 0.05,
+                            device="cuda")]
+    rk = [Column.from_numpy(rng.integers(0, nr, nr).astype(np.int64),
+                            tdt.INT64, device="cuda")]
+    la = torch.from_numpy(rng.random(nl) > 0.3).cuda()
+    ra = torch.from_numpy(rng.random(nr) > 0.5).cuda()
+    roomy = 4 * nl
+    total = int(join.inner_join_capped(lk, rk, roomy, lalive=la,
+                                       ralive=ra)[2].sum())
+    for cap in (0, 1, total - 1, total, total + 1, roomy):
+        join_cuda.reset_counters()
+        got = join_cuda.inner_join_capped_hash(lk, rk, cap, lalive=la,
+                                               ralive=ra)
+        want = join.inner_join_capped(lk, rk, cap, lalive=la, ralive=ra)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), cap
+        assert join_cuda.CAPPED_CALLS == {"join": 1}
+        assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+
+
+@pytest.mark.parametrize("share", [0.6, 0.0, 1.0])
+def test_capped_topk_kernel_equals_plain_version(share):
+    """The capped TopK's kernels, both routes, against its plain version:
+    the k-row table and its alive mask."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    n = 500_003
+    t = Table([Column.from_numpy(rng.integers(-999, 999, n)
+                                 .astype(np.int64), tdt.INT64,
+                                 rng.random(n) > 0.1, device="cuda"),
+               Column.from_numpy(rng.standard_normal(n).astype(np.float32),
+                                 tdt.FLOAT32, device="cuda")], ["k", "v"])
+    alive = torch.from_numpy(rng.random(n) < share).cuda()
+    for k in (1, 100, 4099):
+        topk_cuda.reset_counters()
+        got = topk_cuda.topk_capped(t, ["k", "v"], [False, True], k, alive)
+        want = topk.topk_capped_plain(t, ["k", "v"], [False, True], k,
+                                      alive)
+        _same_table(got[0].to("cpu"), want[0].to("cpu"))
+        assert torch.equal(got[1], want[1])
+        assert sum(topk_cuda.LAUNCHES.values()) >= 1
+        assert topk_cuda.LAUNCHES["threshold"] == (k < 4099)
+
+
+def test_capped_plans_on_the_card_use_the_kernels():
+    """TPC-DS q3 and q72 through `PlanExecutor(mode="capped")` on the card:
+    every inner join on the capped kernels, the TopK on its kernel, no
+    plain version, `compact()` equal to the eager run."""
+    _need_card()
+    from spark_rapids_tpu_torch import nds_q72
+    for plan, inputs in ((nds_q3.q3_tpcds_plan(),
+                          nds_q3.q3_tpcds_inputs(300_000, device="cuda")),
+                         (nds_q72.q72_plan(),
+                          nds_q72.q72_inputs(300_000, device="cuda"))):
+        join_cuda.reset_counters()
+        topk_cuda.reset_counters()
+        res = PlanExecutor(mode="capped").execute(plan, inputs)
+        n = sum(m.kind == "HashJoin" for m in res.metrics.values())
+        assert res.attempts == 1
+        assert join_cuda.CAPPED_CALLS == {"join": n}
+        assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+        assert topk_cuda.PLAIN_CALLS == {"topk": 0}
+        eager = PlanExecutor().execute(plan, inputs)
+        _same_table(res.compact().to("cpu"), eager.table.to("cpu"))

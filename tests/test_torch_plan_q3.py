@@ -173,8 +173,11 @@ def test_unported_nodes_and_errors_name_their_roadmap_item():
             b.scan("u", schema=["x"]).build(), {"u": t})
     with pytest.raises(PlanValidationError, match="not in"):
         b.scan("v", schema=["a"]).sort(["zz"]).build()
-    with pytest.raises(ValueError, match="queue A item 7"):
-        PlanExecutor(mode="capped", device="cpu")
+    with pytest.raises(PlanValidationError, match="queue A item 3"):
+        PlanExecutor(mode="capped", device="cpu").execute(
+            union, {"t": t, "u": t})
+    with pytest.raises(ValueError, match="unknown executor mode"):
+        PlanExecutor(mode="jit", device="cpu")
 
 
 def test_executor_raises_without_a_card():
@@ -201,6 +204,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "t = nds_q3.q3_tpcds_inputs(4096, device='cpu')\n"
         "r = PlanExecutor(device='cpu').execute(nds_q3.q3_tpcds_plan(), t)\n"
         "assert r.optimizer['rules_fired'] and r.table.num_rows > 0\n"
+        "c = PlanExecutor(mode='capped', device='cpu').execute(\n"
+        "    nds_q3.q3_tpcds_plan(), t)\n"
+        "assert c.compact().num_rows == r.table.num_rows\n"
         "inputs = nds_q3.q3_inputs(8192, device='cpu')\n"
         "res = PlanExecutor(device='cpu').execute(nds_q3.q3_plan(), inputs)\n"
         "assert res.table.num_rows > 0\n"
