@@ -72,6 +72,17 @@ in phases that each raise on failure:
    and eager TPC-DS q3 and q72; q3 at 100,000 rows from caps of 128 rows
    and 16 keys escalating to equal the eager run; the capped join timed
    at q72's inventory join and the capped TopK at k = 100;
+4g. NDS q5 (20,166,666 input rows: Unions, semi joins to a date window,
+   a rollup) and NDS q23 (17,500,000 rows: two shared subqueries, the
+   scalar subquery `rev > 0.95 * MAX(rev)`) at scale 1 through
+   `PlanExecutor(optimize=False)`, `PlanExecutor()` and both in the
+   capped tier at the reference bench's key caps (2,048 and 8,192), every
+   kernel counter zeroed just before each counted run and read just after:
+   no kernel of the port is on these paths, so every launch and plain-run
+   count must read 0 and no stamp may name a `cuda:` kernel; each result
+   equal to an independent numpy evaluation and to the port's CPU run,
+   bit for bit; warm walls, one traced warm run's idle share, and the
+   capped runs' attempts and host reads (at most attempts + 1);
 4c. FusedSelect: the kernel against its plain version on every port dtype,
    with and without nulls, nineteen predicates (the four shapes, INT8/INT32
    wrap-around, 64-bit integer columns, float32/float64 arithmetic and
@@ -234,7 +245,7 @@ class Checks:
                         "histogram": 0, "fused_select": 0, "topk": 0,
                         "build_large": 0, "count_large": 0,
                         "emit_large": 0, "segment_sum": 0,
-                        "capped_join": 0, "capped_topk": 0}
+                        "capped_join": 0, "capped_topk": 0, "plans": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -2540,6 +2551,217 @@ def capped_phase(torch, chk):
     return out
 
 
+# ---- phase 4g: NDS q5 and q23 (Union, scalar subqueries) ----------------------
+
+Q5_CAPS = {"key_cap": 2048}        # bench_nds_q5.py's plan-tier caps
+Q23_CAPS = {"key_cap": 8192}       # bench_nds_q23.py's
+
+
+def numpy_q5(gen):
+    """Independent q5 over the datagen arrays: per channel the sales and
+    returns rows end to end, kept where the date is in the window
+    (`np.isin`), summed by entity in sorted-key order; the per-channel
+    subtotals and the grand total (channel -1) of those group sums,
+    ordered by channel (one row each). Returns (columns, facts)."""
+    from spark_rapids_tpu_torch import nds_q5
+    chans, date_sk = gen
+    window = date_sk[(date_sk >= nds_q5.DATE_LO) & (date_sk < nds_q5.DATE_HI)]
+    rows = []                               # (channel, four sums)
+    for ci, name in enumerate(nds_q5.CHANNELS):
+        c = chans[name]
+        zs, zr = (np.zeros(len(c["s_sk"]), np.int64),
+                  np.zeros(len(c["r_sk"]), np.int64))
+        sk = np.concatenate([c["s_sk"], c["r_sk"]])
+        keep = np.isin(np.concatenate([c["s_date"], c["r_date"]]), window)
+        vals = [np.concatenate(p)[keep] for p in (
+            (c["s_price"], zr), (zs, c["r_amt"]), (c["s_profit"], zr),
+            (zs, c["r_loss"]))]
+        _, inv = np.unique(sk[keep], return_inverse=True)
+        group_sums = []
+        for v in vals:
+            g = np.zeros(inv.max() + 1 if len(inv) else 0, np.int64)
+            np.add.at(g, inv, v)
+            group_sums.append(g)
+        rows.append((ci, [int(g.sum()) for g in group_sums]))
+    total = [sum(r[1][i] for r in rows) for i in range(4)]
+    rows = [(-1, total)] + rows
+    return (np.array([r[0] for r in rows], np.int64),
+            *(np.array([r[1][i] for r in rows], np.int64)
+              for i in range(4))), {}
+
+
+def numpy_q23(gen):
+    """Independent q23: the frequent items (more than FREQ_THRESHOLD store
+    rows), the best customers (revenue over BEST_FRACTION x the largest
+    customer revenue, compared in float64), and qty x price summed over
+    the catalog and web rows whose item and customer are in those sets
+    (`np.isin`)."""
+    from spark_rapids_tpu_torch import nds_q23
+    store, sides = gen
+    items, cnt = np.unique(store["item_sk"], return_counts=True)
+    freq = items[cnt > nds_q23.FREQ_THRESHOLD]
+    order = np.argsort(store["cust_sk"], kind="stable")
+    cust = store["cust_sk"][order]
+    starts = np.flatnonzero(np.r_[True, cust[1:] != cust[:-1]])
+    rev = np.add.reduceat((store["qty"] * store["price"])[order], starts)
+    threshold = nds_q23.BEST_FRACTION * np.float64(rev.max())
+    best = cust[starts][rev.astype(np.float64) > threshold]
+    total = 0
+    for name in nds_q23.SIDES:
+        s = sides[name]
+        hit = np.isin(s["item_sk"], freq) & np.isin(s["cust_sk"], best)
+        total += int((s["qty"] * s["price"])[hit].sum())
+    return (np.array([total], np.int64),), {"freq_items": len(freq),
+                                            "best_customers": len(best)}
+
+
+def kernel_counters():
+    """Every kernel module's launch and plain-run counters, as one dict."""
+    from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda, select
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
+    from spark_rapids_tpu_torch.ops import topk, topk_cuda
+    from spark_rapids_tpu_torch.parallel import partition_cuda
+    return {"hash_join": dict(join_cuda.LAUNCHES),
+            "hash_join_large": dict(join_cuda.LARGE_LAUNCHES),
+            "hash_join_capped": dict(join_cuda.CAPPED_CALLS),
+            "fused_select": dict(select_cuda.LAUNCHES),
+            "topk": dict(topk_cuda.LAUNCHES),
+            "segment_sum": dict(segment_sum_cuda.LAUNCHES),
+            "row_hash": dict(hash_cuda.LAUNCHES),
+            "histogram": dict(partition_cuda.LAUNCHES),
+            "plain": {"hash_join": dict(join_cuda.PLAIN_CALLS),
+                      "fused_select": dict(select.PLAIN_CALLS),
+                      "topk": dict(topk.PLAIN_CALLS),
+                      "segment_sum": dict(segment_sum_cuda.PLAIN_CALLS),
+                      "row_hash": dict(hash_cuda.PLAIN_CALLS),
+                      "histogram": dict(partition_cuda.PLAIN_CALLS)}}
+
+
+def reset_kernel_counters():
+    from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
+    from spark_rapids_tpu_torch.ops import topk_cuda
+    from spark_rapids_tpu_torch.parallel import partition_cuda
+    for m in (hash_cuda, join_cuda, segment_sum_cuda, select_cuda,
+              topk_cuda, partition_cuda):
+        m.reset_counters()
+
+
+def counted(counters):
+    """The sum of every launch and plain-run count."""
+    return sum(counted(v) if isinstance(v, dict) else v
+               for v in counters.values())
+
+
+def nds_union_phase(torch, chk):
+    """NDS q5 and q23 at scale 1 on the card: through
+    `PlanExecutor(optimize=False)` and `PlanExecutor()` in the eager tier
+    and `PlanExecutor(mode="capped", ...)` in both forms at the reference
+    bench's key caps, every kernel counter zeroed just before each counted
+    run and read just after (no kernel of the port is on this path: each
+    must read 0, and no plain version may run); each result equal to an
+    independent numpy evaluation and to the port's CPU run on the same
+    arrays, bit for bit; warm walls, one traced warm run's idle share, and
+    the capped runs' attempts and host reads (at most attempts + 1)."""
+    from spark_rapids_tpu_torch import nds_q5, nds_q23
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+
+    out = {}
+    for q, mod, caps, numpy_fn in (
+            ("q5", nds_q5, Q5_CAPS, numpy_q5),
+            ("q23", nds_q23, Q23_CAPS, numpy_q23)):
+        t0 = time.perf_counter()
+        gen = mod.datagen(N_SALES, seed=0)
+        ref, extra = numpy_fn(gen)
+        del gen
+        make = getattr(mod, f"{q}_inputs")
+        plan = getattr(mod, f"{q}_plan")()
+        inputs_cpu = make(N_SALES, seed=0, device="cpu")
+        n_rows = sum(t.num_rows for t in inputs_cpu.values())
+        n_bytes = sum(t.nbytes() for t in inputs_cpu.values())
+        t1 = time.perf_counter()
+        cpu = PlanExecutor(device="cpu", optimize=False).execute(
+            plan, inputs_cpu).table
+        cpu_s = time.perf_counter() - t1
+        log(f"{q}: {n_rows} input rows ({n_bytes} B), numpy reference "
+            f"{extra} and the CPU run ({cpu_s:.1f} s) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, want in zip(cpu.names, ref):
+            require(np.array_equal(cpu[name].data.numpy(), want),
+                    f"{q} on the CPU: {name} differs from numpy")
+        inputs = {k: t.to("cuda") for k, t in inputs_cpu.items()}
+        del inputs_cpu
+        entry = {"input_rows": n_rows, "input_bytes": n_bytes,
+                 "numpy": {n: r.tolist() for n, r in zip(cpu.names, ref)},
+                 **extra, "runs": {}}
+        for mode in ("eager", "capped"):
+            for optimize in (False, True):
+                what = (f"{q} {mode} "
+                        f"{'optimized' if optimize else 'authored'}")
+                ex = PlanExecutor(mode=mode, optimize=optimize,
+                                  caps=dict(caps) if mode == "capped"
+                                  else None)
+                cold = ex.execute(plan, inputs)
+                torch.cuda.synchronize()
+                reset_kernel_counters()
+                res = ex.execute(plan, inputs)
+                torch.cuda.synchronize()
+                counters = kernel_counters()
+                stamps = sorted({m.kernel for m in res.metrics.values()
+                                 if m.kernel})
+                log(f"{what} at {n_rows} rows: {res.wall_ms:.3f} ms "
+                    f"(cold {cold.wall_ms:.3f}); stamps {stamps}; "
+                    f"counters {counters}")
+                log(res.profile_text())
+                require(counted(counters) == 0,
+                        f"{what}: a kernel or a plain version ran "
+                        f"{counters}")
+                require(not any(s.startswith("cuda:") for s in stamps),
+                        f"{what}: stamps {stamps}")
+                got = res.compact().to("cpu")
+                chk.tables("plans", got, cpu, f"{what} card vs CPU")
+                for name, want in zip(got.names, ref):
+                    require(np.array_equal(got[name].data.numpy(), want),
+                            f"{what}: {name} differs from numpy")
+                run = {"wall_ms": res.wall_ms, "cold_wall_ms": cold.wall_ms,
+                       "counters": counters, "stamps": stamps,
+                       "profile": res.profile()}
+                if mode == "capped":
+                    _, at = sync_warnings(
+                        torch, lambda: ex.execute(plan, inputs))
+                    run.update(attempts=res.attempts, caps=res.caps,
+                               sync_warnings=len(at), sync_at=at)
+                walls = [ex.execute(plan, inputs).wall_ms
+                         for _ in range(REPEATS)]
+                trace = traced_run(torch, lambda: ex.execute(plan, inputs))
+                run.update(warm_walls=walls, trace=trace)
+                log(f"  warm walls {walls}; traced: idle share "
+                    f"{trace['idle_share']!r} ({trace['busy_ms']!r} busy of "
+                    f"{trace['wall_ms']!r} ms), "
+                    f"{trace['sync_calls']} synchronize calls, "
+                    f"{trace['dtoh_copies']} device-to-host copies")
+                if mode == "capped":
+                    limit = res.attempts + 1
+                    log(f"  capped: {res.attempts} attempt(s), caps "
+                        f"{res.caps}; host reads of a warm run: "
+                        f"{len(at)} sync-debug warnings at {at}, "
+                        f"{trace['sync_calls']} synchronize calls, "
+                        f"{trace['dtoh_copies']} device-to-host copies (at "
+                        f"most {limit} each)")
+                    require(res.attempts == 1 and len(at) <= limit
+                            and trace["sync_calls"] <= limit
+                            and trace["dtoh_copies"] <= limit,
+                            f"{what}: attempts {res.attempts}, "
+                            f"{len(at)} warnings {at}, {trace}")
+                entry["runs"][what] = run
+                log(f"{what}: {got.num_rows} rows, equal to numpy and to "
+                    f"the CPU run")
+        out[q] = entry
+        del inputs, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
 def summed(timing, forms, **extra):
     """One kernels-line entry: the sums over the path's calls, each form's
     own numbers under `by_form`."""
@@ -2592,6 +2814,7 @@ def main(argv=None):
     q72, q72_timing = q72_phase(torch, chk)
     c4 = c4_phase(torch, chk)
     capped = capped_phase(torch, chk)
+    nds_union = nds_union_phase(torch, chk)
     fs_timing = fused_select_phase(torch, chk)
     tk_timing = topk_phase(torch, chk)
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
@@ -2756,7 +2979,8 @@ def main(argv=None):
                        "q72_wall_ms": {w: r["res"].wall_ms
                                        for w, r in q72.items()},
                        "q72_inventory_join": q72_timing,
-                       "c4": c4, "capped": capped},
+                       "c4": c4, "capped": capped,
+                       "nds_q5_q23": nds_union},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

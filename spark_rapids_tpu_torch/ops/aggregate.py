@@ -83,13 +83,15 @@ SUM_BLOCK = 32
 
 def blocked_sum(x: torch.Tensor) -> torch.Tensor:
     """0-d sum of the (n,) float tensor `x` in the order XLA CPU gives
-    `jnp.sum`, so the bits equal the reference's: up to SUM_BLOCK values
-    are a left fold from +0.0. Longer vectors are padded with zeros to a
-    multiple of SUM_BLOCK, half the padding (rounded down) in front, each
-    block of SUM_BLOCK is a left fold from +0.0, and the block sums are
-    summed the same way. Elementwise IEEE adds give the same bits on the
-    CPU and on CUDA."""
+    `jnp.sum`, so the bits equal the reference's: one value is returned as
+    it is (-0.0 stays -0.0), up to SUM_BLOCK values are a left fold from
+    +0.0. Longer vectors are padded with zeros to a multiple of SUM_BLOCK,
+    half the padding (rounded down) in front, each block of SUM_BLOCK is a
+    left fold from +0.0, and the block sums are summed the same way.
+    Elementwise IEEE adds give the same bits on the CPU and on CUDA."""
     x = x.reshape(-1)
+    if x.shape[0] == 1:
+        return x[0].clone()
     while x.shape[0] > SUM_BLOCK:
         pad = -x.shape[0] % SUM_BLOCK
         zeros = torch.zeros(pad, dtype=x.dtype, device=x.device)

@@ -1,15 +1,60 @@
-"""Copying ops: row slices.
+"""Copying ops: concatenation and row slices.
 
-Counterpart of `slice_table` in `spark_rapids_tpu/ops/copying.py`, which
-serves the plan engine's Limit and the TopK fallback's sort-then-slice.
-`concat_tables` waits for Union (ROADMAP queue A item 3).
+Counterpart of `concat_columns`, `concat_tables` and `slice_table` in
+`spark_rapids_tpu/ops/copying.py`, which serve the plan engine's Union,
+Limit and the TopK fallback's sort-then-slice. Fixed-width columns only:
+strings, DECIMAL128 and nested columns wait for ROADMAP queue A item 1.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-from ..columnar import Table
+from ..columnar import Column, Table
+from ..dtypes import Kind
 from .gather import take_table
+
+_UNPORTED_KINDS = (Kind.STRING, Kind.DECIMAL128, Kind.LIST, Kind.STRUCT)
+
+
+def concat_columns(cols: Sequence[Column]) -> Column:
+    """Same-dtype columns end to end (cudf::concatenate), in one copy. The
+    result has a validity when any input has one; an input without one
+    counts as all valid."""
+    cols = list(cols)
+    if not cols:
+        raise ValueError("concat requires at least one column")
+    first = cols[0]
+    for c in cols[1:]:
+        if c.dtype != first.dtype:
+            raise TypeError(f"concat dtype mismatch: {first.dtype} vs "
+                            f"{c.dtype}")
+    if first.dtype.kind in _UNPORTED_KINDS:
+        raise NotImplementedError(
+            f"concat of {first.dtype.kind.value} columns: ROADMAP.md queue A "
+            f"item 1 ports them")
+    n = sum(c.length for c in cols)
+    validity = None
+    if any(c.validity is not None for c in cols):
+        validity = torch.cat([c.null_mask for c in cols])
+    return Column(first.dtype, n, torch.cat([c.data for c in cols]),
+                  validity)
+
+
+def concat_tables(tables: Sequence[Table]) -> Table:
+    """Tables with equal column counts end to end, column by column; the
+    result takes the first table's names."""
+    tables = list(tables)
+    if not tables:
+        raise ValueError("concat requires at least one table")
+    first = tables[0]
+    for t in tables[1:]:
+        if t.num_columns != first.num_columns:
+            raise ValueError("concat column-count mismatch")
+    cols = [concat_columns([t.columns[i] for t in tables])
+            for i in range(first.num_columns)]
+    return Table(cols, names=first.names)
 
 
 def slice_table(table: Table, start: int, end: int) -> Table:

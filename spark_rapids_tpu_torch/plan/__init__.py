@@ -1,7 +1,8 @@
 from .builder import Plan, PlanBuilder, Rel
 from .executor import PlanExecutor, PlanResult
-from .expr import col, lit
+from .expr import col, lit, scalar_max, scalar_min, scalar_sum
 from .nodes import PlanValidationError
 
 __all__ = ["Plan", "PlanBuilder", "Rel", "PlanExecutor", "PlanResult",
-           "col", "lit", "PlanValidationError"]
+           "col", "lit", "scalar_max", "scalar_min", "scalar_sum",
+           "PlanValidationError"]

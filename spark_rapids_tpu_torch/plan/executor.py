@@ -68,22 +68,20 @@ from ..ops.aggregate import _agg_value_dtype
 from ..ops.registry import REGISTRY, KernelDeclinedError
 from ..parallel.autoretry import auto_retry_overflow
 from .builder import Plan
-from .expr import ColumnRef
+from .expr import ColumnRef, _reduce_identity
 from .metrics import OperatorMetrics, render_profile
 from .nodes import (Exchange, Filter, FusedSelect, HashAggregate, HashJoin,
                     Limit, PlanNode, PlanValidationError, Project, Scan, Sort,
-                    TopK)
+                    TopK, Union)
 
 _OPT_CACHE_SIZE = 64     # rewrites kept per executor, oldest dropped first
 _PROGRAM_CACHE_SIZE = 64     # capped programs kept per executor
 _CAPS_MEMO_SIZE = 256        # plans whose grown caps are kept
 
-_UNION = "queue A item 3 (ops/copying.py concat_tables)"
 _NOT_PORTED = {
-    "eager": {"Union": _UNION,
-              "Exchange": "queue A item 13 (distributed tier)"},
+    "eager": {"Exchange": "queue A item 13 (distributed tier)"},
     # the capped tier passes an Exchange through, as the reference's does
-    "capped": {"Union": _UNION},
+    "capped": {},
 }
 
 
@@ -377,6 +375,8 @@ class PlanExecutor:
         if isinstance(node, Limit):
             (t,) = childs
             return copying.slice_table(t, 0, node.n)
+        if isinstance(node, Union):
+            return copying.concat_tables(childs)
         raise PlanValidationError(f"no eager lowering for {node.kind}")
 
     @staticmethod
@@ -388,6 +388,9 @@ class PlanExecutor:
                 cols.append(t[e.name])      # preserve dtype + validity
             else:
                 v = e.evaluate(t, alive)
+                if v.dim() == 0:
+                    # a bare scalar aggregate: broadcast to the relation
+                    v = v.expand(t.num_rows).contiguous()
                 cols.append(Column(dtypes.from_torch(v.dtype),
                                    int(v.shape[0]), v))
         return Table(cols, names=[n for n, _ in node.exprs])
@@ -657,6 +660,10 @@ class PlanExecutor:
         if isinstance(node, Limit):
             (c,) = childs
             return _CappedRel(c.table, _first_live(c.alive, node.n)), None
+        if isinstance(node, Union):
+            # the padded frames end to end, their alive masks likewise
+            t = copying.concat_tables([c.table for c in childs])
+            return _CappedRel(t, torch.cat([c.alive for c in childs])), None
         if isinstance(node, Exchange):
             return childs[0], None
         raise PlanValidationError(f"no capped lowering for {node.kind}")
@@ -665,10 +672,3 @@ class PlanExecutor:
 def _first_live(alive: torch.Tensor, n: int) -> torch.Tensor:
     """The first n live rows of `alive`, by an inclusive prefix count."""
     return alive & (torch.cumsum(alive.to(torch.int32), 0) <= n)
-
-
-def _reduce_identity(op: str, dt: torch.dtype):
-    if dt.is_floating_point:
-        return float("-inf") if op == "max" else float("inf")
-    info = torch.iinfo(dt)
-    return info.min if op == "max" else info.max

@@ -16,11 +16,19 @@ unary `-` of a bool raise TypeError.
 
 Null semantics are the reference's: expressions read the data buffer only;
 rows whose inputs are null must be dropped by validity-aware operators.
-Scalar aggregates (`ScalarAgg`) wait for q23's slice, so `has_scalar_agg`
-is always False here. `evaluate` takes the capped tier's `alive` mask as
-the reference's does; only a scalar aggregate reads it (it reduces over the
-live rows), so until q23 it changes nothing: a predicate or projection is
-computed on every row, dead ones included, and the caller masks.
+
+A scalar aggregate (`scalar_max(col("rev"))`, `ScalarAgg`) reduces its
+child over the WHOLE input relation to a 0-d tensor that broadcasts into
+the rest of the expression: q23's `rev > 0.95 * MAX(rev)` scalar subquery.
+It stays on the tensor's device (never read to the host) and is a strong
+operand, so `lit(0.95) * scalar_max(int64)` is float64 and the comparison
+runs in float64, as in the reference. Like the reference it reads the
+child's data only, nulls included (ROADMAP queue C records this), and an
+empty relation raises ValueError for max and min. `evaluate` takes the
+capped tier's `alive` mask as the reference's does; only a scalar
+aggregate reads it, reducing over the live rows (dead ones take the
+reduction's identity). Everything else is computed on every row, dead ones
+included, and the caller masks.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ import dataclasses
 from typing import Any, FrozenSet, Tuple
 
 import torch
+
+from ..ops import aggregate
 
 
 class Expr:
@@ -37,11 +47,12 @@ class Expr:
         raise NotImplementedError
 
     def evaluate(self, table, alive=None) -> torch.Tensor:
-        """(n,) tensor of the expression over `table`; `alive`, the capped
-        tier's live-row mask, binds scalar aggregates only (none yet)."""
-        return self._eval(table)[0]
+        """(n,) tensor of the expression over `table` (0-d for a bare
+        scalar aggregate); `alive`, the capped tier's live-row mask, binds
+        scalar aggregates only."""
+        return self._eval(table, alive)[0]
 
-    def _eval(self, table) -> Tuple[torch.Tensor, bool]:
+    def _eval(self, table, alive=None) -> Tuple[torch.Tensor, bool]:
         """(values, weak): `weak` marks a result whose dtype yields to a
         strongly typed operand, as a weak-typed JAX array does."""
         raise NotImplementedError
@@ -111,7 +122,7 @@ class ColumnRef(Expr):
     def references(self):
         return frozenset((self.name,))
 
-    def _eval(self, table):
+    def _eval(self, table, alive=None):
         return table[self.name].data, False
 
     def __repr__(self):
@@ -135,7 +146,7 @@ class Literal(Expr):
     def references(self):
         return frozenset()
 
-    def _eval(self, table):
+    def _eval(self, table, alive=None):
         dt = _literal_dtype(self.value)
         return (torch.full((table.num_rows,), self.value, dtype=dt,
                            device=table.device), dt != torch.bool)
@@ -202,9 +213,9 @@ class BinOp(Expr):
     def references(self):
         return self.left.references() | self.right.references()
 
-    def _eval(self, table):
-        a, aw = self.left._eval(table)
-        b, bw = self.right._eval(table)
+    def _eval(self, table, alive=None):
+        a, aw = self.left._eval(table, alive)
+        b, bw = self.right._eval(table, alive)
         dt, weak = promote(self.op, a.dtype, aw, b.dtype, bw)
         return _BIN_FNS[self.op](a.to(dt), b.to(dt)), weak
 
@@ -220,13 +231,55 @@ class UnaryOp(Expr):
     def references(self):
         return self.child.references()
 
-    def _eval(self, table):
-        v, weak = self.child._eval(table)
+    def _eval(self, table, alive=None):
+        v, weak = self.child._eval(table, alive)
         unary_check(self.op, v.dtype)
         return (~v if self.op == "~" else -v), weak
 
     def __repr__(self):
         return f"{self.op}{self.child!r}"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScalarAgg(Expr):
+    """Aggregate (`op`: max, min or sum) of `child` over the whole input
+    relation, a 0-d tensor broadcast into the enclosing expression; with
+    `alive` it reduces over the live rows only. Float results have the
+    reference's bits: its summation order (`aggregate.blocked_sum`), -0.0
+    below 0.0 and the canonical NaN (`aggregate.float_extreme`)."""
+    op: str                  # max | min | sum
+    child: Expr
+
+    def references(self):
+        return self.child.references()
+
+    def _eval(self, table, alive=None):
+        v, weak = self.child._eval(table, alive)
+        if alive is not None:
+            v = torch.where(alive, v, _reduce_identity(self.op, v.dtype))
+        if self.op == "sum":
+            return ((aggregate.blocked_sum(v) if v.is_floating_point()
+                     else v.sum()), weak)
+        if v.numel() == 0:
+            raise ValueError(f"zero-size array to reduction operation "
+                             f"{self.op} which has no identity")
+        if v.is_floating_point():
+            return aggregate.float_extreme(self.op, v), weak
+        return (v.max() if self.op == "max" else v.min()), weak
+
+    def __repr__(self):
+        return f"{self.op}({self.child!r})"
+
+
+def _reduce_identity(op: str, dt: torch.dtype):
+    """The identity of `op` over `dt`: 0 for a sum, the lowest value for a
+    max and the highest for a min (the infinities for floats)."""
+    if op == "sum":
+        return 0
+    if dt.is_floating_point:
+        return float("-inf") if op == "max" else float("inf")
+    info = torch.iinfo(dt)
+    return info.min if op == "max" else info.max
 
 
 # ---- structural helpers (the optimizer's expression toolkit) ----------------
@@ -266,6 +319,10 @@ def fold(e: Expr) -> Expr:
             if _foldable(v):
                 return Literal(v)
         return e if c is e.child else UnaryOp(e.op, c)
+    if isinstance(e, ScalarAgg):
+        # never folds itself: over a literal its value depends on the rows
+        c = fold(e.child)
+        return e if c is e.child else ScalarAgg(e.op, c)
     return e
 
 
@@ -280,13 +337,22 @@ def substitute(e: Expr, mapping) -> Expr:
                      substitute(e.right, mapping))
     if isinstance(e, UnaryOp):
         return UnaryOp(e.op, substitute(e.child, mapping))
+    if isinstance(e, ScalarAgg):
+        return ScalarAgg(e.op, substitute(e.child, mapping))
     return e
 
 
 def has_scalar_agg(e: Expr) -> bool:
-    """Whether `e` holds a whole-relation scalar aggregate. The port has
-    none yet (`ScalarAgg` comes with q23), so no expression does; the
-    optimizer's guards call this as the reference's do."""
+    """Whether `e` holds a whole-relation scalar aggregate: such an
+    expression is not row-wise, so the optimizer skips rewrites that change
+    the row set under it (pushdown below a join or union, limit
+    pushdown)."""
+    if isinstance(e, ScalarAgg):
+        return True
+    if isinstance(e, BinOp):
+        return has_scalar_agg(e.left) or has_scalar_agg(e.right)
+    if isinstance(e, UnaryOp):
+        return has_scalar_agg(e.child)
     return False
 
 
@@ -298,3 +364,15 @@ def col(name: str) -> ColumnRef:
 def lit(value) -> Literal:
     """A literal, broadcast to the relation's length."""
     return Literal(value)
+
+
+def scalar_max(e) -> ScalarAgg:
+    return ScalarAgg("max", _wrap(e))
+
+
+def scalar_min(e) -> ScalarAgg:
+    return ScalarAgg("min", _wrap(e))
+
+
+def scalar_sum(e) -> ScalarAgg:
+    return ScalarAgg("sum", _wrap(e))

@@ -39,8 +39,8 @@ import hashlib
 from typing import Dict, List, Optional, Tuple
 
 from .builder import Plan, _toposort
-from .expr import (BinOp, ColumnRef, Expr, Literal, UnaryOp, col, fold,
-                   has_scalar_agg, substitute)
+from .expr import (BinOp, ColumnRef, Expr, Literal, ScalarAgg, UnaryOp,
+                   col, fold, has_scalar_agg, substitute)
 from .nodes import (Exchange, Filter, FusedSelect, HashAggregate, HashJoin,
                     Limit, PlanNode, PlanValidationError, Project, Scan,
                     Sort, TopK, Union)
@@ -71,6 +71,8 @@ def _fp_expr(e: Expr) -> Tuple:
         return ("bin", e.op, _fp_expr(e.left), _fp_expr(e.right))
     if isinstance(e, UnaryOp):
         return ("un", e.op, _fp_expr(e.child))
+    if isinstance(e, ScalarAgg):
+        return ("agg", e.op, _fp_expr(e.child))
     return ("expr", repr(e))
 
 

@@ -81,6 +81,36 @@ def test_jax_table_round_trip_with_nulls():
                                np.asarray(b.data).view(np.uint8))
 
 
+def test_concatenated_jax_table_round_trip_with_mixed_validity():
+    """A JAX `concat_tables` of two tables, one with validity on a column
+    and one without, crosses to the port bit for bit, and equals the
+    port's own `concat_tables` of the two tables crossed one by one."""
+    from spark_rapids_tpu import ops as jops
+    from spark_rapids_tpu_torch.ops import copying
+    a = _jax_table(n=40, seed=1)
+    b = JTable([JColumn.from_numpy(np.asarray(c.data)[:13], dtype=c.dtype)
+                for c in _jax_table(n=13, seed=2).columns],
+               names=[f"d{i}" for i in range(a.num_columns)])
+    jt = jops.concat_tables([a, b])
+    crossed = table_from_numpy(*jax_table_to_numpy(jt), device="cpu")
+    ours = copying.concat_tables([
+        table_from_numpy(*jax_table_to_numpy(t), device="cpu")
+        for t in (a, b)])
+    assert crossed.names == ours.names == a.names
+    for jc, x, y in zip(jt.columns, crossed.columns, ours.columns):
+        assert x.dtype == y.dtype
+        dx, vx = x.to_numpy()
+        dy, vy = y.to_numpy()
+        npt.assert_array_equal(dx.view(np.uint8), dy.view(np.uint8))
+        npt.assert_array_equal(dx.view(np.uint8),
+                               np.asarray(jc.data).view(np.uint8))
+        if jc.validity is None:
+            assert vx is None and vy is None
+        else:
+            npt.assert_array_equal(vx, vy)
+            assert vy[40:].all()         # the side without validity
+
+
 def test_kind_names_and_pylist():
     t = table_from_numpy(["a", "d"], [np.array([1, 2, 3], np.int64),
                                       np.array([10, 11, 12], np.int32)],

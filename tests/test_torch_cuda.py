@@ -675,3 +675,94 @@ def test_capped_plans_on_the_card_use_the_kernels():
         assert topk_cuda.PLAIN_CALLS == {"topk": 0}
         eager = PlanExecutor().execute(plan, inputs)
         _same_table(res.compact().to("cpu"), eager.table.to("cpu"))
+
+
+def test_union_and_scalar_aggregates_on_the_card_equal_the_cpu():
+    """`concat_tables` with mixed validity and `ScalarAgg` (max, min, sum
+    over INT64 and FLOAT64, every row and the live ones) on CUDA tensors
+    give the CPU's bits."""
+    _need_card()
+    from spark_rapids_tpu_torch import table_from_numpy
+    from spark_rapids_tpu_torch.ops import copying
+    from spark_rapids_tpu_torch.plan import expr
+    rng = np.random.default_rng(8)
+    n = 100_003
+    parts = []
+    for i, m in enumerate((n, 17, 4096)):
+        vals = [rng.integers(-2**40, 2**40, m).astype(np.int64),
+                rng.standard_normal(m) * 10.0 ** rng.integers(-8, 17, m)]
+        valid = [rng.random(m) > 0.2 if i == 1 else None, None]
+        parts.append((vals, valid))
+    for dev in ("cpu", "cuda"):
+        tables = [table_from_numpy(["a", "v"], v, va, ["int64", "float64"],
+                                   device=dev) for v, va in parts]
+        got = copying.concat_tables(tables)
+        if dev == "cpu":
+            want = got
+    assert got.device.type == "cuda"
+    _same_table(got.to("cpu"), want)
+    alive = torch.from_numpy(rng.random(want.num_rows) < 0.6)
+    for name in ("a", "v"):
+        for op in ("max", "min", "sum"):
+            e = expr.ScalarAgg(op, expr.col(name))
+            for mask in (None, alive):
+                c = e.evaluate(want, mask)
+                g = e.evaluate(got, None if mask is None else mask.cuda())
+                assert g.device.type == "cuda" and g.dim() == 0
+                assert g.cpu().reshape(1).view(torch.uint8).tolist() == \
+                    c.reshape(1).view(torch.uint8).tolist(), (name, op)
+
+
+@pytest.mark.parametrize("q", ["q5", "q23"])
+def test_q5_q23_on_the_card_equal_the_cpu(q):
+    """Both NDS plans, eager and capped, authored and optimized, on the
+    card: no kernel of the port runs on their path, no plain version
+    either, and every result equals the CPU run."""
+    _need_card()
+    from spark_rapids_tpu_torch import nds_q5, nds_q23
+    mod = {"q5": nds_q5, "q23": nds_q23}[q]
+    plan = getattr(mod, f"{q}_plan")()
+    make = getattr(mod, f"{q}_inputs")
+    inputs = make(60_000, device="cuda")
+    cpu_inputs = make(60_000, device="cpu")
+    for mode in ("eager", "capped"):
+        for optimize in (False, True):
+            join_cuda.reset_counters()
+            select_cuda.reset_counters()
+            topk_cuda.reset_counters()
+            res = PlanExecutor(mode=mode, optimize=optimize).execute(
+                plan, inputs)
+            want = PlanExecutor(mode=mode, device="cpu",
+                                optimize=optimize).execute(plan, cpu_inputs)
+            _same_table(res.compact().to("cpu"), want.compact())
+            assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
+                                          "emit": 0}
+            assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
+                                             "emit": 0}
+            assert sum(select_cuda.LAUNCHES.values()) == 0
+            assert sum(topk_cuda.LAUNCHES.values()) == 0
+            assert not any(m.kernel.startswith("cuda:")
+                           for m in res.metrics.values())
+
+
+def test_capped_q23_reads_the_host_attempts_plus_one():
+    """A warm capped q23 (a scalar subquery, shared subqueries, a Union)
+    reads the card at most once an attempt and once for the counts."""
+    _need_card()
+    import warnings
+    from spark_rapids_tpu_torch import nds_q23
+    inputs = nds_q23.q23_inputs(60_000, device="cuda")
+    ex = PlanExecutor(mode="capped", caps={"key_cap": 8192})
+    ex.execute(nds_q23.q23_plan(), inputs)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = ex.execute(nds_q23.q23_plan(), inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    synced = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert res.attempts == 1
+    assert len(synced) <= res.attempts + 1, [
+        f"{w.filename}:{w.lineno}" for w in synced]

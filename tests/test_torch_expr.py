@@ -6,6 +6,7 @@ optimizer relies on."""
 import numpy as np
 import numpy.testing as npt
 import pytest
+import torch
 
 import spark_rapids_tpu  # noqa: F401
 from spark_rapids_tpu import Column as JColumn
@@ -162,3 +163,136 @@ def test_substitute_and_scalar_agg():
     with pytest.raises(KeyError):
         texpr.substitute(e, {"a": texpr.col("x")})
     assert not texpr.has_scalar_agg(e)
+
+
+# ---- scalar aggregates (q23's scalar subquery) -------------------------------
+
+def _agg_values(kind, n, seed):
+    """Values whose float sums depend on the order of the adds (wide
+    magnitudes, -0.0) and whose extremes tie at signed zeros."""
+    rng = np.random.default_rng(seed)
+    if np.dtype(kind).kind == "f":
+        v = (rng.standard_normal(n) * 10.0 ** rng.integers(-8, 17, n))
+        v[::7] = -0.0
+        return v.astype(kind)
+    ii = np.iinfo(kind)
+    return rng.integers(ii.min // 4, ii.max // 4, n).astype(kind)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.reshape(-1).view(np.uint8)
+
+
+@pytest.mark.parametrize("alive_share", [None, 0.6])
+@pytest.mark.parametrize("op", ["max", "min", "sum"])
+@pytest.mark.parametrize("kind", ["int32", "int64", "float32", "float64"])
+@pytest.mark.parametrize("n", [1, 31, 1000])
+def test_scalar_agg_matches_jax(kind, op, alive_share, n):
+    """The 0-d result: dtype and bits, over every row or the live ones."""
+    v = _agg_values(kind, n, seed=n)
+    jt, tt = _tables({"v": v})
+    alive = None
+    if alive_share is not None:
+        alive = np.random.default_rng(n + 1).random(n) < alive_share
+        alive[0] = True
+    je = jexpr.ScalarAgg(op, jexpr.col("v"))
+    te = texpr.ScalarAgg(op, texpr.col("v"))
+    want = np.asarray(je.evaluate(jt, None if alive is None else
+                                  jexpr.jnp.asarray(alive)))
+    got = te.evaluate(tt, None if alive is None else
+                      torch.from_numpy(alive)).numpy()
+    assert got.shape == () and got.dtype == want.dtype, (got, want)
+    npt.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("kind", ["float32", "float64"])
+def test_scalar_agg_float_edges_match_jax(kind):
+    """NaN gives the canonical NaN; -0.0 orders below 0.0."""
+    for arr in ([1.0, np.nan], [np.nan], [-0.0, 0.0], [0.0, -0.0],
+                [-0.0] * 33):
+        jt, tt = _tables({"v": np.array(arr, dtype=kind)})
+        for op in ("max", "min", "sum"):
+            want = np.asarray(jexpr.ScalarAgg(op, jexpr.col("v"))
+                              .evaluate(jt))
+            got = texpr.ScalarAgg(op, texpr.col("v")).evaluate(tt).numpy()
+            npt.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_threshold_compares_in_float64():
+    """`rev > 0.95 * max(rev)` over INT64 runs in float64, as in the
+    reference: at max = 100,000,007 the threshold is 95,000,006.65, so rev
+    = 95,000,007 passes; in float32 both round to 95,000,008 and it would
+    not."""
+    rev = np.array([95_000_007, 100_000_007, 95_000_006, 3], dtype=np.int64)
+    jt, tt = _tables({"rev": rev})
+    je = jexpr.col("rev") > jexpr.lit(0.95) * jexpr.scalar_max(
+        jexpr.col("rev"))
+    te = texpr.col("rev") > texpr.lit(0.95) * texpr.scalar_max(
+        texpr.col("rev"))
+    want = np.asarray(je.evaluate(jt))
+    got = te.evaluate(tt).numpy()
+    npt.assert_array_equal(got, want)
+    npt.assert_array_equal(got, [True, True, False, False])
+    prod = texpr.lit(0.95) * texpr.scalar_max(texpr.col("rev"))
+    assert prod.evaluate(tt).numpy().dtype == np.asarray(
+        (jexpr.lit(0.95) * jexpr.scalar_max(jexpr.col("rev"))).evaluate(jt)
+    ).dtype == np.float64
+    f32 = np.float32(95_000_007) > np.float32(0.95) * np.float32(100_000_007)
+    assert not f32                     # the case float32 gets wrong
+    # 2^53 + 1 is not a float64: the max converts as the reference's does
+    big = np.array([2 ** 53 + 1, 2 ** 53], dtype=np.int64)
+    jt, tt = _tables({"rev": big})
+    npt.assert_array_equal(te.evaluate(tt).numpy(),
+                           np.asarray(je.evaluate(jt)))
+
+
+def test_scalar_agg_reads_null_rows_as_the_reference_does():
+    """The child's nulls are not excluded: the reference reduces the data
+    buffer (ROADMAP queue C records the deviation from Spark)."""
+    v = np.array([5, 9_000, 7], dtype=np.int64)
+    valid = np.array([True, False, True])
+    jt = JTable([JColumn.from_numpy(v, validity=valid)], names=["v"])
+    tt = table_from_numpy(["v"], [v], [valid], ["int64"], device="cpu")
+    for op in ("max", "min", "sum"):
+        want = np.asarray(jexpr.ScalarAgg(op, jexpr.col("v")).evaluate(jt))
+        got = texpr.ScalarAgg(op, texpr.col("v")).evaluate(tt).numpy()
+        npt.assert_array_equal(got, want)
+    assert int(texpr.scalar_max(texpr.col("v")).evaluate(tt)) == 9_000
+
+
+def test_scalar_agg_over_an_empty_relation():
+    """max and min raise ValueError in both packages; a sum is 0."""
+    jt, tt = _tables({"v": np.zeros(0, dtype=np.int64)})
+    for op in ("max", "min"):
+        with pytest.raises(ValueError):
+            jexpr.ScalarAgg(op, jexpr.col("v")).evaluate(jt)
+        with pytest.raises(ValueError, match="zero-size"):
+            texpr.ScalarAgg(op, texpr.col("v")).evaluate(tt)
+        with pytest.raises(ValueError, match="zero-size"):
+            (texpr.col("v") > texpr.ScalarAgg(op, texpr.col("v"))
+             ).evaluate(tt)
+    assert int(np.asarray(jexpr.scalar_sum(jexpr.col("v")).evaluate(jt))) \
+        == int(texpr.scalar_sum(texpr.col("v")).evaluate(tt)) == 0
+
+
+def test_scalar_agg_helpers_match_reference():
+    """fold, substitute, has_scalar_agg and repr for scalar aggregates."""
+    def build(mod):
+        return mod.col("rev") > (mod.lit(2) * mod.lit(3)) * mod.scalar_max(
+            mod.col("rev") + (mod.lit(1) - mod.lit(1)))
+    j, t = build(jexpr), build(texpr)
+    assert repr(jexpr.fold(j)) == repr(texpr.fold(t))
+    assert repr(texpr.fold(t)) == "(rev > (6 * max((rev + 0))))"
+    assert texpr.has_scalar_agg(t) and texpr.has_scalar_agg(~t)
+    assert texpr.has_scalar_agg(texpr.scalar_min(1))
+    assert not texpr.has_scalar_agg(texpr.col("rev") > 3)
+    s = texpr.substitute(t, {"rev": texpr.col("x")})
+    assert repr(s) == repr(jexpr.substitute(j, {"rev": jexpr.col("x")}))
+    assert repr(s) == "(x > ((2 * 3) * max((x + (1 - 1)))))"
+    assert s.references() == frozenset({"x"})
+    for name in ("max", "min", "sum"):
+        e = getattr(texpr, f"scalar_{name}")(texpr.col("a"))
+        assert isinstance(e, texpr.ScalarAgg) and e.op == name
+    m = texpr.scalar_sum(texpr.lit(2))
+    assert texpr.fold(m) is m                  # never folds itself

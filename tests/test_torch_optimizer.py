@@ -27,9 +27,13 @@ from spark_rapids_tpu_torch.plan import optimizer as topt
 from spark_rapids_tpu_torch.plan.nodes import Filter, HashJoin, Limit, Scan
 
 J = types.SimpleNamespace(PlanBuilder=jplan.PlanBuilder, col=jplan.col,
-                          lit=jplan.lit)
+                          lit=jplan.lit, scalar_max=jplan.scalar_max,
+                          scalar_min=jplan.scalar_min,
+                          scalar_sum=jplan.scalar_sum)
 T = types.SimpleNamespace(PlanBuilder=tplan.PlanBuilder, col=tplan.col,
-                          lit=tplan.lit)
+                          lit=tplan.lit, scalar_max=tplan.scalar_max,
+                          scalar_min=tplan.scalar_min,
+                          scalar_sum=tplan.scalar_sum)
 
 
 def _strip(text: str) -> str:
@@ -330,6 +334,34 @@ _CASES = {
     "no_swap_without_margin": lambda m: _hinted(m, 100, 150),
     "est_rows_hint_swaps": lambda m: _hinted(m, 10, 1000),
     "small_plan": _small_plan,
+    # scalar aggregates are not row-wise: the rules that would change the
+    # row set under one stand back (`has_scalar_agg`)
+    "scalar_filter_stays_above_union": lambda m: (
+        m.PlanBuilder().scan("l", schema=["v"])
+        .union(m.PlanBuilder().scan("r", schema=["v"]))
+        .filter(m.col("v") > m.lit(0.5) * m.scalar_max(m.col("v")))
+        .build()),
+    "scalar_filter_stays_above_join": lambda m: (
+        m.PlanBuilder().scan("s", schema=["k", "v"])
+        .join(m.PlanBuilder().scan("d", schema=["dk", "grp"]),
+              left_on="k", right_on="dk")
+        .filter(m.col("grp") > m.scalar_min(m.col("grp"))).build()),
+    "scalar_filter_passes_a_renaming_project": lambda m: (
+        m.PlanBuilder().scan("t", schema=["a", "v"])
+        .project({"a": m.col("a"), "w": m.col("v")})
+        .filter(m.col("w") > m.lit(0.5) * m.scalar_max(m.col("a")))
+        .build()),
+    "no_pushdown_below_a_scalar_project": lambda m: (
+        m.PlanBuilder().scan("t", schema=["a", "v"])
+        .project({"a": m.col("a"), "m": m.scalar_max(m.col("v"))})
+        .filter(m.col("a") > 5).build()),
+    "no_limit_below_a_scalar_project": lambda m: (
+        m.PlanBuilder().scan("t", schema=["v"])
+        .project({"s": m.scalar_sum(m.col("v"))}).limit(2).build()),
+    "scalar_filter_does_not_fuse": lambda m: (
+        m.PlanBuilder().scan("t", schema=["a", "v"])
+        .filter(m.col("a") > m.lit(0.5) * m.scalar_max(m.col("a")))
+        .project({"w": m.col("v") * 2}).build()),
 }
 
 # bound rows where the reference's case binds them
@@ -411,6 +443,12 @@ def _data(seed=0, n=2000):
         "s": {"k": rng.integers(0, 50, 300), "v": rng.integers(0, 9, 300)},
         "d": {"dk": np.arange(50), "grp": np.arange(50) % 3,
               "extra": np.arange(50) - 20},
+        "l": {"v": rng.integers(-20, 40, 60)},
+        "r": {"v": rng.integers(-20, 40, 25)},
+        "a": {c: rng.integers(0, 8, 30) for c in ("k", "x", "junk",
+                                                   "junk2")},
+        "c": {c: rng.integers(0, 8, 20) for c in ("k", "x", "junk",
+                                                   "junk2")},
     }
 
 
@@ -439,7 +477,16 @@ _RUNNABLE = ["filter_true_drops", "filter_false_short_circuits",
              "join_input_narrowing_select", "aggregate_drops_dead_aggs",
              "project_filter_fuses", "adjacent_filters_merge",
              "sort_limit_becomes_topk", "limit_below_rowwise_project",
-             "limit_limit_collapses", "build_side_swaps", "small_plan"]
+             "limit_limit_collapses", "build_side_swaps", "small_plan",
+             # Unions and scalar aggregates run since the port has them
+             "pushdown_below_union", "shared_guard_same_pass",
+             "union_input_shared_elsewhere",
+             "scalar_filter_stays_above_union",
+             "scalar_filter_stays_above_join",
+             "scalar_filter_passes_a_renaming_project",
+             "no_pushdown_below_a_scalar_project",
+             "no_limit_below_a_scalar_project",
+             "scalar_filter_does_not_fuse"]
 
 
 @pytest.mark.parametrize("case", _RUNNABLE)

@@ -23,8 +23,7 @@ from benchmarks import nds_plans
 from spark_rapids_tpu_torch import nds_q3, nds_q72, table_from_numpy
 from spark_rapids_tpu_torch.ops import join_cuda, topk
 from spark_rapids_tpu_torch.parallel.autoretry import CapacityOverflowError
-from spark_rapids_tpu_torch.plan import (PlanBuilder, PlanExecutor,
-                                         PlanValidationError)
+from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
 
 _N = 4000
 _TINY = {"row_cap": 128, "key_cap": 16}
@@ -167,12 +166,35 @@ def test_overflow_past_the_attempts_raises():
 
 
 def test_union_raises_and_modes_are_checked():
+    """The capped Union (it raised before the tier had one) runs: the
+    padded frames and their alive masks end to end, in input order, equal
+    to the reference's capped Union over a filtered input; an unknown mode
+    still raises."""
     b = PlanBuilder()
-    t = table_from_numpy(["a"], [np.arange(5, dtype=np.int64)], [None],
-                         ["int64"], device="cpu")
-    union = b.scan("t", schema=["a"]).union(b.scan("u", schema=["a"])).build()
-    with pytest.raises(PlanValidationError, match="queue A item 3"):
-        PlanExecutor(mode="capped", device="cpu").execute(
-            union, {"t": t, "u": t})
+    a = np.arange(5, dtype=np.int64)
+    w = np.arange(10, 16, dtype=np.int64)
+    valid = np.array([True, False, True, True, False, True])
+    t = table_from_numpy(["a"], [a], [None], ["int64"], device="cpu")
+    u = table_from_numpy(["a"], [w], [valid], ["int64"], device="cpu")
+    union = (b.scan("t", schema=["a"]).filter(col("a") > 1)
+             .union(b.scan("u", schema=["a"]))
+             .aggregate(["a"], [("a", "count", "n")])).build()
+    res = PlanExecutor(mode="capped", device="cpu", optimize=False,
+                       caps={"key_cap": 16}).execute(union, {"t": t, "u": u})
+    jb = JPlanBuilder()
+    jplan = (jb.scan("t", schema=["a"]).filter(jcol("a") > 1)
+             .union(jb.scan("u", schema=["a"]))
+             .aggregate(["a"], [("a", "count", "n")])).build()
+    jin = {"t": JTable([JColumn.from_numpy(a)], names=["a"]),
+           "u": JTable([JColumn.from_numpy(w, validity=valid)],
+                       names=["a"])}
+    with stats.scoped_store(None):
+        want = JPlanExecutor(mode="capped", optimize=False,
+                             caps={"key_cap": 16}).execute(jplan, jin)
+    _assert_same(want.compact(), res.compact())
+    assert res.compact().to_pydict() == {
+        "a": [None, 2, 3, 4, 10, 12, 13, 15], "n": [0, 1, 1, 1, 1, 1, 1, 1]}
+    unions = [m for m in res.metrics.values() if m.kind == "Union"]
+    assert [(m.rows_in, m.rows_out) for m in unions] == [(9, 9)]
     with pytest.raises(ValueError, match="unknown executor mode"):
         PlanExecutor(mode="streaming", device="cpu")

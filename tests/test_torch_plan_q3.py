@@ -159,13 +159,32 @@ def test_semi_anti_project_global_agg_match_jax(which):
 
 
 def test_unported_nodes_and_errors_name_their_roadmap_item():
+    """Union runs in the eager tier (equal to the JAX package's); the eager
+    Exchange still raises, naming the item that ports it."""
     b = PlanBuilder()
     plan = b.scan("t", schema=["a"]).sort(["a"]).limit(3).build()
     t = table_from_numpy(["a"], [np.arange(5, dtype=np.int64)], [None],
                          ["int64"], device="cpu")
+    u = table_from_numpy(["a"], [np.arange(7, 10, dtype=np.int64)],
+                         [np.array([True, False, True])], ["int64"],
+                         device="cpu")
     union = b.scan("t", schema=["a"]).union(b.scan("u", schema=["a"])).build()
-    with pytest.raises(PlanValidationError, match="queue A item 3"):
-        PlanExecutor(device="cpu").execute(union, {"t": t, "u": t})
+    got = PlanExecutor(device="cpu").execute(union, {"t": t, "u": u}).table
+    jb = JPlanBuilder()
+    jt = {"t": JTable([JColumn.from_numpy(np.arange(5, dtype=np.int64))],
+                      names=["a"]),
+          "u": JTable([JColumn.from_numpy(np.arange(7, 10, dtype=np.int64),
+                                          validity=np.array([True, False,
+                                                             True]))],
+                      names=["a"])}
+    want = JPlanExecutor(mode="eager").execute(
+        jb.scan("t", schema=["a"]).union(jb.scan("u", schema=["a"])).build(),
+        jt).table
+    _assert_same(want, got)
+    assert got.to_pydict() == {"a": [0, 1, 2, 3, 4, 7, None, 9]}
+    exchange = b.scan("t", schema=["a"]).exchange(["a"]).build()
+    with pytest.raises(PlanValidationError, match="queue A item 13"):
+        PlanExecutor(device="cpu").execute(exchange, {"t": t})
     with pytest.raises(PlanValidationError, match="unbound"):
         PlanExecutor(device="cpu").execute(plan, {})
     with pytest.raises(PlanValidationError, match="does not match declared"):
@@ -173,9 +192,9 @@ def test_unported_nodes_and_errors_name_their_roadmap_item():
             b.scan("u", schema=["x"]).build(), {"u": t})
     with pytest.raises(PlanValidationError, match="not in"):
         b.scan("v", schema=["a"]).sort(["zz"]).build()
-    with pytest.raises(PlanValidationError, match="queue A item 3"):
-        PlanExecutor(mode="capped", device="cpu").execute(
-            union, {"t": t, "u": t})
+    capped = PlanExecutor(mode="capped", device="cpu").execute(
+        union, {"t": t, "u": u})
+    _assert_same(want, capped.compact())
     with pytest.raises(ValueError, match="unknown executor mode"):
         PlanExecutor(mode="jit", device="cpu")
 
@@ -207,6 +226,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         "c = PlanExecutor(mode='capped', device='cpu').execute(\n"
         "    nds_q3.q3_tpcds_plan(), t)\n"
         "assert c.compact().num_rows == r.table.num_rows\n"
+        "from spark_rapids_tpu_torch import nds_q5, nds_q23\n"
+        "for q in (nds_q5, nds_q23):\n"
+        "    make = getattr(q, q.__name__.split('_')[-1] + '_inputs')\n"
+        "    plan = getattr(q, q.__name__.split('_')[-1] + '_plan')()\n"
+        "    qi = make(4096, device='cpu')\n"
+        "    e = PlanExecutor(device='cpu').execute(plan, qi)\n"
+        "    k = PlanExecutor(mode='capped', device='cpu').execute(plan, qi)\n"
+        "    assert k.compact().to_pydict() == e.table.to_pydict()\n"
         "inputs = nds_q3.q3_inputs(8192, device='cpu')\n"
         "res = PlanExecutor(device='cpu').execute(nds_q3.q3_plan(), inputs)\n"
         "assert res.table.num_rows > 0\n"

@@ -139,6 +139,8 @@ def test_keyless_float_sum_matches_jax(n, dt, with_nulls):
 @pytest.mark.parametrize("values,want_bits", [
     ([1e16, 1.0, 1.0, 1.0, 1.0, 1.0], 0x4341C37937E08000),
     ([-0.0] * 33, 0),
+    ([-0.0], -2 ** 63),           # one value: XLA returns it as it is
+    ([-0.0, -0.0], 0),
 ])
 def test_keyless_sum_edge_cases_match_jax(values, want_bits):
     ref, got = _keyless(np.array(values, np.float64), None,
@@ -167,9 +169,12 @@ def test_keyless_min_max_match_jax(values, dt):
 
 def _model_sum(xs, block=32):
     """The reference's keyless float sum, element by element in Python:
-    up to `block` values a left fold from +0.0; longer lists padded with
-    zeros (half the padding, rounded down, in front), each block folded
-    from +0.0, and the block sums summed the same way."""
+    one value as it is; up to `block` values a left fold from +0.0; longer
+    lists padded with zeros (half the padding, rounded down, in front),
+    each block folded from +0.0, and the block sums summed the same way."""
+    if len(xs) == 1:
+        return xs[0]
+
     def fold(vals, dt):
         acc = dt(0.0)
         for v in vals:
