@@ -2,13 +2,15 @@
 """End-to-end check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--trace] [--out FILE]
+    python3 chip_smoke.py --walls N    # eager plan walls only (A/B runs)
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles every CUDA source of the port with nvcc (sm_90a), one
-   nvcc per source, all started together;
+2. build: compiles every CUDA source of the port with nvcc (sm_90a), and
+   a one-thread probe of a dependent float64 add's latency, one nvcc per
+   source, all started together;
 3. hash-join kernels: each (build; probe count with its tile sums and
    offsets, segment lists and total; probe emit) against its plain
    PyTorch version on the card, for exact equality, the offsets and total
@@ -51,8 +53,16 @@ in phases that each raise on failure:
    and emit timed at its shape;
 4b''. C4: a FLOAT64 column of 10M rows summed and averaged over 3 and
    1,000 groups through `PlanExecutor`, twice on the card, each run's
-   bits equal to the CPU run's (the segment-sum kernel), with
-   `index_add_` on the card beside it; the kernel timed at 3 groups;
+   bits equal to the CPU run's (the groupby kernel's fold), with
+   `index_add_` on the card beside it; the fold timed at 3 groups;
+4b'''' groupby: the groupby kernel against its plain version on the CPU,
+   bit for bit: every op on INT8 to TIMESTAMP_US, with nulls and all-null
+   groups, one group, all rows distinct, groups across tile edges, 0 to
+   100,003 rows, NaN payloads that tell a fold's first NaN from its last,
+   eager and capped (key_cap below, at and above the group count, alive
+   masks), and q23's zipf keys at 10M rows; then timed at q23's two keyed
+   aggregates and the C4 shapes beside `index_add_`, the plain version,
+   the bytes bound and, for the fold, the chain bound from the probe;
 4b'''. the capped tier: the capped hash join against its plain version
    (`ops.join.inner_join_capped`), all four outputs bit for bit, at the
    join shapes and alive masks of q3's two joins, q72's 20-row hd join
@@ -78,8 +88,10 @@ in phases that each raise on failure:
    `PlanExecutor(optimize=False)`, `PlanExecutor()` and both in the
    capped tier at the reference bench's key caps (2,048 and 8,192), every
    kernel counter zeroed just before each counted run and read just after:
-   no kernel of the port is on these paths, so every launch and plain-run
-   count must read 0 and no stamp may name a `cuda:` kernel; each result
+   the groupby kernel is the one kernel on these paths, so it launches
+   once per keyed aggregate, every other launch and every plain-run count
+   reads 0 and no other stamp names a `cuda:` kernel; a traced run finds
+   no scatter inside a keyed aggregate; each result
    equal to an independent numpy evaluation and to the port's CPU run,
    bit for bit; warm walls, one traced warm run's idle share, and the
    capped runs' attempts and host reads (at most attempts + 1);
@@ -168,7 +180,10 @@ KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel<false>",
                 "build_large": "build_large_kernel",
                 "count_large": "count_kernel<true>",
                 "emit_large": "emit_kernel<true>",
-                "segment_sum": "seg_sum_kernel",
+                "segment_sum": ("gb_fold_short_kernel",
+                                "gb_fold_long_kernel"),
+                "groupby": ("gb_fill_kernel", "gb_reduce_kernel",
+                            "gb_fold_short_kernel", "gb_fold_long_kernel"),
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
                 "fused": "row_hash_kernel<true,true>",
@@ -183,7 +198,7 @@ RH_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_hash.cu"
 HIST_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
 FS_SOURCE = "spark_rapids_tpu_torch/ops/csrc/fused_select.cu"
 TK_SOURCE = "spark_rapids_tpu_torch/ops/csrc/topk.cu"
-SS_SOURCE = "spark_rapids_tpu_torch/ops/csrc/segment_sum.cu"
+GB_SOURCE = "spark_rapids_tpu_torch/ops/csrc/groupby.cu"
 REPLACES = {
     "build": "spark_rapids_tpu/ops/join_pallas.py:122",
     "count": "spark_rapids_tpu/ops/join_pallas.py:209",
@@ -225,16 +240,55 @@ def device_phase(torch):
 
 # ---- phase 2 -----------------------------------------------------------------
 
+# one thread's chain of dependent float64 adds: one add's latency, which
+# bounds a row-order fold (a measuring probe, run by no path)
+DADD_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void dadd_chain_kernel(long long rounds, double step,
+                                  double* out) {
+  double acc = out[0];
+#pragma unroll 16
+  for (long long r = 0; r < rounds; ++r) acc += step;
+  out[0] = acc;
+}
+extern "C" int dadd_chain(long long rounds, double* out, void* stream) {
+  dadd_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      rounds, 1.0, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
 def build_phase():
+    """Every source of the port, and the dependent-add probe, one nvcc
+    each, started together; -> the probe's loaded library."""
+    import ctypes
     from spark_rapids_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
+    # built beside the port's libraries (listed in .gitignore)
+    src = cuda_build._BUILD_DIR / f"dadd_probe-{os.getpid()}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(DADD_PROBE)
+    probe_lib = src.with_suffix(".so")
+    probe = subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build._FLAGS, "-o", str(probe_lib),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
     secs = cuda_build.build()
+    probe_log, _ = probe.communicate()
+    require(probe.returncode == 0, f"nvcc failed for the dependent-add "
+            f"probe:\n{probe_log}")
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items()) or 'cached'})")
     for name in cuda_build.SOURCES:
         for line in cuda_build.compiler_report(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    lib = ctypes.CDLL(str(probe_lib))
+    lib.dadd_chain.argtypes = [ctypes.c_longlong, ctypes.c_void_p,
+                               ctypes.c_void_p]
+    lib.dadd_chain.restype = ctypes.c_int
+    return lib
 
 
 # ---- phase 3 -----------------------------------------------------------------
@@ -244,7 +298,7 @@ class Checks:
         self.max_err = {"build": 0, "count": 0, "emit": 0, "row_hash": 0,
                         "histogram": 0, "fused_select": 0, "topk": 0,
                         "build_large": 0, "count_large": 0,
-                        "emit_large": 0, "segment_sum": 0,
+                        "emit_large": 0, "segment_sum": 0, "groupby": 0,
                         "capped_join": 0, "capped_topk": 0, "plans": 0}
         self.n = 0
 
@@ -822,6 +876,7 @@ def trace_q3(torch, ex, plan, inputs, warm_ms):
 
 def q3_phase(torch, inputs_cpu, gen, trace):
     from spark_rapids_tpu_torch import nds_q3
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
     from spark_rapids_tpu_torch.ops import join_cuda as jc
     from spark_rapids_tpu_torch.plan import PlanExecutor
 
@@ -831,11 +886,12 @@ def q3_phase(torch, inputs_cpu, gen, trace):
     inputs = {k: t.to("cuda") for k, t in inputs_cpu.items()}
     torch.cuda.synchronize()
     jc.reset_counters()
+    gc.reset_counters()
     res = ex.execute(plan, inputs)
     torch.cuda.synchronize()
     launches = dict(jc.LAUNCHES)
     log(f"q3 at {N_SALES} sales rows on {res.device}: "
-        f"{res.wall_ms:.3f} ms, launches {launches}")
+        f"{res.wall_ms:.3f} ms, launches {launches}, groupby {gc.LAUNCHES}")
     log(res.profile_text())
     stamps = [m.kernel for m in res.metrics.values() if m.kind == "HashJoin"]
     require(stamps == ["cuda:hash_join"] * 2, f"join stamps {stamps}")
@@ -843,6 +899,7 @@ def q3_phase(torch, inputs_cpu, gen, trace):
             f"kernel launches on q3 {launches}")
     require(jc.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0},
             f"plain versions ran on the card path {jc.PLAIN_CALLS}")
+    launches["groupby"] = require_groupby(gc, res, "q3")
     warm = [ex.execute(plan, inputs) for _ in range(3)]
     walls = [r.wall_ms for r in warm]
     log("q3 repeat wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
@@ -880,6 +937,7 @@ def tpcds_q3_phase(torch, chk, gen, trace):
     TopK, with the hash join, counters zeroed just before and read just
     after."""
     from spark_rapids_tpu_torch import nds_q3
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
     from spark_rapids_tpu_torch.ops import join_cuda as jc
     from spark_rapids_tpu_torch.ops import select
     from spark_rapids_tpu_torch.ops import select_cuda as sc
@@ -893,12 +951,13 @@ def tpcds_q3_phase(torch, chk, gen, trace):
     inputs = {k: t.to("cuda") for k, t in inputs_cpu.items()}
     ex = PlanExecutor()                               # the card, optimized
     torch.cuda.synchronize()
-    for m in (jc, sc, tc):
+    for m in (jc, sc, tc, gc):
         m.reset_counters()
     res = ex.execute(plan, inputs)
     torch.cuda.synchronize()
     launches = {"hash_join": dict(jc.LAUNCHES),
-                "fused_select": dict(sc.LAUNCHES), "topk": dict(tc.LAUNCHES)}
+                "fused_select": dict(sc.LAUNCHES), "topk": dict(tc.LAUNCHES),
+                "groupby": dict(gc.LAUNCHES)}
     plain = {"hash_join": dict(jc.PLAIN_CALLS),
              "fused_select": dict(sc.PLAIN_CALLS),
              "topk": dict(tc.PLAIN_CALLS)}
@@ -908,8 +967,10 @@ def tpcds_q3_phase(torch, chk, gen, trace):
     log(res.profile_text())
     log("optimizer: " + json.dumps(res.optimizer))
     stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
-    require(stamps == ["cuda:fused_select"] * 2 + ["cuda:hash_join"] * 2
-            + ["cuda:topk"], f"TPC-DS q3 stamps {stamps}")
+    require(stamps == ["cuda:fused_select"] * 2 + ["cuda:groupby"]
+            + ["cuda:hash_join"] * 2 + ["cuda:topk"],
+            f"TPC-DS q3 stamps {stamps}")
+    require_groupby(gc, res, "TPC-DS q3")
     # the TopK of the groups is one threshold launch and the gather
     require(launches["hash_join"]["build"] == 2
             and launches["fused_select"]["count"] == 2
@@ -1912,8 +1973,8 @@ def q72_phase(torch, chk):
     both equal to numpy q72 and to the CPU run, bit for bit; then the
     inventory join's three kernels timed at its shape."""
     from spark_rapids_tpu_torch import nds_q72
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
     from spark_rapids_tpu_torch.ops import join_cuda as jc
-    from spark_rapids_tpu_torch.ops import segment_sum_cuda as ssc
     from spark_rapids_tpu_torch.ops import select_cuda as sc
     from spark_rapids_tpu_torch.ops import topk_cuda as tc
     from spark_rapids_tpu_torch.plan import PlanExecutor
@@ -1931,17 +1992,18 @@ def q72_phase(torch, chk):
         what = "q72 optimized" if optimize else "q72 authored"
         ex = PlanExecutor(optimize=optimize)           # the card
         torch.cuda.synchronize()
-        for m in (jc, sc, tc, ssc):
+        for m in (jc, sc, tc, gc):
             m.reset_counters()
         res = ex.execute(plan, inputs)
         torch.cuda.synchronize()
         launches = {"hash_join": dict(jc.LAUNCHES),
                     "hash_join_large": dict(jc.LARGE_LAUNCHES),
-                    "fused_select": dict(sc.LAUNCHES)}
+                    "fused_select": dict(sc.LAUNCHES),
+                    "groupby": dict(gc.LAUNCHES)}
         plain = {"hash_join": dict(jc.PLAIN_CALLS),
                  "fused_select": dict(sc.PLAIN_CALLS),
                  "topk": dict(tc.PLAIN_CALLS),
-                 "segment_sum": dict(ssc.PLAIN_CALLS)}
+                 "groupby": dict(gc.PLAIN_CALLS)}
         log(f"{what} at {N_SALES} rows on {res.device}: {res.wall_ms:.3f} "
             f"ms, launches {launches}, plain runs {plain}")
         log(res.profile_text())
@@ -1960,6 +2022,7 @@ def q72_phase(torch, chk):
                 f"{what}: FusedSelects {fused}, launches {launches}")
         require(all(v == 0 for d in plain.values() for v in d.values()),
                 f"{what}: plain versions ran on the card path {plain}")
+        require_groupby(gc, res, what)
         warm = [ex.execute(plan, inputs) for _ in range(3)]
         walls = [r.wall_ms for r in warm]
         log(f"{what} repeat wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
@@ -2034,13 +2097,15 @@ def q72_phase(torch, chk):
 C4_GROUPS = (3, 1000)
 
 
-def c4_phase(torch, chk):
+def c4_phase(torch, chk, add_ms):
     """A FLOAT64 column of 10M rows summed and averaged over 3 and over 1,000
     groups through `PlanExecutor`, twice on the card, each run's bits held
-    to the CPU run's; `index_add_` on the card beside it, as the fault it
-    repairs; then the segment-sum kernel timed at 3 groups."""
+    to the CPU run's (the groupby kernel's fold, one launch a run);
+    `index_add_` on the card beside it, as the fault it repairs; then the
+    fold alone (`segment_sum_cuda`) timed at 3 groups."""
     from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
     from spark_rapids_tpu_torch.ops import segment_sum_cuda as ssc
     from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor
 
@@ -2060,14 +2125,16 @@ def c4_phase(torch, chk):
         cpu = PlanExecutor(device="cpu", optimize=False).execute(
             plan, {"t": t_cpu}).table
         for run in (1, 2):
+            gc.reset_counters()
             ssc.reset_counters()
             got = PlanExecutor(optimize=False).execute(plan, t_gpu).table
             torch.cuda.synchronize()
-            require(ssc.LAUNCHES["segment_sum"] == 2
+            require(gc.LAUNCHES == {"groupby": 1, "fold": 1}
+                    and gc.PLAIN_CALLS["groupby"] == 0
                     and ssc.PLAIN_CALLS["segment_sum"] == 0,
-                    f"C4 {groups} groups: segment-sum launches "
-                    f"{ssc.LAUNCHES}, plain {ssc.PLAIN_CALLS}")
-            out["launches"] += ssc.LAUNCHES["segment_sum"]
+                    f"C4 {groups} groups: groupby launches {gc.LAUNCHES}, "
+                    f"plain {gc.PLAIN_CALLS} {ssc.PLAIN_CALLS}")
+            out["launches"] += gc.LAUNCHES["fold"]
             chk.tables("segment_sum", got.to("cpu"), cpu,
                        f"C4 {groups} groups run {run}")
         # the fault: index_add_ on the card, against the CPU's row order
@@ -2095,7 +2162,7 @@ def c4_phase(torch, chk):
     want = ssc.segment_sum_plain(v.cpu(), seg.cpu(), 3)
     chk.equal("segment_sum", kern().cpu().view(torch.int64),
               want.view(torch.int64), "segment sum, 3 groups")
-    ms = device_ms(torch, kern, KERNEL_NAMES["segment_sum"], 5)
+    ms = device_ms(torch, kern, KERNEL_NAMES["segment_sum"], 5, per_call=2)
     cms = call_ms(torch, kern, 5)
     lms = call_ms(torch, lib, 5)
     t0 = time.perf_counter()
@@ -2104,15 +2171,361 @@ def c4_phase(torch, chk):
     nbytes = 8 * N_ROWS + 8 * 3 + 8 * 3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = N_ROWS / PEAK_F64_OPS_PER_S * 1e3
+    longest = int(torch.bincount(seg).max())
     out["timing"] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
                      "library_ms": lms, "bytes": nbytes, "ops": N_ROWS,
                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                     "bound_ms": max(bytes_ms, ops_ms)}
-    log(f"  segment sum, 10M rows in 3 groups: device {ms!r} ms, one call "
-        f"{cms!r} ms; plain (index_add_ on the CPU, host clock) {pms!r} ms; "
-        f"index_add_ on the card {lms!r} ms; bound {max(bytes_ms, ops_ms)!r} "
-        f"ms ({nbytes} B)")
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "longest_group": longest,
+                     "chain_ms": longest * add_ms}
+    log(f"  segment sum (the groupby kernel's fold alone), 10M rows in 3 "
+        f"groups: device {ms!r} ms, one call {cms!r} ms; plain (index_add_ "
+        f"on the CPU, host clock) {pms!r} ms; index_add_ on the card "
+        f"{lms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B); "
+        f"chain {longest * add_ms!r} ms ({longest} dependent adds)")
     return out
+
+
+# ---- phase 4e': the groupby kernel ------------------------------------------
+
+# the value kinds of the groupby matrix: (name, numpy type, kind name)
+GB_KINDS = (("i8", np.int8, "int8"), ("i16", np.int16, "int16"),
+            ("i32", np.int32, "int32"), ("i64", np.int64, "int64"),
+            ("f32", np.float32, "float32"), ("f64", np.float64, "float64"),
+            ("d32", np.int32, "date32"), ("ts", np.int64, "timestamp"))
+GB_SIZES = (0, 1, 2047, 2048, 2049, 6145, 100_003)
+GB_DADD_ROUNDS = 1 << 22
+
+
+def gb_values(rng, name, npt, n):
+    """Values over the kind's range: integer extremes (sums wrap), floats
+    with -0.0, 0.0, NaN, both infinities and magnitudes from 1e-300 to
+    1e300 (one NaN pattern: the CPU's NaN bits depend on which operand its
+    compiler put first)."""
+    if name.startswith("f"):
+        pick = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, 1.5, -2.25,
+                         1e-300, -1e300, 3e38])
+        v = np.where(rng.random(n) < 0.2, rng.choice(pick, n),
+                     rng.standard_normal(n) * 10.0 ** rng.integers(-8, 12, n))
+        with np.errstate(over="ignore"):
+            return v.astype(npt)
+    info = np.iinfo(npt)
+    v = rng.integers(info.min, info.max, n, dtype=np.int64, endpoint=True)
+    return np.where(rng.random(n) < 0.05, info.max, v).astype(npt)
+
+
+def gb_table(rng, keys, null_p, device="cpu"):
+    """A table of key column "k" and one value column per kind of
+    GB_KINDS (nulls at rate null_p; the "i64" column also null in every
+    group whose key is a multiple of 3, so all-null groups occur), and
+    the aggregations of every op over it."""
+    from spark_rapids_tpu_torch import table_from_numpy
+    n = keys.shape[0]
+    names, arrays, valid, kinds = ["k"], [keys], [None], ["int64"]
+    aggs = [("k", "size")]
+    for name, npt, kind in GB_KINDS:
+        v = rng.random(n) >= null_p if null_p else None
+        if name == "i64":
+            v = (rng.random(n) >= null_p) & (keys % 3 != 0)
+        names.append(name)
+        arrays.append(gb_values(rng, name, npt, n))
+        valid.append(v)
+        kinds.append(kind)
+        aggs += [(name, op) for op in ("count", "min", "max", "mean")]
+        if kind not in ("date32", "timestamp"):
+            aggs.append((name, "sum"))
+    return table_from_numpy(names, arrays, valid, kinds, device=device), aggs
+
+
+def gb_keys(rng, dist, n):
+    if dist == "one group":
+        return np.zeros(n, np.int64)
+    if dist == "all distinct":
+        return rng.permutation(n).astype(np.int64)
+    if dist == "tile edges":
+        # runs of lengths around the kernel's 2,048-row tile
+        lens = rng.choice([1, 2, 2047, 2048, 2049, 4095, 4097, 6145], 64)
+        return rng.permutation(np.resize(np.repeat(np.arange(lens.size),
+                                                   lens), n)).astype(np.int64)
+    return rng.integers(0, 40, n).astype(np.int64)
+
+
+def gb_nan_table(rng):
+    """Float sums that end NaN, on distinct payloads of both signs, so the
+    first NaN of a group and its last give different bits: short groups (a
+    thread a group) and long ones (a warp pair, several staged chunks),
+    FLOAT64 with nulls and FLOAT32, and two groups whose only NaN is
+    inf - inf; -> (table, aggregations)."""
+    from spark_rapids_tpu_torch import table_from_numpy
+    sizes = [5, 4, 3, 4, 40, 1500, 700, 33]
+    n = sum(sizes)
+    k = np.repeat(np.arange(len(sizes)), sizes).astype(np.int64)
+    x = rng.standard_normal(n)
+    f = rng.standard_normal(n).astype(np.float32)
+    xb, fb = x.view(np.uint64), f.view(np.uint32)
+    for lo, hi in zip(np.cumsum([0] + sizes[:-1]), np.cumsum(sizes)):
+        at = rng.choice(np.arange(lo, hi), min(hi - lo, 6), replace=False)
+        xb[at] = (np.uint64(0x7FF0000000000000)
+                  | rng.integers(1, 1 << 51, at.size).astype(np.uint64)
+                  | (rng.integers(0, 2, at.size).astype(np.uint64) << 63))
+        fb[at] = (np.uint32(0x7F800000)
+                  | rng.integers(1, 1 << 22, at.size).astype(np.uint32)
+                  | (rng.integers(0, 2, at.size).astype(np.uint32) << 31))
+    for g in (2, 7):
+        lo = sum(sizes[:g])
+        x[lo:lo + sizes[g]] = np.where(np.arange(sizes[g]) % 2, np.inf,
+                                       -np.inf)
+    t = table_from_numpy(["k", "x", "f"], [k, x, f],
+                         [None, rng.random(n) >= 0.1, None],
+                         ["int64", "float64", "float32"], device="cpu")
+    return t, [("x", "sum"), ("x", "mean"), ("f", "sum"), ("f", "mean")]
+
+
+def gb_case(torch, chk, gc, aggregate, t_cpu, aggs, what, cap=None,
+            alive=None):
+    """The kernel on the card against the plain version on the CPU, bit
+    for bit; one launch a call with rows."""
+    t_gpu = t_cpu.to("cuda")
+    before = gc.LAUNCHES["groupby"]
+    if cap is None:
+        want = aggregate.groupby_aggregate(t_cpu, ["k"], aggs)
+        got = aggregate.groupby_aggregate(t_gpu, ["k"], aggs)
+        chk.tables("groupby", got.to("cpu"), want, what)
+    else:
+        want = aggregate.groupby_aggregate_capped(t_cpu, ["k"], aggs, cap,
+                                                  alive)
+        got = aggregate.groupby_aggregate_capped(
+            t_gpu, ["k"], aggs, cap, None if alive is None else alive.cuda())
+        chk.tables("groupby", got[0].to("cpu"), want[0], what)
+        chk.equal("groupby", got[1].cpu(), want[1], f"{what} valid")
+        chk.equal("groupby", got[2].cpu(), want[2], f"{what} overflow")
+    torch.cuda.synchronize()
+    launched = gc.LAUNCHES["groupby"] - before
+    require(launched == (1 if t_cpu.num_rows else 0)
+            and gc.PLAIN_CALLS["groupby"] == 0,
+            f"{what}: {launched} launches, plain {gc.PLAIN_CALLS}")
+
+
+def gb_sorted(torch, table, key):
+    """(order, seg, per-row group, group count) of `table` by `key`, as
+    `groupby_aggregate` computes them."""
+    from spark_rapids_tpu_torch.ops.sort import _key_operands, lex_order
+    ops_ = _key_operands(table[key], True, None)
+    order = lex_order(ops_)
+    n = table.num_rows
+    boundary = torch.arange(n, device=table.device) == 0
+    for o in ops_:
+        s = o.index_select(0, order)
+        boundary[1:] |= s[1:] != s[:-1]
+    seg = torch.cumsum(boundary, 0) - 1
+    gid = torch.empty_like(seg).scatter_(0, order, seg)
+    return order, boundary, seg, gid, int(seg[-1]) + 1
+
+
+def gb_bytes(specs, n, G, gc):
+    """Bytes the groupby must move: `seg` read once, `order` read once
+    (only at the groups' first rows when no job reads a row), each value
+    and validity byte gathered once, every (G,) output written once."""
+    jobs, _ = gc._jobs(specs)
+    reads_rows = any(j.col is not None and (j.op != gc.OP_COUNT
+                                            or j.col.validity is not None)
+                     for j in jobs)
+    total = 8 * n + (8 * n if reads_rows else 8 * G) + 8 * G
+    for j in jobs:
+        if j.col is not None and j.op != gc.OP_COUNT:
+            total += j.col.data.element_size() * n
+        if j.col is not None and j.col.validity is not None:
+            total += n
+        total += 8 * G
+    return total
+
+
+def dadd_latency_ms(torch, dadd, rounds=GB_DADD_ROUNDS):
+    """One dependent float64 add alone, in one thread (`build_phase`'s
+    probe): (rounds adds - none) / rounds between CUDA events, the median
+    of five."""
+    out = torch.zeros(1, dtype=torch.float64, device="cuda")
+
+    def chain(r):
+        require(dadd.dadd_chain(r, out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+                == 0, "the dependent-add probe did not launch")
+
+    def timed(r):
+        chain(r)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        chain(r)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+    return float(np.median([(timed(rounds) - timed(0)) / rounds
+                            for _ in range(5)]))
+
+
+def gb_time(torch, chk, gc, aggregate, table, key, aggs, what, add_ms=None):
+    """The groupby kernel timed at one keyed aggregate: its device time and
+    one call's (the L2 flushed), the plain version on the CPU (host
+    clock), `index_add_` on the card over the per-row group ids (the
+    library call; for an integer sum or count the same bits, checked), the
+    bytes bound and, for a float sum, the chain bound."""
+    specs = aggregate._agg_specs(table, aggs)
+    order, boundary, seg, gid, G = gb_sorted(torch, table, key)
+    n = table.num_rows
+    first, cols, _ = gc.groupby_reduce_cuda(specs, order, seg, G)
+    fold = any(s.op == "mean" or (s.op == "sum" and s.col.dtype.is_floating)
+               for s in specs)
+    kern = lambda: gc.groupby_reduce_cuda(specs, order, seg, G)  # noqa: E731
+    ms = device_ms(torch, kern, KERNEL_NAMES["groupby"], 20,
+                   per_call=4 if fold else 2)
+    cms = call_ms(torch, kern, 20)
+    # the library call: index_add_ of each value where valid, by row
+    (s0,) = [s for s in specs if s.op != "size"][:1] or [specs[0]]
+    c = s0.col
+    v = (c.null_mask.to(torch.int64) if s0.op == "count"
+         else torch.where(c.null_mask, c.data.to(torch.float64 if fold
+                                                 else torch.int64), 0))
+    lib = lambda: torch.zeros(G, dtype=v.dtype,                # noqa: E731
+                              device="cuda").index_add_(0, gid, v)
+    lms = call_ms(torch, lib, 20)
+    same = None
+    if not fold:
+        same = bool(torch.equal(lib(), cols[0].data.to(torch.int64)))
+        require(same, f"{what}: index_add_ on the card differs from the "
+                "kernel's integer result")
+    cpu = table.to("cpu")
+    o_c, b_c, s_c = order.cpu(), boundary.cpu(), seg.cpu()
+    specs_c = aggregate._agg_specs(cpu, aggs)
+    t0 = time.perf_counter()
+    _, want, _ = aggregate._reduce_plain(specs_c, o_c, b_c, s_c, None, None)
+    pms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(cols, want):
+        chk.equal("groupby", (a.data.view(torch.int64) if fold
+                              else a.data).cpu(),
+                  b.data.view(torch.int64) if fold else b.data,
+                  f"{what} kernel vs plain")
+    nbytes = gb_bytes(specs, n, G, gc)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ = n if fold else 0           # float64 adds
+    ops_ms = ops_ / PEAK_F64_OPS_PER_S * 1e3
+    out = {"rows": n, "groups": G, "ms": ms, "call_ms": cms,
+           "plain_ms": pms, "library_ms": lms,
+           "library_same_bits": same, "bytes": nbytes, "ops": ops_,
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms)}
+    if fold:
+        # the fold's own bound: its longest chain of dependent adds
+        longest = int(torch.bincount(seg).max())
+        out.update(longest_group=longest, dadd_ms=add_ms,
+                   chain_ms=longest * add_ms)
+    log(f"  groupby {what} ({n} rows, {G} groups): device {ms!r} ms, one "
+        f"call {cms!r} ms, plain (CPU, host clock) {pms!r} ms, index_add_ "
+        f"on the card {lms!r} ms (same bits: {same}); bound "
+        f"{out['bound_ms']!r} ms ({nbytes} B, {ops_} adds"
+        + (f", chain {out['chain_ms']!r} ms over {out['longest_group']} "
+           f"rows" if fold else "") + ")")
+    return out
+
+
+def groupby_phase(torch, chk, dadd):
+    """The groupby kernel against its plain version on the CPU, bit for
+    bit: every op on eight kinds, with and without nulls and with all-null
+    groups, on one group, all rows distinct, groups across tile edges and
+    40 random groups, at 0, 1, a tile - 1, + 0 and + 1, 6,145 and 100,003
+    rows, eager and capped (key_cap below, at and above the group count,
+    alive masks); at 10M rows on q23's zipf(1.3) % 2,000 and zipf(1.2) %
+    5,000 keys, eager and capped; then timed at q23's two keyed aggregates
+    and the C4 shapes."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch import nds_q23
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import aggregate
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
+
+    gc.reset_counters()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    n_cases = 0
+    for dist in ("one group", "all distinct", "tile edges", "40 groups"):
+        for n in GB_SIZES:
+            for null_p in (0.0, 0.3):
+                keys = gb_keys(rng, dist, n)
+                t, aggs = gb_table(rng, keys, null_p)
+                what = f"groupby {dist}, {n} rows, nulls {null_p}"
+                gb_case(torch, chk, gc, aggregate, t, aggs, what)
+                n_cases += 1
+                if n < 2049:
+                    continue
+                # key_cap below, at and above the group count, 60% of rows
+                # live; at it also with no alive mask
+                groups = len(np.unique(keys))
+                for cap, live in ((max(groups // 2, 1), 0.6), (groups, 0.6),
+                                  (groups + 7, 0.6), (groups, None)):
+                    alive = (None if live is None else
+                             torch.from_numpy(rng.random(n) < live))
+                    gb_case(torch, chk, gc, aggregate, t, aggs,
+                            f"{what} capped {cap} live {live}", cap, alive)
+                    n_cases += 1
+    t, aggs = gb_nan_table(rng)
+    gb_case(torch, chk, gc, aggregate, t, aggs, "groupby NaN payloads")
+    gb_case(torch, chk, gc, aggregate, t, aggs, "groupby NaN payloads "
+            "capped 6", 6, torch.from_numpy(rng.random(t.num_rows) < 0.8))
+    n_cases += 2
+    log(f"groupby: {n_cases} small cases equal the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # q23's skew at 10M rows
+    t0 = time.perf_counter()
+    for s, m in ((1.3, 2000), (1.2, 5000)):
+        keys = (rng.zipf(s, N_SALES) % m).astype(np.int64)
+        t, aggs = gb_table(rng, keys, 0.1)
+        what = f"groupby zipf({s}) % {m}, {N_SALES} rows"
+        gb_case(torch, chk, gc, aggregate, t, aggs, what)
+        alive = torch.from_numpy(rng.random(N_SALES) < 0.7)
+        gb_case(torch, chk, gc, aggregate, t, aggs, f"{what} capped 8192",
+                8192, alive)
+        n_cases += 2
+        del t
+    log(f"groupby: zipf keys at {N_SALES} rows equal the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # timed: q23's two keyed aggregates over its 10M store rows
+    store, _ = nds_q23.datagen(N_SALES, seed=0)
+    q23 = Table([Column.from_numpy(store[c], dt.INT64, device="cuda")
+                 for c in ("item_sk", "cust_sk", "qty")] +
+                [Column.from_numpy(store["qty"] * store["price"], dt.INT64,
+                                   device="cuda")],
+                ["item_sk", "cust_sk", "qty", "rev"])
+    del store
+    add_ms = dadd_latency_ms(torch, dadd)
+    log(f"  one dependent float64 add: {add_ms * 1e6!r} ns "
+        f"({GB_DADD_ROUNDS} in one thread)")
+    timing = {
+        "q23 count(qty) by item_sk": gb_time(
+            torch, chk, gc, aggregate, q23, "item_sk", [("qty", "count")],
+            "q23 count(qty) by item_sk"),
+        "q23 sum(rev) by cust_sk": gb_time(
+            torch, chk, gc, aggregate, q23, "cust_sk", [("rev", "sum")],
+            "q23 sum(rev) by cust_sk")}
+    del q23
+    # the C4 shapes: a FLOAT64 sum over 10M rows in 3 and 1,000 groups
+    vals = rng.standard_normal(N_SALES) * 10.0 ** rng.integers(-8, 12,
+                                                                N_SALES)
+    for groups in C4_GROUPS:
+        t = Table([Column.from_numpy(rng.integers(0, groups, N_SALES)
+                                     .astype(np.int64), dt.INT64,
+                                     device="cuda"),
+                   Column.from_numpy(vals, dt.FLOAT64,
+                                     rng.random(N_SALES) > 0.05,
+                                     device="cuda")], ["g", "x"])
+        what = f"C4 sum(x) in {groups} groups"
+        timing[what] = gb_time(torch, chk, gc, aggregate, t, "g",
+                               [("x", "sum")], what, add_ms)
+        del t
+    torch.cuda.empty_cache()
+    return {"cases": n_cases, "dadd_ms": add_ms, "timing": timing}
 
 
 # ---- phase 4f: the capped tier -----------------------------------------------
@@ -2181,6 +2594,114 @@ def traced_run(torch, fn):
             "sync_calls": syncs, "dtoh_copies": dtoh, "htod_copies": htod,
             "attempts": res.attempts,
             "top": [(k, ms, n) for k, (ms, n) in top]}
+
+
+# the torch ops and device kernels a keyed aggregate ran before the groupby
+# kernel: the atomic scatters of the plain version
+SCATTER_OPS = ("aten::index_add_", "aten::index_add", "aten::scatter_reduce",
+               "aten::scatter_reduce_", "aten::bincount", "aten::scatter_")
+SCATTER_KERNELS = ("indexFuncLargeIndex", "indexFuncSmallIndex",
+                   "scatter_reduce", "scatter_fill",
+                   # torch's scatter_ (gather's kernel has <false here)
+                   "_scatter_gather_internal_kernel<true")
+
+
+# the host calls that launch a kernel: CUPTI gives each the correlation id of
+# its kernel's record
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def keyed_aggregate_trace(torch, fn, aggregate=None, attempts=6):
+    """One run of `fn` under torch.profiler with every keyed aggregate
+    (`aggregate.groupby_aggregate`, which the capped form calls too)
+    inside a `keyed_aggregate` range: how many ranges ran, the torch ops
+    inside them that scatter, and the device kernels the ranges launched,
+    by name. `aggregate` is the port's module unless a stand-in is given.
+    CUPTI drops a session's kernel records at times, so a profile is
+    `complete` when every kernel launch call inside the ranges has a
+    kernel record of its correlation id; an incomplete one is taken
+    again, at most `attempts` times, and the last is returned."""
+    for _ in range(attempts):
+        out = _keyed_aggregate_trace(torch, fn, aggregate)
+        if out["complete"]:
+            break
+    return out
+
+
+def _keyed_aggregate_trace(torch, fn, aggregate):
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if aggregate is None:
+        from spark_rapids_tpu_torch.ops import aggregate
+    real = aggregate.groupby_aggregate
+
+    def ranged(*args, **kwargs):
+        with record_function("keyed_aggregate"):
+            return real(*args, **kwargs)
+
+    aggregate.groupby_aggregate = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a few kernels before the traced work: the records of a
+            # session's first launches are the ones CUPTI drops
+            warm = torch.zeros(1024, device="cuda")
+            for _ in range(8):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        aggregate.groupby_aggregate = real
+    events = prof.events()
+    cpu_ranges = [e.time_range for e in events
+                  if e.name == "keyed_aggregate"
+                  and not str(e.device_type).endswith("CUDA")]
+    dev_ranges = [e.time_range for e in events
+                  if e.name == "keyed_aggregate"
+                  and str(e.device_type).endswith("CUDA")]
+
+    def in_ranges(e, ranges):
+        return any(r.start <= e.time_range.start <= r.end for r in ranges)
+
+    host = [e for e in events if not str(e.device_type).endswith("CUDA")
+            and in_ranges(e, cpu_ranges)]
+    ops_in = sorted({e.name for e in host if e.name in SCATTER_OPS})
+    # the launch calls inside the ranges and the kernel records, matched by
+    # CUPTI's correlation id (the profiler's raw records keep it)
+    raw = prof.profiler.kineto_results.events()
+    spans = [(k.start_ns(), k.end_ns()) for k in raw
+             if k.name() == "keyed_aggregate"
+             and not str(k.device_type()).endswith("CUDA")]
+    launched = {k.correlation_id() for k in raw
+                if k.name() in LAUNCH_CALLS
+                and not str(k.device_type()).endswith("CUDA")
+                and any(a <= k.start_ns() <= b for a, b in spans)}
+    recorded = {k.correlation_id() for k in raw
+                if str(k.device_type()).endswith("CUDA")}
+    # the device records inside a range's device-side span (every kernel,
+    # copy and memset, the port's own launches included), else the kernels
+    # the profiler links to a torch op inside a range; a scatter found by
+    # either counts (a span can end before its last kernel's record starts)
+    names = [e.name for e in events
+             if str(e.device_type).endswith("CUDA")
+             and e.name != "keyed_aggregate" and in_ranges(e, dev_ranges)]
+    linked = [k.name for e in host for k in getattr(e, "kernels", ())]
+
+    def short(name):
+        return name.split("(")[0].removeprefix("void ")[:70]
+
+    kernels = {}
+    for name in names or linked:
+        kernels[short(name)] = kernels.get(short(name), 0) + 1
+    scatters = {short(name) for name in names + linked
+                if any(x in name.replace(" ", "") for x in SCATTER_KERNELS)}
+    return {"ranges": len(cpu_ranges), "device_spans": len(dev_ranges),
+            "launch_calls": len(launched), "linked_kernels": len(linked),
+            "missing_records": len(launched - recorded),
+            "complete": bool(launched) and launched <= recorded,
+            "scatter_ops": ops_in, "scatter_kernels": sorted(scatters),
+            "kernels": kernels}
 
 
 def sync_warnings(torch, fn):
@@ -2346,15 +2867,16 @@ def capped_phase(torch, chk):
     from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch import nds_q3, nds_q72
     from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
     from spark_rapids_tpu_torch.ops import join
     from spark_rapids_tpu_torch.ops import join_cuda as jc
-    from spark_rapids_tpu_torch.ops import segment_sum_cuda as ssc
     from spark_rapids_tpu_torch.ops import select_cuda as sc
     from spark_rapids_tpu_torch.ops import topk_cuda as tc
     from spark_rapids_tpu_torch.plan import PlanExecutor
     from spark_rapids_tpu_torch.plan.nodes import HashJoin
 
-    out = {"plans": {}, "join_launches": {}, "topk_launches": {}}
+    out = {"plans": {}, "join_launches": {}, "topk_launches": {},
+           "groupby_launches": {}}
     t0 = time.perf_counter()
     gen3 = nds_q3.datagen(N_SALES, seed=0)
     ref3 = numpy_q3(gen3)
@@ -2383,7 +2905,7 @@ def capped_phase(torch, chk):
             restore()
         torch.cuda.synchronize()
         recorded[what] = calls
-        for m in (jc, sc, tc, ssc):
+        for m in (jc, sc, tc, gc):
             m.reset_counters()
         res = ex.execute(plan, inputs)               # the counted run
         torch.cuda.synchronize()
@@ -2392,11 +2914,12 @@ def capped_phase(torch, chk):
         launches = {"hash_join": dict(jc.LAUNCHES),
                     "hash_join_large": dict(jc.LARGE_LAUNCHES),
                     "capped_join": dict(jc.CAPPED_CALLS),
-                    "topk": dict(tc.LAUNCHES)}
+                    "topk": dict(tc.LAUNCHES),
+                    "groupby": dict(gc.LAUNCHES)}
         plain = {"hash_join": dict(jc.PLAIN_CALLS),
                  "fused_select": dict(sc.PLAIN_CALLS),
                  "topk": dict(tc.PLAIN_CALLS),
-                 "segment_sum": dict(ssc.PLAIN_CALLS)}
+                 "groupby": dict(gc.PLAIN_CALLS)}
         log(f"capped {what} at {N_SALES} rows: {res.wall_ms:.3f} ms, "
             f"{res.attempts} attempt(s), caps {res.caps}, "
             f"{res.jit_cache_hits} program cache hit(s); launches "
@@ -2421,6 +2944,7 @@ def capped_phase(torch, chk):
                 f"capped {what}: topk launches {launches['topk']}")
         require(all(v == 0 for d in plain.values() for v in d.values()),
                 f"capped {what}: plain versions ran on the card {plain}")
+        require_groupby(gc, res, f"capped {what}")
         got = res.compact().to("cpu")
         want = eager.execute(plan, inputs).table.to("cpu")
         chk.tables("capped_join", got, want, f"capped {what} vs eager")
@@ -2460,6 +2984,7 @@ def capped_phase(torch, chk):
                          eager_trace=etrace)
         out["plans"][what] = entry
         out["join_launches"][what] = launches["capped_join"]["join"]
+        out["groupby_launches"][what] = launches["groupby"]["groupby"]
         out["topk_launches"][what] = sum(launches["topk"].values())
         log(f"capped {what}: {got.num_rows} rows, equal to the eager run "
             f"and to numpy")
@@ -2617,11 +3142,13 @@ def numpy_q23(gen):
 
 def kernel_counters():
     """Every kernel module's launch and plain-run counters, as one dict."""
-    from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda, select
+    from spark_rapids_tpu_torch.ops import groupby_cuda, hash_cuda
+    from spark_rapids_tpu_torch.ops import join_cuda, select
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
     from spark_rapids_tpu_torch.ops import topk, topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
-    return {"hash_join": dict(join_cuda.LAUNCHES),
+    return {"groupby": dict(groupby_cuda.LAUNCHES),
+            "hash_join": dict(join_cuda.LAUNCHES),
             "hash_join_large": dict(join_cuda.LARGE_LAUNCHES),
             "hash_join_capped": dict(join_cuda.CAPPED_CALLS),
             "fused_select": dict(select_cuda.LAUNCHES),
@@ -2629,7 +3156,8 @@ def kernel_counters():
             "segment_sum": dict(segment_sum_cuda.LAUNCHES),
             "row_hash": dict(hash_cuda.LAUNCHES),
             "histogram": dict(partition_cuda.LAUNCHES),
-            "plain": {"hash_join": dict(join_cuda.PLAIN_CALLS),
+            "plain": {"groupby": dict(groupby_cuda.PLAIN_CALLS),
+                      "hash_join": dict(join_cuda.PLAIN_CALLS),
                       "fused_select": dict(select.PLAIN_CALLS),
                       "topk": dict(topk.PLAIN_CALLS),
                       "segment_sum": dict(segment_sum_cuda.PLAIN_CALLS),
@@ -2638,12 +3166,12 @@ def kernel_counters():
 
 
 def reset_kernel_counters():
-    from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda
-    from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
-    from spark_rapids_tpu_torch.ops import topk_cuda
+    from spark_rapids_tpu_torch.ops import groupby_cuda, hash_cuda
+    from spark_rapids_tpu_torch.ops import join_cuda, segment_sum_cuda
+    from spark_rapids_tpu_torch.ops import select_cuda, topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
-    for m in (hash_cuda, join_cuda, segment_sum_cuda, select_cuda,
-              topk_cuda, partition_cuda):
+    for m in (groupby_cuda, hash_cuda, join_cuda, segment_sum_cuda,
+              select_cuda, topk_cuda, partition_cuda):
         m.reset_counters()
 
 
@@ -2653,19 +3181,57 @@ def counted(counters):
                for v in counters.values())
 
 
+def keyed_aggregates(res):
+    """The keyed HashAggregates of a run's executed plan."""
+    return [n for n in res.plan.nodes
+            if n.kind == "HashAggregate" and n.keys]
+
+
+def require_groupby(gc, res, what):
+    """Every keyed aggregate of the run on the groupby kernel: one launch
+    each (counters zeroed just before the run), the plain version never,
+    each stamped `cuda:groupby`."""
+    keyed = keyed_aggregates(res)
+    stamps = [res.metrics[n.label].kernel for n in keyed]
+    require(gc.LAUNCHES["groupby"] == len(keyed)
+            and gc.PLAIN_CALLS["groupby"] == 0
+            and stamps == ["cuda:groupby"] * len(keyed),
+            f"{what}: {len(keyed)} keyed aggregates, groupby launches "
+            f"{gc.LAUNCHES}, plain {gc.PLAIN_CALLS}, stamps {stamps}")
+    return len(keyed)
+
+
 def nds_union_phase(torch, chk):
     """NDS q5 and q23 at scale 1 on the card: through
     `PlanExecutor(optimize=False)` and `PlanExecutor()` in the eager tier
     and `PlanExecutor(mode="capped", ...)` in both forms at the reference
     bench's key caps, every kernel counter zeroed just before each counted
-    run and read just after (no kernel of the port is on this path: each
-    must read 0, and no plain version may run); each result equal to an
-    independent numpy evaluation and to the port's CPU run on the same
-    arrays, bit for bit; warm walls, one traced warm run's idle share, and
-    the capped runs' attempts and host reads (at most attempts + 1)."""
+    run and read just after (the groupby kernel launches once per keyed
+    aggregate, every other counter reads 0, and no plain version may
+    run); each result equal to an independent numpy evaluation and to the
+    port's CPU run on the same arrays, bit for bit; warm walls, one traced
+    warm run's idle share, the keyed aggregates' kernels in one more traced
+    run (no `index_add_` or `scatter_reduce` among them), and the capped
+    runs' attempts and host reads (at most attempts + 1)."""
     from spark_rapids_tpu_torch import nds_q5, nds_q23
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
     from spark_rapids_tpu_torch.plan import PlanExecutor
 
+    # the trace check is not vacuous: a stand-in aggregate that adds with
+    # index_add_ and scatter_reduce_ is caught
+    class Scattering:
+        @staticmethod
+        def groupby_aggregate():
+            seg = torch.arange(1 << 20, device="cuda") % 7
+            v = torch.ones(1 << 20, device="cuda")
+            torch.zeros(7, device="cuda").index_add_(0, seg, v)
+            torch.zeros(7, device="cuda").scatter_reduce_(0, seg, v, "amax")
+    probe = keyed_aggregate_trace(
+        torch, lambda: Scattering.groupby_aggregate(), Scattering)
+    log(f"keyed-aggregate trace check on a scattering stand-in: {probe}")
+    require(probe["ranges"] == 1 and len(probe["scatter_ops"]) == 2
+            and probe["complete"] and len(probe["scatter_kernels"]) == 2,
+            f"the keyed-aggregate trace misses scatters: {probe}")
     out = {}
     for q, mod, caps, numpy_fn in (
             ("q5", nds_q5, Q5_CAPS, numpy_q5),
@@ -2713,11 +3279,16 @@ def nds_union_phase(torch, chk):
                     f"(cold {cold.wall_ms:.3f}); stamps {stamps}; "
                     f"counters {counters}")
                 log(res.profile_text())
-                require(counted(counters) == 0,
-                        f"{what}: a kernel or a plain version ran "
-                        f"{counters}")
-                require(not any(s.startswith("cuda:") for s in stamps),
-                        f"{what}: stamps {stamps}")
+                # the groupby is the one kernel on this path: every other
+                # counter reads 0
+                n_keyed = require_groupby(gc, res, what)
+                others = {k: v for k, v in counters.items()
+                          if k != "groupby"}
+                require(counted(others) == 0 and n_keyed > 0,
+                        f"{what}: a kernel other than the groupby or a "
+                        f"plain version ran {counters}")
+                require(all(s == "cuda:groupby" or not s.startswith("cuda:")
+                            for s in stamps), f"{what}: stamps {stamps}")
                 got = res.compact().to("cpu")
                 chk.tables("plans", got, cpu, f"{what} card vs CPU")
                 for name, want in zip(got.names, ref):
@@ -2734,7 +3305,18 @@ def nds_union_phase(torch, chk):
                 walls = [ex.execute(plan, inputs).wall_ms
                          for _ in range(REPEATS)]
                 trace = traced_run(torch, lambda: ex.execute(plan, inputs))
-                run.update(warm_walls=walls, trace=trace)
+                agg_trace = keyed_aggregate_trace(
+                    torch, lambda: ex.execute(plan, inputs))
+                log(f"  keyed aggregates traced: {agg_trace}")
+                # the torch ops always; the kernels where CUPTI kept them
+                require(agg_trace["ranges"] == n_keyed
+                        and not agg_trace["scatter_ops"]
+                        and (not agg_trace["kernels"] or (
+                            not agg_trace["scatter_kernels"]
+                            and "gb_reduce_kernel" in agg_trace["kernels"])),
+                        f"{what}: a keyed aggregate scattered: {agg_trace}")
+                run.update(warm_walls=walls, trace=trace,
+                           keyed_aggregates=agg_trace)
                 log(f"  warm walls {walls}; traced: idle share "
                     f"{trace['idle_share']!r} ({trace['busy_ms']!r} busy of "
                     f"{trace['wall_ms']!r} ms), "
@@ -2775,6 +3357,46 @@ def summed(timing, forms, **extra):
     return out
 
 
+def walls_phase(torch, runs):
+    """Eager walls alone, to compare two trees in one call (this script
+    run from each tree's root): q3 (authored), TPC-DS q3 (optimized) and
+    q72 (both) at 10M rows, one cold run each, then `runs` rounds of one
+    warm run of each plan in turn; per plan every warm wall, the summed
+    wall of its HashAggregates and of each other operator kind."""
+    from spark_rapids_tpu_torch import nds_q3, nds_q72
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+
+    q3_in = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
+    tpcds_in = nds_q3.q3_tpcds_inputs(N_SALES, seed=0, device="cuda")
+    q72_in = nds_q72.q72_inputs(N_SALES, seed=0, device="cuda")
+    plans = {"q3": (PlanExecutor(optimize=False), nds_q3.q3_plan(), q3_in),
+             "TPC-DS q3": (PlanExecutor(), nds_q3.q3_tpcds_plan(), tpcds_in),
+             "q72 authored": (PlanExecutor(optimize=False),
+                              nds_q72.q72_plan(), q72_in),
+             "q72 optimized": (PlanExecutor(), nds_q72.q72_plan(), q72_in)}
+    out = {w: {"walls": [], "by_kind": {}} for w in plans}
+    for ex, plan, inputs in plans.values():
+        ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    for _ in range(runs):
+        for what, (ex, plan, inputs) in plans.items():
+            res = ex.execute(plan, inputs)
+            out[what]["walls"].append(res.wall_ms)
+            kinds = {}
+            for m in res.metrics.values():
+                kinds[m.kind] = kinds.get(m.kind, 0.0) + (m.wall_ms or 0.0)
+            for k, v in kinds.items():
+                out[what]["by_kind"].setdefault(k, []).append(v)
+    for what, r in out.items():
+        r["median_ms"] = float(np.median(r["walls"]))
+        r["min_ms"] = float(np.min(r["walls"]))
+        r["median_by_kind"] = {k: float(np.median(v))
+                               for k, v in r["by_kind"].items()}
+        log(f"{what}: median {r['median_ms']!r} ms, least "
+            f"{r['min_ms']!r}; operators' medians {r['median_by_kind']}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -2784,12 +3406,24 @@ def main(argv=None):
     ap.add_argument("--join-profile", action="store_true",
                     help="only time whole inner_join_hash calls at q3's and "
                          "TPC-DS q3's join shapes, and print them")
+    ap.add_argument("--walls", type=int, default=0, metavar="N",
+                    help="only time N warm eager runs of q3, TPC-DS q3 and "
+                         "q72 (authored, optimized), interleaved, and print "
+                         "their walls and operator walls")
     args = ap.parse_args(argv)
 
     import torch
     smi = device_phase(torch)
     from spark_rapids_tpu_torch import nds_q3
-    build_phase()
+    if args.walls:
+        # the package's own sources only: an earlier tree has other ones
+        from spark_rapids_tpu_torch.ops import cuda_build
+        cuda_build.build()
+        print(json.dumps({"card": smi,
+                          "walls": walls_phase(torch, args.walls)}),
+              flush=True)
+        return 0
+    dadd = build_phase()
     if args.join_profile:
         tables = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
         print(json.dumps({"card": smi, "join_profile": join_profile(
@@ -2812,7 +3446,8 @@ def main(argv=None):
     del gen
     large = large_route_phase(torch, chk)
     q72, q72_timing = q72_phase(torch, chk)
-    c4 = c4_phase(torch, chk)
+    gb = groupby_phase(torch, chk, dadd)
+    c4 = c4_phase(torch, chk, gb["dadd_ms"])
     capped = capped_phase(torch, chk)
     nds_union = nds_union_phase(torch, chk)
     fs_timing = fused_select_phase(torch, chk)
@@ -2857,20 +3492,49 @@ def main(argv=None):
                          rounds_x_barrier_ms=t["rounds_x_barrier_ms"],
                          cases=large["cases"], ceiling=large["ceiling"])
         kernels.append(entry)
-    # the segment sum: the port's own kernel, on the C4 path (keyed float
-    # sum and mean through PlanExecutor), timed at 10M rows in 3 groups
+    # the groupby kernel: every keyed aggregate of the plans; timed at
+    # q23's two keyed aggregates (summed; the C4 float shapes beside them)
+    gb_launches = {"q3": launches["groupby"],
+                   "TPC-DS q3": t_launches["groupby"]["groupby"],
+                   **{w: r["launches"]["groupby"]["groupby"]
+                      for w, r in q72.items()},
+                   **{f"capped {w}": k
+                      for w, k in capped["groupby_launches"].items()},
+                   **{w: r["counters"]["groupby"]["groupby"]
+                      for q in nds_union.values()
+                      for w, r in q["runs"].items()},
+                   "C4": c4["launches"]}
+    q23_forms = ("q23 count(qty) by item_sk", "q23 sum(rev) by cust_sk")
+    kernels.append({
+        "name": "groupby", "route": "cuda", "source": GB_SOURCE,
+        "replaces": "spark_rapids_tpu/ops/aggregate.py:55 (_groupby_kernel, "
+                    "the registry op groupby; an XLA lowering, no "
+                    "pallas_call)",
+        "launches": sum(gb_launches.values()),
+        "launches_by_path": gb_launches, "cases": gb["cases"],
+        "exact": chk.max_err["groupby"] == 0,
+        "max_abs_err": chk.max_err["groupby"], "dadd_ms": gb["dadd_ms"],
+        "library": "index_add_ into zeros on the card over the per-row "
+                   "group ids (the same integers; floats in its atomics' "
+                   "order)",
+        **summed(gb["timing"], q23_forms, library_ms=sum(
+            gb["timing"][f]["library_ms"] for f in q23_forms)),
+        "c4": {f: gb["timing"][f] for f in gb["timing"]
+               if f not in q23_forms}})
+    # the segment sum: the groupby kernel's fold alone, timed at 10M rows
+    # in 3 groups; launches are the C4 path's folds
     t = c4["timing"]
     kernels.append({
-        "name": "segment_sum", "route": "cuda", "source": SS_SOURCE,
-        "replaces": "none: the port's own kernel, keyed float sums in the "
-                    "reference's row order (ROADMAP queue C 4)",
+        "name": "segment_sum", "route": "cuda", "source": GB_SOURCE,
+        "replaces": "none: the groupby kernel's fold, keyed float sums in "
+                    "the reference's row order (ROADMAP queue C 4)",
         "launches": c4["launches"], "exact": chk.max_err["segment_sum"] == 0,
         "max_abs_err": chk.max_err["segment_sum"],
         "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                      else "operations"),
-        "bytes": t["bytes"], "ops": t["ops"],
+        "bytes": t["bytes"], "ops": t["ops"], "chain_ms": t["chain_ms"],
         "library": "index_add_ into zeros on the card: the same sums in "
                    "its atomics' order, not the reference's bits",
         "library_ms": t["library_ms"]})
@@ -2979,7 +3643,7 @@ def main(argv=None):
                        "q72_wall_ms": {w: r["res"].wall_ms
                                        for w, r in q72.items()},
                        "q72_inventory_join": q72_timing,
-                       "c4": c4, "capped": capped,
+                       "c4": c4, "groupby": gb, "capped": capped,
                        "nds_q5_q23": nds_union},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

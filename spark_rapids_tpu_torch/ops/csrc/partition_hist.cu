@@ -12,20 +12,26 @@
 // resident in VMEM across grid steps, with P compare-and-reduce passes per
 // block. Here blocks run in parallel in no order, so each block keeps
 // private counters in dynamic shared memory: `nsub` sub-histograms of P
-// counters, warp w adding into sub-histogram w % nsub, so that a warp's
-// increments collide only with its own lanes and those of the warps that
-// share its copy. At the block's end the copies are summed and published
-// with one global atomicAdd per non-zero bucket. The host picks the most
-// copies (up to one per warp) that fit in 48 KB: eight up to P = 1536, one
-// up to P = 12288. Above that no copy fits, `nsub` is 0 and every id goes
-// straight to a global atomicAdd on `counts`. The caller zeroes `counts`.
+// counters, warp w adding into sub-histogram w % nsub, each lane adding its
+// own id with a shared-memory atomic. The grid is persistent (a few blocks
+// an SM), each warp looping over steps of IN_FLIGHT 512-byte rows of 16-byte
+// loads, all issued before the first is counted, with a trip count the same
+// for all its lanes (ids past the end read as -1, never counted).
+//
+// At the block's end the copies are summed and published with one global
+// atomicAdd per non-zero bucket: about 132 x 4 merges a call, whatever n.
+// The host picks the most copies (up to one per warp) that fit in 48 KB:
+// eight up to P = 1536, one up to P = 12288. Above that no copy fits,
+// `nsub` is 0 and the adds go straight to global atomics on `counts`. The
+// caller zeroes `counts`.
+//
+// A warp-aggregated form (__match_any_sync on the id, one add per distinct
+// id a warp) was measured on the H100 and was slower at every P: the match
+// costs more than the colliding shared atomics it saves (PERF.md §6).
 //
 // What bounds it on this card: bytes. 10M ids are 40 MB read (0.012 ms at
 // 3.35 TB/s); the counts are 4P bytes. The rows are read with 16-byte loads
-// (four ids per thread) where the pointer allows. At P = 8 a warp's 32
-// increments fall on 8 counters, and the shared-memory atomics serialise on
-// them; warp aggregation (__match_any_sync) would remove that and is left
-// for later.
+// (four ids per thread) where the pointer allows.
 //
 // Plain C interface for ctypes. The entry point returns cudaGetLastError()
 // after its launch (or cudaErrorInvalidValue for arguments it does not
@@ -37,10 +43,19 @@
 #define THREADS 256
 #define WARPS (THREADS / 32)
 #define SHARED_BYTES (48 * 1024)  // dynamic shared memory without opt-in
+#define IN_FLIGHT 4               // 16-byte loads a lane issues at once
 
-__device__ __forceinline__ void count(int* hist, int P, int id) {
+// One id from every lane of the warp: each lane adds its own id in [0, P).
+__device__ __forceinline__ void count_one(int* hist, int P, int id) {
   if (static_cast<unsigned>(id) < static_cast<unsigned>(P))
     atomicAdd(&hist[id], 1);
+}
+
+__device__ __forceinline__ void count4(int* hist, int P, int4 v) {
+  count_one(hist, P, v.x);
+  count_one(hist, P, v.y);
+  count_one(hist, P, v.z);
+  count_one(hist, P, v.w);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -50,23 +65,32 @@ hist_kernel(const int* part, long long n, int P, int nsub, int vec,
   int* mine = nsub ? sub + (threadIdx.x / 32 % nsub) * P : counts;
   for (int s = threadIdx.x; s < nsub * P; s += THREADS) sub[s] = 0;
   __syncthreads();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long warps = static_cast<long long>(gridDim.x) * WARPS;
   long long done = 0;
   if (vec) {  // `part` is 16-byte aligned: four ids per load
     const long long nv = n / 4;
     const int4* p4 = reinterpret_cast<const int4*>(part);
-    for (long long i = tid; i < nv; i += stride) {
-      const int4 v = p4[i];
-      count(mine, P, v.x);
-      count(mine, P, v.y);
-      count(mine, P, v.z);
-      count(mine, P, v.w);
+    const int4 none = make_int4(-1, -1, -1, -1);
+    for (long long b = warp * 32 * IN_FLIGHT; b < nv;
+         b += warps * 32 * IN_FLIGHT) {
+      int4 u[IN_FLIGHT];
+#pragma unroll
+      for (int k = 0; k < IN_FLIGHT; ++k) {
+        const long long i = b + 32 * k + lane;
+        u[k] = i < nv ? p4[i] : none;
+      }
+#pragma unroll
+      for (int k = 0; k < IN_FLIGHT; ++k) count4(mine, P, u[k]);
     }
     done = nv * 4;
   }
-  for (long long i = done + tid; i < n; i += stride) count(mine, P, part[i]);
+  for (long long b = done + warp * 32; b < n; b += warps * 32) {
+    const long long i = b + lane;
+    count_one(mine, P, i < n ? part[i] : -1);
+  }
   if (nsub == 0) return;  // the ids went to `counts` directly
   __syncthreads();
   for (int b = threadIdx.x; b < P; b += THREADS) {
@@ -99,9 +123,10 @@ int ph_histogram(const int* part, long long n, int P, int* counts,
   const long long fit = SHARED_BYTES / (4LL * P);
   const int nsub = static_cast<int>(fit < WARPS ? fit : WARPS);
   const int vec = (reinterpret_cast<uintptr_t>(part) % 16) == 0;
-  hist_kernel<<<blocks_for(n), THREADS, static_cast<size_t>(nsub) * P * 4,
-                static_cast<cudaStream_t>(stream)>>>(part, n, P, nsub, vec,
-                                                     counts);
+  const size_t smem = static_cast<size_t>(nsub) * P * 4;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  hist_kernel<<<blocks_for(n), THREADS, smem, st>>>(part, n, P, nsub, vec,
+                                                    counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 SOURCES = ("hash_join", "row_hash", "partition_hist", "fused_select",
-           "topk", "segment_sum")
+           "topk", "groupby")
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"

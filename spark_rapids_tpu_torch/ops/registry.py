@@ -90,6 +90,7 @@ class KernelChoice:
 
 # op -> module whose import registers that op's kernels (imported lazily)
 _PROVIDERS = {
+    "groupby": "spark_rapids_tpu_torch.ops.groupby_cuda",
     "hash_join": "spark_rapids_tpu_torch.ops.join_cuda",
     "fused_select": "spark_rapids_tpu_torch.ops.select_cuda",
     "topk": "spark_rapids_tpu_torch.ops.topk_cuda",

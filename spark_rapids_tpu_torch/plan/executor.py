@@ -63,7 +63,8 @@ import torch
 from .. import config, dtypes
 from .. import device as _device
 from ..columnar import Column, Table
-from ..ops import aggregate, copying, gather, join, select, sort, topk
+from ..ops import (aggregate, copying, gather, groupby_cuda, join, select,
+                   sort, topk)
 from ..ops.aggregate import _agg_value_dtype
 from ..ops.registry import REGISTRY, KernelDeclinedError
 from ..parallel.autoretry import auto_retry_overflow
@@ -354,8 +355,13 @@ class PlanExecutor:
             (t,) = childs
             if not node.keys:
                 return self._global_aggregate(t, node)
-            agg = aggregate.groupby_aggregate(
-                t, list(node.keys), [(c, o) for c, o, _ in node.aggs])
+            aggs = [(c, o) for c, o, _ in node.aggs]
+            choice = self._kernel_choice(
+                "groupby", groupby_cuda.make_signature(t, aggs, "eager"),
+                m.label)
+            m.kernel = choice.label
+            agg = aggregate.groupby_aggregate(t, list(node.keys), aggs,
+                                              choice=choice)
             return Table(list(agg.columns), names=schemas[id(node)])
         if isinstance(node, Sort):
             (t,) = childs
@@ -627,9 +633,13 @@ class PlanExecutor:
                 t = self._global_aggregate(c.table, node, alive=c.alive)
                 return _CappedRel(t, torch.ones(1, dtype=torch.bool,
                                                 device=t.device)), None
+            aggs = [(cn, o) for cn, o, _ in node.aggs]
+            choice = pick("groupby", groupby_cuda.make_signature(
+                c.table, aggs, "capped"))
             agg, valid, ovf = aggregate.groupby_aggregate_capped(
-                c.table, list(node.keys), [(cn, o) for cn, o, _ in node.aggs],
-                key_cap=self._node_cap(caps, "key_cap", idx), alive=c.alive)
+                c.table, list(node.keys), aggs,
+                key_cap=self._node_cap(caps, "key_cap", idx), alive=c.alive,
+                choice=choice)
             t = Table(list(agg.columns), names=schemas[id(node)])
             return _CappedRel(t, valid), ovf
         if isinstance(node, Sort):

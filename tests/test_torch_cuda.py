@@ -1,5 +1,5 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (hash join,
-row hash, shuffle histogram, FusedSelect, TopK) against their plain
+row hash, shuffle histogram, FusedSelect, TopK, groupby) against their plain
 PyTorch versions, and q3 and TPC-DS q3 through `PlanExecutor()` on the
 card.
 
@@ -402,6 +402,7 @@ def test_tpcds_q3_on_the_card_uses_the_kernels():
     assert topk_cuda.PLAIN_CALLS == {"topk": 0}
     kinds = {m.kind: m.kernel for m in res.metrics.values() if m.kernel}
     assert kinds == {"FusedSelect": "cuda:fused_select",
+                     "HashAggregate": "cuda:groupby",
                      "HashJoin": "cuda:hash_join", "TopK": "cuda:topk"}
     cpu = PlanExecutor(device="cpu").execute(
         nds_q3.q3_tpcds_plan(), {k: t.to("cpu") for k, t in inputs.items()})
@@ -716,8 +717,8 @@ def test_union_and_scalar_aggregates_on_the_card_equal_the_cpu():
 @pytest.mark.parametrize("q", ["q5", "q23"])
 def test_q5_q23_on_the_card_equal_the_cpu(q):
     """Both NDS plans, eager and capped, authored and optimized, on the
-    card: no kernel of the port runs on their path, no plain version
-    either, and every result equals the CPU run."""
+    card: the groupby is the one kernel of the port on their path, no
+    plain version runs, and every result equals the CPU run."""
     _need_card()
     from spark_rapids_tpu_torch import nds_q5, nds_q23
     mod = {"q5": nds_q5, "q23": nds_q23}[q]
@@ -741,8 +742,9 @@ def test_q5_q23_on_the_card_equal_the_cpu(q):
                                              "emit": 0}
             assert sum(select_cuda.LAUNCHES.values()) == 0
             assert sum(topk_cuda.LAUNCHES.values()) == 0
-            assert not any(m.kernel.startswith("cuda:")
-                           for m in res.metrics.values())
+            # the keyed aggregates are the one kernel on these paths
+            assert {m.kernel for m in res.metrics.values()
+                    if m.kernel.startswith("cuda:")} == {"cuda:groupby"}
 
 
 def test_capped_q23_reads_the_host_attempts_plus_one():
@@ -766,3 +768,137 @@ def test_capped_q23_reads_the_host_attempts_plus_one():
     assert res.attempts == 1
     assert len(synced) <= res.attempts + 1, [
         f"{w.filename}:{w.lineno}" for w in synced]
+
+
+def _groupby_table(rng, n, groups, null_p):
+    """Key "k" and one value column per kind the groupby kernel reads, with
+    nulls (an all-null group every third key in "i64"), and every op."""
+    keys = rng.integers(0, groups, n).astype(np.int64)
+    cols = [Column.from_numpy(keys, tdt.INT64, device="cpu")]
+    names, aggs = ["k"], [("k", "size")]
+    for name, npt, dtype in (("i8", np.int8, tdt.INT8),
+                             ("i16", np.int16, tdt.INT16),
+                             ("i32", np.int32, tdt.INT32),
+                             ("i64", np.int64, tdt.INT64),
+                             ("f32", np.float32, tdt.FLOAT32),
+                             ("f64", np.float64, tdt.FLOAT64),
+                             ("d32", np.int32, tdt.DATE32),
+                             ("ts", np.int64, tdt.TIMESTAMP_US)):
+        if npt in (np.float32, np.float64):
+            v = np.where(rng.random(n) < 0.2,
+                         rng.choice(np.array([-0.0, 0.0, np.nan, np.inf,
+                                              -np.inf]), n),
+                         rng.standard_normal(n) * 1e6).astype(npt)
+        else:
+            info = np.iinfo(npt)
+            v = rng.integers(info.min, info.max, n, dtype=np.int64,
+                             endpoint=True).astype(npt)
+        valid = rng.random(n) >= null_p
+        if name == "i64":
+            valid &= keys % 3 != 0
+        cols.append(Column.from_numpy(v, dtype, valid, device="cpu"))
+        names.append(name)
+        aggs += [(name, op) for op in ("count", "min", "max", "mean")]
+        if name not in ("d32", "ts"):
+            aggs.append((name, "sum"))
+    return Table(cols, names), aggs
+
+
+def _same_bits(got, want):
+    assert got.names == want.names and got.num_rows == want.num_rows
+    for a, b in zip(got.columns, want.columns):
+        da, db = a.data, b.data
+        if da.is_floating_point():
+            bits = torch.int32 if da.dtype == torch.float32 else torch.int64
+            da, db = da.view(bits), db.view(bits)
+        assert torch.equal(da, db)
+        assert (a.validity is None) == (b.validity is None)
+        if a.validity is not None:
+            assert torch.equal(a.validity, b.validity)
+
+
+@pytest.mark.parametrize("n,groups", [(1, 1), (2047, 1), (2049, 40),
+                                      (100_003, 3), (100_003, 50_000)])
+@pytest.mark.parametrize("null_p", [0.0, 0.3])
+def test_groupby_kernel_equals_the_plain_version(n, groups, null_p):
+    """Every op on eight kinds, eager and capped (key_cap below and above
+    the group count, an alive mask): the kernel's bits equal the plain
+    version's on the CPU, one launch a call."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import aggregate, groupby_cuda
+    rng = np.random.default_rng(n + groups)
+    t, aggs = _groupby_table(rng, n, groups, null_p)
+    g = t.to("cuda")
+    groupby_cuda.reset_counters()
+    _same_bits(aggregate.groupby_aggregate(g, ["k"], aggs).to("cpu"),
+               aggregate.groupby_aggregate(t, ["k"], aggs))
+    alive = torch.from_numpy(rng.random(n) < 0.6)
+    for cap in (max(groups // 2, 1), groups + 3):
+        got = aggregate.groupby_aggregate_capped(g, ["k"], aggs, cap,
+                                                 alive.cuda())
+        want = aggregate.groupby_aggregate_capped(t, ["k"], aggs, cap, alive)
+        _same_bits(got[0].to("cpu"), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[2].cpu(), want[2])
+    assert groupby_cuda.LAUNCHES["groupby"] == 3
+    assert groupby_cuda.PLAIN_CALLS == {"groupby": 0}
+
+
+def _nan_payload_table(rng):
+    """Groups whose float sums end NaN with distinct payloads and both
+    signs: short groups (a thread a group) and long ones (a warp pair,
+    several staged chunks), float64 and float32 values, and groups whose
+    only NaN is inf - inf."""
+    sizes = [5, 4, 3, 4, 40, 1500, 700, 33]
+    n = sum(sizes)
+    k = np.repeat(np.arange(len(sizes)), sizes).astype(np.int64)
+    x = rng.standard_normal(n)
+    f = rng.standard_normal(n).astype(np.float32)
+    xb, fb = x.view(np.uint64), f.view(np.uint32)
+    for lo, hi in zip(np.cumsum([0] + sizes[:-1]), np.cumsum(sizes)):
+        at = rng.choice(np.arange(lo, hi), min(hi - lo, 6), replace=False)
+        xb[at] = (np.uint64(0x7FF0000000000000)
+                  | rng.integers(1, 1 << 51, at.size).astype(np.uint64)
+                  | (rng.integers(0, 2, at.size).astype(np.uint64) << 63))
+        fb[at] = (np.uint32(0x7F800000)
+                  | rng.integers(1, 1 << 22, at.size).astype(np.uint32)
+                  | (rng.integers(0, 2, at.size).astype(np.uint32) << 31))
+    for g in (2, 7):                          # inf - inf, no NaN value
+        lo = sum(sizes[:g])
+        x[lo:lo + sizes[g]] = np.where(np.arange(sizes[g]) % 2, np.inf,
+                                       -np.inf)
+    valid = rng.random(n) >= 0.1
+    t = Table([Column.from_numpy(k, tdt.INT64, device="cpu"),
+               Column.from_numpy(x, tdt.FLOAT64, valid, device="cpu"),
+               Column.from_numpy(f, tdt.FLOAT32, device="cpu")],
+              ["k", "x", "f"])
+    return t, [("x", "sum"), ("x", "mean"), ("f", "sum"), ("f", "mean")]
+
+
+def test_groupby_fold_nan_bits_equal_the_cpu():
+    """Folds that end NaN, on distinct payloads that tell the first NaN
+    from the last: the kernel's bits equal the plain version's on the CPU,
+    eager and capped."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import aggregate
+    t, aggs = _nan_payload_table(np.random.default_rng(17))
+    g = t.to("cuda")
+    _same_bits(aggregate.groupby_aggregate(g, ["k"], aggs).to("cpu"),
+               aggregate.groupby_aggregate(t, ["k"], aggs))
+    alive = torch.from_numpy(np.random.default_rng(18).random(t.num_rows)
+                             < 0.8)
+    got = aggregate.groupby_aggregate_capped(g, ["k"], aggs, 6, alive.cuda())
+    want = aggregate.groupby_aggregate_capped(t, ["k"], aggs, 6, alive)
+    _same_bits(got[0].to("cpu"), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_groupby_forced_plain_raises_on_the_card(monkeypatch):
+    _need_card()
+    from spark_rapids_tpu_torch.ops import aggregate
+    from spark_rapids_tpu_torch.ops.registry import KernelDeclinedError
+    t = Table([Column.from_numpy(np.arange(10, dtype=np.int64), tdt.INT64,
+                                 device="cuda")], ["k"])
+    monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", "groupby=torch")
+    with pytest.raises(KernelDeclinedError):
+        aggregate.groupby_aggregate(t, ["k"], [("k", "sum")])

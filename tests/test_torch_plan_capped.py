@@ -122,6 +122,7 @@ def test_forced_kernels_run_their_plain_mirrors(monkeypatch, which):
     stamps = {m.kind: m.kernel for m in res.metrics.values() if m.kernel}
     assert stamps["HashJoin"] == "cuda:hash_join"
     assert stamps["FusedSelect"] == "torch:fused_select"
+    assert stamps["HashAggregate"] == "torch:groupby"
     n_joins = sum(n.kind == "HashJoin" for n in res.plan.nodes)
     assert join_cuda.PLAIN_CALLS == {"build": n_joins, "count": n_joins,
                                      "emit": n_joins}

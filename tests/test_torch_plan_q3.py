@@ -296,8 +296,8 @@ def test_tpcds_q3_matches_jax_optimized_eager():
     strip = lambda s: re.sub(r"#\d+", "", s)            # noqa: E731
     assert strip(res.plan.explain()) == strip(ref.plan.explain())
     stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
-    assert stamps == ["torch:fused_select"] * 2 + ["torch:hash_join"] * 2 + \
-        ["torch:topk"]
+    assert stamps == ["torch:fused_select"] * 2 + ["torch:groupby"] + \
+        ["torch:hash_join"] * 2 + ["torch:topk"]
     # the authored plan, unoptimized, gives the same rows
     off = PlanExecutor(device="cpu", optimize=False).execute(
         nds_q3.q3_tpcds_plan(), inputs)
