@@ -120,6 +120,17 @@ in phases that each raise on failure:
    bit, at that size and on a dtype/null/NaN/length matrix, and equals a
    numpy evaluation written here; then timed, with the headline
    `spark_row_hash_throughput` line;
+5b. DECIMAL128: the entry step (`spark_rapids_tpu_torch.entry`, the
+   counterpart of `__graft_entry__.entry()`) at 4,096 and 10,000,000 rows,
+   counters zeroed before and read after each run (two row-hash launches
+   and one decimal launch, no plain run), its murmur3, xxhash64 and product
+   equal to the numpy hashes above and v * v; the decimal kernel against
+   its plain version on the card, bit for bit, on 1,000,003 rows of
+   random 38-digit values with nulls and zero divisors for every op and
+   branch (each call through the entry points, counted), and on a
+   20,000-row sample against Python integer arithmetic written here; then
+   the entry's multiply at 10M rows and a divide and a remainder on the
+   matrix timed;
 6. partition: `benchmarks/bench_partition.py`'s ids (10,000,000 for P = 8
    and 64) and P = 200, Spark's default `spark.sql.shuffle.partitions`,
    through `parallel.partition_histogram`, and the shuffle chain
@@ -192,7 +203,9 @@ KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel<false>",
                                  "fs_count_kernel<longlong>",
                                  "fs_compact_kernel"),
                 "topk": ("tk_threshold_kernel", "tk_select_kernel",
-                         "tk_merge_kernel")}
+                         "tk_merge_kernel"),
+                "decimal128": tuple(f"decimal_kernel<{k}>"
+                                    for k in range(4))}
 SOURCE = "spark_rapids_tpu_torch/ops/csrc/hash_join.cu"
 RH_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_hash.cu"
 HIST_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
@@ -299,7 +312,8 @@ class Checks:
                         "histogram": 0, "fused_select": 0, "topk": 0,
                         "build_large": 0, "count_large": 0,
                         "emit_large": 0, "segment_sum": 0, "groupby": 0,
-                        "capped_join": 0, "capped_topk": 0, "plans": 0}
+                        "capped_join": 0, "capped_topk": 0, "plans": 0,
+                        "decimal128": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -3142,8 +3156,8 @@ def numpy_q23(gen):
 
 def kernel_counters():
     """Every kernel module's launch and plain-run counters, as one dict."""
-    from spark_rapids_tpu_torch.ops import groupby_cuda, hash_cuda
-    from spark_rapids_tpu_torch.ops import join_cuda, select
+    from spark_rapids_tpu_torch.ops import decimal_cuda, groupby_cuda
+    from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda, select
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
     from spark_rapids_tpu_torch.ops import topk, topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
@@ -3156,22 +3170,25 @@ def kernel_counters():
             "segment_sum": dict(segment_sum_cuda.LAUNCHES),
             "row_hash": dict(hash_cuda.LAUNCHES),
             "histogram": dict(partition_cuda.LAUNCHES),
+            "decimal128": dict(decimal_cuda.LAUNCHES),
             "plain": {"groupby": dict(groupby_cuda.PLAIN_CALLS),
                       "hash_join": dict(join_cuda.PLAIN_CALLS),
                       "fused_select": dict(select.PLAIN_CALLS),
                       "topk": dict(topk.PLAIN_CALLS),
                       "segment_sum": dict(segment_sum_cuda.PLAIN_CALLS),
                       "row_hash": dict(hash_cuda.PLAIN_CALLS),
-                      "histogram": dict(partition_cuda.PLAIN_CALLS)}}
+                      "histogram": dict(partition_cuda.PLAIN_CALLS),
+                      "decimal128": dict(decimal_cuda.PLAIN_CALLS)}}
 
 
 def reset_kernel_counters():
-    from spark_rapids_tpu_torch.ops import groupby_cuda, hash_cuda
-    from spark_rapids_tpu_torch.ops import join_cuda, segment_sum_cuda
-    from spark_rapids_tpu_torch.ops import select_cuda, topk_cuda
+    from spark_rapids_tpu_torch.ops import decimal_cuda, groupby_cuda
+    from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda
+    from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
+    from spark_rapids_tpu_torch.ops import topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
     for m in (groupby_cuda, hash_cuda, join_cuda, segment_sum_cuda,
-              select_cuda, topk_cuda, partition_cuda):
+              select_cuda, topk_cuda, partition_cuda, decimal_cuda):
         m.reset_counters()
 
 
@@ -3344,6 +3361,372 @@ def nds_union_phase(torch, chk):
     return out
 
 
+# ---- phase 5b: DECIMAL128 ------------------------------------------------------
+
+DEC_SOURCE = "spark_rapids_tpu_torch/ops/csrc/decimal128.cu"
+DEC_MATRIX_ROWS = 1_000_003
+DEC_SAMPLE_ROWS = 20_000
+DEC_ENTRY_SIZES = (4096, N_ROWS)
+# (op, a scale, b scale, output scale, flag): every branch of the kernel
+# (divide's three n_shift_exp branches, the remainder's d_shift_exp ones,
+# the SPARK-40129 interim rounding, the integer divide)
+DEC_CASES = (
+    ("add", 2, 2, 2, False), ("add", 2, 5, 5, False), ("add", 10, 3, 6, False),
+    ("add", 0, 38, 38, False), ("sub", 2, 5, 3, True),
+    ("multiply", 2, 2, 4, True), ("multiply", 10, 10, 6, True),
+    ("multiply", 10, 10, 6, False), ("multiply", 0, 0, 2, True),
+    ("multiply", 3, 2, 1, True), ("multiply", -1, 0, 1, True),
+    ("divide", 10, 2, 2, False), ("divide", 0, 38, 6, False),
+    ("divide", 10, 10, 6, False), ("divide", 2, 2, 0, False),
+    ("divide", 2, 2, 0, True), ("divide", 4, 1, 0, True),
+    ("divide", 0, 38, 6, True), ("remainder", 2, 5, 3, False),
+    ("remainder", 2, 1, 3, False), ("remainder", 1, 1, 1, False),
+    ("remainder", 0, 5, 3, False))
+# the matrix cases timed: Spark's decimal(38,10) / decimal(38,10) at
+# quotient scale 6 (one division and its rounding) and a remainder of
+# equal scales (one division); the kernel runs one 256-step long division
+# a row in each
+DEC_TIMED = {"divide": ("divide", 10, 10, 6, False),
+             "remainder": ("remainder", 1, 1, 1, False)}
+# The least integer work of a row of each timed op, in 32-bit integer
+# instructions (PEAK_INT_OPS_PER_S's unit), counted for the function on
+# 64-bit words and not for the kernel's algorithm: a 64 x 64 -> 128-bit
+# product is 4 32-bit products' low and high halves and 4 adds (12), a
+# carried 64-bit add 2.
+# - multiply, 128 x 128 -> 256 bits at exponent 0 (the entry's): both
+#   magnitudes 16, 4 word products 48 and their carried sums 12, the sign
+#   8, the compare against 10^38 8: 92.
+# - a division of a 3-word dividend by a 2-word divisor (Knuth D, base
+#   2^64; |a| * 10^6 is at most 148 bits): normalising both (a count of
+#   leading zeros, 5 double-word shifts) 20, the divisor's reciprocal once
+#   30, per quotient word (2) an estimate by the reciprocal (2 products, 14
+#   adds: 38) and a 2-word multiply-subtract (2 products, 4 carried
+#   subtracts: 32), the remainder shifted back 6: 196; a 2-word dividend
+#   (the equal-scale remainder) has one quotient word: 126.
+# - divide at quotient scale 6: magnitudes 16, the dividend times 10^6 12,
+#   the division 196, HALF_UP (2|r| >= |d|, an increment) 16, the sign 16,
+#   the zero divisor 4, the compare 8: 268.
+# - remainder at equal scales: magnitudes 16, the division 126 (its
+#   remainder is the result), the sign 8, the zero divisor 4, the compare
+#   8: 162.
+# A row of narrower values needs fewer words, so these err high.
+DEC_ROW_OPS = {"multiply": 92, "divide": 268, "remainder": 162}
+# Integer-pipe instructions of one step of the kernel's 256-step binary
+# long division, read off its compiled SASS (`cuobjdump -sass`,
+# decimal_kernel<2>'s loop: 53 of 65): the algorithm's own chain, reported
+# beside the bound and not in it
+DEC_DIV_STEP_OPS = 53
+_M256 = (1 << 256) - 1
+
+
+def _u_neg(u):
+    return (-u) & _M256
+
+
+def _u_isneg(u):
+    return u >> 255 == 1
+
+
+def _u_abs(u):
+    return _u_neg(u) if _u_isneg(u) else u
+
+
+def _p10(k):
+    return 10 ** min(max(k, 0), 76)
+
+
+def _u_div(n, d):
+    """Signed truncating division of 256-bit two's complement values, the
+    remainder with n's sign; a zero divisor gives the all-ones quotient
+    and the remainder n, as a binary long division by 0 does."""
+    an, ad = _u_abs(n), _u_abs(d)
+    q, r = (_M256, an) if ad == 0 else divmod(an, ad)
+    if _u_isneg(n) != _u_isneg(d):
+        q = _u_neg(q)
+    return q, (_u_neg(r) if _u_isneg(n) else r)
+
+
+def _u_round(q, r, d):
+    """HALF_UP: |q| one further from zero when 2|r| >= |d|, in the
+    direction sign(r) ^ sign(d)."""
+    if ((_u_abs(r) << 1) & _M256) < _u_abs(d):
+        return q
+    return (q + (-1 if _u_isneg(r) != _u_isneg(d) else 1)) & _M256
+
+
+def _u_div_round(n, d):
+    return _u_round(*_u_div(n, d), d)
+
+
+def _u_prec10(u):
+    """The first i in [0, 76] with 10^i >= |u|, 77 if none."""
+    a = _u_abs(u)
+    i = len(str(a)) - 1
+    return min(i + (10 ** i < a), 77)
+
+
+def _u_rescale(v, old, new):
+    if new < old:
+        return (v * _p10(old - new)) & _M256
+    if new > old:
+        return _u_div_round(v, _p10(new - old))
+    return v
+
+
+def py_decimal(op, a, b, sa, sb, so, flag):
+    """One row of a decimal op in Python integers, from Spark's semantics
+    as the reference's decimal_utils.cu states them (cudf scales are the
+    negated Spark ones): -> (overflow, result mod 2^256)."""
+    a, b = a & _M256, b & _M256
+    gt38 = lambda u: _u_abs(u) >= 10 ** 38   # noqa: E731
+    if op in ("add", "sub"):
+        inter = min(-sa, -sb)
+        a, b = _u_rescale(a, -sa, inter), _u_rescale(b, -sb, inter)
+        s = _u_rescale((a + (_u_neg(b) if flag else b)) & _M256, inter, -so)
+        return gt38(s), s
+    if op == "multiply":
+        p = (a * b) & _M256
+        scale = -sa - sb
+        if flag and _u_prec10(p) > 38:
+            first = _u_prec10(p) - 38
+            p, scale = _u_div_round(p, _p10(first)), scale + first
+        e = -so - scale
+        if e < 0:
+            r = (p * _p10(-e)) & _M256
+            return _u_prec10(p) - e > 38 or gt38(r), r
+        r = _u_div_round(p, _p10(e)) if e > 0 else p
+        return gt38(r), r
+    zero = b == 0
+    d = 1 if zero else b
+    if op == "divide":
+        shift = -so + sa - sb
+        if shift > 0:
+            q1 = _u_div(a, d)[0]
+            r = (_u_div(q1, _p10(shift))[0] if flag
+                 else _u_div_round(q1, _p10(shift)))
+        elif shift < -38:
+            q1, r1 = _u_div((a * _p10(38)) & _M256, d)
+            m = _p10(-shift - 38)
+            q2, r2 = _u_div((r1 * m) & _M256, d)
+            r = (q1 * m + q2) & _M256
+            if not flag:
+                r = _u_round(r, r2, d)
+        else:
+            num = (a * _p10(-shift)) & _M256 if shift else a
+            r = _u_div(num, d)[0] if flag else _u_div_round(num, d)
+        r = 0 if zero else r
+        return zero or gt38(r), r
+    # remainder
+    an, ad = _u_abs(a), _u_abs(d)
+    d_shift, n_shift = -so + sb, -so + sa
+    if d_shift > 0:
+        ad = _u_div_round(ad, _p10(d_shift))
+    else:
+        n_shift -= d_shift
+    if n_shift > 0:
+        q = _u_div(_u_div(an, ad)[0], _p10(n_shift))[0]
+    else:
+        if n_shift < 0:
+            an = (an * _p10(-n_shift)) & _M256
+        q = _u_div(an, ad)[0]
+    less = (q * ad) & _M256
+    if d_shift < 0:
+        less = (less * _p10(-d_shift)) & _M256
+    rem = (an - less) & _M256
+    ovf = zero or gt38(rem)
+    rem = _u_neg(rem) if _u_isneg(a) else rem
+    return ovf, (0 if zero else rem)
+
+
+def dec_column(rng, n, zero_every=0):
+    """(n,) random values as Python ints: 38-digit ones (an int64 times
+    10^19 plus up to 10^19), 6-digit ones and the 128-bit edges."""
+    big = (rng.integers(-(2**63) + 1, 2**63 - 1, n).astype(object) * 10**19
+           + rng.integers(0, 10**19, n, dtype=np.uint64).astype(object))
+    small = rng.integers(-(10**6), 10**6, n).astype(object)
+    edges = np.array([0, 1, -1, 10**38 - 1, -(10**38 - 1), 10**38,
+                      -(10**38), 2**127 - 1, -(2**127)], dtype=object)
+    pick = rng.random(n)
+    vals = np.where(pick < 0.6, big, small)
+    at = pick < 0.05
+    vals[at] = edges[rng.integers(0, len(edges), int(at.sum()))]
+    if zero_every:
+        vals[::zero_every] = 0
+    return vals
+
+
+def dec_bits(torch, t):
+    """uint32 limbs by their int32 bits: torch's CUDA ops take few
+    unsigned dtypes."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def dec_equal(torch, chk, got, want, what):
+    """Two (overflow, result) pairs equal: every row's bits and the
+    validity."""
+    for part, g, w in zip(("overflow", "result"), got, want):
+        require(g.dtype == w.dtype, f"{what} {part}: {g.dtype} vs {w.dtype}")
+        chk.equal("decimal128", dec_bits(torch, g.data),
+                  dec_bits(torch, w.data), f"{what} {part}")
+        require((g.validity is None) == (w.validity is None),
+                f"{what} {part}: validity on one side only")
+        if g.validity is not None:
+            chk.equal("decimal128", g.validity, w.validity,
+                      f"{what} {part} validity")
+
+
+def dec_timing(torch, fn, plain, n, op, in_bytes, divisions):
+    """Device ms (profiler records, L2 flushed), one call's ms, the plain
+    version's ms and the bound of one call over n rows: `in_bytes` a row of
+    distinct input buffers read once, 16 B of limbs and the overflow byte
+    written, and DEC_ROW_OPS[op] integer instructions a row; beside it the
+    chain of the kernel's own `divisions` 256-step long divisions a row."""
+    ms = device_ms(torch, fn, KERNEL_NAMES["decimal128"], 20)
+    cms = call_ms(torch, fn, 20)
+    pms = time_cuda(torch, plain, 1)
+    nbytes = n * (in_bytes + 16 + 1)
+    ops_ = n * DEC_ROW_OPS[op]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+    chain = n * divisions * 256 * DEC_DIV_STEP_OPS
+    return {"ms": ms, "call_ms": cms, "plain_ms": pms, "bytes": nbytes,
+            "ops": ops_, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "algorithm_chain_ms": chain / PEAK_INT_OPS_PER_S * 1e3}
+
+
+def decimal_phase(torch, chk):
+    """The entry step (`spark_rapids_tpu_torch.entry`) at 4,096 and
+    10,000,000 rows, every counter zeroed just before and read just after
+    (two row-hash launches and one decimal launch, no plain run), equal to
+    numpy's hashes and v * v; the kernel against its plain version on a
+    1,000,003-row matrix of every op and branch, bit for bit, and a
+    20,000-row sample against Python integers; then timed."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.entry import decimal_limbs, entry
+    from spark_rapids_tpu_torch.ops import decimal_utils as du
+
+    launches, out = {}, {"entry": {}, "matrix": {}}
+    for n in DEC_ENTRY_SIZES:
+        step, (keys, vals) = entry(n)
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        h32, h64, product, overflow = step(keys, vals)
+        torch.cuda.synchronize()
+        counters = kernel_counters()
+        want = {"murmur": 1, "xxhash": 1, "multiply": 1}
+        got = {"murmur": counters["row_hash"]["murmur"],
+               "xxhash": counters["row_hash"]["xxhash"],
+               "multiply": counters["decimal128"]["multiply"]}
+        require(got == want and counted(counters) == 3,
+                f"entry at {n} rows: counters {counters}")
+        launches[f"entry {n}"] = got
+        k, v = keys.cpu().numpy(), vals.cpu().numpy()
+        t0 = time.perf_counter()
+        require(np.array_equal(h32.cpu().numpy(), np_murmur3([k, v], 42)),
+                f"entry at {n} rows: murmur3 differs from numpy")
+        require(np.array_equal(h64.cpu().numpy(), np_xxhash64([k, v], 42)),
+                f"entry at {n} rows: xxhash64 differs from numpy")
+        words = product.cpu().numpy().view(np.uint64)
+        require(np.array_equal(words[:, 0], (v * v).view(np.uint64))
+                and not words[:, 1].any() and not overflow.cpu().numpy().any(),
+                f"entry at {n} rows: the product differs from v * v")
+        log(f"entry at {n} rows: murmur3, xxhash64 and v * v equal numpy "
+            f"({time.perf_counter() - t0:.1f} s); launches {got}")
+        if n == N_ROWS:     # the multiply's operand, timed below
+            dec = Column(dt.decimal(38, 2), n, decimal_limbs(vals))
+        del keys, h32, h64, product, overflow
+    out["entry"]["launches"] = launches
+
+    # the matrix: every op and branch, kernel == plain, sample == Python
+    rng = np.random.default_rng(5)
+    n = DEC_MATRIX_ROWS
+    t0 = time.perf_counter()
+    av, bv = dec_column(rng, n), dec_column(rng, n, zero_every=9)
+    a_valid, b_valid = rng.random(n) > 0.1, rng.random(n) > 0.1
+    sample = np.sort(rng.choice(n, DEC_SAMPLE_ROWS, replace=False))
+    # every row's value stays in the limbs, nulls' too (the kernel computes
+    # them); each scale is a view of the same limbs
+    base = {"a": (Column.from_pylist(av, dt.decimal(38, 0), device="cuda"),
+                  torch.as_tensor(a_valid, device="cuda")),
+            "b": (Column.from_pylist(bv, dt.decimal(38, 0), device="cuda"),
+                  torch.as_tensor(b_valid, device="cuda"))}
+    log(f"decimal matrix: {n} rows made in {time.perf_counter() - t0:.1f} s")
+
+    def column(side, scale):
+        c, valid = base[side]
+        return Column(dt.DType(dt.Kind.DECIMAL128, 38, scale), n, c.data,
+                      valid)
+    matrix_launches = 0
+    for case in DEC_CASES:
+        op, sa, sb, so, flag = case
+        a, b = column("a", sa), column("b", sb)
+        torch.cuda.synchronize()
+        reset_kernel_counters()
+        got = du.decimal128_op(op, a, b, so, flag)
+        torch.cuda.synchronize()
+        counters = kernel_counters()
+        require(counters["decimal128"][op] == 1 and counted(counters) == 1,
+                f"decimal {case}: counters {counters}")
+        matrix_launches += 1
+        t1 = time.perf_counter()
+        dec_equal(torch, chk, got,
+                  du.decimal128_op(op, a, b, so, flag, plain=True),
+                  f"decimal {case}")
+        plain_s = time.perf_counter() - t1
+        ovf = got[0].data.cpu().numpy()
+        res = got[1].data.cpu().numpy()
+        int64_out = op == "divide" and flag
+        t1 = time.perf_counter()
+        bad = 0
+        for i in sample:
+            w_ovf, w_res = py_decimal(op, int(av[i]), int(bv[i]), sa, sb,
+                                      so, flag)
+            if int64_out:
+                lo = w_res & (2**64 - 1)
+                g_res = int(res[i]) & (2**64 - 1)
+                bad += bool(ovf[i]) != w_ovf or g_res != lo
+            else:
+                g_res = sum(int(res[i, j]) << (32 * j) for j in range(4))
+                bad += (bool(ovf[i]) != w_ovf
+                        or g_res != w_res & ((1 << 128) - 1))
+        require(bad == 0, f"decimal {case}: {bad} of {len(sample)} sampled "
+                f"rows differ from Python integers")
+        out["matrix"][str(case)] = {"overflow_rows": int(ovf.sum()),
+                                    "plain_check_s": plain_s}
+        log(f"  decimal {case}: kernel == plain ({plain_s:.1f} s), "
+            f"{len(sample)} rows == Python ints "
+            f"({time.perf_counter() - t1:.1f} s); {int(ovf.sum())} rows "
+            f"overflow")
+    out["matrix"]["launches"] = matrix_launches
+
+    # timing: the entry's multiply at 10M rows (one input buffer, read as
+    # both operands), divide and remainder on the matrix (two)
+    timing = {"multiply": dec_timing(
+        torch, lambda: du.multiply_decimal128(dec, dec, 4),
+        lambda: du.multiply_decimal128_plain(dec, dec, 4), N_ROWS,
+        "multiply", 16, 0)}
+    for name, case in DEC_TIMED.items():
+        op, sa, sb, so, flag = case
+        a, b = column("a", sa), column("b", sb)
+        timing[name] = dec_timing(
+            torch, lambda: du.decimal128_op(op, a, b, so, flag),
+            lambda: du.decimal128_op(op, a, b, so, flag, plain=True), n,
+            op, 32, 1)
+        timing[name]["case"] = list(case)
+    for name, t in timing.items():
+        log(f"  decimal {name}: device {t['ms']!r} ms, one call "
+            f"{t['call_ms']!r} ms, plain {t['plain_ms']!r} ms; bound "
+            f"{t['bound_ms']!r} ms ({t['bytes']} B -> {t['bytes_ms']!r} ms, "
+            f"{t['ops']} ops -> {t['ops_ms']!r} ms); the kernel's "
+            f"long-division chain {t['algorithm_chain_ms']!r} ms")
+    out["timing"] = timing
+    del base, dec
+    torch.cuda.empty_cache()
+    return out
+
+
 def summed(timing, forms, **extra):
     """One kernels-line entry: the sums over the path's calls, each form's
     own numbers under `by_form`."""
@@ -3453,6 +3836,7 @@ def main(argv=None):
     fs_timing = fused_select_phase(torch, chk)
     tk_timing = topk_phase(torch, chk)
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
+    dec = decimal_phase(torch, chk)
     pt_launches, pt_timing = partition_phase(torch, chk)
 
     kernels = []
@@ -3540,12 +3924,17 @@ def main(argv=None):
         "library_ms": t["library_ms"]})
     # the row hash: the sums over its three forms, one call each, at
     # bench.py's shape; launches over the row-hash and partition paths
+    entry_launches = dec["entry"]["launches"]
+    rh_entry = {"murmur": sum(e["murmur"] for e in entry_launches.values()),
+                "xxhash": sum(e["xxhash"] for e in entry_launches.values())}
     kernels.append({
         "name": "row_hash", "route": "cuda", "source": RH_SOURCE,
         "replaces": REPLACES["row_hash"],
-        "launches": sum(rh_launches.values()) + pt_launches["murmur"],
+        "launches": (sum(rh_launches.values()) + pt_launches["murmur"]
+                     + sum(rh_entry.values())),
         "launches_by_path": {"row_hash": rh_launches,
-                             "partition": {"murmur": pt_launches["murmur"]}},
+                             "partition": {"murmur": pt_launches["murmur"]},
+                             "entry": rh_entry},
         "exact": chk.max_err["row_hash"] == 0,
         "max_abs_err": chk.max_err["row_hash"],
         **summed(rh_timing, ("murmur", "xxhash", "fused"), library_ms=None)})
@@ -3618,6 +4007,25 @@ def main(argv=None):
                    "with the dead rows ranked last: no tie order, no nulls, "
                    "one key",
         "library_ms": t["library_ms"]})
+    # the decimal kernel: launches on the entry step's two runs (the
+    # matrix's are checks against the plain version); timed at the entry's
+    # multiply (10M rows) and a divide and a remainder on the matrix
+    kernels.append({
+        "name": "decimal128", "route": "cuda", "source": DEC_SOURCE,
+        "replaces": "spark_rapids_tpu/ops/decimal_utils.py:81 "
+                    "(multiply_decimal128; add :58, sub :77, divide :115, "
+                    "remainder :175: XLA ops, no pallas_call)",
+        "launches": sum(e["multiply"] for e in entry_launches.values()),
+        "launches_by_path": {**{w: e["multiply"]
+                                for w, e in entry_launches.items()},
+                             "matrix (checks)": dec["matrix"]["launches"]},
+        "exact": chk.max_err["decimal128"] == 0,
+        "max_abs_err": chk.max_err["decimal128"],
+        "library": "none: no PyTorch call computes a decimal128 op",
+        **summed(dec["timing"], ("multiply", "divide", "remainder"),
+                 library_ms=None, algorithm_chain_ms=sum(
+                     t["algorithm_chain_ms"]
+                     for t in dec["timing"].values()))})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -3644,7 +4052,7 @@ def main(argv=None):
                                        for w, r in q72.items()},
                        "q72_inventory_join": q72_timing,
                        "c4": c4, "groupby": gb, "capped": capped,
-                       "nds_q5_q23": nds_union},
+                       "nds_q5_q23": nds_union, "decimal128": dec},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

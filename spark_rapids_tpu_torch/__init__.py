@@ -14,7 +14,11 @@ and the hash-join build/probe kernels in CUDA. It hashes rows as Spark does
 (`ops.murmur_hash3_32`, `ops.xxhash64`, `api.Hash`) with a fused row-hash
 kernel, and counts a shuffle's partitions (`parallel.partition_ids`,
 `parallel.partition_histogram`, the partition maps) with a histogram
-kernel; all CUDA sources are under `ops/csrc/`.
+kernel. DECIMAL128 columns are (n, 4) uint32 limbs, and Spark's decimal
+add, subtract, multiply, divide and remainder (`ops.*_decimal128`,
+`api.DecimalUtils`) run in one decimal kernel; `entry` is the counterpart
+of the repo's entry step (`__graft_entry__.entry()`). All CUDA sources
+are under `ops/csrc/`.
 """
 from . import dtypes
 from .columnar import Column, Table

@@ -1,8 +1,8 @@
 """Java-facing facade of the PyTorch port: the classes of spark-rapids-jni's
 Java API, mapped onto the port's ops.
 
-Counterpart of `spark_rapids_tpu/api.py`. Only the `Hash` class is ported;
-the other classes wait for their modules (ROADMAP queue A item 12).
+Counterpart of `spark_rapids_tpu/api.py`. `DecimalUtils` and `Hash` are
+ported; the other classes wait for their modules (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
@@ -10,6 +10,37 @@ from typing import Sequence
 
 from . import ops
 from .columnar import Column
+
+
+class DecimalUtils:
+    """DecimalUtils.java:46-178. Every op returns (overflow BOOL column,
+    result column) like the reference's two-column Table."""
+
+    @staticmethod
+    def multiply128(a: Column, b: Column, productScale: int,
+                    interimCast: bool = True):
+        return ops.multiply_decimal128(a, b, productScale,
+                                       cast_interim_result=interimCast)
+
+    @staticmethod
+    def divide128(a: Column, b: Column, quotientScale: int):
+        return ops.divide_decimal128(a, b, quotientScale)
+
+    @staticmethod
+    def integerDivide128(a: Column, b: Column):
+        return ops.divide_decimal128(a, b, 0, is_int_div=True)
+
+    @staticmethod
+    def remainder128(a: Column, b: Column, remainderScale: int):
+        return ops.remainder_decimal128(a, b, remainderScale)
+
+    @staticmethod
+    def add128(a: Column, b: Column, targetScale: int):
+        return ops.add_decimal128(a, b, targetScale)
+
+    @staticmethod
+    def subtract128(a: Column, b: Column, targetScale: int):
+        return ops.sub_decimal128(a, b, targetScale)
 
 
 class Hash:

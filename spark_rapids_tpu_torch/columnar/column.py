@@ -1,21 +1,22 @@
-"""Fixed-width device column of the PyTorch port.
+"""Device column of the PyTorch port: fixed-width kinds and DECIMAL128.
 
 Counterpart of `spark_rapids_tpu/columnar/column.py`, with the same buffer
-layout (its lines 9-13): `data` is an (n,) tensor of the storage dtype and
+layout (its lines 9-13): `data` is an (n,) tensor of the storage dtype, or
+for DECIMAL128 an (n, 4) `torch.uint32` tensor of little-endian limbs, and
 `validity` an unpacked (n,) bool tensor, or None when every row is valid.
 Moving a column between the packages is therefore a copy of two buffers.
-Strings, DECIMAL128 and nested columns wait for a later slice.
+Strings and nested columns wait for ROADMAP queue A item 1.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import device as _device
-from ..dtypes import DType
+from ..dtypes import DType, Kind
 
 
 @dataclasses.dataclass
@@ -31,7 +32,7 @@ class Column:
             raise TypeError(f"{self.dtype!r} column needs "
                             f"{self.dtype.storage_dtype()} data, got "
                             f"{self.data.dtype}")
-        if tuple(self.data.shape) != (self.length,):
+        if tuple(self.data.shape) != (self.length,) + self.dtype.row_shape:
             raise ValueError(f"data shape {tuple(self.data.shape)} does not "
                              f"match length {self.length}")
         if self.validity is not None and (
@@ -85,13 +86,42 @@ class Column:
                              device=device)
         return Column(dtype, int(arr.shape[0]), data, v)
 
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: DType,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> "Column":
+        """Column of Python values, None for nulls (a null row's data is
+        0). DECIMAL128 takes unscaled Python ints, kept mod 2^128 as the
+        reference's `from_pylist` keeps them. `device=None` means the card."""
+        n = len(values)
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+        if dtype.kind == Kind.DECIMAL128:
+            u = np.array([0 if v is None else int(v) for v in values],
+                         dtype=object) & ((1 << 128) - 1)
+            arr = np.stack([((u >> (32 * j)) & 0xFFFFFFFF).astype(np.uint32)
+                            for j in range(4)], axis=1)
+        else:
+            filled = [0 if v is None else v for v in values]
+            arr = np.array(filled, dtype=np.dtype(
+                str(dtype.storage_dtype()).removeprefix("torch.")))
+        return Column.from_numpy(arr, dtype, None if valid.all() else valid,
+                                 device)
+
     def to_numpy(self):
         """(data, validity-or-None) as host numpy arrays."""
         v = None if self.validity is None else self.validity.cpu().numpy()
         return self.data.cpu().numpy(), v
 
     def to_pylist(self) -> List:
-        """Host Python values, None for nulls. Testing aid."""
+        """Host Python values, None for nulls; a DECIMAL128 value is its
+        signed unscaled Python int. Testing aid."""
         data, v = self.to_numpy()
-        return [None if (v is not None and not v[i]) else data[i].item()
+        if self.dtype.kind == Kind.DECIMAL128:
+            vals = []
+            for row in data:
+                u = sum(int(w) << (32 * j) for j, w in enumerate(row))
+                vals.append(u - (1 << 128) if u >= (1 << 127) else u)
+        else:
+            vals = [x.item() for x in data]
+        return [None if (v is not None and not v[i]) else vals[i]
                 for i in range(self.length)]

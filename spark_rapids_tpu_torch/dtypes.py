@@ -4,8 +4,10 @@ Counterpart of `spark_rapids_tpu/dtypes.py`. The `Kind` values are the
 reference's own strings, so a column moves between the two packages by
 kind name. Fixed-width types map 1:1 onto torch dtypes; DECIMAL32/64 are a
 physical int32/int64 plus a (precision, scale) tag; DATE32 is int32 days
-and TIMESTAMP_* int64 since the epoch. Strings, DECIMAL128 and nested types
-are not ported yet: `storage_dtype` raises for them.
+and TIMESTAMP_* int64 since the epoch. DECIMAL128 is stored as the
+reference stores it: `(n, 4)` little-endian 32-bit limbs of the two's
+complement value, in `torch.uint32`. Strings and nested types are not
+ported yet: `storage_dtype` raises for them (ROADMAP queue A item 1).
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ class Kind(enum.Enum):
 
 MAX_DEC32_PRECISION = 9
 MAX_DEC64_PRECISION = 18
+MAX_DEC128_PRECISION = 38
+DECIMAL128_LIMBS = 4               # u32 limbs a DECIMAL128 value takes
 
 _STORAGE = {
     Kind.BOOL: torch.bool,
@@ -58,6 +62,8 @@ _STORAGE = {
     Kind.TIMESTAMP_S: torch.int64,
     Kind.TIMESTAMP_MS: torch.int64,
 }
+# storage of kinds whose rows are more than one element: (n, limbs)
+_LIMB_STORAGE = {Kind.DECIMAL128: (torch.uint32, DECIMAL128_LIMBS)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +85,22 @@ class DType:
         return self.kind in (Kind.FLOAT32, Kind.FLOAT64)
 
     def storage_dtype(self) -> torch.dtype:
-        """Physical torch dtype of the data buffer (fixed-width kinds)."""
+        """Physical torch dtype of the data buffer."""
+        if self.kind in _LIMB_STORAGE:
+            return _LIMB_STORAGE[self.kind][0]
         try:
             return _STORAGE[self.kind]
         except KeyError:
             raise TypeError(f"{self!r} columns are not ported yet "
-                            "(fixed-width kinds only)") from None
+                            "(ROADMAP queue A item 1)") from None
+
+    @property
+    def row_shape(self) -> tuple:
+        """Shape of one row of the data buffer: () for the fixed-width
+        kinds, (4,) for DECIMAL128's limbs."""
+        if self.kind in _LIMB_STORAGE:
+            return (_LIMB_STORAGE[self.kind][1],)
+        return ()
 
     def __repr__(self):
         if self.is_decimal:
@@ -104,12 +120,16 @@ TIMESTAMP_US = DType(Kind.TIMESTAMP_US)
 
 
 def decimal(precision: int, scale: int) -> DType:
-    """Decimal storage by precision, as the reference picks it."""
-    if precision <= 0 or precision > MAX_DEC64_PRECISION:
-        raise ValueError(f"decimal precision {precision} is not ported "
-                         f"(1..{MAX_DEC64_PRECISION})")
-    kind = (Kind.DECIMAL32 if precision <= MAX_DEC32_PRECISION
-            else Kind.DECIMAL64)
+    """Decimal storage by precision, as the reference picks it
+    (`spark_rapids_tpu/dtypes.py` `decimal`)."""
+    if precision <= 0 or precision > MAX_DEC128_PRECISION:
+        raise ValueError(f"invalid decimal precision {precision}")
+    if precision <= MAX_DEC32_PRECISION:
+        kind = Kind.DECIMAL32
+    elif precision <= MAX_DEC64_PRECISION:
+        kind = Kind.DECIMAL64
+    else:
+        kind = Kind.DECIMAL128
     return DType(kind, precision=precision, scale=scale)
 
 

@@ -1,9 +1,10 @@
 """Tables across packages: a port `Table` from host numpy buffers.
 
-The JAX package and the port share one fixed-width column layout (data plus
-an unpacked bool validity), so the numpy arrays of a JAX `Table` (its
-columns' `data`, `validity` and dtype kind) rebuild the same table here,
-bit for bit.
+The JAX package and the port share one column layout for the fixed-width
+kinds and DECIMAL128 (data, (n, 4) uint32 limbs for DECIMAL128, plus an
+unpacked bool validity), so the numpy arrays of a JAX `Table` (its
+columns' `data`, `validity` and dtype) rebuild the same table here, bit
+for bit.
 """
 from __future__ import annotations
 

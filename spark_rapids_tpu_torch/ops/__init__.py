@@ -1,11 +1,15 @@
-"""Relational ops and row hashes of the PyTorch port (fixed-width columns).
+"""Relational ops, row hashes and DECIMAL128 arithmetic of the PyTorch port.
 
 `murmur_hash3_32` and `xxhash64` run the fused row-hash kernel on a CUDA
-table and the plain version on a CPU one (`hash_cuda`). The hash-join
-kernels (`join_cuda`) are imported lazily, by the kernel registry, at the
-first `hash_join` dispatch.
+table and the plain version on a CPU one (`hash_cuda`); the five decimal
+ops (`decimal_utils`) run the decimal kernel on CUDA columns and the plain
+version on CPU ones. The hash-join kernels (`join_cuda`) are imported
+lazily, by the kernel registry, at the first `hash_join` dispatch.
 """
 from .aggregate import groupby_aggregate
+from .decimal_utils import (add_decimal128, sub_decimal128,
+                            multiply_decimal128, divide_decimal128,
+                            remainder_decimal128)
 from .gather import apply_boolean_mask, take, take_table
 from .hash import DEFAULT_XXHASH64_SEED
 from .hash_cuda import fused_row_hash, murmur_hash3_32, xxhash64
@@ -15,4 +19,6 @@ from .sort import sort_table, sorted_order
 __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "DEFAULT_XXHASH64_SEED", "fused_row_hash", "murmur_hash3_32",
            "xxhash64", "inner_join", "left_anti_join", "left_semi_join",
-           "sort_table", "sorted_order"]
+           "sort_table", "sorted_order", "add_decimal128", "sub_decimal128",
+           "multiply_decimal128", "divide_decimal128",
+           "remainder_decimal128"]

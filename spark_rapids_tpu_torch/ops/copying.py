@@ -2,7 +2,8 @@
 
 Counterpart of `concat_columns`, `concat_tables` and `slice_table` in
 `spark_rapids_tpu/ops/copying.py`, which serve the plan engine's Union,
-Limit and the TopK fallback's sort-then-slice. Fixed-width columns only:
+Limit and the TopK fallback's sort-then-slice. `slice_table` is a gather
+and takes DECIMAL128 limbs too; the concats take fixed-width columns only:
 strings, DECIMAL128 and nested columns wait for ROADMAP queue A item 1.
 """
 from __future__ import annotations

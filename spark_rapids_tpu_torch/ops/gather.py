@@ -1,7 +1,10 @@
 """Row gather (`take`) over columns and tables, and the boolean-mask filter.
 
-Counterpart of `spark_rapids_tpu/ops/gather.py` for fixed-width columns.
-An index of -1 yields a null output row (cudf's out-of-bounds NULLIFY).
+Counterpart of `spark_rapids_tpu/ops/gather.py` for fixed-width and
+DECIMAL128 columns: a gather takes whole rows of the data buffer, so a
+DECIMAL128 column's (n, 4) limbs move as a payload through `compact()` and
+joins. An index of -1 yields a null output row (cudf's out-of-bounds
+NULLIFY).
 """
 from __future__ import annotations
 
@@ -10,6 +13,14 @@ from typing import Optional, Union
 import torch
 
 from ..columnar import Column, Table
+
+
+def _rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """data[idx] along the rows. DECIMAL128's uint32 limbs move as int32
+    bits: torch's gathers take few unsigned dtypes."""
+    if data.dtype == torch.uint32:
+        return data.view(torch.int32).index_select(0, idx).view(torch.uint32)
+    return data.index_select(0, idx)
 
 
 def take(col: Column, idx: torch.Tensor,
@@ -35,7 +46,7 @@ def take(col: Column, idx: torch.Tensor,
             validity = validity & ~nullify
     elif _has_negative:
         validity = ~nullify
-    return Column(col.dtype, m, col.data.index_select(0, safe), validity)
+    return Column(col.dtype, m, _rows(col.data, safe), validity)
 
 
 def take_table(table: Table, idx: torch.Tensor,

@@ -22,8 +22,10 @@ one and a mask. Float bits come from `Tensor.view`, which is exact, so
 subnormal doubles hash as Spark hashes them (the reference computes the
 bits arithmetically and XLA flushes f64 subnormals to zero).
 
-Strings, decimal128 and nested columns are not in the port's `Column` yet
-(ROADMAP queue A item 1); TIMESTAMP_S/MS and the unsigned kinds raise
+Hashing DECIMAL128 columns raises TypeError naming ROADMAP queue A item 2:
+Spark hashes them as the bytes of a Java BigDecimal, the byte path they
+share with strings. Strings and nested columns are not in the port's
+`Column` yet (item 1); TIMESTAMP_S/MS and the unsigned kinds raise
 TypeError, as in the reference.
 """
 from __future__ import annotations
@@ -125,6 +127,9 @@ def _xx_fixed(h: torch.Tensor, w: torch.Tensor, nbytes: int) -> torch.Tensor:
 
 def _check_kind(col: Column) -> None:
     k = col.dtype.kind
+    if k == Kind.DECIMAL128:
+        raise TypeError("hashing decimal128 columns is not ported yet "
+                        "(ROADMAP queue A item 2)")
     if k in _UNPORTED:
         raise TypeError(f"hashing {col.dtype!r} columns is not ported yet "
                         "(ROADMAP queue A item 1)")

@@ -32,9 +32,9 @@ import torch
 
 from ..columnar import Column, Table
 from .gather import take
-from .select import (PLAIN_CALLS, PredArgs, Program, cached_program,
-                     fused_select_plain, make_signature, needed_columns,
-                     supports)
+from .select import (DATA_KINDS, PLAIN_CALLS, PredArgs, Program,
+                     cached_program, fused_select_plain, make_signature,
+                     needed_columns, supports)
 
 __all__ = ["fused_select", "fused_select_cuda", "make_signature",
            "needed_columns", "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
@@ -109,7 +109,9 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
     needed = list(needed)
     cols = [table[c] for c in needed]
     for c in cols:
-        c.dtype.storage_dtype()          # raises for columns not ported
+        if c.dtype.kind.value not in DATA_KINDS:
+            raise TypeError(f"the fused_select kernels do not carry "
+                            f"{c.dtype!r} columns")
         _check(c, dev, "needed")
     prog = cached_program(predicate, table)
     n = table.num_rows

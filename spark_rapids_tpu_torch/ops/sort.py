@@ -51,6 +51,9 @@ def _key_operands(col: Column, ascending: bool,
                   null_precedence: Optional[str]) -> List[torch.Tensor]:
     """Orderable operand list for one key column."""
     k = col.dtype.kind
+    if k == Kind.DECIMAL128:
+        raise TypeError("DECIMAL128 sort, join and group keys are not "
+                        "ported yet (ROADMAP queue A item 3)")
     if k == Kind.BOOL:
         ops = [col.data.to(torch.int32)]
     elif k in _ORDERABLE_INTS:

@@ -81,6 +81,40 @@ def test_jax_table_round_trip_with_nulls():
                                np.asarray(b.data).view(np.uint8))
 
 
+def test_jax_decimal128_round_trip_with_nulls():
+    """DECIMAL128 columns, (n, 4) uint32 limbs, cross bit for bit, validity
+    and the values at +-(10^38 - 1) included; the numpy buffers rebuild
+    the same JAX columns, and the Python ints agree."""
+    rng = np.random.default_rng(7)
+    big = 10**38 - 1
+    vals = [big, -big, None, 0, 1, -1, 2**127 - 1, -(2**127)] + [
+        None if rng.random() < 0.2 else
+        int(rng.integers(-(10**18), 10**18)) * 10**20
+        + int(rng.integers(0, 10**18)) for _ in range(57)]
+    jt = JTable([JColumn.from_pylist(vals, jdt.decimal(38, 4)),
+                 JColumn.from_pylist(vals[::-1], jdt.decimal(20, 0)),
+                 JColumn.from_numpy(np.arange(len(vals), dtype=np.int64))],
+                names=["d", "e", "i"])
+    t = table_from_numpy(*jax_table_to_numpy(jt), device="cpu")
+    assert t["d"].dtype == tdt.decimal(38, 4)
+    assert t["e"].dtype == tdt.DType(tdt.Kind.DECIMAL128, 20, 0)
+    for jc, tc in zip(jt.columns, t.columns):
+        data, valid = tc.to_numpy()
+        assert data.dtype == np.asarray(jc.data).dtype
+        npt.assert_array_equal(data, np.asarray(jc.data))
+        if jc.validity is None:
+            assert valid is None
+        else:
+            npt.assert_array_equal(valid, np.asarray(jc.validity))
+        back = JColumn.from_numpy(data, dtype=jc.dtype, validity=valid)
+        npt.assert_array_equal(np.asarray(back.data), np.asarray(jc.data))
+    assert t.to_pydict() == jt.to_pydict()
+    assert t["d"].to_pylist() == vals
+    ours = Column.from_pylist(vals, tdt.decimal(38, 4), device="cpu")
+    assert torch.equal(ours.data, t["d"].data)
+    assert torch.equal(ours.validity, t["d"].validity)
+
+
 def test_concatenated_jax_table_round_trip_with_mixed_validity():
     """A JAX `concat_tables` of two tables, one with validity on a column
     and one without, crosses to the port bit for bit, and equals the

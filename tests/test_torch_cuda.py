@@ -902,3 +902,146 @@ def test_groupby_forced_plain_raises_on_the_card(monkeypatch):
     monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", "groupby=torch")
     with pytest.raises(KernelDeclinedError):
         aggregate.groupby_aggregate(t, ["k"], [("k", "sum")])
+
+
+# ---- the decimal kernel ------------------------------------------------------
+
+# (op, a scale, b scale, output scale, flag): every branch of
+# csrc/decimal128.cu (divide's three n_shift_exp branches, the remainder's
+# d_shift_exp ones, the interim rounding, the integer divide)
+_DEC_CASES = [
+    ("add", 2, 2, 2, False), ("add", 2, 5, 5, False), ("add", 10, 3, 6, False),
+    ("sub", 2, 5, 3, True), ("multiply", 2, 2, 4, True),
+    ("multiply", 10, 10, 6, True), ("multiply", 10, 10, 6, False),
+    ("multiply", 0, 0, 2, True), ("multiply", 3, 2, 1, True),
+    ("divide", 10, 2, 2, False), ("divide", 0, 38, 6, False),
+    ("divide", 10, 10, 6, False), ("divide", 2, 2, 0, False),
+    ("divide", 2, 2, 0, True), ("divide", 4, 1, 0, True),
+    ("divide", 0, 38, 6, True), ("remainder", 2, 5, 3, False),
+    ("remainder", 2, 1, 3, False), ("remainder", 1, 1, 1, False),
+    ("remainder", 0, 5, 3, False)]
+
+
+def _dec_column(rng, n, scale, zero_every=0):
+    """Random DECIMAL128 limbs: 38-digit values, small ones and the 128-bit
+    edges, nulls in one row of ten, every `zero_every`-th value 0."""
+    big = [int(x) * 10**20 + int(y) for x, y in zip(
+        rng.integers(-(10**18), 10**18, n), rng.integers(0, 10**18, n))]
+    small = rng.integers(-(10**6), 10**6, n)
+    pick = rng.random(n)
+    edges = [0, 1, -1, 10**38 - 1, -(10**38 - 1), 10**38, 2**127 - 1,
+             -(2**127)]
+    vals = [edges[i % len(edges)] if p < 0.1 else
+            (big[i] if p < 0.6 else int(small[i]))
+            for i, p in enumerate(pick)]
+    if zero_every:
+        vals[::zero_every] = [0] * len(vals[::zero_every])
+    limbs = Column.from_pylist(vals, tdt.decimal(38, 0), device="cpu").data
+    return Column.from_numpy(limbs.numpy(),
+                             tdt.DType(tdt.Kind.DECIMAL128, 38, scale),
+                             rng.random(n) > 0.1, device="cuda")
+
+
+def _limb_bits(t):
+    """uint32 limbs compared by their int32 bits (torch's CUDA ops take few
+    unsigned dtypes)."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+@pytest.mark.parametrize("op,sa,sb,so,flag", _DEC_CASES)
+def test_decimal_kernel_equals_plain_version(op, sa, sb, so, flag):
+    """Every row, null ones too, bit for bit: the result limbs (or INT64),
+    the overflow flags and the validity; the entry points launch the kernel
+    once and never run the plain version on CUDA tensors."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import decimal_utils as du
+    rng = np.random.default_rng(_DEC_CASES.index((op, sa, sb, so, flag)))
+    n = 20_011
+    a, b = _dec_column(rng, n, sa), _dec_column(rng, n, sb, zero_every=9)
+    du.reset_counters()
+    got = du.decimal128_op(op, a, b, so, flag)
+    torch.cuda.synchronize()
+    assert sum(du.LAUNCHES.values()) == 1
+    assert sum(du.PLAIN_CALLS.values()) == 0
+    want = du.decimal128_op(op, a, b, so, flag, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(_limb_bits(g.data), _limb_bits(w.data))
+        assert torch.equal(g.validity, w.validity)
+
+
+def test_decimal_entry_on_the_card():
+    """The entry step at 4,096 rows: two row-hash launches and one decimal
+    launch, equal to the CPU run."""
+    _need_card()
+    from spark_rapids_tpu_torch.entry import entry
+    from spark_rapids_tpu_torch.ops import decimal_utils as du
+    step, (keys, vals) = entry()
+    assert keys.is_cuda
+    du.reset_counters()
+    hash_cuda.reset_counters()
+    got = step(keys, vals)
+    torch.cuda.synchronize()
+    assert du.LAUNCHES["multiply"] == 1 and sum(du.PLAIN_CALLS.values()) == 0
+    assert hash_cuda.LAUNCHES["murmur"] == 1 and \
+        hash_cuda.LAUNCHES["xxhash"] == 1
+    want = step(keys.cpu(), vals.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_decimal_failed_build_raises(monkeypatch):
+    """A build that fails raises from the entry point; nothing falls back
+    to the plain version."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import cuda_build, decimal_cuda
+    from spark_rapids_tpu_torch.ops import decimal_utils as du
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+    monkeypatch.setattr(cuda_build, "load", broken)
+    monkeypatch.setattr(decimal_cuda, "_LIB", None)
+    a = _dec_column(np.random.default_rng(3), 100, 2)
+    du.reset_counters()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        du.multiply_decimal128(a, a, 4)
+    assert sum(du.PLAIN_CALLS.values()) == 0
+
+
+@pytest.mark.parametrize("mode", ["eager", "capped"])
+@pytest.mark.parametrize("optimize", [False, True])
+def test_decimal_payload_through_a_plan_on_the_card(mode, optimize):
+    """A DECIMAL128 payload rides through a Filter (FusedSelect when
+    optimized), a HashJoin and a Sort on the card, its limbs gathered as
+    int32 bits; the values equal the CPU run's, row for row."""
+    _need_card()
+    from spark_rapids_tpu_torch.plan import PlanBuilder
+    n = 5_000
+    rng = np.random.default_rng(0)
+    vals = [int(x) * 10**20 + 7 if i % 5 else None
+            for i, x in enumerate(rng.integers(-(10**17), 10**17, n))]
+    vals[1], vals[2] = 10**38 - 1, -(10**38 - 1)
+
+    def tables(device):
+        fact = Table([
+            Column.from_numpy(np.arange(n, dtype=np.int64) % 7, tdt.INT64,
+                              device=device),
+            Column.from_numpy(np.arange(n, dtype=np.int64), tdt.INT64,
+                              device=device),
+            Column.from_pylist(vals, tdt.decimal(38, 2), device=device)],
+            ["k", "x", "amt"])
+        dim = Table([Column.from_numpy(np.arange(0, 7, 2, dtype=np.int64),
+                                       tdt.INT64, device=device)], ["dk"])
+        return {"f": fact, "d": dim}
+    b = PlanBuilder()
+    plan = (b.scan("f", ["k", "x", "amt"]).filter(col("x") > lit(0))
+            .join(b.scan("d", ["dk"]), "k", "dk").sort(["x"]).build())
+    res = PlanExecutor(mode=mode, optimize=optimize).execute(
+        plan, tables("cuda"))
+    want = PlanExecutor(mode=mode, device="cpu", optimize=optimize).execute(
+        plan, tables("cpu"))
+    got = res.compact()["amt"]
+    assert got.data.is_cuda and got.dtype == tdt.decimal(38, 2)
+    assert got.to_pylist() == want.compact()["amt"].to_pylist()
+    assert got.to_pylist() == [vals[x] for x in range(1, n)
+                               if (x % 7) % 2 == 0]
