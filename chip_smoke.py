@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--trace] [--out FILE]
     python3 chip_smoke.py --walls N    # eager plan walls only (A/B runs)
+    python3 chip_smoke.py --fuzz       # the plan fuzz corpus only
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
@@ -139,7 +140,20 @@ in phases that each raise on failure:
    `np.bincount`, the three counts agree and the two maps are identical,
    also on small cases for P from 1 to 13,000 (Spark's default 200 among
    them); then timed beside `torch.bincount`;
-7. prints one `{"kernels": [...]}` line, then as the last line
+8. fuzz: the port's plan fuzz corpus (`analysis/fuzz.py`), the tier-1
+   corpus sizes (seeds 0-47 over the generator's tables, 0-23 over
+   `fuzz.edge_tables`' edge values and nulls), each case eager and
+   capped, authored and optimized, with SPARK_RAPIDS_TORCH_VERIFY_PLANS
+   on and every kernel counter zeroed just before each card run and read
+   just after: each result equal to the port's CPU run bit for bit (an
+   error by its class), no plain version run on the card, and
+   FusedSelect, the hash join, TopK and the groupby reached (their
+   launches and the corpus's wall printed); queue C6's bool x float
+   predicates through the FusedSelect kernel and FusedSelect plans; the
+   joins of `ops/join.py` (left, full, capped left, null_equal both ways)
+   on CUDA columns at 1M x 10,000 rows against the CPU run. Alone:
+   `python3 chip_smoke.py --fuzz`;
+9. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
 Each kernel is timed by its device time from torch.profiler's kernel
@@ -313,7 +327,7 @@ class Checks:
                         "build_large": 0, "count_large": 0,
                         "emit_large": 0, "segment_sum": 0, "groupby": 0,
                         "capped_join": 0, "capped_topk": 0, "plans": 0,
-                        "decimal128": 0}
+                        "decimal128": 0, "fuzz": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -3780,6 +3794,235 @@ def walls_phase(torch, runs):
     return out
 
 
+# ---- phase 8: the plan fuzz corpus ------------------------------------------
+
+FUZZ_PLAIN_SEEDS = range(48)       # tests/test_torch_fuzz_plain_{a,b,c,d}.py
+FUZZ_EDGE_SEEDS = range(24)        # tests/test_torch_fuzz_edge_{a,b}.py
+FUZZ_RUNS = tuple((mode, opt) for mode in ("eager", "capped")
+                  for opt in (False, True))
+FUZZ_JOIN_ROWS = (1_000_000, 10_000)   # left, right rows of the join check
+
+
+def fuzz_run(case, tables, mode, optimize, device):
+    """("ok", compacted Table on the CPU) or ("err", "Class: message")."""
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    try:
+        res = PlanExecutor(mode=mode, optimize=optimize,
+                           device=device).execute(case.plan, dict(tables))
+        return "ok", res.compact().to("cpu")
+    except Exception as e:       # parity includes error parity
+        return "err", f"{type(e).__name__}: {e}"
+
+
+def fuzz_add(total, counters):
+    for k, v in counters.items():
+        if isinstance(v, dict):
+            fuzz_add(total.setdefault(k, {}), v)
+        else:
+            total[k] = total.get(k, 0) + v
+
+
+def fuzz_c6(torch, chk):
+    """Queue C6 on the card: `*` of a bool and a float (NaN, ±inf, -0.0)
+    through FusedSelect plans, eager, authored and optimized (the
+    optimizer fuses the Filter and Project), equal to the CPU run bit for
+    bit; the kernel called directly against its plain version; False rows
+    of b * f == 0.0 all kept."""
+    from spark_rapids_tpu_torch import dtypes as tdt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import select, select_cuda
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
+    from spark_rapids_tpu_torch.plan import lit
+    rng = np.random.default_rng(6)
+    n = 100_003
+    f = rng.choice(np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5]), n)
+    b = rng.integers(0, 2, n).astype(bool)
+
+    def table(device):
+        return Table([Column.from_numpy(b, tdt.BOOL, device=device),
+                      Column.from_numpy(f, tdt.FLOAT64, device=device),
+                      Column.from_numpy(f.astype(np.float32), tdt.FLOAT32,
+                                        device=device),
+                      Column.from_numpy(np.arange(n, dtype=np.int64),
+                                        tdt.INT64, device=device)],
+                     ["b", "f", "g", "i"])
+    preds = [col("b") * col("f") == 0.0, col("f") * col("b") <= lit(0.0),
+             col("b") * col("g") == 0.0, col("g") * col("b") + 1.0 > 0,
+             lit(False) * col("f") == 0.0,
+             (col("b") * lit(float("nan"))) == 0.0]
+    t_gpu, t_cpu = table("cuda"), table("cpu")
+    launches = 0
+    for k, pred in enumerate(preds):
+        got = select_cuda.fused_select_cuda(t_gpu, pred, ["i", "f"])
+        chk.tables("fused_select", got,
+                   select.fused_select_plain(t_gpu, pred, ["i", "f"]),
+                   f"C6 kernel {pred!r}")
+        plan = (PlanBuilder().scan("t", schema=["b", "f", "g", "i"])
+                .filter(pred).project([("i", col("i")),
+                                       ("y", col("b") * col("f"))])
+                .build())
+        for opt in (False, True):
+            reset_kernel_counters()
+            res = PlanExecutor(optimize=opt).execute(plan, {"t": t_gpu})
+            launches += select_cuda.LAUNCHES["count"]
+            require(counted(kernel_counters()["plain"]) == 0,
+                    f"C6 plan {pred!r}: a plain version ran")
+            want = PlanExecutor(optimize=opt, device="cpu").execute(
+                plan, {"t": t_cpu})
+            chk.tables("fuzz", res.table.to("cpu"), want.table,
+                       f"C6 plan {pred!r} optimize={opt}")
+            if k == 0:
+                kept = res.table["i"].data.cpu().numpy()
+                require(np.array_equal(kept, np.nonzero(~b | (f == 0))[0]),
+                        "C6: b * f == 0.0 must keep every False row")
+                y = res.table["y"].data.cpu().numpy()
+                require(not np.signbit(y[~b[kept]]).any(),
+                        "C6: False * x must be +0.0")
+    require(launches >= len(preds), f"C6 plans ran {launches} FusedSelect "
+            f"counts, expected one per optimized plan")
+    log(f"fuzz C6: {len(preds)} bool x float predicates, kernel and "
+        f"plans equal to the CPU; {launches} FusedSelect count launches")
+    return launches
+
+
+def fuzz_joins(torch, chk):
+    """The torch-op joins of ops/join.py (left, full, the capped left join,
+    and every join's null_equal both ways) on CUDA tensors at 1M left rows
+    against 10,000 right rows, with null keys and alive masks, each equal
+    to the CPU run element for element."""
+    from spark_rapids_tpu_torch import dtypes as tdt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import join
+    nl, nr = FUZZ_JOIN_ROWS
+    rng = np.random.default_rng(21)
+    lk = rng.integers(0, 2 * nr, nl).astype(np.int64)
+    rk = rng.integers(0, 2 * nr, nr).astype(np.int64)
+    # 5% null left keys, 1% right: under null_equal 50,000 x 100 pairs
+    lv, rv = rng.random(nl) > 0.05, rng.random(nr) > 0.01
+    la, ra = rng.random(nl) > 0.2, rng.random(nr) > 0.2
+    out = {}
+    t0 = time.perf_counter()
+    for fn in ("inner_join", "left_join", "full_join", "left_semi_join",
+               "left_anti_join", "inner_join_capped", "left_join_capped",
+               "semi_join_mask"):
+        for ne in (False, True):
+            res = {}
+            for device in ("cuda", "cpu"):
+                lc = [Column.from_numpy(lk, tdt.INT64, lv, device=device)]
+                rc = [Column.from_numpy(rk, tdt.INT64, rv, device=device)]
+                f = getattr(join, fn)
+                alive = dict(lalive=torch.tensor(la, device=device),
+                             ralive=torch.tensor(ra, device=device),
+                             null_equal=ne)
+                if fn.endswith("_capped"):
+                    r = f(lc, rc, 2 * nl, **alive)
+                elif fn == "semi_join_mask":
+                    r = (f(lc, rc, **alive),)
+                else:
+                    r = f(lc, rc, ne)
+                    r = r if isinstance(r, tuple) else (r,)
+                res[device] = [x.data if isinstance(x, Column) else x
+                               for x in r]
+            for i, (g, w) in enumerate(zip(res["cuda"], res["cpu"])):
+                require(g.is_cuda, f"{fn}: output {i} left the card")
+                chk.equal("fuzz", g.cpu(), w,
+                          f"{fn}(null_equal={ne}) output {i}")
+            out[f"{fn} null_equal={ne}"] = int(res["cuda"][0].shape[0])
+    log(f"fuzz joins: {len(out)} calls at {nl:,} x {nr:,} rows equal to "
+        f"the CPU in {time.perf_counter() - t0:.1f} s; output rows {out}")
+    return out
+
+
+def fuzz_phase(torch, chk):
+    """The port's plan fuzz corpus on the card (`analysis/fuzz.py`): the
+    tier-1 corpus, seeds 0-47 over the generator's tables and 0-23 over
+    `edge_tables`, each case eager and capped, authored and optimized,
+    with SPARK_RAPIDS_TORCH_VERIFY_PLANS on, every kernel counter zeroed
+    just before each card run and read just after. Each card run equals
+    the port's CPU run of the same case bit for bit (an error by its
+    class), and no plain version runs on the card. Then C6 and the join
+    functions."""
+    from spark_rapids_tpu_torch.analysis import fuzz
+    prev = os.environ.get("SPARK_RAPIDS_TORCH_VERIFY_PLANS")
+    os.environ["SPARK_RAPIDS_TORCH_VERIFY_PLANS"] = "1"
+    try:
+        launches = {"eager": {}, "capped": {}}
+        outcomes = {"ok": 0, "err": 0, "empty": 0}
+        failures = []          # every differing run, reported together
+        t0 = time.perf_counter()
+        card_s = 0.0
+        for edge, seeds in ((False, FUZZ_PLAIN_SEEDS),
+                            (True, FUZZ_EDGE_SEEDS)):
+            for seed in seeds:
+                cpu_case = fuzz.gen_case(seed, device="cpu")
+                cpu_tabs = (fuzz.edge_tables(cpu_case, device="cpu")
+                            if edge else cpu_case.tables)
+                gpu_tabs = {k: t.to("cuda") for k, t in cpu_tabs.items()}
+                for mode, opt in FUZZ_RUNS:
+                    what = (f"fuzz seed {seed}{' edge' if edge else ''} "
+                            f"{mode} optimize={opt}")
+                    want = fuzz_run(cpu_case, cpu_tabs, mode, opt, "cpu")
+                    reset_kernel_counters()
+                    c0 = time.perf_counter()
+                    got = fuzz_run(cpu_case, gpu_tabs, mode, opt, "cuda")
+                    torch.cuda.synchronize()
+                    card_s += time.perf_counter() - c0
+                    counters = kernel_counters()
+                    require(counted(counters["plain"]) == 0,
+                            f"{what}: a plain version ran on the card: "
+                            f"{counters['plain']}")
+                    fuzz_add(launches[mode],
+                             {k: v for k, v in counters.items()
+                              if k != "plain"})
+                    outcomes[got[0]] += 1
+                    if got[0] != want[0] or (got[0] == "err" and (
+                            got[1].split(":")[0] != want[1].split(":")[0])):
+                        failures.append(
+                            f"{what}: card {got[0]} "
+                            f"{got[1] if got[0] == 'err' else ''} vs CPU "
+                            f"{want[0]} {want[1] if want[0] == 'err' else ''}")
+                    elif got[0] == "ok":
+                        outcomes["empty"] += got[1].num_rows == 0
+                        try:
+                            chk.tables("fuzz", got[1], want[1], what)
+                        except AssertionError as e:
+                            failures.append(str(e))
+        wall = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop("SPARK_RAPIDS_TORCH_VERIFY_PLANS", None)
+        else:
+            os.environ["SPARK_RAPIDS_TORCH_VERIFY_PLANS"] = prev
+    runs = (len(FUZZ_PLAIN_SEEDS) + len(FUZZ_EDGE_SEEDS)) * len(FUZZ_RUNS)
+    for f in failures:
+        log(f"FUZZ MISMATCH {f}")
+    require(not failures, f"fuzz: {len(failures)} of {runs} card runs "
+            f"differ from the CPU run")
+    e, c = launches["eager"], launches["capped"]
+    reached = {"fused_select": e.get("fused_select", {}),
+               "hash_join": e.get("hash_join", {}),
+               "hash_join_capped": c.get("hash_join_capped", {}),
+               "topk": e.get("topk", {}), "topk_capped": c.get("topk", {}),
+               "groupby": {"eager": e.get("groupby", {}).get("groupby", 0),
+                           "capped": c.get("groupby", {}).get("groupby",
+                                                              0)}}
+    log(f"fuzz: {runs} card runs of {len(FUZZ_PLAIN_SEEDS)} plain and "
+        f"{len(FUZZ_EDGE_SEEDS)} edge cases, each equal to its CPU run "
+        f"({outcomes}); corpus wall {wall:.1f} s, card runs "
+        f"{card_s:.1f} s; no plain version ran")
+    log(f"fuzz launches: {json.dumps(reached)}")
+    require(sum(reached["fused_select"].values()) > 0
+            and sum(reached["hash_join"].values()) > 0
+            and sum(reached["topk"].values()) > 0
+            and sum(reached["groupby"].values()) > 0,
+            f"the fuzz corpus did not reach every kernel: {reached}")
+    c6 = fuzz_c6(torch, chk)
+    joins = fuzz_joins(torch, chk)
+    return {"runs": runs, "outcomes": outcomes, "wall_s": wall,
+            "card_s": card_s, "launches": launches, "reached": reached,
+            "c6_fused_select_counts": c6, "joins": joins}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -3789,6 +4032,9 @@ def main(argv=None):
     ap.add_argument("--join-profile", action="store_true",
                     help="only time whole inner_join_hash calls at q3's and "
                          "TPC-DS q3's join shapes, and print them")
+    ap.add_argument("--fuzz", action="store_true",
+                    help="only run the plan fuzz corpus on the card "
+                         "(phase 8) and print its summary")
     ap.add_argument("--walls", type=int, default=0, metavar="N",
                     help="only time N warm eager runs of q3, TPC-DS q3 and "
                          "q72 (authored, optimized), interleaved, and print "
@@ -3807,6 +4053,12 @@ def main(argv=None):
               flush=True)
         return 0
     dadd = build_phase()
+    if args.fuzz:
+        chk = Checks()
+        fz = fuzz_phase(torch, chk)
+        print(json.dumps({"card": smi, "fuzz": fz, "checks": chk.n,
+                          "max_err": chk.max_err}), flush=True)
+        return 0
     if args.join_profile:
         tables = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
         print(json.dumps({"card": smi, "join_profile": join_profile(
@@ -3838,6 +4090,8 @@ def main(argv=None):
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
     dec = decimal_phase(torch, chk)
     pt_launches, pt_timing = partition_phase(torch, chk)
+    fz = fuzz_phase(torch, chk)
+    fz_e, fz_c = fz["launches"]["eager"], fz["launches"]["capped"]
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -3851,7 +4105,8 @@ def main(argv=None):
             "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations"),
             "bytes": t["bytes"], "ops": t["ops"], "library_ms": None,
-            "tpcds_int32": timing["int32"][k]})
+            "tpcds_int32": timing["int32"][k],
+            "fuzz_launches": fz_e.get("hash_join", {}).get(k, 0)})
         if k == "emit":
             kernels[-1]["bound_with_starts_ms"] = t["bound_with_starts_ms"]
     # the large route: timed at q72's inventory join (52,000 build rows, two
@@ -3896,6 +4151,7 @@ def main(argv=None):
                     "pallas_call)",
         "launches": sum(gb_launches.values()),
         "launches_by_path": gb_launches, "cases": gb["cases"],
+        "fuzz_launches": fz["reached"]["groupby"],
         "exact": chk.max_err["groupby"] == 0,
         "max_abs_err": chk.max_err["groupby"], "dadd_ms": gb["dadd_ms"],
         "library": "index_add_ into zeros on the card over the per-row "
@@ -3954,6 +4210,7 @@ def main(argv=None):
         "replaces": REPLACES["fused_select"],
         "launches": sum(t_launches["fused_select"].values()),
         "launches_by_kernel": t_launches["fused_select"],
+        "fuzz_launches": fz["reached"]["fused_select"],
         "exact": chk.max_err["fused_select"] == 0,
         "max_abs_err": chk.max_err["fused_select"],
         "library": "no single PyTorch call; (a < 10) & (b > 0) by torch "
@@ -3967,6 +4224,7 @@ def main(argv=None):
         "replaces": REPLACES["topk"],
         "launches": sum(t_launches["topk"].values()),
         "launches_by_kernel": t_launches["topk"],
+        "fuzz_launches": fz["reached"]["topk"],
         "k_1000": tk_timing[TOPK_LARGE_LIMIT],
         "cases": tk_timing["cases"],
         "exact": chk.max_err["topk"] == 0,
@@ -3984,6 +4242,7 @@ def main(argv=None):
         "replaces": "spark_rapids_tpu/ops/join_pallas.py:400",
         "launches": sum(capped["join_launches"].values()),
         "launches_by_path": capped["join_launches"],
+        "fuzz_launches": fz["reached"]["hash_join_capped"],
         "exact": chk.max_err["capped_join"] == 0,
         "max_abs_err": chk.max_err["capped_join"],
         "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
@@ -3998,6 +4257,7 @@ def main(argv=None):
         "replaces": "spark_rapids_tpu/ops/topk_pallas.py:179",
         "launches": sum(capped["topk_launches"].values()),
         "launches_by_path": capped["topk_launches"],
+        "fuzz_launches": fz["reached"]["topk_capped"],
         "exact": chk.max_err["capped_topk"] == 0,
         "max_abs_err": chk.max_err["capped_topk"],
         "ms": t["ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
@@ -4052,7 +4312,8 @@ def main(argv=None):
                                        for w, r in q72.items()},
                        "q72_inventory_join": q72_timing,
                        "c4": c4, "groupby": gb, "capped": capped,
-                       "nds_q5_q23": nds_union, "decimal128": dec},
+                       "nds_q5_q23": nds_union, "decimal128": dec,
+                       "fuzz": fz},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,16 @@ from .decimal_utils import (add_decimal128, sub_decimal128,
 from .gather import apply_boolean_mask, take, take_table
 from .hash import DEFAULT_XXHASH64_SEED
 from .hash_cuda import fused_row_hash, murmur_hash3_32, xxhash64
-from .join import inner_join, left_anti_join, left_semi_join
+from .join import (full_join, inner_join, inner_join_capped, left_join,
+                   left_join_capped, left_semi_join, left_anti_join,
+                   semi_join_mask)
 from .sort import sort_table, sorted_order
 
 __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "DEFAULT_XXHASH64_SEED", "fused_row_hash", "murmur_hash3_32",
-           "xxhash64", "inner_join", "left_anti_join", "left_semi_join",
+           "xxhash64", "inner_join", "inner_join_capped", "left_join",
+           "left_join_capped", "full_join", "left_semi_join",
+           "left_anti_join", "semi_join_mask",
            "sort_table", "sorted_order", "add_decimal128", "sub_decimal128",
            "multiply_decimal128", "divide_decimal128",
            "remainder_decimal128"]

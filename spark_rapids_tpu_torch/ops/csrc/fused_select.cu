@@ -19,7 +19,11 @@
 //   the weak-literal promotion of plan/expr.py gives its operands (bool,
 //   int8-int64, float32, float64) and each operand's conversion to it:
 //   an integer wraps at a narrower width, an integer or bool becomes a
-//   float with round-to-nearest, a float64 rounds to float32. Integer
+//   float with round-to-nearest, a float64 rounds to float32. A scalar
+//   subquery (ScalarAgg) is reduced by the wrapper before the launch and
+//   read as a one-value column (COL_SCALAR) by every row. A `*` of a
+//   bool and a float carries a flag and is the select where(b, x, +0.0)
+//   (FLAG_SEL_L/R), so False times NaN, inf or -0.0 is +0.0. Integer
 //   results wrap at the instruction's width, so INT8 `+` wraps at 8 bits
 //   exactly as Expr.evaluate does (the low bits of a sum or product depend
 //   only on the operands' low bits). Float arithmetic uses the _rn
@@ -104,13 +108,17 @@ enum { TY_BOOL = 0, TY_I8, TY_I16, TY_I32, TY_I64, TY_F32, TY_F64 };
 // operand conversions and flags (ops/select.py CV_*, FLAG_SWAP)
 enum { CV_NONE = 0, CV_WRAP, CV_TO_FLOAT, CV_TO_F32 };
 #define FLAG_SWAP 16
-// column kinds
+#define FLAG_SEL_L 32   // `*` of a bool and a float: a select on the left
+#define FLAG_SEL_R 64   // operand, or on the right one (queue C6)
+// column kinds; COL_SCALAR marks a one-value column that every row reads
+// (a scalar subquery's result, computed before the launch)
 enum { COL_INT = 0, COL_BOOL, COL_FLOAT };
+#define COL_SCALAR 4
 
 struct Pred {
   const void* data[FS_MAX_PRED_COLS];
   int width[FS_MAX_PRED_COLS];     // storage bytes: 1, 2, 4 or 8
-  int kind[FS_MAX_PRED_COLS];      // COL_*
+  int kind[FS_MAX_PRED_COLS];      // COL_*, | COL_SCALAR
   long long lit[FS_MAX_PROG];      // a value, or a float's float64 bits
   short arg[FS_MAX_PROG];          // column of a load
   unsigned char op[FS_MAX_PROG];
@@ -208,6 +216,37 @@ __device__ __forceinline__ void convert_rows(T* v, int cv, int ty) {
   }
 }
 
+// the one value of a COL_SCALAR column c, in every row's register
+template <typename T>
+__device__ __forceinline__ void load_scalar(const Prog& p, int c, T* v) {
+  const void* base = p.col[c];
+  const int kind = (p.cw[c] >> 8) & ~COL_SCALAR;
+  T x = 0;
+  switch (p.cw[c] & 0xff) {
+    case 1: {
+      const unsigned char b = __ldg(static_cast<const unsigned char*>(base));
+      x = kind == COL_BOOL ? static_cast<T>(b != 0)
+                           : static_cast<T>(static_cast<signed char>(b));
+      break;
+    }
+    case 2: x = __ldg(static_cast<const short*>(base)); break;
+    case 4: {
+      const int w = __ldg(static_cast<const int*>(base));
+      x = w;
+      if constexpr (sizeof(T) == 8) {
+        if (kind == COL_FLOAT) x = f32_bits(__int_as_float(w));
+      }
+      break;
+    }
+    default:
+      if constexpr (sizeof(T) == 8) {
+        x = __ldg(static_cast<const long long*>(base));
+      }
+      break;
+  }
+  FOR_R v[r] = x;
+}
+
 // rows row0 .. row0 + FS_R - 1 of column c, each as the value the program
 // computes with (rows past n read as 0 and are never kept)
 template <typename T>
@@ -217,6 +256,10 @@ __device__ __forceinline__ void load_rows(const Prog& p, int c,
   const bool full = row0 + FS_R <= n;
   const void* base = p.col[c];
   const int kind = p.cw[c] >> 8;
+  if (kind & COL_SCALAR) {
+    load_scalar(p, c, v);
+    return;
+  }
   switch (p.cw[c] & 0xff) {
     case 1: {
       const unsigned char* q = static_cast<const unsigned char*>(base) + row0;
@@ -409,7 +452,18 @@ __device__ unsigned int eval_rows(const Prog& p, long long row0,
     }
     convert_rows(lower, f & 3, ty);
     convert_rows(v, (f >> 2) & 3, ty);
-    binop_rows(op, ty, lower, v);
+    if (f & (FLAG_SEL_L | FLAG_SEL_R)) {
+      // a False row gives +0.0 whatever the float is, as Expr.evaluate
+      // does; the bool, converted or not, is nonzero exactly when True
+      const bool left = (f & FLAG_SEL_L) != 0;
+      FOR_R {
+        const T c = left ? lower[r] : v[r];
+        const T x = left ? v[r] : lower[r];
+        lower[r] = c != 0 ? x : T(0);
+      }
+    } else {
+      binop_rows(op, ty, lower, v);
+    }
     FOR_R v[r] = lower[r];
     --sp;
     switch (sp - 1) { FS_SLOTS(FS_SLOT_PUT) }
@@ -428,6 +482,7 @@ __device__ __forceinline__ void prefetch_tile(const Prog& p, long long t,
   const long long rows = n - t * FS_TILE < FS_TILE ? n - t * FS_TILE
                                                    : FS_TILE;
   for (int c = 0; c < p.ncols; ++c) {
+    if ((p.cw[c] >> 8) & COL_SCALAR) continue;    // one value, no rows
     const int width = p.cw[c] & 0xff;
     const uintptr_t a = reinterpret_cast<uintptr_t>(p.col[c]) +
                         static_cast<uintptr_t>(t * FS_TILE * width);

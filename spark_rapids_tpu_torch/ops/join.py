@@ -1,23 +1,36 @@
 """Equi-join gather maps with Spark null semantics: the universal fallback.
 
-Counterpart of `spark_rapids_tpu/ops/join.py` (`inner_join`,
-`left_semi_join`, `left_anti_join`). The design is the reference's: one
-stable lexicographic sort over the concatenated key operands of both sides
-(`sort._key_operands`, so null rank and float total order match), runs of
-equal keys, and per left row the span of matchable right rows in its run.
-Pairs come out in the reference's order: left row ascending, then right
-row ascending. Null keys never match.
+Counterpart of `spark_rapids_tpu/ops/join.py`. The design is the
+reference's: one stable lexicographic sort over the concatenated key
+operands of both sides (`sort._key_operands`, so null rank and float
+total order match), runs of equal keys, and per left row the span of
+matchable right rows in its run. Pairs come out in the reference's order:
+left row ascending, then right row ascending.
 
-The capped tier's forms (`inner_join_capped`, `semi_join_mask`, the
-reference's `:279` and `:337`) take `lalive`/`ralive` masks that exclude
-rows entirely and read no size from the device: runs are counted into
-buffers as long as the union, the matchable right rows are packed to the
-front by a stable sort, and the pairs fill `row_cap` slots by a search
-over the running counts.
+Null keys never match; under `null_equal` (Spark's `<=>`, cudf's
+null_equality::EQUAL) they match each other, since the null-rank operand
+puts them in their own runs. Alive masks exclude rows even then.
+
+- Eager forms, one host read for the output size: `inner_join`,
+  `left_join` (every left row, right -1 where unmatched), `full_join`
+  (`left_join`'s pairs, then (-1, j) for each unmatched right row j
+  ascending), `left_semi_join`, `left_anti_join`.
+- Capped forms, no host read (the capped tier's, the reference's `:279`,
+  `:308`, `:337`): `inner_join_capped`, `left_join_capped` and
+  `semi_join_mask` take `lalive`/`ralive` masks. Runs are counted into
+  buffers as long as the union, the matchable right rows are packed to
+  the front by a stable sort, and the pairs fill `row_cap` slots by a
+  search over the running counts.
+- `join_spans` and `expand_spans`: the span computation and its padded
+  expansion as public functions, with the reference's contract.
+
+The hash-join kernels (`join_cuda`) take inner joins without `null_equal`,
+as the reference's Pallas join takes only inner ones; the outer joins are
+torch ops on either device.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -25,8 +38,9 @@ from .. import dtypes
 from ..columnar import Column, Table
 from .sort import _key_operands, lex_order
 
-__all__ = ["inner_join", "left_semi_join", "left_anti_join",
-           "inner_join_capped", "semi_join_mask"]
+__all__ = ["inner_join", "left_join", "full_join", "left_semi_join",
+           "left_anti_join", "inner_join_capped", "left_join_capped",
+           "semi_join_mask", "join_spans", "expand_spans"]
 
 
 def _cols(keys) -> Sequence[Column]:
@@ -37,18 +51,17 @@ def _cols(keys) -> Sequence[Column]:
     return list(keys)
 
 
-def _side_valid(cols: Sequence[Column], n: int, device) -> torch.Tensor:
+def _side_valid(cols: Sequence[Column], n: int, device,
+                null_equal: bool = False) -> torch.Tensor:
+    """The rows whose keys may match: every row under `null_equal`, else
+    the rows with no null key."""
     v = torch.ones(n, dtype=torch.bool, device=device)
+    if null_equal:
+        return v
     for c in cols:
         if c.validity is not None:
             v = v & c.validity
     return v
-
-
-def _alive_valid(cols: Sequence[Column], n: int, device,
-                 alive) -> torch.Tensor:
-    v = _side_valid(cols, n, device)
-    return v if alive is None else v & alive
 
 
 def _concat(a: Column, b: Column) -> Column:
@@ -61,16 +74,35 @@ def _concat(a: Column, b: Column) -> Column:
                   torch.cat([a.data, b.data]), validity)
 
 
-def _runs(lcols, rcols, rvalid):
-    """The union sort of both sides' keys: (order, run id per sorted
-    position, run id per union row, matchable flag per sorted position)."""
+def _check_keys(lcols, rcols) -> None:
+    if len(lcols) != len(rcols) or not lcols:
+        raise ValueError("join requires equal, nonzero key column counts")
+
+
+def _prep(lcols, rcols, null_equal: bool, lalive=None, ralive=None):
+    """(union operands, left match mask, right match mask)."""
+    _check_keys(lcols, rcols)
     nl, nr = lcols[0].length, rcols[0].length
     dev = lcols[0].device
-    operands = []
+    operands: List[torch.Tensor] = []
     for a, b in zip(lcols, rcols):
         operands.extend(_key_operands(_concat(a, b), True, None))
+    lvalid = _side_valid(lcols, nl, dev, null_equal)
+    rvalid = _side_valid(rcols, nr, dev, null_equal)
+    if lalive is not None:
+        lvalid = lvalid & lalive
+    if ralive is not None:
+        rvalid = rvalid & ralive
+    return operands, lvalid, rvalid
+
+
+def _runs(operands, nl: int, rvalid):
+    """The union sort: (order, run id per sorted position, run id per
+    union row, matchable flag per sorted position)."""
+    n = operands[0].shape[0]
+    dev = operands[0].device
     order = lex_order(operands)
-    boundary = torch.arange(nl + nr, device=dev) == 0
+    boundary = torch.arange(n, device=dev) == 0
     for o in operands:
         s = o.index_select(0, order)
         boundary[1:] |= s[1:] != s[:-1]
@@ -81,12 +113,7 @@ def _runs(lcols, rcols, rvalid):
     return order, run, run_of_row, matchable
 
 
-def _check_keys(lcols, rcols) -> None:
-    if len(lcols) != len(rcols) or not lcols:
-        raise ValueError("join requires equal, nonzero key column counts")
-
-
-def _spans(lcols, rcols):
+def _spans(lcols, rcols, null_equal: bool = False):
     """-> (counts, lo, rorder): per left row the number of matching valid
     right rows and the first match's position in `rorder`, the matchable
     right row ids grouped by run (ascending row within a run)."""
@@ -96,9 +123,8 @@ def _spans(lcols, rcols):
     if nl == 0 or nr == 0:
         z = torch.zeros(nl, dtype=torch.int64, device=dev)
         return z, z, torch.zeros(0, dtype=torch.int64, device=dev)
-    lvalid = _side_valid(lcols, nl, dev)
-    rvalid = _side_valid(rcols, nr, dev)
-    order, run, run_of_row, matchable = _runs(lcols, rcols, rvalid)
+    operands, lvalid, rvalid = _prep(lcols, rcols, null_equal)
+    order, run, run_of_row, matchable = _runs(operands, nl, rvalid)
     n_runs = int(run[-1]) + 1
     rcount = torch.bincount(run[matchable], minlength=n_runs)
     rstart = torch.cumsum(rcount, 0) - rcount
@@ -109,26 +135,46 @@ def _spans(lcols, rcols):
     return counts, rstart.index_select(0, lrun), rorder
 
 
-def expand(counts: torch.Tensor, lo: torch.Tensor, rorder: torch.Tensor
-           ) -> Tuple[Column, Column]:
-    """Gather maps (left_map, right_map) from per-left-row spans."""
+def _expand(counts, lo, rorder, outer: bool) -> Tuple[Column, Column]:
+    """Gather maps (left_map, right_map) from per-left-row spans; under
+    `outer` every left row emits at least one pair, right -1 where it has
+    no match."""
     nl = counts.shape[0]
     dev = counts.device
-    total = int(counts.sum())                          # the one host sync
+    eff = counts.clamp(min=1) if outer else counts
+    total = int(eff.sum())                             # the one host sync
     lsel = torch.repeat_interleave(
-        torch.arange(nl, dtype=torch.int64, device=dev), counts,
+        torch.arange(nl, dtype=torch.int64, device=dev), eff,
         output_size=total)
-    starts = torch.cumsum(counts, 0) - counts
+    starts = torch.cumsum(eff, 0) - eff
     k = torch.arange(total, dtype=torch.int64, device=dev) \
         - starts.index_select(0, lsel)
-    rmap = rorder.index_select(0, lo.index_select(0, lsel) + k)
+    if rorder.numel():
+        rpos = (lo.index_select(0, lsel) + k).clamp_(max=rorder.numel() - 1)
+        rmap = rorder.index_select(0, rpos)
+    else:
+        rmap = torch.full((total,), -1, dtype=torch.int64, device=dev)
+    if outer:
+        rmap = torch.where(counts.index_select(0, lsel) > 0, rmap, -1)
     return (Column(dtypes.INT32, total, lsel.to(torch.int32)),
             Column(dtypes.INT32, total, rmap.to(torch.int32)))
 
 
-def inner_join(left_keys, right_keys) -> Tuple[Column, Column]:
+def inner_join(left_keys, right_keys,
+               null_equal: bool = False) -> Tuple[Column, Column]:
     """Gather maps (left_map, right_map) of the inner equi-join."""
-    return expand(*_spans(_cols(left_keys), _cols(right_keys)))
+    counts, lo, rorder = _spans(_cols(left_keys), _cols(right_keys),
+                                null_equal)
+    return _expand(counts, lo, rorder, outer=False)
+
+
+def left_join(left_keys, right_keys,
+              null_equal: bool = False) -> Tuple[Column, Column]:
+    """Left outer join: every left row appears; an unmatched one gets
+    right -1 (take() turns it into a null row)."""
+    counts, lo, rorder = _spans(_cols(left_keys), _cols(right_keys),
+                                null_equal)
+    return _expand(counts, lo, rorder, outer=True)
 
 
 def _keep(mask: torch.Tensor) -> Column:
@@ -136,20 +182,57 @@ def _keep(mask: torch.Tensor) -> Column:
     return Column(dtypes.INT32, int(keep.shape[0]), keep)
 
 
-def left_semi_join(left_keys, right_keys) -> Column:
+def left_semi_join(left_keys, right_keys,
+                   null_equal: bool = False) -> Column:
     """Left rows having >=1 match (gather map into the left table)."""
-    counts, _, _ = _spans(_cols(left_keys), _cols(right_keys))
+    counts, _, _ = _spans(_cols(left_keys), _cols(right_keys), null_equal)
     return _keep(counts > 0)
 
 
-def left_anti_join(left_keys, right_keys) -> Column:
-    """Left rows having no match. Rows with a null key have no match, so
-    they ARE returned (cudf behaviour)."""
-    counts, _, _ = _spans(_cols(left_keys), _cols(right_keys))
+def left_anti_join(left_keys, right_keys,
+                   null_equal: bool = False) -> Column:
+    """Left rows having no match. Rows with a null key have no match
+    (unless `null_equal`), so they ARE returned (cudf behaviour)."""
+    counts, _, _ = _spans(_cols(left_keys), _cols(right_keys), null_equal)
     return _keep(counts == 0)
 
 
-def _capped_spans(lcols, rcols, lalive, ralive):
+def full_join(left_keys, right_keys,
+              null_equal: bool = False) -> Tuple[Column, Column]:
+    """Full outer join: `left_join`'s pairs, then one (-1, j) pair per
+    unmatched right row j, ascending (cudf::full_join's contract)."""
+    lmap, rmap = left_join(left_keys, right_keys, null_equal)
+    extra = left_anti_join(right_keys, left_keys, null_equal).data
+    n_extra = int(extra.shape[0])
+    ldata = torch.cat([lmap.data, torch.full((n_extra,), -1,
+                                             dtype=torch.int32,
+                                             device=extra.device)])
+    total = lmap.length + n_extra
+    return (Column(dtypes.INT32, total, ldata),
+            Column(dtypes.INT32, total, torch.cat([rmap.data, extra])))
+
+
+# ---- the capped forms: no host read -----------------------------------------
+
+def _span_buffers(operands, lvalid, rvalid, nl: int):
+    """Spans with no host read: (counts, lo, packed, n_matchable). `packed`
+    is as long as the union, the matchable right rows (ids into the right
+    side) first in run order, other rows past them."""
+    n = operands[0].shape[0]
+    dev = operands[0].device
+    order, run, run_of_row, matchable = _runs(operands, nl, rvalid)
+    rcount = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, run, matchable.to(torch.int64))
+    rstart = torch.cumsum(rcount, 0) - rcount
+    pack = torch.argsort((~matchable).to(torch.int8), stable=True)
+    packed = order.index_select(0, pack) - nl
+    lrun = run_of_row[:nl]
+    counts = torch.where(lvalid, rcount.index_select(0, lrun),
+                         torch.zeros_like(lrun))
+    return counts, rstart.index_select(0, lrun), packed, matchable.sum()
+
+
+def _capped_spans(lcols, rcols, lalive, ralive, null_equal: bool = False):
     """`_spans` with alive masks and no size read from the device: per left
     row its matches (int64) and the first one's position in `rorder`, and
     `rorder`, as long as the union, the matchable right rows packed to its
@@ -160,22 +243,26 @@ def _capped_spans(lcols, rcols, lalive, ralive):
     if nl == 0 or nr == 0:
         z = torch.zeros(nl, dtype=torch.int64, device=dev)
         return z, z, torch.zeros(nl + nr, dtype=torch.int64, device=dev)
-    lvalid = _alive_valid(lcols, nl, dev, lalive)
-    rvalid = _alive_valid(rcols, nr, dev, ralive)
-    order, run, run_of_row, matchable = _runs(lcols, rcols, rvalid)
-    rcount = torch.zeros(nl + nr, dtype=torch.int64, device=dev).index_add_(
-        0, run, matchable.to(torch.int64))
-    rstart = torch.cumsum(rcount, 0) - rcount
-    pack = torch.argsort((~matchable).to(torch.int8), stable=True)
-    rorder = order.index_select(0, pack) - nl
-    lrun = run_of_row[:nl]
-    counts = torch.where(lvalid, rcount.index_select(0, lrun),
-                         torch.zeros_like(lrun))
-    return counts, rstart.index_select(0, lrun), rorder
+    operands, lvalid, rvalid = _prep(lcols, rcols, null_equal, lalive,
+                                     ralive)
+    counts, lo, packed, _ = _span_buffers(operands, lvalid, rvalid, nl)
+    return counts, lo, packed
+
+
+def _slots(eff: torch.Tensor, row_cap: int):
+    """For each of `row_cap` slots: the row whose emit count `eff` covers
+    it (the last row past the total, as `jnp.repeat` pads) and the slot's
+    rank within that row."""
+    nl = eff.shape[0]
+    j = torch.arange(row_cap, dtype=torch.int64, device=eff.device)
+    ends = torch.cumsum(eff, 0)
+    lsel = torch.searchsorted(ends, j, right=True).clamp_(max=max(nl - 1, 0))
+    k = j - (ends - eff).index_select(0, lsel) if nl else j
+    return j, lsel, k
 
 
 def inner_join_capped(left_keys, right_keys, row_cap: int, *,
-                      lalive=None, ralive=None):
+                      lalive=None, ralive=None, null_equal: bool = False):
     """The inner join into `row_cap` static slots, with no host read:
     (lmap, rmap, valid, overflow). lmap and rmap are (row_cap,) int32 gather
     maps, the first row_cap pairs in the order of `inner_join`, 0 in the
@@ -183,19 +270,18 @@ def inner_join_capped(left_keys, right_keys, row_cap: int, *,
     overflow is a () bool, total > row_cap. `lalive`/`ralive` exclude rows
     entirely."""
     lcols, rcols = _cols(left_keys), _cols(right_keys)
-    counts, lo, rorder = _capped_spans(lcols, rcols, lalive, ralive)
+    counts, lo, rorder = _capped_spans(lcols, rcols, lalive, ralive,
+                                       null_equal)
     nl, nr = lcols[0].length, rcols[0].length
     dev = counts.device
     total = counts.sum()
-    j = torch.arange(row_cap, dtype=torch.int64, device=dev)
-    valid = j < total
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     if nl == 0 or nr == 0:
+        valid = torch.arange(row_cap, device=dev) < total
         z = torch.zeros(row_cap, dtype=torch.int32, device=dev)
         return z, z, valid, total > row_cap
-    ends = torch.cumsum(counts, 0)
-    lsel = torch.searchsorted(ends, j, right=True).clamp_(max=nl - 1)
-    k = j - (ends - counts).index_select(0, lsel)
+    j, lsel, k = _slots(counts, row_cap)
+    valid = j < total
     rpos = (lo.index_select(0, lsel) + k).clamp_(0, nl + nr - 1)
     rmap = rorder.index_select(0, rpos).clamp_(0, nr - 1)
     return (torch.where(valid, lsel.to(torch.int32), zero),
@@ -203,11 +289,97 @@ def inner_join_capped(left_keys, right_keys, row_cap: int, *,
             valid, total > row_cap)
 
 
-def semi_join_mask(left_keys, right_keys, *, lalive=None,
-                   ralive=None) -> torch.Tensor:
+def left_join_capped(left_keys, right_keys, row_cap: int, *,
+                     lalive=None, ralive=None, null_equal: bool = False):
+    """The left outer join into `row_cap` static slots, with no host read:
+    every live left row emits at least one slot, an unmatched one with
+    `rvalid` False; rows excluded by `lalive` emit nothing, so the live
+    slots are a prefix. Returns (lmap, rmap, rvalid, valid, overflow):
+    (row_cap,) int32 gather maps (dead and unmatched slots 0), the slots
+    whose right side is real, the live slots, and total > row_cap."""
+    lcols, rcols = _cols(left_keys), _cols(right_keys)
+    counts, lo, rorder = _capped_spans(lcols, rcols, lalive, ralive,
+                                       null_equal)
+    nl, nr = lcols[0].length, rcols[0].length
+    dev = counts.device
+    eff = counts.clamp(min=1)
+    if lalive is not None:
+        eff = torch.where(lalive, eff, 0)      # excluded rows emit nothing
+    total = eff.sum()
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    j, lsel, k = _slots(eff, row_cap)
+    valid = j < total
+    if nl == 0:
+        z = torch.zeros(row_cap, dtype=torch.int32, device=dev)
+        return z, z, valid, valid, total > row_cap
+    matched = counts.index_select(0, lsel) > 0
+    rpos = (lo.index_select(0, lsel) + k).clamp_(0, nl + nr - 1)
+    rvalid = valid & matched
+    rmap = rorder.index_select(0, rpos).clamp_(0, max(nr - 1, 0))
+    return (torch.where(valid, lsel.to(torch.int32), zero),
+            torch.where(rvalid, rmap.to(torch.int32), zero),
+            rvalid, valid, total > row_cap)
+
+
+def semi_join_mask(left_keys, right_keys, *, lalive=None, ralive=None,
+                   null_equal: bool = False) -> torch.Tensor:
     """(nl,) bool: True for the live left rows with at least one live
     right match. The capped tier's semi join is a mask AND, its anti join
     `lalive & ~mask`."""
     counts, _, _ = _capped_spans(_cols(left_keys), _cols(right_keys),
-                                 lalive, ralive)
+                                 lalive, ralive, null_equal)
     return counts > 0
+
+
+# ---- the span computation as public functions --------------------------------
+
+def join_spans(operands, lvalid, rvalid, *, nl: int,
+               need_rorder: bool = True):
+    """The span computation over the union sort, with no host read.
+    `operands`: orderable sort operands of the concatenated left and right
+    keys (`sort._key_operands`); `lvalid` (nl,) and `rvalid` (n - nl,) the
+    match masks. Returns (counts, lo, rorder) as int32, in left-row order:
+    each left row's matchable right rows, the first one's position in
+    `rorder`, and `rorder` (n,), the matchable right row ids in union-sort
+    order, then n in the slots past them (empty without `need_rorder`)."""
+    operands = list(operands)
+    n = operands[0].shape[0]
+    dev = operands[0].device
+    if n == 0:
+        z = torch.zeros(0, dtype=torch.int32, device=dev)
+        return z, z, z
+    counts, lo, packed, n_match = _span_buffers(operands, lvalid, rvalid,
+                                                nl)
+    if need_rorder:
+        at = torch.arange(n, device=dev)
+        rorder = torch.where(at < n_match, packed, n).to(torch.int32)
+    else:
+        rorder = torch.zeros(0, dtype=torch.int32, device=dev)
+    return counts.to(torch.int32), lo.to(torch.int32), rorder
+
+
+def expand_spans(counts, lo, rorder, *, total: int, outer: bool = False,
+                 eff=None):
+    """`join_spans`' spans expanded into `total` static slots: (left map,
+    right map) as int32. Under `outer` every left row emits at least one
+    slot, an unmatched one with right -1; `eff`, where given, is each
+    row's emit count (0 emits nothing). Slots past the emitted ones repeat
+    the last row, as `jnp.repeat` pads in the reference."""
+    nl = counts.shape[0]
+    dev = counts.device
+    if nl == 0:
+        return (torch.zeros(total, dtype=torch.int32, device=dev),
+                torch.full((total,), -1, dtype=torch.int32, device=dev))
+    counts = counts.to(torch.int64)
+    if eff is None:
+        eff = counts.clamp(min=1) if outer else counts
+    _, lsel, k = _slots(eff.to(torch.int64), total)
+    if rorder.shape[0] == 0:
+        rmap = torch.full((total,), -1, dtype=torch.int64, device=dev)
+    else:
+        rpos = (lo.to(torch.int64).index_select(0, lsel) + k).clamp_(
+            0, rorder.shape[0] - 1)
+        rmap = rorder.to(torch.int64).index_select(0, rpos)
+        if outer:
+            rmap = torch.where(counts.index_select(0, lsel) > 0, rmap, -1)
+    return lsel.to(torch.int32), rmap.to(torch.int32)

@@ -17,7 +17,10 @@ operands, and each operand the conversion to that dtype, so the kernel
 computes each value at the width and in the floating-point format
 `Expr.evaluate` computes it in, and raises where it raises. The kernel
 takes every bool, integer and float predicate over fixed-width columns,
-64-bit integers and literal-only predicates included (the reference's
+64-bit integers, literal-only predicates and scalar subqueries
+(`ScalarAgg`, reduced before the launch and read as a one-value column)
+included, and a `*` of a bool and a float as the select `Expr.evaluate`
+computes (the reference's
 Pallas kernel declined all three: Mosaic has no 64-bit vectors, and its
 tiles came from a column). Its limits are the program's struct: MAX_PROG
 instructions over MAX_PRED_COLS distinct columns. Operands are ordered so
@@ -67,6 +70,9 @@ COMPARES = frozenset(OPCODES[o] for o in ("==", "!=", "<", "<=", ">", ">="))
 # width, an integer or bool to a float, a float64 rounded to float32
 CV_NONE, CV_WRAP, CV_TO_FLOAT, CV_TO_F32 = 0, 1, 2, 3
 FLAG_SWAP = 16     # the right operand was computed first: it lies below
+# a `*` with one bool operand and a float result is a select on the bool
+# (queue C6): bit 5 when the left operand is the bool, bit 6 the right
+FLAG_SEL_L, FLAG_SEL_R = 32, 64
 
 
 def fused_select_plain(table: Table, predicate, needed) -> Table:
@@ -97,13 +103,73 @@ class Program:
     """Postfix predicate: instructions (opcode, type code, column index,
     literal word, flags) over `columns`, needing a stack of `depth`
     values. A literal word is an integer's value or a float's float64
-    bits. `narrow`: the kernel may evaluate it on 32-bit values; `args`:
-    the bytes of its `PredArgs`, every field filled but `data`."""
-    columns: List[str]
+    bits. A column is a table column's name, or ("agg", k) for the k-th
+    scalar aggregate of `scalar_aggs` (a one-value column), each of dtype
+    `dtypes`. `narrow`: the kernel may evaluate it on 32-bit values;
+    `args`: the bytes of its `PredArgs`, every field filled but `data`."""
+    columns: list
     code: List[List[int]]
     depth: int
     narrow: bool
     args: bytes
+    dtypes: List[torch.dtype]
+
+
+def scalar_aggs(predicate) -> list:
+    """The predicate's scalar aggregates (`ScalarAgg`), in pre-order: the
+    kernel reads each as a one-value column, reduced before the launch
+    (`scalar_values`)."""
+    from ..plan import expr as pexpr
+    out = []
+
+    def walk(e):
+        if isinstance(e, pexpr.ScalarAgg):
+            out.append(e)
+        elif isinstance(e, pexpr.BinOp):
+            walk(e.left)
+            walk(e.right)
+        elif isinstance(e, pexpr.UnaryOp):
+            walk(e.child)
+    walk(predicate)
+    return out
+
+
+def scalar_values(prog: "Program", predicate, table: Table) -> list:
+    """The 0-d tensors of the program's scalar columns: each scalar
+    aggregate reduced over the whole table, as `Expr.evaluate` reduces it
+    (an empty table raises, as there)."""
+    vals = [a.evaluate(table) for a in scalar_aggs(predicate)]
+    for name, dt in zip(prog.columns, prog.dtypes):
+        if isinstance(name, tuple) and vals[name[1]].dtype != dt:
+            raise TypeError(f"scalar aggregate {name[1]} is "
+                            f"{vals[name[1]].dtype}, the program reads {dt}")
+    return vals
+
+
+def _value_dtype(e, table: Table) -> Tuple[torch.dtype, bool]:
+    """(dtype, weak) of `e` as `Expr.evaluate` computes it, without
+    computing it."""
+    from ..plan import expr as pexpr
+    if isinstance(e, pexpr.ColumnRef):
+        return table[e.name].data.dtype, False
+    if isinstance(e, pexpr.Literal):
+        dt = pexpr._literal_dtype(e.value)
+        return dt, dt != torch.bool
+    if isinstance(e, pexpr.BinOp):
+        a, aw = _value_dtype(e.left, table)
+        b, bw = _value_dtype(e.right, table)
+        dt, weak = pexpr.promote(e.op, a, aw, b, bw)
+        return (torch.bool, False) if e.op in pexpr._COMPARE else (dt, weak)
+    if isinstance(e, pexpr.UnaryOp):
+        dt, weak = _value_dtype(e.child, table)
+        pexpr.unary_check(e.op, dt)
+        return dt, weak
+    if isinstance(e, pexpr.ScalarAgg):
+        dt, weak = _value_dtype(e.child, table)
+        if e.op == "sum" and not dt.is_floating_point:
+            dt = torch.int64            # torch sums bool and ints in int64
+        return dt, weak
+    raise TypeError(f"the fused_select kernel does not evaluate {e!r}")
 
 
 def _narrow(code: List[List[int]], dtypes: List[torch.dtype]) -> bool:
@@ -116,13 +182,18 @@ def _narrow(code: List[List[int]], dtypes: List[torch.dtype]) -> bool:
                     for d in dtypes))
 
 
-def _args(code: List[List[int]], dtypes: List[torch.dtype],
+COL_SCALAR = 4     # csrc/fused_select.cu: a one-value column
+
+
+def _args(code: List[List[int]], columns, dtypes: List[torch.dtype],
           narrow: bool) -> bytes:
     p = PredArgs()
-    for i, d in enumerate(dtypes):
+    for i, (name, d) in enumerate(zip(columns, dtypes)):
         p.width[i] = d.itemsize
         # csrc/fused_select.cu COL_*: integer, bool or float storage
         p.kind[i] = 1 if d == torch.bool else 2 if d.is_floating_point else 0
+        if isinstance(name, tuple):
+            p.kind[i] |= COL_SCALAR
     for k, (op, ty, arg, lit, flags) in enumerate(code):
         p.op[k], p.ty[k], p.arg[k], p.lit[k] = op, ty, arg, lit
         p.flags[k] = flags
@@ -171,10 +242,12 @@ def compile_predicate(predicate, table: Table) -> Program:
     has no instruction for; raises ValueError for a non-bool result, an
     int literal outside int64 or a program over the kernel's limits."""
     from ..plan import expr as pexpr
-    columns: List[str] = []
+    columns: list = []
+    col_dtype: Dict[object, torch.dtype] = {}
     code: List[List[int]] = []
     need: Dict[int, int] = {}
     depth = [0, 0]                       # current, most
+    agg_index = {id(a): k for k, a in enumerate(scalar_aggs(predicate))}
 
     def registers(e) -> int:
         """Stack slots e's code needs when the deeper operand runs first
@@ -196,14 +269,19 @@ def compile_predicate(predicate, table: Table) -> Program:
     def go(e) -> Tuple[torch.dtype, bool]:
         """Appends e's code; returns its (dtype, weak). Every value on the
         stack is exact at its own dtype."""
-        if isinstance(e, pexpr.ColumnRef):
-            if e.name not in columns:
-                columns.append(e.name)
-            dt = table[e.name].data.dtype
+        if isinstance(e, (pexpr.ColumnRef, pexpr.ScalarAgg)):
+            if isinstance(e, pexpr.ColumnRef):
+                key, (dt, weak) = e.name, (table[e.name].data.dtype, False)
+            else:
+                key, (dt, weak) = (("agg", agg_index[id(e)]),
+                                   _value_dtype(e, table))
+            if key not in columns:
+                columns.append(key)
+                col_dtype[key] = dt
             code.append([OPCODES["load"], _type_code(dt),
-                         columns.index(e.name), 0, 0])
+                         columns.index(key), 0, 0])
             push()
-            return dt, False
+            return dt, weak
         if isinstance(e, pexpr.Literal):
             dt = pexpr._literal_dtype(e.value)          # raises TypeError
             code.append([OPCODES["lit"], _type_code(dt), 0,
@@ -223,6 +301,9 @@ def compile_predicate(predicate, table: Table) -> Program:
             dt, weak = pexpr.promote(e.op, ld, lw, rd, rw)
             ty = _type_code(dt)
             flags = FLAG_SWAP if swap else 0
+            if e.op == "*" and dt.is_floating_point and (
+                    (ld == torch.bool) != (rd == torch.bool)):
+                flags |= FLAG_SEL_L if ld == torch.bool else FLAG_SEL_R
             for child, d, i, shift in ((e.left, ld, li, 0),
                                        (e.right, rd, ri, 2)):
                 cv = _conversion(d, dt)
@@ -258,10 +339,10 @@ def compile_predicate(predicate, table: Table) -> Program:
                          f"stack {depth[1]}, {len(columns)} columns exceeds "
                          f"the kernel's {MAX_PROG}/{MAX_STACK}/"
                          f"{MAX_PRED_COLS}")
-    dtypes = [table[c].data.dtype for c in columns]
+    dtypes = [col_dtype[c] for c in columns]
     narrow = _narrow(code, dtypes)
     return Program(columns, code, depth[1], narrow,
-                   _args(code, dtypes, narrow))
+                   _args(code, columns, dtypes, narrow), dtypes)
 
 
 class _Uncached(Exception):
@@ -282,6 +363,8 @@ def _structure(e) -> tuple:
         return ("bin", e.op, _structure(e.left), _structure(e.right))
     if isinstance(e, pexpr.UnaryOp):
         return ("un", e.op, _structure(e.child))
+    if isinstance(e, pexpr.ScalarAgg):
+        return ("agg", e.op, _structure(e.child))
     raise _Uncached
 
 

@@ -34,7 +34,7 @@ from ..columnar import Column, Table
 from .gather import take
 from .select import (DATA_KINDS, PLAIN_CALLS, PredArgs, Program,
                      cached_program, fused_select_plain, make_signature,
-                     needed_columns, supports)
+                     needed_columns, scalar_values, supports)
 
 __all__ = ["fused_select", "fused_select_cuda", "make_signature",
            "needed_columns", "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
@@ -82,11 +82,14 @@ def _lib():
     return _LIB
 
 
-def _pred_args(prog: Program, table: Table) -> PredArgs:
+def _pred_args(prog: Program, table: Table, scalars) -> PredArgs:
     """A fresh copy of `prog`'s argument struct with this call's column
-    pointers."""
+    pointers, a scalar aggregate's pointing at its 0-d value."""
     p = PredArgs.from_buffer_copy(prog.args)
     for i, name in enumerate(prog.columns):
+        if isinstance(name, tuple):
+            p.data[i] = scalars[name[1]].data_ptr()
+            continue
         c = table[name]
         _check(c, table.device, "predicate")
         p.data[i] = c.data.data_ptr()
@@ -114,6 +117,10 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
                             f"{c.dtype!r} columns")
         _check(c, dev, "needed")
     prog = cached_program(predicate, table)
+    # scalar subqueries reduce over the whole table first, on the card, as
+    # Expr.evaluate reduces them (kept alive past the launch's sync)
+    scalars = (scalar_values(prog, predicate, table)
+               if any(isinstance(c, tuple) for c in prog.columns) else [])
     n = table.num_rows
 
     def empty() -> Table:
@@ -125,7 +132,7 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
         return empty()
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    p = _pred_args(prog, table)
+    p = _pred_args(prog, table, scalars)
     blocks = (n + TILE - 1) // TILE
     # one scratch buffer of int64: the total, the call's ticket (fs_count
     # zeroes it), the block offsets, the block counts (int32) and the mask

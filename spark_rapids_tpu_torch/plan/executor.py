@@ -47,11 +47,15 @@ once, at `execute()`.
 
 The rule-based optimizer (`plan/optimizer.py`) runs first, by default
 (`optimize=None` reads SPARK_RAPIDS_TORCH_OPTIMIZER), once per (plan,
-binding); `PlanResult.optimizer` holds its report. Streaming scans,
+binding); `PlanResult.optimizer` holds its report. With
+SPARK_RAPIDS_TORCH_VERIFY_PLANS on, the optimizer re-validates every
+rule's output and `_verify_execution` runs the static verifier
+(`analysis/verifier.py`) on the plan about to run, as the reference's
+gate does. Every node kind runs in both tiers; an `Exchange` returns its
+child, as the reference's does on one device. Streaming scans,
 placement, the stats store and its cap seeding, the resource certifier's
-caps, the health breaker, fault injection, the distributed tier and the
-degraded CPU tier wait for later slices; a node kind a tier does not run
-raises `PlanValidationError` naming the ROADMAP.md item that ports it.
+caps, the health breaker, fault injection, the mesh lowering and the
+degraded CPU tier wait for later slices.
 """
 from __future__ import annotations
 
@@ -78,13 +82,6 @@ from .nodes import (Exchange, Filter, FusedSelect, HashAggregate, HashJoin,
 _OPT_CACHE_SIZE = 64     # rewrites kept per executor, oldest dropped first
 _PROGRAM_CACHE_SIZE = 64     # capped programs kept per executor
 _CAPS_MEMO_SIZE = 256        # plans whose grown caps are kept
-
-_NOT_PORTED = {
-    "eager": {"Exchange": "queue A item 13 (distributed tier)"},
-    # the capped tier passes an Exchange through, as the reference's does
-    "capped": {},
-}
-
 
 def _bounded_put(cache: Dict, key, value, size: int) -> None:
     """cache[key] = value, dropping the oldest entry past `size`."""
@@ -196,6 +193,8 @@ class PlanExecutor:
         # plan fingerprint -> the caps its last run ended with, so the next
         # run of an equal plan starts from the grown caps
         self._caps_memo: Dict[str, Dict[str, int]] = {}
+        # the pre-execution gate's passed verdicts (`_verify_execution`)
+        self._verify_cache: Dict[Tuple, bool] = {}
 
     def execute(self, plan: Plan,
                 inputs: Optional[Dict[str, Table]] = None) -> PlanResult:
@@ -209,15 +208,11 @@ class PlanExecutor:
         # rewrite renames its nodes
         schemas = plan.resolve_schemas(bound)
         report = None
+        authored = plan
         if self.optimize:
             plan, schemas, report = self._optimized(plan, inputs, bound)
-        not_ported = _NOT_PORTED[self.mode]
-        for node in plan.nodes:
-            if node.kind in not_ported:
-                raise PlanValidationError(
-                    f"{node.label}: {node.kind} has no {self.mode} lowering "
-                    f"in the PyTorch port yet; ROADMAP.md "
-                    f"{not_ported[node.kind]} ports it")
+        if config.verify_plans():
+            self._verify_execution(authored, plan, report, inputs, bound)
         inputs = {s: inputs[s].to(self.device) for s in plan.input_names}
         if self.mode == "capped":
             res = self._execute_capped(plan, inputs, schemas)
@@ -227,21 +222,58 @@ class PlanExecutor:
             res.optimizer = report.to_dict()
         return res
 
+    def _verify_execution(self, authored: Plan, plan: Plan, report,
+                          inputs, bound) -> None:
+        """The pre-execution gate (SPARK_RAPIDS_TORCH_VERIFY_PLANS): the
+        plan about to run passes the static verifier, schema and typing
+        layers, and the rewrite pair's checks when the optimizer ran.
+        Raises PlanVerificationError naming the invariant and operator.
+        Verdicts are kept per (plan, binding), as the reference keeps
+        them, so a repeat execution pays nothing."""
+        from ..analysis import verifier
+        input_dtypes = {
+            name: {cn: c.dtype for cn, c in zip(t.names, t.columns)}
+            for name, t in inputs.items()}
+        floats = _input_has_floats(inputs)
+        key = (authored.root, plan.root, tuple(sorted(bound.items())),
+               tuple((n, tuple(repr(d) for d in cols.values()))
+                     for n, cols in sorted(input_dtypes.items())),
+               floats,
+               None if report is None else (report.fingerprint,
+                                            report.fell_back))
+        if self._verify_cache.get(key):
+            return
+        # no executor of the port plans exchanges before ROADMAP queue A
+        # item 13, so the partitioning layer (`planned=True`) is not run
+        if report is None and plan is authored:
+            rep = verifier.verify(plan, bound=bound,
+                                  input_dtypes=input_dtypes,
+                                  float_inputs=floats)
+        else:
+            rep = verifier.verify_rewrite(authored, plan, bound=bound,
+                                          input_dtypes=input_dtypes,
+                                          float_inputs=floats, report=report)
+        rep.raise_if_failed("pre-execution gate")
+        _bounded_put(self._verify_cache, key, True, _OPT_CACHE_SIZE)
+
     def _optimized(self, plan: Plan, inputs, bound):
         """The rewrite of `plan` for this binding, computed once per (plan,
-        names, row counts, float flag): float columns anywhere in the
-        inputs disable the row-reordering build_side rule, so the flag is
-        part of the key."""
+        names, row counts, float flag, verify mode): float columns anywhere
+        in the inputs disable the row-reordering build_side rule, and the
+        verify mode (`config.verify_plans`, which re-validates every
+        rule's output) changes which plan survives an invalid rewrite, so
+        both are part of the key."""
         from .optimizer import optimize as run_optimizer
-        floats = any(c.dtype.is_floating for t in inputs.values()
-                     for c in t.columns)
+        floats = _input_has_floats(inputs)
         rows = {n: t.num_rows for n, t in inputs.items()}
+        verify_rules = config.verify_plans()
         key = (plan.root, tuple(sorted(bound.items())),
-               tuple(sorted(rows.items())), floats)
+               tuple(sorted(rows.items())), floats, verify_rules)
         hit = self._opt_cache.get(key)
         if hit is None:
             opt, report = run_optimizer(plan, bound, rows,
-                                        float_inputs=floats)
+                                        float_inputs=floats,
+                                        verify_rules=verify_rules)
             hit = (opt, opt.resolve_schemas(bound), report)
             _bounded_put(self._opt_cache, key, hit, _OPT_CACHE_SIZE)
         return hit
@@ -383,6 +415,10 @@ class PlanExecutor:
             return copying.slice_table(t, 0, node.n)
         if isinstance(node, Union):
             return copying.concat_tables(childs)
+        if isinstance(node, Exchange):
+            # one device: a distribution marker that returns its child, as
+            # the reference's eager tier does without a mesh
+            return childs[0]
         raise PlanValidationError(f"no eager lowering for {node.kind}")
 
     @staticmethod
@@ -677,6 +713,12 @@ class PlanExecutor:
         if isinstance(node, Exchange):
             return childs[0], None
         raise PlanValidationError(f"no capped lowering for {node.kind}")
+
+
+def _input_has_floats(inputs: Dict[str, Table]) -> bool:
+    """Any floating column among the bound tables."""
+    return any(c.dtype.is_floating for t in inputs.values()
+               for c in t.columns)
 
 
 def _first_live(alive: torch.Tensor, n: int) -> torch.Tensor:

@@ -12,7 +12,11 @@ literal against a bool column gives int64, a float literal against an
 integer or bool column float64. A literal alone, or a literal-only
 subtree, stays weak int64/float64 (bool literals are strong bool). The
 reference's type errors are kept: `-` of two bools, `&`/`|` of floats and
-unary `-` of a bool raise TypeError.
+unary `-` of a bool raise TypeError. A `*` with one bool operand and a
+float result is the select `where(b, x, +0.0)`, as XLA computes the
+reference's `jnp.multiply` (queue C6): False times NaN, inf or -0.0 is
++0.0. `fold` keeps Python's arithmetic, as the reference's fold does, so
+a folded `lit(False) * lit(nan)` is NaN there and here.
 
 Null semantics are the reference's: expressions read the data buffer only;
 rows whose inputs are null must be dropped by validity-aware operators.
@@ -217,6 +221,13 @@ class BinOp(Expr):
         a, aw = self.left._eval(table, alive)
         b, bw = self.right._eval(table, alive)
         dt, weak = promote(self.op, a.dtype, aw, b.dtype, bw)
+        if self.op == "*" and dt.is_floating_point and (
+                (a.dtype == torch.bool) != (b.dtype == torch.bool)):
+            # queue C6: XLA rewrites a bool converted to float times x into
+            # a select, so a False row gives +0.0 whatever x is
+            bsel, x = (a, b) if a.dtype == torch.bool else (b, a)
+            return torch.where(bsel, x.to(dt), torch.zeros(
+                (), dtype=dt, device=x.device)), weak
         return _BIN_FNS[self.op](a.to(dt), b.to(dt)), weak
 
     def __repr__(self):

@@ -6,10 +6,12 @@ per run). `output_names(child_schemas)` is the single place each operator's
 schema contract lives, with the reference's messages.
 
 All node kinds are here so plans build as in the reference, with the
-reference's fields, so that `Plan.fingerprint` hashes them alike. The eager
-executor of this port runs every kind but Union and Exchange, and names the
-ROADMAP item that ports those. Scans bind materialized tables only: parquet
-sources and pruning predicates wait for their slices. `row_cap`/`key_cap`
+reference's fields, so that `Plan.fingerprint` hashes them alike. Both
+tiers of the executor run every kind; an Exchange returns its child, as on
+one device in the reference. Scans bind materialized tables only: parquet
+sources wait for their slice, and no rule of the port sets a pruning
+predicate before the scan_pruning rule (ROADMAP queue A item 9), though
+the verifier checks one. `row_cap`/`key_cap`
 are the capped tier's (queue A item 7); the eager tier ignores them.
 """
 from __future__ import annotations

@@ -129,6 +129,40 @@ def split_conjuncts(e: Expr) -> List[Expr]:
     return [e]
 
 
+_PRUNE_OPS = ("<", "<=", ">", ">=", "==")
+_FLIP_OP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "=="}
+
+
+def _as_comparison(e: Expr) -> Optional[Tuple[str, str, object]]:
+    """`col <op> literal` (either orientation) as (name, op, value); None
+    for any other shape (an OR, a column-column compare, arithmetic, a
+    scalar aggregate), which min/max statistics prove nothing about."""
+    if not isinstance(e, BinOp) or e.op not in _PRUNE_OPS:
+        return None
+    l, r = e.left, e.right
+    if isinstance(l, ColumnRef) and isinstance(r, Literal):
+        return (l.name, e.op, r.value)
+    if isinstance(r, ColumnRef) and isinstance(l, Literal):
+        return (r.name, _FLIP_OP[e.op], l.value)
+    return None
+
+
+def _statically_distributable(n: PlanNode, float_inputs: bool) -> bool:
+    """Whether a node kind can run on a mesh: Limit and keyless aggregates
+    have no distributed form, and `mean` or any float input rule out an
+    aggregate (the exchange accumulates partials in exact int64). The
+    verifier's partitioning layer reads it; the exchange planner that
+    shares it comes with ROADMAP queue A item 13."""
+    if isinstance(n, Limit):
+        return False
+    if isinstance(n, HashAggregate):
+        if not n.keys or any(o == "mean" for _, o, _ in n.aggs):
+            return False
+        if float_inputs:
+            return False
+    return True
+
+
 # ---- report -----------------------------------------------------------------
 
 RULE_NAMES = ("constant_folding", "predicate_pushdown", "limit_pushdown",

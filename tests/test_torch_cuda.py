@@ -1045,3 +1045,111 @@ def test_decimal_payload_through_a_plan_on_the_card(mode, optimize):
     assert got.to_pylist() == want.compact()["amt"].to_pylist()
     assert got.to_pylist() == [vals[x] for x in range(1, n)
                                if (x % 7) % 2 == 0]
+
+
+def test_bool_times_float_select_on_the_card():
+    """Queue C6 in the FusedSelect kernel: `*` of a bool and a float is
+    where(b, x, +0.0) (FLAG_SEL_L/R), so False times NaN, ±inf and -0.0 is
+    +0.0 and True times x is x, in FLOAT64 and FLOAT32, with the bool on
+    either side and as a literal; the kernel's rows equal the plain
+    version's (held against JAX in tests/test_torch_select.py)."""
+    _need_card()
+    n = 4_099
+    rng = np.random.default_rng(6)
+    edges = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5])
+    f = rng.choice(edges, n)
+    b = rng.integers(0, 2, n).astype(bool)
+    t = Table([Column.from_numpy(b, tdt.BOOL, device="cuda"),
+               Column.from_numpy(f, tdt.FLOAT64, device="cuda"),
+               Column.from_numpy(f.astype(np.float32), tdt.FLOAT32,
+                                 device="cuda"),
+               Column.from_numpy(np.arange(n, dtype=np.int64), tdt.INT64,
+                                 device="cuda")], ["b", "f", "g", "i"])
+    preds = [col("b") * col("f") == 0.0,
+             col("f") * col("b") <= lit(0.0),
+             col("b") * col("g") == 0.0,
+             col("g") * col("b") + 1.0 > 0,
+             lit(False) * col("f") == 0.0,
+             col("f") * lit(True) != col("f"),
+             (col("b") * lit(float("nan"))) == 0.0]
+    select_cuda.reset_counters()
+    for pred in preds:
+        got = select_cuda.fused_select_cuda(t, pred, ["i"])
+        want = select.fused_select_plain(t, pred, ["i"])
+        _same_table(got, want)
+    # the select itself: every False row of b * f == 0.0 is kept
+    kept = select_cuda.fused_select_cuda(t, col("b") * col("f") == 0.0,
+                                         ["i"])["i"].data.cpu().numpy()
+    expect = np.nonzero(~b | (f == 0.0))[0]
+    assert np.array_equal(kept, expect)
+    assert select_cuda.LAUNCHES["count"] == len(preds) + 1
+
+
+@pytest.mark.parametrize("null_equal", [False, True])
+@pytest.mark.parametrize("fn", ["inner_join", "left_join", "full_join",
+                                "left_semi_join", "left_anti_join",
+                                "inner_join_capped", "left_join_capped",
+                                "semi_join_mask"])
+def test_outer_and_null_equal_joins_on_the_card_equal_the_cpu(fn,
+                                                              null_equal):
+    """The torch-op joins of ops/join.py on CUDA columns, with null keys
+    and alive masks, equal their CPU run element for element (the CPU run
+    is held against JAX in tests/test_torch_join.py)."""
+    _need_card()
+    rng = np.random.default_rng(21)
+    nl, nr = 20_000, 1_000
+    lk = rng.integers(0, 700, nl).astype(np.int64)
+    rk = rng.integers(0, 900, nr).astype(np.int64)
+    lv, rv = rng.random(nl) > 0.1, rng.random(nr) > 0.1
+    la = torch.tensor(rng.random(nl) > 0.2)
+    ra = torch.tensor(rng.random(nr) > 0.2)
+
+    def run(device):
+        l = [Column.from_numpy(lk, tdt.INT64, lv, device=device)]
+        r = [Column.from_numpy(rk, tdt.INT64, rv, device=device)]
+        f = getattr(join, fn)
+        if fn.endswith("_capped"):
+            out = f(l, r, 30_000, lalive=la.to(device), ralive=ra.to(device),
+                    null_equal=null_equal)
+        elif fn == "semi_join_mask":
+            out = (f(l, r, lalive=la.to(device), ralive=ra.to(device),
+                     null_equal=null_equal),)
+        else:
+            out = f(l, r, null_equal)
+            out = out if isinstance(out, tuple) else (out,)
+        return [o.data if isinstance(o, Column) else o for o in out]
+    got, want = run("cuda"), run("cpu")
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), w)
+
+
+def test_scalar_subquery_predicates_on_the_card():
+    """FusedSelect predicates with scalar aggregates (`ScalarAgg`): the
+    kernel reads each as a one-value column reduced on the card before the
+    launch, and equals the plain version; over an empty table both raise
+    as `Expr.evaluate` does."""
+    _need_card()
+    from spark_rapids_tpu_torch.plan import scalar_max, scalar_min
+    from spark_rapids_tpu_torch.plan import scalar_sum
+    for n in (1, 1000, 100_003):
+        t = _fs_table(n, 0.15)
+        preds = [col("sel") > scalar_max(col("sel")) - 5,
+                 col("float64") <= scalar_min(col("float64")) + 1.0,
+                 col("float32") * 100.0 > scalar_sum(col("float32")),
+                 col("int8") < scalar_sum(col("int8")),
+                 scalar_max(col("bool")) & (col("sel") < 9),
+                 col("int64") > lit(0.95) * scalar_max(col("int64")),
+                 (col("sel") >= scalar_min(col("sel")))
+                 & (col("sel") * 2 > scalar_max(col("sel") + 1))]
+        select_cuda.reset_counters()
+        for pred in preds:
+            got = select_cuda.fused_select_cuda(t, pred, ["sel", "int64"])
+            _same_table(got, select.fused_select_plain(t, pred,
+                                                       ["sel", "int64"]))
+        assert select_cuda.LAUNCHES["count"] == len(preds)
+    empty = _fs_table(0, 0.0)
+    pred = col("sel") > scalar_max(col("sel"))
+    for fn in (select_cuda.fused_select_cuda, select.fused_select_plain):
+        with pytest.raises(ValueError, match="zero-size"):
+            fn(empty, pred, ["sel"])

@@ -136,6 +136,74 @@ def test_promotion_cases_match_jax(tree, arrays):
     _assert_same(tree, arrays)
 
 
+# ---- queue C6: a bool times a float ------------------------------------------
+
+_C6_FLOATS = [np.nan, np.inf, -np.inf, -0.0, 0.0, 2.5, -np.nan, -1e30]
+_C6_BOOLS = [False, True, False, True, False, False, True, True]
+_C6_CASES = {
+    "b*f": ("*", ("col", "b"), ("col", "f")),
+    "f*b": ("*", ("col", "f"), ("col", "b")),
+    "lit_false*f": ("*", ("lit", False), ("col", "f")),
+    "f*lit_true": ("*", ("col", "f"), ("lit", True)),
+    "b*lit_nan": ("*", ("col", "b"), ("lit", float("nan"))),
+    "lit_-0*b": ("*", ("lit", -0.0), ("col", "b")),
+    "lit_inf*b": ("*", ("lit", float("inf")), ("col", "b")),
+    "(b&b)*f": ("*", ("&", ("col", "b"), ("col", "b")), ("col", "f")),
+    "(b*f)+f": ("+", ("*", ("col", "b"), ("col", "f")), ("col", "f")),
+    "lit_false*lit_nan": ("*", ("lit", False), ("lit", float("nan"))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_C6_CASES))
+@pytest.mark.parametrize("kind", ["float32", "float64"])
+def test_bool_times_float_is_a_select_as_in_jax(kind, case):
+    """Queue C6: where `*` has one bool operand and a float result, both
+    packages give where(b, x, +0.0): False times NaN, inf or -0.0 is +0.0,
+    True times x is x. Bit for bit, the sign of zero and NaN bits
+    included."""
+    arrays = {"b": np.array(_C6_BOOLS), "f": np.array(_C6_FLOATS, kind)}
+    jt, tt = _tables(arrays)
+    tree = _C6_CASES[case]
+    want = np.asarray(_build(jexpr, tree).evaluate(jt))
+    got = _build(texpr, tree).evaluate(tt).numpy()
+    assert got.dtype == want.dtype
+    npt.assert_array_equal(_bits(got), _bits(want))
+    if tree[0] == "*" and tree[1] == ("col", "b"):
+        # the select itself: +0.0 on every False row
+        assert not np.signbit(got[~np.array(_C6_BOOLS)]).any()
+        assert (got[~np.array(_C6_BOOLS)] == 0).all()
+
+
+def test_bool_times_float_literals_fold_as_the_reference_folds():
+    """The reference's `fold` computes a literal-only `*` in Python, so
+    `lit(False) * lit(nan)` folds to NaN while its evaluation is 0.0
+    (queue C's reference deviations); the port's fold follows it."""
+    tree = ("*", ("lit", False), ("lit", float("nan")))
+    j = jexpr.fold(_build(jexpr, tree))
+    t = texpr.fold(_build(texpr, tree))
+    assert isinstance(t, texpr.Literal) and np.isnan(t.value)
+    assert repr(j) == repr(t)
+    jt, tt = _tables({"b": np.array([False])})
+    assert float(np.asarray(_build(jexpr, tree).evaluate(jt))[0]) == 0.0
+    assert float(_build(texpr, tree).evaluate(tt)[0]) == 0.0
+
+
+def test_subnormal_sums_follow_ieee_where_xla_cpu_flushes():
+    """A reference deviation the port does not follow (queue C): XLA on
+    the CPU flushes subnormal results of float arithmetic to zero, so the
+    reference's `f + f` over 1e-310 is 0.0. The port adds as IEEE and
+    Spark do, 2e-310; a select (True * 1e-310) moves no arithmetic, so
+    there both give 1e-310."""
+    arrays = {"b": np.array([True]), "f": np.array([1e-310])}
+    jt, tt = _tables(arrays)
+    add = ("+", ("col", "f"), ("col", "f"))
+    assert float(np.asarray(_build(jexpr, add).evaluate(jt))[0]) == 0.0
+    assert float(_build(texpr, add).evaluate(tt)[0]) == 2e-310
+    sel = ("*", ("col", "b"), ("col", "f"))
+    assert float(np.asarray(_build(jexpr, sel).evaluate(jt))[0]) == 1e-310
+    assert float(_build(texpr, sel).evaluate(tt)[0]) == 1e-310
+
+
 # ---- the optimizer's expression helpers -------------------------------------
 
 def test_fold_matches_reference():

@@ -16,6 +16,7 @@ from spark_rapids_tpu.columnar import Table as JTable
 from spark_rapids_tpu.plan import PlanBuilder as JPlanBuilder
 from spark_rapids_tpu.plan import PlanExecutor as JPlanExecutor
 from spark_rapids_tpu.plan import col as jcol
+from spark_rapids_tpu.plan import lit as jlit
 from spark_rapids_tpu.plan import stats
 
 from benchmarks import nds_plans
@@ -23,7 +24,7 @@ from benchmarks import nds_plans
 from spark_rapids_tpu_torch import nds_q3, nds_q72, table_from_numpy
 from spark_rapids_tpu_torch.ops import join_cuda, topk
 from spark_rapids_tpu_torch.parallel.autoretry import CapacityOverflowError
-from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
+from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col, lit
 
 _N = 4000
 _TINY = {"row_cap": 128, "key_cap": 16}
@@ -199,3 +200,39 @@ def test_union_raises_and_modes_are_checked():
     assert [(m.rows_in, m.rows_out) for m in unions] == [(9, 9)]
     with pytest.raises(ValueError, match="unknown executor mode"):
         PlanExecutor(mode="streaming", device="cpu")
+
+
+_LITERAL_REWRITES = {
+    "add_sub_1e16": (lambda c, l: (c("f") + l(1e16)) - l(1e16), 3.0),
+    "plus_zero": (lambda c, l: c("f") + l(0.0), -0.0),
+    "times_3_times_third": (lambda c, l: (c("f") * l(3.0)) * l(1 / 3),
+                            1e-17),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_LITERAL_REWRITES))
+def test_capped_float_literals_follow_the_reference_eager_tier(case):
+    """A reference deviation, pinned (queue C): under `jax.jit` XLA
+    rewrites float arithmetic on literals, so the reference's capped tier
+    disagrees with its own eager tier (and with IEEE and Spark). The
+    port computes IEEE in both tiers: its capped bits equal its eager bits
+    and the reference's eager bits, and the reference's capped bits
+    differ. A JAX that stops rewriting fails the last assertion."""
+    expr, value = _LITERAL_REWRITES[case]
+    f = np.array([value], dtype=np.float64)
+    tt = {"t": table_from_numpy(["f"], [f], [None], ["float64"],
+                                device="cpu")}
+    jt = {"t": JTable([JColumn.from_numpy(f)], names=["f"])}
+    tplan = PlanBuilder().scan("t", schema=["f"]).project(
+        [("y", expr(col, lit))]).build()
+    jplan = JPlanBuilder().scan("t", schema=["f"]).project(
+        [("y", expr(jcol, jlit))]).build()
+    got = {mode: PlanExecutor(mode=mode, device="cpu", optimize=False)
+           .execute(tplan, tt).compact()["y"].data.numpy()
+           .view(np.int64).tolist() for mode in ("eager", "capped")}
+    with stats.scoped_store(None):
+        want = {mode: np.asarray(JPlanExecutor(mode=mode, optimize=False)
+                                 .execute(jplan, jt).compact()["y"].data)
+                .view(np.int64).tolist() for mode in ("eager", "capped")}
+    assert got["capped"] == got["eager"] == want["eager"]
+    assert want["capped"] != want["eager"]

@@ -159,8 +159,9 @@ def test_semi_anti_project_global_agg_match_jax(which):
 
 
 def test_unported_nodes_and_errors_name_their_roadmap_item():
-    """Union runs in the eager tier (equal to the JAX package's); the eager
-    Exchange still raises, naming the item that ports it."""
+    """Union runs in the eager tier (equal to the JAX package's), and so
+    does an Exchange, which returns its child on one device as the
+    reference's does; the plan errors match the reference's."""
     b = PlanBuilder()
     plan = b.scan("t", schema=["a"]).sort(["a"]).limit(3).build()
     t = table_from_numpy(["a"], [np.arange(5, dtype=np.int64)], [None],
@@ -183,8 +184,11 @@ def test_unported_nodes_and_errors_name_their_roadmap_item():
     _assert_same(want, got)
     assert got.to_pydict() == {"a": [0, 1, 2, 3, 4, 7, None, 9]}
     exchange = b.scan("t", schema=["a"]).exchange(["a"]).build()
-    with pytest.raises(PlanValidationError, match="queue A item 13"):
-        PlanExecutor(device="cpu").execute(exchange, {"t": t})
+    jexchange = jb.scan("t", schema=["a"]).exchange(["a"]).build()
+    _assert_same(JPlanExecutor(mode="eager").execute(jexchange,
+                                                     {"t": jt["t"]}).table,
+                 PlanExecutor(device="cpu").execute(exchange,
+                                                    {"t": t}).table)
     with pytest.raises(PlanValidationError, match="unbound"):
         PlanExecutor(device="cpu").execute(plan, {})
     with pytest.raises(PlanValidationError, match="does not match declared"):
@@ -241,6 +245,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "p = parallel.partition_ids(h.data, 8)\n"
         "assert int(parallel.partition_histogram(p, 8).sum()) == 8192\n"
         "assert api.Hash.xxhash64([inputs['sales']['item_sk']]).length\n"
+        "from spark_rapids_tpu_torch.analysis import fuzz, verifier\n"
+        "case = fuzz.gen_case(11, device='cpu')\n"
+        "rc = fuzz.run_case(case, device='cpu')\n"
+        "assert rc.ok and rc.executed and rc.parity, rc.error\n"
+        "assert verifier.verify(case.plan).ok\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.split('.')[0] == 'spark_rapids_tpu')\n"
@@ -249,6 +258,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     env = {k: v for k, v in os.environ.items()
            if k not in ("SPARK_RAPIDS_TORCH_KERNELS",)}
     env["PYTHONPATH"] = _REPO
+    env["SPARK_RAPIDS_TORCH_VERIFY_PLANS"] = "1"      # the gate on
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -104,18 +104,22 @@ def _wrap(v: torch.Tensor, ty: int) -> torch.Tensor:
     return (v != 0).to(torch.int64) if ty == 0 else v.to(dt).to(torch.int64)
 
 
-def _eval_program(prog, table) -> torch.Tensor:
+def _eval_program(prog, table, pred) -> torch.Tensor:
     """(n,) bool: the program run as csrc/fused_select.cu runs it, every
     value in 64 bits (floats as their float64 bits), operands converted
     where the instruction's flags say, integer results wrapped to its
-    width, float32 arithmetic in float32."""
+    width, float32 arithmetic in float32; a scalar aggregate's column
+    holds its one value in every row."""
     n = table.num_rows
     st = []
     names = {v: k for k, v in select.OPCODES.items()}
+    scalars = select.scalar_values(prog, pred, table)
     for op, ty, arg, word, flags in prog.code:
         name = names[op]
         if name == "load":
-            d = table[prog.columns[arg]].data
+            col = prog.columns[arg]
+            d = (scalars[col[1]].expand(n) if isinstance(col, tuple)
+                 else table[col].data)
             st.append(_bits(d) if d.is_floating_point()
                       else d.to(torch.int64))
         elif name == "lit":
@@ -141,7 +145,11 @@ def _eval_program(prog, table) -> torch.Tensor:
                 conv.append(v)
             a, b = conv
             fn = texpr._BIN_FNS[name]
-            if ty in _FLOATS:
+            if flags & (select.FLAG_SEL_L | select.FLAG_SEL_R):
+                # queue C6: `*` of a bool and a float selects on the bool
+                c, x = (a, b) if flags & select.FLAG_SEL_L else (b, a)
+                st.append(torch.where(c != 0, x, torch.zeros_like(x)))
+            elif ty in _FLOATS:
                 x = a.view(torch.float64).to(_FLOATS[ty])
                 y = b.view(torch.float64).to(_FLOATS[ty])
                 r = fn(x, y)
@@ -157,7 +165,7 @@ def _eval_program(prog, table) -> torch.Tensor:
 def _same_as_evaluate(pred, tt):
     prog = select.compile_predicate(pred, tt)
     assert prog.depth <= select.MAX_STACK
-    assert torch.equal(_eval_program(prog, tt), pred.evaluate(tt))
+    assert torch.equal(_eval_program(prog, tt, pred), pred.evaluate(tt))
     return prog
 
 
@@ -217,6 +225,85 @@ def test_literal_weak_typing_parity():
                                 "eager")
     assert select.supports(sig)
     _same_as_evaluate(folded_away, tt)
+
+
+_C6_PREDS = {
+    "b*f==0": lambda m: m.col("c_bool") * m.col("c_float64") == 0.0,
+    "f*b<=0": lambda m: m.col("c_float64") * m.col("c_bool") <= m.lit(0.0),
+    "b*f32==0": lambda m: m.col("c_bool") * m.col("c_float32") == 0.0,
+    "lit_false*f==0": lambda m: m.lit(False) * m.col("c_float64") == 0.0,
+    "(b*nan)!=(b*nan)": lambda m: (m.col("c_bool") * m.lit(float("nan")))
+    != (m.col("c_bool") * m.lit(float("nan"))),
+    "b*f32+1>0": lambda m: m.col("c_bool") * m.col("c_float32") + 1.0 > 0,
+}
+
+
+@pytest.mark.parametrize("which", sorted(_C6_PREDS))
+def test_bool_times_float_predicates_match_jax(which):
+    """Queue C6 through a FusedSelect: the float columns hold NaN, ±inf
+    and -0.0, and `*` of a bool and a float is where(b, x, +0.0) in the
+    plain version, in the kernel's program (FLAG_SEL_L/R) and in JAX."""
+    arrays = _fs_arrays(n=64, seed=6)
+    for name in ("c_float32", "c_float64"):
+        a = arrays[name][0].copy()
+        a[:8] = [np.nan, np.inf, -np.inf, -0.0, np.nan, np.inf, -np.inf,
+                 -0.0]
+        arrays[name] = (a, arrays[name][1])
+    b = arrays["c_bool"][0].copy()
+    b[:8] = [False] * 4 + [True] * 4
+    arrays["c_bool"] = (b, None)
+    jt, tt = _tables(arrays)
+    jp, tp = _C6_PREDS[which](jexpr), _C6_PREDS[which](texpr)
+    needed = ["c_float64", "c_float32", "sel"]
+    got = select.fused_select_plain(tt, tp, needed)
+    _assert_same(japply(jt.select(needed), jp.evaluate(jt)), got)
+    prog = _same_as_evaluate(tp, tt)
+    flags = [f for *_, f in prog.code]
+    assert any(f & (select.FLAG_SEL_L | select.FLAG_SEL_R) for f in flags)
+
+
+_SCALAR_PREDS = {
+    "int_gt_max": lambda m: m.col("sel") > m.scalar_max(m.col("sel")) - 5,
+    "f64_le_min": lambda m: m.col("c_float64")
+    <= m.scalar_min(m.col("c_float64")) + 1.0,
+    "f32_sum": lambda m: m.col("c_float32") * 100.0
+    > m.scalar_sum(m.col("c_float32")),
+    "int8_sum_wide": lambda m: m.col("c_int8")
+    < m.scalar_sum(m.col("c_int8")),
+    "bool_max_and": lambda m: m.scalar_max(m.col("c_bool"))
+    & (m.col("sel") < 9),
+    "q23_shape": lambda m: m.col("c_int64")
+    > m.lit(0.95) * m.scalar_max(m.col("c_int64")),
+    "two_aggs": lambda m: (m.col("sel") >= m.scalar_min(m.col("sel")))
+    & (m.col("sel") * 2 > m.scalar_max(m.col("sel") + 1)),
+}
+
+
+@pytest.mark.parametrize("which", sorted(_SCALAR_PREDS))
+def test_scalar_subquery_predicates_match_jax(which):
+    """A scalar subquery in a FusedSelect predicate (the fuzz corpus draws
+    them): the kernel's program reads each `ScalarAgg` as a one-value
+    column reduced before the launch; the plain version, the program and
+    JAX agree, and the registry takes the predicate."""
+    arrays = _fs_arrays(n=300, seed=9)
+    jt, tt = _tables(arrays)
+    jm = type("M", (), {"col": staticmethod(jexpr.col),
+                        "lit": staticmethod(jexpr.lit),
+                        "scalar_max": staticmethod(jexpr.scalar_max),
+                        "scalar_min": staticmethod(jexpr.scalar_min),
+                        "scalar_sum": staticmethod(jexpr.scalar_sum)})
+    jp, tp = _SCALAR_PREDS[which](jm), _SCALAR_PREDS[which](texpr)
+    needed = ["sel", "c_float64"]
+    got = select.fused_select_plain(tt, tp, needed)
+    _assert_same(japply(jt.select(needed), jp.evaluate(jt)), got)
+    prog = _same_as_evaluate(tp, tt)
+    aggs = select.scalar_aggs(tp)
+    assert sum(isinstance(c, tuple) for c in prog.columns) == len(aggs)
+    assert select.supports(select.make_signature(
+        tt, tp, (("x", texpr.col("sel")),), "eager"))
+    # cached on the structure: an equal tree elsewhere reuses the program
+    assert select.cached_program(_SCALAR_PREDS[which](texpr), tt) is \
+        select.cached_program(tp, tt)
 
 
 def test_all_dead_and_empty():
