@@ -4,6 +4,8 @@
     python3 chip_smoke.py [--trace] [--out FILE]
     python3 chip_smoke.py --walls N    # eager plan walls only (A/B runs)
     python3 chip_smoke.py --fuzz       # the plan fuzz corpus only
+    python3 chip_smoke.py --strings    # phases 5c and 9 only
+    python3 chip_smoke.py --row-hash   # the fixed-width row hash only (A/B)
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
@@ -132,6 +134,18 @@ in phases that each raise on failure:
    20,000-row sample against Python integer arithmetic written here; then
    the entry's multiply at 10M rows and a divide and a remainder on the
    matrix timed;
+5c. the row hash's byte path: a customer table of 10,000,000 rows made
+   with numpy (seed 0: an INT64 key, a 16-char TPC-DS id, a 0-48-byte
+   email with 5% nulls and two- and three-byte UTF-8, a DECIMAL(38,2) of
+   1- to 16-byte BigDecimal forms) hashed by `api.Hash` murmur3 and
+   xxhash64 (seed 42), one kernel launch each, counters zeroed before and
+   read after; the first 1,000,003 rows against the plain version, 10,000
+   strided rows against a Python Spark hash written here (the algorithm of
+   tests/spark_hash_oracle.py), STRUCT<INT32, STRING>, LIST<INT32> of 0-8
+   elements and LIST<STRING> at 1,000,003 rows against the plain version,
+   and Spark's golden vectors of tests/test_hash.py (strings with the
+   surrogate bytes, DECIMAL128, structs, chained tables, a list) through
+   `api.Hash` on the card; then timed beside the bytes bound;
 6. partition: `benchmarks/bench_partition.py`'s ids (10,000,000 for P = 8
    and 64) and P = 200, Spark's default `spark.sql.shuffle.partitions`,
    through `parallel.partition_histogram`, and the shuffle chain
@@ -153,7 +167,16 @@ in phases that each raise on failure:
    joins of `ops/join.py` (left, full, capped left, null_equal both ways)
    on CUDA columns at 1M x 10,000 rows against the CPU run. Alone:
    `python3 chip_smoke.py --fuzz`;
-9. prints one `{"kernels": [...]}` line, then as the last line
+9. row conversion: `benchmarks/bench_row_conversion.py`'s tables (the
+   9-kind cycle, seed 7, 1,048,576 rows: 216 columns general, 24
+   fixed-width-optimized, and the 24 with 10% nulls) through
+   `api.RowConversion` to rows and back, counters zeroed before and read
+   after (three launches of each kernel, no plain run); each image equal
+   to the plain version's byte for byte, each table read back equal to
+   the plain version's and to its input, validity included; then each
+   direction timed beside its bytes bound and the plain version. Alone
+   with 5c: `python3 chip_smoke.py --strings`;
+10. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
 Each kernel is timed by its device time from torch.profiler's kernel
@@ -212,6 +235,7 @@ KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel<false>",
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
                 "fused": "row_hash_kernel<true,true>",
+                "row_hash_bytes": "row_hash_bytes_kernel",
                 "histogram": "hist_kernel",
                 "fused_select": ("fs_count_kernel<int>",
                                  "fs_count_kernel<longlong>",
@@ -327,7 +351,8 @@ class Checks:
                         "build_large": 0, "count_large": 0,
                         "emit_large": 0, "segment_sum": 0, "groupby": 0,
                         "capped_join": 0, "capped_topk": 0, "plans": 0,
-                        "decimal128": 0, "fuzz": 0}
+                        "decimal128": 0, "fuzz": 0, "row_hash_bytes": 0,
+                        "rc_to_rows": 0, "rc_from_rows": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -3173,6 +3198,7 @@ def kernel_counters():
     from spark_rapids_tpu_torch.ops import decimal_cuda, groupby_cuda
     from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda, select
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
+    from spark_rapids_tpu_torch.ops import row_conversion_cuda
     from spark_rapids_tpu_torch.ops import topk, topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
     return {"groupby": dict(groupby_cuda.LAUNCHES),
@@ -3185,6 +3211,7 @@ def kernel_counters():
             "row_hash": dict(hash_cuda.LAUNCHES),
             "histogram": dict(partition_cuda.LAUNCHES),
             "decimal128": dict(decimal_cuda.LAUNCHES),
+            "row_conversion": dict(row_conversion_cuda.LAUNCHES),
             "plain": {"groupby": dict(groupby_cuda.PLAIN_CALLS),
                       "hash_join": dict(join_cuda.PLAIN_CALLS),
                       "fused_select": dict(select.PLAIN_CALLS),
@@ -3192,17 +3219,20 @@ def kernel_counters():
                       "segment_sum": dict(segment_sum_cuda.PLAIN_CALLS),
                       "row_hash": dict(hash_cuda.PLAIN_CALLS),
                       "histogram": dict(partition_cuda.PLAIN_CALLS),
-                      "decimal128": dict(decimal_cuda.PLAIN_CALLS)}}
+                      "decimal128": dict(decimal_cuda.PLAIN_CALLS),
+                      "row_conversion": dict(
+                          row_conversion_cuda.PLAIN_CALLS)}}
 
 
 def reset_kernel_counters():
     from spark_rapids_tpu_torch.ops import decimal_cuda, groupby_cuda
     from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
-    from spark_rapids_tpu_torch.ops import topk_cuda
+    from spark_rapids_tpu_torch.ops import row_conversion_cuda, topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
     for m in (groupby_cuda, hash_cuda, join_cuda, segment_sum_cuda,
-              select_cuda, topk_cuda, partition_cuda, decimal_cuda):
+              select_cuda, topk_cuda, partition_cuda, decimal_cuda,
+              row_conversion_cuda):
         m.reset_counters()
 
 
@@ -3741,6 +3771,666 @@ def decimal_phase(torch, chk):
     return out
 
 
+# ---- phase 5c ----------------------------------------------------------------
+
+CUST_ROWS = 10_000_000             # the customer table hashed at full size
+CUST_CHECK_ROWS = 1_000_003        # held against the plain version
+CUST_ORACLE_ROWS = 10_000          # strided rows held against Python
+CUST_SEED = 42                     # both hashes' seed
+RH_BYTES_REPLACES = ("spark_rapids_tpu/ops/hash.py:85 (_mm_var; _xx_var "
+                     ":178, java_bigdecimal_bytes :342, _murmur_element "
+                     ":408: XLA ops, no pallas_call), beside the Pallas row "
+                     "hash spark_rapids_tpu/ops/hash_pallas.py:316")
+# Least integer instructions of Spark's byte hashes, counted as for
+# RH_COL_OPS (a 32-bit multiply, rotate, xor or add one instruction; a
+# 64-bit multiply by a constant 3, a 64-bit add, xor or rotate 2):
+# murmur3 is 6 a 4-byte block or tail byte (two multiplies, two rotates, the
+# xor and h * 5 + c) and 9 a value (the length xor and fmix); xxhash64 is
+# 10 an 8-byte stripe lane (multiply, add, rotate, multiply), 76 to merge
+# the four lanes, 17 an 8-byte step, 12 the 4-byte step, 10 a tail byte
+# and 17 a value (the seed and length adds and the avalanche).
+MM_BLOCK_OPS, MM_VALUE_OPS = 6, 9
+XX_LANE_OPS, XX_MERGE_OPS, XX_VALUE_OPS = 10, 76, 17
+XX_STEP8_OPS, XX_STEP4_OPS, XX_BYTE_OPS = 17, 12, 10
+
+# tests/test_hash.py's Spark vectors (from real Spark runs): the fifth
+# string holds the unpaired UTF-16 surrogates U+D720 U+D721 as Spark stores
+# them, 3 bytes each
+GOLD_STRINGS5 = [b"", b"The quick brown fox", b"jumps over the lazy dog.",
+                 b"All work and no play makes Jack a dull boy",
+                 b"!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"
+                 b"\xed\x9c\xa0\xed\x9c\xa1"]
+GOLD_DEC128 = [0, 100, -1,
+               int.from_bytes(bytes.fromhex("FFFFFFFFFCC4D1C3602F7FC318000001"),
+                              "big", signed=True),
+               int.from_bytes(bytes.fromhex("0785EE10D5DA46D900F4369FFFFFFFFF"),
+                              "big", signed=True)]
+GOLD_V8 = [True] * 5 + [False] + [True] * 2
+
+
+def py_murmur32(data, seed):
+    """Spark murmur3_32 of a byte string in Python integers (the algorithm
+    of tests/spark_hash_oracle.py): 4-byte blocks, then each tail byte as a
+    signed char, then fmix(h ^ length); the int32 result."""
+    m = 0xFFFFFFFF
+
+    def rnd(h, k):
+        k = (k * 0xCC9E2D51) & m
+        k = ((k << 15) | (k >> 17)) & m
+        k = (k * 0x1B873593) & m
+        h ^= k
+        h = ((h << 13) | (h >> 19)) & m
+        return (h * 5 + 0xE6546B64) & m
+    h = seed & m
+    nb = len(data) // 4
+    for i in range(nb):
+        h = rnd(h, int.from_bytes(data[4 * i:4 * i + 4], "little"))
+    for b in data[4 * nb:]:
+        h = rnd(h, (b - 256 if b >= 128 else b) & m)
+    h ^= len(data)
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & m
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & m
+    h ^= h >> 16
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def py_xxhash64(data, seed):
+    """Spark xxhash64 of a byte string in Python integers (the algorithm of
+    tests/spark_hash_oracle.py); the int64 result."""
+    m = (1 << 64) - 1
+    p1, p2, p3, p4, p5 = (int(c) for c in _XX)
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & m
+
+    def word(o, k):
+        return int.from_bytes(data[o:o + k], "little")
+    seed &= m
+    n, off = len(data), 0
+    if n >= 32:
+        v = [(seed + p1 + p2) & m, (seed + p2) & m, seed, (seed - p1) & m]
+        while off + 32 <= n:
+            for k in range(4):
+                v[k] = (rotl((v[k] + word(off + 8 * k, 8) * p2) & m, 31)
+                        * p1) & m
+            off += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12)
+             + rotl(v[3], 18)) & m
+        for x in v:
+            h ^= (rotl((x * p2) & m, 31) * p1) & m
+            h = (h * p1 + p4) & m
+    else:
+        h = (seed + p5) & m
+    h = (h + n) & m
+    while off + 8 <= n:
+        h ^= (rotl((word(off, 8) * p2) & m, 31) * p1) & m
+        h = (rotl(h, 27) * p1 + p4) & m
+        off += 8
+    if off + 4 <= n:
+        h ^= (word(off, 4) * p1) & m
+        h = (rotl(h, 23) * p2 + p3) & m
+        off += 4
+    for b in data[off:]:
+        h ^= (b * p5) & m
+        h = (rotl(h, 11) * p1) & m
+    h ^= h >> 33
+    h = (h * p2) & m
+    h ^= h >> 29
+    h = (h * p3) & m
+    h ^= h >> 32
+    return h - (1 << 64) if h >= 1 << 63 else h
+
+
+def py_bigdecimal_bytes(v):
+    """java.math.BigDecimal.unscaledValue().toByteArray() of an int."""
+    return v.to_bytes((v if v >= 0 else ~v).bit_length() // 8 + 1, "big",
+                      signed=True)
+
+
+def customer_arrays(n, seed=0):
+    """The customer table's host buffers, made with numpy from `seed`:
+    c_customer_sk (INT64, 1..n); c_customer_id (16 chars, TPC-DS's form:
+    "AAAAAAAA", then the key's eight base-16 digits as the letters A-P,
+    least significant first); c_email_address (0-48 bytes, 5% null, 3% of
+    rows starting with U+00E9 and 1% holding U+65E5, two- and three-byte
+    UTF-8); a DECIMAL(38,2) of 1- to 16-byte magnitudes, negatives and a
+    zero every 101st row, as (n, 4) uint32 limbs."""
+    rng = np.random.default_rng(seed)
+    sk = np.arange(1, n + 1, dtype=np.int64)
+    ids = np.full((n, 16), ord("A"), np.uint8)
+    ids[:, 8:] += ((sk[:, None] >> (4 * np.arange(8))) & 15).astype(np.uint8)
+    lens = rng.integers(0, 49, n)
+    valid = rng.random(n) >= 0.05
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789._@",
+                             np.uint8)
+    chars = alphabet[rng.integers(0, len(alphabet), int(offs[-1]),
+                                  dtype=np.uint8)]
+    two = (rng.random(n) < 0.03) & (lens >= 2)
+    at = offs[:-1][two]
+    chars[at], chars[at + 1] = 0xC3, 0xA9
+    three = (rng.random(n) < 0.01) & (lens >= 5) & ~two
+    at = offs[:-1][three] + 2
+    chars[at], chars[at + 1], chars[at + 2] = 0xE6, 0x97, 0xA5
+    hi = rng.integers(-(2 ** 60), 2 ** 60, n) >> rng.integers(0, 61, n)
+    lo = rng.integers(0, 2 ** 63, n) >> np.where(
+        (hi == 0) | (hi == -1), rng.integers(0, 63, n), 0)
+    hi[::101], lo[::101] = 0, 0
+    limbs = np.stack([lo & 0xFFFFFFFF, lo >> 32, hi & 0xFFFFFFFF,
+                      (hi >> 32) & 0xFFFFFFFF], axis=1).astype(np.uint32)
+    return {"sk": sk, "ids": ids, "email_offs": offs.astype(np.int32),
+            "email_chars": chars, "email_valid": valid, "dec": limbs}
+
+
+def customer_table(torch, a, device):
+    """The port Table of `customer_arrays` on `device`."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.columnar import make_string_column
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    n = a["sk"].shape[0]
+    id_offs = np.arange(0, 16 * (n + 1), 16, dtype=np.int64).astype(np.int32)
+    return Table([
+        Column(dt.INT64, n, t(a["sk"])),
+        make_string_column(t(a["ids"].reshape(-1)), t(id_offs)),
+        make_string_column(t(a["email_chars"]), t(a["email_offs"]),
+                           t(a["email_valid"])),
+        Column(dt.decimal(38, 2), n, t(a["dec"]))],
+        ["c_customer_sk", "c_customer_id", "c_email_address", "c_balance"])
+
+
+def decimal_values(limbs):
+    """Python ints of (n, 4) uint32 limbs."""
+    out = []
+    for row in limbs:
+        u = sum(int(w) << (32 * j) for j, w in enumerate(row))
+        out.append(u - (1 << 128) if u >= 1 << 127 else u)
+    return out
+
+
+def decimal_byte_lengths(limbs):
+    """The BigDecimal byte length of each row, in numpy: bit length of the
+    magnitude (of ~v for negatives) // 8 + 1."""
+    w = limbs.astype(np.uint64)
+    hi = (w[:, 3] << np.uint64(32)) | w[:, 2]
+    lo = (w[:, 1] << np.uint64(32)) | w[:, 0]
+    neg = (hi >> np.uint64(63)).astype(bool)
+    hi = np.where(neg, ~hi, hi)
+    lo = np.where(neg, ~lo, lo)
+
+    def bitlen(x):             # exact: float64 log2 of 32-bit halves
+        h = (x >> np.uint64(32)).astype(np.float64)
+        low = (x & np.uint64(0xFFFFFFFF)).astype(np.float64)
+        with np.errstate(divide="ignore"):
+            bh = np.where(h > 0, np.floor(np.log2(h)) + 33, 0)
+            bl = np.where(low > 0, np.floor(np.log2(low)) + 1, 0)
+        return np.where(h > 0, bh, bl).astype(np.int64)
+    bits = np.where(hi > 0, bitlen(hi) + 64, bitlen(lo))
+    return bits // 8 + 1
+
+
+def mm_ops(lens):
+    return (lens // 4 + lens % 4) * MM_BLOCK_OPS + MM_VALUE_OPS
+
+
+def xx_ops(lens):
+    rem = lens % 32
+    return (np.where(lens >= 32, (lens // 32) * 4 * XX_LANE_OPS
+                     + XX_MERGE_OPS, 0)
+            + (rem // 8) * XX_STEP8_OPS + ((rem % 8) // 4) * XX_STEP4_OPS
+            + (rem % 4) * XX_BYTE_OPS + XX_VALUE_OPS)
+
+
+def customer_bounds(a):
+    """(bytes, murmur3 ops, xxhash64 ops) of one hash of the customer
+    table: every buffer read once (the key, both strings' chars and
+    offsets, the email's validity, the limbs) and the hashes written; the
+    instructions of each row's valid values, from this data's lengths."""
+    n = a["sk"].shape[0]
+    email = np.diff(a["email_offs"].astype(np.int64))
+    dec = decimal_byte_lengths(a["dec"])
+    valid = a["email_valid"]
+    read = (a["sk"].nbytes + a["ids"].nbytes + 4 * (n + 1)
+            + a["email_chars"].nbytes + a["email_offs"].nbytes + valid.nbytes
+            + a["dec"].nbytes)
+    mm = (n * (2 * MM_BLOCK_OPS + MM_VALUE_OPS + 4 * MM_BLOCK_OPS
+               + MM_VALUE_OPS) + int(mm_ops(email)[valid].sum())
+          + int(mm_ops(dec).sum()))
+    xx = (n * (32 + int(xx_ops(np.array([16]))[0]))
+          + int(xx_ops(email)[valid].sum()) + int(xx_ops(dec).sum()))
+    return {"murmur": (read + 4 * n, mm + RH_ROW_OPS["murmur"] * n),
+            "xxhash": (read + 8 * n, xx + RH_ROW_OPS["xxhash"] * n)}
+
+
+def oracle_rows(a, rows):
+    """Python murmur3 and xxhash64 (seed CUST_SEED) of the given rows."""
+    decs = decimal_values(a["dec"][rows])
+    offs, chars = a["email_offs"], a["email_chars"]
+    mm, xx = [], []
+    for k, i in enumerate(rows):
+        vals = [int(a["sk"][i]).to_bytes(8, "little", signed=True),
+                a["ids"][i].tobytes()]
+        if a["email_valid"][i]:
+            vals.append(chars[offs[i]:offs[i + 1]].tobytes())
+        vals.append(py_bigdecimal_bytes(decs[k]))
+        h, x = CUST_SEED, CUST_SEED
+        for v in vals:
+            h = py_murmur32(v, h)
+            x = py_xxhash64(v, x)
+        mm.append(h)
+        xx.append(x)
+    return np.array(mm, np.int32), np.array(xx, np.int64)
+
+
+def nested_hash_table(torch, n, seed=5):
+    """STRUCT<INT32, STRING>, LIST<INT32> of 0-8 elements and LIST<STRING>
+    on the card, nulls at every level."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, make_string_column
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
+
+    def strings(m, hi):
+        lens = rng.integers(0, hi + 1, m)
+        offs = np.zeros(m + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        chars = rng.integers(32, 127, int(offs[-1])).astype(np.uint8)
+        return make_string_column(t(chars), t(offs.astype(np.int32)),
+                                  t(rng.random(m) > 0.1))
+
+    def offsets(m):
+        lens = rng.integers(0, 9, m)
+        offs = np.zeros(m + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        return t(offs.astype(np.int32)), int(offs[-1])
+    st = Column.make_struct(
+        t(rng.random(n) > 0.1),
+        a=Column(dt.INT32, n, t(rng.integers(-2**31, 2**31, n,
+                                             dtype=np.int32)),
+                 t(rng.random(n) > 0.1)),
+        b=strings(n, 40))
+    o, m = offsets(n)
+    li = Column.make_list(o, Column(dt.INT32, m, t(rng.integers(
+        -2**31, 2**31, m, dtype=np.int32)), t(rng.random(m) > 0.1)),
+        t(rng.random(n) > 0.1))
+    o, m = offsets(n)
+    ls = Column.make_list(o, strings(m, 20), t(rng.random(n) > 0.1))
+    return [st, li, ls]
+
+
+def golden_phase(torch, chk):
+    """Spark's golden vectors of tests/test_hash.py through `api.Hash` on
+    the card: strings with the surrogate bytes, DECIMAL128, structs, the
+    chained tables of every kind."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    f32, f64 = np.finfo(np.float32), np.finfo(np.float64)
+    i32, i64 = np.iinfo(np.int32), np.iinfo(np.int64)
+
+    def col(vals, d):
+        return Column.from_pylist(vals, d, device="cuda")
+
+    def colv(vals, d):
+        return col([v if GOLD_V8[i] else None for i, v in enumerate(vals)],
+                   d)
+
+    def struct5():
+        return Column.make_struct(
+            a=col([0, 100, -100, 0x12345678, -0x76543210], dt.INT32),
+            b=col(["a", "bc", "def", "ghij", "klmno"], dt.STRING),
+            c=Column.make_struct(
+                x=col([0., 100., -100., np.inf, -np.inf], dt.FLOAT32),
+                y=col([0, 100, -100, 0x0123456789ABCDEF,
+                       -0x0123456789ABCDEF], dt.INT64)))
+    ts = ([0, 100, -100, -(i64.min // -1000000), i64.max // 1000000],
+          dt.TIMESTAMP_US)
+    mm_chain = [
+        struct5(), col(GOLD_STRINGS5, dt.STRING),
+        col([0., -0., -np.nan, f64.min, f64.max], dt.FLOAT64), col(*ts),
+        col([0, 100, -100, -999999999999999999, 999999999999999999],
+            dt.decimal(18, 7)),
+        col([0, 100, -100, i64.min, i64.max], dt.INT64),
+        col([0., -0., -np.nan, f32.min, f32.max], dt.FLOAT32),
+        col([0, 100, -100, -((2**31) // 100), (2**31 - 1) // 100],
+            dt.DATE32),
+        col([0, 100, -100, -999999999, 999999999], dt.decimal(9, 3)),
+        col([0, 100, -100, i32.min, i32.max], dt.INT32),
+        col([0, 100, -100, -32768, 32767], dt.INT16),
+        col([0, 100, -100, -128, 127], dt.INT8),
+        col([False, True, True, True, False], dt.BOOL),
+        col(GOLD_DEC128, dt.decimal(38, 11))]
+    xx_dec = [0, 100, -1, GOLD_DEC128[3], GOLD_DEC128[4], 0, GOLD_DEC128[3],
+              GOLD_DEC128[4]]
+    xx_chain = [
+        colv(GOLD_STRINGS5 + [b"", b"abcdefgh", b"abcdefghi"], dt.STRING),
+        colv([0., -0., -np.nan, f64.min, f64.max, 0., 100., 200.],
+             dt.FLOAT64),
+        colv(ts[0] + [0, 200, 300], dt.TIMESTAMP_US),
+        colv([0, 100, -100, -999999999999999999, 999999999999999999, 0, 123,
+              432], dt.decimal(18, 7)),
+        colv([0, 100, -100, i64.min, i64.max, 0, 0x123456789ABCDEF,
+              -0x123456789ABCDEF], dt.INT64),
+        colv([0., -0., -np.nan, f32.min, f32.max, 0., np.inf, -np.inf],
+             dt.FLOAT32),
+        colv([0, 100, -100, -((2**31) // 100), (2**31 - 1) // 100, 0, -200,
+              -300], dt.DATE32),
+        colv([0, 100, -100, -999999999, 999999999, 0, -200, -300],
+             dt.decimal(9, 3)),
+        colv([0, 100, -100, i32.min, i32.max, 0, -200, -300], dt.INT32),
+        colv([0, 100, -100, -32768, 32767, 0, -200, -300], dt.INT16),
+        colv([0, 100, -100, -128, 127, 0, -90, -80], dt.INT8),
+        colv([False, True, True, True, False, False, False, False], dt.BOOL),
+        colv(xx_dec, dt.decimal(38, 11))]
+    cases = [
+        ("strings", api.Hash.murmurHash32, [col(GOLD_STRINGS5, dt.STRING)],
+         42, [142593372, 1217302703, -715697185, -2061143941, -111635966]),
+        ("strings seed 314", api.Hash.murmurHash32,
+         [col(GOLD_STRINGS5, dt.STRING)], 314,
+         [1467149710, 723257560, -1620282500, -2001858707, 1588473657]),
+        ("decimal128", api.Hash.murmurHash32,
+         [col(GOLD_DEC128, dt.decimal(38, 11))], 42,
+         [-783713497, -295670906, 1398487324, -52622807, -1359749815]),
+        ("structs", api.Hash.murmurHash32, [struct5()], 42,
+         [-105406170, 90479889, -678041645, 1667387937, 301478567]),
+        ("combined chained", api.Hash.murmurHash32, mm_chain, 42,
+         [401603227, 588162166, 552160517, 1132537411, -326043017]),
+        ("xxhash64 strings", api.Hash.xxhash64, xx_chain[:1], 42,
+         [-7444071767201028348, -3617261401988713833, 8198945020833482635,
+          -5346617152005100141, 6614298085531227868, 42,
+          2470326616177429180, -7093207067522615973]),
+        ("xxhash64 decimal128", api.Hash.xxhash64, xx_chain[-1:], 42,
+         [-8959994473701255385, 4409375254388155230, -4006032525457443936,
+          -5423362182451591024, 7041733194569950081, 42,
+          -5423362182451591024, 7041733194569950081]),
+        ("xxhash64 combined", api.Hash.xxhash64, xx_chain, 42,
+         [541735645035655239, 9011982951766246298, 3834379147931449211,
+          -5406325166887725795, 7797509897614041972, 42,
+          -9032872913521304524, -604070008711895908])]
+    for what, fn, cols, seed, want in cases:
+        got = fn(cols, seed).to_pylist()
+        if got != want:
+            chk.max_err["row_hash_bytes"] = max(chk.max_err["row_hash_bytes"],
+                                                1)
+            raise AssertionError(f"golden {what}: {got} != Spark's {want}")
+        chk.n += 1
+    lst = Column.make_list(torch.tensor([0, 2, 2, 6], dtype=torch.int32,
+                                        device="cuda"),
+                           col([1, 2, 3, 4, 5, 6], dt.INT32))
+    want = []
+    for vals in ([1, 2], [], [3, 4, 5, 6]):
+        h = 42
+        for v in vals:
+            h = py_murmur32(v.to_bytes(4, "little", signed=True), h)
+        want.append(h)
+    require(api.Hash.murmurHash32([lst], 42).to_pylist() == want,
+            "a list of ints does not hash as the chain of its elements")
+    return len(cases) + 1
+
+
+def customer_hash_phase(torch, chk):
+    """Phase 5c: Spark's murmur3 and xxhash64 (seed 42) of a 10M-row
+    customer table (INT64 key, 16-char id, 0-48-byte email with nulls and
+    non-ASCII bytes, DECIMAL(38,2)) through `api.Hash`, one kernel launch
+    each, counters zeroed just before and read just after; the main path's
+    outputs held against the plain version on every row and a Python
+    oracle on 10,000 strided rows, then both seeds against the plain
+    version at 1,000,003 rows; timed; the nested case and Spark's golden
+    vectors."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch.ops import copying
+    from spark_rapids_tpu_torch.ops import hash as plain
+    from spark_rapids_tpu_torch.ops import hash_cuda as hc
+
+    t0 = time.perf_counter()
+    a = customer_arrays(CUST_ROWS, seed=0)
+    t = customer_table(torch, a, "cuda")
+    torch.cuda.synchronize()
+    log(f"customer table: {CUST_ROWS} rows, "
+        f"{t.nbytes() / 1e9:.3f} GB on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    reset_kernel_counters()
+    mm = api.Hash.murmurHash32(t.columns, CUST_SEED)
+    xx = api.Hash.xxhash64(t.columns, CUST_SEED)
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    launches = {"murmur": counters["row_hash"]["murmur"],
+                "xxhash": counters["row_hash"]["xxhash"]}
+    require(launches == {"murmur": 1, "xxhash": 1}
+            and counted(counters) == 2,
+            f"customer hash: counters {counters}")
+    log(f"  main path: launches {launches}, plain runs "
+        f"{counters['plain']['row_hash']}")
+
+    # the main path's own outputs against the plain version, every row
+    t0 = time.perf_counter()
+    chk.equal("row_hash_bytes", mm.data, plain.murmur_hash3_32(t, CUST_SEED)
+              .data, f"customer {CUST_ROWS} murmur3 (main path)")
+    chk.equal("row_hash_bytes", xx.data, plain.xxhash64(t, CUST_SEED).data,
+              f"customer {CUST_ROWS} xxhash64 (main path)")
+    torch.cuda.synchronize()
+    log(f"  main path's {CUST_ROWS} rows == plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    rows = np.arange(0, CUST_ROWS, CUST_ROWS // CUST_ORACLE_ROWS)
+    want_mm, want_xx = oracle_rows(a, rows)
+    idx = torch.from_numpy(rows).to("cuda")
+    got_mm = mm.data.index_select(0, idx).cpu().numpy()
+    got_xx = xx.data.index_select(0, idx).cpu().numpy()
+    for what, got, want in (("murmur3", got_mm, want_mm),
+                            ("xxhash64", got_xx, want_xx)):
+        if not np.array_equal(got, want):
+            chk.max_err["row_hash_bytes"] = max(
+                chk.max_err["row_hash_bytes"], 1)
+            raise AssertionError(
+                f"customer {what}: {int((got != want).sum())} of "
+                f"{len(rows)} strided rows differ from the Python oracle")
+        chk.n += 1
+    log(f"  {len(rows)} strided rows == the Python oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    small = copying.slice_table(t, 0, CUST_CHECK_ROWS)
+    for seed in (0, CUST_SEED):
+        chk.equal("row_hash_bytes", hc.murmur_hash3_32_cuda(small, seed).data,
+                  plain.murmur_hash3_32(small, seed).data,
+                  f"customer {CUST_CHECK_ROWS} murmur3 seed {seed}")
+        chk.equal("row_hash_bytes", hc.xxhash64_cuda(small, seed).data,
+                  plain.xxhash64(small, seed).data,
+                  f"customer {CUST_CHECK_ROWS} xxhash64 seed {seed}")
+    nested = nested_hash_table(torch, CUST_CHECK_ROWS)
+    for cols, what in ((nested, "struct, list<int32>, list<string>"),
+                       (nested[:1], "struct<int32, string>"),
+                       (nested[1:2], "list<int32>"),
+                       (nested[2:], "list<string>")):
+        chk.equal("row_hash_bytes", hc.murmur_hash3_32_cuda(cols, 42).data,
+                  plain.murmur_hash3_32(cols, 42).data,
+                  f"nested {what} at {CUST_CHECK_ROWS} rows")
+    gold = golden_phase(torch, chk)
+    torch.cuda.synchronize()
+    log(f"  {CUST_CHECK_ROWS} rows and the nested case == plain version; "
+        f"{gold} Spark golden vectors equal ({time.perf_counter() - t0:.1f} "
+        f"s)")
+
+    bounds = customer_bounds(a)
+    del small, nested
+    timing = {}
+    for form, kern, pl in (
+            ("murmur", lambda: hc.murmur_hash3_32_cuda(t, CUST_SEED),
+             lambda: plain.murmur_hash3_32(t, CUST_SEED)),
+            ("xxhash", lambda: hc.xxhash64_cuda(t, CUST_SEED),
+             lambda: plain.xxhash64(t, CUST_SEED))):
+        ms = device_ms(torch, kern, KERNEL_NAMES["row_hash_bytes"], 20)
+        cms = call_ms(torch, kern, 20)
+        pms = time_cuda(torch, pl, 2)
+        nbytes, ops_ = bounds[form]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+        timing[form] = {"ms": ms, "call_ms": cms, "plain_ms": pms,
+                        "bytes": nbytes, "ops": ops_, "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+        log(f"  {form}: device {ms!r} ms, one call {cms!r} ms, plain "
+            f"{pms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms ({nbytes} B "
+            f"-> {bytes_ms!r} ms, {ops_} ops -> {ops_ms!r} ms)")
+    del t
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timing": timing, "golden": gold,
+            "oracle_rows": len(rows)}
+
+
+# ---- phase 9 -----------------------------------------------------------------
+
+RC_ROWS = 1_048_576                # bench_row_conversion.py's large size
+RC_SOURCE = "spark_rapids_tpu_torch/ops/csrc/row_conversion.cu"
+RC_REPLACES = {
+    "to_rows": "spark_rapids_tpu/ops/row_conversion.py:165 (_to_rows_kernel;"
+               " _to_rows_concat_kernel :225: XLA ops, no pallas_call)",
+    "from_rows": "spark_rapids_tpu/ops/row_conversion.py:351 "
+                 "(_from_rows_kernel; _from_rows_slice_kernel :317: XLA ops, "
+                 "no pallas_call)"}
+# least instructions of the conversion: a load and a store per 4-byte word
+# of the row image
+RC_WORD_OPS = 2
+
+
+def rc_bench_table(torch, ncols, n, null_p=0.0):
+    """benchmarks/bench_row_conversion.py's table: the 9-kind cycle, values
+    drawn as `benchmarks/common.py` `random_fixed_table` draws them (seed
+    7); with `null_p`, every column a validity drawn from seed 8."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    cycle = [dt.INT8, dt.INT32, dt.INT16, dt.INT64, dt.INT32, dt.BOOL,
+             dt.INT16, dt.INT8, dt.INT64]
+    rng = np.random.default_rng(7)
+    vrng = np.random.default_rng(8)
+    cols = []
+    for i in range(ncols):
+        d = cycle[i % len(cycle)]
+        if d.kind == dt.Kind.BOOL:
+            arr = rng.integers(0, 2, size=n).astype(bool)
+        else:
+            npt = np.dtype(str(d.storage_dtype()).removeprefix("torch."))
+            info = np.iinfo(npt)
+            arr = rng.integers(info.min, info.max, size=n, dtype=npt,
+                               endpoint=True)
+        v = None
+        if null_p:
+            v = torch.from_numpy(vrng.random(n) >= null_p).to("cuda")
+        cols.append(Column(d, n, torch.from_numpy(arr).to("cuda"), v))
+    return Table(cols)
+
+
+def rc_bounds(table):
+    """(to_rows, from_rows) (bytes, ops) of one call: each column's values
+    and validity read (written) once, the image written (read) once."""
+    from spark_rapids_tpu_torch.ops import row_conversion as rc
+    n = table.num_rows
+    schema = [c.dtype for c in table.columns]
+    _, _, size = rc.row_layout(schema)
+    widths = sum(d.itemsize() for d in schema)
+    with_valid = sum(c.validity is not None for c in table.columns)
+    ops_ = n * (size // 4) * RC_WORD_OPS
+    return ((n * (widths + with_valid + size), ops_),
+            (n * (size + widths + len(schema)), ops_))
+
+
+def row_conversion_phase(torch, chk):
+    """Phase 9: the reference bench's tables (216 columns general, 24
+    fixed-width-optimized, and the 24 with 10% nulls; 1,048,576 rows)
+    through `api.RowConversion` both ways, counters zeroed just before and
+    read just after; each image equal to the plain version's byte for byte,
+    each round trip equal to its input, validity included; timed."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_tpu_torch.ops import row_conversion_cuda as rcc
+
+    t0 = time.perf_counter()
+    tables = {"general 216": (rc_bench_table(torch, 216, RC_ROWS), False),
+              "optimized 24": (rc_bench_table(torch, 24, RC_ROWS), True),
+              "optimized 24, 10% nulls": (
+                  rc_bench_table(torch, 24, RC_ROWS, 0.1), True)}
+    torch.cuda.synchronize()
+    log(f"row conversion: tables made ({time.perf_counter() - t0:.1f} s)")
+    reset_kernel_counters()
+    out = {}
+    for what, (t, optimized) in tables.items():
+        schema = [c.dtype for c in t.columns]
+        if optimized:
+            (rows,) = api.RowConversion.convertToRowsFixedWidthOptimized(t)
+            back = api.RowConversion.convertFromRowsFixedWidthOptimized(
+                rows, *schema)
+        else:
+            (rows,) = api.RowConversion.convertToRows(t)
+            back = api.RowConversion.convertFromRows(rows, *schema)
+        out[what] = (rows, back)
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    launches = dict(counters["row_conversion"])
+    require(launches == {"to_rows": 3, "from_rows": 3}
+            and counted(counters) == 6,
+            f"row conversion: counters {counters}")
+    log(f"  main path: launches {launches}, plain runs "
+        f"{counters['plain']['row_conversion']}")
+
+    t0 = time.perf_counter()
+    for what, (t, _) in tables.items():
+        rows, back = out[what]
+        schema = [c.dtype for c in t.columns]
+        _, _, size = rc.row_layout(schema)
+        image = rows.children[0].data
+        chk.equal("rc_to_rows", image, rc.to_rows_plain(t), f"{what} image")
+        want = rc.from_rows_plain(image.reshape(-1, size), schema)
+        for i, (got, w, orig) in enumerate(zip(back.columns, want.columns,
+                                               t.columns)):
+            chk.equal("rc_from_rows", got.data, w.data, f"{what} column {i}")
+            chk.equal("rc_from_rows", got.validity, w.validity,
+                      f"{what} column {i} validity")
+            chk.equal("rc_from_rows", got.data, orig.data,
+                      f"{what} column {i} round trip")
+            chk.equal("rc_from_rows", got.validity, orig.null_mask,
+                      f"{what} column {i} round-trip validity")
+    del out
+    torch.cuda.synchronize()
+    log(f"  images == plain version byte for byte, round trips == inputs "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    timing = {"to_rows": {}, "from_rows": {}}
+    for what, (t, _) in tables.items():
+        schema = [c.dtype for c in t.columns]
+        _, _, size = rc.row_layout(schema)
+        image = rcc.to_rows(t).reshape(-1, size)
+        calls = {"to_rows": (lambda: rcc.to_rows(t),
+                             lambda: rc.to_rows_plain(t)),
+                 "from_rows": (lambda: rcc.from_rows(image, schema),
+                               lambda: rc.from_rows_plain(image, schema))}
+        for (direction, (kern, pl)), (nbytes, ops_) in zip(
+                calls.items(), rc_bounds(t)):
+            ms = device_ms(torch, kern, f"rc_{direction}_kernel", 20)
+            cms = call_ms(torch, kern, 20)
+            pms = time_cuda(torch, pl, 3)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+            timing[direction][what] = {
+                "ms": ms, "call_ms": cms, "plain_ms": pms, "bytes": nbytes,
+                "ops": ops_, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms)}
+            log(f"  {what} {direction}: device {ms!r} ms, one call {cms!r} "
+                f"ms, plain {pms!r} ms; bound {max(bytes_ms, ops_ms)!r} ms "
+                f"({nbytes} B, {ops_} ops)")
+        del image
+    del tables
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timing": timing}
+
+
 def summed(timing, forms, **extra):
     """One kernels-line entry: the sums over the path's calls, each form's
     own numbers under `by_form`."""
@@ -4035,6 +4725,13 @@ def main(argv=None):
     ap.add_argument("--fuzz", action="store_true",
                     help="only run the plan fuzz corpus on the card "
                          "(phase 8) and print its summary")
+    ap.add_argument("--strings", action="store_true",
+                    help="only run the row hash's byte path (phase 5c) and "
+                         "the row conversion (phase 9) and print them")
+    ap.add_argument("--row-hash", action="store_true",
+                    help="only run the fixed-width row hash (phase 5) and "
+                         "print its times and headline; runs from an "
+                         "earlier tree's root too, for A/B runs")
     ap.add_argument("--walls", type=int, default=0, metavar="N",
                     help="only time N warm eager runs of q3, TPC-DS q3 and "
                          "q72 (authored, optimized), interleaved, and print "
@@ -4052,11 +4749,27 @@ def main(argv=None):
                           "walls": walls_phase(torch, args.walls)}),
               flush=True)
         return 0
+    if args.row_hash:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        cuda_build.build()
+        chk = Checks()
+        _, rh_timing, headline = row_hash_phase(torch, chk, smi)
+        print(json.dumps({"card": smi, "row_hash": rh_timing,
+                          "headline": headline, "checks": chk.n}),
+              flush=True)
+        return 0
     dadd = build_phase()
     if args.fuzz:
         chk = Checks()
         fz = fuzz_phase(torch, chk)
         print(json.dumps({"card": smi, "fuzz": fz, "checks": chk.n,
+                          "max_err": chk.max_err}), flush=True)
+        return 0
+    if args.strings:
+        chk = Checks()
+        out = {"customer_hash": customer_hash_phase(torch, chk),
+               "row_conversion": row_conversion_phase(torch, chk)}
+        print(json.dumps({"card": smi, **out, "checks": chk.n,
                           "max_err": chk.max_err}), flush=True)
         return 0
     if args.join_profile:
@@ -4089,9 +4802,11 @@ def main(argv=None):
     tk_timing = topk_phase(torch, chk)
     rh_launches, rh_timing, headline = row_hash_phase(torch, chk, smi)
     dec = decimal_phase(torch, chk)
+    cust = customer_hash_phase(torch, chk)
     pt_launches, pt_timing = partition_phase(torch, chk)
     fz = fuzz_phase(torch, chk)
     fz_e, fz_c = fz["launches"]["eager"], fz["launches"]["capped"]
+    rconv = row_conversion_phase(torch, chk)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -4286,6 +5001,29 @@ def main(argv=None):
                  library_ms=None, algorithm_chain_ms=sum(
                      t["algorithm_chain_ms"]
                      for t in dec["timing"].values()))})
+    # the row hash's byte path: the customer table's two calls (phase 5c)
+    kernels.append({
+        "name": "row_hash_bytes", "route": "cuda", "source": RH_SOURCE,
+        "replaces": RH_BYTES_REPLACES,
+        "launches": sum(cust["launches"].values()),
+        "launches_by_path": {"customer hash": cust["launches"]},
+        "exact": chk.max_err["row_hash_bytes"] == 0,
+        "max_abs_err": chk.max_err["row_hash_bytes"],
+        **summed(cust["timing"], ("murmur", "xxhash"), library_ms=None)})
+    # the row conversion: the sums over the three bench tables, one call
+    # each (phase 9)
+    rc_forms = tuple(rconv["timing"]["to_rows"])
+    for direction in ("to_rows", "from_rows"):
+        kernels.append({
+            "name": f"rc_{direction}", "route": "cuda", "source": RC_SOURCE,
+            "replaces": RC_REPLACES[direction],
+            "launches": rconv["launches"][direction],
+            "exact": chk.max_err[f"rc_{direction}"] == 0,
+            "max_abs_err": chk.max_err[f"rc_{direction}"],
+            "library": "none: no single PyTorch call computes the JCUDF "
+                       "row image",
+            **summed(rconv["timing"][direction], rc_forms,
+                     library_ms=None)})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -4313,7 +5051,8 @@ def main(argv=None):
                        "q72_inventory_join": q72_timing,
                        "c4": c4, "groupby": gb, "capped": capped,
                        "nds_q5_q23": nds_union, "decimal128": dec,
-                       "fuzz": fz},
+                       "fuzz": fz, "customer_hash": cust,
+                       "row_conversion": rconv},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

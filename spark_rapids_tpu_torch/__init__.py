@@ -10,9 +10,12 @@ Entry points take an explicit device and default to the CUDA card
 bound. The port runs NDS q3 (`nds_q3`) and q72 (`nds_q72`) through the
 plan engine's eager and capped tiers:
 fixed-width columns, filter, gather, inner/semi/anti join, group-by, sort,
-and the hash-join build/probe kernels in CUDA. It hashes rows as Spark does
+and the hash-join build/probe kernels in CUDA. Columns also hold strings,
+lists and structs (`interop.table_from_buffers` takes them from the JAX
+package's buffers). It hashes rows of every kind as Spark does
 (`ops.murmur_hash3_32`, `ops.xxhash64`, `api.Hash`) with a fused row-hash
-kernel, and counts a shuffle's partitions (`parallel.partition_ids`,
+kernel, converts tables to Spark's JCUDF rows and back
+(`api.RowConversion`, two kernels), and counts a shuffle's partitions (`parallel.partition_ids`,
 `parallel.partition_histogram`, the partition maps) with a histogram
 kernel. DECIMAL128 columns are (n, 4) uint32 limbs, and Spark's decimal
 add, subtract, multiply, divide and remainder (`ops.*_decimal128`,
@@ -22,8 +25,9 @@ are under `ops/csrc/`.
 """
 from . import dtypes
 from .columnar import Column, Table
-from .interop import table_from_numpy
+from .interop import table_from_buffers, table_from_numpy
 from .plan import PlanBuilder, PlanExecutor, col, lit
 
-__all__ = ["dtypes", "Column", "Table", "table_from_numpy", "PlanBuilder",
+__all__ = ["dtypes", "Column", "Table", "table_from_numpy",
+           "table_from_buffers", "PlanBuilder",
            "PlanExecutor", "col", "lit"]

@@ -1,15 +1,18 @@
 """Java-facing facade of the PyTorch port: the classes of spark-rapids-jni's
 Java API, mapped onto the port's ops.
 
-Counterpart of `spark_rapids_tpu/api.py`. `DecimalUtils` and `Hash` are
-ported; the other classes wait for their modules (ROADMAP queue A item 12).
+Counterpart of `spark_rapids_tpu/api.py`. `DecimalUtils`, `Hash` (every
+kind Spark hashes: fixed-width, strings, DECIMAL128, structs and, for
+murmur3, lists) and `RowConversion` are ported; the other classes wait for
+their modules (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 from . import ops
-from .columnar import Column
+from .columnar import Column, Table
+from .dtypes import DType
 
 
 class DecimalUtils:
@@ -56,3 +59,25 @@ class Hash:
     def xxhash64(columns: Sequence[Column],
                  seed: int = ops.DEFAULT_XXHASH64_SEED) -> Column:
         return ops.xxhash64(list(columns), seed=seed)
+
+
+class RowConversion:
+    """RowConversion.java:35-164."""
+
+    @staticmethod
+    def convertToRows(table: Table) -> List[Column]:
+        return ops.convert_to_rows(table)
+
+    @staticmethod
+    def convertToRowsFixedWidthOptimized(table: Table) -> List[Column]:
+        return ops.convert_to_rows_fixed_width_optimized(table)
+
+    @staticmethod
+    def convertFromRows(vec: Column, *schema: DType) -> Table:
+        return ops.convert_from_rows(vec, list(schema))
+
+    @staticmethod
+    def convertFromRowsFixedWidthOptimized(vec: Column,
+                                           *schema: DType) -> Table:
+        return ops.convert_from_rows_fixed_width_optimized(vec,
+                                                           list(schema))

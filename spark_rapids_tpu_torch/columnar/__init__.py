@@ -1,4 +1,4 @@
-from .column import Column
+from .column import Column, make_string_column
 from .table import Table
 
-__all__ = ["Column", "Table"]
+__all__ = ["Column", "Table", "make_string_column"]

@@ -6,8 +6,9 @@ kind name. Fixed-width types map 1:1 onto torch dtypes; DECIMAL32/64 are a
 physical int32/int64 plus a (precision, scale) tag; DATE32 is int32 days
 and TIMESTAMP_* int64 since the epoch. DECIMAL128 is stored as the
 reference stores it: `(n, 4)` little-endian 32-bit limbs of the two's
-complement value, in `torch.uint32`. Strings and nested types are not
-ported yet: `storage_dtype` raises for them (ROADMAP queue A item 1).
+complement value, in `torch.uint32`. STRING stores its chars as
+`torch.uint8` (its offsets are int32); LIST and STRUCT have no data buffer
+of their own and carry their element or field types as `children`.
 """
 from __future__ import annotations
 
@@ -64,6 +65,12 @@ _STORAGE = {
 }
 # storage of kinds whose rows are more than one element: (n, limbs)
 _LIMB_STORAGE = {Kind.DECIMAL128: (torch.uint32, DECIMAL128_LIMBS)}
+# bytes a row takes in Spark's row format (the reference's `itemsize`)
+_ITEMSIZE = {Kind.BOOL: 1, Kind.INT8: 1, Kind.UINT8: 1, Kind.INT16: 2,
+             Kind.INT32: 4, Kind.INT64: 8, Kind.UINT64: 8, Kind.FLOAT32: 4,
+             Kind.FLOAT64: 8, Kind.DECIMAL32: 4, Kind.DECIMAL64: 8,
+             Kind.DECIMAL128: 16, Kind.DATE32: 4, Kind.TIMESTAMP_US: 8,
+             Kind.TIMESTAMP_S: 8, Kind.TIMESTAMP_MS: 8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +78,8 @@ class DType:
     kind: Kind
     precision: Optional[int] = None   # decimals only
     scale: Optional[int] = None       # decimals only
+    children: tuple = ()              # LIST: (element,), STRUCT: (fields...)
+    field_names: tuple = ()           # STRUCT only
 
     @property
     def is_decimal(self) -> bool:
@@ -84,15 +93,26 @@ class DType:
     def is_floating(self) -> bool:
         return self.kind in (Kind.FLOAT32, Kind.FLOAT64)
 
+    @property
+    def is_nested(self) -> bool:
+        return self.kind in (Kind.LIST, Kind.STRUCT)
+
+    @property
+    def is_string(self) -> bool:
+        return self.kind == Kind.STRING
+
     def storage_dtype(self) -> torch.dtype:
-        """Physical torch dtype of the data buffer."""
+        """Physical torch dtype of the data buffer (STRING: its chars).
+        LIST and STRUCT have no data buffer and raise TypeError."""
         if self.kind in _LIMB_STORAGE:
             return _LIMB_STORAGE[self.kind][0]
+        if self.kind == Kind.STRING:
+            return torch.uint8
         try:
             return _STORAGE[self.kind]
         except KeyError:
-            raise TypeError(f"{self!r} columns are not ported yet "
-                            "(ROADMAP queue A item 1)") from None
+            raise TypeError(f"{self!r} columns have no data buffer") \
+                from None
 
     @property
     def row_shape(self) -> tuple:
@@ -102,19 +122,32 @@ class DType:
             return (_LIMB_STORAGE[self.kind][1],)
         return ()
 
+    def itemsize(self) -> int:
+        """Bytes a row takes in Spark's row format; fixed-width kinds only
+        (KeyError otherwise, as in the reference)."""
+        return _ITEMSIZE[self.kind]
+
     def __repr__(self):
         if self.is_decimal:
             return f"{self.kind.value}({self.precision},{self.scale})"
+        if self.kind == Kind.LIST:
+            return f"list<{self.children[0]!r}>"
+        if self.kind == Kind.STRUCT:
+            inner = ", ".join(f"{n}: {c!r}" for n, c in
+                              zip(self.field_names, self.children))
+            return f"struct<{inner}>"
         return self.kind.value
 
 
 BOOL = DType(Kind.BOOL)
 INT8 = DType(Kind.INT8)
+UINT8 = DType(Kind.UINT8)
 INT16 = DType(Kind.INT16)
 INT32 = DType(Kind.INT32)
 INT64 = DType(Kind.INT64)
 FLOAT32 = DType(Kind.FLOAT32)
 FLOAT64 = DType(Kind.FLOAT64)
+STRING = DType(Kind.STRING)
 DATE32 = DType(Kind.DATE32)
 TIMESTAMP_US = DType(Kind.TIMESTAMP_US)
 
@@ -131,6 +164,15 @@ def decimal(precision: int, scale: int) -> DType:
     else:
         kind = Kind.DECIMAL128
     return DType(kind, precision=precision, scale=scale)
+
+
+def list_(element: DType) -> DType:
+    return DType(Kind.LIST, children=(element,))
+
+
+def struct(**fields: DType) -> DType:
+    return DType(Kind.STRUCT, children=tuple(fields.values()),
+                 field_names=tuple(fields.keys()))
 
 
 def from_torch(dt: torch.dtype) -> DType:

@@ -3,8 +3,13 @@
 `murmur_hash3_32` and `xxhash64` run the fused row-hash kernel on a CUDA
 table and the plain version on a CPU one (`hash_cuda`); the five decimal
 ops (`decimal_utils`) run the decimal kernel on CUDA columns and the plain
-version on CPU ones. The hash-join kernels (`join_cuda`) are imported
-lazily, by the kernel registry, at the first `hash_join` dispatch.
+version on CPU ones. The hash takes every kind Spark hashes: strings,
+DECIMAL128, structs and (murmur3) lists too. The JCUDF row conversion
+(`convert_to_rows`, `convert_from_rows` and their fixed-width-optimized
+forms) selects the registry's `row_conversion` op: the row-conversion
+kernels on the card, the plain version on the CPU. The hash-join kernels
+(`join_cuda`) are imported lazily, by the kernel registry, at the first
+`hash_join` dispatch.
 """
 from .aggregate import groupby_aggregate
 from .decimal_utils import (add_decimal128, sub_decimal128,
@@ -16,6 +21,10 @@ from .hash_cuda import fused_row_hash, murmur_hash3_32, xxhash64
 from .join import (full_join, inner_join, inner_join_capped, left_join,
                    left_join_capped, left_semi_join, left_anti_join,
                    semi_join_mask)
+from .row_conversion import (convert_from_rows,
+                             convert_from_rows_fixed_width_optimized,
+                             convert_to_rows,
+                             convert_to_rows_fixed_width_optimized)
 from .sort import sort_table, sorted_order
 
 __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
@@ -25,4 +34,6 @@ __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "left_anti_join", "semi_join_mask",
            "sort_table", "sorted_order", "add_decimal128", "sub_decimal128",
            "multiply_decimal128", "divide_decimal128",
-           "remainder_decimal128"]
+           "remainder_decimal128", "convert_to_rows",
+           "convert_to_rows_fixed_width_optimized", "convert_from_rows",
+           "convert_from_rows_fixed_width_optimized"]

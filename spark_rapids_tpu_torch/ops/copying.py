@@ -2,9 +2,10 @@
 
 Counterpart of `concat_columns`, `concat_tables` and `slice_table` in
 `spark_rapids_tpu/ops/copying.py`, which serve the plan engine's Union,
-Limit and the TopK fallback's sort-then-slice. `slice_table` is a gather
-and takes DECIMAL128 limbs too; the concats take fixed-width columns only:
-strings, DECIMAL128 and nested columns wait for ROADMAP queue A item 1.
+Limit and the TopK fallback's sort-then-slice. Both take every kind:
+`slice_table` is a gather, and a concat of STRING or LIST columns shifts
+each later column's offsets by the chars or child rows before it, as the
+reference's does (`copying.py:28-56`).
 """
 from __future__ import annotations
 
@@ -15,9 +16,6 @@ import torch
 from ..columnar import Column, Table
 from ..dtypes import Kind
 from .gather import take_table
-
-_UNPORTED_KINDS = (Kind.STRING, Kind.DECIMAL128, Kind.LIST, Kind.STRUCT)
-
 
 def concat_columns(cols: Sequence[Column]) -> Column:
     """Same-dtype columns end to end (cudf::concatenate), in one copy. The
@@ -31,14 +29,30 @@ def concat_columns(cols: Sequence[Column]) -> Column:
         if c.dtype != first.dtype:
             raise TypeError(f"concat dtype mismatch: {first.dtype} vs "
                             f"{c.dtype}")
-    if first.dtype.kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"concat of {first.dtype.kind.value} columns: ROADMAP.md queue A "
-            f"item 1 ports them")
     n = sum(c.length for c in cols)
     validity = None
     if any(c.validity is not None for c in cols):
         validity = torch.cat([c.null_mask for c in cols])
+    k = first.dtype.kind
+    if k == Kind.STRUCT:
+        kids = tuple(concat_columns([c.children[i] for c in cols])
+                     for i in range(len(first.children)))
+        return Column(first.dtype, n, None, validity, None, kids)
+    if k in (Kind.STRING, Kind.LIST):
+        # each column's offsets shift by the chars (child rows) before it;
+        # one shift a column, added on the device
+        sizes = [c.data.shape[0] if k == Kind.STRING else c.offsets[-1:]
+                 for c in cols]
+        parts, base = [cols[0].offsets], sizes[0]
+        for c, size in zip(cols[1:], sizes[1:]):
+            parts.append(c.offsets[1:] + base)
+            base = base + size
+        offsets = torch.cat(parts).to(torch.int32)
+        if k == Kind.STRING:
+            return Column(first.dtype, n, torch.cat([c.data for c in cols]),
+                          validity, offsets)
+        child = concat_columns([c.children[0] for c in cols])
+        return Column(first.dtype, n, None, validity, offsets, (child,))
     return Column(first.dtype, n, torch.cat([c.data for c in cols]),
                   validity)
 

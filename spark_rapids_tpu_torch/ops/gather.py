@@ -1,10 +1,12 @@
 """Row gather (`take`) over columns and tables, and the boolean-mask filter.
 
-Counterpart of `spark_rapids_tpu/ops/gather.py` for fixed-width and
-DECIMAL128 columns: a gather takes whole rows of the data buffer, so a
-DECIMAL128 column's (n, 4) limbs move as a payload through `compact()` and
-joins. An index of -1 yields a null output row (cudf's out-of-bounds
-NULLIFY).
+Counterpart of `spark_rapids_tpu/ops/gather.py`. A fixed-width gather
+takes whole rows of the data buffer, so a DECIMAL128 column's (n, 4) limbs
+move as a payload through `compact()` and joins. A STRING or LIST gather
+takes the gathered rows' lengths, scans them into new offsets and gathers
+the chars or child rows of each span (the reference's two-pass pattern,
+`gather.py:55-83`); a STRUCT gathers each field. An index of -1 yields a
+null output row (cudf's out-of-bounds NULLIFY) with no chars or elements.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional, Union
 import torch
 
 from ..columnar import Column, Table
+from ..dtypes import Kind
 
 
 def _rows(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -46,7 +49,43 @@ def take(col: Column, idx: torch.Tensor,
             validity = validity & ~nullify
     elif _has_negative:
         validity = ~nullify
+    k = col.dtype.kind
+    if k == Kind.STRUCT:
+        kids = tuple(take(c, idx, _has_negative=_has_negative)
+                     for c in col.children)
+        return Column(col.dtype, m, None, validity, None, kids)
+    if k in (Kind.STRING, Kind.LIST):
+        offsets, src = _spans(col.offsets, safe,
+                              nullify if _has_negative else None)
+        if k == Kind.STRING:
+            return Column(col.dtype, m, col.data.index_select(0, src),
+                          validity, offsets)
+        child = take(col.children[0], src, _has_negative=False)
+        return Column(col.dtype, m, None, validity, offsets, (child,))
     return Column(col.dtype, m, _rows(col.data, safe), validity)
+
+
+def _spans(offsets: torch.Tensor, idx: torch.Tensor,
+           empty: Optional[torch.Tensor]):
+    """New (m+1,) int32 offsets of rows idx of a STRING or LIST column and
+    the int64 positions in its chars or child of every gathered element,
+    in order; rows where `empty` is True take none."""
+    starts = offsets[:-1].index_select(0, idx).to(torch.int64)
+    lens = (offsets[1:].index_select(0, idx) - offsets[:-1].index_select(
+        0, idx)).to(torch.int64)
+    if empty is not None:
+        lens = torch.where(empty, torch.zeros_like(lens), lens)
+    out = torch.zeros(idx.shape[0] + 1, dtype=torch.int64,
+                      device=offsets.device)
+    torch.cumsum(lens, 0, out=out[1:])
+    total = int(out[-1])                      # host sync: the output size
+    row = torch.repeat_interleave(
+        torch.arange(idx.shape[0], device=offsets.device), lens,
+        output_size=total)
+    src = starts.index_select(0, row) + (
+        torch.arange(total, device=offsets.device)
+        - out[:-1].index_select(0, row))
+    return out.to(torch.int32), src
 
 
 def take_table(table: Table, idx: torch.Tensor,

@@ -36,7 +36,7 @@ import torch
 
 from .. import dtypes
 from ..columnar import Column, Table
-from .sort import _key_operands, lex_order
+from .sort import _key_operands, check_key_kind, lex_order
 
 __all__ = ["inner_join", "left_join", "full_join", "left_semi_join",
            "left_anti_join", "inner_join_capped", "left_join_capped",
@@ -65,6 +65,7 @@ def _side_valid(cols: Sequence[Column], n: int, device,
 
 
 def _concat(a: Column, b: Column) -> Column:
+    check_key_kind(a)
     if a.dtype != b.dtype:
         raise TypeError(f"join key dtypes differ: {a.dtype!r} vs {b.dtype!r}")
     validity = None

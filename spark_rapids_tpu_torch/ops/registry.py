@@ -92,6 +92,7 @@ class KernelChoice:
 _PROVIDERS = {
     "groupby": "spark_rapids_tpu_torch.ops.groupby_cuda",
     "hash_join": "spark_rapids_tpu_torch.ops.join_cuda",
+    "row_conversion": "spark_rapids_tpu_torch.ops.row_conversion_cuda",
     "fused_select": "spark_rapids_tpu_torch.ops.select_cuda",
     "topk": "spark_rapids_tpu_torch.ops.topk_cuda",
 }

@@ -47,13 +47,20 @@ def _float_total_order(x: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, ~b ^ sign_bit, b)
 
 
+def check_key_kind(col: Column) -> None:
+    """TypeError naming ROADMAP queue A item 3 for the key kinds not
+    ported yet: strings, DECIMAL128 and nested columns."""
+    if col.dtype.kind in (Kind.DECIMAL128, Kind.STRING, Kind.LIST,
+                          Kind.STRUCT):
+        raise TypeError(f"{col.dtype!r} sort, join and group keys are not "
+                        "ported yet (ROADMAP queue A item 3)")
+
+
 def _key_operands(col: Column, ascending: bool,
                   null_precedence: Optional[str]) -> List[torch.Tensor]:
     """Orderable operand list for one key column."""
+    check_key_kind(col)
     k = col.dtype.kind
-    if k == Kind.DECIMAL128:
-        raise TypeError("DECIMAL128 sort, join and group keys are not "
-                        "ported yet (ROADMAP queue A item 3)")
     if k == Kind.BOOL:
         ops = [col.data.to(torch.int32)]
     elif k in _ORDERABLE_INTS:

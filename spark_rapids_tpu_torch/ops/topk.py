@@ -202,9 +202,9 @@ def describe_keys(table: Table, keys: Sequence[str],
     for i, (name, asc) in enumerate(zip(keys, ascending)):
         col = table[name]
         k = col.dtype.kind
-        if k.value not in _SUPPORTED_KINDS:     # DECIMAL128: queue A item 3
+        if k.value not in _SUPPORTED_KINDS:
             raise TypeError(f"the TopK kernels do not take {col.dtype!r} "
-                            "keys")
+                            "keys (ROADMAP queue A item 3)")
         kind = (KIND_BOOL if k == Kind.BOOL else
                 KIND_F32 if k == Kind.FLOAT32 else
                 KIND_F64 if k == Kind.FLOAT64 else KIND_INT)

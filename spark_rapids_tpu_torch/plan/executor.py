@@ -83,6 +83,13 @@ _OPT_CACHE_SIZE = 64     # rewrites kept per executor, oldest dropped first
 _PROGRAM_CACHE_SIZE = 64     # capped programs kept per executor
 _CAPS_MEMO_SIZE = 256        # plans whose grown caps are kept
 
+def _check_keys(cols) -> None:
+    """Key kinds not ported yet raise TypeError naming their ROADMAP item
+    before any kernel is chosen (`sort.check_key_kind`)."""
+    for c in cols:
+        sort.check_key_kind(c)
+
+
 def _bounded_put(cache: Dict, key, value, size: int) -> None:
     """cache[key] = value, dropping the oldest entry past `size`."""
     if key not in cache and len(cache) >= size:
@@ -362,6 +369,7 @@ class PlanExecutor:
             lt, rt = childs
             lkeys = [lt[k] for k in node.left_keys]
             rkeys = [rt[k] for k in node.right_keys]
+            _check_keys(lkeys + rkeys)
             from ..ops import join_cuda
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "eager")
             if node.how == "inner":
@@ -387,6 +395,7 @@ class PlanExecutor:
             (t,) = childs
             if not node.keys:
                 return self._global_aggregate(t, node)
+            _check_keys([t[k] for k in node.keys])
             aggs = [(c, o) for c, o, _ in node.aggs]
             choice = self._kernel_choice(
                 "groupby", groupby_cuda.make_signature(t, aggs, "eager"),
@@ -401,6 +410,7 @@ class PlanExecutor:
                                    ascending=list(node.ascending))
         if isinstance(node, TopK):
             (t,) = childs
+            _check_keys([t[k] for k in node.keys])
             choice = self._kernel_choice(
                 "topk",
                 topk.make_signature(t, node.keys, node.ascending, node.n,
@@ -640,6 +650,7 @@ class PlanExecutor:
             l, r = childs
             lkeys = [l.table[k] for k in node.left_keys]
             rkeys = [r.table[k] for k in node.right_keys]
+            _check_keys(lkeys + rkeys)
             from ..ops import join_cuda
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "capped")
             if node.how == "inner":
@@ -669,6 +680,7 @@ class PlanExecutor:
                 t = self._global_aggregate(c.table, node, alive=c.alive)
                 return _CappedRel(t, torch.ones(1, dtype=torch.bool,
                                                 device=t.device)), None
+            _check_keys([c.table[k] for k in node.keys])
             aggs = [(cn, o) for cn, o, _ in node.aggs]
             choice = pick("groupby", groupby_cuda.make_signature(
                 c.table, aggs, "capped"))
@@ -690,6 +702,7 @@ class PlanExecutor:
             # the first n live rows by an inclusive prefix count. Capped
             # operators downstream take any row count.
             (c,) = childs
+            _check_keys([c.table[k] for k in node.keys])
             choice = pick("topk",
                           topk.make_signature(c.table, node.keys,
                                               node.ascending, node.n,

@@ -127,7 +127,13 @@ class ColumnRef(Expr):
         return frozenset((self.name,))
 
     def _eval(self, table, alive=None):
-        return table[self.name].data, False
+        c = table[self.name]
+        if c.dtype.is_string or c.dtype.is_nested:
+            raise TypeError(f"{c.dtype!r} column {self.name!r} in an "
+                            "expression: plan expressions over strings and "
+                            "nested columns are not ported yet (ROADMAP "
+                            "queue A item 5)")
+        return c.data, False
 
     def __repr__(self):
         return self.name

@@ -145,6 +145,37 @@ def test_concatenated_jax_table_round_trip_with_mixed_validity():
             assert vy[40:].all()         # the side without validity
 
 
+def test_jax_nested_round_trip_with_nulls():
+    """STRING, LIST and STRUCT columns, nested two deep with nulls at every
+    level, beside flat ones: the JAX table's numpy buffers
+    (`interop.table_from_buffers`) rebuild the same table in the port,
+    every buffer bit for bit, and the port's buffers rebuild the JAX one."""
+    from spark_rapids_tpu_torch import table_from_buffers
+    from test_torch_strings import (assert_same, buffers, jax_dtype,
+                                    nested_pair)
+    jflat = _jax_table(n=31, seed=5).columns[:3]
+    jnested, _ = nested_pair(seed=9, n=31)
+    jcols = list(jflat) + jnested + [JColumn.from_pylist(
+        ["", None, "héllo", "x" * 40] * 7 + ["end", None, "z"], jdt.STRING)]
+    jt = JTable(jcols, names=[f"c{i}" for i in range(len(jcols))])
+    t = table_from_buffers(jt.names, [buffers(c) for c in jt.columns],
+                           device="cpu")
+    assert t.names == jt.names and t.num_rows == 31
+    for jc, tc in zip(jt.columns, t.columns):
+        assert_same(tc, jc)
+
+    def back(tc):
+        def arr(x):
+            return None if x is None else np.asarray(x.numpy())
+        return JColumn(dtype=jax_dtype(tc.dtype), length=tc.length,
+                       data=arr(tc.data), validity=arr(tc.validity),
+                       offsets=arr(tc.offsets),
+                       children=tuple(back(k) for k in tc.children))
+    assert JTable([back(c) for c in t.columns],
+                  names=t.names).to_pydict() == jt.to_pydict()
+    assert t.to_pydict() == jt.to_pydict()
+
+
 def test_kind_names_and_pylist():
     t = table_from_numpy(["a", "d"], [np.array([1, 2, 3], np.int64),
                                       np.array([10, 11, 12], np.int32)],
@@ -161,8 +192,11 @@ def test_kind_names_and_pylist():
 def test_column_checks_and_device_moves():
     with pytest.raises(TypeError):
         Column(tdt.INT64, 2, torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(TypeError, match="not ported"):
-        tdt.DType(tdt.Kind.STRING).storage_dtype()
+    assert tdt.STRING.storage_dtype() == torch.uint8
+    with pytest.raises(TypeError, match="no data buffer"):
+        tdt.list_(tdt.INT32).storage_dtype()
+    with pytest.raises(ValueError, match="offsets"):
+        Column(tdt.STRING, 2, torch.zeros(3, dtype=torch.uint8))
     c = Column.from_numpy(np.arange(4, dtype=np.int64), tdt.INT64,
                           np.array([1, 0, 1, 1], bool), device="cpu")
     t = Table([c], ["x"]).to("cpu")

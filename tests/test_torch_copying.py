@@ -137,11 +137,12 @@ def test_errors_match_the_reference():
             fn([a, b])
 
 
-def test_unported_kinds_name_their_roadmap_item(monkeypatch):
-    """A string column cannot be built in the port yet; concat names the
-    item that brings it, should one reach it."""
-    col = Column.from_numpy(np.arange(2, dtype=np.int64), tdt.INT64,
-                            device="cpu")
-    monkeypatch.setattr(copying, "_UNPORTED_KINDS", (tdt.Kind.INT64,))
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        copying.concat_tables([Table([col], ["a"]), Table([col], ["a"])])
+def test_unported_kinds_name_their_roadmap_item():
+    """String columns concatenate now; as sort keys they are not ported
+    yet, and say which ROADMAP item brings them."""
+    from spark_rapids_tpu_torch.ops import sort
+    col = Column.from_pylist(["a", None, "bcd"], tdt.STRING, device="cpu")
+    t = copying.concat_tables([Table([col], ["a"]), Table([col], ["a"])])
+    assert t["a"].to_pylist() == ["a", None, "bcd"] * 2
+    with pytest.raises(TypeError, match="queue A item 3"):
+        sort.sorted_order(t)

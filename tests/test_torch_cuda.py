@@ -1153,3 +1153,141 @@ def test_scalar_subquery_predicates_on_the_card():
     for fn in (select_cuda.fused_select_cuda, select.fused_select_plain):
         with pytest.raises(ValueError, match="zero-size"):
             fn(empty, pred, ["sel"])
+
+
+# ---- the row hash's byte path and the row conversion --------------------------
+
+def _byte_rows(rng, n, max_len, null_p):
+    return [None if rng.random() < null_p else
+            bytes(rng.integers(0, 256, int(rng.integers(0, max_len + 1)),
+                               dtype=np.uint8))
+            for _ in range(n)]
+
+
+def _hash_byte_cases(n):
+    """(what, columns on the card): strings at the tail and stripe edges,
+    empty and all-null columns, DECIMAL128, structs and lists."""
+    rng = np.random.default_rng(31)
+    edge = [bytes(rng.integers(0, 256, k, dtype=np.uint8))
+            for k in (0, 3, 4, 31, 32, 33)] * (n // 6 + 1)
+    s = Column.from_pylist(edge[:n], tdt.STRING, device="cuda")
+    r = Column.from_pylist(_byte_rows(rng, n, 80, 0.1), tdt.STRING,
+                           device="cuda")
+    decs = [None if rng.random() < 0.1 else
+            int(rng.integers(-2**62, 2**62)) * int(rng.integers(1, 2**62))
+            for _ in range(n)]
+    d = Column.from_pylist(decs, tdt.decimal(38, 2), device="cuda")
+    none = Column.from_pylist([None] * n, tdt.STRING, device="cuda")
+    empty = Column.from_pylist([""] * n, tdt.STRING, device="cuda")
+    i32 = Column.from_pylist([int(x) for x in rng.integers(-9, 9, n)],
+                             tdt.INT32, device="cuda")
+    st = Column.make_struct(torch.tensor(rng.random(n) > 0.2, device="cuda"),
+                            a=i32, b=r)
+    lens = rng.integers(0, 9, n)
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                        dtype=torch.int32, device="cuda")
+    m = int(lens.sum())
+    li = Column.make_list(offs, Column.from_pylist(
+        [None if k % 7 == 0 else k for k in range(m)], tdt.INT32,
+        device="cuda"), torch.tensor(rng.random(n) > 0.1, device="cuda"))
+    ls = Column.make_list(offs, Column.from_pylist(
+        _byte_rows(rng, m, 40, 0.1), tdt.STRING, device="cuda"))
+    ll = Column.make_list(torch.arange(0, n + 1, dtype=torch.int32,
+                                       device="cuda"), li)
+    return [("edge strings", [s]), ("random strings", [r]),
+            ("decimal128", [d]), ("all null and empty", [none, empty]),
+            ("mixed", [s, d, i32, r]), ("struct", [st]),
+            ("list<int32>", [li]), ("list<string>", [ls]),
+            ("list<list<int32>>", [ll, s]),
+            ("41 columns", [s, d, i32, r, st] * 8 + [li])]
+
+
+@pytest.mark.parametrize("n", [0, 1, 4099])
+def test_row_hash_byte_path_equals_plain_version(n):
+    _need_card()
+    hash_cuda.reset_counters()
+    for what, cols in _hash_byte_cases(n):
+        nested = any(c.dtype.is_nested for c in cols)
+        for seed in (0, 42):
+            got = hash_cuda.murmur_hash3_32(cols, seed)
+            assert torch.equal(got.data,
+                               thash.murmur_hash3_32(cols, seed).data), what
+            if nested:
+                with pytest.raises(TypeError):
+                    hash_cuda.xxhash64(cols, seed)
+                continue
+            assert torch.equal(hash_cuda.xxhash64(cols, seed).data,
+                               thash.xxhash64(cols, seed).data), what
+            m, x = hash_cuda.fused_row_hash(cols, seed)
+            assert torch.equal(m.data, thash.murmur_hash3_32(cols,
+                                                             seed).data)
+            assert torch.equal(x.data, thash.xxhash64(cols).data)
+    torch.cuda.synchronize()
+    assert hash_cuda.PLAIN_CALLS == {"murmur": 0, "xxhash": 0, "fused": 0}
+    assert (sum(hash_cuda.LAUNCHES.values()) > 0) == (n > 0)
+
+
+def _bytes(t):
+    """A tensor's bytes on the host (NaN payloads compare as bits)."""
+    return t.cpu().numpy().tobytes()
+
+
+def _rc_table(ncols, n, null_p, seed=0):
+    rng = np.random.default_rng(seed)
+    kinds = [(np.int8, tdt.INT8), (np.int16, tdt.INT16),
+             (np.int32, tdt.INT32), (np.int64, tdt.INT64),
+             (np.float32, tdt.FLOAT32), (np.float64, tdt.FLOAT64),
+             (np.bool_, tdt.BOOL), (np.int32, tdt.DATE32),
+             (np.int64, tdt.TIMESTAMP_US), (np.uint8, tdt.UINT8),
+             (np.uint32, tdt.decimal(38, 4))]
+    cols = []
+    for i in range(ncols):
+        npt, dt = kinds[i % len(kinds)]
+        shape = (n, 4) if dt.kind == tdt.Kind.DECIMAL128 else (n,)
+        a = rng.integers(0, 256, shape + (np.dtype(npt).itemsize,),
+                         dtype=np.uint8).view(npt).reshape(shape)
+        if npt is np.bool_:
+            a = rng.random(n) > 0.5
+        v = None
+        if null_p == 1.0:
+            v = np.zeros(n, bool)
+        elif null_p and i % 2:
+            v = rng.random(n) > null_p
+        cols.append(Column.from_numpy(a, dt, v, device="cuda"))
+    return Table(cols)
+
+
+@pytest.mark.parametrize("ncols,n,null_p", [(1, 3001, 0.0), (9, 3001, 0.1),
+                                            (17, 0, 0.1), (24, 1, 1.0),
+                                            (24, 4099, 0.1),
+                                            (216, 2048, 0.1)])
+def test_row_conversion_kernels_equal_plain_version(ncols, n, null_p):
+    from spark_rapids_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_tpu_torch.ops import row_conversion_cuda as rcc
+    _need_card()
+    t = _rc_table(ncols, n, null_p, seed=ncols)
+    schema = [c.dtype for c in t.columns]
+    rcc.reset_counters()
+    (rows,) = rc.convert_to_rows(t)
+    back = rc.convert_from_rows(rows, schema)
+    torch.cuda.synchronize()
+    assert rcc.PLAIN_CALLS == {"to_rows": 0, "from_rows": 0}
+    assert rcc.LAUNCHES == ({"to_rows": 1, "from_rows": 1} if n else
+                            {"to_rows": 0, "from_rows": 0})
+    assert torch.equal(rows.children[0].data, rc.to_rows_plain(t))
+    _, _, size = rc.row_layout(schema)
+    want = rc.from_rows_plain(rows.children[0].data.reshape(-1, size),
+                              schema)
+    for got, w, orig in zip(back.columns, want.columns, t.columns):
+        assert _bytes(got.data) == _bytes(w.data) == _bytes(orig.data)
+        assert torch.equal(got.validity, w.validity)
+        assert torch.equal(got.validity, orig.null_mask)
+
+
+def test_row_conversion_forced_plain_raises_on_the_card(monkeypatch):
+    from spark_rapids_tpu_torch.ops import row_conversion as rc
+    from spark_rapids_tpu_torch.ops.registry import KernelDeclinedError
+    _need_card()
+    monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", "row_conversion=torch")
+    with pytest.raises(KernelDeclinedError):
+        rc.convert_to_rows(_rc_table(3, 10, 0.0))

@@ -494,10 +494,12 @@ def test_decimal_columns_gather_and_keys_raise_by_item():
         sort.sorted_order(t)
     with pytest.raises(TypeError, match="queue A item 3"):
         join.inner_join(t, t)
-    with pytest.raises(TypeError, match="queue A item 2"):
-        thash.murmur_hash3_32([c])
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        copying.concat_columns([c, c])
+    # hashed as Java BigDecimal bytes, a null row passing the seed through
+    got = thash.murmur_hash3_32([c], 42).to_pylist()
+    assert got[1] == 42 and got[3] == thash.murmur_hash3_32(
+        [Column.from_pylist([0], tdt.decimal(38, 2), device="cpu")],
+        42).to_pylist()[0]
+    assert copying.concat_columns([c, c]).to_pylist() == vals + vals
     with pytest.raises(ValueError, match="does not match"):
         Column(tdt.decimal(38, 2), 5, c.data[:, :2].contiguous())
     with pytest.raises(TypeError):

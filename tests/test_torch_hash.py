@@ -14,7 +14,6 @@ subnormals to zero, so it hashes them as +/-0.0; the port reads the bits
 and hashes them as Spark does (`test_f64_subnormals_follow_spark`, ROADMAP
 queue C).
 """
-import types
 
 import numpy as np
 import numpy.testing as npt
@@ -381,13 +380,16 @@ def test_kinds_the_hash_does_not_take():
     with pytest.raises(TypeError):
         ops.xxhash64([ts_s])
     assert not hash_cuda.supports([ts_s])
-    # strings exist in the reference but not yet in the port's Column
-    s = types.SimpleNamespace(dtype=tdt.DType(tdt.Kind.STRING), length=3,
-                              validity=None, device=torch.device("cpu"))
-    with pytest.raises(TypeError, match="queue A item 1"):
-        thash.murmur_hash3_32([s])
-    with pytest.raises(TypeError, match="queue A item 1"):
-        thash.xxhash64([s])
+    # the nested forms the reference rejects: a LIST of STRUCT (murmur3)
+    # and any nested column (xxhash64)
+    st = TColumn.from_pylist([{"v": 1}, {"v": 2}], tdt.struct(v=tdt.INT32),
+                             device="cpu")
+    lst = TColumn.make_list(torch.tensor([0, 1, 2], dtype=torch.int32), st)
+    assert not hash_cuda.supports([lst]) and hash_cuda.supports([st])
+    with pytest.raises(TypeError, match="LIST of STRUCT"):
+        thash.murmur_hash3_32([lst])
+    with pytest.raises(TypeError, match="nested"):
+        thash.xxhash64([st])
 
 
 # ---- the plain versions' arithmetic and the wrappers ---------------------------

@@ -8,9 +8,9 @@ through both verifiers; the violations' invariant names must be equal
 (SPARK_RAPIDS_TPU_VERIFY_PLANS, SPARK_RAPIDS_TORCH_VERIFY_PLANS) raise on
 the same plans.
 
-The string column of the reference's `test_string_columns_pass_through_
-clean` exists in the port only as a dtype (strings wait for ROADMAP queue
-A item 1), so its typing half runs here and its execution half does not.
+The reference's `test_string_columns_pass_through_clean` runs its typing
+half here; its execution half groups a string column's min, which the
+port's aggregates do not take yet (ROADMAP queue A item 3).
 """
 import types
 
