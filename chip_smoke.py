@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fuzz       # the plan fuzz corpus only
     python3 chip_smoke.py --strings    # phases 5c and 9 only
     python3 chip_smoke.py --row-hash   # the fixed-width row hash only (A/B)
+    python3 chip_smoke.py --keys       # phase 10 only (string/decimal keys)
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
@@ -176,7 +177,28 @@ in phases that each raise on failure:
    the plain version's and to its input, validity included; then each
    direction timed beside its bytes bound and the plain version. Alone
    with 5c: `python3 chip_smoke.py --strings`;
-10. prints one `{"kernels": [...]}` line, then as the last line
+10. string, DECIMAL128 and float keys: the hash join's variable-width
+   kernels (`hj_*_var`) against their plain versions and the sort-based
+   join on both routes (edge strings: empty, a NUL byte, shared
+   prefixes, multi-byte UTF-8, bytes of 0x80 and up, an all-empty chars
+   buffer; DECIMAL128 at +-(10^38 - 1); floats with +-0.0 and four NaN
+   payloads; two-key mixes; the capped form with alive masks); TopK with
+   STRING and DECIMAL128 keys (both directions, both routes, a 97-word
+   tuple declining) and FusedSelect with STRING and DECIMAL128 payloads
+   against their plain versions; queue C 7's float join through
+   `PlanExecutor()`; STRING and DECIMAL128 group keys and string min/max
+   through the groupby kernel against the CPU run; DECIMAL128 and float
+   keys in the capped tier against the eager and CPU runs, and a STRING
+   key raising there; TPC-DS q3 with its STRING i_brand at 10M rows and
+   q74 at 10M + 2.5M sales rows and 500,000 customers, authored and
+   optimized, every kernel counter zeroed just before each counted run:
+   the variable-width join launched on q74's three string joins,
+   FusedSelect and TopK on the optimized forms, no plain run; each equal
+   to numpy and to the CPU run at a tenth of the rows; warm walls and
+   idle shares; then the three kernels' new kinds timed at q74's and
+   q3's shapes and the sort's cost in q74's store aggregate. Alone:
+   `python3 chip_smoke.py --keys`;
+11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
 Each kernel is timed by its device time from torch.profiler's kernel
@@ -242,6 +264,12 @@ KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel<false>",
                                  "fs_compact_kernel"),
                 "topk": ("tk_threshold_kernel", "tk_select_kernel",
                          "tk_merge_kernel"),
+                # the DECIMAL128 and STRING forms
+                "fused_select_wide": ("fs_count_kernel<int>",
+                                      "fs_count_kernel<longlong>",
+                                      "fs_compact_wide_kernel"),
+                "topk_var": ("tk_threshold_var_kernel",
+                             "tk_select_var_kernel", "tk_merge_kernel"),
                 "decimal128": tuple(f"decimal_kernel<{k}>"
                                     for k in range(4))}
 SOURCE = "spark_rapids_tpu_torch/ops/csrc/hash_join.cu"
@@ -352,11 +380,15 @@ class Checks:
                         "emit_large": 0, "segment_sum": 0, "groupby": 0,
                         "capped_join": 0, "capped_topk": 0, "plans": 0,
                         "decimal128": 0, "fuzz": 0, "row_hash_bytes": 0,
-                        "rc_to_rows": 0, "rc_from_rows": 0}
+                        "rc_to_rows": 0, "rc_from_rows": 0, "build_var": 0,
+                        "count_var": 0, "emit_var": 0, "topk_keys": 0,
+                        "fused_select_keys": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
         import torch
+        if a.dtype == torch.uint32 and b.dtype == torch.uint32:
+            a, b = a.view(torch.int32), b.view(torch.int32)   # DECIMAL128
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{what}: shape/dtype {tuple(a.shape)} "
                                  f"{a.dtype} vs {tuple(b.shape)} {b.dtype}")
@@ -387,6 +419,9 @@ class Checks:
                            f"{what} {name}")
             else:
                 self.equal(kernel, a.data, b.data, f"{what} {name}")
+            if a.offsets is not None:
+                self.equal(kernel, a.offsets, b.offsets,
+                           f"{what} {name} offsets")
             if (a.validity is None) != (b.validity is None):
                 self.max_err[kernel] = max(self.max_err[kernel], 1)
                 raise AssertionError(f"{what} {name}: validity present on "
@@ -396,43 +431,44 @@ class Checks:
                            f"{what} {name} validity")
 
 
-def check_case(chk, jc, join, pcols, bcols, what):
+def check_case(chk, jc, join, pcols, bcols, what, suffix=""):
     """Every kernel of one join against its plain version on the card: the
     table, the counts, tile sums and offsets, segment sums, matched rows
     and lists, the total (the offsets and total also against torch.cumsum
-    of the counts) and both maps (also against the sort-based fallback)."""
+    of the counts) and both maps (also against the sort-based fallback).
+    `suffix` names the kernels' instantiation in the checks' records."""
     import torch
     C = jc._capacity(bcols[0].length)
     tk = jc.build_table_cuda(bcols, C)
     tp = jc.build_table_plain(bcols, C)
-    chk.equal("build", tk.slot_row, tp.slot_row, f"{what} slot_row")
-    chk.equal("build", tk.slot_hash, tp.slot_hash, f"{what} slot_hash")
+    chk.equal("build" + suffix, tk.slot_row, tp.slot_row, f"{what} slot_row")
+    chk.equal("build" + suffix, tk.slot_hash, tp.slot_hash, f"{what} slot_hash")
     pk = jc.probe_counts_cuda(pcols, tk, bcols)
     pp = jc.probe_counts_plain(pcols, tp, bcols)
     for name in ("counts", "tile_sums", "tile_offsets", "seg_sums",
                  "seg_matched", "total"):
-        chk.equal("count", getattr(pk, name), getattr(pp, name),
+        chk.equal("count" + suffix, getattr(pk, name), getattr(pp, name),
                   f"{what} {name}")
     # each segment's list of matched rows, as far as the segment has them
     at = torch.arange(pk.counts.shape[0], device=pk.counts.device)
     listed = (at % pk.seg) < pk.seg_matched.index_select(0, at // pk.seg)
-    chk.equal("count", pk.entries[listed], pp.entries[listed],
+    chk.equal("count" + suffix, pk.entries[listed], pp.entries[listed],
               f"{what} entries")
     c64 = pk.counts.to(torch.int64)
     incl = torch.cumsum(c64, 0)
     first = torch.arange(0, c64.shape[0], jc.TILE, device=c64.device)
-    chk.equal("count", pk.tile_offsets, (incl - c64).index_select(0, first),
+    chk.equal("count" + suffix, pk.tile_offsets, (incl - c64).index_select(0, first),
               f"{what} tile offsets vs cumsum")
-    chk.equal("count", pk.total.reshape(1), incl[-1:],
+    chk.equal("count" + suffix, pk.total.reshape(1), incl[-1:],
               f"{what} total vs cumsum")
     total = int(pk.total)
     lk, rk = jc.probe_emit_cuda(pcols, tk, bcols, pk, total)
     lp, rp = jc.probe_emit_plain(pcols, tp, bcols, pp, total)
-    chk.equal("emit", lk, lp, f"{what} left map")
-    chk.equal("emit", rk, rp, f"{what} right map")
+    chk.equal("emit" + suffix, lk, lp, f"{what} left map")
+    chk.equal("emit" + suffix, rk, rp, f"{what} right map")
     fl, fr = join.inner_join(pcols, bcols)
-    chk.equal("emit", lk, fl.data, f"{what} left map vs sort-based join")
-    chk.equal("emit", rk, fr.data, f"{what} right map vs sort-based join")
+    chk.equal("emit" + suffix, lk, fl.data, f"{what} left map vs sort-based join")
+    chk.equal("emit" + suffix, rk, fr.data, f"{what} right map vs sort-based join")
     torch.cuda.synchronize()
     return total
 
@@ -3204,9 +3240,12 @@ def kernel_counters():
     return {"groupby": dict(groupby_cuda.LAUNCHES),
             "hash_join": dict(join_cuda.LAUNCHES),
             "hash_join_large": dict(join_cuda.LARGE_LAUNCHES),
+            "hash_join_var": dict(join_cuda.VAR_LAUNCHES),
             "hash_join_capped": dict(join_cuda.CAPPED_CALLS),
             "fused_select": dict(select_cuda.LAUNCHES),
+            "fused_select_strings": dict(select_cuda.STRING_LAUNCHES),
             "topk": dict(topk_cuda.LAUNCHES),
+            "topk_strings": dict(topk_cuda.STRING_LAUNCHES),
             "segment_sum": dict(segment_sum_cuda.LAUNCHES),
             "row_hash": dict(hash_cuda.LAUNCHES),
             "histogram": dict(partition_cuda.LAUNCHES),
@@ -4444,6 +4483,77 @@ def summed(timing, forms, **extra):
     return out
 
 
+def kernels_ms(torch, fn, prefix, iters):
+    """Device ms a call of `fn` spends in the kernels whose names start
+    with `prefix` (`device_by_name`, the L2 flushed before each call)."""
+    _, by_name = device_by_name(torch, fn, iters)
+    return sum(ms for name, ms in by_name.items() if name.startswith(prefix))
+
+
+def select_topk_phase(torch, iters=30):
+    """The fixed-width FusedSelect and TopK kernels' device ms at
+    kernel_bench.py's 10M-row tables (as `fused_select_phase` and
+    `topk_phase` build them) and at TPC-DS q3's own calls (recorded from
+    one optimized run of the plan). Uses only what earlier trees' packages
+    have too, so that one tree's script times another tree's kernels."""
+    from spark_rapids_tpu_torch import dtypes as dt, nds_q3
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanExecutor, col
+    out = {}
+    rng = np.random.default_rng(7)
+    a_np = rng.integers(0, 100, N_ROWS).astype(np.int32)
+    b_np = rng.integers(-5, 5, N_ROWS).astype(np.int32)
+    v = Column.from_numpy(rng.integers(-2**40, 2**40, N_ROWS), dt.INT64,
+                          rng.random(N_ROWS) > 0.1, device="cuda")
+    pred = (col("a") < 10) & (col("b") > 0)
+    for form, kind, npt in (("int32", dt.INT32, np.int32),
+                            ("int64", dt.INT64, np.int64)):
+        t = Table([Column.from_numpy(a_np.astype(npt), kind, device="cuda"),
+                   Column.from_numpy(b_np.astype(npt), kind, device="cuda"),
+                   v], ["a", "b", "v"])
+        out[f"fused_select {form}"] = kernels_ms(
+            torch, lambda: sc.fused_select_cuda(t, pred, ["a", "v"]), "fs_",
+            iters)
+    rng = np.random.default_rng(8)
+    t = Table([Column.from_numpy(rng.integers(-10**6, 10**6, N_ROWS)
+                                 .astype(np.int64), dt.INT64,
+                                 rng.random(N_ROWS) > 0.05, device="cuda"),
+               Column.from_numpy(rng.standard_normal(N_ROWS)
+                                 .astype(np.float32), dt.FLOAT32,
+                                 device="cuda")], ["k", "v"])
+    for k in TOPK_LIMITS + (TOPK_LARGE_LIMIT,):
+        out[f"topk k={k}"] = kernels_ms(
+            torch, lambda: tc.topk_table_cuda(t, ["k", "v"], [False, True],
+                                              k), "tk_", iters)
+    del t, v
+    # TPC-DS q3's own calls: its two FusedSelects and its TopK
+    calls = []
+    fs, tk = sc.fused_select_cuda, tc.topk_table_cuda
+
+    def recording(name, fn):
+        def call(*a, **kw):
+            calls.append((name, fn, a, kw))
+            return fn(*a, **kw)
+        return call
+    inputs = nds_q3.q3_tpcds_inputs(N_SALES, seed=0, device="cuda")
+    sc.fused_select_cuda = recording("fs_", fs)
+    tc.topk_table_cuda = recording("tk_", tk)
+    try:
+        PlanExecutor().execute(nds_q3.q3_tpcds_plan(), inputs)
+    finally:
+        sc.fused_select_cuda, tc.topk_table_cuda = fs, tk
+    require([c[0] for c in calls].count("fs_") == 2
+            and [c[0] for c in calls].count("tk_") == 1,
+            f"TPC-DS q3 made {[c[0] for c in calls]}")
+    for i, (prefix, fn, a, kw) in enumerate(calls):
+        out[f"TPC-DS q3 {prefix}{i} ({a[0].num_rows} rows)"] = kernels_ms(
+            torch, lambda: fn(*a, **kw), prefix, iters)
+    log("  " + json.dumps(out))
+    return out
+
+
 def walls_phase(torch, runs):
     """Eager walls alone, to compare two trees in one call (this script
     run from each tree's root): q3 (authored), TPC-DS q3 (optimized) and
@@ -4713,6 +4823,876 @@ def fuzz_phase(torch, chk):
             "c6_fused_select_counts": c6, "joins": joins}
 
 
+# ---- phase 10: string, DECIMAL128 and float keys ------------------------------
+
+KEYS_LIMIT_ROWS = 100                  # TPC-DS q3's and q74's `limit 100`
+KEYS_CPU_SCALE = 10                    # the CPU comparisons at 1/10 scale
+EDGE_STRINGS = ["", "a", "a\x00", "ab", "abc", "abcd", "abcdefgh",
+                "abcdefghi", "é", "é", "日本語", "日本", "prefix_1",
+                "prefix_12", "prefix_123", b"\xff\xfe", b"\x80", b"\x7f",
+                "x" * 100, "y" * 33, "Z"]
+DEC_EDGES = [0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 2 ** 64, -2 ** 64,
+             2 ** 96 + 5, 2 ** 32 - 1, -2 ** 32]
+# floats by their bits: +-0.0, NaNs of four payloads (quiet and signalling,
+# both signs), +-inf, and ordinary values
+F32_EDGES = (0x00000000, 0x80000000, 0x7FC00000, 0x7FC00001, 0xFFC00000,
+             0x7F800001, 0x7F800000, 0xFF800000, 0x3FC00000, 0xBFC00000,
+             0x40500000)
+F64_EDGES = (0x0, 0x8000000000000000, 0x7FF8000000000000,
+             0x7FF8000000000001, 0xFFF8000000000000, 0x7FF0000000000001,
+             0x7FF0000000000000, 0xFFF0000000000000, 0x3FF8000000000000,
+             0xBFF8000000000000, 0x400A000000000000)
+# a string hashes one murmur3 round a 4-byte block or tail byte (about 10
+# integer instructions each, csrc/hash_join.cu mm_round) and an fmix (12)
+MM_ROUND_OPS, MM_FMIX_OPS = 10, 12
+
+
+def vocab_strings(torch, vocab, idx, valid=None, device="cuda"):
+    """A STRING column: row i holds vocab[idx[i]]'s bytes (a null row
+    keeps them too), null where `valid` is False."""
+    import dataclasses
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops.gather import take
+    words = Column.from_pylist(list(vocab), dt.STRING, device=device)
+    col = take(words, torch.from_numpy(np.asarray(idx, np.int64)).to(device),
+               _has_negative=False)
+    return dataclasses.replace(col, validity=None if valid is None else
+                               torch.from_numpy(valid).to(device))
+
+
+def float_column(torch, bits, idx, valid, width):
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    u = np.array(bits, np.uint32 if width == 4 else np.uint64)[idx]
+    f = u.view(np.float32 if width == 4 else np.float64)
+    return Column.from_numpy(f, dt.FLOAT32 if width == 4 else dt.FLOAT64,
+                             valid, device="cuda")
+
+
+def decimal_column(torch, values, idx, valid):
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    u = np.array([int(v) % (1 << 128) for v in values], dtype=object)
+    limbs = np.stack([((u >> (32 * j)) & 0xFFFFFFFF).astype(np.uint32)
+                      for j in range(4)], axis=1).reshape(len(values), 4)
+    return Column.from_numpy(limbs[idx], dt.decimal(38, 2), valid,
+                             device="cuda")
+
+
+def random_decimals(rng, n):
+    """n distinct-ish 38-digit values of every magnitude, both signs."""
+    mag = rng.integers(1, 10 ** 18, n).astype(object) * 10 ** 18 \
+        + rng.integers(0, 10 ** 18, n).astype(object)
+    shift = rng.integers(0, 38, n)
+    vals = [int(m) // 10 ** int(s) for m, s in zip(mag, shift)]
+    return [v if rng.random() < 0.5 else -v for v in vals] + DEC_EDGES
+
+
+def var_join_cases(torch, chk, rng):
+    """The variable-width hash-join kernels against their plain versions
+    and the sort-based join on the card, both routes: `check_case` on
+    every edge the kernels must get right."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import join
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+
+    def draws(nb, npr, nv, nmiss, null_p):
+        bi = rng.integers(0, nv, nb)
+        pi = rng.integers(0, nv + nmiss, npr)
+        return (bi, rng.random(nb) >= null_p, pi, rng.random(npr) >= null_p)
+
+    cases = []
+    # strings, small route: the edge strings, some twice, nulls both sides
+    vocab = EDGE_STRINGS + [f"miss{i}" for i in range(40)]
+    bi, bv, pi, pv = draws(300, 100_003, len(EDGE_STRINGS), 40, 0.05)
+    cases.append(("strings, small route",
+                  [vocab_strings(torch, vocab, pi, pv)],
+                  [vocab_strings(torch, vocab, bi, bv)]))
+    # strings, large route: 50,000 customer ids and 2,000 repeats, probed
+    # by 1,000,003 rows, a sixth of them misses
+    ids = [f"AAAAAAAA{i:08X}" for i in range(60_000)]
+    bi = np.concatenate([np.arange(50_000), rng.integers(0, 50_000, 2_000)])
+    pi = rng.integers(0, 60_000, 1_000_003)
+    cases.append(("strings, large route",
+                  [vocab_strings(torch, ids, pi, rng.random(pi.shape[0])
+                                 >= 0.05)],
+                  [vocab_strings(torch, ids, bi, rng.random(bi.shape[0])
+                                 >= 0.05)]))
+    # an all-empty chars buffer (its pointer may be null)
+    bi, bv, pi, pv = draws(100, 1_000, 1, 0, 0.1)
+    cases.append(("empty strings", [vocab_strings(torch, [""], pi, pv)],
+                  [vocab_strings(torch, [""], bi, bv)]))
+    for width, edges in ((4, F32_EDGES), (8, F64_EDGES)):
+        bi, bv, pi, pv = draws(300, 100_003, len(edges) - 2, 2, 0.05)
+        cases.append((f"float{8 * width} +-0.0 and NaN payloads, small route",
+                      [float_column(torch, edges, pi, pv, width)],
+                      [float_column(torch, edges, bi, bv, width)]))
+        vals = np.concatenate([np.array(edges, np.uint64),
+                               rng.integers(0, 2 ** 20, 60_000).astype(
+                                   np.uint64) << np.uint64(32 if width == 8
+                                                           else 8)])
+        if width == 4:
+            vals &= np.uint64(0xFFFFFFFF)
+        bi, bv, pi, pv = draws(52_000, 1_000_003, 50_000, 10_000, 0.05)
+        cases.append((f"float{8 * width}, large route",
+                      [float_column(torch, vals, pi, pv, width)],
+                      [float_column(torch, vals, bi, bv, width)]))
+    dvals = DEC_EDGES + [3, -3, 10 ** 20]
+    bi, bv, pi, pv = draws(300, 100_003, len(DEC_EDGES), 3, 0.05)
+    cases.append(("DECIMAL128 +-(10^38 - 1), small route",
+                  [decimal_column(torch, dvals, pi, pv)],
+                  [decimal_column(torch, dvals, bi, bv)]))
+    dvals = random_decimals(rng, 60_000)
+    bi, bv, pi, pv = draws(52_000, 1_000_003, 50_000, 10_000, 0.05)
+    cases.append(("DECIMAL128, large route",
+                  [decimal_column(torch, dvals, pi, pv)],
+                  [decimal_column(torch, dvals, bi, bv)]))
+    # two keys of the new kinds with an integer, both routes
+    bi, bv, pi, pv = draws(400, 100_003, len(EDGE_STRINGS), 10, 0.05)
+    ints = np.arange(len(EDGE_STRINGS) + 10, dtype=np.int32) % 3
+    cases.append(("(STRING, INT32), small route",
+                  [vocab_strings(torch, vocab, pi, pv),
+                   Column.from_numpy(ints[pi], dt.INT32, device="cuda")],
+                  [vocab_strings(torch, vocab, bi, bv),
+                   Column.from_numpy(ints[bi], dt.INT32, device="cuda")]))
+    bi, bv, pi, pv = draws(52_000, 1_000_003, 50_000, 10_000, 0.05)
+    f64 = rng.integers(0, 2 ** 10, 60_000).astype(np.uint64) << np.uint64(50)
+    cases.append(("(DECIMAL128, FLOAT64), large route",
+                  [decimal_column(torch, dvals, pi, pv),
+                   float_column(torch, f64, pi, None, 8)],
+                  [decimal_column(torch, dvals, bi, bv),
+                   float_column(torch, f64, bi, None, 8)]))
+    for what, p, b in cases:
+        jc.reset_counters()
+        total = check_case(chk, jc, join, p, b, what, suffix="_var")
+        require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1}
+                or total == 0, f"{what}: launches {jc.VAR_LAUNCHES}")
+        log(f"  hash join {what}: {p[0].length} x {b[0].length} -> "
+            f"{total} pairs, large route "
+            f"{jc.is_large(jc._capacity(b[0].length))}; kernel == plain "
+            f"== sort-based join")
+    # the capped form: alive masks folded into the first key's validity
+    for what, p, b in cases[:2] + cases[3:4] + cases[7:8]:
+        la = torch.rand(p[0].length, device="cuda") < 0.7
+        ra = torch.rand(b[0].length, device="cuda") < 0.7
+        capped_join_cases(torch, chk, jc, join, p, b, p[0].length, la, ra,
+                          f"{what}, alive masks")
+    return len(cases)
+
+
+def key_topk_cases(torch, chk, rng):
+    """The TopK kernels with STRING and DECIMAL128 keys against the plain
+    version (the stable sort and slice) on the card: both directions,
+    with nulls, mixed with an integer key, both routes; a string key past
+    the word limit declines."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import topk
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+
+    n = 1_000_003
+    vocab = EDGE_STRINGS + [f"AAAAAAAA{i:08X}" for i in range(20_000)]
+    t = Table([vocab_strings(torch, vocab, rng.integers(0, len(vocab), n),
+                             rng.random(n) >= 0.05),
+               decimal_column(torch, random_decimals(rng, 5_000),
+                              rng.integers(0, 5_010, n),
+                              rng.random(n) >= 0.05),
+               Column.from_numpy(rng.integers(0, 4, n).astype(np.int32),
+                                 dt.INT32, device="cuda")],
+              ["s", "d", "i"])
+    runs = 0
+    routes = {}
+    for keys, asc in ((["s"], [True]), (["s"], [False]), (["d"], [False]),
+                      (["d"], [True]), (["d", "s"], [True, False]),
+                      (["i", "s"], [True, True])):
+        for k in (1, 100, 3_000):
+            tc.reset_counters()
+            got = tc.topk_table_cuda(t, keys, asc, k)
+            route = "threshold" if tc.LAUNCHES["threshold"] else "tile"
+            routes[f"{keys} {asc} k={k}"] = route
+            chk.tables("topk_keys", got, topk.topk_plain(t, keys, asc, k),
+                       f"topk {keys} {asc} k={k}")
+            runs += 1
+    torch.cuda.synchronize()
+    require("tile" in routes.values() and "threshold" in routes.values(),
+            f"string/decimal TopK took one route only: {routes}")
+    # one key of 8 * (MAX_WORDS - 2) + 1 bytes: 95 chars words, its length
+    # and the row index are 97 words
+    long = Table([Column.from_pylist(["q" * (8 * (topk.MAX_WORDS - 2) + 1)],
+                                     dt.STRING, device="cuda")], ["s"])
+    sig = topk.make_signature(long, ["s"], [True], 1, "eager")
+    require(not topk.supports(sig), "a 97-word tuple is taken")
+    try:
+        tc.topk_table_cuda(long, ["s"], [True], 1)
+        raise AssertionError("a 97-word tuple launched")
+    except ValueError:
+        pass
+    log(f"  TopK with STRING and DECIMAL128 keys: {runs} calls at "
+        f"{n} rows equal the plain version (routes {sorted(set(routes.values()))}); "
+        f"a 97-word tuple declines")
+    return runs
+
+
+def key_select_cases(torch, chk, rng):
+    """FusedSelect with STRING and DECIMAL128 payloads against the plain
+    version on the card, at row counts off the kernel's tiling."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import select
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.plan import col
+
+    runs = 0
+    vocab = EDGE_STRINGS + [f"name{i}" for i in range(1000)]
+    for n in (1, 1023, 2049, 1_000_003):
+        t = Table([Column.from_numpy(rng.integers(0, 1000, n).astype(
+                       np.int32), dt.INT32, device="cuda"),
+                   vocab_strings(torch, vocab, rng.integers(0, len(vocab), n),
+                                 rng.random(n) >= 0.05),
+                   decimal_column(torch, random_decimals(rng, 100),
+                                  rng.integers(0, 110, n),
+                                  rng.random(n) >= 0.05),
+                   Column.from_numpy(rng.integers(-5, 5, n), dt.INT64,
+                                     device="cuda")],
+                  ["p", "s", "d", "v"])
+        for pred in (col("p") < 500, col("p") >= 0, col("p") < -1):
+            for needed in (["s", "d", "v"], ["s"], ["d", "p"]):
+                got = sc.fused_select_cuda(t, pred, needed)
+                chk.tables("fused_select_keys", got,
+                           select.fused_select_plain(t, pred, needed),
+                           f"fused_select {pred!r} -> {needed} at {n} rows")
+                runs += 1
+    torch.cuda.synchronize()
+    log(f"  FusedSelect with STRING and DECIMAL128 payloads: {runs} calls "
+        f"equal the plain version")
+    return runs
+
+
+def float_join_plan(torch):
+    """Queue C 7: an inner join on FLOAT64 keys through `PlanExecutor()` on
+    the card, [0.0, -0.0, NaN, 1.5] x [-0.0, NaN, 2.0]: three pairs, as the
+    CPU run gives them."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor
+
+    def inputs(device):
+        return {"a": Table([Column.from_pylist([0.0, -0.0, float("nan"), 1.5],
+                                               dt.FLOAT64, device=device)],
+                           ["x"]),
+                "b": Table([Column.from_pylist([-0.0, float("nan"), 2.0],
+                                               dt.FLOAT64, device=device)],
+                           ["y"])}
+    b = PlanBuilder()
+    plan = b.scan("a", schema=["x"]).join(b.scan("b", schema=["y"]),
+                                          left_on="x", right_on="y").build()
+    jc.reset_counters()
+    res = PlanExecutor().execute(plan, inputs("cuda"))
+    torch.cuda.synchronize()
+    cpu = PlanExecutor(device="cpu").execute(plan, inputs("cpu"))
+    require(res.table.num_rows == 3 == cpu.table.num_rows
+            and jc.VAR_LAUNCHES["count"] == 1
+            and [m.kernel for m in res.metrics.values()
+                 if m.kind == "HashJoin"] == ["cuda:hash_join"],
+            f"float-key join: {res.table.num_rows} rows, var launches "
+            f"{jc.VAR_LAUNCHES}")
+    for a, c in zip(res.table.columns, cpu.table.columns):
+        require(torch.equal(a.data.cpu().view(torch.int64),
+                            c.data.view(torch.int64)),
+                "float-key join differs from the CPU run")
+    log("  queue C 7: the FLOAT64 inner join [0.0, -0.0, NaN, 1.5] x "
+        "[-0.0, NaN, 2.0] runs on the hash-join kernels: 3 pairs, equal to "
+        "the CPU run")
+
+
+def same_tables(torch, got, want, what):
+    """Two tables equal on the host: names, rows, every column's buffers
+    (floats as their bits, so NaN payloads compare) and null masks."""
+    require(got.names == want.names and got.num_rows == want.num_rows,
+            f"{what}: {got.names} x {got.num_rows} vs {want.names} x "
+            f"{want.num_rows}")
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64,
+            torch.uint32: torch.int32}
+    for name, a, b in zip(got.names, got.columns, want.columns):
+        a, b = a.to("cpu"), b.to("cpu")
+        for x, y in ((a.data, b.data), (a.offsets, b.offsets),
+                     (a.null_mask, b.null_mask)):
+            if x is not None and x.dtype in bits:
+                x, y = x.view(bits[x.dtype]), y.view(bits[y.dtype])
+            require((x is None) == (y is None)
+                    and (x is None or torch.equal(x, y)),
+                    f"{what}: column {name} differs")
+
+
+def capped_keys_plans(torch, chk):
+    """DECIMAL128 and float keys through the capped tier on the card (a
+    join on a DECIMAL128 key, a FLOAT64-keyed aggregate, TopK on a
+    DECIMAL128 key), equal to the eager run on the card and the CPU's
+    capped run; a STRING key raises TypeError there, naming the limit."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch import nds_q74
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
+
+    rng = np.random.default_rng(31)
+    n, m = 200_000, 5_000
+    dvals = random_decimals(rng, m - len(DEC_EDGES))
+    fk = rng.integers(0, 50, n).astype(np.uint64) << np.uint64(52)
+
+    def inputs(device):
+        di = rng_f.integers(0, m + 100, n)
+        dv = rng_f.random(n) >= 0.05
+        f = torch.from_numpy(fk.view(np.float64).copy())
+        f[::7] = -0.0
+        f[::11] = float("nan")
+        fact = Table([decimal_column(torch, dvals + [7] * 100, di, dv
+                                     ).to(device),
+                      Column(dt.FLOAT64, n, f.to(device)),
+                      Column.from_numpy(rng_f.integers(0, 100, n), dt.INT64,
+                                        device=device)], ["k", "f", "v"])
+        dim = Table([decimal_column(torch, dvals, np.arange(m), None
+                                    ).to(device),
+                     Column.from_numpy(np.arange(m), dt.INT64,
+                                       device=device)], ["dk", "w"])
+        return {"fact": fact, "dim": dim}
+    b = PlanBuilder()
+    j = b.scan("fact", schema=["k", "f", "v"]).join(
+        b.scan("dim", schema=["dk", "w"]), left_on="k", right_on="dk")
+    plans = {"join + float-keyed aggregate": j.aggregate(
+                 ["f"], [("v", "sum", "s"), ("w", "max", "mw")]).build(),
+             "join + DECIMAL128 TopK": j.filter(col("v") > 10).sort(
+                 ["k", "v"], ascending=[False, True]).limit(100).build()}
+    out = {}
+    for what, plan in plans.items():
+        rng_f = np.random.default_rng(32)
+        card = inputs("cuda")
+        rng_f = np.random.default_rng(32)
+        host = inputs("cpu")
+        reset_kernel_counters()
+        capped = PlanExecutor(mode="capped").execute(plan, card)
+        torch.cuda.synchronize()
+        counters = kernel_counters()
+        require(counted(counters["plain"]) == 0
+                and counters["hash_join_capped"]["join"] >= 1,
+                f"capped {what}: counters {counters}")
+        eager = PlanExecutor().execute(plan, card)
+        cpu = PlanExecutor(mode="capped", device="cpu").execute(plan, host)
+        got = capped.compact()
+        same_tables(torch, got, eager.table, f"capped {what} vs eager")
+        same_tables(torch, got, cpu.compact(), f"capped {what} vs CPU")
+        out[what] = {"rows": got.num_rows, "attempts": capped.attempts,
+                     "stamps": sorted(m.kernel for m in
+                                      capped.metrics.values() if m.kernel)}
+        log(f"  capped {what}: {got.num_rows} rows in {capped.attempts} "
+            f"attempt(s), equal to the eager run and the CPU's capped run; "
+            f"stamps {out[what]['stamps']}")
+    small = nds_q74.q74_inputs(20_000, 5_000, 1_000, seed=3, device="cuda")
+    try:
+        PlanExecutor(mode="capped").execute(nds_q74.q74_plan(), small)
+        raise AssertionError("a capped STRING key ran")
+    except TypeError as e:
+        require("max_string_length" in str(e), f"capped string key: {e}")
+        out["string key"] = str(e)
+    log("  capped STRING key: TypeError naming the reference's limit")
+    return out
+
+
+def keyed_aggregates_card(torch):
+    """Group keys of the new kinds and string min/max on the card: STRING
+    and DECIMAL128 keys, a string column's min, max and both (one group
+    all null), through the groupby kernel, equal to the CPU run."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import aggregate
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
+    rng = np.random.default_rng(41)
+    n = 200_003
+    vocab = EDGE_STRINGS + [f"name{i}" for i in range(500)]
+    key = rng.integers(0, 50, n)
+    sv = rng.random(n) >= 0.1
+    sv[key == 7] = False                        # an all-null group
+    t = Table([vocab_strings(torch, vocab, rng.integers(0, len(vocab), n),
+                             rng.random(n) >= 0.05),
+               decimal_column(torch, random_decimals(rng, 40),
+                              rng.integers(0, 50, n), None),
+               Column.from_numpy(key, dt.INT64, device="cuda"),
+               vocab_strings(torch, vocab, rng.integers(0, len(vocab), n),
+                             sv)], ["s", "d", "k", "v"])
+    host = Table([c.to("cpu") for c in t.columns], list(t.names))
+    cases = ((["s"], [("k", "sum"), ("v", "min")]),
+             (["d"], [("v", "max"), ("k", "count")]),
+             (["k"], [("v", "min"), ("v", "max"), ("v", "count")]),
+             (["s", "d"], [("v", "max"), ("v", "min")]))
+    for keys, aggs in cases:
+        gc.reset_counters()
+        got = aggregate.groupby_aggregate(t, keys, aggs)
+        require(gc.LAUNCHES["groupby"] == 1
+                and gc.PLAIN_CALLS["groupby"] == 0,
+                f"groupby {keys} {aggs}: {gc.LAUNCHES} {gc.PLAIN_CALLS}")
+        same_tables(torch, got, aggregate.groupby_aggregate(host, keys, aggs),
+                    f"groupby {keys} {aggs}")
+    log(f"  groupby on STRING and DECIMAL128 keys and string min/max: "
+        f"{len(cases)} cases at {n} rows, one kernel launch each, equal to "
+        f"the CPU run")
+    return len(cases)
+
+
+def plan_runs(torch, plan, inputs, optimize):
+    """One counted run of `plan` on the card (every kernel counter zeroed
+    just before and read just after), three warm runs and a traced one:
+    (result, counters, warm walls, trace)."""
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    ex = PlanExecutor(optimize=optimize)
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    res = ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    require(counted(counters["plain"]) == 0,
+            f"plain versions ran on the card path {counters['plain']}")
+    walls = [ex.execute(plan, inputs).wall_ms for _ in range(3)]
+    trace = traced_run(torch, lambda: ex.execute(plan, inputs))
+    return res, counters, walls, trace
+
+
+def q3_strings_path(torch, chk):
+    """TPC-DS q3 with its STRING i_brand at N_SALES rows, authored and
+    optimized: equal to numpy q3 (brand ids mapped to their names) and to
+    the CPU run at 1/KEYS_CPU_SCALE of the rows."""
+    from spark_rapids_tpu_torch import nds_q3
+    gen = nds_q3.datagen(N_SALES, seed=0)
+    ref = numpy_q3(gen)
+    inputs = {k: t.to("cuda") for k, t in
+              nds_q3.q3_tpcds_strings_inputs(N_SALES, device="cpu").items()}
+    plan = nds_q3.q3_tpcds_strings_plan()
+    out = {}
+    for form, optimize in (("authored", False), ("optimized", True)):
+        res, counters, walls, trace = plan_runs(torch, plan, inputs,
+                                                optimize)
+        got = res.table.to("cpu")
+        require(got.names == ("d_year", "i_brand", "i_brand_id", "revenue")
+                and got.num_rows == KEYS_LIMIT_ROWS,
+                f"q3 strings {form}: {got.names} x {got.num_rows}")
+        for name, want in (("d_year", ref[0]), ("i_brand_id", ref[1]),
+                           ("revenue", ref[2])):
+            require(np.array_equal(got[name].data.numpy(),
+                                   want[:KEYS_LIMIT_ROWS]),
+                    f"q3 strings {form}: {name} differs from numpy q3")
+        require(got["i_brand"].to_pylist() ==
+                [nds_q3.brand_name(b) for b in ref[1][:KEYS_LIMIT_ROWS]],
+                f"q3 strings {form}: i_brand differs from numpy q3")
+        stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
+        require(counters["hash_join"]["count"] == 2
+                and counters["groupby"]["groupby"] == 1
+                and (not optimize or (counters["fused_select"]["count"] == 2
+                                      and counters["fused_select_strings"][
+                                          "compact"] >= 1
+                                      and counters["topk"]["threshold"]
+                                      + counters["topk"]["select"] == 1
+                                      and counted(counters["topk_strings"])
+                                      == 0)),
+                f"q3 strings {form}: launches {counters}")
+        out[form] = {"wall_ms": res.wall_ms, "warm_wall_ms": walls,
+                     "trace": trace, "stamps": stamps,
+                     "launches": {k: counters[k] for k in
+                                  ("hash_join", "hash_join_var",
+                                   "fused_select", "fused_select_strings",
+                                   "topk", "topk_strings", "groupby")},
+                     "profile": res.profile()}
+        log(f"  q3 strings {form} at {N_SALES} rows: {res.wall_ms:.3f} ms "
+            f"cold, warm {', '.join(f'{w:.3f}' for w in walls)} ms, idle "
+            f"share {trace['idle_share']:.3f}; stamps {stamps}; equal to "
+            f"numpy q3")
+    every = plan_runs(torch, nds_q3.q3_tpcds_strings_plan(limit=None),
+                      inputs, True)[0].table.to("cpu")
+    require(np.array_equal(every["revenue"].data.numpy(), ref[2])
+            and np.array_equal(every["i_brand_id"].data.numpy(), ref[1]),
+            "q3 strings without LIMIT differs from numpy q3")
+    del inputs
+    n = N_SALES // KEYS_CPU_SCALE
+    host = nds_q3.q3_tpcds_strings_inputs(n, device="cpu")
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    for optimize in (False, True):
+        card = PlanExecutor(optimize=optimize).execute(
+            plan, {k: t.to("cuda") for k, t in host.items()})
+        cpu = PlanExecutor(device="cpu", optimize=optimize).execute(plan,
+                                                                    host)
+        same_tables(torch, card.table, cpu.table,
+                    f"q3 strings at {n} rows, optimize={optimize}")
+    log(f"  q3 strings: all {every.num_rows} groups equal numpy q3; at {n} "
+        f"rows the card equals the CPU run (authored, optimized)")
+    out["groups"] = every.num_rows
+    return out
+
+
+def q74_path(torch, chk):
+    """TPC-DS q74 at its full sizes, authored and optimized: equal to numpy
+    q74 and to the CPU run at 1/KEYS_CPU_SCALE of the rows."""
+    from spark_rapids_tpu_torch import nds_q74
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    t0 = time.perf_counter()
+    gen = nds_q74.datagen(seed=0)
+    inputs = nds_q74.q74_inputs(device="cuda", gen=gen)
+    log(f"  q74 datagen: {time.perf_counter() - t0:.1f} s")
+    ref = nds_q74.numpy_q74(gen)
+    c = gen["customer"]
+
+    def names(which, sk):
+        chars, offs, valid = c[which]
+        return [bytes(chars[offs[i - 1]:offs[i]]).decode()
+                if valid[i - 1] else None for i in sk]
+    want = {"customer_id": [bytes(x).decode()
+                            for x in nds_q74.customer_ids(ref)],
+            "customer_first_name": names("first", ref),
+            "customer_last_name": names("last", ref)}
+    plan = nds_q74.q74_plan()
+    out = {}
+    for form, optimize in (("authored", False), ("optimized", True)):
+        res, counters, walls, trace = plan_runs(torch, plan, inputs,
+                                                optimize)
+        got = res.table.to("cpu")
+        require(got.num_rows == len(ref) and all(
+            got[k].to_pylist() == v for k, v in want.items()),
+            f"q74 {form} differs from numpy q74")
+        stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
+        require(counters["hash_join_var"] == {"build": 3, "count": 3,
+                                              "emit": 3}
+                and counters["hash_join"]["count"] == 7
+                and counters["groupby"]["groupby"] == 2
+                and (not optimize or (counters["fused_select"]["count"] >= 4
+                                      and counters["fused_select_strings"][
+                                          "compact"] >= 1
+                                      and counters["topk"]["threshold"]
+                                      + counters["topk"]["select"] == 1
+                                      and counters["topk_strings"]
+                                      == counters["topk"])),
+                f"q74 {form}: launches {counters}")
+        out[form] = {"wall_ms": res.wall_ms, "warm_wall_ms": walls,
+                     "trace": trace, "stamps": stamps,
+                     "launches": {k: counters[k] for k in
+                                  ("hash_join", "hash_join_var",
+                                   "hash_join_large", "fused_select",
+                                   "fused_select_strings", "topk",
+                                   "topk_strings", "groupby")},
+                     "profile": res.profile()}
+        log(f"  q74 {form}: {res.wall_ms:.3f} ms cold, warm "
+            f"{', '.join(f'{w:.3f}' for w in walls)} ms, idle share "
+            f"{trace['idle_share']:.3f}; stamps {stamps}; equal to numpy "
+            f"q74 ({len(ref)} rows)")
+    out["inputs"] = inputs
+    out["gen"] = gen
+    g = nds_q74.datagen(nds_q74.N_STORE_SALES // KEYS_CPU_SCALE,
+                        nds_q74.N_WEB_SALES // KEYS_CPU_SCALE,
+                        nds_q74.N_CUSTOMERS // KEYS_CPU_SCALE, seed=1)
+    host = nds_q74.q74_inputs(device="cpu", gen=g)
+    for optimize in (False, True):
+        card = PlanExecutor(optimize=optimize).execute(
+            plan, {k: t.to("cuda") for k, t in host.items()})
+        cpu = PlanExecutor(device="cpu", optimize=optimize).execute(plan,
+                                                                    host)
+        same_tables(torch, card.table, cpu.table,
+                    f"q74 at 1/{KEYS_CPU_SCALE}, optimize={optimize}")
+    log(f"  q74 at 1/{KEYS_CPU_SCALE} of its rows: the card equals the CPU "
+        f"run (authored, optimized)")
+    return out
+
+
+def string_bytes(col):
+    """(offsets + chars bytes, validity bytes) of a STRING column."""
+    return (4 * (col.length + 1) + col.data.numel(),
+            0 if col.validity is None else col.length)
+
+
+def var_join_timing(torch, chk, p, b, what):
+    """The variable-width join kernels at one shape, first held against
+    their plain versions and the sort-based join there (`check_case`,
+    recorded under the "_var" kernels): device ms by kernel,
+    one whole call, the plain versions' ms, and the bounds: the build
+    reads the build keys and writes the table; the count reads the probe
+    keys and validity, the build keys of the rows it compares (about one
+    a matched probe row) and the table, and writes the counts and lists;
+    the emit reads the lists and the build keys it compares and writes
+    the pairs. Operations: murmur3 rounds of the hashed bytes."""
+    from spark_rapids_tpu_torch.ops import join
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    jc.reset_counters()
+    pairs = check_case(chk, jc, join, p, b, what, suffix="_var")
+    require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1}
+            and jc.is_large(jc._capacity(b[0].length)),
+            f"{what}: launches {jc.VAR_LAUNCHES}, not the large var route")
+    log(f"  hash join {what}: {p[0].length} x {b[0].length} -> {pairs} "
+        f"pairs, large route; kernel == plain == sort-based join")
+    C = jc._capacity(b[0].length)
+    table = jc.build_table_cuda(b, C)
+    probe = jc.probe_counts_cuda(p, table, b)
+    total = int(probe.total)
+    n_matched = int((probe.counts > 0).sum())
+    _, by_name = device_by_name(torch, lambda: jc.inner_join_hash(p, b), 10)
+    ms = {k: sum(v for name, v in by_name.items() if f"{k}_" in name)
+          for k in ("build", "count", "emit")}
+    call = call_ms(torch, lambda: jc.inner_join_hash(p, b), 10)
+
+    def plain():
+        tp = jc.build_table_plain(b, C)
+        pp = jc.probe_counts_plain(p, tp, b)
+        jc.probe_emit_plain(p, tp, b, pp, int(pp.total))
+    plain_ms = call_ms(torch, plain, 2)
+    pk, pv = string_bytes(p[0])
+    bk, bv = string_bytes(b[0])
+    per_build = bk / max(b[0].length, 1)
+    mean_len = lambda c: c.data.numel() / max(c.length, 1)  # noqa: E731
+    rounds = lambda c: c.length * (mean_len(c) / 4 + 1)     # noqa: E731
+    bounds = {
+        "build": (bk + bv + 8 * C,
+                  rounds(b[0]) * MM_ROUND_OPS + b[0].length * MM_FMIX_OPS),
+        "count": (pk + pv + 8 * C + n_matched * per_build + 4 * p[0].length
+                  + 8 * n_matched,
+                  rounds(p[0]) * MM_ROUND_OPS + p[0].length * MM_FMIX_OPS),
+        "emit": (8 * n_matched + 8 * C + total * per_build + 8 * total, 0)}
+    out = {}
+    for k, (nbytes, ops) in bounds.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
+        out[k] = {"ms": ms[k], "bytes": nbytes, "ops": ops,
+                  "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                  "bound_ms": max(bytes_ms, ops_ms)}
+    log(f"  var hash join at {what} ({p[0].length} x {b[0].length}, "
+        f"{total} pairs): device ms {ms}, call {call:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bounds "
+        f"{ {k: round(v['bound_ms'], 4) for k, v in out.items()} }")
+    return {"by_kernel": out, "call_ms": call, "plain_ms": plain_ms,
+            "pairs": total, "probe_rows": p[0].length,
+            "build_rows": b[0].length}
+
+
+def q74_join_shape(torch, gen):
+    """q74's first string join, s2 |x| s1 on customer_id: the customers
+    with store sales in 2002 (probe) and in 2001 (build), in customer_id
+    order as the aggregate leaves them."""
+    from spark_rapids_tpu_torch import nds_q74
+    s = gen["store"]
+    yr = gen["dates"]["d_year"][s["sold_date_sk"] - nds_q74.FIRST_DATE_SK]
+    sides = []
+    for year in nds_q74.YEARS[::-1]:
+        sk = np.unique(s["customer_sk"][s["customer_valid"] & (yr == year)])
+        ids = nds_q74.customer_ids(sk)
+        ids = ids[np.lexsort(ids.T[::-1])]
+        offs = np.arange(0, 16 * (len(sk) + 1), 16, dtype=np.int32)
+        from spark_rapids_tpu_torch.columnar import make_string_column
+        sides.append([make_string_column(
+            torch.from_numpy(ids.reshape(-1).copy()).cuda(),
+            torch.from_numpy(offs).cuda())])
+    return sides
+
+
+def year_total_table(torch, inputs):
+    """q74's store year_total before its filters: the aggregate's input
+    (the joined rows) and its output, run on the card."""
+    from spark_rapids_tpu_torch import nds_q74
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
+    b = PlanBuilder()
+    dates = (b.scan("date_dim", schema=["d_date_sk", "d_year"])
+             .filter((col("d_year") == nds_q74.YEARS[0])
+                     | (col("d_year") == nds_q74.YEARS[1])))
+    joined = (b.scan("store_sales", schema=["ss_sold_date_sk",
+                                            "ss_customer_sk", "ss_net_paid"])
+              .join(dates, left_on="ss_sold_date_sk", right_on="d_date_sk")
+              .join(b.scan("customer", schema=["c_customer_sk",
+                                               "c_customer_id",
+                                               "c_first_name",
+                                               "c_last_name"]),
+                    left_on="ss_customer_sk", right_on="c_customer_sk"))
+    ex = PlanExecutor(optimize=False)
+    rows = ex.execute(joined.build(), inputs).table
+    agg = ex.execute(joined.aggregate(
+        ["c_customer_id", "c_first_name", "c_last_name", "d_year"],
+        [("ss_net_paid", "sum", "total")]).build(), inputs).table
+    return rows, agg
+
+
+def keys_timing(torch, chk, q74, q3_items):
+    """The three kernels' new kinds timed at q74's and q3's shapes, and the
+    sort's cost in q74's store aggregate."""
+    from spark_rapids_tpu_torch import nds_q74
+    from spark_rapids_tpu_torch.ops import aggregate, select, sort, topk
+    from spark_rapids_tpu_torch.ops import select_cuda as sc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanExecutor, col
+    inputs, gen = q74["inputs"], q74["gen"]
+    out = {}
+    p, b = q74_join_shape(torch, gen)
+    out["hash_join"] = var_join_timing(torch, chk, p, b, "q74's s2 |x| s1")
+    rows, agg = year_total_table(torch, inputs)
+    keys = ["c_customer_id", "c_first_name", "c_last_name", "d_year"]
+
+    def operands():
+        ops = []
+        for k in keys:
+            ops.extend(sort._key_operands(rows[k], True, None))
+        return ops
+    ops = operands()
+    out["sort"] = {
+        "rows": rows.num_rows, "operands": len(ops),
+        "operands_ms": call_ms(torch, operands, 5),
+        "lex_order_ms": call_ms(torch, lambda: sort.lex_order(ops), 5),
+        "groupby_ms": call_ms(torch, lambda: aggregate.groupby_aggregate(
+            rows, keys, [("ss_net_paid", "sum")]), 5)}
+    log(f"  q74's store aggregate: {rows.num_rows} rows, {len(ops)} sort "
+        f"operands: operands {out['sort']['operands_ms']:.3f} ms, "
+        f"lex_order {out['sort']['lex_order_ms']:.3f} ms, the whole keyed "
+        f"aggregate {out['sort']['groupby_ms']:.3f} ms")
+    # FusedSelect: q74's year filter over the aggregate (STRING payloads)
+    # and q3's item filter (i_brand)
+    fs = {}
+    for what, t, pred, needed in (
+            ("q74 year_total, d_year = 2002", agg,
+             col("d_year") == nds_q74.YEARS[1],
+             ["c_customer_id", "c_first_name", "c_last_name", "total"]),
+            ("q3 items, i_manufact = 42", q3_items,
+             col("i_manufact") == 42, ["i_item_sk", "i_brand_id",
+                                       "i_brand"])):
+        got = sc.fused_select_cuda(t, pred, needed)
+        want = select.fused_select_plain(t, pred, needed)
+        same_tables(torch, got, want, f"fused_select at {what}")
+        ms = device_ms(torch, lambda: sc.fused_select_cuda(t, pred, needed),
+                       KERNEL_NAMES["fused_select_wide"], 10, per_call=2)
+        call = call_ms(torch, lambda: sc.fused_select_cuda(t, pred, needed),
+                       10)
+        plain = call_ms(torch, lambda: select.fused_select_plain(
+            t, pred, needed), 5)
+        # what the two kernels move: the predicate column read, the kept
+        # rows of each fixed-width payload read and written, and for the
+        # STRING payloads the kept rows' 8-byte indices written once
+        pred_bytes = t[next(iter(pred.references()))].nbytes()
+        fixed = sum(got[c].nbytes() for c in needed
+                    if not got[c].dtype.is_string)
+        strings = any(got[c].dtype.is_string for c in needed)
+        nbytes = pred_bytes + 2 * fixed + 8 * got.num_rows * strings
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # the whole call's function, paired with call_ms: every kept
+        # payload read and written, the strings' offsets and chars too
+        call_bytes = pred_bytes + 2 * got.nbytes()
+        fs[what] = {"rows": t.num_rows, "kept": got.num_rows, "ms": ms,
+                    "call_ms": call, "plain_ms": plain, "bytes": nbytes,
+                    "ops": 0, "bytes_ms": bytes_ms, "ops_ms": 0.0,
+                    "bound_ms": bytes_ms, "call_bytes": call_bytes,
+                    "call_bound_ms": call_bytes / HBM_BYTES_PER_S * 1e3}
+        log(f"  FusedSelect at {what}: {t.num_rows} -> {got.num_rows} rows, "
+            f"kernels {ms:.4f} ms (bound {bytes_ms:.4f} ms, {nbytes} B); "
+            f"call {call:.3f} ms (bound "
+            f"{fs[what]['call_bound_ms']:.4f} ms, {call_bytes} B); plain "
+            f"{plain:.3f} ms")
+    out["fused_select"] = fs
+    # TopK: q74's order by customer_id limit 100 over the qualifying rows
+    every = PlanExecutor().execute(nds_q74.q74_plan(limit=None),
+                                   inputs).table
+    perm = torch.randperm(every.num_rows, device="cuda")
+    from spark_rapids_tpu_torch.ops.gather import take_table
+    t = take_table(every, perm, _has_negative=False)
+    args = (t, ["customer_id"], [True], KEYS_LIMIT_ROWS)
+    same_tables(torch, tc.topk_table_cuda(*args), topk.topk_plain(*args),
+                "topk at q74")
+    tc.reset_counters()
+    tc.topk_table_cuda(*args)
+    names = ("tk_threshold_var_kernel" if tc.LAUNCHES["threshold"]
+             else ("tk_select_var_kernel", "tk_merge_kernel"))
+    ms = device_ms(torch, lambda: tc.topk_table_cuda(*args), names, 10)
+    call = call_ms(torch, lambda: tc.topk_table_cuda(*args), 10)
+    plain = call_ms(torch, lambda: topk.topk_plain(*args), 5)
+    kb, kv = string_bytes(t["customer_id"])
+    nbytes = kb + kv + 8 * KEYS_LIMIT_ROWS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out["topk"] = {"rows": t.num_rows, "words": topk.n_words(
+        topk.make_signature(*args, "eager")), "route": names, "ms": ms,
+        "call_ms": call, "plain_ms": plain, "bytes": nbytes, "ops": 0,
+        "bytes_ms": bytes_ms, "ops_ms": 0.0, "bound_ms": bytes_ms}
+    log(f"  TopK at q74 (customer_id, {t.num_rows} rows, k = "
+        f"{KEYS_LIMIT_ROWS}): device {ms:.4f} ms, call {call:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {bytes_ms:.4f} ms")
+    return out
+
+
+def keys_phase(torch, chk):
+    """Phase 10: the three kernels' new kinds against their plain versions,
+    queue C 7, the capped tier's key kinds, and TPC-DS q3 with its STRING
+    i_brand and q74 end to end."""
+    from spark_rapids_tpu_torch import nds_q3
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    log("phase 10: string, DECIMAL128 and float keys")
+    out = {"join_cases": var_join_cases(torch, chk, rng),
+           "topk_cases": key_topk_cases(torch, chk, rng),
+           "select_cases": key_select_cases(torch, chk, rng)}
+    float_join_plan(torch)
+    out["aggregate_cases"] = keyed_aggregates_card(torch)
+    out["capped"] = capped_keys_plans(torch, chk)
+    out["q3_strings"] = q3_strings_path(torch, chk)
+    q74 = q74_path(torch, chk)
+    items = nds_q3.q3_tpcds_strings_inputs(1, device="cuda")["items"]
+    out["timing"] = keys_timing(torch, chk, q74, items)
+    out["q74"] = {k: v for k, v in q74.items() if k not in ("inputs", "gen")}
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def keys_kernels(keys):
+    """The kernels-line entries of the three kernels' new kinds: launches
+    on the q3-strings and q74 paths (both forms), times at q74's and q3's
+    shapes."""
+    def launches(kernel, sub=None):
+        by = {}
+        for path in ("q3_strings", "q74"):
+            for form in ("authored", "optimized"):
+                d = keys[path][form]["launches"][kernel]
+                by[f"{path} {form}"] = d[sub] if sub else sum(d.values())
+        return by
+    t = keys["timing"]
+    out = []
+    for k in ("build", "count", "emit"):
+        h = t["hash_join"]["by_kernel"][k]
+        by = launches("hash_join_var", k)
+        out.append({
+            "name": f"hash_join_{k}_var", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[k], "launches": sum(by.values()),
+            "launches_by_path": by,
+            "exact": keys["max_err"][k + "_var"] == 0,
+            "max_abs_err": keys["max_err"][k + "_var"], "ms": h["ms"],
+            "call_ms": t["hash_join"]["call_ms"],
+            "plain_ms": t["hash_join"]["plain_ms"],
+            "bound_ms": h["bound_ms"],
+            "bound_by": ("bytes" if h["bytes_ms"] >= h["ops_ms"]
+                         else "operations"),
+            "bytes": h["bytes"], "ops": h["ops"], "library_ms": None,
+            "shape": "q74's s2 |x| s1 on customer_id (call and plain: "
+                     "the whole join)"})
+    by = launches("topk_strings")
+    out.append({"name": "topk_string_keys", "route": "cuda",
+                "source": TK_SOURCE, "replaces": REPLACES["topk"],
+                "launches": by["q74 optimized"], "launches_by_path": by,
+                "exact": keys["max_err"]["topk_keys"] == 0,
+                "max_abs_err": keys["max_err"]["topk_keys"],
+                "library_ms": None, "bound_by": "bytes",
+                **{k: t["topk"][k] for k in ("ms", "call_ms", "plain_ms",
+                                             "bound_ms", "bytes", "ops",
+                                             "words", "rows")},
+                "library": "none: torch.topk takes no strings"})
+    by = launches("fused_select_strings")
+    out.append({"name": "fused_select_string_payloads", "route": "cuda",
+                "source": FS_SOURCE, "replaces": REPLACES["fused_select"],
+                "launches": sum(by.values()), "launches_by_path": by,
+                "exact": keys["max_err"]["fused_select_keys"] == 0,
+                "max_abs_err": keys["max_err"]["fused_select_keys"],
+                "library": "none: no PyTorch call compacts a string column",
+                **summed(t["fused_select"], tuple(t["fused_select"]),
+                         library_ms=None, call_bound_ms=sum(
+                             f["call_bound_ms"]
+                             for f in t["fused_select"].values()))})
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -4732,6 +5712,15 @@ def main(argv=None):
                     help="only run the fixed-width row hash (phase 5) and "
                          "print its times and headline; runs from an "
                          "earlier tree's root too, for A/B runs")
+    ap.add_argument("--select-topk", action="store_true",
+                    help="only time the fixed-width FusedSelect and TopK "
+                         "kernels at kernel_bench.py's tables and TPC-DS "
+                         "q3's calls; runs from an earlier tree's root too, "
+                         "for A/B runs")
+    ap.add_argument("--keys", action="store_true",
+                    help="only run phase 10 (string, DECIMAL128 and float "
+                         "keys: the three kernels' new kinds, TPC-DS q3 with "
+                         "its string i_brand and q74) and print it")
     ap.add_argument("--walls", type=int, default=0, metavar="N",
                     help="only time N warm eager runs of q3, TPC-DS q3 and "
                          "q72 (authored, optimized), interleaved, and print "
@@ -4747,6 +5736,13 @@ def main(argv=None):
         cuda_build.build()
         print(json.dumps({"card": smi,
                           "walls": walls_phase(torch, args.walls)}),
+              flush=True)
+        return 0
+    if args.select_topk:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        cuda_build.build()
+        print(json.dumps({"card": smi,
+                          "select_topk": select_topk_phase(torch)}),
               flush=True)
         return 0
     if args.row_hash:
@@ -4771,6 +5767,14 @@ def main(argv=None):
                "row_conversion": row_conversion_phase(torch, chk)}
         print(json.dumps({"card": smi, **out, "checks": chk.n,
                           "max_err": chk.max_err}), flush=True)
+        return 0
+    if args.keys:
+        chk = Checks()
+        keys = keys_phase(torch, chk)
+        keys["max_err"] = chk.max_err
+        print(json.dumps({"card": smi, "kernels": keys_kernels(keys),
+                          "keys": keys, "checks": chk.n}, default=str),
+              flush=True)
         return 0
     if args.join_profile:
         tables = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
@@ -4807,6 +5811,8 @@ def main(argv=None):
     fz = fuzz_phase(torch, chk)
     fz_e, fz_c = fz["launches"]["eager"], fz["launches"]["capped"]
     rconv = row_conversion_phase(torch, chk)
+    keys = keys_phase(torch, chk)
+    keys["max_err"] = chk.max_err
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -5024,6 +6030,9 @@ def main(argv=None):
                        "row image",
             **summed(rconv["timing"][direction], rc_forms,
                      library_ms=None)})
+    # the three kernels' new kinds (phase 10): launches on the q3-strings
+    # and q74 paths, timed at their shapes
+    kernels.extend(keys_kernels(keys))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -5052,8 +6061,8 @@ def main(argv=None):
                        "c4": c4, "groupby": gb, "capped": capped,
                        "nds_q5_q23": nds_union, "decimal128": dec,
                        "fuzz": fz, "customer_hash": cust,
-                       "row_conversion": rconv},
-                      f, indent=1)
+                       "row_conversion": rconv, "keys": keys},
+                      f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

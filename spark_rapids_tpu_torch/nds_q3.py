@@ -13,6 +13,11 @@
   over the same arrays with the key and dimension columns typed `int`, as
   Spark's TPC-DS schema (databricks/spark-sql-perf `TPCDSTables`) types
   them, and the price kept INT64 (the unscaled decimal(7,2)).
+- `q3_tpcds_strings_plan` and `q3_tpcds_strings_inputs` are q3 with the
+  item's brand as TPC-DS types it: `i_brand_id` INT32 and `i_brand` a
+  STRING, one name per brand id (`brand_name`), grouped by (d_year,
+  i_brand, i_brand_id) and ordered by d_year, revenue descending and
+  i_brand_id, limit 100.
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from . import device as _device
 from . import dtypes
 from .columnar import Column, Table
+from .ops.gather import take
 from .plan import Plan, PlanBuilder, col
 
 N_SALES_SCALE_1 = 10_000_000
@@ -82,6 +89,63 @@ def q3_tpcds_inputs(n_sales: int, seed: int = 0,
     """The same arrays as `q3_inputs`, with the keys and the dimension
     attributes INT32 and `price_cents` INT64: 16 bytes per sales row."""
     return _inputs(n_sales, seed, device, dtypes.INT32)
+
+
+# the syllables dsdgen builds names from (TPC-DS's digit syllables)
+SYLLABLES = ("ought", "able", "pri", "ese", "anti", "cally", "ation", "eing",
+             "bar", "n st")
+
+
+def brand_name(brand_id: int) -> str:
+    """A brand's name as dsdgen forms `i_brand`: syllables, then " #" and a
+    number; one name per id in [0, 1000), 12 to 18 bytes."""
+    b = int(brand_id)
+    return (SYLLABLES[(b // 100) % 10] + SYLLABLES[(b // 10) % 10]
+            + SYLLABLES[b % 10] + f" #{b % 9 + 1}")
+
+
+def q3_tpcds_strings_inputs(n_sales: int, seed: int = 0,
+                            device: Optional[Union[str, torch.device]] = None
+                            ) -> Dict[str, Table]:
+    """`q3_tpcds_inputs`' tables with the item's brand as TPC-DS types it:
+    items are (i_item_sk, i_brand_id INT32, i_brand STRING, i_manufact),
+    `i_brand` the `brand_name` of `i_brand_id`. `device=None` means the
+    CUDA card, as for every entry point."""
+    t = q3_tpcds_inputs(n_sales, seed, "cpu")
+    items = t["items"]
+    names = Column.from_pylist([brand_name(b) for b in range(1000)],
+                               dtypes.STRING, device="cpu")
+    brand = take(names, items["i_brand"].data.to(torch.int64),
+                 _has_negative=False)
+    t["items"] = Table([items["i_item_sk"],
+                        Column(dtypes.INT32, items.num_rows,
+                               items["i_brand"].data),
+                        brand, items["i_manufact"]],
+                       ["i_item_sk", "i_brand_id", "i_brand", "i_manufact"])
+    return {k: v.to(_device.resolve(device)) for k, v in t.items()}
+
+
+def q3_tpcds_strings_plan(limit: Optional[int] = 100, builder=PlanBuilder,
+                          col=col) -> Plan:
+    """TPC-DS q3 as TPC-DS writes it: `q3_tpcds_plan`'s joins, grouped by
+    (d_year, i_brand, i_brand_id) with `i_brand` a STRING, ordered by
+    d_year, revenue descending and i_brand_id, limited to `limit` rows
+    (None keeps every group). `builder` and `col` as in
+    `nds_q74.q74_plan`."""
+    b = builder()
+    sales = b.scan("sales", schema=["sold_date_sk", "item_sk", "price_cents"])
+    dates = (b.scan("dates", schema=["d_date_sk", "d_year", "d_moy"])
+             .filter(col("d_moy") == 11))
+    items = (b.scan("items", schema=["i_item_sk", "i_brand_id", "i_brand",
+                                     "i_manufact"])
+             .filter(col("i_manufact") == 42))
+    j = (sales.join(dates, left_on="sold_date_sk", right_on="d_date_sk")
+              .join(items, left_on="item_sk", right_on="i_item_sk"))
+    ordered = (j.aggregate(["d_year", "i_brand", "i_brand_id"],
+                           [("price_cents", "sum", "revenue")])
+                .sort(["d_year", "revenue", "i_brand_id"],
+                      ascending=[True, False, True]))
+    return (ordered if limit is None else ordered.limit(limit)).build()
 
 
 def q3_plan() -> Plan:

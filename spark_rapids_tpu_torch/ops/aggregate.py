@@ -20,7 +20,17 @@ group id per sorted row, then the reductions, which are the registry's op
 Groups come out in sorted-key order. Spark semantics: sum/min/max/mean
 ignore nulls and an all-null group gives null; count counts non-nulls;
 size is count(*); mean is a float64 sum over the count; integer sums widen
-to INT64 and wrap like Java longs.
+to INT64 and wrap like Java longs. Keys take every kind `sort._key_operands`
+orders (STRING and DECIMAL128 included); nested keys raise.
+
+A STRING column's min and max take the reference's design
+(`aggregate.py:488-522`): the reductions count the column's non-null rows
+per group (its first slot), then one value-ordered stable sort of the
+column under the group keys, nulls last (descending when only max is
+asked), and a `take` at each group's start, or at start + count - 1 for
+the max beside a min; an all-null group's row there is null. The capped
+form raises for them, as the reference's capped tier does for any string
+column.
 
 `groupby_aggregate_capped` is the capped tier's form (the reference's
 `:556`): the output has `key_cap` rows, a `valid` mask and an overflow
@@ -49,7 +59,7 @@ from .gather import take
 from .groupby_cuda import AggSpec
 from .registry import REGISTRY, KernelChoice, KernelDeclinedError
 from .segment_sum_cuda import segment_sum
-from .sort import _float_total_order, _key_operands, lex_order
+from .sort import NULLS_LAST, _float_total_order, _key_operands, lex_order
 
 AGG_OPS = ("sum", "count", "min", "max", "mean", "size")
 
@@ -139,6 +149,10 @@ def float_extreme(op: str, x: torch.Tensor) -> torch.Tensor:
     return bits.view(x.dtype)
 
 
+def _is_string_extreme(op: str, c: Column) -> bool:
+    return op in ("min", "max") and c.dtype.is_string
+
+
 def _agg_specs(table: Table, aggs: Sequence[Tuple[Union[int, str], str]]
                ) -> List[AggSpec]:
     """The aggregations validated as the plain version raises: an unknown
@@ -154,7 +168,8 @@ def _agg_specs(table: Table, aggs: Sequence[Tuple[Union[int, str], str]]
             continue
         c = table[col_ref]
         if op != "count" and not (c.dtype.is_integer or c.dtype.is_floating
-                                  or c.dtype.kind in _MINMAX_KINDS):
+                                  or c.dtype.kind in _MINMAX_KINDS
+                                  or _is_string_extreme(op, c)):
             raise TypeError(f"{op} over {c.dtype} values is not supported")
         specs.append(AggSpec(op, c, cname,
                              dtypes.INT64 if op == "count"
@@ -183,7 +198,21 @@ def groupby_aggregate(table: Table,
     keys = [table[k] for k in key_names]
     if not keys:
         raise ValueError("groupby requires at least one key column")
+    for c in keys:
+        if c.dtype.is_nested:
+            raise TypeError("nested group keys are not supported")
     specs = _agg_specs(table, aggs)
+    strings = [i for i, s in enumerate(specs)
+               if _is_string_extreme(s.op, s.col)]
+    if strings and _cap is not None:
+        raise TypeError(
+            "string min/max needs the longest string, a host read the "
+            "capped tier does not make (the reference's "
+            "Column.max_string_length under jit)")
+    # the reductions count a string column's non-null rows where its
+    # min or max goes; the value-ordered sort below picks the strings
+    run_specs = [AggSpec("count", s.col, s.name, dtypes.INT64)
+                 if i in strings else s for i, s in enumerate(specs)]
     dev = table.device
     if choice is None:
         choice = REGISTRY.select(
@@ -211,14 +240,17 @@ def groupby_aggregate(table: Table,
     seg = torch.cumsum(boundary, 0) - 1               # group id, sorted pos
     if choice.fallback:
         first_rows, agg_cols, num_groups = _reduce_plain(
-            specs, order, boundary, seg, _cap, _alive)
+            run_specs, order, boundary, seg, _cap, _alive)
     else:
         if _cap is None:
             g = int(seg[-1]) + 1 if n else 0          # the one host sync
         else:
             g = _cap
-        first_rows, agg_cols, num_groups = choice.fn(specs, order, seg, g,
-                                                     _alive)
+        first_rows, agg_cols, num_groups = choice.fn(run_specs, order, seg,
+                                                     g, _alive)
+    if strings:
+        agg_cols = _string_extremes(specs, strings, list(agg_cols),
+                                    operands, boundary)
     out_cols = [take(c, first_rows, _has_negative=False) for c in keys]
     out_cols += agg_cols
     names = [table.names[k] if isinstance(k, int) else k for k in key_names]
@@ -228,6 +260,37 @@ def groupby_aggregate(table: Table,
     valid = torch.arange(_cap, device=dev) < num_groups
     return (Table([_pad_column(c, _cap) for c in out_cols], names), valid,
             num_groups > _cap)
+
+
+def _string_extremes(specs: Sequence[AggSpec], strings: Sequence[int],
+                     agg_cols: List[Column], operands, boundary
+                     ) -> List[Column]:
+    """`agg_cols` with the STRING min/max columns at `strings` filled in;
+    there they hold each group's non-null count. One value-ordered sort a
+    column, under the group keys' `operands`, serves all its extremes."""
+    starts = torch.nonzero(boundary).reshape(-1)
+    by_col = {}
+    for i in strings:
+        by_col.setdefault(specs[i].name, []).append(i)
+    for idxs in by_col.values():
+        c = specs[idxs[0]].col
+        wants = {specs[i].op for i in idxs}
+        # nulls last: a group's first row is its min (its max when only
+        # max is asked, sorted descending); a null there means all-null
+        vops = _key_operands(c, "min" in wants, NULLS_LAST)
+        order2 = lex_order(list(operands) + vops)
+        at_start = take(c, order2.index_select(0, starts),
+                        _has_negative=False)
+        at_last = None
+        if wants == {"min", "max"}:
+            cnt = agg_cols[idxs[0]].data
+            last = starts + cnt.clamp(min=1) - 1
+            at_last = take(c, order2.index_select(0, last),
+                           _has_negative=False)
+        for i in idxs:
+            agg_cols[i] = at_last if (specs[i].op == "max"
+                                      and at_last is not None) else at_start
+    return agg_cols
 
 
 def _reduce_plain(specs: Sequence[AggSpec], order: torch.Tensor,

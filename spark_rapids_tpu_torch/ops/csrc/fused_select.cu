@@ -5,7 +5,9 @@
 //   fs_count + fs_compact <- fused_select_compact / _kernel_body
 // and computes the same function: the rows where the predicate holds, in
 // ascending row order, of every needed column at its width (1, 2, 4 or 8
-// bytes), with its validity bytes. It equals
+// bytes; a DECIMAL128 row's 16), with its validity bytes; for STRING
+// columns it writes the kept rows' indices, through which ops/select_cuda.py
+// gathers them. It equals
 // apply_boolean_mask(t.select(needed), predicate.evaluate(t)).
 //
 // - Predicate. The host flattens the expression tree into a postfix program
@@ -130,6 +132,10 @@ struct Pred {
   int narrow;                      // 1: 32-bit values suffice
 };
 
+// An output column: `width` bytes a row copied from src to dst (16: a
+// DECIMAL128 row's four u32 limbs), or, with width 0, the kept rows'
+// indices written to dst as int64 (src unused): the wrapper gathers STRING
+// columns through them.
 struct Out {
   const void* src[FS_MAX_OUT];
   const unsigned char* src_valid[FS_MAX_OUT];   // null: all valid
@@ -137,6 +143,10 @@ struct Out {
   unsigned char* dst_valid[FS_MAX_OUT];
   int width[FS_MAX_OUT];
   int ncols;
+};
+
+struct Limbs {
+  unsigned int w[4];
 };
 
 __device__ __forceinline__ double as_f64(long long v) {
@@ -591,11 +601,13 @@ __device__ __forceinline__ void copy_rows(const void* src, void* dst,
 // Each block compacts one tile: the positions of its kept rows first, then
 // per column every step's loads before any store, so that the loads of a
 // thread's eight rows are in flight together (a store could alias a later
-// load, so the compiler keeps them in program order).
-__global__ void __launch_bounds__(FS_THREADS)
-fs_compact_kernel(const __grid_constant__ Out o, long long n,
-                  const unsigned int* __restrict__ mask,
-                  const long long* __restrict__ starts) {
+// load, so the compiler keeps them in program order). WIDE adds the
+// widths 0 (the kept rows' indices) and 16 (DECIMAL128); the fixed-width
+// kernel is compiled without them, which would cost it registers.
+template <bool WIDE>
+__device__ __forceinline__ void compact_tile(const Out& o,
+                                             const unsigned int* mask,
+                                             const long long* starts) {
   __shared__ int off[FS_CSTEPS * FS_WARPS];   // (step, warp) offsets
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long base = static_cast<long long>(blockIdx.x) * FS_TILE;
@@ -629,7 +641,16 @@ fs_compact_kernel(const __grid_constant__ Out o, long long n,
   }
   const long long row0 = base + threadIdx.x;
   for (int c = 0; c < o.ncols; ++c) {
-    switch (o.width[c]) {
+    if (WIDE && o.width[c] == 0) {
+      long long* out = static_cast<long long*>(o.dst[c]);
+#pragma unroll
+      for (int s = 0; s < FS_CSTEPS; ++s)
+        if (pos[s] >= 0) out[pos[s]] = row0 + s * FS_THREADS;
+      continue;
+    }
+    if (WIDE && o.width[c] == 16) {
+      copy_rows<Limbs>(o.src[c], o.dst[c], row0, pos);
+    } else switch (o.width[c]) {
       case 1:
         copy_rows<unsigned char>(o.src[c], o.dst[c], row0, pos);
         break;
@@ -646,6 +667,20 @@ fs_compact_kernel(const __grid_constant__ Out o, long long n,
     if (o.src_valid[c] != nullptr)
       copy_rows<unsigned char>(o.src_valid[c], o.dst_valid[c], row0, pos);
   }
+}
+
+__global__ void __launch_bounds__(FS_THREADS)
+fs_compact_kernel(const __grid_constant__ Out o, long long n,
+                  const unsigned int* __restrict__ mask,
+                  const long long* __restrict__ starts) {
+  compact_tile<false>(o, mask, starts);
+}
+
+__global__ void __launch_bounds__(FS_THREADS)
+fs_compact_wide_kernel(const __grid_constant__ Out o, long long n,
+                       const unsigned int* __restrict__ mask,
+                       const long long* __restrict__ starts) {
+  compact_tile<true>(o, mask, starts);
 }
 
 // as many blocks as the card holds at once, at most one a tile
@@ -699,10 +734,18 @@ int fs_compact(const Out* o, long long n, const void* mask,
   if (n <= 0 || o->ncols <= 0 || o->ncols > FS_MAX_OUT)
     return cudaErrorInvalidValue;
   const long long blocks = (n + FS_TILE - 1) / FS_TILE;
-  fs_compact_kernel<<<static_cast<unsigned int>(blocks), FS_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      *o, n, static_cast<const unsigned int*>(mask),
-      static_cast<const long long*>(starts));
+  bool wide = false;
+  for (int c = 0; c < o->ncols; ++c)
+    wide = wide || o->width[c] == 0 || o->width[c] == 16;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int* m = static_cast<const unsigned int*>(mask);
+  const long long* st = static_cast<const long long*>(starts);
+  if (wide)
+    fs_compact_wide_kernel<<<static_cast<unsigned int>(blocks), FS_THREADS,
+                             0, s>>>(*o, n, m, st);
+  else
+    fs_compact_kernel<<<static_cast<unsigned int>(blocks), FS_THREADS, 0,
+                        s>>>(*o, n, m, st);
   return static_cast<int>(cudaGetLastError());
 }
 

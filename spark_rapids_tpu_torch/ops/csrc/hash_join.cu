@@ -37,6 +37,11 @@
 //   output slot from every row's start; one walk per matched row gives the
 //   same maps.
 //
+// - Key kinds: fixed-width integers take the kernels as below (K = Keys);
+//   key sets with a STRING, DECIMAL128 or float column take a second
+//   instantiation of every kernel (K = VKeys, the `_var` entry points:
+//   "variable-width keys" below), so the integer joins keep their code.
+//
 // Hopper has native 32- and 64-bit integers, so the TPU's u16-half and
 // one-hot MXU gathers are not carried over. Nor is the reference's VMEM
 // limit of 512 build rows: past the small route's 1,024 slots the table
@@ -211,8 +216,146 @@ __device__ __forceinline__ uint32_t row_hash(const Keys& k, long long i) {
   return h;
 }
 
+// ---- variable-width keys ---------------------------------------------------
+//
+// Key sets with a STRING, DECIMAL128, FLOAT32 or FLOAT64 column take their
+// own instantiation of every kernel (K = VKeys), so the fixed-width kernels
+// (K = Keys) keep their code and registers. A VKeys column has a kind:
+// - VK_FIXED: an integer as Keys holds it (width 1, 2, 4 or 8, `wide`);
+// - VK_F32, VK_F64: the float's bits normalized as ops/sort.py's
+//   _float_total_order normalizes them (-0.0 becomes 0.0, every NaN the
+//   canonical quiet NaN), then hashed and compared as a 4- or 8-byte int:
+//   0.0 matches -0.0, and NaN matches NaN, as in the sort-based join;
+// - VK_DEC128: (n, 4) u32 limbs, four rounds then fmix(h ^ 16);
+// - VK_STRING: chars read through int32 offsets, hashed as Spark's murmur3
+//   of bytes (the row hash's byte path: 4-byte little-endian blocks, each
+//   tail byte a sign-extended signed char, fmix(h ^ length)); equal when
+//   the lengths and then the bytes are. A string of 0 bytes reads nothing,
+//   so an empty chars buffer may have a null pointer.
+// The bucket hash is internal: only the plain version (ops/join_cuda.py)
+// has to compute the same one, for the tables to be equal slot for slot.
+// Keys are compared in full at every step of a walk (after the hash), not
+// staged in shared memory: a probe row's key is read where it lies.
+enum { VK_FIXED = 0, VK_F32 = 1, VK_F64 = 2, VK_DEC128 = 3, VK_STRING = 4 };
+
+struct VKeys {
+  const void* data[MAX_KEYS];
+  const unsigned char* valid[MAX_KEYS];  // torch.bool bytes; null = all valid
+  const int* offsets[MAX_KEYS];          // STRING: (n + 1,) int32
+  int width[MAX_KEYS];                   // VK_FIXED: storage bytes
+  int wide[MAX_KEYS];                    // hashed as 8 bytes
+  int kind[MAX_KEYS];                    // VK_*
+  int nk;
+};
+
+template <typename K>
+struct IsVar : std::false_type {};
+template <>
+struct IsVar<VKeys> : std::true_type {};
+
+__device__ __forceinline__ unsigned int norm_f32(unsigned int u) {
+  if ((u & 0x7fffffffu) == 0u) return 0u;                       // -0.0
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc00000u;      // NaN
+  return u;
+}
+
+__device__ __forceinline__ unsigned long long norm_f64(unsigned long long u) {
+  const unsigned long long mag = u & 0x7fffffffffffffffull;
+  if (mag == 0ull) return 0ull;
+  if (mag > 0x7ff0000000000000ull) return 0x7ff8000000000000ull;
+  return u;
+}
+
+// a fixed-width or float key's value as hash_col takes it
+__device__ __forceinline__ long long vword(const VKeys& k, int j,
+                                           long long i) {
+  switch (k.kind[j]) {
+    case VK_F32:
+      return static_cast<int>(
+          norm_f32(static_cast<const unsigned int*>(k.data[j])[i]));
+    case VK_F64:
+      return static_cast<long long>(
+          norm_f64(static_cast<const unsigned long long*>(k.data[j])[i]));
+    default:
+      switch (k.width[j]) {
+        case 1: return static_cast<const signed char*>(k.data[j])[i];
+        case 2: return static_cast<const short*>(k.data[j])[i];
+        case 4: return static_cast<const int*>(k.data[j])[i];
+        default: return static_cast<const long long*>(k.data[j])[i];
+      }
+  }
+}
+
+__device__ __forceinline__ uint32_t mm_string(uint32_t h,
+                                              const unsigned char* c,
+                                              int len) {
+  const int blocks = len >> 2;
+  for (int q = 0; q < blocks; ++q) {
+    const unsigned char* w = c + 4 * q;
+    h = mm_round(h, static_cast<uint32_t>(w[0]) |
+                        (static_cast<uint32_t>(w[1]) << 8) |
+                        (static_cast<uint32_t>(w[2]) << 16) |
+                        (static_cast<uint32_t>(w[3]) << 24));
+  }
+  for (int t = 4 * blocks; t < len; ++t)
+    h = mm_round(h, static_cast<uint32_t>(static_cast<int>(
+                        static_cast<signed char>(c[t]))));
+  return mm_fmix(h ^ static_cast<uint32_t>(len));
+}
+
+__device__ __forceinline__ uint32_t row_hash(const VKeys& k, long long i) {
+  uint32_t h = 42u;
+  for (int j = 0; j < k.nk; ++j) {
+    const int kind = k.kind[j];
+    if (kind == VK_STRING) {
+      const int a = k.offsets[j][i], e = k.offsets[j][i + 1];
+      h = mm_string(h, static_cast<const unsigned char*>(k.data[j]) + a,
+                    e - a);
+    } else if (kind == VK_DEC128) {
+      const uint32_t* q = static_cast<const uint32_t*>(k.data[j]) + 4 * i;
+      h = mm_round(mm_round(mm_round(mm_round(h, q[0]), q[1]), q[2]), q[3]);
+      h = mm_fmix(h ^ 16u);
+    } else {
+      h = hash_col(h, vword(k, j, i), k.wide[j]);
+    }
+  }
+  return h;
+}
+
+__device__ __forceinline__ bool row_valid(const VKeys& k, long long i) {
+  for (int j = 0; j < k.nk; ++j)
+    if (k.valid[j] != nullptr && !k.valid[j][i]) return false;
+  return true;
+}
+
+// row i of a and row r of b have equal keys (a and b: the same kinds)
+__device__ __forceinline__ bool vkeys_equal(const VKeys& a, long long i,
+                                            const VKeys& b, long long r) {
+  for (int j = 0; j < a.nk; ++j) {
+    const int kind = a.kind[j];
+    if (kind == VK_STRING) {
+      const int ai = a.offsets[j][i], bi = b.offsets[j][r];
+      const int len = a.offsets[j][i + 1] - ai;
+      if (b.offsets[j][r + 1] - bi != len) return false;
+      const unsigned char* x = static_cast<const unsigned char*>(a.data[j]) + ai;
+      const unsigned char* y = static_cast<const unsigned char*>(b.data[j]) + bi;
+      for (int t = 0; t < len; ++t)
+        if (x[t] != y[t]) return false;
+    } else if (kind == VK_DEC128) {
+      const uint32_t* x = static_cast<const uint32_t*>(a.data[j]) + 4 * i;
+      const uint32_t* y = static_cast<const uint32_t*>(b.data[j]) + 4 * r;
+      if (x[0] != y[0] || x[1] != y[1] || x[2] != y[2] || x[3] != y[3])
+        return false;
+    } else if (vword(a, j, i) != vword(b, j, r)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+template <typename K>
 __global__ void __launch_bounds__(BUILD_THREADS)
-build_kernel(const __grid_constant__ Keys b, int n, int C, int* slot_row_out,
+build_kernel(const __grid_constant__ K b, int n, int C, int* slot_row_out,
              uint32_t* slot_hash_out) {
   __shared__ int slot_row[SMALL_CAPACITY];
   __shared__ uint32_t slot_hash[SMALL_CAPACITY];
@@ -282,8 +425,9 @@ __device__ __forceinline__ unsigned long long claim_word(int round, int row) {
 // the probes' word. Per row the state is its hash and distance (scratch);
 // counters[0..2] count the proposals of rounds r mod 3, counters[3] gets
 // the rounds.
+template <typename K>
 __global__ void __launch_bounds__(LARGE_BUILD_THREADS)
-build_large_kernel(const __grid_constant__ Keys b, int n, int C,
+build_large_kernel(const __grid_constant__ K b, int n, int C,
                    unsigned long long* __restrict__ table,
                    uint32_t* __restrict__ row_h, uint32_t* __restrict__ row_d,
                    int* counters) {
@@ -398,8 +542,10 @@ static size_t table_bytes(int C, int nks) {
 
 // stage the table; the caller syncs before reading it. A thread's slots'
 // loads are issued together: two round trips to device memory in all.
+// Variable-width keys stage no key values (nks = 0).
+template <typename K>
 __device__ __forceinline__ SmemTable stage_table(unsigned char* smem,
-                                                 const Keys& b,
+                                                 const K& b,
                                                  const int* slot_row,
                                                  const uint32_t* slot_hash,
                                                  int C, int nks) {
@@ -424,6 +570,7 @@ __device__ __forceinline__ SmemTable stage_table(unsigned char* smem,
       t.ent[s] = (static_cast<unsigned long long>(h[k]) << 32) |
                  static_cast<uint32_t>(r[k]);
   }
+  if constexpr (!IsVar<K>::value) {
   for (int j = 0; j < nks; ++j) {
     long long v[PER];
 #pragma unroll
@@ -434,36 +581,45 @@ __device__ __forceinline__ SmemTable stage_table(unsigned char* smem,
       if (s < C) t.key[j * C + s] = v[k];
     }
   }
+  }
   return t;
 }
 
 // probe row i (first key value v0) against build row r, in slot s
-template <typename T>
-__device__ __forceinline__ bool keys_equal(const Keys& p, long long i,
-                                           long long v0, const Keys& b,
+template <typename T, typename K>
+__device__ __forceinline__ bool keys_equal(const K& p, long long i,
+                                           long long v0, const K& b,
                                            int r, const T& t, int s) {
-  if (t.first_key(b, s, r) != v0) return false;
-  for (int j = 1; j < p.nk; ++j)
-    if (load_key(p, j, i) != t.key_of(b, j, s, r)) return false;
-  return true;
+  if constexpr (IsVar<K>::value) {
+    return vkeys_equal(p, i, b, r);
+  } else {
+    if (t.first_key(b, s, r) != v0) return false;
+    for (int j = 1; j < p.nk; ++j)
+      if (load_key(p, j, i) != t.key_of(b, j, s, r)) return false;
+    return true;
+  }
 }
 
 // build rows r (slot s) and r0 (slot s0) have equal keys
-template <typename T>
-__device__ __forceinline__ bool build_keys_equal(const Keys& b, const T& t,
+template <typename T, typename K>
+__device__ __forceinline__ bool build_keys_equal(const K& b, const T& t,
                                                  int s, int r, int s0,
                                                  int r0) {
-  for (int j = 0; j < b.nk; ++j)
-    if (t.key_of(b, j, s, r) != t.key_of(b, j, s0, r0)) return false;
-  return true;
+  if constexpr (IsVar<K>::value) {
+    return vkeys_equal(b, r, b, r0);
+  } else {
+    for (int j = 0; j < b.nk; ++j)
+      if (t.key_of(b, j, s, r) != t.key_of(b, j, s0, r0)) return false;
+    return true;
+  }
 }
 
 // the matches of probe row i (hash h) along its chain; *first gets the slot
 // of the first
-template <typename T>
-__device__ __forceinline__ int count_row(const Keys& p, long long i,
+template <typename T, typename K>
+__device__ __forceinline__ int count_row(const K& p, long long i,
                                          long long v0, uint32_t h,
-                                         const Keys& b, const T& t, int C,
+                                         const K& b, const T& t, int C,
                                          int* first) {
   const uint32_t mask = static_cast<uint32_t>(C - 1);
   int c = 0;
@@ -531,7 +687,8 @@ __device__ __forceinline__ void load_rows(const Keys& k, int j,
 }
 
 // rows row0 .. row0 + 7 inside n with every key valid
-__device__ __forceinline__ void valid_rows(const Keys& k, long long row0,
+template <typename K>
+__device__ __forceinline__ void valid_rows(const K& k, long long row0,
                                            long long n, bool ok[PROBE_R]) {
 #pragma unroll
   for (int r = 0; r < PROBE_R; ++r) ok[r] = row0 + r < n;
@@ -623,10 +780,10 @@ __device__ __forceinline__ T warp_incl(T x, int lane) {
 // sums its tiles' segments, and the last block to finish scans the tiles'
 // pairs into offsets and the total. The tile arrays, total and ticket are
 // the call's scratch (the ticket zeroed on the launch stream).
-template <bool LARGE>
+template <bool LARGE, typename K>
 __global__ void __launch_bounds__(PROBE_THREADS)
-count_kernel(const __grid_constant__ Keys p, long long n,
-             const __grid_constant__ Keys b, const int* __restrict__ slot_row,
+count_kernel(const __grid_constant__ K p, long long n,
+             const __grid_constant__ K b, const int* __restrict__ slot_row,
              const uint32_t* __restrict__ slot_hash,
              const unsigned long long* __restrict__ ent, int C, int nks,
              int* __restrict__ counts,
@@ -665,19 +822,32 @@ count_kernel(const __grid_constant__ Keys p, long long n,
     const long long seg0 = tile * PROBE_TILE + warp * PROBE_SEG;
     if (seg0 >= n) continue;
     const long long row0 = seg0 + lane * PROBE_R;
-    // every load of the lane's rows before any hash
     long long v0[PROBE_R];
-    load_rows(p, 0, row0, n, v0);
     bool ok[PROBE_R];
-    valid_rows(p, row0, n, ok);
     uint32_t h[PROBE_R];
+    if constexpr (IsVar<K>::value) {
+      // a variable-width row is hashed and compared where it lies; v0
+      // carries its row
+      valid_rows(p, row0, n, ok);
 #pragma unroll
-    for (int r = 0; r < PROBE_R; ++r) h[r] = hash_col(42u, v0[r], p.wide[0]);
-    for (int j = 1; j < p.nk; ++j) {
-      long long v[PROBE_R];
-      load_rows(p, j, row0, n, v);
+      for (int r = 0; r < PROBE_R; ++r) {
+        v0[r] = row0 + r;
+        h[r] = ok[r] ? row_hash(p, row0 + r) : 0u;
+      }
+    } else {
+      // every load of the lane's rows before any hash
+      load_rows(p, 0, row0, n, v0);
+      valid_rows(p, row0, n, ok);
 #pragma unroll
-      for (int r = 0; r < PROBE_R; ++r) h[r] = hash_col(h[r], v[r], p.wide[j]);
+      for (int r = 0; r < PROBE_R; ++r)
+        h[r] = hash_col(42u, v0[r], p.wide[0]);
+      for (int j = 1; j < p.nk; ++j) {
+        long long v[PROBE_R];
+        load_rows(p, j, row0, n, v);
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r)
+          h[r] = hash_col(h[r], v[r], p.wide[j]);
+      }
     }
     // rows whose hash no build row has count 0 without a walk; the warp's
     // other rows (its candidates) walk 32 at a time, one a lane
@@ -818,9 +988,9 @@ static size_t emit_smem_bytes(int C, int nks) {
 // at positions below `limit` are written (the capped join's row_cap; the
 // eager join passes the total): a tile or segment that starts at or past it
 // is skipped, and a segment that crosses it writes its first pairs only.
-template <bool LARGE>
+template <bool LARGE, typename K>
 __global__ void __launch_bounds__(PROBE_THREADS)
-emit_kernel(const __grid_constant__ Keys b, const int* __restrict__ slot_row,
+emit_kernel(const __grid_constant__ K b, const int* __restrict__ slot_row,
             const uint32_t* __restrict__ slot_hash,
             const unsigned long long* __restrict__ ent, int C, int nks,
             long long n,
@@ -938,6 +1108,31 @@ static bool make_keys(Keys* k, const void* const* data,
   return true;
 }
 
+// kind: VK_* per column; offsets: a STRING column's, null otherwise
+static bool make_vkeys(VKeys* k, const void* const* data,
+                       const void* const* valid, const void* const* offsets,
+                       const int* width, const int* wide, const int* kind,
+                       int nk) {
+  if (nk < 1 || nk > MAX_KEYS) return false;
+  k->nk = nk;
+  for (int j = 0; j < MAX_KEYS; ++j) {
+    const bool used = j < nk;
+    k->data[j] = used ? data[j] : nullptr;
+    k->valid[j] = used ? static_cast<const unsigned char*>(valid[j]) : nullptr;
+    k->offsets[j] = used ? static_cast<const int*>(offsets[j]) : nullptr;
+    k->width[j] = used ? width[j] : 8;
+    k->wide[j] = used ? wide[j] : 0;
+    k->kind[j] = used ? kind[j] : VK_FIXED;
+    if (!used) continue;
+    if (kind[j] < VK_FIXED || kind[j] > VK_STRING) return false;
+    if (kind[j] == VK_STRING && offsets[j] == nullptr) return false;
+    if (kind[j] == VK_FIXED && width[j] != 1 && width[j] != 2 &&
+        width[j] != 4 && width[j] != 8)
+      return false;
+  }
+  return true;
+}
+
 static bool capacity_ok(int C) {
   return C >= 1 && C <= MAX_CAPACITY && (C & (C - 1)) == 0;
 }
@@ -984,6 +1179,133 @@ static cudaError_t large_build_grid(const void* kernel, long long rows,
   return cudaSuccess;
 }
 
+// ---- launches, for either key type ------------------------------------------
+
+template <typename K>
+static int build_small(const K& b, long long n, int C, int* slot_row,
+                       uint32_t* slot_hash, void* stream) {
+  if (n < 1 || n > SMALL_BUILD_ROWS || !capacity_ok(C) ||
+      C > SMALL_CAPACITY || 2 * n > C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  build_kernel<K><<<1, BUILD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      b, static_cast<int>(n), C, slot_row, slot_hash);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+static int build_large(K b, long long n, int C, unsigned long long* table,
+                       int* scratch, void* stream) {
+  if (n < 1 || n > MAX_BUILD_ROWS || !capacity_ok(C) ||
+      C <= SMALL_CAPACITY || 2 * n > C || table == nullptr ||
+      scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = reinterpret_cast<const void*>(build_large_kernel<K>);
+  unsigned int blocks = 0;
+  cudaError_t err = large_build_grid(kernel, n, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rows = static_cast<int>(n);
+  uint32_t* row_h = reinterpret_cast<uint32_t*>(scratch);
+  uint32_t* row_d = row_h + n;
+  int* counters = scratch + 2 * n;
+  void* args[] = {&b, &rows, &C, &table, &row_h, &row_d, &counters};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                    dim3(LARGE_BUILD_THREADS), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// key columns staged in shared memory: none for variable-width keys
+template <typename K>
+static int staged_cols(const K& k) {
+  if (IsVar<K>::value) return 0;
+  return k.nk < SMEM_KEY_COLS ? k.nk : SMEM_KEY_COLS;
+}
+
+template <typename K>
+static int count_launch(const K& p, long long n, const K& b,
+                        const int* slot_row, const uint32_t* slot_hash,
+                        const unsigned long long* ent, int C, int* counts,
+                        void* entries, int* seg, long long* scratch,
+                        void* stream) {
+  const bool large = C > SMALL_CAPACITY;
+  if (n < 1 || n > INT_MAX || !capacity_ok(C) || scratch == nullptr ||
+      (large && ent == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nks = staged_cols(p);
+  const size_t smem = large ? 0 : count_smem_bytes(C, nks);
+  // above 48 KB a block's shared memory must be asked for
+  cudaError_t err = cudaSuccess;
+  unsigned int blocks = 0;
+  if (large) {
+    err = probe_grid(count_kernel<true, K>, smem, n, &blocks);
+  } else {
+    err = cudaFuncSetAttribute(
+        count_kernel<false, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(count_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
+    if (err == cudaSuccess)
+      err = probe_grid(count_kernel<false, K>, smem, n, &blocks);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch + 1, 0, sizeof(unsigned int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  const long long segs = (n + PROBE_SEG - 1) / PROBE_SEG;
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + 1);
+  if (large)
+    count_kernel<true, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, counts,
+        static_cast<unsigned long long*>(entries), seg, seg + segs,
+        scratch + 2, scratch + 2 + tiles, scratch, ticket);
+  else
+    count_kernel<false, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, counts,
+        static_cast<unsigned int*>(entries), seg, seg + segs, scratch + 2,
+        scratch + 2 + tiles, scratch, ticket);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+static int emit_launch(const K& b, long long n, const int* slot_row,
+                       const uint32_t* slot_hash,
+                       const unsigned long long* ent, int C,
+                       const void* entries, const int* seg_sum,
+                       const int* seg_matched, const long long* tile_off,
+                       long long limit, int* out_l, int* out_r,
+                       void* stream) {
+  const bool large = C > SMALL_CAPACITY;
+  if (n < 1 || n > INT_MAX || !capacity_ok(C) || (large && ent == nullptr) ||
+      limit < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nks = staged_cols(b);
+  const size_t smem = large ? emit_stage_bytes() : emit_smem_bytes(C, nks);
+  cudaError_t err = cudaSuccess;
+  unsigned int blocks = 0;
+  if (large) {
+    err = probe_grid(emit_kernel<true, K>, smem, n, &blocks);
+  } else {
+    err = cudaFuncSetAttribute(
+        emit_kernel<false, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(emit_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
+    if (err == cudaSuccess)
+      err = probe_grid(emit_kernel<false, K>, smem, n, &blocks);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (large)
+    emit_kernel<true, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        b, slot_row, slot_hash, ent, C, nks, n,
+        static_cast<const unsigned long long*>(entries), seg_sum,
+        seg_matched, tile_off, limit, out_l, out_r);
+  else
+    emit_kernel<false, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        b, slot_row, slot_hash, ent, C, nks, n,
+        static_cast<const unsigned int*>(entries), seg_sum, seg_matched,
+        tile_off, limit, out_l, out_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
 // the small route: C <= SMALL_CAPACITY, n <= C / 2
@@ -991,13 +1313,9 @@ int hj_build(const void* const* data, const void* const* valid,
              const int* width, const int* wide, int nk, long long n, int C,
              int* slot_row, uint32_t* slot_hash, void* stream) {
   Keys b;
-  if (!make_keys(&b, data, valid, width, wide, nk) || n < 1 ||
-      n > SMALL_BUILD_ROWS || !capacity_ok(C) || C > SMALL_CAPACITY ||
-      2 * n > C)
+  if (!make_keys(&b, data, valid, width, wide, nk))
     return static_cast<int>(cudaErrorInvalidValue);
-  build_kernel<<<1, BUILD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      b, static_cast<int>(n), C, slot_row, slot_hash);
-  return static_cast<int>(cudaGetLastError());
+  return build_small(b, n, C, slot_row, slot_hash, stream);
 }
 
 // the large route: SMALL_CAPACITY < C <= MAX_CAPACITY, n <= C / 2. table:
@@ -1008,24 +1326,9 @@ int hj_build_large(const void* const* data, const void* const* valid,
                    int C, unsigned long long* table, int* scratch,
                    void* stream) {
   Keys b;
-  if (!make_keys(&b, data, valid, width, wide, nk) || n < 1 ||
-      n > MAX_BUILD_ROWS || !capacity_ok(C) || C <= SMALL_CAPACITY ||
-      2 * n > C || table == nullptr || scratch == nullptr)
+  if (!make_keys(&b, data, valid, width, wide, nk))
     return static_cast<int>(cudaErrorInvalidValue);
-  unsigned int blocks = 0;
-  cudaError_t err = large_build_grid(
-      reinterpret_cast<const void*>(build_large_kernel), n, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int rows = static_cast<int>(n);
-  uint32_t* row_h = reinterpret_cast<uint32_t*>(scratch);
-  uint32_t* row_d = row_h + n;
-  int* counters = scratch + 2 * n;
-  void* args[] = {&b, &rows, &C, &table, &row_h, &row_d, &counters};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(build_large_kernel), dim3(blocks),
-      dim3(LARGE_BUILD_THREADS), args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return build_large(b, n, C, table, scratch, stream);
 }
 
 // `rounds` grid barriers on the large build's grid for `rows` rows; out:
@@ -1061,44 +1364,11 @@ int hj_count(const void* const* pdata, const void* const* pvalid,
              void* stream) {
   Keys p, b;
   const void* no_valid[MAX_KEYS] = {nullptr};
-  const bool large = C > SMALL_CAPACITY;
   if (!make_keys(&p, pdata, pvalid, width, wide, nk) ||
-      !make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      n > INT_MAX || !capacity_ok(C) || scratch == nullptr ||
-      (large && ent == nullptr))
+      !make_keys(&b, bdata, no_valid, width, wide, nk))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
-  const size_t smem = large ? 0 : count_smem_bytes(C, nks);
-  // above 48 KB a block's shared memory must be asked for
-  cudaError_t err = cudaSuccess;
-  unsigned int blocks = 0;
-  if (large) {
-    err = probe_grid(count_kernel<true>, smem, n, &blocks);
-  } else {
-    err = cudaFuncSetAttribute(
-        count_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(count_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
-    if (err == cudaSuccess)
-      err = probe_grid(count_kernel<false>, smem, n, &blocks);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(scratch + 1, 0, sizeof(unsigned int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
-  const long long segs = (n + PROBE_SEG - 1) / PROBE_SEG;
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(scratch + 1);
-  if (large)
-    count_kernel<true><<<blocks, PROBE_THREADS, smem, s>>>(
-        p, n, b, slot_row, slot_hash, ent, C, nks, counts,
-        static_cast<unsigned long long*>(entries), seg, seg + segs,
-        scratch + 2, scratch + 2 + tiles, scratch, ticket);
-  else
-    count_kernel<false><<<blocks, PROBE_THREADS, smem, s>>>(
-        p, n, b, slot_row, slot_hash, ent, C, nks, counts,
-        static_cast<unsigned int*>(entries), seg, seg + segs, scratch + 2,
-        scratch + 2 + tiles, scratch, ticket);
-  return static_cast<int>(cudaGetLastError());
+  return count_launch(p, n, b, slot_row, slot_hash, ent, C, counts, entries,
+                      seg, scratch, stream);
 }
 
 // entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows,
@@ -1113,38 +1383,65 @@ int hj_emit(const void* const* bdata, const int* width, const int* wide,
             int* out_r, void* stream) {
   Keys b;
   const void* no_valid[MAX_KEYS] = {nullptr};
-  const bool large = C > SMALL_CAPACITY;
-  if (!make_keys(&b, bdata, no_valid, width, wide, nk) || n < 1 ||
-      n > INT_MAX || !capacity_ok(C) || (large && ent == nullptr) ||
-      limit < 0)
+  if (!make_keys(&b, bdata, no_valid, width, wide, nk))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nks = nk < SMEM_KEY_COLS ? nk : SMEM_KEY_COLS;
-  const size_t smem = large ? emit_stage_bytes() : emit_smem_bytes(C, nks);
-  cudaError_t err = cudaSuccess;
-  unsigned int blocks = 0;
-  if (large) {
-    err = probe_grid(emit_kernel<true>, smem, n, &blocks);
-  } else {
-    err = cudaFuncSetAttribute(
-        emit_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(emit_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
-    if (err == cudaSuccess)
-      err = probe_grid(emit_kernel<false>, smem, n, &blocks);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (large)
-    emit_kernel<true><<<blocks, PROBE_THREADS, smem, s>>>(
-        b, slot_row, slot_hash, ent, C, nks, n,
-        static_cast<const unsigned long long*>(entries), seg_sum,
-        seg_matched, tile_off, limit, out_l, out_r);
-  else
-    emit_kernel<false><<<blocks, PROBE_THREADS, smem, s>>>(
-        b, slot_row, slot_hash, ent, C, nks, n,
-        static_cast<const unsigned int*>(entries), seg_sum, seg_matched,
-        tile_off, limit, out_l, out_r);
-  return static_cast<int>(cudaGetLastError());
+  return emit_launch(b, n, slot_row, slot_hash, ent, C, entries, seg_sum,
+                     seg_matched, tile_off, limit, out_l, out_r, stream);
 }
 
+// The variable-width entry points: hj_build's, hj_build_large's, hj_count's
+// and hj_emit's contracts, for key sets with a STRING, DECIMAL128 or float
+// column. Each column has a kind (VK_*) and, for STRING, its offsets.
+int hj_build_var(const void* const* data, const void* const* valid,
+                 const void* const* offsets, const int* width,
+                 const int* wide, const int* kind, int nk, long long n,
+                 int C, int* slot_row, uint32_t* slot_hash, void* stream) {
+  VKeys b;
+  if (!make_vkeys(&b, data, valid, offsets, width, wide, kind, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return build_small(b, n, C, slot_row, slot_hash, stream);
+}
+
+int hj_build_large_var(const void* const* data, const void* const* valid,
+                       const void* const* offsets, const int* width,
+                       const int* wide, const int* kind, int nk,
+                       long long n, int C, unsigned long long* table,
+                       int* scratch, void* stream) {
+  VKeys b;
+  if (!make_vkeys(&b, data, valid, offsets, width, wide, kind, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return build_large(b, n, C, table, scratch, stream);
+}
+
+int hj_count_var(const void* const* pdata, const void* const* pvalid,
+                 const void* const* poffsets, const int* width,
+                 const int* wide, const int* kind, int nk, long long n,
+                 const void* const* bdata, const void* const* boffsets,
+                 const int* slot_row, const uint32_t* slot_hash,
+                 const unsigned long long* ent, int C, int* counts,
+                 void* entries, int* seg, long long* scratch, void* stream) {
+  VKeys p, b;
+  const void* no_valid[MAX_KEYS] = {nullptr};
+  if (!make_vkeys(&p, pdata, pvalid, poffsets, width, wide, kind, nk) ||
+      !make_vkeys(&b, bdata, no_valid, boffsets, width, wide, kind, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return count_launch(p, n, b, slot_row, slot_hash, ent, C, counts, entries,
+                      seg, scratch, stream);
+}
+
+int hj_emit_var(const void* const* bdata, const void* const* boffsets,
+                const int* width, const int* wide, const int* kind, int nk,
+                long long n, const int* slot_row, const uint32_t* slot_hash,
+                const unsigned long long* ent, int C, const void* entries,
+                const int* seg_sum, const int* seg_matched,
+                const long long* tile_off, long long limit, int* out_l,
+                int* out_r, void* stream) {
+  VKeys b;
+  const void* no_valid[MAX_KEYS] = {nullptr};
+  if (!make_vkeys(&b, bdata, no_valid, boffsets, width, wide, kind, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return emit_launch(b, n, slot_row, slot_hash, ent, C, entries, seg_sum,
+                     seg_matched, tile_off, limit, out_l, out_r, stream);
+}
 
 }  // extern "C"

@@ -9,10 +9,18 @@
 //
 // - Tuples, built in the kernel. The host compiles the keys into a TkDesc
 //   passed by value (__grid_constant__): per key its data, width, kind
-//   (bool, int, float32, float64), direction, validity and null order, and
-//   per tuple word the key it comes from and whether it is the key's null
-//   rank. A row's words are those of ops/topk.py order_words, one per sort
-//   operand of ops/sort.py _key_operands, built from the columns when
+//   (bool, int, float32, float64, DECIMAL128, STRING), direction, validity
+//   and null order, and per tuple word the key it comes from, whether it
+//   is the key's null rank and which of the key's value words it is
+//   (`part`). A DECIMAL128 key is two words, its top 64 bits signed and
+//   its low 64 bits unsigned; a STRING key is nw big-endian 64-bit words
+//   of its bytes read through its offsets, zero padded (nw from the
+//   column's longest string, ops/topk.py value_words), then its length.
+//   The DECIMAL128 and STRING kinds have kernels of their own
+//   (tk_*_var_kernel), so that the fixed-width kinds' keep their
+//   registers. A row's words are those of ops/topk.py order_words, one
+//   per sort operand of ops/sort.py _key_operands, built from the columns
+//   when
 //   compared: a null rank (NULLS_FIRST ascending, NULLS_LAST descending)
 //   before the value of a nullable key; the value zeroed where null;
 //   floats through _float_total_order (-0.0 is 0, NaN canonical and
@@ -90,21 +98,30 @@ typedef unsigned long long u64;
 #define TK_SIGN 0x8000000000000000ull
 
 // key kinds (ops/topk.py KIND_*)
-enum { KIND_BOOL = 0, KIND_INT, KIND_F32, KIND_F64 };
+enum { KIND_BOOL = 0, KIND_INT, KIND_F32, KIND_F64, KIND_DEC, KIND_STR };
 
+// A key, or (in a threshold block's copy, one a word) a key's word `part`.
+// KIND_DEC: (n, 4) u32 limbs; part 0 is the top 64 bits, signed, part 1
+// the low 64 bits, unsigned. KIND_STR: chars through int32 offsets; parts
+// 0 .. nw - 1 are big-endian 64-bit words of the bytes, zero padded
+// (unsigned), part nw the length.
 struct TkKey {
   const void* data;
   const unsigned char* valid;   // null: no validity, no rank word
-  unsigned char width;          // 1, 2, 4 or 8 bytes
+  const int* offsets;           // KIND_STR
+  unsigned char width;          // 1, 2, 4, 8 or 16 bytes (KIND_STR: 1)
   unsigned char kind;           // KIND_*
   unsigned char desc;           // descending: bitwise NOT of the value
   unsigned char nulls_first;    // the null rank's polarity
+  unsigned char part;           // the value word this entry builds
+  unsigned char nw;             // KIND_STR: chars words
 };
 
 struct TkDesc {
   TkKey key[TK_MAX_KEYS];
   unsigned char word_key[TK_MAX_WORDS];   // the key a word comes from
   unsigned char word_rank[TK_MAX_WORDS];  // 1: the key's null rank
+  unsigned char word_part[TK_MAX_WORDS];  // the key's value word
   int W;                                  // words, the row index last
 };
 
@@ -129,8 +146,10 @@ __device__ __forceinline__ long long f64_order(u64 u) {
 // The key c of the items e[i] whose load[i] is 0, N of them a thread: each
 // row's validity and its value's order-mapped integer (before direction
 // and null zeroing). Every load of the N items is issued before any is
-// used.
-template <int N>
+// used. VAR: the key may be DECIMAL128 or STRING; the kernels of the
+// fixed-width kinds are compiled without those branches, whose registers
+// would slow them.
+template <bool VAR, int N>
 __device__ __forceinline__ void key_values(const TkKey& c,
                                            const long long* e,
                                            const int* load, bool* valid,
@@ -140,7 +159,36 @@ __device__ __forceinline__ void key_values(const TkKey& c,
   } else {
     FOR_N valid[r] = true;
   }
-  if (c.kind == KIND_BOOL) {
+  if (VAR && c.kind == KIND_STR) {
+    // unsigned words are flipped to signed order, as value_word flips back
+    const unsigned char* q = static_cast<const unsigned char*>(c.data);
+    int start[N], len[N];
+    FOR_N {
+      start[r] = load[r] == 0 ? c.offsets[e[r]] : 0;
+      len[r] = load[r] == 0 ? c.offsets[e[r] + 1] - start[r] : 0;
+    }
+    if (c.part == c.nw) {
+      FOR_N o[r] = len[r];
+    } else {
+      const int at = 8 * c.part;
+      FOR_N {
+        u64 u = 0;
+        for (int b = 0; b < 8; ++b)
+          u = (u << 8) | (at + b < len[r] ? q[start[r] + at + b] : 0u);
+        o[r] = static_cast<long long>(u ^ TK_SIGN);
+      }
+    }
+  } else if (VAR && c.kind == KIND_DEC) {
+    // limbs 3, 2 (signed) or 1, 0 (unsigned, flipped to signed order)
+    const unsigned int* q = static_cast<const unsigned int*>(c.data);
+    const int hi = c.part == 0 ? 3 : 1;
+    const u64 flip = c.part == 0 ? 0ull : TK_SIGN;
+    FOR_N o[r] = load[r] == 0
+                     ? static_cast<long long>(
+                           ((static_cast<u64>(q[4 * e[r] + hi]) << 32) |
+                            q[4 * e[r] + hi - 1]) ^ flip)
+                     : 0;
+  } else if (c.kind == KIND_BOOL) {
     const unsigned char* q = static_cast<const unsigned char*>(c.data);
     FOR_N o[r] = load[r] == 0 && q[e[r]] != 0;
   } else if (c.kind == KIND_F32) {
@@ -178,14 +226,21 @@ __device__ __forceinline__ u64 value_word(const TkKey& c, bool valid,
 }
 
 // word w of row `row`'s tuple (the tile sort)
+template <bool VAR>
 __device__ __forceinline__ u64 tuple_word(const TkDesc& d, int w,
                                           long long row) {
   if (w == d.W - 1) return static_cast<u64>(row);
-  const TkKey& c = d.key[d.word_key[w]];
   const int load = 0;
   bool valid;
   long long o;
-  key_values<1>(c, &row, &load, &valid, &o);
+  if (VAR) {
+    TkKey c = d.key[d.word_key[w]];
+    c.part = d.word_part[w];
+    key_values<true, 1>(c, &row, &load, &valid, &o);
+    return d.word_rank[w] ? rank_word(c, valid) : value_word(c, valid, o);
+  }
+  const TkKey& c = d.key[d.word_key[w]];
+  key_values<false, 1>(c, &row, &load, &valid, &o);
   return d.word_rank[w] ? rank_word(c, valid) : value_word(c, valid, o);
 }
 
@@ -202,10 +257,11 @@ __device__ __forceinline__ bool tuple_less(const u64* s, int T, int W, int a,
 
 // the tuples of a tile of T rows, built from the columns, sorted; the k
 // smallest written as block b's run of out
-__global__ void tk_select_kernel(const __grid_constant__ TkDesc d,
-                                 long long m, int W, int T, int k,
-                                 u64* __restrict__ out,
-                                 long long out_stride) {
+template <bool VAR>
+__device__ __forceinline__ void select_tile(const TkDesc& d, long long m,
+                                            int W, int T, int k,
+                                            u64* __restrict__ out,
+                                            long long out_stride) {
   extern __shared__ u64 smem[];
   u64* s = smem;                                               // W x T
   unsigned short* slot = reinterpret_cast<unsigned short*>(s + W * T);
@@ -214,7 +270,7 @@ __global__ void tk_select_kernel(const __grid_constant__ TkDesc d,
     const int w = e / T, j = e - w * T;
     const long long row = base + j;
     if (row >= m) s[e] = ~0ull;
-    else s[e] = tuple_word(d, w, row);
+    else s[e] = tuple_word<VAR>(d, w, row);
   }
   for (int j = threadIdx.x; j < T; j += blockDim.x) slot[j] = j;
   __syncthreads();
@@ -238,6 +294,20 @@ __global__ void tk_select_kernel(const __grid_constant__ TkDesc d,
     out[static_cast<long long>(w) * out_stride +
         static_cast<long long>(blockIdx.x) * k + j] = s[w * T + slot[j]];
   }
+}
+
+__global__ void tk_select_kernel(const __grid_constant__ TkDesc d,
+                                 long long m, int W, int T, int k,
+                                 u64* __restrict__ out,
+                                 long long out_stride) {
+  select_tile<false>(d, m, W, T, k, out, out_stride);
+}
+
+__global__ void tk_select_var_kernel(const __grid_constant__ TkDesc d,
+                                     long long m, int W, int T, int k,
+                                     u64* __restrict__ out,
+                                     long long out_stride) {
+  select_tile<true>(d, m, W, T, k, out, out_stride);
 }
 
 // -1, 0 or 1: tuple i of a against tuple j of b (word-major, strides sa, sb)
@@ -324,7 +394,7 @@ enum { SC_COUNT = 0, SC_LAST, SC_PICKED, SC_BIN, SC_BELOW, SC_INBIN,
 // candidate runs (written by other blocks: L2). A key's null rank is
 // always followed by its value: for a rank word, `next` receives word
 // w + 1 from the same loads.
-template <bool KEYS, int N>
+template <bool KEYS, bool VAR, int N>
 __device__ __forceinline__ void item_words(const Block& B, const u64* cand,
                                            long long stride, int w,
                                            const long long* e,
@@ -350,7 +420,7 @@ __device__ __forceinline__ void item_words(const Block& B, const u64* cand,
       FOR_N valid[r] = true;
     }
   } else {
-    key_values<N>(c, e, load, valid, o);
+    key_values<VAR, N>(c, e, load, valid, o);
   }
   FOR_N {
     const u64 value = value_word(c, valid[r], o[r]);
@@ -366,7 +436,7 @@ __device__ __forceinline__ void item_words(const Block& B, const u64* cand,
 
 // word w of the elements [0, n) whose state is 0 (all with every_one)
 // into `to`, each thread's TK_PER elements loaded together
-template <bool KEYS>
+template <bool KEYS, bool VAR>
 __device__ void gather_word(const Block& B, const u64* cand,
                             long long stride, int w, int n, bool every_one,
                             u64* to, int to_stride) {
@@ -380,7 +450,7 @@ __device__ void gather_word(const Block& B, const u64* cand,
       e[q] = load[q] == 0 ? static_cast<long long>(B.ids[i]) : 0;
     }
     u64 x[TK_PER];
-    item_words<KEYS, TK_PER>(B, cand, stride, w, e, load, x);
+    item_words<KEYS, VAR, TK_PER>(B, cand, stride, w, e, load, x);
 #pragma unroll
     for (int q = 0; q < TK_PER; ++q)
       if (load[q] == 0)
@@ -430,7 +500,7 @@ __device__ void reduce_word(const Block& B, int n, u64* o, u64* a) {
 // first, one word at a time (built for the undecided elements only),
 // skipping the bytes the undecided elements share. Up to k items are all
 // kept, and the threshold stays open. Every thread of the block calls it.
-template <bool KEYS>
+template <bool KEYS, bool VAR>
 __device__ void flush(const Block& B, const u64* cand, long long stride,
                       int count) {
   const int n = B.sc[SC_HAVE] + count;
@@ -448,7 +518,7 @@ __device__ void flush(const Block& B, const u64* cand, long long stride,
   bool done = false;
   int w = 0;
   for (; w < B.W && !done; ++w) {
-    gather_word<KEYS>(B, cand, stride, w, n, false, B.cur, 1);
+    gather_word<KEYS, VAR>(B, cand, stride, w, n, false, B.cur, 1);
     __syncthreads();
     u64 o, a;
     reduce_word(B, n, &o, &a);
@@ -544,7 +614,7 @@ __device__ __forceinline__ void prefetch_lines(const void* base,
                  "l"(lo), "r"(static_cast<unsigned int>(n)) : "memory");
 }
 
-template <bool KEYS>
+template <bool KEYS, bool VAR>
 __device__ __forceinline__ void prefetch_tile(const Block& B,
                                               const u64* cand,
                                               long long stride, long long t,
@@ -561,15 +631,18 @@ __device__ __forceinline__ void prefetch_tile(const Block& B,
     const TkKey& c = B.D->key[w];
     if (w == 1 && B.D->rank[0]) break;         // word 1 is key 0's value
     if (c.valid != nullptr) prefetch_lines(c.valid + lo, rows);
-    prefetch_lines(static_cast<const char*>(c.data) + lo * c.width,
-                   rows * c.width);
+    if (VAR && c.kind == KIND_STR)
+      prefetch_lines(c.offsets + lo, (rows + 1) * 4);
+    else
+      prefetch_lines(static_cast<const char*>(c.data) + lo * c.width,
+                     rows * c.width);
   }
 }
 
 // Walk items [0, n) in tiles, tiles first, first + step, ..., skipping
 // [skip_lo, skip_hi); append the ids of the items below the threshold to
 // the buffer and flush it as needed. Every thread of the block calls it.
-template <bool KEYS>
+template <bool KEYS, bool VAR>
 __device__ void walk(const Block& B, const u64* cand, long long stride,
                      long long n, long long first, long long step,
                      long long skip_lo, long long skip_hi) {
@@ -578,16 +651,16 @@ __device__ void walk(const Block& B, const u64* cand, long long stride,
   int* count = B.sc + SC_COUNT;
   // keep TK_AHEAD tiles on their way to L2
   for (int a = 0; a < TK_AHEAD; ++a)
-    prefetch_tile<KEYS>(B, cand, stride, first + a * step, n);
+    prefetch_tile<KEYS, VAR>(B, cand, stride, first + a * step, n);
   for (long long t = first; t * TK_TILE < n; t += step) {
-    prefetch_tile<KEYS>(B, cand, stride, t + TK_AHEAD * step, n);
+    prefetch_tile<KEYS, VAR>(B, cand, stride, t + TK_AHEAD * step, n);
     const int c = *count;
     int have = B.sc[SC_HAVE];
     __syncthreads();                   // read by all before any append
     // before a tile the buffer cannot take, or, while the threshold is
     // still open, as soon as k rows wait
     if (c + TK_TILE > TK_BUF || (have < B.k && have + c >= B.k)) {
-      flush<KEYS>(B, cand, stride, c);
+      flush<KEYS, VAR>(B, cand, stride, c);
       if (threadIdx.x == 0) *count = 0;
       have = B.sc[SC_HAVE];
       __syncthreads();
@@ -608,10 +681,11 @@ __device__ void walk(const Block& B, const u64* cand, long long stride,
         FOR_ROWS x[r] = next[r];
         have_next = false;
       } else if (KEYS && w < B.W - 1 && B.D->rank[w]) {
-        item_words<KEYS, TK_ROWS>(B, cand, stride, w, e, state, x, next);
+        item_words<KEYS, VAR, TK_ROWS>(B, cand, stride, w, e, state, x,
+                                       next);
         have_next = true;
       } else {
-        item_words<KEYS, TK_ROWS>(B, cand, stride, w, e, state, x);
+        item_words<KEYS, VAR, TK_ROWS>(B, cand, stride, w, e, state, x);
       }
       const u64 thr = B.thr[w];
       bool open_row = false;
@@ -646,7 +720,7 @@ __device__ void walk(const Block& B, const u64* cand, long long stride,
   }
   const int c = *count;
   if (c > 0) {
-    flush<KEYS>(B, cand, stride, c);
+    flush<KEYS, VAR>(B, cand, stride, c);
     if (threadIdx.x == 0) *count = 0;
     __syncthreads();
   }
@@ -664,12 +738,12 @@ __device__ __forceinline__ bool fin_less(const Block& B, int a, int b) {
 }
 
 // the best's tuples into fin, W x k, all ones past the ones it holds
-template <bool KEYS>
+template <bool KEYS, bool VAR>
 __device__ void build_best(const Block& B, const u64* cand,
                            long long stride) {
   const int have = B.sc[SC_HAVE];
   for (int w = 0; w < B.W; ++w) {
-    gather_word<KEYS>(B, cand, stride, w, have, true, B.fin + w * B.k, 1);
+    gather_word<KEYS, VAR>(B, cand, stride, w, have, true, B.fin + w * B.k, 1);
     for (int i = have + threadIdx.x; i < B.k; i += TK_THREADS)
       B.fin[w * B.k + i] = ~0ull;
   }
@@ -704,10 +778,11 @@ __device__ void sort_best(const Block& B) {
 // cand: W x (G k) words, block b's run at [b k, b k + k), and ticket: the
 // blocks that have finished, 0 at the launch (both unused for G = 1);
 // out: k int64 row indices, the k smallest tuples' in order
-__global__ void __launch_bounds__(TK_THREADS)
-tk_threshold_kernel(const __grid_constant__ TkDesc d, long long m, int k,
-                    u64* __restrict__ cand, unsigned int* ticket,
-                    long long* __restrict__ out) {
+template <bool VAR>
+__device__ __forceinline__ void threshold_block(const TkDesc& d, long long m,
+                                                int k, u64* __restrict__ cand,
+                                                unsigned int* ticket,
+                                                long long* __restrict__ out) {
   extern __shared__ u64 smem[];
   const int W = d.W;
   Block B;
@@ -727,6 +802,7 @@ tk_threshold_kernel(const __grid_constant__ TkDesc d, long long m, int k,
   B.idx = reinterpret_cast<unsigned short*>(B.st + ((B.S + 7) & ~7));
   for (int w = threadIdx.x; w < W - 1; w += TK_THREADS) {
     D->key[w] = d.key[d.word_key[w]];
+    D->key[w].part = d.word_part[w];
     D->rank[w] = d.word_rank[w];
   }
   // no best yet: the threshold is open (all ones, above every tuple)
@@ -737,8 +813,8 @@ tk_threshold_kernel(const __grid_constant__ TkDesc d, long long m, int k,
   }
   __syncthreads();
   const int G = gridDim.x;
-  walk<true>(B, nullptr, 0, m, blockIdx.x, G, 0, 0);
-  build_best<true>(B, nullptr, 0);
+  walk<true, VAR>(B, nullptr, 0, m, blockIdx.x, G, 0, 0);
+  build_best<true, VAR>(B, nullptr, 0);
   if (G > 1) {
     const long long stride = static_cast<long long>(G) * k;
     const long long own = static_cast<long long>(blockIdx.x) * k;
@@ -757,16 +833,40 @@ tk_threshold_kernel(const __grid_constant__ TkDesc d, long long m, int k,
     __syncthreads();
     if (!B.sc[SC_LAST]) return;
     // the last block: every other run through the same threshold walk
-    walk<false>(B, cand, stride, stride, 0, 1, own, own + k);
-    build_best<false>(B, cand, stride);
+    walk<false, false>(B, cand, stride, stride, 0, 1, own, own + k);
+    build_best<false, false>(B, cand, stride);
   }
   sort_best(B);
   for (int i = threadIdx.x; i < k; i += TK_THREADS)
     out[i] = static_cast<long long>(B.fin[(W - 1) * k + B.idx[i]]);
 }
 
+__global__ void __launch_bounds__(TK_THREADS)
+tk_threshold_kernel(const __grid_constant__ TkDesc d, long long m, int k,
+                    u64* __restrict__ cand, unsigned int* ticket,
+                    long long* __restrict__ out) {
+  threshold_block<false>(d, m, k, cand, ticket, out);
+}
+
+__global__ void __launch_bounds__(TK_THREADS)
+tk_threshold_var_kernel(const __grid_constant__ TkDesc d, long long m, int k,
+                        u64* __restrict__ cand, unsigned int* ticket,
+                        long long* __restrict__ out) {
+  threshold_block<true>(d, m, k, cand, ticket, out);
+}
+
 static int valid_desc(const TkDesc* d) {
   return d->W >= 1 && d->W <= TK_MAX_WORDS;
+}
+
+// whether a word of d comes from a DECIMAL128 or STRING key: the call
+// takes the kernels compiled with those kinds
+static bool var_desc(const TkDesc* d) {
+  for (int w = 0; w < d->W - 1; ++w) {
+    const int kind = d->key[d->word_key[w]].kind;
+    if (kind == KIND_DEC || kind == KIND_STR) return true;
+  }
+  return false;
 }
 
 extern "C" {
@@ -808,13 +908,14 @@ int tk_threshold(const TkDesc* d, long long m, int k, int G, void* cand,
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long smem = tk_threshold_smem(k, d->W);
+  auto kernel = var_desc(d) ? tk_threshold_var_kernel : tk_threshold_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      tk_threshold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess && G > 1)
     err = cudaMemsetAsync(ticket, 0, sizeof(unsigned int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tk_threshold_kernel<<<G, TK_THREADS, smem, s>>>(
+  kernel<<<G, TK_THREADS, smem, s>>>(
       *d, m, k, static_cast<u64*>(cand), static_cast<unsigned int*>(ticket),
       static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -830,12 +931,13 @@ int tk_select_keys(const TkDesc* d, long long m, int k, void* out,
     return cudaErrorInvalidValue;
   const long long blocks = (m + T - 1) / T;
   const size_t smem = static_cast<size_t>(W) * T * 8 + T * 2;
+  auto kernel = var_desc(d) ? tk_select_var_kernel : tk_select_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      tk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  tk_select_kernel<<<static_cast<unsigned int>(blocks), T / 2, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned int>(blocks), T / 2, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       *d, m, W, T, k, static_cast<u64*>(out), blocks * k);
   return static_cast<int>(cudaGetLastError());
 }

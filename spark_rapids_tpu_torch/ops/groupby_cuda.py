@@ -392,7 +392,11 @@ _KINDS = frozenset(k.value for k in dtypes._STORAGE)
 def make_signature(table: Table, aggs: Sequence[Tuple[object, str]],
                    tier: str):
     from .registry import Signature
-    cols = [table[c] for c, op in aggs if op != "size"]
+    # the kernel reads only the validity of a count's column, and counts
+    # a string column's rows where its min or max goes (`aggregate`)
+    cols = [table[c] for c, op in aggs if op != "size"
+            and not (op in ("count", "min", "max")
+                     and table[c].dtype.is_string)]
     return Signature.of(cols, ops=tuple(op for _, op in aggs), tier=tier)
 
 

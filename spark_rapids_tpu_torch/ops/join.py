@@ -36,7 +36,8 @@ import torch
 
 from .. import dtypes
 from ..columnar import Column, Table
-from .sort import _key_operands, check_key_kind, lex_order
+from .copying import concat_columns
+from .sort import _key_operands, lex_order
 
 __all__ = ["inner_join", "left_join", "full_join", "left_semi_join",
            "left_anti_join", "inner_join_capped", "left_join_capped",
@@ -65,14 +66,13 @@ def _side_valid(cols: Sequence[Column], n: int, device,
 
 
 def _concat(a: Column, b: Column) -> Column:
-    check_key_kind(a)
-    if a.dtype != b.dtype:
-        raise TypeError(f"join key dtypes differ: {a.dtype!r} vs {b.dtype!r}")
-    validity = None
-    if a.validity is not None or b.validity is not None:
-        validity = torch.cat([a.null_mask, b.null_mask])
-    return Column(a.dtype, a.length + b.length,
-                  torch.cat([a.data, b.data]), validity)
+    """The two sides' key column end to end (every kind, a STRING's
+    offsets shifted), so both sides' operands come from one encoding, as
+    the reference's `_concat_columns`; differing dtypes raise as there."""
+    try:
+        return concat_columns([a, b])
+    except TypeError as e:
+        raise TypeError(f"join key {e}") from None
 
 
 def _check_keys(lcols, rcols) -> None:

@@ -1,5 +1,4 @@
-"""Hash-join build/probe over fixed-width keys: CUDA kernels and their plain
-PyTorch versions.
+"""Hash-join build/probe: CUDA kernels and their plain PyTorch versions.
 
 Counterpart of `spark_rapids_tpu/ops/join_pallas.py`. The kernels live in
 `csrc/hash_join.cu` (its header says what each computes and what bounds it
@@ -26,6 +25,14 @@ kernel launches and `PLAIN_CALLS` the plain version's runs, per wrapper.
 
 The plain versions hash with the row hash's own murmur3 (`hash.py`, unsigned
 32-bit math in int64 with a mask after every step).
+
+Keys are fixed-width integers, floats, DECIMAL128 or STRING. A key set with
+a float, DECIMAL128 or STRING column takes the kernels' variable-width
+instantiation (the `_var` entry points), so the integer joins keep their
+code: a float hashes and compares by its bits normalized as
+`sort._float_total_order` normalizes them (0.0 matches -0.0, NaN matches
+NaN, as in the sort-based join), a DECIMAL128 by its four limbs, a STRING
+by Spark's murmur3 of its bytes and then its length and bytes.
 
 `inner_join_hash` is the counterpart of `inner_join_pallas`: int32 gather
 maps, pair for pair those of `ops.join.inner_join`. Between count and emit
@@ -55,7 +62,8 @@ import torch
 from .. import dtypes
 from ..columnar import Column
 from ..dtypes import Kind
-from .hash import as_i32_bits, mm_column
+from .hash import (Bytes, _M32, _mm_fmix, _mm_round, _mm_value, as_i32_bits,
+                   encode_fixed, mm_bytes, mm_column)
 from .join import _cols, _side_valid
 
 SMALL_CAPACITY = 1024       # the small route's tables (csrc/hash_join.cu)
@@ -64,24 +72,32 @@ MAX_BUILD = MAX_CAPACITY // 2   # build rows the kernels take
 _MAX_KEYS = 32      # key columns the kernels take (csrc/hash_join.cu)
 TILE = 2048         # probe rows a tile: csrc/hash_join.cu PROBE_TILE
 _SEED = 42
-_M32 = 0xFFFFFFFF
 
 _SUPPORTED_KINDS = frozenset(k.value for k in (
     Kind.BOOL, Kind.INT8, Kind.INT16, Kind.INT32, Kind.DATE32,
-    Kind.INT64, Kind.TIMESTAMP_US, Kind.DECIMAL32, Kind.DECIMAL64))
+    Kind.INT64, Kind.TIMESTAMP_US, Kind.DECIMAL32, Kind.DECIMAL64,
+    Kind.FLOAT32, Kind.FLOAT64, Kind.DECIMAL128, Kind.STRING))
 # decimals hash as longs (Spark), so DECIMAL32 is 8-byte despite its storage
-_WIDE_KINDS = (Kind.INT64, Kind.TIMESTAMP_US, Kind.DECIMAL32, Kind.DECIMAL64)
+_WIDE_KINDS = (Kind.INT64, Kind.TIMESTAMP_US, Kind.DECIMAL32, Kind.DECIMAL64,
+               Kind.FLOAT64)
+# the variable-width instantiation's key kinds (csrc/hash_join.cu VK_*)
+VK_FIXED, VK_F32, VK_F64, VK_DEC128, VK_STRING = range(5)
+_VAR_KINDS = {Kind.FLOAT32: VK_F32, Kind.FLOAT64: VK_F64,
+              Kind.DECIMAL128: VK_DEC128, Kind.STRING: VK_STRING}
 
 LAUNCHES = {"build": 0, "count": 0, "emit": 0}
 # the launches of LAUNCHES that took the large route (C > SMALL_CAPACITY)
 LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0}
+# the launches of LAUNCHES of the variable-width instantiation (`is_var`)
+VAR_LAUNCHES = {"build": 0, "count": 0, "emit": 0}
 PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0}
 # calls of inner_join_capped_hash that launched the kernels
 CAPPED_CALLS = {"join": 0}
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, LARGE_LAUNCHES, PLAIN_CALLS, CAPPED_CALLS):
+    for d in (LAUNCHES, LARGE_LAUNCHES, VAR_LAUNCHES, PLAIN_CALLS,
+              CAPPED_CALLS):
         for k in d:
             d[k] = 0
 
@@ -126,21 +142,67 @@ def _wide(cols: Sequence[Column]) -> List[bool]:
     return [c.dtype.kind in _WIDE_KINDS for c in cols]
 
 
+def is_var(cols: Sequence[Column]) -> bool:
+    """Whether the key set takes the variable-width instantiation."""
+    return any(c.dtype.kind in _VAR_KINDS for c in cols)
+
+
+def _string_bytes(c: Column) -> Bytes:
+    return Bytes(c.data, c.offsets[:-1], c.string_lengths())
+
+
 def row_hash(cols: Sequence[Column]) -> torch.Tensor:
     """(n,) int64 in [0, 2^32): the bucket hash of every row, seed 42
     chained over the key columns (the reference's `_mm_hash`): Spark
-    murmur3_32 as the row hash computes it, validity ignored."""
+    murmur3_32 as the row hash computes it for integers and strings, of the
+    normalized bits for floats, of the four limbs for DECIMAL128; validity
+    ignored."""
     n = cols[0].length
     h = torch.full((n,), _SEED, dtype=torch.int64, device=cols[0].device)
     for c in cols:
-        h = mm_column(h, c)
+        k = c.dtype.kind
+        if k == Kind.STRING:
+            h = mm_bytes(h, _string_bytes(c))
+        elif k == Kind.DECIMAL128:
+            limbs = c.data.view(torch.int32).to(torch.int64) & _M32
+            for j in range(4):
+                h = _mm_round(h, limbs[:, j])
+            h = _mm_fmix(h ^ 16)
+        elif c.dtype.is_floating:
+            h = _mm_value(h, *encode_fixed(c, normalize_zero=True))
+        else:
+            h = mm_column(h, c)
     return h
+
+
+def _key_values(c: Column, i: torch.Tensor) -> torch.Tensor:
+    """Rows i of a fixed-width key as compared: a float by its normalized
+    bits, DECIMAL128 as its (m, 4) limbs."""
+    if c.dtype.is_floating:
+        return encode_fixed(c, normalize_zero=True)[0].index_select(0, i)
+    if c.dtype.kind == Kind.DECIMAL128:
+        return c.data.view(torch.int32).index_select(0, i)
+    return c.data.index_select(0, i)
+
+
+def _strings_equal(p: Column, i: torch.Tensor, b: Column,
+                   r: torch.Tensor) -> torch.Tensor:
+    pb, bb = _string_bytes(p).take(i), _string_bytes(b).take(r)
+    eq = pb.length == bb.length
+    for k in range(max(pb.max_length(), 0)):
+        pos = torch.full_like(pb.length, k)
+        eq &= (pos >= pb.length) | (pb.byte(pos) == bb.byte(pos))
+    return eq
 
 
 def _keys_equal(pcols, i, bcols, r) -> torch.Tensor:
     eq = torch.ones(i.shape[0], dtype=torch.bool, device=i.device)
     for p, b in zip(pcols, bcols):
-        eq &= p.data.index_select(0, i) == b.data.index_select(0, r)
+        if p.dtype.kind == Kind.STRING:
+            eq &= _strings_equal(p, i, b, r)
+            continue
+        same = _key_values(p, i) == _key_values(b, r)
+        eq &= same.all(1) if same.dim() == 2 else same
     return eq
 
 
@@ -364,8 +426,19 @@ def _lib():
                                 ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                                 _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
                                 _P]
+        var = [_PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int, ctypes.c_longlong]
+        lib.hj_build_var.argtypes = var + [ctypes.c_int, _P, _P, _P]
+        lib.hj_build_large_var.argtypes = var + [ctypes.c_int, _P, _P, _P]
+        lib.hj_count_var.argtypes = var + [_PP, _PP, _P, _P, _P,
+                                           ctypes.c_int, _P, _P, _P, _P, _P]
+        lib.hj_emit_var.argtypes = [_PP, _PP, _PI, _PI, _PI, ctypes.c_int,
+                                    ctypes.c_longlong, _P, _P, _P,
+                                    ctypes.c_int, _P, _P, _P, _P,
+                                    ctypes.c_longlong, _P, _P, _P]
         for fn in (lib.hj_build, lib.hj_build_large, lib.hj_barrier,
-                   lib.hj_count, lib.hj_emit):
+                   lib.hj_count, lib.hj_emit, lib.hj_build_var,
+                   lib.hj_build_large_var, lib.hj_count_var,
+                   lib.hj_emit_var):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -381,7 +454,8 @@ def _check_cuda(cols: Sequence[Column], dev: torch.device) -> None:
         if c.dtype.kind.value not in _SUPPORTED_KINDS:
             raise TypeError(f"hash-join kernels do not take {c.dtype!r} keys")
         if c.device != dev or not c.data.is_contiguous() or (
-                c.validity is not None and not c.validity.is_contiguous()):
+                c.validity is not None and not c.validity.is_contiguous()) \
+                or (c.offsets is not None and not c.offsets.is_contiguous()):
             raise ValueError("hash-join key columns must be contiguous and "
                              f"on {dev}")
 
@@ -391,6 +465,20 @@ def _check_probe(pcols, bcols, dev: torch.device) -> None:
     _check_cuda(bcols, dev)
     if [c.dtype.kind for c in pcols] != [c.dtype.kind for c in bcols]:
         raise TypeError("probe and build key kinds differ")
+
+
+def _var_arrays(cols: Sequence[Column]):
+    """The `_var` entry points' key arguments: data, validity, offsets,
+    width, wide, kind, the column count and the rows."""
+    data, valid, _, wide, nk, n = _key_arrays(cols)
+    offsets = (ctypes.c_void_p * nk)(*[
+        None if c.offsets is None else c.offsets.data_ptr() for c in cols])
+    width = (ctypes.c_int * nk)(*[
+        c.data.element_size() if c.dtype.kind != Kind.DECIMAL128 else 16
+        for c in cols])
+    kind = (ctypes.c_int * nk)(*[_VAR_KINDS.get(c.dtype.kind, VK_FIXED)
+                                 for c in cols])
+    return [data, valid, offsets, width, wide, kind, nk, n]
 
 
 def _key_arrays(cols: Sequence[Column]):
@@ -428,24 +516,29 @@ def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
     if n > MAX_BUILD:
         raise ValueError(f"build side of {n} rows exceeds "
                          f"MAX_BUILD={MAX_BUILD}")
-    keys = _key_arrays(bcols)
+    var = is_var(bcols)
+    keys = _var_arrays(bcols) if var else _key_arrays(bcols)
+    lib = _lib()
     if not is_large(C):
         slot_row = torch.empty(C, dtype=torch.int32, device=dev)
         slot_hash = torch.empty(C, dtype=torch.int32, device=dev)
-        rc = _lib().hj_build(*keys, C, slot_row.data_ptr(),
-                             slot_hash.data_ptr(), _stream(dev))
+        rc = (lib.hj_build_var if var else lib.hj_build)(
+            *keys, C, slot_row.data_ptr(), slot_hash.data_ptr(),
+            _stream(dev))
         _raise_on(rc, "hash-join build kernel")
         LAUNCHES["build"] += 1
+        VAR_LAUNCHES["build"] += var
         return HashTable(slot_row, slot_hash)
     ent = torch.empty(C, dtype=torch.int64, device=dev)
     # the rows' hashes and distances, then four counters: the proposals of
     # rounds r mod 3 and the rounds
     scratch = torch.empty(2 * n + 4, dtype=torch.int32, device=dev)
-    rc = _lib().hj_build_large(*keys, C, ent.data_ptr(), scratch.data_ptr(),
-                               _stream(dev))
+    rc = (lib.hj_build_large_var if var else lib.hj_build_large)(
+        *keys, C, ent.data_ptr(), scratch.data_ptr(), _stream(dev))
     _raise_on(rc, "hash-join large build kernel")
     LAUNCHES["build"] += 1
     LARGE_LAUNCHES["build"] += 1
+    VAR_LAUNCHES["build"] += var
     halves = ent.view(torch.int32).view(C, 2)      # little-endian: row, hash
     return HashTable(halves[:, 0], halves[:, 1], ent, scratch[2 * n + 3])
 
@@ -478,12 +571,19 @@ def probe_counts_cuda(pcols, table: HashTable, bcols) -> ProbeCounts:
     if n == 0:
         scratch.zero_()
         return probe
-    bdata = _key_arrays(bcols)[0]
-    rc = _lib().hj_count(*_key_arrays(pcols), bdata, *_table_ptrs(table), C,
-                         counts.data_ptr(), entries.data_ptr(),
-                         seg.data_ptr(), scratch.data_ptr(), _stream(dev))
+    outs = (counts.data_ptr(), entries.data_ptr(), seg.data_ptr(),
+            scratch.data_ptr(), _stream(dev))
+    if is_var(pcols):
+        b = _var_arrays(bcols)
+        rc = _lib().hj_count_var(*_var_arrays(pcols), b[0], b[2],
+                                 *_table_ptrs(table), C, *outs)
+    else:
+        bdata = _key_arrays(bcols)[0]
+        rc = _lib().hj_count(*_key_arrays(pcols), bdata, *_table_ptrs(table),
+                             C, *outs)
     _raise_on(rc, "hash-join probe-count kernel")
     LAUNCHES["count"] += 1
+    VAR_LAUNCHES["count"] += is_var(pcols)
     if is_large(C):
         LARGE_LAUNCHES["count"] += 1
     return probe
@@ -514,12 +614,17 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
     out_r = torch.empty(total, dtype=torch.int32, device=dev)
     if total == 0:
         return out_l, out_r
-    data, _, width, wide, nk, _ = _key_arrays(bcols)
-    rc = _lib().hj_emit(data, width, wide, nk, n, *_table_ptrs(table), C,
-                        *[t.data_ptr() for t, _, _ in shapes], total,
-                        out_l.data_ptr(), out_r.data_ptr(), _stream(dev))
+    rest = (n, *_table_ptrs(table), C, *[t.data_ptr() for t, _, _ in shapes],
+            total, out_l.data_ptr(), out_r.data_ptr(), _stream(dev))
+    if is_var(bcols):
+        data, _, offsets, width, wide, kind, nk, _ = _var_arrays(bcols)
+        rc = _lib().hj_emit_var(data, offsets, width, wide, kind, nk, *rest)
+    else:
+        data, _, width, wide, nk, _ = _key_arrays(bcols)
+        rc = _lib().hj_emit(data, width, wide, nk, *rest)
     _raise_on(rc, "hash-join probe-emit kernel")
     LAUNCHES["emit"] += 1
+    VAR_LAUNCHES["emit"] += is_var(bcols)
     if is_large(C):
         LARGE_LAUNCHES["emit"] += 1
     return out_l, out_r
@@ -557,6 +662,9 @@ def _join_keys(left_keys, right_keys):
         if a.dtype.kind != b.dtype.kind:
             raise TypeError(f"join key kinds differ: {a.dtype!r} vs "
                             f"{b.dtype!r}")
+        if a.dtype != b.dtype:      # decimals of another scale: as join.py
+            raise TypeError(f"join key concat dtype mismatch: {a.dtype} vs "
+                            f"{b.dtype}")
     return lcols, rcols
 
 
@@ -590,7 +698,7 @@ def _with_alive(cols: Sequence[Column], alive) -> List[Column]:
         return list(cols)
     c = cols[0]
     v = alive if c.validity is None else c.validity & alive
-    return [Column(c.dtype, c.length, c.data, v)] + list(cols[1:])
+    return [dataclasses.replace(c, validity=v)] + list(cols[1:])
 
 
 def inner_join_capped_hash(left_keys, right_keys, row_cap: int, *,

@@ -51,11 +51,14 @@ from .gather import apply_boolean_mask
 MAX_PROG, MAX_PRED_COLS, MAX_STACK = 128, 32, 8
 
 # compacted (projection-referenced) columns: every fixed-width kind the
-# reference's kernel round-trips
+# reference's kernel round-trips, DECIMAL128 (16 bytes a row inside the
+# kernel) and STRING (the kernel writes the kept rows' indices, and the
+# wrapper gathers the strings); the reference's kernel took neither
 DATA_KINDS = frozenset(k.value for k in (
     Kind.BOOL, Kind.INT8, Kind.INT16, Kind.INT32, Kind.DATE32, Kind.FLOAT32,
     Kind.DECIMAL32, Kind.INT64, Kind.TIMESTAMP_US, Kind.TIMESTAMP_S,
-    Kind.TIMESTAMP_MS, Kind.DECIMAL64, Kind.FLOAT64))
+    Kind.TIMESTAMP_MS, Kind.DECIMAL64, Kind.FLOAT64, Kind.DECIMAL128,
+    Kind.STRING))
 
 PLAIN_CALLS = {"fused_select": 0}
 

@@ -14,11 +14,13 @@ needed)` gives the compacted `needed` columns of the rows where
   and its last block scans the counts into block offsets and the total;
   the host reads the total (the one sync) and launches nothing else
   before `fs_compact`, which writes each needed column at its width, with
-  validity.
+  validity: a DECIMAL128 row as 16 bytes; for STRING columns the kept
+  rows' indices, once, through which the wrapper gathers them (`take`).
 
 The wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernels or raises, it never falls back. `LAUNCHES` counts
-kernel launches and `PLAIN_CALLS` (`select.PLAIN_CALLS`) the plain
+kernel launches, `STRING_LAUNCHES` the compact launches that wrote the
+kept rows' indices, and `PLAIN_CALLS` (`select.PLAIN_CALLS`) the plain
 version's runs, wherever it is called from. Registered as
 `fused_select`/"cuda" for backend "cuda", beside the plain fallback
 "torch".
@@ -30,6 +32,7 @@ from typing import Sequence
 
 import torch
 
+from .. import dtypes
 from ..columnar import Column, Table
 from .gather import take
 from .select import (DATA_KINDS, PLAIN_CALLS, PredArgs, Program,
@@ -37,16 +40,19 @@ from .select import (DATA_KINDS, PLAIN_CALLS, PredArgs, Program,
                      needed_columns, scalar_values, supports)
 
 __all__ = ["fused_select", "fused_select_cuda", "make_signature",
-           "needed_columns", "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
+           "needed_columns", "LAUNCHES", "STRING_LAUNCHES", "PLAIN_CALLS",
+           "reset_counters"]
 
 LAUNCHES = {"count": 0, "compact": 0}
+# the compact launches that wrote the kept rows' indices (STRING payloads)
+STRING_LAUNCHES = {"compact": 0}
 
 TILE = 2048        # rows per block (csrc/fused_select.cu FS_TILE)
 MAX_OUT = 32       # columns one compact launch writes (FS_MAX_OUT)
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, STRING_LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
 
@@ -152,30 +158,47 @@ def fused_select_cuda(table: Table, predicate, needed: Sequence[str]
     total = int(scratch[0])                   # the one host sync
     if total == 0:
         return empty()
-    out_cols = []
+    # (source, output) per written column; a STRING column's is the kept
+    # rows' indices (one for all), through which it is gathered below
+    out_cols, writes, idx = [], [], None
     for c in cols:
+        if c.dtype.is_string:
+            if idx is None:
+                idx = torch.empty(total, dtype=torch.int64, device=dev)
+                writes.append((None, Column(dtypes.INT64, total, idx)))
+            out_cols.append(None)
+            continue
         v = (None if c.validity is None else
              torch.empty(total, dtype=torch.bool, device=dev))
-        out_cols.append(Column(c.dtype, total,
-                               torch.empty(total, dtype=c.data.dtype,
-                                           device=dev), v))
-    for lo in range(0, len(cols), MAX_OUT):
+        oc = Column(c.dtype, total,
+                    torch.empty((total,) + tuple(c.data.shape[1:]),
+                                dtype=c.data.dtype, device=dev), v)
+        out_cols.append(oc)
+        writes.append((c, oc))
+    for lo in range(0, len(writes), MAX_OUT):
         o = _Out()
-        chunk = list(zip(cols, out_cols))[lo:lo + MAX_OUT]
+        chunk = writes[lo:lo + MAX_OUT]
         for i, (c, oc) in enumerate(chunk):
+            o.dst[i] = oc.data.data_ptr()
+            if c is None:                   # the kept rows' indices
+                o.width[i] = 0
+                continue
             o.src[i] = c.data.data_ptr()
             o.src_valid[i] = (None if c.validity is None
                               else c.validity.data_ptr())
-            o.dst[i] = oc.data.data_ptr()
             o.dst_valid[i] = (None if oc.validity is None
                               else oc.validity.data_ptr())
-            o.width[i] = c.data.element_size()
+            o.width[i] = c.data.element_size() * (
+                c.data.shape[1] if c.data.dim() > 1 else 1)
         o.ncols = len(chunk)
         rc = lib.fs_compact(ctypes.byref(o), n, mask_p, starts_p, stream)
         if rc != 0:
             raise RuntimeError(f"fused_select compact kernel: CUDA error "
                                f"{rc}")
         LAUNCHES["compact"] += 1
+        STRING_LAUNCHES["compact"] += any(c is None for c, _ in chunk)
+    out_cols = [take(c, idx, _has_negative=False) if oc is None else oc
+                for c, oc in zip(cols, out_cols)]
     return Table(out_cols, names=needed)
 
 

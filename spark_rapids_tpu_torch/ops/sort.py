@@ -9,6 +9,16 @@ groupby and join share):
   zeroed under nulls so nulls tie and keep their input order;
 - signed integers as they are, bool as int32;
 - floats mapped to a monotone signed integer (NaN greatest, -0.0 == 0.0);
+- DECIMAL128 as two int64 words: the top 64 bits signed, then the low 64
+  bits unsigned (sign bit flipped, so signed order is unsigned order), the
+  order of the reference's four limb operands;
+- STRING as big-endian 64-bit words of its bytes, zero padded to the
+  longest string (sign bit flipped), then the byte length: Spark's
+  byte-lexicographic order over unsigned bytes, shorter first on a shared
+  prefix. The reference packs 32-bit words from its padded char matrix;
+  the port reads the chars through the offsets, and a 64-bit word halves
+  the argsort passes. The word count is one host read, the longest
+  string, as the reference's `padded_chars` makes;
 - descending as bitwise NOT, which reverses signed order without overflow.
 
 `sorted_order` is a stable lexicographic sort: one stable argsort per
@@ -47,19 +57,56 @@ def _float_total_order(x: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, ~b ^ sign_bit, b)
 
 
-def check_key_kind(col: Column) -> None:
-    """TypeError naming ROADMAP queue A item 3 for the key kinds not
-    ported yet: strings, DECIMAL128 and nested columns."""
-    if col.dtype.kind in (Kind.DECIMAL128, Kind.STRING, Kind.LIST,
-                          Kind.STRUCT):
-        raise TypeError(f"{col.dtype!r} sort, join and group keys are not "
-                        "ported yet (ROADMAP queue A item 3)")
+_SIGN64 = -(2 ** 63)
+
+
+def decimal128_words(limbs: torch.Tensor) -> List[torch.Tensor]:
+    """(n, 4) uint32 limbs -> [top 64 bits signed, low 64 bits with the
+    sign bit flipped]: two int64 operands in the order of the value."""
+    w = limbs.contiguous().view(torch.int64)        # (n, 2) little-endian
+    return [w[:, 1], w[:, 0] ^ _SIGN64]
+
+
+def max_string_length(col: Column) -> int:
+    """The longest row of a STRING column in bytes (one host read)."""
+    if col.length == 0:
+        return 0
+    return int(col.string_lengths().max())
+
+
+def string_words(col: Column, n_words: Optional[int] = None
+                 ) -> List[torch.Tensor]:
+    """A STRING column's big-endian 64-bit words, zero padded, each with
+    its sign bit flipped (int64 order = unsigned byte order), `n_words` of
+    them (default: enough for the longest row)."""
+    if n_words is None:
+        n_words = -(-max_string_length(col) // 8)
+    n = col.length
+    dev = col.device
+    if n_words == 0:
+        return []
+    lens = col.string_lengths().to(torch.int64)
+    chars = col.data
+    if chars.numel() == 0:
+        return [torch.full((n,), _SIGN64, dtype=torch.int64, device=dev)
+                for _ in range(n_words)]
+    starts = col.offsets[:-1].to(torch.int64)
+    last = chars.numel() - 1
+    pos = torch.arange(8, dtype=torch.int64, device=dev)
+    words = []
+    for i in range(n_words):
+        # a word's 8 bytes in one gather, zero past the row's end; read
+        # reversed, little-endian, they are the big-endian word
+        at = (starts[:, None] + (8 * i + pos)).clamp_(max=last)
+        b = torch.where((8 * i + pos) < lens[:, None], chars[at], 0)
+        w = b.to(torch.uint8).flip(1).contiguous().view(torch.int64)
+        words.append(w.reshape(n) ^ _SIGN64)
+    return words
 
 
 def _key_operands(col: Column, ascending: bool,
                   null_precedence: Optional[str]) -> List[torch.Tensor]:
     """Orderable operand list for one key column."""
-    check_key_kind(col)
     k = col.dtype.kind
     if k == Kind.BOOL:
         ops = [col.data.to(torch.int32)]
@@ -67,6 +114,10 @@ def _key_operands(col: Column, ascending: bool,
         ops = [col.data]
     elif col.dtype.is_floating:
         ops = [_float_total_order(col.data)]
+    elif k == Kind.DECIMAL128:
+        ops = decimal128_words(col.data)
+    elif k == Kind.STRING:
+        ops = string_words(col) + [col.string_lengths()]
     else:
         raise TypeError(f"unsupported sort key dtype {col.dtype}")
     if not ascending:

@@ -20,22 +20,30 @@ the tests.
 Which kernel takes a call is one rule, `threshold_route`: the threshold
 kernel takes every limit k and tuple width W whose best set (twice k
 tuples) and candidate buffer (BUFFER tuples) fit in the card's opt-in
-shared memory per block (`threshold_smem`; with W = 4 up to k = 3,004 on
+shared memory per block (`threshold_smem`; with W = 4 up to k = 2,989 on
 an H100's 227 KB). Larger calls take the tile sort and merge, also
 kernels of csrc/topk.cu.
 
 The kernels take any limit n >= 0 (the reference's Pallas kernel took
-1..128, its lane width). They decline another tier than eager or capped
-and key kinds that are neither fixed-width integers nor floats (none
-exist in the port yet). Their own limit is MAX_WORDS words per tuple: the
+1..128, its lane width, and only fixed-width keys). They take every key
+kind `sort._key_operands` orders but nested ones: a DECIMAL128 key is two
+words (its top 64 bits signed, its low 64 bits unsigned), a STRING key
+its bytes as big-endian 64-bit words, zero padded to the longest string
+of the column, then its length, which orders the bytes as unsigned and
+the shorter string first on a shared prefix; the kernels build both from
+the limbs and from the chars through the offsets. The string word count
+is a host read of the column's longest string (`make_signature`, as the
+reference's `padded_chars` reads it). They decline another tier than
+eager or capped, and their own limit is MAX_WORDS words per tuple: the
 tile sort holds a tile of tuples in shared memory, so the tuple's width
-bounds the tile.
+bounds the tile, and a string key longer than 8 * (MAX_WORDS - 3) bytes
+declines (on the card, a raise).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,15 +52,16 @@ from ..columnar import Column, Table
 from ..dtypes import Kind
 from .copying import slice_table
 from .gather import take_table
-from .sort import _key_operands, sort_table, sorted_order
+from .sort import (_key_operands, max_string_length, sort_table,
+                   sorted_order)
 
 MAX_WORDS = 96    # 64-bit words per tuple (csrc/topk.cu TK_MAX_WORDS)
 TILE_ROWS = 2048  # rows a threshold block compares per step (TK_TILE)
 BUFFER = 2 * TILE_ROWS   # candidate ids a threshold block holds (TK_BUF)
 MIN_TILES_PER_BLOCK = 8
-# a threshold block's copy of the descriptor: a key entry (24 bytes) and a
+# a threshold block's copy of the descriptor: a key entry (32 bytes) and a
 # rank flag a word (csrc/topk.cu sizeof(Words))
-_WORDS_SMEM = 24 * (MAX_WORDS - 1) + MAX_WORDS
+_WORDS_SMEM = 32 * (MAX_WORDS - 1) + MAX_WORDS
 
 
 def threshold_smem(k: int, n_words: int) -> int:
@@ -86,10 +95,11 @@ def threshold_grid(rows: int, k: int, sms: int) -> int:
 _SUPPORTED_KINDS = frozenset(k.value for k in (
     Kind.BOOL, Kind.INT8, Kind.INT16, Kind.INT32, Kind.INT64, Kind.DATE32,
     Kind.TIMESTAMP_US, Kind.TIMESTAMP_S, Kind.TIMESTAMP_MS,
-    Kind.DECIMAL32, Kind.DECIMAL64, Kind.FLOAT32, Kind.FLOAT64))
+    Kind.DECIMAL32, Kind.DECIMAL64, Kind.FLOAT32, Kind.FLOAT64,
+    Kind.DECIMAL128, Kind.STRING))
 
 # key kinds of the descriptor (csrc/topk.cu KIND_*)
-KIND_BOOL, KIND_INT, KIND_F32, KIND_F64 = 0, 1, 2, 3
+KIND_BOOL, KIND_INT, KIND_F32, KIND_F64, KIND_DEC, KIND_STR = range(6)
 
 _SIGN = -(2 ** 63)
 
@@ -170,23 +180,37 @@ def order_words(table: Table, keys: Sequence[str],
     return torch.stack(words)
 
 
+def value_words(col: Column) -> int:
+    """Value words of one key's tuple part: 2 for DECIMAL128, a STRING's
+    chars words (8 bytes each, from its longest row: one host read) and
+    its length word, 1 otherwise."""
+    if col.dtype.kind == Kind.DECIMAL128:
+        return 2
+    if col.dtype.kind == Kind.STRING:
+        return -(-max_string_length(col) // 8) + 1
+    return 1
+
+
 @dataclasses.dataclass(frozen=True)
 class KeyDesc:
     """One key of the kernel's descriptor (csrc/topk.cu TkKey)."""
     column: Column
     kind: int            # KIND_*
-    width: int           # storage bytes
+    width: int           # storage bytes (DECIMAL128: 16, STRING: 1)
     desc: bool           # descending: bitwise NOT of the value
     nulls_first: bool    # the null rank's polarity (ascending: first)
+    nw: int = 0          # STRING: chars words (its length word is part nw)
 
 
 @dataclasses.dataclass(frozen=True)
 class Descriptor:
     """The keys, and per tuple word (the row index's excepted) the key it
-    comes from and whether it is that key's null rank."""
+    comes from, whether it is that key's null rank, and which of the key's
+    value words it is (`word_part`: DECIMAL128 0-1, STRING 0..nw)."""
     keys: List[KeyDesc]
     word_key: List[int]
     word_rank: List[bool]
+    word_part: List[int]
 
     @property
     def n_words(self) -> int:
@@ -194,28 +218,40 @@ class Descriptor:
 
 
 def describe_keys(table: Table, keys: Sequence[str],
-                  ascending: Sequence[bool]) -> Descriptor:
+                  ascending: Sequence[bool],
+                  words: Optional[Sequence[int]] = None) -> Descriptor:
     """The kernel's descriptor of `keys`: the operands of `_key_operands`
     with its default null order (NULLS_FIRST ascending, NULLS_LAST
-    descending)."""
-    out, word_key, word_rank = [], [], []
+    descending). `words` are the keys' value words (`key_words`), read
+    here when not given."""
+    if words is None:
+        words = key_words(table, keys)
+    out, word_key, word_rank, word_part = [], [], [], []
     for i, (name, asc) in enumerate(zip(keys, ascending)):
         col = table[name]
         k = col.dtype.kind
         if k.value not in _SUPPORTED_KINDS:
             raise TypeError(f"the TopK kernels do not take {col.dtype!r} "
-                            "keys (ROADMAP queue A item 3)")
+                            "keys")
         kind = (KIND_BOOL if k == Kind.BOOL else
                 KIND_F32 if k == Kind.FLOAT32 else
-                KIND_F64 if k == Kind.FLOAT64 else KIND_INT)
-        out.append(KeyDesc(col, kind, col.data.element_size(),
-                           not asc, bool(asc)))
+                KIND_F64 if k == Kind.FLOAT64 else
+                KIND_DEC if k == Kind.DECIMAL128 else
+                KIND_STR if k == Kind.STRING else KIND_INT)
+        parts = words[i]
+        width = (16 if kind == KIND_DEC else 1 if kind == KIND_STR
+                 else col.data.element_size())
+        out.append(KeyDesc(col, kind, width, not asc, bool(asc),
+                           parts - 1 if kind == KIND_STR else 0))
         if col.validity is not None:
             word_key.append(i)
             word_rank.append(True)
-        word_key.append(i)
-        word_rank.append(False)
-    return Descriptor(out, word_key, word_rank)
+            word_part.append(0)
+        for part in range(parts):
+            word_key.append(i)
+            word_rank.append(False)
+            word_part.append(part)
+    return Descriptor(out, word_key, word_rank, word_part)
 
 
 def _float_order(bits: torch.Tensor, mag_mask: int, inf: int,
@@ -228,14 +264,37 @@ def _float_order(bits: torch.Tensor, mag_mask: int, inf: int,
     return torch.where(bits < 0, ~bits ^ sign, bits).to(torch.int64)
 
 
-def _key_word(key: KeyDesc, rank: bool) -> torch.Tensor:
+def _string_word(col: Column, part: int, nw: int) -> torch.Tensor:
+    """Word `part` of a STRING key as the kernel builds it: big-endian
+    chars words (unsigned, sign bit flipped to int64 order), then the
+    length."""
+    lens = col.string_lengths().to(torch.int64)
+    if part == nw:
+        return lens
+    w = torch.zeros(col.length, dtype=torch.int64, device=col.device)
+    chars = col.data.to(torch.int64)
+    start = col.offsets[:-1].to(torch.int64)
+    for b in range(8):
+        p = 8 * part + b
+        byte = (chars[(start + p).clamp(0, max(chars.numel() - 1, 0))]
+                if chars.numel() else torch.zeros_like(w))
+        w = (w << 8) | torch.where(lens > p, byte, 0)
+    return w ^ _SIGN
+
+
+def _key_word(key: KeyDesc, rank: bool, part: int = 0) -> torch.Tensor:
     col = key.column
     valid = col.validity
     if rank:
         r = valid if key.nulls_first else ~valid
         return r.to(torch.int64) ^ _SIGN
     d = col.data
-    if key.kind == KIND_BOOL:
+    if key.kind == KIND_STR:
+        o = _string_word(col, part, key.nw)
+    elif key.kind == KIND_DEC:
+        w = d.contiguous().view(torch.int64)
+        o = w[:, 1] if part == 0 else w[:, 0] ^ _SIGN
+    elif key.kind == KIND_BOOL:
         o = (d.view(torch.uint8) != 0).to(torch.int64)
     elif key.kind == KIND_F32:
         o = _float_order(d.view(torch.int32), 0x7FFFFFFF, 0x7F800000,
@@ -258,23 +317,35 @@ def encode_words(table: Table, keys: Sequence[str],
     `describe_keys`' descriptor, word by word from the column bits. Equal
     to `order_words` bit for bit; a CPU mirror for the tests."""
     d = describe_keys(table, keys, ascending)
-    words = [_key_word(d.keys[i], r) for i, r in zip(d.word_key,
-                                                      d.word_rank)]
+    words = [_key_word(d.keys[i], r, p)
+             for i, r, p in zip(d.word_key, d.word_rank, d.word_part)]
     words.append(torch.arange(table.num_rows, dtype=torch.int64,
                               device=table.device))
     return torch.stack(words)
 
 
+def key_words(table: Table, keys: Sequence[str]) -> Tuple[int, ...]:
+    """Per key its value words (`value_words`: a STRING key's a host read
+    of its longest row)."""
+    return tuple(value_words(table[k]) for k in keys)
+
+
 def make_signature(table: Table, keys: Sequence[str],
-                   ascending: Sequence[bool], n: int, tier: str):
+                   ascending: Sequence[bool], n: int, tier: str,
+                   words: Optional[Sequence[int]] = None):
+    """The keys' kinds and validity, the limit, the tier, and per key its
+    value words (`key_words`, read here when not given)."""
     from .registry import Signature
-    return Signature.of([table[k] for k in keys], limit=n, tier=tier)
+    return Signature.of([table[k] for k in keys], limit=n, tier=tier,
+                        words=tuple(words if words is not None
+                                    else key_words(table, keys)))
 
 
 def n_words(sig) -> int:
-    """Words per tuple: a null rank per nullable key, one value word per
-    key, and the row index; in the capped tier the alive word first."""
-    return (sum(2 if valid else 1 for _, valid in sig.columns) + 1
+    """Words per tuple: a null rank per nullable key, its value words, and
+    the row index; in the capped tier the alive word first."""
+    words = sig.extra("words") or (1,) * len(sig.columns)
+    return (sum(w + valid for (_, valid), w in zip(sig.columns, words)) + 1
             + (sig.extra("tier") == "capped"))
 
 

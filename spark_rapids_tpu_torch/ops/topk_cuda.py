@@ -25,47 +25,54 @@ past the live rows on the device. Equal to `topk.topk_capped_plain`.
 
 The wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernels or raises, it never falls back. `LAUNCHES` counts
-kernel launches and `PLAIN_CALLS` (`topk.PLAIN_CALLS`) the plain
-version's runs, wherever it is called from. Registered as
+kernel launches, `STRING_LAUNCHES` those of calls with a STRING key, and
+`PLAIN_CALLS` (`topk.PLAIN_CALLS`) the plain version's runs, wherever it
+is called from. Registered as
 `topk`/"cuda" for backend "cuda", beside the plain fallback "torch".
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..columnar import Table
 from .gather import take_table
 from .topk import (MAX_WORDS, PLAIN_CALLS, alive_keyed, capped_outputs,
-                   describe_keys, empty_capped, make_signature, supports,
-                   threshold_grid, threshold_route, topk_capped_plain,
-                   topk_plain)
+                   describe_keys, empty_capped, key_words, make_signature,
+                   supports, threshold_grid, threshold_route,
+                   topk_capped_plain, topk_plain)
 
 __all__ = ["topk_table", "topk_table_cuda", "topk_capped",
-           "topk_capped_cuda", "make_signature", "LAUNCHES", "PLAIN_CALLS",
+           "topk_capped_cuda", "make_signature", "LAUNCHES",
+           "STRING_LAUNCHES", "PLAIN_CALLS",
            "reset_counters", "device_limits"]
 
 LAUNCHES = {"threshold": 0, "select": 0, "merge": 0}
+# the launches of calls with a STRING key among their keys
+STRING_LAUNCHES = {"threshold": 0, "select": 0, "merge": 0}
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, STRING_LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
 
 
 class _Key(ctypes.Structure):
     _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("offsets", ctypes.c_void_p),
                 ("width", ctypes.c_ubyte), ("kind", ctypes.c_ubyte),
-                ("desc", ctypes.c_ubyte), ("nulls_first", ctypes.c_ubyte)]
+                ("desc", ctypes.c_ubyte), ("nulls_first", ctypes.c_ubyte),
+                ("part", ctypes.c_ubyte), ("nw", ctypes.c_ubyte)]
 
 
 class _Desc(ctypes.Structure):
     _fields_ = [("key", _Key * (MAX_WORDS - 1)),
                 ("word_key", ctypes.c_ubyte * MAX_WORDS),
                 ("word_rank", ctypes.c_ubyte * MAX_WORDS),
+                ("word_part", ctypes.c_ubyte * MAX_WORDS),
                 ("W", ctypes.c_int)]
 
 
@@ -110,22 +117,28 @@ def device_limits(dev: torch.device) -> Tuple[int, int]:
 
 
 def _descriptor(table: Table, keys: Sequence[str],
-                ascending: Sequence[bool]) -> _Desc:
-    spec = describe_keys(table, keys, ascending)
+                ascending: Sequence[bool],
+                words: Optional[Sequence[int]] = None) -> _Desc:
+    spec = describe_keys(table, keys, ascending, words)
     d = _Desc()
     for i, kd in enumerate(spec.keys):
         c = kd.column
         if c.device != table.device or not c.data.is_contiguous() or (
-                c.validity is not None and not c.validity.is_contiguous()):
+                c.validity is not None and not c.validity.is_contiguous()) \
+                or (c.offsets is not None and not c.offsets.is_contiguous()):
             raise ValueError("topk: key columns must be contiguous and on "
                              f"{table.device}")
         e = d.key[i]
         e.data = c.data.data_ptr()
         e.valid = None if c.validity is None else c.validity.data_ptr()
+        e.offsets = None if c.offsets is None else c.offsets.data_ptr()
         e.width, e.kind = kd.width, kd.kind
         e.desc, e.nulls_first = int(kd.desc), int(kd.nulls_first)
-    for w, (key, rank) in enumerate(zip(spec.word_key, spec.word_rank)):
+        e.nw = kd.nw
+    for w, (key, rank, part) in enumerate(zip(spec.word_key, spec.word_rank,
+                                              spec.word_part)):
         d.word_key[w], d.word_rank[w] = key, int(rank)
+        d.word_part[w] = part
     d.W = spec.n_words
     return d
 
@@ -135,8 +148,8 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"topk {what} kernel: CUDA error {rc}")
 
 
-def _tile_sort(desc: _Desc, rows: int, k: int,
-               dev: torch.device, stream: int) -> torch.Tensor:
+def _tile_sort(desc: _Desc, rows: int, k: int, dev: torch.device,
+               stream: int, strings: bool = False) -> torch.Tensor:
     """(W, L) int64 with L >= k: the k smallest tuples first, in order,
     read as unsigned words, then all-ones sentinels or further tuples.
     Launches `tk_select_keys` over the rows, then `tk_merge` until one run
@@ -150,6 +163,7 @@ def _tile_sort(desc: _Desc, rows: int, k: int,
     _check(lib.tk_select_keys(ctypes.byref(desc), rows, keep,
                               out.data_ptr(), stream), "select")
     LAUNCHES["select"] += 1
+    STRING_LAUNCHES["select"] += strings
     runs, L = blocks, keep
     while runs > 1:
         L2 = min(2 * L, k)
@@ -158,21 +172,29 @@ def _tile_sort(desc: _Desc, rows: int, k: int,
         _check(lib.tk_merge(out.data_ptr(), runs * L, W, L, L2,
                             merged.data_ptr(), stream), "merge")
         LAUNCHES["merge"] += 1
+        STRING_LAUNCHES["merge"] += strings
         out, runs, L = merged, (runs + 1) // 2, L2
     return out
 
 
 def _topk_index(table: Table, keys: Sequence[str],
-                ascending: Sequence[bool], k: int) -> torch.Tensor:
-    """(k,) int64 row indices of the k smallest tuples, in order, k >= 1."""
+                ascending: Sequence[bool], k: int,
+                words: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """(k,) int64 row indices of the k smallest tuples, in order, k >= 1.
+    `words` are the keys' value words (`topk.key_words`), read here, once,
+    when the caller has not."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"the topk kernel runs on CUDA tensors, got {dev}")
-    if not supports(make_signature(table, keys, ascending, k, "eager")):
+    if words is None:
+        words = key_words(table, keys)
+    if not supports(make_signature(table, keys, ascending, k, "eager",
+                                   words)):
         raise ValueError(f"the topk kernel does not take this call: keys "
                          f"{list(keys)} (1..{MAX_WORDS} tuple words)")
     rows = table.num_rows
-    desc = _descriptor(table, keys, ascending)
+    desc = _descriptor(table, keys, ascending, words)
+    strings = any(table[c].dtype.is_string for c in keys)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms, smem_optin = device_limits(dev)
     if threshold_route(k, desc.W, smem_optin):
@@ -189,54 +211,63 @@ def _topk_index(table: Table, keys: Sequence[str],
                                    ticket_p, idx.data_ptr(), stream),
                "threshold")
         LAUNCHES["threshold"] += 1
+        STRING_LAUNCHES["threshold"] += strings
     else:
         # the row-index word: real rows precede the sentinels
-        idx = _tile_sort(desc, rows, k, dev, stream)[-1, :k]
+        idx = _tile_sort(desc, rows, k, dev, stream, strings)[-1, :k]
     return idx
 
 
 def topk_table_cuda(table: Table, keys: Sequence[str],
-                    ascending: Sequence[bool], n: int) -> Table:
+                    ascending: Sequence[bool], n: int,
+                    words: Optional[Sequence[int]] = None) -> Table:
     k = min(n, table.num_rows)
     if k == 0:
         if table.device.type != "cuda":
             raise ValueError(f"the topk kernel runs on CUDA tensors, got "
                              f"{table.device}")
         return empty_capped(table)[0]
-    return take_table(table, _topk_index(table, keys, ascending, k),
+    return take_table(table, _topk_index(table, keys, ascending, k, words),
                       _has_negative=False)
 
 
 def topk_capped_cuda(table: Table, keys: Sequence[str],
-                     ascending: Sequence[bool], n: int, alive: torch.Tensor):
+                     ascending: Sequence[bool], n: int, alive: torch.Tensor,
+                     words: Optional[Sequence[int]] = None):
     k = min(n, table.num_rows)
     if table.device.type != "cuda" or alive.device != table.device:
         raise ValueError(f"the topk kernel runs on CUDA tensors, got "
                          f"{table.device} and {alive.device}")
     if k == 0:
         return empty_capped(table)
+    # the alive key is one BOOL word
     idx = _topk_index(*alive_keyed(table, keys, ascending,
-                                   alive.contiguous()), k)
+                                   alive.contiguous()), k,
+                      None if words is None else (1,) + tuple(words))
     return capped_outputs(table, idx, alive)
 
 
 def topk_capped(table: Table, keys: Sequence[str],
-                ascending: Sequence[bool], n: int, alive: torch.Tensor):
+                ascending: Sequence[bool], n: int, alive: torch.Tensor,
+                words: Optional[Sequence[int]] = None):
     """The capped tier's TopK: (table of min(n, rows) rows, their alive
     mask), the top rows of the stable sort with the dead rows sunk last;
-    the kernels on a CUDA table, the plain version on a CPU one."""
+    the kernels on a CUDA table, the plain version on a CPU one. `words`:
+    the keys' value words, when the caller has read them."""
     if table.device.type == "cpu":
         return topk_capped_plain(table, keys, ascending, n, alive)
-    return topk_capped_cuda(table, keys, ascending, n, alive)
+    return topk_capped_cuda(table, keys, ascending, n, alive, words)
 
 
 def topk_table(table: Table, keys: Sequence[str],
-               ascending: Sequence[bool], n: int) -> Table:
+               ascending: Sequence[bool], n: int,
+               words: Optional[Sequence[int]] = None) -> Table:
     """The first min(n, rows) rows of the stable sort by `keys`: the kernel
-    on a CUDA table, the plain version on a CPU one."""
+    on a CUDA table, the plain version on a CPU one. `words`: the keys'
+    value words, when the caller has read them."""
     if table.device.type == "cpu":
         return topk_plain(table, keys, ascending, n)
-    return topk_table_cuda(table, keys, ascending, n)
+    return topk_table_cuda(table, keys, ascending, n, words)
 
 
 from .registry import REGISTRY as _REGISTRY  # noqa: E402

@@ -39,7 +39,10 @@ FusedSelect (a predicate over the program's limits), the executor raises
 `KernelDeclinedError` and never gives way to the plain version there. In
 the capped tier a FusedSelect is a mask, not a compaction: the registry is
 consulted only to stamp its decline, and the predicate is evaluated as a
-Filter's.
+Filter's. Keys of every orderable kind run in the eager tier, STRING and
+DECIMAL128 included; in the capped tier a STRING key raises TypeError
+before any kernel is chosen (`_check_capped_keys`), as the reference's
+capped tier cannot order strings either.
 
 `PlanExecutor(device=None)` runs on the CUDA card and raises when there is
 none; `device="cpu"` runs on the CPU. The scan inputs move to the device
@@ -83,11 +86,17 @@ _OPT_CACHE_SIZE = 64     # rewrites kept per executor, oldest dropped first
 _PROGRAM_CACHE_SIZE = 64     # capped programs kept per executor
 _CAPS_MEMO_SIZE = 256        # plans whose grown caps are kept
 
-def _check_keys(cols) -> None:
-    """Key kinds not ported yet raise TypeError naming their ROADMAP item
-    before any kernel is chosen (`sort.check_key_kind`)."""
+def _check_capped_keys(cols) -> None:
+    """A STRING key raises TypeError in the capped tier before any kernel
+    is chosen: its operands need the longest string, a host read, which
+    the reference's capped tier cannot make either (its
+    `Column.max_string_length` calls int() under jit)."""
     for c in cols:
-        sort.check_key_kind(c)
+        if c.dtype.is_string:
+            raise TypeError(
+                f"{c.dtype!r} keys do not run in the capped tier: their "
+                "sort words need the longest string, a host read (the "
+                "reference's Column.max_string_length under jit)")
 
 
 def _bounded_put(cache: Dict, key, value, size: int) -> None:
@@ -369,7 +378,6 @@ class PlanExecutor:
             lt, rt = childs
             lkeys = [lt[k] for k in node.left_keys]
             rkeys = [rt[k] for k in node.right_keys]
-            _check_keys(lkeys + rkeys)
             from ..ops import join_cuda
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "eager")
             if node.how == "inner":
@@ -395,7 +403,6 @@ class PlanExecutor:
             (t,) = childs
             if not node.keys:
                 return self._global_aggregate(t, node)
-            _check_keys([t[k] for k in node.keys])
             aggs = [(c, o) for c, o, _ in node.aggs]
             choice = self._kernel_choice(
                 "groupby", groupby_cuda.make_signature(t, aggs, "eager"),
@@ -410,15 +417,13 @@ class PlanExecutor:
                                    ascending=list(node.ascending))
         if isinstance(node, TopK):
             (t,) = childs
-            _check_keys([t[k] for k in node.keys])
-            choice = self._kernel_choice(
-                "topk",
-                topk.make_signature(t, node.keys, node.ascending, node.n,
-                                    "eager"), m.label)
+            sig = topk.make_signature(t, node.keys, node.ascending, node.n,
+                                      "eager")
+            choice = self._kernel_choice("topk", sig, m.label)
             m.kernel = choice.label
             if not choice.fallback:
                 return choice.fn(t, list(node.keys), list(node.ascending),
-                                 node.n)
+                                 node.n, words=sig.extra("words"))
             return topk.topk_plain(t, node.keys, node.ascending, node.n)
         if isinstance(node, Limit):
             (t,) = childs
@@ -650,7 +655,7 @@ class PlanExecutor:
             l, r = childs
             lkeys = [l.table[k] for k in node.left_keys]
             rkeys = [r.table[k] for k in node.right_keys]
-            _check_keys(lkeys + rkeys)
+            _check_capped_keys(lkeys + rkeys)
             from ..ops import join_cuda
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "capped")
             if node.how == "inner":
@@ -680,7 +685,7 @@ class PlanExecutor:
                 t = self._global_aggregate(c.table, node, alive=c.alive)
                 return _CappedRel(t, torch.ones(1, dtype=torch.bool,
                                                 device=t.device)), None
-            _check_keys([c.table[k] for k in node.keys])
+            _check_capped_keys([c.table[k] for k in node.keys])
             aggs = [(cn, o) for cn, o, _ in node.aggs]
             choice = pick("groupby", groupby_cuda.make_signature(
                 c.table, aggs, "capped"))
@@ -692,6 +697,7 @@ class PlanExecutor:
             return _CappedRel(t, valid), ovf
         if isinstance(node, Sort):
             (c,) = childs
+            _check_capped_keys([c.table[k] for k in node.keys])
             t, alive = sort.sort_table_capped(
                 c.table, key_names=list(node.keys),
                 ascending=list(node.ascending), alive=c.alive)
@@ -702,16 +708,15 @@ class PlanExecutor:
             # the first n live rows by an inclusive prefix count. Capped
             # operators downstream take any row count.
             (c,) = childs
-            _check_keys([c.table[k] for k in node.keys])
-            choice = pick("topk",
-                          topk.make_signature(c.table, node.keys,
-                                              node.ascending, node.n,
-                                              "capped"))
+            _check_capped_keys([c.table[k] for k in node.keys])
+            sig = topk.make_signature(c.table, node.keys, node.ascending,
+                                      node.n, "capped")
+            choice = pick("topk", sig)
             if not choice.fallback:
                 from ..ops import topk_cuda
                 return _CappedRel(*topk_cuda.topk_capped(
                     c.table, list(node.keys), list(node.ascending), node.n,
-                    c.alive)), None
+                    c.alive, words=sig.extra("words"))), None
             t, alive = sort.sort_table_capped(
                 c.table, key_names=list(node.keys),
                 ascending=list(node.ascending), alive=c.alive)

@@ -138,11 +138,19 @@ def test_errors_match_the_reference():
 
 
 def test_unported_kinds_name_their_roadmap_item():
-    """String columns concatenate now; as sort keys they are not ported
-    yet, and say which ROADMAP item brings them."""
+    """String columns concatenate, and the concatenation sorts as a key
+    (ROADMAP queue A item 3, done): its order and rows equal the JAX
+    package's, nulls first ascending and last descending."""
+    from spark_rapids_tpu import dtypes as jdt
+    from spark_rapids_tpu.ops import sort as jsort
     from spark_rapids_tpu_torch.ops import sort
-    col = Column.from_pylist(["a", None, "bcd"], tdt.STRING, device="cpu")
+    vals = ["a", None, "bcd", "", "ab", "\u00e9"]
+    col = Column.from_pylist(vals, tdt.STRING, device="cpu")
     t = copying.concat_tables([Table([col], ["a"]), Table([col], ["a"])])
-    assert t["a"].to_pylist() == ["a", None, "bcd"] * 2
-    with pytest.raises(TypeError, match="queue A item 3"):
-        sort.sorted_order(t)
+    assert t["a"].to_pylist() == vals * 2
+    jcol = JColumn.from_pylist(vals * 2, jdt.STRING)
+    for asc in (True, False):
+        want = np.asarray(jsort.sorted_order([jcol], asc).data)
+        npt.assert_array_equal(sort.sorted_order(t, asc).data.numpy(), want)
+        assert sort.sort_table(t, ascending=asc)["a"].to_pylist() == \
+            [(vals * 2)[i] for i in want]

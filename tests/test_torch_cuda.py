@@ -1291,3 +1291,93 @@ def test_row_conversion_forced_plain_raises_on_the_card(monkeypatch):
     monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", "row_conversion=torch")
     with pytest.raises(KernelDeclinedError):
         rc.convert_to_rows(_rc_table(3, 10, 0.0))
+
+
+# ---- STRING, DECIMAL128 and float keys ----------------------------------------
+
+def _key_column(kind, n, rng, null_p, device="cuda"):
+    """A key column of a few values of `kind`, nulls at `null_p`: shared
+    prefixes, multi-byte UTF-8 and empty strings; +-(10^38 - 1); +-0.0
+    and NaN."""
+    vals = {"string": ["", "a", "a\x00", "ab", "pre_1", "pre_12", "é",
+                       "日本", "x" * 40],
+            "decimal": [0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 2 ** 64],
+            "float32": [0.0, -0.0, float("nan"), 1.5, float("inf")],
+            "float64": [0.0, -0.0, float("nan"), 1.5, float("-inf")]}[kind]
+    dt = {"string": tdt.STRING, "decimal": tdt.decimal(38, 2),
+          "float32": tdt.FLOAT32, "float64": tdt.FLOAT64}[kind]
+    idx = rng.integers(0, len(vals), n)
+    ok = rng.random(n) >= null_p
+    return Column.from_pylist([vals[i] if v else None
+                               for i, v in zip(idx, ok)], dt, device=device)
+
+
+@pytest.mark.parametrize("kind", ["string", "decimal", "float32",
+                                  "float64"])
+@pytest.mark.parametrize("nr", [300, 5_000])
+def test_variable_width_join_kernels_equal_plain_versions(kind, nr):
+    """The hash join's variable-width instantiation on both routes: table,
+    counts and pairs against the plain versions and the sort-based join."""
+    _need_card()
+    rng = np.random.default_rng(nr)
+    p = [_key_column(kind, 20_000, rng, 0.05)]
+    b = [_key_column(kind, nr, rng, 0.05)]
+    C = join_cuda._capacity(nr)
+    tk, tp = join_cuda.build_table_cuda(b, C), join_cuda.build_table_plain(
+        b, C)
+    assert torch.equal(tk.slot_row, tp.slot_row)
+    pk = join_cuda.probe_counts_cuda(p, tk, b)
+    _same_probe(pk, join_cuda.probe_counts_plain(p, tp, b))
+    lk, rk = join_cuda.inner_join_hash(p, b)
+    lf, rf = join.inner_join(p, b)
+    assert torch.equal(lk.data, lf.data) and torch.equal(rk.data, rf.data)
+
+
+@pytest.mark.parametrize("keys,asc", [(["s"], [True]), (["s"], [False]),
+                                      (["d", "s"], [False, True])])
+@pytest.mark.parametrize("k", [1, 100, 3_000])
+def test_topk_string_and_decimal_keys_equal_plain_version(keys, asc, k):
+    _need_card()
+    rng = np.random.default_rng(k)
+    t = Table([_key_column("string", 50_000, rng, 0.05),
+               _key_column("decimal", 50_000, rng, 0.05)], ["s", "d"])
+    got = topk_cuda.topk_table_cuda(t, keys, asc, k)
+    want = topk.topk_plain(t, keys, asc, k)
+    for a, b in zip(got.columns, want.columns):
+        assert torch.equal(a.null_mask, b.null_mask)
+        assert a.to_pylist() == b.to_pylist()
+
+
+def test_fused_select_string_and_decimal_payloads_equal_plain_version():
+    _need_card()
+    rng = np.random.default_rng(3)
+    n = 100_003
+    t = Table([Column.from_numpy(rng.integers(0, 10, n).astype(np.int32),
+                                 tdt.INT32, device="cuda"),
+               _key_column("string", n, rng, 0.1),
+               _key_column("decimal", n, rng, 0.1)], ["p", "s", "d"])
+    for needed in (["s", "d"], ["s"], ["p", "d"]):
+        got = select_cuda.fused_select_cuda(t, col("p") < 4, needed)
+        want = select.fused_select_plain(t, col("p") < 4, needed)
+        for a, b in zip(got.columns, want.columns):
+            assert a.to_pylist() == b.to_pylist()
+            if a.offsets is not None:
+                assert torch.equal(a.offsets, b.offsets)
+
+
+def test_q74_and_q3_strings_on_the_card_equal_the_cpu():
+    _need_card()
+    from spark_rapids_tpu_torch import nds_q74
+    host = nds_q74.q74_inputs(200_000, 50_000, 10_000, seed=2, device="cpu")
+    card = {k: t.to("cuda") for k, t in host.items()}
+    join_cuda.reset_counters()
+    got = PlanExecutor().execute(nds_q74.q74_plan(), card).table
+    assert join_cuda.VAR_LAUNCHES["count"] == 3
+    want = PlanExecutor(device="cpu").execute(nds_q74.q74_plan(), host)
+    assert got.to("cpu").to_pydict() == want.table.to_pydict()
+    q3 = nds_q3.q3_tpcds_strings_inputs(100_000, device="cpu")
+    got = PlanExecutor().execute(nds_q3.q3_tpcds_strings_plan(),
+                                 {k: t.to("cuda") for k, t in q3.items()})
+    want = PlanExecutor(device="cpu").execute(
+        nds_q3.q3_tpcds_strings_plan(), q3)
+    assert got.table.to("cpu").to_pydict() == want.table.to_pydict()

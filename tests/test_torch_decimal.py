@@ -490,10 +490,17 @@ def test_decimal_columns_gather_and_keys_raise_by_item():
     assert gather.take(c, idx).to_pylist() == [12345, None, 10**38 - 1,
                                                 -(10**38 - 1)]
     t = Table([c], ["d"])
-    with pytest.raises(TypeError, match="queue A item 3"):
-        sort.sorted_order(t)
-    with pytest.raises(TypeError, match="queue A item 3"):
-        join.inner_join(t, t)
+    # a DECIMAL128 key sorts and joins as the JAX package's (queue A item 3)
+    from spark_rapids_tpu.ops import join as jjoin
+    from spark_rapids_tpu.ops import sort as jsort
+    jc = JColumn.from_pylist(vals, jdt.decimal(38, 2))
+    for asc in (True, False):
+        np.testing.assert_array_equal(
+            sort.sorted_order(t, asc).data.numpy(),
+            np.asarray(jsort.sorted_order([jc], asc).data))
+    for got, want in zip(join.inner_join(t, t), jjoin.inner_join([jc], [jc])):
+        np.testing.assert_array_equal(got.data.numpy(),
+                                      np.asarray(want.data))
     # hashed as Java BigDecimal bytes, a null row passing the seed through
     got = thash.murmur_hash3_32([c], 42).to_pylist()
     assert got[1] == 42 and got[3] == thash.murmur_hash3_32(

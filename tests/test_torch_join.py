@@ -138,9 +138,11 @@ def test_bucket_hash_matches_reference_words():
 
 def test_supports_parity_with_reference():
     """`_supports` equals the reference's on every signature but the build
-    size: the reference declines above its 512 rows (VMEM), the port's
-    large route takes up to its stated ceiling, MAX_BUILD = 2^22 rows, and
-    declines one row more."""
+    size and float keys: the reference declines above its 512 rows (VMEM),
+    the port's large route takes up to its stated ceiling, MAX_BUILD =
+    2^22 rows, and declines one row more; the reference's Pallas join
+    declines float keys, the port's kernels take them (queue C 7: on the
+    card a decline raises, where the reference's sort-based join runs)."""
     specs = [
         (np.zeros(4, np.float32), np.zeros(4, np.float32), "inner", "eager"),
         (np.zeros(4, np.int64), np.zeros(4, np.int64), "left_semi", "eager"),
@@ -163,7 +165,7 @@ def test_supports_parity_with_reference():
         verdicts.append(join_cuda._supports(join_cuda.make_signature(
             [_tcol(c) for c in jl], [_tcol(c) for c in jr], how, tier)))
     assert refs == [False, False, False, True, True, False]
-    assert verdicts == [False, False, True, True, True, False]
+    assert verdicts == [True, False, True, True, True, False]
 
     def port(nr):
         return join_cuda._supports(join_cuda.make_signature(

@@ -325,3 +325,78 @@ def test_tpcds_q3_every_group_matches_jax():
     assert res.optimizer["rules_fired"] == ref.optimizer["rules_fired"]
     assert res.optimizer["fingerprint"] == ref.optimizer["fingerprint"]
     assert [m.kind for m in res.metrics.values()].count("FusedSelect") == 2
+
+
+# ---- TPC-DS q3 with its STRING i_brand ---------------------------------------
+
+def _jax_table(t):
+    """The JAX package's table of the port's CPU table, buffer for buffer."""
+    from spark_rapids_tpu import dtypes as jdt
+    import jax.numpy as jnp
+    cols = []
+    for c in t.columns:
+        jd = (jdt.STRING if c.dtype.is_string else
+              jdt.DType(jdt.Kind(c.dtype.kind.value), c.dtype.precision,
+                        c.dtype.scale))
+        cols.append(JColumn(
+            dtype=jd, length=c.length, data=jnp.asarray(c.data.numpy()),
+            validity=(None if c.validity is None
+                      else jnp.asarray(c.validity.numpy())),
+            offsets=(None if c.offsets is None
+                     else jnp.asarray(c.offsets.numpy()))))
+    return JTable(cols, names=list(t.names))
+
+
+def _assert_same_strings(jt: JTable, tt):
+    """_assert_same, a STRING column's offsets included."""
+    _assert_same(jt, tt)
+    for jc, tc in zip(jt.columns, tt.columns):
+        if tc.offsets is not None:
+            npt.assert_array_equal(np.asarray(jc.offsets),
+                                   tc.offsets.numpy())
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("limit", [100, None])
+def test_tpcds_q3_strings_matches_jax(optimize, limit):
+    """TPC-DS q3 as TPC-DS types it (`i_brand` a STRING, `i_brand_id`
+    INT32), authored and optimized, against the JAX package's eager
+    executor on the same tables, bit for bit."""
+    inputs = nds_q3.q3_tpcds_strings_inputs(20_000, seed=0, device="cpu")
+    items = inputs["items"]
+    assert [c.dtype.kind.value for c in items.columns] == \
+        ["int32", "int32", "string", "int32"]
+    assert items["i_brand"].to_pylist()[:2] == [
+        nds_q3.brand_name(b) for b in items["i_brand_id"].data[:2].tolist()]
+    lens = items["i_brand"].string_lengths()
+    assert 10 <= int(lens.min()) and int(lens.max()) <= 22
+    from spark_rapids_tpu.plan import stats
+    jplan = nds_q3.q3_tpcds_strings_plan(limit, JPlanBuilder, jcol)
+    with stats.scoped_store(None):
+        ref = JPlanExecutor(mode="eager", optimize=optimize).execute(
+            jplan, {k: _jax_table(t) for k, t in inputs.items()})
+    res = PlanExecutor(device="cpu", optimize=optimize).execute(
+        nds_q3.q3_tpcds_strings_plan(limit), inputs)
+    _assert_same_strings(ref.table, res.table)
+    assert res.table.names == ("d_year", "i_brand", "i_brand_id", "revenue")
+    assert 0 < res.table.num_rows and (limit is None
+                                       or res.table.num_rows <= limit)
+    if optimize:
+        assert res.optimizer["fingerprint"] == ref.optimizer["fingerprint"]
+        stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
+        assert stamps.count("torch:fused_select") == 2
+    # the INT32 variant groups the same rows: the brand ids agree
+    ints = PlanExecutor(device="cpu", optimize=optimize).execute(
+        nds_q3.q3_tpcds_plan(limit),
+        nds_q3.q3_tpcds_inputs(20_000, seed=0, device="cpu")).table
+    npt.assert_array_equal(ints["i_brand"].data.numpy(),
+                           res.table["i_brand_id"].data.numpy())
+
+
+def test_tpcds_q3_strings_capped_raises_naming_the_limit():
+    inputs = nds_q3.q3_tpcds_strings_inputs(4096, seed=0, device="cpu")
+    for optimize in (False, True):
+        with pytest.raises(TypeError, match="max_string_length"):
+            PlanExecutor(mode="capped", device="cpu",
+                         optimize=optimize).execute(
+                nds_q3.q3_tpcds_strings_plan(), inputs)

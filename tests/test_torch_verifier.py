@@ -8,9 +8,9 @@ through both verifiers; the violations' invariant names must be equal
 (SPARK_RAPIDS_TPU_VERIFY_PLANS, SPARK_RAPIDS_TORCH_VERIFY_PLANS) raise on
 the same plans.
 
-The reference's `test_string_columns_pass_through_clean` runs its typing
-half here; its execution half groups a string column's min, which the
-port's aggregates do not take yet (ROADMAP queue A item 3).
+The reference's `test_string_columns_pass_through_clean` runs here in
+full: its typing half, and its execution half, a string column's grouped
+min and count through both executors with their gates on.
 """
 import types
 
@@ -177,9 +177,11 @@ class TestTyping:
         assert types_[id(plan.root)] == {"x": tdt.INT64, "y": tdt.BOOL,
                                          "z": tdt.FLOAT64}
 
-    def test_string_columns_pass_through_clean(self):
+    def test_string_columns_pass_through_clean(self, monkeypatch):
         """Bare-ref projections and count/min aggregates of a string
-        column are clean; summing its chars buffer is a definite error."""
+        column are clean; summing its chars buffer is a definite error.
+        The clean plan runs through both executors' gates to the same
+        rows."""
         def case(m, agg):
             string = jdt.STRING if m is JAX else tdt.DType(tdt.Kind.STRING)
             b = m.PlanBuilder()
@@ -192,6 +194,30 @@ class TestTyping:
         assert _same(lambda m: case(m, [("s", "sum", "x")])) == [
             "typing.agg-over-non-scalar"]
         assert _same(lambda m: case(m, [("k", "sum", "x")])) == []
+        monkeypatch.setenv("SPARK_RAPIDS_TPU_VERIFY_PLANS", "1")
+        keys, vals = [1, 1, 2, 2, 3], ["bb", "aa", "cc", None, None]
+
+        def run(mod, table):
+            b = mod.PlanBuilder()
+            plan = (b.scan("t", schema=["k", "s"]).select(["k", "s"])
+                    .aggregate(["k"], [("s", "min", "m"),
+                                       ("s", "count", "c")])
+                    .sort(["k"]).build())
+            return mod.PlanExecutor(mode="eager").execute(
+                plan, {"t": table}).table.to_pydict()
+        want = run(jplan, JTable([JColumn.from_pylist(keys, jdt.INT64),
+                                  JColumn.from_pylist(vals, jdt.STRING)],
+                                 names=["k", "s"]))
+        from spark_rapids_tpu_torch.columnar import Column, Table
+        got = run(types.SimpleNamespace(
+            PlanBuilder=tplan.PlanBuilder,
+            PlanExecutor=lambda mode: tplan.PlanExecutor(mode=mode,
+                                                         device="cpu")),
+            Table([Column.from_pylist(keys, tdt.INT64, device="cpu"),
+                   Column.from_pylist(vals, tdt.STRING, device="cpu")],
+                  ["k", "s"]))
+        assert got == want == {"k": [1, 2, 3], "m": ["aa", "cc", None],
+                               "c": [2, 1, 0]}
 
     def test_mixed_bool_int_types_exactly_where_the_reference_says_unknown(
             self):
