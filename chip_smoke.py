@@ -7,6 +7,8 @@
     python3 chip_smoke.py --strings    # phases 5c and 9 only
     python3 chip_smoke.py --row-hash   # the fixed-width row hash only (A/B)
     python3 chip_smoke.py --keys       # phase 10 only (string/decimal keys)
+    python3 chip_smoke.py --union-walls N  # q5 and q23 walls only (A/B runs)
+    python3 chip_smoke.py --join-profile   # whole joins' kernels (A/B runs)
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
@@ -15,11 +17,12 @@ in phases that each raise on failure:
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), and
    a one-thread probe of a dependent float64 add's latency, one nvcc per
    source, all started together;
-3. hash-join kernels: each (build; probe count with its tile sums and
-   offsets, segment lists and total; probe emit) against its plain
-   PyTorch version on the card, for exact equality, the offsets and total
-   also against `torch.cumsum` of the counts and the maps against the
-   sort-based join,
+3. hash-join kernels: each (build, which computes the reference's
+   insertion rounds' table without rounds; existence probe, also against
+   the sort-based semi join; probe count with its tile sums and offsets,
+   segment lists and total; probe emit) against its plain PyTorch version
+   on the card, for exact equality, the offsets and total also against
+   `torch.cumsum` of the counts and the maps against the sort-based join,
    at q3's shapes and TPC-DS q3's INT32 ones, on a dtype/null/multi-key
    matrix, on duplicate build keys (up to 512 equal ones, past the emit's
    staging buffer), on probes with no row and with every row matched, at
@@ -33,10 +36,10 @@ in phases that each raise on failure:
 3b. the hash join's large route (tables over 1,024 slots): the build
    against its plain version at 513, 1,025 and 52,000 rows, on 600 equal
    keys, with nulls, INT32 and INT64 keys, one and two key columns and
-   columns one element into their buffers, each case's count and emit
-   against theirs and the whole `inner_join_hash` against a numpy join,
-   with its rounds, device and one-call time, bound and one grid barrier
-   timed alone; then 2^22 rows (the ceiling) taken and one more declined;
+   columns one element into their buffers, each case's rounds, existence
+   probe, count and emit against theirs and the whole `inner_join_hash`
+   against a numpy join, with its rounds, device and one-call time and
+   bound; then 2^22 rows (the ceiling) taken and one more declined;
 4. q3: NDS q3 at 10,000,000 store_sales rows through
    `PlanExecutor(optimize=False)` (the authored plan, as in earlier runs),
    launch counters zeroed before and read after; the result must equal an
@@ -92,10 +95,13 @@ in phases that each raise on failure:
    `PlanExecutor(optimize=False)`, `PlanExecutor()` and both in the
    capped tier at the reference bench's key caps (2,048 and 8,192), every
    kernel counter zeroed just before each counted run and read just after:
-   the groupby kernel is the one kernel on these paths, so it launches
-   once per keyed aggregate, every other launch and every plain-run count
+   the groupby kernel launches once per keyed aggregate and every semi
+   join runs the hash join's build and existence probe once (no count,
+   emit or plain version), every other launch and every plain-run count
    reads 0 and no other stamp names a `cuda:` kernel; a traced run finds
-   no scatter inside a keyed aggregate; each result
+   no scatter inside a keyed aggregate; each authored run's semi joins,
+   at their own shapes, held against the sort-based mask and timed (the
+   first of each beside the plain versions and `torch.isin`); each result
    equal to an independent numpy evaluation and to the port's CPU run,
    bit for bit; warm walls, one traced warm run's idle share, and the
    capped runs' attempts and host reads (at most attempts + 1);
@@ -245,11 +251,14 @@ RH_OUT_BYTES = {"murmur": 4, "xxhash": 8, "fused": 12}
 HIST_OPS = 2
 # the count kernel's two forms: 32-bit values, 64-bit values
 FS_COUNT = ("fs_count_kernel<int>", "fs_count_kernel<longlong>")
-KERNEL_NAMES = {"build": "build_kernel", "count": "count_kernel<false>",
-                "emit": "emit_kernel<false>",
-                "build_large": "build_large_kernel",
-                "count_large": "count_kernel<true>",
-                "emit_large": "emit_kernel<true>",
+# a template kernel's record names its arguments: "count_kernel<false,Keys>"
+KERNEL_NAMES = {"build": "build_kernel<Keys>",
+                "count": "count_kernel<false,Keys>",
+                "emit": "emit_kernel<false,Keys>",
+                "exists": "exists_kernel<false,Keys>",
+                "count_large": "count_kernel<true,Keys>",
+                "emit_large": "emit_kernel<true,Keys>",
+                "exists_large": "exists_kernel<true,Keys>",
                 "segment_sum": ("gb_fold_short_kernel",
                                 "gb_fold_long_kernel"),
                 "groupby": ("gb_fill_kernel", "gb_reduce_kernel",
@@ -280,6 +289,9 @@ TK_SOURCE = "spark_rapids_tpu_torch/ops/csrc/topk.cu"
 GB_SOURCE = "spark_rapids_tpu_torch/ops/csrc/groupby.cu"
 REPLACES = {
     "build": "spark_rapids_tpu/ops/join_pallas.py:122",
+    "exists": "none: the sort-based spark_rapids_tpu/ops/join.py:337 "
+              "semi_join_mask, :366 left_semi_join, :375 left_anti_join "
+              "(no pallas_call)",
     "count": "spark_rapids_tpu/ops/join_pallas.py:209",
     "emit": "spark_rapids_tpu/ops/join_pallas.py:244",
     "row_hash": "spark_rapids_tpu/ops/hash_pallas.py:248",
@@ -382,7 +394,8 @@ class Checks:
                         "decimal128": 0, "fuzz": 0, "row_hash_bytes": 0,
                         "rc_to_rows": 0, "rc_from_rows": 0, "build_var": 0,
                         "count_var": 0, "emit_var": 0, "topk_keys": 0,
-                        "fused_select_keys": 0}
+                        "fused_select_keys": 0, "exists": 0,
+                        "exists_large": 0, "exists_var": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -433,16 +446,27 @@ class Checks:
 
 def check_case(chk, jc, join, pcols, bcols, what, suffix=""):
     """Every kernel of one join against its plain version on the card: the
-    table, the counts, tile sums and offsets, segment sums, matched rows
-    and lists, the total (the offsets and total also against torch.cumsum
-    of the counts) and both maps (also against the sort-based fallback).
-    `suffix` names the kernels' instantiation in the checks' records."""
+    table (and the large route's rounds), the existence probe (also against
+    the sort-based semi join), the counts, tile sums and offsets, segment
+    sums, matched rows and lists, the total (the offsets and total also
+    against torch.cumsum of the counts) and both maps (also against the
+    sort-based fallback). `suffix` names the kernels' instantiation in the
+    checks' records."""
     import torch
     C = jc._capacity(bcols[0].length)
     tk = jc.build_table_cuda(bcols, C)
     tp = jc.build_table_plain(bcols, C)
     chk.equal("build" + suffix, tk.slot_row, tp.slot_row, f"{what} slot_row")
     chk.equal("build" + suffix, tk.slot_hash, tp.slot_hash, f"{what} slot_hash")
+    if tk.rounds is not None:                   # the large route's
+        chk.equal("build" + suffix, tk.rounds, tp.rounds, f"{what} rounds")
+    # the existence probe: against its plain version and the sort-based
+    # semi join
+    ek = jc.probe_exists_cuda(pcols, tk, bcols)
+    chk.equal("exists" + suffix, ek, jc.probe_exists_plain(pcols, tp, bcols),
+              f"{what} exists")
+    chk.equal("exists" + suffix, ek, join.semi_join_mask(pcols, bcols),
+              f"{what} exists vs sort-based semi join")
     pk = jc.probe_counts_cuda(pcols, tk, bcols)
     pp = jc.probe_counts_plain(pcols, tp, bcols)
     for name in ("counts", "tile_sums", "tile_offsets", "seg_sums",
@@ -736,17 +760,31 @@ def join_shapes(torch, q3_tables):
 
 def join_profile(torch, shapes, iters=30):
     """The device time of one whole `inner_join_hash` call at each shape,
-    by kernel, and one call's time between CUDA events."""
+    by kernel, and one call's time between CUDA events; then the count and
+    the emit each alone, the L2 flushed before each, on one table."""
     from spark_rapids_tpu_torch.ops import join_cuda as jc
     out = {}
     for what, pc, bc in shapes:
         call = lambda: jc.inner_join_hash(pc, bc)     # noqa: E731
         total, by_name = device_by_name(torch, call, iters)
         cms = call_ms(torch, call, iters)
-        out[what] = {"device_ms": total, "call_ms": cms, "by_name": by_name}
+        C = jc._capacity(bc[0].length)
+        tbl = jc.build_table_cuda(bc, C)
+        probe = jc.probe_counts_cuda(pc, tbl, bc)
+        pairs = int(probe.total)
+        route = "_large" if jc.is_large(C) else ""
+        alone = {
+            "count": device_ms(torch, lambda: jc.probe_counts_cuda(
+                pc, tbl, bc), KERNEL_NAMES["count" + route], iters),
+            "emit": device_ms(torch, lambda: jc.probe_emit_cuda(
+                pc, tbl, bc, probe, pairs), KERNEL_NAMES["emit" + route],
+                iters)}
+        out[what] = {"device_ms": total, "call_ms": cms, "by_name": by_name,
+                     "alone": alone}
         log(f"  {what} inner_join_hash: device {total!r} ms "
             f"({', '.join(f'{k} {v!r}' for k, v in by_name.items())}), one "
-            f"call {cms!r} ms")
+            f"call {cms!r} ms; alone: count {alone['count']!r} ms, emit "
+            f"{alone['emit']!r} ms")
     return out
 
 
@@ -984,9 +1022,9 @@ def q3_phase(torch, inputs_cpu, gen, trace):
     log(res.profile_text())
     stamps = [m.kernel for m in res.metrics.values() if m.kind == "HashJoin"]
     require(stamps == ["cuda:hash_join"] * 2, f"join stamps {stamps}")
-    require(launches == {"build": 2, "count": 2, "emit": 2},
+    require(launches == {"build": 2, "count": 2, "emit": 2, "exists": 0},
             f"kernel launches on q3 {launches}")
-    require(jc.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0},
+    require(jc.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0, "exists": 0},
             f"plain versions ran on the card path {jc.PLAIN_CALLS}")
     launches["groupby"] = require_groupby(gc, res, "q3")
     warm = [ex.execute(plan, inputs) for _ in range(3)]
@@ -1864,25 +1902,6 @@ def large_cases(torch, dt, Column):
            [col(k, dt.INT32, 0.05, offset=1)])
 
 
-def barrier_ms(torch, jc, rows, rounds=1000):
-    """One grid-wide barrier alone, on the large build's grid for `rows`
-    rows: (rounds barriers - none) / rounds, between CUDA events, the median
-    of five."""
-    def timed(r):
-        jc.barrier_cuda(rows, r)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = jc.barrier_cuda(rows, r)
-        end.record()
-        torch.cuda.synchronize()
-        require(int(out) == r, "the barrier kernel did not run")
-        return start.elapsed_time(end)
-    return float(np.median([(timed(rounds) - timed(0)) / rounds
-                            for _ in range(5)]))
-
-
 def large_bounds(torch, jc, pcols, bcols, C, counts):
     """kernel_bounds for the large route: the table is one 8-byte word a
     slot and a list entry 8 bytes; the build moves its keys and writes the
@@ -1917,6 +1936,7 @@ def large_route_phase(torch, chk):
         chk.equal("build_large", tk.slot_row, tp.slot_row, f"{what} slot_row")
         chk.equal("build_large", tk.slot_hash, tp.slot_hash,
                   f"{what} slot_hash")
+        chk.equal("build_large", tk.rounds, tp.rounds, f"{what} rounds")
         rounds = int(tk.rounds)
         pk = jc.probe_counts_cuda(pc, tk, bc)
         pp = jc.probe_counts_plain(pc, tp, bc)
@@ -1924,6 +1944,11 @@ def large_route_phase(torch, chk):
                      "seg_matched", "total"):
             chk.equal("count_large", getattr(pk, name), getattr(pp, name),
                       f"{what} {name}")
+        ek = jc.probe_exists_cuda(pc, tk, bc)
+        chk.equal("exists_large", ek, jc.probe_exists_plain(pc, tp, bc),
+                  f"{what} exists")
+        chk.equal("exists_large", ek, pp.counts > 0,
+                  f"{what} exists vs the counts")
         at = torch.arange(pk.counts.shape[0], device=pk.counts.device)
         listed = (at % pk.seg) < pk.seg_matched.index_select(0, at // pk.seg)
         chk.equal("count_large", pk.entries[listed], pp.entries[listed],
@@ -1951,19 +1976,16 @@ def large_route_phase(torch, chk):
         chk.equal("emit_large", rm.data.cpu(), torch.from_numpy(nr),
                   f"{what} inner_join_hash right map vs numpy")
         build = lambda: jc.build_table_cuda(bc, C)          # noqa: E731
-        ms = device_ms(torch, build, KERNEL_NAMES["build_large"], 20)
+        ms, by_name = device_by_name(torch, build, 20)
         cms = call_ms(torch, build, 20)
         nbytes, ops = large_bounds(torch, jc, pc, bc, C, pk.counts)["build"]
         bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_INT_OPS_PER_S) * 1e3
-        bar = barrier_ms(torch, jc, nb)
         out.append({"what": what, "rows": nb, "capacity": C,
                     "rounds": rounds, "device_ms": ms, "call_ms": cms,
-                    "bound_ms": bound, "barrier_ms": bar,
-                    "rounds_x_barrier_ms": rounds * bar, "pairs": total})
+                    "bound_ms": bound, "by_name": by_name, "pairs": total})
         log(f"  {what}: C {C}, {rounds} rounds, {total} pairs; kernels == "
-            f"plain, maps == numpy; build device {ms!r} ms, one call "
-            f"{cms!r} ms, bound {bound!r} ms ({nbytes} B, {ops} ops); one "
-            f"grid barrier {bar!r} ms, x rounds {rounds * bar!r} ms")
+            f"plain, maps == numpy; build device {ms!r} ms ({by_name}), one "
+            f"call {cms!r} ms, bound {bound!r} ms ({nbytes} B, {ops} ops)")
     # the new ceiling: MAX_BUILD rows are taken, one more declines
     n = jc.MAX_BUILD
     keys = Column.from_numpy(np.random.default_rng(3).permutation(n)
@@ -1974,9 +1996,9 @@ def large_route_phase(torch, chk):
     chk.equal("build_large", tk.slot_row, tp.slot_row, "2^22 rows slot_row")
     chk.equal("build_large", tk.slot_hash, tp.slot_hash,
               "2^22 rows slot_hash")
+    chk.equal("build_large", tk.rounds, tp.rounds, "2^22 rows rounds")
     rounds = int(tk.rounds)
-    ms = device_ms(torch, lambda: jc.build_table_cuda([keys], C),
-                   KERNEL_NAMES["build_large"], 5)
+    ms, _ = device_by_name(torch, lambda: jc.build_table_cuda([keys], C), 5)
     one = [Column.from_numpy(np.zeros(4, np.int64), dt.INT64, device="cuda")]
     over = [Column.from_numpy(np.zeros(n + 1, np.int64), dt.INT64,
                               device="cuda")]
@@ -1993,8 +2015,8 @@ def large_route_phase(torch, chk):
         raise AssertionError("a build side over MAX_BUILD ran the kernel")
     log(f"  {n} rows (the ceiling, C {C}): {rounds} rounds, device {ms!r} "
         f"ms, table == plain; {n + 1} rows decline")
-    # large-route joins on two streams at once: each cooperative grid is
-    # resident alone and the calls share no device state
+    # large-route joins on two streams at once: each call's build and
+    # probes keep their state in its own scratch
     fl, fr = join.inner_join(pc, bc)
     two_stream_joins(torch, jc, pc, bc, (fl.data, fr.data))
     log(f"  {what} on two streams at once, 2 x 5 calls: maps == plain")
@@ -2099,9 +2121,10 @@ def q72_phase(torch, chk):
         stamps = [m.kernel for m in res.metrics.values()
                   if m.kind == "HashJoin"]
         require(stamps == ["cuda:hash_join"] * 5, f"{what} stamps {stamps}")
-        require(launches["hash_join"] == {"build": 5, "count": 5, "emit": 5}
+        require(launches["hash_join"] == {"build": 5, "count": 5, "emit": 5,
+                                          "exists": 0}
                 and launches["hash_join_large"] == {"build": 1, "count": 1,
-                                                    "emit": 1},
+                                                    "emit": 1, "exists": 0},
                 f"{what}: hash-join launches {launches}")
         fused = [m.kernel for m in res.metrics.values()
                  if m.kind == "FusedSelect"]
@@ -2154,7 +2177,9 @@ def q72_phase(torch, chk):
     bounds = large_bounds(torch, jc, pc, bc, C, probe.counts)
     timing = {}
     for k, (kern, plain_fn) in calls.items():
-        ms = device_ms(torch, kern, KERNEL_NAMES[k + "_large"], 30)
+        # the build: its six kernels and its memset
+        ms = (device_by_name(torch, kern, 30)[0] if k == "build" else
+              device_ms(torch, kern, KERNEL_NAMES[k + "_large"], 30))
         cms = call_ms(torch, kern, 30)
         pms = time_cuda(torch, plain_fn, 3)
         nbytes, ops = bounds[k]
@@ -2167,14 +2192,11 @@ def q72_phase(torch, chk):
             f"call {cms!r} ms, plain {pms!r} ms; bound "
             f"{max(bytes_ms, ops_ms)!r} ms ({nbytes} B, {ops} ops)")
     rounds = int(tbl.rounds)
-    bar = barrier_ms(torch, jc, bc[0].length)
-    timing["build"].update(rounds=rounds, barrier_ms=bar,
-                           rounds_x_barrier_ms=rounds * bar)
+    timing["build"]["rounds"] = rounds
     join_ms, by_name = device_by_name(
         torch, lambda: jc.inner_join_hash(pc, bc), 20)
     log(f"  q72 inventory join: probe {pc[0].length} x build "
-        f"{bc[0].length} (C {C}) -> {total} pairs; {rounds} rounds, one "
-        f"grid barrier {bar!r} ms, x rounds {rounds * bar!r} ms; whole "
+        f"{bc[0].length} (C {C}) -> {total} pairs; {rounds} rounds; whole "
         f"inner_join_hash device {join_ms!r} ms ({by_name})")
     timing["join"] = {"device_ms": join_ms, "by_name": by_name,
                       "probe_rows": pc[0].length, "pairs": total}
@@ -3021,7 +3043,7 @@ def capped_phase(torch, chk):
         n = len(joins)
         require(launches["capped_join"]["join"] == n
                 and launches["hash_join"] == {"build": n, "count": n,
-                                              "emit": n},
+                                              "emit": n, "exists": 0},
                 f"capped {what}: {n} joins, launches {launches}")
         stamps = {m.label: m.kernel for m in res.metrics.values()
                   if m.kind in ("HashJoin", "TopK")}
@@ -3301,20 +3323,135 @@ def require_groupby(gc, res, what):
     return len(keyed)
 
 
+def require_semi_joins(res, counters, what):
+    """Every HashJoin of the run (q5's and q23's are semi joins) on the
+    hash join's build and existence probe: one launch of each a join
+    (counters zeroed just before the run), no count or emit, no plain
+    version, each stamped `cuda:hash_join`; returns their number."""
+    semis = [n for n in res.plan.nodes if n.kind == "HashJoin"]
+    stamps = [res.metrics[n.label].kernel for n in semis]
+    k = len(semis)
+    require(k > 0 and all(n.how in ("left_semi", "left_anti")
+                          for n in semis)
+            and counters["hash_join"] == {"build": k, "count": 0,
+                                          "emit": 0, "exists": k}
+            and counters["hash_join_large"]["build"]
+            == counters["hash_join_large"]["exists"]
+            and counted(counters["plain"]["hash_join"]) == 0
+            and stamps == ["cuda:hash_join"] * k,
+            f"{what}: {k} semi joins, hash-join launches "
+            f"{counters['hash_join']}, large {counters['hash_join_large']}, "
+            f"plain {counters['plain']['hash_join']}, stamps {stamps}")
+    return k
+
+
+def recording_semis(jc):
+    """Wrap `join_cuda.semi_join_mask_hash` (the executor's semi and anti
+    joins reach it in both tiers) so that a run records every call's
+    arguments; returns (calls, restore)."""
+    calls = []
+    real = jc.semi_join_mask_hash
+
+    def rec(lkeys, rkeys, *, lalive=None, ralive=None):
+        calls.append((list(lkeys), list(rkeys), lalive, ralive))
+        return real(lkeys, rkeys, lalive=lalive, ralive=ralive)
+
+    jc.semi_join_mask_hash = rec
+
+    def restore():
+        jc.semi_join_mask_hash = real
+    return calls, restore
+
+
+def semi_timing(torch, chk, jc, lkeys, rkeys, lalive, ralive, what,
+                full=False):
+    """One semi join of a plan at its own shape: the build and the
+    existence probe against their plain versions and the sort-based mask,
+    then timed: the build's device ms (its kernels and memset), the
+    probe's device ms, one whole `semi_join_mask_hash` call, and their
+    bounds (bytes: the build reads its keys and validity and writes the
+    8-byte table; the probe reads its validity, its live rows' keys, the
+    build keys and the table and writes a byte a row; operations: their
+    rows' murmur3); with `full`, also the plain versions and `torch.isin`
+    on the first key (the same mask where no key is null and every row
+    live)."""
+    from spark_rapids_tpu_torch.ops import join
+    lcols = jc._with_alive(lkeys, lalive)
+    rcols = jc._with_alive(rkeys, ralive)
+    nl, nr = lcols[0].length, rcols[0].length
+    C = jc._capacity(nr)
+    table = jc.build_table_cuda(rcols, C)
+    want = join.semi_join_mask(lkeys, rkeys, lalive=lalive, ralive=ralive)
+    suffix = "_large" if jc.is_large(C) else ""
+    chk.equal("exists" + suffix, jc.semi_join_mask_hash(
+        lkeys, rkeys, lalive=lalive, ralive=ralive), want,
+        f"{what} mask vs sort-based")
+    chk.equal("exists" + suffix, jc.probe_exists_cuda(lcols, table, rcols),
+              jc.probe_exists_plain(lcols, table, rcols),
+              f"{what} exists vs plain")
+
+    def live(cols):
+        v = torch.ones(cols[0].length, dtype=torch.bool, device="cuda")
+        for c in cols:
+            if c.validity is not None:
+                v &= c.validity
+        return int(v.sum())
+    width = sum(c.data.element_size() for c in lcols)
+    hash_ops = sum(HASH_OPS[w] for w in jc._wide(lcols))
+    vbytes = sum(c.length for c in lcols if c.validity is not None)
+    build_in = sum(c.nbytes() for c in rcols)
+    bounds = {"build": (build_in + 8 * C, live(rcols) * hash_ops),
+              "exists": (vbytes + live(lcols) * width + build_in + 8 * C
+                         + nl, live(lcols) * hash_ops)}
+    build = lambda: jc.build_table_cuda(rcols, C)             # noqa: E731
+    probe = lambda: jc.probe_exists_cuda(lcols, table, rcols)  # noqa: E731
+    name = KERNEL_NAMES["exists" + suffix]
+    out = {"probe_rows": nl, "build_rows": nr, "capacity": C,
+           "large": jc.is_large(C), "matched": int(want.sum()),
+           "build_ms": (device_by_name(torch, build, 20)[0] if suffix
+                        else device_ms(torch, build, KERNEL_NAMES["build"],
+                                       20)),
+           "ms": device_ms(torch, probe, name, 20),
+           "call_ms": call_ms(torch, lambda: jc.semi_join_mask_hash(
+               lkeys, rkeys, lalive=lalive, ralive=ralive), 20)}
+    for k, (nbytes, ops) in bounds.items():
+        out[k + "_bytes"], out[k + "_ops"] = nbytes, ops
+        out[k + "_bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out[k + "_ops_ms"] = ops / PEAK_INT_OPS_PER_S * 1e3
+        out[k + "_bound_ms"] = max(out[k + "_bytes_ms"], out[k + "_ops_ms"])
+    if full:
+        out["plain_ms"] = time_cuda(
+            torch, lambda: jc.probe_exists_plain(lcols, table, rcols), 2)
+        out["plain_build_ms"] = time_cuda(
+            torch, lambda: jc.build_table_plain(rcols, C), 2)
+        lk, rk = lkeys[0].data, rkeys[0].data
+        out["library_ms"] = call_ms(torch, lambda: torch.isin(lk, rk), 20)
+    log(f"  {what}: {nl} x {nr} rows (C {C}), {out['matched']} matched; "
+        f"mask == sort-based, exists == plain; build {out['build_ms']!r} "
+        f"ms (bound {out['build_bound_ms']!r}), exists {out['ms']!r} ms "
+        f"(bound {out['exists_bound_ms']!r}), one call {out['call_ms']!r} "
+        f"ms" + (f", plain {out['plain_ms']!r} ms, torch.isin "
+                 f"{out['library_ms']!r} ms" if full else ""))
+    return out
+
+
 def nds_union_phase(torch, chk):
     """NDS q5 and q23 at scale 1 on the card: through
     `PlanExecutor(optimize=False)` and `PlanExecutor()` in the eager tier
     and `PlanExecutor(mode="capped", ...)` in both forms at the reference
     bench's key caps, every kernel counter zeroed just before each counted
     run and read just after (the groupby kernel launches once per keyed
-    aggregate, every other counter reads 0, and no plain version may
+    aggregate, every semi join runs the hash join's build and existence
+    probe once, every other counter reads 0, and no plain version may
     run); each result equal to an independent numpy evaluation and to the
     port's CPU run on the same arrays, bit for bit; warm walls, one traced
     warm run's idle share, the keyed aggregates' kernels in one more traced
-    run (no `index_add_` or `scatter_reduce` among them), and the capped
-    runs' attempts and host reads (at most attempts + 1)."""
+    run (no `index_add_` or `scatter_reduce` among them), the capped
+    runs' attempts and host reads (at most attempts + 1), and each authored
+    run's semi joins checked and timed at their shapes (`semi_timing`)."""
     from spark_rapids_tpu_torch import nds_q5, nds_q23
     from spark_rapids_tpu_torch.ops import groupby_cuda as gc
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
     from spark_rapids_tpu_torch.plan import PlanExecutor
 
     # the trace check is not vacuous: a stand-in aggregate that adds with
@@ -3379,16 +3516,20 @@ def nds_union_phase(torch, chk):
                     f"(cold {cold.wall_ms:.3f}); stamps {stamps}; "
                     f"counters {counters}")
                 log(res.profile_text())
-                # the groupby is the one kernel on this path: every other
-                # counter reads 0
+                # the groupby and the semi joins' build and existence
+                # probe are the kernels on this path: every other counter
+                # reads 0
                 n_keyed = require_groupby(gc, res, what)
+                n_semi = require_semi_joins(res, counters, what)
                 others = {k: v for k, v in counters.items()
-                          if k != "groupby"}
+                          if k not in ("groupby", "hash_join",
+                                       "hash_join_large")}
                 require(counted(others) == 0 and n_keyed > 0,
-                        f"{what}: a kernel other than the groupby or a "
-                        f"plain version ran {counters}")
-                require(all(s == "cuda:groupby" or not s.startswith("cuda:")
-                            for s in stamps), f"{what}: stamps {stamps}")
+                        f"{what}: another kernel or a plain version ran "
+                        f"{counters}")
+                require(all(s in ("cuda:groupby", "cuda:hash_join")
+                            or not s.startswith("cuda:") for s in stamps),
+                        f"{what}: stamps {stamps}")
                 got = res.compact().to("cpu")
                 chk.tables("plans", got, cpu, f"{what} card vs CPU")
                 for name, want in zip(got.names, ref):
@@ -3396,7 +3537,20 @@ def nds_union_phase(torch, chk):
                             f"{what}: {name} differs from numpy")
                 run = {"wall_ms": res.wall_ms, "cold_wall_ms": cold.wall_ms,
                        "counters": counters, "stamps": stamps,
-                       "profile": res.profile()}
+                       "semi_joins": n_semi, "profile": res.profile()}
+                if not optimize:
+                    # the semi joins' shapes, recorded from one more run,
+                    # their kernels timed there
+                    calls, restore = recording_semis(jc)
+                    try:
+                        ex.execute(plan, inputs)
+                    finally:
+                        restore()
+                    run["semi_timing"] = [
+                        semi_timing(torch, chk, jc, *c,
+                                    f"{what} semi join {i + 1}",
+                                    full=i == 0)
+                        for i, c in enumerate(calls)]
                 if mode == "capped":
                     _, at = sync_warnings(
                         torch, lambda: ex.execute(plan, inputs))
@@ -4594,6 +4748,46 @@ def walls_phase(torch, runs):
     return out
 
 
+def union_walls_phase(torch, runs):
+    """NDS q5 and q23 at scale 1 alone, to compare two trees in one call
+    (this script run from each tree's root): eager and capped, authored and
+    optimized, one cold run each, then `runs` rounds of one warm run of
+    each in turn, then one traced warm run each: the warm walls, the
+    card's busy time, idle share and kernels by time."""
+    from spark_rapids_tpu_torch import nds_q5, nds_q23
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    runs_of = {}
+    for q, mod, caps in (("q5", nds_q5, Q5_CAPS), ("q23", nds_q23,
+                                                   Q23_CAPS)):
+        inputs = getattr(mod, f"{q}_inputs")(N_SALES, seed=0,
+                                             device="cuda")
+        plan = getattr(mod, f"{q}_plan")()
+        for mode in ("eager", "capped"):
+            for optimize in (False, True):
+                ex = PlanExecutor(mode=mode, optimize=optimize,
+                                  caps=dict(caps) if mode == "capped"
+                                  else None)
+                what = (f"{q} {mode} "
+                        f"{'optimized' if optimize else 'authored'}")
+                runs_of[what] = (ex, plan, inputs)
+    out = {w: {"walls": []} for w in runs_of}
+    for ex, plan, inputs in runs_of.values():
+        ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    for _ in range(runs):
+        for what, (ex, plan, inputs) in runs_of.items():
+            out[what]["walls"].append(ex.execute(plan, inputs).wall_ms)
+    for what, (ex, plan, inputs) in runs_of.items():
+        r = out[what]
+        r["trace"] = traced_run(torch, lambda: ex.execute(plan, inputs))
+        r["median_ms"] = float(np.median(r["walls"]))
+        log(f"{what}: warm walls {r['walls']}, median {r['median_ms']!r} "
+            f"ms; traced: idle share {r['trace']['idle_share']!r} "
+            f"({r['trace']['busy_ms']!r} busy of {r['trace']['wall_ms']!r} "
+            f"ms), top {r['trace']['top'][:5]}")
+    return out
+
+
 # ---- phase 8: the plan fuzz corpus ------------------------------------------
 
 FUZZ_PLAIN_SEEDS = range(48)       # tests/test_torch_fuzz_plain_{a,b,c,d}.py
@@ -4967,8 +5161,9 @@ def var_join_cases(torch, chk, rng):
     for what, p, b in cases:
         jc.reset_counters()
         total = check_case(chk, jc, join, p, b, what, suffix="_var")
-        require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1}
-                or total == 0, f"{what}: launches {jc.VAR_LAUNCHES}")
+        require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1,
+                                    "exists": 1} or total == 0,
+                f"{what}: launches {jc.VAR_LAUNCHES}")
         log(f"  hash join {what}: {p[0].length} x {b[0].length} -> "
             f"{total} pairs, large route "
             f"{jc.is_large(jc._capacity(b[0].length))}; kernel == plain "
@@ -5359,7 +5554,7 @@ def q74_path(torch, chk):
             f"q74 {form} differs from numpy q74")
         stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
         require(counters["hash_join_var"] == {"build": 3, "count": 3,
-                                              "emit": 3}
+                                              "emit": 3, "exists": 0}
                 and counters["hash_join"]["count"] == 7
                 and counters["groupby"]["groupby"] == 2
                 and (not optimize or (counters["fused_select"]["count"] >= 4
@@ -5420,7 +5615,8 @@ def var_join_timing(torch, chk, p, b, what):
     from spark_rapids_tpu_torch.ops import join_cuda as jc
     jc.reset_counters()
     pairs = check_case(chk, jc, join, p, b, what, suffix="_var")
-    require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1}
+    require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1,
+                                "exists": 1}
             and jc.is_large(jc._capacity(b[0].length)),
             f"{what}: launches {jc.VAR_LAUNCHES}, not the large var route")
     log(f"  hash join {what}: {p[0].length} x {b[0].length} -> {pairs} "
@@ -5431,8 +5627,11 @@ def var_join_timing(torch, chk, p, b, what):
     total = int(probe.total)
     n_matched = int((probe.counts > 0).sum())
     _, by_name = device_by_name(torch, lambda: jc.inner_join_hash(p, b), 10)
-    ms = {k: sum(v for name, v in by_name.items() if f"{k}_" in name)
-          for k in ("build", "count", "emit")}
+    ms = {k: sum(v for name, v in by_name.items() if name.startswith(
+        f"{k}_kernel")) for k in ("count", "emit")}
+    # the build alone: its six kernels and its memset
+    ms["build"], build_by_name = device_by_name(
+        torch, lambda: jc.build_table_cuda(b, C), 10)
     call = call_ms(torch, lambda: jc.inner_join_hash(p, b), 10)
 
     def plain():
@@ -5465,7 +5664,8 @@ def var_join_timing(torch, chk, p, b, what):
         f"{ {k: round(v['bound_ms'], 4) for k, v in out.items()} }")
     return {"by_kernel": out, "call_ms": call, "plain_ms": plain_ms,
             "pairs": total, "probe_rows": p[0].length,
-            "build_rows": b[0].length}
+            "build_rows": b[0].length, "rounds": int(table.rounds),
+            "build_by_name": build_by_name}
 
 
 def q74_join_shape(torch, gen):
@@ -5700,8 +5900,9 @@ def main(argv=None):
     ap.add_argument("--out", default="",
                     help="also write the measurements to this JSON file")
     ap.add_argument("--join-profile", action="store_true",
-                    help="only time whole inner_join_hash calls at q3's and "
-                         "TPC-DS q3's join shapes, and print them")
+                    help="only time whole inner_join_hash calls at q3's, "
+                         "TPC-DS q3's and q72's inventory join shapes, and "
+                         "print them; runs from an earlier tree's root too")
     ap.add_argument("--fuzz", action="store_true",
                     help="only run the plan fuzz corpus on the card "
                          "(phase 8) and print its summary")
@@ -5721,6 +5922,11 @@ def main(argv=None):
                     help="only run phase 10 (string, DECIMAL128 and float "
                          "keys: the three kernels' new kinds, TPC-DS q3 with "
                          "its string i_brand and q74) and print it")
+    ap.add_argument("--union-walls", type=int, default=0, metavar="N",
+                    help="only time N warm runs of q5 and q23 in both tiers "
+                         "and forms, interleaved, and one traced run each, "
+                         "and print their walls and idle shares; runs from "
+                         "an earlier tree's root too, for A/B runs")
     ap.add_argument("--walls", type=int, default=0, metavar="N",
                     help="only time N warm eager runs of q3, TPC-DS q3 and "
                          "q72 (authored, optimized), interleaved, and print "
@@ -5737,6 +5943,12 @@ def main(argv=None):
         print(json.dumps({"card": smi,
                           "walls": walls_phase(torch, args.walls)}),
               flush=True)
+        return 0
+    if args.union_walls:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        cuda_build.build()
+        print(json.dumps({"card": smi, "union_walls": union_walls_phase(
+            torch, args.union_walls)}), flush=True)
         return 0
     if args.select_topk:
         from spark_rapids_tpu_torch.ops import cuda_build
@@ -5777,9 +5989,13 @@ def main(argv=None):
               flush=True)
         return 0
     if args.join_profile:
+        from spark_rapids_tpu_torch import nds_q72
         tables = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
+        shapes = join_shapes(torch, tables)
+        pc, bc = q72_join_shape(torch, nds_q72.datagen(N_SALES, seed=0))
+        shapes.append(("q72 inventory join", pc, bc))
         print(json.dumps({"card": smi, "join_profile": join_profile(
-            torch, join_shapes(torch, tables))}), flush=True)
+            torch, shapes)}), flush=True)
         return 0
 
     t0 = time.perf_counter()
@@ -5848,10 +6064,46 @@ def main(argv=None):
                          else "operations"),
             "bytes": t["bytes"], "ops": t["ops"], "library_ms": None}
         if k == "build":
-            entry.update(rounds=t["rounds"], barrier_ms=t["barrier_ms"],
-                         rounds_x_barrier_ms=t["rounds_x_barrier_ms"],
-                         cases=large["cases"], ceiling=large["ceiling"])
+            entry.update(rounds=t["rounds"], cases=large["cases"],
+                         ceiling=large["ceiling"])
         kernels.append(entry)
+    # the existence probe: launches on q5's and q23's semi joins (both
+    # tiers and forms); the small route timed at q5's first eager semi join
+    # (the 14-day window), the large one at q23's first capped semi join
+    # (the frequent items, padded to key_cap)
+    semi_runs = {w: r["counters"] for q in nds_union.values()
+                 for w, r in q["runs"].items()}
+    for suffix, q, run in (("", "q5", "q5 eager authored"),
+                           ("_large", "q23", "q23 capped authored")):
+        t = nds_union[q]["runs"][run]["semi_timing"][0]
+        large_by = {w: c["hash_join_large"]["exists"]
+                    for w, c in semi_runs.items()}
+        by = large_by if suffix else {
+            w: c["hash_join"]["exists"] - large_by[w]
+            for w, c in semi_runs.items()}
+        fz_large = fz_e.get("hash_join_large", {}).get("exists", 0)
+        kernels.append({
+            "name": f"hash_join_exists{suffix}", "route": "cuda",
+            "entry_point": "hj_exists", "source": SOURCE,
+            "replaces": REPLACES["exists"],
+            "launches": sum(by.values()), "launches_by_path": by,
+            "fuzz_launches": (fz_large if suffix else
+                              fz_e.get("hash_join", {}).get("exists", 0)
+                              - fz_large),
+            "exact": chk.max_err["exists" + suffix] == 0,
+            "max_abs_err": chk.max_err["exists" + suffix],
+            "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["exists_bound_ms"],
+            "bound_by": ("bytes" if t["exists_bytes_ms"]
+                         >= t["exists_ops_ms"] else "operations"),
+            "bytes": t["exists_bytes"], "ops": t["exists_ops"],
+            "library_ms": t["library_ms"],
+            "library": "torch.isin(probe key, build key) on the card: the "
+                       "same mask where no key is null and every row live",
+            "build_ms": t["build_ms"], "build_bound_ms": t["build_bound_ms"],
+            "plain_build_ms": t["plain_build_ms"],
+            "shape": f"{run}'s first semi join: {t['probe_rows']} x "
+                     f"{t['build_rows']} rows (call: build and probe)"})
     # the groupby kernel: every keyed aggregate of the plans; timed at
     # q23's two keyed aggregates (summed; the C4 float shapes beside them)
     gb_launches = {"q3": launches["groupby"],

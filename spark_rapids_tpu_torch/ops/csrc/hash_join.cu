@@ -1,30 +1,31 @@
-// Hash-join build / probe-count / probe-emit kernels for Hopper (sm_90a).
+// Hash-join build / probe-count / probe-emit / existence kernels for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernels of spark_rapids_tpu/ops/join_pallas.py:
 //   hj_build  <- _build_kernel_body (via _build_table)
 //   hj_count  <- _count_kernel_body (via _run_probe / _probe_counts)
 //   hj_emit   <- _emit_kernel_body  (via _run_probe / _probe_emit)
-// and computes the same functions:
+// and computes the same functions. hj_exists replaces no Pallas kernel: it
+// is the semi and anti joins' probe (spark_rapids_tpu/ops/join.py
+// left_semi_join, left_anti_join, semi_join_mask, sort-based there).
 //
 // - Bucket hash: Spark murmur3_32 with seed 42, chained over the key
 //   columns. 1/2/4-byte keys hash as one word (sign-extended through int32),
 //   8-byte keys (and DECIMAL32, which hashes as a long) as two words, lo then
 //   hi; each column ends with fmix(h ^ nbytes). Slot = (h + d) & (C - 1).
-// - Build: an open-addressing table filled by the TPU kernel's parallel
-//   rounds: every unplaced valid row proposes slot (h + d) & (C-1), the
-//   lowest row id wins a free slot, losers advance. Equal keys therefore
-//   land in ascending-row chain order, which is what makes emission match
-//   the sort-based fallback pair for pair. Invalid rows are never inserted.
+// - Build: the open-addressing table that the TPU kernel's parallel rounds
+//   leave (every unplaced valid row proposes slot (h + d) & (C-1), the
+//   lowest row id wins a free slot, losers advance), slot for slot, but
+//   computed without rounds (see "the build" below). Equal keys land in
+//   ascending-row chain order, which is what makes emission match the
+//   sort-based fallback pair for pair. Invalid rows are never inserted.
 //   Two routes by capacity. Small, C <= 1,024 (build sides up to 512 rows,
-//   the reference's limit): one block, the table in shared memory
-//   (shared-memory atomicMin), written out as (slot_row, slot_hash): the
-//   winning row id (-1 = empty) and its 32-bit hash. Large, C up to 2^23
-//   (2^22 build rows, a 64 MB table): a cooperative grid, the table in
-//   global memory as one 8-byte word a slot, the rounds' claims settled by
-//   atomicMin and one grid-wide barrier a round, stopping at the first
-//   round in which no row is left to propose (build_large_kernel); the
-//   table it leaves is hash << 32 | row, the word the probes read. The key
-//   values stay in the build columns.
+//   the reference's limit): one block, everything in shared memory, written
+//   out as (slot_row, slot_hash): the row id (-1 = empty) and its 32-bit
+//   hash. Large, C up to 2^23 (2^22 build rows, a 64 MB table): six
+//   ordinary launches, the table in global memory as one 8-byte word a
+//   slot, hash << 32 | row, the word the probes read. The key values stay
+//   in the build columns.
 // - Probe count: per probe row, the build rows with equal keys, walking from
 //   the bucket to the first empty slot; invalid rows count 0. Per tile of
 //   PROBE_TILE = 2,048 rows the count also gives its sum, and the last
@@ -99,9 +100,16 @@
 //   and write 64-bit list entries (row in the tile 11 bits, first slot 23,
 //   count 30), since a slot needs up to 23 bits and a count up to the
 //   ceiling.
-// The small build moves a few KB and is bound by its launch and its rounds
-// of block-wide barriers; the large build by its rounds of grid-wide
-// barriers (about a microsecond each on an H100), about 22 at 52,000 rows.
+// - Exists: the count's walk, stopping at a row's first match, one byte a
+//   probe row (1 = it has a match), with the count's tiling, vector loads,
+//   Bloom filter (small route) and ballot compaction, and nothing else: no
+//   counts, lists, sums or total, so no host read. A semi join is the
+//   mask, an anti join its complement.
+// The build's bound is its bytes (keys in, table out). The small build is
+// bound by its one launch; the large one by its six launches at q72's
+// 52,000 rows (3-6 us each), and at q74's 489,258 strings by hashing the
+// strings, the bucket fill's random writes and the table kernel's chain of
+// dependent loads (PERF.md).
 //
 // Plain C interface for ctypes. Every entry point returns
 // cudaGetLastError() after its launch (or cudaErrorInvalidValue for
@@ -110,10 +118,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
-#include <cooperative_groups.h>
 #include <type_traits>
-
-namespace cg = cooperative_groups;
 
 #define MAX_KEYS 32
 #define SMALL_CAPACITY 1024                      // the small route's tables
@@ -121,7 +126,6 @@ namespace cg = cooperative_groups;
 #define MAX_CAPACITY (1 << 23)                   // the large route's tables
 #define MAX_BUILD_ROWS (MAX_CAPACITY / 2)
 #define BUILD_THREADS 1024
-#define LARGE_BUILD_THREADS 512
 #define PROBE_THREADS 256
 #define PROBE_WARPS (PROBE_THREADS / 32)
 #define PROBE_R 8                                // rows a thread
@@ -353,137 +357,603 @@ __device__ __forceinline__ bool vkeys_equal(const VKeys& a, long long i,
   return true;
 }
 
+// ---- the build -------------------------------------------------------------
+//
+// The reference's rounds have a closed form. In round r every unplaced row
+// has distance r and proposes h + r, so the unplaced rows of one home
+// bucket b travel together and reach slot b + r in round r, where no other
+// bucket's rows arrive in that round. A slot is taken by the first bucket
+// to reach it with rows left, the one whose home is nearest, and that
+// bucket gives its lowest remaining row. So, with cnt[s] the valid rows of
+// bucket s and rem[s] = max(rem[s-1] + cnt[s] - 1, 0) the rows still
+// waiting after slot s:
+// - slot s is occupied iff rem[s-1] + cnt[s] > 0;
+// - read each bucket's rows, in descending row order, as opening brackets
+//   at its home slot and each occupied slot as a closing one: slot s takes
+//   the row whose bracket it closes. That row's bucket is b = x + 1, for x
+//   the last slot before s with rem[x] <= rem[s], and it is b's row at
+//   index cnt[b] - 1 - (rem[s] - rem[x]) of its rows in ascending order.
+//   The search back from s takes 1 + the row's distance steps: the work of
+//   the rounds' proposals, done at once instead of round by round.
+// - The maps x -> max(x + p, q) compose associatively, (p, q) then (p', q')
+//   giving (p + p', max(q + p', q')), so rem is a scan of the slots' maps
+//   (cnt[s] - 1, 0). The ring wraps: for T the composition of all C maps,
+//   rem[C - 1] = T(T(0)), since n <= C / 2 leaves an empty slot, after
+//   which a second lap is exact. The scan's p over slots [0, s) is also
+//   the rows of the buckets before s, less s: the bucket offsets.
+// - rounds = 1 + the largest distance of a placed row (0 when no row is
+//   valid): the rounds the reference runs.
+// The small build runs this in one block in shared memory, one launch. The
+// large one takes six launches (bl_*_kernel): hash and count, the tiles'
+// scan, the slots' scan, the rows into their buckets, each bucket's rows
+// sorted, the table. Its search back from a slot reads minima of rem over
+// blocks of 32, 1,024, 32,768 and 2^20 slots, so a chain of L equal keys
+// costs O(L) reads, not O(L^2). No grid-wide barrier, no library call.
+
+// warp-wide inclusive sum
+template <typename T>
+__device__ __forceinline__ T warp_incl(T x, int lane) {
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  return x;
+}
+
+#define PQ_NONE (INT_MIN / 4)                    // the identity map's q
+
+struct PQ {
+  int p, q;
+};
+
+// the map a, then the map b
+__device__ __forceinline__ PQ pq_then(PQ a, PQ b) {
+  return PQ{a.p + b.p, max(a.q + b.p, b.q)};
+}
+
+// warp-wide inclusive composition, in lane order
+__device__ __forceinline__ PQ warp_scan_pq(PQ x, int lane) {
+  for (int off = 1; off < 32; off <<= 1) {
+    const int p = __shfl_up_sync(0xffffffffu, x.p, off);
+    const int q = __shfl_up_sync(0xffffffffu, x.q, off);
+    if (lane >= off) x = pq_then(PQ{p, q}, x);
+  }
+  return x;
+}
+
+// block-wide inclusive composition, in thread order (blockDim.x a multiple
+// of 32); *total gets the whole block's. warp_tot: 32 entries of shared
+// memory. Syncs the block.
+__device__ __forceinline__ PQ block_scan_pq(PQ x, PQ* warp_tot, PQ* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  x = warp_scan_pq(x, lane);
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const PQ w = lane < warps ? warp_tot[lane] : PQ{0, PQ_NONE};
+    warp_tot[lane] = warp_scan_pq(w, lane);
+  }
+  __syncthreads();
+  if (warp > 0) x = pq_then(warp_tot[warp - 1], x);
+  *total = warp_tot[warps - 1];
+  __syncthreads();                               // warp_tot is reused
+  return x;
+}
+
+// rem[C - 1]: the ring's composition T applied twice to 0
+__device__ __forceinline__ int ring_start(PQ T) {
+  return max(max(T.p, T.q) + T.p, T.q);
+}
+
+// The small route, C <= SMALL_CAPACITY: one block, in shared memory. The
+// rows go into their buckets in ascending order by counting, for each row,
+// the rows before it with its bucket (at most 511 shared reads a thread).
 template <typename K>
 __global__ void __launch_bounds__(BUILD_THREADS)
 build_kernel(const __grid_constant__ K b, int n, int C, int* slot_row_out,
              uint32_t* slot_hash_out) {
-  __shared__ int slot_row[SMALL_CAPACITY];
-  __shared__ uint32_t slot_hash[SMALL_CAPACITY];
-  __shared__ int proposal[SMALL_CAPACITY];
+  __shared__ int cnt[SMALL_CAPACITY];
+  __shared__ int off[SMALL_CAPACITY];
+  __shared__ int rem[SMALL_CAPACITY];
+  __shared__ int bucket[SMALL_BUILD_ROWS];       // -1: never inserted
+  __shared__ uint32_t hs[SMALL_BUILD_ROWS];
+  __shared__ int rows[SMALL_BUILD_ROWS];         // by bucket, ascending
+  __shared__ PQ warp_tot[32];
   const int t = threadIdx.x;
-  for (int s = t; s < C; s += blockDim.x) {
-    slot_row[s] = -1;
-    slot_hash[s] = 0u;
-  }
-  bool placed = true;            // threads past the rows never propose
-  uint32_t h = 0u;
+  const uint32_t mask = static_cast<uint32_t>(C - 1);
+  if (t < C) cnt[t] = 0;
+  __syncthreads();
   if (t < n) {
-    placed = !row_valid(b, t);   // invalid rows are never inserted
-    h = row_hash(b, t);
+    const bool ok = row_valid(b, t);             // invalid rows never insert
+    const uint32_t h = ok ? row_hash(b, t) : 0u;
+    hs[t] = h;
+    bucket[t] = ok ? static_cast<int>(h & mask) : -1;
+    if (ok) atomicAdd(&cnt[h & mask], 1);
   }
-  uint32_t d = 0u;               // this row's probe distance
   __syncthreads();
-  for (int round = 0; round < 2 * C + 2; ++round) {
-    if (!__syncthreads_or(!placed)) break;
-    for (int s = t; s < C; s += blockDim.x) proposal[s] = INT_MAX;
-    __syncthreads();
-    const int slot = static_cast<int>((h + d) & static_cast<uint32_t>(C - 1));
-    if (!placed) atomicMin(&proposal[slot], t);
-    __syncthreads();
-    // a slot is free if it was empty when the round began
-    const bool won = !placed && slot_row[slot] < 0 && proposal[slot] == t;
-    __syncthreads();
-    if (won) {
-      slot_row[slot] = t;
-      slot_hash[slot] = h;
-      placed = true;
-    } else if (!placed) {
-      ++d;
+  const int c = t < C ? cnt[t] : 0;
+  PQ T;
+  const PQ incl = block_scan_pq(t < C ? PQ{c - 1, 0} : PQ{0, PQ_NONE},
+                                warp_tot, &T);
+  if (t < C) {
+    rem[t] = max(ring_start(T) + incl.p, incl.q);
+    off[t] = incl.p - (c - 1) + t;
+  }
+  __syncthreads();
+  if (t < n && bucket[t] >= 0) {
+    const int bk = bucket[t];
+    int rank = 0;
+    for (int j = 0; j < t; ++j) rank += bucket[j] == bk;
+    rows[off[bk] + rank] = t;
+  }
+  __syncthreads();
+  if (t < C) {
+    int row = -1;
+    uint32_t h = 0u;
+    const int r = rem[t];
+    if (rem[(t - 1) & mask] + c > 0) {
+      int x = t - 1;                             // an empty slot has rem 0
+      while (rem[x & mask] > r) --x;
+      const int bk = (x + 1) & mask;
+      row = rows[off[bk] + cnt[bk] - 1 - (r - rem[x & mask])];
+      h = hs[row];
     }
-  }
-  __syncthreads();
-  for (int s = t; s < C; s += blockDim.x) {
-    slot_row_out[s] = slot_row[s];
-    slot_hash_out[s] = slot_hash[s];
+    slot_row_out[t] = row;
+    slot_hash_out[t] = h;
   }
 }
 
 // ---- the large route's build ----------------------------------------------
 
-// A slot's word during the large build's rounds: empty (all ones), or the
-// claim of the row that proposed it: 1 << 62 | round << 32 | row. A claim
-// of round r is smaller than any claim of a later round, so atomicMin over
-// a round's claims leaves the lowest row's claim in a slot that was empty
-// when the round began, and no later claim displaces it: a slot taken in
-// round r is occupied for every later round, as in the reference.
-#define SLOT_EMPTY (~0ull)
-#define ROW_PLACED 0xffffffffu                   // a row's distance, placed
+#define BL_THREADS 256
+#define BL_PER 8                                 // slots a thread scans
+#define BL_SCAN_THREADS 256                      // the scans' most a block
+#define BL_STATE 8                               // ints of state, see below
+#define BL_LEVELS 4                              // minima over 32^1 .. 32^4
+#define SORT_SHORT 32                            // rows a thread sorts
+#define SORT_CHUNK 2048                          // rows sorted in shared
 
-__device__ __forceinline__ unsigned long long claim_word(int round, int row) {
-  return (1ull << 62) | (static_cast<unsigned long long>(round) << 32) |
-         static_cast<uint32_t>(row);
+// the scans' blocks take BL_PER slots a thread, C / BL_PER threads up to
+// BL_SCAN_THREADS: a large table (C >= 2 * SMALL_CAPACITY) is whole tiles
+// of at least 1,024 slots, so each block holds whole 1,024-slot minima
+static_assert(2 * SMALL_CAPACITY >= 128 * BL_PER, "a block spans 1,024 slots");
+static_assert(BL_STATE % 4 == 0, "cnt starts on 16 bytes");
+
+// a tile's threads: C / BL_PER, at most BL_SCAN_THREADS
+static int scan_threads(int C) {
+  return C / BL_PER < BL_SCAN_THREADS ? C / BL_PER : BL_SCAN_THREADS;
 }
 
-// The table of the large route, C > SMALL_CAPACITY: the same rounds as
-// build_kernel over a cooperative grid, one grid-wide barrier a round. In
-// round r a thread, for each of its unplaced rows, first settles the
-// proposal of round r - 1: the row is placed if its slot holds its claim,
-// else it advances; then it proposes round r's slot with an atomicMin of
-// its claim. The barrier makes round r's claims final before round r + 1
-// reads them. A round in which no row proposes ends the build. Then every
-// slot becomes (hash << 32 | row), or (0 << 32 | 0xffffffff) where empty:
-// the probes' word. Per row the state is its hash and distance (scratch);
-// counters[0..2] count the proposals of rounds r mod 3, counters[3] gets
-// the rounds.
+// The large build's scratch, one int32 buffer that the wrapper allocates
+// (hj_build_large_scratch ints) and the entry point carves. state: [0] and
+// [1] the two scans' tickets, [2] the buckets listed, [3] rounds, [4]
+// rem[C - 1], [5] the valid rows; it and cnt are zeroed on the stream.
+// `fill` holds each valid row as row << 32 | its hash, by bucket, so the
+// table's words are read in bucket order and no hash is gathered. cnt,
+// off and rem start on 16 bytes (the scans load 8 slots as two int4), the
+// 8-byte arrays on 8; state and cnt are adjacent, for one memset.
+struct LargeBuild {
+  int* state;
+  int* cnt;                                      // C: rows a bucket
+  int* off;                                      // C + 1: bucket offsets
+  int* rem;                                      // C
+  unsigned long long* fill;                      // n: rows by bucket
+  unsigned long long* tmp;                       // n: the merges' other half
+  int* mins[BL_LEVELS];                          // C >> 5k, at least 1
+  PQ* tile;                                      // a scan tile's map
+  PQ* tile_pre;                                  // the tiles' before it
+  uint32_t* row_h;                               // n: a row's hash
+  int* rank;                                     // n: in its bucket, -1 none
+  int* list;                                     // n / 2 + 1: buckets > 1 row
+};
+
+static long long large_layout(long long n, int C, int* base, LargeBuild* L) {
+  long long o = 0;
+  auto take = [&](long long ints) {
+    int* p = base == nullptr ? nullptr : base + o;
+    o += ints;
+    return p;
+  };
+  const long long tiles = C / (BL_PER * scan_threads(C));
+  L->state = take(BL_STATE);
+  L->cnt = take(C);
+  L->off = take(C + 4LL);
+  L->rem = take(C);
+  L->fill = reinterpret_cast<unsigned long long*>(take(2 * n));
+  L->tmp = reinterpret_cast<unsigned long long*>(take(2 * n));
+  for (int k = 0; k < BL_LEVELS; ++k) {
+    const long long m = static_cast<long long>(C) >> (5 * (k + 1));
+    L->mins[k] = take(m > 0 ? m : 1);
+  }
+  L->tile = reinterpret_cast<PQ*>(take(2 * tiles));
+  L->tile_pre = reinterpret_cast<PQ*>(take(2 * tiles));
+  L->row_h = reinterpret_cast<uint32_t*>(take(n));
+  L->rank = take(n);
+  L->list = take(n / 2 + 1);
+  return o;
+}
+
+// a thread's BL_PER slots of cnt (16-byte aligned)
+__device__ __forceinline__ void load_slots(const int* a, int c[BL_PER]) {
+  const int4 x = reinterpret_cast<const int4*>(a)[0];
+  const int4 y = reinterpret_cast<const int4*>(a)[1];
+  c[0] = x.x; c[1] = x.y; c[2] = x.z; c[3] = x.w;
+  c[4] = y.x; c[5] = y.y; c[6] = y.z; c[7] = y.w;
+}
+
+__device__ __forceinline__ void store_slots(int* a, const int c[BL_PER]) {
+  reinterpret_cast<int4*>(a)[0] = make_int4(c[0], c[1], c[2], c[3]);
+  reinterpret_cast<int4*>(a)[1] = make_int4(c[4], c[5], c[6], c[7]);
+}
+
+// the composition of a thread's slots' maps (cnt - 1, 0)
+__device__ __forceinline__ PQ compose_slots(const int c[BL_PER]) {
+  PQ x{0, PQ_NONE};
+#pragma unroll
+  for (int r = 0; r < BL_PER; ++r) x = pq_then(x, PQ{c[r] - 1, 0});
+  return x;
+}
+
+// 1. every valid row's hash and its rank in its bucket, counting the rows
+// a bucket (one atomic for a warp's rows of one bucket); invalid rows get
+// rank -1
 template <typename K>
-__global__ void __launch_bounds__(LARGE_BUILD_THREADS)
-build_large_kernel(const __grid_constant__ K b, int n, int C,
-                   unsigned long long* __restrict__ table,
-                   uint32_t* __restrict__ row_h, uint32_t* __restrict__ row_d,
-                   int* counters) {
-  cg::grid_group grid = cg::this_grid();
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+__global__ void __launch_bounds__(BL_THREADS)
+bl_hash_kernel(const __grid_constant__ K b, long long n, int C,
+               const __grid_constant__ LargeBuild L) {
   const int lane = threadIdx.x & 31;
-  for (int s = tid; s < C; s += stride) table[s] = SLOT_EMPTY;
-  for (int i = tid; i < n; i += stride) {
-    row_h[i] = row_hash(b, i);
-    row_d[i] = row_valid(b, i) ? 0u : ROW_PLACED;  // invalid rows never insert
-  }
-  if (tid < 3) counters[tid] = 0;
-  grid.sync();
   const uint32_t mask = static_cast<uint32_t>(C - 1);
-  int round = 0;
-  for (; round < 2 * C + 2; ++round) {
-    // counters[(round + 1) % 3] was last read after round - 2's barrier
-    if (tid == 0) atomicExch(&counters[(round + 1) % 3], 0);
-    int proposed = 0;
-    for (int i = tid; i < n; i += stride) {
-      uint32_t d = row_d[i];
-      if (d == ROW_PLACED) continue;
-      const uint32_t h = row_h[i];
-      if (round > 0) {
-        const unsigned long long w = __ldcg(&table[(h + d) & mask]);
-        if (w == claim_word(round - 1, i)) {
-          row_d[i] = ROW_PLACED;
-          continue;
-        }
-        row_d[i] = ++d;
-      }
-      atomicMin(&table[(h + d) & mask], claim_word(round, i));
-      ++proposed;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x; i0 < n;
+       i0 += stride) {
+    const long long i = i0 + threadIdx.x;
+    const bool ok = i < n && row_valid(b, i);
+    const uint32_t h = ok ? row_hash(b, i) : 0u;
+    const unsigned int act = __ballot_sync(0xffffffffu, ok);
+    int rank = -1;
+    if (ok) {
+      const unsigned int peers = __match_any_sync(act, h & mask);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(&L.cnt[h & mask], __popc(peers));
+      base = __shfl_sync(peers, base, leader);
+      rank = base + __popc(peers & ((1u << lane) - 1u));
     }
-    proposed = __reduce_add_sync(0xffffffffu, proposed);
-    if (lane == 0 && proposed > 0) atomicAdd(&counters[round % 3], proposed);
-    grid.sync();
-    if (__ldcg(&counters[round % 3]) == 0) break;
+    if (i < n) {
+      L.row_h[i] = h;
+      L.rank[i] = rank;
+    }
   }
-  for (int s = tid; s < C; s += stride) {
-    const unsigned long long w = __ldcg(&table[s]);
-    const uint32_t r = static_cast<uint32_t>(w);
-    table[s] = w == SLOT_EMPTY
-                   ? 0xffffffffull
-                   : (static_cast<unsigned long long>(row_h[r]) << 32) | r;
-  }
-  if (tid == 0) counters[3] = round;
 }
 
-// grid-wide barriers alone, at the large build's block size: its cost a round
-__global__ void __launch_bounds__(LARGE_BUILD_THREADS)
-barrier_kernel(int rounds, int* out) {
-  cg::grid_group grid = cg::this_grid();
-  for (int r = 0; r < rounds; ++r) grid.sync();
-  if (grid.thread_rank() == 0) *out = rounds;
+// 2. each tile's composition of its slots' maps (BL_PER slots a thread);
+// the last block to finish composes the tiles: each tile's prefix, rem[C -
+// 1] and the valid rows
+__global__ void __launch_bounds__(BL_SCAN_THREADS)
+bl_tiles_kernel(int C, const __grid_constant__ LargeBuild L) {
+  __shared__ PQ warp_tot[32];
+  __shared__ PQ incl_of[BL_SCAN_THREADS];
+  __shared__ int last;
+  const int tiles = C / (BL_PER * blockDim.x);
+  int c[BL_PER];
+  load_slots(L.cnt + (blockIdx.x * blockDim.x + threadIdx.x) * BL_PER, c);
+  PQ T;
+  block_scan_pq(compose_slots(c), warp_tot, &T);
+  if (threadIdx.x == 0) L.tile[blockIdx.x] = T;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned int*>(&L.state[0]), 1u) ==
+           static_cast<unsigned int>(tiles - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int* tw = reinterpret_cast<const int*>(L.tile);
+  const int per = (tiles + blockDim.x - 1) / blockDim.x;
+  const int lo = threadIdx.x * per;
+  const int hi = lo + per < tiles ? lo + per : tiles;
+  PQ acc{0, PQ_NONE};
+  for (int j = lo; j < hi; ++j)
+    acc = pq_then(acc, PQ{__ldcg(tw + 2 * j), __ldcg(tw + 2 * j + 1)});
+  incl_of[threadIdx.x] = block_scan_pq(acc, warp_tot, &T);
+  __syncthreads();
+  PQ run = threadIdx.x > 0 ? incl_of[threadIdx.x - 1] : PQ{0, PQ_NONE};
+  for (int j = lo; j < hi; ++j) {
+    L.tile_pre[j] = run;
+    run = pq_then(run, PQ{__ldcg(tw + 2 * j), __ldcg(tw + 2 * j + 1)});
+  }
+  if (threadIdx.x == 0) {
+    L.state[4] = ring_start(T);
+    L.state[5] = T.p + C;                        // every cnt summed
+  }
+}
+
+// 3. per slot (BL_PER a thread): rem, its bucket's offset, the minima of
+// rem over 32 and 1,024 slots, and the buckets of two rows or more listed;
+// the last block to finish takes the minima over 32,768 and 2^20 slots
+__global__ void __launch_bounds__(BL_SCAN_THREADS)
+bl_slots_kernel(int C, const __grid_constant__ LargeBuild L) {
+  __shared__ PQ warp_tot[32];
+  __shared__ PQ incl_of[BL_SCAN_THREADS];
+  __shared__ int warp_min[32];
+  __shared__ int warp_list[32];
+  __shared__ int list_at;
+  __shared__ int last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles = C / (BL_PER * blockDim.x);
+  const int s0 = (blockIdx.x * blockDim.x + threadIdx.x) * BL_PER;
+  int c[BL_PER];
+  load_slots(L.cnt + s0, c);
+  PQ T;
+  incl_of[threadIdx.x] = block_scan_pq(compose_slots(c), warp_tot, &T);
+  __syncthreads();
+  PQ run = pq_then(L.tile_pre[blockIdx.x], threadIdx.x > 0
+                                               ? incl_of[threadIdx.x - 1]
+                                               : PQ{0, PQ_NONE});
+  const int r_in = L.state[4];
+  int off[BL_PER], rem[BL_PER], m = INT_MAX, multi = 0;
+#pragma unroll
+  for (int r = 0; r < BL_PER; ++r) {
+    off[r] = run.p + s0 + r;
+    run = pq_then(run, PQ{c[r] - 1, 0});
+    rem[r] = max(r_in + run.p, run.q);
+    m = min(m, rem[r]);
+    multi += c[r] > 1;
+  }
+  store_slots(L.off + s0, off);
+  store_slots(L.rem + s0, rem);
+  if (s0 + BL_PER == C) L.off[C] = L.state[5];
+  // the buckets of two rows or more: one atomic a block (a counter that
+  // every block adds to)
+  const int incl = warp_incl(multi, lane);
+  if (lane == 31) warp_list[warp] = incl;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      const int k = warp_list[w];
+      warp_list[w] = sum;
+      sum += k;
+    }
+    list_at = sum > 0 ? atomicAdd(&L.state[2], sum) : 0;
+  }
+  __syncthreads();
+  int at = list_at + warp_list[warp] + incl - multi;
+#pragma unroll
+  for (int r = 0; r < BL_PER; ++r)
+    if (c[r] > 1) L.list[at++] = s0 + r;
+  // 32 slots: 4 threads; 1,024 slots: 4 warps
+  m = min(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = min(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  if ((lane & 3) == 0) L.mins[0][s0 >> 5] = m;
+  for (int o = 4; o < 32; o <<= 1)
+    m = min(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) warp_min[warp] = m;
+  __syncthreads();
+  if (threadIdx.x < blockDim.x / 128) {
+    const int* w = warp_min + 4 * threadIdx.x;
+    L.mins[1][(s0 - threadIdx.x * BL_PER) / 1024 + threadIdx.x] =
+        min(min(w[0], w[1]), min(w[2], w[3]));
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned int*>(&L.state[1]), 1u) ==
+           static_cast<unsigned int>(tiles - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int k = 2; k < BL_LEVELS; ++k) {
+    for (int g = threadIdx.x; g < (C >> (5 * (k + 1))); g += blockDim.x) {
+      int mm = INT_MAX;
+      for (int j = 0; j < 32; ++j)
+        mm = min(mm, __ldcg(L.mins[k - 1] + 32 * g + j));
+      L.mins[k][g] = mm;
+    }
+    __threadfence();
+    __syncthreads();
+  }
+}
+
+// 4. every valid row into its bucket's part of `fill`, at its rank, as
+// row << 32 | hash
+__global__ void __launch_bounds__(BL_THREADS)
+bl_fill_kernel(long long n, int C, const __grid_constant__ LargeBuild L) {
+  const uint32_t mask = static_cast<uint32_t>(C - 1);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const int k = L.rank[i];
+    const uint32_t h = L.row_h[i];
+    if (k >= 0)
+      L.fill[L.off[h & mask] + k] =
+          (static_cast<unsigned long long>(i) << 32) | h;
+  }
+}
+
+// a bucket's entries, up to SORT_SHORT, sorted by one thread
+__device__ __forceinline__ void sort_short(unsigned long long* a, int len) {
+  unsigned long long v[SORT_SHORT];
+  for (int i = 0; i < len; ++i) v[i] = a[i];
+  for (int i = 1; i < len; ++i) {
+    const unsigned long long x = v[i];
+    int j = i - 1;
+    for (; j >= 0 && v[j] > x; --j) v[j + 1] = v[j];
+    v[j + 1] = x;
+  }
+  for (int i = 0; i < len; ++i) a[i] = v[i];
+}
+
+// A bucket's entries (distinct rows in the high half) sorted by the whole
+// block: each SORT_CHUNK entries by a bitonic network in shared memory,
+// then the sorted runs merged pairwise, between `a` and `tmp` (the same
+// offsets of another buffer), each thread taking an even share of a pass's
+// outputs from its merge-path split. Syncs the block.
+__device__ void block_sort(unsigned long long* a, unsigned long long* tmp,
+                           int len, unsigned long long* chunk) {
+  for (int c0 = 0; c0 < len; c0 += SORT_CHUNK) {
+    const int m = len - c0 < SORT_CHUNK ? len - c0 : SORT_CHUNK;
+    int P = 1;
+    while (P < m) P <<= 1;
+    for (int i = threadIdx.x; i < P; i += blockDim.x)
+      chunk[i] = i < m ? a[c0 + i] : ~0ull;
+    __syncthreads();
+    for (int k = 2; k <= P; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        for (int i = threadIdx.x; i < P; i += blockDim.x) {
+          const int l = i ^ j;
+          if (l > i) {
+            const unsigned long long x = chunk[i], y = chunk[l];
+            if ((x > y) == ((i & k) == 0)) {
+              chunk[i] = y;
+              chunk[l] = x;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int i = threadIdx.x; i < m; i += blockDim.x) a[c0 + i] = chunk[i];
+    __syncthreads();
+  }
+  unsigned long long* src = a;
+  unsigned long long* dst = tmp;
+  for (int w = SORT_CHUNK; w < len; w <<= 1) {
+    const int per = (len + blockDim.x - 1) / blockDim.x;
+    int k = threadIdx.x * per;
+    const int kend = k + per < len ? k + per : len;
+    while (k < kend) {
+      const int lo = k / (2 * w) * (2 * w);
+      const int mid = lo + w < len ? lo + w : len;
+      const int hi = lo + 2 * w < len ? lo + 2 * w : len;
+      const int na = mid - lo, nb = hi - mid, d = k - lo;
+      const unsigned long long* A = src + lo;
+      const unsigned long long* B = src + mid;
+      int l = d - nb > 0 ? d - nb : 0, h = d < na ? d : na;
+      while (l < h) {
+        const int mi = (l + h) >> 1;
+        if (A[mi] < B[d - 1 - mi]) l = mi + 1;
+        else h = mi;
+      }
+      int i = l, j = d - l;
+      const int end = kend < hi ? kend : hi;
+      for (; k < end; ++k)
+        dst[k] = (j >= nb || (i < na && A[i] < B[j])) ? A[i++] : B[j++];
+    }
+    __syncthreads();
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  if (src != a)
+    for (int i = threadIdx.x; i < len; i += blockDim.x) a[i] = src[i];
+  __syncthreads();
+}
+
+// 5. the listed buckets' rows in ascending order: a thread sorts a bucket
+// of up to SORT_SHORT rows, the block a longer one
+__global__ void __launch_bounds__(BL_THREADS)
+bl_sort_kernel(const __grid_constant__ LargeBuild L) {
+  __shared__ unsigned long long chunk[SORT_CHUNK];
+  __shared__ int longer[BL_THREADS];
+  __shared__ int n_longer;
+  const int listed = L.state[2];
+  for (int e0 = blockIdx.x * BL_THREADS; e0 < listed;
+       e0 += gridDim.x * BL_THREADS) {
+    if (threadIdx.x == 0) n_longer = 0;
+    __syncthreads();
+    const int e = e0 + threadIdx.x;
+    if (e < listed) {
+      const int bk = L.list[e];
+      const int a = L.off[bk], len = L.off[bk + 1] - a;
+      if (len <= SORT_SHORT) sort_short(L.fill + a, len);
+      else longer[atomicAdd(&n_longer, 1)] = bk;
+    }
+    __syncthreads();
+    for (int j = 0; j < n_longer; ++j) {
+      const int bk = longer[j];
+      const int a = L.off[bk];
+      block_sort(L.fill + a, L.tmp + a, L.off[bk + 1] - a, chunk);
+    }
+    __syncthreads();                             // n_longer is reset
+  }
+}
+
+__device__ __forceinline__ const int* rem_level(const LargeBuild& L, int k) {
+  switch (k) {
+    case 0: return L.rem;
+    case 1: return L.mins[0];
+    case 2: return L.mins[1];
+    case 3: return L.mins[2];
+    default: return L.mins[3];
+  }
+}
+
+// the last position x < s, counted back across the ring's start (so
+// s - C <= x), with rem[x mod C] <= r. Level k holds rem's minima over
+// blocks of 32^k slots; the search goes up a level when a block has no
+// such slot and down into the first block that has one. An empty slot
+// (rem 0) exists, so it ends within one lap.
+__device__ __forceinline__ long long last_at_most(const LargeBuild& L, int C,
+                                                  int s, int r) {
+  int top = 0;
+  while (top < BL_LEVELS && (C >> (5 * (top + 1))) > 0) ++top;
+  int k = 0;
+  long long x = static_cast<long long>(s) - 1;   // the last not ruled out
+  for (;;) {
+    const int sh = 5 * k;
+    const long long entries = static_cast<long long>(C) >> sh;
+    const int* lv = rem_level(L, k);
+    const long long e = x >> sh;
+    const long long stop = k == top ? e - entries + 1 : (e >> 5) << 5;
+    long long f = e;
+    while (f >= stop && lv[f & (entries - 1)] > r) --f;
+    if (f >= stop) {
+      if (k == 0) return f;
+      x = ((f + 1) << sh) - 1;
+      --k;
+    } else if (k == top) {
+      return x - C;                              // not reached: see above
+    } else {
+      x = (stop << sh) - 1;
+      ++k;
+    }
+  }
+}
+
+// 6. every slot's word: hash << 32 | row, or 0xffffffff where empty; and
+// rounds = 1 + the largest distance, taken once a block and only when it
+// raises what an earlier block left
+__global__ void __launch_bounds__(BL_THREADS)
+bl_table_kernel(int C, const __grid_constant__ LargeBuild L,
+                unsigned long long* __restrict__ table) {
+  __shared__ int warp_max[BL_THREADS / 32];
+  const int s = blockIdx.x * BL_THREADS + threadIdx.x;
+  const uint32_t mask = static_cast<uint32_t>(C - 1);
+  const int c = L.cnt[s];
+  const int r = L.rem[s];
+  unsigned long long w = 0xffffffffull;
+  int dist = -1;
+  if (L.rem[(s - 1) & mask] + c > 0) {
+    const long long x = last_at_most(L, C, s, r);
+    const int bk = static_cast<int>((x + 1) & mask);
+    const unsigned long long e =
+        L.fill[L.off[bk] + L.cnt[bk] - 1 - (r - L.rem[x & mask])];
+    w = (e << 32) | (e >> 32);                   // hash << 32 | row
+    dist = static_cast<int>(s - (x + 1));
+  }
+  table[s] = w;
+  for (int o = 16; o > 0; o >>= 1)
+    dist = max(dist, __shfl_xor_sync(0xffffffffu, dist, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = dist;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < BL_THREADS / 32; ++w) dist = max(dist, warp_max[w]);
+    if (dist >= 0 && dist + 1 > __ldcg(&L.state[3]))
+      atomicMax(&L.state[3], dist + 1);
+  }
 }
 
 // ---- the probes ----------------------------------------------------------
@@ -762,16 +1232,6 @@ struct WalkSlot {
   CF x;
 };
 
-// warp-wide inclusive sum
-template <typename T>
-__device__ __forceinline__ T warp_incl(T x, int lane) {
-  for (int off = 1; off < 32; off <<= 1) {
-    const T y = __shfl_up_sync(0xffffffffu, x, off);
-    if (lane >= off) x += y;
-  }
-  return x;
-}
-
 // A persistent grid: block g counts tiles g, g + G, ...; warp w of a block
 // takes segment w of each tile (PROBE_SEG rows), a lane the 8 consecutive
 // rows at lane * 8 of it. Per segment the warp writes the counts, its list
@@ -962,6 +1422,144 @@ count_kernel(const __grid_constant__ K p, long long n,
   for (int i = lo; i < hi; ++i) {
     tile_off[i] = run;
     run += __ldcg(tile_sum + i);
+  }
+}
+
+// whether probe row i (hash h) has a match along its chain: count_row's
+// walk, stopping at the first
+template <typename T, typename K>
+__device__ __forceinline__ bool exists_row(const K& p, long long i,
+                                           long long v0, uint32_t h,
+                                           const K& b, const T& t, int C) {
+  const uint32_t mask = static_cast<uint32_t>(C - 1);
+  for (int d = 0; d <= C; ++d) {
+    const int s = static_cast<int>((h + static_cast<uint32_t>(d)) & mask);
+    const unsigned long long e = t.at(s);
+    const int r = ent_row(e);
+    if (r < 0) return false;             // linear probing: the chain ends
+    if (ent_hash(e) == h && keys_equal(p, i, v0, b, r, t, s)) return true;
+  }
+  return false;
+}
+
+// rows row0 .. row0 + 7's flags (bit r: row row0 + r), one byte a row
+__device__ __forceinline__ void store_flags(unsigned char* out,
+                                            long long row0, long long n,
+                                            unsigned int bits) {
+  unsigned char* a = out + row0;
+  if (row0 + PROBE_R <= n && (reinterpret_cast<uintptr_t>(a) & 7) == 0) {
+    unsigned int w[2] = {0u, 0u};
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      w[r >> 2] |= ((bits >> r) & 1u) << (8 * (r & 3));
+    *reinterpret_cast<uint2*>(a) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      if (row0 + r < n) a[r] = static_cast<unsigned char>((bits >> r) & 1u);
+  }
+}
+
+// The semi and anti joins' probe: per probe row one byte, 1 when it has a
+// match. count_kernel's grid, tiling, loads, Bloom filter (small route)
+// and ballot compaction of the candidates, each walk stopping at its
+// first match; no counts, lists or sums, so nothing to scan and no total.
+template <bool LARGE, typename K>
+__global__ void __launch_bounds__(PROBE_THREADS)
+exists_kernel(const __grid_constant__ K p, long long n,
+              const __grid_constant__ K b, const int* __restrict__ slot_row,
+              const uint32_t* __restrict__ slot_hash,
+              const unsigned long long* __restrict__ ent, int C, int nks,
+              unsigned char* __restrict__ out) {
+  using R = Route<LARGE>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ WalkSlot<int> walk_q[PROBE_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  typename R::Table t;
+  unsigned int* bloom = nullptr;
+  if constexpr (LARGE) {
+    t.ent = ent;
+  } else {
+    t = stage_table(smem, b, slot_row, slot_hash, C, nks);
+    bloom = reinterpret_cast<unsigned int*>(t.key + nks * C);
+    for (int w = threadIdx.x; w < BLOOM_WORDS; w += blockDim.x) bloom[w] = 0u;
+    __syncthreads();
+    for (int s = threadIdx.x; s < C; s += blockDim.x) {
+      const unsigned long long e = t.ent[s];
+      if (ent_row(e) >= 0)
+        atomicOr(&bloom[ent_hash(e) >> 21], 1u << ((ent_hash(e) >> 16) & 31));
+    }
+    __syncthreads();
+  }
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  WalkSlot<int>* q = walk_q[warp];
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long seg0 = tile * PROBE_TILE + warp * PROBE_SEG;
+    if (seg0 >= n) continue;
+    const long long row0 = seg0 + lane * PROBE_R;
+    long long v0[PROBE_R];
+    bool ok[PROBE_R];
+    uint32_t h[PROBE_R];
+    if constexpr (IsVar<K>::value) {
+      valid_rows(p, row0, n, ok);
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) {
+        v0[r] = row0 + r;
+        h[r] = ok[r] ? row_hash(p, row0 + r) : 0u;
+      }
+    } else {
+      load_rows(p, 0, row0, n, v0);
+      valid_rows(p, row0, n, ok);
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r)
+        h[r] = hash_col(42u, v0[r], p.wide[0]);
+      for (int j = 1; j < p.nk; ++j) {
+        long long v[PROBE_R];
+        load_rows(p, j, row0, n, v);
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r)
+          h[r] = hash_col(h[r], v[r], p.wide[j]);
+      }
+    }
+    unsigned int cand = 0;
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      if (ok[r] && (!R::BLOOM ||
+                    (bloom[h[r] >> 21] >> ((h[r] >> 16) & 31) & 1u)))
+        cand |= 1u << r;
+    const unsigned int lower = (1u << lane) - 1u;
+    int base[PROBE_R], n_cand = 0;
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r) {
+      const unsigned int bal = __ballot_sync(0xffffffffu, (cand >> r) & 1u);
+      base[r] = n_cand + __popc(bal & lower);
+      n_cand += __popc(bal);
+    }
+    unsigned int found = 0;
+    for (int q0 = 0; q0 < n_cand; q0 += 32) {
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) {
+        const int idx = base[r] - q0;
+        if ((cand & (1u << r)) && idx >= 0 && idx < 32)
+          q[idx] = WalkSlot<int>{v0[r], h[r],
+                                 static_cast<int>(row0 - tile * PROBE_TILE) +
+                                     r};
+      }
+      __syncwarp();
+      if (q0 + lane < n_cand) {
+        const WalkSlot<int> w = q[lane];
+        q[lane].x = exists_row(p, tile * PROBE_TILE + w.x, w.v0, w.h, b, t, C);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) {
+        const int idx = base[r] - q0;
+        if ((cand & (1u << r)) && idx >= 0 && idx < 32 && q[idx].x != 0)
+          found |= 1u << r;
+      }
+      __syncwarp();
+    }
+    store_flags(out, row0, n, found);
   }
 }
 
@@ -1156,29 +1754,6 @@ static cudaError_t probe_grid(K kernel, size_t smem, long long n,
   return cudaSuccess;
 }
 
-// the cooperative grid of the large build: one block per LARGE_BUILD_THREADS
-// rows, at most as many as the card holds at once (a grid barrier needs
-// every block resident)
-static cudaError_t large_build_grid(const void* kernel, long long rows,
-                                    unsigned int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, LARGE_BUILD_THREADS, 0);
-  if (err != cudaSuccess) return err;
-  if (!coop || per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  const long long want = (rows + LARGE_BUILD_THREADS - 1) / LARGE_BUILD_THREADS;
-  *blocks = static_cast<unsigned int>(
-      want < 1 ? 1 : (want < resident ? want : resident));
-  return cudaSuccess;
-}
-
 // ---- launches, for either key type ------------------------------------------
 
 template <typename K>
@@ -1192,26 +1767,46 @@ static int build_small(const K& b, long long n, int C, int* slot_row,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the large route: six launches on the stream, after one memset of the
+// scratch's state and counts
 template <typename K>
-static int build_large(K b, long long n, int C, unsigned long long* table,
-                       int* scratch, void* stream) {
+static int build_large(const K& b, long long n, int C,
+                       unsigned long long* table, int* scratch,
+                       void* stream) {
   if (n < 1 || n > MAX_BUILD_ROWS || !capacity_ok(C) ||
       C <= SMALL_CAPACITY || 2 * n > C || table == nullptr ||
       scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = reinterpret_cast<const void*>(build_large_kernel<K>);
-  unsigned int blocks = 0;
-  cudaError_t err = large_build_grid(kernel, n, &blocks);
+  LargeBuild L;
+  large_layout(n, C, scratch, &L);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0, sizeof(int) * (BL_STATE + C), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int rows = static_cast<int>(n);
-  uint32_t* row_h = reinterpret_cast<uint32_t*>(scratch);
-  uint32_t* row_d = row_h + n;
-  int* counters = scratch + 2 * n;
-  void* args[] = {&b, &rows, &C, &table, &row_h, &row_d, &counters};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
-                                    dim3(LARGE_BUILD_THREADS), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // a grid over the rows: a block 256 rows a step, at most 8 blocks an SM
+  const long long want = (n + BL_THREADS - 1) / BL_THREADS;
+  const unsigned int rows_grid = static_cast<unsigned int>(
+      want < 8LL * sms ? want : 8LL * sms);
+  const long long listed = n / 2 + 1;          // buckets of two rows or more
+  const long long sort_want = (listed + BL_THREADS - 1) / BL_THREADS;
+  const unsigned int sort_grid = static_cast<unsigned int>(
+      sort_want < 4LL * sms ? sort_want : 4LL * sms);
+  bl_hash_kernel<K><<<rows_grid, BL_THREADS, 0, s>>>(b, n, C, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int scan = scan_threads(C);
+  bl_tiles_kernel<<<C / (BL_PER * scan), scan, 0, s>>>(C, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bl_slots_kernel<<<C / (BL_PER * scan), scan, 0, s>>>(C, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bl_fill_kernel<<<rows_grid, BL_THREADS, 0, s>>>(n, C, L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bl_sort_kernel<<<sort_grid, BL_THREADS, 0, s>>>(L);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  bl_table_kernel<<<C / BL_THREADS, BL_THREADS, 0, s>>>(C, L, table);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1263,6 +1858,39 @@ static int count_launch(const K& p, long long n, const K& b,
         p, n, b, slot_row, slot_hash, ent, C, nks, counts,
         static_cast<unsigned int*>(entries), seg, seg + segs, scratch + 2,
         scratch + 2 + tiles, scratch, ticket);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+static int exists_launch(const K& p, long long n, const K& b,
+                         const int* slot_row, const uint32_t* slot_hash,
+                         const unsigned long long* ent, int C,
+                         unsigned char* out, void* stream) {
+  const bool large = C > SMALL_CAPACITY;
+  if (n < 1 || n > INT_MAX || !capacity_ok(C) || out == nullptr ||
+      (large && ent == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nks = staged_cols(p);
+  const size_t smem = large ? 0 : count_smem_bytes(C, nks);
+  cudaError_t err = cudaSuccess;
+  unsigned int blocks = 0;
+  if (large) {
+    err = probe_grid(exists_kernel<true, K>, smem, n, &blocks);
+  } else {
+    err = cudaFuncSetAttribute(
+        exists_kernel<false, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(count_smem_bytes(SMALL_CAPACITY, SMEM_KEY_COLS)));
+    if (err == cudaSuccess)
+      err = probe_grid(exists_kernel<false, K>, smem, n, &blocks);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (large)
+    exists_kernel<true, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, out);
+  else
+    exists_kernel<false, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1319,8 +1947,8 @@ int hj_build(const void* const* data, const void* const* valid,
 }
 
 // the large route: SMALL_CAPACITY < C <= MAX_CAPACITY, n <= C / 2. table:
-// (C,) 8-byte words; scratch: 2 * n + 4 int32, the rows' hashes and
-// distances, then the round counters; scratch[2 * n + 3] gets the rounds.
+// (C,) 8-byte words; scratch: hj_build_large_scratch(n, C) int32, each
+// call's own; scratch[3] gets the rounds.
 int hj_build_large(const void* const* data, const void* const* valid,
                    const int* width, const int* wide, int nk, long long n,
                    int C, unsigned long long* table, int* scratch,
@@ -1331,21 +1959,10 @@ int hj_build_large(const void* const* data, const void* const* valid,
   return build_large(b, n, C, table, scratch, stream);
 }
 
-// `rounds` grid barriers on the large build's grid for `rows` rows; out:
-// one int32. Times the barrier alone, for the large build's bound.
-int hj_barrier(long long rows, int rounds, int* out, void* stream) {
-  if (rows < 1 || rounds < 0 || out == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  unsigned int blocks = 0;
-  cudaError_t err = large_build_grid(
-      reinterpret_cast<const void*>(barrier_kernel), rows, &blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&rounds, &out};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(barrier_kernel), dim3(blocks),
-      dim3(LARGE_BUILD_THREADS), args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+// the large build's scratch, in int32s, for n rows and C slots
+long long hj_build_large_scratch(long long n, int C) {
+  LargeBuild L;
+  return large_layout(n, C, nullptr, &L);
 }
 
 // counts: (n,) int32; entries: (n,) uint32 on the small route, uint64 on the
@@ -1371,6 +1988,22 @@ int hj_count(const void* const* pdata, const void* const* pvalid,
                       seg, scratch, stream);
 }
 
+// out: (n,) bytes, 1 where the probe row has a match in the table (small
+// route: slot_row, slot_hash; large: ent), 0 elsewhere and for a row with
+// a null key
+int hj_exists(const void* const* pdata, const void* const* pvalid,
+              const int* width, const int* wide, int nk, long long n,
+              const void* const* bdata, const int* slot_row,
+              const uint32_t* slot_hash, const unsigned long long* ent, int C,
+              unsigned char* out, void* stream) {
+  Keys p, b;
+  const void* no_valid[MAX_KEYS] = {nullptr};
+  if (!make_keys(&p, pdata, pvalid, width, wide, nk) ||
+      !make_keys(&b, bdata, no_valid, width, wide, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return exists_launch(p, n, b, slot_row, slot_hash, ent, C, out, stream);
+}
+
 // entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows,
 // with the same table; out_l, out_r: (limit,) int32 each, written at the
 // pairs' positions below limit (the total or less: the eager join passes
@@ -1389,9 +2022,10 @@ int hj_emit(const void* const* bdata, const int* width, const int* wide,
                      seg_matched, tile_off, limit, out_l, out_r, stream);
 }
 
-// The variable-width entry points: hj_build's, hj_build_large's, hj_count's
-// and hj_emit's contracts, for key sets with a STRING, DECIMAL128 or float
-// column. Each column has a kind (VK_*) and, for STRING, its offsets.
+// The variable-width entry points: hj_build's, hj_build_large's,
+// hj_count's, hj_emit's and hj_exists' contracts, for key sets with a
+// STRING, DECIMAL128 or float column. Each column has a kind (VK_*) and, for
+// STRING, its offsets.
 int hj_build_var(const void* const* data, const void* const* valid,
                  const void* const* offsets, const int* width,
                  const int* wide, const int* kind, int nk, long long n,
@@ -1442,6 +2076,21 @@ int hj_emit_var(const void* const* bdata, const void* const* boffsets,
     return static_cast<int>(cudaErrorInvalidValue);
   return emit_launch(b, n, slot_row, slot_hash, ent, C, entries, seg_sum,
                      seg_matched, tile_off, limit, out_l, out_r, stream);
+}
+
+int hj_exists_var(const void* const* pdata, const void* const* pvalid,
+                  const void* const* poffsets, const int* width,
+                  const int* wide, const int* kind, int nk, long long n,
+                  const void* const* bdata, const void* const* boffsets,
+                  const int* slot_row, const uint32_t* slot_hash,
+                  const unsigned long long* ent, int C, unsigned char* out,
+                  void* stream) {
+  VKeys p, b;
+  const void* no_valid[MAX_KEYS] = {nullptr};
+  if (!make_vkeys(&p, pdata, pvalid, poffsets, width, wide, kind, nk) ||
+      !make_vkeys(&b, bdata, no_valid, boffsets, width, wide, kind, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return exists_launch(p, n, b, slot_row, slot_hash, ent, C, out, stream);
 }
 
 }  // extern "C"

@@ -24,8 +24,9 @@ puts them in their own runs. Alive masks exclude rows even then.
 - `join_spans` and `expand_spans`: the span computation and its padded
   expansion as public functions, with the reference's contract.
 
-The hash-join kernels (`join_cuda`) take inner joins without `null_equal`,
-as the reference's Pallas join takes only inner ones; the outer joins are
+The hash-join kernels (`join_cuda`) take inner, semi and anti joins
+without `null_equal` (the reference's Pallas join takes only inner ones;
+its semi and anti joins are these sort-based forms); the outer joins are
 torch ops on either device.
 """
 from __future__ import annotations

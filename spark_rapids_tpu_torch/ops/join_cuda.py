@@ -5,19 +5,25 @@ Counterpart of `spark_rapids_tpu/ops/join_pallas.py`. The kernels live in
 on the card); this module binds them through ctypes and keeps, beside each,
 a plain PyTorch version of the same function:
 
-- `build_table`: the open-addressing table over the build keys, filled by
-  min-row-id insertion rounds (equal keys in ascending-row chain order).
-  Two routes by capacity: up to SMALL_CAPACITY slots one block builds it
-  in shared memory; above, a cooperative grid builds it in global memory,
-  one grid-wide barrier a round, as one 8-byte word a slot (`HashTable.ent`,
-  hash << 32 | row) that the large route's probes read where it lies;
+- `build_table`: the open-addressing table over the build keys that the
+  reference's min-row-id insertion rounds leave (equal keys in
+  ascending-row chain order). The plain version runs those rounds; the
+  kernels compute the same table without them, by the closed form that
+  `build_table_closed_form` spells out in PyTorch (bucket counts, one scan,
+  each bucket's rows in order, a search back per slot). Two routes by
+  capacity: up to SMALL_CAPACITY slots one block builds it in shared
+  memory; above, six ordinary launches build it in global memory as one
+  8-byte word a slot (`HashTable.ent`, hash << 32 | row) that the large
+  route's probes read where it lies;
 - `probe_counts`: matches per probe row, walking to the first empty slot,
   with the sums of each tile of `TILE` rows, their exclusive offsets and
   the total, and per segment (an eighth of a tile) its list of matched
   rows, each with its first matching slot and its count (`ProbeCounts`),
   in 32 bits on the small route and 64 on the large one;
 - `probe_emit`: the (probe row, build row) pairs from those lists, a row's
-  first at its tile's offset plus the counts before it in its tile.
+  first at its tile's offset plus the counts before it in its tile;
+- `probe_exists`: whether each probe row has a match (the count's walk,
+  stopping at the first), the semi and anti joins' probe.
 
 Each wrapper runs the plain version only for CPU tensors. For CUDA tensors
 it launches its kernel or raises; it never falls back. `LAUNCHES` counts
@@ -44,10 +50,15 @@ build never inserts an invalid row, the count gives it 0), the emit
 writing only the pairs below `row_cap` into (row_cap,) maps, and `valid`
 and `overflow` computed on the device from the count's total; bit for bit
 the outputs of `ops.join.inner_join_capped`. `CAPPED_CALLS` counts its
-calls that launched the kernels. `inner_join_hash` is registered as
+calls that launched the kernels. `semi_join_mask_hash` (the capped tier's
+semi and anti joins) and `left_semi_join_hash` / `left_anti_join_hash`
+(the eager tier's) are `ops.join`'s `semi_join_mask`, `left_semi_join` and
+`left_anti_join` on the build and the existence probe, bit for bit; the
+reference has no kernel for them. `inner_join_hash` is registered as
 `hash_join`/"cuda" for backend "cuda" and
-declines what the reference's `_supports` declines (non-inner joins,
-mismatched or unsupported key kinds) and build sides over `MAX_BUILD` rows.
+declines what the reference's `_supports` declines (outer joins,
+mismatched or unsupported key kinds) but for semi and anti joins, and
+build sides over `MAX_BUILD` rows.
 The reference declines above 512 build rows, the table its VMEM holds;
 the port's large route takes up to 2^22 (a 2^23-slot, 64 MB table).
 """
@@ -64,7 +75,7 @@ from ..columnar import Column
 from ..dtypes import Kind
 from .hash import (Bytes, _M32, _mm_fmix, _mm_round, _mm_value, as_i32_bits,
                    encode_fixed, mm_bytes, mm_column)
-from .join import _cols, _side_valid
+from .join import _cols, _keep, _side_valid
 
 SMALL_CAPACITY = 1024       # the small route's tables (csrc/hash_join.cu)
 MAX_CAPACITY = 1 << 23      # the large route's: 64 MB of 8-byte slots
@@ -85,12 +96,12 @@ VK_FIXED, VK_F32, VK_F64, VK_DEC128, VK_STRING = range(5)
 _VAR_KINDS = {Kind.FLOAT32: VK_F32, Kind.FLOAT64: VK_F64,
               Kind.DECIMAL128: VK_DEC128, Kind.STRING: VK_STRING}
 
-LAUNCHES = {"build": 0, "count": 0, "emit": 0}
+LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0}
 # the launches of LAUNCHES that took the large route (C > SMALL_CAPACITY)
-LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0}
+LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0}
 # the launches of LAUNCHES of the variable-width instantiation (`is_var`)
-VAR_LAUNCHES = {"build": 0, "count": 0, "emit": 0}
-PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0}
+VAR_LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0}
+PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0, "exists": 0}
 # calls of inner_join_capped_hash that launched the kernels
 CAPPED_CALLS = {"join": 0}
 
@@ -119,8 +130,11 @@ class HashTable:
     """slot_row: (C,) int32 build row id, -1 where empty. slot_hash: (C,)
     int32 holding the bits of that row's u32 bucket hash (0 where empty).
     The large build writes `ent`, (C,) int64 words hash << 32 | row (the
-    row's low 32 bits), and slot_row and slot_hash are views of it; `rounds`
-    is its () int32 count of insertion rounds, on the device."""
+    row's low 32 bits), and slot_row and slot_hash are views of it.
+    `rounds`, a () int32 on the device, is the count of insertion rounds
+    that the reference runs for this table (1 + the largest distance of a
+    placed row, 0 with none): the plain version's and the large build's
+    (the small build leaves it None)."""
     slot_row: torch.Tensor
     slot_hash: torch.Tensor
     ent: Optional[torch.Tensor] = None
@@ -215,10 +229,12 @@ def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
     slot_hash = torch.zeros(C, dtype=torch.int64, device=dev)
     d = torch.zeros(n, dtype=torch.int64, device=dev)
     placed = ~_side_valid(bcols, n, dev)        # invalid rows never insert
+    rounds = 0
     for _ in range(2 * C + 2):
         un = ~placed
         if not bool(un.any()):
             break
+        rounds += 1
         slot = (h + d) & (C - 1)
         proposal = torch.full((C,), n, dtype=torch.int64, device=dev)
         proposal.scatter_reduce_(0, slot[un], rows[un], "amin")
@@ -228,7 +244,53 @@ def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
         slot_hash[slot[won]] = h[won]
         placed = placed | won
         d = d + (~placed).to(torch.int64)
-    return HashTable(slot_row.to(torch.int32), as_i32_bits(slot_hash))
+    return HashTable(slot_row.to(torch.int32), as_i32_bits(slot_hash),
+                     rounds=torch.tensor(rounds, dtype=torch.int32,
+                                         device=dev))
+
+
+def build_table_closed_form(bcols: Sequence[Column], C: int) -> HashTable:
+    """`build_table_plain`'s table and rounds without its rounds, in the
+    kernels' order of work (csrc/hash_join.cu, "the build"): per bucket
+    s = h & (C - 1) its valid rows cnt[s]; one scan of the slots' maps
+    x -> max(x + cnt[s] - 1, 0), taken twice round the ring, giving rem[s],
+    the rows still waiting after slot s, and the bucket offsets; each
+    bucket's rows in ascending order; then per occupied slot s (rem[s-1] +
+    cnt[s] > 0) the search back to the last slot x with rem[x] <= rem[s]:
+    its row is bucket x + 1's row at index cnt - 1 - (rem[s] - rem[x])."""
+    n = bcols[0].length
+    dev = bcols[0].device
+    h = row_hash(bcols)
+    valid = _side_valid(bcols, n, dev)
+    bucket = h & (C - 1)
+    cnt = torch.bincount(bucket[valid], minlength=C)
+    # the inclusive composition of the maps (cnt - 1, 0): p is their sum,
+    # q the largest sum of a suffix (0 for the empty one)
+    p = torch.cumsum(cnt - 1, 0)
+    q = p - torch.cummin(p, 0).values
+    tp, tq = int(p[-1]), int(q[-1])
+    start = max(max(tp, tq) + tp, tq)                # T(T(0)): rem[C - 1]
+    rem = torch.maximum(start + p, q)
+    off = torch.cumsum(cnt, 0) - cnt
+    rows = torch.nonzero(valid).reshape(-1)
+    rows = rows[torch.argsort(bucket[rows], stable=True)]
+    slot = torch.arange(C, dtype=torch.int64, device=dev)
+    occ = rem.roll(1) + cnt > 0
+    x = slot - 1
+    while True:                 # one step a slot, as long as its distance
+        back = occ & (rem[x % C] > rem)
+        if not bool(back.any()):
+            break
+        x = x - back.to(torch.int64)
+    bk = (x + 1) % C
+    at = off[bk] + cnt[bk] - 1 - (rem - rem[x % C])
+    slot_row = torch.full((C,), -1, dtype=torch.int64, device=dev)
+    slot_hash = torch.zeros(C, dtype=torch.int64, device=dev)
+    slot_row[occ] = rows[at[occ]]
+    slot_hash[occ] = h[slot_row[occ]]
+    dist = torch.where(occ, slot - (x + 1), -1)
+    return HashTable(slot_row.to(torch.int32), as_i32_bits(slot_hash),
+                     rounds=(dist.max() + 1).to(torch.int32))
 
 
 def _walk(pcols, rows, h, table: HashTable, bcols):
@@ -401,6 +463,21 @@ def probe_emit_plain(pcols, table: HashTable, bcols, probe: ProbeCounts,
     return out_l, out_r
 
 
+def probe_exists_plain(pcols, table: HashTable, bcols) -> torch.Tensor:
+    """(n,) bool: the probe rows with at least one match in the table, by
+    the count's walk; a row with a null key has none."""
+    n = pcols[0].length
+    dev = pcols[0].device
+    rows = torch.nonzero(_side_valid(pcols, n, dev)).reshape(-1)
+    h = row_hash(pcols).index_select(0, rows)
+    hit = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+    for match, _, _ in _walk(pcols, rows, h, table, bcols):
+        hit |= match
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    out[rows] = hit
+    return out
+
+
 # ---- the CUDA kernels --------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -419,9 +496,13 @@ def _lib():
         lib = load("hash_join")
         lib.hj_build.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
         lib.hj_build_large.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
-        lib.hj_barrier.argtypes = [ctypes.c_longlong, ctypes.c_int, _P, _P]
+        lib.hj_build_large_scratch.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_int]
+        lib.hj_build_large_scratch.restype = ctypes.c_longlong
         lib.hj_count.argtypes = _KEY_ARGS + [_PP, _P, _P, _P, ctypes.c_int,
                                              _P, _P, _P, _P, _P]
+        lib.hj_exists.argtypes = _KEY_ARGS + [_PP, _P, _P, _P, ctypes.c_int,
+                                              _P, _P]
         lib.hj_emit.argtypes = [_PP, _PI, _PI, ctypes.c_int,
                                 ctypes.c_longlong, _P, _P, _P, ctypes.c_int,
                                 _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
@@ -435,10 +516,12 @@ def _lib():
                                     ctypes.c_longlong, _P, _P, _P,
                                     ctypes.c_int, _P, _P, _P, _P,
                                     ctypes.c_longlong, _P, _P, _P]
-        for fn in (lib.hj_build, lib.hj_build_large, lib.hj_barrier,
-                   lib.hj_count, lib.hj_emit, lib.hj_build_var,
+        lib.hj_exists_var.argtypes = var + [_PP, _PP, _P, _P, _P,
+                                            ctypes.c_int, _P, _P]
+        for fn in (lib.hj_build, lib.hj_build_large, lib.hj_count,
+                   lib.hj_emit, lib.hj_exists, lib.hj_build_var,
                    lib.hj_build_large_var, lib.hj_count_var,
-                   lib.hj_emit_var):
+                   lib.hj_emit_var, lib.hj_exists_var):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -530,28 +613,17 @@ def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
         VAR_LAUNCHES["build"] += var
         return HashTable(slot_row, slot_hash)
     ent = torch.empty(C, dtype=torch.int64, device=dev)
-    # the rows' hashes and distances, then four counters: the proposals of
-    # rounds r mod 3 and the rounds
-    scratch = torch.empty(2 * n + 4, dtype=torch.int32, device=dev)
+    # this call's own: counts, scans, the rows by bucket; [3] the rounds
+    scratch = torch.empty(lib.hj_build_large_scratch(n, C),
+                          dtype=torch.int32, device=dev)
     rc = (lib.hj_build_large_var if var else lib.hj_build_large)(
         *keys, C, ent.data_ptr(), scratch.data_ptr(), _stream(dev))
-    _raise_on(rc, "hash-join large build kernel")
+    _raise_on(rc, "hash-join large build kernels")
     LAUNCHES["build"] += 1
     LARGE_LAUNCHES["build"] += 1
     VAR_LAUNCHES["build"] += var
     halves = ent.view(torch.int32).view(C, 2)      # little-endian: row, hash
-    return HashTable(halves[:, 0], halves[:, 1], ent, scratch[2 * n + 3])
-
-
-def barrier_cuda(rows: int, rounds: int) -> torch.Tensor:
-    """`rounds` grid-wide barriers alone, on the grid the large build takes
-    for `rows` rows (a measurement for the build's bound, not a step of the
-    join). Returns a () int32 tensor that holds `rounds` once it ran."""
-    out = torch.zeros((), dtype=torch.int32, device="cuda")
-    rc = _lib().hj_barrier(rows, rounds, out.data_ptr(),
-                           _stream(out.device))
-    _raise_on(rc, "grid barrier kernel")
-    return out
+    return HashTable(halves[:, 0], halves[:, 1], ent, scratch[3])
 
 
 def probe_counts_cuda(pcols, table: HashTable, bcols) -> ProbeCounts:
@@ -630,6 +702,29 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
     return out_l, out_r
 
 
+def probe_exists_cuda(pcols, table: HashTable, bcols) -> torch.Tensor:
+    dev = pcols[0].device
+    _check_probe(pcols, bcols, dev)
+    n = pcols[0].length
+    C = table.capacity
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    rest = (*_table_ptrs(table), C, out.data_ptr(), _stream(dev))
+    if is_var(pcols):
+        b = _var_arrays(bcols)
+        rc = _lib().hj_exists_var(*_var_arrays(pcols), b[0], b[2], *rest)
+    else:
+        rc = _lib().hj_exists(*_key_arrays(pcols), _key_arrays(bcols)[0],
+                              *rest)
+    _raise_on(rc, "hash-join existence kernel")
+    LAUNCHES["exists"] += 1
+    VAR_LAUNCHES["exists"] += is_var(pcols)
+    if is_large(C):
+        LARGE_LAUNCHES["exists"] += 1
+    return out
+
+
 # ---- wrappers: plain version on CPU tensors, the kernel on CUDA ones --------
 
 def build_table(bcols: Sequence[Column], C: int) -> HashTable:
@@ -654,15 +749,23 @@ def probe_emit(pcols, table: HashTable, bcols, probe: ProbeCounts,
     return probe_emit_cuda(pcols, table, bcols, probe, total)
 
 
-def _join_keys(left_keys, right_keys):
+def probe_exists(pcols, table: HashTable, bcols) -> torch.Tensor:
+    if pcols[0].device.type == "cpu":
+        PLAIN_CALLS["exists"] += 1
+        return probe_exists_plain(pcols, table, bcols)
+    return probe_exists_cuda(pcols, table, bcols)
+
+
+def join_keys(left_keys, right_keys):
+    """(left, right) key columns, checked as the sort-based join checks
+    them: equal, nonzero column counts and equal dtypes (TypeError with
+    `ops.join`'s message otherwise, so a plan fails alike on every route,
+    before a kernel is chosen)."""
     lcols, rcols = _cols(left_keys), _cols(right_keys)
     if len(lcols) != len(rcols) or not lcols:
         raise ValueError("join requires equal, nonzero key column counts")
     for a, b in zip(lcols, rcols):
-        if a.dtype.kind != b.dtype.kind:
-            raise TypeError(f"join key kinds differ: {a.dtype!r} vs "
-                            f"{b.dtype!r}")
-        if a.dtype != b.dtype:      # decimals of another scale: as join.py
+        if a.dtype != b.dtype:
             raise TypeError(f"join key concat dtype mismatch: {a.dtype} vs "
                             f"{b.dtype}")
     return lcols, rcols
@@ -671,7 +774,7 @@ def _join_keys(left_keys, right_keys):
 def inner_join_hash(left_keys, right_keys) -> Tuple[Column, Column]:
     """Inner equi-join via hash build/probe: gather maps (left_map,
     right_map), pair for pair those of `ops.join.inner_join`."""
-    lcols, rcols = _join_keys(left_keys, right_keys)
+    lcols, rcols = join_keys(left_keys, right_keys)
     nl, nr = lcols[0].length, rcols[0].length
     dev = lcols[0].device
 
@@ -708,7 +811,7 @@ def inner_join_capped_hash(left_keys, right_keys, row_cap: int, *,
     `ops.join.inner_join_capped`: (row_cap,) int32 maps holding the first
     row_cap pairs in probe-row then chain order and 0 past them, valid =
     arange(row_cap) < total, overflow = total > row_cap (a () bool)."""
-    lcols, rcols = _join_keys(left_keys, right_keys)
+    lcols, rcols = join_keys(left_keys, right_keys)
     nl, nr = lcols[0].length, rcols[0].length
     dev = lcols[0].device
     if nl == 0 or nr == 0:
@@ -727,6 +830,35 @@ def inner_join_capped_hash(left_keys, right_keys, row_cap: int, *,
             valid, probe.total > row_cap)
 
 
+def semi_join_mask_hash(left_keys, right_keys, *, lalive=None,
+                        ralive=None) -> torch.Tensor:
+    """(nl,) bool, bit for bit `ops.join.semi_join_mask`: the live left rows
+    with a live right match, from the build and the existence probe, with
+    no host read. The alive masks are folded into the keys' validity: a
+    dead or null build row is never inserted, a dead or null probe row has
+    no match. The capped tier's semi join is `lalive & mask`, its anti join
+    `lalive & ~mask`."""
+    lcols, rcols = join_keys(left_keys, right_keys)
+    nl, nr = lcols[0].length, rcols[0].length
+    if nl == 0 or nr == 0:
+        return torch.zeros(nl, dtype=torch.bool, device=lcols[0].device)
+    lcols, rcols = _with_alive(lcols, lalive), _with_alive(rcols, ralive)
+    table = build_table(rcols, _capacity(nr))
+    return probe_exists(lcols, table, rcols)
+
+
+def left_semi_join_hash(left_keys, right_keys) -> Column:
+    """`ops.join.left_semi_join` on the kernels: the left rows with a match,
+    ascending (one host read, the kept rows' count)."""
+    return _keep(semi_join_mask_hash(left_keys, right_keys))
+
+
+def left_anti_join_hash(left_keys, right_keys) -> Column:
+    """`ops.join.left_anti_join` on the kernels: the left rows without a
+    match, ascending; a row with a null key has none, so it is kept."""
+    return _keep(~semi_join_mask_hash(left_keys, right_keys))
+
+
 # ---- registry wiring ---------------------------------------------------------
 
 def make_signature(lcols: Sequence[Column], rcols: Sequence[Column],
@@ -739,8 +871,13 @@ def make_signature(lcols: Sequence[Column], rcols: Sequence[Column],
                         build_rows=rcols[0].length if rcols else 0)
 
 
+# the joins the kernels take: inner joins (build, count, emit) and semi and
+# anti joins (build, exists)
+_HOWS = ("inner", "left_semi", "left_anti")
+
+
 def _supports(sig) -> bool:
-    return (sig.extra("how") == "inner"
+    return (sig.extra("how") in _HOWS
             and sig.extra("tier") in ("eager", "capped")
             and bool(sig.extra("kinds_match"))
             and (sig.extra("build_rows") or 0) <= MAX_BUILD

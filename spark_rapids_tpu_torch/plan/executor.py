@@ -29,11 +29,12 @@ Counterpart of `spark_rapids_tpu/plan/executor.py`.
 HashJoin, FusedSelect and TopK consult the kernel registry
 (`ops/registry.py`) with the executor's device type as the backend and
 stamp the choice on the metrics: on "cuda" an inner join runs
-`join_cuda.inner_join_hash` (capped: `inner_join_capped_hash`), a
-FusedSelect `select_cuda.fused_select` and a TopK `topk_cuda.topk_table`
-(capped: `topk_capped`). The plain versions run only on the CPU: where the
-registry declines an inner join or a TopK on the card (an inner join's
-build side over the kernel's 2^22 rows, `join_cuda.MAX_BUILD`; a TopK
+`join_cuda.inner_join_hash` (capped: `inner_join_capped_hash`), a semi or
+anti join `join_cuda.left_semi_join_hash` / `left_anti_join_hash` (capped:
+`semi_join_mask_hash`), a FusedSelect `select_cuda.fused_select` and a
+TopK `topk_cuda.topk_table` (capped: `topk_capped`). The plain versions
+run only on the CPU: where the registry declines a join or a TopK on the
+card (a build side over the kernel's 2^22 rows, `join_cuda.MAX_BUILD`; a TopK
 tuple over 96 words, or a forced plain kernel), and in the eager tier a
 FusedSelect (a predicate over the program's limits), the executor raises
 `KernelDeclinedError` and never gives way to the plain version there. In
@@ -342,8 +343,8 @@ class PlanExecutor:
 
     def _stamp(self, op: str, sig):
         """The registry's choice for a call that runs no kernel of `op`
-        (a semi or anti join, the capped tier's FusedSelect), to stamp on
-        the metrics; never raised."""
+        (the capped tier's FusedSelect), to stamp on the metrics; never
+        raised."""
         return REGISTRY.select(op, sig, backend=self.device.type)
 
     def _exec_eager_node(self, node: PlanNode, childs: List[Table], inputs,
@@ -376,13 +377,16 @@ class PlanExecutor:
             return self._project(t, node)
         if isinstance(node, HashJoin):
             lt, rt = childs
-            lkeys = [lt[k] for k in node.left_keys]
-            rkeys = [rt[k] for k in node.right_keys]
             from ..ops import join_cuda
+            # mismatched key dtypes raise as the sort-based join raises,
+            # before a kernel is chosen
+            lkeys, rkeys = join_cuda.join_keys(
+                [lt[k] for k in node.left_keys],
+                [rt[k] for k in node.right_keys])
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "eager")
+            choice = self._kernel_choice("hash_join", sig, m.label)
+            m.kernel = choice.label
             if node.how == "inner":
-                choice = self._kernel_choice("hash_join", sig, m.label)
-                m.kernel = choice.label
                 if not choice.fallback:
                     lm, rm = choice.fn(lkeys, rkeys)
                 else:
@@ -393,11 +397,16 @@ class PlanExecutor:
                     list(gather.take_table(rt, rm.data,
                                            _has_negative=False).columns),
                     names=list(lt.names) + list(rt.names))
-            # semi and anti joins have no kernel, here or in the reference
-            m.kernel = self._stamp("hash_join", sig).label
-            keep = (join.left_semi_join(lkeys, rkeys)
-                    if node.how == "left_semi"
-                    else join.left_anti_join(lkeys, rkeys))
+            # semi and anti joins: the build and the existence probe on the
+            # card (the reference has no kernel for them), the sort-based
+            # join on the CPU
+            semi = node.how == "left_semi"
+            if not choice.fallback:
+                keep = (join_cuda.left_semi_join_hash if semi
+                        else join_cuda.left_anti_join_hash)(lkeys, rkeys)
+            else:
+                keep = (join.left_semi_join if semi
+                        else join.left_anti_join)(lkeys, rkeys)
             return gather.take_table(lt, keep.data, _has_negative=False)
         if isinstance(node, HashAggregate):
             (t,) = childs
@@ -653,13 +662,14 @@ class PlanExecutor:
                               c.alive), None
         if isinstance(node, HashJoin):
             l, r = childs
-            lkeys = [l.table[k] for k in node.left_keys]
-            rkeys = [r.table[k] for k in node.right_keys]
-            _check_capped_keys(lkeys + rkeys)
             from ..ops import join_cuda
+            lkeys, rkeys = join_cuda.join_keys(
+                [l.table[k] for k in node.left_keys],
+                [r.table[k] for k in node.right_keys])
+            _check_capped_keys(lkeys + rkeys)
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "capped")
+            choice = pick("hash_join", sig)
             if node.how == "inner":
-                choice = pick("hash_join", sig)
                 row_cap = self._node_cap(caps, "row_cap", idx)
                 fn = (join.inner_join_capped if choice.fallback
                       else join_cuda.inner_join_capped_hash)
@@ -672,10 +682,9 @@ class PlanExecutor:
                 t = Table(cols, names=list(l.table.names) +
                           list(r.table.names))
                 return _CappedRel(t, valid), ovf
-            if idx not in prog.kernels:
-                prog.kernels[idx] = self._stamp("hash_join", sig)
-            mask = join.semi_join_mask(lkeys, rkeys, lalive=l.alive,
-                                       ralive=r.alive)
+            fn = (join.semi_join_mask if choice.fallback
+                  else join_cuda.semi_join_mask_hash)
+            mask = fn(lkeys, rkeys, lalive=l.alive, ralive=r.alive)
             alive = (l.alive & mask if node.how == "left_semi"
                      else l.alive & ~mask)
             return _CappedRel(l.table, alive), None

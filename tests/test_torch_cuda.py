@@ -150,7 +150,8 @@ def test_q3_on_the_card_uses_the_kernels():
     inputs = nds_q3.q3_inputs(200_000)
     join_cuda.reset_counters()
     res = PlanExecutor().execute(nds_q3.q3_plan(), inputs)
-    assert join_cuda.LAUNCHES == {"build": 2, "count": 2, "emit": 2}
+    assert join_cuda.LAUNCHES == {"build": 2, "count": 2,
+                                  "emit": 2, "exists": 0}
     assert [m.kernel for m in res.metrics.values()
             if m.kind == "HashJoin"] == ["cuda:hash_join"] * 2
     cpu = PlanExecutor(device="cpu").execute(nds_q3.q3_plan(), inputs)
@@ -503,7 +504,7 @@ def test_large_route_equals_plain_versions(case):
     assert torch.equal(lk, fl.data) and torch.equal(rk, fr.data)
     emits = int(total > 0)                 # no pairs, no emit launch
     assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1,
-                                        "emit": emits}
+                                        "emit": emits, "exists": 0}
     with pytest.raises(ValueError, match="MAX_BUILD"):
         join_cuda.build_table_cuda(
             [Column.from_numpy(np.zeros(join_cuda.MAX_BUILD + 1, np.int64),
@@ -512,9 +513,10 @@ def test_large_route_equals_plain_versions(case):
 
 
 def test_large_route_joins_on_three_streams_at_once():
-    """Large-route joins (cooperative builds) from three threads, each on
-    its own stream: each grid is resident alone, the calls share no device
-    state, and every map equals the sort-based join's."""
+    """Large-route joins from three threads, each on its own stream: each
+    call's build and probes keep their state in its own scratch, so the
+    calls share no device state and every map equals the sort-based
+    join's."""
     _need_card()
     import threading
     lc, rc = _large_case("inventory", np.random.default_rng(22))
@@ -593,9 +595,12 @@ def test_q72_on_the_card_uses_the_large_route(optimize):
     inputs = nds_q72.q72_inputs(300_000, device="cpu")
     join_cuda.reset_counters()
     res = PlanExecutor(optimize=optimize).execute(nds_q72.q72_plan(), inputs)
-    assert join_cuda.LAUNCHES == {"build": 5, "count": 5, "emit": 5}
-    assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1, "emit": 1}
-    assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+    assert join_cuda.LAUNCHES == {"build": 5, "count": 5,
+                                  "emit": 5, "exists": 0}
+    assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1,
+                                        "emit": 1, "exists": 0}
+    assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
+                                     "emit": 0, "exists": 0}
     cpu = PlanExecutor(device="cpu", optimize=optimize).execute(
         nds_q72.q72_plan(), inputs)
     _same_table(res.table.to("cpu"), cpu.table)
@@ -629,7 +634,8 @@ def test_capped_join_kernel_equals_plain_version(nr):
         for a, b in zip(got, want):
             assert torch.equal(a, b), cap
         assert join_cuda.CAPPED_CALLS == {"join": 1}
-        assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+        assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
+                                         "emit": 0, "exists": 0}
 
 
 @pytest.mark.parametrize("share", [0.6, 0.0, 1.0])
@@ -672,7 +678,8 @@ def test_capped_plans_on_the_card_use_the_kernels():
         n = sum(m.kind == "HashJoin" for m in res.metrics.values())
         assert res.attempts == 1
         assert join_cuda.CAPPED_CALLS == {"join": n}
-        assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+        assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
+                                         "emit": 0, "exists": 0}
         assert topk_cuda.PLAIN_CALLS == {"topk": 0}
         eager = PlanExecutor().execute(plan, inputs)
         _same_table(res.compact().to("cpu"), eager.table.to("cpu"))
@@ -717,8 +724,9 @@ def test_union_and_scalar_aggregates_on_the_card_equal_the_cpu():
 @pytest.mark.parametrize("q", ["q5", "q23"])
 def test_q5_q23_on_the_card_equal_the_cpu(q):
     """Both NDS plans, eager and capped, authored and optimized, on the
-    card: the groupby is the one kernel of the port on their path, no
-    plain version runs, and every result equals the CPU run."""
+    card: the keyed aggregates on the groupby kernel and every semi join on
+    the hash join's build and existence probe, no plain version run, and
+    every result equal to the CPU run."""
     _need_card()
     from spark_rapids_tpu_torch import nds_q5, nds_q23
     mod = {"q5": nds_q5, "q23": nds_q23}[q]
@@ -726,6 +734,7 @@ def test_q5_q23_on_the_card_equal_the_cpu(q):
     make = getattr(mod, f"{q}_inputs")
     inputs = make(60_000, device="cuda")
     cpu_inputs = make(60_000, device="cpu")
+    semis = {"q5": 3, "q23": 4}[q]
     for mode in ("eager", "capped"):
         for optimize in (False, True):
             join_cuda.reset_counters()
@@ -736,15 +745,16 @@ def test_q5_q23_on_the_card_equal_the_cpu(q):
             want = PlanExecutor(mode=mode, device="cpu",
                                 optimize=optimize).execute(plan, cpu_inputs)
             _same_table(res.compact().to("cpu"), want.compact())
-            assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
-                                          "emit": 0}
+            assert join_cuda.LAUNCHES == {"build": semis, "count": 0,
+                                          "emit": 0, "exists": semis}
             assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                             "emit": 0}
+                                             "emit": 0, "exists": 0}
             assert sum(select_cuda.LAUNCHES.values()) == 0
             assert sum(topk_cuda.LAUNCHES.values()) == 0
-            # the keyed aggregates are the one kernel on these paths
+            # the keyed aggregates and the semi joins are the kernels here
             assert {m.kernel for m in res.metrics.values()
-                    if m.kernel.startswith("cuda:")} == {"cuda:groupby"}
+                    if m.kernel.startswith("cuda:")} == {"cuda:groupby",
+                                                         "cuda:hash_join"}
 
 
 def test_capped_q23_reads_the_host_attempts_plus_one():
@@ -1381,3 +1391,148 @@ def test_q74_and_q3_strings_on_the_card_equal_the_cpu():
     want = PlanExecutor(device="cpu").execute(
         nds_q3.q3_tpcds_strings_plan(), q3)
     assert got.table.to("cpu").to_pydict() == want.table.to_pydict()
+
+
+# ---- the build without rounds, and the semi and anti joins ------------------
+
+def _build_case(kind, case, C, rng):
+    """A build side of one key column for one case, on the card: clusters
+    that wrap past the last slot, every row in one bucket, 512 equal keys,
+    nulls, no valid row, n = C / 2."""
+    def values(ids):
+        if kind == "float64":
+            return [-0.0 if i == 0 else float(i) * 0.5 for i in ids]
+        if kind == "decimal":
+            return [int(i) * 10 ** 20 + int(i) for i in ids]
+        if kind == "string":
+            return [f"key-{int(i)}" for i in ids]
+        return [int(i) for i in ids]
+    dt = {"int32": tdt.INT32, "int64": tdt.INT64, "float64": tdt.FLOAT64,
+          "decimal": tdt.decimal(38, 2), "string": tdt.STRING}[kind]
+
+    def in_buckets(buckets, n):
+        ids = np.arange(2 * n * C // len(buckets) + 1000)
+        cand = Column.from_pylist(values(ids), dt, device="cpu")
+        b = (join_cuda.row_hash([cand]) & (C - 1)).numpy()
+        return values(rng.permutation(ids[np.isin(b, list(buckets))])[:n])
+    if case == "wrap":
+        keys = in_buckets((C - 3, C - 2, C - 1, 0), 64) + values(
+            rng.integers(0, 10 * C, C // 4))
+    elif case == "one_bucket":
+        keys = in_buckets((C - 1,), min(C // 2, 256))
+    elif case == "equal_512":
+        keys = values([7]) * 512
+    elif case == "all_null":
+        keys = [None] * (C // 4)
+    elif case == "nulls":
+        keys = [None if v else k for k, v in zip(
+            values(rng.integers(0, C // 6 + 1, C // 2)),
+            rng.random(C // 2) < 0.3)]
+    else:                                        # "half"
+        keys = values(rng.permutation(4 * C)[:C // 2])
+    return [Column.from_pylist(keys, dt, device="cuda")]
+
+
+_CARD_BUILDS = [(kind, case, C)
+                for kind in ("int32", "int64", "float64", "decimal",
+                             "string")
+                for case, C in (("wrap", 256), ("wrap", 4096),
+                                ("one_bucket", 512), ("one_bucket", 8192),
+                                ("equal_512", 1024), ("equal_512", 4096),
+                                ("all_null", 2048), ("nulls", 1024),
+                                ("nulls", 1 << 14), ("half", 1024),
+                                ("half", 2048), ("half", 1 << 14))]
+
+
+@pytest.mark.parametrize("kind,case,C", _CARD_BUILDS)
+def test_build_without_rounds_equals_the_rounds(kind, case, C):
+    """The build kernels (small route up to 1,024 slots, large above)
+    against the plain version's rounds and the closed form, slot for slot,
+    and the large route's rounds."""
+    _need_card()
+    b = _build_case(kind, case, C, np.random.default_rng(C + len(case)))
+    tk = join_cuda.build_table_cuda(b, C)
+    tp = join_cuda.build_table_plain(b, C)
+    tc = join_cuda.build_table_closed_form(b, C)
+    for t in (tp, tc):
+        assert torch.equal(tk.slot_row, t.slot_row)
+        assert torch.equal(tk.slot_hash, t.slot_hash)
+    assert int(tp.rounds) == int(tc.rounds)
+    if join_cuda.is_large(C):
+        assert int(tk.rounds) == int(tp.rounds)
+        assert torch.equal(tk.packed(), tp.packed())
+
+
+@pytest.mark.parametrize("shape", ["q72_inventory", "q74_customers",
+                                   "ceiling"])
+def test_build_without_rounds_at_the_plans_shapes(shape):
+    """q72's 52,000-row inventory (two INT64 keys), 489,258 16-byte string
+    customer ids (q74's) and the 2^22-row ceiling: the large build against
+    the plain version, rounds included."""
+    _need_card()
+    rng = np.random.default_rng(4)
+    if shape == "q72_inventory":
+        items, weeks = np.meshgrid(np.arange(500), np.arange(104))
+        b = [Column.from_numpy(items.ravel().astype(np.int64), tdt.INT64,
+                               device="cuda"),
+             Column.from_numpy(weeks.ravel().astype(np.int64), tdt.INT64,
+                               device="cuda")]
+    elif shape == "q74_customers":
+        ids = rng.permutation(500_000)[:489_258]
+        b = [Column.from_pylist([f"AAAAAAAA{i:08d}" for i in ids],
+                                tdt.STRING, device="cuda")]
+    else:
+        b = [Column.from_numpy(rng.permutation(join_cuda.MAX_BUILD)
+                               .astype(np.int64), tdt.INT64,
+                               device="cuda")]
+    C = join_cuda._capacity(b[0].length)
+    tk = join_cuda.build_table_cuda(b, C)
+    tp = join_cuda.build_table_plain(b, C)
+    assert torch.equal(tk.packed(), tp.packed())
+    assert int(tk.rounds) == int(tp.rounds) > 1
+
+
+@pytest.mark.parametrize("kind", ["int64", "int16", "float64", "decimal",
+                                  "string"])
+@pytest.mark.parametrize("nr", [300, 5_000])
+def test_exists_kernel_equals_plain_version_and_sort_route(kind, nr):
+    """The existence probe on both routes against its plain version and
+    the count's; the semi and anti joins against the sort-based ones, with
+    alive masks on both sides."""
+    _need_card()
+    rng = np.random.default_rng(nr)
+    if kind in ("int64", "int16"):
+        npt, dt = {"int64": (np.int64, tdt.INT64),
+                   "int16": (np.int16, tdt.INT16)}[kind]
+
+        def keys(n):
+            return [Column.from_numpy(rng.integers(0, nr, n).astype(npt),
+                                      dt, rng.random(n) > 0.05,
+                                      device="cuda")]
+        p, b = keys(200_003), keys(nr)
+    else:
+        p, b = (_key_column(kind, 200_003, rng, 0.05),
+                _key_column(kind, nr, rng, 0.05))
+        p, b = [p], [b]
+    C = join_cuda._capacity(nr)
+    table = join_cuda.build_table_cuda(b, C)
+    join_cuda.reset_counters()
+    got = join_cuda.probe_exists_cuda(p, table, b)
+    assert join_cuda.LAUNCHES["exists"] == 1
+    assert join_cuda.LARGE_LAUNCHES["exists"] == int(join_cuda.is_large(C))
+    assert join_cuda.VAR_LAUNCHES["exists"] == int(join_cuda.is_var(p))
+    assert torch.equal(got, join_cuda.probe_exists_plain(p, table, b))
+    assert torch.equal(got, join_cuda.probe_counts_cuda(p, table, b).counts
+                       > 0)
+    la = torch.from_numpy(rng.random(200_003) < 0.6).cuda()
+    ra = torch.from_numpy(rng.random(nr) < 0.6).cuda()
+    assert torch.equal(join_cuda.semi_join_mask_hash(p, b, lalive=la,
+                                                     ralive=ra),
+                       join.semi_join_mask(p, b, lalive=la, ralive=ra))
+    assert torch.equal(join_cuda.left_semi_join_hash(p, b).data,
+                       join.left_semi_join(p, b).data)
+    assert torch.equal(join_cuda.left_anti_join_hash(p, b).data,
+                       join.left_anti_join(p, b).data)
+    # the wrappers never ran a plain version on the card
+    assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0,
+                                     "exists": 0}

@@ -138,11 +138,13 @@ def test_bucket_hash_matches_reference_words():
 
 def test_supports_parity_with_reference():
     """`_supports` equals the reference's on every signature but the build
-    size and float keys: the reference declines above its 512 rows (VMEM),
-    the port's large route takes up to its stated ceiling, MAX_BUILD =
-    2^22 rows, and declines one row more; the reference's Pallas join
-    declines float keys, the port's kernels take them (queue C 7: on the
-    card a decline raises, where the reference's sort-based join runs)."""
+    size, float keys and semi joins: the reference declines above its 512
+    rows (VMEM), the port's large route takes up to its stated ceiling,
+    MAX_BUILD = 2^22 rows, and declines one row more; the reference's
+    Pallas join declines float keys, the port's kernels take them (queue C
+    7: on the card a decline raises, where the reference's sort-based join
+    runs); the reference has no kernel for semi and anti joins, the port
+    runs them on its build and existence probe."""
     specs = [
         (np.zeros(4, np.float32), np.zeros(4, np.float32), "inner", "eager"),
         (np.zeros(4, np.int64), np.zeros(4, np.int64), "left_semi", "eager"),
@@ -165,7 +167,7 @@ def test_supports_parity_with_reference():
         verdicts.append(join_cuda._supports(join_cuda.make_signature(
             [_tcol(c) for c in jl], [_tcol(c) for c in jr], how, tier)))
     assert refs == [False, False, False, True, True, False]
-    assert verdicts == [True, False, True, True, True, False]
+    assert verdicts == [True, True, True, True, True, False]
 
     def port(nr):
         return join_cuda._supports(join_cuda.make_signature(
@@ -205,8 +207,10 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
                           device="cpu")]
     join_cuda.reset_counters()
     join_cuda.inner_join_hash(k, k)
-    assert join_cuda.PLAIN_CALLS == {"build": 1, "count": 1, "emit": 1}
-    assert join_cuda.LAUNCHES == {"build": 0, "count": 0, "emit": 0}
+    assert join_cuda.PLAIN_CALLS == {"build": 1, "count": 1,
+                                     "emit": 1, "exists": 0}
+    assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
+                                  "emit": 0, "exists": 0}
     # the kernel path refuses CPU tensors instead of running another way
     with pytest.raises(ValueError, match="CUDA tensors"):
         join_cuda.build_table_cuda(k, 256)

@@ -126,8 +126,9 @@ def test_forced_kernels_run_their_plain_mirrors(monkeypatch, which):
     assert stamps["HashAggregate"] == "torch:groupby"
     n_joins = sum(n.kind == "HashJoin" for n in res.plan.nodes)
     assert join_cuda.PLAIN_CALLS == {"build": n_joins, "count": n_joins,
-                                     "emit": n_joins}
-    assert join_cuda.LAUNCHES == {"build": 0, "count": 0, "emit": 0}
+                                     "emit": n_joins, "exists": 0}
+    assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
+                                  "emit": 0, "exists": 0}
     assert join_cuda.CAPPED_CALLS == {"join": 0}
     if which == "tpcds_q3":
         assert stamps["TopK"] == "cuda:topk"

@@ -126,7 +126,8 @@ def test_q23_matches_jax(monkeypatch, ref, inputs, tier, optimize):
     assert (calls.count(keyed), calls.count("_global_aggregate")) == (2, 3)
     stamps = {m.kernel for m in res.metrics.values() if m.kernel}
     assert stamps == {"torch:hash_join", "torch:groupby"}
-    assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0}
+    assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
+                                     "emit": 0, "exists": 0}
 
 
 def _strip(text):
