@@ -62,14 +62,23 @@ in phases that each raise on failure:
    1,000 groups through `PlanExecutor`, twice on the card, each run's
    bits equal to the CPU run's (the groupby kernel's fold), with
    `index_add_` on the card beside it; the fold timed at 3 groups;
-4b'''' groupby: the groupby kernel against its plain version on the CPU,
-   bit for bit: every op on INT8 to TIMESTAMP_US, with nulls and all-null
-   groups, one group, all rows distinct, groups across tile edges, 0 to
-   100,003 rows, NaN payloads that tell a fold's first NaN from its last,
-   eager and capped (key_cap below, at and above the group count, alive
-   masks), and q23's zipf keys at 10M rows; then timed at q23's two keyed
-   aggregates and the C4 shapes beside `index_add_`, the plain version,
-   the bytes bound and, for the fold, the chain bound from the probe;
+4b'''' groupby: the hash-aggregation kernels against their plain version
+   on the CPU, bit for bit: every op on INT8 to TIMESTAMP_US values, with
+   nulls and all-null groups, one group, all rows distinct, groups across
+   tile edges, 0 to 100,003 rows, NaN payloads that tell a fold's first
+   NaN from its last, eager and capped (key_cap below, at and above the
+   group count, alive masks); every key kind (BOOL, INT8-64, DATE32,
+   TIMESTAMP, FLOAT32/64 with both zeros, NaN payloads and infinities,
+   DECIMAL128, STRING with empty strings and STRING min/max) alone and in
+   three-column sets at 2,049 and 100,003 rows, eager and capped; q23's
+   zipf keys at 100,003 rows and 10M; then the whole keyed aggregate timed
+   at q23's two aggregates, eager and capped (key_cap 8,192), and the C4
+   shapes, beside the parent's n-row sort and boundaries alone,
+   `index_add_`, the plain version, the least work's bound and, for the
+   fold, the chain bound from the probe. `--groupby-ab` times only the
+   whole op at q23's shapes (copied into an earlier tree's root it runs
+   there too, for A/B runs); `--plan-walls N` the walls, busy time and
+   idle share of q3, TPC-DS q3 (INT32 and STRING), q72 and q74;
 4b'''. the capped tier: the capped hash join against its plain version
    (`ops.join.inner_join_capped`), all four outputs bit for bit, at the
    join shapes and alive masks of q3's two joins, q72's 20-row hd join
@@ -261,7 +270,11 @@ KERNEL_NAMES = {"build": "build_kernel<Keys>",
                 "exists_large": "exists_kernel<true,Keys>",
                 "segment_sum": ("gb_fold_short_kernel",
                                 "gb_fold_long_kernel"),
-                "groupby": ("gb_fill_kernel", "gb_reduce_kernel",
+                "groupby": ("gb_fill_kernel", "gb_insert_kernel<0>",
+                            "gb_insert_kernel<4>", "gb_insert_kernel<8>",
+                            "gb_words_kernel", "gb_sort_chunks_kernel",
+                            "gb_merge_kernel", "gb_rank_kernel",
+                            "gb_agg_kernel<true>", "gb_agg_kernel<false>",
                             "gb_fold_short_kernel", "gb_fold_long_kernel"),
                 "murmur": "row_hash_kernel<true,false>",
                 "xxhash": "row_hash_kernel<false,true>",
@@ -2240,7 +2253,7 @@ def c4_phase(torch, chk, add_ms):
             ssc.reset_counters()
             got = PlanExecutor(optimize=False).execute(plan, t_gpu).table
             torch.cuda.synchronize()
-            require(gc.LAUNCHES == {"groupby": 1, "fold": 1}
+            require(gc.LAUNCHES == {"groupby": 1, "fold": 1, "sort": 0}
                     and gc.PLAIN_CALLS["groupby"] == 0
                     and ssc.PLAIN_CALLS["segment_sum"] == 0,
                     f"C4 {groups} groups: groupby launches {gc.LAUNCHES}, "
@@ -2393,20 +2406,21 @@ def gb_nan_table(rng):
 
 
 def gb_case(torch, chk, gc, aggregate, t_cpu, aggs, what, cap=None,
-            alive=None):
-    """The kernel on the card against the plain version on the CPU, bit
-    for bit; one launch a call with rows."""
+            alive=None, keys=("k",)):
+    """The kernels on the card against the plain version on the CPU, bit
+    for bit; one entry-point call a call with rows."""
     t_gpu = t_cpu.to("cuda")
+    keys = list(keys)
     before = gc.LAUNCHES["groupby"]
     if cap is None:
-        want = aggregate.groupby_aggregate(t_cpu, ["k"], aggs)
-        got = aggregate.groupby_aggregate(t_gpu, ["k"], aggs)
+        want = aggregate.groupby_aggregate(t_cpu, keys, aggs)
+        got = aggregate.groupby_aggregate(t_gpu, keys, aggs)
         chk.tables("groupby", got.to("cpu"), want, what)
     else:
-        want = aggregate.groupby_aggregate_capped(t_cpu, ["k"], aggs, cap,
+        want = aggregate.groupby_aggregate_capped(t_cpu, keys, aggs, cap,
                                                   alive)
         got = aggregate.groupby_aggregate_capped(
-            t_gpu, ["k"], aggs, cap, None if alive is None else alive.cuda())
+            t_gpu, keys, aggs, cap, None if alive is None else alive.cuda())
         chk.tables("groupby", got[0].to("cpu"), want[0], what)
         chk.equal("groupby", got[1].cpu(), want[1], f"{what} valid")
         chk.equal("groupby", got[2].cpu(), want[2], f"{what} overflow")
@@ -2417,38 +2431,161 @@ def gb_case(torch, chk, gc, aggregate, t_cpu, aggs, what, cap=None,
             f"{what}: {launched} launches, plain {gc.PLAIN_CALLS}")
 
 
-def gb_sorted(torch, table, key):
-    """(order, seg, per-row group, group count) of `table` by `key`, as
-    `groupby_aggregate` computes them."""
+# the key kinds of the matrix (every kind `_key_operands` orders)
+GB_KEY_KINDS = ("bool", "int8", "int16", "int32", "int64", "date32",
+                "timestamp", "float32", "float64", "decimal128", "string")
+GB_WORDS = ("", "a", "a\x00", "ab", "abcdefgh", "abcdefghi", "日本",
+            "pre_12", "Z")
+GB_DECS = (0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 2 ** 64, -2 ** 64, 7)
+GB_NANS = {np.float32: (np.uint32, (0x7FC00000, 0x7F800123, 0xFFC00042)),
+           np.float64: (np.uint64, (0x7FF8000000000000, 0x7FF0000000000123,
+                                    0xFFF8000000000456))}
+
+
+def gb_key_column(rng, kind, n, null_p, groups):
+    """A key column of `kind` on the CPU with about `groups` distinct
+    values (both zeros, NaN payloads and infinities among the floats,
+    integer extremes, empty strings), nulls at null_p."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    valid = rng.random(n) >= null_p
+    if kind in ("string", "decimal128"):
+        base = list(GB_WORDS if kind == "string" else GB_DECS)
+        pool = base + [(f"k{i:07d}" if kind == "string" else i * 10 ** 20)
+                       for i in range(max(groups - len(base), 0))]
+        idx = rng.integers(0, len(pool), n)
+        return Column.from_pylist(
+            [pool[i] if v else None for i, v in zip(idx, valid)],
+            dt.STRING if kind == "string" else dt.decimal(38, 2),
+            device="cpu")
+    npt = {"bool": np.bool_, "int8": np.int8, "int16": np.int16,
+           "int32": np.int32, "int64": np.int64, "date32": np.int32,
+           "timestamp": np.int64, "float32": np.float32,
+           "float64": np.float64}[kind]
+    dtype = {"bool": dt.BOOL, "int8": dt.INT8, "int16": dt.INT16,
+             "int32": dt.INT32, "int64": dt.INT64, "date32": dt.DATE32,
+             "timestamp": dt.TIMESTAMP_US, "float32": dt.FLOAT32,
+             "float64": dt.FLOAT64}[kind]
+    if kind == "bool":
+        a = rng.random(n) < 0.5
+    elif npt in GB_NANS:
+        ut, bits = GB_NANS[npt]
+        pool = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf], npt),
+                               np.array(bits, ut).view(npt),
+                               np.arange(groups, dtype=npt)])
+        a = pool[rng.integers(0, pool.size, n)]
+    else:
+        info = np.iinfo(npt)
+        pool = np.concatenate([np.array([info.min, info.max], npt),
+                               np.arange(groups, dtype=npt)])
+        a = pool[rng.integers(0, pool.size, n)]
+    return Column.from_numpy(a, dtype, None if valid.all() else valid,
+                             device="cpu")
+
+
+def gb_key_table(rng, keys, strings):
+    """The key columns and value columns beside them (INT64 for integer
+    sums and extremes, FLOAT64 for sums and means, STRING for min/max in
+    the eager tier), with their aggregations."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    n = keys[0].length
+    cols = list(keys) + [
+        Column.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n), dt.INT64,
+                          rng.random(n) >= 0.2, device="cpu"),
+        Column.from_numpy(rng.standard_normal(n), dt.FLOAT64,
+                          rng.random(n) >= 0.2, device="cpu")]
+    names = [f"k{i}" for i in range(len(keys))] + ["v", "x"]
+    aggs = [("v", "sum"), ("v", "min"), ("v", "max"), ("v", "count"),
+            ("x", "sum"), ("x", "mean"), ("v", "size")]
+    if strings:
+        idx = rng.integers(0, len(GB_WORDS), n)
+        ok = rng.random(n) >= 0.3
+        cols.append(Column.from_pylist([GB_WORDS[i] if o else None
+                                        for i, o in zip(idx, ok)],
+                                       dt.STRING, device="cpu"))
+        names.append("s")
+        aggs += [("s", "min"), ("s", "max")]
+    return Table(cols, names), aggs
+
+
+def gb_kind_cases(torch, chk, gc, aggregate, rng):
+    """Every key kind alone and two three-column key sets, at 2,049 rows
+    (40 groups) and 100,003 (6,000), with nulls: eager (with STRING
+    min/max), and capped for the fixed-width kinds (key_cap below and
+    above the live groups, 60% of rows live); q23's zipf(1.3) skew at
+    100,003 rows. -> cases run."""
+    cases = 0
+    sets = [[k] for k in GB_KEY_KINDS] + [["int32", "string", "float64"],
+                                          ["int16", "decimal128", "float32"]]
+    for kinds in sets:
+        for n, groups in ((2049, 40), (100_003, 6000)):
+            keys = [gb_key_column(rng, k, n, 0.2, groups) for k in kinds]
+            names = [f"k{i}" for i in range(len(kinds))]
+            what = f"groupby keys {'+'.join(kinds)}, {n} rows"
+            t, aggs = gb_key_table(rng, keys, True)
+            gb_case(torch, chk, gc, aggregate, t, aggs, what, keys=names)
+            cases += 1
+            if "string" in kinds:
+                continue
+            t, aggs = gb_key_table(rng, keys, False)
+            alive = torch.from_numpy(rng.random(n) < 0.6)
+            live = int(aggregate.groupby_aggregate_capped(
+                t, names, [("v", "size")], n, alive)[1].sum())
+            for cap in (max(live // 2, 1), live + 3):
+                gb_case(torch, chk, gc, aggregate, t, aggs,
+                        f"{what} capped {cap}", cap, alive, keys=names)
+                cases += 1
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    keys = [Column.from_numpy((rng.zipf(1.3, 100_003) % 2000).astype(
+        np.int64), dt.INT64, device="cpu")]
+    t, aggs = gb_key_table(rng, keys, True)
+    gb_case(torch, chk, gc, aggregate, t, aggs, "groupby zipf keys, 100003 "
+            "rows", keys=["k0"])
+    return cases + 1
+
+
+def gb_least_bytes(table, keys, specs, G):
+    """Bytes the groupby must move: each key column, value and validity
+    byte read once (a STRING key's offsets and chars), every (G,) output
+    written once (the key columns' rows and each aggregation's values and
+    validity)."""
+    total = 0
+    # a column only counted is read for its validity alone
+    values = {id(s.col): s.col for s in specs
+              if s.col is not None and s.op != "count"}
+    counted = {id(s.col): s.col for s in specs
+               if s.op == "count" and id(s.col) not in values}
+    for c in [table[k] for k in keys] + list(values.values()):
+        total += c.data.numel() * c.data.element_size()
+        if c.offsets is not None:
+            total += c.offsets.numel() * 4
+        if c.validity is not None:
+            total += c.length
+    for c in counted.values():
+        total += c.length if c.validity is not None else 0
+    for c in (table[k] for k in keys):
+        total += G * (c.data.element_size() * (c.data.numel() // max(
+            c.length, 1)) + (c.validity is not None))
+    for s in specs:
+        total += G * (8 + (s.op != "count" and s.op != "size"))
+    return total
+
+
+def gb_sorted_part(torch, table, key):
+    """What the parent's design ran before its kernel, which this one no
+    longer runs: the stable sort of the n rows by the key's operands, the
+    run boundaries (each operand gathered through the order) and the group
+    ids (its `cumsum`)."""
     from spark_rapids_tpu_torch.ops.sort import _key_operands, lex_order
     ops_ = _key_operands(table[key], True, None)
     order = lex_order(ops_)
-    n = table.num_rows
-    boundary = torch.arange(n, device=table.device) == 0
+    boundary = torch.arange(table.num_rows, device=table.device) == 0
     for o in ops_:
         s = o.index_select(0, order)
         boundary[1:] |= s[1:] != s[:-1]
-    seg = torch.cumsum(boundary, 0) - 1
-    gid = torch.empty_like(seg).scatter_(0, order, seg)
-    return order, boundary, seg, gid, int(seg[-1]) + 1
-
-
-def gb_bytes(specs, n, G, gc):
-    """Bytes the groupby must move: `seg` read once, `order` read once
-    (only at the groups' first rows when no job reads a row), each value
-    and validity byte gathered once, every (G,) output written once."""
-    jobs, _ = gc._jobs(specs)
-    reads_rows = any(j.col is not None and (j.op != gc.OP_COUNT
-                                            or j.col.validity is not None)
-                     for j in jobs)
-    total = 8 * n + (8 * n if reads_rows else 8 * G) + 8 * G
-    for j in jobs:
-        if j.col is not None and j.op != gc.OP_COUNT:
-            total += j.col.data.element_size() * n
-        if j.col is not None and j.col.validity is not None:
-            total += n
-        total += 8 * G
-    return total
+    return torch.cumsum(boundary, 0) - 1
 
 
 def dadd_latency_ms(torch, dadd, rounds=GB_DADD_ROUNDS):
@@ -2476,23 +2613,44 @@ def dadd_latency_ms(torch, dadd, rounds=GB_DADD_ROUNDS):
                             for _ in range(5)]))
 
 
-def gb_time(torch, chk, gc, aggregate, table, key, aggs, what, add_ms=None):
-    """The groupby kernel timed at one keyed aggregate: its device time and
-    one call's (the L2 flushed), the plain version on the CPU (host
-    clock), `index_add_` on the card over the per-row group ids (the
-    library call; for an integer sum or count the same bits, checked), the
-    bytes bound and, for a float sum, the chain bound."""
+def gb_time(torch, chk, gc, aggregate, table, key, aggs, what, add_ms=None,
+            cap=None):
+    """The whole keyed aggregate timed on the card (`groupby_aggregate`,
+    or the capped form at key_cap `cap` with every row live): the device
+    time of everything it runs (kernels, the G-row sort, memsets, copies)
+    and the groupby kernels' share, one call's time (the L2 flushed; the
+    eager tier's host read of G inside it), the sorted part of the
+    parent's design that this one no longer runs (the n-row sort and run
+    boundaries), the plain version on the CPU (host clock), `index_add_`
+    on the card over the per-row group ids (the library call; for an
+    integer sum or count the same bits, checked), the least work's bound
+    and, for a float sum, the chain bound."""
     specs = aggregate._agg_specs(table, aggs)
-    order, boundary, seg, gid, G = gb_sorted(torch, table, key)
     n = table.num_rows
-    first, cols, _ = gc.groupby_reduce_cuda(specs, order, seg, G)
+    if cap is None:
+        op = lambda: aggregate.groupby_aggregate(       # noqa: E731
+            table, [key], aggs)
+    else:
+        live = torch.ones(n, dtype=torch.bool, device="cuda")
+        op = lambda: aggregate.groupby_aggregate_capped(  # noqa: E731
+            table, [key], aggs, cap, live)[0]
+    got = op()
+    cpu = table.to("cpu")
+    t0 = time.perf_counter()
+    want = (aggregate.groupby_aggregate(cpu, [key], aggs) if cap is None else
+            aggregate.groupby_aggregate_capped(
+                cpu, [key], aggs, cap, torch.ones(n, dtype=torch.bool))[0])
+    pms = (time.perf_counter() - t0) * 1e3
+    chk.tables("groupby", got.to("cpu"), want, f"{what} whole op")
+    ms, by_name = device_by_name(torch, op, 10)
+    kms = sum(v for k, v in by_name.items() if k in KERNEL_NAMES["groupby"])
+    cms = call_ms(torch, op, 10)
+    sort_ms, _ = device_by_name(torch, lambda: gb_sorted_part(
+        torch, table, key), 5)
+    _, gid = torch.unique(table[key].data, return_inverse=True)
+    G = int(gid.max()) + 1
     fold = any(s.op == "mean" or (s.op == "sum" and s.col.dtype.is_floating)
                for s in specs)
-    kern = lambda: gc.groupby_reduce_cuda(specs, order, seg, G)  # noqa: E731
-    ms = device_ms(torch, kern, KERNEL_NAMES["groupby"], 20,
-                   per_call=4 if fold else 2)
-    cms = call_ms(torch, kern, 20)
-    # the library call: index_add_ of each value where valid, by row
     (s0,) = [s for s in specs if s.op != "size"][:1] or [specs[0]]
     c = s0.col
     v = (c.null_mask.to(torch.int64) if s0.op == "count"
@@ -2500,57 +2658,69 @@ def gb_time(torch, chk, gc, aggregate, table, key, aggs, what, add_ms=None):
                                                  else torch.int64), 0))
     lib = lambda: torch.zeros(G, dtype=v.dtype,                # noqa: E731
                               device="cuda").index_add_(0, gid, v)
-    lms = call_ms(torch, lib, 20)
+    lms = call_ms(torch, lib, 10)
     same = None
-    if not fold:
-        same = bool(torch.equal(lib(), cols[0].data.to(torch.int64)))
+    if not fold and cap is None:
+        # index_add_ over the group ids in key order (torch.unique's)
+        same = bool(torch.equal(lib(), got.columns[1].data.to(torch.int64)))
         require(same, f"{what}: index_add_ on the card differs from the "
                 "kernel's integer result")
-    cpu = table.to("cpu")
-    o_c, b_c, s_c = order.cpu(), boundary.cpu(), seg.cpu()
-    specs_c = aggregate._agg_specs(cpu, aggs)
-    t0 = time.perf_counter()
-    _, want, _ = aggregate._reduce_plain(specs_c, o_c, b_c, s_c, None, None)
-    pms = (time.perf_counter() - t0) * 1e3
-    for a, b in zip(cols, want):
-        chk.equal("groupby", (a.data.view(torch.int64) if fold
-                              else a.data).cpu(),
-                  b.data.view(torch.int64) if fold else b.data,
-                  f"{what} kernel vs plain")
-    nbytes = gb_bytes(specs, n, G, gc)
+    nbytes = gb_least_bytes(table, [key], specs, G if cap is None else cap)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ = n if fold else 0           # float64 adds
     ops_ms = ops_ / PEAK_F64_OPS_PER_S * 1e3
-    out = {"rows": n, "groups": G, "ms": ms, "call_ms": cms,
-           "plain_ms": pms, "library_ms": lms,
-           "library_same_bits": same, "bytes": nbytes, "ops": ops_,
-           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-           "bound_ms": max(bytes_ms, ops_ms)}
+    out = {"rows": n, "groups": G, "cap": cap, "ms": ms, "kernels_ms": kms,
+           "by_name": by_name, "call_ms": cms, "sorted_part_ms": sort_ms,
+           "plain_ms": pms, "library_ms": lms, "library_same_bits": same,
+           "bytes": nbytes, "ops": ops_, "bytes_ms": bytes_ms,
+           "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
     if fold:
         # the fold's own bound: its longest chain of dependent adds
-        longest = int(torch.bincount(seg).max())
+        longest = int(torch.bincount(gid).max())
         out.update(longest_group=longest, dadd_ms=add_ms,
                    chain_ms=longest * add_ms)
-    log(f"  groupby {what} ({n} rows, {G} groups): device {ms!r} ms, one "
-        f"call {cms!r} ms, plain (CPU, host clock) {pms!r} ms, index_add_ "
+    log(f"  groupby {what} ({n} rows, {G} groups"
+        + ("" if cap is None else f", key_cap {cap}")
+        + f"): whole op device {ms!r} ms (groupby kernels {kms!r}), one "
+        f"call {cms!r} ms; the parent's n-row sort and boundaries alone "
+        f"{sort_ms!r} ms; plain (CPU, host clock) {pms!r} ms; index_add_ "
         f"on the card {lms!r} ms (same bits: {same}); bound "
         f"{out['bound_ms']!r} ms ({nbytes} B, {ops_} adds"
         + (f", chain {out['chain_ms']!r} ms over {out['longest_group']} "
-           f"rows" if fold else "") + ")")
+           f"rows" if fold else "") + f"); by kernel {by_name}")
     return out
 
 
-def groupby_phase(torch, chk, dadd):
-    """The groupby kernel against its plain version on the CPU, bit for
-    bit: every op on eight kinds, with and without nulls and with all-null
-    groups, on one group, all rows distinct, groups across tile edges and
-    40 random groups, at 0, 1, a tile - 1, + 0 and + 1, 6,145 and 100,003
-    rows, eager and capped (key_cap below, at and above the group count,
-    alive masks); at 10M rows on q23's zipf(1.3) % 2,000 and zipf(1.2) %
-    5,000 keys, eager and capped; then timed at q23's two keyed aggregates
-    and the C4 shapes."""
+def q23_aggregate_table(torch):
+    """q23's store rows at N_SALES on the card: item_sk, cust_sk, qty and
+    rev = qty * price, the inputs of its two keyed aggregates."""
     from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch import nds_q23
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    store, _ = nds_q23.datagen(N_SALES, seed=0)
+    return Table([Column.from_numpy(store[c], dt.INT64, device="cuda")
+                  for c in ("item_sk", "cust_sk", "qty")] +
+                 [Column.from_numpy(store["qty"] * store["price"], dt.INT64,
+                                    device="cuda")],
+                 ["item_sk", "cust_sk", "qty", "rev"])
+
+
+Q23_AGGREGATES = (("q23 count(qty) by item_sk", "item_sk", [("qty", "count")]),
+                  ("q23 sum(rev) by cust_sk", "cust_sk", [("rev", "sum")]))
+
+
+def groupby_phase(torch, chk, dadd):
+    """The groupby kernels against their plain version on the CPU, bit for
+    bit: every op on eight value kinds, with and without nulls and with
+    all-null groups, on one group, all rows distinct, groups across tile
+    edges and 40 random groups, at 0, 1, a tile - 1, + 0 and + 1, 6,145
+    and 100,003 rows, eager and capped (key_cap below, at and above the
+    group count, alive masks); every key kind and two three-column key
+    sets (`gb_kind_cases`); at 10M rows on q23's zipf(1.3) % 2,000 and
+    zipf(1.2) % 5,000 keys, eager and capped; then the whole op timed at
+    q23's two keyed aggregates, eager and capped (key_cap 8,192), and the
+    C4 shapes."""
+    from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch.columnar import Column, Table
     from spark_rapids_tpu_torch.ops import aggregate
     from spark_rapids_tpu_torch.ops import groupby_cuda as gc
@@ -2584,7 +2754,10 @@ def groupby_phase(torch, chk, dadd):
     gb_case(torch, chk, gc, aggregate, t, aggs, "groupby NaN payloads "
             "capped 6", 6, torch.from_numpy(rng.random(t.num_rows) < 0.8))
     n_cases += 2
-    log(f"groupby: {n_cases} small cases equal the plain version "
+    kinds = gb_kind_cases(torch, chk, gc, aggregate, rng)
+    n_cases += kinds
+    log(f"groupby: {n_cases} small cases equal the plain version, "
+        f"{kinds} of them over the key kinds "
         f"({time.perf_counter() - t0:.1f} s)")
     # q23's skew at 10M rows
     t0 = time.perf_counter()
@@ -2602,24 +2775,19 @@ def groupby_phase(torch, chk, dadd):
         f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
-    # timed: q23's two keyed aggregates over its 10M store rows
-    store, _ = nds_q23.datagen(N_SALES, seed=0)
-    q23 = Table([Column.from_numpy(store[c], dt.INT64, device="cuda")
-                 for c in ("item_sk", "cust_sk", "qty")] +
-                [Column.from_numpy(store["qty"] * store["price"], dt.INT64,
-                                   device="cuda")],
-                ["item_sk", "cust_sk", "qty", "rev"])
-    del store
+    # timed: q23's two keyed aggregates over its 10M store rows, eager and
+    # capped at the plan's key_cap
+    q23 = q23_aggregate_table(torch)
     add_ms = dadd_latency_ms(torch, dadd)
     log(f"  one dependent float64 add: {add_ms * 1e6!r} ns "
         f"({GB_DADD_ROUNDS} in one thread)")
-    timing = {
-        "q23 count(qty) by item_sk": gb_time(
-            torch, chk, gc, aggregate, q23, "item_sk", [("qty", "count")],
-            "q23 count(qty) by item_sk"),
-        "q23 sum(rev) by cust_sk": gb_time(
-            torch, chk, gc, aggregate, q23, "cust_sk", [("rev", "sum")],
-            "q23 sum(rev) by cust_sk")}
+    timing = {}
+    for what, key, aggs in Q23_AGGREGATES:
+        timing[what] = gb_time(torch, chk, gc, aggregate, q23, key, aggs,
+                               what)
+        timing[f"{what}, capped"] = gb_time(
+            torch, chk, gc, aggregate, q23, key, aggs, f"{what}, capped",
+            cap=Q23_CAPS["key_cap"])
     del q23
     # the C4 shapes: a FLOAT64 sum over 10M rows in 3 and 1,000 groups
     vals = rng.standard_normal(N_SALES) * 10.0 ** rng.integers(-8, 12,
@@ -2637,6 +2805,50 @@ def groupby_phase(torch, chk, dadd):
         del t
     torch.cuda.empty_cache()
     return {"cases": n_cases, "dadd_ms": add_ms, "timing": timing}
+
+
+def groupby_ab_phase(torch, iters=10):
+    """q23's two keyed aggregates alone, eager and capped (key_cap 8,192,
+    every row live), and two shapes with many groups (4M rows in 1M
+    groups; 10M all-distinct rows), the whole op's device time and one
+    call's, to compare two trees in one call (this script run from each
+    tree's root: it calls only `groupby_aggregate` and its capped
+    form)."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    from spark_rapids_tpu_torch.ops import aggregate
+    q23 = q23_aggregate_table(torch)
+    rng = np.random.default_rng(1)
+
+    def keyed(keys):
+        return Table([Column.from_numpy(keys, dt.INT64, device="cuda"),
+                      Column.from_numpy(rng.integers(-100, 100, keys.size),
+                                        dt.INT64, device="cuda")],
+                     ["k", "v"])
+    shapes = [(what, q23, key, aggs) for what, key, aggs in Q23_AGGREGATES]
+    shapes += [("sum(v) by k, 4M rows in 1M groups",
+                keyed(rng.integers(0, 1_000_000, 4_000_000)), "k",
+                [("v", "sum")]),
+               ("sum(v) by k, 10M distinct rows",
+                keyed(rng.permutation(N_SALES)), "k", [("v", "sum")])]
+    out = {}
+    for what, t, key, aggs in shapes:
+        live = torch.ones(t.num_rows, dtype=torch.bool, device="cuda")
+        for cap in (None, Q23_CAPS["key_cap"]):
+            form = what + ("" if cap is None else ", capped")
+            if cap is None:
+                op = lambda: aggregate.groupby_aggregate(  # noqa: E731
+                    t, [key], aggs)
+            else:
+                op = lambda: aggregate.groupby_aggregate_capped(  # noqa
+                    t, [key], aggs, cap, live)
+            ms, by_name = device_by_name(torch, op, iters)
+            out[form] = {"device_ms": ms, "call_ms": call_ms(torch, op,
+                                                             iters),
+                         "by_name": by_name}
+            log(f"{form}: whole op device {ms!r} ms, one call "
+                f"{out[form]['call_ms']!r} ms")
+    return out
 
 
 # ---- phase 4f: the capped tier -----------------------------------------------
@@ -3567,7 +3779,11 @@ def nds_union_phase(torch, chk):
                         and not agg_trace["scatter_ops"]
                         and (not agg_trace["kernels"] or (
                             not agg_trace["scatter_kernels"]
-                            and "gb_reduce_kernel" in agg_trace["kernels"])),
+                            and any(k.startswith("gb_insert_kernel")
+                                    for k in agg_trace["kernels"])
+                            and any(k in agg_trace["kernels"] for k in (
+                                "gb_agg_kernel<true>",
+                                "gb_agg_kernel<false>")))),
                         f"{what}: a keyed aggregate scattered: {agg_trace}")
                 run.update(warm_walls=walls, trace=trace,
                            keyed_aggregates=agg_trace)
@@ -4788,6 +5004,53 @@ def union_walls_phase(torch, runs):
     return out
 
 
+def plan_walls_phase(torch, runs):
+    """The plans with keyed aggregates other than q5's and q23's alone, to
+    compare two trees in one call (this script run from each tree's root):
+    q3 (authored), TPC-DS q3 with INT32 keys and with its STRING i_brand,
+    q72 and q74 (optimized) eager, and q3, TPC-DS q3 and q72 capped (the
+    string plans raise there); one cold run each, then `runs` rounds of one
+    warm run of each in turn, then one traced warm run each: the warm
+    walls, the card's busy time, idle share and kernels by time."""
+    from spark_rapids_tpu_torch import nds_q3, nds_q72, nds_q74
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    q3_in = nds_q3.q3_inputs(N_SALES, seed=0, device="cuda")
+    tpcds_in = nds_q3.q3_tpcds_inputs(N_SALES, seed=0, device="cuda")
+    str_in = {k: t.to("cuda") for k, t in nds_q3.q3_tpcds_strings_inputs(
+        N_SALES, device="cpu").items()}
+    q72_in = nds_q72.q72_inputs(N_SALES, seed=0, device="cuda")
+    q74_in = nds_q74.q74_inputs(device="cuda", gen=nds_q74.datagen(seed=0))
+    runs_of = {}
+    for mode in ("eager", "capped"):
+        for what, plan, inputs, optimize in (
+                ("q3", nds_q3.q3_plan(), q3_in, False),
+                ("TPC-DS q3", nds_q3.q3_tpcds_plan(), tpcds_in, True),
+                ("TPC-DS q3 strings", nds_q3.q3_tpcds_strings_plan(), str_in,
+                 True),
+                ("q72", nds_q72.q72_plan(), q72_in, True),
+                ("q74", nds_q74.q74_plan(), q74_in, True)):
+            if mode == "capped" and what in ("TPC-DS q3 strings", "q74"):
+                continue
+            runs_of[f"{what} {mode}"] = (
+                PlanExecutor(mode=mode, optimize=optimize), plan, inputs)
+    out = {w: {"walls": []} for w in runs_of}
+    for ex, plan, inputs in runs_of.values():
+        ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    for _ in range(runs):
+        for what, (ex, plan, inputs) in runs_of.items():
+            out[what]["walls"].append(ex.execute(plan, inputs).wall_ms)
+    for what, (ex, plan, inputs) in runs_of.items():
+        r = out[what]
+        r["trace"] = traced_run(torch, lambda: ex.execute(plan, inputs))
+        r["median_ms"] = float(np.median(r["walls"]))
+        log(f"{what}: warm walls {r['walls']}, median {r['median_ms']!r} "
+            f"ms; traced: idle share {r['trace']['idle_share']!r} "
+            f"({r['trace']['busy_ms']!r} busy of {r['trace']['wall_ms']!r} "
+            f"ms), top {r['trace']['top'][:5]}")
+    return out
+
+
 # ---- phase 8: the plan fuzz corpus ------------------------------------------
 
 FUZZ_PLAIN_SEEDS = range(48)       # tests/test_torch_fuzz_plain_{a,b,c,d}.py
@@ -5931,6 +6194,16 @@ def main(argv=None):
                     help="only time N warm eager runs of q3, TPC-DS q3 and "
                          "q72 (authored, optimized), interleaved, and print "
                          "their walls and operator walls")
+    ap.add_argument("--plan-walls", type=int, default=0, metavar="N",
+                    help="only time N warm runs of q3, TPC-DS q3 (INT32 "
+                         "and STRING i_brand), q72 and q74, eager and (the "
+                         "first three) capped, interleaved, then a traced "
+                         "run of each: walls, busy time and idle share; "
+                         "runs from an earlier tree's root too")
+    ap.add_argument("--groupby-ab", action="store_true",
+                    help="only time the whole keyed aggregate at q23's two "
+                         "aggregates, eager and capped; runs from an "
+                         "earlier tree's root too")
     args = ap.parse_args(argv)
 
     import torch
@@ -5943,6 +6216,16 @@ def main(argv=None):
         print(json.dumps({"card": smi,
                           "walls": walls_phase(torch, args.walls)}),
               flush=True)
+        return 0
+    if args.plan_walls or args.groupby_ab:
+        from spark_rapids_tpu_torch.ops import cuda_build
+        cuda_build.build()
+        out = {"card": smi}
+        if args.groupby_ab:
+            out["groupby_ab"] = groupby_ab_phase(torch)
+        if args.plan_walls:
+            out["plan_walls"] = plan_walls_phase(torch, args.plan_walls)
+        print(json.dumps(out), flush=True)
         return 0
     if args.union_walls:
         from spark_rapids_tpu_torch.ops import cuda_build
@@ -6115,6 +6398,9 @@ def main(argv=None):
                    **{w: r["counters"]["groupby"]["groupby"]
                       for q in nds_union.values()
                       for w, r in q["runs"].items()},
+                   **{f"{q} {form}": keys[q][form]["launches"]["groupby"][
+                       "groupby"] for q in ("q3_strings", "q74")
+                      for form in ("authored", "optimized")},
                    "C4": c4["launches"]}
     q23_forms = ("q23 count(qty) by item_sk", "q23 sum(rev) by cust_sk")
     kernels.append({
@@ -6127,13 +6413,19 @@ def main(argv=None):
         "fuzz_launches": fz["reached"]["groupby"],
         "exact": chk.max_err["groupby"] == 0,
         "max_abs_err": chk.max_err["groupby"], "dadd_ms": gb["dadd_ms"],
+        "timed": "the whole keyed aggregate (groupby_aggregate): every "
+                 "kernel, the G-row sort, memsets and copies it runs",
         "library": "index_add_ into zeros on the card over the per-row "
                    "group ids (the same integers; floats in its atomics' "
                    "order)",
         **summed(gb["timing"], q23_forms, library_ms=sum(
-            gb["timing"][f]["library_ms"] for f in q23_forms)),
-        "c4": {f: gb["timing"][f] for f in gb["timing"]
-               if f not in q23_forms}})
+            gb["timing"][f]["library_ms"] for f in q23_forms),
+                 kernels_ms=sum(gb["timing"][f]["kernels_ms"]
+                                for f in q23_forms),
+                 sorted_part_ms=sum(gb["timing"][f]["sorted_part_ms"]
+                                    for f in q23_forms)),
+        "others": {f: gb["timing"][f] for f in gb["timing"]
+                   if f not in q23_forms}})
     # the segment sum: the groupby kernel's fold alone, timed at 10M rows
     # in 3 groups; launches are the C4 path's folds
     t = c4["timing"]

@@ -1,21 +1,23 @@
 """Group-by aggregate with Spark semantics.
 
-Counterpart of `spark_rapids_tpu/ops/aggregate.py::groupby_aggregate`: one
-stable lexicographic sort of the key operands (`sort._key_operands`, so
-nulls group together and floats group by total order), run boundaries, a
-group id per sorted row, then the reductions, which are the registry's op
-`groupby` (as in the reference, whose executor stamps the choice):
+Counterpart of `spark_rapids_tpu/ops/aggregate.py::groupby_aggregate`. The
+grouping and the reductions are the registry's op `groupby` (as in the
+reference, whose executor stamps the choice):
 
-- "torch", the fallback, on CPU tensors: the shape of the reference's CPU
+- "torch", the fallback, on CPU tensors: the reference's design, one
+  stable lexicographic sort of the key operands (`sort._key_operands`, so
+  nulls group together and floats group by total order), run boundaries,
+  a group id per sorted row, then the shape of the reference's CPU
   scatter design (`_groupby_kernel_scatter`), one segment reduction
   (`index_add_` / `scatter_reduce_`) per aggregation; float sums and means
   fold each group in row order, as the reference does (`index_add_` on
   the CPU adds in row order);
-- "cuda" on CUDA tensors: the groupby kernel (`groupby_cuda`, the
-  counterpart of the reference's scatter-free `_groupby_kernel`), every
-  aggregation of the call in one launch, bit for bit the plain version's
-  results. On the card a declined call raises `KernelDeclinedError`: the
-  plain version never runs there.
+- "cuda" on CUDA tensors: the groupby kernels (`groupby_cuda`), a hash
+  aggregation that sorts no input row by its keys: the rows grouped in a
+  hash table, only the G groups' representatives sorted by key, every
+  aggregation by group rank, bit for bit the plain version's results. On
+  the card a declined call raises `KernelDeclinedError`: the plain
+  version never runs there.
 
 Groups come out in sorted-key order. Spark semantics: sum/min/max/mean
 ignore nulls and an all-null group gives null; count counts non-nulls;
@@ -26,7 +28,8 @@ orders (STRING and DECIMAL128 included); nested keys raise.
 A STRING column's min and max take the reference's design
 (`aggregate.py:488-522`): the reductions count the column's non-null rows
 per group (its first slot), then one value-ordered stable sort of the
-column under the group keys, nulls last (descending when only max is
+column under the groups (the key operands on the plain path, each row's
+group rank on the kernels'), nulls last (descending when only max is
 asked), and a `take` at each group's start, or at start + count - 1 for
 the max beside a min; an all-null group's row there is null. The capped
 form raises for them, as the reference's capped tier does for any string
@@ -35,15 +38,16 @@ column.
 `groupby_aggregate_capped` is the capped tier's form (the reference's
 `:556`): the output has `key_cap` rows, a `valid` mask and an overflow
 flag, and nothing reads a size from the device. An `alive` mask excludes
-rows entirely: its dead flag is the leading sort operand, so dead rows sort
-last as groups of their own, which the group count leaves out; the kept
-rows (live, in groups below `key_cap`) are a prefix of the sort. The plain
-version gives every other row a slot of its own past the kept groups,
-which is dropped, so each reduction has key_cap + rows slots whatever the
-data and the padded rows, which share their (zeroed) keys, never pile onto
-one address; the float sums' group starts end the last kept group where
-the kept rows end. The kernel reduces only the kept prefix into key_cap
-slots.
+rows entirely. On the plain path its dead flag is the leading sort
+operand, so dead rows sort last as groups of their own, which the group
+count leaves out; the kept rows (live, in groups below `key_cap`) are a
+prefix of the sort. The plain version gives every other row a slot of its
+own past the kept groups, which is dropped, so each reduction has key_cap
++ rows slots whatever the data and the padded rows, which share their
+(zeroed) keys, never pile onto one address; the float sums' group starts
+end the last kept group where the kept rows end. The kernels never insert
+a dead row, and reduce only the rows of the first key_cap groups in key
+order into key_cap slots.
 """
 from __future__ import annotations
 
@@ -217,40 +221,39 @@ def groupby_aggregate(table: Table,
     if choice is None:
         choice = REGISTRY.select(
             "groupby", groupby_cuda.make_signature(
-                table, aggs, "eager" if _cap is None else "capped"),
-            backend=dev.type)
+                table, aggs, "eager" if _cap is None else "capped",
+                key_names), backend=dev.type)
     if choice.fallback and dev.type == "cuda":
         why = ", ".join(f"{k}: {r}" for k, r in choice.declined)
         raise KernelDeclinedError(
             f"no groupby kernel takes this call on the card "
             f"({why or 'the plain version was forced'})")
-    operands = []
-    for c in keys:
-        operands.extend(_key_operands(c, True, None))
-    if _alive is not None:
-        operands.insert(0, (~_alive).to(torch.int32))  # dead rows sort last
-    n = table.num_rows
-    order = lex_order(operands)
-    # the first row starts a group; built on the device (a Python scalar
-    # stored into a CUDA tensor is a synchronising host copy)
-    boundary = torch.arange(n, device=dev) == 0
-    for o in operands:
-        s = o.index_select(0, order)
-        boundary[1:] |= s[1:] != s[:-1]
-    seg = torch.cumsum(boundary, 0) - 1               # group id, sorted pos
     if choice.fallback:
+        operands = []
+        for c in keys:
+            operands.extend(_key_operands(c, True, None))
+        if _alive is not None:
+            operands.insert(0, (~_alive).to(torch.int32))  # dead rows last
+        n = table.num_rows
+        order = lex_order(operands)
+        # the first row starts a group
+        boundary = torch.arange(n, device=dev) == 0
+        for o in operands:
+            s = o.index_select(0, order)
+            boundary[1:] |= s[1:] != s[:-1]
+        seg = torch.cumsum(boundary, 0) - 1           # group id, sorted pos
         first_rows, agg_cols, num_groups = _reduce_plain(
             run_specs, order, boundary, seg, _cap, _alive)
+        if strings:
+            agg_cols = _string_extremes(specs, strings, list(agg_cols),
+                                        operands,
+                                        torch.nonzero(boundary).reshape(-1))
     else:
-        if _cap is None:
-            g = int(seg[-1]) + 1 if n else 0          # the one host sync
-        else:
-            g = _cap
-        first_rows, agg_cols, num_groups = choice.fn(run_specs, order, seg,
-                                                     g, _alive)
-    if strings:
-        agg_cols = _string_extremes(specs, strings, list(agg_cols),
-                                    operands, boundary)
+        first_rows, agg_cols, num_groups, rows = choice.fn(
+            keys, run_specs, _cap, _alive, bool(strings))
+        if strings:
+            agg_cols = _string_extremes(specs, strings, list(agg_cols),
+                                        [rows.rank], rows.starts)
     out_cols = [take(c, first_rows, _has_negative=False) for c in keys]
     out_cols += agg_cols
     names = [table.names[k] if isinstance(k, int) else k for k in key_names]
@@ -263,12 +266,13 @@ def groupby_aggregate(table: Table,
 
 
 def _string_extremes(specs: Sequence[AggSpec], strings: Sequence[int],
-                     agg_cols: List[Column], operands, boundary
+                     agg_cols: List[Column], lead, starts: torch.Tensor
                      ) -> List[Column]:
     """`agg_cols` with the STRING min/max columns at `strings` filled in;
     there they hold each group's non-null count. One value-ordered sort a
-    column, under the group keys' `operands`, serves all its extremes."""
-    starts = torch.nonzero(boundary).reshape(-1)
+    column, under the operands `lead` that order the rows by group (the
+    key operands, or each row's group rank), serves all its extremes;
+    `starts` are the groups' first positions in that order."""
     by_col = {}
     for i in strings:
         by_col.setdefault(specs[i].name, []).append(i)
@@ -278,7 +282,7 @@ def _string_extremes(specs: Sequence[AggSpec], strings: Sequence[int],
         # nulls last: a group's first row is its min (its max when only
         # max is asked, sorted descending); a null there means all-null
         vops = _key_operands(c, "min" in wants, NULLS_LAST)
-        order2 = lex_order(list(operands) + vops)
+        order2 = lex_order(list(lead) + vops)
         at_start = take(c, order2.index_select(0, starts),
                         _has_negative=False)
         at_last = None

@@ -1,30 +1,37 @@
-"""The groupby kernel: keyed aggregates over the key-sorted rows, on the card.
+"""The groupby kernel: keyed aggregates by hashing, on the card.
 
 Counterpart of the reference's registry op `groupby`
-(`spark_rapids_tpu/ops/aggregate.py`, `_groupby_kernel`: scatter-free over
-the sorted runs). The kernel lives in `csrc/groupby.cu` (its header says
-what it computes and what bounds it on the card); this module binds it
-through ctypes, registers op `groupby` in the port's registry and keeps,
-beside the kernel, its plain version:
+(`spark_rapids_tpu/ops/aggregate.py`, `_groupby_kernel`: a sort of every
+row by its key tuple, then a scatter-free reduction over the runs, a trade
+that only pays on a TPU). The kernels live in `csrc/groupby.cu` (its header
+says what they compute and what bounds them on the card); this module
+binds them through ctypes, registers op `groupby` in the port's registry
+and keeps, beside them, their plain version:
 
-- `groupby_reduce_cuda`: one launch of the kernel's entry point for every
-  aggregation of one keyed aggregate (integer sums, counts, sizes and
-  min/max words in one pass over tiles of sorted rows; float sums and
-  means by the row-order fold), on CUDA tensors only;
-- `groupby_reduce_plain`: the same function in plain PyTorch with the
-  kernel's tiling (`tile` rows a block): each tile's partial of each group,
-  stored where the group lies inside the tile and combined into the
-  identity-filled output where a tile edge cuts it, as the kernel's
-  atomics combine them; the float sums as the fold gives them, NaN bits
-  by the kernel's rule. The CPU tests run it with a small tile.
+- `groupby_hash_cuda`: the rows grouped in a hash table on the card (each
+  group's representative its smallest row), the G representatives ordered
+  by key (the eager tier: `lex_order` over their G rows after the one host
+  read of G; the capped tier: a sort of their order words on the card,
+  with no host read), then every aggregation of the call by rank
+  (integer sums, counts, sizes and min/max words with atomics, into
+  shared memory where the ranks fit); float sums and means fold each
+  group's rows in row order after a stable sort of the rows by rank (one
+  int operand). On CUDA tensors only;
+- `groupby_hash_plain`: the same design in plain PyTorch on CPU tensors:
+  groups numbered in the order a sequential insertion claims them, their
+  smallest rows, the G-row rank sort, each `tile` rows' partial per rank
+  combined as the kernel's blocks combine theirs, and the fold's order.
+  The insertion's slots are not modelled: CAS insertion makes them
+  nondeterministic, and no output depends on them.
 
-`groupby_reduce` dispatches by device. `aggregate.groupby_aggregate` and
+`groupby_hash` dispatches by device. `aggregate.groupby_aggregate` and
 `groupby_aggregate_capped` select through the registry: "torch" (the
-fallback, the scatter design of `ops/aggregate.py`) on CPU tensors, "cuda"
-(this kernel) on CUDA ones, where a declined call raises. `LAUNCHES` counts
-the entry point's launches ("groupby") and those of them that ran the fold
-("fold"); `PLAIN_CALLS` counts the plain version's runs in
-`groupby_reduce`.
+fallback, the sort-and-scatter design of `ops/aggregate.py`) on CPU
+tensors, "cuda" (these kernels) on CUDA ones, where a declined call
+raises. `LAUNCHES` counts the entry point's calls ("groupby": one a keyed
+aggregate), those that ran the fold ("fold") and the capped tier's sorts
+of the representatives on the card ("sort"); `PLAIN_CALLS` counts the
+plain version's runs in `groupby_hash`.
 """
 from __future__ import annotations
 
@@ -36,17 +43,27 @@ import torch
 
 from .. import dtypes
 from ..columnar import Column, Table
-from .sort import _float_total_order
+from ..dtypes import Kind
+from .gather import take
+from .sort import _float_total_order, _key_operands, lex_order
 
-LAUNCHES = {"groupby": 0, "fold": 0}
+LAUNCHES = {"groupby": 0, "fold": 0, "sort": 0}
 PLAIN_CALLS = {"groupby": 0}
 
-TILE = 2048          # sorted rows a block (GB_TILE in csrc/groupby.cu)
+TILE = 4096          # rows an aggregation block takes (AGG_TILE, groupby.cu)
 MAX_AGGS = 64        # aggregations a call (the entry point's job table)
+MAX_KEYS = 32        # key columns a call (GB_MAX_KEYS)
 
 OP_COUNT, OP_SIZE, OP_SUM, OP_MIN, OP_MAX, OP_FSUM = range(6)
 _TYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.int64: 3,
           torch.float32: 4, torch.float64: 5}
+# key kinds (GK_* in csrc/groupby.cu)
+GK_INT, GK_F32, GK_F64, GK_DEC128, GK_STRING = range(5)
+_KEY_KINDS = {Kind.FLOAT32: GK_F32, Kind.FLOAT64: GK_F64,
+              Kind.DECIMAL128: GK_DEC128, Kind.STRING: GK_STRING}
+_INT_KEYS = (Kind.BOOL, Kind.INT8, Kind.INT16, Kind.INT32, Kind.INT64,
+             Kind.DATE32, Kind.TIMESTAMP_US, Kind.TIMESTAMP_S,
+             Kind.TIMESTAMP_MS, Kind.DECIMAL32, Kind.DECIMAL64)
 _X86_DEFAULT_NAN = -0x0008000000000000      # 0xFFF8000000000000 as int64
 _F64_QUIET = 0x0008000000000000
 
@@ -66,6 +83,16 @@ class AggSpec:
     col: Optional[Column]
     name: str
     dtype: dtypes.DType
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupRows:
+    """Each row's rank (n,) int32 (the output rows' count for a row that is
+    dead or past the cap) and each rank's first position (G_out,) int64
+    among the rows sorted stably by rank."""
+
+    rank: torch.Tensor
+    starts: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,19 +170,34 @@ def _identity(op: int, vt: torch.dtype) -> int:
     return info.max if op == OP_MIN else info.min
 
 
-def _empty(specs: Sequence[AggSpec], dev) -> Tuple[torch.Tensor,
-                                                   List[Column]]:
+def _empty(specs: Sequence[AggSpec], dev):
+    """The outputs of a call with no rows: nothing, no group."""
     jobs, uses = _jobs(specs)
     outs = [torch.zeros(0, dtype=torch.float64 if j.op == OP_FSUM
                         else torch.int64, device=dev) for j in jobs]
     return (torch.zeros(0, dtype=torch.int64, device=dev),
-            _columns(specs, uses, outs, 0))
+            _columns(specs, uses, outs, 0),
+            torch.zeros((), dtype=torch.int64, device=dev), None)
+
+
+def _group_operands(keys: Sequence[Column]) -> List[torch.Tensor]:
+    """The key operands that tell groups apart and order them (nulls
+    first, floats by total order)."""
+    return [o for c in keys for o in _key_operands(c, True, None)]
+
+
+def _fold_starts(sizes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(each rank's first position among the rows sorted by rank, -1 for an
+    empty rank; the kept rows' count as a (1,) tensor) from the rows of
+    each rank."""
+    ends = torch.cumsum(sizes, 0)
+    return torch.where(sizes > 0, ends - sizes, -1), ends[-1:]
 
 
 # ---- the plain version ---------------------------------------------------------
 
 def _words(job: _Job, rows: torch.Tensor) -> torch.Tensor:
-    """(k,) int64 contributions of the sorted rows `rows` (row indices)."""
+    """(k,) int64 contributions of the rows `rows` (row indices)."""
     if job.op == OP_SIZE:
         return torch.ones_like(rows)
     c = job.col
@@ -194,69 +236,95 @@ def _fold(job: _Job, rows: torch.Tensor, gid: torch.Tensor,
     return out
 
 
-def groupby_reduce_plain(specs: Sequence[AggSpec], order: torch.Tensor,
-                         seg: torch.Tensor, G: int,
-                         alive: Optional[torch.Tensor] = None,
-                         tile: Optional[int] = None):
-    """The kernel's function on CPU tensors: (first_rows (G,) int64, the
-    aggregations' (G,)-row columns, live groups () int64). `tile` is the
-    kernel's block of sorted rows (TILE when not given)."""
-    n = seg.shape[0]
-    if n == 0 or G == 0:
-        first_rows, cols = _empty(specs, seg.device)
-        return first_rows, cols, torch.zeros((), dtype=torch.int64)
+def groupby_hash_plain(keys: Sequence[Column], specs: Sequence[AggSpec],
+                       cap: Optional[int] = None,
+                       alive: Optional[torch.Tensor] = None,
+                       want_rank: bool = False, tile: Optional[int] = None):
+    """The kernels' function on CPU tensors: (first_rows (G_out,) int64,
+    the aggregations' (G_out,)-row columns, live groups () int64, the
+    rows' `GroupRows` when `want_rank` else None). G_out is the group
+    count, or `cap` in the capped tier. `tile` is the rows a block takes
+    (TILE when not given)."""
+    n = keys[0].length
+    if n == 0:
+        return _empty(specs, keys[0].device)
     tile = tile or TILE
-    pos = torch.arange(n)
-    live = n if alive is None else int(alive.sum())
-    kept = (pos < live) & (seg < G)
-    head = kept & torch.cat([torch.ones(1, dtype=torch.bool),
-                             seg[1:] != seg[:-1]])
-    first_rows = torch.full((G,), n - 1, dtype=torch.int64)
-    first_rows[seg[head]] = order[head]
-    groups = seg[live - 1] + 1 if live else torch.zeros((), dtype=torch.int64)
-    rows, gid = order[kept], seg[kept]
-    # each kept row's tile and partial (one a tile and group, numbered in
-    # row order); a partial is whole where its group's rows all lie in
-    # its tile
-    t = pos[kept] // tile
-    one = torch.ones(min(1, gid.numel()), dtype=torch.bool)
-    starts_part = torch.cat([one, (gid[1:] != gid[:-1]) | (t[1:] != t[:-1])])
-    part = torch.cumsum(starts_part, 0) - 1
-    first_t = torch.full((G,), -1, dtype=torch.int64).scatter_reduce_(
-        0, gid, t, "amin", include_self=False)
-    last_t = torch.full((G,), -1, dtype=torch.int64).scatter_reduce_(
-        0, gid, t, "amax", include_self=False)
-    p_gid, p_t = gid[starts_part], t[starts_part]
-    whole = (first_t.index_select(0, p_gid) == p_t) & \
-        (last_t.index_select(0, p_gid) == p_t)
+    ops = _group_operands(keys)
+    live = (torch.arange(n) if alive is None
+            else torch.nonzero(alive).reshape(-1))
+    # the insertion, in row order: a live row claims a new group unless an
+    # earlier row holds its key; groups are numbered in claim order and
+    # each keeps its smallest row, the representative
+    row_gid = torch.full((n,), -1, dtype=torch.int64)
+    reps = torch.zeros(0, dtype=torch.int64)
+    if live.numel():
+        mat = torch.stack([o.index_select(0, live).to(torch.int64)
+                           for o in ops], 1)
+        _, inv = torch.unique(mat, dim=0, return_inverse=True)
+        u = int(inv.max()) + 1
+        first = torch.full((u,), n, dtype=torch.int64).scatter_reduce_(
+            0, inv, live, "amin")
+        claim = torch.argsort(first)                 # group id -> unique key
+        reps = first.index_select(0, claim)
+        gid_of = torch.empty(u, dtype=torch.int64).scatter_(
+            0, claim, torch.arange(u))
+        row_gid[live] = gid_of.index_select(0, inv)
+    G = reps.shape[0]
+    G_out = G if cap is None else cap
+    # the rank sort: the G representatives by key
+    by_key = (lex_order([o.index_select(0, reps) for o in ops]) if G
+              else reps)
+    rank_of = torch.empty(G, dtype=torch.int64).scatter_(
+        0, by_key, torch.arange(G))
+    rank = torch.where(row_gid >= 0,
+                       rank_of.index_select(0, row_gid.clamp(min=0))
+                       if G else row_gid, G_out)
+    rank = torch.where(rank < G_out, rank, G_out)
+    first_rows = torch.full((G_out,), n - 1, dtype=torch.int64)
+    k = min(G, G_out)
+    first_rows[:k] = reps.index_select(0, by_key[:k])
+    kept = torch.nonzero(rank < G_out).reshape(-1)
+    r_kept = rank.index_select(0, kept)
+    # one partial a block's tile and rank, combined into the outputs as
+    # the kernel's blocks combine theirs
+    part_id = (kept // tile) * G_out + r_kept
+    parts, part = torch.unique(part_id, return_inverse=True)
+    part_rank = parts % G_out
     jobs, uses = _jobs(specs)
+    fold_jobs = [j for j in jobs if j.op == OP_FSUM]
+    sizes = torch.zeros(G_out, dtype=torch.int64).index_add_(
+        0, r_kept, torch.ones_like(r_kept))
     outs = []
+    if fold_jobs:
+        # the rows stably sorted by rank: each group's in row order
+        order = torch.argsort(rank, stable=True)
     for job in jobs:
         if job.op == OP_FSUM:
-            outs.append(_fold(job, rows, gid, G))
+            rows = order[:kept.shape[0]]
+            outs.append(_fold(job, rows, rank.index_select(0, rows), G_out))
             continue
         vt = job.col.data.dtype if job.col is not None else torch.int64
         ident = _identity(job.op, vt)
-        w = _words(job, rows)
-        red = "amin" if job.op == OP_MIN else "amax"
-        slots = p_gid.shape[0]
+        w = _words(job, kept)
+        out = torch.full((G_out,), ident, dtype=torch.int64)
         if job.op in (OP_MIN, OP_MAX):
-            partial = torch.full((slots,), ident, dtype=torch.int64
+            red = "amin" if job.op == OP_MIN else "amax"
+            partial = torch.full((parts.shape[0],), ident, dtype=torch.int64
                                  ).scatter_reduce_(0, part, w, red)
+            out.scatter_reduce_(0, part_rank, partial, red)
         else:
-            partial = torch.zeros(slots, dtype=torch.int64).index_add_(
-                0, part, w)
-        out = torch.full((G,), ident, dtype=torch.int64)
-        out[p_gid[whole]] = partial[whole]                # plain stores
-        if job.op in (OP_MIN, OP_MAX):                    # the atomics
-            out.scatter_reduce_(0, p_gid[~whole], partial[~whole], red)
-        else:
-            out.index_add_(0, p_gid[~whole], partial[~whole])
+            partial = torch.zeros(parts.shape[0], dtype=torch.int64
+                                  ).index_add_(0, part, w)
+            out.index_add_(0, part_rank, partial)
         outs.append(out)
-    return first_rows, _columns(specs, uses, outs, G), groups
+    rows = None
+    if want_rank:
+        rows = GroupRows(rank.to(torch.int32), _fold_starts(sizes)[0])
+    return (first_rows, _columns(specs, uses, outs, G_out),
+            torch.tensor(G, dtype=torch.int64), rows)
 
 
-# ---- the CUDA kernel --------------------------------------------------------------
+# ---- the CUDA kernels ------------------------------------------------------
 
 _P = ctypes.c_void_p
 _LIB = None
@@ -267,13 +335,19 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load
         lib = load("groupby")
-        LL = ctypes.c_longlong
-        lib.gb_groupby.argtypes = [_P, _P, LL, _P, LL, _P, _P, _P, _P,
-                                   _P, _P, _P, _P, _P, ctypes.c_int,
-                                   ctypes.c_int, _P]
-        lib.gb_groupby.restype = ctypes.c_int
+        LL, I = ctypes.c_longlong, ctypes.c_int
+        lib.gb_insert.argtypes = [_P, _P, _P, _P, _P, I, LL, _P, _P, LL, _P,
+                                  _P, _P, _P]
+        lib.gb_sort_groups.argtypes = [_P, _P, _P, _P, _P, I, _P, _P, _P, LL,
+                                       I, _P, _P, _P, _P, _P]
+        lib.gb_aggregate.argtypes = [_P, LL, _P, LL, I, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, I, _P]
+        lib.gb_fold_rows.argtypes = [_P, _P, LL, LL, _P, _P, _P, _P, _P, _P,
+                                     I, _P]
         lib.gb_segment_sum.argtypes = [_P, _P, LL, LL, _P, _P, _P]
-        lib.gb_segment_sum.restype = ctypes.c_int
+        for f in (lib.gb_insert, lib.gb_sort_groups, lib.gb_aggregate,
+                  lib.gb_fold_rows, lib.gb_segment_sum):
+            f.restype = I
         _LIB = lib
     return _LIB
 
@@ -287,88 +361,176 @@ def _ptrs(values) -> ctypes.Array:
     return (ctypes.c_void_p * max(len(values), 1))(*values)
 
 
-def groupby_reduce_cuda(specs: Sequence[AggSpec], order: torch.Tensor,
-                        seg: torch.Tensor, G: int,
-                        alive: Optional[torch.Tensor] = None):
-    """The kernel: (first_rows (G,) int64, the aggregations' (G,)-row
-    columns, live groups () int64 on the card).
-    `order` and `seg` are (n,) int64 on the card: the sorted positions'
-    rows and groups; with `alive`, dead rows sort last and groups at or
-    past G are dropped. Reads nothing on the host."""
-    dev = seg.device
-    if dev.type != "cuda" or order.device != dev or (
-            alive is not None and alive.device != dev):
-        raise ValueError(f"the groupby kernel runs on CUDA tensors, got "
-                         f"{seg.device} and {order.device}")
-    if len(specs) > MAX_AGGS:
-        raise ValueError(f"the groupby kernel takes at most {MAX_AGGS} "
-                         f"aggregations a call, got {len(specs)}")
-    n = seg.shape[0]
-    if n == 0 or G == 0:
-        first_rows, cols = _empty(specs, dev)
-        return first_rows, cols, torch.zeros((), dtype=torch.int64,
-                                             device=dev)
-    seg, order = seg.contiguous(), order.contiguous()
-    jobs, uses = _jobs(specs)
-    data, valid, outs, ops, types = [], [], [], [], []
-    keep = []                           # tensors the pointers point into
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * max(len(values), 1))(*values)
+
+
+def capacity(n: int) -> int:
+    """The insertion table's slots for n rows: a power of two >= 1.5 n, so
+    a table of distinct keys is at most two thirds full."""
+    return 1 << max(6, (n + n // 2).bit_length())
+
+
+def key_words(keys: Sequence[Column]) -> int:
+    """The order words a group takes in the capped tier's sort."""
+    return sum((c.validity is not None)
+               + (2 if c.dtype.kind == Kind.DECIMAL128 else 1) for c in keys)
+
+
+def _key_args(keys: Sequence[Column]):
+    """The key columns as the entry points take them (contiguous) and the
+    tensors their pointers point into."""
+    cols = []
+    for c in keys:
+        if c.dtype.kind not in _INT_KEYS and c.dtype.kind not in _KEY_KINDS:
+            raise TypeError(f"the groupby kernel does not take {c.dtype!r} "
+                            "keys")
+        cols.append(Column(
+            c.dtype, c.length, c.data.contiguous(),
+            None if c.validity is None else c.validity.contiguous(),
+            None if c.offsets is None else c.offsets.contiguous()))
+    args = [_ptrs([c.data.data_ptr() for c in cols]),
+            _ptrs([0 if c.validity is None else c.validity.data_ptr()
+                   for c in cols]),
+            _ptrs([0 if c.offsets is None else c.offsets.data_ptr()
+                   for c in cols]),
+            _ints([c.data.element_size() for c in cols]),
+            _ints([_KEY_KINDS.get(c.dtype.kind, GK_INT) for c in cols]),
+            len(cols)]
+    return args, cols
+
+
+def _job_args(jobs: Sequence[_Job], outs, dev):
+    data, valid, keep = [], [], []
     for job in jobs:
-        out = torch.empty(G, dtype=torch.float64 if job.op == OP_FSUM
-                          else torch.int64, device=dev)
-        outs.append(out)
         d = v = None
-        t = 3
         if job.col is not None:
             c = job.col
             if c.device != dev:
-                raise ValueError(f"column on {c.device}, rows on {dev}")
+                raise ValueError(f"column on {c.device}, keys on {dev}")
             if c.validity is not None:
                 v = c.validity.contiguous()
-            if job.op != OP_COUNT:
+            if job.op not in (OP_COUNT, OP_SIZE):
                 d = c.data.contiguous()
                 if d.dtype not in _TYPES:
                     raise TypeError(f"the groupby kernel does not take "
                                     f"{c.dtype!r} values")
-                t = _TYPES[d.dtype]
         keep += [d, v]
         data.append(0 if d is None else d.data_ptr())
         valid.append(0 if v is None else v.data_ptr())
-        ops.append(job.op)
-        types.append(t)
-    need_rows = any(p != 0 for p in data + valid)
-    has_fold = OP_FSUM in ops
-    first_rows = torch.empty(G, dtype=torch.int64, device=dev)
-    meta = torch.empty(2, dtype=torch.int64, device=dev)
-    starts = long_list = None
-    if has_fold:
-        starts = torch.empty(G, dtype=torch.int64, device=dev)
-        long_list = torch.empty(G + 1, dtype=torch.int64, device=dev)
-    n_live = None if alive is None else alive.sum()
-    nj = len(jobs)
-    rc = _lib().gb_groupby(
-        seg.data_ptr(), order.data_ptr(), n,
-        None if n_live is None else n_live.data_ptr(), G,
-        first_rows.data_ptr(), None if starts is None else starts.data_ptr(),
-        meta.data_ptr(), None if long_list is None else long_list.data_ptr(),
-        _ptrs(data), _ptrs(valid), _ptrs([o.data_ptr() for o in outs]),
-        (ctypes.c_int * max(nj, 1))(*ops),
-        (ctypes.c_int * max(nj, 1))(*types), nj, int(need_rows),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _check(rc, "groupby")
+    types = [_TYPES[job.col.data.dtype] if job.col is not None
+             and job.op not in (OP_COUNT, OP_SIZE) else 3 for job in jobs]
+    return ([_ptrs(data), _ptrs(valid), _ptrs([o.data_ptr() for o in outs]),
+             _ints([j.op for j in jobs]), _ints(types), len(jobs)], keep)
+
+
+def groupby_hash_cuda(keys: Sequence[Column], specs: Sequence[AggSpec],
+                      cap: Optional[int] = None,
+                      alive: Optional[torch.Tensor] = None,
+                      want_rank: bool = False):
+    """The kernels: (first_rows (G_out,) int64, the aggregations' (G_out,)
+    -row columns, live groups () int64 on the card, the rows' `GroupRows`
+    when `want_rank` else None), as `groupby_hash_plain` gives them. The
+    eager tier (`cap` None) reads the group count once on the host; the
+    capped tier reads nothing."""
+    dev = keys[0].device
+    if dev.type != "cuda" or any(c.device != dev for c in keys) or (
+            alive is not None and alive.device != dev):
+        raise ValueError(f"the groupby kernel runs on CUDA tensors, got "
+                         f"{[str(c.device) for c in keys]}")
+    if len(specs) > MAX_AGGS or not 0 < len(keys) <= MAX_KEYS:
+        raise ValueError(f"the groupby kernel takes 1 to {MAX_KEYS} keys "
+                         f"and at most {MAX_AGGS} aggregations a call, got "
+                         f"{len(keys)} and {len(specs)}")
+    n = keys[0].length
+    if n == 0:
+        return _empty(specs, dev)
+    if n >= 2 ** 31 - 1:
+        raise ValueError(f"the groupby kernel takes fewer than 2^31 rows, "
+                         f"got {n}")
+    if cap is not None and any(c.dtype.is_string for c in keys):
+        raise TypeError("the capped groupby kernel does not take STRING keys")
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kargs, kcols = _key_args(keys)
+    C = capacity(n)
+    i32 = dict(dtype=torch.int32, device=dev)
+    table, slot_rank = torch.empty(C, **i32), torch.empty(C, **i32)
+    gid_slot, row_slot = torch.empty(n, **i32), torch.empty(n, **i32)
+    groups = torch.empty(1, dtype=torch.int64, device=dev)
+    if alive is not None:
+        alive = alive.contiguous()
+    _check(lib.gb_insert(*kargs, n, None if alive is None
+                         else alive.data_ptr(), table.data_ptr(), C,
+                         gid_slot.data_ptr(), row_slot.data_ptr(),
+                         groups.data_ptr(), stream),
+           "insert")
+    if cap is None:
+        G_out = int(groups)                       # the one host read
+        reps = table.index_select(0, gid_slot[:G_out].long()).long()
+        sorted_gid = lex_order(_group_operands(
+            [take(c, reps, _has_negative=False) for c in kcols])
+        ).to(torch.int32)
+    else:
+        G_out = cap
+        W = key_words(kcols)
+        words = torch.empty(n * W, dtype=torch.int64, device=dev)
+        bufs = torch.empty(2, n, **i32)
+        which = ctypes.c_int(0)
+        _check(lib.gb_sort_groups(*kargs, groups.data_ptr(),
+                                  gid_slot.data_ptr(), table.data_ptr(), n,
+                                  W, words.data_ptr(), bufs[0].data_ptr(),
+                                  bufs[1].data_ptr(), ctypes.byref(which),
+                                  stream), "sort")
+        sorted_gid = bufs[which.value]
+        LAUNCHES["sort"] += 1
+    jobs, uses = _jobs(specs)
+    fold_jobs = [j for j in jobs if j.op == OP_FSUM]
+    if fold_jobs or want_rank:              # each rank's rows
+        jobs = jobs + [_Job(OP_SIZE, None)]
+    outs = [torch.empty(G_out, dtype=torch.float64 if j.op == OP_FSUM
+                        else torch.int64, device=dev) for j in jobs]
+    jargs, keep = _job_args(jobs, outs, dev)     # keep: what jargs point into
+    first_rows = torch.empty(G_out, dtype=torch.int64, device=dev)
+    row_rank = (torch.empty(n, **i32) if fold_jobs or want_rank else None)
+    _check(lib.gb_aggregate(
+        row_slot.data_ptr(), n, groups.data_ptr(), G_out, int(cap is None),
+        sorted_gid.data_ptr(), gid_slot.data_ptr(), table.data_ptr(),
+        slot_rank.data_ptr(), first_rows.data_ptr(),
+        None if row_rank is None else row_rank.data_ptr(), *jargs, stream),
+        "aggregate")
+    rows = None
+    if row_rank is not None:
+        starts, end = _fold_starts(outs[-1])
+        if fold_jobs:
+            # the rows stably sorted by rank: each group's in row order
+            order = torch.argsort(row_rank, stable=True)
+            at = [q for q, j in enumerate(jobs) if j.op == OP_FSUM]
+            fargs, fkeep = _job_args([jobs[q] for q in at],
+                                     [outs[q] for q in at], dev)
+            long_list = torch.empty(G_out + 1, dtype=torch.int64, device=dev)
+            _check(lib.gb_fold_rows(
+                order.data_ptr(), starts.data_ptr(), G_out, n,
+                end.data_ptr(), long_list.data_ptr(), fargs[0], fargs[1],
+                fargs[2], fargs[4], fargs[5], stream), "fold")
+            LAUNCHES["fold"] += 1
+        if want_rank:
+            rows = GroupRows(row_rank, starts)
+        outs = outs[:-1]
     LAUNCHES["groupby"] += 1
-    if has_fold:
-        LAUNCHES["fold"] += 1
-    return first_rows, _columns(specs, uses, outs, G), meta[1]
+    return first_rows, _columns(specs, uses, outs, G_out), groups[0], rows
 
 
-def groupby_reduce(specs: Sequence[AggSpec], order: torch.Tensor,
-                   seg: torch.Tensor, G: int,
-                   alive: Optional[torch.Tensor] = None):
-    """The groupby kernel on CUDA tensors, its plain version on CPU ones."""
-    if seg.device.type == "cpu":
+def groupby_hash(keys: Sequence[Column], specs: Sequence[AggSpec],
+                 cap: Optional[int] = None,
+                 alive: Optional[torch.Tensor] = None,
+                 want_rank: bool = False):
+    """The groupby kernels on CUDA tensors, their plain version on CPU
+    ones."""
+    if keys[0].device.type == "cpu":
         PLAIN_CALLS["groupby"] += 1
-        return groupby_reduce_plain(specs, order, seg, G, alive)
-    return groupby_reduce_cuda(specs, order, seg, G, alive)
+        return groupby_hash_plain(keys, specs, cap, alive, want_rank)
+    return groupby_hash_cuda(keys, specs, cap, alive, want_rank)
 
 
 def segment_sum_groups(values: torch.Tensor, starts: torch.Tensor,
@@ -387,27 +549,37 @@ def segment_sum_groups(values: torch.Tensor, starts: torch.Tensor,
 # ---- registry wiring ---------------------------------------------------------------
 
 _KINDS = frozenset(k.value for k in dtypes._STORAGE)
+_KEY_KIND_VALUES = frozenset(k.value for k in _INT_KEYS + tuple(_KEY_KINDS))
 
 
 def make_signature(table: Table, aggs: Sequence[Tuple[object, str]],
-                   tier: str):
+                   tier: str, keys: Sequence[object] = ()):
     from .registry import Signature
     # the kernel reads only the validity of a count's column, and counts
     # a string column's rows where its min or max goes (`aggregate`)
     cols = [table[c] for c, op in aggs if op != "size"
             and not (op in ("count", "min", "max")
                      and table[c].dtype.is_string)]
-    return Signature.of(cols, ops=tuple(op for _, op in aggs), tier=tier)
+    return Signature.of(cols, ops=tuple(op for _, op in aggs), tier=tier,
+                        keys=tuple(table[k].dtype.kind.value for k in keys))
 
 
 def supports(sig) -> bool:
-    return (sig.extra("tier") in ("eager", "capped")
+    """The kernels take up to MAX_KEYS keys of every kind `_key_operands`
+    orders, STRING only in the eager tier (the capped sort compares
+    fixed-width order words), and MAX_AGGS aggregations."""
+    tier = sig.extra("tier")
+    keys = sig.extra("keys") or ()
+    return (tier in ("eager", "capped")
             and len(sig.extra("ops") or ()) <= MAX_AGGS
+            and len(keys) <= MAX_KEYS
+            and all(k in _KEY_KIND_VALUES for k in keys)
+            and not (tier == "capped" and Kind.STRING.value in keys)
             and all(k in _KINDS for k in sig.kinds))
 
 
 from .registry import REGISTRY as _REGISTRY  # noqa: E402
 
 _REGISTRY.register("groupby", "torch", fallback=True)
-_REGISTRY.register("groupby", "cuda", fn=groupby_reduce, backends=("cuda",),
+_REGISTRY.register("groupby", "cuda", fn=groupby_hash, backends=("cuda",),
                    supports=supports)

@@ -414,7 +414,8 @@ class PlanExecutor:
                 return self._global_aggregate(t, node)
             aggs = [(c, o) for c, o, _ in node.aggs]
             choice = self._kernel_choice(
-                "groupby", groupby_cuda.make_signature(t, aggs, "eager"),
+                "groupby", groupby_cuda.make_signature(t, aggs, "eager",
+                                                       node.keys),
                 m.label)
             m.kernel = choice.label
             agg = aggregate.groupby_aggregate(t, list(node.keys), aggs,
@@ -697,7 +698,7 @@ class PlanExecutor:
             _check_capped_keys([c.table[k] for k in node.keys])
             aggs = [(cn, o) for cn, o, _ in node.aggs]
             choice = pick("groupby", groupby_cuda.make_signature(
-                c.table, aggs, "capped"))
+                c.table, aggs, "capped", node.keys))
             agg, valid, ovf = aggregate.groupby_aggregate_capped(
                 c.table, list(node.keys), aggs,
                 key_cap=self._node_cap(caps, "key_cap", idx), alive=c.alive,

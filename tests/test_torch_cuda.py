@@ -903,6 +903,141 @@ def test_groupby_fold_nan_bits_equal_the_cpu():
     assert torch.equal(got[1].cpu(), want[1])
 
 
+_GB_WORDS = ["", "a", "a\x00", "ab", "abcdefgh", "abcdefghi", "日本",
+             "pre_12", "Z"]
+_GB_DECS = [0, 1, -1, 10 ** 38 - 1, -(10 ** 38 - 1), 2 ** 64, -2 ** 64, 7]
+_GB_NANS = {np.float32: (np.uint32, [0x7FC00000, 0x7F800123, 0xFFC00042]),
+            np.float64: (np.uint64, [0x7FF8000000000000, 0x7FF0000000000123,
+                                     0xFFF8000000000456])}
+_GB_KEY_KINDS = {"bool": (np.bool_, tdt.BOOL), "int8": (np.int8, tdt.INT8),
+                 "int16": (np.int16, tdt.INT16),
+                 "int32": (np.int32, tdt.INT32),
+                 "int64": (np.int64, tdt.INT64),
+                 "date32": (np.int32, tdt.DATE32),
+                 "timestamp": (np.int64, tdt.TIMESTAMP_US),
+                 "float32": (np.float32, tdt.FLOAT32),
+                 "float64": (np.float64, tdt.FLOAT64),
+                 "decimal128": (None, tdt.decimal(38, 2)),
+                 "string": (None, tdt.STRING)}
+
+
+def _gb_key(rng, kind, n, null_p, groups):
+    """A key column of `kind` on the CPU with about `groups` distinct
+    values: both zeros, NaN payloads and infinities among the floats,
+    empty strings, nulls at null_p."""
+    npt, dtype = _GB_KEY_KINDS[kind]
+    valid = rng.random(n) >= null_p
+    if kind in ("string", "decimal128"):
+        base = _GB_WORDS if kind == "string" else _GB_DECS
+        pool = base + [(f"k{i:07d}" if kind == "string" else i * 10 ** 20)
+                       for i in range(max(groups - len(base), 0))]
+        idx = rng.integers(0, len(pool), n)
+        return Column.from_pylist([pool[i] if v else None
+                                   for i, v in zip(idx, valid)], dtype,
+                                  device="cpu")
+    if kind == "bool":
+        a = rng.random(n) < 0.5
+    elif npt in _GB_NANS:
+        ut, bits = _GB_NANS[npt]
+        special = np.concatenate([np.array([0.0, -0.0, np.inf, -np.inf],
+                                           npt),
+                                  np.array(bits, ut).view(npt)])
+        pool = np.concatenate([special, np.arange(groups, dtype=npt)])
+        a = pool[rng.integers(0, pool.size, n)]
+    else:
+        info = np.iinfo(npt)
+        pool = np.concatenate([np.array([info.min, info.max], npt),
+                               np.arange(groups, dtype=npt)])
+        a = pool[rng.integers(0, pool.size, n)]
+    return Column.from_numpy(a, dtype, None if valid.all() else valid,
+                             device="cpu")
+
+
+def _gb_key_case(keys, n, strings, rng):
+    """Keys and value columns (INT64, FLOAT64, STRING for min/max) and
+    their aggregations."""
+    v = Column.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n), tdt.INT64,
+                          rng.random(n) >= 0.2, device="cpu")
+    x = Column.from_numpy(rng.standard_normal(n), tdt.FLOAT64,
+                          rng.random(n) >= 0.2, device="cpu")
+    cols, names = list(keys) + [v, x], [f"k{i}" for i in range(len(keys))]
+    names += ["v", "x"]
+    aggs = [("v", "sum"), ("v", "min"), ("v", "max"), ("v", "count"),
+            ("x", "sum"), ("x", "mean"), ("v", "size")]
+    if strings:
+        idx = rng.integers(0, len(_GB_WORDS), n)
+        ok = rng.random(n) >= 0.3
+        cols.append(Column.from_pylist([_GB_WORDS[i] if o else None
+                                        for i, o in zip(idx, ok)],
+                                       tdt.STRING, device="cpu"))
+        names.append("s")
+        aggs += [("s", "min"), ("s", "max")]
+    return Table(cols, names), aggs
+
+
+@pytest.mark.parametrize("kinds", [["bool"], ["int8"], ["int16"], ["int32"],
+                                   ["int64"], ["date32"], ["timestamp"],
+                                   ["float32"], ["float64"], ["decimal128"],
+                                   ["string"],
+                                   ["int32", "string", "float64"],
+                                   ["int16", "decimal128", "float32"]])
+@pytest.mark.parametrize("n,groups", [(1, 1), (2049, 40), (100_003, 6_000)])
+def test_groupby_key_kinds_equal_the_plain_version(kinds, n, groups):
+    """The hash kernels on every key kind, one and three key columns, with
+    nulls: bits equal to the plain version's on the CPU, eager (with
+    string min/max) and capped (fixed-width keys; key_cap below and above
+    the live group count, an alive mask)."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import aggregate, groupby_cuda
+    rng = np.random.default_rng(n + groups + len(kinds))
+    keys = [_gb_key(rng, k, n, 0.2, groups) for k in kinds]
+    names = [f"k{i}" for i in range(len(kinds))]
+    t, aggs = _gb_key_case(keys, n, True, rng)
+    groupby_cuda.reset_counters()
+    _same_bits(aggregate.groupby_aggregate(t.to("cuda"), names, aggs)
+               .to("cpu"), aggregate.groupby_aggregate(t, names, aggs))
+    if "string" not in kinds:
+        t, aggs = _gb_key_case(keys, n, False, rng)
+        alive = torch.from_numpy(rng.random(n) < 0.6)
+        live = int(aggregate.groupby_aggregate_capped(
+            t, names, [("v", "size")], n, alive)[1].sum())
+        for cap in (max(live // 2, 1), live + 3):
+            got = aggregate.groupby_aggregate_capped(t.to("cuda"), names,
+                                                     aggs, cap, alive.cuda())
+            want = aggregate.groupby_aggregate_capped(t, names, aggs, cap,
+                                                      alive)
+            _same_bits(got[0].to("cpu"), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            assert torch.equal(got[2].cpu(), want[2])
+    assert groupby_cuda.PLAIN_CALLS == {"groupby": 0}
+
+
+@pytest.mark.parametrize("dist", ["one group", "zipf", "distinct"])
+def test_groupby_skew_routes_equal_the_plain_version(dist):
+    """One group (every row on one rank), q23's zipf(1.3) skew and
+    all-distinct keys at 200,003 rows: the shared-memory route, and the
+    global route where the groups do not fit, equal the plain version."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import aggregate
+    rng = np.random.default_rng(31)
+    n = 200_003
+    k = {"one group": np.zeros(n, np.int64),
+         "zipf": (rng.zipf(1.3, n) % 2000).astype(np.int64),
+         "distinct": rng.permutation(n).astype(np.int64)}[dist]
+    t, aggs = _gb_key_case([Column.from_numpy(k, tdt.INT64, device="cpu")],
+                           n, False, rng)
+    _same_bits(aggregate.groupby_aggregate(t.to("cuda"), ["k0"], aggs)
+               .to("cpu"), aggregate.groupby_aggregate(t, ["k0"], aggs))
+    alive = torch.from_numpy(rng.random(n) < 0.7)
+    for cap in (1000, n):
+        got = aggregate.groupby_aggregate_capped(t.to("cuda"), ["k0"], aggs,
+                                                 cap, alive.cuda())
+        want = aggregate.groupby_aggregate_capped(t, ["k0"], aggs, cap, alive)
+        _same_bits(got[0].to("cpu"), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[2].cpu(), want[2])
+
+
 def test_groupby_forced_plain_raises_on_the_card(monkeypatch):
     _need_card()
     from spark_rapids_tpu_torch.ops import aggregate
