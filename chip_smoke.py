@@ -85,7 +85,9 @@ in phases that each raise on failure:
    (the small route) and its inventory join (recorded from a cold capped
    run of each plan), each at the plan's row_cap, the total, the total + 1
    and half the total (overflowing), and on a 2^22-row build with half its
-   rows dead; the capped TopK against its plain version on
+   rows dead (the large-route phase also holds the capped probe against
+   the plain maps at row_cap = the total); the capped TopK against its
+   plain version on
    kernel_bench.py's 10M-row table at k = 50, 100 and 4,099 (both routes,
    by the launch counters) with 60%, 0% and 100% of rows live; q3
    (authored), TPC-DS q3 (optimized) and q72 (both) at 10M rows through
@@ -97,7 +99,9 @@ in phases that each raise on failure:
    each at most attempts + 1; warm walls and idle shares of the capped
    and eager TPC-DS q3 and q72; q3 at 100,000 rows from caps of 128 rows
    and 16 keys escalating to equal the eager run; the capped join timed
-   at q72's inventory join and the capped TopK at k = 100;
+   at q72's inventory join and the capped TopK at k = 100, each by kernel
+   name; queue C 8's plans (a capped inner join over a TopK of 0 rows,
+   either side, and over an empty table: 0 rows);
 4g. NDS q5 (20,166,666 input rows: Unions, semi joins to a date window,
    a rollup) and NDS q23 (17,500,000 rows: two shared subqueries, the
    scalar subquery `rev > 0.95 * MAX(rev)`) at scale 1 through
@@ -1035,9 +1039,11 @@ def q3_phase(torch, inputs_cpu, gen, trace):
     log(res.profile_text())
     stamps = [m.kernel for m in res.metrics.values() if m.kind == "HashJoin"]
     require(stamps == ["cuda:hash_join"] * 2, f"join stamps {stamps}")
-    require(launches == {"build": 2, "count": 2, "emit": 2, "exists": 0},
+    require(launches == {"build": 2, "count": 2, "emit": 2, "exists": 0,
+                         "capped": 0},
             f"kernel launches on q3 {launches}")
-    require(jc.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0, "exists": 0},
+    require(jc.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0, "exists": 0,
+                               "capped": 0},
             f"plain versions ran on the card path {jc.PLAIN_CALLS}")
     launches["groupby"] = require_groupby(gc, res, "q3")
     warm = [ex.execute(plan, inputs) for _ in range(3)]
@@ -1115,7 +1121,7 @@ def tpcds_q3_phase(torch, chk, gen, trace):
     require(launches["hash_join"]["build"] == 2
             and launches["fused_select"]["count"] == 2
             and launches["topk"] == {"threshold": 1, "select": 0,
-                                     "merge": 0},
+                                     "merge": 0, "final": 0},
             f"kernel launches on TPC-DS q3 {launches}")
     require(all(v == 0 for d in plain.values() for v in d.values()),
             f"plain versions ran on the card path {plain}")
@@ -1971,6 +1977,12 @@ def large_route_phase(torch, chk):
         lp, rp = jc.probe_emit_plain(pc, tp, bc, pp, total)
         chk.equal("emit_large", lk, lp, f"{what} left map")
         chk.equal("emit_large", rk, rp, f"{what} right map")
+        # the capped probe over the same table, at row_cap = the total
+        cl, cr, cv, co = jc.probe_capped_cuda(pc, tk, bc, total)
+        chk.equal("capped_join", cl, lp, f"{what} capped probe left map")
+        chk.equal("capped_join", cr, rp, f"{what} capped probe right map")
+        require(bool(cv.all()) and not bool(co),
+                f"{what}: the capped probe's valid and overflow")
         require(jc.LARGE_LAUNCHES == {k: v + 1 for k, v in before.items()},
                 f"{what}: large-route launches {jc.LARGE_LAUNCHES}")
         # the whole join against an independent numpy join
@@ -2135,9 +2147,10 @@ def q72_phase(torch, chk):
                   if m.kind == "HashJoin"]
         require(stamps == ["cuda:hash_join"] * 5, f"{what} stamps {stamps}")
         require(launches["hash_join"] == {"build": 5, "count": 5, "emit": 5,
-                                          "exists": 0}
+                                          "exists": 0, "capped": 0}
                 and launches["hash_join_large"] == {"build": 1, "count": 1,
-                                                    "emit": 1, "exists": 0},
+                                                    "emit": 1, "exists": 0,
+                                                    "capped": 0},
                 f"{what}: hash-join launches {launches}")
         fused = [m.kernel for m in res.metrics.values()
                  if m.kind == "FusedSelect"]
@@ -3078,9 +3091,11 @@ def capped_join_cases(torch, chk, jc, join, lkeys, rkeys, row_cap, lalive,
         for part, x, y in zip(("lmap", "rmap", "valid", "overflow"), a, b):
             chk.equal("capped_join", x, y, f"{what} row_cap={cap} {part}")
     torch.cuda.synchronize()
+    ms, by_name = device_by_name(torch, lambda: jc.inner_join_capped_hash(
+        lkeys, rkeys, row_cap, lalive=lalive, ralive=ralive), 5)
     log(f"  capped join {what}: probe {lkeys[0].length} x build "
         f"{rkeys[0].length} -> {total} pairs; kernel == plain at row_cap "
-        f"{caps}")
+        f"{caps}; device {ms!r} ms at row_cap {row_cap} ({by_name})")
     return total
 
 
@@ -3104,15 +3119,12 @@ def capped_join_bound(jc, lkeys, rkeys, row_cap, lalive, ralive):
     return lb + rb + 9 * row_cap + 1, lo + ro
 
 
-def capped_topk_phase(torch, chk):
-    """The capped TopK kernel against its plain version on kernel_bench's
-    10M-row table at each limit and share of live rows, the route held
-    by the launch counters; timed at k = 100 with 60% of rows live."""
+def capped_topk_inputs():
+    """kernel_bench's 10M-row TopK table on the card (INT64 `k` with 5%
+    nulls, FLOAT32 `v`), its keys and directions, and the generator that
+    then draws the alive masks."""
     from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch.columnar import Column, Table
-    from spark_rapids_tpu_torch.ops import topk
-    from spark_rapids_tpu_torch.ops import topk_cuda as tc
-
     rng = np.random.default_rng(8)
     t = Table([Column.from_numpy(rng.integers(-10**6, 10**6, N_ROWS)
                                  .astype(np.int64), dt.INT64,
@@ -3120,7 +3132,17 @@ def capped_topk_phase(torch, chk):
                Column.from_numpy(rng.standard_normal(N_ROWS)
                                  .astype(np.float32), dt.FLOAT32,
                                  device="cuda")], ["k", "v"])
-    keys, asc = ["k", "v"], [False, True]
+    return t, ["k", "v"], [False, True], rng
+
+
+def capped_topk_phase(torch, chk):
+    """The capped TopK kernel against its plain version on kernel_bench's
+    10M-row table at each limit and share of live rows, the route held
+    by the launch counters; timed at k = 100 with 60% of rows live."""
+    from spark_rapids_tpu_torch.ops import topk
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+
+    t, keys, asc, rng = capped_topk_inputs()
     sms, smem_optin = tc.device_limits(torch.device("cuda"))
     routes = set()
     timing = None
@@ -3186,7 +3208,7 @@ def capped_phase(torch, chk):
     before and read just after the counted run, each equal to the eager
     run on the card and to numpy, with its syncs counted; escalation at
     100,000 rows from tiny caps; warm walls and idle shares of the capped
-    and eager TPC-DS q3 and q72."""
+    and eager TPC-DS q3 and q72; queue C 8's plans (`c8_plans`)."""
     from spark_rapids_tpu_torch import dtypes as dt
     from spark_rapids_tpu_torch import nds_q3, nds_q72
     from spark_rapids_tpu_torch.columnar import Column
@@ -3236,7 +3258,7 @@ def capped_phase(torch, chk):
                  if isinstance(n, HashJoin) and n.how == "inner"]
         launches = {"hash_join": dict(jc.LAUNCHES),
                     "hash_join_large": dict(jc.LARGE_LAUNCHES),
-                    "capped_join": dict(jc.CAPPED_CALLS),
+                    "capped_join": {"join": jc.LAUNCHES["capped"]},
                     "topk": dict(tc.LAUNCHES),
                     "groupby": dict(gc.LAUNCHES)}
         plain = {"hash_join": dict(jc.PLAIN_CALLS),
@@ -3253,9 +3275,12 @@ def capped_phase(torch, chk):
                 f"capped {what}: attempts {cold.attempts}/{res.attempts}, "
                 f"cache hits {res.jit_cache_hits}")
         n = len(joins)
+        # a capped join is the build and the capped probe: no count, no
+        # emit
         require(launches["capped_join"]["join"] == n
-                and launches["hash_join"] == {"build": n, "count": n,
-                                              "emit": n, "exists": 0},
+                and launches["hash_join"] == {"build": n, "count": 0,
+                                              "emit": 0, "exists": 0,
+                                              "capped": n},
                 f"capped {what}: {n} joins, launches {launches}")
         stamps = {m.label: m.kernel for m in res.metrics.values()
                   if m.kind in ("HashJoin", "TopK")}
@@ -3396,6 +3421,99 @@ def capped_phase(torch, chk):
     log(f"capped q3 escalation at {ESCALATION_ROWS} rows from "
         f"{ESCALATION_CAPS}: {res.attempts} attempts to {res.caps}, "
         f"escalations {uses_cap}, equal to the eager run")
+    out["c8"] = c8_plans(torch)
+    return out
+
+
+def c8_plans(torch):
+    """Queue C 8 on the card: a capped inner join over the zero-row frame
+    of a TopK of 0 rows (Sort + Limit(0), optimized), the TopK on either
+    side, and over an empty input table: 0 rows, no plain version run."""
+    from spark_rapids_tpu_torch import table_from_numpy
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor
+
+    def inputs(nl):
+        k = np.array([0, 1, 2, 0, 1], np.int64)[:nl]
+        return {"l": table_from_numpy(["k", "v"], [k, np.arange(
+                    nl, dtype=np.int64)], [None, None], ["int64", "int64"],
+                    device="cuda"),
+                "r": table_from_numpy(["rk", "w"], [np.array(
+                    [0, 1, 2, 0], np.int64), np.arange(4, dtype=np.int64)],
+                    [None, None], ["int64", "int64"], device="cuda")}
+    out = {}
+    for side in ("topk left", "topk right", "empty left"):
+        b = PlanBuilder()
+        left = b.scan("l", schema=["k", "v"])
+        if side != "empty left":
+            left = left.sort(["v"]).limit(0)
+        right = b.scan("r", schema=["rk", "w"])
+        plan = (right.join(left, left_on="rk", right_on="k")
+                if side == "topk right"
+                else left.join(right, left_on="k", right_on="rk")).build()
+        jc.reset_counters()
+        tc.reset_counters()
+        res = PlanExecutor(mode="capped").execute(
+            plan, inputs(0 if side == "empty left" else 5))
+        got = res.compact()
+        torch.cuda.synchronize()
+        kinds = [n.kind for n in res.plan.nodes]
+        plain = sum(jc.PLAIN_CALLS.values()) + sum(tc.PLAIN_CALLS.values())
+        require(got.num_rows == 0 and plain == 0
+                and (side == "empty left" or "TopK" in kinds),
+                f"C8 {side}: {got.num_rows} rows, nodes {kinds}, plain "
+                f"runs {plain}")
+        out[side] = {"rows": got.num_rows, "nodes": kinds}
+    log(f"C8 on the card: {out}, 0 rows each")
+    return out
+
+
+def capped_kernels_phase(torch):
+    """The capped tier's two kernels alone, to compare two trees in one
+    call (this script run from each tree's root): the capped join at q3's
+    two joins and q72's inventory join (their arguments recorded from a
+    cold capped run of each plan) and the capped TopK at k = 50, 100 and
+    4,099 over kernel_bench's 10M-row table with 60% of rows live: device
+    ms by kernel name and one call's ms, the L2 flushed."""
+    from spark_rapids_tpu_torch import nds_q3, nds_q72
+    from spark_rapids_tpu_torch.ops import join_cuda as jc
+    from spark_rapids_tpu_torch.ops import topk_cuda as tc
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    out = {}
+
+    def timed(label, fn, extra):
+        ms, by_name = device_by_name(torch, fn, 20)
+        cms = call_ms(torch, fn, 20)
+        out[label] = {"ms": ms, "by_name": by_name, "call_ms": cms, **extra}
+        log(f"  {label}: device {ms!r} ms ({by_name}), one call {cms!r} ms")
+
+    for what, plan, make, optimize in (
+            ("q3", nds_q3.q3_plan(), nds_q3.q3_inputs, False),
+            ("q72", nds_q72.q72_plan(), nds_q72.q72_inputs, True)):
+        inputs = make(N_SALES, seed=0, device="cuda")
+        calls, restore = recording_joins(jc)
+        try:
+            PlanExecutor(mode="capped", optimize=optimize).execute(plan,
+                                                                   inputs)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        chosen = ([("capped q3 join 1", calls[0]),
+                   ("capped q3 join 2", calls[1])] if what == "q3" else
+                  [("capped q72 inventory join",
+                    next(c for c in calls if len(c[0]) == 2))])
+        for label, (lk, rk, cap, la, ra) in chosen:
+            timed(label, lambda: jc.inner_join_capped_hash(
+                lk, rk, cap, lalive=la, ralive=ra),
+                {"probe_rows": lk[0].length, "build_rows": rk[0].length,
+                 "row_cap": cap})
+        del inputs, calls
+    t, keys, asc, rng = capped_topk_inputs()
+    alive = torch.from_numpy(rng.random(N_ROWS) < CAPPED_ALIVE[0]).cuda()
+    for k in CAPPED_TOPK_LIMITS:
+        timed(f"capped topk k={k}", lambda: tc.topk_capped_cuda(
+            t, keys, asc, k, alive), {"rows": N_ROWS, "live": 0.6})
     return out
 
 
@@ -3475,7 +3593,7 @@ def kernel_counters():
             "hash_join": dict(join_cuda.LAUNCHES),
             "hash_join_large": dict(join_cuda.LARGE_LAUNCHES),
             "hash_join_var": dict(join_cuda.VAR_LAUNCHES),
-            "hash_join_capped": dict(join_cuda.CAPPED_CALLS),
+            "hash_join_capped": {"join": join_cuda.LAUNCHES["capped"]},
             "fused_select": dict(select_cuda.LAUNCHES),
             "fused_select_strings": dict(select_cuda.STRING_LAUNCHES),
             "topk": dict(topk_cuda.LAUNCHES),
@@ -3546,7 +3664,7 @@ def require_semi_joins(res, counters, what):
     require(k > 0 and all(n.how in ("left_semi", "left_anti")
                           for n in semis)
             and counters["hash_join"] == {"build": k, "count": 0,
-                                          "emit": 0, "exists": k}
+                                          "emit": 0, "exists": k, "capped": 0}
             and counters["hash_join_large"]["build"]
             == counters["hash_join_large"]["exists"]
             and counted(counters["plain"]["hash_join"]) == 0
@@ -5425,13 +5543,13 @@ def var_join_cases(torch, chk, rng):
         jc.reset_counters()
         total = check_case(chk, jc, join, p, b, what, suffix="_var")
         require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1,
-                                    "exists": 1} or total == 0,
+                                    "exists": 1, "capped": 0} or total == 0,
                 f"{what}: launches {jc.VAR_LAUNCHES}")
         log(f"  hash join {what}: {p[0].length} x {b[0].length} -> "
             f"{total} pairs, large route "
             f"{jc.is_large(jc._capacity(b[0].length))}; kernel == plain "
             f"== sort-based join")
-    # the capped form: alive masks folded into the first key's validity
+    # the capped form: the live masks read beside the keys
     for what, p, b in cases[:2] + cases[3:4] + cases[7:8]:
         la = torch.rand(p[0].length, device="cuda") < 0.7
         ra = torch.rand(b[0].length, device="cuda") < 0.7
@@ -5817,7 +5935,8 @@ def q74_path(torch, chk):
             f"q74 {form} differs from numpy q74")
         stamps = sorted(m.kernel for m in res.metrics.values() if m.kernel)
         require(counters["hash_join_var"] == {"build": 3, "count": 3,
-                                              "emit": 3, "exists": 0}
+                                              "emit": 3, "exists": 0,
+                                              "capped": 0}
                 and counters["hash_join"]["count"] == 7
                 and counters["groupby"]["groupby"] == 2
                 and (not optimize or (counters["fused_select"]["count"] >= 4
@@ -5879,7 +5998,7 @@ def var_join_timing(torch, chk, p, b, what):
     jc.reset_counters()
     pairs = check_case(chk, jc, join, p, b, what, suffix="_var")
     require(jc.VAR_LAUNCHES == {"build": 1, "count": 1, "emit": 1,
-                                "exists": 1}
+                                "exists": 1, "capped": 0}
             and jc.is_large(jc._capacity(b[0].length)),
             f"{what}: launches {jc.VAR_LAUNCHES}, not the large var route")
     log(f"  hash join {what}: {p[0].length} x {b[0].length} -> {pairs} "
@@ -6200,6 +6319,11 @@ def main(argv=None):
                          "first three) capped, interleaved, then a traced "
                          "run of each: walls, busy time and idle share; "
                          "runs from an earlier tree's root too")
+    ap.add_argument("--capped-kernels", action="store_true",
+                    help="only time the capped join at q3's joins and q72's "
+                         "inventory join and the capped TopK at k = 50, 100 "
+                         "and 4,099 (device ms by kernel, one call); runs "
+                         "from an earlier tree's root too, for A/B runs")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -6217,10 +6341,12 @@ def main(argv=None):
                           "walls": walls_phase(torch, args.walls)}),
               flush=True)
         return 0
-    if args.plan_walls or args.groupby_ab:
+    if args.plan_walls or args.groupby_ab or args.capped_kernels:
         from spark_rapids_tpu_torch.ops import cuda_build
         cuda_build.build()
         out = {"card": smi}
+        if args.capped_kernels:
+            out["capped_kernels"] = capped_kernels_phase(torch)
         if args.groupby_ab:
             out["groupby_ab"] = groupby_ab_phase(torch)
         if args.plan_walls:
@@ -6505,6 +6631,7 @@ def main(argv=None):
     kernels.append({
         "name": "hash_join_capped", "route": "cuda", "source": SOURCE,
         "replaces": "spark_rapids_tpu/ops/join_pallas.py:400",
+        "status": "redesigned: the build and one capped probe",
         "launches": sum(capped["join_launches"].values()),
         "launches_by_path": capped["join_launches"],
         "fuzz_launches": fz["reached"]["hash_join_capped"],
@@ -6520,6 +6647,7 @@ def main(argv=None):
     kernels.append({
         "name": "topk_capped", "route": "cuda", "source": TK_SOURCE,
         "replaces": "spark_rapids_tpu/ops/topk_pallas.py:179",
+        "status": "redesigned: dead rows no candidates",
         "launches": sum(capped["topk_launches"].values()),
         "launches_by_path": capped["topk_launches"],
         "fuzz_launches": fz["reached"]["topk_capped"],

@@ -5,8 +5,9 @@ Counterpart of `spark_rapids_tpu/ops/copying.py`. `concat_columns`,
 `concat_tables` and `slice_table` serve the plan engine's Union, Limit and
 the TopK fallback's sort-then-slice; `split_table` and `halve_table` the
 split-and-retry contract; `replace_nulls`, `if_else` and `drop_duplicates`
-cudf's copying surface. They take what the reference takes: every kind for
-the concat, the slices and splits (a gather); STRING, DECIMAL128 and the
+cudf's copying surface; `dead_column` the capped join's side with no rows.
+They take what the reference takes: every kind for the concat, the slices
+and splits (a gather); STRING, DECIMAL128 and the
 fixed-width kinds for `replace_nulls` and `if_else` (nested columns
 raise); every sort-key kind for `drop_duplicates`. A concat of STRING or
 LIST columns shifts each later column's offsets by the chars or child rows
@@ -63,6 +64,31 @@ def concat_columns(cols: Sequence[Column]) -> Column:
         child = concat_columns([c.children[0] for c in cols])
         return Column(first.dtype, n, None, validity, offsets, (child,))
     return Column(first.dtype, n, torch.cat([c.data for c in cols]),
+                  validity)
+
+
+def dead_column(col: Column, m: int) -> Column:
+    """m rows of `col`'s dtype for slots that hold no row: zero data, empty
+    strings and lists, and a validity (all null) where `col` has one, so
+    that the frame's columns carry what a gather from `col` would. The
+    capped join's output over a zero-row side, which has no row 0 to
+    gather for its dead slots."""
+    dev = col.device
+    validity = (None if col.validity is None
+                else torch.zeros(m, dtype=torch.bool, device=dev))
+    dtype = col.dtype
+    k = dtype.kind
+    if k == Kind.STRUCT:
+        return Column(dtype, m, None, validity, None,
+                      tuple(dead_column(c, m) for c in col.children))
+    offsets = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    if k == Kind.LIST:
+        return Column(dtype, m, None, validity, offsets,
+                      (dead_column(col.children[0], 0),))
+    if k == Kind.STRING:
+        return Column(dtype, m, col.data[:0], validity, offsets)
+    return Column(dtype, m, torch.zeros((m,) + dtype.row_shape,
+                                        dtype=col.data.dtype, device=dev),
                   validity)
 
 

@@ -5,6 +5,8 @@
 //   hj_build  <- _build_kernel_body (via _build_table)
 //   hj_count  <- _count_kernel_body (via _run_probe / _probe_counts)
 //   hj_emit   <- _emit_kernel_body  (via _run_probe / _probe_emit)
+//   hj_capped <- _count_kernel_body and _emit_kernel_body as
+//                inner_join_capped_pallas (join_pallas.py:400) runs them
 // and computes the same functions. hj_exists replaces no Pallas kernel: it
 // is the semi and anti joins' probe (spark_rapids_tpu/ops/join.py
 // left_semi_join, left_anti_join, semi_join_mask, sort-based there).
@@ -105,6 +107,20 @@
 //   Bloom filter (small route) and ballot compaction, and nothing else: no
 //   counts, lists, sums or total, so no host read. A semi join is the
 //   mask, an anti join its complement.
+// - Capped probe (hj_capped, the capped tier's inner join after the build
+//   over the live build rows): the count's segments and the emit's walk
+//   in one launch, over a padded probe frame whose rows are mostly dead.
+//   It must read the live mask, the validity and the live rows' keys,
+//   and write row_cap slots of two maps and `valid`: at q72's inventory
+//   join some 0.03 ms of bytes. The TPU form's count and emit wrote and
+//   read back a count and a list entry for every padded row, and torch
+//   ops then masked every slot. Here a lane whose 8 rows are all dead
+//   loads no key and a warp of dead rows hashes nothing; the lists stay
+//   in shared memory; each tile's offset comes from a decoupled look-back
+//   (tiles taken in order from a counter, so a tile waits only on tiles
+//   that running blocks hold); every slot of the maps and `valid` and the
+//   overflow flag are written by the kernel, so nothing runs over the
+//   slots afterwards and nothing is read on the host.
 // The build's bound is its bytes (keys in, table out). The small build is
 // bound by its one launch; the large one by its six launches at q72's
 // 52,000 rows (3-6 us each), and at q74's 489,258 strings by hashing the
@@ -162,6 +178,7 @@ static_assert(static_cast<long long>(PROBE_SEG) * MAX_BUILD_ROWS <= INT_MAX,
 struct Keys {
   const void* data[MAX_KEYS];
   const unsigned char* valid[MAX_KEYS];  // torch.bool bytes; null = all valid
+  const unsigned char* alive;            // the capped tier's live rows, or null
   int width[MAX_KEYS];                   // storage bytes: 1, 2, 4 or 8
   int wide[MAX_KEYS];                    // hashed as 8 bytes
   int nk;
@@ -209,6 +226,7 @@ __device__ __forceinline__ uint32_t hash_col(uint32_t h, long long v,
 }
 
 __device__ __forceinline__ bool row_valid(const Keys& k, long long i) {
+  if (k.alive != nullptr && !k.alive[i]) return false;
   for (int j = 0; j < k.nk; ++j)
     if (k.valid[j] != nullptr && !k.valid[j][i]) return false;
   return true;
@@ -245,6 +263,7 @@ enum { VK_FIXED = 0, VK_F32 = 1, VK_F64 = 2, VK_DEC128 = 3, VK_STRING = 4 };
 struct VKeys {
   const void* data[MAX_KEYS];
   const unsigned char* valid[MAX_KEYS];  // torch.bool bytes; null = all valid
+  const unsigned char* alive;            // the capped tier's live rows, or null
   const int* offsets[MAX_KEYS];          // STRING: (n + 1,) int32
   int width[MAX_KEYS];                   // VK_FIXED: storage bytes
   int wide[MAX_KEYS];                    // hashed as 8 bytes
@@ -327,6 +346,7 @@ __device__ __forceinline__ uint32_t row_hash(const VKeys& k, long long i) {
 }
 
 __device__ __forceinline__ bool row_valid(const VKeys& k, long long i) {
+  if (k.alive != nullptr && !k.alive[i]) return false;
   for (int j = 0; j < k.nk; ++j)
     if (k.valid[j] != nullptr && !k.valid[j][i]) return false;
   return true;
@@ -1156,26 +1176,32 @@ __device__ __forceinline__ void load_rows(const Keys& k, int j,
   }
 }
 
-// rows row0 .. row0 + 7 inside n with every key valid
+// ok[r] &= the byte of row row0 + r (a bool mask; rows past n untouched)
+__device__ __forceinline__ void and_bytes(const unsigned char* mask,
+                                          long long row0, long long n,
+                                          bool ok[PROBE_R]) {
+  const unsigned char* a = mask + row0;
+  if (row0 + PROBE_R <= n && (reinterpret_cast<uintptr_t>(a) & 7) == 0) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(a));
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      ok[r] = ok[r] && (((r < 4 ? x.x : x.y) >> (8 * (r & 3))) & 0xffu);
+  } else {
+#pragma unroll
+    for (int r = 0; r < PROBE_R; ++r)
+      if (row0 + r < n) ok[r] = ok[r] && a[r] != 0;
+  }
+}
+
+// rows row0 .. row0 + 7 inside n, live, with every key valid
 template <typename K>
 __device__ __forceinline__ void valid_rows(const K& k, long long row0,
                                            long long n, bool ok[PROBE_R]) {
 #pragma unroll
   for (int r = 0; r < PROBE_R; ++r) ok[r] = row0 + r < n;
-  for (int j = 0; j < k.nk; ++j) {
-    if (k.valid[j] == nullptr) continue;
-    const unsigned char* a = k.valid[j] + row0;
-    if (row0 + PROBE_R <= n && (reinterpret_cast<uintptr_t>(a) & 7) == 0) {
-      const uint2 x = __ldg(reinterpret_cast<const uint2*>(a));
-#pragma unroll
-      for (int r = 0; r < PROBE_R; ++r)
-        ok[r] = ok[r] && (((r < 4 ? x.x : x.y) >> (8 * (r & 3))) & 0xffu);
-    } else {
-#pragma unroll
-      for (int r = 0; r < PROBE_R; ++r)
-        if (row0 + r < n) ok[r] = ok[r] && a[r] != 0;
-    }
-  }
+  if (k.alive != nullptr) and_bytes(k.alive, row0, n, ok);
+  for (int j = 0; j < k.nk; ++j)
+    if (k.valid[j] != nullptr) and_bytes(k.valid[j], row0, n, ok);
 }
 
 __device__ __forceinline__ void store_counts(int* counts, long long row0,
@@ -1583,9 +1609,9 @@ static size_t emit_smem_bytes(int C, int nks) {
 // equal that slot's build row's, until its count is reached. The pairs go
 // to the warp's part of shared memory, then out as one run per map; a
 // segment with more than EMIT_STAGE pairs writes them in place. Only pairs
-// at positions below `limit` are written (the capped join's row_cap; the
-// eager join passes the total): a tile or segment that starts at or past it
-// is skipped, and a segment that crosses it writes its first pairs only.
+// at positions below `limit` are written (the eager join passes the
+// total): a tile or segment that starts at or past it is skipped, and a
+// segment that crosses it writes its first pairs only.
 template <bool LARGE, typename K>
 __global__ void __launch_bounds__(PROBE_THREADS)
 emit_kernel(const __grid_constant__ K b, const int* __restrict__ slot_row,
@@ -1688,11 +1714,346 @@ emit_kernel(const __grid_constant__ K b, const int* __restrict__ slot_row,
   }
 }
 
+// ---- the capped probe ------------------------------------------------------
+//
+// The capped tier's inner join in one launch, over a padded probe frame
+// whose rows are mostly dead: (row_cap,) maps, valid and overflow, no
+// per-row counts or lists in device memory and nothing for the host to
+// read. Tiles are taken in order from a counter (a block takes its next
+// tile when it finishes one), so a tile's predecessors are all held by
+// running blocks. Per tile:
+// - count: count_kernel's segments, with the live mask read beside the
+//   keys' validity; a lane whose 8 rows are all dead loads no key, a warp
+//   whose 256 rows are all dead hashes nothing (ballot). Each warp keeps
+//   its segment's list of matched rows in shared memory;
+// - offset: the tile's pairs published in its word of `state` (flag 1:
+//   the tile's own sum, 2: the sum of it and every tile before it, in the
+//   low 62 bits), and its exclusive offset found by a decoupled look-back
+//   over the words of the tiles before it, 32 at a time, by warp 0. (A
+//   look-back a warp's segment, with no block barrier, measured slower:
+//   eight times the chain of published words.)
+// - emit: emit_kernel's walk over each segment's shared list, the pairs
+//   below row_cap written at the tile's offset.
+// Then each block waits for the last tile's word (the total) and writes
+// its share of every slot's `valid` (slot < total) and the maps' zeros
+// past the pairs; the block of the last tile writes `overflow`.
+#define LB_SHIFT 62
+#define LB_AGG 1ull                             // the tile's own pairs
+#define LB_PREFIX 2ull                          // and every earlier tile's
+#define LB_VALUE ((1ull << LB_SHIFT) - 1ull)
+
+__device__ __forceinline__ unsigned long long lb_read(
+    const unsigned long long* w) {
+  return *reinterpret_cast<const volatile unsigned long long*>(w);
+}
+
+__device__ __forceinline__ long long warp_sum_ll(long long x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// the pairs of the tiles before `tile` (> 0), by warp 0: lane l reads the
+// word of tile - 1 - l (below tile 0: a prefix of 0) until none is 0, and
+// the lanes up to the nearest prefix add up; else 32 tiles further back
+__device__ __forceinline__ long long look_back(
+    const unsigned long long* state, long long tile, int lane) {
+  long long excl = 0;
+  for (long long top = tile - 1;; top -= 32) {
+    const long long t = top - lane;
+    unsigned long long w = t >= 0 ? lb_read(state + t) : LB_PREFIX << LB_SHIFT;
+    while (__any_sync(0xffffffffu, (w >> LB_SHIFT) == 0)) {
+      if ((w >> LB_SHIFT) == 0) w = lb_read(state + t);
+    }
+    const unsigned int pre =
+        __ballot_sync(0xffffffffu, (w >> LB_SHIFT) == LB_PREFIX);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    excl += warp_sum_ll(lane <= stop ? static_cast<long long>(w & LB_VALUE)
+                                     : 0);
+    if (pre) return excl;
+  }
+}
+
+static size_t capped_smem_bytes(bool large, int C, int nks) {
+  const size_t lists = static_cast<size_t>(PROBE_TILE) *
+                       (large ? sizeof(unsigned long long) : sizeof(unsigned));
+  return (large ? 0 : count_smem_bytes(C, nks)) + lists + emit_stage_bytes();
+}
+
+template <bool LARGE, typename K>
+__global__ void __launch_bounds__(PROBE_THREADS)
+capped_kernel(const __grid_constant__ K p, long long n,
+              const __grid_constant__ K b, const int* __restrict__ slot_row,
+              const uint32_t* __restrict__ slot_hash,
+              const unsigned long long* __restrict__ ent, int C, int nks,
+              long long row_cap, int* __restrict__ out_l,
+              int* __restrict__ out_r, unsigned char* __restrict__ valid,
+              unsigned char* __restrict__ overflow,
+              unsigned long long* next_tile, unsigned long long* state) {
+  using R = Route<LARGE>;
+  using CF = typename R::CF;
+  using Ent = typename R::Ent;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ WalkSlot<CF> walk_q[PROBE_WARPS][32];
+  __shared__ int seg_pairs[PROBE_WARPS], seg_rows[PROBE_WARPS];
+  __shared__ long long tile_s, base_s, total_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  typename R::Table t;
+  unsigned int* bloom = nullptr;
+  unsigned char* rest = smem;
+  if constexpr (LARGE) {
+    t.ent = ent;
+  } else {
+    t = stage_table(smem, b, slot_row, slot_hash, C, nks);
+    bloom = reinterpret_cast<unsigned int*>(t.key + nks * C);
+    for (int w = threadIdx.x; w < BLOOM_WORDS; w += blockDim.x) bloom[w] = 0u;
+    __syncthreads();
+    for (int s = threadIdx.x; s < C; s += blockDim.x) {
+      const unsigned long long e = t.ent[s];
+      if (ent_row(e) >= 0)
+        atomicOr(&bloom[ent_hash(e) >> 21], 1u << ((ent_hash(e) >> 16) & 31));
+    }
+    rest = reinterpret_cast<unsigned char*>(bloom + BLOOM_WORDS);
+  }
+  Ent* list = reinterpret_cast<Ent*>(rest) + warp * PROBE_SEG;
+  int* stage_l = reinterpret_cast<int*>(reinterpret_cast<Ent*>(rest) +
+                                        PROBE_TILE) + warp * EMIT_STAGE;
+  int* stage_r = stage_l + PROBE_WARPS * EMIT_STAGE;
+  const int mask = C - 1;
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  WalkSlot<CF>* q = walk_q[warp];
+  const unsigned int lower = (1u << lane) - 1u;
+  for (;;) {
+    if (threadIdx.x == 0)
+      tile_s = static_cast<long long>(atomicAdd(next_tile, 1ull));
+    __syncthreads();                   // the table and Bloom filter, tile_s
+    const long long tile = tile_s;
+    if (tile >= tiles) break;
+    // count: segment `warp` of the tile
+    const long long seg0 = tile * PROBE_TILE + warp * PROBE_SEG;
+    int pairs = 0, seg_matched = 0;
+    if (seg0 < n) {
+      const long long row0 = seg0 + lane * PROBE_R;
+      bool ok[PROBE_R];
+      valid_rows(p, row0, n, ok);
+      bool live = false;
+#pragma unroll
+      for (int r = 0; r < PROBE_R; ++r) live = live || ok[r];
+      if (__any_sync(0xffffffffu, live)) {
+        long long v0[PROBE_R];
+        uint32_t h[PROBE_R];
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r) {
+          v0[r] = 0;
+          h[r] = 0u;
+        }
+        if constexpr (IsVar<K>::value) {
+#pragma unroll
+          for (int r = 0; r < PROBE_R; ++r) {
+            v0[r] = row0 + r;
+            if (ok[r]) h[r] = row_hash(p, row0 + r);
+          }
+        } else if (live) {
+          load_rows(p, 0, row0, n, v0);
+#pragma unroll
+          for (int r = 0; r < PROBE_R; ++r)
+            h[r] = hash_col(42u, v0[r], p.wide[0]);
+          for (int j = 1; j < p.nk; ++j) {
+            long long v[PROBE_R];
+            load_rows(p, j, row0, n, v);
+#pragma unroll
+            for (int r = 0; r < PROBE_R; ++r)
+              h[r] = hash_col(h[r], v[r], p.wide[j]);
+          }
+        }
+        unsigned int cand = 0;
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r)
+          if (ok[r] && (!R::BLOOM ||
+                        (bloom[h[r] >> 21] >> ((h[r] >> 16) & 31) & 1u)))
+            cand |= 1u << r;
+        int base[PROBE_R], K_ = 0;
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r) {
+          const unsigned int bal = __ballot_sync(0xffffffffu, (cand >> r) & 1u);
+          base[r] = K_ + __popc(bal & lower);
+          K_ += __popc(bal);
+        }
+        CF cf[PROBE_R];
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r) cf[r] = 0;
+        for (int q0 = 0; q0 < K_; q0 += 32) {
+#pragma unroll
+          for (int r = 0; r < PROBE_R; ++r) {
+            const int idx = base[r] - q0;
+            if ((cand & (1u << r)) && idx >= 0 && idx < 32)
+              q[idx] = WalkSlot<CF>{
+                  v0[r], h[r], static_cast<CF>(row0 - tile * PROBE_TILE) + r};
+          }
+          __syncwarp();
+          if (q0 + lane < K_) {
+            const WalkSlot<CF> w = q[lane];
+            int f = 0;
+            const int n_match = count_row(p, tile * PROBE_TILE + w.x, w.v0,
+                                          w.h, b, t, C, &f);
+            q[lane].x = static_cast<CF>(n_match) |
+                        (static_cast<CF>(f) << R::CF_SHIFT);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int r = 0; r < PROBE_R; ++r) {
+            const int idx = base[r] - q0;
+            if ((cand & (1u << r)) && idx >= 0 && idx < 32) cf[r] = q[idx].x;
+          }
+          __syncwarp();
+        }
+        // the segment's list, in row order, in shared memory
+        int c[PROBE_R], k = 0;
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r) {
+          c[r] = static_cast<int>(cf[r] & ((CF(1) << R::CF_SHIFT) - 1));
+          pairs += c[r];
+          const unsigned int bal = __ballot_sync(0xffffffffu, c[r] > 0);
+          k += __popc(bal & lower);
+          seg_matched += __popc(bal);
+        }
+#pragma unroll
+        for (int r = 0; r < PROBE_R; ++r) {
+          if (c[r] > 0)
+            list[k++] = static_cast<Ent>(row0 - tile * PROBE_TILE + r) |
+                        (static_cast<Ent>(cf[r] >> R::CF_SHIFT)
+                         << ENT_SLOT_SHIFT) |
+                        (static_cast<Ent>(c[r]) << R::COUNT_SHIFT);
+        }
+        pairs = __reduce_add_sync(0xffffffffu, pairs);
+      }
+    }
+    if (lane == 0) {
+      seg_pairs[warp] = pairs;
+      seg_rows[warp] = seg_matched;
+    }
+    __syncthreads();
+    // offset: publish the tile's pairs, look back for the earlier tiles'
+    if (warp == 0) {
+      const long long sum = warp_sum_ll(lane < PROBE_WARPS ? seg_pairs[lane]
+                                                           : 0);
+      if (lane == 0)
+        atomicExch(state + tile,
+                   ((tile == 0 ? LB_PREFIX : LB_AGG) << LB_SHIFT) |
+                       static_cast<unsigned long long>(sum));
+      const long long excl = tile == 0 ? 0 : look_back(state, tile, lane);
+      if (lane == 0) {
+        if (tile > 0)
+          atomicExch(state + tile, (LB_PREFIX << LB_SHIFT) |
+                                       static_cast<unsigned long long>(
+                                           excl + sum));
+        if (tile == tiles - 1) *overflow = excl + sum > row_cap;
+        base_s = excl;
+      }
+    }
+    __syncthreads();
+    // emit: segment `warp`'s pairs below row_cap, at the tile's offset
+    // plus the pairs of its earlier segments (as emit_kernel)
+    const int matched = seg_rows[warp];
+    long long start = base_s;
+    for (int w = 0; w < warp; ++w) start += seg_pairs[w];
+    if (matched > 0 && start < row_cap) {
+      const int seg_total = seg_pairs[warp];
+      const long long room = row_cap - start;
+      const int keep = room < seg_total ? static_cast<int>(room) : seg_total;
+      int* dst_l = out_l + start;
+      int* dst_r = out_r + start;
+      const bool staged = seg_total <= EMIT_STAGE;
+      int* to_l = staged ? stage_l : dst_l;
+      int* to_r = staged ? stage_r : dst_r;
+      int run = 0;
+      for (int e0 = 0; e0 < matched; e0 += 32) {
+        const int e = e0 + lane;
+        const Ent w = e < matched ? list[e] : Ent(0);
+        const int cnt = static_cast<int>(w >> R::COUNT_SHIFT);
+        const int incl = warp_incl(cnt, lane);
+        int o = run + incl - cnt;
+        run += __shfl_sync(0xffffffffu, incl, 31);
+        if (cnt > 0) {
+          const int row = static_cast<int>(tile * PROBE_TILE +
+                                           (w & (PROBE_TILE - 1)));
+          const int s0 = static_cast<int>(
+              (w >> ENT_SLOT_SHIFT) &
+              ((Ent(1) << (R::COUNT_SHIFT - ENT_SLOT_SHIFT)) - 1));
+          const unsigned long long f = t.at(s0);
+          const int r0 = ent_row(f);
+          const uint32_t h0 = ent_hash(f);
+          const int end = staged || o + cnt <= keep ? o + cnt : keep;
+          if (o < end) {
+            to_l[o] = row;
+            to_r[o] = r0;
+          }
+          ++o;
+          for (int d = 1; o < end && d < C; ++d) {
+            const int s = (s0 + d) & mask;
+            const unsigned long long en = t.at(s);
+            const int r = ent_row(en);
+            if (r < 0) break;
+            if (ent_hash(en) == h0 && build_keys_equal(b, t, s, r, s0, r0)) {
+              to_l[o] = row;
+              to_r[o] = r;
+              ++o;
+            }
+          }
+        }
+      }
+      if (staged) {
+        __syncwarp();
+        for (int o = lane; o < keep; o += 32) {
+          dst_l[o] = stage_l[o];
+          dst_r[o] = stage_r[o];
+        }
+      }
+    }
+    __syncthreads();                   // the lists, stages and sums reused
+  }
+  // the slots: valid below the total, the maps' zeros past the pairs
+  if (threadIdx.x == 0) {
+    unsigned long long w = lb_read(state + tiles - 1);
+    while ((w >> LB_SHIFT) != LB_PREFIX) {
+      __nanosleep(64);
+      w = lb_read(state + tiles - 1);
+    }
+    total_s = static_cast<long long>(w & LB_VALUE);
+  }
+  __syncthreads();
+  const long long total = total_s;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       4 * g < row_cap; g += step) {
+    const long long j = 4 * g;
+    if (j + 4 <= row_cap) {
+      reinterpret_cast<uchar4*>(valid)[g] =
+          make_uchar4(j < total, j + 1 < total, j + 2 < total, j + 3 < total);
+      if (j >= total) {
+        reinterpret_cast<int4*>(out_l)[g] = make_int4(0, 0, 0, 0);
+        reinterpret_cast<int4*>(out_r)[g] = make_int4(0, 0, 0, 0);
+        continue;
+      }
+    }
+    for (long long i = j; i < j + 4 && i < row_cap; ++i) {
+      if (j + 4 > row_cap) valid[i] = i < total;
+      if (i >= total) {
+        out_l[i] = 0;
+        out_r[i] = 0;
+      }
+    }
+  }
+}
+
 static bool make_keys(Keys* k, const void* const* data,
                       const void* const* valid, const int* width,
                       const int* wide, int nk) {
   if (nk < 1 || nk > MAX_KEYS) return false;
   k->nk = nk;
+  k->alive = nullptr;
   for (int j = 0; j < MAX_KEYS; ++j) {
     const bool used = j < nk;
     k->data[j] = used ? data[j] : nullptr;
@@ -1713,6 +2074,7 @@ static bool make_vkeys(VKeys* k, const void* const* data,
                        int nk) {
   if (nk < 1 || nk > MAX_KEYS) return false;
   k->nk = nk;
+  k->alive = nullptr;
   for (int j = 0; j < MAX_KEYS; ++j) {
     const bool used = j < nk;
     k->data[j] = used ? data[j] : nullptr;
@@ -1735,10 +2097,10 @@ static bool capacity_ok(int C) {
   return C >= 1 && C <= MAX_CAPACITY && (C & (C - 1)) == 0;
 }
 
-// as many blocks of `kernel` as the card holds at once, at most one a tile
+// the blocks of `kernel` the card holds at once
 template <typename K>
-static cudaError_t probe_grid(K kernel, size_t smem, long long n,
-                              unsigned int* blocks) {
+static cudaError_t resident_blocks(K kernel, size_t smem,
+                                   long long* resident) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1746,9 +2108,17 @@ static cudaError_t probe_grid(K kernel, size_t smem, long long n,
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         PROBE_THREADS, smem);
+  *resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return err;
+}
+
+// as many blocks of `kernel` as the card holds at once, at most one a tile
+template <typename K>
+static cudaError_t probe_grid(K kernel, size_t smem, long long n,
+                              unsigned int* blocks) {
+  long long resident = 0;
+  const cudaError_t err = resident_blocks(kernel, smem, &resident);
   if (err != cudaSuccess) return err;
-  const long long resident =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
   *blocks = static_cast<unsigned int>(tiles < resident ? tiles : resident);
   return cudaSuccess;
@@ -1934,15 +2304,76 @@ static int emit_launch(const K& b, long long n, const int* slot_row,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the capped probe: as many blocks as the card holds at once, at most one
+// a tile or a block's share of the slots (4 a thread, 8 rounds); the
+// scratch (the tile counter, then a word a tile) zeroed on the stream
+template <typename K>
+static int capped_launch(const K& p, long long n, const K& b,
+                         const int* slot_row, const uint32_t* slot_hash,
+                         const unsigned long long* ent, int C,
+                         long long row_cap, int* out_l, int* out_r,
+                         unsigned char* valid, unsigned char* overflow,
+                         unsigned long long* scratch, void* stream) {
+  const bool large = C > SMALL_CAPACITY;
+  if (n < 1 || n > INT_MAX || !capacity_ok(C) || row_cap < 0 ||
+      row_cap > INT_MAX || scratch == nullptr || overflow == nullptr ||
+      (large && ent == nullptr) ||
+      (row_cap > 0 && (out_l == nullptr || out_r == nullptr ||
+                       valid == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nks = staged_cols(p);
+  const size_t smem = capped_smem_bytes(large, C, nks);
+  cudaError_t err = cudaSuccess;
+  long long resident = 0;
+  if (large) {
+    err = cudaFuncSetAttribute(
+        capped_kernel<true, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = resident_blocks(capped_kernel<true, K>, smem, &resident);
+  } else {
+    err = cudaFuncSetAttribute(
+        capped_kernel<false, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(
+            capped_smem_bytes(false, SMALL_CAPACITY, SMEM_KEY_COLS)));
+    if (err == cudaSuccess)
+      err = resident_blocks(capped_kernel<false, K>, smem, &resident);
+  }
+  const long long tiles = (n + PROBE_TILE - 1) / PROBE_TILE;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (1 + tiles),
+                          s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long fill = (row_cap + 32LL * PROBE_THREADS - 1) /
+                         (32LL * PROBE_THREADS);
+  long long want = tiles > fill ? tiles : fill;
+  const unsigned int blocks = static_cast<unsigned int>(
+      want < resident ? want : resident);
+  if (large)
+    capped_kernel<true, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, row_cap, out_l, out_r,
+        valid, overflow, scratch, scratch + 1);
+  else
+    capped_kernel<false, K><<<blocks, PROBE_THREADS, smem, s>>>(
+        p, n, b, slot_row, slot_hash, ent, C, nks, row_cap, out_l, out_r,
+        valid, overflow, scratch, scratch + 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
-// the small route: C <= SMALL_CAPACITY, n <= C / 2
+// the small route: C <= SMALL_CAPACITY, n <= C / 2. alive: (n,) bytes, the
+// rows to insert besides the valid ones (the capped tier's live rows), or
+// null for every row
 int hj_build(const void* const* data, const void* const* valid,
-             const int* width, const int* wide, int nk, long long n, int C,
-             int* slot_row, uint32_t* slot_hash, void* stream) {
+             const int* width, const int* wide, int nk, long long n,
+             const void* alive, int C, int* slot_row, uint32_t* slot_hash,
+             void* stream) {
   Keys b;
   if (!make_keys(&b, data, valid, width, wide, nk))
     return static_cast<int>(cudaErrorInvalidValue);
+  b.alive = static_cast<const unsigned char*>(alive);
   return build_small(b, n, C, slot_row, slot_hash, stream);
 }
 
@@ -1951,11 +2382,12 @@ int hj_build(const void* const* data, const void* const* valid,
 // call's own; scratch[3] gets the rounds.
 int hj_build_large(const void* const* data, const void* const* valid,
                    const int* width, const int* wide, int nk, long long n,
-                   int C, unsigned long long* table, int* scratch,
-                   void* stream) {
+                   const void* alive, int C, unsigned long long* table,
+                   int* scratch, void* stream) {
   Keys b;
   if (!make_keys(&b, data, valid, width, wide, nk))
     return static_cast<int>(cudaErrorInvalidValue);
+  b.alive = static_cast<const unsigned char*>(alive);
   return build_large(b, n, C, table, scratch, stream);
 }
 
@@ -2007,7 +2439,7 @@ int hj_exists(const void* const* pdata, const void* const* pvalid,
 // entries, seg_sum, seg_matched and tile_off: hj_count's, for n probe rows,
 // with the same table; out_l, out_r: (limit,) int32 each, written at the
 // pairs' positions below limit (the total or less: the eager join passes
-// the total, the capped join its row_cap)
+// the total)
 int hj_emit(const void* const* bdata, const int* width, const int* wide,
             int nk, long long n, const int* slot_row,
             const uint32_t* slot_hash, const unsigned long long* ent, int C,
@@ -2029,21 +2461,25 @@ int hj_emit(const void* const* bdata, const int* width, const int* wide,
 int hj_build_var(const void* const* data, const void* const* valid,
                  const void* const* offsets, const int* width,
                  const int* wide, const int* kind, int nk, long long n,
-                 int C, int* slot_row, uint32_t* slot_hash, void* stream) {
+                 const void* alive, int C, int* slot_row,
+                 uint32_t* slot_hash, void* stream) {
   VKeys b;
   if (!make_vkeys(&b, data, valid, offsets, width, wide, kind, nk))
     return static_cast<int>(cudaErrorInvalidValue);
+  b.alive = static_cast<const unsigned char*>(alive);
   return build_small(b, n, C, slot_row, slot_hash, stream);
 }
 
 int hj_build_large_var(const void* const* data, const void* const* valid,
                        const void* const* offsets, const int* width,
                        const int* wide, const int* kind, int nk,
-                       long long n, int C, unsigned long long* table,
-                       int* scratch, void* stream) {
+                       long long n, const void* alive, int C,
+                       unsigned long long* table, int* scratch,
+                       void* stream) {
   VKeys b;
   if (!make_vkeys(&b, data, valid, offsets, width, wide, kind, nk))
     return static_cast<int>(cudaErrorInvalidValue);
+  b.alive = static_cast<const unsigned char*>(alive);
   return build_large(b, n, C, table, scratch, stream);
 }
 
@@ -2091,6 +2527,49 @@ int hj_exists_var(const void* const* pdata, const void* const* pvalid,
       !make_vkeys(&b, bdata, no_valid, boffsets, width, wide, kind, nk))
     return static_cast<int>(cudaErrorInvalidValue);
   return exists_launch(p, n, b, slot_row, slot_hash, ent, C, out, stream);
+}
+
+// The capped tier's inner join after hj_build over the live build rows:
+// palive (n,) bytes, the live probe rows (null: all); out_l, out_r
+// (row_cap,) int32: the first row_cap pairs in probe-row, then chain order,
+// 0 past them; valid (row_cap,) bytes, slot < total; overflow one byte,
+// total > row_cap; scratch 1 + ceil(n / PROBE_TILE) 8-byte words, each
+// call's own (zeroed here on the launch stream). The table as hj_count's.
+int hj_capped(const void* const* pdata, const void* const* pvalid,
+              const int* width, const int* wide, int nk, long long n,
+              const void* palive, const void* const* bdata,
+              const int* slot_row, const uint32_t* slot_hash,
+              const unsigned long long* ent, int C, long long row_cap,
+              int* out_l, int* out_r, unsigned char* valid,
+              unsigned char* overflow, unsigned long long* scratch,
+              void* stream) {
+  Keys p, b;
+  const void* no_valid[MAX_KEYS] = {nullptr};
+  if (!make_keys(&p, pdata, pvalid, width, wide, nk) ||
+      !make_keys(&b, bdata, no_valid, width, wide, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.alive = static_cast<const unsigned char*>(palive);
+  return capped_launch(p, n, b, slot_row, slot_hash, ent, C, row_cap, out_l,
+                       out_r, valid, overflow, scratch, stream);
+}
+
+int hj_capped_var(const void* const* pdata, const void* const* pvalid,
+                  const void* const* poffsets, const int* width,
+                  const int* wide, const int* kind, int nk, long long n,
+                  const void* palive, const void* const* bdata,
+                  const void* const* boffsets, const int* slot_row,
+                  const uint32_t* slot_hash, const unsigned long long* ent,
+                  int C, long long row_cap, int* out_l, int* out_r,
+                  unsigned char* valid, unsigned char* overflow,
+                  unsigned long long* scratch, void* stream) {
+  VKeys p, b;
+  const void* no_valid[MAX_KEYS] = {nullptr};
+  if (!make_vkeys(&p, pdata, pvalid, poffsets, width, wide, kind, nk) ||
+      !make_vkeys(&b, bdata, no_valid, boffsets, width, wide, kind, nk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.alive = static_cast<const unsigned char*>(palive);
+  return capped_launch(p, n, b, slot_row, slot_hash, ent, C, row_cap, out_l,
+                       out_r, valid, overflow, scratch, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,9 @@
 //   tk_threshold, tk_select_keys <- _topk_words / _topk_kernel_body (and
 //                the XLA sort that merges the TPU's per-block candidates)
 // and, with ops/topk_cuda.py around it, computes topk_table: the first
-// min(k, rows) rows of sort_table(t, keys, ascending), ties included.
+// min(k, rows) rows of sort_table(t, keys, ascending), ties included; in
+// their capped form (TkDesc.alive set) topk_capped (topk_pallas.py:179),
+// the top k live rows.
 //
 // - Tuples, built in the kernel. The host compiles the keys into a TkDesc
 //   passed by value (__grid_constant__): per key its data, width, kind
@@ -63,6 +65,16 @@
 //   up to 96. tk_merge then merges the runs in pairs by binary search,
 //   keeping min(2L, k), until one run remains, so any k is taken (the
 //   TPU's 128 was its lane width).
+//
+// - The capped form. The reference ranks an alive word before the keys;
+//   a dead row's identity never reaches the output (slots past n_live =
+//   min(k, live rows) gather row 0), so here a dead row is no candidate:
+//   the threshold walk never builds its words (a thread reads its rows'
+//   alive bytes first), the tile sort makes it a sentinel, and the same
+//   pass counts the live rows (a block sum; G > 1: one atomic a block).
+//   The threshold kernel's last block (the tile route: tk_capped_final
+//   after the merges) writes the row indices, 0 from n_live on, and the
+//   (k,) alive mask. No alive word, no separate count, no copy.
 //
 // What bounds it on this card. The function needs bytes only: the key
 // columns read once and k rows written (kernel_bench's table: 10M rows, k
@@ -123,6 +135,7 @@ struct TkDesc {
   unsigned char word_rank[TK_MAX_WORDS];  // 1: the key's null rank
   unsigned char word_part[TK_MAX_WORDS];  // the key's value word
   int W;                                  // words, the row index last
+  const unsigned char* alive;             // capped: the live rows
 };
 
 // _float_total_order on the bits, in the float's width, sign-extended
@@ -256,20 +269,31 @@ __device__ __forceinline__ bool tuple_less(const u64* s, int T, int W, int a,
 }
 
 // the tuples of a tile of T rows, built from the columns, sorted; the k
-// smallest written as block b's run of out
-template <bool VAR>
+// smallest written as block b's run of out. ALIVE (the capped form): a
+// dead row is a sentinel like a row past the end, and the tile's live rows
+// are added to *live.
+template <bool VAR, bool ALIVE>
 __device__ __forceinline__ void select_tile(const TkDesc& d, long long m,
                                             int W, int T, int k,
                                             u64* __restrict__ out,
-                                            long long out_stride) {
+                                            long long out_stride,
+                                            unsigned long long* live) {
   extern __shared__ u64 smem[];
   u64* s = smem;                                               // W x T
   unsigned short* slot = reinterpret_cast<unsigned short*>(s + W * T);
   const long long base = static_cast<long long>(blockIdx.x) * T;
+  if (ALIVE) {
+    int own = 0;
+    for (int j = threadIdx.x; j < T; j += blockDim.x)
+      own += base + j < m && d.alive[base + j] != 0;
+    own = __reduce_add_sync(0xffffffffu, own);
+    if ((threadIdx.x & 31) == 0 && own > 0)
+      atomicAdd(live, static_cast<unsigned long long>(own));
+  }
   for (int e = threadIdx.x; e < W * T; e += blockDim.x) {
     const int w = e / T, j = e - w * T;
     const long long row = base + j;
-    if (row >= m) s[e] = ~0ull;
+    if (row >= m || (ALIVE && d.alive[row] == 0)) s[e] = ~0ull;
     else s[e] = tuple_word<VAR>(d, w, row);
   }
   for (int j = threadIdx.x; j < T; j += blockDim.x) slot[j] = j;
@@ -300,14 +324,45 @@ __global__ void tk_select_kernel(const __grid_constant__ TkDesc d,
                                  long long m, int W, int T, int k,
                                  u64* __restrict__ out,
                                  long long out_stride) {
-  select_tile<false>(d, m, W, T, k, out, out_stride);
+  select_tile<false, false>(d, m, W, T, k, out, out_stride, nullptr);
 }
 
 __global__ void tk_select_var_kernel(const __grid_constant__ TkDesc d,
                                      long long m, int W, int T, int k,
                                      u64* __restrict__ out,
                                      long long out_stride) {
-  select_tile<true>(d, m, W, T, k, out, out_stride);
+  select_tile<true, false>(d, m, W, T, k, out, out_stride, nullptr);
+}
+
+__global__ void tk_select_capped_kernel(const __grid_constant__ TkDesc d,
+                                        long long m, int W, int T, int k,
+                                        u64* __restrict__ out,
+                                        long long out_stride,
+                                        unsigned long long* live) {
+  select_tile<false, true>(d, m, W, T, k, out, out_stride, live);
+}
+
+__global__ void tk_select_capped_var_kernel(const __grid_constant__ TkDesc d,
+                                            long long m, int W, int T, int k,
+                                            u64* __restrict__ out,
+                                            long long out_stride,
+                                            unsigned long long* live) {
+  select_tile<true, true>(d, m, W, T, k, out, out_stride, live);
+}
+
+// the capped form's outputs from the final run's row-index word: slot i <
+// n_live = min(k, live rows) holds its row and is live, the others row 0
+__global__ void tk_capped_final_kernel(const u64* __restrict__ rows, int k,
+                                       const unsigned long long* live,
+                                       long long* __restrict__ out,
+                                       unsigned char* __restrict__ out_alive) {
+  const long long n_live = *live < static_cast<unsigned long long>(k)
+                               ? static_cast<long long>(*live) : k;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < k;
+       i += gridDim.x * blockDim.x) {
+    out[i] = i < n_live ? static_cast<long long>(rows[i]) : 0;
+    out_alive[i] = i < n_live;
+  }
 }
 
 // -1, 0 or 1: tuple i of a against tuple j of b (word-major, strides sa, sb)
@@ -618,10 +673,12 @@ template <bool KEYS, bool VAR>
 __device__ __forceinline__ void prefetch_tile(const Block& B,
                                               const u64* cand,
                                               long long stride, long long t,
-                                              long long n) {
+                                              long long n,
+                                              const unsigned char* alive) {
   const long long lo = t * TK_TILE;
   if (lo >= n) return;
   const long long rows = n - lo < TK_TILE ? n - lo : TK_TILE;
+  if (alive != nullptr) prefetch_lines(alive + lo, rows);
   if (!KEYS) {
     prefetch_lines(cand + lo, rows * 8);
     prefetch_lines(cand + stride + lo, rows * 8);
@@ -642,18 +699,25 @@ __device__ __forceinline__ void prefetch_tile(const Block& B,
 // Walk items [0, n) in tiles, tiles first, first + step, ..., skipping
 // [skip_lo, skip_hi); append the ids of the items below the threshold to
 // the buffer and flush it as needed. Every thread of the block calls it.
-template <bool KEYS, bool VAR>
+// ALIVE (the capped form's rows): a dead row is no candidate, and `live`
+// counts the thread's live rows.
+template <bool KEYS, bool VAR, bool ALIVE = false>
 __device__ void walk(const Block& B, const u64* cand, long long stride,
                      long long n, long long first, long long step,
-                     long long skip_lo, long long skip_hi) {
+                     long long skip_lo, long long skip_hi,
+                     const unsigned char* alive = nullptr,
+                     unsigned long long* live = nullptr) {
   const int lane = threadIdx.x & 31;
   const unsigned int below_lane = (1u << lane) - 1u;
   int* count = B.sc + SC_COUNT;
+  unsigned long long own = 0;
   // keep TK_AHEAD tiles on their way to L2
   for (int a = 0; a < TK_AHEAD; ++a)
-    prefetch_tile<KEYS, VAR>(B, cand, stride, first + a * step, n);
+    prefetch_tile<KEYS, VAR>(B, cand, stride, first + a * step, n,
+                             ALIVE ? alive : nullptr);
   for (long long t = first; t * TK_TILE < n; t += step) {
-    prefetch_tile<KEYS, VAR>(B, cand, stride, t + TK_AHEAD * step, n);
+    prefetch_tile<KEYS, VAR>(B, cand, stride, t + TK_AHEAD * step, n,
+                             ALIVE ? alive : nullptr);
     const int c = *count;
     int have = B.sc[SC_HAVE];
     __syncthreads();                   // read by all before any append
@@ -670,6 +734,14 @@ __device__ void walk(const Block& B, const u64* cand, long long stride,
     FOR_ROWS {
       e[r] = t * TK_TILE + r * TK_THREADS + threadIdx.x;
       state[r] = (e[r] < n && (e[r] < skip_lo || e[r] >= skip_hi)) ? 0 : 2;
+    }
+    if constexpr (ALIVE) {
+      unsigned char a[TK_ROWS];
+      FOR_ROWS a[r] = state[r] == 0 ? alive[e[r]] : 0;
+      FOR_ROWS {
+        own += a[r] != 0;
+        if (a[r] == 0) state[r] = 2;
+      }
     }
     // the first differing word decides; words are built only as far as a
     // row is undecided, for every undecided row of the thread together
@@ -724,6 +796,19 @@ __device__ void walk(const Block& B, const u64* cand, long long stride,
     if (threadIdx.x == 0) *count = 0;
     __syncthreads();
   }
+  if (ALIVE) *live = own;
+}
+
+// the block's sum of every thread's x, to every thread (B.red as scratch)
+__device__ unsigned long long block_sum(const Block& B,
+                                        unsigned long long x) {
+  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
+  if ((threadIdx.x & 31) == 0) B.red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  unsigned long long s = 0;
+  for (int v = 0; v < TK_THREADS / 32; ++v) s += B.red[v];
+  __syncthreads();
+  return s;
 }
 
 // tuple a < tuple b, columns of fin (TK_INF: after every tuple)
@@ -777,12 +862,16 @@ __device__ void sort_best(const Block& B) {
 
 // cand: W x (G k) words, block b's run at [b k, b k + k), and ticket: the
 // blocks that have finished, 0 at the launch (both unused for G = 1);
-// out: k int64 row indices, the k smallest tuples' in order
-template <bool VAR>
-__device__ __forceinline__ void threshold_block(const TkDesc& d, long long m,
-                                                int k, u64* __restrict__ cand,
-                                                unsigned int* ticket,
-                                                long long* __restrict__ out) {
+// out: k int64 row indices, the k smallest tuples' in order.
+// CAPPED: only the rows d.alive marks are candidates; the live rows are
+// counted in the walk (G > 1: summed in the 8-byte word after the
+// ticket, 0 at the launch), and slot i < n_live = min(k, live rows) gets
+// its row and out_alive 1, the others row 0 and 0.
+template <bool VAR, bool CAPPED>
+__device__ __forceinline__ void threshold_block(
+    const TkDesc& d, long long m, int k, u64* __restrict__ cand,
+    unsigned int* ticket, long long* __restrict__ out,
+    unsigned char* __restrict__ out_alive) {
   extern __shared__ u64 smem[];
   const int W = d.W;
   Block B;
@@ -813,7 +902,12 @@ __device__ __forceinline__ void threshold_block(const TkDesc& d, long long m,
   }
   __syncthreads();
   const int G = gridDim.x;
-  walk<true, VAR>(B, nullptr, 0, m, blockIdx.x, G, 0, 0);
+  unsigned long long live = 0;
+  walk<true, VAR, CAPPED>(B, nullptr, 0, m, blockIdx.x, G, 0, 0, d.alive,
+                          &live);
+  if (CAPPED) live = block_sum(B, live);
+  unsigned long long* live_all =
+      reinterpret_cast<unsigned long long*>(ticket + 2);
   build_best<true, VAR>(B, nullptr, 0);
   if (G > 1) {
     const long long stride = static_cast<long long>(G) * k;
@@ -825,6 +919,7 @@ __device__ __forceinline__ void threshold_block(const TkDesc& d, long long m,
     // the best are now the block's run in the candidates
     for (int i = threadIdx.x; i < k; i += TK_THREADS) B.ids[i] = own + i;
     if (threadIdx.x == 0) B.sc[SC_HAVE] = k;
+    if (CAPPED && threadIdx.x == 0) atomicAdd(live_all, live);
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0)
@@ -832,11 +927,23 @@ __device__ __forceinline__ void threshold_block(const TkDesc& d, long long m,
           atomicAdd(ticket, 1u) == static_cast<unsigned int>(G - 1);
     __syncthreads();
     if (!B.sc[SC_LAST]) return;
+    if (CAPPED) live = atomicAdd(live_all, 0ull);
     // the last block: every other run through the same threshold walk
     walk<false, false>(B, cand, stride, stride, 0, 1, own, own + k);
     build_best<false, false>(B, cand, stride);
   }
   sort_best(B);
+  if (CAPPED) {
+    const long long n_live = live < static_cast<unsigned long long>(k)
+                                 ? static_cast<long long>(live) : k;
+    for (int i = threadIdx.x; i < k; i += TK_THREADS) {
+      out[i] = i < n_live
+                   ? static_cast<long long>(B.fin[(W - 1) * k + B.idx[i]])
+                   : 0;
+      out_alive[i] = i < n_live;
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < k; i += TK_THREADS)
     out[i] = static_cast<long long>(B.fin[(W - 1) * k + B.idx[i]]);
 }
@@ -845,14 +952,31 @@ __global__ void __launch_bounds__(TK_THREADS)
 tk_threshold_kernel(const __grid_constant__ TkDesc d, long long m, int k,
                     u64* __restrict__ cand, unsigned int* ticket,
                     long long* __restrict__ out) {
-  threshold_block<false>(d, m, k, cand, ticket, out);
+  threshold_block<false, false>(d, m, k, cand, ticket, out, nullptr);
 }
 
 __global__ void __launch_bounds__(TK_THREADS)
 tk_threshold_var_kernel(const __grid_constant__ TkDesc d, long long m, int k,
                         u64* __restrict__ cand, unsigned int* ticket,
                         long long* __restrict__ out) {
-  threshold_block<true>(d, m, k, cand, ticket, out);
+  threshold_block<true, false>(d, m, k, cand, ticket, out, nullptr);
+}
+
+__global__ void __launch_bounds__(TK_THREADS)
+tk_threshold_capped_kernel(const __grid_constant__ TkDesc d, long long m,
+                           int k, u64* __restrict__ cand,
+                           unsigned int* ticket, long long* __restrict__ out,
+                           unsigned char* __restrict__ out_alive) {
+  threshold_block<false, true>(d, m, k, cand, ticket, out, out_alive);
+}
+
+__global__ void __launch_bounds__(TK_THREADS)
+tk_threshold_capped_var_kernel(const __grid_constant__ TkDesc d,
+                               long long m, int k, u64* __restrict__ cand,
+                               unsigned int* ticket,
+                               long long* __restrict__ out,
+                               unsigned char* __restrict__ out_alive) {
+  threshold_block<true, true>(d, m, k, cand, ticket, out, out_alive);
 }
 
 static int valid_desc(const TkDesc* d) {
@@ -900,16 +1024,38 @@ int tk_device_limits(int* sms, int* smem_optin) {
 }
 
 // cand: W x (G k) words and ticket: one 32-bit word, zeroed here on the
-// launch stream (both unused for G = 1); out: k int64 row indices
+// launch stream (both unused for G = 1); out: k int64 row indices.
+// The capped form (d->alive and out_alive both given): ticket is two
+// 8-byte words, the ticket and the live rows' count, both zeroed here;
+// out_alive: k bytes
 int tk_threshold(const TkDesc* d, long long m, int k, int G, void* cand,
-                 void* ticket, void* out, void* stream) {
+                 void* ticket, void* out, void* out_alive, void* stream) {
+  const bool capped = d->alive != nullptr;
   if (m <= 0 || k < 1 || k > m || G < 1 || !valid_desc(d) ||
+      capped != (out_alive != nullptr) ||
       (G > 1 && (cand == nullptr || ticket == nullptr)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long smem = tk_threshold_smem(k, d->W);
-  auto kernel = var_desc(d) ? tk_threshold_var_kernel : tk_threshold_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
+  const bool var = var_desc(d);
+  cudaError_t err = cudaSuccess;
+  if (capped) {
+    auto kernel = var ? tk_threshold_capped_var_kernel
+                      : tk_threshold_capped_kernel;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess && G > 1)
+      err = cudaMemsetAsync(ticket, 0, 2 * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<G, TK_THREADS, smem, s>>>(
+        *d, m, k, static_cast<u64*>(cand),
+        static_cast<unsigned int*>(ticket), static_cast<long long*>(out),
+        static_cast<unsigned char*>(out_alive));
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel = var ? tk_threshold_var_kernel : tk_threshold_kernel;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess && G > 1)
@@ -922,23 +1068,59 @@ int tk_threshold(const TkDesc* d, long long m, int k, int G, void* cand,
 }
 
 // the tile sort's first launch: tuples built from the keys of d, 1 <= k <=
-// T; out: W x (blocks * k) with blocks = ceil(m / T), block b's run sorted
+// T; out: W x (blocks * k) with blocks = ceil(m / T), block b's run sorted.
+// The capped form (d->alive and live both given): dead rows are sentinels,
+// and *live (one 8-byte word, zeroed here on the stream) counts the live
+// rows
 int tk_select_keys(const TkDesc* d, long long m, int k, void* out,
-                   void* stream) {
+                   void* live, void* stream) {
   const int W = d->W;
   const int T = tk_tile_rows(W);
-  if (!valid_desc(d) || m <= 0 || T == 0 || k < 1 || k > T)
+  const bool capped = d->alive != nullptr;
+  if (!valid_desc(d) || m <= 0 || T == 0 || k < 1 || k > T ||
+      capped != (live != nullptr))
     return cudaErrorInvalidValue;
   const long long blocks = (m + T - 1) / T;
   const size_t smem = static_cast<size_t>(W) * T * 8 + T * 2;
-  auto kernel = var_desc(d) ? tk_select_var_kernel : tk_select_kernel;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool var = var_desc(d);
+  if (capped) {
+    auto kernel = var ? tk_select_capped_var_kernel : tk_select_capped_kernel;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(live, 0, sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned int>(blocks), T / 2, smem, s>>>(
+        *d, m, W, T, k, static_cast<u64*>(out), blocks * k,
+        static_cast<unsigned long long*>(live));
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel = var ? tk_select_var_kernel : tk_select_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned int>(blocks), T / 2, smem,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned int>(blocks), T / 2, smem, s>>>(
       *d, m, W, T, k, static_cast<u64*>(out), blocks * k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tile route's capped outputs: rows, the final run's row-index word
+// (k of them); live, tk_select_keys' count; out k int64, out_alive k bytes
+int tk_capped_final(const void* rows, int k, const void* live, void* out,
+                    void* out_alive, void* stream) {
+  if (k < 1 || rows == nullptr || live == nullptr || out == nullptr ||
+      out_alive == nullptr)
+    return cudaErrorInvalidValue;
+  const int threads = 256;
+  const int blocks = (k + threads - 1) / threads;
+  tk_capped_final_kernel<<<blocks, threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(rows), k,
+      static_cast<const unsigned long long*>(live),
+      static_cast<long long*>(out), static_cast<unsigned char*>(out_alive));
   return static_cast<int>(cudaGetLastError());
 }
 

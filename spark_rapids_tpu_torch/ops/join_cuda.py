@@ -23,7 +23,9 @@ a plain PyTorch version of the same function:
 - `probe_emit`: the (probe row, build row) pairs from those lists, a row's
   first at its tile's offset plus the counts before it in its tile;
 - `probe_exists`: whether each probe row has a match (the count's walk,
-  stopping at the first), the semi and anti joins' probe.
+  stopping at the first), the semi and anti joins' probe;
+- `probe_capped`: the capped tier's inner join after the build, the
+  (row_cap,) maps, `valid` and `overflow` in one launch.
 
 Each wrapper runs the plain version only for CPU tensors. For CUDA tensors
 it launches its kernel or raises; it never falls back. `LAUNCHES` counts
@@ -44,13 +46,14 @@ by Spark's murmur3 of its bytes and then its length and bytes.
 maps, pair for pair those of `ops.join.inner_join`. Between count and emit
 it reads the total (the one host sync) and computes nothing over the probe
 rows. `inner_join_capped_hash` is the counterpart of
-`inner_join_capped_pallas`, the capped tier's join: the same kernels with
-no host read, the alive masks folded into the first key's validity (the
-build never inserts an invalid row, the count gives it 0), the emit
-writing only the pairs below `row_cap` into (row_cap,) maps, and `valid`
-and `overflow` computed on the device from the count's total; bit for bit
-the outputs of `ops.join.inner_join_capped`. `CAPPED_CALLS` counts its
-calls that launched the kernels. `semi_join_mask_hash` (the capped tier's
+`inner_join_capped_pallas`, the capped tier's join, with no host read:
+the build over the live build rows (the kernels read `ralive` beside the
+keys' validity), then `probe_capped`, one launch that reads `lalive` the
+same way, finds each tile's offset on the card (a decoupled look-back),
+writes the pairs below `row_cap` and then every slot of the maps, `valid`
+and `overflow` itself; bit for bit the outputs of
+`ops.join.inner_join_capped`. `probe_capped_plain` is its CPU mirror.
+`semi_join_mask_hash` (the capped tier's
 semi and anti joins) and `left_semi_join_hash` / `left_anti_join_hash`
 (the eager tier's) are `ops.join`'s `semi_join_mask`, `left_semi_join` and
 `left_anti_join` on the build and the existence probe, bit for bit; the
@@ -96,19 +99,18 @@ VK_FIXED, VK_F32, VK_F64, VK_DEC128, VK_STRING = range(5)
 _VAR_KINDS = {Kind.FLOAT32: VK_F32, Kind.FLOAT64: VK_F64,
               Kind.DECIMAL128: VK_DEC128, Kind.STRING: VK_STRING}
 
-LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0}
+# "capped": the capped probe (`probe_capped`), one launch a capped join
+LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0, "capped": 0}
 # the launches of LAUNCHES that took the large route (C > SMALL_CAPACITY)
-LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0}
+LARGE_LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0,
+                  "capped": 0}
 # the launches of LAUNCHES of the variable-width instantiation (`is_var`)
-VAR_LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0}
-PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0, "exists": 0}
-# calls of inner_join_capped_hash that launched the kernels
-CAPPED_CALLS = {"join": 0}
+VAR_LAUNCHES = {"build": 0, "count": 0, "emit": 0, "exists": 0, "capped": 0}
+PLAIN_CALLS = {"build": 0, "count": 0, "emit": 0, "exists": 0, "capped": 0}
 
 
 def reset_counters() -> None:
-    for d in (LAUNCHES, LARGE_LAUNCHES, VAR_LAUNCHES, PLAIN_CALLS,
-              CAPPED_CALLS):
+    for d in (LAUNCHES, LARGE_LAUNCHES, VAR_LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
 
@@ -220,7 +222,15 @@ def _keys_equal(pcols, i, bcols, r) -> torch.Tensor:
     return eq
 
 
-def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
+def _insertable(bcols: Sequence[Column], alive) -> torch.Tensor:
+    """The build rows the table holds: every key valid, and live where the
+    capped tier passes `alive`."""
+    v = _side_valid(bcols, bcols[0].length, bcols[0].device)
+    return v if alive is None else v & alive
+
+
+def build_table_plain(bcols: Sequence[Column], C: int,
+                      alive=None) -> HashTable:
     n = bcols[0].length
     dev = bcols[0].device
     rows = torch.arange(n, dtype=torch.int64, device=dev)
@@ -228,7 +238,7 @@ def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
     slot_row = torch.full((C,), -1, dtype=torch.int64, device=dev)
     slot_hash = torch.zeros(C, dtype=torch.int64, device=dev)
     d = torch.zeros(n, dtype=torch.int64, device=dev)
-    placed = ~_side_valid(bcols, n, dev)        # invalid rows never insert
+    placed = ~_insertable(bcols, alive)    # invalid, dead rows never insert
     rounds = 0
     for _ in range(2 * C + 2):
         un = ~placed
@@ -249,7 +259,8 @@ def build_table_plain(bcols: Sequence[Column], C: int) -> HashTable:
                                          device=dev))
 
 
-def build_table_closed_form(bcols: Sequence[Column], C: int) -> HashTable:
+def build_table_closed_form(bcols: Sequence[Column], C: int,
+                            alive=None) -> HashTable:
     """`build_table_plain`'s table and rounds without its rounds, in the
     kernels' order of work (csrc/hash_join.cu, "the build"): per bucket
     s = h & (C - 1) its valid rows cnt[s]; one scan of the slots' maps
@@ -261,7 +272,7 @@ def build_table_closed_form(bcols: Sequence[Column], C: int) -> HashTable:
     n = bcols[0].length
     dev = bcols[0].device
     h = row_hash(bcols)
-    valid = _side_valid(bcols, n, dev)
+    valid = _insertable(bcols, alive)
     bucket = h & (C - 1)
     cnt = torch.bincount(bucket[valid], minlength=C)
     # the inclusive composition of the maps (cnt - 1, 0): p is their sum,
@@ -418,8 +429,8 @@ def probe_emit_plain(pcols, table: HashTable, bcols, probe: ProbeCounts,
     own); it walks from its first matching slot, taking the slots whose
     hash and keys equal that slot's build row's, until its count. Only
     pairs at positions below `total` are written: `probe.total` gives them
-    all, a smaller size (the capped join's row_cap) the first ones, and
-    past the pairs the maps are not defined."""
+    all, a smaller size the first ones, and past the pairs the maps are
+    not defined."""
     dev = pcols[0].device
     n, tile, seg, C = pcols[0].length, probe.tile, probe.seg, \
         table.capacity
@@ -478,6 +489,64 @@ def probe_exists_plain(pcols, table: HashTable, bcols) -> torch.Tensor:
     return out
 
 
+def probe_capped_plain(pcols, table: HashTable, bcols, row_cap: int,
+                       alive=None, tile: int = TILE):
+    """The capped probe (csrc/hash_join.cu `capped_kernel`) in its order of
+    work: per live probe row with valid keys its matches and first matching
+    slot (the count's walk); per tile of `tile` rows its pairs and their
+    exclusive prefix (the look-back); each matched row's pairs from its
+    first slot, the first at its tile's offset plus the pairs of the rows
+    before it in the tile, those below `row_cap` written; then every
+    slot's `valid` (slot < total) and the maps' zeros past the pairs.
+    Returns (lmap, rmap, valid, overflow), `ops.join.inner_join_capped`'s.
+    """
+    n = pcols[0].length
+    dev = pcols[0].device
+    rows = torch.nonzero(_insertable(pcols, alive)).reshape(-1)
+    h = row_hash(pcols).index_select(0, rows)
+    c = torch.zeros(rows.shape[0], dtype=torch.int64, device=dev)
+    first = torch.zeros(rows.shape[0], dtype=torch.int64, device=dev)
+    for match, _, slot in _walk(pcols, rows, h, table, bcols):
+        first = torch.where(match & (c == 0), slot, first)
+        c += match.to(torch.int64)
+    counts = torch.zeros(n, dtype=torch.int64, device=dev)
+    counts[rows] = c
+    sums = _tiled(counts, tile).sum(1)
+    offsets = torch.cumsum(sums, 0) - sums
+    total = sums.sum()
+    hit = c > 0
+    mrows, cnt, s0 = rows[hit], c[hit], first[hit]
+    tl = mrows // tile
+    before = torch.cumsum(cnt, 0) - cnt
+    pos = offsets.index_select(0, tl) + before - before.index_select(
+        0, torch.searchsorted(tl, tl))
+    C = table.capacity
+    srow = table.slot_row.to(torch.int64)
+    shash = table.slot_hash.to(torch.int64) & _M32
+    r0, h0 = srow.index_select(0, s0), shash.index_select(0, s0)
+    out_l = torch.zeros(row_cap, dtype=torch.int32, device=dev)
+    out_r = torch.zeros(row_cap, dtype=torch.int32, device=dev)
+    done = torch.zeros_like(cnt)
+    active = pos < row_cap
+    for d in range(C):
+        active = active & (done < cnt)
+        if not bool(active.any()):
+            break
+        s = (s0 + d) & (C - 1)
+        r = srow.index_select(0, s)
+        active = active & (r >= 0)
+        rr = r.clamp(min=0)
+        take = active & (shash.index_select(0, s) == h0) \
+            & _keys_equal(bcols, r0, bcols, rr)
+        put = take & (pos < row_cap)
+        out_l[pos[put]] = mrows[put].to(torch.int32)
+        out_r[pos[put]] = rr[put].to(torch.int32)
+        pos = pos + take.to(torch.int64)
+        done = done + take.to(torch.int64)
+    valid = torch.arange(row_cap, device=dev) < total
+    return out_l, out_r, valid, total > row_cap
+
+
 # ---- the CUDA kernels --------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -494,8 +563,9 @@ def _lib():
     if _LIB is None:
         from .cuda_build import load
         lib = load("hash_join")
-        lib.hj_build.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
-        lib.hj_build_large.argtypes = _KEY_ARGS + [ctypes.c_int, _P, _P, _P]
+        lib.hj_build.argtypes = _KEY_ARGS + [_P, ctypes.c_int, _P, _P, _P]
+        lib.hj_build_large.argtypes = _KEY_ARGS + [_P, ctypes.c_int, _P, _P,
+                                                   _P]
         lib.hj_build_large_scratch.argtypes = [ctypes.c_longlong,
                                                ctypes.c_int]
         lib.hj_build_large_scratch.restype = ctypes.c_longlong
@@ -508,8 +578,9 @@ def _lib():
                                 _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
                                 _P]
         var = [_PP, _PP, _PP, _PI, _PI, _PI, ctypes.c_int, ctypes.c_longlong]
-        lib.hj_build_var.argtypes = var + [ctypes.c_int, _P, _P, _P]
-        lib.hj_build_large_var.argtypes = var + [ctypes.c_int, _P, _P, _P]
+        lib.hj_build_var.argtypes = var + [_P, ctypes.c_int, _P, _P, _P]
+        lib.hj_build_large_var.argtypes = var + [_P, ctypes.c_int, _P, _P,
+                                                 _P]
         lib.hj_count_var.argtypes = var + [_PP, _PP, _P, _P, _P,
                                            ctypes.c_int, _P, _P, _P, _P, _P]
         lib.hj_emit_var.argtypes = [_PP, _PP, _PI, _PI, _PI, ctypes.c_int,
@@ -518,10 +589,15 @@ def _lib():
                                     ctypes.c_longlong, _P, _P, _P]
         lib.hj_exists_var.argtypes = var + [_PP, _PP, _P, _P, _P,
                                             ctypes.c_int, _P, _P]
+        capped = [ctypes.c_int, ctypes.c_longlong] + [_P] * 6
+        lib.hj_capped.argtypes = _KEY_ARGS + [_P, _PP, _P, _P, _P] + capped
+        lib.hj_capped_var.argtypes = var + [_P, _PP, _PP, _P, _P,
+                                            _P] + capped
         for fn in (lib.hj_build, lib.hj_build_large, lib.hj_count,
                    lib.hj_emit, lib.hj_exists, lib.hj_build_var,
                    lib.hj_build_large_var, lib.hj_count_var,
-                   lib.hj_emit_var, lib.hj_exists_var):
+                   lib.hj_emit_var, lib.hj_exists_var, lib.hj_capped,
+                   lib.hj_capped_var):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -592,7 +668,19 @@ def _table_ptrs(table: HashTable):
     return table.slot_row.data_ptr(), table.slot_hash.data_ptr(), None
 
 
-def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
+def _alive_ptr(alive, n: int, dev: torch.device):
+    """The kernels' pointer to a capped side's live rows (None: all)."""
+    if alive is None:
+        return None
+    if alive.dtype != torch.bool or tuple(alive.shape) != (n,) or \
+            alive.device != dev or not alive.is_contiguous():
+        raise ValueError(f"alive must be a contiguous ({n},) bool tensor on "
+                         f"{dev}")
+    return alive.data_ptr()
+
+
+def build_table_cuda(bcols: Sequence[Column], C: int,
+                     alive=None) -> HashTable:
     dev = bcols[0].device
     _check_cuda(bcols, dev)
     n = bcols[0].length
@@ -601,12 +689,13 @@ def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
                          f"MAX_BUILD={MAX_BUILD}")
     var = is_var(bcols)
     keys = _var_arrays(bcols) if var else _key_arrays(bcols)
+    live = _alive_ptr(alive, n, dev)
     lib = _lib()
     if not is_large(C):
         slot_row = torch.empty(C, dtype=torch.int32, device=dev)
         slot_hash = torch.empty(C, dtype=torch.int32, device=dev)
         rc = (lib.hj_build_var if var else lib.hj_build)(
-            *keys, C, slot_row.data_ptr(), slot_hash.data_ptr(),
+            *keys, live, C, slot_row.data_ptr(), slot_hash.data_ptr(),
             _stream(dev))
         _raise_on(rc, "hash-join build kernel")
         LAUNCHES["build"] += 1
@@ -617,7 +706,7 @@ def build_table_cuda(bcols: Sequence[Column], C: int) -> HashTable:
     scratch = torch.empty(lib.hj_build_large_scratch(n, C),
                           dtype=torch.int32, device=dev)
     rc = (lib.hj_build_large_var if var else lib.hj_build_large)(
-        *keys, C, ent.data_ptr(), scratch.data_ptr(), _stream(dev))
+        *keys, live, C, ent.data_ptr(), scratch.data_ptr(), _stream(dev))
     _raise_on(rc, "hash-join large build kernels")
     LAUNCHES["build"] += 1
     LARGE_LAUNCHES["build"] += 1
@@ -681,7 +770,7 @@ def probe_emit_cuda(pcols, table: HashTable, bcols, probe: ProbeCounts,
                         "(tiles,) int64 offsets, on the probe's device")
     # the kernel writes a tile's pairs at its offset .. offset + its sum -
     # 1, those below `total` only: probe.total (the eager join's one host
-    # sync) writes every pair, a row_cap the first ones
+    # sync) writes every pair, a smaller size the first ones
     out_l = torch.empty(total, dtype=torch.int32, device=dev)
     out_r = torch.empty(total, dtype=torch.int32, device=dev)
     if total == 0:
@@ -725,13 +814,49 @@ def probe_exists_cuda(pcols, table: HashTable, bcols) -> torch.Tensor:
     return out
 
 
+def probe_capped_cuda(pcols, table: HashTable, bcols, row_cap: int,
+                      alive=None):
+    dev = pcols[0].device
+    _check_probe(pcols, bcols, dev)
+    n = pcols[0].length
+    if n == 0:
+        raise ValueError("the capped probe takes a probe side of 1 row or "
+                         "more")
+    C = table.capacity
+    live = _alive_ptr(alive, n, dev)
+    out_l = torch.empty(row_cap, dtype=torch.int32, device=dev)
+    out_r = torch.empty(row_cap, dtype=torch.int32, device=dev)
+    valid = torch.empty(row_cap, dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    # this call's own: the tile counter, then a look-back word a tile
+    scratch = torch.empty(1 + _tiles(n, TILE), dtype=torch.int64,
+                          device=dev)
+    rest = (*_table_ptrs(table), C, row_cap, out_l.data_ptr(),
+            out_r.data_ptr(), valid.data_ptr(), overflow.data_ptr(),
+            scratch.data_ptr(), _stream(dev))
+    var = is_var(pcols)
+    if var:
+        b = _var_arrays(bcols)
+        rc = _lib().hj_capped_var(*_var_arrays(pcols), live, b[0], b[2],
+                                  *rest)
+    else:
+        rc = _lib().hj_capped(*_key_arrays(pcols), live,
+                              _key_arrays(bcols)[0], *rest)
+    _raise_on(rc, "hash-join capped probe kernel")
+    LAUNCHES["capped"] += 1
+    VAR_LAUNCHES["capped"] += var
+    if is_large(C):
+        LARGE_LAUNCHES["capped"] += 1
+    return out_l, out_r, valid, overflow
+
+
 # ---- wrappers: plain version on CPU tensors, the kernel on CUDA ones --------
 
-def build_table(bcols: Sequence[Column], C: int) -> HashTable:
+def build_table(bcols: Sequence[Column], C: int, alive=None) -> HashTable:
     if bcols[0].device.type == "cpu":
         PLAIN_CALLS["build"] += 1
-        return build_table_plain(bcols, C)
-    return build_table_cuda(bcols, C)
+        return build_table_plain(bcols, C, alive)
+    return build_table_cuda(bcols, C, alive)
 
 
 def probe_counts(pcols, table: HashTable, bcols) -> ProbeCounts:
@@ -754,6 +879,13 @@ def probe_exists(pcols, table: HashTable, bcols) -> torch.Tensor:
         PLAIN_CALLS["exists"] += 1
         return probe_exists_plain(pcols, table, bcols)
     return probe_exists_cuda(pcols, table, bcols)
+
+
+def probe_capped(pcols, table: HashTable, bcols, row_cap: int, alive=None):
+    if pcols[0].device.type == "cpu":
+        PLAIN_CALLS["capped"] += 1
+        return probe_capped_plain(pcols, table, bcols, row_cap, alive)
+    return probe_capped_cuda(pcols, table, bcols, row_cap, alive)
 
 
 def join_keys(left_keys, right_keys):
@@ -814,20 +946,12 @@ def inner_join_capped_hash(left_keys, right_keys, row_cap: int, *,
     lcols, rcols = join_keys(left_keys, right_keys)
     nl, nr = lcols[0].length, rcols[0].length
     dev = lcols[0].device
-    if nl == 0 or nr == 0:
+    if nl == 0 or nr == 0:                 # no pair: the shape says so
         z = torch.zeros(row_cap, dtype=torch.int32, device=dev)
         return (z, z, torch.zeros(row_cap, dtype=torch.bool, device=dev),
                 torch.zeros((), dtype=torch.bool, device=dev))
-    lcols, rcols = _with_alive(lcols, lalive), _with_alive(rcols, ralive)
-    table = build_table(rcols, _capacity(nr))
-    probe = probe_counts(lcols, table, rcols)
-    lmap, rmap = probe_emit(lcols, table, rcols, probe, row_cap)
-    if dev.type == "cuda":
-        CAPPED_CALLS["join"] += 1
-    valid = torch.arange(row_cap, device=dev) < probe.total
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return (torch.where(valid, lmap, zero), torch.where(valid, rmap, zero),
-            valid, probe.total > row_cap)
+    table = build_table(rcols, _capacity(nr), ralive)
+    return probe_capped(lcols, table, rcols, row_cap, lalive)
 
 
 def semi_join_mask_hash(left_keys, right_keys, *, lalive=None,

@@ -7,8 +7,10 @@ Counterpart of the wiring half of `spark_rapids_tpu/ops/topk_pallas.py`
 `topk_cuda.py`. `topk_plain` is what the eager tier's TopK computes
 without the kernel: `sort_table` then `slice_table(0, min(n, rows))`;
 `topk_capped_plain` the capped tier's (the reference's `topk_capped`):
-the top n live rows, as `sort_table_capped` orders them. `PLAIN_CALLS`
-counts the runs of both.
+the top n live rows, as `sort_table_capped` orders them;
+`topk_capped_mirror` the capped kernels' CPU mirror, in their candidate
+order (a dead row is an all-ones sentinel tuple). `PLAIN_CALLS` counts
+the runs of all three.
 
 The kernels compare tuples of 64-bit words (`order_words`): a null rank
 per nullable key, one value word per key, the row index last. They build
@@ -47,7 +49,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from .. import dtypes
 from ..columnar import Column, Table
 from ..dtypes import Kind
 from .copying import slice_table
@@ -149,19 +150,30 @@ def topk_capped_plain(table: Table, keys: Sequence[str],
     return capped_outputs(table, order, alive)
 
 
-def alive_keyed(table: Table, keys: Sequence[str],
-                ascending: Sequence[bool], alive: torch.Tensor):
-    """(table, keys, ascending) with a leading descending BOOL key over
-    `alive`: its order word ranks the live rows first, as the capped sort's
-    leading operand does, so the kernels build it as they build the
-    others."""
-    name = "__alive"
-    while name in table.names:
-        name += "_"
-    t = Table(list(table.columns) + [Column(dtypes.BOOL, table.num_rows,
-                                            alive)],
-              list(table.names) + [name])
-    return t, [name] + list(keys), [False] + list(ascending)
+def topk_capped_mirror(table: Table, keys: Sequence[str],
+                       ascending: Sequence[bool], n: int,
+                       alive: torch.Tensor):
+    """The capped kernels (csrc/topk.cu, capped form) on the CPU, in their
+    candidate order: the tuples `encode_words` builds, a dead row's all
+    ones (a sentinel, after every real tuple: no candidate), the k =
+    min(n, rows) smallest in order, n_live = min(k, live rows) counted
+    beside; slot i < n_live gathers its row, the others row 0, dead.
+    Equal to `topk_capped_plain`."""
+    PLAIN_CALLS["topk"] += 1
+    k = min(n, table.num_rows)
+    if k == 0:
+        return empty_capped(table)
+    words = torch.where(alive, encode_words(table, keys, ascending), -1)
+    order = torch.arange(table.num_rows, dtype=torch.int64,
+                         device=table.device)
+    for w in reversed(range(words.shape[0])):  # unsigned order, word by word
+        key = (words[w] ^ _SIGN).index_select(0, order)
+        order = order.index_select(0, torch.argsort(key, stable=True))
+    idx = words[-1].index_select(0, order[:k])
+    n_live = torch.clamp(alive.sum(), max=k)
+    out_alive = torch.arange(k, device=idx.device) < n_live
+    idx = torch.where(out_alive, idx, 0)
+    return take_table(table, idx, _has_negative=False), out_alive
 
 
 def order_words(table: Table, keys: Sequence[str],
@@ -343,10 +355,10 @@ def make_signature(table: Table, keys: Sequence[str],
 
 def n_words(sig) -> int:
     """Words per tuple: a null rank per nullable key, its value words, and
-    the row index; in the capped tier the alive word first."""
+    the row index (in either tier: the capped form reads `alive` beside
+    the keys)."""
     words = sig.extra("words") or (1,) * len(sig.columns)
-    return (sum(w + valid for (_, valid), w in zip(sig.columns, words)) + 1
-            + (sig.extra("tier") == "capped"))
+    return sum(w + valid for (_, valid), w in zip(sig.columns, words)) + 1
 
 
 def supports(sig) -> bool:

@@ -18,10 +18,13 @@ and gathers the rows at those row indices.
 
 `topk_capped(table, keys, ascending, n, alive)` is the counterpart of the
 reference's `topk_capped` (`topk_pallas.py:179`), the capped tier's TopK:
-the same kernels over the keys with a leading descending BOOL key over
-`alive` (`topk.alive_keyed`), whose word ranks the live rows first as the
-reference's alive rank does; then `topk.capped_outputs` masks the slots
-past the live rows on the device. Equal to `topk.topk_capped_plain`.
+the same kernels in their capped form, which read `alive` beside the keys
+and make a dead row no candidate (the threshold walk drops it, the tile
+sort makes it a sentinel), count the live rows in the same pass, and write
+the row indices with 0 past n_live = min(k, live rows) and the (k,) alive
+mask themselves (the threshold kernel's last block; on the tile route
+`tk_capped_final` after the merges); then a gather of the k rows. Equal to
+`topk.topk_capped_plain`; `topk.topk_capped_mirror` is its CPU mirror.
 
 The wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches the kernels or raises, it never falls back. `LAUNCHES` counts
@@ -39,19 +42,19 @@ import torch
 
 from ..columnar import Table
 from .gather import take_table
-from .topk import (MAX_WORDS, PLAIN_CALLS, alive_keyed, capped_outputs,
-                   describe_keys, empty_capped, key_words, make_signature,
-                   supports, threshold_grid, threshold_route,
-                   topk_capped_plain, topk_plain)
+from .topk import (MAX_WORDS, PLAIN_CALLS, describe_keys, empty_capped,
+                   key_words, make_signature, supports, threshold_grid,
+                   threshold_route, topk_capped_mirror, topk_plain)
 
 __all__ = ["topk_table", "topk_table_cuda", "topk_capped",
            "topk_capped_cuda", "make_signature", "LAUNCHES",
            "STRING_LAUNCHES", "PLAIN_CALLS",
            "reset_counters", "device_limits"]
 
-LAUNCHES = {"threshold": 0, "select": 0, "merge": 0}
+# "final": the tile route's capped outputs (`tk_capped_final`)
+LAUNCHES = {"threshold": 0, "select": 0, "merge": 0, "final": 0}
 # the launches of calls with a STRING key among their keys
-STRING_LAUNCHES = {"threshold": 0, "select": 0, "merge": 0}
+STRING_LAUNCHES = {"threshold": 0, "select": 0, "merge": 0, "final": 0}
 
 
 def reset_counters() -> None:
@@ -73,7 +76,7 @@ class _Desc(ctypes.Structure):
                 ("word_key", ctypes.c_ubyte * MAX_WORDS),
                 ("word_rank", ctypes.c_ubyte * MAX_WORDS),
                 ("word_part", ctypes.c_ubyte * MAX_WORDS),
-                ("W", ctypes.c_int)]
+                ("W", ctypes.c_int), ("alive", ctypes.c_void_p)]
 
 
 _LIB = None
@@ -87,10 +90,13 @@ def _lib():
         lib = load("topk")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.tk_threshold.argtypes = [ctypes.POINTER(_Desc), ll, ci, ci, vp,
-                                     vp, vp, vp]
-        lib.tk_select_keys.argtypes = [ctypes.POINTER(_Desc), ll, ci, vp, vp]
+                                     vp, vp, vp, vp]
+        lib.tk_select_keys.argtypes = [ctypes.POINTER(_Desc), ll, ci, vp, vp,
+                                       vp]
         lib.tk_merge.argtypes = [vp, ll, ci, ll, ll, vp, vp]
-        for f in (lib.tk_threshold, lib.tk_select_keys, lib.tk_merge):
+        lib.tk_capped_final.argtypes = [vp, ci, vp, vp, vp, vp]
+        for f in (lib.tk_threshold, lib.tk_select_keys, lib.tk_merge,
+                  lib.tk_capped_final):
             f.restype = ci
         lib.tk_tile_rows.argtypes = [ci]
         lib.tk_tile_rows.restype = ci
@@ -149,11 +155,13 @@ def _check(rc: int, what: str) -> None:
 
 
 def _tile_sort(desc: _Desc, rows: int, k: int, dev: torch.device,
-               stream: int, strings: bool = False) -> torch.Tensor:
+               stream: int, strings: bool = False,
+               live: Optional[int] = None) -> torch.Tensor:
     """(W, L) int64 with L >= k: the k smallest tuples first, in order,
     read as unsigned words, then all-ones sentinels or further tuples.
     Launches `tk_select_keys` over the rows, then `tk_merge` until one run
-    remains."""
+    remains. `live`: the capped form's count of live rows (a pointer to
+    one int64 on the device)."""
     lib = _lib()
     W = desc.W
     T = lib.tk_tile_rows(W)
@@ -161,7 +169,7 @@ def _tile_sort(desc: _Desc, rows: int, k: int, dev: torch.device,
     blocks = (rows + T - 1) // T
     out = torch.empty((W, blocks * keep), dtype=torch.int64, device=dev)
     _check(lib.tk_select_keys(ctypes.byref(desc), rows, keep,
-                              out.data_ptr(), stream), "select")
+                              out.data_ptr(), live, stream), "select")
     LAUNCHES["select"] += 1
     STRING_LAUNCHES["select"] += strings
     runs, L = blocks, keep
@@ -179,10 +187,13 @@ def _tile_sort(desc: _Desc, rows: int, k: int, dev: torch.device,
 
 def _topk_index(table: Table, keys: Sequence[str],
                 ascending: Sequence[bool], k: int,
-                words: Optional[Sequence[int]] = None) -> torch.Tensor:
+                words: Optional[Sequence[int]] = None,
+                alive: Optional[torch.Tensor] = None):
     """(k,) int64 row indices of the k smallest tuples, in order, k >= 1.
     `words` are the keys' value words (`topk.key_words`), read here, once,
-    when the caller has not."""
+    when the caller has not. With `alive` (the capped form): only live
+    rows are candidates, and the result is ((k,) row indices, 0 from
+    n_live = min(k, live rows) on; (k,) bool, the slots below n_live)."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"the topk kernel runs on CUDA tensors, got {dev}")
@@ -194,28 +205,49 @@ def _topk_index(table: Table, keys: Sequence[str],
                          f"{list(keys)} (1..{MAX_WORDS} tuple words)")
     rows = table.num_rows
     desc = _descriptor(table, keys, ascending, words)
+    out_alive = None
+    if alive is not None:
+        if alive.dtype != torch.bool or tuple(alive.shape) != (rows,) or \
+                alive.device != dev or not alive.is_contiguous():
+            raise ValueError(f"topk: alive must be a contiguous ({rows},) "
+                             f"bool tensor on {dev}")
+        desc.alive = alive.data_ptr()
+        out_alive = torch.empty(k, dtype=torch.bool, device=dev)
     strings = any(table[c].dtype.is_string for c in keys)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms, smem_optin = device_limits(dev)
     if threshold_route(k, desc.W, smem_optin):
         G = threshold_grid(rows, k, sms)
         idx = torch.empty(k, dtype=torch.int64, device=dev)
-        # the blocks' runs, then the call's ticket (tk_threshold zeroes it)
-        cand = (torch.empty(desc.W * G * k + 1, dtype=torch.int64,
+        # the blocks' runs, then the call's ticket and (capped) its count
+        # of live rows (tk_threshold zeroes both)
+        cand = (torch.empty(desc.W * G * k + 2, dtype=torch.int64,
                             device=dev) if G > 1 else None)
         cand_p = ticket_p = None
         if cand is not None:
             cand_p = cand.data_ptr()
             ticket_p = cand_p + 8 * desc.W * G * k
-        _check(_lib().tk_threshold(ctypes.byref(desc), rows, k, G, cand_p,
-                                   ticket_p, idx.data_ptr(), stream),
-               "threshold")
+        _check(_lib().tk_threshold(
+            ctypes.byref(desc), rows, k, G, cand_p, ticket_p, idx.data_ptr(),
+            None if out_alive is None else out_alive.data_ptr(), stream),
+            "threshold")
         LAUNCHES["threshold"] += 1
         STRING_LAUNCHES["threshold"] += strings
-    else:
+    elif alive is None:
         # the row-index word: real rows precede the sentinels
         idx = _tile_sort(desc, rows, k, dev, stream, strings)[-1, :k]
-    return idx
+    else:
+        live = torch.empty(1, dtype=torch.int64, device=dev)
+        run = _tile_sort(desc, rows, k, dev, stream, strings,
+                         live.data_ptr())
+        idx = torch.empty(k, dtype=torch.int64, device=dev)
+        _check(_lib().tk_capped_final(run[-1].data_ptr(), k,
+                                      live.data_ptr(), idx.data_ptr(),
+                                      out_alive.data_ptr(), stream),
+               "capped final")
+        LAUNCHES["final"] += 1
+        STRING_LAUNCHES["final"] += strings
+    return idx if alive is None else (idx, out_alive)
 
 
 def topk_table_cuda(table: Table, keys: Sequence[str],
@@ -240,11 +272,9 @@ def topk_capped_cuda(table: Table, keys: Sequence[str],
                          f"{table.device} and {alive.device}")
     if k == 0:
         return empty_capped(table)
-    # the alive key is one BOOL word
-    idx = _topk_index(*alive_keyed(table, keys, ascending,
-                                   alive.contiguous()), k,
-                      None if words is None else (1,) + tuple(words))
-    return capped_outputs(table, idx, alive)
+    idx, out_alive = _topk_index(table, keys, ascending, k, words,
+                                 alive.contiguous())
+    return take_table(table, idx, _has_negative=False), out_alive
 
 
 def topk_capped(table: Table, keys: Sequence[str],
@@ -252,10 +282,10 @@ def topk_capped(table: Table, keys: Sequence[str],
                 words: Optional[Sequence[int]] = None):
     """The capped tier's TopK: (table of min(n, rows) rows, their alive
     mask), the top rows of the stable sort with the dead rows sunk last;
-    the kernels on a CUDA table, the plain version on a CPU one. `words`:
+    the kernels on a CUDA table, their CPU mirror on a CPU one. `words`:
     the keys' value words, when the caller has read them."""
     if table.device.type == "cpu":
-        return topk_capped_plain(table, keys, ascending, n, alive)
+        return topk_capped_mirror(table, keys, ascending, n, alive)
     return topk_capped_cuda(table, keys, ascending, n, alive, words)
 
 

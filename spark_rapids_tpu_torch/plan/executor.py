@@ -13,7 +13,9 @@ Counterpart of `spark_rapids_tpu/plan/executor.py`.
   attempt. Every relation is a padded frame and an alive mask
   (`_CappedRel`); a filter is a mask AND, a semi or anti join a mask, an
   inner join and a keyed aggregate write into `row_cap`/`key_cap` slots
-  and return an overflow flag instead of a size. The flags OR into one,
+  and return an overflow flag instead of a size (an inner join with a
+  zero-row side, which the host knows from the shapes, `row_cap` dead
+  slots of `copying.dead_column`). The flags OR into one,
   which `parallel.autoretry.auto_retry_overflow` reads once per attempt
   (the attempt's one host read), growing every cap x2 while it is set,
   at most `max_cap_attempts` times. The per-operator live-row counts are
@@ -672,6 +674,18 @@ class PlanExecutor:
             choice = pick("hash_join", sig)
             if node.how == "inner":
                 row_cap = self._node_cap(caps, "row_cap", idx)
+                if l.table.num_rows == 0 or r.table.num_rows == 0:
+                    # no row 0 to gather for the dead slots (a TopK of 0
+                    # rows, an empty input): row_cap dead slots, no pair
+                    dev = l.table.device
+                    t = Table([copying.dead_column(c, row_cap)
+                               for c in (list(l.table.columns)
+                                         + list(r.table.columns))],
+                              names=list(l.table.names) +
+                              list(r.table.names))
+                    dead = torch.zeros(row_cap, dtype=torch.bool, device=dev)
+                    return _CappedRel(t, dead), torch.zeros(
+                        (), dtype=torch.bool, device=dev)
                 fn = (join.inner_join_capped if choice.fallback
                       else join_cuda.inner_join_capped_hash)
                 lm, rm, valid, ovf = fn(lkeys, rkeys, row_cap,

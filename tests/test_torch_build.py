@@ -245,7 +245,7 @@ def test_exists_wrapper_takes_the_plain_version_only_on_cpu():
     mask = join_cuda.semi_join_mask_hash(k, k)
     assert bool(mask.all())
     assert join_cuda.PLAIN_CALLS == {"build": 1, "count": 0, "emit": 0,
-                                     "exists": 1}
+                                     "exists": 1, "capped": 0}
     assert sum(join_cuda.LAUNCHES.values()) == 0
     table = join_cuda.build_table(k, 256)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -320,7 +320,7 @@ def test_nds_semi_joins_on_the_forced_kernels(monkeypatch, q, mode,
     semis = sum(n.kind == "HashJoin" for n in got.plan.nodes)
     assert semis == {"q5": 3, "q23": 4}[q]
     assert join_cuda.PLAIN_CALLS == {"build": semis, "count": 0, "emit": 0,
-                                     "exists": semis}
+                                     "exists": semis, "capped": 0}
     assert {m.kernel for m in got.metrics.values()
             if m.kind == "HashJoin"} == {"cuda:hash_join"}
     assert _rows(got.compact()) == _rows(want.compact())

@@ -202,7 +202,8 @@ def test_topk_capped_matches_jax(share):
 def test_topk_capped_equals_capped_sort_prefix():
     """The live rows of the capped TopK are the first n live rows of the
     capped sort, as the reference's registry test holds its kernel; the
-    alive-ranked words the kernels build equal `order_words`."""
+    words the kernels build (no alive word: the capped form reads `alive`
+    beside them) equal `order_words`."""
     rng = np.random.default_rng(6)
     n, k = 800, 11
     _, tt = _topk_tables(rng, n)
@@ -218,9 +219,8 @@ def test_topk_capped_equals_capped_sort_prefix():
         assert torch.equal(idx, torch.arange(live.shape[0]))
         for a, b in zip(st.columns, gt.columns):
             assert torch.equal(a.data[live], b.data[idx])
-        t2, k2, a2 = topk.alive_keyed(tt, ["k", "f"], [False, True], alive)
-        assert torch.equal(topk.encode_words(t2, k2, a2),
-                           topk.order_words(t2, k2, a2))
+        assert torch.equal(topk.encode_words(tt, ["k", "f"], [False, True]),
+                           topk.order_words(tt, ["k", "f"], [False, True]))
 
 
 def test_sort_table_capped_matches_jax():
@@ -374,3 +374,131 @@ def test_auto_retry_overflow_matches_jax():
                                                  ceil=ceil)
             assert tout[1] == jout[1] and tout[0][0] == jout[0][0]
         assert tl == jl, (needed, start, ceil)
+
+
+# ---- the capped kernels' CPU mirrors -----------------------------------------
+#
+# `join_cuda.probe_capped_plain` (the capped probe: per-tile sums, their
+# exclusive prefix, each tile's pairs from its offset, every slot written)
+# and `topk.topk_capped_mirror` (dead rows as sentinel tuples, the live
+# count beside) against the plain versions and the JAX package. The JAX
+# results are computed once per case (`_jax_join`, `_jax_topk`).
+
+_MIRROR_TILE = 64        # mirror tiles of 64 rows: several a case
+
+
+def _mirror_join_case(case):
+    """(JAX left, right keys, port left, right keys, left alive, right
+    alive) for one case, from a seed."""
+    rng = np.random.default_rng(31)
+    nl, nr = 300, 40
+    if case == "many_to_many":       # 3 keys: each live row 10+ pairs
+        lk = rng.integers(0, 3, nl).astype(np.int64)
+        rk = rng.integers(0, 3, nr).astype(np.int64)
+    else:
+        lk = rng.integers(0, 30, nl).astype(np.int64)
+        rk = rng.integers(0, 30, nr).astype(np.int64)
+    if case == "zero_rows":
+        rk = rk[:0]
+    (jl, tl), (jr, tr) = _cols([(lk, rng.random(nl) > 0.1)]), _cols(
+        [(rk, None)])
+    la = rng.random(nl) < (0.0 if case == "all_dead" else 0.6)
+    ra = rng.random(rk.shape[0]) < 0.8
+    return jl, jr, tl, tr, la, ra
+
+
+_JAX_CAPPED = {}
+
+
+def _jax_join(case, cap):
+    key = ("join", case, cap)
+    if key not in _JAX_CAPPED:
+        jl, jr, _, _, la, ra = _mirror_join_case(case)
+        _JAX_CAPPED[key] = j_join_capped(jl, jr, row_cap=cap,
+                                         lalive=jnp.asarray(la),
+                                         ralive=jnp.asarray(ra))
+    return _JAX_CAPPED[key]
+
+
+def _mirror_join(case, cap):
+    _, _, tl, tr, la, ra = _mirror_join_case(case)
+    lal, ral = torch.from_numpy(la), torch.from_numpy(ra)
+    if tr[0].length == 0:
+        return join_cuda.inner_join_capped_hash(tl, tr, cap, lalive=lal,
+                                                ralive=ral)
+    table = join_cuda.build_table_plain(tr, join_cuda._capacity(
+        tr[0].length), ral)
+    return join_cuda.probe_capped_plain(tl, table, tr, cap, lal,
+                                        tile=_MIRROR_TILE)
+
+
+@pytest.mark.parametrize("case,cap", [
+    ("int64", "total"), ("int64", "total+1"), ("int64", "half"),
+    ("many_to_many", "total"), ("many_to_many", "half"),
+    ("all_dead", "total+1"), ("zero_rows", "total+1")])
+def test_capped_probe_mirror_matches_jax(case, cap):
+    """The capped probe's mirror at row_cap equal to the total, the total
+    + 1 and half the total (overflowing): all four outputs bit for bit
+    those of `join.inner_join_capped` and the JAX package's capped join;
+    a many-to-many key whose pairs cross the mirror's 64-row tiles; every
+    probe row dead; a zero-row build side."""
+    roomy = _jax_join(case, 8192)
+    total = int(np.asarray(roomy[2]).sum())
+    if case in ("all_dead", "zero_rows"):
+        assert total == 0
+    else:
+        assert total > 2 * _MIRROR_TILE
+    row_cap = {"total": total, "total+1": total + 1,
+               "half": total // 2}[cap]
+    ref = _jax_join(case, row_cap)
+    got = _mirror_join(case, row_cap)
+    _same(ref, got, f"{case} {cap}")
+    _, _, tl, tr, la, ra = _mirror_join_case(case)
+    plain = join.inner_join_capped(tl, tr, row_cap,
+                                   lalive=torch.from_numpy(la),
+                                   ralive=torch.from_numpy(ra))
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    assert bool(got[3]) == (cap == "half")
+
+
+def _jax_topk(share, keys, asc, k):
+    key = ("topk", share, tuple(keys), tuple(asc), k)
+    if key not in _JAX_CAPPED:
+        jt, _, alive = _mirror_topk_case(share)
+        _JAX_CAPPED[key] = topk_pallas.topk_capped(
+            jt, keys, asc, k, jnp.asarray(alive), block_rows=256)
+    return _JAX_CAPPED[key]
+
+
+def _mirror_topk_case(share):
+    rng = np.random.default_rng(41)
+    n = 240                      # one block of the reference's kernel
+    jt, tt = _topk_tables(rng, n)
+    return jt, tt, rng.random(n) < share
+
+
+@pytest.mark.parametrize("share", [0.0, 0.6, 1.0])
+def test_capped_topk_mirror_matches_jax(share):
+    """The capped TopK's mirror (dead rows as sentinel tuples, n_live
+    counted beside) at 0%, 60% and 100% live, with k below, at and above
+    the live count and k = 0: equal to `topk.topk_capped_plain` and to
+    the JAX package's `topk_capped` in interpret mode at one block."""
+    _, tt, alive = _mirror_topk_case(share)
+    live = int(alive.sum())
+    ta = torch.from_numpy(alive)
+    for keys, asc, k in ((["k", "f"], [True, False], 17),
+                         (["pay", "k"], [False, True], max(live + 9, 1)),
+                         (["f"], [True], 0)):
+        got = topk.topk_capped_mirror(tt, keys, asc, k, ta)
+        want = topk.topk_capped_plain(tt, keys, asc, k, ta)
+        assert torch.equal(got[1], want[1])
+        for a, b in zip(got[0].columns, want[0].columns):
+            assert torch.equal(a.data, b.data)
+        assert int(got[1].sum()) == min(k, live)
+        if k:
+            rt, ra = _jax_topk(share, keys, asc, k)
+            np.testing.assert_array_equal(np.asarray(ra), got[1].numpy())
+            _same_tables(rt, got[0])
+        else:
+            assert got[0].num_rows == 0

@@ -151,7 +151,7 @@ def test_q3_on_the_card_uses_the_kernels():
     join_cuda.reset_counters()
     res = PlanExecutor().execute(nds_q3.q3_plan(), inputs)
     assert join_cuda.LAUNCHES == {"build": 2, "count": 2,
-                                  "emit": 2, "exists": 0}
+                                  "emit": 2, "exists": 0, "capped": 0}
     assert [m.kernel for m in res.metrics.values()
             if m.kind == "HashJoin"] == ["cuda:hash_join"] * 2
     cpu = PlanExecutor(device="cpu").execute(nds_q3.q3_plan(), inputs)
@@ -398,7 +398,8 @@ def test_tpcds_q3_on_the_card_uses_the_kernels():
     assert join_cuda.LAUNCHES["build"] == 2
     assert select_cuda.LAUNCHES["count"] == 2
     # the threshold kernel takes the groups in one launch
-    assert topk_cuda.LAUNCHES == {"threshold": 1, "select": 0, "merge": 0}
+    assert topk_cuda.LAUNCHES == {"threshold": 1, "select": 0, "merge": 0,
+                                  "final": 0}
     assert select_cuda.PLAIN_CALLS == {"fused_select": 0}
     assert topk_cuda.PLAIN_CALLS == {"topk": 0}
     kinds = {m.kind: m.kernel for m in res.metrics.values() if m.kernel}
@@ -504,7 +505,8 @@ def test_large_route_equals_plain_versions(case):
     assert torch.equal(lk, fl.data) and torch.equal(rk, fr.data)
     emits = int(total > 0)                 # no pairs, no emit launch
     assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1,
-                                        "emit": emits, "exists": 0}
+                                        "emit": emits, "exists": 0,
+                                        "capped": 0}
     with pytest.raises(ValueError, match="MAX_BUILD"):
         join_cuda.build_table_cuda(
             [Column.from_numpy(np.zeros(join_cuda.MAX_BUILD + 1, np.int64),
@@ -596,11 +598,11 @@ def test_q72_on_the_card_uses_the_large_route(optimize):
     join_cuda.reset_counters()
     res = PlanExecutor(optimize=optimize).execute(nds_q72.q72_plan(), inputs)
     assert join_cuda.LAUNCHES == {"build": 5, "count": 5,
-                                  "emit": 5, "exists": 0}
+                                  "emit": 5, "exists": 0, "capped": 0}
     assert join_cuda.LARGE_LAUNCHES == {"build": 1, "count": 1,
-                                        "emit": 1, "exists": 0}
+                                        "emit": 1, "exists": 0, "capped": 0}
     assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                     "emit": 0, "exists": 0}
+                                     "emit": 0, "exists": 0, "capped": 0}
     cpu = PlanExecutor(device="cpu", optimize=optimize).execute(
         nds_q72.q72_plan(), inputs)
     _same_table(res.table.to("cpu"), cpu.table)
@@ -633,9 +635,10 @@ def test_capped_join_kernel_equals_plain_version(nr):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b), cap
-        assert join_cuda.CAPPED_CALLS == {"join": 1}
+        assert (join_cuda.LAUNCHES["capped"], join_cuda.LAUNCHES["count"],
+                join_cuda.LAUNCHES["emit"]) == (1, 0, 0)
         assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                         "emit": 0, "exists": 0}
+                                         "emit": 0, "exists": 0, "capped": 0}
 
 
 @pytest.mark.parametrize("share", [0.6, 0.0, 1.0])
@@ -662,6 +665,61 @@ def test_capped_topk_kernel_equals_plain_version(share):
         assert topk_cuda.LAUNCHES["threshold"] == (k < 4099)
 
 
+@pytest.mark.parametrize("case", ["many_to_many", "all_dead", "float_keys",
+                                  "one_live_row"])
+def test_capped_probe_edges_equal_plain_version(case):
+    """The capped probe (one launch: look-back offsets, every slot written)
+    against the sort-based capped join: a key of 300 build rows whose
+    pairs cross tiles and segments, every row dead, FLOAT64 keys (the
+    variable-width instantiation), one live probe row; caps at the total,
+    + 1 and half of it."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    nl, nr = 70_001, 900
+    kind, dt = (np.float64, tdt.FLOAT64) if case == "float_keys" else \
+        (np.int64, tdt.INT64)
+    pk = rng.integers(0, 3 if case == "many_to_many" else nr, nl)
+    bk = rng.integers(0, 3 if case == "many_to_many" else nr, nr)
+    lk = [Column.from_numpy(pk.astype(kind), dt, device="cuda")]
+    rk = [Column.from_numpy(bk.astype(kind), dt, device="cuda")]
+    la = torch.from_numpy(rng.random(nl) < (0.01 if case == "many_to_many"
+                                            else 0.5)).cuda()
+    if case == "all_dead":
+        la.zero_()
+    if case == "one_live_row":
+        la.zero_()
+        la[nl // 2] = True
+    ra = torch.ones(nr, dtype=torch.bool, device="cuda")
+    total = int(join.inner_join_capped(lk, rk, 4 * nl * 3, lalive=la,
+                                       ralive=ra)[2].sum())
+    for cap in sorted({total, total + 1, total // 2}):
+        got = join_cuda.inner_join_capped_hash(lk, rk, cap, lalive=la,
+                                               ralive=ra)
+        want = join.inner_join_capped(lk, rk, cap, lalive=la, ralive=ra)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (case, cap)
+
+
+def test_capped_topk_decimal_keys_and_few_live_rows():
+    """The capped TopK's variable-width kernels (a DECIMAL128 key) on both
+    routes, with fewer live rows than k, against the plain version."""
+    _need_card()
+    rng = np.random.default_rng(19)
+    n = 200_003
+    dec = [int(v) * 10 ** 20 + int(w) for v, w in
+           zip(rng.integers(-10 ** 9, 10 ** 9, n), rng.integers(0, 99, n))]
+    t = Table([Column.from_pylist(dec, tdt.decimal(38, 2), device="cuda"),
+               Column.from_numpy(rng.integers(0, 9, n).astype(np.int32),
+                                 tdt.INT32, device="cuda")], ["d", "i"])
+    alive = torch.from_numpy(rng.random(n) < 0.0003).cuda()
+    for k in (50, 4099):
+        got = topk_cuda.topk_capped(t, ["d", "i"], [True, False], k, alive)
+        want = topk.topk_capped_plain(t, ["d", "i"], [True, False], k, alive)
+        _same_table(got[0].to("cpu"), want[0].to("cpu"))
+        assert torch.equal(got[1], want[1])
+
+
 def test_capped_plans_on_the_card_use_the_kernels():
     """TPC-DS q3 and q72 through `PlanExecutor(mode="capped")` on the card:
     every inner join on the capped kernels, the TopK on its kernel, no
@@ -677,9 +735,10 @@ def test_capped_plans_on_the_card_use_the_kernels():
         res = PlanExecutor(mode="capped").execute(plan, inputs)
         n = sum(m.kind == "HashJoin" for m in res.metrics.values())
         assert res.attempts == 1
-        assert join_cuda.CAPPED_CALLS == {"join": n}
+        assert (join_cuda.LAUNCHES["capped"], join_cuda.LAUNCHES["count"],
+                join_cuda.LAUNCHES["emit"]) == (n, 0, 0)
         assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                         "emit": 0, "exists": 0}
+                                         "emit": 0, "exists": 0, "capped": 0}
         assert topk_cuda.PLAIN_CALLS == {"topk": 0}
         eager = PlanExecutor().execute(plan, inputs)
         _same_table(res.compact().to("cpu"), eager.table.to("cpu"))
@@ -746,9 +805,11 @@ def test_q5_q23_on_the_card_equal_the_cpu(q):
                                 optimize=optimize).execute(plan, cpu_inputs)
             _same_table(res.compact().to("cpu"), want.compact())
             assert join_cuda.LAUNCHES == {"build": semis, "count": 0,
-                                          "emit": 0, "exists": semis}
+                                          "emit": 0, "exists": semis,
+                                          "capped": 0}
             assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                             "emit": 0, "exists": 0}
+                                             "emit": 0, "exists": 0,
+                                             "capped": 0}
             assert sum(select_cuda.LAUNCHES.values()) == 0
             assert sum(topk_cuda.LAUNCHES.values()) == 0
             # the keyed aggregates and the semi joins are the kernels here
@@ -1670,4 +1731,4 @@ def test_exists_kernel_equals_plain_version_and_sort_route(kind, nr):
                        join.left_anti_join(p, b).data)
     # the wrappers never ran a plain version on the card
     assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0,
-                                     "exists": 0}
+                                     "exists": 0, "capped": 0}

@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch.analysis import fuzz as tfuzz
 
 PLAIN_SEEDS = range(48)       # the plain pass: tests/test_torch_fuzz_plain_*
 EDGE_SEEDS = range(24)        # the edge pass: tests/test_torch_fuzz_edge_*
+C8_SEED = 249                 # queue C 8: a capped join over a TopK of 0
 
 
 @pytest.fixture(autouse=True)
@@ -173,7 +174,9 @@ def test_corpus_with_every_kernel_forced_runs_their_cpu_mirrors(
         monkeypatch, edge):
     """With every kernel forced, the CPU runs the kernels' plain mirrors
     (their tiling, insertion and emission order); over the corpus, both
-    tiers and forms, they give the plain fallback's results."""
+    tiers and forms, they give the plain fallback's results. The plain
+    pass adds seed 249, queue C 8's case (a capped inner join over a
+    TopK of 0 rows)."""
     from spark_rapids_tpu_torch.ops import join_cuda, select, topk
     from spark_rapids_tpu_torch.ops import groupby_cuda
     for m in (join_cuda, groupby_cuda):
@@ -181,7 +184,7 @@ def test_corpus_with_every_kernel_forced_runs_their_cpu_mirrors(
     for d in (select.PLAIN_CALLS, topk.PLAIN_CALLS):
         for k in d:
             d[k] = 0
-    for seed in (EDGE_SEEDS if edge else PLAIN_SEEDS):
+    for seed in (EDGE_SEEDS if edge else [*PLAIN_SEEDS, C8_SEED]):
         _, _, tc, ttab = _cases(seed, edge)
         for mode in ("eager", "capped"):
             for optimize in (False, True):

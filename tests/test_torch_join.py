@@ -208,9 +208,9 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
     join_cuda.reset_counters()
     join_cuda.inner_join_hash(k, k)
     assert join_cuda.PLAIN_CALLS == {"build": 1, "count": 1,
-                                     "emit": 1, "exists": 0}
+                                     "emit": 1, "exists": 0, "capped": 0}
     assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
-                                  "emit": 0, "exists": 0}
+                                  "emit": 0, "exists": 0, "capped": 0}
     # the kernel path refuses CPU tensors instead of running another way
     with pytest.raises(ValueError, match="CUDA tensors"):
         join_cuda.build_table_cuda(k, 256)

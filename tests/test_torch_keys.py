@@ -291,7 +291,8 @@ def test_float_join_on_the_forced_kernel_path(monkeypatch):
         assert [m.kernel for m in res.metrics.values()
                 if m.kind == "HashJoin"] == ["cuda:hash_join"]
         assert join_cuda.PLAIN_CALLS == {"build": 1, "count": 1,
-                                         "emit": 1, "exists": 0}
+                                         "emit": 1, "exists": 0,
+                                         "capped": 0}
         assert res.table.num_rows == 3
         _maps(jjoin.inner_join([jl], [jr]),
               join_cuda.inner_join_hash([tcol(jl)], [tcol(jr)]))

@@ -125,11 +125,12 @@ def test_forced_kernels_run_their_plain_mirrors(monkeypatch, which):
     assert stamps["FusedSelect"] == "torch:fused_select"
     assert stamps["HashAggregate"] == "torch:groupby"
     n_joins = sum(n.kind == "HashJoin" for n in res.plan.nodes)
-    assert join_cuda.PLAIN_CALLS == {"build": n_joins, "count": n_joins,
-                                     "emit": n_joins, "exists": 0}
+    # each capped join: the build and the capped probe's mirror
+    assert join_cuda.PLAIN_CALLS == {"build": n_joins, "count": 0,
+                                     "emit": 0, "exists": 0,
+                                     "capped": n_joins}
     assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
-                                  "emit": 0, "exists": 0}
-    assert join_cuda.CAPPED_CALLS == {"join": 0}
+                                  "emit": 0, "exists": 0, "capped": 0}
     if which == "tpcds_q3":
         assert stamps["TopK"] == "cuda:topk"
         assert topk.PLAIN_CALLS["topk"] == 1
@@ -237,3 +238,70 @@ def test_capped_float_literals_follow_the_reference_eager_tier(case):
                 .view(np.int64).tolist() for mode in ("eager", "capped")}
     assert got["capped"] == got["eager"] == want["eager"]
     assert want["capped"] != want["eager"]
+
+
+def _c8_tables(nl):
+    """Queue C 8's tables: `l` (k, v) with its first nl rows, `r` (rk, w);
+    (port tables, JAX tables)."""
+    k = np.array([0, 1, 2, 0, 1], np.int64)[:nl]
+    v = np.arange(nl, dtype=np.int64)
+    rk, w = np.array([0, 1, 2, 0], np.int64), np.arange(4, dtype=np.int64)
+    tt = {"l": table_from_numpy(["k", "v"], [k, v], [None, None],
+                                ["int64", "int64"], device="cpu"),
+          "r": table_from_numpy(["rk", "w"], [rk, w], [None, None],
+                                ["int64", "int64"], device="cpu")}
+    jt = {"l": JTable([JColumn.from_numpy(k), JColumn.from_numpy(v)],
+                      names=["k", "v"]),
+          "r": JTable([JColumn.from_numpy(rk), JColumn.from_numpy(w)],
+                      names=["rk", "w"])}
+    return tt, jt
+
+
+def _c8_plan(plan_cls, side, topk=True):
+    b = plan_cls()
+    left = b.scan("l", schema=["k", "v"])
+    if topk:
+        left = left.sort(["v"]).limit(0)
+    right = b.scan("r", schema=["rk", "w"])
+    if side == "right":
+        return right.join(left, left_on="rk", right_on="k").build()
+    return left.join(right, left_on="k", right_on="rk").build()
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_capped_join_over_a_topk_of_zero_rows(monkeypatch, side):
+    """Queue C 8, repaired: the optimized plan turns Sort + Limit(0) into
+    TopK(0), whose capped kernel route (forced; its CPU mirror here)
+    returns a frame of zero rows; the capped inner join over it emits
+    `row_cap` dead slots (zero data, validity where the column has one)
+    instead of gathering row 0 of nothing. 0 rows, equal to the JAX
+    package, the TopK on either side."""
+    monkeypatch.setenv("SPARK_RAPIDS_TORCH_KERNELS", "topk=cuda")
+    tt, jt = _c8_tables(5)
+    res = PlanExecutor(mode="capped", device="cpu").execute(
+        _c8_plan(PlanBuilder, side), tt)
+    assert "TopK" in [n.kind for n in res.plan.nodes]
+    with stats.scoped_store(None):
+        ref = JPlanExecutor(mode="capped").execute(
+            _c8_plan(JPlanBuilder, side), jt)
+    got = res.compact()
+    assert got.num_rows == ref.compact().num_rows == 0
+    _assert_same(ref.compact(), got)
+    assert not bool(res.valid.any())
+
+
+def test_capped_join_over_an_empty_table_gives_no_rows():
+    """An empty input table under a capped inner join gives 0 rows, as the
+    eager tier and Spark do. The reference's capped tier raises IndexError
+    here (its gather takes row 0 of an empty axis): the port gives the
+    natural answer (ROADMAP, deviation 7)."""
+    for side in ("left", "right"):
+        tt, jt = _c8_tables(0)
+        plan = _c8_plan(PlanBuilder, side, topk=False)
+        got = PlanExecutor(mode="capped", device="cpu").execute(plan, tt)
+        assert got.compact().num_rows == 0
+        assert got.compact().names == PlanExecutor(device="cpu").execute(
+            plan, tt).table.names
+        with stats.scoped_store(None), pytest.raises(IndexError):
+            JPlanExecutor(mode="capped").execute(
+                _c8_plan(JPlanBuilder, side, topk=False), jt)

@@ -127,7 +127,7 @@ def test_q23_matches_jax(monkeypatch, ref, inputs, tier, optimize):
     stamps = {m.kernel for m in res.metrics.values() if m.kernel}
     assert stamps == {"torch:hash_join", "torch:groupby"}
     assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                     "emit": 0, "exists": 0}
+                                     "emit": 0, "exists": 0, "capped": 0}
 
 
 def _strip(text):

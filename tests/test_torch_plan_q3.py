@@ -77,13 +77,13 @@ def test_q3_matches_jax_eager(monkeypatch, force):
         # the forced CUDA kernels run their plain versions on CPU tensors
         assert stamps == ["cuda:hash_join"] * 2
         assert join_cuda.PLAIN_CALLS == {"build": 2, "count": 2,
-                                         "emit": 2, "exists": 0}
+                                         "emit": 2, "exists": 0, "capped": 0}
     else:
         assert stamps == ["torch:hash_join"] * 2
         assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                         "emit": 0, "exists": 0}
+                                         "emit": 0, "exists": 0, "capped": 0}
     assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
-                                  "emit": 0, "exists": 0}
+                                  "emit": 0, "exists": 0, "capped": 0}
     rows = res.profile()
     assert {r["kind"] for r in rows} == {"Scan", "Filter", "HashJoin",
                                          "HashAggregate", "Sort"}

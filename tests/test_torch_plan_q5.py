@@ -98,9 +98,9 @@ def test_q5_matches_jax(ref, inputs, tier, optimize):
     stamps = {m.kernel for m in res.metrics.values() if m.kernel}
     assert stamps == {"torch:hash_join", "torch:groupby"}
     assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0,
-                                     "emit": 0, "exists": 0}
+                                     "emit": 0, "exists": 0, "capped": 0}
     assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
-                                  "emit": 0, "exists": 0}
+                                  "emit": 0, "exists": 0, "capped": 0}
     assert sum(select_cuda.PLAIN_CALLS.values()) == 0
     assert sum(topk_cuda.PLAIN_CALLS.values()) == 0
 

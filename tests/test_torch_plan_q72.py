@@ -69,7 +69,7 @@ def test_q72_matches_jax_eager(monkeypatch, optimize, force):
     assert [m.kernel for m in joins] == [want] * 5
     assert join_cuda.PLAIN_CALLS["build"] == (5 if force else 0)
     assert join_cuda.LAUNCHES == {"build": 0, "count": 0,
-                                  "emit": 0, "exists": 0}
+                                  "emit": 0, "exists": 0, "capped": 0}
     inv = [n for n in res.plan.nodes if n.kind == "HashJoin"
            and len(n.left_keys) == 2]
     assert len(inv) == 1

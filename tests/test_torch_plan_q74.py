@@ -131,7 +131,7 @@ def test_q74_string_joins_on_the_forced_kernels(q74, monkeypatch):
     got = PlanExecutor(device="cpu").execute(nds_q74.q74_plan(),
                                              inputs).table
     assert join_cuda.PLAIN_CALLS == {"build": 7, "count": 7,
-                                     "emit": 7, "exists": 0}
+                                     "emit": 7, "exists": 0, "capped": 0}
     assert got.to_pydict() == want.to_pydict()
 
 

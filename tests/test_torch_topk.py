@@ -184,7 +184,7 @@ def test_plan_topk_forced_kernel_runs_plain_on_cpu(monkeypatch):
                 if m.kind == "TopK"] == [stamp]
         assert topk_cuda.PLAIN_CALLS == {"topk": plain}
         assert topk_cuda.LAUNCHES == {"threshold": 0, "select": 0,
-                                      "merge": 0}
+                                      "merge": 0, "final": 0}
         for a, c in zip(want.table.columns, res.table.columns):
             assert torch.equal(a.data, c.data)
             assert torch.equal(a.null_mask, c.null_mask)
