@@ -9,6 +9,8 @@
     python3 chip_smoke.py --keys       # phase 10 only (string/decimal keys)
     python3 chip_smoke.py --union-walls N  # q5 and q23 walls only (A/B runs)
     python3 chip_smoke.py --join-profile   # whole joins' kernels (A/B runs)
+    python3 chip_smoke.py --feedback   # phase 12 only (ranges, store, graphs)
+    python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
@@ -217,8 +219,43 @@ in phases that each raise on failure:
    idle shares; then the three kernels' new kinds timed at q74's and
    q3's shapes and the sort's cost in q74's store aggregate. Alone:
    `python3 chip_smoke.py --keys`;
+12. the plan engine's feedback loop (`feedback_phase`): q72 eager at 10M
+   rows with SPARK_RAPIDS_TORCH_TRACE=1 under torch.profiler, every
+   operator in its `plan.<label>` range once, the card's records linked to
+   the range by their launches' correlation ids, each operator's busy ms
+   printed, the result bit-equal to the untraced run; under fresh stats
+   stores, q3 capped at 100,000 rows from caps of 128/16 in one executor
+   (escalating) and then in a new one (one attempt, from the store's
+   caps, an equal table), and TPC-DS q3 and q72 eager twice (equal, their
+   decision sources printed); for q3, TPC-DS q3 INT32 and STRING, q72, q5,
+   q23 and q74 each run's certificate (`PlanResult.cert`) holding the
+   observed rows (`footprint.check_observed`) on both tiers where they
+   run, and every operator whose certified rows tightened a cap printed;
+   and q3, TPC-DS q3 INT32, q72, q5 and q23 capped run cold (kernels
+   launched from Python under `set_sync_debug_mode("error")`), captured
+   (into a CUDA graph, then replayed) and replayed five times, counters
+   zeroed before and read after each run: every run's table bit-equal to
+   the cold run's, `PlanResult.graph` True, the capture counting each
+   kernel as the cold run did and a replay none (it runs no wrapper; the
+   executor's `GRAPH_COUNTS` counts it), no plain version run, host reads
+   at most attempts + 1; a traced replay's kernel records, linked to its
+   one graph launch inside `plan.capped.attempt`, equal by name and number
+   to a traced launched run's; the device memory the capture reserved;
+   TPC-DS q3, q5 and q23 replayed over seed 1's tables and then seed 0's
+   again, equal to a new executor's launched run; the walls (median of 5)
+   and a traced run's idle share with replay and without (a new
+   executor's first run, same caps); then capped fuzz corpus cases, one
+   executor each, replayed over redrawn tables of the same shape, each
+   run equal to a new executor's launched run;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
+
+The phases before phase 12 run with no stats store (`scoped_store(None)`):
+their checks of attempts and caps assume a cold engine. Phase 12 installs
+its own stores. `--plan-walls` and `--union-walls` run as a user runs the
+port, with its default store where the tree has one, and time both the
+plan's wall and the whole `execute()` call; with `--tree DIR` they import
+the port from the checkout at DIR, so that one script times two trees.
 
 Each kernel is timed by its device time from torch.profiler's kernel
 records, one wrapper call's time between CUDA events (the L2 flushed
@@ -3831,9 +3868,17 @@ def nds_union_phase(torch, chk):
             for optimize in (False, True):
                 what = (f"{q} {mode} "
                         f"{'optimized' if optimize else 'authored'}")
-                ex = PlanExecutor(mode=mode, optimize=optimize,
-                                  caps=dict(caps) if mode == "capped"
-                                  else None)
+                def make():
+                    return PlanExecutor(mode=mode, optimize=optimize,
+                                        caps=dict(caps) if mode == "capped"
+                                        else None)
+
+                def launched():
+                    # a run whose kernels launch from Python, where the
+                    # wrappers below can see them: a new executor's (an
+                    # executor's later capped runs replay a CUDA graph)
+                    return make().execute(plan, inputs)
+                ex = make()
                 cold = ex.execute(plan, inputs)
                 torch.cuda.synchronize()
                 reset_kernel_counters()
@@ -3873,7 +3918,7 @@ def nds_union_phase(torch, chk):
                     # their kernels timed there
                     calls, restore = recording_semis(jc)
                     try:
-                        ex.execute(plan, inputs)
+                        launched()
                     finally:
                         restore()
                     run["semi_timing"] = [
@@ -3889,8 +3934,7 @@ def nds_union_phase(torch, chk):
                 walls = [ex.execute(plan, inputs).wall_ms
                          for _ in range(REPEATS)]
                 trace = traced_run(torch, lambda: ex.execute(plan, inputs))
-                agg_trace = keyed_aggregate_trace(
-                    torch, lambda: ex.execute(plan, inputs))
+                agg_trace = keyed_aggregate_trace(torch, launched)
                 log(f"  keyed aggregates traced: {agg_trace}")
                 # the torch ops always; the kernels where CUPTI kept them
                 require(agg_trace["ranges"] == n_keyed
@@ -5104,21 +5148,36 @@ def union_walls_phase(torch, runs):
                 what = (f"{q} {mode} "
                         f"{'optimized' if optimize else 'authored'}")
                 runs_of[what] = (ex, plan, inputs)
-    out = {w: {"walls": []} for w in runs_of}
+    return timed_walls(torch, runs_of, runs)
+
+
+def timed_walls(torch, runs_of, runs):
+    """{what: (executor, plan, inputs)}: one cold run each, then `runs`
+    rounds of one warm run of each in turn, then one traced warm run each.
+    Per plan: the warm walls (`PlanResult.wall_ms`), the whole `execute()`
+    calls on the host's clock (`execute_ms`: the optimizer, the certifier
+    and the store's recording included), their medians, and the traced
+    run's busy ms, idle share and kernels by time."""
+    out = {w: {"walls": [], "execute_ms": []} for w in runs_of}
     for ex, plan, inputs in runs_of.values():
         ex.execute(plan, inputs)
     torch.cuda.synchronize()
     for _ in range(runs):
         for what, (ex, plan, inputs) in runs_of.items():
-            out[what]["walls"].append(ex.execute(plan, inputs).wall_ms)
+            t0 = time.perf_counter()
+            res = ex.execute(plan, inputs)
+            out[what]["execute_ms"].append((time.perf_counter() - t0) * 1e3)
+            out[what]["walls"].append(res.wall_ms)
     for what, (ex, plan, inputs) in runs_of.items():
         r = out[what]
         r["trace"] = traced_run(torch, lambda: ex.execute(plan, inputs))
         r["median_ms"] = float(np.median(r["walls"]))
+        r["execute_median_ms"] = float(np.median(r["execute_ms"]))
         log(f"{what}: warm walls {r['walls']}, median {r['median_ms']!r} "
-            f"ms; traced: idle share {r['trace']['idle_share']!r} "
-            f"({r['trace']['busy_ms']!r} busy of {r['trace']['wall_ms']!r} "
-            f"ms), top {r['trace']['top'][:5]}")
+            f"ms; execute() {r['execute_ms']}, median "
+            f"{r['execute_median_ms']!r} ms; traced: idle share "
+            f"{r['trace']['idle_share']!r} ({r['trace']['busy_ms']!r} busy "
+            f"of {r['trace']['wall_ms']!r} ms), top {r['trace']['top'][:5]}")
     return out
 
 
@@ -5151,21 +5210,498 @@ def plan_walls_phase(torch, runs):
                 continue
             runs_of[f"{what} {mode}"] = (
                 PlanExecutor(mode=mode, optimize=optimize), plan, inputs)
-    out = {w: {"walls": []} for w in runs_of}
-    for ex, plan, inputs in runs_of.values():
-        ex.execute(plan, inputs)
-    torch.cuda.synchronize()
-    for _ in range(runs):
-        for what, (ex, plan, inputs) in runs_of.items():
-            out[what]["walls"].append(ex.execute(plan, inputs).wall_ms)
-    for what, (ex, plan, inputs) in runs_of.items():
-        r = out[what]
-        r["trace"] = traced_run(torch, lambda: ex.execute(plan, inputs))
-        r["median_ms"] = float(np.median(r["walls"]))
-        log(f"{what}: warm walls {r['walls']}, median {r['median_ms']!r} "
-            f"ms; traced: idle share {r['trace']['idle_share']!r} "
-            f"({r['trace']['busy_ms']!r} busy of {r['trace']['wall_ms']!r} "
-            f"ms), top {r['trace']['top'][:5]}")
+    return timed_walls(torch, runs_of, runs)
+
+
+# ---- phase 12: the plan engine's feedback loop -------------------------------
+
+FEEDBACK_RUNS = 5                  # replays (and eager-launch runs) timed
+RANGE_CALLS = LAUNCH_CALLS + ("cudaMemsetAsync", "cudaMemcpyAsync")
+KERNEL_KINDS = ("Filter", "FusedSelect", "HashJoin", "HashAggregate", "Sort",
+                "TopK")            # the kinds that always launch on the card
+
+
+def static_engine():
+    """No stats store (where the package has one): the engine this
+    script's earlier checks of attempts and caps were written for."""
+    import contextlib
+    try:
+        from spark_rapids_tpu_torch.plan import stats
+    except ImportError:            # an earlier tree, for A/B runs
+        return contextlib.nullcontext()
+    return stats.scoped_store(None)
+
+
+def operator_trace(torch, fn, attempts=6):
+    """The second of two runs of `fn` (a PlanResult) in one profiler
+    session (`_traced_second_run`): per `plan.<label>` range, the launch
+    calls inside it and the card's records of their correlation ids
+    (kernels, copies, memsets), their busy ms (the union of their
+    intervals) and kernel names. CUPTI drops a session's records at
+    times: a trace is complete when every launch call inside a range has
+    its record; an incomplete one is taken again, at most `attempts`
+    times."""
+    for _ in range(attempts):
+        out = _operator_trace(torch, fn)
+        if out["complete"]:
+            break
+    return out
+
+
+def _traced_second_run(torch, fn):
+    """`fn()` twice under one torch.profiler session with
+    SPARK_RAPIDS_TORCH_TRACE=1, the second inside a `measured_run` range,
+    since CUPTI keeps no record of some of a session's first launches:
+    (the second run's result, the host events inside its range, the card's
+    records by correlation id as (start ns, end ns, name))."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    prev = os.environ.get("SPARK_RAPIDS_TORCH_TRACE")
+    os.environ["SPARK_RAPIDS_TORCH_TRACE"] = "1"
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("measured_run"):
+                res = fn()
+                torch.cuda.synchronize()
+    finally:
+        if prev is None:
+            os.environ.pop("SPARK_RAPIDS_TORCH_TRACE", None)
+        else:
+            os.environ["SPARK_RAPIDS_TORCH_TRACE"] = prev
+    dev, host = {}, []
+    for k in prof.profiler.kineto_results.events():
+        if str(k.device_type()).endswith("CUDA"):
+            dev.setdefault(k.correlation_id(), []).append(
+                (k.start_ns(), k.end_ns(), k.name()))
+        else:
+            host.append(k)
+    (span,) = [(k.start_ns(), k.end_ns()) for k in host
+               if k.name() == "measured_run"]
+    host = [k for k in host if span[0] <= k.start_ns() <= span[1]]
+    return res, host, dev
+
+
+def _operator_trace(torch, fn):
+    res, host, dev = _traced_second_run(torch, fn)
+    ranges = [(k.name()[len("plan."):], k.start_ns(), k.end_ns())
+              for k in host if k.name().startswith("plan.")]
+    calls = [(k.start_ns(), k.correlation_id()) for k in host
+             if k.name() in RANGE_CALLS]
+    ops, missing = {}, 0
+    for label, a, b in ranges:
+        corr = [c for t, c in calls if a <= t <= b]
+        recs = sorted(r for c in corr for r in dev.get(c, ()))
+        missing += sum(c not in dev for c in corr)
+        op = ops.setdefault(label, {"ranges": 0, "launches": 0,
+                                    "records": 0, "busy_ms": 0.0,
+                                    "kernels": {}})
+        op["ranges"] += 1
+        op["launches"] += len(corr)
+        op["records"] += len(recs)
+        op["busy_ms"] += busy_us([(s_ / 1e3, e_ / 1e3)
+                                  for s_, e_, _ in recs]) / 1e3
+        for _, _, name in recs:
+            short = name.split("(")[0].removeprefix("void ")[:60]
+            op["kernels"][short] = op["kernels"].get(short, 0) + 1
+    return {"res": res, "ops": ops, "missing_records": missing,
+            "complete": missing == 0 and any(o["launches"]
+                                             for o in ops.values())}
+
+
+def launch_counts():
+    """Every kernel counter, flattened, with the plain-run counters apart."""
+    c = kernel_counters()
+    plain = c.pop("plain")
+    return c, sum(v for d in plain.values() for v in d.values())
+
+
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+# capped fuzz corpus cases that run (tests/test_torch_graphs.py's): joins,
+# keyed aggregates, TopK, unions; each with its plain and edge tables
+FUZZ_GRAPH_SEEDS = (0, 4, 6, 8, 17, 18)
+
+
+def attempt_kernels(torch, fn, want=None, attempts=6):
+    """The second of two runs of `fn` (a PlanResult) in one profiler
+    session (`_traced_second_run`): the card's kernel records linked by
+    correlation id to the calls inside the `plan.capped.attempt` ranges,
+    by name, apart for kernel launches (`launched`) and graph launches
+    (`graphed`), with the number of calls of each kind. Copies and memsets are left out. A trace
+    is complete when every call has a record; an incomplete one is taken
+    again, at most `attempts` times. CUPTI also drops some of a graph's
+    records at times, which no call shows: with `want`, a trace whose
+    `graphed` records differ from it is taken again too (a replay that
+    launches other kernels never matches)."""
+    for i in range(attempts):
+        out = _attempt_kernels(torch, fn)
+        if out["complete"] and (want is None or out["graphed"] == want):
+            break
+    out["tries"] = i + 1
+    return out
+
+
+def _attempt_kernels(torch, fn):
+    res, host, dev = _traced_second_run(torch, fn)
+    spans = [(k.start_ns(), k.end_ns()) for k in host
+             if k.name() == "plan.capped.attempt"]
+    out = {"launched": {}, "graphed": {}, "kernel_calls": 0,
+           "graph_launches": 0, "missing": 0, "attempt_ranges": len(spans)}
+    for k in host:
+        name = k.name()
+        if name in LAUNCH_CALLS:
+            kind = "launched"
+            out["kernel_calls"] += 1
+        elif name in GRAPH_LAUNCH_CALLS:
+            kind = "graphed"
+            out["graph_launches"] += 1
+        else:
+            continue
+        if not any(a <= k.start_ns() <= b for a, b in spans):
+            continue
+        recs = [r[2] for r in dev.get(k.correlation_id(), [])]
+        out["missing"] += not recs
+        for r in recs:
+            if r.startswith(("Memcpy", "Memset")):
+                continue
+            short = r.split("(")[0].removeprefix("void ")[:70]
+            out[kind][short] = out[kind].get(short, 0) + 1
+    out["res"] = res
+    out["complete"] = (out["missing"] == 0 and bool(spans)
+                       and bool(out["launched"] or out["graphed"]))
+    return out
+
+
+def redraw_tables(tables, seed):
+    """Tables of the same shape and layout with other rows, on the same
+    device: each column's values drawn again from its own values, a
+    validity drawn again where the column has one."""
+    from spark_rapids_tpu_torch.columnar import Column, Table
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(tables):
+        t = tables[name]
+        cols = []
+        for c in t.columns:
+            data = c.data.cpu().numpy()
+            valid = (None if c.validity is None
+                     else rng.random(c.length) >= 0.15)
+            cols.append(Column.from_numpy(rng.choice(data, c.length),
+                                          c.dtype, valid, c.data.device))
+        out[name] = Table(cols, names=list(t.names))
+    return out
+
+
+def graph_fuzz_new_data(torch):
+    """Capped corpus cases on the card, one executor each: the case's
+    tables three times (launched, captured, replayed), then two redraws of
+    the same shape; each run bit-equal to a new executor's launched run of
+    its tables at its final caps. Returns the runs that replayed."""
+    from spark_rapids_tpu_torch.analysis import fuzz
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    from spark_rapids_tpu_torch.plan import stats
+    out = {}
+    with stats.scoped_store(None):
+        for seed in FUZZ_GRAPH_SEEDS:
+            for edge in (False, True):
+                case = fuzz.gen_case(seed, device="cpu")
+                tabs = (fuzz.edge_tables(case, device="cpu") if edge
+                        else dict(case.tables))
+                tabs = {k: t.to("cuda") for k, t in tabs.items()}
+                opt = bool(seed % 2)
+                ex = PlanExecutor(mode="capped", optimize=opt)
+                what = f"fuzz seed {seed}{' edge' if edge else ''}"
+                graphs = []
+                for tables in (tabs, tabs, tabs, redraw_tables(tabs, 1),
+                               redraw_tables(tabs, 2)):
+                    r = ex.execute(case.plan, tables)
+                    want = PlanExecutor(mode="capped", optimize=opt,
+                                        caps=dict(r.caps)).execute(
+                                            case.plan, tables)
+                    require(not want.graph, f"{what}: a new executor "
+                            "replayed")
+                    same_tables(torch, r.compact(), want.compact(),
+                                f"{what} run {len(graphs) + 1} vs a new "
+                                "executor's launched run")
+                    graphs.append(r.graph)
+                require(graphs[:3] == [False, True, True],
+                        f"{what}: graphs {graphs} ({r.graph_reason})")
+                out[what] = graphs
+    log(f"capped fuzz cases replayed over new tables of the same shape, "
+        f"each run equal to a new executor's launched run (graph per run: "
+        f"launched, captured, replayed, redraw 1, redraw 2): {out}")
+    return out
+
+
+def feedback_phase(torch, chk):
+    """Phase 12 (module docstring): tracing ranges, the stats store, the
+    resource certifier and each capped program replayed as a CUDA graph,
+    at the existing scales."""
+    from spark_rapids_tpu_torch import nds_q23, nds_q3, nds_q5, nds_q72
+    from spark_rapids_tpu_torch import nds_q74
+    from spark_rapids_tpu_torch.analysis import footprint
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    from spark_rapids_tpu_torch.plan import executor, stats
+    out = {}
+
+    # -- tracing: q72 eager, every operator in its range
+    q72_in = nds_q72.q72_inputs(N_SALES, seed=0, device="cuda")
+    with stats.scoped_store(None):
+        ex = PlanExecutor()
+        plain = ex.execute(nds_q72.q72_plan(), q72_in)
+        tr = operator_trace(torch, lambda: ex.execute(nds_q72.q72_plan(),
+                                                      q72_in))
+    res = tr["res"]
+    same_tables(torch, res.table, plain.table, "traced q72 vs untraced")
+    labels = list(res.metrics)
+    require(sorted(tr["ops"]) == sorted(labels)
+            and all(o["ranges"] == 1 for o in tr["ops"].values()),
+            f"q72 ranges {sorted(tr['ops'])} vs operators {labels}")
+    require(tr["complete"], f"q72 trace: {tr['missing_records']} launches "
+            "without their records")
+    for label, m in res.metrics.items():
+        o = tr["ops"][label]
+        require(m.kind not in KERNEL_KINDS or o["records"] > 0,
+                f"q72 {label}: no kernel linked to its range")
+    out["trace_q72"] = {lbl: {k: v for k, v in o.items()}
+                        for lbl, o in tr["ops"].items()}
+    log("q72 eager, busy ms by operator (plan.<label> ranges, records "
+        "linked by correlation id): " + ", ".join(
+            f"{lbl} {o['busy_ms']:.4f} ({o['records']} records)"
+            for lbl, o in tr["ops"].items()))
+    for lbl, o in tr["ops"].items():
+        log(f"  {lbl}: {o['busy_ms']!r} ms, kernels {o['kernels']}")
+
+    # -- the store: q3 capped escalates once, a new executor starts warm
+    inputs = nds_q3.q3_inputs(ESCALATION_ROWS, seed=0, device="cuda")
+    with stats.scoped_store(stats.StatsStore(path="")):
+        mk = lambda: PlanExecutor(mode="capped", optimize=False,  # noqa
+                                  caps=dict(ESCALATION_CAPS),
+                                  max_cap_attempts=ESCALATION_ATTEMPTS)
+        first = mk().execute(nds_q3.q3_plan(), inputs)
+        second = mk().execute(nds_q3.q3_plan(), inputs)
+    require(first.attempts > 1 and second.attempts == 1
+            and second.caps == first.caps,
+            f"q3 from the store: attempts {first.attempts} then "
+            f"{second.attempts}, caps {first.caps} then {second.caps}")
+    chk.tables("plans", second.compact().to("cpu"),
+               first.compact().to("cpu"), "q3 capped from the store")
+    out["store_q3"] = {"rows": ESCALATION_ROWS,
+                       "cold": {"attempts": first.attempts,
+                                "caps": first.caps},
+                       "warm": {"attempts": second.attempts,
+                                "caps": second.caps}}
+    log(f"q3 capped at {ESCALATION_ROWS} rows from {ESCALATION_CAPS}: "
+        f"{first.attempts} attempts to {first.caps}; a new executor under "
+        f"the same store: {second.attempts} attempt, equal table")
+    tpcds_in = nds_q3.q3_tpcds_inputs(N_SALES, seed=0, device="cuda")
+    out["store_eager"] = {}
+    for what, plan_fn, ins in (("TPC-DS q3", nds_q3.q3_tpcds_plan,
+                                tpcds_in),
+                               ("q72", nds_q72.q72_plan, q72_in)):
+        with stats.scoped_store(stats.StatsStore(path="")):
+            r1 = PlanExecutor().execute(plan_fn(), ins)
+            r2 = PlanExecutor().execute(plan_fn(), ins)
+        same_tables(torch, r2.table, r1.table, f"{what} eager, warm vs cold")
+        out["store_eager"][what] = [r1.optimizer["decision_sources"],
+                                    r2.optimizer["decision_sources"]]
+        log(f"{what} eager twice under a fresh store, equal; decision "
+            f"sources cold {r1.optimizer['decision_sources']}, warm "
+            f"{r2.optimizer['decision_sources']} (stats driven "
+            f"{r2.optimizer['stats_driven']})")
+
+    # -- the certifier and the graphs
+    q5_in = nds_q5.q5_inputs(N_SALES, seed=0, device="cuda")
+    q23_in = nds_q23.q23_inputs(N_SALES, seed=0, device="cuda")
+    str_in = {k: t.to("cuda") for k, t in nds_q3.q3_tpcds_strings_inputs(
+        N_SALES, device="cpu").items()}
+    q74_in = nds_q74.q74_inputs(device="cuda", gen=nds_q74.datagen(seed=0))
+    plans = (
+        ("q3", nds_q3.q3_plan, nds_q3.q3_inputs(N_SALES, seed=0,
+                                                device="cuda"), False, None),
+        ("TPC-DS q3", nds_q3.q3_tpcds_plan, tpcds_in, True, None),
+        ("q72", nds_q72.q72_plan, q72_in, True, None),
+        ("q5", nds_q5.q5_plan, q5_in, True, Q5_CAPS),
+        ("q23", nds_q23.q23_plan, q23_in, True, Q23_CAPS),
+        ("TPC-DS q3 strings", nds_q3.q3_tpcds_strings_plan, str_in, True,
+         None),
+        ("q74", nds_q74.q74_plan, q74_in, True, None))
+    # the plans replayed over seed 1's tables too, of the same shape
+    new_inputs = {
+        "TPC-DS q3": lambda seed: nds_q3.q3_tpcds_inputs(N_SALES, seed=seed,
+                                                         device="cuda"),
+        "q5": lambda seed: nds_q5.q5_inputs(N_SALES, seed=seed,
+                                            device="cuda"),
+        "q23": lambda seed: nds_q23.q23_inputs(N_SALES, seed=seed,
+                                               device="cuda")}
+    out["cert"], out["graphs"] = {}, {}
+    for what, plan_fn, ins, opt, caps in plans:
+        eager = PlanExecutor(optimize=opt).execute(plan_fn(), ins)
+        bad = footprint.check_observed(eager.cert, eager)
+        require(eager.cert is not None and bad is None,
+                f"{what} eager: {bad}")
+        cert = {"eager_root_rows": [eager.cert.root.rows_lo,
+                                    eager.cert.root.rows_hi],
+                "peak_bytes_hi": eager.cert.peak_bytes_hi,
+                "unbounded": len(eager.cert.unbounded)}
+        out["cert"][what] = cert
+        if what in ("TPC-DS q3 strings", "q74"):
+            log(f"{what} eager: observed rows inside the certificate "
+                f"(capped: STRING keys raise there); {cert}")
+            continue
+        store = stats.StatsStore(path="")
+
+        def make():
+            return PlanExecutor(mode="capped", optimize=opt,
+                                caps=None if caps is None else dict(caps))
+        with stats.scoped_store(store):
+            ex = make()
+            reset_kernel_counters()
+            cold = ex.execute(plan_fn(), ins)
+            torch.cuda.synchronize()
+            c_cold, p_cold = launch_counts()
+            bad = footprint.check_observed(cold.cert, cold)
+            require(bad is None, f"{what} capped: {bad}")
+            tightened = {}
+            for k, v in cold.caps.items():
+                if ":" not in k:
+                    continue
+                i = int(k.split(":")[1])
+                node = cold.plan.nodes[i]
+                b = cold.cert.by_index[i]
+                if getattr(node, k.split(":")[0]) is None \
+                        and b.rows_hi == v:
+                    tightened[node.label] = {"cap": k, "rows_hi": v}
+            cert["capped_tightened"] = tightened
+            log(f"{what}: observed rows inside the certificate on both "
+                f"tiers; caps the certified rows tightened: "
+                f"{tightened or 'none'} (caps {cold.caps})")
+            want = cold.compact()
+            require(not cold.graph and cold.attempts == 1 and p_cold == 0,
+                    f"{what} cold: graph {cold.graph}, attempts "
+                    f"{cold.attempts}, plain runs {p_cold}")
+            # the capture: the wrappers run once, inside it, and count
+            torch.cuda.synchronize()
+            mem0 = (torch.cuda.memory_reserved(),
+                    torch.cuda.memory_allocated())
+            reset_kernel_counters()
+            warm = ex.execute(plan_fn(), ins)
+            torch.cuda.synchronize()
+            mem1 = (torch.cuda.memory_reserved(),
+                    torch.cuda.memory_allocated())
+            c, p = launch_counts()
+            require(warm.graph and warm.attempts == 1 and p == 0
+                    and c == c_cold,
+                    f"{what} capture: graph {warm.graph} "
+                    f"({warm.graph_reason}), attempts {warm.attempts}, "
+                    f"plain {p}, launches {c} vs cold {c_cold}")
+            same_tables(torch, warm.compact(), want,
+                        f"{what} captured run vs its launched run")
+            # the replays run no wrapper: no launch from Python
+            replays = []
+            for i in range(FEEDBACK_RUNS):
+                reset_kernel_counters()
+                n0 = executor.GRAPH_COUNTS["replays"]
+                r = ex.execute(plan_fn(), ins)
+                torch.cuda.synchronize()
+                c, p = launch_counts()
+                require(r.graph and r.attempts == 1 and p == 0
+                        and counted(c) == 0
+                        and executor.GRAPH_COUNTS["replays"] == n0 + 1,
+                        f"{what} replay {i + 1}: graph {r.graph} "
+                        f"({r.graph_reason}), attempts {r.attempts}, plain "
+                        f"{p}, launches from Python {c}")
+                same_tables(torch, r.compact(), want,
+                            f"{what} replay {i + 1} vs its launched run")
+                replays.append(r)
+            # what a replay launches, from the trace: the kernels the
+            # launched run launched, each as often, all from one graph
+            # launch inside the attempt's range
+            k_launch = attempt_kernels(torch, lambda: make().execute(
+                plan_fn(), ins))
+            k_replay = attempt_kernels(torch, lambda: ex.execute(
+                plan_fn(), ins), want=k_launch["launched"])
+            require(k_launch["complete"] and k_replay["complete"]
+                    and not k_launch["res"].graph and k_replay["res"].graph
+                    and k_launch["launched"] and not k_launch["graphed"]
+                    and k_replay["graph_launches"] == 1
+                    and not k_replay["launched"]
+                    and k_replay["graphed"] == k_launch["launched"],
+                    f"{what}: a replay's kernels "
+                    f"{ {k: v for k, v in k_replay.items() if k != 'res'} } "
+                    f"vs a launched run's "
+                    f"{ {k: v for k, v in k_launch.items() if k != 'res'} }")
+            same_tables(torch, k_replay["res"].compact(), want,
+                        f"{what} traced replay vs its launched run")
+            launch_walls = []
+            for _ in range(FEEDBACK_RUNS):
+                e = make().execute(plan_fn(), ins)
+                require(not e.graph and e.attempts == 1,
+                        f"{what}: a new executor's run replayed")
+                same_tables(torch, e.compact(), want,
+                            f"{what} launched by a new executor")
+                launch_walls.append(e.wall_ms)
+            t_replay = traced_run(torch, lambda: ex.execute(plan_fn(), ins))
+            t_launch = traced_run(torch, lambda: make().execute(plan_fn(),
+                                                                ins))
+            new_data = None
+            if what in new_inputs:
+                # other tables of the same shape replay the same graph
+                ins1 = new_inputs[what](1)
+                r1 = ex.execute(plan_fn(), ins1)
+                with stats.scoped_store(None):
+                    w1 = PlanExecutor(mode="capped", optimize=opt,
+                                      caps=dict(r1.caps)).execute(
+                                          plan_fn(), ins1)
+                require(r1.graph and not w1.graph,
+                        f"{what} seed 1: graph {r1.graph} "
+                        f"({r1.graph_reason})")
+                same_tables(torch, r1.compact(), w1.compact(),
+                            f"{what} seed 1 replayed vs launched")
+                r0 = ex.execute(plan_fn(), ins)
+                require(r0.graph, f"{what} seed 0 again: {r0.graph_reason}")
+                same_tables(torch, r0.compact(), want,
+                            f"{what} seed 0 after seed 1, replayed")
+                new_data = {"seed1_rows": r1.compact().num_rows,
+                            "seed0_rows": want.num_rows,
+                            "replayed_ms": r1.wall_ms,
+                            "launched_ms": w1.wall_ms}
+                del ins1
+        require(t_replay["sync_calls"] <= t_replay["attempts"] + 1
+                and t_replay["dtoh_copies"] <= t_replay["attempts"] + 1,
+                f"{what}: a replayed run's host reads {t_replay}")
+        replay_walls = [r.wall_ms for r in replays]
+        g = {"cold_ms": cold.wall_ms, "capture_ms": warm.wall_ms,
+             "replay_walls": replay_walls,
+             "launch_walls": launch_walls,
+             "replay_median_ms": float(np.median(replay_walls)),
+             "launch_median_ms": float(np.median(launch_walls)),
+             "capture_reserved_bytes": mem1[0] - mem0[0],
+             "capture_allocated_bytes": mem1[1] - mem0[1],
+             "replay_trace": t_replay, "launch_trace": t_launch,
+             "launches": c_cold,
+             "replay_kernels": k_replay["graphed"],
+             "trace_tries": [k_launch["tries"], k_replay["tries"]],
+             "new_data": new_data}
+        out["graphs"][what] = g
+        log(f"{what} capped: cold {cold.wall_ms!r} ms (launched), capture "
+            f"{warm.wall_ms!r} (captured, replayed once), replays "
+            f"{g['replay_walls']} median {g['replay_median_ms']!r}; "
+            f"launched by a new executor {launch_walls} median "
+            f"{g['launch_median_ms']!r}; idle share replayed "
+            f"{t_replay['idle_share']!r} ({t_replay['busy_ms']!r} busy of "
+            f"{t_replay['wall_ms']!r} ms), launched "
+            f"{t_launch['idle_share']!r} ({t_launch['busy_ms']!r} of "
+            f"{t_launch['wall_ms']!r}); host reads replayed "
+            f"{t_replay['sync_calls']} syncs, {t_replay['dtoh_copies']} "
+            f"copies; the capture reserved {g['capture_reserved_bytes']} "
+            f"bytes (allocated {g['capture_allocated_bytes']}); a replay's "
+            f"kernels from the trace, all in one graph launch and equal to "
+            f"the launched run's: {k_replay['graphed']}; new tables: "
+            f"{new_data}")
+        del ex
+    out["fuzz_new_data"] = graph_fuzz_new_data(torch)
     return out
 
 
@@ -6324,12 +6860,32 @@ def main(argv=None):
                          "inventory join and the capped TopK at k = 50, 100 "
                          "and 4,099 (device ms by kernel, one call); runs "
                          "from an earlier tree's root too, for A/B runs")
+    ap.add_argument("--feedback", action="store_true",
+                    help="only run phase 12: the tracing ranges, the stats "
+                         "store, the certifier and the capped programs' "
+                         "CUDA graphs")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
                          "earlier tree's root too")
+    ap.add_argument("--tree", default="", metavar="DIR",
+                    help="with --plan-walls or --union-walls: import the "
+                         "port from the checkout at DIR (an earlier tree, "
+                         "for A/B runs by this script's code)")
     args = ap.parse_args(argv)
+    walls = bool(args.plan_walls or args.union_walls)
+    if args.tree:
+        if not walls:
+            ap.error("--tree goes with --plan-walls or --union-walls")
+        sys.path.insert(0, os.path.abspath(args.tree))
+    # the walls run as a user runs the port: its default stats store on
+    # where the tree has one; every other phase without one
+    import contextlib
+    with contextlib.nullcontext() if walls else static_engine():
+        return _run(args)
 
+
+def _run(args):
     import torch
     smi = device_phase(torch)
     from spark_rapids_tpu_torch import nds_q3
@@ -6341,23 +6897,23 @@ def main(argv=None):
                           "walls": walls_phase(torch, args.walls)}),
               flush=True)
         return 0
-    if args.plan_walls or args.groupby_ab or args.capped_kernels:
+    if (args.plan_walls or args.union_walls or args.groupby_ab
+            or args.capped_kernels):
+        import spark_rapids_tpu_torch
         from spark_rapids_tpu_torch.ops import cuda_build
         cuda_build.build()
-        out = {"card": smi}
+        out = {"card": smi, "package": os.path.dirname(
+            spark_rapids_tpu_torch.__file__)}
+        log(f"the port from {out['package']}")
         if args.capped_kernels:
             out["capped_kernels"] = capped_kernels_phase(torch)
         if args.groupby_ab:
             out["groupby_ab"] = groupby_ab_phase(torch)
         if args.plan_walls:
             out["plan_walls"] = plan_walls_phase(torch, args.plan_walls)
+        if args.union_walls:
+            out["union_walls"] = union_walls_phase(torch, args.union_walls)
         print(json.dumps(out), flush=True)
-        return 0
-    if args.union_walls:
-        from spark_rapids_tpu_torch.ops import cuda_build
-        cuda_build.build()
-        print(json.dumps({"card": smi, "union_walls": union_walls_phase(
-            torch, args.union_walls)}), flush=True)
         return 0
     if args.select_topk:
         from spark_rapids_tpu_torch.ops import cuda_build
@@ -6376,6 +6932,12 @@ def main(argv=None):
               flush=True)
         return 0
     dadd = build_phase()
+    if args.feedback:
+        chk = Checks()
+        fb = feedback_phase(torch, chk)
+        print(json.dumps({"card": smi, "feedback": fb, "checks": chk.n},
+                         default=str), flush=True)
+        return 0
     if args.fuzz:
         chk = Checks()
         fz = fuzz_phase(torch, chk)
@@ -6438,6 +7000,7 @@ def main(argv=None):
     rconv = row_conversion_phase(torch, chk)
     keys = keys_phase(torch, chk)
     keys["max_err"] = chk.max_err
+    feedback = feedback_phase(torch, chk)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -6733,7 +7296,8 @@ def main(argv=None):
                        "c4": c4, "groupby": gb, "capped": capped,
                        "nds_q5_q23": nds_union, "decimal128": dec,
                        "fuzz": fz, "customer_hash": cust,
-                       "row_conversion": rconv, "keys": keys},
+                       "row_conversion": rconv, "keys": keys,
+                       "feedback": feedback},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

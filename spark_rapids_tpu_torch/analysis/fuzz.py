@@ -10,18 +10,27 @@ the same seed gives the same plan, with the JAX package's
 case's tables with edge values and nulls from a numpy generator of the
 seed, so a case runs over the same bytes in both packages.
 
-`run_case` checks the reference's properties 1-3:
+`run_case` checks the reference's properties 1-5:
 
 1. the authored plan verifies (schema, typing and pruning layers);
 2. the optimizer's rewrite (`verify_rules=True`) does not fall back and
    passes `verify_rewrite`;
 3. the optimized and unoptimized eager runs agree bit for bit, compacted
-   row for row, and an error raises with the same class in both.
+   row for row, and an error raises with the same class in both (with no
+   stats store: these measure the static engine);
+4. `adaptive_parity`: the optimized plan run twice under a fresh
+   `StatsStore(capacity=32, path="")` (the first run records, the second
+   reads observed rows, caps and timings) agrees bit for bit, error class
+   included;
+5. `cert_sound`: the resource certifier is monotone (the optimized plan's
+   root bounds are at most the authored plan's) and sound: every
+   successful run (unoptimized, optimized, cold, warm, and one capped run
+   of the optimized plan) stays inside the certificate of the plan it
+   executed (`footprint.check_observed`: rows on both tiers, eager bytes).
 
-Properties 4-6 (cold and warm runs under the stats store, the resource
-certifier's bounds, placement on and off) need modules the port has not
-yet: `FuzzResult` gives each as None and `NOT_CHECKED` names the ROADMAP
-queue A item that ports it; they never count as passed.
+Property 6 (placement on and off) needs the placement rule, which the
+port has not yet: `FuzzResult` gives it as None and `NOT_CHECKED` names
+the ROADMAP queue A item that ports it; it never counts as passed.
 
 From the shell: `python -m spark_rapids_tpu_torch.analysis.fuzz --start S
 --count N [--max-ops K] [--no-exec] [--device cpu|cuda]`. Like every entry
@@ -52,10 +61,9 @@ ALL_KINDS = ("Scan", "Filter", "Project", "FusedSelect", "HashJoin",
 _GLOBAL_AGGS = ("sum", "count", "size")      # empty-relation-safe
 _KEYED_AGGS = ("sum", "count", "min", "max", "mean", "size")
 
-# the reference's properties 4-6 and the ROADMAP item that ports each
+# the reference's property the port does not check yet, and the ROADMAP
+# item that ports it
 NOT_CHECKED = {
-    "adaptive_parity": "property 4, queue A item 11 (plan/stats.py)",
-    "cert_sound": "property 5, queue A item 11 (analysis/footprint.py)",
     "placement_parity": "property 6, queue A item 14 (the placement rule)",
 }
 
@@ -75,8 +83,6 @@ class FuzzResult:
     optimized_verified: bool = True
     executed: bool = False
     parity: Optional[bool] = None
-    # properties 4-6: not checked in the port yet; `not_checked` names the
-    # item that ports each
     adaptive_parity: Optional[bool] = None
     cert_sound: Optional[bool] = None
     placement_parity: Optional[bool] = None
@@ -87,7 +93,9 @@ class FuzzResult:
     @property
     def ok(self) -> bool:
         return (self.verified and self.optimized_verified
-                and self.error is None and self.parity is not False)
+                and self.error is None and self.parity is not False
+                and self.adaptive_parity is not False
+                and self.cert_sound is not False)
 
 
 # ---- deterministic relation and expression generation ----------------------
@@ -354,17 +362,25 @@ def edge_tables(case: FuzzCase, *, device=None) -> Dict[str, object]:
 
 # ---- properties -------------------------------------------------------------
 
-def execute_case(case: FuzzCase, tables=None, *, mode: str = "eager",
-                 optimize: bool = False, device=None):
-    """One run of the case's plan over `tables` (default `case.tables`):
-    ("ok", compacted Table) or ("err", the exception's class name)."""
+def _run(case: FuzzCase, tables=None, *, mode: str = "eager",
+         optimize: bool = False, device=None):
+    """One run of the case's plan: (("ok", compacted Table) or ("err", the
+    exception's class name), the PlanResult or None)."""
     from ..plan.executor import PlanExecutor
     ex = PlanExecutor(mode=mode, optimize=optimize, device=device)
     try:
         r = ex.execute(case.plan, dict(tables or case.tables))
-        return "ok", r.compact()
+        return ("ok", r.compact()), r
     except Exception as e:          # parity includes error parity
-        return "err", type(e).__name__
+        return ("err", type(e).__name__), None
+
+
+def execute_case(case: FuzzCase, tables=None, *, mode: str = "eager",
+                 optimize: bool = False, device=None):
+    """One run of the case's plan over `tables` (default `case.tables`):
+    ("ok", compacted Table) or ("err", the exception's class name)."""
+    return _run(case, tables, mode=mode, optimize=optimize,
+                device=device)[0]
 
 
 def _outcome(run) -> tuple:
@@ -381,10 +397,51 @@ def _outcome(run) -> tuple:
     return status, tuple(cols)
 
 
+def _cert_kw(case: FuzzCase, bound) -> Dict:
+    from .footprint import table_metadata
+    input_dtypes, input_nullable = table_metadata(case.tables)
+    return dict(bound=bound,
+                bound_rows={n: t.num_rows for n, t in case.tables.items()},
+                input_dtypes=input_dtypes, input_nullable=input_nullable)
+
+
+def _cert_monotonicity(case: FuzzCase, opt, bound) -> Optional[str]:
+    """Property 5's rewrite half: the optimized plan's certified root
+    bounds are at most the authored plan's (a looser proof is a rule or
+    certifier bug, even where the results agree)."""
+    from .footprint import certify
+    kw = _cert_kw(case, bound)
+    a = certify(case.plan, **kw).root
+    o = certify(opt, **kw).root
+    if a.rows_hi is not None and (
+            o.rows_hi is None or o.rows_hi > a.rows_hi):
+        return (f"optimized root rows hi {o.rows_hi} exceeds authored "
+                f"{a.rows_hi}")
+    if a.out_bytes_hi is not None and (
+            o.out_bytes_hi is None or o.out_bytes_hi > a.out_bytes_hi):
+        return (f"optimized root bytes hi {o.out_bytes_hi} exceeds "
+                f"authored {a.out_bytes_hi}")
+    return None
+
+
+def _cert_soundness(case: FuzzCase, results, bound) -> Optional[str]:
+    """Property 5's run half: each successful run inside the certificate
+    of the plan it executed (the single inequality of
+    `footprint.check_observed`)."""
+    from .footprint import certify, check_observed
+    kw = _cert_kw(case, bound)
+    for r in results:
+        bad = check_observed(certify(r.plan, **kw), r)
+        if bad is not None:
+            return f"{r.mode}: {bad}"
+    return None
+
+
 def run_case(case: FuzzCase, *, execute: bool = True,
              device=None) -> FuzzResult:
-    """Check properties 1-3 on one case. A property failure is carried by
+    """Check properties 1-5 on one case. A property failure is carried by
     the result, never raised; only a generator bug raises."""
+    from ..plan import stats as stats_mod
     from ..plan.executor import _input_has_floats
     from ..plan.optimizer import optimize
     from .verifier import verify, verify_rewrite
@@ -417,16 +474,51 @@ def run_case(case: FuzzCase, *, execute: bool = True,
         res.error = f"optimized plan failed verify: {rep.violations[0]}"
         return res
 
+    mono = _cert_monotonicity(case, opt, bound)
+    if mono is not None:
+        res.cert_sound = False
+        res.error = f"cert monotonicity broke: {mono}"
+        return res
+    res.cert_sound = True
+
     if not execute:
         return res
     res.executed = True
-    outs = {opt_on: _outcome(execute_case(case, optimize=opt_on,
-                                          device=device))
-            for opt_on in (False, True)}
+    done = []                   # successful PlanResults for property 5
+    # properties 1-3 measure the static engine: no store, or an earlier
+    # case's observations would warm this one
+    with stats_mod.scoped_store(None):
+        outs = {}
+        for opt_on in (False, True):
+            run, r = _run(case, optimize=opt_on, device=device)
+            outs[opt_on] = _outcome(run)
+            done += [r] if r is not None else []
+        _, r = _run(case, mode="capped", optimize=True, device=device)
+        done += [r] if r is not None else []
     res.parity = outs[False] == outs[True]
     if not res.parity:
         res.error = (f"eager parity broke: unoptimized={outs[False][:1]!r} "
                      f"optimized={outs[True][:1]!r}")
+        return res
+
+    # property 4: cold then warm under a fresh store (path="": never the
+    # persisted file of SPARK_RAPIDS_TORCH_STATS_PATH)
+    runs = []
+    with stats_mod.scoped_store(stats_mod.StatsStore(capacity=32, path="")):
+        for _ in range(2):
+            run, r = _run(case, optimize=True, device=device)
+            runs.append(_outcome(run))
+            done += [r] if r is not None else []
+    res.adaptive_parity = runs[0] == runs[1]
+    if not res.adaptive_parity:
+        res.error = (f"adaptive parity broke: cold={runs[0][:1]!r} "
+                     f"warm={runs[1][:1]!r}")
+        return res
+
+    bad = _cert_soundness(case, done, bound)
+    if bad is not None:
+        res.cert_sound = False
+        res.error = f"cert soundness broke: {bad}"
     return res
 
 

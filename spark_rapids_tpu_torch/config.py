@@ -5,6 +5,13 @@
 | SPARK_RAPIDS_TORCH_KERNELS  | —       | kernel-registry overrides, `op=name` pairs (e.g. `hash_join=cuda`; ops/registry.py) |
 | SPARK_RAPIDS_TORCH_OPTIMIZER | on     | rule-based plan optimizer (plan/optimizer.py): on/off |
 | SPARK_RAPIDS_TORCH_VERIFY_PLANS | 0    | static plan verifier gate (analysis/verifier.py): 1 verifies every plan before it runs and every optimizer rule's output; 0, 1, on or off |
+| SPARK_RAPIDS_TORCH_TRACE    | —       | 1 opens the tracing ranges (utils/tracing.py): `plan.<label>` per eager operator, `plan.capped.attempt` per capped attempt |
+| SPARK_RAPIDS_TORCH_STATS    | on      | the stats store (plan/stats.py): on/off |
+| SPARK_RAPIDS_TORCH_STATS_CAPACITY | 256 | the store's plan entries (its side tables scale from it) |
+| SPARK_RAPIDS_TORCH_STATS_PATH | —     | JSONL file the default store replays and appends to |
+| SPARK_RAPIDS_TORCH_CERT_SEED | on     | with a store, the capped tier tightens its starting caps to the certified rows and ceilings its ladder there (analysis/footprint.py): on/off |
+| SPARK_RAPIDS_TORCH_CERT_BUDGET_BYTES | 0 | admission budget for a plan's certified residency; 0 is off |
+| SPARK_RAPIDS_TORCH_CERT_ADMISSION | reject | over the budget: reject raises ResourceAdmissionError; degrade (the CPU tier, ROADMAP queue A item 10) raises NotImplementedError |
 """
 from __future__ import annotations
 
@@ -54,3 +61,73 @@ def verify_plans() -> bool:
             f"SPARK_RAPIDS_TORCH_VERIFY_PLANS={v!r}: expected 0, 1, on, "
             "or off")
     return v in ("1", "on")
+
+
+def _int_env(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _on_off(name: str, default: str) -> bool:
+    v = os.environ.get(name, default)
+    if v not in ("on", "off"):
+        raise ValueError(f"{name}={v!r}: expected on or off")
+    return v == "on"
+
+
+def trace_enabled() -> bool:
+    """Tracing ranges (utils/tracing.py): on only at exactly "1", as the
+    reference's SPARK_RAPIDS_TPU_TRACE."""
+    return os.environ.get("SPARK_RAPIDS_TORCH_TRACE", "") == "1"
+
+
+def stats_enabled() -> bool:
+    """The stats store (plan/stats.py): when on, every successful
+    execution records what it observed and the optimizer, the capped
+    tier and the kernel registry consult it on the next execution of the
+    same plan. "off" restores the static decisions. A typo raises."""
+    return _on_off("SPARK_RAPIDS_TORCH_STATS", "on")
+
+
+def stats_capacity() -> int:
+    """The store's plan entries kept before the least recent is dropped;
+    the subtree and kernel tables scale from it. Read when a store is
+    made."""
+    return max(1, _int_env("SPARK_RAPIDS_TORCH_STATS_CAPACITY", 256))
+
+
+def stats_path() -> str:
+    """JSONL persistence for the stats store: a store made without an
+    explicit path replays this file and appends a line per execution.
+    Empty (the default) keeps the store in memory."""
+    return os.environ.get("SPARK_RAPIDS_TORCH_STATS_PATH", "")
+
+
+def cert_seed() -> bool:
+    """Capped tier, with a stats store only: tighten the starting caps to
+    the resource certifier's rows hi-bound and put a ceiling on the
+    escalation ladder there (analysis/footprint.py). A typo raises."""
+    return _on_off("SPARK_RAPIDS_TORCH_CERT_SEED", "on")
+
+
+def cert_budget_bytes() -> int:
+    """Admission budget (analysis/footprint.py): when non-zero,
+    `PlanExecutor.execute()` compares every operator's certified
+    residency with it before anything runs and applies
+    `cert_admission()`. 0 (default) is off."""
+    return max(0, _int_env("SPARK_RAPIDS_TORCH_CERT_BUDGET_BYTES", 0))
+
+
+def cert_admission() -> str:
+    """The policy over the budget: "reject" raises ResourceAdmissionError
+    naming the operator; "degrade" would finish the plan on the CPU tier,
+    which is ROADMAP queue A item 10's, so the executor raises
+    NotImplementedError for it. A typo raises ValueError."""
+    v = os.environ.get("SPARK_RAPIDS_TORCH_CERT_ADMISSION", "reject")
+    if v not in ("reject", "degrade"):
+        raise ValueError(
+            f"SPARK_RAPIDS_TORCH_CERT_ADMISSION={v!r}: expected reject or "
+            "degrade")
+    return v

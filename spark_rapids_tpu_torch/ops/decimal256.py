@@ -35,8 +35,10 @@ _TABLES: Dict[torch.device, torch.Tensor] = {}
 
 # ---- host helpers -----------------------------------------------------------
 
-def from_int(values: Sequence[int], device="cpu") -> torch.Tensor:
-    """Python ints -> (n, 8) limbs, two's complement mod 2^256."""
+def from_int(values: Sequence[int], device) -> torch.Tensor:
+    """Python ints -> (n, 8) limbs on `device`, two's complement mod
+    2^256. The device has no default: no helper builds its limbs on the
+    host unasked."""
     rows = []
     for v in values:
         u = int(v) & ((1 << 256) - 1)

@@ -17,8 +17,18 @@ decline rules:
   NAME raises.
 
 The backend is the device type of the tensors the operator runs on
-("cuda" or "cpu"); the caller passes it. The stats-store consult of the
-reference waits for the port of `plan/stats.py`.
+("cuda" or "cpu"); the caller passes it.
+
+With a stats store active (plan/stats.py), `select()` also reads observed
+timings, as the reference's does: a candidate that has timed slower than
+the fallback past the store's hysteresis margin on this exact (op,
+backend, signature) is declined with the numbers, and `stats_demoted` is
+stamped on the choice; a forced override outranks the demotion. On
+"cuda" the fallback is not a route (the plain versions never run on the
+card), so the store never demotes a CUDA kernel: the demotion runs on the
+CPU backend only. The capped tier's program cache keys on the store's
+`kernel_epoch`, so a cached program never serves a pick that a demotion
+changed.
 """
 from __future__ import annotations
 
@@ -82,6 +92,7 @@ class KernelChoice:
     fn: Optional[Callable]
     fallback: bool
     declined: Tuple[Tuple[str, str], ...] = ()
+    stats_demoted: bool = False    # a better-ranked kernel lost on timings
 
     @property
     def label(self) -> str:
@@ -156,10 +167,28 @@ class KernelRegistry:
             self._ov_validated = key
         return ov
 
+    @staticmethod
+    def _stats_verdict(op: str, backend: str, name: str,
+                       fallback_name: str, sig: Optional[Signature]):
+        """The store's (candidate, fallback) ms per 1,000 rows when the
+        candidate timed slower than the fallback past the margin on this
+        signature; None when cold, off, on "cuda" (no plain route there)
+        or when the candidate holds up."""
+        if sig is None or backend == "cuda":
+            return None
+        from ..plan import stats as _stats
+        store = _stats.active_store()
+        if store is None:
+            return None
+        return store.kernel_slower(backend, op, sig, name, fallback_name)
+
     def select(self, op: str, sig: Optional[Signature],
                backend: str) -> KernelChoice:
         """Resolve `op` for `backend` ("cuda"/"cpu") and `sig`. Never raises
-        on signatures; raises only on unknown op/override names."""
+        on signatures; raises only on unknown op/override names. With a
+        stats store, a candidate that timed slower than the fallback on
+        this signature is demoted (not on "cuda"); a forced override
+        outranks the demotion."""
         self._ensure(op)
         ks = self._ops[op]
         fb = next((k for k in ks if k.fallback), None)
@@ -186,13 +215,25 @@ class KernelRegistry:
             return KernelChoice(op, fb.name, fb.fn, True, tuple(declined))
         # auto: backend-exact non-fallbacks, then universal non-fallbacks,
         # then the fallback; registration order within a rank
+        demoted = False
         for rank in (lambda k: not k.fallback and backend in k.backends,
                      lambda k: not k.fallback and "*" in k.backends):
             for k in ks:
                 if rank(k) and ok(k):
+                    verdict = self._stats_verdict(op, backend, k.name,
+                                                  fb.name, sig)
+                    if verdict is not None:
+                        declined.append(
+                            (k.name,
+                             "stats: benched %.4g ms/1k rows vs fallback "
+                             "%.4g on this signature" % verdict))
+                        demoted = True
+                        continue
                     return KernelChoice(op, k.name, k.fn, k.fallback,
-                                        tuple(declined))
-        return KernelChoice(op, fb.name, fb.fn, True, tuple(declined))
+                                        tuple(declined),
+                                        stats_demoted=demoted)
+        return KernelChoice(op, fb.name, fb.fn, True, tuple(declined),
+                            stats_demoted=demoted)
 
 
 REGISTRY = KernelRegistry()

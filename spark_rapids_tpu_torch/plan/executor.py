@@ -23,10 +23,36 @@ Counterpart of `spark_rapids_tpu/plan/executor.py`.
   `PlanResult.table` is then padded and `valid` marks its live rows;
   `compact()` gathers them. Caps start at the largest input's rows (or a
   node's own `row_cap`/`key_cap`), floored by the caps memo, which keeps
-  the grown caps per plan fingerprint. The program cache, keyed as the
-  reference's `_jitted_capped` (fingerprint, caps, input names and shapes,
-  device type and kernel overrides), holds each program's lowering: the
-  kernel chosen per node and the bytes of its padded output.
+  the grown caps per plan fingerprint, and by the stats store's observed
+  caps of the authored plan; with a store and SPARK_RAPIDS_TORCH_CERT_SEED
+  on, the resource certifier's `rows_hi` then tightens them and puts a
+  ceiling on the ladder (`_cert_caps`). The program cache, keyed as the
+  reference's `_jitted_capped` (fingerprint, caps, input names, shapes and
+  column layout, device type, kernel overrides and the store's kernel
+  epoch), holds each program: the kernel chosen per node, the bytes of
+  its padded output and, on the card, its CUDA graph.
+
+  The CUDA graph is the port's counterpart of the reference's one
+  compiled program per plan (`jax.jit` of `_run_capped`). A program's
+  first run launches every kernel from Python under
+  `torch.cuda.set_sync_debug_mode("error")`, which loads every library
+  and kernel outside a capture and proves that the attempt reads nothing
+  of the device. Its second run captures `_run_capped` into a
+  `torch.cuda.CUDAGraph` over static input buffers (copies of the
+  inputs) and replays it; every later run copies its inputs into those
+  buffers on the card and replays. The outputs (the padded table,
+  `alive`, the per-node counts, the overflow flag) are copied out of the
+  graph's pool before the result takes them. An executor's graphs share
+  one memory pool and one capture stream. A replay runs no kernel
+  wrapper, so the kernels' launch counters count the capture's calls
+  and not the replays; `GRAPH_COUNTS` counts captures and replays. An
+  overflow grows the caps, so the next attempt is another program. The
+  CPU has no graphs, and a plan whose scans give a STRING or nested
+  column is not captured (`gather._spans` reads the char total on the
+  host); nor is a program whose capture failed. Such a program runs
+  every kernel on the card as the first run does, without the sync
+  check, and `PlanResult.graph` is False with `graph_reason` saying
+  why.
 
 HashJoin, FusedSelect and TopK consult the kernel registry
 (`ops/registry.py`) with the executor's device type as the backend and
@@ -51,6 +77,21 @@ capped tier cannot order strings either.
 none; `device="cpu"` runs on the CPU. The scan inputs move to the device
 once, at `execute()`.
 
+The feedback loop, as the reference's (plan/stats.py): after every
+successful run the result is recorded in the active stats store under
+the backend it ran on ("cuda" or "cpu"; a CPU run never seeds the card),
+and the optimizer reads the store's observed rows (a stats-driven rewrite
+passes `verify_rewrite`, or the static pipeline reruns and the report
+says `stats_reverted`). The resource certifier (analysis/footprint.py)
+certifies the plan about to run, once per (plan, binding), stamps it on
+`PlanResult.cert`, and gates admission when SPARK_RAPIDS_TORCH_CERT_
+BUDGET_BYTES (or `cert_budget=`) is set: "reject" raises
+`ResourceAdmissionError` before anything runs; "degrade" raises
+NotImplementedError, since the CPU tier it would run is ROADMAP queue A
+item 10's. With SPARK_RAPIDS_TORCH_TRACE=1 every eager operator runs in
+a `plan.<label>` range and every capped attempt in `plan.capped.attempt`
+(utils/tracing.py).
+
 The rule-based optimizer (`plan/optimizer.py`) runs first, by default
 (`optimize=None` reads SPARK_RAPIDS_TORCH_OPTIMIZER), once per (plan,
 binding); `PlanResult.optimizer` holds its report. With
@@ -59,12 +100,12 @@ rule's output and `_verify_execution` runs the static verifier
 (`analysis/verifier.py`) on the plan about to run, as the reference's
 gate does. Every node kind runs in both tiers; an `Exchange` returns its
 child, as the reference's does on one device. Streaming scans,
-placement, the stats store and its cap seeding, the resource certifier's
-caps, the health breaker, fault injection, the mesh lowering and the
+placement, the health breaker, fault injection, the mesh lowering and the
 degraded CPU tier wait for later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple, Union as TUnion
 
@@ -73,6 +114,8 @@ import torch
 from .. import config, dtypes
 from .. import device as _device
 from ..columnar import Column, Table
+from ..utils import tracing
+from ..utils.lru import LruDict
 from ..ops import (aggregate, copying, gather, groupby_cuda, join, select,
                    sort, topk)
 from ..ops.aggregate import _agg_value_dtype
@@ -80,6 +123,7 @@ from ..ops.registry import REGISTRY, KernelDeclinedError
 from ..parallel.autoretry import auto_retry_overflow
 from .builder import Plan
 from .expr import ColumnRef, _reduce_identity
+from . import stats as stats_mod
 from .metrics import OperatorMetrics, render_profile
 from .nodes import (Exchange, Filter, FusedSelect, HashAggregate, HashJoin,
                     Limit, PlanNode, PlanValidationError, Project, Scan, Sort,
@@ -102,13 +146,6 @@ def _check_capped_keys(cols) -> None:
                 "reference's Column.max_string_length under jit)")
 
 
-def _bounded_put(cache: Dict, key, value, size: int) -> None:
-    """cache[key] = value, dropping the oldest entry past `size`."""
-    if key not in cache and len(cache) >= size:
-        cache.pop(next(iter(cache)))
-    cache[key] = value
-
-
 class PlanResult:
     """Output of one plan execution: the executed `plan` (the optimized
     form when the optimizer ran; metric labels refer to its nodes), the
@@ -119,14 +156,18 @@ class PlanResult:
     In the capped tier `table` is padded and `valid` marks its live rows
     (`compact()` gathers them); `attempts` counts the cap-escalation
     attempts, `caps` holds the final (possibly grown) capacities and
-    `jit_cache_hits` the program-cache reuses of this execute."""
+    `jit_cache_hits` the program-cache reuses of this execute; `graph`
+    whether its last attempt replayed a CUDA graph, and `graph_reason` why
+    not. `cert` is the resource certifier's certificate of the executed
+    plan (None where the certifier declined)."""
 
     def __init__(self, plan: Plan, table: Table,
                  metrics: Dict[str, OperatorMetrics], wall_ms: float,
                  device: torch.device, valid: Optional[torch.Tensor] = None,
                  mode: str = "eager", attempts: int = 1,
                  caps: Optional[Dict[str, int]] = None,
-                 jit_cache_hits: int = 0):
+                 jit_cache_hits: int = 0, graph: bool = False,
+                 graph_reason: str = "the eager tier has no program"):
         self.plan = plan
         self.table = table
         self.valid = valid
@@ -137,7 +178,10 @@ class PlanResult:
         self.attempts = attempts
         self.caps = caps
         self.jit_cache_hits = jit_cache_hits
+        self.graph = graph
+        self.graph_reason = "" if graph else graph_reason
         self.optimizer: Optional[Dict] = None
+        self.cert = None
 
     def compact(self) -> Table:
         """The live rows only (the table itself in the eager tier). Reads
@@ -157,7 +201,8 @@ class PlanResult:
                               device=str(self.device),
                               optimizer=self.optimizer,
                               attempts=self.attempts, caps=self.caps,
-                              jit_cache_hits=self.jit_cache_hits)
+                              jit_cache_hits=self.jit_cache_hits,
+                              cert=self.cert, graph=self.graph)
 
 
 class _CappedRel:
@@ -172,16 +217,73 @@ class _CappedRel:
 
 
 class _CappedProgram:
-    """The lowering of one capped program, filled at its first run and
-    reused by every run that hits the program cache: the kernel choice per
-    node (toposort index -> KernelChoice) and the bytes of each node's
-    padded output."""
+    """One capped program, filled at its first run and reused by every run
+    that hits the program cache: the kernel choice per node (toposort
+    index -> KernelChoice), the bytes of each node's padded output, and on
+    the card its CUDA graph (module docstring): `runs` counts its runs,
+    `reason` is why it is never captured ("" when it may be), `graph` the
+    captured graph with its static inputs and outputs."""
 
-    __slots__ = ("kernels", "bytes_out")
+    __slots__ = ("kernels", "bytes_out", "runs", "reason", "graph",
+                 "static_in", "static_out")
 
-    def __init__(self):
+    def __init__(self, reason: str = ""):
         self.kernels: Dict[int, object] = {}
         self.bytes_out: Dict[int, int] = {}
+        self.runs = 0
+        self.reason = reason
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.static_in: Optional[Dict[str, Table]] = None
+        self.static_out = None
+
+    def release(self) -> None:
+        """Drop the graph and its buffers (the program left the cache):
+        their blocks go back to the executor's graph pool."""
+        self.graph = self.static_in = self.static_out = None
+
+    def fill(self, inputs) -> None:
+        """Copy `inputs` into the static buffers, on the card's stream."""
+        for dst, src in zip(_buffers(self.static_in), _buffers(inputs)):
+            dst.copy_(src)
+
+
+# graphs captured and replayed, by every executor of the process: a replay
+# runs no kernel wrapper, so the kernels' launch counters do not see it
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+@contextlib.contextmanager
+def _sync_is_error():
+    """Any synchronising call of PyTorch inside the block raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _clone_column(c: Column) -> Column:
+    return Column(c.dtype, c.length, c.data.clone(),
+                  None if c.validity is None else c.validity.clone(),
+                  None if c.offsets is None else c.offsets.clone(),
+                  tuple(_clone_column(k) for k in c.children or ()))
+
+
+def _clone_table(t: Table) -> Table:
+    return Table([_clone_column(c) for c in t.columns], names=list(t.names))
+
+
+def _buffers(tables: Dict[str, Table]) -> List[torch.Tensor]:
+    """The fixed-width tables' buffers in a fixed order: data, then
+    validity where there is one, column by column, table by name."""
+    out = []
+    for name in sorted(tables):
+        for c in tables[name].columns:
+            out.append(c.data)
+            if c.validity is not None:
+                out.append(c.validity)
+    return out
 
 
 class PlanExecutor:
@@ -195,7 +297,8 @@ class PlanExecutor:
                  block_per_op: bool = True,
                  optimize: Optional[bool] = None,
                  caps: Optional[Dict[str, int]] = None,
-                 max_cap_attempts: int = 6):
+                 max_cap_attempts: int = 6,
+                 cert_budget: Optional[int] = None):
         if mode not in ("eager", "capped"):
             raise ValueError(f"unknown executor mode {mode!r}")
         self.mode = mode
@@ -205,15 +308,26 @@ class PlanExecutor:
                          else bool(optimize))
         self.caps = dict(caps or {})
         self.max_cap_attempts = max_cap_attempts
+        # the admission budget in bytes (None: SPARK_RAPIDS_TORCH_CERT_
+        # BUDGET_BYTES; 0: off)
+        self.cert_budget = cert_budget
         # (root, binding) -> (optimized plan, its schemas, report)
-        self._opt_cache: Dict[Tuple, Tuple] = {}
-        # program key -> _CappedProgram (the key of `_capped_program`)
-        self._programs: Dict[Tuple, _CappedProgram] = {}
+        self._opt_cache: Dict[Tuple, Tuple] = LruDict(_OPT_CACHE_SIZE)
+        # (root, binding) -> ResourceCert: one certify walk per binding
+        self._cert_cache: Dict[Tuple, object] = LruDict(_OPT_CACHE_SIZE)
+        # program key -> _CappedProgram (the key of `_capped_program`); an
+        # evicted program frees its graph
+        self._programs: Dict[Tuple, _CappedProgram] = LruDict(
+            _PROGRAM_CACHE_SIZE, on_evict=_CappedProgram.release)
         # plan fingerprint -> the caps its last run ended with, so the next
         # run of an equal plan starts from the grown caps
-        self._caps_memo: Dict[str, Dict[str, int]] = {}
+        self._caps_memo: Dict[str, Dict[str, int]] = LruDict(_CAPS_MEMO_SIZE)
         # the pre-execution gate's passed verdicts (`_verify_execution`)
-        self._verify_cache: Dict[Tuple, bool] = {}
+        self._verify_cache: Dict[Tuple, bool] = LruDict(_OPT_CACHE_SIZE)
+        # one memory pool and one capture stream for all of this
+        # executor's graphs (`_capture`), made at the first capture
+        self._graph_pool = None
+        self._capture_stream: Optional["torch.cuda.Stream"] = None
 
     def execute(self, plan: Plan,
                 inputs: Optional[Dict[str, Table]] = None) -> PlanResult:
@@ -232,14 +346,70 @@ class PlanExecutor:
             plan, schemas, report = self._optimized(plan, inputs, bound)
         if config.verify_plans():
             self._verify_execution(authored, plan, report, inputs, bound)
+        # the authored fingerprint keys the stats store's plan entry, so a
+        # stats-driven rewrite keeps the entry of its authored plan
+        source_fp = authored.fingerprint
+        cert = self._certify(plan, inputs, bound)
+        self._admit(cert)
         inputs = {s: inputs[s].to(self.device) for s in plan.input_names}
         if self.mode == "capped":
-            res = self._execute_capped(plan, inputs, schemas)
+            res = self._execute_capped(plan, inputs, schemas, source_fp,
+                                       cert)
         else:
             res = self._execute_eager(plan, inputs, schemas)
+        res.cert = cert
         if report is not None:
             res.optimizer = report.to_dict()
+        store = stats_mod.active_store()
+        if store is not None:
+            store.record_result(plan, res, backend=self.device.type,
+                                source_fp=source_fp)
         return res
+
+    def _certify(self, plan: Plan, inputs, bound):
+        """The resource certificate of the plan about to run, once per
+        (plan, binding). None where the certifier fails: sizing never fails
+        a query that would otherwise run."""
+        from ..analysis import footprint
+        try:
+            input_dtypes, input_nullable = footprint.table_metadata(inputs)
+            bound_rows = {n: t.num_rows for n, t in inputs.items()}
+            key = (plan.root, tuple(sorted(bound.items())),
+                   tuple(sorted(bound_rows.items())),
+                   tuple((n, tuple((cn, repr(dt)) for cn, dt in cols.items()))
+                         for n, cols in sorted(input_dtypes.items())),
+                   tuple((n, tuple(sorted(cols.items())))
+                         for n, cols in sorted(input_nullable.items())))
+            hit = self._cert_cache.get(key)
+            if hit is None:
+                hit = footprint.certify(
+                    plan, bound=bound, bound_rows=bound_rows,
+                    input_dtypes=input_dtypes, input_nullable=input_nullable)
+                self._cert_cache[key] = hit
+            return hit
+        except Exception:
+            return None
+
+    def _admit(self, cert) -> None:
+        """The admission gate: a plan whose certified residency exceeds
+        the budget does not run. "reject" raises ResourceAdmissionError
+        naming the operator; "degrade" would run the CPU tier, which is
+        ROADMAP queue A item 10's, so it raises NotImplementedError."""
+        budget = (self.cert_budget if self.cert_budget is not None
+                  else config.cert_budget_bytes())
+        if not budget or cert is None:
+            return
+        violations = cert.over_budget(budget)
+        if not violations:
+            return
+        if config.cert_admission() == "reject":
+            from ..analysis.footprint import ResourceAdmissionError
+            raise ResourceAdmissionError(
+                violations, "admission gate: certified footprint exceeds "
+                f"the {budget} B device budget")
+        raise NotImplementedError(
+            "SPARK_RAPIDS_TORCH_CERT_ADMISSION=degrade: the degraded CPU "
+            "tier is not ported (ROADMAP queue A item 10)")
 
     def _verify_execution(self, authored: Plan, plan: Plan, report,
                           inputs, bound) -> None:
@@ -273,28 +443,59 @@ class PlanExecutor:
                                           input_dtypes=input_dtypes,
                                           float_inputs=floats, report=report)
         rep.raise_if_failed("pre-execution gate")
-        _bounded_put(self._verify_cache, key, True, _OPT_CACHE_SIZE)
+        self._verify_cache[key] = True
 
     def _optimized(self, plan: Plan, inputs, bound):
         """The rewrite of `plan` for this binding, computed once per (plan,
-        names, row counts, float flag, verify mode): float columns anywhere
-        in the inputs disable the row-reordering build_side rule, and the
-        verify mode (`config.verify_plans`, which re-validates every
-        rule's output) changes which plan survives an invalid rewrite, so
-        both are part of the key."""
+        names, row counts, float flag, verify mode, dtypes, the store's
+        `rows_generation`): float columns anywhere in the inputs disable
+        the row-reordering build_side rule, the verify mode
+        (`config.verify_plans`, which re-validates every rule's output)
+        changes which plan survives an invalid rewrite, the dtypes feed the
+        certifier, and a cached rewrite must not outlive the observed rows
+        it ignored (a rerun that observes the same rows keeps it, and with
+        it the certificate and the gate's verdict). Every stats-driven
+        rewrite passes `verify_rewrite`, or the static pipeline reruns and
+        the report says `stats_reverted`."""
         from .optimizer import optimize as run_optimizer
         floats = _input_has_floats(inputs)
         rows = {n: t.num_rows for n, t in inputs.items()}
         verify_rules = config.verify_plans()
+        input_dtypes = {
+            name: {cn: c.dtype for cn, c in zip(t.names, t.columns)}
+            for name, t in inputs.items()}
+        dtype_sig = tuple(
+            (name, tuple((cn, repr(dt)) for cn, dt in cols.items()))
+            for name, cols in sorted(input_dtypes.items()))
+        store = stats_mod.active_store()
+        stats_gen = None if store is None else (store.uid,
+                                                store.rows_generation)
         key = (plan.root, tuple(sorted(bound.items())),
-               tuple(sorted(rows.items())), floats, verify_rules)
+               tuple(sorted(rows.items())), floats, verify_rules, dtype_sig,
+               stats_gen)
         hit = self._opt_cache.get(key)
         if hit is None:
+            backend = self.device.type
             opt, report = run_optimizer(plan, bound, rows,
                                         float_inputs=floats,
-                                        verify_rules=verify_rules)
+                                        verify_rules=verify_rules,
+                                        stats=store, backend=backend,
+                                        input_dtypes=input_dtypes)
+            if (store is not None and not verify_rules
+                    and opt is not plan and not report.fell_back
+                    and report.stats_driven()):
+                from ..analysis import verifier
+                rep = verifier.verify_rewrite(
+                    plan, opt, bound=bound, input_dtypes=input_dtypes,
+                    float_inputs=floats, report=report)
+                if not rep.ok:
+                    opt, report = run_optimizer(
+                        plan, bound, rows, float_inputs=floats,
+                        verify_rules=verify_rules,
+                        input_dtypes=input_dtypes)
+                    report.stats_reverted = True
             hit = (opt, opt.resolve_schemas(bound), report)
-            _bounded_put(self._opt_cache, key, hit, _OPT_CACHE_SIZE)
+            self._opt_cache[key] = hit
         return hit
 
     def explain(self, plan: Plan, optimized: bool = False) -> str:
@@ -320,8 +521,9 @@ class PlanExecutor:
             m = OperatorMetrics(label=node.label, kind=node.kind,
                                 describe=node.describe())
             t0 = time.perf_counter()
-            out = self._exec_eager_node(node, childs, inputs, schemas, m)
-            self._sync()
+            with tracing.range_ctx(f"plan.{node.label}"):
+                out = self._exec_eager_node(node, childs, inputs, schemas, m)
+                self._sync()
             m.wall_ms = (time.perf_counter() - t0) * 1e3
             m.rows_in = sum(t.num_rows for t in childs)
             m.rows_out = out.num_rows
@@ -331,6 +533,14 @@ class PlanExecutor:
         wall = (time.perf_counter() - t_plan0) * 1e3
         return PlanResult(plan, results[id(plan.root)], metrics, wall,
                           self.device)
+
+    def _pick(self, op: str, sig, m: OperatorMetrics):
+        """`_kernel_choice` for an eager operator, stamped on its metrics
+        with the signature the stats store files its timing under."""
+        choice = self._kernel_choice(op, sig, m.label)
+        m.kernel = choice.label
+        m._kernel_sig = (op, sig)
+        return choice
 
     def _kernel_choice(self, op: str, sig, label: str):
         """The registry's kernel for `op`; on the card a declined call
@@ -364,11 +574,10 @@ class PlanExecutor:
             # predicate, then project
             (t,) = childs
             needed = select.needed_columns(t, node.exprs)
-            choice = self._kernel_choice(
+            choice = self._pick(
                 "fused_select",
                 select.make_signature(t, node.predicate, node.exprs,
-                                      "eager"), m.label)
-            m.kernel = choice.label
+                                      "eager"), m)
             if not choice.fallback:
                 ft = choice.fn(t, node.predicate, needed)
             else:
@@ -386,8 +595,7 @@ class PlanExecutor:
                 [lt[k] for k in node.left_keys],
                 [rt[k] for k in node.right_keys])
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "eager")
-            choice = self._kernel_choice("hash_join", sig, m.label)
-            m.kernel = choice.label
+            choice = self._pick("hash_join", sig, m)
             if node.how == "inner":
                 if not choice.fallback:
                     lm, rm = choice.fn(lkeys, rkeys)
@@ -415,11 +623,9 @@ class PlanExecutor:
             if not node.keys:
                 return self._global_aggregate(t, node)
             aggs = [(c, o) for c, o, _ in node.aggs]
-            choice = self._kernel_choice(
+            choice = self._pick(
                 "groupby", groupby_cuda.make_signature(t, aggs, "eager",
-                                                       node.keys),
-                m.label)
-            m.kernel = choice.label
+                                                       node.keys), m)
             agg = aggregate.groupby_aggregate(t, list(node.keys), aggs,
                                               choice=choice)
             return Table(list(agg.columns), names=schemas[id(node)])
@@ -431,8 +637,7 @@ class PlanExecutor:
             (t,) = childs
             sig = topk.make_signature(t, node.keys, node.ascending, node.n,
                                       "eager")
-            choice = self._kernel_choice("topk", sig, m.label)
-            m.kernel = choice.label
+            choice = self._pick("topk", sig, m)
             if not choice.fallback:
                 return choice.fn(t, list(node.keys), list(node.ascending),
                                  node.n, words=sig.extra("words"))
@@ -545,29 +750,90 @@ class PlanExecutor:
     def _node_cap(caps: Dict[str, int], which: str, idx: int) -> int:
         return caps.get(f"{which}:{idx}") or caps[which]
 
-    def _execute_capped(self, plan: Plan, inputs, schemas) -> PlanResult:
+    @staticmethod
+    def _cert_caps(plan: Plan, caps: Dict[str, int], cert):
+        """Fold the certifier's sound `rows_hi` into the caps, as the
+        reference's `_cert_caps` does: a starting cap tightens to the
+        certified bound where that is lower (a per-node `row_cap:<i>` /
+        `key_cap:<i>` entry; a sound bound cannot overflow), and the ladder
+        gets a ceiling there (per node, or on the shared key at the largest
+        bound of the nodes that use it; an unbounded node leaves the shared
+        key without one). Returns (caps, ceiling) for
+        `auto_retry_overflow(ceil=...)`, where the ceiling is advisory."""
+        caps = dict(caps)
+        ceil: Dict[str, int] = {}
+        shared_hi: Dict[str, Optional[int]] = {"row_cap": 0, "key_cap": 0}
+        for i, n in enumerate(plan.nodes):
+            if isinstance(n, HashJoin) and n.how == "inner":
+                which = "row_cap"
+            elif isinstance(n, HashAggregate) and n.keys:
+                which = "key_cap"
+            else:
+                continue
+            b = cert.by_index.get(i)
+            hi = None if b is None else b.rows_hi
+            key = f"{which}:{i}"
+            if key in caps:
+                if hi is not None:
+                    if hi < caps[key]:
+                        caps[key] = hi
+                    ceil[key] = max(caps[key], hi)
+                continue
+            cur = caps.get(which)
+            if hi is not None and cur is not None and hi < cur:
+                caps[key] = hi
+                ceil[key] = hi
+            elif shared_hi[which] is not None:
+                shared_hi[which] = (None if hi is None
+                                    else max(shared_hi[which], hi))
+        for which, g in shared_hi.items():
+            if g and which in caps:
+                ceil[which] = max(g, caps[which])
+        return caps, ceil
+
+    def _execute_capped(self, plan: Plan, inputs, schemas,
+                        source_fp: Optional[str] = None,
+                        cert=None) -> PlanResult:
         caps = self._default_caps(plan, inputs)
         fp = plan.fingerprint
         for k, v in (self._caps_memo.get(fp) or {}).items():
             caps[k] = max(caps.get(k, 0), v)
-        input_key = tuple(sorted((n, tuple(t.names), t.num_rows)
-                                 for n, t in inputs.items()))
+        # the store's observed high-water caps of the authored plan on this
+        # backend, floor only: a starting cap the ladder would reach anyway
+        store = stats_mod.active_store()
+        if store is not None and source_fp is not None:
+            for k, v in store.observed_caps(self.device.type, source_fp,
+                                            executed_fp=fp).items():
+                caps[k] = max(caps.get(k, 0), v)
+        cert_ceil: Dict[str, int] = {}
+        if store is not None and cert is not None and config.cert_seed():
+            caps, cert_ceil = self._cert_caps(plan, caps, cert)
+        input_key = tuple(sorted(
+            (n, tuple(t.names), t.num_rows,
+             tuple((repr(c.dtype), c.validity is not None)
+                   for c in t.columns))
+            for n, t in inputs.items()))
         t0 = time.perf_counter()
         attempts = hits = 0
         prog: Optional[_CappedProgram] = None     # the last attempt's
+        replayed = False
 
         def run(**caps_now):
-            nonlocal attempts, hits, prog
+            nonlocal attempts, hits, prog, replayed
             attempts += 1
-            prog, hit = self._capped_program(plan, caps_now, input_key)
+            prog, hit = self._capped_program(plan, caps_now, inputs,
+                                             input_key)
             hits += hit
-            return self._run_capped(plan, schemas, caps_now, inputs, prog)
+            with tracing.range_ctx("plan.capped.attempt"):
+                out, replayed = self._run_program(plan, schemas, caps_now,
+                                                  inputs, prog)
+            return out
 
         (table, valid, counts, _), final_caps = auto_retry_overflow(
-            run, caps, self.max_cap_attempts)
-        _bounded_put(self._caps_memo, fp, dict(final_caps), _CAPS_MEMO_SIZE)
+            run, caps, self.max_cap_attempts, ceil=cert_ceil)
+        self._caps_memo[fp] = dict(final_caps)
         # every operator's live rows in and out: one read, after the run
-        rows = torch.stack(counts).tolist()
+        rows = counts.tolist()
         wall = (time.perf_counter() - t0) * 1e3
         metrics: Dict[str, OperatorMetrics] = {}
         for i, node in enumerate(plan.nodes):
@@ -582,30 +848,119 @@ class PlanExecutor:
                 escalations=attempts - 1 if uses_cap else 0)
         return PlanResult(plan, table, metrics, wall, self.device,
                           valid=valid, mode="capped", attempts=attempts,
-                          caps=final_caps, jit_cache_hits=hits)
+                          caps=final_caps, jit_cache_hits=hits,
+                          graph=replayed,
+                          graph_reason=prog.reason or (
+                              "the program's first run: kernels launched "
+                              "from Python, no host read"))
 
-    def _capped_program(self, plan: Plan, caps: Dict[str, int], input_key):
-        """(the program's lowering, whether it was cached). The key is the
-        reference's `_jitted_capped` key: the plan's fingerprint (equal
-        plans built apart share it), the caps, the inputs' names and
-        shapes, and what picks the kernels: the device type and the kernel
-        overrides."""
+    def _capped_program(self, plan: Plan, caps: Dict[str, int], inputs,
+                        input_key):
+        """(the program, whether it was cached). The key is the reference's
+        `_jitted_capped` key: the plan's fingerprint (equal plans built
+        apart share it), the caps, the inputs' names, shapes and column
+        layout, and what picks the kernels: the device type, the kernel
+        overrides and the stats store's kernel epoch."""
+        store = stats_mod.active_store()
         kern_key = (self.device.type,
-                    tuple(sorted(config.kernel_overrides().items())))
+                    tuple(sorted(config.kernel_overrides().items())),
+                    None if store is None else (store.uid,
+                                                store.kernel_epoch))
         key = (plan.fingerprint, tuple(sorted(caps.items())), input_key,
                kern_key)
         prog = self._programs.get(key)
         if prog is not None:
             return prog, True
-        prog = _CappedProgram()
-        _bounded_put(self._programs, key, prog, _PROGRAM_CACHE_SIZE)
+        prog = _CappedProgram(self._graph_obstacle(plan, inputs))
+        self._programs[key] = prog
         return prog, False
+
+    def _graph_obstacle(self, plan: Plan, inputs) -> str:
+        """Why a program of `plan` over `inputs` is never captured, or ""."""
+        if self.device.type != "cuda":
+            return "the CPU has no CUDA graphs"
+        for n in plan.nodes:
+            if not isinstance(n, Scan):
+                continue
+            t = inputs[n.source]
+            if n.projection is not None:
+                t = t.select(list(n.projection))
+            for name, c in zip(t.names, t.columns):
+                if c.dtype.is_string or c.dtype.is_nested:
+                    return (f"{n.label} gives {c.dtype!r} column {name!r}: "
+                            "its gathers read the char total on the host "
+                            "(ops/gather.py _spans)")
+        return ""
+
+    def _run_program(self, plan: Plan, schemas, caps, inputs,
+                     prog: _CappedProgram):
+        """One attempt of `prog`: (the attempt's outputs, whether a graph
+        replayed). The first run on the card launches from Python with
+        every synchronising call an error; the second captures and
+        replays; later runs fill the static inputs and replay. A capture
+        that fails gives the program its reason, and this and every later
+        run launch from Python."""
+        if prog.reason:
+            return self._run_capped(plan, schemas, caps, inputs, prog), False
+        prog.runs += 1
+        if prog.runs == 1:
+            with _sync_is_error():
+                return self._run_capped(plan, schemas, caps, inputs,
+                                        prog), False
+        if prog.graph is None:
+            try:
+                self._capture(plan, schemas, caps, inputs, prog)
+            except Exception as e:   # the attempt itself ran at the first
+                prog.reason = (      # run; what failed is the capture
+                    f"its capture failed: {type(e).__name__}: {e}")
+                return self._run_capped(plan, schemas, caps, inputs,
+                                        prog), False
+        else:
+            prog.fill(inputs)
+        prog.graph.replay()
+        GRAPH_COUNTS["replays"] += 1
+        table, alive, counts, overflow = prog.static_out
+        return (_clone_table(table), alive.clone(), counts.clone(),
+                overflow.clone()), True
+
+    def _capture(self, plan: Plan, schemas, caps, inputs,
+                 prog: _CappedProgram) -> None:
+        """Capture one attempt of `prog` into a CUDA graph over copies of
+        `inputs`, on the executor's capture stream and into its graph
+        pool. Sharing the pool is safe because replays run one at a time
+        on one stream and each replay's outputs are cloned out before the
+        next: a block that one graph frees inside its capture may hold
+        another graph's temporaries or outputs, never what a later replay
+        reads before writing it."""
+        dev = self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        static_in = {n: _clone_table(t) for n, t in inputs.items()}
+        graph = torch.cuda.CUDAGraph()
+        cur = torch.cuda.current_stream(dev)
+        side = self._capture_stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                out = self._run_capped(plan, schemas, caps, static_in, prog)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:       # the capture is void; keep the
+                    pass                # error that voided it
+                raise
+            graph.capture_end()
+        cur.wait_stream(side)
+        GRAPH_COUNTS["captures"] += 1
+        prog.graph, prog.static_in, prog.static_out = graph, static_in, out
 
     def _run_capped(self, plan: Plan, schemas, caps, inputs,
                     prog: _CappedProgram):
         """One attempt: (root table, root alive, per-node [rows in, rows
-        out] as (2,) int64 device tensors, overflow as a () bool device
-        tensor). Nothing here reads the device."""
+        out] as an (n_nodes, 2) int64 device tensor, overflow as a () bool
+        device tensor). Nothing here reads the device."""
         rels: Dict[int, _CappedRel] = {}
         live: Dict[int, torch.Tensor] = {}
         counts: List[torch.Tensor] = []
@@ -623,7 +978,7 @@ class PlanExecutor:
             counts.append(torch.stack([rows_in, live[id(node)]]))
             rels[id(node)] = rel
         root = rels[id(plan.root)]
-        return root.table, root.alive, counts, overflow
+        return root.table, root.alive, torch.stack(counts), overflow
 
     def _exec_capped_node(self, node: PlanNode, idx: int,
                           childs: List[_CappedRel], inputs, schemas, caps,

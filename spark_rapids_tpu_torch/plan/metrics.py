@@ -9,8 +9,15 @@ to an operator that has a capacity (an inner HashJoin, a keyed
 HashAggregate). In the capped tier rows are live rows, counted on the
 device and read once after the run, bytes those of the padded frames, and
 wall time is the plan's only. The profile text carries the optimizer's
-line and the capped tier's attempts and caps. The retry, IO, distributed
+line with its decision sources, the certifier's footprint line, and the
+capped tier's attempts, caps and graph replay. The retry, IO, distributed
 and placement counters wait for their tiers.
+
+The executor also opens a `utils.tracing.range_ctx("plan.<label>")`
+around every eager operator (and `plan.capped.attempt` around every
+capped attempt), so the same names appear in a `torch.profiler` trace
+when SPARK_RAPIDS_TORCH_TRACE=1, with the card's kernels linked to the
+operator that launched them.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ def render_profile(rows: List[OperatorMetrics],
                    optimizer: Optional[Dict] = None,
                    attempts: int = 1,
                    caps: Optional[Dict] = None,
-                   jit_cache_hits: int = 0) -> str:
+                   jit_cache_hits: int = 0, cert=None,
+                   graph: bool = False) -> str:
     """Human-readable profile table (the `profile()` text form)."""
     out = []
     if plan_wall_ms is not None:
@@ -48,7 +56,18 @@ def render_profile(rows: List[OperatorMetrics],
         caps_s = f", {attempts} attempt(s) caps={caps}" if caps else ""
         hits_s = (f", {jit_cache_hits} program cache hit(s)"
                   if jit_cache_hits else "")
-        out.append(f"plan: {plan_wall_ms:.3f} ms{on}{caps_s}{hits_s}")
+        graph_s = ", CUDA graph replayed" if graph else ""
+        out.append(f"plan: {plan_wall_ms:.3f} ms{on}{caps_s}{hits_s}"
+                   f"{graph_s}")
+    if cert is not None:
+        peak = ("unbounded" if cert.peak_bytes_hi is None
+                else f"{cert.peak_bytes_hi} B")
+        root_rows = ("unbounded" if cert.root.rows_hi is None
+                     else str(cert.root.rows_hi))
+        ub = (f", {len(cert.unbounded)} op(s) unbounded"
+              if cert.unbounded else "")
+        out.append(f"footprint: peak resident <= {peak} certified, "
+                   f"root rows <= {root_rows}{ub}")
     if optimizer is not None:
         fired = optimizer.get("rules_fired") or {}
         pruned = optimizer.get("pruned_columns", 0)
@@ -57,6 +76,10 @@ def render_profile(rows: List[OperatorMetrics],
                       f"(~{optimizer.get('pruned_bytes_est', 0)} B est)"
                       if pruned else "")
                    + f", fingerprint={optimizer.get('fingerprint', '')}")
+        sources = optimizer.get("decision_sources") or {}
+        tag = " [STATS REVERTED]" if optimizer.get("stats_reverted") else ""
+        for key, src in sorted(sources.items()):
+            out.append(f"  decision {key}: {src}{tag}")
     hdr = (f"{'operator':<28} {'rows_in':>10} {'rows_out':>10} "
            f"{'bytes_out':>12} {'wall_ms':>9}")
     out.append(hdr)

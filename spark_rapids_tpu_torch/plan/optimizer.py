@@ -25,12 +25,20 @@ guard (`MAX_PASSES`), in the reference's order:
 - `select_fusion`: adjacent Filters merge and Project(Filter) fuses into
   `FusedSelect`.
 
-Estimates come from bound table sizes, then `est_rows` scan hints, then
-None (the rule skips). The reference's observed-stats and certified-bound
-tiers, `scan_pruning`, `exchange_planning` and `placement` wait for ROADMAP
-queue A items 11, 9, 13 and 14; `RULE_NAMES` lists them all and the
-unported ones count 0. A rewrite that fails re-validation falls back to the
-authored plan with `fell_back=True` and the culprit rule named.
+Estimates, as the reference's: a node's observed output rows from the
+stats store (`optimize(stats=..., backend=...)`, plan/stats.py) first for
+interior nodes, bound table sizes at scans, then `est_rows` scan hints,
+then the resource certifier's sound `rows_hi` (analysis/footprint.py),
+else None (the rule skips). Every build-side decision names its source on
+`OptimizeReport.decision_sources` ("observed:<runs>", "hint",
+"certified:<bound>" or "default"); `stats_driven()` says whether an
+observed source changed the plan, and the executor then re-verifies the
+rewrite (`verify_rewrite`) or reruns the static pipeline
+(`stats_reverted`). `scan_pruning`, `exchange_planning` and `placement`
+wait for ROADMAP queue A items 9, 13 and 14; `RULE_NAMES` lists them all
+and the unported ones count 0. A rewrite that fails re-validation falls
+back to the authored plan with `fell_back=True` and the culprit rule
+named.
 """
 from __future__ import annotations
 
@@ -110,14 +118,23 @@ def plan_fingerprint(plan: Plan) -> str:
     return hashlib.sha256(repr(toks).encode()).hexdigest()[:16]
 
 
+def _subtree_token_hash(node: PlanNode, child_fps) -> str:
+    """The one per-node subtree hash: the stats store's record keys
+    (`subtree_fingerprints` of the executed plan) and the estimator's
+    consult keys (`_Estimator._subtree_fp`) both derive from it."""
+    toks = (node.kind, _node_params(node), tuple(child_fps))
+    return hashlib.sha256(repr(toks).encode()).hexdigest()[:16]
+
+
 def subtree_fingerprints(root: PlanNode) -> Dict[int, str]:
     """node id -> structural hash of the subtree below each node (kind,
-    params, child subtree hashes)."""
+    params, child subtree hashes), equal to the reference's: a subtree's
+    observed rows carry from an executed plan to the same subtree of the
+    next, and a schema or parameter change never matches."""
     out: Dict[int, str] = {}
     for n in _toposort(root):
-        toks = (n.kind, _node_params(n), tuple(out[id(c)]
-                                               for c in n.children))
-        out[id(n)] = hashlib.sha256(repr(toks).encode()).hexdigest()[:16]
+        out[id(n)] = _subtree_token_hash(
+            n, (out[id(c)] for c in n.children))
     return out
 
 
@@ -186,8 +203,9 @@ class OptimizeReport:
     exchanges: Dict[str, int] = dataclasses.field(default_factory=dict)
     exchanges_elided: int = 0
     sharding: Dict[str, str] = dataclasses.field(default_factory=dict)
-    # "<join label>/build_side" -> "swap|keep (hint|default)": which kind
-    # of estimate each build-side decision rested on
+    # "<join label>/build_side" -> "swap|keep (observed:<runs> | hint |
+    # certified:<bound> | default)": which kind of estimate each build-side
+    # decision rested on
     decision_sources: Dict[str, str] = dataclasses.field(
         default_factory=dict)
     placements: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -198,6 +216,16 @@ class OptimizeReport:
 
     def total_rewrites(self) -> int:
         return sum(self.rules.values())
+
+    def stats_driven(self) -> bool:
+        """Whether an observed-sourced decision changed the plan: a
+        build-side `swap` stamped from observed rows. A `keep
+        (observed:N)` confirms the static outcome and is not a rewrite.
+        (The reference also counts observed exchange and placement
+        decisions, rules the port does not run.)"""
+        return any("observed" in v and key.endswith("/build_side")
+                   and v.startswith("swap")
+                   for key, v in self.decision_sources.items())
 
     def to_dict(self) -> Dict:
         return {"rules_fired": self.rules_fired(), "passes": self.passes,
@@ -212,8 +240,7 @@ class OptimizeReport:
                 "sharding": dict(self.sharding),
                 "decision_sources": dict(self.decision_sources),
                 "placements": dict(self.placements),
-                # no stats store yet: no decision can be observed-driven
-                "stats_driven": False,
+                "stats_driven": self.stats_driven(),
                 "stats_reverted": self.stats_reverted}
 
     def summary(self) -> str:
@@ -232,7 +259,10 @@ class OptimizeReport:
             lines.append(f"  pruned {self.pruned_columns} column(s) "
                          f"(~{self.pruned_bytes_est} bytes est)")
         if self.decision_sources:
-            lines.append("  decision sources:")
+            lines.append("  decision sources"
+                         + (" [STATS REVERTED: observed-driven rewrite "
+                            "failed verify_rewrite, static decisions ran]"
+                            if self.stats_reverted else "") + ":")
             for key, src in sorted(self.decision_sources.items()):
                 lines.append(f"    {key}: {src}")
         lines.append(f"  fingerprint {self.source_fingerprint} -> "
@@ -313,74 +343,155 @@ class _Schemas:
         return s
 
 
-class _Estimator:
-    """Row-count estimates, bottom-up: bound table sizes at scans, then
-    `est_rows` hints, else None (rules skip). Selectivity guesses are crude
-    on purpose; only build_side reads them, behind a 2x margin. Each
-    estimate's source ("hint" outranks "default") is kept so a decision
-    can name it."""
+# decision-source severity: a warm observation outranks everything; a
+# certified bound and a hint outrank the structural defaults
+_SRC_RANK = {"default": 0, "certified": 1, "hint": 2, "observed": 3}
 
-    def __init__(self, bound_rows: Optional[Dict[str, int]] = None):
+
+class _Estimator:
+    """Row-count estimates, bottom-up. Observed subtree rows from the stats
+    store win for interior nodes; bound table sizes win at scans; `est_rows`
+    hints fill in; where the static chain has nothing, the certifier's
+    sound `rows_hi` fills in last; else None (rules skip). Selectivity
+    guesses are crude on purpose; only build_side reads them, behind a 2x
+    margin. Each estimate's source (and the observed run count or the
+    certified bound) is kept so a decision can name it."""
+
+    def __init__(self, bound_rows: Optional[Dict[str, int]] = None,
+                 stats=None, backend: Optional[str] = None, cert=None):
         self.bound = dict(bound_rows or {})
+        self.stats = stats          # plan/stats.StatsStore or None
+        self.backend = backend
+        self.cert = cert            # node -> certified rows hi or None
         self.memo: Dict[int, Optional[float]] = {}
-        self.src: Dict[int, str] = {}
+        self.src: Dict[int, Tuple[str, Optional[int]]] = {}
+        self._subfp: Dict[int, str] = {}
 
     def of(self, node: PlanNode) -> Optional[float]:
         got = self.memo.get(id(node), _Estimator)
         if got is not _Estimator:
             return got
-        e, src = self._compute(node)
+        e, src, runs = self._compute(node)
         self.memo[id(node)] = e
         if e is not None:
-            self.src[id(node)] = src
+            self.src[id(node)] = (src, runs)
         return e
 
     def source_of(self, *nodes: PlanNode) -> str:
-        srcs = {self.src.get(id(n), "default") for n in nodes}
-        return "hint" if "hint" in srcs else "default"
+        """The decision source over the nodes whose estimates fed one
+        decision: the highest-ranked source, with the fewest observed runs
+        (a decision is as warm as its coldest observation) or the largest
+        certified bound."""
+        best, runs, bnd = "default", None, None
+        for n in nodes:
+            s, r = self.src.get(id(n), ("default", None))
+            if _SRC_RANK[s] > _SRC_RANK[best]:
+                best = s
+            if s == "observed" and r is not None:
+                runs = r if runs is None else min(runs, r)
+            if s == "certified" and r is not None:
+                bnd = r if bnd is None else max(bnd, r)
+        if best == "observed":
+            return f"observed:{runs}"
+        if best == "certified":
+            return f"certified:{bnd}"
+        return best
 
-    def _compute(self, node: PlanNode) -> Tuple[Optional[float], str]:
+    def _subtree_fp(self, node: PlanNode) -> str:
+        got = self._subfp.get(id(node))
+        if got is None:
+            got = _subtree_token_hash(
+                node, (self._subtree_fp(c) for c in node.children))
+            self._subfp[id(node)] = got
+        return got
+
+    def _observed(self, node: PlanNode) -> Optional[Tuple[int, int]]:
+        if self.stats is None or self.backend is None:
+            return None
+        return self.stats.observed_rows(self.backend,
+                                        self._subtree_fp(node))
+
+    def _certified(self, node: PlanNode) -> Optional[int]:
+        return None if self.cert is None else self.cert(node)
+
+    def _compute(self, node: PlanNode
+                 ) -> Tuple[Optional[float], str, Optional[int]]:
         if isinstance(node, Scan):
             v = self.bound.get(node.source)
             if v is not None:
-                return float(v), "default"
+                return float(v), "default", None
+            obs = self._observed(node)
+            if obs is not None:
+                return float(obs[0]), "observed", obs[1]
             if node.est_rows is not None:
-                return float(node.est_rows), "hint"
-            return None, "default"
+                return float(node.est_rows), "hint", None
+            c = self._certified(node)
+            if c is not None:
+                return float(c), "certified", c
+            return None, "default", None
+        obs = self._observed(node)
+        if obs is not None:
+            return float(obs[0]), "observed", obs[1]
         kids = [self.of(c) for c in node.children]
         if any(k is None for k in kids):
-            return None, "default"
-        src = self.source_of(*node.children)
+            c = self._certified(node)
+            if c is not None:
+                return float(c), "certified", c
+            return None, "default", None
+        src, runs = "default", None
+        for c in node.children:
+            s, r = self.src.get(id(c), ("default", None))
+            if _SRC_RANK[s] > _SRC_RANK[src]:
+                src = s
+            if s == "observed" and r is not None:
+                runs = r if runs is None else min(runs, r)
         if isinstance(node, (Filter, FusedSelect)):
-            return 0.5 * kids[0], src
+            return 0.5 * kids[0], src, runs
         if isinstance(node, (Project, Exchange, Sort)):
-            return kids[0], src
+            return kids[0], src, runs
         if isinstance(node, (Limit, TopK)):
-            return min(float(node.n), kids[0]), src
+            return min(float(node.n), kids[0]), src, runs
         if isinstance(node, Union):
-            return sum(kids), src
+            return sum(kids), src, runs
         if isinstance(node, HashJoin):
             if node.how == "inner":
-                return max(kids), src
-            return 0.5 * kids[0], src
+                return max(kids), src, runs
+            return 0.5 * kids[0], src, runs
         if isinstance(node, HashAggregate):
             if not node.keys:
-                return 1.0, src
-            return max(1.0, kids[0] / 10.0), src   # distinct guess
-        return (kids[0] if kids else None), src
+                return 1.0, src, runs
+            return max(1.0, kids[0] / 10.0), src, runs   # distinct guess
+        return (kids[0] if kids else None), src, runs
 
 
 class _Ctx:
     """Schemas, estimates and shared ids computed fresh for one rule run,
     plus the report for prune counts."""
 
-    def __init__(self, root, bound, bound_rows, report, float_inputs=False):
+    def __init__(self, root, bound, bound_rows, report, float_inputs=False,
+                 stats=None, backend=None, input_dtypes=None):
         self.root = root
+        self.bound = bound
+        self.bound_rows = bound_rows
+        self.input_dtypes = input_dtypes
+        self._cert = None               # the certifier's walk, on demand
         self.schemas = _Schemas(bound)
-        self.est = _Estimator(bound_rows)
+        self.est = _Estimator(bound_rows, stats, backend,
+                              cert=self.cert_rows_hi)
         self.shared = _shared_ids(root)
         self.report = report
         self.float_inputs = float_inputs
+
+    def cert_rows_hi(self, node: PlanNode) -> Optional[int]:
+        """The certifier's `rows_hi` of `node` over this pass's root
+        (analysis/footprint.py), walked at the first consult."""
+        if self._cert is None:
+            from ..analysis.footprint import certify_nodes
+            self._cert = certify_nodes(
+                _toposort(self.root), bound=self.bound,
+                bound_rows=self.bound_rows, input_dtypes=self.input_dtypes)
+        b = self._cert.get(id(node))
+        return None if b is None else b.rows_hi
 
 
 # ---- rules ------------------------------------------------------------------
@@ -766,16 +877,19 @@ def _fall_back(plan: Plan, report: OptimizeReport):
 
 
 def _attribute_fallback(plan: Plan, bound, bound_rows, float_inputs,
-                        err: PlanValidationError) -> Dict:
+                        err: PlanValidationError, stats=None, backend=None,
+                        input_dtypes=None) -> Dict:
     """Re-run the pipeline from the authored root, re-validating after
     every rule that rewrites, to name the rule that produced the invalid
-    DAG. Runs only on the fall-back path."""
+    DAG, with the estimates the failing pipeline read. Runs only on the
+    fall-back path."""
     scratch = OptimizeReport(rules={name: 0 for name in RULE_NAMES})
     root = plan.root
     for _ in range(MAX_PASSES):
         pass_hits = 0
         for name, rule in _RULES:
-            ctx = _Ctx(root, bound, bound_rows, scratch, float_inputs)
+            ctx = _Ctx(root, bound, bound_rows, scratch, float_inputs,
+                       stats, backend, input_dtypes)
             try:
                 new_root, n = rule(root, ctx)
             except PlanValidationError as bad:
@@ -797,8 +911,6 @@ _NOT_PORTED_ARGS = {
     "streaming_sources": "scan_pruning (ROADMAP queue A item 9)",
     "mesh_peers": "exchange_planning (ROADMAP queue A item 13)",
     "placement": "placement (ROADMAP queue A item 14)",
-    "stats": "the stats store (ROADMAP queue A item 11)",
-    "input_dtypes": "the resource certifier (ROADMAP queue A item 11)",
 }
 
 
@@ -808,6 +920,9 @@ def optimize(plan: Plan,
              max_passes: int = MAX_PASSES,
              float_inputs: bool = False,
              verify_rules: bool = False,
+             stats=None,
+             backend: Optional[str] = None,
+             input_dtypes: Optional[Dict[str, Dict]] = None,
              **not_ported) -> Tuple[Plan, OptimizeReport]:
     """Run the rule pipeline to fixpoint over `plan`. `bound` maps scan
     source -> actual column names and `bound_rows` -> actual row counts
@@ -816,8 +931,13 @@ def optimize(plan: Plan,
     `float_inputs` disables build_side (execute() sets it when any bound
     column is floating point). `verify_rules` re-validates every rule's
     output as it lands, so the first invalid rewrite falls back at once
-    with its (rule, node, invariant) in `report.fallback`. The reference's
-    other arguments raise, naming the ROADMAP item that ports them.
+    with its (rule, node, invariant) in `report.fallback`. `stats` (a
+    plan/stats.StatsStore) and `backend` ("cuda" or "cpu") make the
+    estimator read observed rows of that backend; with stats=None the
+    decisions are the static pipeline's. `input_dtypes` (source ->
+    {column: DType}) gives the certifier its dtypes (its row bounds need
+    none). The reference's other arguments raise, naming the ROADMAP item
+    that ports them.
     Returns the optimized Plan (the same object when nothing fired) and
     the report."""
     for arg in not_ported:
@@ -832,7 +952,8 @@ def optimize(plan: Plan,
         for p in range(max_passes):
             pass_hits = 0
             for name, rule in _RULES:
-                ctx = _Ctx(root, bound, bound_rows, report, float_inputs)
+                ctx = _Ctx(root, bound, bound_rows, report, float_inputs,
+                           stats, backend, input_dtypes)
                 new_root, n = rule(root, ctx)
                 if verify_rules and new_root is not root:
                     bad = _plan_error(new_root, bound)
@@ -850,7 +971,8 @@ def optimize(plan: Plan,
         # an invalid rewrite can detonate inside a later rule's schema
         # resolution: that too falls back, naming the culprit
         report.fallback = _attribute_fallback(plan, bound, bound_rows,
-                                              float_inputs, err)
+                                              float_inputs, err, stats,
+                                              backend, input_dtypes)
         return _fall_back(plan, report)
     if root is plan.root:
         report.fingerprint = report.source_fingerprint
@@ -861,7 +983,8 @@ def optimize(plan: Plan,
             opt.resolve_schemas(bound)
     except PlanValidationError as err:
         report.fallback = _attribute_fallback(plan, bound, bound_rows,
-                                              float_inputs, err)
+                                              float_inputs, err, stats,
+                                              backend, input_dtypes)
         return _fall_back(plan, report)
     report.fingerprint = opt.fingerprint
     return opt, report

@@ -40,6 +40,16 @@ from spark_rapids_tpu_torch.columnar import Column, Table
 from spark_rapids_tpu_torch.interop import Buffers, column_from_buffers
 from spark_rapids_tpu_torch.ops import join, join_cuda
 from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 
 def _port_dtype(jd) -> tdt.DType:

@@ -30,6 +30,16 @@ from spark_rapids_tpu_torch.ops import copying, decimal_cuda
 from spark_rapids_tpu_torch.ops import decimal256 as d256
 from spark_rapids_tpu_torch.ops import decimal_utils as du
 from spark_rapids_tpu_torch.ops import gather, hash as thash, join, sort
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 M256 = (1 << 256) - 1
 EDGE = [0, 1, -1, 10**38 - 1, -(10**38 - 1), 10**38, -(10**38), 2**127,
@@ -57,7 +67,7 @@ def _pairs(seed, n=120):
                                   "abs", "lt", "shift"])
 def test_limb_primitive_equals_python_ints(name):
     a, b = _pairs(1)
-    A, B = d256.from_int(a), d256.from_int(b)
+    A, B = d256.from_int(a, device="cpu"), d256.from_int(b, device="cpu")
     assert d256.to_int(A) == a and d256.to_int(B) == b
     if name == "add":
         assert d256.to_int(d256.add(A, B)) == [signed256(x + y)
@@ -96,12 +106,13 @@ def test_precision10_and_overflow_check():
     vals = [0, 1, 9, 10, 11, 99, 100, 101, 10**38 - 1, 10**38, 10**38 + 1,
             -(10**38), 10**75, 10**76, 10**76 + 1, (1 << 255) - 1,
             -(1 << 255), 2**127, -(2**127)]
-    got = d256.precision10(d256.from_int(vals)).tolist()
+    got = d256.precision10(d256.from_int(vals, device="cpu")).tolist()
     # first i in [0, 76] with 10^i >= |v|, 77 if none (reference definition)
     want = [next((i for i in range(77) if 10**i >= abs(v)), 77)
             for v in vals]
     assert got == want
-    assert d256.is_greater_than_decimal_38(d256.from_int(vals)).tolist() == \
+    assert d256.is_greater_than_decimal_38(
+        d256.from_int(vals, device="cpu")).tolist() == \
         [abs(v) >= 10**38 for v in vals]
 
 
@@ -116,8 +127,8 @@ def test_divide_equals_python_ints(seed):
     cases += [(7, 2), (-7, 2), (7, -2), (-7, -2), (0, 5), (10**70, 3),
               ((1 << 255) - 1, 10**38), (-((1 << 255) - 1), -(10**38 - 1)),
               (2**127, -1), (10**38, 10**38 - 1)]
-    N = d256.from_int([c[0] for c in cases])
-    D = d256.from_int([c[1] for c in cases])
+    N = d256.from_int([c[0] for c in cases], device="cpu")
+    D = d256.from_int([c[1] for c in cases], device="cpu")
     q, r = d256.divide(N, D)
     qi, ri = d256.to_int(q), d256.to_int(r)
     rounded = d256.to_int(d256.divide_and_round(N, D))
@@ -133,7 +144,8 @@ def test_divide_equals_python_ints(seed):
 
 
 def test_divide_by_zero_steps_as_the_reference():
-    q, r = d256.divide_unsigned(d256.from_int([12345]), d256.from_int([0]))
+    q, r = d256.divide_unsigned(d256.from_int([12345], device="cpu"),
+                                d256.from_int([0], device="cpu"))
     assert d256.to_int(q) == [-1] and d256.to_int(r) == [12345]
 
 

@@ -1,9 +1,12 @@
 """The port's plan fuzzer (spark_rapids_tpu_torch/analysis/fuzz.py) against
 the JAX package's: `gen_case(s)` gives the same plan (fingerprint), kinds
 and table bytes for every corpus seed; the port's `run_case` passes
-properties 1-3 on every seed and reports 4-6 as not checked, naming their
-ROADMAP items; the reference's `TestFuzzer` cases (tests/
-test_plan_verifier.py) against the port; `edge_tables` is deterministic.
+properties 1-5 on every seed (4: cold and warm runs under a fresh stats
+store agree bit for bit; 5: the certifier is monotone and sound on both
+tiers) and reports 6 as not checked, naming its ROADMAP item; a broken
+property is reported, not raised; the reference's `TestFuzzer` cases
+(tests/test_plan_verifier.py) against the port; `edge_tables` is
+deterministic.
 
 It also holds the cross-package runner that the corpus files share
 (tests/test_torch_fuzz_plain_{a,b,c,d}.py, tests/test_torch_fuzz_edge_
@@ -25,6 +28,16 @@ from spark_rapids_tpu.plan import PlanExecutor as JPlanExecutor
 from spark_rapids_tpu.plan import stats
 
 from spark_rapids_tpu_torch.analysis import fuzz as tfuzz
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 PLAIN_SEEDS = range(48)       # the plain pass: tests/test_torch_fuzz_plain_*
 EDGE_SEEDS = range(24)        # the edge pass: tests/test_torch_fuzz_edge_*
@@ -125,30 +138,71 @@ def test_gen_case_matches_jax(seed):
             assert a.validity is None and b.validity is None
 
 
-# ---- properties 1-3 ---------------------------------------------------------
+# ---- properties 1-5 ---------------------------------------------------------
 
 @pytest.mark.parametrize("seed", PLAIN_SEEDS)
 def test_run_case_properties(seed):
-    """Properties 1-3 hold on every corpus seed; 4-6 stay unchecked
+    """Properties 1-5 hold on every corpus seed; 6 stays unchecked
     (None), never passed."""
     r = tfuzz.run_case(tfuzz.gen_case(seed, device="cpu"), device="cpu")
     assert r.ok and r.executed and r.parity, r.error
     assert r.verified and r.optimized_verified
+    assert r.adaptive_parity is True and r.cert_sound is True
     for prop in tfuzz.NOT_CHECKED:
         assert getattr(r, prop) is None
     assert r.not_checked == tfuzz.NOT_CHECKED
 
 
+@pytest.mark.parametrize("seed", EDGE_SEEDS)
+def test_run_case_properties_over_edge_tables(seed):
+    """Properties 1-5 over the edge tables (edge values, nulls)."""
+    case = tfuzz.gen_case(seed, device="cpu")
+    case.tables = tfuzz.edge_tables(case, device="cpu")
+    r = tfuzz.run_case(case, device="cpu")
+    assert r.ok and r.executed, r.error
+    assert r.adaptive_parity is True and r.cert_sound is True
+
+
 def test_properties_not_checked_name_their_items():
     assert tfuzz.NOT_CHECKED == {
-        "adaptive_parity": "property 4, queue A item 11 (plan/stats.py)",
-        "cert_sound": "property 5, queue A item 11 (analysis/footprint.py)",
         "placement_parity":
             "property 6, queue A item 14 (the placement rule)"}
     # a failed property makes the result fail; an unchecked one does not
-    r = tfuzz.FuzzResult(seed=0, parity=False)
-    assert not r.ok
-    assert tfuzz.FuzzResult(seed=0, parity=True).ok
+    for prop in ("parity", "adaptive_parity", "cert_sound"):
+        assert not tfuzz.FuzzResult(seed=0, **{prop: False}).ok
+    assert tfuzz.FuzzResult(seed=0, parity=True, adaptive_parity=True,
+                            cert_sound=True).ok
+
+
+def test_run_case_reports_a_broken_adaptive_or_cert_property(monkeypatch):
+    """A warm run that changes the answer breaks property 4, and a
+    certificate tighter than what runs breaks property 5, without
+    raising."""
+    from spark_rapids_tpu_torch.analysis import footprint
+    from spark_rapids_tpu_torch.plan import executor as texecutor
+    real = texecutor.PlanExecutor.execute
+
+    def warm_skewed(self, plan, inputs=None):
+        res = real(self, plan, inputs)
+        store = torch_stats.active_store()
+        if store is not None and store.generation > 1:
+            res.table = res.table.select(list(res.table.names)[:1])
+        return res
+    case = tfuzz.gen_case(7, device="cpu")
+    monkeypatch.setattr(texecutor.PlanExecutor, "execute", warm_skewed)
+    r = tfuzz.run_case(case, device="cpu")
+    assert not r.ok and r.adaptive_parity is False
+    assert "adaptive parity broke" in r.error
+    monkeypatch.setattr(texecutor.PlanExecutor, "execute", real)
+    real_interval = footprint._rows_interval
+
+    def too_tight(node, kids, bound_rows, nullable_keys):
+        lo, hi = real_interval(node, kids, bound_rows, nullable_keys)
+        return lo, (None if hi is None else 0)
+    monkeypatch.setattr(footprint, "_rows_interval", too_tight)
+    r = tfuzz.run_case(case, device="cpu")
+    assert not r.ok and r.cert_sound is False
+    assert "cert soundness broke" in r.error
 
 
 def test_run_case_reports_a_broken_property(monkeypatch):
@@ -259,7 +313,8 @@ def test_main_prints_the_summary(capsys):
     assert summary["fuzz_cases"] == 4 and summary["fuzz_failures"] == 0
     assert summary["device"] == "cpu"
     assert out[-1] == "plan fuzz OK"
-    assert sum("not checked" in x for x in out) == 3
+    assert sum("not checked" in x for x in out) == len(tfuzz.NOT_CHECKED)
+    assert any("placement_parity" in x for x in out)
 
 
 # ---- the edge tables ---------------------------------------------------------

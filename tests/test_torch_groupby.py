@@ -30,6 +30,16 @@ from spark_rapids_tpu_torch.columnar import Column, Table
 from spark_rapids_tpu_torch.interop import Buffers, column_from_buffers
 from spark_rapids_tpu_torch.ops import aggregate, groupby_cuda
 from spark_rapids_tpu_torch.ops.registry import REGISTRY, Signature
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 # (name, numpy type, JAX dtype): the kinds the kernel reads values of
 _KINDS = [("i8", np.int8, jdt.INT8), ("i16", np.int16, jdt.INT16),

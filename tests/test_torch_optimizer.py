@@ -25,6 +25,16 @@ from spark_rapids_tpu_torch import nds_q3, table_from_numpy
 from spark_rapids_tpu_torch import plan as tplan
 from spark_rapids_tpu_torch.plan import optimizer as topt
 from spark_rapids_tpu_torch.plan.nodes import Filter, HashJoin, Limit, Scan
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 J = types.SimpleNamespace(PlanBuilder=jplan.PlanBuilder, col=jplan.col,
                           lit=jplan.lit, scalar_max=jplan.scalar_max,
@@ -404,8 +414,15 @@ def test_fingerprint_is_literal_sensitive():
 def test_unported_arguments_name_their_item():
     with pytest.raises(NotImplementedError, match="queue A item 13"):
         topt.optimize(_small_plan(T), mesh_peers=4)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        topt.optimize(_small_plan(T), stats=object())
+    with pytest.raises(NotImplementedError, match="queue A item 14"):
+        topt.optimize(_small_plan(T), placement=True)
+    # the stats store and the certifier's dtypes are ported (queue A
+    # item 11): accepted, with the static decisions of an empty store
+    from spark_rapids_tpu_torch.plan import stats as torch_stats
+    opt, rep = topt.optimize(
+        _small_plan(T), stats=torch_stats.StatsStore(path=""),
+        backend="cpu", input_dtypes={})
+    assert rep.stats_driven() is False
     with pytest.raises(TypeError):
         topt.optimize(_small_plan(T), no_such_argument=1)
 

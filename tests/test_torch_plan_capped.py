@@ -25,6 +25,16 @@ from spark_rapids_tpu_torch import nds_q3, nds_q72, table_from_numpy
 from spark_rapids_tpu_torch.ops import join_cuda, topk
 from spark_rapids_tpu_torch.parallel.autoretry import CapacityOverflowError
 from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col, lit
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 _N = 4000
 _TINY = {"row_cap": 128, "key_cap": 16}

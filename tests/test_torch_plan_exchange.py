@@ -20,6 +20,16 @@ from spark_rapids_tpu.plan import stats
 
 from spark_rapids_tpu_torch import table_from_numpy
 from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 
 @pytest.fixture(autouse=True)

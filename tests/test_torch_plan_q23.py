@@ -35,6 +35,16 @@ from spark_rapids_tpu_torch.plan import (PlanBuilder, PlanExecutor, col,
                                          lit, scalar_max, scalar_min,
                                          scalar_sum)
 from spark_rapids_tpu_torch.plan import executor as texecutor
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 _N = 15_000
 _CAPS = {"key_cap": 8192}            # bench_nds_q23.py's plan-tier caps

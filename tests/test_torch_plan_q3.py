@@ -28,6 +28,16 @@ from spark_rapids_tpu_torch import nds_q3, table_from_numpy
 from spark_rapids_tpu_torch.ops import join_cuda
 from spark_rapids_tpu_torch.plan import (PlanBuilder, PlanExecutor,
                                          PlanValidationError, col, lit)
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -253,6 +263,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         "rc = fuzz.run_case(case, device='cpu')\n"
         "assert rc.ok and rc.executed and rc.parity, rc.error\n"
         "assert verifier.verify(case.plan).ok\n"
+        "from spark_rapids_tpu_torch.analysis import footprint\n"
+        "from spark_rapids_tpu_torch.plan import stats\n"
+        "from spark_rapids_tpu_torch.utils import tracing\n"
+        "assert footprint.certify(case.plan).root is not None\n"
+        "with stats.scoped_store(stats.StatsStore(path='')) as st:\n"
+        "    with tracing.range_ctx('x'):\n"
+        "        PlanExecutor(mode='capped', device='cpu').execute(\n"
+        "            nds_q3.q3_tpcds_plan(), t)\n"
+        "assert st.generation == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.split('.')[0] == 'spark_rapids_tpu')\n"

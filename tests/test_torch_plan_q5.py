@@ -22,6 +22,16 @@ from benchmarks import bench_nds_q5, nds_plans
 from spark_rapids_tpu_torch import nds_q5
 from spark_rapids_tpu_torch.ops import join_cuda, select_cuda, topk_cuda
 from spark_rapids_tpu_torch.plan import PlanExecutor, col, lit
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 _N = 15_000
 _CAPS = {"key_cap": 2048}            # bench_nds_q5.py's plan-tier caps

@@ -23,6 +23,16 @@ from benchmarks import bench_nds_q72, nds_plans
 from spark_rapids_tpu_torch import nds_q72
 from spark_rapids_tpu_torch.ops import join_cuda
 from spark_rapids_tpu_torch.plan import PlanExecutor
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _N_SALES = 3000

@@ -21,6 +21,16 @@ from spark_rapids_tpu.plan import col as jcol
 from spark_rapids_tpu_torch import nds_q74
 from spark_rapids_tpu_torch.ops import join_cuda
 from spark_rapids_tpu_torch.plan import PlanExecutor
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 SIZES = (20_000, 5_000, 1_000)
 

@@ -18,6 +18,16 @@ from spark_rapids_tpu import ops as jops
 from spark_rapids_tpu_torch import dtypes as tdt
 from spark_rapids_tpu_torch import ops as tops
 from spark_rapids_tpu_torch import table_from_numpy
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 
 def _port(jt: JTable):

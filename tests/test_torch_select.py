@@ -26,6 +26,16 @@ from spark_rapids_tpu_torch.ops import select, select_cuda
 from spark_rapids_tpu_torch.ops.registry import REGISTRY
 from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor
 from spark_rapids_tpu_torch.plan import expr as texpr
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 _FS_DTYPES = [np.int8, np.int16, np.int32, np.int64, np.float32,
               np.float64, np.bool_]

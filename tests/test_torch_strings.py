@@ -23,6 +23,16 @@ from spark_rapids_tpu_torch.interop import (Buffers, column_from_buffers,
                                             table_from_buffers)
 from spark_rapids_tpu_torch.ops import copying, gather
 from spark_rapids_tpu_torch.utils import bitmask
+from spark_rapids_tpu_torch.plan import stats as torch_stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_torch_stats_store():
+    """No stats store for the port's runs: the static engine, as the
+    reference's runs are with its store off (a shared store would make
+    attempts, caps and optimizer decisions depend on the file order)."""
+    with torch_stats.scoped_store(None):
+        yield
 
 STRINGS = ["", "a", None, "héllo wörld", "日本語のテキスト", "x" * 33, None,
            "tail!", b"\xed\x9f\xa0\xed\x9f\xa1 raw", "0123"]
