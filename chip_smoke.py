@@ -10,6 +10,7 @@
     python3 chip_smoke.py --union-walls N  # q5 and q23 walls only (A/B runs)
     python3 chip_smoke.py --join-profile   # whole joins' kernels (A/B runs)
     python3 chip_smoke.py --feedback   # phase 12 only (ranges, store, graphs)
+    python3 chip_smoke.py --casts      # phase 13 only (CastStrings' casts)
     python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
@@ -247,6 +248,22 @@ in phases that each raise on failure:
    executor's first run, same caps); then capped fuzz corpus cases, one
    executor each, replayed over redrawn tables of the same shape, each
    run equal to a new executor's launched run;
+13. the casts (`casts_phase`): CastStrings' eight methods through
+   `api.CastStrings` on the card (fifteen calls: integer types, strip,
+   both bases, DECIMAL32/64/128, FLOAT32/64, format digits) over an edge
+   corpus (tests/torch_cast_inputs.py: empty, NUL, high-byte, blank and
+   control-char strings, null rows over chars, sliced offsets, the JAX
+   tests' golden vectors) and 1,048,576 random rows each, counters zeroed
+   just before and read just after: one launch a parse, two a string
+   format, no plain run; each result equal to the plain version on the
+   card's tensors and to the CPU run, byte for byte; the ANSI errors' rows
+   and strings (integer, decimal, float) equal to the CPU run's; then the
+   four kernels timed at 16,777,216 rows, each beside its plain version
+   over the same rows in 4,194,304-row slices (the
+   upstream string->float bench's printed FLOAT32 values, made here with
+   numpy; decimal and integer strings printed by the port itself) and
+   string->float at 100,000,000 rows (those strings tiled). Alone:
+   `python3 chip_smoke.py --casts`;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -449,7 +466,9 @@ class Checks:
                         "rc_to_rows": 0, "rc_from_rows": 0, "build_var": 0,
                         "count_var": 0, "emit_var": 0, "topk_keys": 0,
                         "fused_select_keys": 0, "exists": 0,
-                        "exists_large": 0, "exists_var": 0}
+                        "exists_large": 0, "exists_var": 0,
+                        "cast_string": 0, "cast_decimal": 0,
+                        "cast_string_to_float": 0, "number_to_string": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -3624,7 +3643,7 @@ def kernel_counters():
     from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda, select
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
     from spark_rapids_tpu_torch.ops import row_conversion_cuda
-    from spark_rapids_tpu_torch.ops import topk, topk_cuda
+    from spark_rapids_tpu_torch.ops import cast_cuda, topk, topk_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
     return {"groupby": dict(groupby_cuda.LAUNCHES),
             "hash_join": dict(join_cuda.LAUNCHES),
@@ -3640,6 +3659,8 @@ def kernel_counters():
             "histogram": dict(partition_cuda.LAUNCHES),
             "decimal128": dict(decimal_cuda.LAUNCHES),
             "row_conversion": dict(row_conversion_cuda.LAUNCHES),
+            "casts": dict((k, v) for k, v in cast_cuda.LAUNCHES.items()
+                          if v),
             "plain": {"groupby": dict(groupby_cuda.PLAIN_CALLS),
                       "hash_join": dict(join_cuda.PLAIN_CALLS),
                       "fused_select": dict(select.PLAIN_CALLS),
@@ -3649,7 +3670,8 @@ def kernel_counters():
                       "histogram": dict(partition_cuda.PLAIN_CALLS),
                       "decimal128": dict(decimal_cuda.PLAIN_CALLS),
                       "row_conversion": dict(
-                          row_conversion_cuda.PLAIN_CALLS)}}
+                          row_conversion_cuda.PLAIN_CALLS),
+                      "casts": dict(cast_cuda.PLAIN_CALLS)}}
 
 
 def reset_kernel_counters():
@@ -3657,10 +3679,11 @@ def reset_kernel_counters():
     from spark_rapids_tpu_torch.ops import hash_cuda, join_cuda
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
     from spark_rapids_tpu_torch.ops import row_conversion_cuda, topk_cuda
+    from spark_rapids_tpu_torch.ops import cast_cuda
     from spark_rapids_tpu_torch.parallel import partition_cuda
     for m in (groupby_cuda, hash_cuda, join_cuda, segment_sum_cuda,
               select_cuda, topk_cuda, partition_cuda, decimal_cuda,
-              row_conversion_cuda):
+              row_conversion_cuda, cast_cuda):
         m.reset_counters()
 
 
@@ -6811,6 +6834,545 @@ def keys_kernels(keys):
     return out
 
 
+# ---- phase 13: the casts (CastStrings) --------------------------------------
+
+CAST_N = 1 << 20                   # random rows a method and type, checked
+CAST_TIMED_N = 16_777_216          # the upstream string->float bench's rows
+CAST_TOP_N = 100_000_000           # its top size, string->float only
+CAST_SOURCES = {k: f"spark_rapids_tpu_torch/ops/csrc/{k}.cu"
+                for k in ("cast_string", "cast_decimal",
+                          "cast_string_to_float", "number_to_string")}
+CAST_KERNEL_NAMES = {"cast_string": "cast_int_kernel",
+                     "cast_decimal": "cast_decimal_kernel",
+                     "cast_string_to_float": "cast_float_kernel",
+                     "number_to_string": "number_to_string_kernel"}
+CAST_REPLACES = {
+    "cast_string": "none: spark_rapids_tpu/ops/cast_string.py:99 "
+                   "(string_to_integer), :400 (string_to_integer_with_base)"
+                   " (XLA ops, no pallas_call)",
+    "cast_decimal": "none: spark_rapids_tpu/ops/cast_decimal.py:67 "
+                    "(string_to_decimal) (XLA ops, no pallas_call)",
+    "cast_string_to_float": "none: spark_rapids_tpu/ops/cast_string.py:224 "
+                            "(string_to_float) (XLA ops, no pallas_call)",
+    "number_to_string": "none: spark_rapids_tpu/ops/"
+                        "cast_float_to_string.py:483 (float_to_string), "
+                        "format_float.py:188, cast_decimal_to_string.py:67,"
+                        " cast_string.py:459 (integer_to_string_with_base)"
+                        " (XLA ops, no pallas_call)"}
+# csrc/number_to_string.cu serves the four to-string ops; the other ops'
+# kernels by name
+CAST_OP_SOURCE = {"to_integer": "cast_string",
+                  "to_integer_base": "cast_string",
+                  "to_decimal": "cast_decimal",
+                  "to_float": "cast_string_to_float"}
+# The least integer work, for the bound, in 32-bit instructions (what
+# PEAK_INT_OPS_PER_S counts), from the timed call's own inputs and outputs:
+# - a parse: a load, two compares and a multiply-add a char (4);
+# - a printed digit: a division by 10 and its remainder at 32 bits (a high
+#   product and a shift, a product and a subtract: 4); a 64-bit value
+#   (INT64, DECIMAL64, a FLOAT64's digits) first splits into 32-bit parts
+#   by two divisions by 10^9 (18 each, as below): 36 a valid row;
+# - Ryu, each valid row that is not NaN, infinite or zero: three
+#   multiply-shifts, FLOAT32's each two 32 x 32 -> 64-bit products (2
+#   instructions: the low and the high word), a 64-bit add and a 64-bit
+#   shift (2 each): 8; FLOAT64's each two 64 x 64 -> 128-bit products
+#   (four 32 x 32 -> 64-bit products and four carrying adds: 12), a
+#   128-bit add (4) and a funnel shift over three words (6): 34. Then the
+#   removal turns the plain version reports for the same rows
+#   (`cast_float_to_string.ryu_removed`): a turn tested divides vp and vm
+#   by 10, takes vm's remainder and compares (FLOAT32's values fit 32
+#   bits: 2 + 2 + 2 + 1 = 7; FLOAT64's: a division a 64-bit high product
+#   and a shift, 14, a remainder 4 more, a compare 2: 34), a turn taken
+#   also divides vr and takes its remainder (4; 18); a row tests the turns
+#   it takes and one more, up to the loop's cap (11; 20). Its printed
+#   digits, at most its shortest digits (padding zeros need no division),
+#   count as printed digits.
+# Stores and the other chars count as bytes only. Bytes: each input buffer
+# read once (offsets, chars, validity, data), each output written once
+# (a parse's value and validity; the timed calls run outside ANSI, where
+# no error flag is written).
+CAST_CHAR_OPS = 4
+DIGIT_OPS = 4
+SPLIT_OPS = 36
+RYU_OPS = {4: {"mul": 8, "tested": 7, "taken": 4, "cap": 11},
+           8: {"mul": 34, "tested": 34, "taken": 18, "cap": 20}}
+# the plain version's rows a call: its padded planes for 16,777,216 rows
+# do not fit on the card for every form
+PLAIN_CHUNK = 4_194_304
+
+
+def cast_corpus(torch, n, seed, device):
+    """The edge corpus of tests/torch_cast_inputs.py (empty, NUL,
+    high-byte, blank and control-char strings and the JAX tests' golden
+    vectors) and `n` random rows shaped like numbers, as one STRING column
+    on `device`."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_cast_inputs import (EDGE, GOLDEN, random_number_strings,
+                                   with_nulls)
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    vals = EDGE + GOLDEN + with_nulls(
+        random_number_strings(seed, n, max_digits=40), seed + 1)
+    return Column.from_pylist(vals, dt.STRING, device=device)
+
+
+def printed_floats(torch, n, seed=3):
+    """The upstream bench's strings (benchmarks/common.py:360-367, after
+    cast_string_to_float.cpp:29-34): random FLOAT32 values times 1e-3, 1,
+    1e4 or 1e20, printed with %g, as a STRING column on the card."""
+    rng = np.random.default_rng(seed)
+    vals = (rng.standard_normal(n) * rng.choice([1e-3, 1.0, 1e4, 1e20],
+                                                size=n)).astype(np.float32)
+    return printed_column(torch, np.char.mod("%g", vals).astype("S"))
+
+
+def printed_column(torch, txt, valid=None, device="cuda"):
+    """A STRING column of a numpy bytes array (no NUL in any string)."""
+    from spark_rapids_tpu_torch.columnar import make_string_column
+    n = txt.shape[0]
+    mat = np.frombuffer(txt.tobytes(), np.uint8).reshape(n, -1)
+    keep = mat != 0
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(keep.sum(1), out=offsets[1:])
+    v = None if valid is None else torch.from_numpy(valid).to(device)
+    return make_string_column(
+        torch.from_numpy(mat[keep]).to(device),
+        torch.from_numpy(offsets.astype(np.int32)).to(device), v)
+
+
+def tiled_strings(torch, col, n):
+    """A STRING column of `n` rows: `col`'s rows over and over."""
+    from spark_rapids_tpu_torch.columnar import make_string_column
+    reps = -(-n // col.length)
+    lens = col.string_lengths().repeat(reps)[:n]
+    total = int(col.offsets[-1])
+    chars = col.data.repeat(reps)[:int(lens.sum())]
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    torch.cumsum(lens, 0, out=offsets[1:])
+    require(int(offsets[-1]) < 2**31 and total > 0, "tiled strings overflow")
+    return make_string_column(chars, offsets.to(torch.int32))
+
+
+def cast_same(torch, chk, kernel, got, want, what):
+    """Two cast results equal, bit for bit: data (floats by their bits),
+    validity and, for strings, offsets and chars."""
+    require(got.dtype == want.dtype and got.length == want.length,
+            f"{what}: {got.dtype!r} x {got.length} vs {want.dtype!r} x "
+            f"{want.length}")
+    a, b = got.data, want.data.to(got.data.device)
+    if a.dtype in (torch.float32, torch.float64):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+        a, b = a.view(bits), b.view(bits)
+    elif a.dtype == torch.uint64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    chk.equal(kernel, a, b, f"{what} data")
+    if got.offsets is not None:
+        chk.equal(kernel, got.offsets, want.offsets.to(got.data.device),
+                  f"{what} offsets")
+    require((got.validity is None) == (want.validity is None),
+            f"{what}: validity on one side only")
+    if got.validity is not None:
+        chk.equal(kernel, got.validity, want.validity.to(got.data.device),
+                  f"{what} validity")
+
+
+def cast_methods(torch, strings, numbers):
+    """(name, source, op, kernel call, plain call, column) for each of
+    CastStrings' eight methods: the call through `api.CastStrings`, the
+    plain version on the same tensors."""
+    import importlib
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.ops import (cast_decimal,
+                                            cast_decimal_to_string,
+                                            cast_float_to_string,
+                                            cast_string)
+    ff = importlib.import_module("spark_rapids_tpu_torch.ops.format_float")
+    cs, CS = cast_string, api.CastStrings
+    s = strings
+    return [
+        ("toInteger INT32", "cast_string", "to_integer",
+         lambda c: CS.toInteger(c, False, dt.INT32),
+         lambda c: cs.string_to_integer_plain(c, dt.INT32)[0], s),
+        ("toInteger INT64 no strip", "cast_string", "to_integer",
+         lambda c: CS.toInteger(c, False, dt.INT64, False),
+         lambda c: cs.string_to_integer_plain(c, dt.INT64, strip=False)[0],
+         s),
+        ("toIntegersWithBase 16 INT64", "cast_string", "to_integer_base",
+         lambda c: CS.toIntegersWithBase(c, 16, False, dt.INT64),
+         lambda c: cs.string_to_integer_with_base_plain(c, dt.INT64, 16), s),
+        ("toDecimal(9, 2)", "cast_decimal", "to_decimal",
+         lambda c: CS.toDecimal(c, False, 9, 2),
+         lambda c: cast_decimal.string_to_decimal_plain(c, 9, 2)[0], s),
+        ("toDecimal(38, 10)", "cast_decimal", "to_decimal",
+         lambda c: CS.toDecimal(c, False, 38, 10),
+         lambda c: cast_decimal.string_to_decimal_plain(c, 38, 10)[0], s),
+        ("toFloat FLOAT32", "cast_string_to_float", "to_float",
+         lambda c: CS.toFloat(c, False, dt.FLOAT32),
+         lambda c: cs.string_to_float_plain(c, dt.FLOAT32)[0], s),
+        ("toFloat FLOAT64", "cast_string_to_float", "to_float",
+         lambda c: CS.toFloat(c, False, dt.FLOAT64),
+         lambda c: cs.string_to_float_plain(c, dt.FLOAT64)[0], s),
+        ("fromFloat FLOAT32", "number_to_string", "from_float",
+         CS.fromFloat, cast_float_to_string.float_to_string_plain,
+         numbers["float32"]),
+        ("fromFloat FLOAT64", "number_to_string", "from_float",
+         CS.fromFloat, cast_float_to_string.float_to_string_plain,
+         numbers["float64"]),
+        ("fromFloatWithFormat FLOAT32 3", "number_to_string", "format_float",
+         lambda c: CS.fromFloatWithFormat(c, 3),
+         lambda c: ff.format_float_plain(c, 3), numbers["float32"]),
+        ("fromFloatWithFormat FLOAT64 0", "number_to_string", "format_float",
+         lambda c: CS.fromFloatWithFormat(c, 0),
+         lambda c: ff.format_float_plain(c, 0), numbers["float64_mid"]),
+        ("fromDecimal(18, 4)", "number_to_string", "from_decimal",
+         CS.fromDecimal,
+         cast_decimal_to_string.decimal_to_non_ansi_string_plain,
+         numbers["dec64"]),
+        ("fromDecimal(38, 6)", "number_to_string", "from_decimal",
+         CS.fromDecimal,
+         cast_decimal_to_string.decimal_to_non_ansi_string_plain,
+         numbers["dec128"]),
+        ("fromIntegersWithBase 10 INT64", "number_to_string",
+         "from_integer_base", lambda c: CS.fromIntegersWithBase(c, 10),
+         lambda c: cs.integer_to_string_with_base_plain(c, 10),
+         numbers["int64"]),
+        ("fromIntegersWithBase 16 INT8", "number_to_string",
+         "from_integer_base", lambda c: CS.fromIntegersWithBase(c, 16),
+         lambda c: cs.integer_to_string_with_base_plain(c, 16),
+         numbers["int8"]),
+    ]
+
+
+def cast_numbers(torch, n, seed, device):
+    """Random numbers for the to-string methods: float bit patterns over
+    every exponent with the specials, FLOAT64 of moderate size (for
+    format_float's full-width rows), DECIMAL64/128, INT64 and INT8, with
+    nulls."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) > 0.05
+    f32 = rng.integers(0, 2**32, n).astype(np.uint32)
+    f32[:6] = [0, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 1]
+    f64 = rng.integers(0, 2**64, n, dtype=np.uint64)
+    f64[:6] = [0, 1 << 63, 0x7FF0000000000000, 0xFFF0000000000000,
+               0x7FF8000000000000, 1]
+    mid = rng.standard_normal(n) * 10.0 ** rng.integers(-12, 15, n)
+    dec = rng.integers(-10**17, 10**17, n) // 10 ** rng.integers(0, 17, n)
+    lo = rng.integers(0, 2**32, (n, 4)).astype(np.uint32)
+    lo[:, 3] = (rng.integers(-2**31, 2**31, n) >> rng.integers(0, 31, n)
+                ).astype(np.int32).view(np.uint32)
+    return {
+        "float32": Column.from_numpy(f32.view(np.float32), dt.FLOAT32,
+                                     valid, device=device),
+        "float64": Column.from_numpy(f64.view(np.float64), dt.FLOAT64,
+                                     valid, device=device),
+        "float64_mid": Column.from_numpy(mid, dt.FLOAT64, valid,
+                                         device=device),
+        "dec64": Column.from_numpy(dec, dt.decimal(18, 4), valid,
+                                   device=device),
+        "dec128": Column.from_numpy(lo, dt.decimal(38, 6), valid,
+                                    device=device),
+        "int64": Column.from_numpy(rng.integers(-2**63, 2**63 - 1, n),
+                                   dt.INT64, valid, device=device),
+        "int8": Column.from_numpy(rng.integers(-128, 128, n).astype(np.int8),
+                                  dt.INT8, valid, device=device)}
+
+
+def cast_checks(torch, chk):
+    """Every method through `api.CastStrings` on the card, counters zeroed
+    just before and read just after: one launch each, no plain run; each
+    result equal to the plain version on the card's tensors and to the
+    CPU run, byte for byte; the edge corpus and the random rows; ANSI
+    errors equal to the CPU run's. -> (launches by kernel, by method)."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.ops import cast_cuda, cast_decimal, cast_string
+    cards = {"strings": cast_corpus(torch, CAST_N, 41, "cuda"),
+             "numbers": cast_numbers(torch, CAST_N, 42, "cuda")}
+    methods = cast_methods(torch, cards["strings"], cards["numbers"])
+    # the edge corpus alone, small, so that every edge row's result is
+    # looked at without the random rows around it
+    from spark_rapids_tpu_torch.columnar import Column
+    edge = cast_corpus(torch, 0, 43, "cuda")
+    small = cast_numbers(torch, 4099, 44, "cuda")
+    # the corpus without its first 7 rows (offsets that do not start at
+    # 0) and a column of empty strings (an empty chars buffer)
+    sliced = Column(dt.STRING, edge.length - 7, edge.data,
+                    edge.validity[7:], edge.offsets[7:])
+    empty = Column.from_pylist([b"", None, b""], dt.STRING, device="cuda")
+    for strings in (edge, sliced, empty):
+        for what, source, op, call, plain, col in cast_methods(
+                torch, strings, small):
+            if strings is not edge and not col.dtype.is_string:
+                continue
+            cast_same(torch, chk, source, call(col), plain(col),
+                      f"{what} edge")
+            cast_same(torch, chk, source, call(col), call(col.to("cpu")),
+                      f"{what} edge vs cpu")
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    results, by_method = [], {}
+    for m in methods:
+        before = sum(cast_cuda.LAUNCHES.values())
+        results.append((m, m[3](m[5])))
+        by_method[m[0]] = sum(cast_cuda.LAUNCHES.values()) - before
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    # a string format launches its two passes; a parse one kernel
+    want = {}
+    for m in methods:
+        per = 2 if m[1] == "number_to_string" else 1
+        want[m[2]] = want.get(m[2], 0) + per
+        require(by_method[m[0]] == per,
+                f"{m[0]}: {by_method[m[0]]} launches, want {per}")
+    require(counters["casts"] == want
+            and counted(counters) == sum(want.values()),
+            f"phase 13 counters {counters}, want casts {want}")
+    by_kernel = {}
+    for op, v in counters["casts"].items():
+        src = CAST_OP_SOURCE.get(op, "number_to_string")
+        by_kernel[src] = by_kernel.get(src, 0) + v
+    for (what, source, op, call, plain, col), got in results:
+        cast_same(torch, chk, source, got, plain(col), what)
+        cast_same(torch, chk, source, got, call(col.to("cpu")),
+                  f"{what} vs cpu")
+        log(f"  {what}: {col.length} rows equal to the plain version and "
+            f"the CPU run")
+    require(cast_cuda.PLAIN_CALLS["to_integer"] > 0, "no CPU run counted")
+    # ANSI: 1,048,576 printed numbers with nulls and one bad row deep in:
+    # its row and string, on the card as the CPU run raises them
+    rng = np.random.default_rng(46)
+    valid = rng.random(CAST_N) > 0.05
+    ints = np.char.mod("%d", rng.integers(-2**31, 2**31, CAST_N)).astype("S")
+    floats = np.char.mod("%g", rng.standard_normal(CAST_N)).astype("S")
+    decs = ints.copy()
+    for what, txt, bad, fn in (
+            ("toInteger", ints, 700_001, lambda c: cast_string.
+             string_to_integer(c, dt.INT32, ansi_mode=True)),
+            ("toDecimal", decs, 800_001, lambda c: cast_decimal.
+             string_to_decimal(c, 18, 0, ansi_mode=True)),
+            ("toFloat", floats, 900_001, lambda c: cast_string.
+             string_to_float(c, dt.FLOAT64, ansi_mode=True))):
+        txt[bad], valid[bad] = b"12x", True
+        col = printed_column(torch, txt, valid)
+        errs = []
+        for c in (col, col.to("cpu")):
+            try:
+                fn(c)
+                errs.append(None)
+            except cast_string.CastError as e:
+                errs.append((e.row_number, e.string_with_error))
+        require(errs[0] == errs[1] == (bad, "12x"),
+                f"ANSI {what}: card {errs[0]}, cpu {errs[1]}, want row "
+                f"{bad}")
+        log(f"  ANSI {what}: row {errs[0][0]} {errs[0][1]!r} on both")
+        chk.n += 1
+    return by_kernel, by_method
+
+
+def digit_counts(torch, out):
+    """The digit chars ('0'-'9') of each row of a STRING column (int64)."""
+    isd = ((out.data >= 48) & (out.data <= 57)).to(torch.int64)
+    cs = torch.zeros(isd.numel() + 1, dtype=torch.int64,
+                     device=out.data.device)
+    torch.cumsum(isd, 0, out=cs[1:])
+    off = out.offsets.to(torch.int64)
+    return cs[off[1:]] - cs[off[:-1]]
+
+
+def ryu_ops(torch, col, digits):
+    """Ryu's operations over a float column and its rows' printed digits
+    (RYU_OPS), from the plain version's shortest digits and removal turns
+    on the same values, PLAIN_CHUNK rows at a time."""
+    from spark_rapids_tpu_torch.ops.cast_float_to_string import ryu_removed
+    c = RYU_OPS[col.data.element_size()]
+    wide = col.data.element_size() == 8
+    total = 0
+    for a in range(0, col.length, PLAIN_CHUNK):
+        part = slice(a, a + PLAIN_CHUNK)
+        _, _, olength, _, nan, inf, zero, removed = ryu_removed(
+            col.data[part])
+        live = ~(nan | inf | zero)
+        if col.validity is not None:
+            live &= col.validity[part]
+        r = removed.to(torch.int64)
+        per = (3 * c["mul"] + c["tested"] * torch.clamp(r + 1, max=c["cap"])
+               + c["taken"] * r + (SPLIT_OPS if wide else 0)
+               + DIGIT_OPS * torch.minimum(digits[part],
+                                           olength.to(torch.int64)))
+        total += int(torch.where(live, per, 0).sum())
+    return total
+
+
+def cast_bounds(torch, col, out):
+    """(bytes, operations) of one call outside ANSI: inputs read once,
+    outputs written once, the least integer work (CAST_CHAR_OPS,
+    DIGIT_OPS, SPLIT_OPS, RYU_OPS) counted from `col` and `out`."""
+    n = col.length
+    valid_bytes = n if col.validity is not None else 0
+    if col.dtype.is_string:
+        chars = int(col.offsets[-1]) - int(col.offsets[0])
+        in_bytes = 4 * (n + 1) + chars + valid_bytes
+        ops_ = CAST_CHAR_OPS * chars
+    else:
+        in_bytes = col.data.numel() * col.data.element_size() + valid_bytes
+        ops_ = 0
+    if out.dtype.is_string:
+        out_bytes = 4 * (n + 1) + int(out.offsets[-1])
+        digits = digit_counts(torch, out)
+        if col.dtype.is_floating:
+            ops_ += ryu_ops(torch, col, digits)
+        else:
+            row_bytes = col.data.numel() * col.data.element_size() // n
+            valid = n if col.validity is None else int(col.validity.sum())
+            ops_ += (DIGIT_OPS * int(digits.sum())
+                     + (SPLIT_OPS * valid if row_bytes >= 8 else 0))
+    else:
+        out_bytes = out.data.numel() * out.data.element_size() + n
+    return in_bytes + out_bytes, ops_
+
+
+def cast_timing(torch, source, fn, plain, col, iters=10):
+    """Device ms (profiler records, L2 flushed; the launches a call makes
+    read off the counters), one call's ms, the plain version's ms over the
+    same rows (PLAIN_CHUNK rows a call, summed) and the bound."""
+    from spark_rapids_tpu_torch.ops import cast_cuda
+    cast_cuda.reset_counters()
+    out = fn(col)
+    torch.cuda.synchronize()
+    per_call = sum(cast_cuda.LAUNCHES.values())
+    ms = device_ms(torch, lambda: fn(col), CAST_KERNEL_NAMES[source], iters,
+                   per_call=per_call)
+    cms = call_ms(torch, lambda: fn(col), iters)
+    nbytes, ops_ = cast_bounds(torch, col, out)
+    del out
+    pms = 0.0
+    for a in range(0, col.length, PLAIN_CHUNK):
+        part = cast_slice(torch, col, min(PLAIN_CHUNK, col.length - a), a)
+        pms += time_cuda(torch, lambda: plain(part), 1)
+        torch.cuda.empty_cache()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_ / PEAK_INT_OPS_PER_S * 1e3
+    return {"rows": col.length, "launches_per_call": per_call, "ms": ms,
+            "call_ms": cms, "plain_ms": pms, "plain_chunk": PLAIN_CHUNK,
+            "bytes": nbytes, "ops": ops_, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": None}
+
+
+def cast_slice(torch, col, rows, start=0):
+    """`rows` rows of a column from row `start`."""
+    from spark_rapids_tpu_torch.columnar import Column
+    end = start + rows
+    v = None if col.validity is None else col.validity[start:end]
+    if col.dtype.is_string:
+        return Column(col.dtype, rows, col.data, v, col.offsets[start:end + 1])
+    return Column(col.dtype, rows, col.data[start:end], v)
+
+
+def casts_phase(torch, chk):
+    """Phase 13: the checks, then each kernel timed at the upstream
+    bench's 16,777,216 rows (string -> float also at 100,000,000)."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.ops import cast_string
+    t0 = time.perf_counter()
+    by_kernel, by_method = cast_checks(torch, chk)
+    log(f"casts: checks in {time.perf_counter() - t0:.1f} s")
+    CS = api.CastStrings
+    n = CAST_TIMED_N
+    t0 = time.perf_counter()
+    floats = printed_floats(torch, n)
+    log(f"  {n} printed floats made in {time.perf_counter() - t0:.1f} s")
+    nums = cast_numbers(torch, n, 45, "cuda")
+    ints = CS.fromIntegersWithBase(
+        cast_slice(torch, nums["int64"], n), 10)         # decimal strings
+    decs = CS.fromDecimal(nums["dec64"])
+    timing = {"cast_string": {}, "cast_decimal": {},
+              "cast_string_to_float": {}, "number_to_string": {}}
+    import importlib
+    ff = importlib.import_module("spark_rapids_tpu_torch.ops.format_float")
+    from spark_rapids_tpu_torch.ops import (cast_decimal,
+                                            cast_decimal_to_string,
+                                            cast_float_to_string)
+    cases = [
+        ("cast_string", "toInteger INT64", ints,
+         lambda c: CS.toInteger(c, False, dt.INT64),
+         lambda c: cast_string.string_to_integer_plain(c, dt.INT64)[0]),
+        ("cast_string", "toIntegersWithBase 10 INT64", ints,
+         lambda c: CS.toIntegersWithBase(c, 10, False, dt.INT64),
+         lambda c: cast_string.string_to_integer_with_base_plain(
+             c, dt.INT64, 10)),
+        ("cast_decimal", "toDecimal(18, 4)", decs,
+         lambda c: CS.toDecimal(c, False, 18, 4),
+         lambda c: cast_decimal.string_to_decimal_plain(c, 18, 4)[0]),
+        ("cast_decimal", "toDecimal(38, 10)", decs,
+         lambda c: CS.toDecimal(c, False, 38, 10),
+         lambda c: cast_decimal.string_to_decimal_plain(c, 38, 10)[0]),
+        ("cast_string_to_float", "toFloat FLOAT32", floats,
+         lambda c: CS.toFloat(c, False, dt.FLOAT32),
+         lambda c: cast_string.string_to_float_plain(c, dt.FLOAT32)[0]),
+        ("number_to_string", "fromFloat FLOAT32", nums["float32"],
+         CS.fromFloat, cast_float_to_string.float_to_string_plain),
+        ("number_to_string", "fromFloatWithFormat FLOAT64 2",
+         nums["float64_mid"], lambda c: CS.fromFloatWithFormat(c, 2),
+         lambda c: ff.format_float_plain(c, 2)),
+        ("number_to_string", "fromDecimal(18, 4)", nums["dec64"],
+         CS.fromDecimal,
+         cast_decimal_to_string.decimal_to_non_ansi_string_plain),
+        ("number_to_string", "fromIntegersWithBase 10 INT64",
+         nums["int64"], lambda c: CS.fromIntegersWithBase(c, 10),
+         lambda c: cast_string.integer_to_string_with_base_plain(c, 10))]
+    for source, what, col, fn, plain in cases:
+        t = cast_timing(torch, source, fn, plain, col)
+        timing[source][what] = t
+        log(f"  {what} at {col.length} rows: device {t['ms']:.3f} ms "
+            f"({t['launches_per_call']} launches), one call "
+            f"{t['call_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms (bytes {t['bytes_ms']:.4f}, operations "
+            f"{t['ops_ms']:.4f})")
+    # string -> float at the upstream bench's top size: its printed floats
+    # tiled to 100,000,000 rows
+    top = tiled_strings(torch, floats, CAST_TOP_N)
+    fn = next(c[3] for c in cases if c[1] == "toFloat FLOAT32")
+    out = fn(top)
+    torch.cuda.synchronize()
+    ms = device_ms(torch, lambda: fn(top), "cast_float_kernel", 5)
+    nbytes, ops_ = cast_bounds(torch, top, out)
+    want = fn(cast_slice(torch, top, floats.length))
+    cast_same(torch, chk, "cast_string_to_float",
+              cast_slice(torch, out, floats.length), want,
+              "toFloat at 100M rows, its first rows")
+    top_t = {"rows": CAST_TOP_N, "ms": ms, "bytes": nbytes, "ops": ops_,
+             "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                             ops_ / PEAK_INT_OPS_PER_S) * 1e3}
+    log(f"  toFloat FLOAT32 at {CAST_TOP_N} rows: device {ms:.3f} ms, bound "
+        f"{top_t['bound_ms']:.4f} ms")
+    return {"launches": by_kernel, "launches_by_method": by_method,
+            "timing": timing, "to_float_100m": top_t}
+
+
+def casts_kernels(casts, chk):
+    """The four kernels' entries of the `kernels` line."""
+    out = []
+    for source, forms in casts["timing"].items():
+        entry = {"name": source, "route": "cuda",
+                 "source": CAST_SOURCES[source],
+                 "replaces": CAST_REPLACES[source],
+                 "launches": casts["launches"][source],
+                 "exact": chk.max_err[source] == 0,
+                 "max_abs_err": chk.max_err[source],
+                 "library": "none: no PyTorch call parses or prints "
+                            "Spark's numbers",
+                 **summed(forms, tuple(forms), library_ms=None)}
+        if source == "cast_string_to_float":
+            entry["rows_100m"] = casts["to_float_100m"]
+        out.append(entry)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -6864,6 +7426,10 @@ def main(argv=None):
                     help="only run phase 12: the tracing ranges, the stats "
                          "store, the certifier and the capped programs' "
                          "CUDA graphs")
+    ap.add_argument("--casts", action="store_true",
+                    help="only run phase 13: CastStrings' eight methods on "
+                         "the cast kernels, against their plain versions "
+                         "and the CPU run, and the kernels timed")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -6938,6 +7504,13 @@ def _run(args):
         print(json.dumps({"card": smi, "feedback": fb, "checks": chk.n},
                          default=str), flush=True)
         return 0
+    if args.casts:
+        chk = Checks()
+        casts = casts_phase(torch, chk)
+        print(json.dumps({"card": smi, "kernels": casts_kernels(casts, chk),
+                          "casts": casts, "checks": chk.n}, default=str),
+              flush=True)
+        return 0
     if args.fuzz:
         chk = Checks()
         fz = fuzz_phase(torch, chk)
@@ -7001,6 +7574,7 @@ def _run(args):
     keys = keys_phase(torch, chk)
     keys["max_err"] = chk.max_err
     feedback = feedback_phase(torch, chk)
+    casts = casts_phase(torch, chk)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -7268,6 +7842,9 @@ def _run(args):
     # the three kernels' new kinds (phase 10): launches on the q3-strings
     # and q74 paths, timed at their shapes
     kernels.extend(keys_kernels(keys))
+    # the cast kernels (phase 13): launches on CastStrings' eight methods,
+    # timed at the upstream bench's 16,777,216 rows
+    kernels.extend(casts_kernels(casts, chk))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7297,7 +7874,7 @@ def _run(args):
                        "nds_q5_q23": nds_union, "decimal128": dec,
                        "fuzz": fz, "customer_hash": cust,
                        "row_conversion": rconv, "keys": keys,
-                       "feedback": feedback},
+                       "feedback": feedback, "casts": casts},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Java-facing facade of the PyTorch port: the classes of spark-rapids-jni's
 Java API, mapped onto the port's ops.
 
-Counterpart of `spark_rapids_tpu/api.py`. `DecimalUtils`, `Hash` (every
-kind Spark hashes: fixed-width, strings, DECIMAL128, structs and, for
-murmur3, lists) and `RowConversion` are ported; the other classes wait for
-their modules (ROADMAP queue A item 12).
+Counterpart of `spark_rapids_tpu/api.py`. `CastStrings`, `DecimalUtils`,
+`Hash` (every kind Spark hashes: fixed-width, strings, DECIMAL128, structs
+and, for murmur3, lists) and `RowConversion` are ported; the other classes
+wait for their modules (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
@@ -13,6 +13,47 @@ from typing import List, Sequence
 from . import ops
 from .columnar import Column, Table
 from .dtypes import DType
+
+
+class CastStrings:
+    """CastStrings.java:36-153."""
+
+    @staticmethod
+    def toInteger(cv: Column, ansiMode: bool, type: DType,
+                  strip: bool = True) -> Column:
+        return ops.string_to_integer(cv, type, ansi_mode=ansiMode, strip=strip)
+
+    @staticmethod
+    def toDecimal(cv: Column, ansiMode: bool, precision: int, scale: int,
+                  strip: bool = True) -> Column:
+        return ops.string_to_decimal(cv, precision, scale, ansi_mode=ansiMode,
+                                     strip=strip)
+
+    @staticmethod
+    def toFloat(cv: Column, ansiMode: bool, type: DType) -> Column:
+        return ops.string_to_float(cv, type, ansi_mode=ansiMode)
+
+    @staticmethod
+    def fromDecimal(cv: Column) -> Column:
+        return ops.decimal_to_non_ansi_string(cv)
+
+    @staticmethod
+    def fromFloat(cv: Column) -> Column:
+        return ops.float_to_string(cv)
+
+    @staticmethod
+    def fromFloatWithFormat(cv: Column, digits: int) -> Column:
+        return ops.format_float(cv, digits)
+
+    @staticmethod
+    def toIntegersWithBase(cv: Column, base: int, ansiEnabled: bool,
+                           type: DType) -> Column:
+        return ops.string_to_integer_with_base(cv, type, base=base,
+                                               ansi_mode=ansiEnabled)
+
+    @staticmethod
+    def fromIntegersWithBase(cv: Column, base: int) -> Column:
+        return ops.integer_to_string_with_base(cv, base=base)
 
 
 class DecimalUtils:

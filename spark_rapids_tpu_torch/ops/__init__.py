@@ -7,11 +7,23 @@ version on CPU ones. The hash takes every kind Spark hashes: strings,
 DECIMAL128, structs and (murmur3) lists too. The JCUDF row conversion
 (`convert_to_rows`, `convert_from_rows` and their fixed-width-optimized
 forms) selects the registry's `row_conversion` op: the row-conversion
-kernels on the card, the plain version on the CPU. The hash-join kernels
+kernels on the card, the plain version on the CPU. The casts of
+`CastStrings` (`string_to_integer`, `string_to_float`, `string_to_decimal`,
+`string_to_integer_with_base`, `integer_to_string_with_base`,
+`float_to_string`, `format_float`, `decimal_to_non_ansi_string`, and
+`CastError` for ANSI mode) run the cast kernels (`cast_cuda`) on CUDA
+columns and their plain versions on CPU ones. The hash-join kernels
 (`join_cuda`) are imported lazily, by the kernel registry, at the first
 `hash_join` dispatch.
 """
 from .aggregate import groupby_aggregate
+from .cast_decimal import string_to_decimal
+from .cast_decimal_to_string import decimal_to_non_ansi_string
+from .cast_float_to_string import float_to_string
+from .cast_string import (CastError, integer_to_string_with_base,
+                          string_to_float, string_to_integer,
+                          string_to_integer_with_base)
+from .format_float import format_float
 from .decimal_utils import (add_decimal128, sub_decimal128,
                             multiply_decimal128, divide_decimal128,
                             remainder_decimal128)
@@ -36,4 +48,7 @@ __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "multiply_decimal128", "divide_decimal128",
            "remainder_decimal128", "convert_to_rows",
            "convert_to_rows_fixed_width_optimized", "convert_from_rows",
-           "convert_from_rows_fixed_width_optimized"]
+           "convert_from_rows_fixed_width_optimized", "CastError",
+           "string_to_integer", "string_to_float", "string_to_decimal",
+           "string_to_integer_with_base", "integer_to_string_with_base",
+           "float_to_string", "format_float", "decimal_to_non_ansi_string"]

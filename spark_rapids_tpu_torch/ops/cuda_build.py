@@ -20,12 +20,21 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 SOURCES = ("hash_join", "row_hash", "partition_hist", "fused_select",
-           "topk", "groupby", "decimal128", "row_conversion")
+           "topk", "groupby", "decimal128", "row_conversion", "cast_string",
+           "cast_decimal", "cast_string_to_float", "number_to_string")
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per source: the float casts keep every multiply and add rounded on its
+# own, as the CPU computes them (no fused multiply-add)
+EXTRA_FLAGS = {"cast_string_to_float": ("-fmad=false",),
+               "number_to_string": ("-fmad=false",)}
+
+
+def flags(name: str) -> tuple:
+    return _FLAGS + EXTRA_FLAGS.get(name, ())
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -44,7 +53,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (_SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -64,7 +73,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_FLAGS, "-o", str(tmp), str(_SRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *flags(name), "-o", str(tmp),
+               str(_SRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -129,10 +129,13 @@ class ColumnRef(Expr):
     def _eval(self, table, alive=None):
         c = table[self.name]
         if c.dtype.is_string or c.dtype.is_nested:
+            # the reference evaluates such a column to its raw buffer
+            # (spark_rapids_tpu/plan/expr.py:104-105: a STRING's chars), no
+            # string semantics to port
             raise TypeError(f"{c.dtype!r} column {self.name!r} in an "
-                            "expression: plan expressions over strings and "
-                            "nested columns are not ported yet (ROADMAP "
-                            "queue A item 5)")
+                            "expression: plan expressions take fixed-width "
+                            "columns only (a stated limit: the reference "
+                            "has no string or nested semantics there)")
         return c.data, False
 
     def __repr__(self):

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (hash join,
-row hash, shuffle histogram, FusedSelect, TopK, groupby) against their plain
-PyTorch versions, and q3 and TPC-DS q3 through `PlanExecutor()` on the
-card.
+row hash, shuffle histogram, FusedSelect, TopK, groupby, the casts) against
+their plain PyTorch versions, and q3 and TPC-DS q3 through `PlanExecutor()`
+on the card.
 
 They import neither JAX nor the JAX package, so they also run where only
 the port's dependencies are installed, e.g. on the GPU machine:
@@ -11,6 +11,8 @@ the port's dependencies are installed, e.g. on the GPU machine:
 
 Without a CUDA device each test skips (decided inside the test).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,10 +23,14 @@ from spark_rapids_tpu_torch.columnar import Column
 from spark_rapids_tpu_torch import parallel
 from spark_rapids_tpu_torch.columnar import Table
 from spark_rapids_tpu_torch.ops import hash as thash
-from spark_rapids_tpu_torch.ops import (hash_cuda, join, join_cuda,
-                                        select, select_cuda, topk,
-                                        topk_cuda)
+from spark_rapids_tpu_torch.ops import (cast_cuda, cast_decimal,
+                                        cast_decimal_to_string,
+                                        cast_float_to_string, cast_string,
+                                        hash_cuda, join, join_cuda, select,
+                                        select_cuda, topk, topk_cuda)
 from spark_rapids_tpu_torch.parallel import partition_cuda
+# the module: the package's `format_float` is the function
+format_float = importlib.import_module("spark_rapids_tpu_torch.ops.format_float")
 from spark_rapids_tpu_torch.plan import PlanExecutor, col, lit
 from spark_rapids_tpu_torch.plan import stats as torch_stats
 
@@ -1742,3 +1748,169 @@ def test_exists_kernel_equals_plain_version_and_sort_route(kind, nr):
     # the wrappers never ran a plain version on the card
     assert join_cuda.PLAIN_CALLS == {"build": 0, "count": 0, "emit": 0,
                                      "exists": 0, "capped": 0}
+
+
+# ---- the casts (csrc/cast_string.cu, cast_decimal.cu,
+# cast_string_to_float.cu, number_to_string.cu) -------------------------------
+
+def _cast_strings(seed, n, device):
+    from torch_cast_inputs import EDGE, random_number_strings, with_nulls
+    vals = with_nulls(EDGE + random_number_strings(seed, n, max_digits=40),
+                      seed + 1)
+    return Column.from_pylist(vals, tdt.STRING, device=device)
+
+
+def _same_column(got, want):
+    """Data by its bits, validity and, for strings, offsets and chars."""
+    def bits(t):
+        if t.dtype in (torch.float32, torch.uint32):
+            return t.view(torch.int32)
+        if t.dtype in (torch.float64, torch.uint64):
+            return t.view(torch.int64)
+        return t
+    assert got.dtype == want.dtype
+    assert torch.equal(bits(got.data).cpu(), bits(want.data).cpu())
+    assert (got.validity is None) == (want.validity is None)
+    if got.validity is not None:
+        assert torch.equal(got.validity.cpu(), want.validity.cpu())
+    if got.offsets is not None:
+        assert torch.equal(got.offsets.cpu(), want.offsets.cpu())
+
+
+_STRING_CASTS = [
+    ("to_integer", lambda c: cast_string.string_to_integer(c, tdt.INT32),
+     lambda c: cast_string.string_to_integer_plain(c, tdt.INT32)[0]),
+    ("to_integer", lambda c: cast_string.string_to_integer(
+        c, tdt.INT64, strip=False),
+     lambda c: cast_string.string_to_integer_plain(c, tdt.INT64,
+                                                   strip=False)[0]),
+    ("to_integer_base", lambda c: cast_string.string_to_integer_with_base(
+        c, tdt.INT64, base=16),
+     lambda c: cast_string.string_to_integer_with_base_plain(c, tdt.INT64,
+                                                             16)),
+    ("to_float", lambda c: cast_string.string_to_float(c, tdt.FLOAT32),
+     lambda c: cast_string.string_to_float_plain(c, tdt.FLOAT32)[0]),
+    ("to_float", lambda c: cast_string.string_to_float(c, tdt.FLOAT64),
+     lambda c: cast_string.string_to_float_plain(c, tdt.FLOAT64)[0]),
+    ("to_decimal", lambda c: cast_decimal.string_to_decimal(c, 9, 2),
+     lambda c: cast_decimal.string_to_decimal_plain(c, 9, 2)[0]),
+    ("to_decimal", lambda c: cast_decimal.string_to_decimal(c, 38, 10),
+     lambda c: cast_decimal.string_to_decimal_plain(c, 38, 10)[0]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_STRING_CASTS)))
+def test_string_cast_kernels_equal_plain_version(case):
+    """Each string -> number kernel on an edge corpus and 20,000 random
+    rows, a slice whose offsets start past 0 too: equal to the plain
+    version on the same CUDA tensors and to the CPU run, and no plain run
+    counted."""
+    _need_card()
+    op, kernel, plain = _STRING_CASTS[case]
+    col = _cast_strings(case, 20_000, "cuda")
+    sliced = Column(tdt.STRING, col.length - 7, col.data,
+                    None if col.validity is None else col.validity[7:],
+                    col.offsets[7:])
+    for c in (col, sliced):
+        cast_cuda.reset_counters()
+        got = kernel(c)
+        torch.cuda.synchronize()
+        assert cast_cuda.LAUNCHES[op] == 1
+        assert sum(cast_cuda.PLAIN_CALLS.values()) == 0
+        _same_column(got, plain(c))
+        _same_column(got, kernel(c.to("cpu")))
+
+
+def test_string_cast_ansi_error_on_the_card():
+    _need_card()
+    col = Column.from_pylist(["1", None, " 2 ", "4.2", "x"], tdt.STRING,
+                             device="cuda")
+    with pytest.raises(cast_string.CastError) as e:
+        cast_string.string_to_integer(col, tdt.INT32, ansi_mode=True)
+    assert (e.value.row_number, e.value.string_with_error) == (3, "4.2")
+
+
+@pytest.mark.parametrize("cast", ["decimal", "float"])
+def test_string_cast_ansi_error_of_each_parse_kernel(cast):
+    """The decimal and float kernels flag the first bad row under ANSI as
+    the CPU run does; outside ANSI they write no flags and raise nothing."""
+    _need_card()
+    vals = ["1", None, " 2 ", "4.2x", "x"]
+    if cast == "decimal":
+        fn = (lambda c, a: cast_decimal.string_to_decimal(c, 9, 2,
+                                                          ansi_mode=a))
+    else:
+        fn = (lambda c, a: cast_string.string_to_float(c, tdt.FLOAT64,
+                                                       ansi_mode=a))
+    errs = []
+    for dev in ("cuda", "cpu"):
+        col = Column.from_pylist(vals, tdt.STRING, device=dev)
+        fn(col, False)
+        with pytest.raises(cast_string.CastError) as e:
+            fn(col, True)
+        errs.append((e.value.row_number, e.value.string_with_error))
+    assert errs[0] == errs[1] == (3, "4.2x")
+
+
+def _number_columns(device):
+    rng = np.random.default_rng(5)
+    n = 20_000
+    valid = rng.random(n) > 0.1
+    f32 = rng.integers(0, 2**32, n).astype(np.uint32).view(np.float32)
+    f64 = rng.integers(0, 2**63, n).astype(np.uint64).view(np.float64)
+    dec = rng.integers(-2**62, 2**62, n)
+    return {
+        "float32": Column.from_numpy(f32, tdt.FLOAT32, valid, device=device),
+        "float64": Column.from_numpy(f64, tdt.FLOAT64, valid, device=device),
+        "dec64": Column.from_numpy(dec, tdt.decimal(18, 4), valid,
+                                   device=device),
+        "dec128": Column.from_pylist(
+            [None if not v else int(x) * 10**19 + 7
+             for x, v in zip(dec, valid)], tdt.decimal(38, 6), device=device),
+        "int8": Column.from_numpy(rng.integers(-128, 128, n).astype(np.int8),
+                                  tdt.INT8, valid, device=device),
+        "uint64": Column.from_numpy(rng.integers(0, 2**63, n).astype(
+            np.uint64) * 2, tdt.DType(tdt.Kind.UINT64), valid,
+            device=device),
+    }
+
+
+_NUMBER_CASTS = [
+    ("from_float", "float32", lambda c: cast_float_to_string.float_to_string(
+        c), cast_float_to_string.float_to_string_plain),
+    ("from_float", "float64", lambda c: cast_float_to_string.float_to_string(
+        c), cast_float_to_string.float_to_string_plain),
+    ("format_float", "float32", lambda c: format_float.format_float(c, 3),
+     lambda c: format_float.format_float_plain(c, 3)),
+    ("format_float", "float64", lambda c: format_float.format_float(c, 0),
+     lambda c: format_float.format_float_plain(c, 0)),
+    ("from_decimal", "dec64",
+     cast_decimal_to_string.decimal_to_non_ansi_string,
+     cast_decimal_to_string.decimal_to_non_ansi_string_plain),
+    ("from_decimal", "dec128",
+     cast_decimal_to_string.decimal_to_non_ansi_string,
+     cast_decimal_to_string.decimal_to_non_ansi_string_plain),
+    ("from_integer_base", "int8",
+     lambda c: cast_string.integer_to_string_with_base(c, 16),
+     lambda c: cast_string.integer_to_string_with_base_plain(c, 16)),
+    ("from_integer_base", "uint64",
+     lambda c: cast_string.integer_to_string_with_base(c, 10),
+     lambda c: cast_string.integer_to_string_with_base_plain(c, 10)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_NUMBER_CASTS)))
+def test_number_to_string_kernel_equals_plain_version(case):
+    """The two passes of number_to_string.cu against the plain version on
+    the same CUDA tensors and the CPU run: offsets and chars byte for
+    byte, each pass counted."""
+    _need_card()
+    op, kind, kernel, plain = _NUMBER_CASTS[case]
+    col = _number_columns("cuda")[kind]
+    cast_cuda.reset_counters()
+    got = kernel(col)
+    torch.cuda.synchronize()
+    assert cast_cuda.LAUNCHES[op] == 2
+    assert sum(cast_cuda.PLAIN_CALLS.values()) == 0
+    _same_column(got, plain(col))
+    _same_column(got, kernel(col.to("cpu")))

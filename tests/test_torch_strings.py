@@ -312,7 +312,8 @@ def test_string_keys_and_expressions_raise_by_item(mode, optimize):
     """String keys (sort, join, group, TopK) run in the eager tier, equal to
     the JAX package's eager executor; in the capped tier they raise
     TypeError naming the reference's limit (its max_string_length under
-    jit), as string expressions raise naming ROADMAP queue A item 5."""
+    jit), as string expressions raise naming the stated limit (fixed-width
+    columns only)."""
     from spark_rapids_tpu import plan as jplan
     from spark_rapids_tpu.columnar import Table as JTable
     from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
@@ -352,7 +353,7 @@ def test_string_keys_and_expressions_raise_by_item(mode, optimize):
     d = b.scan("d", schema=["dk", "ds"])
     for rel in (f.filter(col("s") == col("s")),
                 f.project({"t": col("s")}).filter(col("t") > 0)):
-        with pytest.raises(TypeError, match="queue A item 5"):
+        with pytest.raises(TypeError, match="fixed-width columns only"):
             ex.execute(rel.build(), inputs)
     # as a payload, a string column passes a filter, a join and a sort
     rel = (f.filter(col("v") > 5).join(d, left_on="k", right_on="dk")
