@@ -11,6 +11,7 @@
     python3 chip_smoke.py --join-profile   # whole joins' kernels (A/B runs)
     python3 chip_smoke.py --feedback   # phase 12 only (ranges, store, graphs)
     python3 chip_smoke.py --casts      # phase 13 only (CastStrings' casts)
+    python3 chip_smoke.py --uri-json-bloom  # phase 14 only
     python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
@@ -264,6 +265,24 @@ in phases that each raise on failure:
    numpy; decimal and integer strings printed by the port itself) and
    string->float at 100,000,000 rows (those strings tiled). Alone:
    `python3 chip_smoke.py --casts`;
+14. parse_uri, from_json and the bloom filter (`ujb_phase`): the tests'
+   corpora (tests/torch_uri_json_inputs.py: the JAX tests' URI suites,
+   edge and fuzzed URIs with NUL, high, control and long rows, JSON
+   goldens and edge rows, INT64 values with nulls at 1, 3 and 64 longs)
+   on the card against the plain versions and the CPU run, the from_json
+   errors' texts; then the main path once through `api.ParseURI` (five
+   methods), `api.MapUtils` and `api.BloomFilter` (create, put, probe,
+   probe and merge through the wire bytes) over bench_parse_uri.py's mix
+   at hit rate 50 (1,048,576 rows), 1,048,576 JSON objects of 1-8 pairs
+   and bench_bloom_filter.py's 150,000,000 rows at 1 MiB, plus a 1 MiB
+   filter put from the first 2,097,152 of them (half its bits set) and
+   probed by all, counters zeroed just before and read just after (two
+   launches a parse and a from_json, one a put and a probe, no plain run);
+   its outputs, the bench's random strings and mixes at hit rates 0 and
+   100, and filters of 512 KiB to 8 MiB against the plain versions (their
+   slices), each filter full and half full, the half-full one probed by
+   rows never put (some must miss); then each kernel timed.
+   Alone: `python3 chip_smoke.py --uri-json-bloom`;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -468,7 +487,8 @@ class Checks:
                         "fused_select_keys": 0, "exists": 0,
                         "exists_large": 0, "exists_var": 0,
                         "cast_string": 0, "cast_decimal": 0,
-                        "cast_string_to_float": 0, "number_to_string": 0}
+                        "cast_string_to_float": 0, "number_to_string": 0,
+                        "parse_uri": 0, "map_utils": 0, "bloom_filter": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -711,15 +731,19 @@ def device_ms(torch, fn, kernel, iters, attempts=3, per_call=1):
     without every run's record (CUPTI sometimes drops a session's records)
     is taken again, at most `attempts` times; if none is whole, the time
     is the mean of the most complete profile's records times `per_call`,
-    as long as it holds at least half of them, else one call's time
-    between CUDA events (the log says which)."""
+    as long as it holds at least half of them (the log says so), else the
+    phase fails."""
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     want = iters * per_call
     best = []
-    for _ in range(attempts):
+    # profiles with less than half the records are taken again up to
+    # twice as often
+    for attempt in range(2 * attempts):
+        if attempt >= attempts and 2 * len(best) >= want:
+            break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -741,9 +765,10 @@ def device_ms(torch, fn, kernel, iters, attempts=3, per_call=1):
         log(f"  (the time of {kernel} is the mean of {len(best)} of {want} "
             f"runs recorded)")
         return sum(best) / len(best) * per_call / 1e3
-    log(f"  (the profiler kept too few runs of {kernel}: its time is one "
-        f"call's between CUDA events, launch included)")
-    return call_ms(torch, fn, iters)
+    # one call's time between CUDA events is no device time: too few
+    # records is no measurement
+    require(False, f"the profiler kept {len(best)} of {want} runs of "
+            f"{kernel} in {2 * attempts} profiles")
 
 
 def device_by_name(torch, fn, iters, attempts=3):
@@ -753,8 +778,8 @@ def device_by_name(torch, fn, iters, attempts=3):
     kernel is left out. A profile that comes back without a record of every
     call (CUPTI sometimes drops a session's records) is taken again; if
     none is whole, each name's time is the mean of the most complete
-    profile's records of it times its runs a call, and with no record at
-    all one call's time between CUDA events (the log says which)."""
+    profile's records of it times its runs a call (the log says so); with
+    no record at all the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_events(body):
@@ -776,7 +801,11 @@ def device_by_name(torch, fn, iters, attempts=3):
     fn()
     torch.cuda.synchronize()
     best = {}
-    for _ in range(attempts):
+    # empty profiles are taken again up to twice as often as partial ones
+    for attempt in range(2 * attempts):
+        if attempt >= attempts and best:
+            break
+
         def body():
             for _ in range(iters):
                 flush_l2(torch)
@@ -788,7 +817,9 @@ def device_by_name(torch, fn, iters, attempts=3):
             short = name.split("(")[0].removeprefix("void ").replace(" ", "")
             ms, k = by_name.get(short, (0.0, 0))
             by_name[short] = (ms + us / 1e3, k + 1)
-        if all(k % iters == 0 for _, k in by_name.values()):
+        # a profile with no record (CUPTI dropped the session) is no
+        # measurement of 0 ms
+        if by_name and all(k % iters == 0 for _, k in by_name.values()):
             per_call = {name: ms / iters for name, (ms, _) in by_name.items()}
             return sum(per_call.values()), per_call
         log(f"  (the profiler recorded {sorted(by_name.items())} for {iters} "
@@ -803,9 +834,10 @@ def device_by_name(torch, fn, iters, attempts=3):
             f"{ {name: k for name, (_, k) in best.items()} } for {iters} "
             f"calls)")
         return sum(per_call.values()), per_call
-    log("  (the profiler recorded no device event: the time is one call's "
-        "between CUDA events, launch included)")
-    return call_ms(torch, fn, iters), {}
+    # one call's time between CUDA events holds the launch and the host's
+    # share: it is not a device time, so no profile is no measurement
+    require(False, f"the profiler recorded no device event of the call in "
+            f"{2 * attempts} profiles")
 
 
 def join_shapes(torch, q3_tables):
@@ -3644,6 +3676,8 @@ def kernel_counters():
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
     from spark_rapids_tpu_torch.ops import row_conversion_cuda
     from spark_rapids_tpu_torch.ops import cast_cuda, topk, topk_cuda
+    from spark_rapids_tpu_torch.ops import (bloom_filter_cuda, map_utils_cuda,
+                                            parse_uri_cuda)
     from spark_rapids_tpu_torch.parallel import partition_cuda
     return {"groupby": dict(groupby_cuda.LAUNCHES),
             "hash_join": dict(join_cuda.LAUNCHES),
@@ -3661,6 +3695,9 @@ def kernel_counters():
             "row_conversion": dict(row_conversion_cuda.LAUNCHES),
             "casts": dict((k, v) for k, v in cast_cuda.LAUNCHES.items()
                           if v),
+            "parse_uri": dict(parse_uri_cuda.LAUNCHES),
+            "map_utils": dict(map_utils_cuda.LAUNCHES),
+            "bloom_filter": dict(bloom_filter_cuda.LAUNCHES),
             "plain": {"groupby": dict(groupby_cuda.PLAIN_CALLS),
                       "hash_join": dict(join_cuda.PLAIN_CALLS),
                       "fused_select": dict(select.PLAIN_CALLS),
@@ -3671,7 +3708,10 @@ def kernel_counters():
                       "decimal128": dict(decimal_cuda.PLAIN_CALLS),
                       "row_conversion": dict(
                           row_conversion_cuda.PLAIN_CALLS),
-                      "casts": dict(cast_cuda.PLAIN_CALLS)}}
+                      "casts": dict(cast_cuda.PLAIN_CALLS),
+                      "parse_uri": dict(parse_uri_cuda.PLAIN_CALLS),
+                      "map_utils": dict(map_utils_cuda.PLAIN_CALLS),
+                      "bloom_filter": dict(bloom_filter_cuda.PLAIN_CALLS)}}
 
 
 def reset_kernel_counters():
@@ -3680,10 +3720,13 @@ def reset_kernel_counters():
     from spark_rapids_tpu_torch.ops import segment_sum_cuda, select_cuda
     from spark_rapids_tpu_torch.ops import row_conversion_cuda, topk_cuda
     from spark_rapids_tpu_torch.ops import cast_cuda
+    from spark_rapids_tpu_torch.ops import (bloom_filter_cuda, map_utils_cuda,
+                                            parse_uri_cuda)
     from spark_rapids_tpu_torch.parallel import partition_cuda
     for m in (groupby_cuda, hash_cuda, join_cuda, segment_sum_cuda,
               select_cuda, topk_cuda, partition_cuda, decimal_cuda,
-              row_conversion_cuda, cast_cuda):
+              row_conversion_cuda, cast_cuda, parse_uri_cuda, map_utils_cuda,
+              bloom_filter_cuda):
         m.reset_counters()
 
 
@@ -7373,6 +7416,734 @@ def casts_kernels(casts, chk):
     return out
 
 
+# ---- phase 14: parse_uri, from_json and the bloom filter --------------------
+
+UJB_N = 1 << 20                    # bench_parse_uri.py's rows; the JSON rows
+URI_HIT_RATES = (0, 50, 100)       # bench_parse_uri.py's hit_rate axis
+BLOOM_ROWS = 150_000_000           # the upstream bloom_filter.cu bench's rows
+BLOOM_HASHES = 3
+BLOOM_BYTES = (512 << 10, 1 << 20, 2 << 20, 4 << 20, 8 << 20)
+BLOOM_SLICES = 4                   # the plain version's slices of those rows
+# 150,000,000 rows x 3 hashes set every bit of a filter up to 2 MiB, where
+# a probe is all True and a put all ones whatever the hash: so each filter
+# is also built from its first bits / BLOOM_FILL rows (1 - e^-0.75, about
+# 53% of its bits set) and probed by every row, most of them never put
+BLOOM_FILL = 4
+URI_CHUNK = 131_072                # the plain versions' rows a call (their
+JSON_CHUNK = 32_768                # (n, L) planes)
+JSON_PAIRS = 65_536                # generated pairs the JSON objects draw
+JSON_PAIR_BYTES = 120              # 8 pairs stay within 1,024 bytes a row
+# tests/torch_uri_json_inputs.py `json_objects`' spacing styles:
+# (between pairs, between a key and its value)
+JSON_SEPS = ((", ", ": "), (",", ":"), (" , ", " : "))
+UJB_SOURCES = {k: f"spark_rapids_tpu_torch/ops/csrc/{k}.cu"
+               for k in ("parse_uri", "map_utils", "bloom_filter")}
+UJB_REPLACES = {
+    "parse_uri": "none: spark_rapids_tpu/ops/parse_uri.py:215 "
+                 "(_parse_kernel), :509 (_find_param_kernel) (XLA ops, no "
+                 "pallas_call)",
+    "map_utils": "none: spark_rapids_tpu/ops/map_utils.py:42 "
+                 "(_structure_kernel), :199 (_extract_pairs) (XLA ops, no "
+                 "pallas_call)",
+    "bloom_filter": "none: spark_rapids_tpu/ops/bloom_filter.py:67 "
+                    "(_spark_bit_indexes), :80 (bloom_filter_put), :132 "
+                    "(bloom_filter_probe) (XLA ops, no pallas_call)"}
+# The least integer work, for the bound, in 32-bit instructions:
+# - a URI or JSON byte: its load and the compares that classify it (the
+#   charset and UTF-8 tests or the automaton and the depth, then the
+#   grammar's or the trim's class test): 8;
+# - a bloom row: two murmur3 hashes of a long (two rounds of two multiplies,
+#   two rotates, two xors and a multiply-add, then fmix's three shifts and
+#   xors and two multiplies: 19 each), then a bit index (a multiply-add,
+#   the sign test and flip, the modulo by the filter's constant size as a
+#   high product, a multiply and a subtract, the word index and bit: 11)
+#   a hash: 38 + 11 k. The atomics' and the probe loads' trips to the L2
+#   count as bytes of the filter only.
+# Bytes: each input buffer read once (offsets, chars, validity, data, the
+# filter), each output written once (offsets, chars, validity, the
+# filter's words, the probe's bools).
+URI_CHAR_OPS = 8
+JSON_CHAR_OPS = 8
+BLOOM_HASH_OPS = 38
+BLOOM_INDEX_OPS = 11
+
+# bench_parse_uri.py's inputs (benchmarks/common.py:371-385 `uri_mix` and
+# its pools, and `_random_strings`), copied: this script imports nothing
+# of the benchmarks
+URI_VALID = (b"https://www.example.com/s/query?param0=0&param1=1&param2=2"
+             b"&param3=3&param4=4&param5=5&param6=6&param7=7&param8=8")
+URI_GARBAGE = [
+    b"abcdefghijklmnopqrstuvwxyz 01234" * 8,
+    b"",
+    "AbcéDEFGHIJKLMNOPQRSTUVWXYZ 01".encode() * 8,
+    b"9876543210,abcdefghijklmnopqrstU" * 8,
+]
+URI_RANDOM_ALPHABET = b"abcdefghijklmnopqrstuvwxyz0123456789:/?.&=%"
+
+
+def tests_on_path():
+    """The repo's tests/ on sys.path, for its JAX-free input helpers."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if d not in sys.path:
+        sys.path.insert(0, d)
+
+
+def pooled_strings(torch, pool, idx, device="cuda"):
+    """A STRING column whose row i is pool[idx[i]] (bytes), gathered on
+    the card."""
+    from spark_rapids_tpu_torch.columnar import make_string_column
+    lens = np.array([len(p) for p in pool], np.int64)
+    starts = np.zeros(len(pool), np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    chars = torch.from_numpy(np.frombuffer(b"".join(pool) or b"\0",
+                                           np.uint8).copy()).to(device)
+    idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+    row_lens = torch.from_numpy(lens).to(device)[idx_t]
+    offsets = torch.zeros(idx_t.numel() + 1, dtype=torch.int64, device=device)
+    torch.cumsum(row_lens, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    row = torch.repeat_interleave(torch.arange(idx_t.numel(), device=device),
+                                  row_lens, output_size=total)
+    src = (torch.from_numpy(starts).to(device)[idx_t][row]
+           + torch.arange(total, device=device) - offsets[:-1][row])
+    return make_string_column(chars[src], offsets.to(torch.int32))
+
+
+def uri_mix(torch, n, hit_rate, seed=6):
+    """bench_parse_uri.py's mix: hit_rate% of URI_VALID, the rest drawn
+    from the garbage pool (the bench's draws, seed 6)."""
+    rng = np.random.default_rng(seed)
+    hits = rng.random(n) < hit_rate / 100.0
+    pick = rng.integers(0, len(URI_GARBAGE), size=n)
+    return pooled_strings(torch, [URI_VALID] + URI_GARBAGE,
+                          np.where(hits, 0, pick + 1))
+
+
+def random_uri_strings(torch, n, seed=5):
+    """bench_parse_uri.py's random strings: 0-31 bytes of its alphabet, a
+    row (its distribution, drawn in one call)."""
+    from spark_rapids_tpu_torch.columnar import make_string_column
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 32, size=n)
+    alpha = np.frombuffer(URI_RANDOM_ALPHABET, np.uint8)
+    chars = alpha[rng.integers(0, alpha.size, size=int(lens.sum()))]
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    return make_string_column(torch.from_numpy(chars).to("cuda"),
+                              torch.from_numpy(offsets).to("cuda"))
+
+
+def uri_param_column(torch, n, seed=8):
+    """A parameter a row for the column form: the mix's keys param0-param8,
+    a key it lacks, '' and nulls."""
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    pool = [f"param{i}".encode() for i in range(9)] + [b"zz", b""]
+    rng = np.random.default_rng(seed)
+    col = pooled_strings(torch, pool, rng.integers(0, len(pool), n))
+    valid = torch.from_numpy(rng.random(n) >= 0.05).to("cuda")
+    return Column(dt.STRING, n, col.data, valid, col.offsets)
+
+
+def json_rows(torch, n, seed=12, device="cuda"):
+    """n JSON objects of 1-8 pairs, each drawn on its own: a spacing style
+    of tests/torch_uri_json_inputs.py `json_objects`, then its pairs from
+    JSON_PAIRS generated pairs printed in that style (keys k0-k11, so some
+    repeat within a row; values nested to 8 levels by its `json_value`),
+    put together on the card."""
+    tests_on_path()
+    from torch_uri_json_inputs import json_value
+    from spark_rapids_tpu_torch.columnar import make_string_column
+    rng = np.random.default_rng(seed)
+    pairs = []
+    while len(pairs) < JSON_PAIRS:
+        key = json.dumps(f"k{int(rng.integers(0, 12))}")
+        value = json.dumps(json_value(rng, 1))
+        if len(key) + len(value) + 3 <= JSON_PAIR_BYTES:
+            pairs.append((key, value))
+    # tokens: "{", "}", the three pair separators, then the pairs in each
+    # style; a row is "{", pair, separator, ..., pair, "}"
+    pool = [b"{", b"}"] + [sep.encode() for sep, _ in JSON_SEPS] + [
+        (key + kv + value).encode() for _, kv in JSON_SEPS
+        for key, value in pairs]
+    k = rng.integers(1, 9, n)
+    style = rng.integers(0, len(JSON_SEPS), n)
+    ntok = 2 * k + 1
+    first = np.zeros(n + 1, np.int64)
+    np.cumsum(ntok, out=first[1:])
+    row = np.repeat(np.arange(n), ntok)
+    j = np.arange(first[-1]) - first[:-1][row]
+    draw = rng.integers(0, JSON_PAIRS, int(first[-1]))
+    idx = np.where(j % 2 == 1, 5 + style[row] * JSON_PAIRS + draw,
+                   2 + style[row])
+    idx[j == 0] = 0
+    idx[j == ntok[row] - 1] = 1
+    toks = pooled_strings(torch, pool, idx, device)
+    return make_string_column(
+        toks.data, toks.offsets[torch.from_numpy(first).to(device)])
+
+
+def rows_of(col, a, b):
+    """Rows [a, b) of a STRING column (its chars buffer shared)."""
+    from spark_rapids_tpu_torch.columnar import Column
+    v = None if col.validity is None else col.validity[a:b]
+    return Column(col.dtype, b - a, col.data, v, col.offsets[a:b + 1])
+
+
+def same_string_rows(torch, chk, kernel, got, a, b, want, what):
+    """Rows [a, b) of `got` equal `want` (a column of those rows): offsets
+    (rebased), chars and validity."""
+    off = got.offsets[a:b + 1].to(torch.int64)
+    chk.equal(kernel, (off - off[0]).to(torch.int32), want.offsets,
+              f"{what} offsets")
+    chk.equal(kernel, got.data[int(off[0]):int(off[-1])], want.data,
+              f"{what} chars")
+    chk.equal(kernel, got.null_mask[a:b], want.null_mask, f"{what} validity")
+
+
+def same_map_rows(torch, chk, got, a, b, want, what):
+    """Rows [a, b) of a from_json result equal `want`: list offsets
+    (rebased), validity, keys and values."""
+    off = got.offsets[a:b + 1].to(torch.int64)
+    p0, p1 = int(off[0]), int(off[-1])
+    chk.equal("map_utils", (off - p0).to(torch.int32), want.offsets,
+              f"{what} list offsets")
+    chk.equal("map_utils", got.null_mask[a:b], want.null_mask,
+              f"{what} validity")
+    for g, w, name in zip(got.children[0].children,
+                          want.children[0].children, ("keys", "values")):
+        same_string_rows(torch, chk, "map_utils", g, p0, p1, w,
+                         f"{what} {name}")
+
+
+def uri_calls(params):
+    """(form, kernel call through api.ParseURI, plain call) of the five
+    methods; the column form against `params` (same rows)."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch.ops import parse_uri as pu
+    P = api.ParseURI
+    return [
+        ("protocol", P.parseURIProtocol, pu.parse_uri_to_protocol_plain),
+        ("host", P.parseURIHost, pu.parse_uri_to_host_plain),
+        ("query", P.parseURIQuery, pu.parse_uri_to_query_plain),
+        ("query_literal", lambda c: P.parseURIQueryWithLiteral(c, "param4"),
+         lambda c: pu.parse_uri_to_query_literal_plain(c, "param4")),
+        ("query_column",
+         lambda c, p=params: P.parseURIQueryWithColumn(c, p),
+         None)]
+
+
+def uri_check(torch, chk, col, params, outs, what):
+    """Each of the five forms' output on `col` (`outs`, by form) against
+    the plain version over URI_CHUNK-row slices."""
+    from spark_rapids_tpu_torch.ops import parse_uri as pu
+    for form, _, plain in uri_calls(params):
+        for a in range(0, col.length, URI_CHUNK):
+            b = min(a + URI_CHUNK, col.length)
+            part = rows_of(col, a, b)
+            want = (plain(part) if plain is not None else
+                    pu.parse_uri_to_query_column_plain(
+                        part, rows_of(params, a, b)))
+            same_string_rows(torch, chk, "parse_uri", outs[form], a, b, want,
+                             f"{what} {form} rows {a}-{b}")
+        torch.cuda.empty_cache()
+
+
+def json_check(torch, chk, col, got, what):
+    from spark_rapids_tpu_torch.ops import map_utils as mu
+    for a in range(0, col.length, JSON_CHUNK):
+        b = min(a + JSON_CHUNK, col.length)
+        same_map_rows(torch, chk, got, a, b,
+                      mu.from_json_plain(rows_of(col, a, b)),
+                      f"{what} rows {a}-{b}")
+    torch.cuda.empty_cache()
+
+
+def bloom_plain_put(torch, bf, col):
+    """The plain put over BLOOM_SLICES slices of the rows, ORed."""
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import bloom_filter as bfm
+    words = bf.words.clone()
+    step = -(-col.length // BLOOM_SLICES)
+    for a in range(0, col.length, step):
+        b = min(a + step, col.length)
+        v = None if col.validity is None else col.validity[a:b]
+        part = Column(col.dtype, b - a, col.data[a:b], v)
+        words |= bfm.bloom_filter_put_plain(bf, part).words
+        torch.cuda.empty_cache()
+    return words
+
+
+def head_rows(col, n):
+    """The first n rows of a fixed-width column."""
+    from spark_rapids_tpu_torch.columnar import Column
+    v = None if col.validity is None else col.validity[:n]
+    return Column(col.dtype, n, col.data[:n], v)
+
+
+def bloom_fill(torch, words):
+    """The share of a filter's bits that are set."""
+    table = torch.tensor([bin(i).count("1") for i in range(256)],
+                         dtype=torch.int64, device=words.device)
+    return int(table[words.view(torch.uint8).long()].sum()) / (
+        64 * words.numel())
+
+
+def bloom_partial_check(torch, chk, col, rows, part, found, what):
+    """A filter put from `col`'s first `rows` rows (`part`) and probed by
+    all of them (`found`): the words equal the plain put's (its slices
+    ORed) and leave bits clear, the probe equals the plain probe, finds
+    every valid put row and misses some of the others -> the share of
+    those others found."""
+    from spark_rapids_tpu_torch.ops import bloom_filter as bfm
+    empty = bfm.bloom_filter_create(part.num_hashes, part.num_longs,
+                                    part.words.device)
+    chk.equal("bloom_filter", part.words,
+              bloom_plain_put(torch, empty, head_rows(col, rows)),
+              f"{what} put of {rows} rows")
+    fill = bloom_fill(torch, part.words)
+    require(0 < fill < 1 and bool((part.words != -1).any()),
+            f"{what}: {fill} of the bits set by {rows} rows")
+    chk.equal("bloom_filter", found.data, bloom_plain_probe(torch, part, col),
+              f"{what} probe by {col.length} rows")
+    valid = (torch.ones(col.length, dtype=torch.bool, device=col.data.device)
+             if col.validity is None else col.validity)
+    require(bool(found.data[:rows][valid[:rows]].all()),
+            f"{what}: a put row not found")
+    rest = found.data[rows:][valid[rows:]]
+    hits = int(rest.sum())
+    require(0 < hits < rest.numel(), f"{what}: {hits} of {rest.numel()} "
+            f"rows never put found")
+    return fill, hits / rest.numel()
+
+
+def bloom_plain_probe(torch, bf, col):
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import bloom_filter as bfm
+    step = -(-col.length // BLOOM_SLICES)
+    found = []
+    for a in range(0, col.length, step):
+        b = min(a + step, col.length)
+        found.append(bfm.bloom_filter_probe_plain(
+            Column(col.dtype, b - a, col.data[a:b]), bf).data)
+        torch.cuda.empty_cache()
+    return torch.cat(found)
+
+
+def ujb_corpus_checks(torch, chk):
+    """The tests' corpora on the card: every form against the plain
+    version on the card's tensors and the CPU run; the from_json errors'
+    texts; the bloom filter with nulls at 1, 3 and 64 longs."""
+    tests_on_path()
+    from torch_uri_json_inputs import (int64_values, json_corpus, uri_corpus,
+                                       uri_params)
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import bloom_filter as bfm
+    from spark_rapids_tpu_torch.ops import map_utils as mu
+    from spark_rapids_tpu_torch.ops import parse_uri as pu
+    col = Column.from_pylist(uri_corpus(), dt.STRING, device="cuda")
+    params = Column.from_pylist(uri_params(3, col.length), dt.STRING,
+                                device="cuda")
+    for form, call, plain in uri_calls(params):
+        got = call(col)
+        if form == "query_column":
+            want_plain = pu.parse_uri_to_query_column_plain(col, params)
+            want_cpu = api.ParseURI.parseURIQueryWithColumn(
+                col.to("cpu"), params.to("cpu"))
+        else:
+            want_plain, want_cpu = plain(col), call(col.to("cpu"))
+        for want, how in ((want_plain, "plain"), (want_cpu, "cpu")):
+            same_string_rows(torch, chk, "parse_uri", got, 0, col.length,
+                             want.to("cuda"), f"URI corpus {form} vs {how}")
+    # offsets that start past 0, every row null, every row empty
+    edge = {"sliced": rows_of(col, 7, col.length),
+            "nulls": Column.from_pylist([None] * 5, dt.STRING,
+                                        device="cuda"),
+            "empty": Column.from_pylist([b""] * 5, dt.STRING, device="cuda")}
+    for name, c in edge.items():
+        for form, call, plain in uri_calls(params)[:4]:
+            same_string_rows(torch, chk, "parse_uri", call(c), 0, c.length,
+                             plain(c), f"URI {name} {form} vs plain")
+    js = Column.from_pylist(json_corpus(), dt.STRING, device="cuda")
+    got = api.MapUtils.extractRawMapFromJsonString(js)
+    for want, how in ((mu.from_json_plain(js), "plain"),
+                      (mu.from_json(js.to("cpu")), "cpu")):
+        same_map_rows(torch, chk, got, 0, js.length, want.to("cuda"),
+                      f"JSON corpus vs {how}")
+    for name, c in {**edge, "sliced": rows_of(js, 7, js.length)}.items():
+        same_map_rows(torch, chk, api.MapUtils.extractRawMapFromJsonString(c),
+                      0, c.length, mu.from_json_plain(c),
+                      f"JSON {name} vs plain")
+    for rows in (['{"a": 1}', '{"a": 1', '{"a" 1}'], ['{"k": 1}', '{k: 2}'],
+                 ['{"a" 1}', None, '{"a": "x}']):
+        msgs = []
+        for dev in ("cuda", "cpu"):
+            try:
+                mu.from_json(Column.from_pylist(rows, dt.STRING, device=dev))
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+        require(msgs[0] is not None and msgs[0] == msgs[1],
+                f"from_json errors: card {msgs[0]!r}, cpu {msgs[1]!r}")
+        chk.n += 1
+    v, valid = int64_values(9, 100_003)
+    vals = Column.from_numpy(v, dt.INT64, valid, device="cuda")
+    none = Column.from_numpy(v[:9], dt.INT64, np.zeros(9, bool),
+                             device="cuda")
+    chk.equal("bloom_filter", api.BloomFilter.put(
+        bfm.bloom_filter_create(BLOOM_HASHES, 3, "cuda"), none).words,
+              torch.zeros(3, dtype=torch.int64, device="cuda"),
+              "bloom put of every row null")
+    for num_longs in (1, 3, 64):
+        bf = api.BloomFilter.put(
+            bfm.bloom_filter_create(BLOOM_HASHES, num_longs, "cuda"), vals)
+        cpu = bfm.bloom_filter_put(
+            bfm.bloom_filter_create(BLOOM_HASHES, num_longs, "cpu"),
+            vals.to("cpu"))
+        chk.equal("bloom_filter", bf.words,
+                  bfm.bloom_filter_put_plain(bf, vals).words,
+                  f"bloom {num_longs} longs put vs plain")
+        chk.equal("bloom_filter", bf.words.cpu(), cpu.words,
+                  f"bloom {num_longs} longs put vs cpu")
+        found = api.BloomFilter.probe(bf, vals)
+        chk.equal("bloom_filter", found.data,
+                  bfm.bloom_filter_probe_plain(vals, bf).data,
+                  f"bloom {num_longs} longs probe vs plain")
+        chk.equal("bloom_filter", bfm.bloom_filter_serialize(bf).cpu(),
+                  bfm.bloom_filter_serialize(cpu),
+                  f"bloom {num_longs} longs wire bytes vs cpu")
+        # 100,003 rows fill these filters: a filter of the first rows only
+        rows = num_longs * 64 // BLOOM_FILL
+        part = api.BloomFilter.put(
+            bfm.bloom_filter_create(BLOOM_HASHES, num_longs, "cuda"),
+            head_rows(vals, rows))
+        found = api.BloomFilter.probe(part, vals)
+        bloom_partial_check(torch, chk, vals, rows, part, found,
+                            f"bloom {num_longs} longs")
+        cpu = bfm.bloom_filter_put(
+            bfm.bloom_filter_create(BLOOM_HASHES, num_longs, "cpu"),
+            head_rows(vals.to("cpu"), rows))
+        chk.equal("bloom_filter", part.words.cpu(), cpu.words,
+                  f"bloom {num_longs} longs put of {rows} rows vs cpu")
+        chk.equal("bloom_filter", found.data.cpu(),
+                  bfm.bloom_filter_probe(vals.to("cpu"), cpu).data,
+                  f"bloom {num_longs} longs probe of {rows} rows vs cpu")
+    torch.cuda.synchronize()
+
+
+def ujb_inputs(torch):
+    """The phase's data, made here from seeds: bench_parse_uri.py's random
+    strings and its mix at hit rates 0, 50 and 100 (1,048,576 rows each),
+    a parameter column, 1,048,576 JSON objects, and the bloom bench's
+    150,000,000 rows (xxhash64 of random INT64 values, seed 11, as
+    bench_bloom_filter.py makes them)."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    cols = {"random": random_uri_strings(torch, UJB_N)}
+    for rate in URI_HIT_RATES:
+        cols[f"mix{rate}"] = uri_mix(torch, UJB_N, rate)
+    cols["params"] = uri_param_column(torch, UJB_N)
+    cols["json"] = json_rows(torch, UJB_N)
+    rng = np.random.default_rng(11)
+    raw = rng.integers(-2**63, 2**63 - 1, size=BLOOM_ROWS, dtype=np.int64,
+                       endpoint=True)
+    src = Column.from_numpy(raw, dt.INT64, device="cuda")
+    del raw
+    cols["bloom"] = api.Hash.xxhash64([src])
+    torch.cuda.synchronize()
+    return cols
+
+
+def ujb_main_path(torch, cols):
+    """The main path once through the api, every counter zeroed just
+    before and read just after: ParseURI's five methods over the mix at
+    hit rate 50, from_json over the JSON rows, and a 1 MiB filter created,
+    put, probed (also through its wire bytes) and merged with its wire
+    bytes at 150,000,000 rows, and a 1 MiB filter put from the first
+    rows that fill about half of it (a join's build side) and probed by
+    all 150,000,000 -> (outputs, counters)."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch.ops import bloom_filter as bfm
+    B = api.BloomFilter
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    outs = {form: call(cols["mix50"])
+            for form, call, _ in uri_calls(cols["params"])}
+    jmap = api.MapUtils.extractRawMapFromJsonString(cols["json"])
+    bits, dev = (1 << 20) * 8, cols["bloom"].device
+    bf = B.put(B.create(BLOOM_HASHES, bits, device=dev), cols["bloom"])
+    found = B.probe(bf, cols["bloom"])
+    wire = bfm.bloom_filter_serialize(bf)
+    found_wire = B.probe(wire, cols["bloom"])
+    merged = B.merge([bf, wire])
+    part = B.put(B.create(BLOOM_HASHES, bits, device=dev),
+                 head_rows(cols["bloom"], bits // BLOOM_FILL))
+    found_part = B.probe(part, cols["bloom"])
+    torch.cuda.synchronize()
+    return ((outs, jmap, bf, found, found_wire, merged, part, found_part),
+            kernel_counters())
+
+
+def once_ms(torch, fn):
+    """One call's time between CUDA events (no warm-up)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def string_bytes_of(col):
+    """(rows, chars, validity bytes) of a STRING column."""
+    n = col.length
+    return (n, int(col.offsets[-1]) - int(col.offsets[0]),
+            n if col.validity is not None else 0)
+
+
+def ujb_timing(torch, module, names, fn, plain_parts, nbytes, ops, iters=10):
+    """Device ms (profiler records, L2 flushed; the launches a call makes
+    read off the module's counters), one call's ms, the plain version's ms
+    over the same rows (a call a part, summed) and the bound."""
+    module.reset_counters()
+    fn()
+    torch.cuda.synchronize()
+    per_call = sum(module.LAUNCHES.values())
+    ms = device_ms(torch, fn, names, iters, per_call=per_call)
+    # everything the call runs on the card, by kernel (its scans and
+    # copies too)
+    whole_ms, by_name = device_by_name(torch, fn, iters)
+    cms = call_ms(torch, fn, iters)
+    pms = 0.0
+    for part in plain_parts:
+        pms += once_ms(torch, part)
+        torch.cuda.empty_cache()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
+    return {"launches_per_call": per_call, "ms": ms, "call_ms": cms,
+            "whole_ms": whole_ms, "by_name": by_name,
+            "plain_ms": pms, "plain_parts": len(plain_parts),
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": None}
+
+
+def uri_needed_chars(torch, col):
+    """The chars a parse must read: a row up to its first byte that is
+    never legal (below 0x21, or 0x7F), where it becomes invalid, else all
+    of it."""
+    off = col.offsets.to(torch.int64)
+    lens = off[1:] - off[:-1]
+    chars = col.data[int(off[0]):int(off[-1])]
+    row = torch.repeat_interleave(torch.arange(col.length,
+                                               device=chars.device), lens,
+                                  output_size=chars.numel())
+    pos = torch.arange(chars.numel(), device=chars.device) - (
+        off[:-1] - off[0])[row]
+    bad = (chars < 0x21) | (chars == 0x7F)
+    first = lens.clone().scatter_reduce_(0, row[bad], pos[bad] + 1, "amin")
+    return int(first.sum())
+
+
+def uri_bound(torch, col, out):
+    """(bytes, operations): offsets and validity, the chars a parse must
+    read (`uri_needed_chars`), the output's offsets, chars and validity;
+    URI_CHAR_OPS a char read."""
+    n, _, vbytes = string_bytes_of(col)
+    chars = uri_needed_chars(torch, col)
+    nbytes = (4 * (n + 1) + chars + vbytes + 4 * (n + 1)
+              + int(out.offsets[-1]) + n)
+    return nbytes, URI_CHAR_OPS * chars
+
+
+def json_bound(col, out):
+    n, chars, vbytes = string_bytes_of(col)
+    pairs = int(out.offsets[-1])
+    keys, values = out.children[0].children
+    nbytes = (4 * (n + 1) + chars + vbytes + 4 * (n + 1)
+              + (n if out.validity is not None else 0)
+              + 8 * (pairs + 1) + int(keys.offsets[-1])
+              + int(values.offsets[-1]))
+    return nbytes, JSON_CHAR_OPS * chars
+
+
+def bloom_bound(col, num_longs, probe):
+    n = col.length
+    valid = n if col.validity is None else int(col.validity.sum())
+    nbytes = 8 * n + 8 * num_longs + (n if probe else 8 * num_longs)
+    if not probe and col.validity is not None:
+        nbytes += n
+    rows = n if probe else valid
+    return nbytes, rows * (BLOOM_HASH_OPS + BLOOM_INDEX_OPS * BLOOM_HASHES)
+
+
+def ujb_phase(torch, chk):
+    """Phase 14: the corpora, the main path once (counted), its outputs and
+    the other bench inputs against the plain versions, then each kernel
+    timed at the benches' sizes."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import bloom_filter as bfm
+    from spark_rapids_tpu_torch.ops import (bloom_filter_cuda, map_utils_cuda,
+                                            parse_uri_cuda)
+    from spark_rapids_tpu_torch.ops import map_utils as mu
+    from spark_rapids_tpu_torch.ops import parse_uri as pu
+    t0 = time.perf_counter()
+    ujb_corpus_checks(torch, chk)
+    log(f"  corpora: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    cols = ujb_inputs(torch)
+    json_distinct = int(torch.unique(
+        api.Hash.xxhash64([cols["json"]]).data).numel())
+    log(f"  inputs made in {time.perf_counter() - t1:.1f} s; "
+        f"{json_distinct} distinct JSON rows of {UJB_N} (by xxhash64)")
+    (outs, jmap, bf, found, found_wire, merged, half,
+     found_half), counters = ujb_main_path(torch, cols)
+    want = {"parse_uri": {f: 2 for f in parse_uri_cuda.OPS},
+            "map_utils": {"from_json": 2},
+            "bloom_filter": {"put": 2, "probe": 3}}
+    for k, v in want.items():
+        require(counters[k] == v, f"phase 14 {k} launches {counters[k]}, "
+                f"want {v}")
+    require(counted(counters) == sum(sum(v.values()) for v in want.values()),
+            f"phase 14 counters {counters}: another kernel or a plain run")
+    launches = {k: sum(counters[k].values()) for k in want}
+    log(f"  main path: launches {launches}, no plain run")
+    t1 = time.perf_counter()
+    uri_check(torch, chk, cols["mix50"], cols["params"], outs, "mix 50")
+    del outs
+    for name in ("random", "mix0", "mix100"):
+        got = {form: call(cols[name])
+               for form, call, _ in uri_calls(cols["params"])}
+        uri_check(torch, chk, cols[name], cols["params"], got, name)
+    log(f"  URIs checked in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    json_check(torch, chk, cols["json"], jmap, "JSON")
+    log(f"  JSON checked in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    chk.equal("bloom_filter", found_wire.data, found.data,
+              "probe through the wire bytes")
+    chk.equal("bloom_filter", merged.words, bf.words, "merge with its wire")
+    require(bool(found.data.all()), "a put row not found")
+    timing = {"parse_uri": {}, "map_utils": {}, "bloom_filter": {}}
+    fills = {}
+    for size in BLOOM_BYTES:
+        num_longs = size // 8
+        empty = bfm.bloom_filter_create(BLOOM_HASHES, num_longs, "cuda")
+        col = cols["bloom"]
+        rows = num_longs * 64 // BLOOM_FILL
+        if size == 1 << 20:
+            part, found_part = half, found_half
+            half = found_half = None
+        else:
+            part = bfm.bloom_filter_put(empty, head_rows(col, rows))
+            found_part = bfm.bloom_filter_probe(col, part)
+        fill, fp = bloom_partial_check(torch, chk, col, rows, part,
+                                       found_part, f"{size} B")
+        fills[size] = {"rows": rows, "bits_set": fill, "found_never_put": fp,
+                       "full_put_bits_set": None}
+        del part, found_part
+        got = bf if size == 1 << 20 else bfm.bloom_filter_put(empty, col)
+        chk.equal("bloom_filter", got.words,
+                  bloom_plain_put(torch, empty, col), f"put {size} B")
+        fills[size]["full_put_bits_set"] = bloom_fill(torch, got.words)
+        probe = found if size == 1 << 20 else bfm.bloom_filter_probe(col, got)
+        chk.equal("bloom_filter", probe.data,
+                  bloom_plain_probe(torch, got, col), f"probe {size} B")
+        back = bfm.bloom_filter_deserialize(bfm.bloom_filter_serialize(got))
+        chk.equal("bloom_filter", back.words, got.words,
+                  f"wire round trip {size} B")
+        step = -(-col.length // BLOOM_SLICES)
+        parts = [Column(col.dtype, min(step, col.length - a),
+                        col.data[a:a + step])
+                 for a in range(0, col.length, step)]
+        label = f"{size >> 10} KiB"
+        timing["bloom_filter"][f"put {label}"] = ujb_timing(
+            torch, bloom_filter_cuda, "bf_put_kernel",
+            lambda e=empty: bfm.bloom_filter_put(e, col),
+            [lambda p=p, e=empty: bfm.bloom_filter_put_plain(e, p)
+             for p in parts], *bloom_bound(col, num_longs, False))
+        timing["bloom_filter"][f"probe {label}"] = ujb_timing(
+            torch, bloom_filter_cuda, "bf_probe_kernel",
+            lambda g=got: bfm.bloom_filter_probe(col, g),
+            [lambda p=p, g=got: bfm.bloom_filter_probe_plain(p, g)
+             for p in parts], *bloom_bound(col, num_longs, True))
+        del got, probe, back
+        torch.cuda.empty_cache()
+    for size, f in fills.items():
+        log(f"  bloom {size} B: {f['rows']} rows set {f['bits_set']:.6f} of "
+            f"the bits and find {f['found_never_put']:.6f} of the rows "
+            f"never put; all {BLOOM_ROWS} rows set "
+            f"{f['full_put_bits_set']:.6f}")
+    log(f"  bloom filters checked and timed in "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    uri_forms = [("protocol random", "random", pu.parse_uri_to_protocol,
+                  pu.parse_uri_to_protocol_plain)]
+    uri_forms += [(f"protocol hit {r}", f"mix{r}", pu.parse_uri_to_protocol,
+                   pu.parse_uri_to_protocol_plain) for r in URI_HIT_RATES]
+    uri_forms += [("query_literal param4 hit 100", "mix100",
+                   lambda c: pu.parse_uri_to_query_literal(c, "param4"),
+                   lambda c: pu.parse_uri_to_query_literal_plain(c,
+                                                                 "param4"))]
+    for form, name, fn, plain in uri_forms:
+        col = cols[name]
+        out = fn(col)
+        parts = [lambda a=a, col=col, plain=plain: plain(
+            rows_of(col, a, min(a + URI_CHUNK, col.length)))
+            for a in range(0, col.length, URI_CHUNK)]
+        timing["parse_uri"][form] = ujb_timing(
+            torch, parse_uri_cuda, ("pu_spans_kernel", "pu_copy_kernel"),
+            lambda col=col, fn=fn: fn(col), parts,
+            *uri_bound(torch, col, out))
+    col = cols["json"]
+    parts = [lambda a=a: mu.from_json_plain(
+        rows_of(col, a, min(a + JSON_CHUNK, col.length)))
+        for a in range(0, col.length, JSON_CHUNK)]
+    timing["map_utils"]["from_json"] = ujb_timing(
+        torch, map_utils_cuda, ("mu_rows_kernel", "mu_pairs_kernel"),
+        lambda: mu.from_json(col), parts, *json_bound(col, jmap))
+    log(f"  URI and JSON kernels timed in {time.perf_counter() - t1:.1f} s")
+    for source, forms in timing.items():
+        for form, t in forms.items():
+            log(f"  {source} {form}: device {t['ms']:.6f} ms "
+                f"({t['launches_per_call']} launches), one call "
+                f"{t['call_ms']:.6f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.6f} ms (bytes {t['bytes_ms']:.6f}, "
+                f"operations {t['ops_ms']:.6f}); the call's device work "
+                f"{t['whole_ms']:.6f} ms: " + ", ".join(
+                    f"{k} {v:.6f}" for k, v in t["by_name"].items()))
+    return {"launches": launches, "counters": counters, "timing": timing,
+            "bloom_fill": fills,
+            "rows": {"uri": UJB_N, "json": UJB_N, "bloom": BLOOM_ROWS,
+                     "json_distinct": json_distinct,
+                     "json_chars": string_bytes_of(cols["json"])[1],
+                     "uri_chars": {k: string_bytes_of(cols[k])[1]
+                                   for k in ("random", "mix0", "mix50",
+                                             "mix100")}},
+            "seconds": time.perf_counter() - t0}
+
+
+def ujb_kernels(ujb, chk):
+    """The three kernels' entries of the `kernels` line."""
+    out = []
+    for source, forms in ujb["timing"].items():
+        out.append({"name": source, "route": "cuda",
+                    "source": UJB_SOURCES[source],
+                    "replaces": UJB_REPLACES[source],
+                    "launches": ujb["launches"][source],
+                    "exact": chk.max_err[source] == 0,
+                    "max_abs_err": chk.max_err[source],
+                    "library": "none: no PyTorch call computes it",
+                    **summed(forms, tuple(forms), library_ms=None)})
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -7430,6 +8201,10 @@ def main(argv=None):
                     help="only run phase 13: CastStrings' eight methods on "
                          "the cast kernels, against their plain versions "
                          "and the CPU run, and the kernels timed")
+    ap.add_argument("--uri-json-bloom", action="store_true",
+                    help="only run phase 14: ParseURI, MapUtils and "
+                         "BloomFilter on their kernels, against their plain "
+                         "versions and the CPU run, and the kernels timed")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -7511,6 +8286,13 @@ def _run(args):
                           "casts": casts, "checks": chk.n}, default=str),
               flush=True)
         return 0
+    if args.uri_json_bloom:
+        chk = Checks()
+        ujb = ujb_phase(torch, chk)
+        print(json.dumps({"card": smi, "kernels": ujb_kernels(ujb, chk),
+                          "uri_json_bloom": ujb, "checks": chk.n},
+                         default=str), flush=True)
+        return 0
     if args.fuzz:
         chk = Checks()
         fz = fuzz_phase(torch, chk)
@@ -7575,6 +8357,9 @@ def _run(args):
     keys["max_err"] = chk.max_err
     feedback = feedback_phase(torch, chk)
     casts = casts_phase(torch, chk)
+    log("phase 14: parse_uri, from_json and the bloom filter")
+    ujb = ujb_phase(torch, chk)
+    log(f"phase 14: {ujb['seconds']:.1f} s")
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -7845,6 +8630,9 @@ def _run(args):
     # the cast kernels (phase 13): launches on CastStrings' eight methods,
     # timed at the upstream bench's 16,777,216 rows
     kernels.extend(casts_kernels(casts, chk))
+    # parse_uri, from_json and the bloom filter (phase 14): launches on the
+    # main path's run, timed at the benches' sizes
+    kernels.extend(ujb_kernels(ujb, chk))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -7874,7 +8662,8 @@ def _run(args):
                        "nds_q5_q23": nds_union, "decimal128": dec,
                        "fuzz": fz, "customer_hash": cust,
                        "row_conversion": rconv, "keys": keys,
-                       "feedback": feedback, "casts": casts},
+                       "feedback": feedback, "casts": casts,
+                       "uri_json_bloom": ujb},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ Java API, mapped onto the port's ops.
 
 Counterpart of `spark_rapids_tpu/api.py`. `CastStrings`, `DecimalUtils`,
 `Hash` (every kind Spark hashes: fixed-width, strings, DECIMAL128, structs
-and, for murmur3, lists) and `RowConversion` are ported; the other classes
-wait for their modules (ROADMAP queue A item 12).
+and, for murmur3, lists), `RowConversion`, `BloomFilter`, `MapUtils` and
+`ParseURI` are ported; `GpuTimeZoneDB`, `DateTimeRebase`, `Histogram` and
+`ZOrder` wait for their modules (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
@@ -122,3 +123,71 @@ class RowConversion:
                                            *schema: DType) -> Table:
         return ops.convert_from_rows_fixed_width_optimized(vec,
                                                            list(schema))
+
+
+class BloomFilter:
+    """BloomFilter.java:42-97. The reference keeps the filter in a cudf
+    list_scalar; here it is `ops.BloomFilter` (Spark's packed longs on one
+    device; serialize and deserialize give the wire bytes)."""
+
+    @staticmethod
+    def create(numHashes: int, bloomFilterBits: int, device=None):
+        return ops.bloom_filter_create(numHashes, (bloomFilterBits + 63) // 64,
+                                       device)
+
+    @staticmethod
+    def put(bloomFilter, cv: Column):
+        return ops.bloom_filter_put(bloomFilter, cv)
+
+    @staticmethod
+    def merge(bloomFilters: Sequence):
+        """Takes filters or serialized wire buffers: the reference's merge
+        input is a column of executor-serialized filters
+        (BloomFilter.java:66-74). A buffer lands on the first filter's
+        device (a tensor without one stays on its own), else the card."""
+        device = next((f.device for f in bloomFilters
+                       if isinstance(f, ops.BloomFilter)), None)
+        filters = [f if isinstance(f, ops.BloomFilter)
+                   else ops.bloom_filter_deserialize(f, device)
+                   for f in bloomFilters]
+        return ops.bloom_filter_merge(filters)
+
+    @staticmethod
+    def probe(bloomFilter, cv: Column) -> Column:
+        if not isinstance(bloomFilter, ops.BloomFilter):
+            # the serialized-buffer overload (BloomFilter.java:95)
+            bloomFilter = ops.bloom_filter_deserialize(bloomFilter, cv.device)
+        return ops.bloom_filter_probe(cv, bloomFilter)
+
+
+class MapUtils:
+    """MapUtils.java:47."""
+
+    @staticmethod
+    def extractRawMapFromJsonString(jsonColumn: Column) -> Column:
+        return ops.from_json(jsonColumn)
+
+
+class ParseURI:
+    """ParseURI.java:36-94."""
+
+    @staticmethod
+    def parseURIProtocol(uriColumn: Column) -> Column:
+        return ops.parse_uri_to_protocol(uriColumn)
+
+    @staticmethod
+    def parseURIHost(uriColumn: Column) -> Column:
+        return ops.parse_uri_to_host(uriColumn)
+
+    @staticmethod
+    def parseURIQuery(uriColumn: Column) -> Column:
+        return ops.parse_uri_to_query(uriColumn)
+
+    @staticmethod
+    def parseURIQueryWithLiteral(uriColumn: Column, query: str) -> Column:
+        return ops.parse_uri_to_query_literal(uriColumn, query)
+
+    @staticmethod
+    def parseURIQueryWithColumn(uriColumn: Column,
+                                queryColumn: Column) -> Column:
+        return ops.parse_uri_to_query_column(uriColumn, queryColumn)

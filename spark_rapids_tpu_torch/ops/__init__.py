@@ -12,11 +12,19 @@ kernels on the card, the plain version on the CPU. The casts of
 `string_to_integer_with_base`, `integer_to_string_with_base`,
 `float_to_string`, `format_float`, `decimal_to_non_ansi_string`, and
 `CastError` for ANSI mode) run the cast kernels (`cast_cuda`) on CUDA
-columns and their plain versions on CPU ones. The hash-join kernels
-(`join_cuda`) are imported lazily, by the kernel registry, at the first
-`hash_join` dispatch.
+columns and their plain versions on CPU ones; so do `parse_uri_to_*`
+(the URI parse kernel, `parse_uri_cuda`), `from_json` (the JSON kernels,
+`map_utils_cuda`) and the bloom filter's `put` and `probe`
+(`bloom_filter_cuda`; `BloomFilter` holds Spark's packed longs, and merge,
+serialize and deserialize are torch ops on either device). The hash-join
+kernels (`join_cuda`) are imported lazily, by the kernel registry, at the
+first `hash_join` dispatch.
 """
 from .aggregate import groupby_aggregate
+from .bloom_filter import (BloomFilter, bloom_filter_create,
+                           bloom_filter_deserialize, bloom_filter_merge,
+                           bloom_filter_probe, bloom_filter_put,
+                           bloom_filter_serialize)
 from .cast_decimal import string_to_decimal
 from .cast_decimal_to_string import decimal_to_non_ansi_string
 from .cast_float_to_string import float_to_string
@@ -30,6 +38,10 @@ from .decimal_utils import (add_decimal128, sub_decimal128,
 from .gather import apply_boolean_mask, take, take_table
 from .hash import DEFAULT_XXHASH64_SEED
 from .hash_cuda import fused_row_hash, murmur_hash3_32, xxhash64
+from .map_utils import from_json
+from .parse_uri import (parse_uri_to_host, parse_uri_to_protocol,
+                        parse_uri_to_query, parse_uri_to_query_column,
+                        parse_uri_to_query_literal)
 from .join import (full_join, inner_join, inner_join_capped, left_join,
                    left_join_capped, left_semi_join, left_anti_join,
                    semi_join_mask)
@@ -51,4 +63,10 @@ __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "convert_from_rows_fixed_width_optimized", "CastError",
            "string_to_integer", "string_to_float", "string_to_decimal",
            "string_to_integer_with_base", "integer_to_string_with_base",
-           "float_to_string", "format_float", "decimal_to_non_ansi_string"]
+           "float_to_string", "format_float", "decimal_to_non_ansi_string",
+           "BloomFilter", "bloom_filter_create", "bloom_filter_put",
+           "bloom_filter_merge", "bloom_filter_probe",
+           "bloom_filter_serialize", "bloom_filter_deserialize",
+           "parse_uri_to_protocol", "parse_uri_to_host", "parse_uri_to_query",
+           "parse_uri_to_query_literal", "parse_uri_to_query_column",
+           "from_json"]

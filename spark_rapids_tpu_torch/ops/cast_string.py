@@ -119,6 +119,14 @@ def _round_bucket(n: int, minimum: int = 8) -> int:
     return b
 
 
+def check_pad_to(longest: int, pad_to: Optional[int]) -> None:
+    """The JAX package's ValueError for a char matrix narrower than the
+    longest string."""
+    if pad_to is not None and longest > pad_to:
+        raise ValueError(f"pad_to={pad_to} is smaller than the longest "
+                         f"string ({longest})")
+
+
 def padded_chars(col: Column, pad_to: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """((n, L) int32 chars zero-padded, (n,) int32 lengths): L is `pad_to`
@@ -128,11 +136,9 @@ def padded_chars(col: Column, pad_to: Optional[int] = None
         raise TypeError(f"expected a STRING column, got {col.dtype!r}")
     lens = col.string_lengths()
     longest = int(lens.max()) if col.length else 0
+    check_pad_to(longest, pad_to)
     if pad_to is None:
         pad_to = _round_bucket(max(1, longest))
-    elif longest > pad_to:
-        raise ValueError(f"pad_to={pad_to} is smaller than the longest "
-                         f"string ({longest})")
     dev = col.device
     pos = torch.arange(pad_to, dtype=torch.int64, device=dev)
     idx = col.offsets[:-1].to(torch.int64)[:, None] + pos[None, :]

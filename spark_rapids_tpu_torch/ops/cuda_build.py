@@ -21,7 +21,8 @@ from typing import Dict, Sequence
 
 SOURCES = ("hash_join", "row_hash", "partition_hist", "fused_select",
            "topk", "groupby", "decimal128", "row_conversion", "cast_string",
-           "cast_decimal", "cast_string_to_float", "number_to_string")
+           "cast_decimal", "cast_string_to_float", "number_to_string",
+           "parse_uri", "map_utils", "bloom_filter")
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"

@@ -1914,3 +1914,136 @@ def test_number_to_string_kernel_equals_plain_version(case):
     assert sum(cast_cuda.PLAIN_CALLS.values()) == 0
     _same_column(got, plain(col))
     _same_column(got, kernel(col.to("cpu")))
+
+
+# ---- parse_uri, from_json and the bloom filter (csrc/parse_uri.cu,
+# map_utils.cu, bloom_filter.cu) ----------------------------------------------
+
+def _uri_column(device):
+    from torch_uri_json_inputs import uri_corpus
+    return Column.from_pylist(uri_corpus(), tdt.STRING, device=device)
+
+
+@pytest.mark.parametrize("op", ["protocol", "host", "query", "query_literal",
+                                "query_column"])
+def test_parse_uri_kernel_equals_plain_version(op):
+    """Each parse_uri entry point on the card against the plain version on
+    the same tensors and the CPU run, byte for byte; two launches (spans,
+    copy), no plain run."""
+    _need_card()
+    from torch_uri_json_inputs import uri_params
+    from spark_rapids_tpu_torch.ops import parse_uri, parse_uri_cuda
+    col = _uri_column("cuda")
+    params = Column.from_pylist(uri_params(3, col.length), tdt.STRING,
+                                device="cuda")
+    call = {"query_literal": lambda c, p: parse_uri.parse_uri_to_query_literal(
+                c, "a"),
+            "query_column": parse_uri.parse_uri_to_query_column}.get(
+        op, lambda c, p: getattr(parse_uri, f"parse_uri_to_{op}")(c))
+    plain = {"query_literal": lambda c, p: (
+                 parse_uri.parse_uri_to_query_literal_plain(c, "a")),
+             "query_column": parse_uri.parse_uri_to_query_column_plain}.get(
+        op, lambda c, p: getattr(parse_uri, f"parse_uri_to_{op}_plain")(c))
+    parse_uri_cuda.reset_counters()
+    got = call(col, params)
+    torch.cuda.synchronize()
+    assert parse_uri_cuda.LAUNCHES[op] == 2
+    assert sum(parse_uri_cuda.PLAIN_CALLS.values()) == 0
+    _same_column(got, plain(col, params))
+    _same_column(got, call(col.to("cpu"), params.to("cpu")))
+
+
+def test_parse_uri_width_bounds_on_the_card_equal_the_cpu():
+    """`pad_to`, `param_pad_to` and `out_pad_to` on a CUDA column: below
+    the longest string, parameter or span each raises the CPU run's
+    ValueError, in its order; at the longest each gives the CPU run's
+    result."""
+    _need_card()
+    from spark_rapids_tpu_torch.ops import parse_uri
+    rows = ["http://a.com/?q=1234567890", "x", None]
+    col = Column.from_pylist(rows, tdt.STRING, device="cuda")
+    params = Column.from_pylist(["q", "longer", "q"], tdt.STRING,
+                                device="cuda")
+    calls = [("host", lambda c, p, **kw: parse_uri.parse_uri_to_host(c, **kw)),
+             ("query_literal", lambda c, p, **kw: (
+                 parse_uri.parse_uri_to_query_literal(c, "q", **kw))),
+             ("query_column", parse_uri.parse_uri_to_query_column)]
+    bounds = [{"pad_to": 8}, {"out_pad_to": 4},
+              {"pad_to": 8, "out_pad_to": 4}]
+    bounds_col = bounds + [{"param_pad_to": 2},
+                           {"pad_to": 8, "param_pad_to": 2}]
+    for op, call in calls:
+        for kw in bounds_col if op == "query_column" else bounds:
+            msgs = []
+            for c, p in ((col, params), (col.to("cpu"), params.to("cpu"))):
+                with pytest.raises(ValueError) as e:
+                    call(c, p, **kw)
+                msgs.append(str(e.value))
+            assert msgs[0] == msgs[1], (op, kw)
+        kw = {"pad_to": 26, "out_pad_to": 10}
+        if op == "query_column":
+            kw["param_pad_to"] = 6
+        _same_column(call(col, params, **kw),
+                     call(col.to("cpu"), params.to("cpu"), **kw))
+
+
+def test_from_json_kernels_equal_plain_version():
+    """from_json on the card: list offsets, keys, values and validity equal
+    to the plain version and the CPU run; two launches; an error row
+    raises the CPU run's message."""
+    _need_card()
+    from torch_uri_json_inputs import json_corpus
+    from spark_rapids_tpu_torch.ops import map_utils, map_utils_cuda
+    col = Column.from_pylist(json_corpus(), tdt.STRING, device="cuda")
+    map_utils_cuda.reset_counters()
+    got = map_utils.from_json(col)
+    torch.cuda.synchronize()
+    assert map_utils_cuda.LAUNCHES["from_json"] == 2
+    assert map_utils_cuda.PLAIN_CALLS["from_json"] == 0
+    for want in (map_utils.from_json_plain(col),
+                 map_utils.from_json(col.to("cpu"))):
+        assert torch.equal(got.offsets, want.offsets.to("cuda"))
+        _same_column(Column(tdt.BOOL, got.length, got.null_mask),
+                     Column(tdt.BOOL, got.length,
+                            want.null_mask.to("cuda")))
+        for g, w in zip(got.children[0].children, want.children[0].children):
+            _same_column(g, w.to("cuda"))
+    bad = Column.from_pylist(['{"a": 1}', '{k: 1}', '{"a": 1'], tdt.STRING,
+                             device="cuda")
+    msgs = []
+    for c in (bad, bad.to("cpu")):
+        with pytest.raises(ValueError) as e:
+            map_utils.from_json(c)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "row 2" in msgs[0]
+
+
+@pytest.mark.parametrize("num_longs", [1, 3, 1 << 17])
+def test_bloom_filter_kernels_equal_plain_version(num_longs):
+    """put (64-bit atomicOr) and probe on the card against the plain
+    version on the same tensors and the CPU run; one launch each."""
+    _need_card()
+    from torch_uri_json_inputs import int64_values
+    from spark_rapids_tpu_torch.ops import bloom_filter, bloom_filter_cuda
+    v, valid = int64_values(9, 300_000)
+    col = Column.from_numpy(v, tdt.INT64, valid, device="cuda")
+    bf = bloom_filter.bloom_filter_create(3, num_longs, device="cuda")
+    bloom_filter_cuda.reset_counters()
+    got = bloom_filter.bloom_filter_put(bf, col)
+    found = bloom_filter.bloom_filter_probe(col, got)
+    torch.cuda.synchronize()
+    assert bloom_filter_cuda.LAUNCHES == {"put": 1, "probe": 1}
+    assert sum(bloom_filter_cuda.PLAIN_CALLS.values()) == 0
+    assert not bf.words.any()                    # put is functional
+    want = bloom_filter.bloom_filter_put_plain(bf, col)
+    assert torch.equal(got.words, want.words)
+    cpu = bloom_filter.bloom_filter_put(
+        bloom_filter.bloom_filter_create(3, num_longs, device="cpu"),
+        col.to("cpu"))
+    assert torch.equal(got.words.cpu(), cpu.words)
+    assert torch.equal(found.data,
+                       bloom_filter.bloom_filter_probe_plain(col, got).data)
+    assert bool(found.data[col.validity].all())  # no false negatives
+    wire = bloom_filter.bloom_filter_serialize(got)
+    back = bloom_filter.bloom_filter_deserialize(wire)
+    assert back.device == got.device and torch.equal(back.words, got.words)

@@ -272,6 +272,18 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        PlanExecutor(mode='capped', device='cpu').execute(\n"
         "            nds_q3.q3_tpcds_plan(), t)\n"
         "assert st.generation == 1\n"
+        "from spark_rapids_tpu_torch import version\n"
+        "from spark_rapids_tpu_torch.columnar import Column\n"
+        "from spark_rapids_tpu_torch import dtypes\n"
+        "u = Column.from_pylist(['http://a.b/?q=1'], dtypes.STRING, 'cpu')\n"
+        "assert api.ParseURI.parseURIQueryWithLiteral(u, 'q').to_pylist()\\\n"
+        "    == ['1']\n"
+        "j = Column.from_pylist(['{\"a\": 1}'], dtypes.STRING, 'cpu')\n"
+        "assert api.MapUtils.extractRawMapFromJsonString(j).length == 1\n"
+        "bf = api.BloomFilter.create(3, 128, device='cpu')\n"
+        "v = Column.from_pylist([5], dtypes.INT64, 'cpu')\n"
+        "assert api.BloomFilter.probe(api.BloomFilter.put(bf, v), v).data[0]\n"
+        "assert version.version_info()['version']\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.split('.')[0] == 'spark_rapids_tpu')\n"
