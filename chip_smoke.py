@@ -12,7 +12,9 @@
     python3 chip_smoke.py --feedback   # phase 12 only (ranges, store, graphs)
     python3 chip_smoke.py --casts      # phase 13 only (CastStrings' casts)
     python3 chip_smoke.py --uri-json-bloom  # phase 14 only
+    python3 chip_smoke.py --runtime    # phase 15 only (runtime arbitration)
     python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
+    python3 chip_smoke.py --script-ab DIR [DIR ...] [--out FILE]  # stamped
 
 Drives the port's paths on the card at the repo's bench scales (seed 0),
 in phases that each raise on failure:
@@ -283,6 +285,33 @@ in phases that each raise on failure:
    slices), each filter full and half full, the half-full one probed by
    rows never put (some must miss); then each kernel timed.
    Alone: `python3 chip_smoke.py --uri-json-bloom`;
+15. runtime arbitration (`runtime_phase`): `native/resource_adaptor.cpp`
+   built with g++ beside the nvcc builds (its seconds printed); q23 and
+   q5 at scale 1 each alone through `PlanExecutor(session=...)` under an
+   unbinding `DeviceSession` (equal to numpy; the reservations'
+   high-water mark printed); four task threads, two a plan, five runs
+   each, one task a run, on the default `PlanExecutor(session=...)`,
+   sharing one `DeviceSession` of 1.5x the larger mark with the
+   arbiter's watchdog on: every result equal to its solo run, at least
+   one block or retry, every thread still registered and running (none
+   blocked or on the BUFN path) when all have finished their runs, no
+   plain version run, each task's `getAndResetNumRetryThrow`,
+   `getAndResetNumSplitRetryThrow`, `getAndResetBlockTimeNs` and
+   `getAndResetComputeTimeLostToRetryNs` printed with the wall; forced
+   RetryOOMs, one more than `op_retries`, and a SplitAndRetryOOM on one
+   operator of q23, each leaving `execute()` and the plan rerun on the
+   card with the breaker closed, equal; a `SpillPool` spilling q23's store table
+   to let a reservation through, restored bit for bit; seeded fault
+   injection on authored q23: 50% asserts on the hash joins (retried,
+   `backoff_ms` > 0, not degraded), a fatal fault on the groupby (the
+   breaker trips, the rest on the degraded CPU tier, equal), then
+   `reset_device()` and a half-open probe back onto the card's kernels,
+   a fault before a captured program's third run (retried onto the same
+   graph) and a fatal fault in a capped attempt (degraded, no program
+   left half made, captured again after the reset); and degrade
+   admission at a 1 MiB budget (the whole plan on the CPU tier, equal).
+   Outside the named degraded runs no plain version runs. Alone:
+   `python3 chip_smoke.py --runtime`;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -455,7 +484,17 @@ def build_phase():
         [cuda_build._nvcc(), *cuda_build._FLAGS, "-o", str(probe_lib),
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
+    # the resource arbiter's host C++ (phase 15), compiled with g++ beside
+    # the nvcc builds
+    import threading
+    from spark_rapids_tpu_torch.native import build as native_build
+    native = threading.Thread(target=lambda: NATIVE_BUILD.update(
+        seconds=native_build.build_seconds()))
+    native.start()
     secs = cuda_build.build()
+    native.join()
+    require("seconds" in NATIVE_BUILD, "the g++ build of resource_adaptor "
+            "failed")
     probe_log, _ = probe.communicate()
     require(probe.returncode == 0, f"nvcc failed for the dependent-add "
             f"probe:\n{probe_log}")
@@ -8144,6 +8183,469 @@ def ujb_kernels(ujb, chk):
     return out
 
 
+# ---- phase 15: runtime arbitration --------------------------------------------
+
+# the g++ build of the resource arbiter, timed in build_phase beside nvcc
+NATIVE_BUILD = {}
+RT_RUNS = 5                       # runs per task thread
+RT_TASKS = ("q23", "q5", "q23", "q5")
+RT_FACTOR = 1.5                   # shared limit over the larger high-water
+
+
+def rt_plain_calls():
+    """The plain versions' counters of every kernel module, summed."""
+    return counted(kernel_counters()["plain"])
+
+
+class _HighWater:
+    """A MemoryEventHandler keeping the budget's high-water mark."""
+
+    def __init__(self, rt):
+        outer = self
+        self.mark = 0
+
+        class H(rt.MemoryEventHandler):
+            def on_allocated(self, total_used):
+                outer.mark = max(outer.mark, total_used)
+
+        self.handler = H()
+
+
+def rt_task(rt, arbiter, ex, plan, inputs):
+    """One task's plan run, as a Spark task's retry loop would make it: a
+    RetryOOM or SplitAndRetryOOM that leaves `execute()` (a plan cannot be
+    split) drops what the attempt held and reruns it once the arbiter lets
+    the thread go. Returns (result, reruns)."""
+    import gc
+    reruns = 0
+    while True:
+        try:
+            return ex.execute(plan, inputs), reruns
+        except (rt.RetryOOM, rt.SplitAndRetryOOM):
+            reruns += 1
+        gc.collect()                 # the failed attempt's outputs go
+        try:
+            arbiter.block_thread_until_ready()
+        except (rt.RetryOOM, rt.SplitAndRetryOOM):
+            pass
+
+
+def rt_same(torch, got, want, what):
+    same_tables(torch, got.compact(), want.compact(), what)
+
+
+def rt_card_run(torch, res, what, counted_run=False):
+    """A run on the card: not degraded, no plain version run, and for a
+    `counted_run` (counters zeroed just before it) kernels launched."""
+    require(not res.degraded and res.device.type == "cuda",
+            f"{what}: degraded {res.degraded} on {res.device}")
+    plain = rt_plain_calls()
+    require(plain == 0, f"{what}: {plain} plain runs on the card")
+    if counted_run:
+        n = counted({k: v for k, v in kernel_counters().items()
+                     if k != "plain"})
+        require(n > 0, f"{what}: no kernel launched")
+        return n
+
+
+def runtime_phase(torch, chk, smi):
+    """Phase 15: several tasks share one card through the plan engine (the
+    resource arbiter, memory budgets, admission, spill, fault injection,
+    the health breaker and the degraded CPU tier), at bench scale."""
+    import gc
+    import threading
+    from spark_rapids_tpu_torch import faultinj, nds_q5, nds_q23
+    from spark_rapids_tpu_torch import runtime as rt
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    t_phase = time.perf_counter()
+    out = {"card": smi, "native_build_s": NATIVE_BUILD.get("seconds")}
+    log(f"phase 15: runtime arbitration ({smi}); resource_adaptor built "
+        f"with g++ in {out['native_build_s']} s")
+
+    # the plans and their tables at bench scale, the numpy references
+    plans = {}
+    for q, mod, numpy_fn in (("q23", nds_q23, numpy_q23),
+                             ("q5", nds_q5, numpy_q5)):
+        t0 = time.perf_counter()
+        gen = mod.datagen(N_SALES, seed=0)
+        ref, _ = numpy_fn(gen)
+        del gen
+        inputs = getattr(mod, f"{q}_inputs")(N_SALES, seed=0, device="cuda")
+        plans[q] = {"plan": getattr(mod, f"{q}_plan")(), "inputs": inputs,
+                    "numpy": ref,
+                    "rows": sum(t.num_rows for t in inputs.values())}
+        log(f"  {q}: {plans[q]['rows']} rows in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # 1-2. each plan alone under an unbinding budget: its result and the
+    # reservations' high-water mark
+    solo = {}
+    me = rt.current_thread_id()
+    for q, p in plans.items():
+        hw = _HighWater(rt)
+        with rt.DeviceSession(1 << 50, event_handler=hw.handler) as sess:
+            sess.arbiter.current_thread_is_dedicated_to_task(1000)
+            ex = PlanExecutor(session=sess)
+            ex.execute(p["plan"], p["inputs"])         # warm
+            reset_kernel_counters()
+            t0 = time.perf_counter()
+            res = ex.execute(p["plan"], p["inputs"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rt_card_run(torch, res, f"{q} solo", counted_run=True)
+            for name, want in zip(res.table.names, p["numpy"]):
+                require(np.array_equal(
+                    res.table[name].data.cpu().numpy(), want),
+                    f"{q} solo: {name} differs from numpy")
+            solo[q] = res
+            del res
+            gc.collect()
+            held = sess.device.used
+            sess.arbiter.task_done(1000)
+        require(hw.mark > 0, f"{q} solo: no reservation")
+        out[f"{q}_high_water_bytes"] = hw.mark
+        out[f"{q}_solo_ms"] = wall * 1e3
+        log(f"  {q} solo: {wall * 1e3:.3f} ms, reservations' high-water "
+            f"mark {hw.mark} B, {held} B held by its result")
+
+    # 3. four task threads, two per plan, five runs each, on one budget of
+    # 1.5x the larger high-water mark: they must block and be escalated
+    limit = int(RT_FACTOR * max(out["q23_high_water_bytes"],
+                                out["q5_high_water_bytes"]))
+    shared = rt.DeviceSession(limit)
+    results, errors, tids = {}, [], {}
+    task_metrics = {}
+    # every task thread waits here after its last run, still registered
+    # with the arbiter, while the main thread reads their states
+    ran = threading.Barrier(len(RT_TASKS) + 1)
+    read = threading.Event()
+
+    def worker(i, q):
+        try:
+            tids[i] = rt.current_thread_id()
+            # the default executor (op_retries 2, degrade "cpu"): the
+            # arbiter's RetryOOM and SplitAndRetryOOM leave execute(), so
+            # the task drops every output it holds before it blocks
+            ex = PlanExecutor(session=shared)
+            metrics = {"retry": 0, "split": 0, "block_ns": 0, "lost_ns": 0,
+                       "reruns": 0, "plan_retries": 0}
+            for r in range(RT_RUNS):
+                task = r * len(RT_TASKS) + i + 1     # older runs first
+                shared.arbiter.current_thread_is_dedicated_to_task(task)
+                res, reruns = rt_task(rt, shared.arbiter, ex,
+                                      plans[q]["plan"], plans[q]["inputs"])
+                arb = shared.arbiter
+                metrics["retry"] += arb.get_and_reset_num_retry_throw(task)
+                metrics["split"] += arb.get_and_reset_num_split_retry_throw(
+                    task)
+                metrics["block_ns"] += arb.get_and_reset_block_time_ns(task)
+                metrics["lost_ns"] += \
+                    arb.get_and_reset_computation_time_lost_ns(task)
+                metrics["reruns"] += reruns
+                metrics["plan_retries"] += res.retries
+                results[(i, r)] = (q, res.degraded, res.compact())
+                del res
+                if r == RT_RUNS - 1:
+                    gc.collect()         # hold no reservation while waiting
+                    ran.wait(timeout=300)
+                    read.wait(timeout=300)
+                arb.task_done(task)
+            task_metrics[i] = metrics
+        except BaseException as e:           # relayed to the main thread
+            errors.append((i, repr(e)))
+            ran.abort()
+
+    reset_kernel_counters()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i, q), daemon=True)
+               for i, q in enumerate(RT_TASKS)]
+    for t in threads:
+        t.start()
+    # every thread has finished its runs (or one failed, or one is stuck
+    # in the arbiter): each must be registered and running, none blocked
+    # or waiting on the BUFN path
+    try:
+        ran.wait(timeout=300)
+    except threading.BrokenBarrierError:
+        pass
+    states = {i: shared.arbiter.get_state_name_of(tid)
+              for i, tid in sorted(tids.items())}
+    read.set()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads),
+            "a task thread did not finish in 600 s")
+    require(not errors, f"task threads failed: {errors}")
+    require(len(states) == len(RT_TASKS)
+            and all(s == "THREAD_RUNNING" for s in states.values()),
+            f"a thread was left blocked or unregistered: {states}")
+    require(rt_plain_calls() == 0, "a plain version ran in the task runs")
+    for (i, r), (q, degraded, table) in sorted(results.items()):
+        require(not degraded, f"task {i} run {r}: degraded")
+        same_tables(torch, table, solo[q].compact(), f"task {i} run {r}")
+    contention = sum(m["retry"] + m["split"] + m["reruns"] + m["plan_retries"]
+                     for m in task_metrics.values()) + sum(
+        1 for m in task_metrics.values() if m["block_ns"] > 0)
+    require(contention > 0, f"no retry and no block under a {limit} B "
+            f"budget: {task_metrics}")
+    del results
+    gc.collect()
+    out["shared_limit_bytes"] = limit
+    out["tasks"] = {f"thread {i} ({RT_TASKS[i]})": {
+        "getAndResetNumRetryThrow": m["retry"],
+        "getAndResetNumSplitRetryThrow": m["split"],
+        "getAndResetBlockTimeNs": m["block_ns"],
+        "getAndResetComputeTimeLostToRetryNs": m["lost_ns"],
+        "plan_reruns": m["reruns"], "operator_retries": m["plan_retries"]}
+        for i, m in sorted(task_metrics.items())}
+    out["tasks_wall_ms"] = wall * 1e3
+    out["thread_states_after_runs"] = states
+    log(f"  four tasks x {RT_RUNS} runs on {limit} B: {wall * 1e3:.1f} ms, "
+        f"{json.dumps(out['tasks'])}, states after the runs {states}")
+    shared.close()
+
+    # 4. forced OOMs on one operator of q23 (eager), and a spill
+    p = plans["q23"]
+    with rt.DeviceSession(1 << 50) as sess:
+        arb = sess.arbiter
+        arb.current_thread_is_dedicated_to_task(2000)
+        ex = PlanExecutor(session=sess)
+        # more RetryOOMs in a row than op_retries: memory pressure, never
+        # a device fault, so each leaves execute() and the plan reruns
+        # on the card, with the breaker closed
+        n_oom = ex.op_retries + 1
+        arb.force_retry_oom(me, n_oom, rt.OomInjectionType.GPU, 3)
+        reset_kernel_counters()
+        res, reruns = rt_task(rt, arb, ex, p["plan"], p["inputs"])
+        rt_card_run(torch, res, "q23 after forced RetryOOMs")
+        rt_same(torch, res, solo["q23"], "q23 after forced RetryOOMs")
+        require(reruns == n_oom and res.retries == 0
+                and res.breaker["state"] == "closed"
+                and res.breaker["trips"] == 0,
+                f"forced RetryOOMs: {reruns} reruns, retries {res.retries}, "
+                f"breaker {res.breaker}")
+        out["forced_retry_oom"] = {"forced": n_oom, "reruns": reruns,
+                                   "breaker": res.breaker["state"],
+                                   "num_retry": arb.
+                                   get_and_reset_num_retry_throw(2000)}
+        del res
+        arb.force_split_and_retry_oom(me, 1, rt.OomInjectionType.GPU, 3)
+        res, reruns = rt_task(rt, arb, ex, p["plan"], p["inputs"])
+        rt_card_run(torch, res, "q23 after a forced SplitAndRetryOOM")
+        rt_same(torch, res, solo["q23"], "q23 after a forced split")
+        require(reruns == 1, f"forced SplitAndRetryOOM: {reruns} reruns")
+        out["forced_split_oom"] = {
+            "reruns": reruns,
+            "num_split": arb.get_and_reset_num_split_retry_throw(2000)}
+        del res
+        arb.task_done(2000)
+    log(f"  forced OOMs: {out['forced_retry_oom']}, "
+        f"{out['forced_split_oom']}")
+    store = p["inputs"]["store"]
+    keep = [c.data.clone() for c in store.columns]
+    nbytes = store.nbytes()
+    pool = rt.SpillPool()
+    with rt.DeviceSession(nbytes + nbytes // 2) as sess:
+        pool.attach(sess.device)
+        sess.arbiter.current_thread_is_dedicated_to_task(3000)
+        st = rt.SpillableTable(pool, store)
+        st.protect()
+        t0 = time.perf_counter()
+        r = sess.device.acquire(nbytes)          # fits only after a spill
+        spill_ms = (time.perf_counter() - t0) * 1e3
+        require(pool.spill_count >= 1 and pool.spilled_bytes >= nbytes // 2,
+                f"spill: {pool.spill_count} spills, {pool.spilled_bytes} B")
+        sess.device.release(r)
+        t0 = time.perf_counter()
+        with st.use() as back:
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            for a, b in zip(back.columns, keep):
+                require(a.data.device == b.device
+                        and torch.equal(a.data, b),
+                        "the spilled table came back different")
+        st.close()
+        pool.close()
+        sess.arbiter.task_done(3000)
+    del keep
+    out["spill"] = {"bytes": nbytes, "spilled_bytes": pool.spilled_bytes,
+                    "spill_ms": spill_ms, "restore_ms": restore_ms}
+    log(f"  spill: {out['spill']}")
+
+    # 5. fault injection, with seeded configs (authored q23)
+    import shutil
+    import tempfile
+    from spark_rapids_tpu_torch.ops import cuda_build
+    # the configs live beside the builds (listed in .gitignore)
+    cuda_build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cfg_dir = tempfile.mkdtemp(prefix="faultinj-",
+                               dir=str(cuda_build._BUILD_DIR))
+
+    def install(name, cfg):
+        path = os.path.join(cfg_dir, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return faultinj.install(path)
+
+    faults = {}
+    ex = PlanExecutor(optimize=False)
+    ref = ex.execute(p["plan"], p["inputs"])
+    try:
+        # a nonfatal assert at 50% on the hash join: retried, not degraded
+        inj = install("assert", {"seed": 3, "computeFaults": {
+            "plan.HashJoin": {"percent": 50, "injectionType": 1}}})
+        reset_kernel_counters()
+        res = ex.execute(p["plan"], p["inputs"])
+        rt_card_run(torch, res, "q23 under 50% join asserts")
+        rt_same(torch, res, ref, "q23 under 50% join asserts")
+        require(res.retries > 0 and res.backoff_ms > 0,
+                f"asserts: retries {res.retries}, {res.backoff_ms} ms")
+        faults["assert_50"] = {"injected": inj.get_and_reset_injected(),
+                               "retries": res.retries,
+                               "backoff_ms": res.backoff_ms,
+                               "degraded": res.degraded}
+        # a fatal fault on the groupby: the breaker trips, the rest of the
+        # plan runs on the degraded CPU tier (a named run)
+        inj = install("fatal", {"computeFaults": {"plan.HashAggregate": {
+            "percent": 100, "injectionType": 0, "interceptionCount": 1}}})
+        t0 = time.perf_counter()
+        res = ex.execute(p["plan"], p["inputs"])
+        fatal_ms = (time.perf_counter() - t0) * 1e3
+        require(res.degraded and res.breaker["state"] == "open"
+                and res.breaker["reason"] == "fatal",
+                f"fatal: degraded {res.degraded}, breaker {res.breaker}")
+        rt_same(torch, res, ref, "q23 after a fatal fault")
+        faults["fatal_groupby"] = {
+            "degraded": res.degraded, "breaker": res.breaker,
+            "on_card": [m.label for m in res.metrics.values()
+                        if not m.degraded],
+            "wall_ms": fatal_ms}
+        # reset_device() and a half-open probe on the card: back on it
+        ex.health.reset_device()
+        reset_kernel_counters()
+        res = ex.execute(p["plan"], p["inputs"])
+        n = rt_card_run(torch, res, "q23 after reset_device",
+                        counted_run=True)
+        rt_same(torch, res, ref, "q23 after reset_device")
+        require(res.breaker["state"] == "closed",
+                f"after the probe: {res.breaker}")
+        faults["after_reset"] = {"degraded": res.degraded, "launches": n,
+                                 "breaker": res.breaker["state"]}
+        faultinj.uninstall()
+        del res
+        # the capped tier: a program captured into a graph, then a fault
+        # before its third run's replay, retried onto the same graph
+        cex = PlanExecutor(mode="capped", optimize=False,
+                           caps=dict(Q23_CAPS))
+        first = cex.execute(p["plan"], p["inputs"])
+        second = cex.execute(p["plan"], p["inputs"])
+        require(second.graph, f"no graph: {second.graph_reason}")
+        inj = install("capped_assert", {"computeFaults": {"plan.Scan": {
+            "percent": 100, "injectionType": 1, "interceptionCount": 1}}})
+        reset_kernel_counters()
+        third = cex.execute(p["plan"], p["inputs"])
+        require(third.graph and third.retries == 1 and not third.degraded,
+                f"capped run 3: graph {third.graph}, retries "
+                f"{third.retries}")
+        rt_same(torch, third, ref, "capped q23 run 3 after a fault")
+        require(rt_plain_calls() == 0, "a plain version ran in capped run 3")
+        # the same fatal fault during a capped attempt: degraded, and no
+        # program left half made
+        cex2 = PlanExecutor(mode="capped", optimize=False,
+                            caps=dict(Q23_CAPS))
+        inj = install("capped_fatal", {"computeFaults": {
+            "plan.HashAggregate": {"percent": 100, "injectionType": 0,
+                                   "interceptionCount": 1}}})
+        res = cex2.execute(p["plan"], p["inputs"])
+        require(res.degraded and res.mode == "capped",
+                f"capped fatal: degraded {res.degraded}")
+        rt_same(torch, res, ref, "capped q23 after a fatal fault")
+        require(len(cex2._programs) == 0,
+                f"{len(cex2._programs)} programs left by the failed attempt")
+        bad = [pr.reason for pr in list(cex._programs.values())
+               + list(cex2._programs.values())
+               if pr.reason.startswith("its capture failed")]
+        require(not bad, f"a broken graph in a program cache: {bad}")
+        cex2.health.reset_device()
+        faultinj.uninstall()
+        again = [cex2.execute(p["plan"], p["inputs"]) for _ in range(2)]
+        require(not again[-1].degraded and again[-1].graph,
+                f"capped after reset: {again[-1].graph_reason}")
+        rt_same(torch, again[-1], ref, "capped q23 after reset")
+        faults["capped"] = {"graph_after_fault": third.graph,
+                            "retries": third.retries,
+                            "fatal_degraded": res.degraded,
+                            "programs_after_fatal": 0,
+                            "graph_after_reset": again[-1].graph}
+        del first, second, third, res, again
+    finally:
+        faultinj.uninstall()
+        shutil.rmtree(cfg_dir, ignore_errors=True)
+    log(f"  faults: {json.dumps(faults, default=str)}")
+    out["faults"] = faults
+
+    # 6. degrade admission under a budget that is too small (a named run)
+    prev = os.environ.get("SPARK_RAPIDS_TORCH_CERT_ADMISSION")
+    os.environ["SPARK_RAPIDS_TORCH_CERT_ADMISSION"] = "degrade"
+    try:
+        t0 = time.perf_counter()
+        res = PlanExecutor(optimize=False, cert_budget=1 << 20).execute(
+            p["plan"], p["inputs"])
+        admit_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if prev is None:
+            os.environ.pop("SPARK_RAPIDS_TORCH_CERT_ADMISSION", None)
+        else:
+            os.environ["SPARK_RAPIDS_TORCH_CERT_ADMISSION"] = prev
+    require(res.degraded and res.device.type == "cpu"
+            and all(m.degraded for m in res.metrics.values()),
+            f"degrade admission: degraded {res.degraded} on {res.device}")
+    rt_same(torch, res, ref, "q23 under degrade admission")
+    out["degrade_admission"] = {"degraded": True, "wall_ms": admit_ms}
+    log(f"  degrade admission: the CPU tier in {admit_ms:.1f} ms")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+def script_ab(trees, log_dir, gap_s=5.0):
+    """`python3 chip_smoke.py` from each checkout in `trees`, one after
+    another, each line of its merged output stamped with the seconds since
+    it started (`<log_dir>/script_ab_<i>.log`). Prints, per run, its exit
+    code, seconds and every top-level line (one not indented) that came
+    `gap_s` or more after the one before it, with that gap: the phases
+    that took the time, to be lined up between two trees by their text.
+    Exits non-zero if any run did."""
+    import torch
+    device_phase(torch)
+    os.makedirs(log_dir, exist_ok=True)
+    out = []
+    for i, tree in enumerate(trees):
+        path = os.path.join(log_dir, f"script_ab_{i}.log")
+        t0 = time.perf_counter()
+        last_t, last_line, gaps = 0.0, "(start)", []
+        with open(path, "w") as f, subprocess.Popen(
+                [sys.executable, "chip_smoke.py"], cwd=tree,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, bufsize=1) as proc:
+            for line in proc.stdout:
+                t = time.perf_counter() - t0
+                f.write(f"{t:10.3f} {line}")
+                if line[:1] not in (" ", "\t", "\n", ""):
+                    if t - last_t >= gap_s:
+                        gaps.append([round(t, 3), round(t - last_t, 3),
+                                     last_line[:120]])
+                    last_t, last_line = t, line.rstrip()
+            rc = proc.wait()
+        secs = time.perf_counter() - t0
+        out.append({"tree": tree, "rc": rc, "seconds": secs,
+                    "log": path, "gaps": gaps})
+        log(f"{tree}: rc {rc}, {secs:.1f} s")
+    print(json.dumps({"script_ab": out}), flush=True)
+    return 0 if all(r["rc"] == 0 for r in out) else 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", action="store_true",
@@ -8205,6 +8707,10 @@ def main(argv=None):
                     help="only run phase 14: ParseURI, MapUtils and "
                          "BloomFilter on their kernels, against their plain "
                          "versions and the CPU run, and the kernels timed")
+    ap.add_argument("--runtime", action="store_true",
+                    help="only run phase 15: several tasks sharing the card "
+                         "through the resource arbiter, forced OOMs, spill, "
+                         "fault injection and the degraded CPU tier")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -8213,7 +8719,17 @@ def main(argv=None):
                     help="with --plan-walls or --union-walls: import the "
                          "port from the checkout at DIR (an earlier tree, "
                          "for A/B runs by this script's code)")
+    ap.add_argument("--script-ab", nargs="+", default=[], metavar="DIR",
+                    help="only run the whole script from each checkout "
+                         "DIR in turn, stamp every line of its output with "
+                         "its seconds, write the stamped logs beside --out "
+                         "(else here) and print each run's seconds and "
+                         "its gaps of 5 s or more between top-level lines")
     args = ap.parse_args(argv)
+    if args.script_ab:
+        return script_ab(args.script_ab,
+                         os.path.dirname(os.path.abspath(args.out))
+                         if args.out else os.getcwd())
     walls = bool(args.plan_walls or args.union_walls)
     if args.tree:
         if not walls:
@@ -8293,6 +8809,12 @@ def _run(args):
                           "uri_json_bloom": ujb, "checks": chk.n},
                          default=str), flush=True)
         return 0
+    if args.runtime:
+        chk = Checks()
+        out = runtime_phase(torch, chk, smi)
+        print(json.dumps({"card": smi, "runtime": out, "checks": chk.n},
+                         default=str), flush=True)
+        return 0
     if args.fuzz:
         chk = Checks()
         fz = fuzz_phase(torch, chk)
@@ -8360,6 +8882,7 @@ def _run(args):
     log("phase 14: parse_uri, from_json and the bloom filter")
     ujb = ujb_phase(torch, chk)
     log(f"phase 14: {ujb['seconds']:.1f} s")
+    runtime = runtime_phase(torch, chk, smi)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -8663,7 +9186,7 @@ def _run(args):
                        "fuzz": fz, "customer_hash": cust,
                        "row_conversion": rconv, "keys": keys,
                        "feedback": feedback, "casts": casts,
-                       "uri_json_bloom": ujb},
+                       "uri_json_bloom": ujb, "runtime": runtime},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

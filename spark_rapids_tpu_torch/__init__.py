@@ -21,12 +21,20 @@ kernel. DECIMAL128 columns are (n, 4) uint32 limbs, and Spark's decimal
 add, subtract, multiply, divide and remainder (`ops.*_decimal128`,
 `api.DecimalUtils`) run in one decimal kernel; `entry` is the counterpart
 of the repo's entry step (`__graft_entry__.entry()`). All CUDA sources
-are under `ops/csrc/`.
+are under `ops/csrc/`. Several tasks share one card through the runtime
+(`runtime/`: the resource arbiter, memory budgets, admission, spill and
+the health breaker; `faultinj`; `api.RmmSpark`), which the plan executor
+runs under (`PlanExecutor(session=..., health=..., degrade=...)`).
 """
 from . import dtypes
 from .columnar import Column, Table
 from .interop import table_from_buffers, table_from_numpy
 from .plan import PlanBuilder, PlanExecutor, col, lit
+from . import faultinj as _faultinj
+
+# the fault injector loads its config at import when
+# SPARK_RAPIDS_TORCH_FAULTINJ_CONFIG_PATH is set
+_faultinj.maybe_install_from_env()
 
 __all__ = ["dtypes", "Column", "Table", "table_from_numpy",
            "table_from_buffers", "PlanBuilder",

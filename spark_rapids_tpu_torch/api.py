@@ -4,16 +4,20 @@ Java API, mapped onto the port's ops.
 Counterpart of `spark_rapids_tpu/api.py`. `CastStrings`, `DecimalUtils`,
 `Hash` (every kind Spark hashes: fixed-width, strings, DECIMAL128, structs
 and, for murmur3, lists), `RowConversion`, `BloomFilter`, `MapUtils` and
-`ParseURI` are ported; `GpuTimeZoneDB`, `DateTimeRebase`, `Histogram` and
-`ZOrder` wait for their modules (ROADMAP queue A item 12).
+`ParseURI` are ported, and so is `RmmSpark` (over
+`runtime.ResourceArbiter`, with the reference's OOM exceptions as
+aliases); `GpuTimeZoneDB`, `DateTimeRebase`, `Histogram` and `ZOrder`
+wait for their modules (ROADMAP queue A item 12).
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from . import ops
 from .columnar import Column, Table
 from .dtypes import DType
+from .runtime.adaptor import (CpuRetryOOM, CpuSplitAndRetryOOM,  # noqa: F401
+                              ResourceArbiter, RetryOOM, SplitAndRetryOOM)
 
 
 class CastStrings:
@@ -191,3 +195,90 @@ class ParseURI:
     def parseURIQueryWithColumn(uriColumn: Column,
                                 queryColumn: Column) -> Column:
         return ops.parse_uri_to_query_column(uriColumn, queryColumn)
+
+
+class RmmSpark:
+    """RmmSpark.java facade over runtime.ResourceArbiter: same role as the
+    reference's static wrapper around SparkResourceAdaptor (install an
+    arbiter, associate threads with tasks, drain metrics, inject OOMs)."""
+
+    _arbiter: Optional[ResourceArbiter] = None
+
+    @staticmethod
+    def setEventHandler(logLoc: Optional[str] = None) -> ResourceArbiter:
+        """RmmSpark.java:59-116 (the RMM wrap half is the arbiter install).
+        Double-install raises, like the reference."""
+        if RmmSpark._arbiter is not None:
+            raise RuntimeError("an event handler is already set")
+        RmmSpark._arbiter = ResourceArbiter(log_loc=logLoc)
+        return RmmSpark._arbiter
+
+    @staticmethod
+    def clearEventHandler() -> None:
+        if RmmSpark._arbiter is not None:
+            RmmSpark._arbiter.close()
+            RmmSpark._arbiter = None
+
+    @staticmethod
+    def _a() -> ResourceArbiter:
+        if RmmSpark._arbiter is None:
+            raise RuntimeError("call RmmSpark.setEventHandler() first")
+        return RmmSpark._arbiter
+
+    # thread/task association (RmmSpark.java:126-343)
+    @staticmethod
+    def currentThreadIsDedicatedToTask(taskId: int) -> None:
+        RmmSpark._a().current_thread_is_dedicated_to_task(taskId)
+
+    @staticmethod
+    def shuffleThreadWorkingOnTasks(taskIds: Sequence[int]) -> None:
+        RmmSpark._a().shuffle_thread_working_on_tasks(taskIds)
+
+    @staticmethod
+    def poolThreadWorkingOnTasks(taskIds: Sequence[int]) -> None:
+        RmmSpark._a().pool_thread_working_on_tasks(taskIds)
+
+    @staticmethod
+    def poolThreadFinishedForTasks(taskIds: Sequence[int]) -> None:
+        RmmSpark._a().pool_thread_finished_for_tasks(taskIds)
+
+    @staticmethod
+    def taskDone(taskId: int) -> None:
+        RmmSpark._a().task_done(taskId)
+
+    @staticmethod
+    def blockThreadUntilReady() -> None:
+        RmmSpark._a().block_thread_until_ready()
+
+    # OOM injection (RmmSpark.java:435-515)
+    @staticmethod
+    def forceRetryOOM(threadId: int, numOOMs: int = 1, oomMode: int = 0,
+                      skipCount: int = 0) -> None:
+        RmmSpark._a().force_retry_oom(threadId, numOOMs, oomMode, skipCount)
+
+    @staticmethod
+    def forceSplitAndRetryOOM(threadId: int, numOOMs: int = 1, oomMode: int = 0,
+                              skipCount: int = 0) -> None:
+        RmmSpark._a().force_split_and_retry_oom(threadId, numOOMs, oomMode,
+                                                skipCount)
+
+    # metrics drain (RmmSpark.java:533-590)
+    @staticmethod
+    def getAndResetNumRetryThrow(taskId: int) -> int:
+        return RmmSpark._a().get_and_reset_num_retry_throw(taskId)
+
+    @staticmethod
+    def getAndResetNumSplitRetryThrow(taskId: int) -> int:
+        return RmmSpark._a().get_and_reset_num_split_retry_throw(taskId)
+
+    @staticmethod
+    def getAndResetBlockTimeNs(taskId: int) -> int:
+        return RmmSpark._a().get_and_reset_block_time_ns(taskId)
+
+    @staticmethod
+    def getAndResetComputeTimeLostToRetryNs(taskId: int) -> int:
+        return RmmSpark._a().get_and_reset_computation_time_lost_ns(taskId)
+
+    @staticmethod
+    def getStateOf(threadId: int) -> str:
+        return RmmSpark._a().get_state_name_of(threadId)

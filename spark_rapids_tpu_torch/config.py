@@ -11,7 +11,9 @@
 | SPARK_RAPIDS_TORCH_STATS_PATH | —     | JSONL file the default store replays and appends to |
 | SPARK_RAPIDS_TORCH_CERT_SEED | on     | with a store, the capped tier tightens its starting caps to the certified rows and ceilings its ladder there (analysis/footprint.py): on/off |
 | SPARK_RAPIDS_TORCH_CERT_BUDGET_BYTES | 0 | admission budget for a plan's certified residency; 0 is off |
-| SPARK_RAPIDS_TORCH_CERT_ADMISSION | reject | over the budget: reject raises ResourceAdmissionError; degrade (the CPU tier, ROADMAP queue A item 10) raises NotImplementedError |
+| SPARK_RAPIDS_TORCH_CERT_ADMISSION | reject | over the budget: reject raises ResourceAdmissionError; degrade runs the whole plan on the degraded CPU tier |
+| SPARK_RAPIDS_TORCH_BREAKER_DEGRADE | cpu | when the breaker trips: cpu finishes the plan on the CPU tier, off raises |
+| SPARK_RAPIDS_TORCH_FAULTINJ_CONFIG_PATH | — | the fault injector's JSON config (faultinj.py), installed at import |
 """
 from __future__ import annotations
 
@@ -122,12 +124,27 @@ def cert_budget_bytes() -> int:
 
 def cert_admission() -> str:
     """The policy over the budget: "reject" raises ResourceAdmissionError
-    naming the operator; "degrade" would finish the plan on the CPU tier,
-    which is ROADMAP queue A item 10's, so the executor raises
-    NotImplementedError for it. A typo raises ValueError."""
+    naming the operator; "degrade" runs the whole plan on the degraded CPU
+    tier, where the device budget does not bind. A typo raises
+    ValueError."""
     v = os.environ.get("SPARK_RAPIDS_TORCH_CERT_ADMISSION", "reject")
     if v not in ("reject", "degrade"):
         raise ValueError(
             f"SPARK_RAPIDS_TORCH_CERT_ADMISSION={v!r}: expected reject or "
             "degrade")
     return v
+
+
+def breaker_degrade() -> str:
+    """When the breaker trips: "cpu" finishes the plan on the degraded CPU
+    tier, "off" raises the fault. A typo raises."""
+    v = os.environ.get("SPARK_RAPIDS_TORCH_BREAKER_DEGRADE", "cpu")
+    if v not in ("cpu", "off"):
+        raise ValueError(
+            f"SPARK_RAPIDS_TORCH_BREAKER_DEGRADE={v!r}: expected cpu or off")
+    return v
+
+
+def faultinj_config_path() -> str:
+    """The fault injector's config (faultinj.py); "" when unset."""
+    return os.environ.get("SPARK_RAPIDS_TORCH_FAULTINJ_CONFIG_PATH", "")

@@ -70,3 +70,42 @@ __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "parse_uri_to_protocol", "parse_uri_to_host", "parse_uri_to_query",
            "parse_uri_to_query_literal", "parse_uri_to_query_column",
            "from_json"]
+
+# Admission (runtime/admission.py) wraps the public ops with the JAX
+# package's working-set factors over their operand bytes (spark_rapids_tpu/
+# ops/__init__.py _ADMITTED_FACTORS, for the names the port has); a wrapper
+# passes through when no DeviceSession is active. Calls between the port's
+# own modules import the submodules, so each public call is admitted once.
+# The plan executor calls through `plan_ops`, whose entries take their
+# factors from this table too (concat_tables is one of them only).
+from ..runtime.admission import admitted_op as _admitted_op
+
+_ADMITTED_FACTORS = {
+    "murmur_hash3_32": 1.5, "xxhash64": 1.5,
+    "string_to_integer": 2.0, "string_to_float": 2.0,
+    "string_to_integer_with_base": 2.0, "integer_to_string_with_base": 3.0,
+    "string_to_decimal": 2.0,
+    "add_decimal128": 2.0, "sub_decimal128": 2.0, "multiply_decimal128": 3.0,
+    "divide_decimal128": 3.0, "remainder_decimal128": 3.0,
+    "decimal_to_non_ansi_string": 3.0,
+    "float_to_string": 4.0, "format_float": 4.0,
+    "convert_to_rows": 3.0, "convert_to_rows_fixed_width_optimized": 3.0,
+    "convert_from_rows": 3.0, "convert_from_rows_fixed_width_optimized": 3.0,
+    "parse_uri_to_protocol": 2.0, "parse_uri_to_host": 2.0,
+    "parse_uri_to_query": 2.0, "parse_uri_to_query_literal": 2.0,
+    "parse_uri_to_query_column": 2.0,
+    "from_json": 3.0,
+    "take": 2.0, "take_table": 2.0, "apply_boolean_mask": 2.0,
+    "sorted_order": 2.0, "sort_table": 3.0,
+    "groupby_aggregate": 2.0,
+    "inner_join": 3.0, "inner_join_capped": 3.0, "left_join": 3.0,
+    "left_join_capped": 3.0, "full_join": 3.0,
+    "left_semi_join": 2.0, "left_anti_join": 2.0, "semi_join_mask": 2.0,
+    "bloom_filter_put": 2.0, "bloom_filter_merge": 2.0,
+    "bloom_filter_probe": 2.0, "concat_tables": 2.0,
+}
+for _name in __all__:
+    if _name in _ADMITTED_FACTORS:
+        globals()[_name] = _admitted_op(globals()[_name],
+                                        factor=_ADMITTED_FACTORS[_name])
+del _name

@@ -86,11 +86,49 @@ says `stats_reverted`). The resource certifier (analysis/footprint.py)
 certifies the plan about to run, once per (plan, binding), stamps it on
 `PlanResult.cert`, and gates admission when SPARK_RAPIDS_TORCH_CERT_
 BUDGET_BYTES (or `cert_budget=`) is set: "reject" raises
-`ResourceAdmissionError` before anything runs; "degrade" raises
-NotImplementedError, since the CPU tier it would run is ROADMAP queue A
-item 10's. With SPARK_RAPIDS_TORCH_TRACE=1 every eager operator runs in
-a `plan.<label>` range and every capped attempt in `plan.capped.attempt`
+`ResourceAdmissionError` before anything runs; "degrade" runs the whole
+plan on the degraded CPU tier, where the device budget does not bind.
+With SPARK_RAPIDS_TORCH_TRACE=1 every eager operator runs in a
+`plan.<label>` range and every capped attempt in `plan.capped.attempt`
 (utils/tracing.py).
+
+Runtime arbitration, as the reference's (runtime/, faultinj.py):
+
+- Admission. The eager tier and the degraded tier call every op through
+  `ops/plan_ops.py`, by module attribute, under the JAX package's op
+  names; each entry is admitted against the active `DeviceSession`'s
+  device budget (`runtime.admission`), and `session=` scopes one to the
+  execution on this thread. A capped attempt is admitted once, before
+  its program runs or replays, for the program's padded bytes (twice the
+  inputs' before its first run), and its reservation shrinks to the
+  attempt's outputs: a graph replay runs no Python, so nothing inside it
+  can be admitted or injected.
+- Faults. The plan-level fault-injection point `plan.<Kind>` fires once
+  per operator in the eager tier and once per operator per attempt in
+  the capped tier, before the attempt's program is looked up, so a fault
+  leaves no program half captured; the op-level shims sit on
+  `plan_ops`. `runtime.health` turns injected failures into a policy:
+  transient ones (an assert, a substituted return code) retry with
+  jittered backoff against the plan attempt's retry budget, at most
+  `op_retries` times per operator; sticky and fatal ones trip the
+  breaker.
+- Memory pressure is not a device fault. The arbiter's RetryOOM and
+  SplitAndRetryOOM (and their CPU forms) leave `execute()` at once: they
+  never reach the health monitor, so they neither trip the breaker nor
+  degrade. The caller drops the attempt's outputs, which frees their
+  reservations, blocks until the arbiter lets the thread go and reruns
+  (`runtime.with_retry`'s protocol; a plan is not split). The reference
+  retries a RetryOOM in place while holding the plan's earlier outputs,
+  and trips its breaker once `op_retries` is spent.
+- The degraded CPU tier. After a trip, with `degrade="cpu"` (the
+  default, SPARK_RAPIDS_TORCH_BREAKER_DEGRADE), the outputs finished on
+  the card are copied to host memory and the rest of the plan runs on
+  the CPU's plain versions with every fault point suppressed; while the
+  breaker is open whole plans run there, and after `reset_device()` (or
+  the cooldown) a half-open probe on the card decides. `PlanResult`
+  says so: `degraded`, `retries`, `backoff_ms` and the breaker's
+  snapshot. The stats store files a degraded result under "cpu".
+  Everywhere else on the card the kernels run or the call raises.
 
 The rule-based optimizer (`plan/optimizer.py`) runs first, by default
 (`optimize=None` reads SPARK_RAPIDS_TORCH_OPTIMIZER), once per (plan,
@@ -100,8 +138,7 @@ rule's output and `_verify_execution` runs the static verifier
 (`analysis/verifier.py`) on the plan about to run, as the reference's
 gate does. Every node kind runs in both tiers; an `Exchange` returns its
 child, as the reference's does on one device. Streaming scans,
-placement, the health breaker, fault injection, the mesh lowering and the
-degraded CPU tier wait for later slices.
+placement and the mesh lowering wait for later slices.
 """
 from __future__ import annotations
 
@@ -111,16 +148,18 @@ from typing import Dict, List, Optional, Tuple, Union as TUnion
 
 import torch
 
-from .. import config, dtypes
+from .. import config, dtypes, faultinj
 from .. import device as _device
 from ..columnar import Column, Table
 from ..utils import tracing
 from ..utils.lru import LruDict
-from ..ops import (aggregate, copying, gather, groupby_cuda, join, select,
-                   sort, topk)
+from ..ops import (aggregate, copying, gather, groupby_cuda, join, plan_ops,
+                   select, sort, topk)
 from ..ops.aggregate import _agg_value_dtype
 from ..ops.registry import REGISTRY, KernelDeclinedError
 from ..parallel.autoretry import auto_retry_overflow
+from ..runtime.admission import (active_session, get_active_session,
+                                 operand_nbytes, tie_to_outputs)
 from .builder import Plan
 from .expr import ColumnRef, _reduce_identity
 from . import stats as stats_mod
@@ -132,6 +171,15 @@ from .nodes import (Exchange, Filter, FusedSelect, HashAggregate, HashJoin,
 _OPT_CACHE_SIZE = 64     # rewrites kept per executor, oldest dropped first
 _PROGRAM_CACHE_SIZE = 64     # capped programs kept per executor
 _CAPS_MEMO_SIZE = 256        # plans whose grown caps are kept
+
+def _fault_surface():
+    """The failures the health policy handles: injected nonfatal asserts
+    and substituted return codes (transient), and DeviceFatalError (fatal,
+    never retried on the device). The arbiter's OOMs are not among them:
+    they leave `execute()` for the caller."""
+    return (faultinj.DeviceFatalError, faultinj.DeviceAssertError,
+            faultinj.InjectedReturnCode)
+
 
 def _check_capped_keys(cols) -> None:
     """A STRING key raises TypeError in the capped tier before any kernel
@@ -159,7 +207,12 @@ class PlanResult:
     `jit_cache_hits` the program-cache reuses of this execute; `graph`
     whether its last attempt replayed a CUDA graph, and `graph_reason` why
     not. `cert` is the resource certifier's certificate of the executed
-    plan (None where the certifier declined)."""
+    plan (None where the certifier declined). `retries` counts the re-runs
+    after transient faults and `backoff_ms` the time backed off before
+    them; `degraded` says the plan finished on the degraded CPU tier
+    (`device` is then the CPU, and a capped result is unpadded), and
+    `breaker` is the health breaker's snapshot ({"state", "trips",
+    "reason", "error"})."""
 
     def __init__(self, plan: Plan, table: Table,
                  metrics: Dict[str, OperatorMetrics], wall_ms: float,
@@ -167,7 +220,9 @@ class PlanResult:
                  mode: str = "eager", attempts: int = 1,
                  caps: Optional[Dict[str, int]] = None,
                  jit_cache_hits: int = 0, graph: bool = False,
-                 graph_reason: str = "the eager tier has no program"):
+                 graph_reason: str = "the eager tier has no program",
+                 retries: int = 0, degraded: bool = False,
+                 breaker: Optional[Dict] = None, backoff_ms: float = 0.0):
         self.plan = plan
         self.table = table
         self.valid = valid
@@ -182,6 +237,10 @@ class PlanResult:
         self.graph_reason = "" if graph else graph_reason
         self.optimizer: Optional[Dict] = None
         self.cert = None
+        self.retries = retries
+        self.degraded = degraded
+        self.breaker = breaker
+        self.backoff_ms = backoff_ms
 
     def compact(self) -> Table:
         """The live rows only (the table itself in the eager tier). Reads
@@ -202,7 +261,8 @@ class PlanResult:
                               optimizer=self.optimizer,
                               attempts=self.attempts, caps=self.caps,
                               jit_cache_hits=self.jit_cache_hits,
-                              cert=self.cert, graph=self.graph)
+                              cert=self.cert, graph=self.graph,
+                              degraded=self.degraded, breaker=self.breaker)
 
 
 class _CappedRel:
@@ -290,7 +350,12 @@ class PlanExecutor:
     """Executes validated Plans on one device, in the eager or the capped
     tier. `caps` ({"row_cap": r, "key_cap": k}) are the capped tier's
     starting capacities, else the largest input's rows; `max_cap_attempts`
-    bounds its escalation."""
+    bounds its escalation. `op_retries` bounds the transient-fault re-runs
+    of one operator (of one capped plan); `session` is a DeviceSession
+    scoped to each execution; `health` a DeviceHealthMonitor (share one to
+    give several executors one breaker; default: one of its own, probing
+    this executor's device); `degrade` "cpu" or "off" (None:
+    SPARK_RAPIDS_TORCH_BREAKER_DEGRADE)."""
 
     def __init__(self, mode: str = "eager",
                  device: Optional[TUnion[str, torch.device]] = None,
@@ -298,11 +363,28 @@ class PlanExecutor:
                  optimize: Optional[bool] = None,
                  caps: Optional[Dict[str, int]] = None,
                  max_cap_attempts: int = 6,
-                 cert_budget: Optional[int] = None):
+                 cert_budget: Optional[int] = None,
+                 op_retries: int = 2,
+                 session=None,
+                 health=None,
+                 degrade: Optional[str] = None):
         if mode not in ("eager", "capped"):
             raise ValueError(f"unknown executor mode {mode!r}")
         self.mode = mode
         self.device = _device.resolve(device)
+        self.op_retries = op_retries
+        self.session = session
+        if health is None:
+            import functools
+            from ..runtime.health import DeviceHealthMonitor, device_probe
+            health = DeviceHealthMonitor(
+                probe=functools.partial(device_probe, self.device))
+        self.health = health
+        self.degrade = (config.breaker_degrade() if degrade is None
+                        else degrade)
+        if self.degrade not in ("cpu", "off"):
+            raise ValueError(f"unknown degrade policy {self.degrade!r} "
+                             "(expected cpu or off)")
         self.block_per_op = block_per_op
         self.optimize = (config.optimizer_enabled() if optimize is None
                          else bool(optimize))
@@ -350,20 +432,35 @@ class PlanExecutor:
         # stats-driven rewrite keeps the entry of its authored plan
         source_fp = authored.fingerprint
         cert = self._certify(plan, inputs, bound)
-        self._admit(cert)
-        inputs = {s: inputs[s].to(self.device) for s in plan.input_names}
-        if self.mode == "capped":
-            res = self._execute_capped(plan, inputs, schemas, source_fp,
-                                       cert)
+        if self._over_budget(cert):
+            # degrade admission: the device budget does not bind on the
+            # CPU tier, so the whole plan runs there, untouched by the card
+            self.health.start_plan_attempt()
+            res = self._execute_degraded(
+                plan, inputs, schemas, {}, {}, start=0,
+                t_plan0=time.perf_counter(), mode=self.mode)
         else:
-            res = self._execute_eager(plan, inputs, schemas)
+            inputs = {s: inputs[s].to(self.device)
+                      for s in plan.input_names}
+            scope = contextlib.nullcontext()
+            if self.session is not None:
+                scope = active_session(self.session)
+            with scope:
+                if self.mode == "capped":
+                    res = self._execute_capped(plan, inputs, schemas,
+                                               source_fp, cert)
+                else:
+                    res = self._execute_eager(plan, inputs, schemas)
         res.cert = cert
         if report is not None:
             res.optimizer = report.to_dict()
         store = stats_mod.active_store()
         if store is not None:
-            store.record_result(plan, res, backend=self.device.type,
-                                source_fp=source_fp)
+            # a degraded result ran on the CPU: it never seeds the card
+            store.record_result(
+                plan, res,
+                backend="cpu" if res.degraded else self.device.type,
+                source_fp=source_fp)
         return res
 
     def _certify(self, plan: Plan, inputs, bound):
@@ -390,26 +487,24 @@ class PlanExecutor:
         except Exception:
             return None
 
-    def _admit(self, cert) -> None:
-        """The admission gate: a plan whose certified residency exceeds
-        the budget does not run. "reject" raises ResourceAdmissionError
-        naming the operator; "degrade" would run the CPU tier, which is
-        ROADMAP queue A item 10's, so it raises NotImplementedError."""
+    def _over_budget(self, cert) -> bool:
+        """The admission gate: whether the plan's certified residency
+        exceeds the budget. Over it, "reject" raises
+        ResourceAdmissionError naming the operator and "degrade" answers
+        True (the caller runs the degraded CPU tier)."""
         budget = (self.cert_budget if self.cert_budget is not None
                   else config.cert_budget_bytes())
         if not budget or cert is None:
-            return
+            return False
         violations = cert.over_budget(budget)
         if not violations:
-            return
+            return False
         if config.cert_admission() == "reject":
             from ..analysis.footprint import ResourceAdmissionError
             raise ResourceAdmissionError(
                 violations, "admission gate: certified footprint exceeds "
                 f"the {budget} B device budget")
-        raise NotImplementedError(
-            "SPARK_RAPIDS_TORCH_CERT_ADMISSION=degrade: the degraded CPU "
-            "tier is not ported (ROADMAP queue A item 10)")
+        return True
 
     def _verify_execution(self, authored: Plan, plan: Plan, report,
                           inputs, bound) -> None:
@@ -511,42 +606,202 @@ class PlanExecutor:
         if self.block_per_op and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ---- faults and the health policy ---------------------------------------
+
+    @staticmethod
+    def _faultinj_points(nodes) -> None:
+        """The plan-level interception point: rules keyed `plan.<Kind>`
+        (or `*`) fire here for each of `nodes`, besides the op-level shims
+        of `plan_ops`. One lookup when no injector is installed."""
+        inj = faultinj.active()
+        if inj is not None:
+            for node in nodes:
+                inj.on_compute(f"plan.{node.kind}")
+
+    def _breaker_snapshot(self) -> Dict:
+        br = self.health.breaker
+        return {"state": br.state, "trips": br.trips,
+                "reason": br.last_trip_reason, "error": br.last_trip_error}
+
+    def _handle_fault(self, err, op_label: str, attempt: int,
+                      metric: OperatorMetrics) -> bool:
+        """One failure on the device path. True: retry the failed unit
+        (backoff slept, counters bumped). False: the breaker tripped, and
+        the caller degrades (or raises under degrade="off")."""
+        from ..runtime import health as _h
+        kind = self.health.record_failure(op_label, err)
+        if kind == _h.TRANSIENT:
+            if attempt < self.op_retries:
+                slept = self.health.try_retry(attempt)
+                if slept is not None:
+                    metric.retries += 1
+                    metric.backoff_ms += slept
+                    return True
+                kind = _h.STICKY        # the shared retry budget is spent
+            else:
+                kind = _h.STICKY        # the per-operator bound is spent
+        self.health.trip(kind, err)
+        return False
+
+    # ---- eager tier ----------------------------------------------------------
+
     def _execute_eager(self, plan: Plan, inputs, schemas) -> PlanResult:
         self._sync()
         t_plan0 = time.perf_counter()
         results: Dict[int, Table] = {}
         metrics: Dict[str, OperatorMetrics] = {}
-        for node in plan.nodes:
-            childs = [results[id(c)] for c in node.children]
-            m = OperatorMetrics(label=node.label, kind=node.kind,
-                                describe=node.describe())
-            t0 = time.perf_counter()
-            with tracing.range_ctx(f"plan.{node.label}"):
-                out = self._exec_eager_node(node, childs, inputs, schemas, m)
-                self._sync()
-            m.wall_ms = (time.perf_counter() - t0) * 1e3
-            m.rows_in = sum(t.num_rows for t in childs)
-            m.rows_out = out.num_rows
-            m.bytes_out = out.nbytes()
-            metrics[node.label] = m
-            results[id(node)] = out
+        self.health.start_plan_attempt()
+        if self.degrade != "off" and not self.health.admit():
+            # the device is quarantined (breaker open, or a failed
+            # half-open probe): the whole plan runs on the CPU tier
+            return self._execute_degraded(plan, inputs, schemas, results,
+                                          metrics, start=0, t_plan0=t_plan0,
+                                          mode="eager")
+        try:
+            for i, node in enumerate(plan.nodes):
+                childs = [results[id(c)] for c in node.children]
+                m = OperatorMetrics(label=node.label, kind=node.kind,
+                                    describe=node.describe())
+                t0 = time.perf_counter()
+                attempt = 0
+                while True:
+                    try:
+                        with tracing.range_ctx(f"plan.{node.label}"):
+                            self._faultinj_points((node,))
+                            out = self._exec_eager_node(node, childs, inputs,
+                                                        schemas, m)
+                            self._sync()
+                        break
+                    except _fault_surface() as err:
+                        if self._handle_fault(err, node.label, attempt, m):
+                            attempt += 1
+                            continue
+                        if self.degrade == "off":
+                            raise
+                        return self._execute_degraded(
+                            plan, inputs, schemas, results, metrics,
+                            start=i, t_plan0=t_plan0, mode="eager",
+                            first_metric=m)
+                if attempt:
+                    # retried to success: the fault was transient, and must
+                    # not count toward a later sticky trip
+                    self.health.record_success(node.label)
+                # compute of every attempt, not the backoff between them
+                m.wall_ms = (time.perf_counter() - t0) * 1e3 - m.backoff_ms
+                m.rows_in = sum(t.num_rows for t in childs)
+                m.rows_out = out.num_rows
+                m.bytes_out = out.nbytes()
+                metrics[node.label] = m
+                results[id(node)] = out
+        except BaseException as err:
+            # a failed plan still says what completed; the first
+            # attachment wins (a failed degraded rerun recorded its own)
+            if not hasattr(err, "plan_metrics"):
+                try:
+                    err.plan_metrics = dict(metrics)
+                except Exception:
+                    pass
+            raise
         wall = (time.perf_counter() - t_plan0) * 1e3
         return PlanResult(plan, results[id(plan.root)], metrics, wall,
-                          self.device)
+                          self.device,
+                          retries=sum(mm.retries for mm in metrics.values()),
+                          breaker=self._breaker_snapshot(),
+                          backoff_ms=sum(mm.backoff_ms
+                                         for mm in metrics.values()))
 
-    def _pick(self, op: str, sig, m: OperatorMetrics):
+    # ---- degraded CPU tier -----------------------------------------------------
+
+    def _execute_degraded(self, plan: Plan, inputs, schemas, results,
+                          metrics, start: int, t_plan0: float, mode: str,
+                          first_metric: Optional[OperatorMetrics] = None,
+                          carry_retries: int = 0,
+                          carry_backoff_ms: float = 0.0,
+                          attempts: int = 1,
+                          caps: Optional[Dict[str, int]] = None
+                          ) -> PlanResult:
+        """Finish the plan on the CPU after a breaker trip (or under
+        degrade admission). The outputs finished on the card are copied to
+        host memory; the nodes from `start` on run eagerly on CPU tensors,
+        each kernel's plain version, with every fault point suppressed
+        (`faultinj.suppressed()`: the CPU tier does not touch the
+        quarantined card). If the copy fails, the whole plan reruns from
+        the inputs. Admission still applies."""
+        cpu = torch.device("cpu")
+        self.health.note_degraded_plan()
+        with faultinj.suppressed():
+            try:
+                cpu_results = {k: t.to(cpu) for k, t in results.items()}
+                cpu_inputs = {k: t.to(cpu) for k, t in inputs.items()}
+            except Exception:
+                # the card's buffers are lost: restart from the inputs,
+                # keeping the retries and backoff already paid
+                carry_retries += sum(mm.retries for mm in metrics.values())
+                carry_backoff_ms += sum(mm.backoff_ms
+                                        for mm in metrics.values())
+                if first_metric is not None:
+                    carry_retries += first_metric.retries
+                    carry_backoff_ms += first_metric.backoff_ms
+                cpu_results = {}
+                cpu_inputs = {k: t.to(cpu) for k, t in inputs.items()}
+                metrics = {}
+                start = 0
+                first_metric = None
+            try:
+                for node in plan.nodes[start:]:
+                    childs = [cpu_results[id(c)] for c in node.children]
+                    if first_metric is not None and node is plan.nodes[start]:
+                        m = first_metric    # keep the failed op's retries
+                    else:
+                        m = OperatorMetrics(label=node.label, kind=node.kind,
+                                            describe=node.describe())
+                    m.degraded = True
+                    t0 = time.perf_counter()
+                    with tracing.range_ctx(f"plan.{node.label}.degraded"):
+                        out = self._exec_eager_node(node, childs, cpu_inputs,
+                                                    schemas, m,
+                                                    backend="cpu")
+                    m.wall_ms = (time.perf_counter() - t0) * 1e3
+                    m.rows_in = sum(t.num_rows for t in childs)
+                    m.rows_out = out.num_rows
+                    m.bytes_out = out.nbytes()
+                    metrics[node.label] = m
+                    cpu_results[id(node)] = out
+            except BaseException as err:
+                try:
+                    err.plan_metrics = dict(metrics)
+                except Exception:
+                    pass
+                raise
+        wall = (time.perf_counter() - t_plan0) * 1e3
+        return PlanResult(plan, cpu_results[id(plan.root)], metrics, wall,
+                          cpu, mode=mode, attempts=attempts, caps=caps,
+                          graph_reason="the degraded CPU tier has no program",
+                          degraded=True,
+                          retries=carry_retries + sum(
+                              mm.retries for mm in metrics.values()),
+                          breaker=self._breaker_snapshot(),
+                          backoff_ms=carry_backoff_ms + sum(
+                              mm.backoff_ms for mm in metrics.values()))
+
+    def _pick(self, op: str, sig, m: OperatorMetrics,
+              backend: Optional[str] = None):
         """`_kernel_choice` for an eager operator, stamped on its metrics
         with the signature the stats store files its timing under."""
-        choice = self._kernel_choice(op, sig, m.label)
+        choice = self._kernel_choice(op, sig, m.label, backend)
         m.kernel = choice.label
         m._kernel_sig = (op, sig)
         return choice
 
-    def _kernel_choice(self, op: str, sig, label: str):
-        """The registry's kernel for `op`; on the card a declined call
-        raises (the plain versions run on the CPU only)."""
-        choice = REGISTRY.select(op, sig, backend=self.device.type)
-        if choice.fallback and self.device.type == "cuda":
+    def _kernel_choice(self, op: str, sig, label: str,
+                       backend: Optional[str] = None):
+        """The registry's kernel for `op` on `backend` (the executor's
+        device type by default; the degraded tier passes "cpu"); on the
+        card a declined call raises (the plain versions run on the CPU
+        only)."""
+        backend = backend or self.device.type
+        choice = REGISTRY.select(op, sig, backend=backend)
+        if choice.fallback and backend == "cuda":
             why = ", ".join(f"{k}: {r}" for k, r in choice.declined)
             raise KernelDeclinedError(
                 f"{label}: no {op} kernel takes this call on the card "
@@ -560,7 +815,12 @@ class PlanExecutor:
         return REGISTRY.select(op, sig, backend=self.device.type)
 
     def _exec_eager_node(self, node: PlanNode, childs: List[Table], inputs,
-                         schemas, m: OperatorMetrics) -> Table:
+                         schemas, m: OperatorMetrics,
+                         backend: Optional[str] = None) -> Table:
+        """One eager operator, every op through `plan_ops` (looked up at
+        call time, so the admission wrappers and the fault injector's
+        shims see it), in the JAX executor's order of op names."""
+        P = plan_ops
         if isinstance(node, Scan):
             t = inputs[node.source]
             if node.projection is not None:
@@ -568,7 +828,7 @@ class PlanExecutor:
             return t
         if isinstance(node, Filter):
             (t,) = childs
-            return gather.apply_boolean_mask(t, node.predicate.evaluate(t))
+            return P.apply_boolean_mask(t, node.predicate.evaluate(t))
         if isinstance(node, FusedSelect):
             # gather only the projection-referenced columns through the
             # predicate, then project
@@ -577,11 +837,9 @@ class PlanExecutor:
             choice = self._pick(
                 "fused_select",
                 select.make_signature(t, node.predicate, node.exprs,
-                                      "eager"), m)
-            if not choice.fallback:
-                ft = choice.fn(t, node.predicate, needed)
-            else:
-                ft = select.fused_select_plain(t, node.predicate, needed)
+                                      "eager"), m, backend)
+            ft = P.apply_boolean_mask(t, predicate=node.predicate,
+                                      needed=needed, choice=choice)
             return self._project(ft, node)
         if isinstance(node, Project):
             (t,) = childs
@@ -595,29 +853,21 @@ class PlanExecutor:
                 [lt[k] for k in node.left_keys],
                 [rt[k] for k in node.right_keys])
             sig = join_cuda.make_signature(lkeys, rkeys, node.how, "eager")
-            choice = self._pick("hash_join", sig, m)
+            choice = self._pick("hash_join", sig, m, backend)
             if node.how == "inner":
-                if not choice.fallback:
-                    lm, rm = choice.fn(lkeys, rkeys)
-                else:
-                    lm, rm = join.inner_join(lkeys, rkeys)
+                lm, rm = P.inner_join(lkeys, rkeys, choice=choice)
                 return Table(
-                    list(gather.take_table(lt, lm.data,
-                                           _has_negative=False).columns) +
-                    list(gather.take_table(rt, rm.data,
-                                           _has_negative=False).columns),
+                    list(P.take_table(lt, lm.data,
+                                      _has_negative=False).columns) +
+                    list(P.take_table(rt, rm.data,
+                                      _has_negative=False).columns),
                     names=list(lt.names) + list(rt.names))
             # semi and anti joins: the build and the existence probe on the
             # card (the reference has no kernel for them), the sort-based
             # join on the CPU
-            semi = node.how == "left_semi"
-            if not choice.fallback:
-                keep = (join_cuda.left_semi_join_hash if semi
-                        else join_cuda.left_anti_join_hash)(lkeys, rkeys)
-            else:
-                keep = (join.left_semi_join if semi
-                        else join.left_anti_join)(lkeys, rkeys)
-            return gather.take_table(lt, keep.data, _has_negative=False)
+            keep = (P.left_semi_join if node.how == "left_semi"
+                    else P.left_anti_join)(lkeys, rkeys, choice=choice)
+            return P.take_table(lt, keep.data, _has_negative=False)
         if isinstance(node, HashAggregate):
             (t,) = childs
             if not node.keys:
@@ -625,28 +875,28 @@ class PlanExecutor:
             aggs = [(c, o) for c, o, _ in node.aggs]
             choice = self._pick(
                 "groupby", groupby_cuda.make_signature(t, aggs, "eager",
-                                                       node.keys), m)
-            agg = aggregate.groupby_aggregate(t, list(node.keys), aggs,
-                                              choice=choice)
+                                                       node.keys), m,
+                backend)
+            agg = P.groupby_aggregate(t, list(node.keys), aggs,
+                                      choice=choice)
             return Table(list(agg.columns), names=schemas[id(node)])
         if isinstance(node, Sort):
             (t,) = childs
-            return sort.sort_table(t, key_names=list(node.keys),
-                                   ascending=list(node.ascending))
+            return P.sort_table(t, list(node.keys), list(node.ascending))
         if isinstance(node, TopK):
             (t,) = childs
             sig = topk.make_signature(t, node.keys, node.ascending, node.n,
                                       "eager")
-            choice = self._pick("topk", sig, m)
-            if not choice.fallback:
-                return choice.fn(t, list(node.keys), list(node.ascending),
-                                 node.n, words=sig.extra("words"))
-            return topk.topk_plain(t, node.keys, node.ascending, node.n)
+            choice = self._pick("topk", sig, m, backend)
+            t = P.sort_table(t, list(node.keys), list(node.ascending),
+                             limit=node.n, choice=choice,
+                             words=sig.extra("words"))
+            return P.slice_table(t, 0, min(node.n, t.num_rows))
         if isinstance(node, Limit):
             (t,) = childs
-            return copying.slice_table(t, 0, node.n)
+            return P.slice_table(t, 0, min(node.n, t.num_rows))
         if isinstance(node, Union):
-            return copying.concat_tables(childs)
+            return P.concat_tables(childs)
         if isinstance(node, Exchange):
             # one device: a distribution marker that returns its child, as
             # the reference's eager tier does without a mesh
@@ -817,25 +1067,68 @@ class PlanExecutor:
         attempts = hits = 0
         prog: Optional[_CappedProgram] = None     # the last attempt's
         replayed = False
+        last_caps = dict(caps)
+        self.health.start_plan_attempt()
+        if self.degrade != "off" and not self.health.admit():
+            return self._execute_degraded(plan, inputs, schemas, {}, {},
+                                          start=0, t_plan0=t0, mode="capped")
 
         def run(**caps_now):
             nonlocal attempts, hits, prog, replayed
             attempts += 1
-            prog, hit = self._capped_program(plan, caps_now, inputs,
-                                             input_key)
-            hits += hit
-            with tracing.range_ctx("plan.capped.attempt"):
-                out, replayed = self._run_program(plan, schemas, caps_now,
-                                                  inputs, prog)
+            last_caps.clear()
+            last_caps.update(caps_now)
+            # the plan-level fault points, every attempt, before the
+            # program is looked up: a fault leaves no program half made
+            self._faultinj_points(plan.nodes)
+            key = self._program_key(plan, caps_now, input_key)
+            session, reservation = self._admit_attempt(key, inputs)
+            try:
+                prog, hit = self._capped_program(plan, key, inputs)
+                hits += hit
+                with tracing.range_ctx("plan.capped.attempt"):
+                    out, replayed = self._run_program(plan, schemas,
+                                                      caps_now, inputs, prog)
+            except BaseException:
+                if reservation is not None:
+                    session.device.release(reservation)
+                raise
+            if reservation is not None:
+                tie_to_outputs(session.device, reservation, out)
             return out
 
-        (table, valid, counts, _), final_caps = auto_retry_overflow(
-            run, caps, self.max_cap_attempts, ceil=cert_ceil)
+        retries = 0
+        plan_metric = OperatorMetrics(label="plan", kind="Plan")
+        while True:
+            try:
+                (table, valid, counts, _), final_caps = auto_retry_overflow(
+                    run, caps, self.max_cap_attempts, ceil=cert_ceil)
+                if retries:
+                    self.health.record_success("plan")
+                break
+            except _fault_surface() as err:
+                # one program per attempt: the sticky window keys on the
+                # plan, not an operator
+                if self._handle_fault(err, "plan", retries, plan_metric):
+                    retries += 1
+                    # resume from the grown caps: growth paid for stays
+                    caps = dict(last_caps)
+                    continue
+                if self.degrade == "off":
+                    raise
+                return self._execute_degraded(
+                    plan, inputs, schemas, {}, {}, start=0, t_plan0=t0,
+                    mode="capped", carry_retries=plan_metric.retries,
+                    carry_backoff_ms=plan_metric.backoff_ms,
+                    attempts=attempts, caps=dict(last_caps))
         self._caps_memo[fp] = dict(final_caps)
         # every operator's live rows in and out: one read, after the run
         rows = counts.tolist()
         wall = (time.perf_counter() - t0) * 1e3
         metrics: Dict[str, OperatorMetrics] = {}
+        # cap growths only: each of the (retries + 1) runs of the ladder
+        # has a first attempt that is not an escalation
+        escal = max(0, attempts - (retries + 1))
         for i, node in enumerate(plan.nodes):
             uses_cap = (isinstance(node, HashJoin) and node.how == "inner") \
                 or (isinstance(node, HashAggregate) and bool(node.keys))
@@ -845,29 +1138,49 @@ class PlanExecutor:
                 rows_in=rows[i][0], rows_out=rows[i][1],
                 bytes_out=prog.bytes_out.get(i, 0),
                 kernel="" if choice is None else choice.label,
-                escalations=attempts - 1 if uses_cap else 0)
+                escalations=escal if uses_cap else 0)
         return PlanResult(plan, table, metrics, wall, self.device,
                           valid=valid, mode="capped", attempts=attempts,
                           caps=final_caps, jit_cache_hits=hits,
                           graph=replayed,
                           graph_reason=prog.reason or (
                               "the program's first run: kernels launched "
-                              "from Python, no host read"))
+                              "from Python, no host read"),
+                          retries=plan_metric.retries,
+                          breaker=self._breaker_snapshot(),
+                          backoff_ms=plan_metric.backoff_ms)
 
-    def _capped_program(self, plan: Plan, caps: Dict[str, int], inputs,
-                        input_key):
-        """(the program, whether it was cached). The key is the reference's
-        `_jitted_capped` key: the plan's fingerprint (equal plans built
-        apart share it), the caps, the inputs' names, shapes and column
-        layout, and what picks the kernels: the device type, the kernel
-        overrides and the stats store's kernel epoch."""
+    def _program_key(self, plan: Plan, caps: Dict[str, int], input_key):
+        """The program cache's key, the reference's `_jitted_capped` key:
+        the plan's fingerprint (equal plans built apart share it), the
+        caps, the inputs' names, shapes and column layout, and what picks
+        the kernels: the device type, the kernel overrides and the stats
+        store's kernel epoch."""
         store = stats_mod.active_store()
         kern_key = (self.device.type,
                     tuple(sorted(config.kernel_overrides().items())),
                     None if store is None else (store.uid,
                                                 store.kernel_epoch))
-        key = (plan.fingerprint, tuple(sorted(caps.items())), input_key,
-               kern_key)
+        return (plan.fingerprint, tuple(sorted(caps.items())), input_key,
+                kern_key)
+
+    def _admit_attempt(self, key, inputs):
+        """Reserve one capped attempt's working set from the active
+        session's device budget: the program's padded node outputs where
+        it has run before, else twice the inputs' bytes. (session,
+        reservation), or (None, None) with no session."""
+        session = get_active_session()
+        if session is None:
+            return None, None
+        prog = self._programs.get(key)
+        est = (sum(prog.bytes_out.values()) if prog is not None
+               and prog.bytes_out else 2 * operand_nbytes(inputs))
+        if est <= 0:
+            return None, None
+        return session, session.device.acquire(est)
+
+    def _capped_program(self, plan: Plan, key, inputs):
+        """(the program of `key`, whether it was cached)."""
         prog = self._programs.get(key)
         if prog is not None:
             return prog, True

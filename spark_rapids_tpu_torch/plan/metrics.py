@@ -10,8 +10,12 @@ HashAggregate). In the capped tier rows are live rows, counted on the
 device and read once after the run, bytes those of the padded frames, and
 wall time is the plan's only. The profile text carries the optimizer's
 line with its decision sources, the certifier's footprint line, and the
-capped tier's attempts, caps and graph replay. The retry, IO, distributed
-and placement counters wait for their tiers.
+capped tier's attempts, caps and graph replay. The recovery counters are
+the reference's: `retries` (an operator re-run after an injected fault or
+a RetryOOM), `backoff_ms` (the time backed off before them) and
+`degraded` (the operator ran on the degraded CPU tier); a degraded plan's
+profile says so in a DEGRADED line with the breaker's state. The IO,
+distributed and placement counters wait for their tiers.
 
 The executor also opens a `utils.tracing.range_ctx("plan.<label>")`
 around every eager operator (and `plan.capped.attempt` around every
@@ -36,6 +40,9 @@ class OperatorMetrics:
     wall_ms: Optional[float] = None   # per-op wall time
     kernel: str = ""           # registry choice, "" without a dispatch
     escalations: int = 0       # cap growths charged to this node (capped)
+    retries: int = 0           # re-runs after injected faults or RetryOOM
+    backoff_ms: float = 0.0    # time backed off before those re-runs
+    degraded: bool = False     # ran on the degraded CPU tier
 
     def to_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -48,7 +55,8 @@ def render_profile(rows: List[OperatorMetrics],
                    attempts: int = 1,
                    caps: Optional[Dict] = None,
                    jit_cache_hits: int = 0, cert=None,
-                   graph: bool = False) -> str:
+                   graph: bool = False, degraded: bool = False,
+                   breaker: Optional[Dict] = None) -> str:
     """Human-readable profile table (the `profile()` text form)."""
     out = []
     if plan_wall_ms is not None:
@@ -80,14 +88,23 @@ def render_profile(rows: List[OperatorMetrics],
         tag = " [STATS REVERTED]" if optimizer.get("stats_reverted") else ""
         for key, src in sorted(sources.items()):
             out.append(f"  decision {key}: {src}{tag}")
+    if degraded:
+        reason = (breaker or {}).get("reason")
+        state = (breaker or {}).get("state", "open")
+        out.append(f"DEGRADED: breaker {state}"
+                   f"{f' ({reason})' if reason else ''}; "
+                   "plan completed on the CPU tier")
     hdr = (f"{'operator':<28} {'rows_in':>10} {'rows_out':>10} "
-           f"{'bytes_out':>12} {'wall_ms':>9}")
+           f"{'bytes_out':>12} {'wall_ms':>9} {'retry':>5} "
+           f"{'backoff':>8} {'deg':>4}")
     out.append(hdr)
     out.append("-" * len(hdr))
     for m in rows:
         wall = f"{m.wall_ms:.3f}" if m.wall_ms is not None else "-"
         out.append(f"{m.label:<28} {m.rows_in:>10} {m.rows_out:>10} "
-                   f"{m.bytes_out:>12} {wall:>9}")
+                   f"{m.bytes_out:>12} {wall:>9} {m.retries:>5} "
+                   f"{m.backoff_ms:>8.1f} "
+                   f"{'yes' if m.degraded else '-':>4}")
         if m.kernel:
             out.append(f"  kernel: {m.kernel}")
         if m.escalations:

@@ -113,7 +113,9 @@ class StatsStore:
         (the metric labels are its nodes'); `source_fp` the authored
         plan's fingerprint, under which the plan entry files, so that a
         stats-driven rewrite keeps the entry of its authored plan;
-        `backend` the backend the result ran on."""
+        `backend` the backend the result ran on: the executor passes
+        "cpu" for a degraded result, so a salvage run never seeds the
+        card."""
         source_fp = source_fp or plan.fingerprint
         sub = self._subtree_fps(plan.root)
         event = {"backend": backend, "source_fp": source_fp,
@@ -126,8 +128,11 @@ class StatsStore:
                 "ops": {}}
             ps["runs"] += 1
             ps["executed_fp"] = plan.fingerprint
-            if result.caps and result.mode == "capped":
-                # the final (possibly escalated) caps: high-water
+            degraded = getattr(result, "degraded", False)
+            if result.caps and result.mode == "capped" and not degraded:
+                # the final (possibly escalated) caps: high-water. A
+                # degraded result's caps are those of the failed device
+                # attempts, not a completed sizing
                 for k, v in result.caps.items():
                     ps["caps"][k] = max(int(ps["caps"].get(k, 0)), int(v))
                 event["caps"] = dict(ps["caps"])
@@ -143,6 +148,10 @@ class StatsStore:
                 e = self._observe_locked(backend, sfp, int(m.rows_out))
                 event["subtrees"][sfp] = e["rows"]
                 ksig = getattr(m, "_kernel_sig", None)
+                if degraded and not m.degraded:
+                    # ran on the card before the breaker tripped: its rows
+                    # count on any backend, its timing is the card's
+                    continue
                 if ksig is not None and m.kernel and m.wall_ms:
                     op, sig = ksig
                     name = m.kernel.split(":", 1)[0]

@@ -8,6 +8,7 @@ compiler against the plain version; and `api.BloomFilter`.
 Each JAX call compiles per filter size, so the filters are made once for
 the module.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

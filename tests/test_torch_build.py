@@ -22,6 +22,7 @@ hash-join kernels, on the CPU against the reference.
 
 Exact throughout: tables, masks and gather maps are integers.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

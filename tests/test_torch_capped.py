@@ -8,6 +8,7 @@ in interpret mode; `sort_table_capped`, `semi_join_mask` and
 the reference's. Tolerance: none, every output bit for bit (floats as
 their bits); a capped groupby's rows past its group count are not defined
 in either package, so only its live rows are compared."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,7 @@
 package's `api.CastStrings`: every method of CastStrings.java, on the same
 inputs, bit for bit (values and validity; strings' offsets and chars), and
 the ANSI error's row and string; then a chain through all eight."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import inspect
 
 import numpy as np

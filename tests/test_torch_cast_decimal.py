@@ -6,6 +6,7 @@ plain version.
 Each JAX function runs at one fixed width (`pad_to`) per precision, scale
 and flags, its result cached for the module.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import pytest

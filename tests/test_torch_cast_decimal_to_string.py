@@ -2,6 +2,7 @@
 Java's BigDecimal.toString) against the JAX package's, offsets and chars
 byte for byte; and csrc/number_to_string.cu's decimal format built with
 the host's C++ compiler against the plain version."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

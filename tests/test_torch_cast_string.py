@@ -7,6 +7,7 @@ C++ compiler against the plain version.
 Each JAX function runs at one fixed width (`pad_to`) per type and flags,
 its result cached for the module: every call compiles its padded program.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

@@ -1,5 +1,6 @@
 """Tables across packages: a JAX `Table` -> numpy -> port `Table` round trip
 is bit-exact, validity included (spark_rapids_tpu_torch/interop.py)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

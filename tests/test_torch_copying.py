@@ -4,6 +4,7 @@ fixed-width kind, validity on none, one or all inputs, empty inputs, three
 and more tables, and each error. The tolerance is exact: the data buffers
 are compared byte for byte (NaN payloads and -0.0 included), the
 validity and dtype kind as they are."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

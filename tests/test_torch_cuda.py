@@ -11,6 +11,7 @@ the port's dependencies are installed, e.g. on the GPU machine:
 
 Without a CUDA device each test skips (decided inside the test).
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib
 
 import numpy as np

@@ -8,6 +8,7 @@ the ops run their plain version (`decimal_utils.*_plain` over
 `decimal256`); the decimal kernel's own tests need the card
 (`tests/test_torch_cuda.py`).
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import decimal
 import random
 

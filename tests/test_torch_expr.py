@@ -3,6 +3,7 @@ value: literals are weakly typed in both (the column's dtype wins
 promotion and the literal wraps at its width), and both raise on the same
 type errors. Plus `fold`, `substitute` and the literal-only rules the
 optimizer relies on."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

@@ -8,6 +8,7 @@ Random float bit patterns cover every exponent, as
 tests/test_float_to_string.py draws them. The JAX package compiles Ryu per
 width and type (seconds each): one call per type, cached for the module.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np

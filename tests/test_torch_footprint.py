@@ -1,8 +1,9 @@
 """The port's resource certifier (spark_rapids_tpu_torch/analysis/
 footprint.py) against the JAX package's, and its three consumers, case by
 case after the reference's tests/test_footprint.py (its streaming-scan and
-parquet cases wait for ROADMAP queue A item 9, its degraded admission for
-item 10, its broadcast byte proof for item 13).
+parquet cases wait for ROADMAP queue A item 9, its broadcast byte proof
+for item 13; its degraded admission runs the port's degraded CPU tier
+against the reference's).
 
 Parity: for every NDS plan (q3, TPC-DS q3 INT32 and STRING, q72, q5, q23,
 q74, authored and optimized) and every plain corpus seed (authored and
@@ -13,6 +14,7 @@ nullability; exchange payloads are compared at four peers. Working bytes
 are the port's own kernels' tables (`join_cuda._capacity`,
 `groupby_cuda.capacity`), a limit the port states, and are checked
 against those formulas. Tolerance: exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
@@ -328,18 +330,43 @@ def test_admission_budget_env_knob_and_pass(monkeypatch):
     assert res.cert is not None
 
 
-def test_admission_degrade_names_the_cpu_tier_item(monkeypatch):
-    """The reference's degrade policy finishes the plan on its CPU tier,
-    which the port has not yet: it raises, naming ROADMAP queue A item
-    10, and never runs the plan some other way."""
+@pytest.mark.parametrize("mode", ["eager", "capped"])
+def test_admission_degrade_runs_the_cpu_tier(monkeypatch, mode):
+    """Over the budget, degrade admission runs the whole plan on the
+    degraded CPU tier, as the reference's does: every operator degraded,
+    the result unpadded and bit-equal to the reference's degraded run;
+    within the budget, degrade never comes into it."""
+    import jax.numpy as jnp
+    from spark_rapids_tpu import Column as JColumn
+    from spark_rapids_tpu import Table as JTable
+    from spark_rapids_tpu.plan import PlanExecutor as JPlanExecutor
     plan, inputs = _join_plan_and_inputs()
+    jb = JPlanBuilder()
+    jplan = jb.scan("l", schema=["k", "v"]).join(
+        jb.scan("r", schema=["k2", "w"]), "k", "k2").aggregate(
+        ["k"], [("w", "sum", "s")]).build()
+    jinputs = {
+        n: JTable([JColumn(dtype=jdt.INT64, length=c.length,
+                           data=jnp.asarray(c.data.numpy()))
+                   for c in t.columns], names=list(t.names))
+        for n, t in inputs.items()}
     monkeypatch.setenv("SPARK_RAPIDS_TORCH_CERT_ADMISSION", "degrade")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        PlanExecutor(device="cpu", cert_budget=100).execute(plan, inputs)
-    # within the budget, degrade never comes into it
-    res = PlanExecutor(device="cpu", cert_budget=1 << 30).execute(plan,
-                                                                 inputs)
-    assert res.table.num_rows > 0
+    monkeypatch.setenv("SPARK_RAPIDS_TPU_CERT_ADMISSION", "degrade")
+    res = PlanExecutor(mode=mode, device="cpu",
+                       cert_budget=100).execute(plan, inputs)
+    jres = JPlanExecutor(mode=mode, cert_budget=100).execute(jplan, jinputs)
+    assert res.degraded and jres.degraded
+    assert res.valid is None and res.mode == mode
+    assert all(m.degraded for m in res.metrics.values())
+    got = res.compact()
+    want = jres.compact()
+    assert list(got.names) == list(want.names)
+    for tc, jc in zip(got.columns, want.columns):
+        np.testing.assert_array_equal(tc.data.numpy(), np.asarray(jc.data))
+    assert "DEGRADED" in res.profile_text()
+    ok = PlanExecutor(mode=mode, device="cpu",
+                      cert_budget=1 << 30).execute(plan, inputs)
+    assert not ok.degraded and ok.compact().num_rows > 0
 
 
 def test_admission_typo_policy(monkeypatch):

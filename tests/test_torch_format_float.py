@@ -7,6 +7,7 @@ compiler against the plain version.
 The JAX package compiles Ryu and its fill per digit count, width and type
 (seconds each): three calls, cached for the module.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import importlib
 

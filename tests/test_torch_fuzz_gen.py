@@ -14,6 +14,7 @@ It also holds the cross-package runner that the corpus files share
 `compact()` compared bit for bit (names, dtypes, data bytes, NaN bits and
 the sign of zero, validity), errors by class name.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 import json
 

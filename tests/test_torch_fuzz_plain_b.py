@@ -7,6 +7,7 @@ tier a JAX capped run that differs from the JAX eager one (XLA's literal
 rewrites under jit, queue C) is held to the JAX eager run instead. The
 port's verifier gate is on, as the reference's is under tests/conftest.py.
 The corpus is split over files so that the test run spreads it."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from test_torch_fuzz_gen import check_parity

@@ -12,6 +12,7 @@ capture that fails leaves the program running its kernels from Python
 with `graph` False and the reason. The `cuda` tests do the same with
 real graphs on the card, and skip without one. Plans: NDS q5 and q23 and
 capped fuzz corpus seeds, plain and edge tables. Tolerance: exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
 
 import numpy as np

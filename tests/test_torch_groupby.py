@@ -13,6 +13,7 @@ Against the plain version every output bit (floats as their bits, data
 under nulls and in empty capped slots included); against JAX the valid
 rows and the validity, since neither package defines data under a null
 or past a capped group count."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ and hashes them as Spark does (`test_f64_subnormals_follow_spark`, ROADMAP
 queue C).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

@@ -6,6 +6,7 @@ tables; Spark's golden vectors (tests/test_hash.py, from real Spark runs);
 the reference's rejections; and the kernel's own row arithmetic
 (csrc/row_hash.cu `hash_row`) built with the host's C++ compiler and held
 against the plain version. Hashes are integers: the tolerance is exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import ctypes
 import pathlib
 import random

@@ -14,6 +14,7 @@ payloads, and the five copying functions `split_table`, `halve_table`,
 Exact: buffers are compared byte for byte (offsets, chars, limbs, float
 bits), validity included. Sizes are small and few string widths appear,
 so the JAX package compiles few programs."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

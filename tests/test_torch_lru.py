@@ -2,6 +2,7 @@
 against the reference's tests/test_lru.py, each sequence run through both
 packages' LruDict with the same keys; plus the port's eviction hook,
 which the capped tier's program cache uses to free a CUDA graph."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from spark_rapids_tpu.utils import LruDict as JLruDict

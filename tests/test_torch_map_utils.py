@@ -7,6 +7,7 @@ plain version; and `api.MapUtils`.
 Each JAX call compiles its padded program, so the corpus goes through the
 JAX package once, cached for the module.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import jax.numpy as jnp

@@ -5,6 +5,7 @@ same rules fired and columns pruned, and the same optimized plan text
 (node ids stripped: each package numbers its nodes). Where the port runs
 every node kind of a plan, its results with the optimizer on and off equal
 the JAX package's, bit for bit."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import re
 import types
 

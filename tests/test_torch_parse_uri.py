@@ -6,6 +6,7 @@ with the host's C++ compiler against the plain version; and `api.ParseURI`.
 The JAX functions run at one width (`pad_to`), each result cached for the
 module: every call compiles its padded program.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import pytest

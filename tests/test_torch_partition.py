@@ -9,6 +9,7 @@ including ids outside [0, P) and P above the 128 buckets that
 `histogram_pallas` takes (the port's kernel takes any P). Counts, ranks and
 maps are integers: the tolerance is exact.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

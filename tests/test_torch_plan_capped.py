@@ -7,6 +7,7 @@ per-operator escalations equal to the reference's), the program cache and
 caps memo, and the node kinds the tier does not run yet. The reference
 runs with its stats store off, so both start from the same static caps.
 Tolerance: exact; every column is an integer."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

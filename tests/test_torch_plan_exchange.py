@@ -6,6 +6,7 @@ the reference's eager tier returns the Exchange's child
 lowering), and its capped tier passes it through; so does the port. The
 results are compared bit for bit, validity included. The port's verifier
 gate is on."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

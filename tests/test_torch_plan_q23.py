@@ -9,6 +9,7 @@ nodes still shared; cap escalation from 512 keys; scalar aggregates over
 FLOAT64 in plans of both tiers (their bits) and over an empty relation
 (an error); the port's datagen and DAG against the reference bench's. The
 reference's capped runs have their stats store off. Tolerance: exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import re
 
 import numpy as np

@@ -3,6 +3,7 @@
 bit; TPC-DS q3 (INT32 keys, LIMIT 100) through both optimizers and eager
 executors; plus the port's datagen and plan DAG against the reference
 bench's, and the eager node kinds q3 does not reach."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import re
 import subprocess

@@ -7,6 +7,7 @@ optimizer's fingerprints, rules fired, pruned columns and plan text; cap
 escalation from 16 keys; the bare-literal columns q5 projects; the port's
 datagen and DAG against the reference bench's. The reference's capped runs
 have their stats store off. Tolerance: exact; every column is INT64."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import re
 
 import numpy as np

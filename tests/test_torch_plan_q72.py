@@ -7,6 +7,7 @@ q72's inventory join has 52,000 build rows on the unoptimized plan (the
 hash join's large route: C = 131,072 slots); with the CUDA kernels forced,
 the CPU runs their plain versions, the large route's layout included. The
 tolerance is exact: every column is INT64."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import subprocess
 import sys

@@ -5,6 +5,7 @@ evaluation `numpy_q74`; its data's shape (key and name kinds, null shares,
 date range); and the capped tier's STRING-key raise, which names the
 reference's limit. Small sizes: 20,000 store and 5,000 web rows against
 1,000 customers."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

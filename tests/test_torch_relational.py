@@ -3,6 +3,7 @@ numpy inputs: sort_table, groupby_aggregate, the keyless aggregate of the
 plan executor (float sums in the reference's order, signed zeros and NaN
 bits of min and max) and the inner/semi/anti join fallbacks. Exact
 equality, row order and validity included."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

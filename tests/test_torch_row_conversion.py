@@ -5,6 +5,7 @@ byte for byte, the columns read back (validity included), the optimized
 path's limits, the string rejection, the int32 image-size check, the
 registry's choice, and the kernels' word plan executed here by a numpy
 mirror of csrc/row_conversion.cu. Bytes are compared exactly."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

@@ -8,6 +8,7 @@ the port's kernel takes every predicate the reference's takes, and also
 64-bit integer and float predicates, int literals outside int32 and
 literal-only predicates; the program cache, keyed on the tree, its
 literals and the column dtypes."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

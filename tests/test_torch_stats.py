@@ -11,6 +11,7 @@ Against the JAX package on the same seeded tables: two runs under a fresh
 store make the same decision sources, attempts, caps and observed caps in
 both packages, and the same results. Every case installs its own store
 with `scoped_store`, so the file order does not matter. Tolerance: exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 
 import numpy as np

@@ -4,6 +4,7 @@ the JAX -> numpy -> port round trip (`interop.column_from_buffers`, nested
 two deep with nulls at every level), `take`, `concat_columns`,
 `utils.bitmask`, and string columns reaching plan keys and expressions.
 Buffers are compared bit for bit, validity included."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import numpy.testing as npt
 import pytest

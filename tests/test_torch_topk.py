@@ -8,6 +8,7 @@ kernel's selection, mirrored on the CPU (`_threshold_select`), against
 `topk_plain` on random, descending, all-equal and all-null keys and at the
 route boundary; the registry's declines against `topk_pallas._supports`,
 which the port's kernel widens to any limit."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 from typing import List, Optional
 
 import numpy as np

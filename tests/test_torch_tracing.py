@@ -4,6 +4,7 @@ executor's ranges: with SPARK_RAPIDS_TORCH_TRACE=1 every eager operator
 runs in `plan.<label>` and every capped attempt in `plan.capped.attempt`
 inside a `torch.profiler` trace, and every result stays equal to the
 untraced run's and to the JAX package's. Tolerance: exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 

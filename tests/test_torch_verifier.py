@@ -12,6 +12,7 @@ The reference's `test_string_columns_pass_through_clean` runs here in
 full: its typing half, and its execution half, a string column's grouped
 min and count through both executors with their gates on.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import types
 
 import numpy as np

@@ -1,5 +1,6 @@
 """The port's build stamp (`spark_rapids_tpu_torch/version.py`) against the
 JAX package's: the same six fields, the same values but the date."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import datetime
 
 from spark_rapids_tpu import version as jversion
