@@ -13,6 +13,7 @@
     python3 chip_smoke.py --casts      # phase 13 only (CastStrings' casts)
     python3 chip_smoke.py --uri-json-bloom  # phase 14 only
     python3 chip_smoke.py --runtime    # phase 15 only (runtime arbitration)
+    python3 chip_smoke.py --parquet    # phase 16 only (Parquet, streaming)
     python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
     python3 chip_smoke.py --script-ab DIR [DIR ...] [--out FILE]  # stamped
 
@@ -312,6 +313,24 @@ in phases that each raise on failure:
    admission at a 1 MiB budget (the whole plan on the CPU tier, equal).
    Outside the named degraded runs no plain version runs. Alone:
    `python3 chip_smoke.py --runtime`;
+16. Parquet IO and the streaming scan (`parquet_phase`): the Parquet
+   footer and reader's host C++ built with g++ beside the nvcc builds
+   (the codec libraries it links printed; snappy is its own); NDS q5 and
+   q72 at N_SALES written by tests/torch_parquet_writer.py (row groups of
+   1,048,576 rows, dictionary pages, each fact table uncompressed and
+   GZIP) and run through `PlanExecutor` eager and capped, authored and
+   optimized, and eager optimized over the GZIP files, counters zeroed
+   just before each run and read just after (a groupby launch per keyed
+   aggregate, a hash-join build per join, no plain version): each result
+   equal to the plan over the materialized tables on the card and to
+   numpy; store_sales ordered by date under q5's window through
+   `scan(parquet=...)`, whose scan_pruning skips row groups (total,
+   pruned and skipped bytes printed), equal to the materialized plan and
+   numpy; q5 streamed at prefetch depths 0 and 2: decode, copy and
+   overlap ms, rows decoded a second, the execute wall and a traced run's
+   idle share; every fixture of tests/data/torch_parquet read onto the
+   card and held to its seed values. Alone:
+   `python3 chip_smoke.py --parquet`;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -484,17 +503,21 @@ def build_phase():
         [cuda_build._nvcc(), *cuda_build._FLAGS, "-o", str(probe_lib),
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
-    # the resource arbiter's host C++ (phase 15), compiled with g++ beside
-    # the nvcc builds
+    # the host C++ (the resource arbiter of phase 15, the Parquet footer
+    # and reader of phase 16), compiled with g++ beside the nvcc builds
     import threading
     from spark_rapids_tpu_torch.native import build as native_build
-    native = threading.Thread(target=lambda: NATIVE_BUILD.update(
-        seconds=native_build.build_seconds()))
+
+    def native_builds():
+        NATIVE_BUILD.update(seconds=native_build.build_seconds())
+        for name in ("parquet_footer", "parquet_reader"):
+            NATIVE_BUILD[name] = native_build.build_seconds(name)
+    native = threading.Thread(target=native_builds)
     native.start()
     secs = cuda_build.build()
     native.join()
-    require("seconds" in NATIVE_BUILD, "the g++ build of resource_adaptor "
-            "failed")
+    require("parquet_reader" in NATIVE_BUILD, "a g++ build of the port's "
+            f"host C++ failed: {NATIVE_BUILD}")
     probe_log, _ = probe.communicate()
     require(probe.returncode == 0, f"nvcc failed for the dependent-add "
             f"probe:\n{probe_log}")
@@ -8185,7 +8208,8 @@ def ujb_kernels(ujb, chk):
 
 # ---- phase 15: runtime arbitration --------------------------------------------
 
-# the g++ build of the resource arbiter, timed in build_phase beside nvcc
+# the g++ builds of the host C++, timed in build_phase beside nvcc: the
+# resource arbiter's under "seconds", the Parquet libraries' by name
 NATIVE_BUILD = {}
 RT_RUNS = 5                       # runs per task thread
 RT_TASKS = ("q23", "q5", "q23", "q5")
@@ -8609,6 +8633,333 @@ def runtime_phase(torch, chk, smi):
     return out
 
 
+# ---- phase 16: Parquet IO and the streaming scan -------------------------------
+
+PQ_ROW_GROUP = 1 << 20            # rows a row group of the written files holds
+PQ_CODECS = ("UNCOMPRESSED", "GZIP")
+PQ_DEPTHS = (0, 2)                # prefetch depths timed on q5
+PQ_TIMED = 3                      # warm runs timed at each depth
+
+
+def pq_inputs(q, gen):
+    """{table: {column: INT64 numpy array}} of q5's or q72's inputs from
+    their datagen, named as `q5_inputs` / `q72_inputs` bind them."""
+    from spark_rapids_tpu_torch import nds_q72
+    if q == "q72":
+        return {name: dict(d) for name, d in zip(nds_q72.TABLES, gen)}
+    chans, date_sk = gen
+    out = {"dates": {"d_date_sk": date_sk}}
+    for name, c in chans.items():
+        out[f"{name}_sales"] = dict(zip(
+            ("sk", "date_sk", "sales_price", "profit"),
+            (c["s_sk"], c["s_date"], c["s_price"], c["s_profit"])))
+        out[f"{name}_returns"] = dict(zip(
+            ("sk", "date_sk", "return_amt", "net_loss"),
+            (c["r_sk"], c["r_date"], c["r_amt"], c["r_loss"])))
+    return out
+
+
+def pq_write(q, tables, directory):
+    """Every table written by tests/torch_parquet_writer.py in row groups
+    of PQ_ROW_GROUP rows, a fact table once a codec and a dimension table
+    once (bound with either): ({codec: {table: path}}, seconds, {codec:
+    bytes})."""
+    import torch_parquet_writer as pw
+    paths = {c: {} for c in PQ_CODECS}
+    sizes = {c: 0 for c in PQ_CODECS}
+    t0 = time.perf_counter()
+    for name, cols in tables.items():
+        fact = (name == "cs" if q == "q72"
+                else name.endswith(("_sales", "_returns")))
+        for codec in PQ_CODECS if fact else PQ_CODECS[:1]:
+            path = os.path.join(directory,
+                                f"{q}_{name}_{codec.lower()}.parquet")
+            sizes[codec] += pw.write_table(path, list(cols),
+                                           list(cols.values()),
+                                           PQ_ROW_GROUP, codec)
+            paths[codec][name] = path
+        paths["GZIP"].setdefault(name, paths["UNCOMPRESSED"][name])
+    return paths, time.perf_counter() - t0, sizes
+
+
+def pq_counted(torch, ex, plan, inputs, what):
+    """One run with every kernel counter zeroed just before and read just
+    after; no plain version may run. -> (result, the counters that are
+    not 0)."""
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    res = ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    require(counted(counters["plain"]) == 0,
+            f"{what}: a plain version ran: {counters['plain']}")
+    launched = {k: {n: v for n, v in c.items() if v}
+                for k, c in counters.items() if k != "plain"}
+    return res, {k: c for k, c in launched.items() if c}
+
+
+def pq_scan_io(res):
+    """The run's Parquet scans' counters, summed over its Scans."""
+    scans = [m for m in res.metrics.values()
+             if m.kind == "Scan" and m.io_row_groups_total]
+    return {"scans": len(scans),
+            "row_groups": sum(m.io_row_groups_total for m in scans),
+            "pruned": sum(m.io_row_groups_pruned for m in scans),
+            "bytes_skipped": sum(m.io_bytes_skipped for m in scans),
+            "rows": sum(m.rows_out for m in scans),
+            "decode_ms": sum(m.io_decode_ms for m in scans),
+            "h2d_ms": sum(m.io_h2d_ms for m in scans),
+            "overlap_ms": sum(m.io_overlap_ms for m in scans)}
+
+
+def pq_equal(chk, got, want, what):
+    """`Checks.tables` with validity compared as the rows it marks: a
+    streamed aggregate's merged counts and sums carry an all-valid mask
+    where the one-pass aggregate has none, as in the reference."""
+    import torch
+    require(got.names == want.names and got.num_rows == want.num_rows,
+            f"{what}: {got.names} x {got.num_rows} vs {want.names} x "
+            f"{want.num_rows}")
+    for name, a, b in zip(got.names, got.columns, want.columns):
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+        chk.equal("plans", a.data.view(bits.get(a.data.dtype, a.data.dtype)),
+                  b.data.view(bits.get(b.data.dtype, b.data.dtype)),
+                  f"{what} {name}")
+        chk.equal("plans", a.null_mask, b.null_mask,
+                  f"{what} {name} validity")
+
+
+def pq_numpy_check(got, ref, what):
+    for name, want in zip(got.names, ref):
+        require(np.array_equal(got[name].data.numpy(), want),
+                f"{what}: {name} differs from numpy")
+
+
+def pq_pruning(torch, chk, gen, directory):
+    """store_sales ordered by date (as a date-clustered fact table is),
+    scanned through `PlanBuilder.scan(parquet=...)` under q5's 14-day
+    window: scan_pruning must skip row groups by their footer statistics;
+    the result equals the plan over the materialized table on the card
+    and numpy."""
+    import torch_parquet_writer as pw
+    from spark_rapids_tpu_torch import nds_q5, table_from_numpy
+    from spark_rapids_tpu_torch.plan import PlanBuilder, PlanExecutor, col
+    c = gen[0]["store"]
+    order = np.argsort(c["s_date"], kind="stable")
+    names = ("sk", "date_sk", "sales_price", "profit")
+    arrays = [c[k][order] for k in ("s_sk", "s_date", "s_price",
+                                    "s_profit")]
+    path = os.path.join(directory, "q5_store_sales_by_date.parquet")
+    file_bytes = pw.write_table(path, names, arrays, PQ_ROW_GROUP)
+
+    def plan(**scan):
+        return (PlanBuilder().scan("ss", **scan)
+                .filter((col("date_sk") >= nds_q5.DATE_LO)
+                        & (col("date_sk") < nds_q5.DATE_HI))
+                .aggregate(["sk"], [("sales_price", "sum", "s"),
+                                    ("sales_price", "count", "c")])
+                .sort(["sk"]).build())
+    what = "q5 store_sales window by date"
+    res, counters = pq_counted(torch, PlanExecutor(), plan(parquet=path),
+                               None, what)
+    io = pq_scan_io(res)
+    table = table_from_numpy(list(names), arrays, [None] * 4,
+                             ["int64"] * 4, device="cuda")
+    mat = PlanExecutor().execute(plan(schema=list(names)), {"ss": table})
+    got = res.table.to("cpu")
+    pq_equal(chk, got, mat.table.to("cpu"),
+             f"{what} vs the materialized run")
+    keep = (arrays[1] >= nds_q5.DATE_LO) & (arrays[1] < nds_q5.DATE_HI)
+    sk, inv = np.unique(arrays[0][keep], return_inverse=True)
+    sums = np.zeros(len(sk), np.int64)
+    np.add.at(sums, inv, arrays[2][keep])
+    pq_numpy_check(got, (sk, sums, np.bincount(inv).astype(np.int64)), what)
+    kept = io["row_groups"] - io["pruned"]
+    log(f"{what}: {io['row_groups']} row groups, {io['pruned']} pruned, "
+        f"{io['bytes_skipped']} of {file_bytes} B skipped; "
+        f"{res.optimizer['rules_fired']}; groupby launches "
+        f"{counters['groupby']}")
+    require(res.optimizer["rules_fired"].get("scan_pruning") == 1
+            and io["row_groups"] == -(-len(order) // PQ_ROW_GROUP)
+            and 0 < io["pruned"] < io["row_groups"]
+            and io["bytes_skipped"] > 0,
+            f"{what}: pruning {io}")
+    # the tail aggregate merges per-chunk partials: one launch a kept
+    # chunk and one for the merge
+    launches = counters.get("groupby", {}).get("groupby", 0)
+    require(0 < launches <= kept + 1,
+            f"{what}: groupby launches {counters['groupby']} for {kept} "
+            "chunks")
+    return {"file_bytes": file_bytes, **io,
+            "rules_fired": res.optimizer["rules_fired"],
+            "wall_ms": res.wall_ms, "counters": counters}
+
+
+def pq_depths(torch, plan, sources, what):
+    """The plan streamed at each prefetch depth: warm runs' walls, the
+    scans' decode, copy and overlap, rows decoded per decode second, and a
+    traced run's idle share."""
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    prev = os.environ.get("SPARK_RAPIDS_TORCH_IO_PREFETCH")
+    out = {}
+    try:
+        for depth in PQ_DEPTHS:
+            os.environ["SPARK_RAPIDS_TORCH_IO_PREFETCH"] = str(depth)
+            ex = PlanExecutor()
+            ex.execute(plan, sources)
+            walls, ios, table = [], [], None
+            for _ in range(PQ_TIMED):
+                t0 = time.perf_counter()
+                res = ex.execute(plan, sources)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                ios.append(pq_scan_io(res))
+                table = res.table
+            trace = traced_run(torch, lambda: ex.execute(plan, sources))
+            med = sorted(range(PQ_TIMED), key=lambda i: walls[i])[
+                PQ_TIMED // 2]
+            io = ios[med]
+            entry = {"execute_ms": walls, "median_execute_ms": walls[med],
+                     **io,
+                     "rows_per_s": io["rows"] / (io["decode_ms"] / 1e3),
+                     "decode_share": io["decode_ms"] / walls[med],
+                     "idle_share": trace["idle_share"],
+                     "traced_wall_ms": trace["wall_ms"],
+                     "busy_ms": trace["busy_ms"],
+                     "htod_copies": trace["htod_copies"]}
+            out[depth] = (entry, table)
+            log(f"{what} at prefetch depth {depth}: execute "
+                f"{walls[med]:.1f} ms (runs {[round(w, 1) for w in walls]}),"
+                f" decode {io['decode_ms']:.1f} ms, H2D "
+                f"{io['h2d_ms']:.1f} ms, overlap {io['overlap_ms']:.1f} ms, "
+                f"{entry['rows_per_s']:.4g} rows/s decoded, idle share "
+                f"{trace['idle_share']!r} ({trace['busy_ms']!r} busy of "
+                f"{trace['wall_ms']!r} ms)")
+    finally:
+        if prev is None:
+            os.environ.pop("SPARK_RAPIDS_TORCH_IO_PREFETCH", None)
+        else:
+            os.environ["SPARK_RAPIDS_TORCH_IO_PREFETCH"] = prev
+    return out
+
+
+def parquet_phase(torch, chk, smi):
+    """Phase 16: NDS q5 and q72 at N_SALES from Parquet files that
+    tests/torch_parquet_writer.py writes here (row groups of 1,048,576
+    rows; each fact table once uncompressed and once GZIP, with dictionary
+    pages), through `PlanExecutor` eager and capped, authored and
+    optimized (and eager optimized over the GZIP files), every kernel
+    counter zeroed just before each run and read just after (the plans'
+    groupby and hash-join kernels launched, no plain version): each result
+    equal to the same plan over the materialized tables on the card and
+    to numpy; a date-window plan whose scan_pruning skips row groups; q5
+    streamed at prefetch depths 0 and 2 with its decode, copy, overlap,
+    decode rate, wall and idle share; every committed fixture
+    (tests/data/torch_parquet) read onto the card and held to its seed
+    values."""
+    import tempfile
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_parquet_writer as pw
+    from spark_rapids_tpu_torch import nds_q5, nds_q72
+    from spark_rapids_tpu_torch.io import ParquetSource, read_parquet
+    from spark_rapids_tpu_torch.native import build as native_build
+    from spark_rapids_tpu_torch.ops import groupby_cuda as gc
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    t_phase = time.perf_counter()
+    flags = native_build.link_flags("parquet_reader")
+    out = {"card": smi, "native_build_s": dict(NATIVE_BUILD),
+           "reader_link_flags": list(flags), "queries": {}}
+    log(f"phase 16: Parquet IO and the streaming scan ({smi}); the reader "
+        f"links {list(flags)}; snappy is decoded in the reader itself")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parquet_") as tmp:
+        for q, mod, numpy_fn, caps in (("q5", nds_q5, numpy_q5, Q5_CAPS),
+                                       ("q72", nds_q72, numpy_q72, None)):
+            gen = mod.datagen(N_SALES, seed=0)
+            ref = numpy_fn(gen)
+            if q == "q5":
+                ref = ref[0]
+            tables = pq_inputs(q, gen)
+            paths, write_s, sizes = pq_write(q, tables, tmp)
+            n_rows = sum(len(next(iter(c.values())))
+                         for c in tables.values())
+            log(f"{q}: {n_rows} rows written in {write_s:.1f} s "
+                f"({sizes} B)")
+            del tables
+            plan = getattr(mod, f"{q}_plan")()
+            mat_in = getattr(mod, f"{q}_inputs")(N_SALES, seed=0,
+                                                 device="cuda")
+            mat = PlanExecutor().execute(plan, mat_in).table.to("cpu")
+            del mat_in
+            pq_numpy_check(mat, ref, f"{q} materialized")
+            sources = {codec: {n: ParquetSource(p) for n, p in ps.items()}
+                       for codec, ps in paths.items()}
+            entry = {"rows": n_rows, "write_s": write_s, "bytes": sizes,
+                     "runs": {}}
+            for mode, optimize, codec in (
+                    ("eager", False, "UNCOMPRESSED"),
+                    ("eager", True, "UNCOMPRESSED"),
+                    ("capped", False, "UNCOMPRESSED"),
+                    ("capped", True, "UNCOMPRESSED"),
+                    ("eager", True, "GZIP")):
+                what = (f"{q} {mode} "
+                        f"{'optimized' if optimize else 'authored'} from "
+                        f"{codec} Parquet")
+                ex = PlanExecutor(mode=mode, optimize=optimize,
+                                  caps=dict(caps) if caps and
+                                  mode == "capped" else None)
+                t0 = time.perf_counter()
+                res, counters = pq_counted(torch, ex, plan,
+                                           sources[codec], what)
+                call_ms = (time.perf_counter() - t0) * 1e3
+                got = (res.compact() if mode == "capped"
+                       else res.table).to("cpu")
+                pq_equal(chk, got, mat, f"{what} vs the materialized run")
+                pq_numpy_check(got, ref, what)
+                n_keyed = require_groupby(gc, res, what)
+                joins = [n for n in res.plan.nodes if n.kind == "HashJoin"]
+                require(n_keyed > 0 and counters.get("hash_join", {}).get(
+                            "build", 0) >= len(joins) > 0,
+                        f"{what}: {len(joins)} joins, counters {counters}")
+                io = pq_scan_io(res)
+                require(io["scans"] == len(plan.scans)
+                        and io["rows"] == n_rows,
+                        f"{what}: scans {io}")
+                log(f"{what}: {res.wall_ms:.1f} ms plan wall, "
+                    f"{call_ms:.1f} ms execute(); {io}; equal to the "
+                    f"materialized run and numpy")
+                entry["runs"][what] = {"wall_ms": res.wall_ms,
+                                       "execute_ms": call_ms, **io,
+                                       "counters": counters,
+                                       "attempts": res.attempts}
+            if q == "q5":
+                depths = pq_depths(torch, plan, sources["UNCOMPRESSED"],
+                                   "q5 eager optimized")
+                for depth, (e, table) in depths.items():
+                    pq_equal(chk, table.to("cpu"), mat,
+                             f"q5 at prefetch depth {depth}")
+                entry["depths"] = {d: e for d, (e, _) in depths.items()}
+                out["pruning"] = pq_pruning(torch, chk, gen, tmp)
+            out["queries"][q] = entry
+            del gen, sources, mat
+            torch.cuda.empty_cache()
+    fixtures = {}
+    for name in pw.FIXTURES:
+        t = read_parquet(os.path.join(pw.DATA_DIR, name + ".parquet"))
+        want = pw.fixture_values(name)
+        require(t.device.type == "cuda" and list(t.names) == list(want),
+                f"fixture {name}: {t.device} {t.names}")
+        for c, rows in want.items():
+            require(t[c].to_pylist() == rows,
+                    f"fixture {name}: column {c} differs from its seed")
+        fixtures[name] = {c: str(t[c].dtype) for c in want}
+    log(f"fixtures read on the card, equal to their seeds: {fixtures}")
+    out["fixtures"] = fixtures
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def script_ab(trees, log_dir, gap_s=5.0):
     """`python3 chip_smoke.py` from each checkout in `trees`, one after
     another, each line of its merged output stamped with the seconds since
@@ -8711,6 +9062,10 @@ def main(argv=None):
                     help="only run phase 15: several tasks sharing the card "
                          "through the resource arbiter, forced OOMs, spill, "
                          "fault injection and the degraded CPU tier")
+    ap.add_argument("--parquet", action="store_true",
+                    help="only run phase 16: NDS q5 and q72 from Parquet "
+                         "files through the streaming scan, row-group "
+                         "pruning, prefetch depths and the fixtures")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -8809,6 +9164,12 @@ def _run(args):
                           "uri_json_bloom": ujb, "checks": chk.n},
                          default=str), flush=True)
         return 0
+    if args.parquet:
+        chk = Checks()
+        out = parquet_phase(torch, chk, smi)
+        print(json.dumps({"card": smi, "parquet": out, "checks": chk.n},
+                         default=str), flush=True)
+        return 0
     if args.runtime:
         chk = Checks()
         out = runtime_phase(torch, chk, smi)
@@ -8883,6 +9244,7 @@ def _run(args):
     ujb = ujb_phase(torch, chk)
     log(f"phase 14: {ujb['seconds']:.1f} s")
     runtime = runtime_phase(torch, chk, smi)
+    parquet = parquet_phase(torch, chk, smi)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -9186,7 +9548,8 @@ def _run(args):
                        "fuzz": fz, "customer_hash": cust,
                        "row_conversion": rconv, "keys": keys,
                        "feedback": feedback, "casts": casts,
-                       "uri_json_bloom": ujb, "runtime": runtime},
+                       "uri_json_bloom": ujb, "runtime": runtime,
+                       "parquet": parquet},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

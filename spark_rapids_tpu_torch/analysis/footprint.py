@@ -221,15 +221,29 @@ def quota_charge(cert: Optional[ResourceCert],
 
 # ---- the walk ---------------------------------------------------------------
 
+def _scan_rows(node: Scan, bound_rows) -> Optional[int]:
+    """Source cardinality: the bound table's or source's row count wins; a
+    scan carrying its own Parquet source knows its footer's count;
+    otherwise unbounded (est_rows is a hint, never a sound bound)."""
+    v = (bound_rows or {}).get(node.source)
+    if v is not None:
+        return int(v)
+    if node.parquet is not None:
+        try:
+            return int(node.parquet.num_rows)
+        except (AttributeError, TypeError):
+            return None
+    return None
+
+
 def _rows_interval(node: PlanNode, kids: List[Tuple[int, Optional[int]]],
                    bound_rows, nullable_keys: bool
                    ) -> Tuple[int, Optional[int]]:
     """[lo, hi] of one operator's output rows from its children's."""
     if isinstance(node, Scan):
-        n = (bound_rows or {}).get(node.source)
+        n = _scan_rows(node, bound_rows)
         if n is None:
             return 0, None           # est_rows is a hint, never a bound
-        n = int(n)
         return (0 if node.predicate is not None else n), n
     los = [lo for lo, _ in kids]
     his = [hi for _, hi in kids]
@@ -433,12 +447,14 @@ def certify_nodes(nodes: List[PlanNode], *, bound=None, bound_rows=None,
 def table_metadata(inputs) -> Tuple[Dict, Dict]:
     """(input_dtypes, input_nullable) of an execute()-style `inputs`
     dict: the one extraction the executor, the fuzzer and the tests
-    share."""
+    share. A streaming source contributes nothing, as in the reference:
+    its dtypes stay unknown and its columns count as nullable."""
+    from ..columnar.table import Table
     dts = {name: {cn: c.dtype for cn, c in zip(t.names, t.columns)}
-           for name, t in inputs.items()}
+           for name, t in inputs.items() if isinstance(t, Table)}
     nul = {name: {cn: c.validity is not None
                   for cn, c in zip(t.names, t.columns)}
-           for name, t in inputs.items()}
+           for name, t in inputs.items() if isinstance(t, Table)}
     return dts, nul
 
 

@@ -6,7 +6,8 @@ Counterpart of `spark_rapids_tpu/api.py`. `CastStrings`, `DecimalUtils`,
 and, for murmur3, lists), `RowConversion`, `BloomFilter`, `MapUtils` and
 `ParseURI` are ported, and so is `RmmSpark` (over
 `runtime.ResourceArbiter`, with the reference's OOM exceptions as
-aliases); `GpuTimeZoneDB`, `DateTimeRebase`, `Histogram` and `ZOrder`
+aliases), and `ParquetFooter` is re-exported from `io.parquet_footer`, as
+the reference's facade does; `GpuTimeZoneDB`, `DateTimeRebase`, `Histogram` and `ZOrder`
 wait for their modules (ROADMAP queue A item 12).
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import List, Optional, Sequence
 from . import ops
 from .columnar import Column, Table
 from .dtypes import DType
+from .io.parquet_footer import ParquetFooter  # noqa: F401  (re-export)
 from .runtime.adaptor import (CpuRetryOOM, CpuSplitAndRetryOOM,  # noqa: F401
                               ResourceArbiter, RetryOOM, SplitAndRetryOOM)
 

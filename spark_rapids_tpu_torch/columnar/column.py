@@ -122,12 +122,17 @@ class Column:
                                         self.offsets) if t is not None)
                 + sum(c.nbytes() for c in self.children))
 
-    def to(self, device: Union[str, torch.device]) -> "Column":
+    def to(self, device: Union[str, torch.device],
+           non_blocking: bool = False) -> "Column":
+        """This column on `device`; `non_blocking` copies from page-locked
+        host memory run asynchronously on the current stream."""
         def move(t):
-            return None if t is None else t.to(device)
+            return None if t is None else t.to(device,
+                                               non_blocking=non_blocking)
         return Column(self.dtype, self.length, move(self.data),
                       move(self.validity), move(self.offsets),
-                      tuple(c.to(device) for c in self.children))
+                      tuple(c.to(device, non_blocking)
+                            for c in self.children))
 
     def string_lengths(self) -> torch.Tensor:
         """(n,) int32 byte length of each row of a STRING column."""

@@ -62,8 +62,10 @@ class Table:
     def nbytes(self) -> int:
         return sum(c.nbytes() for c in self.columns)
 
-    def to(self, device: Union[str, torch.device]) -> "Table":
-        return Table([c.to(device) for c in self.columns], self.names)
+    def to(self, device: Union[str, torch.device],
+           non_blocking: bool = False) -> "Table":
+        return Table([c.to(device, non_blocking) for c in self.columns],
+                     self.names)
 
     def to_pydict(self) -> Dict[str, List]:
         return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}

@@ -14,6 +14,8 @@
 | SPARK_RAPIDS_TORCH_CERT_ADMISSION | reject | over the budget: reject raises ResourceAdmissionError; degrade runs the whole plan on the degraded CPU tier |
 | SPARK_RAPIDS_TORCH_BREAKER_DEGRADE | cpu | when the breaker trips: cpu finishes the plan on the CPU tier, off raises |
 | SPARK_RAPIDS_TORCH_FAULTINJ_CONFIG_PATH | — | the fault injector's JSON config (faultinj.py), installed at import |
+| SPARK_RAPIDS_TORCH_IO_PREFETCH | 2     | streaming-scan prefetch depth (chunks decoded ahead); 0 decodes inline |
+| SPARK_RAPIDS_TORCH_IO_CHUNK_ROWS | 0   | streaming-scan chunk row bound (0: one chunk per row group) |
 """
 from __future__ import annotations
 
@@ -148,3 +150,18 @@ def breaker_degrade() -> str:
 def faultinj_config_path() -> str:
     """The fault injector's config (faultinj.py); "" when unset."""
     return os.environ.get("SPARK_RAPIDS_TORCH_FAULTINJ_CONFIG_PATH", "")
+
+
+def io_prefetch() -> int:
+    """Streaming-scan prefetch depth: how many decoded chunks a Parquet
+    scan's host decode thread may run ahead of execution, so that chunk
+    N+1 decodes while chunk N runs on the card. 0 runs no thread (decode
+    inline on the executing thread)."""
+    return max(0, _int_env("SPARK_RAPIDS_TORCH_IO_PREFETCH", 2))
+
+
+def io_chunk_rows() -> int:
+    """Streaming-scan chunk row bound: a decoded row group larger than
+    this splits into chunks of at most this many rows. 0 (the default)
+    streams one chunk per row group."""
+    return max(0, _int_env("SPARK_RAPIDS_TORCH_IO_CHUNK_ROWS", 0))

@@ -159,11 +159,32 @@ class PlanBuilder:
 
     def scan(self, source: str,
              schema: Optional[Sequence[str]] = None,
-             est_rows: Optional[int] = None) -> Rel:
+             est_rows: Optional[int] = None,
+             parquet=None) -> Rel:
         """`est_rows` is a cardinality hint for the optimizer's build-side
-        rule; a bound table's row count takes precedence at execute()."""
-        return Rel(Scan(source, None if schema is None else tuple(schema),
-                        est_rows=est_rows))
+        rule; a bound table's row count takes precedence at execute().
+
+        `parquet=` binds the scan to a streaming source instead of a
+        Table: a path, whole-file bytes or an `io.ParquetSource`. The
+        file's schema is read from its footer here, so the plan validates
+        at build time, and execute() needs no `inputs=` entry for this
+        scan: the executor streams the file a chunk at a time through the
+        plan's streamable prefix, pruning row groups against
+        `Scan.predicate`."""
+        if parquet is None:
+            return Rel(Scan(source, None if schema is None else tuple(schema),
+                            est_rows=est_rows))
+        from ..io.parquet import ParquetSource
+        src = (parquet if isinstance(parquet, ParquetSource)
+               else ParquetSource(parquet))
+        if schema is not None and tuple(schema) != tuple(src.names):
+            raise PlanValidationError(
+                f"scan {source!r}: declared schema {list(schema)} does not "
+                f"match the parquet file's {list(src.names)}")
+        return Rel(Scan(source, tuple(src.names),
+                        est_rows=src.num_rows if est_rows is None
+                        else est_rows,
+                        parquet=src))
 
     @staticmethod
     def union(rels: Sequence[Rel]) -> Rel:

@@ -137,12 +137,28 @@ SPARK_RAPIDS_TORCH_VERIFY_PLANS on, the optimizer re-validates every
 rule's output and `_verify_execution` runs the static verifier
 (`analysis/verifier.py`) on the plan about to run, as the reference's
 gate does. Every node kind runs in both tiers; an `Exchange` returns its
-child, as the reference's does on one device. Streaming scans,
-placement and the mesh lowering wait for later slices.
+child, as the reference's does on one device. Placement and the mesh
+lowering wait for later slices.
+
+The streaming scan, as the reference's (`_stream_chains`,
+`_exec_stream_chain`): a Scan bound to a Parquet source (`io.ParquetSource`,
+through `inputs=` or `PlanBuilder.scan(parquet=...)`) starts a streamable
+prefix, which runs a chunk (a row group, or SPARK_RAPIDS_TORCH_IO_CHUNK_ROWS
+rows of one) at a time: the row groups that the scan_pruning rule's
+`Scan.predicate` proves empty are skipped by footer statistics, a prefetch
+thread (SPARK_RAPIDS_TORCH_IO_PREFETCH chunks deep, 0 inline) decodes chunk
+N+1 into page-locked host memory and starts its copy on a copy stream while
+chunk N runs on the card (`_Uploader`), and a tail HashAggregate
+accumulates per-chunk partials merged exactly at the end. A transient
+fault retries the chunk's operator; a breaker trip replays the prefix from
+the scan on the degraded CPU tier. A source-bound scan outside a prefix,
+and every source of a capped plan, is read whole once, pruned and
+projected, through the admitted `read_parquet`.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, List, Optional, Tuple, Union as TUnion
 
@@ -413,8 +429,10 @@ class PlanExecutor:
 
     def execute(self, plan: Plan,
                 inputs: Optional[Dict[str, Table]] = None) -> PlanResult:
-        """Run `plan` over `inputs` ({scan source: Table})."""
-        inputs = dict(inputs or {})
+        """Run `plan` over `inputs` ({scan source: Table or
+        `io.ParquetSource`}); a scan built with `parquet=` needs no
+        entry."""
+        inputs = bind_scan_sources(plan, inputs)
         missing = [s for s in plan.input_names if s not in inputs]
         if missing:
             raise PlanValidationError(f"unbound plan input(s) {missing}")
@@ -440,7 +458,10 @@ class PlanExecutor:
                 plan, inputs, schemas, {}, {}, start=0,
                 t_plan0=time.perf_counter(), mode=self.mode)
         else:
-            inputs = {s: inputs[s].to(self.device)
+            # a streaming source stays a host handle: its chunks move to
+            # the device as they are decoded
+            inputs = {s: (inputs[s] if _is_source(inputs[s])
+                          else inputs[s].to(self.device))
                       for s in plan.input_names}
             scope = contextlib.nullcontext()
             if self.session is not None:
@@ -515,9 +536,7 @@ class PlanExecutor:
         Verdicts are kept per (plan, binding), as the reference keeps
         them, so a repeat execution pays nothing."""
         from ..analysis import verifier
-        input_dtypes = {
-            name: {cn: c.dtype for cn, c in zip(t.names, t.columns)}
-            for name, t in inputs.items()}
+        input_dtypes = _input_dtypes(inputs)
         floats = _input_has_floats(inputs)
         key = (authored.root, plan.root, tuple(sorted(bound.items())),
                tuple((n, tuple(repr(d) for d in cols.values()))
@@ -556,9 +575,10 @@ class PlanExecutor:
         floats = _input_has_floats(inputs)
         rows = {n: t.num_rows for n, t in inputs.items()}
         verify_rules = config.verify_plans()
-        input_dtypes = {
-            name: {cn: c.dtype for cn, c in zip(t.names, t.columns)}
-            for name, t in inputs.items()}
+        input_dtypes = _input_dtypes(inputs)
+        # scans bound to streaming sources: the scan_pruning rule fires
+        # only for these, so the set belongs in the key too
+        streaming = frozenset(n for n, t in inputs.items() if _is_source(t))
         dtype_sig = tuple(
             (name, tuple((cn, repr(dt)) for cn, dt in cols.items()))
             for name, cols in sorted(input_dtypes.items()))
@@ -567,7 +587,7 @@ class PlanExecutor:
                                                 store.rows_generation)
         key = (plan.root, tuple(sorted(bound.items())),
                tuple(sorted(rows.items())), floats, verify_rules, dtype_sig,
-               stats_gen)
+               stats_gen, streaming)
         hit = self._opt_cache.get(key)
         if hit is None:
             backend = self.device.type
@@ -575,7 +595,8 @@ class PlanExecutor:
                                         float_inputs=floats,
                                         verify_rules=verify_rules,
                                         stats=store, backend=backend,
-                                        input_dtypes=input_dtypes)
+                                        input_dtypes=input_dtypes,
+                                        streaming_sources=streaming)
             if (store is not None and not verify_rules
                     and opt is not plan and not report.fell_back
                     and report.stats_driven()):
@@ -587,7 +608,8 @@ class PlanExecutor:
                     opt, report = run_optimizer(
                         plan, bound, rows, float_inputs=floats,
                         verify_rules=verify_rules,
-                        input_dtypes=input_dtypes)
+                        input_dtypes=input_dtypes,
+                        streaming_sources=streaming)
                     report.stats_reverted = True
             hit = (opt, opt.resolve_schemas(bound), report)
             self._opt_cache[key] = hit
@@ -657,8 +679,36 @@ class PlanExecutor:
             return self._execute_degraded(plan, inputs, schemas, results,
                                           metrics, start=0, t_plan0=t_plan0,
                                           mode="eager")
+        # streamable prefixes over source-bound scans run a chunk at a
+        # time (chunk N+1 decodes on the host while chunk N runs); their
+        # interior nodes never materialize a whole relation, only the
+        # chain's tail does
+        chains = self._stream_chains(plan, inputs)
+        chain_interior = {id(n) for ch in chains.values() for n in ch[:-1]}
+        node_index = {id(n): i for i, n in enumerate(plan.nodes)}
         try:
             for i, node in enumerate(plan.nodes):
+                if id(node) in chain_interior:
+                    continue        # runs inside its chain, at the tail
+                if id(node) in chains:
+                    chain = chains[id(node)]
+                    try:
+                        results[id(node)] = self._exec_stream_chain(
+                            chain, inputs, schemas, metrics)
+                    except _StreamBreaker as sb:
+                        if self.degrade == "off":
+                            raise sb.error
+                        # replay the whole prefix on the CPU tier, from
+                        # the scan
+                        return self._execute_degraded(
+                            plan, inputs, schemas, results, metrics,
+                            start=_replay_start(plan, node_index,
+                                                node_index[id(chain[0])],
+                                                results),
+                            t_plan0=t_plan0, mode="eager",
+                            carry_retries=sb.retries,
+                            carry_backoff_ms=sb.backoff_ms)
+                    continue
                 childs = [results[id(c)] for c in node.children]
                 m = OperatorMetrics(label=node.label, kind=node.kind,
                                     describe=node.describe())
@@ -732,7 +782,7 @@ class PlanExecutor:
         with faultinj.suppressed():
             try:
                 cpu_results = {k: t.to(cpu) for k, t in results.items()}
-                cpu_inputs = {k: t.to(cpu) for k, t in inputs.items()}
+                cpu_inputs = _inputs_to(inputs, cpu)
             except Exception:
                 # the card's buffers are lost: restart from the inputs,
                 # keeping the retries and backoff already paid
@@ -743,7 +793,7 @@ class PlanExecutor:
                     carry_retries += first_metric.retries
                     carry_backoff_ms += first_metric.backoff_ms
                 cpu_results = {}
-                cpu_inputs = {k: t.to(cpu) for k, t in inputs.items()}
+                cpu_inputs = _inputs_to(inputs, cpu)
                 metrics = {}
                 start = 0
                 first_metric = None
@@ -823,6 +873,12 @@ class PlanExecutor:
         P = plan_ops
         if isinstance(node, Scan):
             t = inputs[node.source]
+            if _is_source(t):
+                # a streaming source outside a streamable prefix: one
+                # pruned, projected read
+                return self._materialize_scan(
+                    node, t, m, torch.device(backend) if backend
+                    else self.device)
             if node.projection is not None:
                 t = t.select(list(node.projection))   # pruned columns
             return t
@@ -969,6 +1025,238 @@ class PlanExecutor:
         return Table(cols, names=names)
 
 
+    # ---- streaming scan ------------------------------------------------------
+
+    @staticmethod
+    def _stream_chains(plan: Plan, inputs) -> Dict[int, List[PlanNode]]:
+        """id(tail) -> [Scan, op, ...] streamable prefixes, the reference's:
+        a chain starts at a Scan bound to a streaming source and extends
+        while the node has exactly one consumer that is a row-wise Filter,
+        Project or FusedSelect with no scalar aggregate (those reduce over
+        the whole relation); it may end in a HashAggregate whose ops
+        decompose exactly (sum, count, min, max, size over a source with
+        no float column: float partial sums are not reorder-exact).
+        Everything else is the concatenation boundary: the tail gives one
+        Table and the rest of the plan runs as it would over tables."""
+        from .expr import has_scalar_agg
+        parents: Dict[int, List[PlanNode]] = {}
+        for n in plan.nodes:
+            for c in n.children:
+                parents.setdefault(id(c), []).append(n)
+        chains: Dict[int, List[PlanNode]] = {}
+        for scan in plan.scans:
+            src = inputs.get(scan.source)
+            if src is None or not _is_source(src):
+                continue
+            chain: List[PlanNode] = [scan]
+            node: PlanNode = scan
+            while True:
+                ps = parents.get(id(node), [])
+                if len(ps) != 1:
+                    break
+                p = ps[0]
+                if isinstance(p, Filter) and \
+                        not has_scalar_agg(p.predicate):
+                    chain.append(p)
+                    node = p
+                    continue
+                if isinstance(p, Project) and not any(
+                        has_scalar_agg(e) for _, e in p.exprs):
+                    chain.append(p)
+                    node = p
+                    continue
+                if isinstance(p, FusedSelect) and \
+                        not has_scalar_agg(p.predicate) and not any(
+                            has_scalar_agg(e) for _, e in p.exprs):
+                    chain.append(p)
+                    node = p
+                    continue
+                if (isinstance(p, HashAggregate)
+                        and all(o in _STREAM_AGG_MERGE
+                                for _, o, _ in p.aggs)
+                        and not _source_has_floats(src)):
+                    chain.append(p)     # the tail: partial aggregation
+                break
+            if len(chain) > 1:
+                chains[id(chain[-1])] = chain
+        return chains
+
+    def _stream_op(self, node: PlanNode, t: Table, inputs, schemas,
+                   m: OperatorMetrics) -> Table:
+        """One chain operator over one chunk, with the eager tier's fault
+        policy (backoff-paced retries of the chunk; a breaker trip raises
+        _StreamBreaker so that the caller can degrade)."""
+        attempt = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                with tracing.range_ctx(f"plan.{node.label}"):
+                    self._faultinj_points((node,))
+                    out = self._exec_eager_node(node, [t], inputs,
+                                                schemas, m)
+                    self._sync()
+                break
+            except _fault_surface() as err:
+                if self._handle_fault(err, node.label, attempt, m):
+                    attempt += 1
+                    continue
+                raise _StreamBreaker(err, m.retries, m.backoff_ms)
+        if attempt:
+            self.health.record_success(node.label)
+        m.wall_ms = (m.wall_ms or 0.0) + (time.perf_counter() - t0) * 1e3
+        m.rows_in += t.num_rows
+        m.rows_out += out.num_rows
+        return out
+
+    def _exec_stream_chain(self, chain: List[PlanNode], inputs, schemas,
+                           metrics: Dict[str, OperatorMetrics]) -> Table:
+        """Run one streamable prefix a chunk at a time: row-group pruning
+        at the scan, a bounded prefetch that decodes chunk N+1 and starts
+        its copy while chunk N runs, each Filter/Project/FusedSelect per
+        chunk, and a tail HashAggregate as per-chunk partials merged
+        exactly at the end. Fills `metrics` for every chain node and
+        returns the tail's Table."""
+        from .optimizer import pruning_conjuncts
+        scan = chain[0]
+        src = inputs[scan.source]
+        ms = {n.label: OperatorMetrics(label=n.label, kind=n.kind,
+                                       describe=n.describe())
+              for n in chain}
+        sm = ms[scan.label]
+        columns = (list(scan.projection) if scan.projection is not None
+                   else None)
+        conjuncts = (pruning_conjuncts(scan.predicate)
+                     if scan.predicate is not None else [])
+        kept, pruned, skipped = src.select_groups(conjuncts, columns)
+        sm.io_row_groups_total = src.num_row_groups
+        sm.io_row_groups_pruned = pruned
+        sm.io_bytes_skipped = skipped
+        agg = chain[-1] if isinstance(chain[-1], HashAggregate) else None
+        body = chain[1:-1] if agg is not None else chain[1:]
+        chunk_rows = src.chunk_rows or config.io_chunk_rows() or None
+        if chunk_rows is None:
+            # adaptive chunk sizing: with no explicit bound, size chunks
+            # from this scan's observed decode throughput. The exact
+            # merge makes the result independent of the chunking, so this
+            # changes pacing only; an explicit bound always wins
+            store = stats_mod.active_store()
+            if store is not None:
+                from .optimizer import subtree_fingerprints
+                scan_fp = subtree_fingerprints(scan)[id(scan)]
+                chunk_rows = store.suggest_chunk_rows(
+                    self.device.type, scan_fp) or None
+        uploader = _Uploader(self.device)
+        gen = src.chunks(columns=columns, row_groups=kept,
+                         chunk_rows=chunk_rows, pinned=uploader.cuda)
+        depth = config.io_prefetch()
+        feed = (_ChunkPrefetcher(gen, depth, uploader) if depth > 0
+                else _SyncFeed(gen, uploader))
+        parts: List[Table] = []         # tail outputs (or agg partials)
+        empty_t: Optional[Table] = None
+        proc_intervals = []
+        try:
+            while True:
+                chunk = feed.get()
+                if chunk is None:
+                    break
+                t0p = time.perf_counter()
+                sm.rows_out += chunk.num_rows
+                sm.bytes_out += chunk.nbytes()
+                t = chunk
+                for node in body:
+                    t = self._stream_op(node, t, inputs, schemas,
+                                        ms[node.label])
+                    ms[node.label].bytes_out += t.nbytes()
+                if agg is not None:
+                    if t.num_rows == 0:
+                        # a fully filtered chunk contributes nothing, and a
+                        # keyless min/max over zero rows would raise where
+                        # the table-bound plan succeeds: skip it, keeping
+                        # one empty frame for the all-empty case
+                        empty_t = t
+                        proc_intervals.append((t0p, time.perf_counter()))
+                        continue
+                    t = self._stream_op(agg, t, inputs, schemas,
+                                        ms[agg.label])
+                parts.append(t)
+                proc_intervals.append((t0p, time.perf_counter()))
+        finally:
+            feed.close()
+            h2d_ms = uploader.close()
+        sm.io_decode_ms = feed.decode_ms
+        sm.io_h2d_ms = h2d_ms
+        sm.io_overlap_ms = _interval_overlap_ms(feed.decode_intervals,
+                                                proc_intervals)
+        sm.wall_ms = feed.decode_ms     # the scan's wall is its decode
+        # concatenate only at the first non-streamable boundary
+        tail = chain[-1]
+        tm = ms[tail.label]
+        t0 = time.perf_counter()
+        if agg is not None:
+            if not parts:
+                # every chunk filtered to zero rows: aggregate the empty
+                # frame once, with the table-bound plan's semantics
+                # (a keyless min/max error included)
+                parts = [self._stream_op(agg, empty_t, inputs, schemas,
+                                         ms[agg.label])]
+            out = self._finalize_stream_agg(agg, parts, schemas,
+                                            ms[agg.label])
+            tm.rows_out = out.num_rows  # the partial rows were internal
+        else:
+            out = (parts[0] if len(parts) == 1
+                   else plan_ops.concat_tables(parts))
+        self._sync()
+        tm.wall_ms = (tm.wall_ms or 0.0) + (time.perf_counter() - t0) * 1e3
+        tm.bytes_out = out.nbytes()
+        for n in chain:
+            metrics[n.label] = ms[n.label]
+        return out
+
+    def _finalize_stream_agg(self, node: HashAggregate,
+                             partials: List[Table], schemas,
+                             m: OperatorMetrics) -> Table:
+        """The exact merge of per-chunk partials: counts and sums sum,
+        min and max reduce again, the reference's two-phase shape. The
+        groupby's key-ordered output makes the merged result equal, row
+        for row, to the one-pass aggregate."""
+        import types
+        cat = (partials[0] if len(partials) == 1
+               else plan_ops.concat_tables(partials))
+        merged = tuple((out, _STREAM_AGG_MERGE[o], out)
+                       for _, o, out in node.aggs)
+        if not node.keys:
+            return self._global_aggregate(cat, types.SimpleNamespace(
+                aggs=merged))
+        aggs = [(c, o) for c, o, _ in merged]
+        choice = self._pick(
+            "groupby", groupby_cuda.make_signature(cat, aggs, "eager",
+                                                   node.keys), m)
+        out = plan_ops.groupby_aggregate(cat, list(node.keys), aggs,
+                                         choice=choice)
+        return Table(list(out.columns), names=schemas[id(node)])
+
+    def _materialize_scan(self, node: Scan, src,
+                          m: Optional[OperatorMetrics],
+                          device: torch.device) -> Table:
+        """A source-bound Scan outside a streamable prefix (a shared scan,
+        a join input, the capped tier, the degraded tier): one admitted
+        read onto `device`, still with selective decode (the projection's
+        columns only) and row-group pruning."""
+        from .optimizer import pruning_conjuncts
+        columns = (list(node.projection) if node.projection is not None
+                   else None)
+        conjuncts = (pruning_conjuncts(node.predicate)
+                     if node.predicate is not None else [])
+        kept, pruned, skipped = src.select_groups(conjuncts, columns)
+        t0 = time.perf_counter()
+        t = src.read_all(columns=columns, row_groups=kept, device=device)
+        if m is not None:
+            m.io_row_groups_total = src.num_row_groups
+            m.io_row_groups_pruned = pruned
+            m.io_bytes_skipped = skipped
+            m.io_decode_ms += (time.perf_counter() - t0) * 1e3
+        return t
+
     # ---- capped tier -------------------------------------------------------
 
     def _default_caps(self, plan: Plan, inputs) -> Dict[str, int]:
@@ -1044,6 +1332,24 @@ class PlanExecutor:
     def _execute_capped(self, plan: Plan, inputs, schemas,
                         source_fp: Optional[str] = None,
                         cert=None) -> PlanResult:
+        # a capped program runs over whole tables of static shape, so
+        # streaming sources materialize first, through the pruned and
+        # projected read (a plan has one Scan per source, so one read per
+        # name with that scan's projection and predicate loses nothing)
+        scan_io: Dict[str, OperatorMetrics] = {}
+        if any(_is_source(t) for t in inputs.values()):
+            inputs = dict(inputs)
+            by_source = {n.source: n for n in plan.nodes
+                         if isinstance(n, Scan)}
+            for name, v in list(inputs.items()):
+                if not _is_source(v):
+                    continue
+                holder = OperatorMetrics(label=name, kind="Scan")
+                node = by_source.get(name)
+                inputs[name] = (
+                    self._materialize_scan(node, v, holder, self.device)
+                    if node is not None else v.read_all(device=self.device))
+                scan_io[name] = holder
         caps = self._default_caps(plan, inputs)
         fp = plan.fingerprint
         for k, v in (self._caps_memo.get(fp) or {}).items():
@@ -1139,6 +1445,12 @@ class PlanExecutor:
                 bytes_out=prog.bytes_out.get(i, 0),
                 kernel="" if choice is None else choice.label,
                 escalations=escal if uses_cap else 0)
+            if isinstance(node, Scan) and node.source in scan_io:
+                io, mm = scan_io[node.source], metrics[node.label]
+                mm.io_row_groups_total = io.io_row_groups_total
+                mm.io_row_groups_pruned = io.io_row_groups_pruned
+                mm.io_bytes_skipped = io.io_bytes_skipped
+                mm.io_decode_ms = io.io_decode_ms
         return PlanResult(plan, table, metrics, wall, self.device,
                           valid=valid, mode="capped", attempts=attempts,
                           caps=final_caps, jit_cache_hits=hits,
@@ -1425,10 +1737,282 @@ class PlanExecutor:
         raise PlanValidationError(f"no capped lowering for {node.kind}")
 
 
-def _input_has_floats(inputs: Dict[str, Table]) -> bool:
-    """Any floating column among the bound tables."""
-    return any(c.dtype.is_floating for t in inputs.values()
-               for c in t.columns)
+def _input_has_floats(inputs: Dict) -> bool:
+    """Any floating column among the bound tables and streaming sources
+    (a source's unknown dtypes count as floats: the conservative direction
+    for every gate that reads this)."""
+    return any(_source_has_floats(t) for t in inputs.values())
+
+
+def _source_has_floats(t) -> bool:
+    if isinstance(t, Table):
+        return any(c.dtype.is_floating for c in t.columns)
+    return bool(getattr(t, "has_floats", True))
+
+
+def _input_dtypes(inputs: Dict) -> Dict[str, Dict]:
+    """source -> {column: DType} of the bound tables; a streaming source
+    contributes nothing, as in the reference (its dtypes stay unknown to
+    the certifier and the verifier)."""
+    return {name: {cn: c.dtype for cn, c in zip(t.names, t.columns)}
+            for name, t in inputs.items() if isinstance(t, Table)}
+
+
+def _inputs_to(inputs: Dict, device: torch.device) -> Dict:
+    """The bound tables on `device`; streaming sources are host handles,
+    which the tier they run on re-reads."""
+    return {k: t if _is_source(t) else t.to(device)
+            for k, t in inputs.items()}
+
+
+def bind_scan_sources(plan: Plan, inputs: Optional[Dict]) -> Dict:
+    """The scan-binding prologue: a Scan carrying its own Parquet source
+    needs no `inputs=` entry; an explicit entry (Table or source) for the
+    same name wins."""
+    inputs = dict(inputs or {})
+    for s in plan.scans:
+        if s.source not in inputs and s.parquet is not None:
+            inputs[s.source] = s.parquet
+    return inputs
+
+
+def _is_source(t) -> bool:
+    """A streaming (Parquet) source rather than a materialized Table."""
+    return not isinstance(t, Table)
+
+
+# ---- the streaming scan -------------------------------------------------------
+
+class _StreamBreaker(Exception):
+    """A streaming chain hit an unrecoverable fault (the breaker tripped):
+    carries the original error and the retries and backoff already paid,
+    so the degraded rerun still reports them."""
+
+    def __init__(self, error, retries: int, backoff_ms: float):
+        super().__init__(str(error))
+        self.error = error
+        self.retries = retries
+        self.backoff_ms = backoff_ms
+
+
+def _tensors(t: Table) -> List[torch.Tensor]:
+    out = []
+
+    def walk(c: Column):
+        out.extend(x for x in (c.data, c.validity, c.offsets)
+                   if x is not None)
+        for k in c.children:
+            walk(k)
+    for c in t.columns:
+        walk(c)
+    return out
+
+
+class _Uploader:
+    """Moves host chunks to the executor's device.
+
+    On the card every chunk is assembled in page-locked memory (the
+    decode writes there), and its copies run on a copy stream of their
+    own between two timing events, so that they overlap the previous
+    chunk's kernels. The consumer's stream waits on the chunk's end event
+    before any kernel reads it, and the chunk's tensors are recorded on
+    that stream, since the caching allocator gave them out on the copy
+    stream. A chunk's host buffers stay referenced until its end event has
+    completed (`_inflight`): freed earlier, the next decode could take
+    them while the copy still reads them. On the CPU a host chunk is the
+    chunk."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self._events: List[Tuple] = []        # (start, end) per chunk
+        self._inflight: List[Tuple] = []      # (end event, host chunk)
+
+    def upload(self, host: Table):
+        """(device chunk, token); runs on the decode thread."""
+        if not self.cuda:
+            return host, None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            start.record(self.stream)
+            dev = host.to(self.device, non_blocking=True)
+            end.record(self.stream)
+        return dev, (start, end, host)
+
+    def accept(self, dev: Table, token) -> Table:
+        """The device chunk, safe to use on the current stream; runs on
+        the executing thread."""
+        if token is None:
+            return dev
+        start, end, host = token
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(end)
+        for x in _tensors(dev):
+            x.record_stream(cur)
+        self._events.append((start, end))
+        self._inflight.append((end, host))
+        while self._inflight and self._inflight[0][0].query():
+            self._inflight.pop(0)
+        return dev
+
+    @staticmethod
+    def discard(token) -> None:
+        """A chunk that is dropped unused: its copy completes first."""
+        if token is not None:
+            token[1].synchronize()
+
+    def close(self) -> float:
+        """Wait for every copy; the copies' device time in ms."""
+        for end, _ in self._inflight:
+            end.synchronize()
+        self._inflight.clear()
+        total = 0.0
+        for start, end in self._events:
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total
+
+
+class _SyncFeed:
+    """Prefetch off (SPARK_RAPIDS_TORCH_IO_PREFETCH=0): decode and copy
+    inline on the executing thread. The surface of _ChunkPrefetcher."""
+
+    def __init__(self, gen, uploader: _Uploader):
+        self._gen = gen
+        self._up = uploader
+        self.decode_intervals: List[Tuple[float, float]] = []
+        self.decode_ms = 0.0
+        self.rows = 0
+
+    def get(self) -> Optional[Table]:
+        t0 = time.perf_counter()
+        try:
+            host = next(self._gen)
+        except StopIteration:
+            return None
+        t1 = time.perf_counter()
+        self.decode_intervals.append((t0, t1))
+        self.decode_ms += (t1 - t0) * 1e3
+        self.rows += host.num_rows
+        return self._up.accept(*self._up.upload(host))
+
+    def close(self) -> None:
+        self._gen.close()
+
+
+class _ChunkPrefetcher:
+    """A bounded host prefetch thread: decodes chunk N+1 (up to `depth`
+    ahead) and starts its copy while the executing thread runs chunk N.
+    The native decode releases the GIL (`ctypes.CDLL`), so the overlap is
+    real CPU concurrency."""
+
+    _DONE = object()
+
+    def __init__(self, gen, depth: int, uploader: _Uploader):
+        import queue
+        self._gen = gen
+        self._up = uploader
+        self._q = queue.Queue(maxsize=max(1, depth))
+        self._stop = False
+        self._err = None
+        self.decode_intervals: List[Tuple[float, float]] = []
+        self.decode_ms = 0.0
+        self.rows = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="spark-rapids-torch-io-prefetch")
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop:
+                t0 = time.perf_counter()
+                try:
+                    host = next(self._gen)
+                except StopIteration:
+                    break
+                t1 = time.perf_counter()
+                self.decode_intervals.append((t0, t1))
+                self.decode_ms += (t1 - t0) * 1e3
+                self.rows += host.num_rows
+                self._q.put(self._up.upload(host))
+        except BaseException as e:       # surfaces at the consumer's get()
+            self._err = e
+        finally:
+            self._q.put(self._DONE)
+
+    def get(self) -> Optional[Table]:
+        """The next chunk on the device, or None at the end of the
+        stream. Re-raises a decode-thread error on the consumer thread."""
+        item = self._q.get()
+        if item is self._DONE:
+            if self._err is not None:
+                raise self._err
+            return None
+        return self._up.accept(*item)
+
+    def close(self) -> None:
+        """Retire the decode thread (the consumer stopped early, or the
+        stream ended): keep draining until the thread exits, so that a
+        put() blocked on a full queue always wakes; then close the reader,
+        whose file the degraded tier may be about to reopen."""
+        import queue
+        self._stop = True
+        while self._thread.is_alive():
+            try:
+                while True:
+                    item = self._q.get_nowait()
+                    if item is not self._DONE:
+                        self._up.discard(item[1])
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+        try:
+            while True:
+                item = self._q.get_nowait()
+                if item is not self._DONE:
+                    self._up.discard(item[1])
+        except queue.Empty:
+            pass
+        self._gen.close()
+
+
+def _replay_start(plan: Plan, node_index: Dict[int, int], start: int,
+                  results: Dict[int, Table]) -> int:
+    """The first node the degraded tier runs: `start`, moved back until no
+    node it runs needs an earlier output that was never materialized (a
+    chain's interior, which ran a chunk at a time)."""
+    while True:
+        missing = [node_index[id(c)] for n in plan.nodes[start:]
+                   for c in n.children
+                   if node_index[id(c)] < start and id(c) not in results]
+        if not missing:
+            return start
+        start = min(missing)
+
+
+def _interval_overlap_ms(decode, process) -> float:
+    """Total wall time in which decode intervals and processing intervals
+    ran together: the prefetch's measured overlap. A linear merge: each
+    list is chronological and internally non-overlapping."""
+    total = 0.0
+    i = j = 0
+    while i < len(decode) and j < len(process):
+        s1, e1 = decode[i]
+        s2, e2 = process[j]
+        total += max(0.0, min(e1, e2) - max(s1, s2))
+        if e1 < e2:
+            i += 1
+        else:
+            j += 1
+    return total * 1e3
+
+
+# HashAggregate ops that decompose into per-chunk partials and an exact
+# merge over the partial rows (counts merge by summing)
+_STREAM_AGG_MERGE = {"sum": "sum", "count": "sum", "size": "sum",
+                     "min": "min", "max": "max"}
 
 
 def _first_live(alive: torch.Tensor, n: int) -> torch.Tensor:

@@ -14,8 +14,13 @@ capped tier's attempts, caps and graph replay. The recovery counters are
 the reference's: `retries` (an operator re-run after an injected fault or
 a RetryOOM), `backoff_ms` (the time backed off before them) and
 `degraded` (the operator ran on the degraded CPU tier); a degraded plan's
-profile says so in a DEGRADED line with the breaker's state. The IO,
-distributed and placement counters wait for their tiers.
+profile says so in a DEGRADED line with the breaker's state. A Scan bound
+to a Parquet source carries the reference's IO counters: row groups in
+the file and pruned by footer statistics, compressed bytes never decoded,
+the host decode time and its overlap with execution; the port adds the
+host-to-device copy time (`io_h2d_ms`, CUDA events on the copy stream;
+0.0 on the CPU). The distributed and placement counters wait for their
+tiers.
 
 The executor also opens a `utils.tracing.range_ctx("plan.<label>")`
 around every eager operator (and `plan.capped.attempt` around every
@@ -43,6 +48,13 @@ class OperatorMetrics:
     retries: int = 0           # re-runs after injected faults or RetryOOM
     backoff_ms: float = 0.0    # time backed off before those re-runs
     degraded: bool = False     # ran on the degraded CPU tier
+    # streaming-scan counters (a Scan bound to a Parquet source)
+    io_row_groups_total: int = 0
+    io_row_groups_pruned: int = 0
+    io_bytes_skipped: int = 0      # compressed chunk bytes never decoded
+    io_decode_ms: float = 0.0      # host decode, summed over chunks
+    io_overlap_ms: float = 0.0     # decode concurrent with execution
+    io_h2d_ms: float = 0.0         # host-to-device copies, on the card
 
     def to_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -109,4 +121,12 @@ def render_profile(rows: List[OperatorMetrics],
             out.append(f"  kernel: {m.kernel}")
         if m.escalations:
             out.append(f"  escalations: {m.escalations}")
+        if m.io_row_groups_total:
+            kept = m.io_row_groups_total - m.io_row_groups_pruned
+            out.append(f"  io: row groups {kept}/{m.io_row_groups_total} "
+                       f"({m.io_row_groups_pruned} pruned), "
+                       f"{m.io_bytes_skipped} B skipped, "
+                       f"decode {m.io_decode_ms:.3f} ms, "
+                       f"h2d {m.io_h2d_ms:.3f} ms, "
+                       f"overlap {m.io_overlap_ms:.3f} ms")
     return "\n".join(out)

@@ -8,10 +8,10 @@ schema contract lives, with the reference's messages.
 All node kinds are here so plans build as in the reference, with the
 reference's fields, so that `Plan.fingerprint` hashes them alike. Both
 tiers of the executor run every kind; an Exchange returns its child, as on
-one device in the reference. Scans bind materialized tables only: parquet
-sources wait for their slice, and no rule of the port sets a pruning
-predicate before the scan_pruning rule (ROADMAP queue A item 9), though
-the verifier checks one. `row_cap`/`key_cap`
+one device in the reference. A Scan binds a materialized table or a
+streaming Parquet source (`io.ParquetSource`), whose row groups the
+optimizer's scan_pruning rule prunes through `Scan.predicate`.
+`row_cap`/`key_cap`
 are the capped tier's (queue A item 7); the eager tier ignores them.
 """
 from __future__ import annotations
@@ -67,18 +67,24 @@ class PlanNode:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Scan(PlanNode):
-    """Leaf: one named input relation, bound at execute() to a Table
-    (`inputs={name: table}`). A declared `schema` validates at build time
-    and is checked against the binding. `projection` (set by the
-    optimizer's column pruning) narrows the output to a subset of the bound
-    columns. `est_rows` is a cardinality hint for the optimizer when no
-    table is bound. `predicate` is the scan-pruning rule's (queue A item
-    9) and stays None in the port."""
+    """Leaf: one named input relation, bound at execute() to a Table or a
+    streaming source (an `io.ParquetSource`, through `inputs=` or attached
+    here as `parquet` by `PlanBuilder.scan(parquet=...)`). A declared
+    `schema` validates at build time and is checked against the binding.
+    `projection` (set by the optimizer's column pruning) narrows the
+    output to a subset of the bound columns; on a Parquet source the other
+    columns are never decoded. `predicate` (set by the scan_pruning rule)
+    is a pruning-only hint: row groups whose footer min/max statistics
+    prove it matches nothing are skipped, while the authoring Filter stays
+    above, so it changes the bytes decoded and never the result.
+    `est_rows` is a cardinality hint for the optimizer when no table is
+    bound."""
     source: str
     schema: Optional[Tuple[str, ...]] = None
     projection: Optional[Tuple[str, ...]] = None
     est_rows: Optional[int] = None
     predicate: Optional[Expr] = None
+    parquet: Optional[object] = None    # io.ParquetSource (not fingerprinted)
 
     def __post_init__(self):
         super().__post_init__()
@@ -91,6 +97,13 @@ class Scan(PlanNode):
         _require(self.schema is not None,
                  f"{self.label}: schema for input {self.source!r} is unknown "
                  "(declare it at scan() or bind inputs)")
+        if self.predicate is not None:
+            # a pruning predicate compares file columns, which need not be
+            # projected: its statistics come from the footer
+            missing = self.predicate.references() - set(self.schema)
+            _require(not missing,
+                     f"{self.label}: pruning predicate references unknown "
+                     f"column(s) {sorted(missing)}")
         return self.apply_projection(self.schema)
 
     def apply_projection(self, schema) -> Tuple[str, ...]:
@@ -105,8 +118,12 @@ class Scan(PlanNode):
 
     def describe(self):
         out = self.source
+        if self.parquet is not None:
+            out += " (parquet)"
         if self.projection is not None:
             out += f" [{', '.join(self.projection)}]"
+        if self.predicate is not None:
+            out += f" prune[{self.predicate!r}]"
         return out
 
 

@@ -34,9 +34,11 @@ else None (the rule skips). Every build-side decision names its source on
 "certified:<bound>" or "default"); `stats_driven()` says whether an
 observed source changed the plan, and the executor then re-verifies the
 rewrite (`verify_rewrite`) or reruns the static pipeline
-(`stats_reverted`). `scan_pruning`, `exchange_planning` and `placement`
-wait for ROADMAP queue A items 9, 13 and 14; `RULE_NAMES` lists them all
-and the unported ones count 0. A rewrite that fails re-validation falls
+(`stats_reverted`). `scan_pruning` lowers the provable conjuncts of a
+Filter over a Scan bound to a Parquet source into `Scan.predicate` (the
+scans in `streaming_sources`, or those carrying their own source).
+`exchange_planning` and `placement` wait for ROADMAP queue A items 13
+and 14; `RULE_NAMES` lists them all and the unported ones count 0. A rewrite that fails re-validation falls
 back to the authored plan with `fell_back=True` and the culprit rule
 named.
 """
@@ -54,7 +56,8 @@ from .nodes import (Exchange, Filter, FusedSelect, HashAggregate, HashJoin,
                     Sort, TopK, Union)
 
 __all__ = ["optimize", "explain_optimized", "plan_fingerprint",
-           "subtree_fingerprints", "split_conjuncts", "OptimizeReport",
+           "subtree_fingerprints", "split_conjuncts", "pruning_conjuncts",
+           "OptimizeReport",
            "RULE_NAMES", "MAX_PASSES"]
 
 MAX_PASSES = 10           # fixpoint guard: rewrite passes, not rewrites
@@ -63,8 +66,8 @@ _EST_BYTES_PER_CELL = 8   # the reference's INT64-tier column width
 
 # ---- fingerprint ------------------------------------------------------------
 
-# pure hints that do not change what a plan computes (the reference also
-# skips its streaming-source field, which the port's Scan does not have)
+# pure hints that do not change what a plan computes (a Scan's attached
+# streaming source is execution state, not plan structure)
 _FP_SKIP_FIELDS = {"est_rows", "parquet"}
 
 
@@ -162,6 +165,21 @@ def _as_comparison(e: Expr) -> Optional[Tuple[str, str, object]]:
     if isinstance(r, ColumnRef) and isinstance(l, Literal):
         return (r.name, _FLIP_OP[e.op], l.value)
     return None
+
+
+def pruning_conjuncts(e: Expr) -> List[Tuple[str, str, object]]:
+    """The (column, op, literal) triples of `e`'s top-level AND conjuncts
+    that row-group min/max statistics can evaluate. Pruning on this subset
+    of an AND is conservative-exact (every extracted conjunct must hold for
+    a row to survive the retained Filter); a non-conjunct shape, such as an
+    OR at the top level, contributes nothing, so the scan_pruning rule
+    declines rather than over-prunes."""
+    out = []
+    for c in split_conjuncts(e):
+        cmp = _as_comparison(c)
+        if cmp is not None:
+            out.append(cmp)
+    return out
 
 
 def _statically_distributable(n: PlanNode, float_inputs: bool) -> bool:
@@ -469,8 +487,11 @@ class _Ctx:
     plus the report for prune counts."""
 
     def __init__(self, root, bound, bound_rows, report, float_inputs=False,
-                 stats=None, backend=None, input_dtypes=None):
+                 stats=None, backend=None, input_dtypes=None,
+                 streaming=frozenset()):
         self.root = root
+        self.streaming = streaming      # scan sources bound to streaming
+        #                                 (Parquet) sources this execution
         self.bound = bound
         self.bound_rows = bound_rows
         self.input_dtypes = input_dtypes
@@ -822,6 +843,44 @@ def _rule_column_pruning(root, ctx):
     return go(root), hits[0]
 
 
+def _rule_scan_pruning(root, ctx):
+    """Filter/FusedSelect directly over a streaming-source Scan: lower the
+    min/max-provable AND-conjuncts of the predicate into `Scan.predicate`
+    for row-group pruning. Pruning only: the Filter/FusedSelect stays
+    above for exact row semantics; a row group is skipped at scan time
+    only when footer statistics prove the lowered conjuncts match nothing
+    (io/parquet.select_row_groups). Predicates with no provable top-level
+    conjunct (an OR at the root, column-column compares, scalar
+    aggregates) lower nothing: extracting from inside an OR would
+    over-prune rows the retained Filter still wants."""
+    hits = [0]
+
+    def fn(node):
+        if not isinstance(node, (Filter, FusedSelect)):
+            return None
+        child = node.child
+        if not isinstance(child, Scan) or child.predicate is not None:
+            return None
+        if child.parquet is None and child.source not in ctx.streaming:
+            return None     # table-bound scan: nothing to prune at IO time
+        if id(child) in ctx.shared:
+            # a shared scan feeds other parents that did not author this
+            # filter: pruning it would starve them of rows
+            return None
+        safe = [c for c in split_conjuncts(node.predicate)
+                if _as_comparison(c) is not None]
+        if not safe:
+            return None
+        pred = safe[0]
+        for c in safe[1:]:
+            pred = BinOp("&", pred, c)
+        hits[0] += 1
+        return _with_children(
+            node, (dataclasses.replace(child, predicate=pred),))
+
+    return _rewrite(root, fn, ctx.shared), hits[0]
+
+
 _RULES = (
     ("constant_folding", _rule_constant_folding),
     ("predicate_pushdown", _rule_predicate_pushdown),
@@ -829,6 +888,7 @@ _RULES = (
     ("build_side", _rule_build_side),
     ("column_pruning", _rule_column_pruning),
     ("select_fusion", _rule_select_fusion),
+    ("scan_pruning", _rule_scan_pruning),
 )
 
 
@@ -878,7 +938,7 @@ def _fall_back(plan: Plan, report: OptimizeReport):
 
 def _attribute_fallback(plan: Plan, bound, bound_rows, float_inputs,
                         err: PlanValidationError, stats=None, backend=None,
-                        input_dtypes=None) -> Dict:
+                        input_dtypes=None, streaming=frozenset()) -> Dict:
     """Re-run the pipeline from the authored root, re-validating after
     every rule that rewrites, to name the rule that produced the invalid
     DAG, with the estimates the failing pipeline read. Runs only on the
@@ -889,7 +949,7 @@ def _attribute_fallback(plan: Plan, bound, bound_rows, float_inputs,
         pass_hits = 0
         for name, rule in _RULES:
             ctx = _Ctx(root, bound, bound_rows, scratch, float_inputs,
-                       stats, backend, input_dtypes)
+                       stats, backend, input_dtypes, streaming)
             try:
                 new_root, n = rule(root, ctx)
             except PlanValidationError as bad:
@@ -908,7 +968,6 @@ def _attribute_fallback(plan: Plan, bound, bound_rows, float_inputs,
 # ---- pipeline ---------------------------------------------------------------
 
 _NOT_PORTED_ARGS = {
-    "streaming_sources": "scan_pruning (ROADMAP queue A item 9)",
     "mesh_peers": "exchange_planning (ROADMAP queue A item 13)",
     "placement": "placement (ROADMAP queue A item 14)",
 }
@@ -923,6 +982,7 @@ def optimize(plan: Plan,
              stats=None,
              backend: Optional[str] = None,
              input_dtypes: Optional[Dict[str, Dict]] = None,
+             streaming_sources=frozenset(),
              **not_ported) -> Tuple[Plan, OptimizeReport]:
     """Run the rule pipeline to fixpoint over `plan`. `bound` maps scan
     source -> actual column names and `bound_rows` -> actual row counts
@@ -936,8 +996,10 @@ def optimize(plan: Plan,
     estimator read observed rows of that backend; with stats=None the
     decisions are the static pipeline's. `input_dtypes` (source ->
     {column: DType}) gives the certifier its dtypes (its row bounds need
-    none). The reference's other arguments raise, naming the ROADMAP item
-    that ports them.
+    none). `streaming_sources` names the scans bound to streaming
+    (Parquet) sources this execution: the scan_pruning rule fires only for
+    those and for scans that carry their own source. The reference's other
+    arguments raise, naming the ROADMAP item that ports them.
     Returns the optimized Plan (the same object when nothing fired) and
     the report."""
     for arg in not_ported:
@@ -947,13 +1009,14 @@ def optimize(plan: Plan,
                                   f"{_NOT_PORTED_ARGS[arg]} is not ported")
     report = OptimizeReport(rules={name: 0 for name in RULE_NAMES})
     report.source_fingerprint = plan.fingerprint
+    streaming = frozenset(streaming_sources)
     root = plan.root
     try:
         for p in range(max_passes):
             pass_hits = 0
             for name, rule in _RULES:
                 ctx = _Ctx(root, bound, bound_rows, report, float_inputs,
-                           stats, backend, input_dtypes)
+                           stats, backend, input_dtypes, streaming)
                 new_root, n = rule(root, ctx)
                 if verify_rules and new_root is not root:
                     bad = _plan_error(new_root, bound)
@@ -972,7 +1035,8 @@ def optimize(plan: Plan,
         # resolution: that too falls back, naming the culprit
         report.fallback = _attribute_fallback(plan, bound, bound_rows,
                                               float_inputs, err, stats,
-                                              backend, input_dtypes)
+                                              backend, input_dtypes,
+                                              streaming)
         return _fall_back(plan, report)
     if root is plan.root:
         report.fingerprint = report.source_fingerprint
@@ -984,7 +1048,8 @@ def optimize(plan: Plan,
     except PlanValidationError as err:
         report.fallback = _attribute_fallback(plan, bound, bound_rows,
                                               float_inputs, err, stats,
-                                              backend, input_dtypes)
+                                              backend, input_dtypes,
+                                              streaming)
         return _fall_back(plan, report)
     report.fingerprint = opt.fingerprint
     return opt, report

@@ -26,15 +26,19 @@ twice under a fresh store and compares the bits.
 A run on the CPU never seeds a run on the card: every table keys on the
 backend first, and the executor passes the backend the result ran on.
 
-Tables (the reference's streaming-scan and placement tables, `io` and
-`walls`, its serving layer's peak bytes and its fleet gossip wait for
-ROADMAP queue A items 9 and 14):
+Tables (the reference's placement table `walls`, its serving layer's
+peak bytes and its fleet gossip, the `io` table's part in it included,
+wait for ROADMAP queue A item 14):
 
 - plans:    (backend, source fingerprint) -> {executed_fp, runs, caps
             {cap key: high-water}, ops {toposort index: row}}
 - subtrees: (backend, subtree fingerprint) -> {rows (high-water), runs}
 - kernels:  (backend, op, signature repr) -> {kernel name: {ms_per_krow
             (EWMA), runs}}
+- io:       (backend, scan subtree fingerprint) -> {rows_per_ms (EWMA),
+            runs}: a streaming scan's host decode throughput, from which
+            `suggest_chunk_rows` sizes the chunks of a scan with no
+            explicit bound (about `_TARGET_CHUNK_MS` of decode a chunk)
 
 `generation` grows with every record; `rows_generation` only when what
 `observed_rows` answers changes (a subtree's high-water rows grow, or a
@@ -67,6 +71,10 @@ __all__ = ["StatsStore", "active_store", "default_store",
 # program cache
 _DEMOTE_MARGIN = 1.25
 _EWMA_ALPHA = 0.5
+# adaptive chunk sizing: host decode time a streaming chunk aims at, and
+# the fewest rows a suggested chunk has
+_TARGET_CHUNK_MS = 25.0
+_MIN_CHUNK_ROWS = 4096
 
 
 def _ewma(old: Optional[float], new: float) -> float:
@@ -95,6 +103,7 @@ class StatsStore:
         self._subtrees: Dict[Tuple, Dict] = LruDict(
             self.capacity * 16, on_evict=self._subtree_evicted)
         self._kernels: Dict[Tuple, Dict] = LruDict(self.capacity * 16)
+        self._io: Dict[Tuple, Dict] = LruDict(self.capacity * 4)
         self._fps: Dict[int, Tuple] = LruDict(self.capacity)
         self.generation = 0
         self.rows_generation = 0
@@ -120,7 +129,7 @@ class StatsStore:
         sub = self._subtree_fps(plan.root)
         event = {"backend": backend, "source_fp": source_fp,
                  "executed_fp": plan.fingerprint, "caps": {}, "ops": {},
-                 "subtrees": {}, "kernels": []}
+                 "subtrees": {}, "io": {}, "kernels": []}
         with self._lock:
             key = (backend, source_fp)
             ps = self._plans.get(key) or {
@@ -152,6 +161,10 @@ class StatsStore:
                     # ran on the card before the breaker tripped: its rows
                     # count on any backend, its timing is the card's
                     continue
+                if m.io_decode_ms > 0 and m.rows_out > 0:
+                    ioe = self._io_locked(backend, sfp,
+                                          m.rows_out / m.io_decode_ms)
+                    event["io"][sfp] = ioe["rows_per_ms"]
                 if ksig is not None and m.kernel and m.wall_ms:
                     op, sig = ksig
                     name = m.kernel.split(":", 1)[0]
@@ -164,6 +177,26 @@ class StatsStore:
             self.generation += 1
         if self.path:
             self._append(event)
+
+    def _io_locked(self, backend: str, sfp: str, rows_per_ms: float) -> Dict:
+        e = self._io.get((backend, sfp)) or {"rows_per_ms": None, "runs": 0}
+        e["rows_per_ms"] = _ewma(e["rows_per_ms"], float(rows_per_ms))
+        e["runs"] += 1
+        self._io[(backend, sfp)] = e
+        return e
+
+    def suggest_chunk_rows(self, backend: str, scan_fp: str) -> int:
+        """Chunk row bound from observed decode throughput: about
+        `_TARGET_CHUNK_MS` of host decode a chunk. 0 is no suggestion
+        (cold), which callers treat as an unset
+        SPARK_RAPIDS_TORCH_IO_CHUNK_ROWS."""
+        with self._lock:
+            e = self._io.get((backend, scan_fp))
+            if e is None or not e["rows_per_ms"]:
+                return 0
+            self.hits += 1
+            return max(_MIN_CHUNK_ROWS,
+                       int(e["rows_per_ms"] * _TARGET_CHUNK_MS))
 
     def _subtree_fps(self, root) -> Dict[int, str]:
         """`subtree_fingerprints(root)`, computed once per plan root (the
@@ -331,6 +364,8 @@ class StatsStore:
         self._plans[key] = ps
         for sfp, rows in (ev.get("subtrees") or {}).items():
             self._observe_locked(backend, sfp, int(rows))
+        for sfp, rate in (ev.get("io") or {}).items():
+            self._io_locked(backend, sfp, float(rate))
         for op, sig_key, name, per_krow in ev.get("kernels") or []:
             m = self._kernels.get((backend, op, sig_key)) or {}
             e = m.get(name) or {"ms_per_krow": None, "runs": 0}

@@ -143,25 +143,30 @@ class _SharedRelease:
 
 
 def _weakrefable_outputs(out: Any) -> list:
-    """Output objects whose lifetime should own the reservation."""
+    """Output objects whose lifetime should own the reservation, in the
+    reference's depth-first order.
+
+    An explicit stack, not the reference's nested recursive `walk`: a
+    closure that calls itself through its own cell is a reference cycle,
+    and the cycle held `found`, so the finalizers below fired only when
+    the cyclic GC ran (ROADMAP queue C 9, a recorded deviation). Here the
+    reservation returns when the last holder dies, as `do_deallocate`
+    does in the JNI arbiter."""
     from ..columnar.column import Column
     from ..columnar.table import Table
     found = []
-
-    def walk(o):
+    stack = [out]
+    while stack:
+        o = stack.pop()
         if isinstance(o, (Column, Table, torch.Tensor)):
             found.append(o)        # do not descend: the holder is enough
         elif isinstance(o, (list, tuple)):
-            for x in o:
-                walk(x)
+            stack.extend(reversed(o))
         elif isinstance(o, dict):
-            for v in o.values():
-                walk(v)
+            stack.extend(reversed(list(o.values())))
         elif dataclasses.is_dataclass(o) and not isinstance(o, type):
             if operand_nbytes(o):
                 found.append(o)
-
-    walk(out)
     return found
 
 

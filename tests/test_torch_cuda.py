@@ -2048,3 +2048,39 @@ def test_bloom_filter_kernels_equal_plain_version(num_longs):
     wire = bloom_filter.bloom_filter_serialize(got)
     back = bloom_filter.bloom_filter_deserialize(wire)
     assert back.device == got.device and torch.equal(back.words, got.words)
+
+
+@pytest.mark.parametrize("depth", ["0", "2"])
+def test_streaming_scan_on_the_card_equals_the_cpu(tmp_path, monkeypatch,
+                                                    depth):
+    """A Parquet file streamed onto the card (page-locked chunks, copies on
+    the copy stream, prefetch depth 0 and 2) gives the CPU run's table, and
+    the whole-file read gives the CPU read's buffers."""
+    _need_card()
+    import torch_parquet_writer as pw
+    from spark_rapids_tpu_torch.io import read_parquet
+    from spark_rapids_tpu_torch.plan import PlanBuilder
+    rng = np.random.default_rng(3)
+    n = 300_000
+    path = str(tmp_path / "t.parquet")
+    pw.write_parquet(path, [
+        ("k", "int64", rng.integers(0, 1000, n), None),
+        ("v", "int64", rng.integers(-5, 5, n), rng.random(n) > 0.1),
+        ("f", "float64", rng.standard_normal(n), None)], 65_536, "GZIP")
+    monkeypatch.setenv("SPARK_RAPIDS_TORCH_IO_PREFETCH", depth)
+    plan = (PlanBuilder().scan("t", parquet=path).filter(col("k") < 500)
+            .aggregate(["k"], [("v", "sum", "s"), ("v", "count", "c")])
+            .sort(["k"]).build())
+    card = PlanExecutor().execute(plan)
+    cpu = PlanExecutor(device="cpu").execute(plan)
+    for name in cpu.table.names:
+        assert torch.equal(card.table[name].data.cpu(), cpu.table[name].data)
+        assert torch.equal(card.table[name].null_mask.cpu(),
+                           cpu.table[name].null_mask)
+    scan = next(m for m in card.metrics.values() if m.kind == "Scan")
+    assert scan.io_row_groups_total == 5 and scan.io_h2d_ms > 0.0
+    got, want = read_parquet(path), read_parquet(path, device="cpu")
+    for name in want.names:
+        assert got[name].device.type == "cuda"
+        assert torch.equal(got[name].data.cpu(), want[name].data)
+        assert torch.equal(got[name].null_mask.cpu(), want[name].null_mask)

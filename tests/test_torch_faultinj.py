@@ -374,31 +374,94 @@ class _Counting:
         self.handler = H()
 
 
-def test_every_q23_operator_is_admitted_and_the_budget_drains(plans):
+def _run_both(plans, query):
+    """(name, runtime module, run(session)) of each package's executor."""
     import spark_rapids_tpu.runtime as jrt
-    jplan, jinputs, tplan, tinputs = plans["q23"]
-    counts = {}
-    for name, rt, run in (
-            ("jax", jrt, lambda sess: JPlanExecutor(
+    jplan, jinputs, tplan, tinputs = plans[query]
+    return (("jax", jrt, lambda sess: JPlanExecutor(
                 optimize=False, session=sess).execute(jplan(), jinputs)),
             ("torch", trt, lambda sess: PlanExecutor(
                 device="cpu", optimize=False, session=sess).execute(
-                tplan(), tinputs))):
+                tplan(), tinputs)))
+
+
+def test_every_q23_operator_is_admitted_and_the_budget_drains(plans):
+    """q23's result is one row of `_global_aggregate`, which runs outside
+    the op table in both packages, so no reservation is tied to it: the
+    port's budget is 0 while it lives and at `del res`, with no collection
+    (queue C 9 repaired). The JAX package's output walk still holds its
+    outputs in a reference cycle, so its side drains at `gc.collect()`."""
+    counts = {}
+    for name, rt, run in _run_both(plans, "q23"):
         c = _Counting(rt)
         sess = rt.DeviceSession(1 << 40, watchdog=False,
                                 event_handler=c.handler)
         with sess:
             res = run(sess)
-            assert sess.device.used > 0          # the result holds its bytes
             kinds = [m.kind for m in res.metrics.values()]
             del res
-            gc.collect()
+            if name == "jax":
+                gc.collect()
             assert sess.device.used == 0
         counts[name] = len(c.acquired)
     # one or more reservations per operator that dispatches an op
     dispatching = [k for k in kinds if k not in ("Scan", "Project",
                                                  "Exchange")]
     assert counts["torch"] == counts["jax"] >= len(dispatching) > 0
+
+
+def test_an_admitted_result_holds_its_bytes_until_dropped(plans):
+    """q3 ends in a Sort, an admitted op whose output the executor hands
+    back as the result itself (no unadmitted step copies it), so the
+    result holds its reservation while it lives, in both packages. With
+    the GC disabled, the port's budget is 0 at `del res` (queue C 9); the
+    JAX package's drains at `gc.collect()`."""
+    counts = {}
+    gc.collect()
+    gc.disable()
+    try:
+        for name, rt, run in _run_both(plans, "q3"):
+            c = _Counting(rt)
+            sess = rt.DeviceSession(1 << 40, watchdog=False,
+                                    event_handler=c.handler)
+            with sess:
+                res = run(sess)
+                assert res.plan.root.kind == "Sort"
+                assert sess.device.used > 0      # the result holds its bytes
+                del res
+                if name == "jax":
+                    gc.collect()
+                assert sess.device.used == 0
+            counts[name] = len(c.acquired)
+    finally:
+        gc.enable()
+    assert counts["torch"] == counts["jax"] > 0
+
+
+def test_q23_budget_drains_at_del_with_the_gc_disabled(plans):
+    """Queue C 9 pinned: with the cyclic GC off, two runs of q23 under one
+    executor and one DeviceSession each leave the budget at 0 when the
+    result is dropped, and reach the same high-water mark (a garbage
+    cycle would carry the first run's outputs into the second's)."""
+    _, _, tplan, tinputs = plans["q23"]
+    plan = tplan()
+    c = _Counting(trt)
+    marks = []
+    gc.collect()
+    gc.disable()
+    try:
+        with trt.DeviceSession(1 << 40, watchdog=False,
+                               event_handler=c.handler) as sess:
+            ex = PlanExecutor(device="cpu", optimize=False, session=sess)
+            for _ in range(2):
+                c.acquired.clear()
+                res = ex.execute(plan, tinputs)
+                del res
+                assert sess.device.used == 0
+                marks.append(max(c.acquired))
+    finally:
+        gc.enable()
+    assert marks[0] == marks[1] > 0
 
 
 @pytest.mark.parametrize("query,mode,skip", [("q23", "eager", 2),

@@ -285,6 +285,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         "v = Column.from_pylist([5], dtypes.INT64, 'cpu')\n"
         "assert api.BloomFilter.probe(api.BloomFilter.put(bf, v), v).data[0]\n"
         "assert version.version_info()['version']\n"
+        "from spark_rapids_tpu_torch import io as pio\n"
+        "from spark_rapids_tpu_torch.plan import PlanBuilder, col\n"
+        "fx = 'tests/data/torch_parquet/snappy_dict_strings.parquet'\n"
+        "assert pio.read_parquet(fx, device='cpu').num_rows == 300\n"
+        "assert pio.read_footer_stats(fx)[0].num_rows == 128\n"
+        "sp = (PlanBuilder().scan('f', parquet=fx).filter(col('k') > 2)\n"
+        "      .aggregate(['k'], [('k', 'count', 'c')]).build())\n"
+        "assert PlanExecutor(device='cpu').execute(sp).table.num_rows == 4\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.split('.')[0] == 'spark_rapids_tpu')\n"
