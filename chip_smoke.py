@@ -14,6 +14,7 @@
     python3 chip_smoke.py --uri-json-bloom  # phase 14 only
     python3 chip_smoke.py --runtime    # phase 15 only (runtime arbitration)
     python3 chip_smoke.py --parquet    # phase 16 only (Parquet, streaming)
+    python3 chip_smoke.py --datetime-zorder-histogram  # phase 17 only
     python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
     python3 chip_smoke.py --script-ab DIR [DIR ...] [--out FILE]  # stamped
 
@@ -331,6 +332,28 @@ in phases that each raise on failure:
    idle share; every fixture of tests/data/torch_parquet read onto the
    card and held to its seed values. Alone:
    `python3 chip_smoke.py --parquet`;
+17. time zones, the calendar rebase, Z-order and percentiles
+   (`dzh_phase`): the four sources' nvcc seconds and the card's tzdata
+   version; the JAX tests' cases (tests/torch_datetime_inputs.py: the
+   supported zones both ways, Kiritimati's skipped day, fixed offsets,
+   short ids and Spark's legacy forms, an unsupported zone raising; the
+   Julian oracle and gap dates; every Z-order type and the Hilbert shapes
+   with their oracles, the 2-D order, zero rows; the percentile oracle,
+   the negative-count case, empty batches) on the card, each equal to
+   the CPU run bit for bit and to the oracle; then the main path once
+   through `api.GpuTimeZoneDB` (four zones both ways over 16,777,216
+   TIMESTAMP_US rows, one TIMESTAMP_MS pass), `api.DateTimeRebase` (both
+   ways over 16,777,216 DATE32 and TIMESTAMP_US rows, a fifth before
+   1582-10-15, and their round trip), `api.ZOrder` (interleaveBits over 4
+   INT32, 2 INT64 and 3 FLOAT64 columns, hilbertIndex at 16 x 4 and
+   32 x 2) and `api.Histogram` (createHistogramIfValid over about 34M
+   values, then percentileFromHistogram over the 1,048,576 histograms
+   they form, both output forms), counters zeroed just before and read
+   just after each call (one launch a call, none for
+   createHistogramIfValid, no plain run); every output against the plain
+   version on the CPU copies of its inputs in slices (every slice
+   checked, on a worker thread while the kernels are timed); each kernel
+   timed. Alone: `python3 chip_smoke.py --datetime-zorder-histogram`;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -515,6 +538,7 @@ def build_phase():
     native = threading.Thread(target=native_builds)
     native.start()
     secs = cuda_build.build()
+    NVCC_SECONDS.update(secs)
     native.join()
     require("parquet_reader" in NATIVE_BUILD, "a g++ build of the port's "
             f"host C++ failed: {NATIVE_BUILD}")
@@ -550,7 +574,9 @@ class Checks:
                         "exists_large": 0, "exists_var": 0,
                         "cast_string": 0, "cast_decimal": 0,
                         "cast_string_to_float": 0, "number_to_string": 0,
-                        "parse_uri": 0, "map_utils": 0, "bloom_filter": 0}
+                        "parse_uri": 0, "map_utils": 0, "bloom_filter": 0,
+                        "timezones": 0, "datetime_rebase": 0, "zorder": 0,
+                        "percentile": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -3740,6 +3766,9 @@ def kernel_counters():
     from spark_rapids_tpu_torch.ops import cast_cuda, topk, topk_cuda
     from spark_rapids_tpu_torch.ops import (bloom_filter_cuda, map_utils_cuda,
                                             parse_uri_cuda)
+    from spark_rapids_tpu_torch.ops import (datetime_rebase_cuda,
+                                            histogram_cuda, timezones_cuda,
+                                            zorder_cuda)
     from spark_rapids_tpu_torch.parallel import partition_cuda
     return {"groupby": dict(groupby_cuda.LAUNCHES),
             "hash_join": dict(join_cuda.LAUNCHES),
@@ -3760,6 +3789,10 @@ def kernel_counters():
             "parse_uri": dict(parse_uri_cuda.LAUNCHES),
             "map_utils": dict(map_utils_cuda.LAUNCHES),
             "bloom_filter": dict(bloom_filter_cuda.LAUNCHES),
+            "timezones": dict(timezones_cuda.LAUNCHES),
+            "datetime_rebase": dict(datetime_rebase_cuda.LAUNCHES),
+            "zorder": dict(zorder_cuda.LAUNCHES),
+            "percentile": dict(histogram_cuda.LAUNCHES),
             "plain": {"groupby": dict(groupby_cuda.PLAIN_CALLS),
                       "hash_join": dict(join_cuda.PLAIN_CALLS),
                       "fused_select": dict(select.PLAIN_CALLS),
@@ -3773,7 +3806,12 @@ def kernel_counters():
                       "casts": dict(cast_cuda.PLAIN_CALLS),
                       "parse_uri": dict(parse_uri_cuda.PLAIN_CALLS),
                       "map_utils": dict(map_utils_cuda.PLAIN_CALLS),
-                      "bloom_filter": dict(bloom_filter_cuda.PLAIN_CALLS)}}
+                      "bloom_filter": dict(bloom_filter_cuda.PLAIN_CALLS),
+                      "timezones": dict(timezones_cuda.PLAIN_CALLS),
+                      "datetime_rebase": dict(
+                          datetime_rebase_cuda.PLAIN_CALLS),
+                      "zorder": dict(zorder_cuda.PLAIN_CALLS),
+                      "percentile": dict(histogram_cuda.PLAIN_CALLS)}}
 
 
 def reset_kernel_counters():
@@ -3784,11 +3822,15 @@ def reset_kernel_counters():
     from spark_rapids_tpu_torch.ops import cast_cuda
     from spark_rapids_tpu_torch.ops import (bloom_filter_cuda, map_utils_cuda,
                                             parse_uri_cuda)
+    from spark_rapids_tpu_torch.ops import (datetime_rebase_cuda,
+                                            histogram_cuda, timezones_cuda,
+                                            zorder_cuda)
     from spark_rapids_tpu_torch.parallel import partition_cuda
     for m in (groupby_cuda, hash_cuda, join_cuda, segment_sum_cuda,
               select_cuda, topk_cuda, partition_cuda, decimal_cuda,
               row_conversion_cuda, cast_cuda, parse_uri_cuda, map_utils_cuda,
-              bloom_filter_cuda):
+              bloom_filter_cuda, timezones_cuda, datetime_rebase_cuda,
+              zorder_cuda, histogram_cuda):
         m.reset_counters()
 
 
@@ -8960,6 +9002,712 @@ def parquet_phase(torch, chk, smi):
     return out
 
 
+# ---- phase 17: time zones, the calendar rebase, Z-order, percentiles --------
+
+DZH_N = 16_777_216                 # rows a main-path call (the casts' size)
+DZH_HISTS = 1_048_576              # histograms of 1-64 values each
+DZH_MAX_LEN = 64
+DZH_ZONES = ("Asia/Shanghai", "Asia/Kolkata", "Pacific/Kiritimati", "+05:30")
+DZH_PCTS = [0.0, 0.25, 0.5, 0.75, 0.99, 1.0]
+DZH_SLICE = 262_144                # rows a CPU plain run (its tensors in L2)
+DZH_HIST_SLICE = 65_536            # histograms a CPU plain run
+DZH_ITERS = 5
+DZH_SOURCES = {k: f"spark_rapids_tpu_torch/ops/csrc/{k}.cu"
+               for k in ("timezones", "datetime_rebase", "zorder",
+                         "histogram")}
+DZH_REPLACES = {
+    "timezones": "none: spark_rapids_tpu/ops/timezones.py:296 "
+                 "(_convert_kernel) (XLA ops, no pallas_call)",
+    "datetime_rebase": "none: spark_rapids_tpu/ops/datetime_rebase.py:89 "
+                       "(_greg_to_julian_days), :97 (_julian_to_greg_days), "
+                       ":113 (_rebase_micros) (XLA ops, no pallas_call)",
+    "zorder": "none: spark_rapids_tpu/ops/zorder.py:59 (interleave_bits), "
+              ":84 (hilbert_index) (XLA ops, no pallas_call)",
+    "histogram": "none: spark_rapids_tpu/ops/histogram.py:153 "
+                 "(_percentile_kernel) (XLA ops, no pallas_call)"}
+# The least work of each function, for the bound, in 32-bit integer
+# instructions (a 64-bit add, compare or select counts two, a division by
+# a constant a multiply-high, a shift and a sign fix-up):
+# - a time-zone row: the truncating division to seconds (6), the offset's
+#   gather, scaling and 64-bit add or subtract (6), and a search step a
+#   transition bit (a 64-bit compare and the bound's select: 4) over
+#   ceil(log2(k + 1)) steps;
+# - a rebase row: the compare with the switch (2); a row before it adds
+#   the calendar arithmetic, two day algorithms of about 13 floor
+#   divisions by constants (6 each) and 25 64-bit adds, multiplies and
+#   selects (2 each): 128;
+# - an interleaved output bit: one bit-field insert;
+# - a Hilbert bit of a column: Skilling's test and exchange-or-invert (4),
+#   its share of the Gray code (1) and its deposit (1): 6;
+# - a histogram element: its 64-bit running sum and a compare (4); the
+#   bound counts no sorting.
+# Bytes: each input buffer read once (data, validity where the column has
+# one, a zone's 12-byte transitions, list offsets), each output written
+# once (data, offsets, a percentile's validity).
+TZ_ROW_OPS = 12
+TZ_STEP_OPS = 4
+REBASE_ROW_OPS = 2
+REBASE_EARLY_OPS = 128
+INTERLEAVE_BIT_OPS = 1
+HILBERT_BIT_OPS = 6
+PCT_ELEM_OPS = 4
+NVCC_SECONDS = {}                  # build_phase's nvcc seconds by source
+
+
+def dzh_bits(torch, t):
+    """A tensor as integers of its width (floats by their bits), on the
+    CPU."""
+    t = t.cpu()
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def dzh_same(torch, chk, kernel, got, want, what):
+    """Two port columns equal in every buffer: data (every row, by its
+    bits), validity (None on both sides or equal), offsets and children."""
+    if (got.validity is None) != (want.validity is None) or \
+            got.length != want.length or got.dtype != want.dtype:
+        chk.max_err[kernel] = max(chk.max_err[kernel], 1)
+        raise AssertionError(f"{what}: {got.dtype!r} x {got.length}, "
+                             f"validity {got.validity is not None} vs "
+                             f"{want.dtype!r} x {want.length}, "
+                             f"{want.validity is not None}")
+    for a, b, part in ((got.data, want.data, "data"),
+                       (got.validity, want.validity, "validity"),
+                       (got.offsets, want.offsets, "offsets")):
+        if a is not None:
+            chk.equal(kernel, dzh_bits(torch, a), dzh_bits(torch, b),
+                      f"{what} {part}")
+    for i, (g, w) in enumerate(zip(got.children, want.children)):
+        dzh_same(torch, chk, kernel, g, w, f"{what} child {i}")
+
+
+def dzh_corpus_checks(torch, chk):
+    """The JAX tests' cases on the card: each result equal to the CPU run
+    (the plain version), bit for bit, and to the oracle."""
+    tests_on_path()
+    import torch_datetime_inputs as di
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+    tzdb = api.GpuTimeZoneDB
+    cases = [0]
+
+    def card_and_cpu(kernel, fn, cols, what):
+        got = fn(*[c.to("cuda") for c in cols])
+        dzh_same(torch, chk, kernel, got, fn(*cols), what)
+        cases[0] += 1
+        return got
+
+    def us(values, dtype=dt.TIMESTAMP_US):
+        return Column.from_numpy(np.array(values, np.int64), dtype,
+                                 device="cpu")
+    rand_v, rand_ok = di.timestamps(9, 4096)
+    rand = Column.from_numpy(rand_v, dt.TIMESTAMP_US, rand_ok, device="cpu")
+    for zone in di.SUPPORTED_ZONES:
+        if not tzdb.isSupportedTimeZone(zone):
+            log(f"  {zone} has recurring rules in this tzdata: skipped")
+            continue
+        for fn, micros, oracle in (
+                (tzdb.fromTimestampToUtcTimestamp, di.ZONE_TO_UTC_MICROS,
+                 di.wall_to_utc_oracle),
+                (tzdb.fromUtcTimestampToTimestamp, di.UTC_TO_ZONE_MICROS,
+                 di.utc_to_wall_oracle)):
+            card_and_cpu("timezones", lambda c: fn(c, zone), [rand],
+                         f"{zone} random")
+            got = card_and_cpu("timezones", lambda c: fn(c, zone),
+                               [us(micros)], f"{zone} oracle")
+            require(got.to_pylist() == oracle(micros, zone),
+                    f"{zone}: the card differs from zoneinfo")
+    got = card_and_cpu("timezones", lambda c: tzdb.fromTimestampToUtcTimestamp(
+        c, "Pacific/Kiritimati"), [us([di.KIRITIMATI_GAP_WALL])],
+        "Kiritimati's skipped day")
+    require(got.to_pylist() == di.wall_to_utc_oracle(
+        [di.KIRITIMATI_GAP_WALL], "Pacific/Kiritimati"),
+        "Kiritimati's skipped day differs from zoneinfo")
+    for zone, offset in di.FIXED_ZONES:
+        for fn, sign in ((tzdb.fromTimestampToUtcTimestamp, -1),
+                         (tzdb.fromUtcTimestampToTimestamp, 1)):
+            got = card_and_cpu("timezones", lambda c: fn(c, zone),
+                               [us(di.FIXED_MICROS)], f"{zone}")
+            require(got.to_pylist() == [m + sign * offset * 1_000_000
+                                        for m in di.FIXED_MICROS],
+                    f"{zone}: not the fixed offset")
+    for kind, scale in ((dt.TIMESTAMP_S, 1), (dt.TIMESTAMP_MS, 1000)):
+        v, ok = di.timestamps(10, 4096, scale=scale)
+        col = Column.from_numpy(v, kind, ok, device="cpu")
+        for fn in (tzdb.fromTimestampToUtcTimestamp,
+                   tzdb.fromUtcTimestampToTimestamp):
+            card_and_cpu("timezones", lambda c: fn(c, "Asia/Tokyo"), [col],
+                         f"{kind!r} Asia/Tokyo")
+    if not tzdb.isSupportedTimeZone(di.UNSUPPORTED_ZONE):
+        try:
+            tzdb.fromUtcTimestampToTimestamp(us([0]).to("cuda"),
+                                             di.UNSUPPORTED_ZONE)
+            raise AssertionError(f"{di.UNSUPPORTED_ZONE} did not raise")
+        except ValueError:
+            cases[0] += 1
+    # the calendars
+    R = api.DateTimeRebase
+
+    def days(values):
+        return Column.from_numpy(np.array(values, np.int32), dt.DATE32,
+                                 device="cpu")
+    got = card_and_cpu("datetime_rebase", R.rebaseGregorianToJulian, [days(
+        [di.greg_days(*d) for d, _ in di.GREG_TO_JULIAN])], "oracle dates")
+    require(got.to_pylist() == [w for _, w in di.GREG_TO_JULIAN],
+            "Gregorian to Julian differs from the oracle")
+    got = card_and_cpu("datetime_rebase", R.rebaseJulianToGregorian, [days(
+        [d for d, _ in di.JULIAN_TO_GREG])], "Julian oracle dates")
+    require(got.to_pylist() == [w for _, w in di.JULIAN_TO_GREG],
+            "Julian to Gregorian differs from the oracle")
+    got = card_and_cpu("datetime_rebase", R.rebaseGregorianToJulian,
+                       [days(di.GAP_DAYS)], "gap dates")
+    require(got.to_pylist() == [di.GREGORIAN_START_DAYS] * len(di.GAP_DAYS),
+            "the gap dates do not go to the Gregorian start")
+    base = di.greg_days(1500, 1, 1)
+    got = card_and_cpu("datetime_rebase", R.rebaseGregorianToJulian, [us(
+        [base * di.DAY_US + t for t in di.TIMES_OF_DAY])], "times of day")
+    require(got.to_pylist() == [di.julian_days_from_ymd(1500, 1, 1) *
+                                di.DAY_US + t for t in di.TIMES_OF_DAY],
+            "micros lose their time of day")
+    for make, kind in ((di.rebase_days, dt.DATE32),
+                       (di.rebase_micros, dt.TIMESTAMP_US)):
+        v, ok = make(3, 20_000)
+        col = Column.from_numpy(v, kind, ok, device="cpu")
+        for fn in (R.rebaseGregorianToJulian, R.rebaseJulianToGregorian):
+            card_and_cpu("datetime_rebase", fn, [col], f"random {kind!r}")
+    # Z-order
+    Z = api.ZOrder
+    for name, np_type in di.ZORDER_TYPES:
+        kind = dt.DType(dt.Kind[name])
+        for ncols in (1, 4):
+            cols = [Column.from_numpy(v, kind, ok, device="cpu")
+                    for v, ok in di.zorder_columns(0, np_type, ncols, 300)]
+            got = card_and_cpu("zorder", lambda *c: Z.interleaveBits(
+                300, *c), cols, f"interleave {name} x {ncols}")
+            nbits = kind.itemsize() * 8
+            vals = [di.unsigned_bits(v, ok, nbits) for v, ok in
+                    di.zorder_columns(0, np_type, ncols, 300)]
+            require(got.to_pylist() == di.oracle_interleave(
+                list(zip(*vals)), nbits), f"interleave {name}: the oracle")
+    for bits, ncols in di.HILBERT_SHAPES:
+        raw = di.zorder_columns(bits, np.int32, ncols, 300)
+        cols = [Column.from_numpy(v, dt.INT32, ok, device="cpu")
+                for v, ok in raw]
+        got = card_and_cpu("zorder", lambda *c: Z.hilbertIndex(
+            bits, 300, *c), cols, f"hilbert {bits} x {ncols}")
+        vals = [di.unsigned_bits(v, ok, 32) for v, ok in raw]
+        require(got.to_pylist() == [di.oracle_hilbert(list(p), bits)
+                                    for p in zip(*vals)],
+                f"hilbert {bits} x {ncols}: the oracle")
+    xs, ys = (Column.from_pylist(v, dt.INT32, device="cuda")
+              for v in di.HILBERT_2D)
+    require(sorted(Z.hilbertIndex(1, 4, xs, ys).to_pylist()) == [0, 1, 2, 3],
+            "the 2-D curve's order")
+    empty = Column.from_numpy(np.zeros(0, np.int32), dt.INT32, device="cuda")
+    got = Z.interleaveBits(0, empty, empty)
+    require(got.length == 0 and got.offsets.tolist() == [0],
+            "interleave over zero rows")
+    # histograms
+    H = api.Histogram
+    values, valid, counts, offsets = [], [], [], [0]
+    for h in di.ORACLE_HISTOGRAMS:
+        for v, f in h:
+            values.append(0 if v is None else v)
+            valid.append(v is not None)
+            counts.append(f)
+        offsets.append(len(values))
+
+    def hist_col(values, valid, counts, offsets, kind=dt.INT32):
+        st = Column.make_struct(
+            value=Column.from_numpy(np.asarray(values), kind,
+                                    np.asarray(valid), device="cpu"),
+            freq=Column.from_numpy(np.asarray(counts, np.int64), dt.INT64,
+                                   device="cpu"))
+        return Column.make_list(torch.tensor(np.asarray(offsets, np.int32)),
+                                st)
+    col = hist_col(np.array(values, np.int32), valid, counts, offsets)
+    for pcts in di.PERCENTAGES:
+        for as_list in (True, False):
+            got = card_and_cpu("percentile", lambda c: H.percentileFromHistogram(
+                c, pcts, as_list), [col], f"oracle histograms {pcts}")
+            if as_list:
+                for g, h in zip(got.to_pylist(), di.ORACLE_HISTOGRAMS):
+                    want = di.percentile_oracle(h, pcts)
+                    require((g is None) == (want is None) and (
+                        g is None or np.allclose(g, want, rtol=1e-14,
+                                                 atol=1e-12)),
+                            f"percentile {g} against Spark's {want}")
+    v, c, pcts, want = di.NEGATIVE_COUNT
+    neg = hist_col(np.array(v), [True] * 4, c, [0, 4], dt.FLOAT64)
+    got = card_and_cpu("percentile", lambda c_: H.percentileFromHistogram(
+        c_, pcts, False), [neg], "negative count")
+    require(got.to_pylist() == want, f"negative count: {got.to_pylist()}")
+    for kind_name, np_type in (("FLOAT64", np.float64), ("INT64", np.int64),
+                               ("INT8", np.int8), ("BOOL", np.bool_)):
+        hv, hok, hc, ho = di.random_histograms(5, 3000, 80, null_p=0.05,
+                                               max_count=9,
+                                               value_kind=np_type)
+        col = hist_col(hv, hok, hc, ho, dt.DType(dt.Kind[kind_name]))
+        for as_list in (True, False):
+            card_and_cpu("percentile", lambda c_: H.percentileFromHistogram(
+                c_, DZH_PCTS, as_list), [col], f"random {kind_name}")
+        neg = hist_col(hv, hok, hc - 5, ho, dt.DType(dt.Kind[kind_name]))
+        card_and_cpu("percentile", lambda c_: H.percentileFromHistogram(
+            c_, DZH_PCTS, False), [neg], f"random {kind_name} negative")
+    for offs in ([0, 0, 0], [0]):
+        col = hist_col(np.zeros(0, np.int32), np.zeros(0, bool),
+                       np.zeros(0, np.int64), offs)
+        for as_list in (True, False):
+            card_and_cpu("percentile", lambda c_: H.percentileFromHistogram(
+                c_, [0.5], as_list), [col], f"empty batch {offs}")
+    fv, fok, ff, _ = di.random_histograms(6, 1000, 3, null_p=0.1,
+                                          max_count=3)
+    for as_lists in (True, False):
+        card_and_cpu("percentile", lambda a, b: H.createHistogramIfValid(
+            a, b, as_lists), [Column.from_numpy(fv, dt.FLOAT64, fok,
+                                                device="cpu"),
+                              Column.from_numpy(ff, dt.INT64, device="cpu")],
+            "createHistogramIfValid")
+    torch.cuda.synchronize()
+    return cases[0]
+
+
+def dzh_inputs(torch):
+    """The main path's data, made with numpy from seeds (host copies kept
+    for the CPU checks): 16,777,216 timestamps (us and ms) of 1900-2100,
+    days and micros of 0001-2100 with a fifth before the switch, 4 INT32,
+    2 INT64 and 3 FLOAT64 columns, each with 1% nulls, and 1,048,576
+    histograms of 1-64 FLOAT64 values (1% null) and counts 0-1,000."""
+    tests_on_path()
+    import torch_datetime_inputs as di
+    from spark_rapids_tpu_torch import dtypes as dt
+    from spark_rapids_tpu_torch.columnar import Column
+
+    def pair(v, ok, kind):
+        cpu = Column.from_numpy(v, kind, ok, device="cpu")
+        return cpu, cpu.to("cuda")
+    cols = {"us": pair(*di.timestamps(21, DZH_N), dt.TIMESTAMP_US),
+            "ms": pair(*di.timestamps(22, DZH_N, scale=1000),
+                       dt.TIMESTAMP_MS),
+            "days": pair(*di.rebase_days(23, DZH_N), dt.DATE32),
+            "micros": pair(*di.rebase_micros(24, DZH_N), dt.TIMESTAMP_US)}
+    for name, seed, np_type, kind, ncols in (
+            ("int32", 25, np.int32, dt.INT32, 4),
+            ("int64", 26, np.int64, dt.INT64, 2),
+            ("float64", 27, np.float64, dt.FLOAT64, 3)):
+        cols[name] = [pair(v, ok, kind) for v, ok in di.zorder_columns(
+            seed, np_type, ncols, DZH_N, null_p=0.01)]
+    hv, hok, hc, ho = di.random_histograms(28, DZH_HISTS, DZH_MAX_LEN,
+                                           null_p=0.01, max_count=1000,
+                                           min_len=1)
+    cols["hist_values"] = pair(hv, hok, dt.FLOAT64)
+    cols["hist_freqs"] = pair(hc, None, dt.INT64)
+    cols["hist_rows"] = torch.from_numpy(ho.astype(np.int64))
+    torch.cuda.synchronize()
+    return cols
+
+
+def dzh_call(torch, fn, want, what):
+    """One main-path call, every counter zeroed just before and read just
+    after: `want` the launches by counter and op; nothing else counted."""
+    torch.cuda.synchronize()
+    reset_kernel_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    for key, ops in want.items():
+        got = {op: k for op, k in counters[key].items() if k}
+        require(got == ops, f"{what}: launches {got}, want {ops}")
+    require(counted(counters) == sum(sum(v.values()) for v in want.values()),
+            f"{what}: counters {counters}: another kernel or a plain run")
+    return out
+
+
+def dzh_main_path(torch, cols):
+    """The main path once through the api -> (outputs on the card, by
+    name; launches by kernel)."""
+    from spark_rapids_tpu_torch import api
+    from spark_rapids_tpu_torch.columnar import Column
+    T, R, Z, H = (api.GpuTimeZoneDB, api.DateTimeRebase, api.ZOrder,
+                  api.Histogram)
+    outs, launches = {}, {k: 0 for k in DZH_SOURCES}
+    calls = []
+    for zone in DZH_ZONES:
+        calls += [(f"to_utc {zone}", "timezones", {"to_utc": 1},
+                   lambda z=zone: T.fromTimestampToUtcTimestamp(
+                       cols["us"][1], z)),
+                  (f"from_utc {zone}", "timezones", {"from_utc": 1},
+                   lambda z=zone: T.fromUtcTimestampToTimestamp(
+                       cols["us"][1], z))]
+    calls += [("to_utc Asia/Shanghai ms", "timezones", {"to_utc": 1},
+               lambda: T.fromTimestampToUtcTimestamp(cols["ms"][1],
+                                                     "Asia/Shanghai")),
+              ("from_utc Asia/Shanghai ms", "timezones", {"from_utc": 1},
+               lambda: T.fromUtcTimestampToTimestamp(cols["ms"][1],
+                                                     "Asia/Shanghai"))]
+    for name in ("days", "micros"):
+        calls += [(f"to_julian {name}", "datetime_rebase", {"to_julian": 1},
+                   lambda n=name: R.rebaseGregorianToJulian(cols[n][1])),
+                  (f"to_gregorian {name}", "datetime_rebase",
+                   {"to_gregorian": 1},
+                   lambda n=name: R.rebaseJulianToGregorian(cols[n][1]))]
+    for name in ("int32", "int64", "float64"):
+        calls.append((f"interleave {name}", "zorder", {"interleave": 1},
+                      lambda n=name: Z.interleaveBits(
+                          DZH_N, *[c for _, c in cols[n]])))
+    for bits, ncols in ((16, 4), (32, 2)):
+        calls.append((f"hilbert {bits} x {ncols}", "zorder", {"hilbert": 1},
+                      lambda b=bits, k=ncols: Z.hilbertIndex(
+                          b, DZH_N, *[c for _, c in cols["int32"][:k]])))
+    for what, kernel, ops, fn in calls:
+        outs[what] = dzh_call(torch, fn, {kernel: ops}, what)
+        launches[kernel] += 1
+    created = dzh_call(torch, lambda: H.createHistogramIfValid(
+        cols["hist_values"][1], cols["hist_freqs"][1], True), {},
+        "createHistogramIfValid")
+    outs["createHistogramIfValid"] = created
+    # the merged histograms: each histogram's rows of the created lists
+    offs = created.offsets[cols["hist_rows"].to(created.offsets.device)]
+    hists = Column.make_list(offs, created.children[0])
+    for as_list in (True, False):
+        what = f"percentile {'lists' if as_list else 'flat'}"
+        outs[what] = dzh_call(torch, lambda a=as_list: H.percentileFromHistogram(
+            hists, DZH_PCTS, a), {"percentile": {"percentile": 1}}, what)
+        launches["histogram"] += 1
+    outs["hists"] = hists
+    return outs, launches
+
+
+def dzh_cpu(torch, outs):
+    """The outputs' host copies (taken on the main thread, before the CPU
+    checks start, so that no copy lands in a timed profile)."""
+    return {k: v.to("cpu") for k, v in outs.items()}
+
+
+def dzh_slices(n, step=DZH_SLICE):
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def dzh_rows(col, a, b):
+    """Rows [a, b) of a fixed-width column."""
+    from spark_rapids_tpu_torch.columnar import Column
+    v = None if col.validity is None else col.validity[a:b]
+    return Column(col.dtype, b - a, col.data[a:b], v)
+
+
+def dzh_cpu_checks(torch, cols, got):
+    """Every main-path output against the plain version on the CPU copies
+    of its inputs, in slices (every slice checked) -> (Checks, seconds).
+    Runs on a worker thread beside the timing."""
+    from spark_rapids_tpu_torch.columnar import Column
+    from spark_rapids_tpu_torch.ops import datetime_rebase as drm
+    from spark_rapids_tpu_torch.ops import histogram as hm
+    from spark_rapids_tpu_torch.ops import timezones as tzm
+    from spark_rapids_tpu_torch.ops import zorder as zm
+    chk = Checks()
+    t0 = time.perf_counter()
+    for what, out in got.items():
+        head = what.split(" ")[0]
+        if head in ("to_utc", "from_utc"):
+            zone = what.split(" ")[1]
+            src = cols["ms" if what.endswith(" ms") else "us"][0]
+            fn = (tzm.from_timestamp_to_utc_timestamp if head == "to_utc"
+                  else tzm.from_utc_timestamp_to_timestamp)
+            kernel = "timezones"
+        elif head in ("to_julian", "to_gregorian"):
+            src = cols[what.split(" ")[1]][0]
+            fn = (drm.rebase_gregorian_to_julian if head == "to_julian"
+                  else drm.rebase_julian_to_gregorian)
+            zone, kernel = None, "datetime_rebase"
+        else:
+            continue
+        for a, b in dzh_slices(DZH_N):
+            part = dzh_rows(src, a, b)
+            want = fn(part, zone) if zone else fn(part)
+            dzh_same(torch, chk, kernel, dzh_rows(out, a, b), want,
+                     f"{what} rows {a}-{b}")
+    for name in ("int32", "int64", "float64"):
+        out = got[f"interleave {name}"]
+        size = cols[name][0][0].dtype.itemsize() * len(cols[name])
+        chk.equal("zorder", out.offsets, torch.arange(
+            DZH_N + 1, dtype=torch.int32) * size, f"interleave {name} offsets")
+        data = out.children[0].data.reshape(DZH_N, size)
+        for a, b in dzh_slices(DZH_N):
+            want = zm.interleave_bits([dzh_rows(c, a, b)
+                                       for c, _ in cols[name]])
+            chk.equal("zorder", data[a:b].reshape(-1),
+                      want.children[0].data, f"interleave {name} rows {a}-{b}")
+    for bits, ncols in ((16, 4), (32, 2)):
+        out = got[f"hilbert {bits} x {ncols}"]
+        for a, b in dzh_slices(DZH_N):
+            want = zm.hilbert_index(bits, [dzh_rows(c, a, b)
+                                           for c, _ in cols["int32"][:ncols]])
+            chk.equal("zorder", out.data[a:b], want.data,
+                      f"hilbert {bits} x {ncols} rows {a}-{b}")
+    created = got["createHistogramIfValid"]
+    want = hm.create_histogram_if_valid(cols["hist_values"][0],
+                                        cols["hist_freqs"][0], True)
+    dzh_same(torch, chk, "percentile", created, want,
+             "createHistogramIfValid")
+    hists = got["hists"]
+    offs = hists.offsets.to(torch.int64)
+    values, freqs = hists.children[0].children
+    n_pct = len(DZH_PCTS)
+    flat, lists = got["percentile flat"], got["percentile lists"]
+    lo = lists.offsets.to(torch.int64)
+    all_valid = True
+    for a, b in dzh_slices(DZH_HISTS, DZH_HIST_SLICE):
+        e0, e1 = int(offs[a]), int(offs[b])
+        part = Column.make_list(
+            (offs[a:b + 1] - e0).to(torch.int32), Column.make_struct(
+                value=dzh_rows(values, e0, e1), freq=dzh_rows(freqs, e0, e1)))
+        want = hm.percentile_from_histogram(part, DZH_PCTS, False)
+        valid = want.null_mask[::n_pct]
+        all_valid &= bool(valid.all())
+        what = f"percentile histograms {a}-{b}"
+        chk.equal("percentile", dzh_bits(torch, flat.data[a * n_pct:b * n_pct]),
+                  dzh_bits(torch, want.data), f"{what} flat")
+        chk.equal("percentile", flat.null_mask[a * n_pct:b * n_pct],
+                  want.null_mask, f"{what} flat validity")
+        chk.equal("percentile", (lo[a + 1:b + 1] - lo[a:b]).to(torch.int32),
+                  torch.where(valid, n_pct, 0).to(torch.int32),
+                  f"{what} list sizes")
+        chk.equal("percentile", lists.null_mask[a:b], valid,
+                  f"{what} list validity")
+        chk.equal("percentile", dzh_bits(torch, lists.children[0].data[
+            int(lo[a]):int(lo[b])]), dzh_bits(torch, want.data.reshape(
+                -1, n_pct)[valid].reshape(-1)), f"{what} list values")
+    require((flat.validity is None) == all_valid and
+            (lists.validity is None) == all_valid,
+            "a percentile's validity is there where every histogram has a "
+            "value, or missing where one has none")
+    return chk, time.perf_counter() - t0
+
+
+def dzh_bounds(torch, cols, outs):
+    """(bytes, operations) of each timed form, from this run's data."""
+    from spark_rapids_tpu_torch.ops import timezones as tzm
+    n = DZH_N
+    k = len(tzm.TimeZoneDB.instance().tables_on(
+        "Asia/Shanghai", torch.device("cpu"))[2])
+    steps = int(np.ceil(np.log2(k + 1)))
+    out = {"from_utc Asia/Shanghai": (16 * n + 12 * k,
+                                      n * (TZ_ROW_OPS + TZ_STEP_OPS * steps))}
+    out["to_utc Asia/Shanghai"] = out["from_utc Asia/Shanghai"]
+    for name, width, switch in (("days", 4, -141427),
+                                ("micros", 8, -12219292800000000)):
+        early = int((cols[name][1].data < switch).sum())
+        out[f"to_julian {name}"] = (2 * width * n, n * REBASE_ROW_OPS +
+                                    early * REBASE_EARLY_OPS)
+    for name in ("int32", "float64"):
+        width = cols[name][0][0].dtype.itemsize()
+        ncols = len(cols[name])
+        nulls = sum(n for c, _ in cols[name] if c.validity is not None)
+        out[f"interleave {name}"] = (2 * n * ncols * width + nulls +
+                                     4 * (n + 1), 8 * n * ncols * width *
+                                     INTERLEAVE_BIT_OPS)
+    for bits, ncols in ((16, 4), (32, 2)):
+        nulls = sum(n for c, _ in cols["int32"][:ncols]
+                    if c.validity is not None)
+        out[f"hilbert {bits} x {ncols}"] = (4 * n * ncols + nulls + 8 * n,
+                                            n * bits * ncols *
+                                            HILBERT_BIT_OPS)
+    hists = outs["hists"]
+    m = hists.children[0].length
+    lists = outs["percentile lists"]
+    n_out = lists.children[0].length
+    out["percentile lists"] = (m * (8 + 1 + 8) + 4 * (DZH_HISTS + 1) +
+                               4 * (DZH_HISTS + 1) + 8 * n_out +
+                               (DZH_HISTS if lists.validity is not None
+                                else 0), m * PCT_ELEM_OPS)
+    return out
+
+
+def dzh_timing(torch, module, prefix, fn, plain, nbytes, ops):
+    """Device ms of the kernels named `prefix...` (profiler records, L2
+    flushed), everything the call ran by name, one call's ms, the plain
+    version's ms on the card's tensors and the bound."""
+    module.reset_counters()
+    fn()
+    torch.cuda.synchronize()
+    per_call = sum(module.LAUNCHES.values())
+    whole_ms, by_name = device_by_name(torch, fn, DZH_ITERS)
+    ms = sum(v for k, v in by_name.items() if k.startswith(prefix))
+    require(ms > 0, f"no record of a {prefix} kernel: {by_name}")
+    cms = call_ms(torch, fn, DZH_ITERS)
+    pms = once_ms(torch, plain)
+    torch.cuda.empty_cache()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_INT_OPS_PER_S * 1e3
+    return {"launches_per_call": per_call, "ms": ms, "call_ms": cms,
+            "whole_ms": whole_ms, "by_name": by_name, "plain_ms": pms,
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": None}
+
+
+def dzh_timings(torch, cols, outs):
+    from spark_rapids_tpu_torch.ops import datetime_rebase as drm
+    from spark_rapids_tpu_torch.ops import (datetime_rebase_cuda,
+                                            histogram_cuda, timezones_cuda,
+                                            zorder_cuda)
+    from spark_rapids_tpu_torch.ops import histogram as hm
+    from spark_rapids_tpu_torch.ops import timezones as tzm
+    from spark_rapids_tpu_torch.ops import zorder as zm
+    bounds = dzh_bounds(torch, cols, outs)
+    timing = {k: {} for k in DZH_SOURCES}
+    us = cols["us"][1]
+    utc, loc, offs = tzm.TimeZoneDB.instance().tables_on("Asia/Shanghai",
+                                                         us.device)
+    for form, fn, keys, to_utc in (
+            ("from_utc Asia/Shanghai", tzm.from_utc_timestamp_to_timestamp,
+             utc, False),
+            ("to_utc Asia/Shanghai", tzm.from_timestamp_to_utc_timestamp,
+             loc, True)):
+        timing["timezones"][form] = dzh_timing(
+            torch, timezones_cuda, "tz_convert_kernel",
+            lambda f=fn: f(us, "Asia/Shanghai"),
+            lambda k=keys, t=to_utc: tzm.convert_plain(us.data, k, offs, t,
+                                                       1_000_000),
+            *bounds[form])
+    for name in ("days", "micros"):
+        col = cols[name][1]
+        timing["datetime_rebase"][f"to_julian {name}"] = dzh_timing(
+            torch, datetime_rebase_cuda, "dr_rebase_kernel",
+            lambda c=col: drm.rebase_gregorian_to_julian(c),
+            lambda c=col: drm.rebase_plain(c, True),
+            *bounds[f"to_julian {name}"])
+    for name in ("int32", "float64"):
+        cs = [c for _, c in cols[name]]
+        timing["zorder"][f"interleave {name}"] = dzh_timing(
+            torch, zorder_cuda, "zo_interleave_kernel",
+            lambda c=cs: zm.interleave_bits(c),
+            lambda c=cs: zm.interleave_plain(c), *bounds[f"interleave {name}"])
+    for bits, ncols in ((16, 4), (32, 2)):
+        cs = [c for _, c in cols["int32"][:ncols]]
+        timing["zorder"][f"hilbert {bits} x {ncols}"] = dzh_timing(
+            torch, zorder_cuda, "zo_hilbert_kernel",
+            lambda b=bits, c=cs: zm.hilbert_index(b, c),
+            lambda b=bits, c=cs: zm.hilbert_plain(b, c),
+            *bounds[f"hilbert {bits} x {ncols}"])
+    hists = outs["hists"]
+    values, freqs = hists.children[0].children
+    pct = torch.tensor(DZH_PCTS, dtype=torch.float64, device=values.device)
+    timing["histogram"]["percentile lists"] = dzh_timing(
+        torch, histogram_cuda, "hg_percentile_kernel",
+        lambda: hm.percentile_from_histogram(hists, DZH_PCTS, True),
+        lambda: hm.percentile_plain(values.data, values.null_mask,
+                                    freqs.data, hists.offsets, pct),
+        *bounds["percentile lists"])
+    return timing
+
+
+def dzh_build():
+    """The four sources' nvcc seconds: build_phase's where it built them,
+    else built here."""
+    from spark_rapids_tpu_torch.ops import cuda_build
+    secs = {k: NVCC_SECONDS[k] for k in DZH_SOURCES if k in NVCC_SECONDS}
+    secs.update(cuda_build.build(tuple(DZH_SOURCES)))
+    return secs
+
+
+def dzh_phase(torch, chk):
+    """Phase 17: the four kernels built, the tests' corpora, the main path
+    once through the api (counted), its outputs against the plain version
+    on the CPU copies (on a worker thread beside the timing), and each
+    kernel timed."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    out = {"nvcc_seconds": dzh_build()}
+    log("  nvcc: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                               out["nvcc_seconds"].items()) +
+        (" (built before this phase)" if not out["nvcc_seconds"] else ""))
+    zi = "/usr/share/zoneinfo/tzdata.zi"
+    out["tzdata"] = (open(zi).readline().strip() if os.path.exists(zi)
+                     else "no tzdata.zi")
+    log(f"  zoneinfo: {out['tzdata']}")
+    t1 = time.perf_counter()
+    out["corpus_cases"] = dzh_corpus_checks(torch, chk)
+    log(f"  corpora: {out['corpus_cases']} cases in "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    cols = dzh_inputs(torch)
+    log(f"  inputs made in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    outs, launches = dzh_main_path(torch, cols)
+    out["launches"] = launches
+    log(f"  main path: launches {launches}, no plain run, in "
+        f"{time.perf_counter() - t1:.1f} s")
+    # the rebase's round trip on the card: every value of 0001-2100 off
+    # the 1582-10-05..14 gap comes back
+    from spark_rapids_tpu_torch import api
+    for name in ("days", "micros"):
+        x = cols[name][1].data
+        back = api.DateTimeRebase.rebaseJulianToGregorian(
+            outs[f"to_julian {name}"]).data
+        day = x if name == "days" else torch.div(x, 86_400_000_000,
+                                                 rounding_mode="floor")
+        keep = ((day < -141427 - 10) | (day >= -141427)) & \
+            (day >= -719162) & (day <= 47846)
+        require(bool((back[keep] == x[keep]).all()),
+                f"the {name} round trip changed a value")
+    got = dzh_cpu(torch, outs)
+    out["hist_elements"] = outs["hists"].children[0].length
+    del outs["createHistogramIfValid"]
+    for k in [k for k in outs if k.split(" ")[0] in (
+            "to_utc", "from_utc", "to_julian", "to_gregorian")]:
+        del outs[k]
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        checking = pool.submit(dzh_cpu_checks, torch, cols, got)
+        t1 = time.perf_counter()
+        out["timing"] = dzh_timings(torch, cols, outs)
+        log(f"  timed in {time.perf_counter() - t1:.1f} s")
+        cpu_chk, cpu_s = checking.result()
+    chk.n += cpu_chk.n
+    for k, v in cpu_chk.max_err.items():
+        chk.max_err[k] = max(chk.max_err[k], v)
+    out["cpu_check_seconds"] = cpu_s
+    log(f"  every output equal to the plain version on the CPU copies "
+        f"({cpu_chk.n} slices and buffers, {cpu_s:.1f} s on a worker)")
+    for source, forms in out["timing"].items():
+        for form, t in forms.items():
+            log(f"  {source} {form}: device {t['ms']:.6f} ms "
+                f"({t['launches_per_call']} launches), one call "
+                f"{t['call_ms']:.6f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.6f} ms (bytes {t['bytes_ms']:.6f}, "
+                f"operations {t['ops_ms']:.6f}); the call's device work "
+                f"{t['whole_ms']:.6f} ms: " + ", ".join(
+                    f"{k} {v:.6f}" for k, v in t["by_name"].items()))
+    del cols, outs, got
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
+def dzh_kernels(dzh, chk):
+    """The four kernels' entries of the `kernels` line."""
+    names = {"timezones": "timezones", "datetime_rebase": "datetime_rebase",
+             "zorder": "zorder", "histogram": "percentile"}
+    out = []
+    for source, forms in dzh["timing"].items():
+        out.append({"name": names[source], "route": "cuda",
+                    "source": DZH_SOURCES[source],
+                    "replaces": DZH_REPLACES[source],
+                    "launches": dzh["launches"][source],
+                    "exact": chk.max_err[names[source]] == 0,
+                    "max_abs_err": chk.max_err[names[source]],
+                    "library": "none: no PyTorch call computes it",
+                    **summed(forms, tuple(forms), library_ms=None)})
+    return out
+
+
 def script_ab(trees, log_dir, gap_s=5.0):
     """`python3 chip_smoke.py` from each checkout in `trees`, one after
     another, each line of its merged output stamped with the seconds since
@@ -9066,6 +9814,11 @@ def main(argv=None):
                     help="only run phase 16: NDS q5 and q72 from Parquet "
                          "files through the streaming scan, row-group "
                          "pruning, prefetch depths and the fixtures")
+    ap.add_argument("--datetime-zorder-histogram", action="store_true",
+                    help="only run phase 17: GpuTimeZoneDB, DateTimeRebase, "
+                         "ZOrder and Histogram on their kernels, against "
+                         "their plain versions on the CPU and the oracles, "
+                         "and the kernels timed")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -9142,6 +9895,13 @@ def _run(args):
         print(json.dumps({"card": smi, "row_hash": rh_timing,
                           "headline": headline, "checks": chk.n}),
               flush=True)
+        return 0
+    if args.datetime_zorder_histogram:
+        chk = Checks()
+        dzh = dzh_phase(torch, chk)
+        print(json.dumps({"card": smi, "kernels": dzh_kernels(dzh, chk),
+                          "datetime_zorder_histogram": dzh,
+                          "checks": chk.n}, default=str), flush=True)
         return 0
     dadd = build_phase()
     if args.feedback:
@@ -9245,6 +10005,8 @@ def _run(args):
     log(f"phase 14: {ujb['seconds']:.1f} s")
     runtime = runtime_phase(torch, chk, smi)
     parquet = parquet_phase(torch, chk, smi)
+    log("phase 17: GpuTimeZoneDB, DateTimeRebase, ZOrder and Histogram")
+    dzh = dzh_phase(torch, chk)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -9518,6 +10280,9 @@ def _run(args):
     # parse_uri, from_json and the bloom filter (phase 14): launches on the
     # main path's run, timed at the benches' sizes
     kernels.extend(ujb_kernels(ujb, chk))
+    # the time-zone, rebase, Z-order and percentile kernels (phase 17):
+    # launches on the main path's run, timed at its sizes
+    kernels.extend(dzh_kernels(dzh, chk))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -9549,7 +10314,7 @@ def _run(args):
                        "row_conversion": rconv, "keys": keys,
                        "feedback": feedback, "casts": casts,
                        "uri_json_bloom": ujb, "runtime": runtime,
-                       "parquet": parquet},
+                       "parquet": parquet, "datetime_zorder_histogram": dzh},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,23 @@
 """Java-facing facade of the PyTorch port: the classes of spark-rapids-jni's
 Java API, mapped onto the port's ops.
 
-Counterpart of `spark_rapids_tpu/api.py`. `CastStrings`, `DecimalUtils`,
-`Hash` (every kind Spark hashes: fixed-width, strings, DECIMAL128, structs
-and, for murmur3, lists), `RowConversion`, `BloomFilter`, `MapUtils` and
-`ParseURI` are ported, and so is `RmmSpark` (over
+Counterpart of `spark_rapids_tpu/api.py`: all twelve of its classes.
+`CastStrings`, `DecimalUtils`, `Hash` (every kind Spark hashes:
+fixed-width, strings, DECIMAL128, structs and, for murmur3, lists),
+`RowConversion`, `BloomFilter`, `MapUtils`, `ParseURI`, `GpuTimeZoneDB`,
+`DateTimeRebase`, `Histogram` and `ZOrder`, and `RmmSpark` (over
 `runtime.ResourceArbiter`, with the reference's OOM exceptions as
-aliases), and `ParquetFooter` is re-exported from `io.parquet_footer`, as
-the reference's facade does; `GpuTimeZoneDB`, `DateTimeRebase`, `Histogram` and `ZOrder`
-wait for their modules (ROADMAP queue A item 12).
+aliases); `ParquetFooter` is re-exported from `io.parquet_footer`, as the
+reference's facade does.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-from . import ops
+import torch
+
+from . import device as _device
+from . import dtypes, ops
 from .columnar import Column, Table
 from .dtypes import DType
 from .io.parquet_footer import ParquetFooter  # noqa: F401  (re-export)
@@ -197,6 +200,91 @@ class ParseURI:
     def parseURIQueryWithColumn(uriColumn: Column,
                                 queryColumn: Column) -> Column:
         return ops.parse_uri_to_query_column(uriColumn, queryColumn)
+
+
+class GpuTimeZoneDB:
+    """GpuTimeZoneDB.java:88-251."""
+
+    @staticmethod
+    def cacheDatabaseAsync():
+        return ops.TimeZoneDB.cache_database_async()
+
+    @staticmethod
+    def cacheDatabase():
+        return ops.TimeZoneDB.cache_database()
+
+    @staticmethod
+    def shutdown():
+        ops.TimeZoneDB.shutdown()
+
+    @staticmethod
+    def fromTimestampToUtcTimestamp(input: Column,
+                                    currentTimeZone: str) -> Column:
+        return ops.from_timestamp_to_utc_timestamp(input, currentTimeZone)
+
+    @staticmethod
+    def fromUtcTimestampToTimestamp(input: Column,
+                                    desiredTimeZone: str) -> Column:
+        return ops.from_utc_timestamp_to_timestamp(input, desiredTimeZone)
+
+    @staticmethod
+    def isSupportedTimeZone(zoneId: str) -> bool:
+        return ops.is_supported_time_zone(zoneId)
+
+
+class DateTimeRebase:
+    """DateTimeRebase.java:38-62."""
+
+    @staticmethod
+    def rebaseGregorianToJulian(input: Column) -> Column:
+        return ops.rebase_gregorian_to_julian(input)
+
+    @staticmethod
+    def rebaseJulianToGregorian(input: Column) -> Column:
+        return ops.rebase_julian_to_gregorian(input)
+
+
+class Histogram:
+    """Histogram.java:47-74."""
+
+    @staticmethod
+    def createHistogramIfValid(values: Column, frequencies: Column,
+                               outputAsLists: bool) -> Column:
+        return ops.create_histogram_if_valid(values, frequencies,
+                                             output_as_lists=outputAsLists)
+
+    @staticmethod
+    def percentileFromHistogram(input: Column, percentages: Sequence[float],
+                                outputAsLists: bool) -> Column:
+        return ops.percentile_from_histogram(input, list(percentages),
+                                             output_as_list=outputAsLists)
+
+
+class ZOrder:
+    """ZOrder.java:41-75. With no input column there is no column to take
+    a device from: `device` names it (None: the card)."""
+
+    @staticmethod
+    def interleaveBits(numRows: int, *inputColumns: Column,
+                       device=None) -> Column:
+        if not inputColumns:
+            # the 0-column corner case: numRows empty binaries
+            # (ZOrder.java:41-47)
+            dev = _device.resolve(device)
+            return Column.make_list(
+                torch.zeros(numRows + 1, dtype=torch.int32, device=dev),
+                Column(dtypes.UINT8, 0,
+                       torch.zeros(0, dtype=torch.uint8, device=dev)))
+        return ops.interleave_bits(list(inputColumns))
+
+    @staticmethod
+    def hilbertIndex(numBits: int, numRows: int, *inputColumns: Column,
+                     device=None) -> Column:
+        if not inputColumns:
+            # the 0-column corner case: numRows zeros (ZOrder.java:70-75)
+            return Column(dtypes.INT64, numRows, torch.zeros(
+                numRows, dtype=torch.int64, device=_device.resolve(device)))
+        return ops.hilbert_index(numBits, list(inputColumns))
 
 
 class RmmSpark:

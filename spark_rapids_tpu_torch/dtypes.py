@@ -145,11 +145,14 @@ UINT8 = DType(Kind.UINT8)
 INT16 = DType(Kind.INT16)
 INT32 = DType(Kind.INT32)
 INT64 = DType(Kind.INT64)
+UINT64 = DType(Kind.UINT64)
 FLOAT32 = DType(Kind.FLOAT32)
 FLOAT64 = DType(Kind.FLOAT64)
 STRING = DType(Kind.STRING)
 DATE32 = DType(Kind.DATE32)
 TIMESTAMP_US = DType(Kind.TIMESTAMP_US)
+TIMESTAMP_S = DType(Kind.TIMESTAMP_S)
+TIMESTAMP_MS = DType(Kind.TIMESTAMP_MS)
 
 
 def decimal(precision: int, scale: int) -> DType:

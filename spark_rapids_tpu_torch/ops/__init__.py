@@ -16,9 +16,16 @@ columns and their plain versions on CPU ones; so do `parse_uri_to_*`
 (the URI parse kernel, `parse_uri_cuda`), `from_json` (the JSON kernels,
 `map_utils_cuda`) and the bloom filter's `put` and `probe`
 (`bloom_filter_cuda`; `BloomFilter` holds Spark's packed longs, and merge,
-serialize and deserialize are torch ops on either device). The hash-join
-kernels (`join_cuda`) are imported lazily, by the kernel registry, at the
-first `hash_join` dispatch.
+serialize and deserialize are torch ops on either device); so do the
+time-zone conversions (`from_timestamp_to_utc_timestamp`,
+`from_utc_timestamp_to_timestamp` over `TimeZoneDB`'s transition tables;
+`timezones_cuda`), the calendar rebase (`rebase_gregorian_to_julian`,
+`rebase_julian_to_gregorian`; `datetime_rebase_cuda`), the Z-order
+helpers (`interleave_bits`, `hilbert_index`; `zorder_cuda`) and
+`percentile_from_histogram` (`histogram_cuda`, after three stable sorts);
+`create_histogram_if_valid` moves data only and is torch ops on either
+device. The hash-join kernels (`join_cuda`) are imported lazily, by the
+kernel registry, at the first `hash_join` dispatch.
 """
 from .aggregate import groupby_aggregate
 from .bloom_filter import (BloomFilter, bloom_filter_create,
@@ -36,8 +43,11 @@ from .decimal_utils import (add_decimal128, sub_decimal128,
                             multiply_decimal128, divide_decimal128,
                             remainder_decimal128)
 from .gather import apply_boolean_mask, take, take_table
+from .datetime_rebase import (rebase_gregorian_to_julian,
+                              rebase_julian_to_gregorian)
 from .hash import DEFAULT_XXHASH64_SEED
 from .hash_cuda import fused_row_hash, murmur_hash3_32, xxhash64
+from .histogram import create_histogram_if_valid, percentile_from_histogram
 from .map_utils import from_json
 from .parse_uri import (parse_uri_to_host, parse_uri_to_protocol,
                         parse_uri_to_query, parse_uri_to_query_column,
@@ -50,6 +60,10 @@ from .row_conversion import (convert_from_rows,
                              convert_to_rows,
                              convert_to_rows_fixed_width_optimized)
 from .sort import sort_table, sorted_order
+from .timezones import (TimeZoneDB, from_timestamp_to_utc_timestamp,
+                        from_utc_timestamp_to_timestamp,
+                        is_supported_time_zone)
+from .zorder import hilbert_index, interleave_bits
 
 __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "DEFAULT_XXHASH64_SEED", "fused_row_hash", "murmur_hash3_32",
@@ -69,7 +83,11 @@ __all__ = ["groupby_aggregate", "apply_boolean_mask", "take", "take_table",
            "bloom_filter_serialize", "bloom_filter_deserialize",
            "parse_uri_to_protocol", "parse_uri_to_host", "parse_uri_to_query",
            "parse_uri_to_query_literal", "parse_uri_to_query_column",
-           "from_json"]
+           "from_json", "TimeZoneDB", "from_timestamp_to_utc_timestamp",
+           "from_utc_timestamp_to_timestamp", "is_supported_time_zone",
+           "rebase_gregorian_to_julian", "rebase_julian_to_gregorian",
+           "interleave_bits", "hilbert_index", "create_histogram_if_valid",
+           "percentile_from_histogram"]
 
 # Admission (runtime/admission.py) wraps the public ops with the JAX
 # package's working-set factors over their operand bytes (spark_rapids_tpu/
@@ -88,12 +106,17 @@ _ADMITTED_FACTORS = {
     "add_decimal128": 2.0, "sub_decimal128": 2.0, "multiply_decimal128": 3.0,
     "divide_decimal128": 3.0, "remainder_decimal128": 3.0,
     "decimal_to_non_ansi_string": 3.0,
+    "interleave_bits": 2.0, "hilbert_index": 2.0,
+    "rebase_gregorian_to_julian": 2.0, "rebase_julian_to_gregorian": 2.0,
+    "from_timestamp_to_utc_timestamp": 2.0,
+    "from_utc_timestamp_to_timestamp": 2.0,
     "float_to_string": 4.0, "format_float": 4.0,
     "convert_to_rows": 3.0, "convert_to_rows_fixed_width_optimized": 3.0,
     "convert_from_rows": 3.0, "convert_from_rows_fixed_width_optimized": 3.0,
     "parse_uri_to_protocol": 2.0, "parse_uri_to_host": 2.0,
     "parse_uri_to_query": 2.0, "parse_uri_to_query_literal": 2.0,
     "parse_uri_to_query_column": 2.0,
+    "create_histogram_if_valid": 2.0, "percentile_from_histogram": 2.0,
     "from_json": 3.0,
     "take": 2.0, "take_table": 2.0, "apply_boolean_mask": 2.0,
     "sorted_order": 2.0, "sort_table": 3.0,

@@ -22,16 +22,19 @@ from typing import Dict, Sequence
 SOURCES = ("hash_join", "row_hash", "partition_hist", "fused_select",
            "topk", "groupby", "decimal128", "row_conversion", "cast_string",
            "cast_decimal", "cast_string_to_float", "number_to_string",
-           "parse_uri", "map_utils", "bloom_filter")
+           "parse_uri", "map_utils", "bloom_filter", "datetime_rebase",
+           "timezones", "zorder", "histogram")
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per source: the float casts keep every multiply and add rounded on its
-# own, as the CPU computes them (no fused multiply-add)
+# per source: the float casts and the percentile's interpolation keep
+# every multiply and add rounded on its own, as the CPU computes them (no
+# fused multiply-add)
 EXTRA_FLAGS = {"cast_string_to_float": ("-fmad=false",),
-               "number_to_string": ("-fmad=false",)}
+               "number_to_string": ("-fmad=false",),
+               "histogram": ("-fmad=false",)}
 
 
 def flags(name: str) -> tuple:

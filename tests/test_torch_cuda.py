@@ -2084,3 +2084,145 @@ def test_streaming_scan_on_the_card_equals_the_cpu(tmp_path, monkeypatch,
         assert got[name].device.type == "cuda"
         assert torch.equal(got[name].data.cpu(), want[name].data)
         assert torch.equal(got[name].null_mask.cpu(), want[name].null_mask)
+
+
+def _same_nested(got, want):
+    """Two port columns of any depth equal in every buffer (`_same_column`
+    on each level; a list's or struct's children too)."""
+    if got.data is not None:
+        _same_column(got, want)
+    else:
+        assert got.dtype == want.dtype and got.length == want.length
+        assert (got.validity is None) == (want.validity is None)
+        if got.validity is not None:
+            assert torch.equal(got.validity.cpu(), want.validity.cpu())
+        if got.offsets is not None:
+            assert torch.equal(got.offsets.cpu(), want.offsets.cpu())
+    for g, w in zip(got.children, want.children):
+        _same_nested(g, w)
+
+
+@pytest.mark.parametrize("unit", ["TIMESTAMP_S", "TIMESTAMP_MS",
+                                  "TIMESTAMP_US"])
+def test_timezone_kernel_equals_plain_version(unit):
+    """`tz_convert` both ways in four zones against the plain version on
+    the same tensors and the CPU run; one launch a call, no plain run."""
+    _need_card()
+    from torch_datetime_inputs import timestamps
+    from spark_rapids_tpu_torch.ops import timezones, timezones_cuda
+    scale = timezones.SCALES[tdt.Kind[unit]]
+    v, valid = timestamps(1, 100_003, scale=scale)
+    col = Column.from_numpy(v, tdt.DType(tdt.Kind[unit]), valid,
+                            device="cuda")
+    for zone in ("Asia/Shanghai", "Pacific/Kiritimati", "Asia/Kolkata",
+                 "+05:30"):
+        utc, loc, offs = timezones.TimeZoneDB.instance().tables_on(
+            zone, col.device)
+        for to_utc, fn in ((True, timezones.from_timestamp_to_utc_timestamp),
+                           (False,
+                            timezones.from_utc_timestamp_to_timestamp)):
+            timezones_cuda.reset_counters()
+            got = fn(col, zone)
+            torch.cuda.synchronize()
+            assert sum(timezones_cuda.LAUNCHES.values()) == 1
+            assert sum(timezones_cuda.PLAIN_CALLS.values()) == 0
+            assert torch.equal(got.data, timezones.convert_plain(
+                col.data, loc if to_utc else utc, offs, to_utc, scale))
+            _same_column(got, fn(col.to("cpu"), zone))
+
+
+def test_rebase_kernel_equals_plain_version():
+    """`dr_rebase`'s four forms against the plain version on the same
+    tensors and the CPU run; one launch a call, no plain run."""
+    _need_card()
+    from torch_datetime_inputs import rebase_days, rebase_micros
+    from spark_rapids_tpu_torch.ops import (datetime_rebase,
+                                            datetime_rebase_cuda)
+    for make, dt in ((rebase_days, tdt.DATE32),
+                     (rebase_micros, tdt.TIMESTAMP_US)):
+        v, valid = make(2, 100_003)
+        col = Column.from_numpy(v, dt, valid, device="cuda")
+        for to_julian, fn in ((True,
+                               datetime_rebase.rebase_gregorian_to_julian),
+                              (False,
+                               datetime_rebase.rebase_julian_to_gregorian)):
+            datetime_rebase_cuda.reset_counters()
+            got = fn(col)
+            torch.cuda.synchronize()
+            assert sum(datetime_rebase_cuda.LAUNCHES.values()) == 1
+            assert sum(datetime_rebase_cuda.PLAIN_CALLS.values()) == 0
+            assert torch.equal(got.data,
+                               datetime_rebase.rebase_plain(col, to_julian))
+            _same_column(got, fn(col.to("cpu")))
+
+
+def test_zorder_kernels_equal_plain_version():
+    """`zo_interleave` at widths 1, 2, 4 and 8 (with nulls, floats by their
+    bits) and `zo_hilbert` at every shape of the tests, against the plain
+    versions on the same tensors and the CPU run; zero rows launch
+    nothing."""
+    _need_card()
+    from torch_datetime_inputs import HILBERT_SHAPES, zorder_columns
+    from spark_rapids_tpu_torch.ops import zorder, zorder_cuda
+    for kind, np_type in (("INT8", np.int8), ("INT16", np.int16),
+                          ("FLOAT32", np.float32), ("FLOAT64", np.float64),
+                          ("BOOL", np.bool_)):
+        cols = [Column.from_numpy(v, tdt.DType(tdt.Kind[kind]), ok,
+                                  device="cuda")
+                for v, ok in zorder_columns(3, np_type, 3, 50_001)]
+        zorder_cuda.reset_counters()
+        got = zorder.interleave_bits(cols)
+        torch.cuda.synchronize()
+        assert zorder_cuda.LAUNCHES["interleave"] == 1
+        assert sum(zorder_cuda.PLAIN_CALLS.values()) == 0
+        assert torch.equal(got.children[0].data.reshape(50_001, -1),
+                           zorder.interleave_plain(cols))
+        _same_nested(got, zorder.interleave_bits([c.to("cpu") for c in cols]))
+    for bits, ncols in HILBERT_SHAPES:
+        cols = [Column.from_numpy(v, tdt.INT32, ok, device="cuda")
+                for v, ok in zorder_columns(bits, np.int32, ncols, 20_001)]
+        got = zorder.hilbert_index(bits, cols)
+        assert torch.equal(got.data, zorder.hilbert_plain(bits, cols))
+        _same_column(got, zorder.hilbert_index(bits, [c.to("cpu")
+                                                      for c in cols]))
+    zorder_cuda.reset_counters()
+    empty = Column.from_numpy(np.zeros(0, np.int32), tdt.INT32, device="cuda")
+    assert zorder.interleave_bits([empty]).length == 0
+    assert zorder_cuda.LAUNCHES["interleave"] == 0
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_percentile_kernel_equals_plain_version(negative):
+    """`hg_percentile` after the three sorts against the plain version on
+    the same tensors and the CPU run, both output forms, histograms longer
+    than a warp and negative counts; one launch a call, no plain run."""
+    _need_card()
+    from torch_datetime_inputs import random_histograms
+    from spark_rapids_tpu_torch.ops import histogram, histogram_cuda
+    values, valid, counts, offsets = random_histograms(4, 5_000, 80,
+                                                       null_p=0.05)
+    values[::31] = np.nan
+    if negative:
+        counts = counts - 500
+    struct = Column.make_struct(
+        value=Column.from_numpy(values, tdt.FLOAT64, valid, device="cuda"),
+        freq=Column.from_numpy(counts, tdt.INT64, device="cuda"))
+    col = Column.make_list(torch.tensor(offsets, device="cuda"), struct)
+    pcts = [0.0, 0.25, 0.5, 0.75, 0.99, 1.0]
+    pct = torch.tensor(pcts, dtype=torch.float64, device="cuda")
+    out, out_valid = histogram_cuda.percentile(
+        struct.children[0].data, struct.children[0].null_mask, struct.children[
+            1].data, col.offsets, pct)
+    want = histogram.percentile_plain(
+        struct.children[0].data, struct.children[0].null_mask,
+        struct.children[1].data, col.offsets, pct)
+    assert torch.equal(out.view(torch.int64), want[0].view(torch.int64))
+    assert torch.equal(out_valid, want[1])
+    for as_list in (True, False):
+        histogram_cuda.reset_counters()
+        got = histogram.percentile_from_histogram(col, pcts, as_list)
+        torch.cuda.synchronize()
+        assert histogram_cuda.LAUNCHES["percentile"] == 1
+        assert histogram_cuda.PLAIN_CALLS["percentile"] == 0
+        _same_nested(got, histogram.percentile_from_histogram(
+            col.to("cpu"), pcts, as_list))

@@ -73,3 +73,30 @@ def assert_same_tensors(got, want):
     elif g.dtype in (torch.float64, torch.uint64):
         g, w = g.view(torch.int64), w.view(torch.int64)
     assert torch.equal(g, w)
+
+
+def assert_same_column(got, want):
+    """A port column equals a JAX package column in every buffer: the
+    dtype's kind, the length, the data's bits on every row (null rows
+    too), the validity (None where the JAX package's is None), the offsets
+    and the children, recursively."""
+    assert got.dtype.kind.value == want.dtype.kind.value, (got.dtype,
+                                                           want.dtype)
+    assert got.length == want.length
+    assert (got.data is None) == (want.data is None)
+    if got.data is not None:
+        gd, wd = _bits(got.data.cpu().numpy()), _bits(np.asarray(want.data))
+        assert gd.dtype == wd.dtype, (gd.dtype, wd.dtype)
+        np.testing.assert_array_equal(gd, wd)
+    assert (got.validity is None) == (want.validity is None), (
+        got.validity, want.validity)
+    if got.validity is not None:
+        np.testing.assert_array_equal(got.validity.cpu().numpy(),
+                                      np.asarray(want.validity))
+    assert (got.offsets is None) == (want.offsets is None)
+    if got.offsets is not None:
+        np.testing.assert_array_equal(got.offsets.cpu().numpy(),
+                                      np.asarray(want.offsets))
+    assert len(got.children) == len(want.children)
+    for g, w in zip(got.children, want.children):
+        assert_same_column(g, w)
