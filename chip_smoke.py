@@ -15,6 +15,7 @@
     python3 chip_smoke.py --runtime    # phase 15 only (runtime arbitration)
     python3 chip_smoke.py --parquet    # phase 16 only (Parquet, streaming)
     python3 chip_smoke.py --datetime-zorder-histogram  # phase 17 only
+    python3 chip_smoke.py --distributed  # phase 18 only (the mesh)
     python3 chip_smoke.py --plan-walls N --union-walls N [--tree DIR]
     python3 chip_smoke.py --script-ab DIR [DIR ...] [--out FILE]  # stamped
 
@@ -354,6 +355,27 @@ in phases that each raise on failure:
    version on the CPU copies of its inputs in slices (every slice
    checked, on a worker thread while the kernels are timed); each kernel
    timed. Alone: `python3 chip_smoke.py --datetime-zorder-histogram`;
+18. the distributed tier on logical peers of the card (`dist_phase`):
+   `px_exchange_map` against its plain version (run on the CPU, where it
+   runs) over P of 1, 2, 8, 64 and the kernel's most (1,365), shards of
+   0, 1, 31, 32, 33 and 10,000,000 rows, uniform, one-bucket and zipf
+   ids and caps that overflow, and P = 1,366 declined; the map timed at
+   10M ids over 8 peers beside its plain version and
+   `torch.sort(stable=True)`; `dryrun_multichip(8)` on 8 peers of the
+   card and on the CPU, the same lines from both; every NDS plan (q3, TPC-DS q3, q72, q5, q23; authored and
+   optimized) on meshes of 2 and 8 peers, counters zeroed just before
+   each run and read just after (the exchange-map and row-hash kernels
+   launched, no plain version), each result equal to the single-device
+   eager run on the card and to numpy where phase 4 has an oracle, each
+   exchange edge's kind and logical and wire bytes, the warm wall and
+   busy ms beside the single-device wall, the largest padded relation
+   and the peak device memory; the async exchange's warm walls against
+   the synchronous one's on one plan; q72 from Parquet files on 4 peers
+   through one pruned read a scan. Each (plan, form) runs at its
+   `DIST_N` sales rows: 10M where it fits the card, else cut by its own
+   padding factor (the reference's capacities double a relation's padded
+   rows at every join, aggregate and sort). Alone:
+   `python3 chip_smoke.py --distributed`;
 11. prints one `{"kernels": [...]}` line, then as the last line
    `{"ok": true, "device": {...}}`.
 
@@ -576,7 +598,7 @@ class Checks:
                         "cast_string_to_float": 0, "number_to_string": 0,
                         "parse_uri": 0, "map_utils": 0, "bloom_filter": 0,
                         "timezones": 0, "datetime_rebase": 0, "zorder": 0,
-                        "percentile": 0}
+                        "percentile": 0, "exchange_map": 0}
         self.n = 0
 
     def equal(self, kernel, a, b, what):
@@ -1961,7 +1983,7 @@ def partition_phase(torch, chk):
     require(launches == {"histogram": 2 * len(PARTITIONS),
                          "murmur": len(PARTITIONS)},
             f"partition launches on the path {launches}")
-    require(pc.PLAIN_CALLS == {"histogram": 0},
+    require(pc.PLAIN_CALLS == {"histogram": 0, "exchange_map": 0},
             f"the histogram ran plain on the card path {pc.PLAIN_CALLS}")
 
     t0 = time.perf_counter()
@@ -9708,6 +9730,494 @@ def dzh_kernels(dzh, chk):
     return out
 
 
+# ---- phase 18: the distributed tier on logical peers of the card -------------
+
+XM_SOURCE = "spark_rapids_tpu_torch/ops/csrc/partition_hist.cu"
+XM_REPLACES = ("none: no pallas_call; spark_rapids_tpu/parallel/"
+               "shuffle.py:67 (build_partition_map: stable argsort + two "
+               "searchsorted) and :103 (the tiled all_to_all)")
+XM_ROWS = 10_000_000               # the timed map: 10M ids at P = 8
+XM_PEERS = 8
+XM_BIG_SHARD = 10_000_000          # the corpus's largest shard
+DIST_PEERS = (2, 8)
+# sales rows of each (plan, form) on the mesh: N_SALES where its
+# relations fit the card on both meshes. The reference's fixed capacities
+# double a relation's padded rows at every exchange, join, aggregate and
+# sort (`DistContext._default_cap`, the exchange's slack), so each form
+# pads by its own factor (the largest padded relation over the sales
+# rows, which `dist_counted` measures and prints with the run's peak
+# device memory): authored q3, TPC-DS q3 and q5 64x, optimized q5 32x,
+# optimized q3 and TPC-DS q3 16x at 1-3M rows and 32x at 5-10M, q23 2x on 2 peers and 4x on 8, q72 authored 4,096x and 8,192x,
+# optimized 256x. A form is cut only as far as its peak on 8 peers stays
+# within DIST_PEAK_BYTES (optimized q3 at 10M: 47 GiB on 2 peers, out of
+# memory on 8).
+DIST_PEAK_BYTES = 48 << 30
+DIST_N = {("q3", "authored"): 2_400_000, ("q3", "optimized"): 5_000_000,
+          ("tpcds_q3", "authored"): 2_400_000,
+          ("tpcds_q3", "optimized"): 5_000_000,
+          ("q5", "authored"): 3_000_000, ("q5", "optimized"): 5_000_000,
+          ("q23", "authored"): N_SALES, ("q23", "optimized"): N_SALES,
+          ("q72", "authored"): 25_000, ("q72", "optimized"): 800_000}
+# the plan whose async exchange is timed against the synchronous one
+DIST_ASYNC = ("q3", "optimized")
+DIST_ASYNC_RUNS = 2
+DIST_PQ_N = 20_000                 # q72 from Parquet on 4 peers
+DIST_PQ_PEERS = 4
+DIST_DEV = "cuda"                  # the card (a CPU rehearsal sets "cpu")
+
+
+def xm_case_ids(rng, P, s, dist):
+    if dist == "one":
+        return np.full((P, s), P - 1, np.int32)
+    if dist == "zipf":
+        return ((rng.zipf(1.3, (P, s)) - 1) % P).astype(np.int32)
+    return rng.integers(-1, P + 1, (P, s)).astype(np.int32)
+
+
+def xm_corpus(torch, chk):
+    """`px_exchange_map` against its plain version (on the CPU, where it
+    runs) over the corpus: P of 1, 2, 8, 64 and the kernel's most; shards
+    of 0, 1, 31, 32, 33 and 10,000,000 rows; uniform ids with some out of
+    range, every id in one bucket, zipf ids; a cap that fits and one that
+    overflows. Then P past its most declined. -> cases checked."""
+    from spark_rapids_tpu_torch import parallel
+    from spark_rapids_tpu_torch.ops.registry import KernelDeclinedError
+    from spark_rapids_tpu_torch.parallel import partition_cuda as pc
+    rng = np.random.default_rng(18)
+    cases = [(P, s, "uniform") for P in (1, 2, 8, 64)
+             for s in (0, 1, 31, 32, 33)]
+    cases += [(P, 33, d) for P in (2, 8, 64) for d in ("one", "zipf")]
+    cases += [(2, XM_BIG_SHARD, d) for d in ("uniform", "one", "zipf")]
+    cases += [(pc.MAX_PARTITIONS, s, d) for s in (1, 33)
+              for d in ("uniform", "zipf")]
+    n = 0
+    for P, s, dist in cases:
+        part = xm_case_ids(rng, P, s, dist)
+        live = int(((part >= 0) & (part < P)).sum())
+        fits = max(1, -(-live // (P * P)) * 2)
+        for cap in sorted({fits, max(1, fits // 4)}):
+            t = torch.from_numpy(part)
+            want = pc.exchange_map_plain(t, cap)
+            pc.reset_counters()
+            got = parallel.exchange_map(t.to(DIST_DEV), cap)
+            torch.cuda.synchronize()
+            require(pc.LAUNCHES["exchange_map"] == (1 if s else 0)
+                    and pc.PLAIN_CALLS["exchange_map"] == 0,
+                    f"exchange map P={P} s={s}: {pc.LAUNCHES} "
+                    f"{pc.PLAIN_CALLS}")
+            for g, w, what in zip(got, want, ("map", "counts")):
+                chk.equal("exchange_map", g.cpu(), w,
+                          f"exchange map {what} P={P} s={s} {dist} cap={cap}")
+            n += 1
+    try:
+        parallel.exchange_map(torch.zeros((pc.MAX_PARTITIONS + 1, 4),
+                                          dtype=torch.int32,
+                                          device=DIST_DEV), 1)
+        require(False, "P past the kernel's most was not declined")
+    except KernelDeclinedError:
+        pass
+    log(f"phase 18: exchange map == plain version in {n} cases (P up to "
+        f"{pc.MAX_PARTITIONS}, shards up to 10,000,000 rows, caps that "
+        "overflow); P past it declined")
+    return n
+
+
+def xm_timing(torch):
+    """The map at XM_ROWS ids over XM_PEERS peers (capacity the tier's
+    2x slack): device ms (its three kernels, L2 flushed), one call's ms,
+    the plain version's ms (the reference's sort route, run on the card
+    for the timing only), torch.sort(stable=True) of the same ids along
+    each peer, and the bound."""
+    from spark_rapids_tpu_torch.parallel import partition_cuda as pc
+    P = XM_PEERS
+    s = XM_ROWS // P
+    cap = -(-s // P) * 2
+    rng = np.random.default_rng(0)
+    part = torch.from_numpy(rng.integers(0, P, (P, s)).astype(
+        np.int32)).to(DIST_DEV)
+    fn = lambda: pc.exchange_map_cuda(part, cap)   # noqa: E731
+    gidx, counts = fn()
+    live = int(counts.clamp(max=cap).sum())
+    byts = 4 * P * s + 4 * live + 4 * P * P
+    t = {"rows": P * s, "peers": P, "cap": cap, "live_entries": live,
+         "ms": device_ms(torch, fn, ("xm_count", "xm_scan", "xm_rank"), 10,
+                         per_call=3),
+         "call_ms": call_ms(torch, fn, 10),
+         "plain_ms": time_cuda(
+             torch, lambda: pc.exchange_map_plain(part, cap), 3),
+         "library_ms": time_cuda(
+             torch, lambda: torch.sort(part, dim=1, stable=True), 10),
+         "bytes": byts, "ops": 0,
+         "bytes_ms": byts / 3.35e12 * 1e3, "ops_ms": 0.0}
+    t["bound_ms"] = t["bytes_ms"]
+    log(f"  exchange map at {P * s} ids, P = {P}, cap {cap}: device "
+        f"{t['ms']:.4f} ms, call {t['call_ms']:.4f} ms, plain (sort route) "
+        f"{t['plain_ms']:.4f} ms, torch.sort(stable) {t['library_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.4f} ms (bytes)")
+    return t
+
+
+def dist_inputs(torch, name, n):
+    """(plan, its inputs on DIST_DEV, numpy oracle columns or None)."""
+    from spark_rapids_tpu_torch import nds_q23, nds_q3, nds_q5, nds_q72
+    if name == "q3":
+        return (nds_q3.q3_plan(), nds_q3.q3_inputs(n, device=DIST_DEV),
+                numpy_q3(nds_q3.datagen(n, seed=0)))
+    if name == "tpcds_q3":
+        return (nds_q3.q3_tpcds_plan(),
+                nds_q3.q3_tpcds_inputs(n, device=DIST_DEV), None)
+    if name == "q72":
+        return (nds_q72.q72_plan(), nds_q72.q72_inputs(n, device=DIST_DEV),
+                numpy_q72(nds_q72.datagen(n, seed=0)))
+    if name == "q5":
+        return (nds_q5.q5_plan(), nds_q5.q5_inputs(n, device=DIST_DEV),
+                numpy_q5(nds_q5.datagen(n, seed=0))[0])
+    return (nds_q23.q23_plan(), nds_q23.q23_inputs(n, device=DIST_DEV),
+            numpy_q23(nds_q23.datagen(n, seed=0))[0])
+
+
+class DistPadProbe:
+    """The largest padded relation the mesh made while open: every
+    `ShardedRel` the distributed tier builds is seen here (its table's
+    rows, live and dead slots)."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.plan import distributed as dist
+        self.rows = 0
+        self._cls = dist.ShardedRel
+        self._init = init = dist.ShardedRel.__init__
+        probe = self
+
+        def seen(rel, table, *a, **kw):
+            init(rel, table, *a, **kw)
+            probe.rows = max(probe.rows, table.num_rows)
+        self._cls.__init__ = seen
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__ = self._init
+
+
+def dist_equal(chk, got, want, plan, what):
+    """`pq_equal` of a meshed result with the single-device one. Where the
+    plan ends in a Sort whose keys leave ties (q3 sorts its groups by year
+    and revenue alone), tied rows come in the order they reach the range
+    partition on the mesh, as in the reference, and in group order on one
+    device: then the sort keys must be equal row by row, and each run of
+    tied rows hold the same rows. -> the rows of such runs that came in
+    another order (0 when the tables are equal as they stand)."""
+    import torch
+    root = plan.root
+    keys = list(root.keys) if type(root).__name__ == "Sort" else []
+
+    def planes(t):
+        out = []
+        for c in t.columns:
+            d = c.data
+            if d.dtype.is_floating_point:
+                d = d.view(torch.int32 if d.dtype == torch.float32
+                           else torch.int64)
+            out += [d.cpu().numpy().astype(np.int64),
+                    c.null_mask.cpu().numpy().astype(np.int64)]
+        return out
+    if not keys or got.names != want.names or \
+            got.num_rows != want.num_rows:
+        pq_equal(chk, got, want, what)
+        return 0
+    gp, wp = planes(got), planes(want)
+    if all(np.array_equal(x, y) for x, y in zip(gp, wp)):
+        pq_equal(chk, got, want, what)
+        return 0
+    kidx = [got.names.index(k) for k in keys]
+    for i in kidx:
+        for j in (0, 1):
+            chk.equal("plans", torch.from_numpy(gp[2 * i + j]),
+                      torch.from_numpy(wp[2 * i + j]),
+                      f"{what} sort key {got.names[i]} row by row")
+    kp = np.stack([gp[2 * i + j] for i in kidx for j in (0, 1)])
+    run = np.concatenate([[0], np.cumsum(
+        (kp[:, 1:] != kp[:, :-1]).any(axis=0))])
+    # both tables' rows in one canonical order: by run, then every column
+    g_ord = np.lexsort(gp[::-1] + [run])
+    w_ord = np.lexsort(wp[::-1] + [run])
+    for k, (x, y) in enumerate(zip(gp, wp)):
+        chk.equal("plans", torch.from_numpy(x[g_ord]),
+                  torch.from_numpy(y[w_ord]),
+                  f"{what} {got.names[k // 2]} "
+                  f"{('data', 'validity')[k % 2]} within tied runs")
+    return int(sum((x != y).any() for x, y in
+                   zip(np.stack(gp).T, np.stack(wp).T)))
+
+
+def dist_counted(torch, ex, plan, inputs, what):
+    """One run, every kernel counter zeroed just before and read just
+    after: the exchange-map and row-hash kernels launched, no plain
+    version. -> (result, exchange-map launches, murmur launches, the
+    largest padded relation's rows, the run's peak device bytes above
+    what was allocated before it)."""
+    from spark_rapids_tpu_torch.ops import hash_cuda
+    from spark_rapids_tpu_torch.parallel import partition_cuda as pc
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counters()
+    with DistPadProbe() as pad:
+        res = ex.execute(plan, inputs)
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(counted(counters["plain"]) == 0,
+            f"{what}: a plain version ran: {counters['plain']}")
+    xm, mm = pc.LAUNCHES["exchange_map"], hash_cuda.LAUNCHES["murmur"]
+    require(xm > 0 and mm > 0, f"{what}: exchange map {xm}, row hash {mm} "
+            "launches")
+    require(any(m.n_peers for m in res.metrics.values()),
+            f"{what}: no operator ran on the mesh")
+    require(peak <= DIST_PEAK_BYTES,
+            f"{what}: peak {peak} B past DIST_PEAK_BYTES (the largest "
+            f"relation padded to {pad.rows} rows): cut its DIST_N")
+    return res, xm, mm, pad.rows, peak
+
+
+def dist_plans(torch, chk):
+    """Every NDS plan, authored and optimized, on meshes of 2 and 8 logical
+    peers of the card, each form at its DIST_N: equal to the single-device
+    eager run (and to numpy where phase 4 has an oracle), the counters,
+    the edges, the padding factor and peak device memory, and the warm
+    walls and busy ms beside the single-device wall."""
+    from spark_rapids_tpu_torch.parallel import make_mesh
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    out, launches = {}, {"exchange_map": 0, "murmur": 0}
+    made = {}
+    for (name, form), n in DIST_N.items():
+        if (name, n) not in made:
+            made.clear()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            made[(name, n)] = dist_inputs(torch, name, n)
+            log(f"  {name} inputs and oracle at {n} sales rows in "
+                f"{time.perf_counter() - t0:.1f} s")
+        plan, inputs, ref = made[(name, n)]
+        optimize = form == "optimized"
+        what = f"{name} {form}"
+        t0 = time.perf_counter()
+        single = PlanExecutor(optimize=optimize, device=DIST_DEV)
+        want = single.execute(plan, inputs)
+        warm = single.execute(plan, inputs)
+        if ref is not None:
+            for col, arr in zip(want.table.names, ref):
+                require(np.array_equal(want.table[col].data.cpu().numpy(),
+                                       arr),
+                        f"{what}: {col} differs from numpy")
+        row = {"rows": n, "single_wall_ms": warm.wall_ms, "meshes": {}}
+        for P in DIST_PEERS:
+            mesh = make_mesh(P, devices=[torch.device(DIST_DEV)] * P)
+            ex = PlanExecutor(optimize=optimize, mesh=mesh, device=DIST_DEV)
+            res, xm, mm, pad, peak = dist_counted(
+                torch, ex, plan, inputs, f"{what} on {P} peers")
+            launches["exchange_map"] += xm
+            launches["murmur"] += mm
+            # validity as the rows it marks: the single-device
+            # aggregate carries an all-valid mask where the mesh's
+            # carries none (as in the reference)
+            tied = dist_equal(chk, res.table, want.table, plan,
+                              f"{what} on {P} peers")
+            edges = [(m.label, m.exchange_how, m.exchange_bytes_logical,
+                      m.exchange_bytes) for m in res.metrics.values()
+                     if m.exchange_how]
+            cold = res.wall_ms
+            escalations = sum(m.escalations for m in res.metrics.values())
+            del res
+            tr = traced_run(torch, lambda: ex.execute(plan, inputs))
+            row["meshes"][P] = {
+                "exchange_map_launches": xm, "murmur_launches": mm,
+                "tied_rows_reordered": tied,
+                "padded_rows": pad, "pad_factor": pad / n,
+                "peak_bytes": peak,
+                "cold_wall_ms": cold, "warm_wall_ms": tr["wall_ms"],
+                "busy_ms": tr["busy_ms"], "idle_share": tr["idle_share"],
+                "escalations": escalations,
+                "edges": edges}
+            log(f"  {what} on {P} peers ({n} rows): == single device"
+                f"{' and numpy' if ref is not None else ''}"
+                f"{f' ({tied} rows tied on the sort keys, in another order)' if tied else ''}; exchange "
+                f"map {xm}, row hash {mm} launches; largest padded "
+                f"relation {pad} rows ({pad / n:.2f}x), peak "
+                f"{peak / 2**30:.2f} GiB; warm wall {tr['wall_ms']:.1f} "
+                f"ms, busy {tr['busy_ms']:.1f} ms, idle "
+                f"{tr['idle_share']:.3f} (single device "
+                f"{warm.wall_ms:.1f} ms)")
+            for e in edges:
+                log(f"    {e[0]}: {e[1]} {e[2]} B logical, {e[3]} B wire")
+        if (name, form) == DIST_ASYNC:
+            row["async"] = dist_async(torch, chk, plan, inputs, want.table,
+                                      what, n)
+        row["seconds"] = time.perf_counter() - t0
+        out[what] = row
+    made.clear()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def dist_async(torch, chk, plan, inputs, want, what, n):
+    """The async exchange (SPARK_RAPIDS_TORCH_EXCHANGE_ASYNC=on) against
+    the synchronous one, on the widest mesh: the first synchronous result
+    `dist_equal` to the single-device run, every later one, async or not,
+    equal to it as it stands; warm walls interleaved off, on, on, off for
+    DIST_ASYNC_RUNS rounds, and the edges' summed exchange_overlap_ms."""
+    from spark_rapids_tpu_torch.parallel import make_mesh
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    P = DIST_PEERS[-1]
+    ex = PlanExecutor(optimize=what.endswith("optimized"), device=DIST_DEV,
+                      mesh=make_mesh(P, devices=[torch.device(DIST_DEV)] * P))
+    walls = {"off": [], "on": []}
+    overlap = []
+    sync = None
+    for _ in range(DIST_ASYNC_RUNS):
+        for mode in ("off", "on", "on", "off"):
+            os.environ["SPARK_RAPIDS_TORCH_EXCHANGE_ASYNC"] = mode
+            try:
+                res = ex.execute(plan, inputs)
+            finally:
+                del os.environ["SPARK_RAPIDS_TORCH_EXCHANGE_ASYNC"]
+            walls[mode].append(res.wall_ms)
+            if sync is None:
+                dist_equal(chk, res.table, want, plan, f"{what} async off")
+                sync = res.table
+            else:
+                pq_equal(chk, res.table, sync, f"{what} async {mode}")
+            if mode == "on":
+                overlap.append(sum(m.exchange_overlap_ms
+                                   for m in res.metrics.values()))
+            del res
+    out = {"peers": P, "off_wall_ms": walls["off"],
+           "on_wall_ms": walls["on"],
+           "off_median_ms": float(np.median(walls["off"])),
+           "on_median_ms": float(np.median(walls["on"])),
+           "overlap_ms": overlap}
+    log(f"  {what} on {P} peers ({n} rows), async exchange: warm wall "
+        f"median off {out['off_median_ms']:.1f} ms, on "
+        f"{out['on_median_ms']:.1f} ms (off {walls['off']}, on "
+        f"{walls['on']}); summed exchange_overlap_ms {overlap}; results "
+        "equal")
+    return out
+
+
+def dist_parquet(torch, chk):
+    """q72 from Parquet files (tests/torch_parquet_writer.py) on a mesh of
+    DIST_PQ_PEERS logical peers: each scan one pruned, projected read,
+    then sharded; equal to the materialized single-device run."""
+    import tempfile
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from spark_rapids_tpu_torch import nds_q72
+    from spark_rapids_tpu_torch.io import ParquetSource
+    from spark_rapids_tpu_torch.parallel import make_mesh
+    from spark_rapids_tpu_torch.plan import PlanExecutor
+    gen = nds_q72.datagen(DIST_PQ_N, seed=0)
+    want = PlanExecutor(device=DIST_DEV).execute(nds_q72.q72_plan(),
+                                  nds_q72.q72_inputs(DIST_PQ_N,
+                                                     device=DIST_DEV))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        paths, _, _ = pq_write("q72", pq_inputs("q72", gen), tmp)
+        sources = {k: ParquetSource(p)
+                   for k, p in paths["UNCOMPRESSED"].items()}
+        mesh = make_mesh(DIST_PQ_PEERS,
+                         devices=[torch.device(DIST_DEV)] * DIST_PQ_PEERS)
+        res, xm, mm, _, _ = dist_counted(
+            torch, PlanExecutor(mesh=mesh, device=DIST_DEV),
+            nds_q72.q72_plan(), sources,
+            f"q72 from Parquet on {DIST_PQ_PEERS} peers")
+    pq_equal(chk, res.table, want.table, "q72 from Parquet on a mesh")
+    io = pq_scan_io(res)
+    require(io["scans"] == len(paths["UNCOMPRESSED"]) and
+            all(m.sharding == f"rows@{DIST_PQ_PEERS}"
+                for m in res.metrics.values()
+                if m.kind == "Scan" and m.io_row_groups_total),
+            f"q72 from Parquet: the scans did not read and shard: {io}")
+    log(f"  q72 from Parquet on {DIST_PQ_PEERS} peers: == the materialized "
+        f"run; {io['scans']} pruned reads, {io['rows']} rows; exchange map "
+        f"{xm} launches")
+    return {"rows": DIST_PQ_N, "peers": DIST_PQ_PEERS, "io": io,
+            "exchange_map_launches": xm, "murmur_launches": mm,
+            "wall_ms": res.wall_ms}
+
+
+def dist_phase(torch, chk):
+    """Phase 18: the distributed tier on logical peers of the card."""
+    import contextlib
+    import io
+    from spark_rapids_tpu_torch.entry import dryrun_multichip
+    from spark_rapids_tpu_torch.parallel import partition_cuda as pc
+    t0 = time.perf_counter()
+    log("phase 18: the distributed tier (mesh, exchange, keys, relational "
+        "ops, transport, the meshed executor) on logical peers of the card")
+    steps = {}
+
+    def step(name, fn):
+        t1 = time.perf_counter()
+        got = fn()
+        steps[name] = time.perf_counter() - t1
+        log(f"  ({name}: {steps[name]:.1f} s)")
+        return got
+
+    cases = step("corpus", lambda: xm_corpus(torch, chk))
+    timing = step("map timing", lambda: xm_timing(torch))
+
+    def dry_run(device):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(8, device=device)
+        return buf.getvalue().splitlines()
+
+    def dry_runs():
+        reset_kernel_counters()
+        lines = dry_run(DIST_DEV)
+        torch.cuda.synchronize()
+        got = {"lines": lines,
+               "exchange_map_launches": pc.LAUNCHES["exchange_map"],
+               "plain_calls": pc.PLAIN_CALLS["exchange_map"]}
+        got["cpu_lines"] = dry_run("cpu")
+        return got
+    dry = step("dry run", dry_runs)
+    for line in dry["lines"]:
+        log("  " + line)
+    require(len(dry["lines"]) == 4 and dry["exchange_map_launches"] > 0
+            and dry["plain_calls"] == 0,
+            f"dryrun_multichip(8): {dry}")
+    require(dry["lines"] == dry["cpu_lines"],
+            f"dryrun_multichip(8) on the card and on the CPU differ: {dry}")
+    log("  dryrun_multichip(8): the same 4 lines on the card and on the CPU")
+    plans, launches = step("plans", lambda: dist_plans(torch, chk))
+    parquet = step("parquet", lambda: dist_parquet(torch, chk))
+    launches["exchange_map"] += parquet["exchange_map_launches"]
+    launches["murmur"] += parquet["murmur_launches"]
+    seconds = time.perf_counter() - t0
+    log(f"phase 18: {seconds:.1f} s; main-path launches {launches}")
+    return {"cases": cases, "timing": timing, "dryrun": dry, "plans": plans,
+            "parquet": parquet, "launches": launches, "steps": steps,
+            "seconds": seconds}
+
+
+def dist_kernels(dist, chk):
+    """The exchange map's entry of the `kernels` line."""
+    t = dist["timing"]
+    return [{"name": "exchange_map", "route": "cuda", "source": XM_SOURCE,
+             "entry_point": "px_exchange_map", "replaces": XM_REPLACES,
+             "launches": dist["launches"]["exchange_map"],
+             "exact": chk.max_err["exchange_map"] == 0,
+             "max_abs_err": chk.max_err["exchange_map"],
+             "ms": t["ms"], "call_ms": t["call_ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes", "bytes": t["bytes"], "ops": t["ops"],
+             "library": "torch.sort(stable=True) of the same (P, s) ids "
+                        "along each peer: the sort the kernel replaces, "
+                        "without its searchsorteds and map",
+             "library_ms": t["library_ms"],
+             "shape": f"{t['rows']} ids over {t['peers']} peers, cap "
+                      f"{t['cap']}"}]
+
+
 def script_ab(trees, log_dir, gap_s=5.0):
     """`python3 chip_smoke.py` from each checkout in `trees`, one after
     another, each line of its merged output stamped with the seconds since
@@ -9819,6 +10329,11 @@ def main(argv=None):
                          "ZOrder and Histogram on their kernels, against "
                          "their plain versions on the CPU and the oracles, "
                          "and the kernels timed")
+    ap.add_argument("--distributed", action="store_true",
+                    help="only run phase 18: the exchange-map kernel "
+                         "against its plain version, dryrun_multichip(8) "
+                         "and every NDS plan on meshes of 2 and 8 logical "
+                         "peers of the card, and q72 from Parquet on 4")
     ap.add_argument("--groupby-ab", action="store_true",
                     help="only time the whole keyed aggregate at q23's two "
                          "aggregates, eager and capped; runs from an "
@@ -9904,6 +10419,18 @@ def _run(args):
                           "checks": chk.n}, default=str), flush=True)
         return 0
     dadd = build_phase()
+    if args.distributed:
+        chk = Checks()
+        dist = dist_phase(torch, chk)
+        out = {"card": smi, "kernels": dist_kernels(dist, chk),
+               "distributed": dist, "checks": chk.n}
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1, default=str)
+        print(json.dumps(out, default=str), flush=True)
+        return 0
     if args.feedback:
         chk = Checks()
         fb = feedback_phase(torch, chk)
@@ -10007,6 +10534,7 @@ def _run(args):
     parquet = parquet_phase(torch, chk, smi)
     log("phase 17: GpuTimeZoneDB, DateTimeRebase, ZOrder and Histogram")
     dzh = dzh_phase(torch, chk)
+    dist = dist_phase(torch, chk)
 
     kernels = []
     for k in ("build", "count", "emit"):
@@ -10139,7 +10667,8 @@ def _run(args):
                    "its atomics' order, not the reference's bits",
         "library_ms": t["library_ms"]})
     # the row hash: the sums over its three forms, one call each, at
-    # bench.py's shape; launches over the row-hash and partition paths
+    # bench.py's shape; launches over the row-hash, partition and entry
+    # paths and the meshed plans' partition hash (phase 18)
     entry_launches = dec["entry"]["launches"]
     rh_entry = {"murmur": sum(e["murmur"] for e in entry_launches.values()),
                 "xxhash": sum(e["xxhash"] for e in entry_launches.values())}
@@ -10147,10 +10676,13 @@ def _run(args):
         "name": "row_hash", "route": "cuda", "source": RH_SOURCE,
         "replaces": REPLACES["row_hash"],
         "launches": (sum(rh_launches.values()) + pt_launches["murmur"]
-                     + sum(rh_entry.values())),
+                     + sum(rh_entry.values())
+                     + dist["launches"]["murmur"]),
         "launches_by_path": {"row_hash": rh_launches,
                              "partition": {"murmur": pt_launches["murmur"]},
-                             "entry": rh_entry},
+                             "entry": rh_entry,
+                             "meshed plans": {
+                                 "murmur": dist["launches"]["murmur"]}},
         "exact": chk.max_err["row_hash"] == 0,
         "max_abs_err": chk.max_err["row_hash"],
         **summed(rh_timing, ("murmur", "xxhash", "fused"), library_ms=None)})
@@ -10283,6 +10815,9 @@ def _run(args):
     # the time-zone, rebase, Z-order and percentile kernels (phase 17):
     # launches on the main path's run, timed at its sizes
     kernels.extend(dzh_kernels(dzh, chk))
+    # the exchange map (phase 18): launches on the meshed plans, the dry run
+    # excluded; timed at 10M ids over 8 peers
+    kernels.extend(dist_kernels(dist, chk))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -10314,7 +10849,8 @@ def _run(args):
                        "row_conversion": rconv, "keys": keys,
                        "feedback": feedback, "casts": casts,
                        "uri_json_bloom": ujb, "runtime": runtime,
-                       "parquet": parquet, "datetime_zorder_histogram": dzh},
+                       "parquet": parquet, "datetime_zorder_histogram": dzh,
+                       "distributed": dist},
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,9 +27,12 @@ packaged as a `ResourceCert`:
   The kernels' smaller scratch (per-tile counts and lists, the gather
   maps) is not counted: `working_bytes_hi` bounds the tables, and
   `resident_bytes_hi` the children's outputs, the tables and the output.
-- **exchange bytes**: the reference's per-edge wire model; every port
-  executor runs on one device (`n_peers=1`), where an exchange moves
-  nothing.
+- **exchange bytes**: the reference's per-edge wire model: with
+  `n_peers > 1` (a meshed executor) a hash edge moves each row at most
+  once (key words at 8 B, values at their width, validity a byte), a
+  fused aggregate exchange at most the larger of that and its partials
+  per group, a broadcast its payload x (P - 1), a gather its payload; on
+  one device (`n_peers=1`) an exchange moves nothing.
 
 A bound is sound or None, never a guess. `check_observed` is the
 soundness inequality (fuzz property 5): every executed operator's
@@ -461,8 +464,11 @@ def table_metadata(inputs) -> Tuple[Dict, Dict]:
 def check_observed(cert: ResourceCert, result) -> Optional[str]:
     """The soundness inequality: every executed operator's observed rows
     inside the certified `[lo, hi]` (both tiers), and its observed bytes
-    at most the certified byte bound on the eager tier. The first
-    violation as a string, None when sound."""
+    at most the certified byte bound on the eager tier, except on the
+    mesh (an operator with `n_peers` set pads to the mesh and the slack,
+    so its bytes measure padding). On a distributed run every planned
+    Exchange's observed wire bytes are at most its certified edge bound.
+    The first violation as a string, None when sound."""
     for lbl, m in result.metrics.items():
         b = cert.by_label.get(lbl)
         if b is None:
@@ -471,10 +477,17 @@ def check_observed(cert: ResourceCert, result) -> Optional[str]:
                 b.rows_hi is not None and m.rows_out > b.rows_hi):
             return (f"{lbl}: observed rows {m.rows_out} outside "
                     f"certified [{b.rows_lo}, {b.rows_hi}]")
-        if result.mode == "eager" and b.out_bytes_hi is not None \
+        if result.mode == "eager" and not m.degraded and not m.n_peers \
+                and b.out_bytes_hi is not None \
                 and m.bytes_out > b.out_bytes_hi:
             return (f"{lbl}: observed bytes {m.bytes_out} > certified "
                     f"{b.out_bytes_hi}")
+        if m.kind == "Exchange" and not m.degraded \
+                and m.exchange_bytes \
+                and b.exchange_bytes_hi is not None \
+                and m.exchange_bytes > b.exchange_bytes_hi:
+            return (f"{lbl}: observed wire bytes {m.exchange_bytes} > "
+                    f"certified exchange bound {b.exchange_bytes_hi}")
     return None
 
 

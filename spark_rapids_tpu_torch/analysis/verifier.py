@@ -24,8 +24,8 @@ without false alarms. The layers:
    every node's hash-partitioning claim re-derived with `plan/
    distributed.py`'s rules; shuffle joins and keyed aggregates
    co-located, sharded relations gathered before an operator with no
-   distributed form, one gather at the root. No port path plans
-   exchanges before ROADMAP queue A item 13.
+   distributed form, one gather at the root. A meshed eager executor
+   runs it on every plan whose exchanges the optimizer placed.
 
 `verify_rewrite` adds the checks of an optimizer rewrite that one plan
 cannot show: the root schema is kept, and a join build-side swap happens

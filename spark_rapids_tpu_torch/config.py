@@ -16,6 +16,10 @@
 | SPARK_RAPIDS_TORCH_FAULTINJ_CONFIG_PATH | — | the fault injector's JSON config (faultinj.py), installed at import |
 | SPARK_RAPIDS_TORCH_IO_PREFETCH | 2     | streaming-scan prefetch depth (chunks decoded ahead); 0 decodes inline |
 | SPARK_RAPIDS_TORCH_IO_CHUNK_ROWS | 0   | streaming-scan chunk row bound (0: one chunk per row group) |
+| SPARK_RAPIDS_TORCH_BROADCAST_ROWS | 8192 | distributed tier: estimated build-side rows at or below which exchange_planning picks a broadcast join over a shuffle |
+| SPARK_RAPIDS_TORCH_EXCHANGE_PACK | on | exchange payloads in packed wire form (plan/transport.py): on/off |
+| SPARK_RAPIDS_TORCH_EXCHANGE_CODECS | auto | the transport's codecs: auto, none or a subset of for,dict,rle,bitpack |
+| SPARK_RAPIDS_TORCH_EXCHANGE_ASYNC | off | an Exchange's pack and transfer on a worker thread (plan/distributed.py): on/off |
 """
 from __future__ import annotations
 
@@ -165,3 +169,37 @@ def io_chunk_rows() -> int:
     this splits into chunks of at most this many rows. 0 (the default)
     streams one chunk per row group."""
     return max(0, _int_env("SPARK_RAPIDS_TORCH_IO_CHUNK_ROWS", 0))
+
+
+def broadcast_rows() -> int:
+    """Distributed tier: the optimizer's exchange_planning rule replicates
+    a join's build side (a broadcast join, no shuffle of the probe side)
+    when its estimated rows are at most this, the row analogue of Spark's
+    autoBroadcastJoinThreshold."""
+    return _int_env("SPARK_RAPIDS_TORCH_BROADCAST_ROWS", 8192)
+
+
+def exchange_pack() -> bool:
+    """Exchange transport packing (plan/transport.py): on, the hash,
+    broadcast and gather payloads move as packed planes (FOR-narrowed
+    integers, bit-packed validity) and unpack on the receiving side, and
+    the metrics split wire from logical bytes; off moves the columns as
+    they are (wire == logical). A typo raises."""
+    return _on_off("SPARK_RAPIDS_TORCH_EXCHANGE_PACK", "on")
+
+
+def exchange_codecs() -> frozenset:
+    """The codecs the transport may choose from: "auto" all of them (for,
+    dict, rle, bitpack), "none" the packed layout with no encoding, or a
+    comma list. Unknown names raise."""
+    from .plan.transport import resolve_codecs
+    return resolve_codecs(
+        os.environ.get("SPARK_RAPIDS_TORCH_EXCHANGE_CODECS", "auto"))
+
+
+def exchange_async() -> bool:
+    """Async exchange dispatch (plan/distributed.py): on, an Exchange's
+    pack and transfer run on a worker thread while the plan walk goes on,
+    until its consumer resolves it; off (the default) keeps the walk
+    synchronous. A typo raises."""
+    return _on_off("SPARK_RAPIDS_TORCH_EXCHANGE_ASYNC", "off")

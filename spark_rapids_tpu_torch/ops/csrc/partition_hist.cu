@@ -36,6 +36,11 @@
 // Plain C interface for ctypes. The entry point returns cudaGetLastError()
 // after its launch (or cudaErrorInvalidValue for arguments it does not
 // take); it never synchronises and allocates nothing.
+//
+// The same source holds the exchange map, `px_exchange_map` (below): the
+// receiver-side gather map of the all-to-all exchange of P peers that live
+// on this one card, built from per-block counts, a scan over the blocks
+// and an in-block rank, with no sort. Its own comment says how.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,6 +132,163 @@ int ph_histogram(const int* part, long long n, int P, int* counts,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   hist_kernel<<<blocks_for(n), THREADS, smem, st>>>(part, n, P, nsub, vec,
                                                     counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The exchange map: for partition ids `part` of P source peers, s rows each
+// ((P, s) int32, peer i's rows at [i*s, (i+1)*s)), and a capacity `cap`,
+//
+//   counts[src][dst]        rows of source src whose id is dst, (P, P) int32;
+//   gidx[dst][src][slot]    for slot < min(counts[src][dst], cap): the
+//                           global row (src*s + r) of the slot-th row of
+//                           source src in bucket dst, in row order; 0 in
+//                           every other slot, (P, P, cap) int32.
+//
+// Replaces the reference's per-peer map (spark_rapids_tpu/parallel/
+// shuffle.py:67-88: a stable argsort of the ids and two searchsorteds)
+// followed by its tiled all_to_all (:103-112): on one card the all-to-all
+// is a relabelling of the (src, dst) buckets, so the map is written
+// straight into the received layout, and the payload is one gather
+// through it. Rows past `cap` in a bucket are dropped and show as
+// counts > cap; ids outside [0, P) fall in no bucket.
+//
+// A row's slot is its stable rank in its bucket, found without a sort in
+// three launches:
+//   1. xm_count: each block of BLOCK_ROWS rows of one source counts its
+//      ids in shared memory (as ph_histogram does) and writes its P counts;
+//   2. xm_scan: one thread a (source, bucket) turns the blocks' counts
+//      into exclusive prefix sums in place and writes counts[src][dst];
+//   3. xm_rank: each block walks its rows in rounds of THREADS rows, in
+//      order. In a round, each warp groups its lanes by id
+//      (__match_any_sync); a lane's rank is its block's running count of
+//      its id, plus the lanes of the same id in the warps before it (each
+//      warp's group sizes go to shared memory), plus the lanes of the
+//      same id before it in its warp; then the running counts grow by the
+//      round's groups. Rank = the block's prefix + that, and the lane
+//      writes its global row into gidx when the rank is below `cap`.
+//
+// The limit: xm_rank keeps (WARPS + 1) x P int32 counters in 48 KB of
+// shared memory, so P <= 1365 (px_max_partitions). The caller zeroes
+// nothing: the entry point clears gidx itself. Rows are int32 global row
+// ids, so P * s must stay below 2^31, as the reference's int32 map.
+//
+// What bounds it on this card: bytes. The ids are read twice (count and
+// rank passes; the bound counts them once, 4 B a row) and each live map
+// entry is written once (4 B); the scan reads and writes the P x P x
+// blocks counts.
+
+#define XM_BLOCK_ROWS 8192        // rows one block counts and ranks
+#define XM_MAX_P (SHARED_BYTES / (4 * (WARPS + 1)))
+
+__global__ void __launch_bounds__(THREADS)
+xm_count(const int* part, long long s, int P, long long nb,
+         int* block_counts) {
+  extern __shared__ int cnt[];  // P counters
+  const int src = blockIdx.y;
+  const long long blk = blockIdx.x;
+  for (int b = threadIdx.x; b < P; b += THREADS) cnt[b] = 0;
+  __syncthreads();
+  const int* p = part + static_cast<long long>(src) * s;
+  const long long lo = blk * XM_BLOCK_ROWS;
+  const long long hi = lo + XM_BLOCK_ROWS < s ? lo + XM_BLOCK_ROWS : s;
+  for (long long r = lo + threadIdx.x; r < hi; r += THREADS)
+    count_one(cnt, P, p[r]);
+  __syncthreads();
+  int* out = block_counts + (static_cast<long long>(src) * nb + blk) * P;
+  for (int b = threadIdx.x; b < P; b += THREADS) out[b] = cnt[b];
+}
+
+// Exclusive prefix sums over the blocks, in place, per (source, bucket).
+__global__ void xm_scan(int* block_counts, long long nb, int P,
+                        int* counts) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(P) * P) return;
+  const long long src = t / P;
+  const int b = static_cast<int>(t % P);
+  int* col = block_counts + src * nb * P + b;
+  int running = 0;
+  for (long long blk = 0; blk < nb; ++blk) {
+    const int c = col[blk * P];
+    col[blk * P] = running;
+    running += c;
+  }
+  counts[t] = running;
+}
+
+__global__ void __launch_bounds__(THREADS)
+xm_rank(const int* part, long long s, int P, long long nb, int cap,
+        const int* block_base, int* gidx) {
+  extern __shared__ int sh[];
+  int* running = sh;       // P: the block's prefix plus its earlier rounds
+  int* wc = sh + P;        // WARPS x P: this round's group size per warp
+  const int src = blockIdx.y;
+  const long long blk = blockIdx.x;
+  const int* base = block_base + (static_cast<long long>(src) * nb + blk) * P;
+  for (int b = threadIdx.x; b < P; b += THREADS) running[b] = base[b];
+  for (int b = threadIdx.x; b < WARPS * P; b += THREADS) wc[b] = 0;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned before_me = (1u << lane) - 1u;
+  const int* p = part + static_cast<long long>(src) * s;
+  const long long lo = blk * XM_BLOCK_ROWS;
+  const long long hi = lo + XM_BLOCK_ROWS < s ? lo + XM_BLOCK_ROWS : s;
+  for (long long r0 = lo; r0 < hi; r0 += THREADS) {  // same trips block-wide
+    const long long r = r0 + threadIdx.x;
+    const int id = r < hi ? p[r] : -1;
+    const bool ok = static_cast<unsigned>(id) < static_cast<unsigned>(P);
+    const unsigned same = __match_any_sync(0xffffffffu, id);
+    const int before = __popc(same & before_me);
+    const int group = __popc(same);
+    if (ok && before == 0) wc[warp * P + id] = group;
+    __syncthreads();
+    int rank = 0;
+    if (ok) {
+      rank = running[id] + before;
+      for (int w = 0; w < warp; ++w) rank += wc[w * P + id];
+    }
+    __syncthreads();
+    if (ok && before == 0) {
+      atomicAdd(&running[id], group);
+      wc[warp * P + id] = 0;
+    }
+    __syncthreads();
+    if (ok && rank < cap)
+      gidx[(static_cast<long long>(id) * P + src) * cap + rank] =
+          static_cast<int>(static_cast<long long>(src) * s + r);
+  }
+}
+
+extern "C" {
+
+int px_max_partitions() { return XM_MAX_P; }
+
+int px_block_rows() { return XM_BLOCK_ROWS; }
+
+// counts: (P, P) int32; gidx: (P, P, cap) int32; scratch: (P, nb, P) int32
+// with nb = ceil(s / px_block_rows()). Clears gidx, then three launches.
+int px_exchange_map(const int* part, long long s, int P, int cap,
+                    int* counts, int* gidx, int* scratch, void* stream) {
+  if (s < 1 || P < 1 || P > XM_MAX_P || cap < 1 || !part || !counts ||
+      !gidx || !scratch || static_cast<long long>(P) * s > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long nb = (s + XM_BLOCK_ROWS - 1) / XM_BLOCK_ROWS;
+  cudaError_t e = cudaMemsetAsync(
+      gidx, 0, static_cast<size_t>(P) * P * cap * sizeof(int), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(nb), static_cast<unsigned>(P));
+  xm_count<<<grid, THREADS, static_cast<size_t>(P) * 4, st>>>(part, s, P,
+                                                              nb, scratch);
+  const long long pairs = static_cast<long long>(P) * P;
+  xm_scan<<<static_cast<unsigned>((pairs + THREADS - 1) / THREADS), THREADS,
+            0, st>>>(scratch, nb, P, counts);
+  xm_rank<<<grid, THREADS, static_cast<size_t>(WARPS + 1) * P * 4, st>>>(
+      part, s, P, nb, cap, scratch, gidx);
   return static_cast<int>(cudaGetLastError());
 }
 

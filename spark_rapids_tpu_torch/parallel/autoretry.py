@@ -1,11 +1,11 @@
 """Host-side SplitAndRetry: grow static capacities until the overflow
 flag clears.
 
-Counterpart of `spark_rapids_tpu/parallel/autoretry.py:30-95`
-(`CapacityOverflowError`, `_grown`, `auto_retry_overflow`), a copy of its
-own: the reference module imports the distributed relational ops, which the
-port does not have yet. Its `distributed_*_auto` wrappers come with the
-distributed tier (ROADMAP queue A item 13).
+Counterpart of `spark_rapids_tpu/parallel/autoretry.py`
+(`CapacityOverflowError`, `_grown`, `auto_retry_overflow` and the
+`distributed_*_auto` wrappers, which retry the distributed ops of
+`relational.py` with grown `key_cap`, `row_cap` or `slack`: the same
+ladder, so the same attempt counts as the reference's).
 
 A capped operator returns an overflow flag instead of a size: too small a
 capacity gives a result that is flagged, never a wrong one that is not.
@@ -75,3 +75,115 @@ def auto_retry_overflow(attempt: Callable[..., Tuple], caps: Dict,
                 caps = grown
     raise CapacityOverflowError(
         f"overflow persisted after {max_attempts} attempts; final caps {caps}")
+
+
+def distributed_groupby_auto(mesh, keys, vals, aggs, key_cap: int,
+                             axis: str = "data", max_attempts: int = 6):
+    """`distributed_groupby`, retried with a doubled key_cap on overflow."""
+    from .relational import distributed_groupby
+    out, _ = auto_retry_overflow(
+        lambda key_cap: distributed_groupby(mesh, keys, vals, aggs,
+                                            key_cap=key_cap, axis=axis),
+        {"key_cap": key_cap}, max_attempts)
+    return out
+
+
+def distributed_groupby_keyed_auto(mesh, key_words, key_specs, vals, aggs,
+                                   key_cap: int, axis: str = "data",
+                                   max_attempts: int = 6):
+    from .relational import distributed_groupby_keyed
+    out, _ = auto_retry_overflow(
+        lambda key_cap: distributed_groupby_keyed(
+            mesh, key_words, key_specs, vals, aggs, key_cap=key_cap,
+            axis=axis),
+        {"key_cap": key_cap}, max_attempts)
+    return out
+
+
+def distributed_inner_join_auto(mesh, lkeys, lvals, rkeys, rvals,
+                                row_cap: int, slack: float = 2.0,
+                                axis: str = "data", max_attempts: int = 6):
+    """`distributed_inner_join` growing both row_cap (join output) and
+    slack (bucket spills) on overflow."""
+    from .relational import distributed_inner_join
+    out, _ = auto_retry_overflow(
+        lambda row_cap, slack: distributed_inner_join(
+            mesh, lkeys, lvals, rkeys, rvals, row_cap=row_cap, slack=slack,
+            axis=axis),
+        {"row_cap": row_cap, "slack": slack}, max_attempts)
+    return out
+
+
+def distributed_inner_join_keyed_auto(mesh, l_words, lvals, r_words, rvals,
+                                      key_specs, row_cap: int,
+                                      slack: float = 2.0, axis: str = "data",
+                                      max_attempts: int = 6):
+    from .relational import distributed_inner_join_keyed
+    out, _ = auto_retry_overflow(
+        lambda row_cap, slack: distributed_inner_join_keyed(
+            mesh, l_words, lvals, r_words, rvals, key_specs,
+            row_cap=row_cap, slack=slack, axis=axis),
+        {"row_cap": row_cap, "slack": slack}, max_attempts)
+    return out
+
+
+def distributed_left_join_auto(mesh, lkeys, lvals, rkeys, rvals,
+                               row_cap: int, slack: float = 2.0,
+                               axis: str = "data", max_attempts: int = 6):
+    from .relational import distributed_left_join
+    out, _ = auto_retry_overflow(
+        lambda row_cap, slack: distributed_left_join(
+            mesh, lkeys, lvals, rkeys, rvals, row_cap=row_cap, slack=slack,
+            axis=axis),
+        {"row_cap": row_cap, "slack": slack}, max_attempts)
+    return out
+
+
+def distributed_left_join_keyed_auto(mesh, l_words, lvals, r_words, rvals,
+                                     key_specs, row_cap: int,
+                                     slack: float = 2.0, axis: str = "data",
+                                     max_attempts: int = 6):
+    from .relational import distributed_left_join_keyed
+    out, _ = auto_retry_overflow(
+        lambda row_cap, slack: distributed_left_join_keyed(
+            mesh, l_words, lvals, r_words, rvals, key_specs,
+            row_cap=row_cap, slack=slack, axis=axis),
+        {"row_cap": row_cap, "slack": slack}, max_attempts)
+    return out
+
+
+def distributed_broadcast_join_auto(mesh, lkeys, lvals, rkeys, rvals,
+                                    row_cap: int, axis: str = "data",
+                                    max_attempts: int = 6):
+    """A broadcast join has no shuffle to spill: only row_cap grows."""
+    from .relational import distributed_broadcast_join
+    out, _ = auto_retry_overflow(
+        lambda row_cap: distributed_broadcast_join(
+            mesh, lkeys, lvals, rkeys, rvals, row_cap=row_cap, axis=axis),
+        {"row_cap": row_cap}, max_attempts)
+    return out
+
+
+def distributed_broadcast_join_keyed_auto(mesh, l_words, lvals, r_words,
+                                          rvals, key_specs, row_cap: int,
+                                          axis: str = "data",
+                                          max_attempts: int = 6):
+    from .relational import distributed_broadcast_join_keyed
+    out, _ = auto_retry_overflow(
+        lambda row_cap: distributed_broadcast_join_keyed(
+            mesh, l_words, lvals, r_words, rvals, key_specs,
+            row_cap=row_cap, axis=axis),
+        {"row_cap": row_cap}, max_attempts)
+    return out
+
+
+def distributed_sort_auto(mesh, keys, vals, slack: float = 2.0,
+                          axis: str = "data", max_attempts: int = 6):
+    """`distributed_sort`, growing slack on overflow (key skew past the
+    sample sort's balance)."""
+    from .relational import distributed_sort
+    out, _ = auto_retry_overflow(
+        lambda slack: distributed_sort(mesh, keys, vals, slack=slack,
+                                       axis=axis),
+        {"slack": slack}, max_attempts)
+    return out

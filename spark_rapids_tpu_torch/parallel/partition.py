@@ -9,7 +9,9 @@ results bit for bit:
 
 `partition_histogram` runs the histogram kernel (`partition_cuda`) on a
 CUDA tensor, for any number of buckets, and its plain version on a CPU
-tensor. The reference builds the ranks and its map without a sort, by a
+tensor; `exchange_map` does the same for the exchange map of P peers on
+one card (the distributed tier's bucketing and all-to-all, `shuffle.
+exchange`). The reference builds the ranks and its map without a sort, by a
 blocked one-hot scan; here both come from the one stable sort of
 `shuffle.sort_by_partition`, which gives the same numbers.
 """
@@ -31,6 +33,19 @@ def partition_histogram(part: torch.Tensor, num_partitions: int
             part.to(torch.int32).contiguous(), num_partitions)
     partition_cuda.PLAIN_CALLS["histogram"] += 1
     return partition_cuda.histogram_plain(part, num_partitions)
+
+
+def exchange_map(part: torch.Tensor, capacity: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gidx (P, P, cap) int32, counts (P, P) int32) for (P, s) partition
+    ids of P source peers: gidx[dst, src, slot] is the global row of the
+    slot-th row of source src bound for dst, for slot < min(counts[src,
+    dst], cap), else 0. On the card the kernel runs or the call raises;
+    on the CPU the plain version runs."""
+    if part.device.type == "cuda":
+        return partition_cuda.exchange_map_cuda(part, capacity)
+    partition_cuda.PLAIN_CALLS["exchange_map"] += 1
+    return partition_cuda.exchange_map_plain(part, capacity)
 
 
 def partition_ranks(part: torch.Tensor, num_partitions: int

@@ -131,9 +131,11 @@ class Rel:
         return Rel(HashJoin(self.node, other.node, lk, rk, how=how))
 
     def aggregate(self, keys: Sequence[str],
-                  aggs: Sequence[Tuple[str, str, str]]) -> "Rel":
+                  aggs: Sequence[Tuple[str, str, str]],
+                  key_cap: Optional[int] = None) -> "Rel":
         return Rel(HashAggregate(self.node, tuple(keys),
-                                 tuple(tuple(a) for a in aggs)))
+                                 tuple(tuple(a) for a in aggs),
+                                 key_cap=key_cap))
 
     def sort(self, keys: Sequence[str],
              ascending: TUnion[bool, Sequence[bool]] = True) -> "Rel":

@@ -136,9 +136,22 @@ binding); `PlanResult.optimizer` holds its report. With
 SPARK_RAPIDS_TORCH_VERIFY_PLANS on, the optimizer re-validates every
 rule's output and `_verify_execution` runs the static verifier
 (`analysis/verifier.py`) on the plan about to run, as the reference's
-gate does. Every node kind runs in both tiers; an `Exchange` returns its
-child, as the reference's does on one device. Placement and the mesh
-lowering wait for later slices.
+gate does. Every node kind runs in both tiers; without a mesh an
+`Exchange` returns its child, as the reference's does on one device.
+Placement waits for ROADMAP queue A item 14.
+
+The distributed tier, as the reference's (`plan/distributed.py`):
+`PlanExecutor(mesh=make_mesh(P, devices=[...] * P))` runs an eager plan
+over the mesh's P peers, which share the executor's device (a mesh on
+another device raises). The optimizer's exchange_planning rule places
+the Exchange(hash | broadcast | gather) boundaries for the mesh width and
+the broadcast thresholds, the verifier's partitioning layer checks them
+(`planned=True`), the certifier sizes each exchange edge for P peers,
+and `DistContext` runs every node with a distributed form over sharded
+relations, gathering at the sink. Source-bound scans are read once,
+pruned, under a mesh (no streaming prefix). A capped executor with a mesh
+rejects a plan with a distributed-lowerable operator, naming it
+(`_check_capped_mesh`).
 
 The streaming scan, as the reference's (`_stream_chains`,
 `_exec_stream_chain`): a Scan bound to a Parquet source (`io.ParquetSource`,
@@ -383,11 +396,23 @@ class PlanExecutor:
                  op_retries: int = 2,
                  session=None,
                  health=None,
-                 degrade: Optional[str] = None):
+                 degrade: Optional[str] = None,
+                 mesh=None, mesh_axis: str = "data"):
         if mode not in ("eager", "capped"):
             raise ValueError(f"unknown executor mode {mode!r}")
         self.mode = mode
         self.device = _device.resolve(device)
+        # a capped executor with a mesh is checked per plan in execute():
+        # only a plan with a distributed-lowerable operator is rejected
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None and hasattr(mesh, "device"):
+            from ..parallel.shuffle import _normal
+            if _normal(mesh.device) != _normal(self.device):
+                raise ValueError(
+                    f"the mesh's peers are on {mesh.device} but the "
+                    f"executor runs on {self.device}: they must share one "
+                    "device")
         self.op_retries = op_retries
         self.session = session
         if health is None:
@@ -420,6 +445,9 @@ class PlanExecutor:
         # plan fingerprint -> the caps its last run ended with, so the next
         # run of an equal plan starts from the grown caps
         self._caps_memo: Dict[str, Dict[str, int]] = LruDict(_CAPS_MEMO_SIZE)
+        # the distributed tier's grown caps: (fingerprint, node index,
+        # primitive) -> caps
+        self._dist_caps_memo: Dict[Tuple, Dict] = LruDict(_CAPS_MEMO_SIZE)
         # the pre-execution gate's passed verdicts (`_verify_execution`)
         self._verify_cache: Dict[Tuple, bool] = LruDict(_OPT_CACHE_SIZE)
         # one memory pool and one capture stream for all of this
@@ -432,6 +460,7 @@ class PlanExecutor:
         """Run `plan` over `inputs` ({scan source: Table or
         `io.ParquetSource`}); a scan built with `parquet=` needs no
         entry."""
+        self._check_capped_mesh(plan)
         inputs = bind_scan_sources(plan, inputs)
         missing = [s for s in plan.input_names if s not in inputs]
         if missing:
@@ -484,6 +513,28 @@ class PlanExecutor:
                 source_fp=source_fp)
         return res
 
+    def _mesh_peers(self) -> Optional[int]:
+        """The mesh width the optimizer and the certifier plan for: the
+        eager tier's mesh, else None."""
+        if self.mesh is None or self.mode != "eager":
+            return None
+        return self.mesh.shape[self.mesh_axis]
+
+    def _check_capped_mesh(self, plan: Plan) -> None:
+        """mode="capped" with a mesh: reject only a plan with a
+        distributed-lowerable operator (the capped tier would run it on one
+        device), naming it."""
+        if self.mesh is None or self.mode == "eager":
+            return
+        for n in plan.nodes:
+            if isinstance(n, (Exchange, HashJoin, HashAggregate, Sort,
+                              TopK, Union)):
+                raise PlanValidationError(
+                    f"{n.label}: distributed lowering (mesh=) exists only "
+                    "in the eager tier; a capped executor would silently "
+                    f"run this {n.kind} on one chip — drop the mesh or use "
+                    "mode=\"eager\"")
+
     def _certify(self, plan: Plan, inputs, bound):
         """The resource certificate of the plan about to run, once per
         (plan, binding). None where the certifier fails: sizing never fails
@@ -492,17 +543,20 @@ class PlanExecutor:
         try:
             input_dtypes, input_nullable = footprint.table_metadata(inputs)
             bound_rows = {n: t.num_rows for n, t in inputs.items()}
+            n_peers = self._mesh_peers() or 1
             key = (plan.root, tuple(sorted(bound.items())),
                    tuple(sorted(bound_rows.items())),
                    tuple((n, tuple((cn, repr(dt)) for cn, dt in cols.items()))
                          for n, cols in sorted(input_dtypes.items())),
                    tuple((n, tuple(sorted(cols.items())))
-                         for n, cols in sorted(input_nullable.items())))
+                         for n, cols in sorted(input_nullable.items())),
+                   n_peers)
             hit = self._cert_cache.get(key)
             if hit is None:
                 hit = footprint.certify(
                     plan, bound=bound, bound_rows=bound_rows,
-                    input_dtypes=input_dtypes, input_nullable=input_nullable)
+                    input_dtypes=input_dtypes, input_nullable=input_nullable,
+                    n_peers=n_peers)
                 self._cert_cache[key] = hit
             return hit
         except Exception:
@@ -538,16 +592,18 @@ class PlanExecutor:
         from ..analysis import verifier
         input_dtypes = _input_dtypes(inputs)
         floats = _input_has_floats(inputs)
+        # partitioning soundness checks when exchange_planning placed the
+        # distributed boundaries (a meshed eager executor, P > 1)
+        planned = (report is not None and not report.fell_back
+                   and (self._mesh_peers() or 1) > 1)
         key = (authored.root, plan.root, tuple(sorted(bound.items())),
                tuple((n, tuple(repr(d) for d in cols.values()))
                      for n, cols in sorted(input_dtypes.items())),
-               floats,
+               floats, planned,
                None if report is None else (report.fingerprint,
                                             report.fell_back))
         if self._verify_cache.get(key):
             return
-        # no executor of the port plans exchanges before ROADMAP queue A
-        # item 13, so the partitioning layer (`planned=True`) is not run
         if report is None and plan is authored:
             rep = verifier.verify(plan, bound=bound,
                                   input_dtypes=input_dtypes,
@@ -555,7 +611,8 @@ class PlanExecutor:
         else:
             rep = verifier.verify_rewrite(authored, plan, bound=bound,
                                           input_dtypes=input_dtypes,
-                                          float_inputs=floats, report=report)
+                                          float_inputs=floats,
+                                          planned=planned, report=report)
         rep.raise_if_failed("pre-execution gate")
         self._verify_cache[key] = True
 
@@ -585,9 +642,13 @@ class PlanExecutor:
         store = stats_mod.active_store()
         stats_gen = None if store is None else (store.uid,
                                                 store.rows_generation)
+        # exchange_planning runs for a meshed eager executor only, and its
+        # placements depend on the mesh width and the broadcast threshold
+        mesh_peers = self._mesh_peers()
+        bc_rows = config.broadcast_rows() if mesh_peers else None
         key = (plan.root, tuple(sorted(bound.items())),
                tuple(sorted(rows.items())), floats, verify_rules, dtype_sig,
-               stats_gen, streaming)
+               stats_gen, streaming, mesh_peers, bc_rows)
         hit = self._opt_cache.get(key)
         if hit is None:
             backend = self.device.type
@@ -596,33 +657,66 @@ class PlanExecutor:
                                         verify_rules=verify_rules,
                                         stats=store, backend=backend,
                                         input_dtypes=input_dtypes,
-                                        streaming_sources=streaming)
+                                        streaming_sources=streaming,
+                                        mesh_peers=mesh_peers)
             if (store is not None and not verify_rules
                     and opt is not plan and not report.fell_back
                     and report.stats_driven()):
                 from ..analysis import verifier
                 rep = verifier.verify_rewrite(
                     plan, opt, bound=bound, input_dtypes=input_dtypes,
-                    float_inputs=floats, report=report)
+                    float_inputs=floats, report=report,
+                    planned=bool(mesh_peers and mesh_peers > 1))
                 if not rep.ok:
                     opt, report = run_optimizer(
                         plan, bound, rows, float_inputs=floats,
                         verify_rules=verify_rules,
                         input_dtypes=input_dtypes,
-                        streaming_sources=streaming)
+                        streaming_sources=streaming,
+                        mesh_peers=mesh_peers)
                     report.stats_reverted = True
             hit = (opt, opt.resolve_schemas(bound), report)
             self._opt_cache[key] = hit
         return hit
 
-    def explain(self, plan: Plan, optimized: bool = False) -> str:
+    def explain(self, plan: Plan, optimized: bool = False,
+                inputs: Optional[Dict[str, Table]] = None) -> str:
         """The authored tree; with `optimized=True`, the authored and the
         rewritten trees and the per-rule summary, from declared schemas
-        and `est_rows` hints (no binding)."""
+        and `est_rows` hints, or, given `inputs`, the exact rewrite
+        execute() runs for that binding, its certificate and, with a
+        mesh, the transport line."""
         if not optimized:
             return plan.explain()
-        from .optimizer import explain_optimized
-        return explain_optimized(plan)
+        if inputs is None:
+            from .optimizer import explain_optimized
+            return explain_optimized(plan)
+        if not self.optimize:
+            return (plan.explain() + "\n\noptimizer: disabled for this "
+                    "executor (optimize=False / SPARK_RAPIDS_TORCH_OPTIMIZER"
+                    "=off) — the authored plan executes verbatim")
+        inputs = bind_scan_sources(plan, inputs)
+        bound = {name: tuple(t.names) for name, t in inputs.items()}
+        plan.resolve_schemas(bound)
+        opt, _, report = self._optimized(plan, inputs, bound)
+        cert = self._certify(opt, inputs, bound)
+        cert_block = [cert.render()] if cert is not None else []
+        transport_block = ([self._transport_summary()]
+                           if self._mesh_peers() else [])
+        return "\n".join(["== authored ==", plan.explain(), "",
+                          "== optimized ==", opt.explain(), "",
+                          report.summary(), *cert_block, *transport_block])
+
+    @staticmethod
+    def _transport_summary() -> str:
+        """The exchange-transport line of a meshed explain(optimized=True):
+        what the plan's exchanges would move under the current knobs."""
+        pack = config.exchange_pack()
+        codecs = ",".join(sorted(config.exchange_codecs())) if pack else ""
+        return ("transport: pack=" + ("on" if pack else "off")
+                + f" codecs={codecs or 'none'}"
+                + " async=" + ("on" if config.exchange_async() else "off")
+                + " (wire vs logical bytes per edge on profile())")
 
     def _sync(self) -> None:
         if self.block_per_op and self.device.type == "cuda":
@@ -679,11 +773,20 @@ class PlanExecutor:
             return self._execute_degraded(plan, inputs, schemas, results,
                                           metrics, start=0, t_plan0=t_plan0,
                                           mode="eager")
+        # the distributed tier (plan/distributed.py): with a mesh, nodes
+        # run over sharded relations and gather at the sink, or at the
+        # first operator with no distributed form; source-bound scans are
+        # read once, pruned, instead of streamed
+        dist = None
+        if self.mesh is not None:
+            from .distributed import DistContext
+            dist = DistContext(self, plan, inputs)
         # streamable prefixes over source-bound scans run a chunk at a
         # time (chunk N+1 decodes on the host while chunk N runs); their
         # interior nodes never materialize a whole relation, only the
         # chain's tail does
-        chains = self._stream_chains(plan, inputs)
+        chains = {} if dist is not None else self._stream_chains(plan,
+                                                                  inputs)
         chain_interior = {id(n) for ch in chains.values() for n in ch[:-1]}
         node_index = {id(n): i for i, n in enumerate(plan.nodes)}
         try:
@@ -718,9 +821,14 @@ class PlanExecutor:
                     try:
                         with tracing.range_ctx(f"plan.{node.label}"):
                             self._faultinj_points((node,))
-                            out = self._exec_eager_node(node, childs, inputs,
-                                                        schemas, m)
-                            self._sync()
+                            if dist is not None:
+                                out = dist.exec_node(node, childs, inputs,
+                                                     schemas, m, metrics)
+                            else:
+                                out = self._exec_eager_node(
+                                    node, childs, inputs, schemas, m)
+                            if not getattr(out, "pending", False):
+                                self._sync()
                         break
                     except _fault_surface() as err:
                         if self._handle_fault(err, node.label, attempt, m):
@@ -736,11 +844,14 @@ class PlanExecutor:
                     # retried to success: the fault was transient, and must
                     # not count toward a later sticky trip
                     self.health.record_success(node.label)
-                # compute of every attempt, not the backoff between them
-                m.wall_ms = (time.perf_counter() - t0) * 1e3 - m.backoff_ms
                 m.rows_in = sum(t.num_rows for t in childs)
-                m.rows_out = out.num_rows
-                m.bytes_out = out.nbytes()
+                if not getattr(out, "pending", False):
+                    # compute of every attempt, not the backoff between
+                    # them; an exchange in flight stamps its own at resolve
+                    m.wall_ms = ((time.perf_counter() - t0) * 1e3
+                                 - m.backoff_ms)
+                    m.rows_out = out.num_rows
+                    m.bytes_out = out.nbytes()
                 metrics[node.label] = m
                 results[id(node)] = out
         except BaseException as err:
@@ -752,8 +863,13 @@ class PlanExecutor:
                 except Exception:
                     pass
             raise
+        root_out = results[id(plan.root)]
+        if not isinstance(root_out, Table):
+            # the sink gather of a distributed plan, where the optimizer
+            # placed no Exchange(gather) at the root
+            root_out = root_out.to_local_table()
         wall = (time.perf_counter() - t_plan0) * 1e3
-        return PlanResult(plan, results[id(plan.root)], metrics, wall,
+        return PlanResult(plan, root_out, metrics, wall,
                           self.device,
                           retries=sum(mm.retries for mm in metrics.values()),
                           breaker=self._breaker_snapshot(),
@@ -781,7 +897,9 @@ class PlanExecutor:
         self.health.note_degraded_plan()
         with faultinj.suppressed():
             try:
-                cpu_results = {k: t.to(cpu) for k, t in results.items()}
+                cpu_results = {k: (t if isinstance(t, Table)
+                                   else t.to_local_table()).to(cpu)
+                               for k, t in results.items()}
                 cpu_inputs = _inputs_to(inputs, cpu)
             except Exception:
                 # the card's buffers are lost: restart from the inputs,

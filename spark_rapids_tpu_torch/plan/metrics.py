@@ -19,8 +19,15 @@ to a Parquet source carries the reference's IO counters: row groups in
 the file and pruned by footer statistics, compressed bytes never decoded,
 the host decode time and its overlap with execution; the port adds the
 host-to-device copy time (`io_h2d_ms`, CUDA events on the copy stream;
-0.0 on the CPU). The distributed and placement counters wait for their
-tiers.
+0.0 on the CPU). The distributed tier's counters are the reference's:
+`sharding` (the output's distribution: "rows@P", "hash[k]@P",
+"replicated@P" or "local"), `n_peers`, `exchange_how` (hash, broadcast,
+gather, or "range" for the sample sort's exchange), `exchange_bytes` (the
+wire form, live payload only, each edge once, a broadcast x (P - 1)),
+`exchange_bytes_logical` (the unpacked payload), `exchange_codecs` and
+`exchange_overlap_ms` (an async exchange's transfer time that ran beside
+other plan work); the profile renders them on a `dist:` line. The
+placement counters wait for ROADMAP queue A item 14.
 
 The executor also opens a `utils.tracing.range_ctx("plan.<label>")`
 around every eager operator (and `plan.capped.attempt` around every
@@ -55,9 +62,21 @@ class OperatorMetrics:
     io_decode_ms: float = 0.0      # host decode, summed over chunks
     io_overlap_ms: float = 0.0     # decode concurrent with execution
     io_h2d_ms: float = 0.0         # host-to-device copies, on the card
+    # the distributed tier (plan/distributed.py)
+    sharding: str = ""
+    exchange_how: str = ""
+    exchange_bytes: int = 0            # bytes on the wire (packed form)
+    exchange_bytes_logical: int = 0    # unpacked payload bytes
+    exchange_codecs: str = ""
+    exchange_overlap_ms: float = 0.0
+    n_peers: int = 0               # mesh size the operator ran over
 
     def to_dict(self) -> Dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        # both byte counts under explicit names: `exchange_bytes` is the
+        # wire form
+        d["exchange_bytes_wire"] = self.exchange_bytes
+        return d
 
 
 def render_profile(rows: List[OperatorMetrics],
@@ -129,4 +148,20 @@ def render_profile(rows: List[OperatorMetrics],
                        f"decode {m.io_decode_ms:.3f} ms, "
                        f"h2d {m.io_h2d_ms:.3f} ms, "
                        f"overlap {m.io_overlap_ms:.3f} ms")
+        if m.sharding or m.exchange_how:
+            parts = []
+            if m.sharding:
+                parts.append(f"sharding {m.sharding}")
+            if m.exchange_how:
+                ex = (f"exchange {m.exchange_how} "
+                      f"{m.exchange_bytes} B moved")
+                if m.exchange_bytes_logical and \
+                        m.exchange_bytes_logical != m.exchange_bytes:
+                    ex += f" ({m.exchange_bytes_logical} B logical)"
+                parts.append(ex)
+            if m.exchange_codecs:
+                parts.append(f"codecs {m.exchange_codecs}")
+            if m.exchange_overlap_ms:
+                parts.append(f"overlap {m.exchange_overlap_ms:.3f} ms")
+            out.append(f"  dist: {', '.join(parts)}")
     return "\n".join(out)

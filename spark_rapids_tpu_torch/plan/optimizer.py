@@ -37,8 +37,10 @@ rewrite (`verify_rewrite`) or reruns the static pipeline
 (`stats_reverted`). `scan_pruning` lowers the provable conjuncts of a
 Filter over a Scan bound to a Parquet source into `Scan.predicate` (the
 scans in `streaming_sources`, or those carrying their own source).
-`exchange_planning` and `placement` wait for ROADMAP queue A items 13
-and 14; `RULE_NAMES` lists them all and the unported ones count 0. A rewrite that fails re-validation falls
+`exchange_planning` runs once after the fixpoint for a meshed eager
+executor (`mesh_peers`, `_plan_exchanges`: the distributed tier's
+Exchange boundaries); `placement` waits for ROADMAP queue A item 14;
+`RULE_NAMES` lists them all and the unported one counts 0. A rewrite that fails re-validation falls
 back to the authored plan with `fell_back=True` and the culprit rule
 named.
 """
@@ -62,6 +64,9 @@ __all__ = ["optimize", "explain_optimized", "plan_fingerprint",
 
 MAX_PASSES = 10           # fixpoint guard: rewrite passes, not rewrites
 _EST_BYTES_PER_CELL = 8   # the reference's INT64-tier column width
+# a build side whose certified bytes (analysis/footprint.py) exceed this
+# never broadcasts, whatever its row estimate
+BROADCAST_BYTES = 64 << 20
 
 
 # ---- fingerprint ------------------------------------------------------------
@@ -186,8 +191,8 @@ def _statically_distributable(n: PlanNode, float_inputs: bool) -> bool:
     """Whether a node kind can run on a mesh: Limit and keyless aggregates
     have no distributed form, and `mean` or any float input rule out an
     aggregate (the exchange accumulates partials in exact int64). The
-    verifier's partitioning layer reads it; the exchange planner that
-    shares it comes with ROADMAP queue A item 13."""
+    exchange planner (`_plan_exchanges`) and the verifier's partitioning
+    layer share it."""
     if isinstance(n, Limit):
         return False
     if isinstance(n, HashAggregate):
@@ -237,13 +242,21 @@ class OptimizeReport:
 
     def stats_driven(self) -> bool:
         """Whether an observed-sourced decision changed the plan: a
-        build-side `swap` stamped from observed rows. A `keep
-        (observed:N)` confirms the static outcome and is not a rewrite.
-        (The reference also counts observed exchange and placement
-        decisions, rules the port does not run.)"""
-        return any("observed" in v and key.endswith("/build_side")
-                   and v.startswith("swap")
-                   for key, v in self.decision_sources.items())
+        build-side `swap` stamped from observed rows, or any observed
+        exchange-mode pick (counted either way, as the reference counts
+        it: telling an observed pick from the same static one would need
+        a second estimate per join). A `keep (observed:N)` build side
+        confirms the static outcome and is not a rewrite. (The reference
+        also counts observed placement decisions, a rule the port does
+        not run.)"""
+        for key, v in self.decision_sources.items():
+            if "observed" not in v:
+                continue
+            if key.endswith("/exchange"):
+                return True
+            if key.endswith("/build_side") and v.startswith("swap"):
+                return True
+        return False
 
     def to_dict(self) -> Dict:
         return {"rules_fired": self.rules_fired(), "passes": self.passes,
@@ -503,16 +516,24 @@ class _Ctx:
         self.report = report
         self.float_inputs = float_inputs
 
-    def cert_rows_hi(self, node: PlanNode) -> Optional[int]:
-        """The certifier's `rows_hi` of `node` over this pass's root
+    def _cert_bound(self, node: PlanNode):
+        """The certifier's bounds of `node` over this pass's root
         (analysis/footprint.py), walked at the first consult."""
         if self._cert is None:
             from ..analysis.footprint import certify_nodes
             self._cert = certify_nodes(
                 _toposort(self.root), bound=self.bound,
                 bound_rows=self.bound_rows, input_dtypes=self.input_dtypes)
-        b = self._cert.get(id(node))
+        return self._cert.get(id(node))
+
+    def cert_rows_hi(self, node: PlanNode) -> Optional[int]:
+        b = self._cert_bound(node)
         return None if b is None else b.rows_hi
+
+    def cert_out_bytes_hi(self, node: PlanNode) -> Optional[int]:
+        """The exchange rule's broadcast byte proof."""
+        b = self._cert_bound(node)
+        return None if b is None else b.out_bytes_hi
 
 
 # ---- rules ------------------------------------------------------------------
@@ -936,9 +957,140 @@ def _fall_back(plan: Plan, report: OptimizeReport):
     return plan, report
 
 
+# ---- exchange planning (the distributed tier) ----------------------------------
+
+def _plan_exchanges(root: PlanNode, ctx: "_Ctx", n_peers: int):
+    """After the fixpoint, for a meshed eager executor: walk the DAG
+    bottom-up tracking each node's hash-partitioning claim
+    (`plan.distributed.transfer_part`, the rule the runtime relations
+    follow) and place the Exchange boundaries the mesh needs:
+
+    - each shuffle-join side gets Exchange(hash, its keys) unless it is
+      already partitioned by exactly that tuple (elided);
+    - a join whose build side's estimate is at most
+      `config.broadcast_rows()` (and no larger than the probe side), and
+      whose certified bytes fit `BROADCAST_BYTES`, gets
+      Exchange(broadcast) on its build side instead;
+    - a keyed HashAggregate gets Exchange(hash, group keys) below it (the
+      executor fuses the pair) unless its input already co-locates every
+      group (a subset of the keys suffices): elided;
+    - sharded relations flowing into an operator with no distributed form,
+      and the root, get Exchange(gather).
+
+    Returns (new root, insertions); fills report.exchanges,
+    exchanges_elided and sharding."""
+    from .. import config
+    from .distributed import part_satisfies, transfer_part
+    report = ctx.report
+    nodes = _toposort(root)
+    if any(ctx.schemas.of(n) is None for n in nodes):
+        return root, 0
+    thresh = config.broadcast_rows()
+    stats = {"hash": 0, "broadcast": 0, "gather": 0}
+    elided = [0]
+    sharded: Dict[int, bool] = {}
+    part: Dict[int, frozenset] = {}
+    memo: Dict[int, PlanNode] = {}
+    gathers: Dict[int, PlanNode] = {}   # one gather per shared child
+
+    def add_exchange(child: PlanNode, keys, how: str) -> PlanNode:
+        if how == "gather" and id(child) in gathers:
+            return gathers[id(child)]
+        stats[how] += 1
+        ex = Exchange(child, tuple(keys), how=how)
+        part[id(ex)] = transfer_part(ex, [part[id(child)]])
+        sharded[id(ex)] = how != "gather"
+        if how == "gather":
+            gathers[id(child)] = ex
+        return ex
+
+    def go(n: PlanNode) -> PlanNode:
+        got = memo.get(id(n))
+        if got is not None:
+            return got
+        kids = [go(c) for c in n.children]
+        on_mesh = _statically_distributable(n, ctx.float_inputs) and (
+            isinstance(n, Scan) or (bool(kids)
+                                    and all(sharded[id(k)] for k in kids)))
+        if not on_mesh:
+            # the graceful boundary: sharded children collect here
+            kids = [add_exchange(k, (), "gather") if sharded[id(k)] else k
+                    for k in kids]
+        elif isinstance(n, HashJoin):
+            l_new, r_new = kids
+            le = ctx.est.of(n.left)
+            re_ = ctx.est.of(n.right)
+            row_ok = (re_ is not None and re_ <= thresh
+                      and (le is None or re_ <= le))
+            # broadcast legality is a proven byte bound; the row estimate
+            # stays the cost rule
+            bytes_hi = ctx.cert_out_bytes_hi(n.right)
+            byte_ok = bytes_hi is None or bytes_hi <= BROADCAST_BYTES
+            broadcast = row_ok and byte_ok
+            note = ("" if bytes_hi is None else
+                    f"; certified:{bytes_hi}B"
+                    f"{'<=' if byte_ok else '>'}{BROADCAST_BYTES}B")
+            report.decision_sources[f"{n.label}/exchange"] = (
+                f"{'broadcast' if broadcast else 'shuffle'} "
+                f"({ctx.est.source_of(n.left, n.right)}{note})")
+            if broadcast:
+                r_new = add_exchange(r_new, (), "broadcast")
+            else:
+                if tuple(n.left_keys) in part[id(l_new)]:
+                    elided[0] += 1
+                else:
+                    l_new = add_exchange(l_new, n.left_keys, "hash")
+                if tuple(n.right_keys) in part[id(r_new)]:
+                    elided[0] += 1
+                else:
+                    r_new = add_exchange(r_new, n.right_keys, "hash")
+            kids = [l_new, r_new]
+        elif isinstance(n, HashAggregate):
+            (c_new,) = kids
+            if isinstance(c_new, Exchange) and c_new.how == "hash":
+                pass                    # an authored boundary: kept
+            elif part_satisfies(part[id(c_new)], n.keys):
+                elided[0] += 1          # the input co-locates the groups
+            else:
+                kids = [add_exchange(c_new, n.keys, "hash")]
+        node2 = (_with_children(n, tuple(kids))
+                 if any(k is not c for k, c in zip(kids, n.children)) else n)
+        sharded[id(node2)] = on_mesh
+        part[id(node2)] = (transfer_part(
+            node2, [part[id(k)] for k in node2.children])
+            if on_mesh else frozenset())
+        memo[id(n)] = node2
+        return node2
+
+    new_root = go(root)
+    if sharded[id(new_root)]:
+        new_root = add_exchange(new_root, (), "gather")   # the sink
+
+    for node in _toposort(new_root):
+        if isinstance(node, Exchange) and node.how != "identity":
+            if node.how == "gather":
+                spec = "local (gather)"
+            elif node.how == "broadcast":
+                spec = f"replicated@{n_peers}"
+            else:
+                spec = f"hash[{','.join(node.keys)}]@{n_peers}"
+        elif not sharded.get(id(node), False):
+            spec = "local"
+        elif part.get(id(node)):
+            keys = min(part[id(node)])
+            spec = f"hash[{','.join(keys)}]@{n_peers}"
+        else:
+            spec = f"rows@{n_peers}"
+        report.sharding[node.label] = spec
+    report.exchanges = stats
+    report.exchanges_elided = elided[0]
+    return new_root, sum(stats.values())
+
+
 def _attribute_fallback(plan: Plan, bound, bound_rows, float_inputs,
                         err: PlanValidationError, stats=None, backend=None,
-                        input_dtypes=None, streaming=frozenset()) -> Dict:
+                        input_dtypes=None, streaming=frozenset(),
+                        mesh_peers: Optional[int] = None) -> Dict:
     """Re-run the pipeline from the authored root, re-validating after
     every rule that rewrites, to name the rule that produced the invalid
     DAG, with the estimates the failing pipeline read. Runs only on the
@@ -962,13 +1114,22 @@ def _attribute_fallback(plan: Plan, bound, bound_rows, float_inputs,
             pass_hits += n
         if not pass_hits:
             break
+    if mesh_peers is not None and mesh_peers > 1:
+        ctx = _Ctx(root, bound, bound_rows, scratch, float_inputs,
+                   stats, backend, input_dtypes, streaming)
+        try:
+            new_root, _ = _plan_exchanges(root, ctx, mesh_peers)
+        except PlanValidationError as bad:
+            return _diagnose("exchange_planning", bad)
+        bad = _plan_error(new_root, bound)
+        if bad is not None:
+            return _diagnose("exchange_planning", bad)
     return _diagnose("unknown", err)
 
 
 # ---- pipeline ---------------------------------------------------------------
 
 _NOT_PORTED_ARGS = {
-    "mesh_peers": "exchange_planning (ROADMAP queue A item 13)",
     "placement": "placement (ROADMAP queue A item 14)",
 }
 
@@ -983,6 +1144,7 @@ def optimize(plan: Plan,
              backend: Optional[str] = None,
              input_dtypes: Optional[Dict[str, Dict]] = None,
              streaming_sources=frozenset(),
+             mesh_peers: Optional[int] = None,
              **not_ported) -> Tuple[Plan, OptimizeReport]:
     """Run the rule pipeline to fixpoint over `plan`. `bound` maps scan
     source -> actual column names and `bound_rows` -> actual row counts
@@ -998,8 +1160,12 @@ def optimize(plan: Plan,
     {column: DType}) gives the certifier its dtypes (its row bounds need
     none). `streaming_sources` names the scans bound to streaming
     (Parquet) sources this execution: the scan_pruning rule fires only for
-    those and for scans that carry their own source. The reference's other
-    arguments raise, naming the ROADMAP item that ports them.
+    those and for scans that carry their own source. `mesh_peers` (a
+    meshed eager executor passes its mesh width) runs the
+    `exchange_planning` rule once after the fixpoint (`_plan_exchanges`),
+    after so that the logical rules never move through the physical
+    boundaries. The reference's other arguments raise, naming the
+    ROADMAP item that ports them.
     Returns the optimized Plan (the same object when nothing fired) and
     the report."""
     for arg in not_ported:
@@ -1030,13 +1196,24 @@ def optimize(plan: Plan,
             report.passes = p + 1
             if not pass_hits:
                 break
+        if mesh_peers is not None and mesh_peers > 1:
+            ctx = _Ctx(root, bound, bound_rows, report, float_inputs,
+                       stats, backend, input_dtypes, streaming)
+            new_root, n = _plan_exchanges(root, ctx, mesh_peers)
+            if verify_rules and new_root is not root:
+                bad = _plan_error(new_root, bound)
+                if bad is not None:
+                    report.fallback = _diagnose("exchange_planning", bad)
+                    return _fall_back(plan, report)
+            root = new_root
+            report.rules["exchange_planning"] += n
     except PlanValidationError as err:
         # an invalid rewrite can detonate inside a later rule's schema
         # resolution: that too falls back, naming the culprit
         report.fallback = _attribute_fallback(plan, bound, bound_rows,
                                               float_inputs, err, stats,
                                               backend, input_dtypes,
-                                              streaming)
+                                              streaming, mesh_peers)
         return _fall_back(plan, report)
     if root is plan.root:
         report.fingerprint = report.source_fingerprint
@@ -1049,7 +1226,7 @@ def optimize(plan: Plan,
         report.fallback = _attribute_fallback(plan, bound, bound_rows,
                                               float_inputs, err, stats,
                                               backend, input_dtypes,
-                                              streaming)
+                                              streaming, mesh_peers)
         return _fall_back(plan, report)
     report.fingerprint = opt.fingerprint
     return opt, report

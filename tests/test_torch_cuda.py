@@ -230,8 +230,48 @@ def test_histogram_kernel_equals_plain_version(P):
     assert torch.equal(got.cpu(), torch.from_numpy(
         np.bincount(part[(part >= 0) & (part < P)], minlength=P)
         .astype(np.int32)))
-    assert partition_cuda.LAUNCHES == {"histogram": 1}
-    assert partition_cuda.PLAIN_CALLS == {"histogram": 0}
+    assert partition_cuda.LAUNCHES == {"histogram": 1, "exchange_map": 0}
+    assert partition_cuda.PLAIN_CALLS == {"histogram": 0, "exchange_map": 0}
+
+
+# P = 1365 is the kernel's most (its shared-memory counters); shards off
+# and on its 8,192-row blocks and 256-row rounds; caps that overflow
+@pytest.mark.parametrize("P,s,cap", [(1, 100_003, 200_000), (2, 1, 1),
+                                     (8, 8191, 700), (8, 8193, 100),
+                                     (8, 1_250_000, 40_000),
+                                     (64, 33, 2), (1365, 33, 1)])
+def test_exchange_map_kernel_equals_plain_version(P, s, cap):
+    _need_card()
+    rng = np.random.default_rng(P + s)
+    ids = ((rng.zipf(1.4, (P, s)) - 1) % (P + 1) - (s % 2)).astype(np.int32)
+    part = torch.from_numpy(ids)
+    want = partition_cuda.exchange_map_plain(part, cap)
+    partition_cuda.reset_counters()
+    got = parallel.exchange_map(part.cuda(), cap)
+    assert partition_cuda.LAUNCHES["exchange_map"] == 1
+    assert partition_cuda.PLAIN_CALLS["exchange_map"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    with pytest.raises(Exception, match="at most 1365 peers"):
+        parallel.exchange_map(torch.zeros((1366, 1), dtype=torch.int32,
+                                          device="cuda"), 1)
+
+
+def test_meshed_plan_on_the_card_uses_the_exchange_kernels():
+    """TPC-DS q3 on 4 logical peers of the card equals the single-device
+    run, through the exchange-map and row-hash kernels, no plain run."""
+    _need_card()
+    t = nds_q3.q3_tpcds_inputs(50_000, device="cuda")
+    want = PlanExecutor().execute(nds_q3.q3_tpcds_plan(), t)
+    mesh = parallel.make_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    partition_cuda.reset_counters()
+    hash_cuda.reset_counters()
+    got = PlanExecutor(mesh=mesh).execute(nds_q3.q3_tpcds_plan(), t)
+    assert got.table.to_pydict() == want.table.to_pydict()
+    assert partition_cuda.LAUNCHES["exchange_map"] > 0
+    assert hash_cuda.LAUNCHES["murmur"] > 0
+    assert partition_cuda.PLAIN_CALLS["exchange_map"] == 0
+    assert hash_cuda.PLAIN_CALLS["murmur"] == 0
 
 
 def _bits(t):

@@ -413,8 +413,9 @@ def test_fingerprint_is_literal_sensitive():
 
 
 def test_unported_arguments_name_their_item():
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        topt.optimize(_small_plan(T), mesh_peers=4)
+    # mesh_peers is ported (queue A item 13): exchange_planning runs
+    _, rep = topt.optimize(_small_plan(T), mesh_peers=4)
+    assert rep.rules["exchange_planning"] > 0 and rep.sharding
     with pytest.raises(NotImplementedError, match="queue A item 14"):
         topt.optimize(_small_plan(T), placement=True)
     # the stats store and the certifier's dtypes are ported (queue A

@@ -167,8 +167,8 @@ def test_histogram_counters_and_the_kernel_refuses_cpu_tensors():
     parallel.partition_histogram(part, 8)
     parallel.partition_histogram(part, 300)
     # on the CPU the plain version runs, counted; the kernel runs on the card
-    assert partition_cuda.PLAIN_CALLS == {"histogram": 2}
-    assert partition_cuda.LAUNCHES == {"histogram": 0}
+    assert partition_cuda.PLAIN_CALLS == {"histogram": 2, "exchange_map": 0}
+    assert partition_cuda.LAUNCHES == {"histogram": 0, "exchange_map": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         partition_cuda.histogram_cuda(part, 8)
     with pytest.raises(ValueError, match="buckets"):

@@ -293,6 +293,16 @@ def test_port_imports_neither_jax_nor_the_reference():
         "sp = (PlanBuilder().scan('f', parquet=fx).filter(col('k') > 2)\n"
         "      .aggregate(['k'], [('k', 'count', 'c')]).build())\n"
         "assert PlanExecutor(device='cpu').execute(sp).table.num_rows == 4\n"
+        "from spark_rapids_tpu_torch.parallel import (autoretry, keys,\n"
+        "    relational)\n"
+        "from spark_rapids_tpu_torch.plan import distributed, transport\n"
+        "from spark_rapids_tpu_torch.entry import dryrun_multichip\n"
+        "dryrun_multichip(2, device='cpu')\n"
+        "m = parallel.make_mesh(2, devices=['cpu'] * 2)\n"
+        "d = PlanExecutor(device='cpu', mesh=m).execute(\n"
+        "    nds_q3.q3_tpcds_plan(), t)\n"
+        "assert d.table.to_pydict() == r.table.to_pydict()\n"
+        "assert any(mm.n_peers == 2 for mm in d.metrics.values())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m.split('.')[0] == 'spark_rapids_tpu')\n"
